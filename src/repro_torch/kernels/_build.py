@@ -1,0 +1,142 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface, loaded through ``ctypes`` (no
+PyTorch headers, so a build takes seconds).  Libraries build at first use
+into ``build/kernels/<hash>/`` at the root of the checkout, keyed on a hash
+of the sources and flags; :func:`build_all` starts one ``nvcc`` per source,
+all together, so ``python3 chip_smoke.py`` builds everything itself.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+:func:`launch` raises on anything but 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_ROOT = Path(__file__).resolve().parents[3]
+BUILD_DIR = _ROOT / "build" / "kernels"
+SOURCES = ("conv1d", "matmul", "banded_align", "fused_stream")
+SMEM_LIMIT = 232_448    # bytes of shared memory an H100 block may use
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+# ptxas register/shared-memory report of each build, by source name
+PTXAS_LOG: dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return path
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(_CSRC.iterdir()):
+        if f.suffix in (".cu", ".cuh"):
+            h.update(f.name.encode())
+            h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _lib_path(name: str) -> Path:
+    return BUILD_DIR / _digest() / f"lib{name}.so"
+
+
+def build_all(names=SOURCES) -> list[str]:
+    """Compile every missing library, one ``nvcc`` per source started
+    together; returns the names that were compiled (not cached)."""
+    todo = [n for n in names if not _lib_path(n).exists()]
+    if not todo:
+        return []
+    nvcc = _nvcc()
+    procs = {}
+    for n in todo:
+        out = _lib_path(n)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
+               str(_CSRC / f"{n}.cu")]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    tmp, out)
+    failed = []
+    for n, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        PTXAS_LOG[n] = log
+        if proc.returncode != 0:
+            failed.append(f"{n}.cu (exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return todo
+
+
+def check_tensor(what: str, t, dtype, shape=None, device=None) -> None:
+    """Validate one kernel operand: CUDA, dtype, contiguity, shape."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{what}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library for ``csrc/<name>.cu`` (built if needed)."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            path = _lib_path(name)
+            if not path.exists():
+                build_all((name,))
+            lib = ctypes.CDLL(str(path))
+            _LIBS[name] = lib
+        return lib
+
+
+def function(lib_name: str, fn_name: str, argtypes) -> ctypes._CFuncPtr:
+    """A C entry point with its argument types declared (``c_void_p`` for
+    every pointer and the stream, so no pointer is cut to 32 bits)."""
+    fn = getattr(library(lib_name), fn_name)
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(lib_name: str, fn_name: str, argtypes, *args) -> None:
+    """Call a C launch entry point and raise if it reported a CUDA error
+    (a refused launch never runs, and a later synchronize would not say
+    so)."""
+    rc = function(lib_name, fn_name, argtypes)(*args)
+    if rc != 0:
+        err = library(lib_name).kernel_error_string
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        raise RuntimeError(f"{fn_name}: CUDA error {rc} "
+                           f"({err(rc).decode(errors='replace')})")
+
+
+def stream_handle(device) -> int:
+    """PyTorch's current CUDA stream on ``device`` as a C pointer value."""
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream

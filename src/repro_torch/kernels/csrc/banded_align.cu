@@ -1,0 +1,83 @@
+// Banded Needleman-Wunsch (global) / Smith-Waterman (local) int32 scores.
+//
+// Replaces: src/repro/kernels/edit_distance.py::banded_align via _wavefront
+// (Pallas body _wavefront_kernel), which puts the anti-diagonal on the TPU's
+// sublanes and 128 independent pairs on its lanes.
+//
+// q (P, m), t (P, n) int32 tokens -> out (P,) int32; the semantics of
+// src/repro/kernels/ref.py::banded_align: cells with |i - j| > band are
+// -2^20 (global) or 0 (local), local cells floor at 0, local keeps the
+// running max, and the first row and column are set, not maxed.
+//
+// Bound on this card: neither bytes nor operations.  On the path (P = 2048
+// pairs, m = 48, n = 80) the inputs are 1 MB and the DP 7.9 M cells, a few
+// microseconds of either; what costs is the dependent chain of each DP row
+// (left -> cell -> left).  Design: one thread per pair runs the row-scan DP
+// of ref.py, keeping its DP row and its query in shared memory laid out
+// [index][thread] (conflict-free banks), so the m x n cells cost no device
+// memory traffic beyond one read of each target token.  One warp per block
+// spreads the pairs over as many SMs as there are warps.
+#include "common.cuh"
+
+constexpr int BA_THREADS = 32;
+constexpr int BA_NEG = -(1 << 20);
+
+__global__ void __launch_bounds__(BA_THREADS)
+banded_align_kernel(const int* __restrict__ q, const int* __restrict__ t,
+                    int* __restrict__ out, int P, int m, int n, int band,
+                    int match, int mismatch, int gap, int local) {
+  extern __shared__ int smem[];
+  const int S = blockDim.x;
+  int* row = smem + threadIdx.x;            // row[i * S], i = 0..m
+  int* qs = smem + (m + 1) * S + threadIdx.x;  // qs[i * S], i = 0..m-1
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= P) return;
+  const int* qp = q + static_cast<size_t>(p) * m;
+  const int* tp = t + static_cast<size_t>(p) * n;
+  const int agap = abs(gap);
+  for (int i = 0; i < m; ++i) qs[i * S] = qp[i];
+  for (int i = 0; i <= m; ++i)
+    row[i * S] = local ? 0 : (i * agap <= band * agap ? i * gap : BA_NEG);
+  const int floor_v = local ? 0 : BA_NEG;
+  int best = 0;
+  for (int j = 0; j < n; ++j) {
+    const int tj = tp[j];
+    const int first = (j + 1 <= band) ? (local ? 0 : gap * (j + 1)) : floor_v;
+    int diag = row[0];
+    row[0] = first;
+    int left = first;
+    int rmax = first;
+    for (int i = 0; i < m; ++i) {
+      const int up = row[(i + 1) * S];
+      const int sub = (qs[i * S] == tj) ? match : mismatch;
+      int v = max(max(left + gap, up + gap), diag + sub);
+      if (local) v = max(v, 0);
+      if (abs(i - j) > band) v = floor_v;  // |(i+1) - (j+1)| > band
+      row[(i + 1) * S] = v;
+      diag = up;
+      left = v;
+      rmax = max(rmax, v);
+    }
+    if (local) best = max(best, rmax);
+  }
+  out[p] = local ? best : row[m * S];
+}
+
+extern "C" int banded_align_smem_bytes(int m) {
+  return (2 * m + 1) * BA_THREADS * static_cast<int>(sizeof(int));
+}
+
+extern "C" int launch_banded_align(const void* q, const void* t, void* out,
+                                   int P, int m, int n, int band, int match,
+                                   int mismatch, int gap, int local,
+                                   void* stream) {
+  const size_t smem = banded_align_smem_bytes(m);
+  cudaError_t err = allow_smem(banded_align_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (P + BA_THREADS - 1) / BA_THREADS;
+  banded_align_kernel<<<blocks, BA_THREADS, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(q), static_cast<const int*>(t),
+      static_cast<int*>(out), P, m, n, band, match, mismatch, gap, local);
+  return static_cast<int>(cudaGetLastError());
+}

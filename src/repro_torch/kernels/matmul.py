@@ -1,0 +1,51 @@
+"""Tiled GEMM with a bias + activation epilogue: the CUDA kernel
+(``csrc/matmul.cu``) and its wrapper.
+
+Replaces ``repro/kernels/matmul.py::matmul`` (the Pallas bodies
+``_matmul_kernel`` / ``_matmul_nobias_kernel``).  The source note in
+``csrc/matmul.cu`` says what bounds the kernel on an H100 and how its
+tiling answers that.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref
+
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, bias=None, *,
+           activation: str = "none") -> torch.Tensor:
+    """``activation(a @ b + bias)``: a (M, K), b (K, N), bias (N,).
+
+    A CPU tensor runs the plain version (:func:`ref.matmul`); a CUDA tensor
+    launches the kernel or raises."""
+    if a.device.type == "cpu":
+        return ref.matmul(a, b, bias, activation=activation)
+    m, k = a.shape
+    k2, n = b.shape
+    if k != k2:
+        raise ValueError(f"matmul: inner dims differ, {a.shape} x {b.shape}")
+    _build.check_tensor("matmul a", a, torch.float32)
+    _build.check_tensor("matmul b", b, torch.float32, device=a.device)
+    if bias is not None:
+        _build.check_tensor("matmul bias", bias, torch.float32, (n,),
+                            a.device)
+    if m < 1 or n < 1:
+        raise ValueError(f"matmul: empty output {m} x {n}")
+    if -(-m // 64) > 65_535:
+        raise ValueError(f"matmul: M={m} exceeds the grid's y limit")
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    _build.launch(
+        "matmul", "launch_matmul", _ARGS, a.data_ptr(), b.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(), m, n, k,
+        ref.ACTIVATION_CODES[activation], _build.stream_handle(a.device))
+    matmul.launches += 1
+    return out
+
+
+matmul.launches = 0

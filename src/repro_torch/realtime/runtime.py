@@ -1,0 +1,466 @@
+"""Adaptive-sampling (Read-Until) runtime: sense -> basecall -> map -> decide
+(``repro/realtime/runtime.py``) on one card.
+
+All per-lane device state — conv carries, the CTC ``prev_class`` carry and
+the ``bases``/``ticks`` counters — lives in one lane-major dict of tensors
+(:func:`init_lane_state`).  Each tick is one step over every lane: the
+unfused chain (conv1d kernels, the matmul head, CTC collapse, counters) or
+the single fused kernel, which also folds in the reset of recycled lanes.
+
+``pipeline_depth=2`` maps and decides on tick t-1's calls while the card
+runs tick t.  JAX arrays never change, so the JAX runtime could hand tick
+t-1's counters to the host one tick late; here lane state is updated in
+place (the unfused lane reset zeroes rows), so right after each step the
+runtime starts non-blocking copies of the step's tokens, lens and bases
+into one of two pinned host buffer sets and records a CUDA event, and
+``_process_one`` waits on that event.  That snapshots the evidence and
+keeps host work overlapped with the card.  Signal goes up through two
+pinned staging sets in the same ring.
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.core import basecaller as bc
+from repro_torch.core import ctc
+from repro_torch.device import resolve_device
+from repro_torch.engine.scheduler import SlotScheduler
+from repro_torch.engine.telemetry import Telemetry
+from repro_torch.realtime import policy as policy_mod
+from repro_torch.realtime.mapper import PrefixMapper
+from repro_torch.realtime.policy import Decision, PolicyConfig
+from repro_torch.realtime.session import ChannelSession, ReadRecord, SimulatedRead
+
+
+def init_lane_state(cfg: bc.BasecallerConfig, channels: int, *,
+                    device="cuda") -> dict:
+    """The per-lane device state, lane-major on every leaf: ``conv``
+    carries, ``prev_class`` (BLANK at read start), ``bases`` and ``ticks``
+    since lane reset (int32).  Every leaf zeroes on lane reset."""
+    dev = resolve_device(device)
+    return {
+        "conv": bc.init_stream_state(cfg, channels, device=dev),
+        "prev_class": torch.full((channels,), ctc.BLANK, dtype=torch.int32,
+                                 device=dev),
+        "bases": torch.zeros((channels,), dtype=torch.int32, device=dev),
+        "ticks": torch.zeros((channels,), dtype=torch.int32, device=dev),
+    }
+
+
+def build_step_fn(cfg: bc.BasecallerConfig, fused: bool = False):
+    """One tick over all lanes: basecall + CTC collapse + counters.
+
+    Unfused: ``(params, lane, rows, frame_pads) -> (tokens, lens, lane')``.
+    Fused: one more lane-major argument, the ``reset`` mask, folded inside
+    the kernel, so the runtime skips its own lane reset."""
+    if fused:
+        from repro_torch.kernels import fused_stream as fs
+
+        def step(params, lane, rows, frame_pads, reset):
+            return fs.fused_stream_step(params, lane, rows, frame_pads,
+                                        reset, cfg=cfg)
+        return step
+
+    def step(params, lane, rows, frame_pads):
+        logits, conv = bc.apply_stream_core(params, lane["conv"], rows,
+                                            cfg=cfg)
+        tokens, lens, prev = ctc.greedy_decode_stream(
+            logits, lane["prev_class"], frame_pads)
+        new_lane = {
+            "conv": conv,
+            "prev_class": prev,
+            "bases": lane["bases"] + lens,
+            "ticks": lane["ticks"] + 1,
+        }
+        return tokens, lens, new_lane
+    return step
+
+
+def resolve_mesh(mesh) -> None:
+    """The port runs on one card: ``None``, ``"auto"`` and ``1`` all mean
+    that card; anything larger raises."""
+    if mesh is None or mesh == "auto" or mesh == 1:
+        return None
+    raise ValueError(f"mesh={mesh!r}: the PyTorch port runs the flowcell on "
+                     "one card; lane sharding across cards is not ported")
+
+
+class _HostRing:
+    """Two sets of host buffers for the tick's signal (up) and evidence
+    (down), pinned when the step runs on the card."""
+
+    def __init__(self, channels: int, chunk: int, n_frames: int,
+                 device: torch.device):
+        self.device = device
+        self.pinned = device.type == "cuda"
+        f32, i32 = torch.float32, torch.int32
+        shapes = {"rows": ((channels, chunk), f32),
+                  "pads": ((channels, n_frames), f32),
+                  "reset": ((channels,), f32),
+                  "tokens": ((channels, n_frames), i32),
+                  "lens": ((channels,), i32),
+                  "bases": ((channels,), i32)}
+        self.sets = [{k: torch.zeros(shape, dtype=dt, pin_memory=self.pinned)
+                      for k, (shape, dt) in shapes.items()}
+                     for _ in range(2)]
+
+    def upload(self, slot: int, name: str) -> torch.Tensor:
+        buf = self.sets[slot][name]
+        if not self.pinned:
+            return buf   # the step copies its inputs (torch.cat) before use
+        return buf.to(self.device, non_blocking=True)
+
+    def snapshot(self, slot: int, tokens, lens, bases):
+        """Start copying the step's evidence to the host; returns the host
+        arrays and the event that marks them complete (None on the CPU)."""
+        s = self.sets[slot]
+        for name, t in (("tokens", tokens), ("lens", lens), ("bases", bases)):
+            s[name].copy_(t, non_blocking=self.pinned)
+        event = None
+        if self.pinned:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        return (s["tokens"].numpy(), s["lens"].numpy(),
+                s["bases"].numpy()), event
+
+
+class AdaptiveSamplingRuntime:
+    """Manages a pool of concurrent channel sessions with streaming state."""
+
+    def __init__(self, params, cfg: bc.BasecallerConfig, mapper: PrefixMapper,
+                 policy: PolicyConfig = PolicyConfig(), *, channels: int = 32,
+                 chunk_samples: int = 256, device="cuda", mesh=None,
+                 pipeline_depth: int = 1, source=None, fused: bool = False):
+        if chunk_samples % cfg.total_stride:
+            raise ValueError(
+                f"chunk_samples={chunk_samples} must be a multiple of the "
+                f"basecaller total_stride={cfg.total_stride}")
+        if pipeline_depth not in (1, 2):
+            raise ValueError(f"pipeline_depth must be 1 or 2, "
+                             f"got {pipeline_depth}")
+        if source is not None and source.config.channels != channels:
+            raise ValueError(
+                f"flowcell source has {source.config.channels} channels, "
+                f"runtime has {channels}")
+        resolve_mesh(mesh)
+        self.device = resolve_device(device)
+        self.params = params
+        self.cfg = cfg
+        self.mapper = mapper
+        self.policy = policy
+        self.channels = channels
+        self.chunk_samples = chunk_samples
+        self.pipeline_depth = pipeline_depth
+        self.fused = bool(fused)
+        self._step = build_step_fn(cfg, fused=self.fused)
+        self.lane_state = init_lane_state(cfg, channels, device=self.device)
+        self.records: list[ReadRecord] = []
+        self.telemetry = Telemetry(workload="adaptive_sampling")
+        self.scheduler = SlotScheduler(channels)
+        self._source = source
+        self._n_frames = chunk_samples // cfg.total_stride
+        self._ring = _HostRing(channels, chunk_samples, self._n_frames,
+                               self.device)
+        self._pending = None            # in-flight tick awaiting map/decide
+        self._ticks = 0                 # flowcell time, in chunks (incl idle)
+        self._busy_ticks = np.zeros(channels, np.int64)
+        self._lane_reads = np.zeros(channels, np.int64)
+        self._warm = False
+
+    @property
+    def flowcell_samples(self) -> int:
+        """Flowcell time: every tick advances each channel by one chunk."""
+        return self._ticks * self.chunk_samples
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def warmup(self) -> None:
+        """Run every path once (loading the kernels, building them if
+        needed) before any session is timed."""
+        if self._warm:
+            return
+        dev = self.device
+        rows = torch.zeros((self.channels, self.chunk_samples),
+                           dtype=torch.float32, device=dev)
+        pads = torch.zeros((self.channels, self._n_frames),
+                           dtype=torch.float32, device=dev)
+        with self.telemetry.scope():
+            if self.fused:
+                self._step(self.params, self.lane_state, rows, pads,
+                           torch.zeros((self.channels,), dtype=torch.float32,
+                                       device=dev))
+            else:
+                self._step(self.params, self.lane_state, rows, pads)
+            self.mapper.map_prefixes(
+                np.zeros((self.channels, self.policy.map_prefix_bases),
+                         np.int32))
+        self._sync()
+        self._warm = True
+
+    # ------------------------------------------------------------ intake --
+    def submit(self, read: SimulatedRead) -> None:
+        """Queue a read for the next free lane (queue-fed mode only)."""
+        if self._source is not None:
+            raise ValueError(
+                "runtime is source-fed (flowcell attached): reads arrive by "
+                "pore capture, not submit()")
+        self.scheduler.submit(read)
+
+    def submit_all(self, reads) -> None:
+        for r in reads:
+            self.submit(r)
+
+    # ------------------------------------------------------ lane control --
+    def _reset_lanes(self, lanes: list[int]) -> None:
+        """Zero every lane-state leaf of channels starting a new read, in
+        place: conv carries, CTC carry (BLANK == 0) and the counters."""
+        if not lanes:
+            return
+        idx = torch.as_tensor(lanes, dtype=torch.long, device=self.device)
+        for leaf in (*self.lane_state["conv"], self.lane_state["prev_class"],
+                     self.lane_state["bases"], self.lane_state["ticks"]):
+            leaf[idx] = 0
+
+    def _poll_source(self) -> list[int]:
+        """Capture the next arrival-ordered molecule on every recovered
+        channel (flowcell mode only); returns the freshly occupied lanes."""
+        src = self._source
+        if src is None:
+            return []
+        t = self.flowcell_samples
+        now = time.perf_counter()
+        active = self.scheduler.active
+        fresh = []
+        for b in range(self.channels):
+            if active[b] is not None:
+                continue
+            read = src.next_read(b, t)
+            if read is None:
+                continue
+            self.scheduler.assign(b, ChannelSession(channel=b, read=read,
+                                                    started_wall=now))
+            fresh.append(b)
+        return fresh
+
+    def _assign_free(self) -> list[int]:
+        now = time.perf_counter()
+        fresh = self.scheduler.admit(
+            wrap=lambda b, read: ChannelSession(channel=b, read=read,
+                                                started_wall=now))
+        return [b for b, _ in fresh]
+
+    def _finish(self, b: int, decision: Decision, reason: str,
+                mapped_pos: int, now: float) -> None:
+        s = self.scheduler.release(b)
+        total = s.read.total_samples
+        if decision is Decision.EJECT:
+            consumed = min(s.offset + self.policy.eject_latency_samples, total)
+        else:
+            consumed = total
+        if self._source is not None:
+            self._source.read_done(b, self.flowcell_samples,
+                                   consumed - s.offset)
+        self._lane_reads[b] += 1
+        rec = ReadRecord(
+            channel=b, read_id=s.read.read_id, decision=decision,
+            reason=reason, bases_at_decision=int(len(s.bases)),
+            samples_at_decision=s.offset, samples_sequenced=consumed,
+            total_samples=total, on_target=s.read.on_target,
+            mapped_pos=int(mapped_pos),
+            decision_ms=(now - s.started_wall) * 1e3,
+            bases=s.bases)
+        self.records.append(rec)
+        tel = self.telemetry
+        tel.completed += 1
+        tel.samples += consumed
+        tel.samples_saved += total - consumed
+        if reason == "exhausted":
+            tel.count("exhausted")
+        elif reason == "timeout":
+            tel.count("timeouts")
+            tel.observe_latency(rec.decision_ms)
+        else:
+            tel.count("accepted", int(decision is Decision.ACCEPT))
+            tel.count("ejected", int(decision is Decision.EJECT))
+            tel.observe_latency(rec.decision_ms)
+
+    # ------------------------------------------------------------- ticks --
+    def _process_pending(self) -> None:
+        p, self._pending = self._pending, None
+        if p is not None:
+            self._process_one(p)
+
+    def _process_one(self, p: dict) -> None:
+        """Map + decide on one dispatched tick's basecalls (one tick behind
+        the card under ``pipeline_depth=2``)."""
+        tel = self.telemetry
+        sessions = p["sessions"]
+        with tel.stage("basecall"):
+            if p["event"] is not None:
+                p["event"].synchronize()
+            tokens_np, lens_np, bases_np = p["host"]
+        active = self.scheduler.active
+        for b, s in sessions.items():
+            if active[b] is not s:     # lane already recycled (defensive)
+                continue
+            n = int(lens_np[b])
+            s.append_bases(tokens_np[b, :n])
+            tel.bases += n
+
+        map_len = self.policy.map_prefix_bases
+        cand = [b for b, s in sessions.items()
+                if active[b] is s
+                and bases_np[b] >= self.policy.min_prefix_bases]
+        if cand:
+            prefixes = np.zeros((self.channels, map_len), np.int32)
+            prefix_lens = np.zeros((self.channels,), np.int64)
+            for b in cand:
+                window = sessions[b].bases[-map_len:]
+                prefixes[b, :len(window)] = window
+                prefix_lens[b] = int(bases_np[b])
+            with tel.scope(), tel.stage("map"):
+                res = self.mapper.map_prefixes(prefixes)
+                decisions, reasons = policy_mod.decide(
+                    res.mapped, res.on_target, res.mapq, prefix_lens,
+                    self.policy)
+            now = time.perf_counter()
+            for b in cand:
+                if decisions[b] is not Decision.WAIT:
+                    self._finish(b, decisions[b], reasons[b],
+                                 res.positions[b], now)
+
+        # reads that ran dry without a decision were sequenced in full,
+        # judged on the offset at this evidence tick's dispatch
+        now = time.perf_counter()
+        for b, s in sessions.items():
+            if active[b] is s and p["offsets"][b] >= s.read.total_samples:
+                self._finish(b, Decision.ACCEPT, "exhausted", -1, now)
+
+    def flush(self) -> None:
+        """Resolve the in-flight double-buffered tick, if any."""
+        self._process_pending()
+
+    def tick(self) -> bool:
+        """Advance every busy channel by one chunk; returns False when idle."""
+        self.warmup()
+        t0 = time.perf_counter()
+        tel = self.telemetry
+        fresh = self._poll_source() + self._assign_free()
+        if not self.fused:
+            self._reset_lanes(fresh)
+        sessions = self.scheduler.active
+        busy = self.scheduler.busy
+        if not busy:
+            self._process_pending()
+            src = self._source
+            if (not self.scheduler.pending
+                    and (src is None or src.exhausted)):
+                return False
+            self._ticks += 1
+            tel.count("idle_ticks")
+            tel.wall_s += time.perf_counter() - t0
+            return True
+        tel.steps += 1
+        self._ticks += 1
+        self._busy_ticks[busy] += 1
+        slot = self._ticks % 2
+        host = self._ring.sets[slot]
+
+        # 1. sense: one fixed-shape chunk matrix across all channels; frames
+        # derived from the zero fill past a read's end are padding
+        chunk, stride = self.chunk_samples, self.cfg.total_stride
+        rows = host["rows"].numpy()
+        frame_pads = host["pads"].numpy()
+        with tel.stage("sense"):
+            rows.fill(0.0)
+            frame_pads.fill(1.0)
+            for b in busy:
+                s = sessions[b]
+                piece = s.read.signal[s.offset: s.offset + chunk]
+                rows[b, :len(piece)] = piece
+                frame_pads[b, : len(piece) // stride] = 0.0
+                s.offset = min(s.offset + chunk, s.read.total_samples)
+
+        # 2. launch the step for every lane, then start the evidence copy
+        with tel.scope(), tel.stage("basecall"):
+            rows_d = self._ring.upload(slot, "rows")
+            pads_d = self._ring.upload(slot, "pads")
+            if self.fused:
+                reset = host["reset"].numpy()
+                reset.fill(0.0)
+                reset[fresh] = 1.0
+                tokens, lens, self.lane_state = self._step(
+                    self.params, self.lane_state, rows_d, pads_d,
+                    self._ring.upload(slot, "reset"))
+            else:
+                tokens, lens, self.lane_state = self._step(
+                    self.params, self.lane_state, rows_d, pads_d)
+            evidence, event = self._ring.snapshot(
+                slot, tokens, lens, self.lane_state["bases"])
+        tel.dispatches += 1
+        tel.gauge("queue_depth", self.scheduler.pending)
+        tel.gauge("lanes_busy", len(busy))
+        prev = self._pending
+        self._pending = {
+            "host": evidence, "event": event,
+            "sessions": {b: sessions[b] for b in busy},
+            "offsets": {b: sessions[b].offset for b in busy},
+            "tick": self._ticks,
+        }
+        if self.pipeline_depth == 1:
+            self._process_pending()
+        elif prev is not None:
+            # the double buffer: map + decide tick t-1 on the host while the
+            # card runs the step just launched for tick t
+            self._process_one(prev)
+
+        tel.wall_s += time.perf_counter() - t0
+        return True
+
+    def run(self, max_ticks: int = 100_000) -> dict:
+        while self.tick():
+            if self._ticks >= max_ticks:
+                break
+        self.flush()
+        return self.report()
+
+    # ----------------------------------------------------------- metrics --
+    def report(self) -> dict:
+        tel = self.telemetry
+        if self._ticks:
+            occ = self._busy_ticks / self._ticks
+            tel.gauge("occupancy_mean", float(occ.mean()))
+            tel.gauge("occupancy_min", float(occ.min()))
+            tel.gauge("occupancy_max", float(occ.max()))
+            tel.gauge("flowcell_ticks", self._ticks)
+            tel.gauge("flowcell_samples", self.flowcell_samples)
+        tel.gauge("pore_time_saved_samples", tel.samples_saved)
+        tel.gauge("reads_per_channel_mean", float(self._lane_reads.mean()))
+        out = tel.summary()
+        out["reads"] = tel.completed
+        out["decision_p50_ms"] = out["p50_ms"]
+        out["decision_p99_ms"] = out["p99_ms"]
+        for k in ("accepted", "ejected", "timeouts", "exhausted"):
+            out.setdefault(k, 0)
+        recs = self.records
+        truth = [r for r in recs if r.on_target is not None]
+        if truth:
+            seq_on = sum(r.samples_sequenced for r in truth if r.on_target)
+            seq_all = sum(r.samples_sequenced for r in truth)
+            tot_on = sum(r.total_samples for r in truth if r.on_target)
+            tot_all = sum(r.total_samples for r in truth)
+            naive = tot_on / max(tot_all, 1)
+            selective = seq_on / max(seq_all, 1)
+            out["on_target_frac_nonselective"] = naive
+            out["on_target_frac_selective"] = selective
+            out["enrichment"] = selective / max(naive, 1e-9)
+            wrong_ejects = sum(r.decision is Decision.EJECT and r.on_target
+                               for r in truth)
+            out["on_target_eject_rate"] = wrong_ejects / max(
+                sum(1 for r in truth if r.on_target), 1)
+        return out

@@ -1,0 +1,125 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: each test skips (with the reason) where there is no CUDA
+device.  Run them on a machine with an H100:
+
+    PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+(``--noconftest``: the suite's conftest imports JAX, which the port and
+its card need not have.)
+"""
+import numpy as np
+import pytest
+import torch
+
+import torch_port_util as U
+from repro_torch.core import basecaller as bc
+from repro_torch.kernels import conv1d as kc
+from repro_torch.kernels import edit_distance as ke
+from repro_torch.kernels import fused_stream as kf
+from repro_torch.kernels import matmul as km
+from repro_torch.kernels import ref
+
+pytestmark = pytest.mark.cuda
+TOL = 2e-5
+
+
+@pytest.fixture()
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    ref.full_fp32()
+    return torch.device("cuda")
+
+
+def _g(seed):
+    return torch.Generator().manual_seed(seed)
+
+
+@pytest.mark.parametrize("cin,cout,k,stride,t", [
+    (1, 64, 5, 1, 260), (64, 96, 7, 1, 70), (96, 192, 9, 2, 135),
+    (1, 5, 2, 2, 63), (3, 70, 5, 1, 61)])
+def test_conv1d_kernel(dev, cin, cout, k, stride, t):
+    # He-scaled weights, as the basecaller's: outputs stay O(1)
+    x = torch.randn((5, t, cin), generator=_g(0)).to(dev)
+    w = (torch.randn((k, cin, cout), generator=_g(1))
+         * (2.0 / (k * cin)) ** 0.5).to(dev)
+    b = torch.randn((cout,), generator=_g(2)).to(dev)
+    before = kc.conv1d.launches
+    got = kc.conv1d(x, w, b, stride=stride, activation="relu")
+    assert kc.conv1d.launches == before + 1
+    want = ref.conv1d(x, w, b, stride=stride, activation="relu")
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("act", ["none", "relu", "squared_relu", "silu",
+                                 "gelu"])
+def test_matmul_kernel(dev, act):
+    a = torch.randn((1000, 37), generator=_g(3)).to(dev)
+    w = torch.randn((37, 5), generator=_g(4)).to(dev)
+    b = torch.randn((5,), generator=_g(5)).to(dev)
+    torch.testing.assert_close(km.matmul(a, w, b, activation=act),
+                               ref.matmul(a, w, b, activation=act),
+                               rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("band,local", [(0, False), (3, True), (32, True),
+                                        (47, False)])
+def test_banded_align_kernel_bitwise(dev, band, local):
+    rng = np.random.default_rng(band)
+    q = U.t(rng.integers(1, 5, (70, 48)).astype(np.int32)).to(dev)
+    t = U.t(rng.integers(0, 5, (70, 80)).astype(np.int32)).to(dev)
+    kw = dict(band=band, local=local)
+    assert torch.equal(ke.banded_align(q, t, **kw),
+                       ref.banded_align(q, t, **kw))
+
+
+def test_fused_kernel_equals_plain_and_unfused(dev):
+    cfg = bc.BasecallerConfig()
+    params = bc.init(_g(6), cfg, device=dev)
+    lanes, chunk = 9, 64
+    rows = torch.randn((lanes, chunk), generator=_g(7)).to(dev)
+    pads = torch.zeros((lanes, chunk // 4), device=dev)
+    pads[3, 8:] = 1.0
+    reset = torch.zeros((lanes,), device=dev)
+    reset[[0, 4]] = 1.0
+    conv = tuple(torch.randn((lanes, s.carry_rows, s.cin), generator=_g(8))
+                 .abs().to(dev) for s in bc.stream_layer_specs(cfg))
+    z = torch.zeros((lanes,), dtype=torch.int32, device=dev)
+    args = (rows, pads, reset, z + 2, z + 5, z + 1, conv, params)
+    tok, lens, lane = kf.fused_stream_cuda(*args, cfg=cfg)
+    ptok, plens, plane = kf._fused_reference(*args, cfg=cfg)
+    assert torch.equal(tok, ptok) and torch.equal(lens, plens)
+    for key in ("prev_class", "bases", "ticks"):
+        assert torch.equal(lane[key], plane[key])
+    for a, b in zip(lane["conv"], plane["conv"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_step_flowcell_goldens_on_card_equal_cpu(dev):
+    import repro_torch.engine as te
+    from repro_torch.data import genome as G
+    from repro_torch.realtime import Decision, PolicyConfig
+
+    def run(device, fused):
+        eng = te.build(
+            "adaptive_sampling", channels=8, chunk=64,
+            reference=G.random_genome(np.random.default_rng(7), 6_000),
+            targets=[(0, 3_000)],
+            flowcell={"encoder": "step", "n_reads": 24, "read_len": (64, 128),
+                      "recovery_samples": 64, "stagger_samples": 16,
+                      "seed": 3},
+            policy=PolicyConfig(min_prefix_bases=24, map_prefix_bases=32,
+                                max_prefix_bases=96,
+                                timeout_decision=Decision.ACCEPT,
+                                eject_latency_samples=32),
+            device=device, pipeline_depth=2, fused=fused)
+        eng.drain()
+        return sorted((r.read_id, r.decision.value, r.reason,
+                       r.bases_at_decision, r.mapped_pos)
+                      for r in eng.records)
+
+    want = run("cpu", False)
+    assert len(want) == 24
+    assert run(dev, False) == want
+    assert run(dev, True) == want

@@ -1,0 +1,105 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX package,
+and it never runs on the CPU unless the caller asks for it."""
+import ast
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import torch_port_util  # noqa: F401  (torch lazy-module registries)
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(HERE)
+SRC = os.path.join(ROOT, "src")
+PKG = os.path.join(SRC, "repro_torch")
+
+_IMPORT_SCRIPT = r"""
+import json, sys
+sys.path.insert(0, {src!r})
+import repro_torch, repro_torch.engine
+import repro_torch.engine.adaptive, repro_torch.realtime
+import repro_torch.kernels.fused_stream, repro_torch.kernels.ops
+import repro_torch.data.flowcell, repro_torch.core.seed_extend
+mods = sorted(m for m in sys.modules
+              if m == "jax" or m.startswith("jax.")
+              or m == "repro" or m.startswith("repro."))
+print("RESULT " + json.dumps(mods))
+"""
+
+
+def test_import_pulls_in_no_jax_and_no_repro():
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_SCRIPT.format(src=SRC)],
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
+    assert json.loads(line[0][len("RESULT "):]) == []
+
+
+def _port_sources():
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def test_no_source_imports_jax_or_repro():
+    bad = []
+    for path in _port_sources():
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            for n in names:
+                if n.split(".")[0] in ("jax", "jaxlib", "repro"):
+                    bad.append(f"{os.path.relpath(path, ROOT)}: {n}")
+    assert not bad, bad
+
+
+def test_build_without_card_raises(monkeypatch):
+    import repro_torch.engine as te
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        te.build("adaptive_sampling", preset="smoke")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        te.build("adaptive_sampling", preset="flowcell_smoke")
+
+
+def test_resolve_device():
+    from repro_torch import resolve_device
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+def test_one_card_mesh_and_unported_presets():
+    import repro_torch.engine as te
+    from repro_torch.realtime.runtime import resolve_mesh
+    assert resolve_mesh(None) is None
+    assert resolve_mesh("auto") is None
+    assert resolve_mesh(1) is None
+    with pytest.raises(ValueError, match="one card"):
+        resolve_mesh(2)
+    with pytest.raises(NotImplementedError, match="int8 slice"):
+        te.build("adaptive_sampling", preset="edge_int8", device="cpu")
+    assert set(te.presets("adaptive_sampling")) == {
+        "default", "smoke", "edge_int8", "flowcell_512", "flowcell_smoke"}
+
+
+def test_chip_smoke_alone_fails_without_output(tmp_path):
+    """chip_smoke.py alone in a directory (or on a machine with no card)
+    exits non-zero and prints no result."""
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path)
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert proc.stdout == ""
