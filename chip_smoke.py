@@ -3,24 +3,37 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing JSON lines:
 
 1. ``card``: the card's name and power limit (nvidia-smi) and the time to
-   build the four CUDA kernels with nvcc (one nvcc per source, in parallel).
-2. ``kernel``: each kernel against its plain PyTorch version on the card,
-   at the flowcell tick's shapes (512 lanes x chunk 256, the paper's CNN)
-   and at edge shapes: max abs error (bitwise for int32 outputs), kernel,
+   build the CUDA kernels with nvcc (one nvcc per source, in parallel).
+2. ``kernel``: each of the seven kernels (fp32 conv1d, matmul, fused_stream
+   and banded_align; int8 conv1d, matmul and fused_stream) against its
+   plain PyTorch version on the card, at the flowcell tick's shapes (512
+   lanes x chunk 256, the paper's CNN; int8 after the ``edge_int8``
+   calibration), the ``basecall`` workload's (16 x 2048, "same" padding;
+   fp32 also at its calibration's 2 x 2048) and edge shapes: max abs
+   error (bitwise for int32 outputs and for every int8 kernel), kernel,
    plain and library times, and the bound the card's data sheet sets.
 3. ``step_goldens``: the step-codec flowcell (8 lanes) on the card, fused
    and unfused x pipeline depth 1 and 2, and once on the CPU (plain): all
-   five per-read goldens must be equal.
+   five per-read goldens must be equal; once with fp32 params, once with
+   int8 params calibrated on the codec's own signal.
 4. ``full_width``: the ``flowcell_512`` preset with the paper's CNN
    (``BasecallerConfig()``, random weights from a seed) on the pore
    encoder, fused and unfused: reads, bases/s, decision p50/p99, mean
-   tick, the ``fabric.dispatch.*`` counters, and the fused/unfused golden
-   diff (a differing read is allowed only where the plain logits' top-2
-   margin on its evidence is < 1e-4).
-5. ``{"kernels": [...]}``: every kernel with its launches in phase 4.
+   tick, the ``fabric.*`` counters, and the fused/unfused golden diff (a
+   differing read is allowed only where the plain logits' top-2 margin on
+   its evidence is < 1e-4).  Then ``edge_int8`` at the same width, with
+   the same CNN calibrated once by ``quantize_edge_params``: the same
+   metrics, goldens fused == unfused with no exception, and three ticks on
+   8 lanes equal to the CPU's plain run bit for bit.
+5. ``basecall``: the ``basecall`` workload, ``default`` and ``edge_int8``,
+   at batch 16 x chunk 2048 on the card and on the CPU (plain): int8 reads
+   equal; a float read may differ only where every frame whose class
+   differs between card and CPU has a plain top-2 margin < 1e-4.
+6. ``{"kernels": [...]}``: every kernel with its launches in phases 4-5,
+   counted from 0 just before each path and read just after it.
 
 TF32 is off for the whole run (``torch.backends.cuda.matmul.allow_tf32``
 and ``torch.backends.cudnn.allow_tf32``): the plain versions and the
@@ -39,11 +52,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
 # Published peaks (NVIDIA data sheets, dense, no sparsity): fp32 on the
-# CUDA cores and device-memory bandwidth, by H100 part.
+# CUDA cores, int8 on the tensor cores and device-memory bandwidth, by
+# H100 part.
 PEAKS = {
-    "sxm": {"fp32_flops": 67e12, "bytes_per_s": 3.35e12},
-    "pcie": {"fp32_flops": 51e12, "bytes_per_s": 2.0e12},
-    "nvl": {"fp32_flops": 60e12, "bytes_per_s": 3.9e12},
+    "sxm": {"fp32_flops": 67e12, "int8_ops": 1979e12, "bytes_per_s": 3.35e12},
+    "pcie": {"fp32_flops": 51e12, "int8_ops": 1513e12, "bytes_per_s": 2.0e12},
+    "nvl": {"fp32_flops": 60e12, "int8_ops": 1671e12, "bytes_per_s": 3.9e12},
 }
 # int32 runs on the CUDA cores at half the fp32 lane count (64 INT32 vs
 # 128 FP32 lanes per Hopper SM, Hopper architecture white paper)
@@ -74,8 +88,15 @@ def peaks_for(name: str) -> dict:
     return PEAKS["sxm"]
 
 
-def bound_ms(peaks, nbytes: float, ops: float, int_ops: bool = False):
-    rate = peaks["fp32_flops"] * (INT32_SHARE if int_ops else 1.0)
+def bound_ms(peaks, nbytes: float, ops: float, int_ops: bool = False,
+             int8: bool = False):
+    """The least time for ``nbytes`` of traffic and ``ops`` operations:
+    fp32 on the CUDA cores, int32 at half that, or int8 MACs (2 ops each)
+    at the int8 tensor-core peak."""
+    if int8:
+        rate = peaks["int8_ops"]
+    else:
+        rate = peaks["fp32_flops"] * (INT32_SHARE if int_ops else 1.0)
     t_bytes = nbytes / peaks["bytes_per_s"] * 1e3
     t_ops = ops / rate * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -122,26 +143,33 @@ class KernelTable:
         r["bound_by"] = max(r["bound_parts"], key=r["bound_parts"].get)
 
 
-def path_layer_inputs(torch, bc, params, cfg, lanes, chunk, gen):
-    """Each conv layer's input at the tick's shapes ([carry | chunk] rows),
-    from a random signal run through the plain chain."""
-    from repro_torch.kernels import ref
-    dev = params["conv1"]["w"].device
-    sig = torch.randn((lanes, chunk), generator=gen).to(dev)
-    x = sig[..., None]
-    inputs = []
+def plain_layer_inputs(torch, bc, params, cfg, x, stream: bool, gen):
+    """Each layer's float input from the plain chain (int8 MACs where the
+    weights are quantized): ``[carry | chunk]`` rows with a random carry
+    in stream mode, "same" padded otherwise.  Returns [(spec, input)]."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.quant import core as qcore
+    dev = x.device
+    out = []
     for sp in bc.stream_layer_specs(cfg):
         p = params[sp.name]
+        if stream and sp.carry_rows:
+            carry = 0.1 * torch.randn((x.shape[0], sp.carry_rows, sp.cin),
+                                      generator=gen).to(dev).abs()
+            x = torch.cat([carry, x], dim=1)
+        elif not stream:
+            t = x.shape[1]
+            t_out = -(-t // sp.stride)
+            pad = max((t_out - 1) * sp.stride + sp.ksize - t, 0)
+            x = F.pad(x, (0, 0, pad // 2, pad - pad // 2))
+        x = x.contiguous()
+        out.append((sp, x))
         if sp.is_head:
-            inputs.append(x)
             break
-        carry = 0.1 * torch.randn((lanes, sp.carry_rows, sp.cin),
-                                  generator=gen).to(dev).abs()
-        buf = torch.cat([carry, x], dim=1).contiguous()
-        inputs.append(buf)
-        x = ref.conv1d(buf, p["w"], p["b"], stride=sp.stride,
-                       activation=sp.activation)
-    return inputs
+        mac = ops.int8_reference if qcore.is_quantized(p["w"]) else ref.conv1d
+        x = mac(x, p["w"], p["b"], stride=sp.stride, activation=sp.activation)
+    return out
 
 
 def check_conv1d(torch, F, peaks, table, x, w, b, stride, act, label,
@@ -172,6 +200,7 @@ def check_conv1d(torch, F, peaks, table, x, w, b, stride, act, label,
         bnd, by = bound_ms(peaks, nbytes(x, w, b, out), ops)
         line.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
                     bound_by=by)
+    if on_path == "tick":
         table.add("conv1d", err=err, ms=ms, plain_ms=plain, bound=bnd,
                   bound_by=by, library_ms=lib)
     emit(line)
@@ -198,6 +227,7 @@ def check_matmul(torch, peaks, table, a, w, b, act, label, on_path):
         bnd, by = bound_ms(peaks, nbytes(a, w, b, out), ops)
         line.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
                     bound_by=by)
+    if on_path == "tick":
         table.add("matmul", err=err, ms=ms, plain_ms=plain, bound=bnd,
                   bound_by=by, library_ms=lib)
     emit(line)
@@ -353,7 +383,218 @@ def check_fused(torch, bc, peaks, table, params, cfg, inputs, label,
             "unfused kernels")
 
 
+# ----------------------------------------------------------- int8 checks --
+def check_conv1d_int8(torch, peaks, table, x, w, stride, label, on_path):
+    """int8 conv kernel vs its plain version, bitwise (int32 out)."""
+    from repro_torch.kernels import conv1d as kc
+    from repro_torch.kernels import ref
+    from repro_torch.quant.core import pack_words
+    packed = pack_words(w) if w.shape[1] % 4 == 0 else None
+    out = kc.conv1d_int8(x, w, stride=stride, w_packed=packed)
+    want = ref.conv1d_int8(x, w, stride=stride)
+    torch.cuda.synchronize()
+    diff = int((out != want).sum().item())
+    line = {"phase": "kernel", "kernel": "conv1d_int8", "shape": label,
+            "x": list(x.shape), "w": list(w.shape), "stride": stride,
+            "elements_differing": diff}
+    if on_path:
+        ms = time_ms(torch, lambda: kc.conv1d_int8(x, w, stride=stride,
+                                                   w_packed=packed))
+        plain = time_ms(torch, lambda: ref.conv1d_int8(x, w, stride=stride),
+                        reps=5)
+        k, cin, cout = w.shape
+        ops = 2.0 * out.shape[0] * out.shape[1] * cout * k * cin
+        bnd, by = bound_ms(peaks, nbytes(x, w, out), ops, int8=True)
+        line.update(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bnd,
+                    bound_by=by)
+        if on_path == "tick":
+            table.add("conv1d_int8", err=diff, ms=ms, plain_ms=plain,
+                      bound=bnd, bound_by=by, library_ms=None)
+    emit(line)
+    require(diff == 0, f"conv1d_int8 {label}: {diff} outputs differ")
+
+
+def check_matmul_int8(torch, peaks, table, a, w, label, on_path):
+    """int8 GEMM kernel vs its plain version, bitwise.  The library call is
+    torch._int_mm (cuBLASLt), which needs N % 8 == 0: N is zero-padded to 8
+    for it."""
+    from repro_torch.kernels import matmul as km
+    from repro_torch.kernels import ref
+    out = km.matmul_int8(a, w)
+    want = ref.matmul_int8(a, w)
+    torch.cuda.synchronize()
+    diff = int((out != want).sum().item())
+    line = {"phase": "kernel", "kernel": "matmul_int8", "shape": label,
+            "a": list(a.shape), "b": list(w.shape),
+            "elements_differing": diff}
+    if on_path:
+        ms = time_ms(torch, lambda: km.matmul_int8(a, w))
+        plain = time_ms(torch, lambda: ref.matmul_int8(a, w))
+        n = w.shape[1]
+        wpad = torch.zeros((w.shape[0], -(-n // 8) * 8), dtype=torch.int8,
+                           device=w.device)
+        wpad[:, :n] = w
+        lib_out = torch._int_mm(a, wpad)
+        require(torch.equal(lib_out[:, :n], want),
+                f"matmul_int8 {label}: torch._int_mm disagrees")
+        lib = time_ms(torch, lambda: torch._int_mm(a, wpad))
+        m, k = a.shape
+        bnd, by = bound_ms(peaks, nbytes(a, w, out), 2.0 * m * k * n,
+                           int8=True)
+        line.update(ms=ms, plain_ms=plain, library_ms=lib,
+                    library_call=f"torch._int_mm, N padded {n} -> "
+                                 f"{wpad.shape[1]}",
+                    bound_ms=bnd, bound_by=by)
+        if on_path == "tick":
+            table.add("matmul_int8", err=diff, ms=ms, plain_ms=plain,
+                      bound=bnd, bound_by=by, library_ms=lib)
+    emit(line)
+    require(diff == 0, f"matmul_int8 {label}: {diff} outputs differ")
+
+
+def check_fused_int8(torch, bc, peaks, table, qparams, cfg, inputs, label,
+                     on_path):
+    """The int8 fused tick vs its plain twin and the unfused int8 kernels:
+    tokens, lens, counters and carries bit for bit."""
+    from repro_torch.core import ctc
+    from repro_torch.kernels import fused_stream as fs
+    from repro_torch.kernels import ops
+    rows, pads, reset, prev, bases, ticks, conv = inputs
+    args = (rows, pads, reset, prev, bases, ticks, conv, qparams)
+    tok, lens, lane = fs.fused_stream_cuda(*args, cfg=cfg)
+    tok_p, lens_p, lane_p = fs._fused_reference(*args, cfg=cfg)
+    torch.cuda.synchronize()
+    int_diff = ((tok != tok_p).any(dim=1) | (lens != lens_p)
+                | (lane["prev_class"] != lane_p["prev_class"])
+                | (lane["bases"] != lane_p["bases"])
+                | (lane["ticks"] != lane_p["ticks"]))
+    carries_equal = all(torch.equal(a, b) for a, b in zip(lane["conv"],
+                                                          lane_p["conv"]))
+    rmask = reset > 0
+    x = rows[..., None]
+    for i, sp in enumerate(bc.stream_layer_specs(cfg)):
+        p = qparams[sp.name]
+        if sp.is_head:
+            b, t, c = x.shape
+            x = ops.mat_mul(x.reshape(b * t, c), p["w"].head_matrix(),
+                            p["b"]).reshape(b, t, sp.cout)
+        else:
+            carry = torch.where(rmask[:, None, None], 0.0, conv[i])
+            x = ops.conv1d(torch.cat([carry, x], 1), p["w"], p["b"],
+                           stride=sp.stride, padding="valid",
+                           activation=sp.activation)
+    tok_u, lens_u, _ = ctc.greedy_decode_stream(
+        x, torch.where(rmask, 0, prev), pads)
+    unfused_equal = bool(torch.equal(tok_u, tok) and torch.equal(lens_u, lens))
+    line = {"phase": "kernel", "kernel": "fused_stream_int8", "shape": label,
+            "lanes": rows.shape[0], "chunk": rows.shape[1],
+            "int_lanes_differing": int(int_diff.sum().item()),
+            "carries_equal": carries_equal,
+            "equal_to_unfused_kernels": unfused_equal,
+            "bases_called": int(lens.sum().item())}
+    if on_path:
+        ms = time_ms(torch, lambda: fs.fused_stream_cuda(*args, cfg=cfg))
+        plain = time_ms(torch, lambda: fs._fused_reference(*args, cfg=cfg),
+                        reps=5)
+        lanes, chunk = rows.shape
+        macs, t = 0, chunk
+        weights = []
+        for sp in bc.stream_layer_specs(cfg):
+            t //= sp.stride
+            macs += lanes * t * sp.cout * sp.ksize * sp.cin
+            w = qparams[sp.name]["w"]
+            weights += [w.q, w.dequant_scale(), w.act_scale,
+                        qparams[sp.name]["b"]]
+        io = nbytes(rows, pads, reset, prev, bases, ticks, *conv, *weights,
+                    tok, lens, *lane["conv"], lane["prev_class"],
+                    lane["bases"], lane["ticks"])
+        bnd, by = bound_ms(peaks, io, 2.0 * macs, int8=True)
+        line.update(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bnd,
+                    bound_by=by, gop=2.0 * macs / 1e9)
+        table.add("fused_stream_int8", err=float(int_diff.sum().item()),
+                  ms=ms, plain_ms=plain, bound=bnd, bound_by=by,
+                  library_ms=None)
+    emit(line)
+    require(not bool(int_diff.any()), f"fused_stream_int8 {label}: lanes "
+            "differ from the plain version")
+    require(carries_equal, f"fused_stream_int8 {label}: carries differ")
+    require(unfused_equal, f"fused_stream_int8 {label}: tokens differ from "
+            "the unfused int8 kernels")
+
+
+def quantize_step_codec():
+    """The step codec stored int8, calibrated on its own signal (the
+    synthetic-noise calibration of the edge_int8 preset clips its levels),
+    once on the CPU; returns (cfg, params on the CPU)."""
+    import numpy as np
+
+    from repro_torch.core import basecaller as bc
+    from repro_torch.data import flowcell as fc
+    from repro_torch.data import genome as G
+    cfg, params = fc.step_basecaller("cpu")
+    ref = G.random_genome(np.random.default_rng(7), 6_000)
+    chunks = [fc.step_encode(ref[i:i + 200])[None, :512]
+              for i in range(0, 4000, 1000)]
+    return cfg, bc.quantize(params, cfg, chunks=chunks,
+                            observer="percentile", pct=99.9)
+
+
+def phase_kernels_int8(torch, peaks, table, cfg, qparams, gen):
+    from repro_torch.core import basecaller as bc
+    from repro_torch.quant import core as qcore
+    dev = torch.device("cuda")
+    lanes, chunk = 512, 256
+
+    def check_layers(sig, stream, on_path, label):
+        for sp, x in plain_layer_inputs(torch, bc, qparams, cfg,
+                                        sig[..., None], stream, gen):
+            w = qparams[sp.name]["w"]
+            xq = qcore.quantize(x, w.act_scale).contiguous()
+            if sp.is_head:
+                b, t, c = xq.shape
+                check_matmul_int8(torch, peaks, table, xq.reshape(b * t, c),
+                                  w.q[0].contiguous(), f"{label} {sp.name}",
+                                  on_path)
+            else:
+                check_conv1d_int8(torch, peaks, table, xq, w.q, sp.stride,
+                                  f"{label} {sp.name}", on_path)
+    check_layers(torch.randn((lanes, chunk), generator=gen).to(dev), True,
+                 "tick", "path")
+    # the basecall workload: 16 rows x 2048 samples, "same" padding
+    check_layers(torch.randn((16, 2048), generator=gen).to(dev), False,
+                 "basecall", "basecall")
+    # edge shapes: Cin=1 -> Cout=5, odd T, 7 rows, Cin % 4 != 0, ragged M
+    i8 = dict(dtype=torch.int8)
+
+    def rnd(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, **i8).to(dev)
+    check_conv1d_int8(torch, peaks, table, rnd(7, 63, 1), rnd(2, 1, 5), 2,
+                      "edge Cin=1 Cout=5 odd T", False)
+    check_conv1d_int8(torch, peaks, table, rnd(7, 61, 6), rnd(5, 6, 70), 1,
+                      "edge Cin=6 Cout=70", False)
+    check_conv1d_int8(torch, peaks, table, rnd(7, 61, 8), rnd(9, 8, 70), 2,
+                      "edge packed Cout=70", False)
+    check_matmul_int8(torch, peaks, table, rnd(1000, 37), rnd(37, 5),
+                      "edge ragged M K=37 N=5", False)
+    check_matmul_int8(torch, peaks, table, rnd(65, 5), rnd(5, 5),
+                      "edge step head 65x5x5", False)
+    # fused: the tick at full width, 7 lanes, and the int8 step codec
+    check_fused_int8(torch, bc, peaks, table, qparams, cfg,
+                     fused_inputs(torch, bc, cfg, lanes, chunk, gen, dev),
+                     "path 512 lanes x 256", True)
+    check_fused_int8(torch, bc, peaks, table, qparams, cfg,
+                     fused_inputs(torch, bc, cfg, 7, 64, gen, dev),
+                     "edge 7 lanes x 64", False)
+    scfg, sparams = quantize_step_codec()
+    sin = list(fused_inputs(torch, bc, scfg, 7, 64, gen, dev))
+    sin[0] = (torch.randint(0, 5, (7, 64), generator=gen).float() * 2).to(dev)
+    check_fused_int8(torch, bc, peaks, table, bc.params_to(sparams, dev),
+                     scfg, tuple(sin), "edge int8 step codec 7 lanes", False)
+
+
 def phase_kernels(torch, F, peaks):
+    import numpy as np
+
     from repro_torch.core import basecaller as bc
     from repro_torch.data.flowcell import step_basecaller
     dev = torch.device("cuda")
@@ -362,16 +603,30 @@ def phase_kernels(torch, F, peaks):
     cfg = bc.BasecallerConfig()
     params = bc.init(torch.Generator().manual_seed(0), cfg, device=dev)
     lanes, chunk = 512, 256
-    inputs = path_layer_inputs(torch, bc, params, cfg, lanes, chunk, gen)
-    for sp, x in zip(bc.stream_layer_specs(cfg), inputs):
-        p = params[sp.name]
-        if sp.is_head:
-            b, t, c = x.shape
-            check_matmul(torch, peaks, table, x.reshape(b * t, c).contiguous(),
-                         p["w"][0], p["b"], "none", f"path {sp.name}", True)
-        else:
-            check_conv1d(torch, F, peaks, table, x, p["w"], p["b"], sp.stride,
-                         sp.activation, f"path {sp.name}", True)
+
+    def check_layers(sig, stream, on_path, label, head_as_conv=False):
+        for sp, x in plain_layer_inputs(torch, bc, params, cfg,
+                                        sig[..., None], stream, gen):
+            p = params[sp.name]
+            if sp.is_head and not head_as_conv:
+                b, t, c = x.shape
+                check_matmul(torch, peaks, table, x.reshape(b * t, c),
+                             p["w"][0], p["b"], sp.activation,
+                             f"{label} {sp.name}", on_path)
+            else:
+                check_conv1d(torch, F, peaks, table, x, p["w"], p["b"],
+                             sp.stride, sp.activation, f"{label} {sp.name}",
+                             on_path)
+    check_layers(torch.randn((lanes, chunk), generator=gen).to(dev), True,
+                 "tick", "path")
+    # the basecall workload: 16 rows x 2048 samples, "same" padding
+    check_layers(torch.randn((16, 2048), generator=gen).to(dev), False,
+                 "basecall", "basecall")
+    # its edge_int8 build's calibration: the float chain, head as a k=1
+    # conv, on quantize_edge_params's first (2, 2048) chunk
+    calib = np.random.default_rng(0).normal(size=(2, 2048))
+    check_layers(torch.from_numpy(calib.astype(np.float32)).to(dev), False,
+                 False, "calibration", head_as_conv=True)
     # edge shapes: Cin=1 -> Cout=5 (the step codec), 7 lanes, odd T, ragged M
     scfg, sparams = step_basecaller(dev)
     x = (torch.randint(0, 5, (7, 63, 1), generator=gen).float() * 2).to(dev)
@@ -415,13 +670,17 @@ def phase_kernels(torch, F, peaks):
 
 
 # --------------------------------------------------------------- phase 3 --
-def step_engine(lanes, *, device, depth, fused):
+def step_engine(lanes, *, device, depth, fused, cfg=None, params=None):
     import numpy as np
 
     import repro_torch.engine as te
+    from repro_torch.core import basecaller as bc
     from repro_torch.data import genome as G
     from repro_torch.realtime.policy import Decision, PolicyConfig
     ref = G.random_genome(np.random.default_rng(7), 6_000)
+    extra = {}
+    if params is not None:
+        extra = {"cfg": cfg, "params": bc.params_to(params, device)}
     return te.build(
         "adaptive_sampling", channels=lanes, chunk=64, reference=ref,
         targets=[(0, 3_000)],
@@ -431,7 +690,7 @@ def step_engine(lanes, *, device, depth, fused):
                             max_prefix_bases=96, min_mapq=4.0,
                             timeout_decision=Decision.ACCEPT,
                             eject_latency_samples=32),
-        device=device, pipeline_depth=depth, fused=fused)
+        device=device, pipeline_depth=depth, fused=fused, **extra)
 
 
 def golden(engine):
@@ -440,23 +699,27 @@ def golden(engine):
              r.mapped_pos) for r in recs]
 
 
-def phase_step_goldens():
+def phase_step_goldens(precision="fp32", cfg=None, params=None):
     runs = {}
     for fused in (False, True):
         for depth in (1, 2):
-            eng = step_engine(8, device="cuda", depth=depth, fused=fused)
+            eng = step_engine(8, device="cuda", depth=depth, fused=fused,
+                              cfg=cfg, params=params)
             eng.drain(max_steps=20_000)
             runs[f"cuda fused={fused} depth={depth}"] = golden(eng)
-    eng = step_engine(8, device="cpu", depth=1, fused=False)
+    eng = step_engine(8, device="cpu", depth=1, fused=False, cfg=cfg,
+                      params=params)
     eng.drain(max_steps=20_000)
     runs["cpu plain"] = golden(eng)
     first = runs["cpu plain"]
     equal = {k: v == first for k, v in runs.items()}
     decisions = sorted({g[1] for g in first})
-    emit({"phase": "step_goldens", "reads": len(first), "equal": equal,
-          "decisions": decisions})
+    emit({"phase": "step_goldens", "precision": precision,
+          "reads": len(first), "equal": equal, "decisions": decisions})
     require(len(first) == 24, f"step flowcell resolved {len(first)} of 24")
-    require(all(equal.values()), f"step goldens differ: {equal}")
+    require(all(equal.values()), f"{precision} step goldens differ: {equal}")
+    require(decisions == ["accept", "eject"],
+            f"{precision} step flowcell decided only {decisions}")
 
 
 # --------------------------------------------------------------- phase 4 --
@@ -494,55 +757,208 @@ def min_margin_on_evidence(torch, engine, rec) -> float:
     return float(top2_margin(torch, logits[0, :frames]).min().item())
 
 
+def drive_full_width(torch, eng, label, fused, want_ops):
+    """Drain one full-width flowcell engine and report its metrics."""
+    t0 = time.perf_counter()
+    rep = eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fab = {k: v for k, v in rep.items() if k.startswith("fabric.")}
+    line = {"phase": "full_width", "path": label, "fused": fused,
+            "lanes": eng.runtime.channels,
+            "chunk": eng.runtime.chunk_samples,
+            "reads": rep["reads"], "accepted": rep["accepted"],
+            "ejected": rep["ejected"], "timeouts": rep["timeouts"],
+            "exhausted": rep["exhausted"],
+            "bases": eng.telemetry.bases,
+            "bases_per_s": rep["bases_per_s"],
+            "decision_p50_ms": rep["decision_p50_ms"],
+            "decision_p99_ms": rep["decision_p99_ms"],
+            "ticks": rep["steps"],
+            "mean_tick_ms": rep["wall_s"] / max(rep["steps"], 1) * 1e3,
+            "stage_s": {k: v for k, v in rep.items()
+                        if k.startswith("stage_")},
+            "soc_energy_precision": rep["soc_energy_precision"],
+            "drain_wall_s": wall, "fabric": fab}
+    emit(line)
+    require(rep["reads"] == FULL_FLOWCELL["n_reads"],
+            f"{label} fused={fused}: {rep['reads']} reads resolved")
+    require(all(k.endswith(".cuda") for k in fab
+                if k.startswith("fabric.dispatch.")),
+            f"{label} fused={fused}: a dispatch left the card: {fab}")
+    for op in want_ops:
+        require(fab.get(f"fabric.dispatch.{op}.cuda", 0) > 0,
+                f"{label} fused={fused}: no {op} dispatch")
+    return line
+
+
 def phase_full_width(torch):
     out = {}
     engines = {}
     for fused in (True, False):
         eng = full_engine(fused)
-        t0 = time.perf_counter()
-        rep = eng.drain()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        engines[fused] = eng
-        fab = {k: v for k, v in rep.items() if k.startswith("fabric.")}
-        line = {"phase": "full_width", "fused": fused,
-                "lanes": eng.runtime.channels,
-                "chunk": eng.runtime.chunk_samples,
-                "reads": rep["reads"], "accepted": rep["accepted"],
-                "ejected": rep["ejected"], "timeouts": rep["timeouts"],
-                "exhausted": rep["exhausted"],
-                "bases": eng.telemetry.bases,
-                "bases_per_s": rep["bases_per_s"],
-                "decision_p50_ms": rep["decision_p50_ms"],
-                "decision_p99_ms": rep["decision_p99_ms"],
-                "ticks": rep["steps"],
-                "mean_tick_ms": rep["wall_s"] / max(rep["steps"], 1) * 1e3,
-                "stage_s": {k: v for k, v in rep.items()
-                            if k.startswith("stage_")},
-                "drain_wall_s": wall, "fabric": fab}
-        emit(line)
-        out[fused] = line
-        require(rep["reads"] == FULL_FLOWCELL["n_reads"],
-                f"full width fused={fused}: {rep['reads']} reads resolved")
-        require(all(k.endswith(".cuda") for k in fab
-                    if k.startswith("fabric.dispatch.")),
-                f"full width fused={fused}: a dispatch left the card: {fab}")
         want = (("fused_stream", "banded_align") if fused
                 else ("conv1d", "matmul", "banded_align"))
-        for op in want:
-            require(fab.get(f"fabric.dispatch.{op}.cuda", 0) > 0,
-                    f"full width fused={fused}: no {op} dispatch")
+        out[fused] = drive_full_width(torch, eng, "flowcell_512", fused, want)
+        engines[fused] = eng
     g_f, g_u = golden(engines[True]), golden(engines[False])
     by_id = {r.read_id: r for r in engines[True].records}
     differ = [a[0] for a, b in zip(g_f, g_u) if a != b]
     margins = {rid: min_margin_on_evidence(torch, engines[True], by_id[rid])
                for rid in differ}
-    emit({"phase": "full_width_goldens", "reads": len(g_f),
-          "differing_reads": len(differ),
+    emit({"phase": "full_width_goldens", "path": "flowcell_512",
+          "reads": len(g_f), "differing_reads": len(differ),
           "differing_min_margins": margins})
     require(len(g_f) == len(g_u), "fused and unfused resolved other reads")
     require(all(m < 1e-4 for m in margins.values()),
             f"fused/unfused goldens differ away from a near tie: {margins}")
+    return out
+
+
+def int8_engine(cfg, qparams, fused):
+    import repro_torch.engine as te
+    return te.build("adaptive_sampling", preset="edge_int8", cfg=cfg,
+                    params=qparams, channels=512, chunk=256,
+                    pipeline_depth=2, flowcell=dict(FULL_FLOWCELL),
+                    fused=fused)
+
+
+def phase_full_width_int8(torch, cfg, qparams):
+    """edge_int8 at full width, fused and unfused: integer sums, so the
+    goldens must be equal read for read, with no near-tie exception."""
+    engines, out = {}, {}
+    for fused in (True, False):
+        eng = int8_engine(cfg, qparams, fused)
+        want = (("fused_stream", "banded_align") if fused
+                else ("conv1d", "matmul", "banded_align"))
+        out[fused] = drive_full_width(torch, eng, "edge_int8", fused, want)
+        require(out[fused]["soc_energy_precision"] == "int8",
+                "edge_int8 engine is not int8")
+        engines[fused] = eng
+    g_f, g_u = golden(engines[True]), golden(engines[False])
+    differ = sum(a != b for a, b in zip(g_f, g_u))
+    emit({"phase": "full_width_goldens", "path": "edge_int8",
+          "reads": len(g_f), "differing_reads": differ})
+    require(len(g_f) == len(g_u) and differ == 0,
+            f"edge_int8 fused/unfused goldens differ in {differ} reads")
+    return out
+
+
+def int8_ticks_vs_cpu(torch, cfg, qparams, lanes=8, chunk=256, ticks=3):
+    """Three ticks on 8 lanes, fused and unfused on the card against the
+    CPU's plain unfused run: tokens, lens and every lane-state leaf bit for
+    bit (lane 3 recycled at tick 1)."""
+    from repro_torch.core import basecaller as bc
+    from repro_torch.realtime.runtime import build_step_fn, init_lane_state
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    runs = {}
+    for name, dev, fused in (("cpu plain", cpu, False),
+                             ("cuda unfused", cuda, False),
+                             ("cuda fused", cuda, True)):
+        params = bc.params_to(qparams, dev)
+        gen = torch.Generator().manual_seed(5)
+        lane = init_lane_state(cfg, lanes, device=dev)
+        step = build_step_fn(cfg, fused=fused)
+        outs = []
+        for t in range(ticks):
+            rows = torch.randn((lanes, chunk), generator=gen).to(dev)
+            pads = torch.zeros((lanes, chunk // cfg.total_stride),
+                               device=dev)
+            reset = torch.zeros((lanes,), device=dev)
+            if t == 1:
+                reset[3] = 1.0
+            if fused:
+                tok, lens, lane = step(params, lane, rows, pads, reset)
+            else:
+                if t == 1:
+                    for leaf in (*lane["conv"], lane["prev_class"],
+                                 lane["bases"], lane["ticks"]):
+                        leaf[3] = 0
+                tok, lens, lane = step(params, lane, rows, pads)
+            outs += [tok.cpu(), lens.cpu()]
+        outs += [t.cpu() for t in (*lane["conv"], lane["prev_class"],
+                                   lane["bases"], lane["ticks"])]
+        runs[name] = outs
+    want = runs["cpu plain"]
+    equal = {k: all(torch.equal(a, b) for a, b in zip(v, want))
+             for k, v in runs.items()}
+    emit({"phase": "int8_ticks_vs_cpu", "lanes": lanes, "chunk": chunk,
+          "ticks": ticks, "equal": equal,
+          "bases_called": int(sum(int(t.sum()) for t in want[1:2 * ticks:2]))})
+    require(all(equal.values()), f"int8 ticks differ from the CPU: {equal}")
+
+
+# --------------------------------------------------------------- phase 5 --
+BASECALL_ROWS = 32          # two dispatches of the preset's 16 x 2048
+
+
+def split_margin(torch, bc, cfg, card, cpu_params, sig, i) -> float:
+    """Largest plain top-2 margin over the frames of row ``i`` whose class
+    differs between the card (its dispatch's rows, through the kernels)
+    and the CPU's plain run; inf when no class differs."""
+    from repro_torch.core import ctc
+    b0 = i - i % card.batch
+    rows = torch.from_numpy(sig[b0:b0 + card.batch])
+    on_card = bc.apply(card.params, rows.to(card.device), cfg)[i - b0].cpu()
+    plain = bc.apply(cpu_params, rows, cfg)[i - b0]
+    split = ctc.argmax_classes(on_card) != ctc.argmax_classes(plain)
+    if not bool(split.any()):
+        return float("inf")
+    return float(top2_margin(torch, plain)[split].max().item())
+
+
+def phase_basecall(torch, cfg, params, run_card):
+    """The basecall workload on the card (``run_card``, whose launches are
+    counted; the edge_int8 builder calibrates ``params`` on the card at
+    chunk 2048) and on the CPU plain run with the card engine's params:
+    int8 reads equal; a float read may differ only where every frame whose
+    class differs has a plain top-2 margin under 1e-4."""
+    import numpy as np
+
+    import repro_torch.engine as te
+    from repro_torch.core import basecaller as bc
+    sig = np.random.default_rng(11).standard_normal(
+        (BASECALL_ROWS, 2048)).astype(np.float32)
+    out = {}
+    for preset in ("default", "edge_int8"):
+        card, reads, wall = run_card(preset, params, sig)
+        rep = card.summary()
+        cpu_params = bc.params_to(card.params, "cpu")
+        cpu = te.build("basecall", preset=preset, cfg=cfg, params=cpu_params,
+                       device="cpu")
+        want = cpu.serve(sig)
+        differ = [i for i, (a, b) in enumerate(zip(reads, want))
+                  if not np.array_equal(a, b)]
+        margins = {i: split_margin(torch, bc, cfg, card, cpu_params, sig, i)
+                   for i in differ}
+        line = {"phase": "basecall", "preset": preset,
+                "rows": BASECALL_ROWS, "chunk": 2048, "batch": card.batch,
+                "dispatches": rep["dispatches"],
+                "dispatch_p50_ms": rep["p50_ms"],
+                "dispatch_p99_ms": rep["p99_ms"],
+                "bases": card.telemetry.bases,
+                "bases_per_s": rep["bases_per_s"],
+                "samples_per_s": rep["samples_per_s"],
+                "serve_wall_s": wall,
+                "stage_s": {k: v for k, v in rep.items()
+                            if k.startswith("stage_")},
+                "soc_energy_precision": rep["soc_energy_precision"],
+                "reads_differing_from_cpu": len(differ),
+                "differing_split_margins": margins,
+                "fabric": {k: v for k, v in rep.items()
+                           if k.startswith("fabric.")}}
+        emit(line)
+        out[preset] = line
+        require(len(reads) == len(want) == BASECALL_ROWS,
+                f"basecall {preset}: {len(reads)} reads")
+        require(card.telemetry.bases > 0, f"basecall {preset}: no bases")
+        if preset == "edge_int8":
+            require(not differ, f"basecall edge_int8: reads {differ} differ "
+                    "from the CPU")
+        else:
+            require(all(m < 1e-4 for m in margins.values()),
+                    f"basecall default: reads differ away from a near tie: "
+                    f"{margins}")
     return out
 
 
@@ -556,14 +972,51 @@ KERNELS = {
                      "src/repro/kernels/fused_stream.py:376"),
     "banded_align": ("src/repro_torch/kernels/csrc/banded_align.cu",
                      "src/repro/kernels/edit_distance.py:115"),
+    "conv1d_int8": ("src/repro_torch/kernels/csrc/conv1d.cu",
+                    "src/repro/kernels/conv1d.py:122"),
+    "matmul_int8": ("src/repro_torch/kernels/csrc/matmul.cu",
+                    "src/repro/kernels/matmul.py:120"),
+    "fused_stream_int8": ("src/repro_torch/kernels/csrc/fused_stream.cu",
+                          "src/repro/kernels/fused_stream.py:376"),
 }
 
 
 def launch_counters():
+    """Each kernel's launch count: (wrapper, attribute)."""
     from repro_torch.kernels import conv1d, edit_distance, fused_stream, matmul
-    return {"conv1d": conv1d.conv1d, "matmul": matmul.matmul,
-            "fused_stream": fused_stream.fused_stream_cuda,
-            "banded_align": edit_distance.banded_align}
+    fs = fused_stream.fused_stream_cuda
+    return {"conv1d": (conv1d.conv1d, "launches"),
+            "matmul": (matmul.matmul, "launches"),
+            "fused_stream": (fs, "launches"),
+            "banded_align": (edit_distance.banded_align, "launches"),
+            "conv1d_int8": (conv1d.conv1d_int8, "launches"),
+            "matmul_int8": (matmul.matmul_int8, "launches"),
+            "fused_stream_int8": (fs, "launches_int8")}
+
+
+class PathLaunches:
+    """Counts every kernel from 0 just before one main path and reads the
+    counts just after it; fails if a kernel of the path never launched."""
+
+    def __init__(self):
+        self.counters = launch_counters()
+        self.total = {k: 0 for k in self.counters}
+        self.paths = {}
+
+    def drive(self, path, kernels, fn):
+        for wrapper, attr in self.counters.values():
+            setattr(wrapper, attr, 0)
+        result = fn()
+        counts = {k: getattr(w, a) for k, (w, a) in self.counters.items()}
+        self.paths[path] = {k: v for k, v in counts.items() if v}
+        for k, v in counts.items():
+            self.total[k] += v
+        emit({"phase": "launches", "path": path, "launches":
+              self.paths[path]})
+        for k in kernels:
+            require(counts[k] > 0, f"kernel {k} never launched on the "
+                    f"{path} path")
+        return result
 
 
 def main() -> int:
@@ -582,6 +1035,8 @@ def main() -> int:
     sys.path.insert(0, SRC)
     import torch.nn.functional as F
 
+    from repro_torch.core import basecaller as bc
+    from repro_torch.engine.base import quantize_edge_params
     from repro_torch.kernels import _build
     from repro_torch.kernels import ref
     ref.full_fp32()
@@ -602,26 +1057,60 @@ def main() -> int:
           "ptxas": {k: [ln for ln in v.splitlines() if "registers" in ln
                         or "smem" in ln] for k, v in _build.PTXAS_LOG.items()}})
 
-    table = phase_kernels(torch, F, peaks)
-    phase_step_goldens()
+    # the paper's CNN, seed 0, and its edge_int8 form, calibrated once
+    # (chunk max(256, 512), as the adaptive builder calibrates)
+    cfg = bc.BasecallerConfig()
+    params = bc.init(torch.Generator().manual_seed(0), cfg)
+    t0 = time.perf_counter()
+    qparams = quantize_edge_params(params, cfg, chunk=512)
+    emit({"phase": "calibrate", "act_scales": {
+        k: float(v["w"].act_scale) for k, v in qparams.items()},
+        "calibrate_s": time.perf_counter() - t0})
 
-    counters = launch_counters()
-    for fn in counters.values():
-        fn.launches = 0
-    phase_full_width(torch)
-    launches = {k: fn.launches for k, fn in counters.items()}
-    for k, n in launches.items():
-        require(n > 0, f"kernel {k} never launched on the main path")
+    table = phase_kernels(torch, F, peaks)
+    phase_kernels_int8(torch, peaks, table, cfg, qparams,
+                       torch.Generator().manual_seed(2))
+    phase_step_goldens()
+    scfg, sparams = quantize_step_codec()
+    phase_step_goldens("int8", scfg, sparams)
+
+    paths = PathLaunches()
+    paths.drive("flowcell_512 fp32",
+                ("conv1d", "matmul", "fused_stream", "banded_align"),
+                lambda: phase_full_width(torch))
+    paths.drive("edge_int8 full width",
+                ("conv1d_int8", "matmul_int8", "fused_stream_int8",
+                 "banded_align"),
+                lambda: phase_full_width_int8(torch, cfg, qparams))
+    int8_ticks_vs_cpu(torch, cfg, qparams)
+
+    import repro_torch.engine as te
+
+    def run_card(preset, p, sig):
+        def serve():
+            eng = te.build("basecall", preset=preset, cfg=cfg, params=p)
+            eng.serve(sig[:eng.batch])                 # warm-up dispatch
+            eng.telemetry = type(eng.telemetry)(workload=eng.workload)
+            t0 = time.perf_counter()
+            reads = eng.serve(sig)
+            torch.cuda.synchronize()
+            return eng, reads, time.perf_counter() - t0
+        want = (("conv1d_int8", "matmul_int8") if preset == "edge_int8"
+                else ("conv1d", "matmul"))
+        return paths.drive(f"basecall {preset}", want, serve)
+    phase_basecall(torch, cfg, params, run_card)
 
     kernels = []
     for k, (src, replaces) in KERNELS.items():
         r = table.rows[k]
         kernels.append({
             "name": k, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[k], "max_abs_err": r["max_abs_err"],
+            "launches": paths.total[k], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
+    for k in kernels:
+        require(k["launches"] > 0, f"kernel {k['name']} never launched")
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

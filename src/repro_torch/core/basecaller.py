@@ -7,6 +7,8 @@ tensors, the JAX layout, so :func:`load_numpy_params` carries a JAX
 parameter tree across unchanged.  Every conv layer runs through
 ``kernels.ops.conv1d`` / ``conv1d_stream`` and the k=1 head through
 ``kernels.ops.mat_mul``; the tensors' device picks kernel or plain version.
+A weight stored as a :class:`repro_torch.quant.QuantizedTensor` (from
+:func:`quantize`) runs every layer on the int8 MAC path.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.conv1d import stream_carry_len
+from repro_torch.quant import core as qcore
 
 NUM_CLASSES = 5  # blank + ACGT
 
@@ -64,13 +67,46 @@ def init(generator: torch.Generator, cfg: BasecallerConfig = BasecallerConfig(),
     return params
 
 
+_QT_KEYS = frozenset({"q", "scale", "axis", "act_scale"})
+
+
+def _tensor(a, dev):
+    return torch.from_numpy(np.array(a, copy=True)).to(dev)
+
+
 def load_numpy_params(tree, device="cuda"):
     """A parameter tree of numpy arrays (e.g. ``jax.tree.map(np.asarray,
-    params)`` of the JAX package's CNN) as tensors on ``device``."""
+    params)`` of the JAX package's CNN) as tensors on ``device``.  A
+    quantized weight comes as a dict ``{"q", "scale", "axis",
+    "act_scale"}`` of numpy arrays (``axis`` an int or None, ``act_scale``
+    None when uncalibrated), or as any object with those four attributes
+    (a JAX ``QuantizedTensor`` after ``jax.tree.map(np.asarray, ...)``),
+    and loads as a :class:`QuantizedTensor`."""
     dev = resolve_device(device)
+    if isinstance(tree, dict) and set(tree) == _QT_KEYS:
+        fields = tree
+    elif all(hasattr(tree, k) for k in _QT_KEYS):
+        fields = {k: getattr(tree, k) for k in _QT_KEYS}
+    else:
+        fields = None
+    if fields is not None:
+        axis, sa = fields["axis"], fields["act_scale"]
+        return qcore.QuantizedTensor(
+            _tensor(fields["q"], dev), _tensor(fields["scale"], dev),
+            None if axis is None else int(axis),
+            None if sa is None else _tensor(sa, dev))
     if isinstance(tree, dict):
         return {k: load_numpy_params(v, dev) for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree, copy=True)).to(dev)
+    return _tensor(tree, dev)
+
+
+def params_to(params, device):
+    """The parameter dict with every tensor (and quantized weight) moved to
+    ``device``."""
+    dev = resolve_device(device)
+    if isinstance(params, dict):
+        return {k: params_to(v, dev) for k, v in params.items()}
+    return params.to(dev)
 
 
 def num_params(params) -> int:
@@ -115,9 +151,11 @@ def init_stream_state(cfg: BasecallerConfig, batch: int, *, device="cuda"):
 
 
 def _conv1x1_as_matmul(x, w, b, activation):
-    """A k=1/stride=1 conv is a GEMM: the head runs on the matmul kernel."""
+    """A k=1/stride=1 conv is a GEMM: the head runs on the matmul kernel
+    (a quantized head on the int8 one)."""
     bsz, t, cin = x.shape
-    y = ops.mat_mul(x.reshape(bsz * t, cin), w[0], b, activation=activation)
+    w2 = w.head_matrix() if qcore.is_quantized(w) else w[0]
+    y = ops.mat_mul(x.reshape(bsz * t, cin), w2, b, activation=activation)
     return y.reshape(bsz, t, w.shape[-1])
 
 
@@ -178,6 +216,45 @@ def apply(params, signal: torch.Tensor,
             x = ops.conv1d(x, p["w"], p["b"], stride=sp.stride,
                            padding="same", activation=sp.activation)
     return x
+
+
+def layer_inputs(params, signal: torch.Tensor,
+                 cfg: BasecallerConfig = BasecallerConfig()):
+    """Yield ``(scope, activation)`` pairs, each conv layer's *input*, for
+    calibration observers (:func:`repro_torch.quant.calibrate`).  Runs the
+    float forward pass ("same" padding) on the params' device; call it with
+    the float params."""
+    x = _as_frames(signal, cfg)
+    for sp in stream_layer_specs(cfg):
+        p = params[sp.name]
+        yield sp.name, x
+        x = ops.conv1d(x, p["w"], p["b"], stride=sp.stride, padding="same",
+                       activation=sp.activation)
+
+
+def layer_inputs_stream(params, chunks,
+                        cfg: BasecallerConfig = BasecallerConfig()):
+    """Calibration feed over a stream of signal chunks (numpy or tensors),
+    each moved to the params' device."""
+    dev = params[stream_layer_specs(cfg)[0].name]["w"].device
+    for chunk in chunks:
+        yield from layer_inputs(params, torch.as_tensor(chunk).to(dev), cfg)
+
+
+def quantize(params, cfg: BasecallerConfig = BasecallerConfig(), *,
+             chunks=None, observer: str = "minmax", **observer_kwargs):
+    """Calibrate once, quantize once: int8 params for this CNN
+    (``repro/core/basecaller.py::quantize``).  ``chunks`` are ``(B, T)``
+    signal chunks to calibrate the activation scales from; without them
+    the activations quantize per call (weight-only), which breaks the
+    chunked == whole-read equivalence of streaming, so streaming callers
+    pass ``chunks``."""
+    from repro_torch import quant
+    calib = None
+    if chunks is not None:
+        calib = quant.calibrate(layer_inputs_stream(params, chunks, cfg),
+                                observer=observer, **observer_kwargs)
+    return quant.quantize_params(params, calib)
 
 
 def output_len(cfg: BasecallerConfig, t: int) -> int:

@@ -4,17 +4,17 @@
 Wires :class:`repro_torch.realtime.runtime.AdaptiveSamplingRuntime`
 (channel-lane scheduling, streaming basecalls, prefix mapping, policy)
 from serving-level inputs — a reference genome and target intervals.
-``submit`` accepts a raw signal array or a ``SimulatedRead``.
-
-Not ported in this slice: the ``edge_int8`` preset (the int8 slice) and the
-``soc_energy_*`` summary keys (they need ``core/soc_model.py`` and
-``quant``).
+``submit`` accepts a raw signal array or a ``SimulatedRead``.  The
+``edge_int8`` preset stores the CNN int8 once at build
+(:func:`repro_torch.engine.base.quantize_edge_params`) and runs every tick
+on the int8 kernels; the summary carries the ``soc_energy_*`` block.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from repro_torch.device import resolve_device
+from repro_torch.engine.base import energy_block, quantize_edge_params
 from repro_torch.engine.registry import register
 
 
@@ -29,7 +29,7 @@ class AdaptiveSamplingEngine:
     def __init__(self, params, bc_cfg, reference, target_intervals, *,
                  channels: int = 32, chunk: int = 256, policy=None,
                  align_cfg=None, device="cuda", mesh=None,
-                 pipeline_depth: int = 1, flowcell=None, fused: bool = False):
+                 pipeline_depth: int = 1, flowcell=None, fused=None):
         from repro_torch.realtime.mapper import (PREFIX_ALIGN_CFG,
                                                  PrefixMapper, TargetPanel)
         from repro_torch.realtime.policy import PolicyConfig
@@ -101,10 +101,18 @@ class AdaptiveSamplingEngine:
         self.runtime.flush()
 
     def drain(self, max_steps: int = 100_000) -> dict:
-        return self.runtime.run(max_steps)
+        out = self.runtime.run(max_steps)
+        out.update(self._energy())
+        return out
 
     def summary(self) -> dict:
-        return self.runtime.report()
+        out = self.runtime.report()
+        out.update(self._energy())
+        return out
+
+    def _energy(self) -> dict:
+        return energy_block(self.runtime.params, self.runtime.cfg,
+                            self.telemetry.samples)
 
 
 @register("adaptive_sampling", presets={
@@ -126,22 +134,19 @@ def build_adaptive_sampling(params=None, cfg=None, reference=None,
                             targets=None, *, channels: int, chunk: int,
                             quantize=None, policy=None, align_cfg=None,
                             device="cuda", mesh=None, pipeline_depth: int = 1,
-                            flowcell=None, seed: int = 0,
-                            fused: bool = False):
+                            flowcell=None, seed: int = 0, fused=None):
     """Builder: supply (params, cfg) + reference/targets, or get a fresh CNN
     drawn from ``seed`` over a random reference with the first quarter as
     target.  A step-encoded flowcell with no explicit params gets the exact
-    :func:`repro_torch.data.flowcell.step_basecaller`.  ``fused=True`` runs
-    each tick as the single fused kernel; decisions are identical either
-    way."""
+    :func:`repro_torch.data.flowcell.step_basecaller`.  ``quantize="int8"``
+    (the ``edge_int8`` preset) stores the CNN weights int8 once; every tick
+    then basecalls on the int8 kernels.  ``fused=True`` runs each tick as
+    the single fused kernel, ``None`` does so on the card; decisions are
+    identical either way."""
     import torch
 
     from repro_torch.core import basecaller as bc
 
-    if quantize is not None:
-        raise NotImplementedError(
-            f"quantize={quantize!r} (the edge_int8 preset) is not ported "
-            "yet: it comes with the int8 slice (quant/*, the int8 kernels)")
     dev = resolve_device(device)
     fc_encoder = None
     if isinstance(flowcell, dict):
@@ -156,6 +161,9 @@ def build_adaptive_sampling(params=None, cfg=None, reference=None,
     if params is None:
         params = bc.init(torch.Generator().manual_seed(seed), cfg,
                          device=dev)
+    if quantize is not None:
+        params = quantize_edge_params(params, cfg, scheme=quantize,
+                                      chunk=max(chunk, 512), seed=seed)
     if reference is None:
         from repro_torch.data import genome as G
         reference = G.random_genome(np.random.default_rng(seed), 20_000)

@@ -1,0 +1,49 @@
+"""What the basecalling engines share (``repro/engine/base.py``): the SoC
+energy block of their summaries and the build-time int8 quantization
+behind the ``edge_int8`` presets."""
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+
+
+def energy_block(params, cfg, samples) -> dict:
+    """The ``soc_energy_*`` keys for an engine with CNN ``params`` and a
+    ``BasecallerConfig`` (none otherwise)."""
+    from repro_torch.core.basecaller import BasecallerConfig
+    if params is None or not isinstance(cfg, BasecallerConfig):
+        return {}
+    from repro_torch.core.soc_model import energy_summary
+    return energy_summary(params, cfg, samples)
+
+
+def quantize_edge_params(params, bc_cfg, *, scheme: str = "int8",
+                         chunk: int = 2048, calib_chunks: int = 4,
+                         seed: int = 0):
+    """Build-time quantization behind the ``edge_int8`` presets.
+
+    Calibrates the activation scales from ``calib_chunks`` seeded
+    ``(2, chunk)`` normal chunks (percentile observer, 99.9) and stores the
+    CNN weights int8 once, per output channel.  Params that already carry
+    stored int8 pass through (with a warning when they lack calibrated
+    activation scales: dynamic scales are chunk-local, so streaming will
+    not equal the whole-read output)."""
+    if scheme != "int8":
+        raise ValueError(f"unknown quantization scheme {scheme!r}")
+    from repro_torch import quant
+    from repro_torch.core import basecaller as bc
+    from repro_torch.quant.params import param_leaves
+    if quant.params_precision(params) == "int8":
+        if any(quant.is_quantized(x) and x.act_scale is None
+               for _, x in param_leaves(params)):
+            warnings.warn(
+                "edge_int8: supplied quantized params have no calibrated "
+                "activation scales; streaming basecalls will not equal the "
+                "whole-read output", stacklevel=3)
+        return params
+    rng = np.random.default_rng(seed)
+    chunks = [rng.normal(size=(2, chunk)).astype(np.float32)
+              for _ in range(calib_chunks)]
+    return bc.quantize(params, bc_cfg, chunks=chunks, observer="percentile",
+                       pct=99.9)

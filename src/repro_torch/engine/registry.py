@@ -6,7 +6,7 @@
 
 ``build`` resolves the workload's builder, starts from the named preset's
 keywords and applies ``**overrides`` on top.  Workload modules import
-lazily.  This slice ports one workload, ``adaptive_sampling``.
+lazily.  Two workloads are ported: ``adaptive_sampling`` and ``basecall``.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ from typing import Any, Callable, Optional
 
 _WORKLOAD_MODULES: dict[str, str] = {
     "adaptive_sampling": "repro_torch.engine.adaptive",
+    "basecall": "repro_torch.engine.basecall",
 }
 
 _BUILDERS: dict[str, Callable[..., Any]] = {}

@@ -19,18 +19,34 @@
 // one float4 weight read feeds 16 FMAs.  Sums run in the order of conv1d.cu
 // and matmul.cu (for ci: for k: fmaf), so the fused tick equals the unfused
 // kernels bit for bit.  fp32 FMAs on the CUDA cores, not TF32.
+//
+// int8 layers (the edge_int8 preset; the fused_stream_kernel<true>
+// instantiation): activations and carries stay fp32 in the ping-pong
+// buffers, and the carry is written from them before quantization, as in
+// the Pallas body.  A quantized layer first quantizes its whole input into
+// an int8 buffer after the class buffer (conv2's 16.7 KB at chunk 256, so
+// ~139 KB in all), then MACs int8 x int8 -> int32 with __dp4a against
+// weights packed four input channels to a word (1/4 the fp32 bytes, read
+// from L2), and applies the epilogue fma(float(acc), act_scale * w_scale,
+// bias) with one rounding, the arithmetic of the unfused int8 path.
 #include <cstdint>
 
 #include "common.cuh"
 
 constexpr int FS_MAX_LAYERS = 8;
+constexpr int FS_QMAX = 127;
 
 struct FsLayer {
-  const float* w;          // (K, cin, cout)
+  // fp32 layers: fp32 (K, cin, cout).  int8 layers: int32 words packing
+  // four input channels, (K, cin/4, cout), when cin % 4 == 0, else int8
+  // (K, cin, cout).
+  const void* w;
   const float* b;          // (cout,)
   const float* carry_in;   // (lanes, K - stride, cin) or null
   float* carry_out;        // (lanes, K - stride, cin) or null
-  int K, stride, cin, cout, act;
+  const float* scale;      // int8 layers: act_scale * w.scale, (cout,)
+  const float* act_scale;  // int8 layers: the input's calibrated scale
+  int K, stride, cin, cout, act, quantized;
 };
 
 struct FsParams {
@@ -74,7 +90,8 @@ __device__ __forceinline__ void conv_layer(const FsLayer& L, const float* in,
     }
     for (int ci = 0; ci < cin; ++ci) {
       for (int k = 0; k < K; ++k) {
-        const float* wp = L.w + (static_cast<size_t>(k) * cin + ci) * cout + co;
+        const float* wp = static_cast<const float*>(L.w) +
+                          (static_cast<size_t>(k) * cin + ci) * cout + co;
         float wv[CT];
         if constexpr (CT == 4) {
           const float4 w4 = *reinterpret_cast<const float4*>(wp);
@@ -101,10 +118,130 @@ __device__ __forceinline__ void conv_layer(const FsLayer& L, const float* in,
   }
 }
 
-__global__ void fused_stream_kernel(const FsParams p) {
+// One int8 layer of one lane: `q` holds the quantized [carry | input] rows
+// (int8, or int32 words of four channels when PACKED).  Each thread keeps
+// an RT x CT int32 register tile fed by __dp4a (scalar int MACs when the
+// layer's cin is not a multiple of 4), then applies the epilogue of
+// kernels/ops.py _int8_epilogue as one rounding: fma(float(acc), scale,
+// bias), then the activation.
+template <int RT, int CT, bool PACKED>
+__device__ __forceinline__ void conv_layer_int8(const FsLayer& L,
+                                                const int8_t* q, float* o,
+                                                int t_out, int tid, int nt) {
+  const int cin = L.cin, cout = L.cout, K = L.K, s = L.stride;
+  const int cw = PACKED ? cin / 4 : cin;  // elements per row
+  const int groups = (t_out + RT - 1) / RT;
+  const int cgroups = cout / CT;
+  for (int item = tid; item < groups * cgroups; item += nt) {
+    const int co = (item % cgroups) * CT;
+    const int tl0 = (item / cgroups) * RT;
+    int off[RT];
+    int acc[RT][CT];
+#pragma unroll
+    for (int j = 0; j < RT; ++j) {
+      off[j] = min(tl0 + j, t_out - 1) * s * cw;
+#pragma unroll
+      for (int c = 0; c < CT; ++c) acc[j][c] = 0;
+    }
+    for (int ci = 0; ci < cw; ++ci) {
+      for (int k = 0; k < K; ++k) {
+        int wv[CT];
+        if constexpr (PACKED) {
+          const int32_t* wp = static_cast<const int32_t*>(L.w) +
+                              (static_cast<size_t>(k) * cw + ci) * cout + co;
+          if constexpr (CT == 4) {
+            const int4 w4 = *reinterpret_cast<const int4*>(wp);
+            wv[0] = w4.x; wv[1] = w4.y; wv[2] = w4.z; wv[3] = w4.w;
+          } else {
+            wv[0] = *wp;
+          }
+          const int32_t* xc = reinterpret_cast<const int32_t*>(q) + k * cw + ci;
+#pragma unroll
+          for (int j = 0; j < RT; ++j) {
+            const int xv = xc[off[j]];
+#pragma unroll
+            for (int c = 0; c < CT; ++c) acc[j][c] = __dp4a(xv, wv[c], acc[j][c]);
+          }
+        } else {
+          const int8_t* wp = static_cast<const int8_t*>(L.w) +
+                             (static_cast<size_t>(k) * cw + ci) * cout + co;
+          if constexpr (CT == 4) {
+            const char4 w4 = *reinterpret_cast<const char4*>(wp);
+            wv[0] = w4.x; wv[1] = w4.y; wv[2] = w4.z; wv[3] = w4.w;
+          } else {
+            wv[0] = *wp;
+          }
+          const int8_t* xc = q + k * cw + ci;
+#pragma unroll
+          for (int j = 0; j < RT; ++j) {
+            const int xv = xc[off[j]];
+#pragma unroll
+            for (int c = 0; c < CT; ++c) acc[j][c] += xv * wv[c];
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < RT; ++j) {
+      if (tl0 + j >= t_out) continue;
+#pragma unroll
+      for (int c = 0; c < CT; ++c) {
+        const float v = __fmaf_rn(__int2float_rn(acc[j][c]), L.scale[co + c],
+                                  L.b[co + c]);
+        o[(tl0 + j) * cout + co + c] = activate(v, L.act);
+      }
+    }
+  }
+}
+
+// quantize n floats with the calibrated scale, as quant/core.py quantize:
+// a true division, round half to even, clip to +-127
+__device__ __forceinline__ void quantize_rows(const float* in, int8_t* q,
+                                              int n, float sa, int tid,
+                                              int nt) {
+  for (int i = tid; i < n; i += nt) {
+    const int v = __float2int_rn(__fdiv_rn(in[i], sa));
+    q[i] = static_cast<int8_t>(max(-FS_QMAX, min(FS_QMAX, v)));
+  }
+}
+
+template <bool INT8>
+__device__ __forceinline__ void run_layer(const FsLayer& L, const float* in,
+                                          int8_t* qbuf, float* o, int t_in,
+                                          int t_out, int tid, int nt) {
+  if (INT8 && L.quantized) {
+    quantize_rows(in, qbuf, (L.K - L.stride + t_in) * L.cin, *L.act_scale,
+                  tid, nt);
+    __syncthreads();
+    const bool packed = L.cin % 4 == 0;
+    const bool wide = L.cout % 4 == 0 &&
+                      reinterpret_cast<uintptr_t>(L.w) % (packed ? 16 : 4) == 0;
+    if (packed) {
+      if (wide)
+        conv_layer_int8<4, 4, true>(L, qbuf, o, t_out, tid, nt);
+      else
+        conv_layer_int8<8, 1, true>(L, qbuf, o, t_out, tid, nt);
+    } else {
+      if (wide)
+        conv_layer_int8<4, 4, false>(L, qbuf, o, t_out, tid, nt);
+      else
+        conv_layer_int8<8, 1, false>(L, qbuf, o, t_out, tid, nt);
+    }
+    return;
+  }
+  if (L.cout % 4 == 0 && reinterpret_cast<uintptr_t>(L.w) % 16 == 0)
+    conv_layer<4, 4>(L, in, o, t_out, tid, nt);
+  else
+    conv_layer<8, 1>(L, in, o, t_out, tid, nt);
+}
+
+template <bool INT8>
+__global__ void __launch_bounds__(512) fused_stream_kernel(const FsParams p) {
   extern __shared__ float smem[];
   float* bufs[2] = {smem, smem + p.buf0};
   int* cls = reinterpret_cast<int*>(smem + p.buf0 + p.buf1);
+  // int8 layers: the quantized input rows, after the class buffer
+  int8_t* qbuf = reinterpret_cast<int8_t*>(cls + p.n_frames);
   const int lane = blockIdx.x;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
@@ -145,10 +282,7 @@ __global__ void fused_stream_kernel(const FsParams p) {
     }
     float* o = outb + next_nc;
     const int t_out = t_in / L.stride;
-    if (L.cout % 4 == 0 && reinterpret_cast<uintptr_t>(L.w) % 16 == 0)
-      conv_layer<4, 4>(L, in, o, t_out, tid, nt);
-    else
-      conv_layer<8, 1>(L, in, o, t_out, tid, nt);
+    run_layer<INT8>(L, in, qbuf, o, t_in, t_out, tid, nt);
     t_in = t_out;
   }
   __syncthreads();
@@ -190,8 +324,10 @@ __global__ void fused_stream_kernel(const FsParams p) {
   }
 }
 
-// meta: n_layers x (K, stride, cin, cout, act); ptrs: n_layers x (w, b,
-// carry_in, carry_out).  Both are host arrays.
+// meta: n_layers x (K, stride, cin, cout, act, quantized); ptrs: n_layers x
+// (w, b, carry_in, carry_out, scale, act_scale).  Both are host arrays.
+// qbytes: the int8 input buffer (0 when no layer is quantized, which runs
+// the fp32-only kernel).
 extern "C" int launch_fused_stream(const int* meta, void* const* ptrs,
                                    int n_layers, const void* rows,
                                    const void* pads, const void* reset,
@@ -200,22 +336,28 @@ extern "C" int launch_fused_stream(const int* meta, void* const* ptrs,
                                    void* prev_out, void* bases_out,
                                    void* ticks_out, int lanes, int chunk,
                                    int n_frames, int buf0, int buf1,
-                                   int threads, void* stream) {
+                                   int qbytes, int threads, void* stream) {
   if (n_layers < 1 || n_layers > FS_MAX_LAYERS)
     return static_cast<int>(cudaErrorInvalidValue);
   FsParams p;
+  bool any_int8 = false;
   for (int l = 0; l < n_layers; ++l) {
     FsLayer& L = p.layers[l];
-    L.K = meta[5 * l];
-    L.stride = meta[5 * l + 1];
-    L.cin = meta[5 * l + 2];
-    L.cout = meta[5 * l + 3];
-    L.act = meta[5 * l + 4];
-    L.w = static_cast<const float*>(ptrs[4 * l]);
-    L.b = static_cast<const float*>(ptrs[4 * l + 1]);
-    L.carry_in = static_cast<const float*>(ptrs[4 * l + 2]);
-    L.carry_out = static_cast<float*>(ptrs[4 * l + 3]);
+    L.K = meta[6 * l];
+    L.stride = meta[6 * l + 1];
+    L.cin = meta[6 * l + 2];
+    L.cout = meta[6 * l + 3];
+    L.act = meta[6 * l + 4];
+    L.quantized = meta[6 * l + 5];
+    L.w = ptrs[6 * l];
+    L.b = static_cast<const float*>(ptrs[6 * l + 1]);
+    L.carry_in = static_cast<const float*>(ptrs[6 * l + 2]);
+    L.carry_out = static_cast<float*>(ptrs[6 * l + 3]);
+    L.scale = static_cast<const float*>(ptrs[6 * l + 4]);
+    L.act_scale = static_cast<const float*>(ptrs[6 * l + 5]);
+    any_int8 = any_int8 || L.quantized;
   }
+  if (any_int8 && qbytes <= 0) return static_cast<int>(cudaErrorInvalidValue);
   p.n_layers = n_layers;
   p.rows = static_cast<const float*>(rows);
   p.pads = static_cast<const float*>(pads);
@@ -232,9 +374,18 @@ extern "C" int launch_fused_stream(const int* meta, void* const* ptrs,
   p.n_frames = n_frames;
   p.buf0 = buf0;
   p.buf1 = buf1;
-  const size_t smem = (static_cast<size_t>(buf0) + buf1 + n_frames) * sizeof(float);
-  cudaError_t err = allow_smem(fused_stream_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fused_stream_kernel<<<lanes, threads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  const size_t smem = (static_cast<size_t>(buf0) + buf1 + n_frames) * sizeof(float) +
+                      (any_int8 ? qbytes : 0);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (any_int8) {
+    err = allow_smem(fused_stream_kernel<true>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fused_stream_kernel<true><<<lanes, threads, smem, s>>>(p);
+  } else {
+    err = allow_smem(fused_stream_kernel<false>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fused_stream_kernel<false><<<lanes, threads, smem, s>>>(p);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,10 @@
-"""Tiled GEMM with a bias + activation epilogue: the CUDA kernel
-(``csrc/matmul.cu``) and its wrapper.
+"""Tiled GEMM: the CUDA kernels (``csrc/matmul.cu``) and their wrappers,
+fp32 with a bias + activation epilogue (:func:`matmul`) and int8 -> int32
+(:func:`matmul_int8`).
 
 Replaces ``repro/kernels/matmul.py::matmul`` (the Pallas bodies
-``_matmul_kernel`` / ``_matmul_nobias_kernel``).  The source note in
+``_matmul_kernel`` / ``_matmul_nobias_kernel``, with float or int8
+operands).  The source note in
 ``csrc/matmul.cu`` says what bounds the kernel on an H100 and how its
 tiling answers that.
 """
@@ -16,6 +18,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref
 
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_INT8_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, bias=None, *,
@@ -49,3 +52,33 @@ def matmul(a: torch.Tensor, b: torch.Tensor, bias=None, *,
 
 
 matmul.launches = 0
+
+
+def matmul_int8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with int32 accumulation: a (M, K) int8, b (K, N) int8 ->
+    (M, N) int32.
+
+    A CPU tensor runs the plain version (:func:`ref.matmul_int8`); a CUDA
+    tensor launches the kernel or raises."""
+    if a.device.type == "cpu":
+        return ref.matmul_int8(a, b)
+    m, k = a.shape
+    k2, n = b.shape
+    if k != k2:
+        raise ValueError(f"matmul_int8: inner dims differ, {a.shape} x "
+                         f"{b.shape}")
+    _build.check_tensor("matmul_int8 a", a, torch.int8)
+    _build.check_tensor("matmul_int8 b", b, torch.int8, device=a.device)
+    if m < 1 or n < 1:
+        raise ValueError(f"matmul_int8: empty output {m} x {n}")
+    if -(-m // 64) > 65_535:
+        raise ValueError(f"matmul_int8: M={m} exceeds the grid's y limit")
+    out = torch.empty((m, n), dtype=torch.int32, device=a.device)
+    _build.launch("matmul", "launch_matmul_int8", _INT8_ARGS, a.data_ptr(),
+                  b.data_ptr(), out.data_ptr(), m, n, k,
+                  _build.stream_handle(a.device))
+    matmul_int8.launches += 1
+    return out
+
+
+matmul_int8.launches = 0

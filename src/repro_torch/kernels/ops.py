@@ -3,8 +3,16 @@
 Each op counts its dispatch under ``fabric.dispatch.<op>.<target>`` (the
 target is the tensor's device: ``cuda`` or ``reference``) and calls the
 kernel wrapper, which launches the CUDA kernel for a CUDA tensor and runs
-the plain PyTorch version for a CPU tensor.  Float operands only: the int8
-MAC path is a later slice.
+the plain PyTorch version for a CPU tensor.
+
+Quantization: a weight passed as a
+:class:`repro_torch.quant.QuantizedTensor` takes the SoC's int8 -> int32
+MAC path on every device, as in JAX: the activation is quantized here
+(statically with the calibrated ``act_scale``, counted
+``fabric.precision.<op>.act_static``, else from this call's absmax), the
+int8 kernel accumulates in int32 (counted ``fabric.precision.<op>.int8``),
+and :func:`_int8_epilogue` dequantizes.  The per-call ``precision="int8"``
+policy on float weights is not ported (the port has no tuning tables).
 """
 from __future__ import annotations
 
@@ -15,18 +23,81 @@ from repro_torch.kernels import conv1d as _conv1d
 from repro_torch.kernels import edit_distance as _ed
 from repro_torch.kernels import fabric
 from repro_torch.kernels import matmul as _mm
+from repro_torch.kernels import ref
+from repro_torch.quant import core as qcore
+
+
+# ----------------------------------------------------------- int8 common --
+def _quantized_operands(op: str, a, w):
+    """The quantized activation and the combined dequant scale for one
+    int8 MAC dispatch: ``(aq, scale)`` with ``scale = sa * sw`` formed in
+    float32 once (``repro/kernels/ops.py::_quantized_operands``)."""
+    if w.axis is not None and w.axis % w.ndim != w.ndim - 1:
+        raise ValueError(
+            f"{op}: per-channel scales must run along the output (last) "
+            f"weight axis, got axis={w.axis} for shape {tuple(w.shape)}")
+    if w.act_scale is None:
+        sa = qcore.symmetric_scale(qcore.absmax(a))
+        scale = sa * w.scale.to(a.device)
+    else:
+        fabric.record(f"fabric.precision.{op}.act_static")
+        sa = w.act_scale
+        scale = w.dequant_scale()
+    return qcore.quantize(a, sa), scale
+
+
+def _int8_epilogue(acc, scale, bias, activation):
+    """int32 accumulator -> float32: ``fma(float(acc), scale, bias)`` with
+    one rounding, then the activation.  Under jit XLA contracts JAX's
+    ``acc.astype(f32) * scale + bias`` into that one fused multiply-add
+    (:func:`ref.fma_f32`; the CUDA kernels use ``__fmaf_rn``)."""
+    return ref.ACTIVATIONS[activation](ref.fma_f32(acc.float(), scale, bias))
+
+
+def conv1d_int8(x, w, bias=None, *, stride: int = 1,
+                activation: str = "none"):
+    """'valid' conv on the int8 MAC path: quantize, int8 conv, epilogue."""
+    aq, scale = _quantized_operands("conv1d", x, w)
+    fabric.record("fabric.precision.conv1d.int8")
+    packed = w.packed() if aq.is_cuda and w.shape[1] % 4 == 0 else None
+    acc = _conv1d.conv1d_int8(aq, w.q, stride=stride, w_packed=packed)
+    return _int8_epilogue(acc, scale, bias, activation)
+
+
+def matmul_int8(a, w, bias=None, *, activation: str = "none"):
+    """GEMM on the int8 MAC path: quantize, int8 GEMM, epilogue."""
+    aq, scale = _quantized_operands("matmul", a, w)
+    fabric.record("fabric.precision.matmul.int8")
+    return _int8_epilogue(_mm.matmul_int8(aq, w.q), scale, bias, activation)
+
+
+def int8_reference(x, w, bias=None, *, stride: int = 1,
+                   activation: str = "none"):
+    """The int8 MAC path with the plain integer conv (3-D ``w``) or GEMM
+    (2-D ``w``) on any device: the fused tick's plain twin
+    (``repro/kernels/ops.py::_conv1d_reference`` / ``_matmul_reference``)."""
+    op = "conv1d" if w.ndim == 3 else "matmul"
+    aq, scale = _quantized_operands(op, x, w)
+    fabric.record(f"fabric.precision.{op}.int8")
+    acc = (ref.conv1d_int8(aq, w.q, stride=stride) if w.ndim == 3
+           else ref.matmul_int8(aq, w.q))
+    return _int8_epilogue(acc, scale, bias, activation)
 
 
 def mat_mul(a, b, bias=None, *, activation: str = "none"):
-    """activation(a @ b + bias) for arbitrary (M, K) x (K, N)."""
+    """activation(a @ b + bias) for arbitrary (M, K) x (K, N); ``b`` may be
+    a ``QuantizedTensor`` (the int8 MAC path)."""
     fabric.dispatch("matmul", a)
+    if qcore.is_quantized(b):
+        return matmul_int8(a, b, bias, activation=activation)
     return _mm.matmul(a, b, bias, activation=activation)
 
 
 def conv1d(x, w, bias=None, *, stride: int = 1, padding: str = "same",
            activation: str = "none"):
-    """Conv1d over (B, T, Cin) with (K, Cin, Cout) weights.  ``"same"``
-    pads ``ceil(T / stride)`` outputs' worth, the smaller half on the left
+    """Conv1d over (B, T, Cin) with (K, Cin, Cout) weights (a
+    ``QuantizedTensor`` takes the int8 MAC path).  ``"same"`` pads
+    ``ceil(T / stride)`` outputs' worth, the smaller half on the left
     (``repro/kernels/ops.py``); ``"valid"`` pads nothing."""
     ksize = w.shape[0]
     if padding == "same":
@@ -37,6 +108,8 @@ def conv1d(x, w, bias=None, *, stride: int = 1, padding: str = "same",
     elif padding != "valid":
         raise ValueError(padding)
     fabric.dispatch("conv1d", x)
+    if qcore.is_quantized(w):
+        return conv1d_int8(x, w, bias, stride=stride, activation=activation)
     return _conv1d.conv1d(x.contiguous(), w, bias, stride=stride,
                           activation=activation)
 

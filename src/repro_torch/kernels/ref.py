@@ -5,7 +5,9 @@ Each function is the semantic twin of a function in ``repro/kernels/ref.py``
 kernel wrappers run these for tensors on the CPU; ``chip_smoke.py`` runs
 them on the card to hold each kernel against its plain version.
 
-Float math is IEEE float32 throughout.  A float32 product on the card
+Float math is IEEE float32 throughout; the int8 MACs (``matmul_int8``,
+``conv1d_int8``) are exact integer sums, and :func:`fma_f32` is the one
+rounding of the int8 dequant epilogue.  A float32 product on the card
 goes through cuBLAS, and a float32 convolution through cuDNN, which
 defaults to TF32; every float function here first turns TF32 off for both
 (:func:`full_fp32`), because the parity bars are float32 bars.
@@ -50,7 +52,7 @@ def _float_only(name: str, *ts) -> None:
     for t in ts:
         if t is not None and t.dtype != torch.float32:
             raise TypeError(f"{name}: float32 operands only, got {t.dtype} "
-                            "(the int8 path is a later slice)")
+                            "(int8 operands: matmul_int8 / conv1d_int8)")
 
 
 # ---------------------------------------------------------------- matmul ---
@@ -80,6 +82,67 @@ def conv1d(x, w, bias=None, *, stride: int = 1, activation: str = "none"):
     if bias is not None:
         acc = acc + bias
     return ACTIVATIONS[activation](acc)
+
+
+# ------------------------------------------------------------ int8 MACs ---
+def _int8_only(name: str, *ts) -> None:
+    for t in ts:
+        if t.dtype != torch.int8:
+            raise TypeError(f"{name}: int8 operands only, got {t.dtype}")
+
+
+def _int_product(a, b):
+    """int8 x int8 -> int32 product of (..., K) x (K, N).  CUDA has no int32
+    matmul, so both devices run it in float64: every partial sum is an
+    integer below 2**53 (at most 9 * 192 * 127**2 on the paper's CNN), so
+    the float64 sums are exact in any order."""
+    return torch.matmul(a.double(), b.double())
+
+
+def matmul_int8(a, b):
+    """a (M, K) int8 x b (K, N) int8 -> (M, N) int32."""
+    _int8_only("matmul_int8", a, b)
+    return _int_product(a, b).to(torch.int32)
+
+
+def conv1d_int8(x, w, *, stride: int = 1):
+    """'valid' strided conv, x (B, T, Cin) int8, w (K, Cin, Cout) int8 ->
+    (B, T_out, Cout) int32, as K shifted products."""
+    _int8_only("conv1d_int8", x, w)
+    ksize = w.shape[0]
+    t_out = (x.shape[1] - ksize) // stride + 1
+    acc = torch.zeros((x.shape[0], t_out, w.shape[2]), dtype=torch.float64,
+                      device=x.device)
+    for k in range(ksize):
+        xk = x[:, k: k + (t_out - 1) * stride + 1: stride]
+        acc = acc + _int_product(xk, w[k])
+    return acc.to(torch.int32)
+
+
+def fma_f32(a, b, c=None):
+    """``a * b + c`` on float32 tensors with one rounding, as CUDA's
+    ``__fmaf_rn`` and the multiply-add XLA contracts under jit.
+
+    The product of two float32 values is exact in float64.  The float64
+    sum ``s`` then rounds once more to float32, which differs from one
+    rounding only where ``s`` sits exactly halfway between two float32
+    values while the exact sum does not (TwoSum error ``e != 0``); there
+    the exact sum lies on ``e``'s side of ``s``."""
+    p = a.double() * b.double()
+    if c is None:
+        return p.float()
+    cd = c.double()
+    s = p + cd
+    v = s - p
+    e = (p - (s - v)) + (cd - v)
+    r = s.float()
+    rd = r.double()
+    other = torch.nextafter(r, torch.where(s > rd, torch.inf, -torch.inf)
+                            .to(r.dtype))
+    tie = ((rd + other.double()) * 0.5 == s) & (e != 0) & torch.isfinite(r)
+    side = torch.where(e > 0, torch.maximum(r, other),
+                       torch.minimum(r, other))
+    return torch.where(tie, side, r)
 
 
 # --------------------------------------------------------- banded align ---

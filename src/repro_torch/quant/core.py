@@ -1,0 +1,180 @@
+"""Shared int8 numerics (``repro/quant/core.py``): the one scale, clip and
+round of the port.
+
+    q = clip(round(x / s), -127, 127),   s = max(absmax, eps) / 127
+
+Symmetric, zero-point-free, per tensor (a scalar scale) or per channel (one
+scale per entry of ``axis``).  The numerics are pinned bit for bit to the
+JAX package's:
+
+- ``x / s`` is a true IEEE division.  A CUDA tensor divided by a CPU scalar
+  makes PyTorch multiply by the reciprocal instead, which can be an ulp
+  off, so every divisor here is a tensor on the dividend's device.
+- ``torch.round`` rounds half to even, as ``jnp.round`` does.
+
+:class:`QuantizedTensor` is the quantize-once container: int8 payload, its
+scales, the channel ``axis`` and an optional calibrated ``act_scale`` for
+the op's input.  It caches the layouts the CUDA kernels read (the weights
+packed four input channels to a word, and ``act_scale * scale``).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+QMAX = 127          # int8 symmetric range: [-127, 127]
+EPS = 1e-8          # absmax floor so all-zero tensors get a valid scale
+
+
+def _f32(x, device) -> torch.Tensor:
+    """``x`` as a float32 tensor on ``device`` (never a CPU scalar)."""
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def absmax(x: torch.Tensor, axis: Optional[int] = None) -> torch.Tensor:
+    """Max |x|: per tensor (0-d) or per channel of ``axis`` (1-D)."""
+    xf = x.float().abs()
+    if axis is None:
+        return xf.amax()
+    keep = axis % x.dim()
+    dims = tuple(i for i in range(x.dim()) if i != keep)
+    return xf.amax(dim=dims) if dims else xf
+
+
+def symmetric_scale(amax, *, qmax: int = QMAX, eps: float = EPS,
+                    device=None) -> torch.Tensor:
+    """The canonical scale ``max(absmax, eps) / qmax`` in float32."""
+    if device is None:
+        device = amax.device if isinstance(amax, torch.Tensor) else "cpu"
+    a = _f32(amax, device)
+    return torch.maximum(a, _f32(eps, device)) / _f32(qmax, device)
+
+
+def _broadcast_scale(scale, ndim: int, axis: Optional[int], device):
+    s = _f32(scale, device)
+    if axis is None or s.dim() == 0:
+        return s
+    if s.dim() != 1:
+        raise ValueError(f"per-channel scale must be 1-D, got {s.dim()}-D")
+    shape = [1] * ndim
+    shape[axis % ndim] = s.shape[0]
+    return s.reshape(shape)
+
+
+def quantize(x: torch.Tensor, scale, *, axis: Optional[int] = None,
+             qmax: int = QMAX) -> torch.Tensor:
+    """``clip(round(x / scale))`` as int8; ``scale`` scalar or per ``axis``."""
+    s = _broadcast_scale(scale, x.dim(), axis, x.device)
+    q = torch.round(x.float() / s)
+    return torch.clamp(q, -qmax, qmax).to(torch.int8)
+
+
+def dequantize(q: torch.Tensor, scale, *,
+               axis: Optional[int] = None) -> torch.Tensor:
+    """int8 -> float32: ``q * scale``."""
+    return q.float() * _broadcast_scale(scale, q.dim(), axis, q.device)
+
+
+def pack_words(w: torch.Tensor) -> torch.Tensor:
+    """(K, Cin, Cout) int8 -> (K, Cin/4, Cout) int32, each word holding
+    input channels 4i .. 4i+3 of one (k, cout), lowest byte first: the
+    weight operand of ``__dp4a`` in the int8 CUDA kernels."""
+    k, cin, cout = w.shape
+    if w.dtype != torch.int8 or cin % 4:
+        raise ValueError(f"pack_words: needs int8 with Cin % 4 == 0, got "
+                         f"{w.dtype} with Cin={cin}")
+    words = w.reshape(k, cin // 4, 4, cout).permute(0, 1, 3, 2).contiguous()
+    return words.view(torch.int32).reshape(k, cin // 4, cout)
+
+
+class QuantizedTensor:
+    """Quantize-once weight storage: int8 values plus their scales.
+
+    ``q``          int8 payload, the shape of the float weight it replaces
+    ``scale``      float32 0-d (per tensor) or (C,) (per channel)
+    ``axis``       the channel axis ``scale`` runs along; ``None`` = per tensor
+    ``act_scale``  calibrated 0-d scale of the op's input activation, or
+                   ``None`` to quantize the activation per call
+    """
+
+    def __init__(self, q, scale, axis=None, act_scale=None):
+        self.q = q
+        self.scale = scale
+        self.axis = axis
+        self.act_scale = act_scale
+        self._cache: dict = {}
+
+    @property
+    def shape(self):
+        return self.q.shape
+
+    @property
+    def ndim(self) -> int:
+        return self.q.dim()
+
+    @property
+    def dtype(self):
+        return self.q.dtype
+
+    @property
+    def device(self):
+        return self.q.device
+
+    def numel(self) -> int:
+        return self.q.numel()
+
+    def dequantize(self) -> torch.Tensor:
+        return dequantize(self.q, self.scale, axis=self.axis)
+
+    def to(self, device) -> "QuantizedTensor":
+        return QuantizedTensor(
+            self.q.to(device), self.scale.to(device), self.axis,
+            None if self.act_scale is None else self.act_scale.to(device))
+
+    def head_matrix(self) -> "QuantizedTensor":
+        """A (1, Cin, Cout) k=1 conv weight as the (Cin, Cout) GEMM
+        operand (per-channel scales then run along axis 1)."""
+        return QuantizedTensor(self.q[0], self.scale,
+                               None if self.axis is None else 1,
+                               self.act_scale)
+
+    def packed(self) -> torch.Tensor:
+        """The payload with four consecutive input channels packed into one
+        int32 word, ``(K, Cin/4, Cout)``: the operand of ``__dp4a`` in the
+        int8 kernels.  Cached; needs a (K, Cin, Cout) payload with
+        Cin % 4 == 0."""
+        if "packed" not in self._cache:
+            self._cache["packed"] = pack_words(self.q)
+        return self._cache["packed"]
+
+    def dequant_scale(self) -> torch.Tensor:
+        """``act_scale * scale`` in float32, broadcast to (Cout,): the
+        combined epilogue scale of a calibrated layer.  Cached."""
+        if "dequant" not in self._cache:
+            if self.act_scale is None:
+                raise ValueError("dequant_scale: no calibrated act_scale")
+            cout = self.q.shape[-1]
+            s = _f32(self.act_scale, self.q.device) * _f32(self.scale,
+                                                           self.q.device)
+            self._cache["dequant"] = s.expand(cout).contiguous()
+        return self._cache["dequant"]
+
+    def __repr__(self) -> str:
+        return (f"QuantizedTensor(shape={tuple(self.q.shape)}, "
+                f"axis={self.axis}, act_scale="
+                f"{None if self.act_scale is None else float(self.act_scale)})")
+
+
+def quantize_tensor(w: torch.Tensor, *, axis: Optional[int] = None,
+                    act_scale=None) -> QuantizedTensor:
+    """Quantize a float weight once: absmax -> scale -> int8."""
+    scale = symmetric_scale(absmax(w, axis), device=w.device)
+    if act_scale is not None:
+        act_scale = _f32(act_scale, w.device)
+    return QuantizedTensor(quantize(w, scale, axis=axis), scale, axis,
+                           act_scale)
+
+
+def is_quantized(x) -> bool:
+    return isinstance(x, QuantizedTensor)

@@ -79,6 +79,15 @@ def build_step_fn(cfg: bc.BasecallerConfig, fused: bool = False):
     return step
 
 
+def resolve_fused(fused, device: torch.device) -> bool:
+    """The fused-step choice: an explicit ``True``/``False`` wins; ``None``
+    fuses exactly where the fused op has a kernel, i.e. on the card (the JAX
+    runtime resolves ``None`` to whether the fused op's target is Pallas)."""
+    if fused is None:
+        return device.type == "cuda"
+    return bool(fused)
+
+
 def resolve_mesh(mesh) -> None:
     """The port runs on one card: ``None``, ``"auto"`` and ``1`` all mean
     that card; anything larger raises."""
@@ -133,7 +142,7 @@ class AdaptiveSamplingRuntime:
     def __init__(self, params, cfg: bc.BasecallerConfig, mapper: PrefixMapper,
                  policy: PolicyConfig = PolicyConfig(), *, channels: int = 32,
                  chunk_samples: int = 256, device="cuda", mesh=None,
-                 pipeline_depth: int = 1, source=None, fused: bool = False):
+                 pipeline_depth: int = 1, source=None, fused=None):
         if chunk_samples % cfg.total_stride:
             raise ValueError(
                 f"chunk_samples={chunk_samples} must be a multiple of the "
@@ -154,7 +163,7 @@ class AdaptiveSamplingRuntime:
         self.channels = channels
         self.chunk_samples = chunk_samples
         self.pipeline_depth = pipeline_depth
-        self.fused = bool(fused)
+        self.fused = resolve_fused(fused, self.device)
         self._step = build_step_fn(cfg, fused=self.fused)
         self.lane_state = init_lane_state(cfg, channels, device=self.device)
         self.records: list[ReadRecord] = []

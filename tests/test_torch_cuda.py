@@ -123,3 +123,102 @@ def test_step_flowcell_goldens_on_card_equal_cpu(dev):
     assert len(want) == 24
     assert run(dev, False) == want
     assert run(dev, True) == want
+
+
+# ------------------------------------------------------------------ int8 ---
+def _int8(shape, seed, dev):
+    return torch.randint(-127, 128, shape, generator=_g(seed),
+                         dtype=torch.int8).to(dev)
+
+
+@pytest.mark.parametrize("cin,cout,k,stride,t", [
+    (1, 64, 5, 1, 260),      # conv1: scalar path, 4-channel tile
+    (64, 96, 7, 1, 70),      # packed dp4a, 4-channel tile
+    (96, 192, 9, 2, 135),    # packed, strided
+    (8, 70, 5, 1, 61),       # packed, Cout % 4 != 0: 1-channel tile
+    (1, 5, 2, 2, 63),        # the step codec's conv1
+    (6, 12, 9, 2, 61)])      # Cin % 4 != 0: scalar path
+def test_conv1d_int8_kernel_bitwise(dev, cin, cout, k, stride, t):
+    x, w = _int8((5, t, cin), 10, dev), _int8((k, cin, cout), 11, dev)
+    before = kc.conv1d_int8.launches
+    got = kc.conv1d_int8(x, w, stride=stride)
+    assert kc.conv1d_int8.launches == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, ref.conv1d_int8(x, w, stride=stride))
+
+
+@pytest.mark.parametrize("m,k,n", [(1000, 37, 5), (300, 128, 128),
+                                   (65, 5, 5), (64 * 128, 128, 5)])
+def test_matmul_int8_kernel_bitwise(dev, m, k, n):
+    a, b = _int8((m, k), 12, dev), _int8((k, n), 13, dev)
+    before = km.matmul_int8.launches
+    got = km.matmul_int8(a, b)
+    assert km.matmul_int8.launches == before + 1
+    assert torch.equal(got, ref.matmul_int8(a, b))
+
+
+def _quantized_paper_cnn(dev):
+    from repro_torch.engine.base import quantize_edge_params
+    cfg = bc.BasecallerConfig()
+    params = bc.init(_g(6), cfg, device=dev)
+    for layer in params.values():
+        layer["b"] = 0.1 * torch.randn(layer["b"].shape,
+                                       generator=_g(14)).to(dev)
+    return cfg, quantize_edge_params(params, cfg, chunk=512)
+
+
+def test_fused_int8_kernel_equals_plain_and_unfused(dev):
+    from repro_torch.core import ctc
+    from repro_torch.kernels import ops
+    cfg, params = _quantized_paper_cnn(dev)
+    lanes, chunk = 9, 64
+    rows = torch.randn((lanes, chunk), generator=_g(7)).to(dev)
+    pads = torch.zeros((lanes, chunk // 4), device=dev)
+    pads[3, 8:] = 1.0
+    reset = torch.zeros((lanes,), device=dev)
+    reset[[0, 4]] = 1.0
+    conv = tuple(torch.randn((lanes, s.carry_rows, s.cin), generator=_g(8))
+                 .abs().to(dev) for s in bc.stream_layer_specs(cfg))
+    z = torch.zeros((lanes,), dtype=torch.int32, device=dev)
+    args = (rows, pads, reset, z + 2, z + 5, z + 1, conv, params)
+    before = kf.fused_stream_cuda.launches_int8
+    tok, lens, lane = kf.fused_stream_cuda(*args, cfg=cfg)
+    assert kf.fused_stream_cuda.launches_int8 == before + 1
+    ptok, plens, plane = kf._fused_reference(*args, cfg=cfg)
+    assert torch.equal(tok, ptok) and torch.equal(lens, plens)
+    for key in ("prev_class", "bases", "ticks"):
+        assert torch.equal(lane[key], plane[key])
+    for a, b in zip(lane["conv"], plane["conv"]):
+        assert torch.equal(a, b)
+    # the unfused int8 kernels on the same inputs
+    rmask = reset > 0
+    x = rows[..., None]
+    for i, sp in enumerate(bc.stream_layer_specs(cfg)):
+        p = params[sp.name]
+        if sp.is_head:
+            b, t, c = x.shape
+            x = ops.mat_mul(x.reshape(b * t, c), p["w"].head_matrix(),
+                            p["b"]).reshape(b, t, sp.cout)
+        else:
+            carry = torch.where(rmask[:, None, None], 0.0, conv[i])
+            x = ops.conv1d(torch.cat([carry, x], 1), p["w"], p["b"],
+                           stride=sp.stride, padding="valid",
+                           activation=sp.activation)
+    utok, ulens, _ = ctc.greedy_decode_stream(
+        x, torch.where(rmask, 0, z + 2), pads)
+    assert torch.equal(tok, utok) and torch.equal(lens, ulens)
+
+
+def test_edge_int8_basecall_on_card_equals_cpu(dev):
+    import repro_torch.engine as te
+    cfg, params = _quantized_paper_cnn(dev)
+    sig = np.random.default_rng(3).standard_normal((5, 700)).astype(
+        np.float32)
+    reads = {}
+    for device in ("cpu", dev):
+        eng = te.build("basecall", preset="edge_int8", cfg=cfg,
+                       params=bc.params_to(params, device), device=device,
+                       batch=4, chunk=700)
+        reads[str(device)] = eng.serve(sig)
+    for a, b in zip(*reads.values()):
+        np.testing.assert_array_equal(a, b)

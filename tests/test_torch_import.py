@@ -24,6 +24,9 @@ import repro_torch, repro_torch.engine
 import repro_torch.engine.adaptive, repro_torch.realtime
 import repro_torch.kernels.fused_stream, repro_torch.kernels.ops
 import repro_torch.data.flowcell, repro_torch.core.seed_extend
+import repro_torch.quant, repro_torch.quant.observers, repro_torch.quant.params
+import repro_torch.engine.base, repro_torch.engine.basecall
+import repro_torch.core.soc_model
 mods = sorted(m for m in sys.modules
               if m == "jax" or m.startswith("jax.")
               or m == "repro" or m.startswith("repro."))
@@ -72,6 +75,8 @@ def test_build_without_card_raises(monkeypatch):
         te.build("adaptive_sampling", preset="smoke")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         te.build("adaptive_sampling", preset="flowcell_smoke")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        te.build("basecall", preset="edge_int8")
 
 
 def test_resolve_device():
@@ -89,10 +94,13 @@ def test_one_card_mesh_and_unported_presets():
     assert resolve_mesh(1) is None
     with pytest.raises(ValueError, match="one card"):
         resolve_mesh(2)
-    with pytest.raises(NotImplementedError, match="int8 slice"):
-        te.build("adaptive_sampling", preset="edge_int8", device="cpu")
+    # every preset of the JAX engines is ported; edge_int8 stores int8
+    eng = te.build("adaptive_sampling", preset="edge_int8", device="cpu",
+                   channels=4, chunk=64)
+    assert eng.runtime.params["conv1"]["w"].q.dtype == torch.int8
     assert set(te.presets("adaptive_sampling")) == {
         "default", "smoke", "edge_int8", "flowcell_512", "flowcell_smoke"}
+    assert set(te.workloads()) == {"adaptive_sampling", "basecall"}
 
 
 def test_chip_smoke_alone_fails_without_output(tmp_path):
