@@ -7,14 +7,16 @@ Phases, each printing JSON lines:
 
 1. ``card``: the card's name and power limit (nvidia-smi) and the time to
    build the CUDA kernels with nvcc (one nvcc per source, in parallel).
-2. ``kernel``: each of the seven kernels (fp32 conv1d, matmul, fused_stream
-   and banded_align; int8 conv1d, matmul and fused_stream) against its
-   plain PyTorch version on the card, at the flowcell tick's shapes (512
-   lanes x chunk 256, the paper's CNN; int8 after the ``edge_int8``
-   calibration), the ``basecall`` workload's (16 x 2048, "same" padding;
-   fp32 also at its calibration's 2 x 2048) and edge shapes: max abs
-   error (bitwise for int32 outputs and for every int8 kernel), kernel,
-   plain and library times, and the bound the card's data sheet sets.
+2. ``kernel``: each of the eight kernels (fp32 conv1d, matmul, fused_stream
+   and banded_align; int8 conv1d, matmul and fused_stream; levenshtein)
+   against its plain PyTorch version on the card, at the flowcell tick's
+   shapes (512 lanes x chunk 256, the paper's CNN; int8 after the
+   ``edge_int8`` calibration), the ``basecall`` workload's (16 x 2048,
+   "same" padding; fp32 also at its calibration's 2 x 2048), the genomics
+   slice's (levenshtein at the demux shape, banded_align at the pathogen
+   firehose, the variant caller's convs) and edge shapes: max abs error
+   (bitwise for int32 outputs and for every int8 kernel), kernel, plain
+   and library times, and the bound the card's data sheet sets.
 3. ``step_goldens``: the step-codec flowcell (8 lanes) on the card, fused
    and unfused x pipeline depth 1 and 2, and once on the CPU (plain): all
    five per-read goldens must be equal; once with fp32 params, once with
@@ -32,7 +34,17 @@ Phases, each printing JSON lines:
    at batch 16 x chunk 2048 on the card and on the CPU (plain): int8 reads
    equal; a float read may differ only where every frame whose class
    differs between card and CPU has a plain top-2 margin < 1e-4.
-6. ``{"kernels": [...]}``: every kernel with its launches in phases 4-5,
+6. ``pathogen``: the ``pathogen_pipeline`` workload, ``default`` and
+   ``edge_int8``, at the paper's widths (32 channels x 2048 samples a
+   chunk, depth 2, one warm-up and 8 chunks of squiggles simulated from
+   pathogen-X) against the CPU (the rules of phase 5), then ``detect(256)``
+   on its reads against a 29,903- and a 10,000-base panel: every read x
+   window score equal to the plain banded_align on the card, 16 seeded
+   reads' assignment equal to the CPU's.  256 known reads through demux
+   (equal to its plain version on card and CPU), primer trim and
+   ``detect`` in ``ed`` and ``fm`` modes (pathogen-X present, pathogen-Y
+   absent).  The variant caller on a 30-SNP pileup, within 2e-5.
+7. ``{"kernels": [...]}``: every kernel with its launches in phases 4-6,
    counted from 0 just before each path and read just after it.
 
 TF32 is off for the whole run (``torch.backends.cuda.matmul.allow_tf32``
@@ -962,6 +974,496 @@ def phase_basecall(torch, cfg, params, run_card):
     return out
 
 
+# ------------------------------------------------------- phase pathogen --
+PANEL = {"pathogen-X": 29_903, "pathogen-Y": 10_000}
+READ_LEN = 256              # detect(256): the ED firehose's query length
+PIPE_CHUNKS = 8             # timed chunks of 32 channels x 2048 samples
+
+
+def pathogen_panel():
+    """pathogen-X (SARS-CoV-2's genome length; the paper targets viruses
+    "below 30K bases") and pathogen-Y, random genomes from seed 13, with
+    their FM indexes."""
+    import numpy as np
+
+    from repro_torch.core import pathogen
+    from repro_torch.data import genome as G
+    rng = np.random.default_rng(13)
+    return pathogen.Panel.build({name: G.random_genome(rng, n)
+                                 for name, n in PANEL.items()})
+
+
+def pathogen_chunks(genome, n_chunks, channels=32, samples=2048, seed=17):
+    """Raw chunks as ``examples/pathogen_detection.py`` makes them: each
+    channel a squiggle simulated from a 256-base fragment of ``genome``
+    (the port's ``data/nanopore.py``, default pore model), resized to
+    ``samples``."""
+    import numpy as np
+
+    from repro_torch.data import nanopore
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_chunks):
+        rows = []
+        for _ in range(channels):
+            start = rng.integers(0, len(genome) - 256)
+            sig, _ = nanopore.simulate_read(rng, genome[start:start + 256])
+            rows.append(np.resize(sig, samples))
+        out.append(np.stack(rows).astype(np.float32))
+    return out
+
+
+def known_reads(panel, seed=19):
+    """256 reads of 256 bases: a 12-base barcode (one of 24, one
+    substitution in every other read), then 244 bases: 192 sampled from
+    pathogen-X at error rate 0.05, 64 uniform noise.  Returns (reads,
+    barcodes, owners)."""
+    import numpy as np
+
+    from repro_torch.data import genome as G
+    rng = np.random.default_rng(seed)
+    barcodes = rng.integers(1, 5, (24, 12)).astype(np.int32)
+    owners = rng.integers(0, 24, 256)
+    body, _ = G.sample_reads(rng, panel.genomes[0], n_reads=192,
+                             read_len=244, error_rate=0.05)
+    body = np.concatenate([body, rng.integers(1, 5, (64, 244))])
+    reads = np.concatenate([barcodes[owners], body], axis=1).astype(np.int32)
+    where = rng.integers(0, 12, 256)
+    for i in range(0, 256, 2):
+        reads[i, where[i]] = reads[i, where[i]] % 4 + 1
+    return reads, barcodes, owners
+
+
+def check_levenshtein(torch, peaks, table, q, t, label):
+    """The levenshtein launch vs its plain version (the row-scan DP),
+    bitwise, with its times and bound."""
+    from repro_torch.kernels import edit_distance as ke
+    from repro_torch.kernels import ref
+    out = ke.levenshtein(q, t)
+    want = ref.edit_distance(q, t)
+    torch.cuda.synchronize()
+    diff = int((out != want).sum().item())
+    ms = time_ms(torch, lambda: ke.levenshtein(q, t))
+    plain = time_ms(torch, lambda: ref.edit_distance(q, t), reps=5)
+    cells = q.shape[0] * q.shape[1] * t.shape[1]
+    bnd, by = bound_ms(peaks, nbytes(q, t, out), 8.0 * cells, int_ops=True)
+    emit({"phase": "kernel", "kernel": "levenshtein", "shape": label,
+          "q": list(q.shape), "t": list(t.shape), "mismatches": diff,
+          "ms": ms, "plain_ms": plain, "library_ms": None, "bound_ms": bnd,
+          "bound_by": by, "cells": cells})
+    table.add("levenshtein", err=float(diff), ms=ms, plain_ms=plain,
+              bound=bnd, bound_by=by, library_ms=None)
+    require(diff == 0, f"levenshtein {label}: {diff} distances differ")
+
+
+def phase_kernels_genomics(torch, F, peaks, table, panel, known):
+    """Phase 2 at the genomics slice's shapes: levenshtein at the demux
+    shape, banded_align at the firehose shape (both genomes of one
+    ``detect`` call), the variant caller's two "same" convs."""
+    import numpy as np
+
+    from repro_torch.core import pathogen
+    from repro_torch.data import genome as G
+    from repro_torch.kernels import edit_distance as ke
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+    reads, barcodes, _ = known
+    r, s = len(reads), len(barcodes)
+    prefix = torch.from_numpy(reads[:, :12].copy()).to(dev)
+    check_levenshtein(torch, peaks, table,
+                      prefix.repeat_interleave(s, 0).contiguous(),
+                      torch.from_numpy(barcodes).to(dev).repeat(r, 1),
+                      f"demux {r} reads x {s} barcodes, 12 x 12")
+    # the firehose: READ_LEN reads against every 512-base window
+    rng = np.random.default_rng(29)
+    fire, _ = G.sample_reads(rng, panel.genomes[0], n_reads=READ_LEN,
+                             read_len=READ_LEN, error_rate=0.05)
+    cfg = pathogen.DetectConfig()
+    kw = dict(band=cfg.window, match=cfg.match, mismatch=cfg.mismatch,
+              gap=cfg.gap, local=True)
+    row = {"pairs": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+           "cells": 0, "mismatches": 0}
+    for name, genome in zip(panel.names, panel.genomes):
+        q, t = pathogen.read_window_pairs(fire, genome, cfg, device=dev)
+        out = ke.banded_align(q, t, **kw)
+        want = ref.banded_align(q, t, **kw)
+        torch.cuda.synchronize()
+        diff = int((out != want).sum().item())
+        ms = time_ms(torch, lambda: ke.banded_align(q, t, **kw), reps=5,
+                     warm=1)
+        plain = time_ms(torch, lambda: ref.banded_align(q, t, **kw), reps=2,
+                        warm=1)
+        m, n = q.shape[1], t.shape[1]
+        cells = q.shape[0] * m * n          # band 512 >= m, n: every cell
+        bnd, by = bound_ms(peaks, nbytes(q, t, out), 8.0 * cells,
+                           int_ops=True)
+        emit({"phase": "kernel", "kernel": "banded_align",
+              "shape": f"firehose {name}", "q": list(q.shape),
+              "t": list(t.shape), "band": cfg.window, "local": True,
+              "mismatches": diff, "ms": ms, "plain_ms": plain,
+              "library_ms": None, "bound_ms": bnd, "bound_by": by,
+              "cells": cells})
+        require(diff == 0, f"banded_align firehose {name}: {diff} differ")
+        for k, v in (("pairs", q.shape[0]), ("ms", ms), ("plain_ms", plain),
+                     ("bound_ms", bnd), ("cells", cells),
+                     ("mismatches", diff)):
+            row[k] += v
+        row["bound_by"] = by
+    row["blocks_per_sm"] = ke.blocks_per_sm(READ_LEN)
+    row["sms"] = torch.cuda.get_device_properties(0).multi_processor_count
+    emit({"phase": "kernel", "kernel": "banded_align",
+          "shape": f"firehose per detect call, {READ_LEN} reads", **row})
+    # the variant caller's convs: 256 windows of 33, "same" (T 33 + 4)
+    gen = torch.Generator().manual_seed(31)
+    cin = 9
+    for cout in (48, 96):
+        x = torch.rand((256, 37, cin), generator=gen).to(dev)
+        w = (torch.randn((5, cin, cout), generator=gen)
+             * (2.0 / (5 * cin)) ** 0.5).to(dev)
+        b = torch.zeros((cout,), device=dev)
+        check_conv1d(torch, F, peaks, table, x, w, b, 1, "relu",
+                     f"caller Cin={cin} Cout={cout} T=33 same", "caller")
+        cin = cout
+    return row
+
+
+def near_tie_rows(torch, bc, card, cpu_params, chunk, rows):
+    """For each row whose tokens differ between card and CPU: the largest
+    plain top-2 margin over the frames whose class differs (inf if none)."""
+    from repro_torch.core import ctc
+    from repro_torch.core.pipeline import normalize_chunk
+    sig = torch.from_numpy(normalize_chunk(chunk))
+    on_card = bc.apply(card.params, sig.to(card.device), card.cfg).cpu()
+    plain = bc.apply(cpu_params, sig, card.cfg)
+    out = {}
+    for i in rows:
+        split = (ctc.argmax_classes(on_card[i])
+                 != ctc.argmax_classes(plain[i]))
+        out[i] = (float(top2_margin(torch, plain[i])[split].max().item())
+                  if bool(split.any()) else float("inf"))
+    return out
+
+
+def drive_pipeline(torch, te, preset, cfg, panel, warm, chunks):
+    """One engine through the user's entry points: build, one warm-up chunk
+    (drained, then forgotten), the timed chunks, drain, ``detect``.  The
+    first ``depth`` submits of the timed run decode nothing, so they run
+    under PyTorch's sync debug mode: a host-device synchronization there
+    (a ``.cpu()``, ``.item()`` or pageable copy) would warn."""
+    import warnings
+
+    from repro_torch.engine.telemetry import Telemetry
+    eng = te.build("pathogen_pipeline", preset=preset, cfg=cfg, panel=panel)
+    eng.submit(warm)
+    eng.drain()
+    eng.outputs.clear()
+    eng.telemetry = Telemetry(workload=eng.workload)
+    torch.cuda.synchronize()
+    depth = eng.scheduler.slots
+    t_sub, t_done, busy = [], [], []
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for k, chunk in enumerate(chunks):
+            if k < depth:
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t_sub.append(time.perf_counter())
+                eng.submit(chunk)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            if k < depth:
+                busy.append(not torch.cuda.current_stream().query())
+            while len(t_done) < len(eng.outputs):
+                t_done.append(time.perf_counter())
+    while eng.step():
+        t_done.append(time.perf_counter())
+    wall = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    report = eng.detect(READ_LEN)
+    torch.cuda.synchronize()
+    detect_s = time.perf_counter() - t1
+    syncs = [str(w.message)[:200] for w in caught
+             if "called a synchronizing" in str(w.message)]
+    lat = [(d - s) * 1e3 for s, d in zip(t_sub, t_done)]
+    return {"engine": eng, "report": report, "wall_s": wall,
+            "detect_s": detect_s, "latencies_ms": lat, "syncs": syncs,
+            "busy_after_submit": busy}
+
+
+def phase_pipeline(torch, te, bc, cfg, panel, paths, preset, want_kernels):
+    """``pathogen_pipeline`` at the paper's widths on the card, against a
+    CPU run of the same engine (the card engine's params on the CPU): int8
+    tokens equal; an fp32 row may differ only where every frame whose class
+    differs has a plain top-2 margin under 1e-4.  Then ``detect(256)`` on
+    the engine's own reads: every read x window score equal to the plain
+    banded_align on the card, and the assignment of 16 seeded reads equal
+    to a CPU run."""
+    import numpy as np
+
+    from repro_torch.core import pathogen
+    from repro_torch.kernels import edit_distance as ke
+    from repro_torch.kernels import ref
+    chunks = pathogen_chunks(panel.genomes[0], PIPE_CHUNKS + 1)
+    run = paths.drive(f"pathogen_pipeline {preset}", want_kernels,
+                      lambda: drive_pipeline(torch, te, preset, cfg, panel,
+                                             chunks[0], chunks[1:]))
+    eng, report = run["engine"], run["report"]
+    rep = eng.summary()
+    cpu_params = bc.params_to(eng.params, "cpu")
+    cpu = te.build("pathogen_pipeline", preset=preset, cfg=cfg,
+                   params=cpu_params, panel=panel, device="cpu")
+    for chunk in chunks[1:]:
+        cpu.submit(chunk)
+    cpu.drain()
+    margins = {}
+    for k, ((tok, lens), (ctok, clens)) in enumerate(zip(eng.outputs,
+                                                         cpu.outputs)):
+        rows = [i for i in range(len(tok))
+                if lens[i] != clens[i] or not np.array_equal(tok[i], ctok[i])]
+        if rows:
+            margins.update({f"{k}:{i}": m for i, m in near_tie_rows(
+                torch, bc, eng, cpu_params, chunks[1 + k], rows).items()})
+    # detect: every pair against the plain version on the card
+    reads = eng.reads(READ_LEN)
+    cfg_d = pathogen.DetectConfig()
+    kw = dict(band=cfg_d.window, match=cfg_d.match,
+              mismatch=cfg_d.mismatch, gap=cfg_d.gap, local=True)
+    pair_diff, pairs, best = 0, 0, []
+    for genome in panel.genomes:
+        q, t = pathogen.read_window_pairs(reads, genome, cfg_d,
+                                          device=eng.device)
+        got = ke.banded_align(q, t, **kw)
+        want = ref.banded_align(q, t, **kw)
+        pair_diff += int((got != want).sum().item())
+        pairs += q.shape[0]
+        best.append(want.view(len(reads), -1).amax(dim=1).cpu().numpy())
+    best_plain = np.max(np.stack(best), axis=0)
+    sub = np.sort(np.random.default_rng(37).choice(len(reads), 16,
+                                                   replace=False))
+    cpu_rep = pathogen.detect(panel, reads[sub], cfg_d, device="cpu")
+    lat = np.asarray(run["latencies_ms"])
+    line = {"phase": "pathogen", "part": "engine", "preset": preset,
+            "chunks": rep["chunks"], "channels": 32, "chunk_samples": 2048,
+            "depth": eng.scheduler.slots, "bases": eng.telemetry.bases,
+            "reads": len(reads),
+            "dispatch_p50_ms": float(np.percentile(lat, 50)),
+            "dispatch_p99_ms": float(np.percentile(lat, 99)),
+            "latencies_ms": lat.tolist(),
+            "bases_per_s": rep["bases_per_s"], "wall_s": run["wall_s"],
+            "stage_s": {k: v for k, v in rep.items()
+                        if k.startswith("stage_")},
+            "detect_s": run["detect_s"],
+            "sync_warnings_in_submit": run["syncs"],
+            "device_busy_after_submit": run["busy_after_submit"],
+            "soc_energy_precision": rep["soc_energy_precision"],
+            "rows_differing_from_cpu": len(margins),
+            "differing_split_margins": margins,
+            "detect_pairs": pairs, "detect_pairs_differing": pair_diff,
+            "detect_counts": report.counts,
+            "detect_subset_equal_cpu": bool(
+                np.array_equal(cpu_rep.read_assignment,
+                               report.read_assignment[sub])
+                and np.array_equal(cpu_rep.read_scores,
+                                   report.read_scores[sub])),
+            "fabric": {k: v for k, v in rep.items()
+                       if k.startswith("fabric.")}}
+    emit(line)
+    require(rep["chunks"] == PIPE_CHUNKS and len(reads) == 32 * PIPE_CHUNKS,
+            f"pathogen_pipeline {preset}: {rep['chunks']} chunks, "
+            f"{len(reads)} reads")
+    require(eng.telemetry.bases > 0, f"pathogen_pipeline {preset}: no bases")
+    require(not run["syncs"], f"pathogen_pipeline {preset}: submit "
+            f"synchronized with the card: {run['syncs']}")
+    require(all(k.endswith(".cuda") for k in line["fabric"]
+                if k.startswith("fabric.dispatch.")),
+            f"pathogen_pipeline {preset}: a dispatch left the card")
+    if preset == "edge_int8":
+        require(not margins, f"pathogen_pipeline edge_int8: rows {margins} "
+                "differ from the CPU")
+    else:
+        require(all(m < 1e-4 for m in margins.values()),
+                f"pathogen_pipeline default: rows differ away from a near "
+                f"tie: {margins}")
+    require(pairs == len(reads) * 155 and pair_diff == 0,
+            f"pathogen_pipeline {preset}: {pair_diff} of {pairs} firehose "
+            "scores differ from the plain version")
+    require(np.array_equal(report.read_scores, best_plain),
+            f"pathogen_pipeline {preset}: detect's read scores differ from "
+            "the plain pairs' best")
+    require(line["detect_subset_equal_cpu"],
+            f"pathogen_pipeline {preset}: detect differs from the CPU")
+    return line
+
+
+def drive_known(torch, panel, known):
+    """The CORE + ED path on known reads: demux on the card, trim the
+    barcode, detect with read lengths in ed and fm modes."""
+    import numpy as np
+
+    from repro_torch.core import pathogen, pipeline
+    reads, barcodes, _ = known
+    t0 = time.perf_counter()
+    demux = pipeline.demux_reads(reads, barcodes, max_dist=3)
+    demux_s = time.perf_counter() - t0
+    trimmed, lens = pipeline.trim_primer(reads, np.full(len(reads), 256), 12)
+    reps, secs = {}, {}
+    for mode in ("ed", "fm"):
+        t0 = time.perf_counter()
+        reps[mode] = pathogen.detect(panel, trimmed, mode=mode,
+                                     read_lens=lens)
+        torch.cuda.synchronize()
+        secs[mode] = time.perf_counter() - t0
+    return demux, demux_s, trimmed, lens, reps, secs
+
+
+def phase_known_reads(torch, panel, known, paths):
+    """Known reads through demux and detect on the card: demux equal to its
+    plain version on the card and on the CPU; pathogen-X present and
+    pathogen-Y absent in both modes; ed scores equal to the plain
+    banded_align on the card, the fm report equal to the CPU run."""
+    import numpy as np
+
+    from repro_torch.core import pathogen
+    from repro_torch.kernels import ref
+    reads, barcodes, owners = known
+    demux, demux_s, trimmed, lens, reps, secs = paths.drive(
+        "known reads", ("levenshtein", "banded_align"),
+        lambda: drive_known(torch, panel, known))
+    dev = torch.device("cuda")
+    r, s = len(reads), len(barcodes)
+    prefix = torch.from_numpy(reads[:, :12].copy())
+    q = prefix.repeat_interleave(s, 0)
+    t = torch.from_numpy(barcodes).repeat(r, 1)
+    plain = {}
+    for where in ("cpu", "cuda"):
+        d = ref.edit_distance(q.to(where), t.to(where)).cpu().numpy()
+        d = d.reshape(r, s)
+        best = d.argmin(axis=1)
+        plain[where] = np.where(d[np.arange(r), best] <= 3, best, -1)
+    cfg = pathogen.DetectConfig()
+    sentinel = np.where(np.arange(256)[None, :] < lens[:, None], trimmed, -1)
+    best = []
+    for genome in panel.genomes:
+        q2, t2 = pathogen.read_window_pairs(sentinel, genome, cfg,
+                                            device=dev)
+        best.append(ref.banded_align(
+            q2, t2, band=cfg.window, match=cfg.match, mismatch=cfg.mismatch,
+            gap=cfg.gap, local=True).view(r, -1).amax(dim=1).cpu().numpy())
+    ed_plain = np.max(np.stack(best), axis=0)
+    fm_cpu = pathogen.detect(panel, trimmed, mode="fm", read_lens=lens,
+                             device="cpu")
+    fm = reps["fm"]
+    fm_equal = (fm.counts == fm_cpu.counts
+                and np.array_equal(fm.read_assignment,
+                                   fm_cpu.read_assignment)
+                and np.array_equal(fm.read_scores, fm_cpu.read_scores))
+    line = {"phase": "pathogen", "part": "known_reads", "reads": r,
+            "barcodes": s, "demux_pairs": r * s, "demux_s": demux_s,
+            "demux_equal_plain_card": bool(np.array_equal(demux,
+                                                          plain["cuda"])),
+            "demux_equal_cpu": bool(np.array_equal(demux, plain["cpu"])),
+            "demux_correct": int((demux == owners).sum()),
+            "demux_unassigned": int((demux < 0).sum()),
+            "detect_s": secs,
+            "ed": {"counts": reps["ed"].counts,
+                   "present": reps["ed"].present},
+            "fm": {"counts": fm.counts, "present": fm.present},
+            "ed_scores_equal_plain_card": bool(np.array_equal(
+                reps["ed"].read_scores, ed_plain)),
+            "fm_equal_cpu": bool(fm_equal)}
+    emit(line)
+    require(line["demux_equal_plain_card"] and line["demux_equal_cpu"],
+            "demux differs from its plain version")
+    for mode in ("ed", "fm"):
+        pres = reps[mode].present
+        require(pres["pathogen-X"] and not pres["pathogen-Y"],
+                f"known reads, {mode}: presence {pres}")
+    require(line["ed_scores_equal_plain_card"],
+            "known reads: ed scores differ from the plain version")
+    require(fm_equal, "known reads: the fm report differs from the CPU")
+    return line
+
+
+def plain_caller(torch, params, x, cfg):
+    """The variant caller with the plain conv1d ("same" padding, ReLU)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    for i in range(len(cfg.channels)):
+        p = params[f"conv{i + 1}"]
+        pad = cfg.kernel - 1
+        x = ref.conv1d(F.pad(x, (0, 0, pad // 2, pad - pad // 2)), p["w"],
+                       p["b"], activation="relu")
+    h = F.relu(x.reshape(x.shape[0], -1) @ params["dense"]["w"]
+               + params["dense"]["b"])
+    return (h @ params["head_gt"]["w"] + params["head_gt"]["b"],
+            h @ params["head_alt"]["w"] + params["head_alt"]["b"])
+
+
+def phase_variant_caller(torch, panel, paths):
+    """The variant caller on a pileup of pathogen-X carrying 30 seeded
+    SNPs: 256 windows (every candidate site, then seeded positions) through
+    ``apply`` on the card, against the plain run on the card within
+    2e-5."""
+    import numpy as np
+
+    from repro_torch.core import variant_caller as vc
+    from repro_torch.data import genome as G
+    rng = np.random.default_rng(23)
+    genome = panel.genomes[0]
+    snps = np.sort(rng.choice(np.arange(200, len(genome) - 200), 30,
+                              replace=False))
+    mutated = genome.copy()
+    mutated[snps] = (genome[snps] - 1 + rng.integers(1, 4, 30)) % 4 + 1
+    reads, pos = G.sample_reads(rng, mutated, n_reads=4000, read_len=150,
+                                error_rate=0.01)
+    pile = vc.build_pileup(genome, reads, pos)
+    cands = vc.candidate_sites(pile)
+    extra = rng.choice(len(genome), 256, replace=False)
+    sites = np.concatenate([cands, extra])[:256]
+    cfg = vc.CallerConfig()
+    wins = torch.from_numpy(vc.extract_windows(pile, sites, cfg.window))
+    dev = torch.device("cuda")
+    params = vc.init(torch.Generator().manual_seed(0), cfg, device=dev)
+    x = wins.to(dev)
+
+    def run():
+        out = vc.apply(params, x, cfg)
+        torch.cuda.synchronize()
+        return out
+    gt, alt = paths.drive("variant caller", ("conv1d",), run)
+    pgt, palt = plain_caller(torch, params, x, cfg)
+    err = max((gt - pgt).abs().max().item(), (alt - palt).abs().max().item())
+    ok = (torch.allclose(gt, pgt, rtol=F32_TOL, atol=F32_TOL)
+          and torch.allclose(alt, palt, rtol=F32_TOL, atol=F32_TOL))
+    ms = time_ms(torch, lambda: vc.apply(params, x, cfg))
+    found = int(np.isin(snps, cands).sum())
+    line = {"phase": "pathogen", "part": "variant_caller",
+            "genome": len(genome), "snps": 30, "reads": len(reads),
+            "candidates": len(cands), "snps_in_candidates": found,
+            "windows": list(wins.shape), "max_abs_err": err, "tol": F32_TOL,
+            "apply_ms": ms}
+    emit(line)
+    require(found == 30, f"variant caller: {found} of 30 SNPs are candidates")
+    require(ok, f"variant caller: max abs err {err} over {F32_TOL}")
+    return line
+
+
+def phase_pathogen(torch, cfg, panel, known, paths):
+    import repro_torch.engine as te
+    from repro_torch.core import basecaller as bc
+    out = {}
+    for preset, want in (("default", ("conv1d", "matmul", "banded_align")),
+                         ("edge_int8", ("conv1d_int8", "matmul_int8",
+                                        "banded_align"))):
+        out[preset] = phase_pipeline(torch, te, bc, cfg, panel, paths,
+                                     preset, want)
+    out["known"] = phase_known_reads(torch, panel, known, paths)
+    out["caller"] = phase_variant_caller(torch, panel, paths)
+    return out
+
+
 # ------------------------------------------------------------------ main --
 KERNELS = {
     "conv1d": ("src/repro_torch/kernels/csrc/conv1d.cu",
@@ -978,6 +1480,8 @@ KERNELS = {
                     "src/repro/kernels/matmul.py:120"),
     "fused_stream_int8": ("src/repro_torch/kernels/csrc/fused_stream.cu",
                           "src/repro/kernels/fused_stream.py:376"),
+    "levenshtein": ("src/repro_torch/kernels/csrc/banded_align.cu",
+                    "src/repro/kernels/edit_distance.py:139"),
 }
 
 
@@ -991,7 +1495,8 @@ def launch_counters():
             "banded_align": (edit_distance.banded_align, "launches"),
             "conv1d_int8": (conv1d.conv1d_int8, "launches"),
             "matmul_int8": (matmul.matmul_int8, "launches"),
-            "fused_stream_int8": (fs, "launches_int8")}
+            "fused_stream_int8": (fs, "launches_int8"),
+            "levenshtein": (edit_distance.levenshtein, "launches")}
 
 
 class PathLaunches:
@@ -1070,6 +1575,9 @@ def main() -> int:
     table = phase_kernels(torch, F, peaks)
     phase_kernels_int8(torch, peaks, table, cfg, qparams,
                        torch.Generator().manual_seed(2))
+    panel = pathogen_panel()
+    known = known_reads(panel)
+    firehose = phase_kernels_genomics(torch, F, peaks, table, panel, known)
     phase_step_goldens()
     scfg, sparams = quantize_step_codec()
     phase_step_goldens("int8", scfg, sparams)
@@ -1099,6 +1607,7 @@ def main() -> int:
                 else ("conv1d", "matmul"))
         return paths.drive(f"basecall {preset}", want, serve)
     phase_basecall(torch, cfg, params, run_card)
+    phase_pathogen(torch, cfg, panel, known, paths)
 
     kernels = []
     for k, (src, replaces) in KERNELS.items():
@@ -1109,6 +1618,9 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
+        if k == "banded_align":
+            # the pathogen panel compare's shape, beside the mapper's
+            kernels[-1]["firehose"] = firehose
     for k in kernels:
         require(k["launches"] > 0, f"kernel {k['name']} never launched")
     print(card, flush=True)

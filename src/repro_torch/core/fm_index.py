@@ -69,6 +69,14 @@ class FMIndex:
         }
 
 
+def _jax_index(idx: torch.Tensor, size: int) -> torch.Tensor:
+    """An index as a JAX gather reads it: negative values count from the
+    end, then out-of-range values clamp to the nearest end (a token outside
+    1..4, such as the -1 that marks a read's padded tail, walks off the
+    index, where torch would raise or, on a card, fault)."""
+    return torch.where(idx < 0, idx + size, idx).clamp(0, size - 1)
+
+
 def backward_search(index_arrays: dict, seeds: torch.Tensor, *,
                     max_hits: int = 8):
     """Batched exact search.  seeds: (P, k) tokens 1..4.
@@ -79,14 +87,15 @@ def backward_search(index_arrays: dict, seeds: torch.Tensor, *,
                        index_arrays["sa"])
     p, k = seeds.shape
     dev = seeds.device
+    rows, cols = occ.shape
     lo = torch.zeros((p,), dtype=torch.int32, device=dev)
-    hi = torch.full((p,), occ.shape[0] - 1, dtype=torch.int32, device=dev)
+    hi = torch.full((p,), rows - 1, dtype=torch.int32, device=dev)
     for i in range(k):
         c = seeds[:, k - 1 - i].long()           # backward: last char first
-        cc = counts[c]
-        col = c - 1
-        lo = cc + occ[lo.long(), col]
-        hi = cc + occ[hi.long(), col]
+        cc = counts[_jax_index(c, counts.shape[0])]
+        col = _jax_index(c - 1, cols)
+        lo = cc + occ[_jax_index(lo.long(), rows), col]
+        hi = cc + occ[_jax_index(hi.long(), rows), col]
     count = hi - lo
     offs = torch.arange(max_hits, dtype=torch.int32, device=dev)[None, :]
     idx = torch.clamp(lo[:, None] + offs, max=sa.shape[0] - 1)

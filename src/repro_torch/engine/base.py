@@ -1,11 +1,37 @@
-"""What the basecalling engines share (``repro/engine/base.py``): the SoC
-energy block of their summaries and the build-time int8 quantization
-behind the ``edge_int8`` presets."""
+"""What the basecalling engines share (``repro/engine/base.py``): the drain
+loop and summary of the chunk engines, the SoC energy block of their
+summaries and the build-time int8 quantization behind the ``edge_int8``
+presets."""
 from __future__ import annotations
 
 import warnings
 
 import numpy as np
+
+
+class EngineBase:
+    """The drain loop and summary of an engine that owns ``telemetry``, a
+    ``scheduler``, ``step()`` and CNN ``params`` / ``cfg`` (the ``basecall``
+    and ``pathogen_pipeline`` engines)."""
+
+    workload = ""
+
+    def drain(self, max_steps: int = 100_000) -> dict:
+        """Step until the scheduler is empty (or ``max_steps``); returns the
+        summary."""
+        steps = 0
+        while not self.scheduler.drained and steps < max_steps:
+            if not self.step():
+                break
+            steps += 1
+        return self.summary()
+
+    def summary(self) -> dict:
+        """Telemetry summary plus the SoC energy block."""
+        out = self.telemetry.summary()
+        out.update(energy_block(self.params, self.cfg,
+                                self.telemetry.samples))
+        return out
 
 
 def energy_block(params, cfg, samples) -> dict:

@@ -15,13 +15,13 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.engine.base import energy_block, quantize_edge_params
+from repro_torch.engine.base import EngineBase, quantize_edge_params
 from repro_torch.engine.registry import register
 from repro_torch.engine.scheduler import SlotScheduler
 from repro_torch.engine.telemetry import Telemetry
 
 
-class BasecallEngine:
+class BasecallEngine(EngineBase):
     """Fixed-batch basecall dispatch over a queue of signal rows."""
 
     workload = "basecall"
@@ -77,23 +77,6 @@ class BasecallEngine:
         tel.wall_s += time.perf_counter() - t_wall
         tel.gauge("queue_depth", self.scheduler.pending)
         return True
-
-    def drain(self, max_steps: int = 100_000) -> dict:
-        """Step until the queue is empty (or ``max_steps``); returns the
-        summary."""
-        steps = 0
-        while not self.scheduler.drained and steps < max_steps:
-            if not self.step():
-                break
-            steps += 1
-        return self.summary()
-
-    def summary(self) -> dict:
-        """Telemetry summary plus the SoC energy block."""
-        out = self.telemetry.summary()
-        out.update(energy_block(self.params, self.cfg,
-                                self.telemetry.samples))
-        return out
 
     def serve(self, signal_chunks) -> list[np.ndarray]:
         """Submit ``(N, chunk)`` rows, drain, and return the reads this call

@@ -6,7 +6,8 @@
 
 ``build`` resolves the workload's builder, starts from the named preset's
 keywords and applies ``**overrides`` on top.  Workload modules import
-lazily.  Two workloads are ported: ``adaptive_sampling`` and ``basecall``.
+lazily.  Three workloads are ported: ``adaptive_sampling``, ``basecall``
+and ``pathogen_pipeline``.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from typing import Any, Callable, Optional
 _WORKLOAD_MODULES: dict[str, str] = {
     "adaptive_sampling": "repro_torch.engine.adaptive",
     "basecall": "repro_torch.engine.basecall",
+    "pathogen_pipeline": "repro_torch.engine.pipeline",
 }
 
 _BUILDERS: dict[str, Callable[..., Any]] = {}

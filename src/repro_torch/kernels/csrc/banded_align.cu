@@ -1,8 +1,10 @@
 // Banded Needleman-Wunsch (global) / Smith-Waterman (local) int32 scores.
 //
-// Replaces: src/repro/kernels/edit_distance.py::banded_align via _wavefront
-// (Pallas body _wavefront_kernel), which puts the anti-diagonal on the TPU's
-// sublanes and 128 independent pairs on its lanes.
+// Replaces: src/repro/kernels/edit_distance.py::banded_align and
+// ::levenshtein, both via _wavefront (Pallas body _wavefront_kernel), which
+// puts the anti-diagonal on the TPU's sublanes and 128 independent pairs on
+// its lanes.  levenshtein is this kernel with match 0, mismatch -1, gap -1,
+// global and band = max(m, n), its distance minus the score.
 //
 // q (P, m), t (P, n) int32 tokens -> out (P,) int32; the semantics of
 // src/repro/kernels/ref.py::banded_align: cells with |i - j| > band are
@@ -17,6 +19,14 @@
 // [index][thread] (conflict-free banks), so the m x n cells cost no device
 // memory traffic beyond one read of each target token.  One warp per block
 // spreads the pairs over as many SMs as there are warps.
+//
+// The shared memory per block, (2m + 1) * 32 * 4 bytes, bounds the query
+// length (m <= ~907) and the occupancy: at the pathogen panel compare
+// (reads of m = 256 against 512-base windows, local) a block takes
+// 65,664 bytes, so three blocks, three warps, fit on an SM, and each warp's
+// dependent chain of cells runs with little to hide its latency.  Laying
+// one anti-diagonal across a warp, as the TPU kernel lays it across
+// sublanes, would lift both limits; it is later work.
 #include "common.cuh"
 
 constexpr int BA_THREADS = 32;
@@ -80,4 +90,14 @@ extern "C" int launch_banded_align(const void* q, const void* t, void* out,
       static_cast<const int*>(q), static_cast<const int*>(t),
       static_cast<int*>(out), P, m, n, band, match, mismatch, gap, local);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Resident blocks per SM at query length m (the occupancy the shared
+// memory allows): written to *blocks.
+extern "C" int banded_align_blocks_per_sm(int m, int* blocks) {
+  const size_t smem = banded_align_smem_bytes(m);
+  cudaError_t err = allow_smem(banded_align_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, banded_align_kernel, BA_THREADS, smem));
 }

@@ -1,11 +1,19 @@
-"""Banded NW/SW alignment scores: the CUDA kernel (``csrc/banded_align.cu``)
-and its wrapper.
+"""The ED engine's wavefront DP on the card: one CUDA kernel
+(``csrc/banded_align.cu``) behind two wrappers.
 
-Replaces ``repro/kernels/edit_distance.py::banded_align`` (via ``_wavefront``,
-Pallas body ``_wavefront_kernel``).  ``levenshtein`` is the same DP with unit
-costs; its wrapper comes with the genomics-pipeline slice, whose barcode
-demux is its only caller.  The source note in ``csrc/banded_align.cu`` says
-what bounds the kernel on an H100 and what its design does about it.
+Replaces ``repro/kernels/edit_distance.py``, whose two entry points share
+one Pallas body (``_wavefront_kernel`` via ``_wavefront``):
+
+* :func:`banded_align` — banded Needleman-Wunsch / Smith-Waterman int32
+  scores (seed extension, the pathogen panel compare);
+* :func:`levenshtein` — unit-cost edit distance (barcode demux).  The
+  Pallas body says how the two relate: "levenshtein == match=0,
+  mismatch=-1, gap=-1, band=inf, local=False, and distance = -score".  It
+  launches the same kernel with those constants and ``band = max(m, n)``,
+  which bands nothing (every cell has ``|i - j| <= max(m, n)``).
+
+The source note in ``csrc/banded_align.cu`` says what bounds the kernel on
+an H100 and what its design does about it.
 """
 from __future__ import annotations
 
@@ -19,6 +27,28 @@ from repro_torch.kernels import ref
 _ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
+def _wavefront(what: str, query, target, *, band, match, mismatch, gap,
+               local) -> torch.Tensor:
+    """Check the operands and launch ``banded_align_kernel`` once."""
+    p, m = query.shape
+    p2, n = target.shape
+    if p != p2:
+        raise ValueError(f"{what}: {p} queries vs {p2} targets")
+    _build.check_tensor(f"{what} query", query, torch.int32)
+    _build.check_tensor(f"{what} target", target, torch.int32,
+                        device=query.device)
+    if (2 * m + 1) * 32 * 4 > _build.SMEM_LIMIT:
+        raise ValueError(f"{what}: query length {m} does not fit a "
+                         "block's shared memory")
+    out = torch.empty((p,), dtype=torch.int32, device=query.device)
+    if p:
+        _build.launch(
+            "banded_align", "launch_banded_align", _ARGS, query.data_ptr(),
+            target.data_ptr(), out.data_ptr(), p, m, n, band, match,
+            mismatch, gap, int(local), _build.stream_handle(query.device))
+    return out
+
+
 def banded_align(query: torch.Tensor, target: torch.Tensor, *, band: int,
                  match: int = 2, mismatch: int = -4, gap: int = -2,
                  local: bool = False) -> torch.Tensor:
@@ -30,27 +60,44 @@ def banded_align(query: torch.Tensor, target: torch.Tensor, *, band: int,
     if query.device.type == "cpu":
         return ref.banded_align(query, target, band=band, match=match,
                                 mismatch=mismatch, gap=gap, local=local)
-    p, m = query.shape
-    p2, n = target.shape
-    if p != p2:
-        raise ValueError(f"banded_align: {p} queries vs {p2} targets")
-    _build.check_tensor("banded_align query", query, torch.int32)
-    _build.check_tensor("banded_align target", target, torch.int32,
-                        device=query.device)
     if band < 0:
         raise ValueError(f"banded_align: band must be >= 0, got {band}")
-    if (2 * m + 1) * 32 * 4 > _build.SMEM_LIMIT:
-        raise ValueError(f"banded_align: query length {m} does not fit a "
-                         "block's shared memory")
-    out = torch.empty((p,), dtype=torch.int32, device=query.device)
-    if p == 0:
-        return out
-    _build.launch(
-        "banded_align", "launch_banded_align", _ARGS, query.data_ptr(),
-        target.data_ptr(), out.data_ptr(), p, m, n, band, match, mismatch,
-        gap, int(local), _build.stream_handle(query.device))
-    banded_align.launches += 1
+    out = _wavefront("banded_align", query, target, band=band, match=match,
+                     mismatch=mismatch, gap=gap, local=local)
+    if out.numel():
+        banded_align.launches += 1
     return out
 
 
 banded_align.launches = 0
+
+
+def levenshtein(query: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Unit-cost edit distance, int32; (P, m) x (P, n) int32 tokens ->
+    (P,).
+
+    A CPU tensor runs the plain version (:func:`ref.edit_distance`, the
+    row-scan DP); a CUDA tensor launches the wavefront kernel with unit
+    costs, global and unbanded, and negates its score, or raises."""
+    if query.device.type == "cpu":
+        return ref.edit_distance(query, target)
+    band = max(query.shape[1], target.shape[1])
+    score = _wavefront("levenshtein", query, target, band=band, match=0,
+                       mismatch=-1, gap=-1, local=False)
+    if score.numel():
+        levenshtein.launches += 1
+    return torch.neg(score)
+
+
+levenshtein.launches = 0
+
+
+def blocks_per_sm(m: int) -> int:
+    """Blocks of the wavefront kernel one SM holds at query length ``m``
+    (shared memory bounds it: ``(2m + 1) * 32 * 4`` bytes a block); asks
+    the card."""
+    blocks = ctypes.c_int(0)
+    _build.launch("banded_align", "banded_align_blocks_per_sm",
+                  [ctypes.c_int, ctypes.POINTER(ctypes.c_int)], m,
+                  ctypes.byref(blocks))
+    return blocks.value

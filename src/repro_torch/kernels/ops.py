@@ -147,3 +147,10 @@ def banded_align(query, target, *, band: int, match: int = 2,
                             target.to(torch.int32).contiguous(), band=band,
                             match=match, mismatch=mismatch, gap=gap,
                             local=local)
+
+
+def edit_distance(query, target):
+    """Batched Levenshtein distance; (P, m) x (P, n) -> (P,) int32."""
+    fabric.dispatch("edit_distance", query)
+    return _ed.levenshtein(query.to(torch.int32).contiguous(),
+                           target.to(torch.int32).contiguous())

@@ -222,3 +222,90 @@ def test_edge_int8_basecall_on_card_equals_cpu(dev):
         reads[str(device)] = eng.serve(sig)
     for a, b in zip(*reads.values()):
         np.testing.assert_array_equal(a, b)
+
+
+# -------------------------------------------------------- genomics slice ---
+@pytest.mark.parametrize("m,n", [(12, 12), (7, 13), (40, 25)])
+def test_levenshtein_kernel_bitwise(dev, m, n):
+    rng = np.random.default_rng(m * n)
+    q = U.t(rng.integers(1, 5, (300, m)).astype(np.int32)).to(dev)
+    t = U.t(rng.integers(1, 5, (300, n)).astype(np.int32)).to(dev)
+    before = ke.levenshtein.launches
+    got = ke.levenshtein(q, t)
+    assert ke.levenshtein.launches == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, ref.edit_distance(q, t))
+
+
+def test_banded_align_firehose_shape_bitwise(dev):
+    """The pathogen panel compare: reads of 256 against 512-base windows,
+    local, band 512 (three blocks per SM by shared memory)."""
+    rng = np.random.default_rng(4)
+    q = rng.integers(1, 5, (96, 256)).astype(np.int32)
+    t = rng.integers(0, 5, (96, 512)).astype(np.int32)
+    t[::2, 100:356] = q[::2]                  # half the pairs align
+    q[5, 200:] = -1                           # a read's padded tail
+    q, t = U.t(q).to(dev), U.t(t).to(dev)
+    kw = dict(band=512, local=True)
+    assert torch.equal(ke.banded_align(q, t, **kw),
+                       ref.banded_align(q, t, **kw))
+
+
+def test_pathogen_pipeline_on_card_equals_cpu(dev):
+    """The small-CNN engine on the card and on the CPU: edge_int8 reads
+    equal, and detect (ed and fm) equal on the reads of a known panel."""
+    import repro_torch.engine as te
+    from repro_torch.core import pathogen
+    from repro_torch.core import pipeline
+    from repro_torch.data import genome as G
+    from repro_torch.engine.base import quantize_edge_params
+    cfg = bc.BasecallerConfig(kernels=(3, 3, 1), channels=(16, 16, 5),
+                              strides=(1, 2, 1))
+    # calibrated once, on the CPU: both engines serve the same int8 params
+    params = quantize_edge_params(bc.init(_g(0), cfg, device="cpu"), cfg)
+    rng = np.random.default_rng(7)
+    chunks = [rng.normal(size=(4, 512)).astype(np.float32) for _ in range(3)]
+    panel = pathogen.Panel.build({"a": G.random_genome(rng, 2000),
+                                  "b": G.random_genome(rng, 1500)})
+    reads, _ = G.sample_reads(rng, panel.genomes[0], n_reads=12,
+                              read_len=96, error_rate=0.03)
+    barcodes = rng.integers(1, 5, (5, 12)).astype(np.int32)
+    out = {}
+    for device in ("cpu", dev):
+        eng = te.build("pathogen_pipeline", preset="edge_int8", cfg=cfg,
+                       params=params, device=device, panel=panel,
+                       detect_cfg=pathogen.DetectConfig(window=128))
+        for c in chunks:
+            eng.submit(c)
+        eng.drain()
+        reps = [pathogen.detect(panel, reads, pathogen.DetectConfig(
+            window=128), mode=mode, read_lens=np.full(12, 90),
+            device=device) for mode in ("ed", "fm")]
+        out[str(device)] = (list(eng.outputs), eng.detect(64), reps,
+                            pipeline.demux_reads(reads, barcodes,
+                                                 device=device))
+    cpu, card = out["cpu"], out[str(dev)]
+    for (a, la), (b, lb) in zip(cpu[0], card[0]):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(la, lb)
+    for a, b in zip([cpu[1], *cpu[2]], [card[1], *card[2]]):
+        assert a.counts == b.counts
+        np.testing.assert_array_equal(a.read_assignment, b.read_assignment)
+        np.testing.assert_array_equal(a.read_scores, b.read_scores)
+    assert cpu[2][0].present["a"] and not cpu[2][0].present["b"]
+    np.testing.assert_array_equal(cpu[3], card[3])
+
+
+def test_variant_caller_on_card_within_tol(dev):
+    from repro_torch.core import variant_caller as vc
+    cfg = vc.CallerConfig()
+    params = vc.init(_g(1), cfg, device=dev)
+    wins = torch.rand((40, cfg.window, vc.N_FEATURES), generator=_g(2))
+    before = kc.conv1d.launches
+    gt, alt = vc.apply(params, wins.to(dev), cfg)
+    assert kc.conv1d.launches == before + 2
+    cpu = {k: {kk: vv.cpu() for kk, vv in v.items()}
+           for k, v in params.items()}
+    pgt, palt = vc.apply(cpu, wins, cfg)
+    torch.testing.assert_close(gt.cpu(), pgt, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(alt.cpu(), palt, rtol=TOL, atol=TOL)

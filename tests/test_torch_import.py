@@ -26,7 +26,9 @@ import repro_torch.kernels.fused_stream, repro_torch.kernels.ops
 import repro_torch.data.flowcell, repro_torch.core.seed_extend
 import repro_torch.quant, repro_torch.quant.observers, repro_torch.quant.params
 import repro_torch.engine.base, repro_torch.engine.basecall
-import repro_torch.core.soc_model
+import repro_torch.core.soc_model, repro_torch.core.pipeline
+import repro_torch.core.pathogen, repro_torch.core.variant_caller
+import repro_torch.engine.pipeline, repro_torch.kernels.edit_distance
 mods = sorted(m for m in sys.modules
               if m == "jax" or m.startswith("jax.")
               or m == "repro" or m.startswith("repro."))
@@ -77,6 +79,8 @@ def test_build_without_card_raises(monkeypatch):
         te.build("adaptive_sampling", preset="flowcell_smoke")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         te.build("basecall", preset="edge_int8")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        te.build("pathogen_pipeline", preset="edge_int8")
 
 
 def test_resolve_device():
@@ -100,7 +104,8 @@ def test_one_card_mesh_and_unported_presets():
     assert eng.runtime.params["conv1"]["w"].q.dtype == torch.int8
     assert set(te.presets("adaptive_sampling")) == {
         "default", "smoke", "edge_int8", "flowcell_512", "flowcell_smoke"}
-    assert set(te.workloads()) == {"adaptive_sampling", "basecall"}
+    assert set(te.workloads()) == {"adaptive_sampling", "basecall",
+                                   "pathogen_pipeline"}
 
 
 def test_chip_smoke_alone_fails_without_output(tmp_path):
