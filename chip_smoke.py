@@ -7,16 +7,21 @@ Phases, each printing JSON lines:
 
 1. ``card``: the card's name and power limit (nvidia-smi) and the time to
    build the CUDA kernels with nvcc (one nvcc per source, in parallel).
-2. ``kernel``: each of the eight kernels (fp32 conv1d, matmul, fused_stream
-   and banded_align; int8 conv1d, matmul and fused_stream; levenshtein)
-   against its plain PyTorch version on the card, at the flowcell tick's
-   shapes (512 lanes x chunk 256, the paper's CNN; int8 after the
-   ``edge_int8`` calibration), the ``basecall`` workload's (16 x 2048,
-   "same" padding; fp32 also at its calibration's 2 x 2048), the genomics
-   slice's (levenshtein at the demux shape, banded_align at the pathogen
-   firehose, the variant caller's convs) and edge shapes: max abs error
-   (bitwise for int32 outputs and for every int8 kernel), kernel, plain
-   and library times, and the bound the card's data sheet sets.
+2. ``kernel``: each of the eleven kernels (fp32 conv1d, matmul,
+   fused_stream and banded_align; int8 conv1d, matmul and fused_stream;
+   levenshtein; flash_attention, ssd_scan and the bf16 matmul) against its
+   plain PyTorch version on the card, at the flowcell tick's shapes (512
+   lanes x chunk 256, the paper's CNN; int8 after the ``edge_int8``
+   calibration), the ``basecall`` workload's (16 x 2048, "same" padding;
+   fp32 also at its calibration's 2 x 2048), the genomics slice's
+   (levenshtein at the demux shape, banded_align at the pathogen
+   firehose, the variant caller's convs), the LM prefill's (flash_attention
+   at qwen3-4b's 1 x 4096 and at 32768, checked on its first and last 512
+   rows; ssd_scan at mamba2-780m's 48 heads x 4096 and 32768; the three
+   qwen3-4b MLP GEMMs at 4096 tokens) and edge shapes: max abs error
+   (bitwise for int32 outputs and for every int8 kernel; bf16 bars in the
+   ``tol`` fields), kernel, plain and library times, and the bound the
+   card's data sheet sets.
 3. ``step_goldens``: the step-codec flowcell (8 lanes) on the card, fused
    and unfused x pipeline depth 1 and 2, and once on the CPU (plain): all
    five per-read goldens must be equal; once with fp32 params, once with
@@ -44,12 +49,24 @@ Phases, each printing JSON lines:
    (equal to its plain version on card and CPU), primer trim and
    ``detect`` in ``ed`` and ``fm`` modes (pathogen-X present, pathogen-Y
    absent).  The variant caller on a 30-SNP pileup, within 2e-5.
-7. ``{"kernels": [...]}``: every kernel with its launches in phases 4-6,
+7. ``lm_prefill``: qwen3-4b (36 layers) and mamba2-780m (48 layers) at
+   their published widths and depths, random bf16 params from a
+   ``torch.Generator`` on the card (seed 0), through
+   ``repro_torch.launch.steps.prefill`` at 1 x 4096 (prefill_32k cut for
+   the run's time, printed as ``reduced``): median wall ms of 3 runs after
+   a warm-up, tokens/s, finite logits, exactly 36 flash_attention and 108
+   matmul_bf16 launches a qwen3-4b prefill and 48 ssd_scan a mamba2-780m
+   one.  ``lm_parity``: both at depth 2 and 1 x 512 on the card and on
+   the CPU with the same params: the last token's final-normed hidden
+   state, rms of the difference within 2^-7 of its rms, and its logits
+   within 2 bf16 ulps of max |logit|.
+8. ``{"kernels": [...]}``: every kernel with its launches in phases 4-7,
    counted from 0 just before each path and read just after it.
 
 TF32 is off for the whole run (``torch.backends.cuda.matmul.allow_tf32``
 and ``torch.backends.cudnn.allow_tf32``): the plain versions and the
-library calls are fp32, like the kernels.  Any failed check exits non-zero.
+float32 library calls are fp32, like the kernels (the bf16 ones sum in
+float32).  Any failed check exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -64,12 +81,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
 # Published peaks (NVIDIA data sheets, dense, no sparsity): fp32 on the
-# CUDA cores, int8 on the tensor cores and device-memory bandwidth, by
-# H100 part.
+# CUDA cores, bf16 and int8 on the tensor cores and device-memory
+# bandwidth, by H100 part.
 PEAKS = {
-    "sxm": {"fp32_flops": 67e12, "int8_ops": 1979e12, "bytes_per_s": 3.35e12},
-    "pcie": {"fp32_flops": 51e12, "int8_ops": 1513e12, "bytes_per_s": 2.0e12},
-    "nvl": {"fp32_flops": 60e12, "int8_ops": 1671e12, "bytes_per_s": 3.9e12},
+    "sxm": {"fp32_flops": 67e12, "bf16_flops": 989e12, "int8_ops": 1979e12,
+            "bytes_per_s": 3.35e12},
+    "pcie": {"fp32_flops": 51e12, "bf16_flops": 756e12, "int8_ops": 1513e12,
+             "bytes_per_s": 2.0e12},
+    "nvl": {"fp32_flops": 60e12, "bf16_flops": 835e12, "int8_ops": 1671e12,
+            "bytes_per_s": 3.9e12},
 }
 # int32 runs on the CUDA cores at half the fp32 lane count (64 INT32 vs
 # 128 FP32 lanes per Hopper SM, Hopper architecture white paper)
@@ -101,12 +121,15 @@ def peaks_for(name: str) -> dict:
 
 
 def bound_ms(peaks, nbytes: float, ops: float, int_ops: bool = False,
-             int8: bool = False):
+             int8: bool = False, bf16: bool = False):
     """The least time for ``nbytes`` of traffic and ``ops`` operations:
-    fp32 on the CUDA cores, int32 at half that, or int8 MACs (2 ops each)
-    at the int8 tensor-core peak."""
+    fp32 on the CUDA cores, int32 at half that, int8 MACs (2 ops each) at
+    the int8 tensor-core peak, or bf16 FLOP at the bf16 tensor-core
+    peak."""
     if int8:
         rate = peaks["int8_ops"]
+    elif bf16:
+        rate = peaks["bf16_flops"]
     else:
         rate = peaks["fp32_flops"] * (INT32_SHARE if int_ops else 1.0)
     t_bytes = nbytes / peaks["bytes_per_s"] * 1e3
@@ -1464,6 +1487,393 @@ def phase_pathogen(torch, cfg, panel, known, paths):
     return out
 
 
+# ------------------------------------------------------------- phase LM --
+LM_SEQ = 4096               # prefill_32k's 32 x 32768, cut to 1 x 4096
+LM_LONG = 32_768            # prefill_32k's length: the kernels alone
+LM_ROWS = 512               # rows of the 32k attention checked each end
+LM_PARITY_SEQ = 512         # depth-2 card vs CPU: two SSD chunks of 256
+FA_RULE = ("|err| <= 2^-7 |ref| + 2^-8 (P|V|), P|V| the plain attention "
+           "of |v|")
+SSD_TOL = 2e-4              # the JAX suite's SSD bar (f32)
+LM_REDUCED = ("prefill_32k (configs/shapes.py: batch 32 x seq 32768) cut "
+              "to batch 1 x seq 4096 end to end for the run's time; the "
+              "flash_attention and ssd_scan kernels alone run at 32768")
+LM_PATHS = (("qwen3-4b", {"flash_attention": 36, "matmul_bf16": 108}),
+            ("mamba2-780m", {"ssd_scan": 48}))
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 numbers at magnitude ``x``."""
+    import math
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 1e-30))) - 7)
+
+
+def flash_excess(got, want, abs_attn) -> float:
+    """The flash bar, as the largest |got - want| / (2^-7 |want| + 2^-8
+    abs_attn): at most 1 passes.  ``abs_attn`` is the plain attention of
+    |v| on the same q and k.  The kernel rounds P to bf16 before the PV
+    product, as Pallas does (the plain version does not): that moves an
+    output by at most 2^-9 of sum_j p_j |v_j| / l = abs_attn; the two
+    roundings of the output to bf16 add at most 2^-7 |want|.  The bar
+    doubles the first term, for the f32 sums' other order."""
+    g, w = got.float(), want.float()
+    bar = 2.0 ** -7 * w.abs() + 2.0 ** -8 * abs_attn.float() + 1e-30
+    return ((g - w).abs() / bar).max().item()
+
+
+def rms_excess(got, want) -> float:
+    """The hidden-state bar, as rms(got - want) / (2^-7 rms(want)): at
+    most 1 passes.  2^-7 is two units of bf16 roundoff (u = 2^-8), so the
+    typical difference stays within two roundings of the typical value.
+    Held per element instead, a sound card-vs-CPU run fails: bf16 rounds
+    the residual stream after every layer, and differences upstream flip
+    those roundings by up to 4 ulps at a few elements."""
+    g, w = got.float(), want.float()
+    return ((g - w).square().mean().sqrt()
+            / (2.0 ** -7 * w.square().mean().sqrt() + 1e-30)).item()
+
+
+def attn_pairs(sq: int, skv: int) -> int:
+    """(query, key) pairs a causal, last-token-aligned attention scores."""
+    offs = skv - sq
+    return sq * (offs + 1) + sq * (sq - 1) // 2
+
+
+def sdpa_ms(torch, F, q, k, v):
+    """SDPA with ``enable_gqa`` on the same inputs, on its fused backends
+    only (flash, memory-efficient, cuDNN): never the O(S^2) math path."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+             SDPBackend.CUDNN_ATTENTION]
+    with sdpa_kernel(fused):
+        return time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), reps=5)
+
+
+def check_flash(torch, F, peaks, table, q, k, v, label, on_path):
+    """The flash kernel against the plain attention: every row at 4096;
+    at 32768 the first and last LM_ROWS rows (the first see keys [0,
+    LM_ROWS), the last are the plain version at (LM_ROWS, Skv), aligned to
+    the last token)."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ref
+    out = kfa.flash_attention(q, k, v, causal=True)
+    sq, skv, d = q.shape[2], k.shape[2], q.shape[3]
+    if on_path:
+        checks = [(out, q, k, v)]
+    else:
+        r = LM_ROWS
+        checks = [(out[:, :, :r], q[:, :, :r], k[:, :, :r], v[:, :, :r]),
+                  (out[:, :, -r:], q[:, :, -r:], k, v)]
+    err, excess = 0.0, 0.0
+    for o, qq, kk, vv in checks:
+        want = ref.attention(qq, kk, vv, causal=True)
+        err = max(err, (o.float() - want.float()).abs().max().item())
+        excess = max(excess, flash_excess(
+            o, want, ref.attention(qq, kk, vv.abs(), causal=True)))
+    del checks, want
+    ms = time_ms(torch, lambda: kfa.flash_attention(q, k, v, causal=True),
+                 reps=5 if on_path else 2, warm=1)
+    if on_path:
+        plain = time_ms(torch, lambda: ref.attention(q, k, v, causal=True),
+                        reps=3, warm=1)
+    else:   # the full plain version would need Hq * S^2 * 4 bytes
+        plain = time_ms(torch, lambda: ref.attention(
+            q[:, :, -LM_ROWS:], k, v, causal=True), reps=2, warm=1)
+    lib = sdpa_ms(torch, F, q, k, v)
+    ops = 4.0 * d * attn_pairs(sq, skv) * q.shape[0] * q.shape[1]
+    bnd, by = bound_ms(peaks, nbytes(q, k, v, out), ops, bf16=True)
+    line = {"phase": "kernel", "kernel": "flash_attention", "shape": label,
+            "q": list(q.shape), "k": list(k.shape), "causal": True,
+            "max_abs_err": err, "err_over_bar": excess, "tol": FA_RULE,
+            "ms": ms, "plain_ms": plain,
+            "library_ms": lib, "library": "sdpa gqa", "bound_ms": bnd,
+            "bound_by": by, "flop": ops}
+    if not on_path:
+        line.update(checked_rows=[f"first {LM_ROWS}", f"last {LM_ROWS}"],
+                    plain_rows=f"last {LM_ROWS}")
+    if on_path:
+        table.add("flash_attention", err=err, ms=ms, plain_ms=plain,
+                  bound=bnd, bound_by=by, library_ms=lib)
+    emit(line)
+    require(excess <= 1.0, f"flash_attention {label}: error {excess} x "
+            f"its bar ({FA_RULE})")
+    return line
+
+
+def ssd_flop(bh: int, t: int, ds: int, dh: int) -> float:
+    """The least FLOP the scan needs: the result is the same for every
+    chunk length, so the fewest over lengths L of the chunked form (per
+    chunk, (C_t . B_s) and G X for the s <= t pairs, the inter-chunk C S
+    and the chunk's state B^T X at L x ds x dh MACs each, and the state's
+    decay, ds x dh), and of the recurrence (5 ds dh a step).  The
+    minimum lies near L = 9 at ds 128, dh 64, not at the kernels'
+    256."""
+    def chunked(ln):
+        n = -(-t // ln)
+        pairs = ln * (ln + 1) // 2
+        return 2.0 * n * (pairs * (ds + dh) + 2 * ln * ds * dh + ds * dh)
+    least = min(chunked(ln) for ln in range(1, min(t, 256) + 1))
+    return bh * min(least, 5.0 * t * ds * dh)
+
+
+def ssd_inputs(torch, F, t, gen, dev, bh=48, ds=128, dh=64):
+    """x, log_a <= 0 and B/C as mamba_block passes them at batch 1: B/C
+    one (T, ds) row viewed over the 48 heads (stride 0)."""
+    x = (torch.randn((bh, t, dh), generator=gen, device=dev) * 0.5)
+    la = -F.softplus(torch.randn((bh, t), generator=gen, device=dev))
+    b = torch.randn((1, t, ds), generator=gen, device=dev) * 0.3
+    c = torch.randn((1, t, ds), generator=gen, device=dev) * 0.3
+    return (x.bfloat16(), la, b.bfloat16().expand(bh, t, ds),
+            c.bfloat16().expand(bh, t, ds))
+
+
+def check_ssd(torch, peaks, table, x, la, b, c, label, on_path):
+    """bf16 y within the f32 bar plus one bf16 ulp of each element (both
+    round once from f32 sums formed in different orders); at the path
+    shape also float32 inputs within the f32 bar."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as kssd
+    out = kssd.ssd_scan(x, la, b, c, chunk=256)
+    want = ref.ssd_scan(x, la, b, c)[0]
+    torch.cuda.synchronize()
+    err = (out.float() - want.float()).abs().max().item()
+    ok = torch.allclose(out.float(), want.float(), rtol=2 ** -7, atol=SSD_TOL)
+    del want
+    err32 = None
+    if on_path:
+        f32 = (x.float(), la, b.float(), c.float())
+        o32 = kssd.ssd_scan(*f32, chunk=256)
+        w32 = ref.ssd_scan(*f32)[0]
+        err32 = (o32 - w32).abs().max().item()
+        ok = ok and err32 <= SSD_TOL
+        del f32, o32, w32
+    ms = time_ms(torch, lambda: kssd.ssd_scan(x, la, b, c, chunk=256),
+                 reps=5, warm=1)
+    plain = time_ms(torch, lambda: ref.ssd_scan(x, la, b, c), reps=1, warm=0)
+    bh, t, dh = x.shape
+    ds = b.shape[-1]
+    ops = ssd_flop(bh, t, ds, dh)
+    bnd, by = bound_ms(peaks, nbytes(x, la, b[:1], c[:1], out), ops)
+    line = {"phase": "kernel", "kernel": "ssd_scan", "shape": label,
+            "x": list(x.shape), "ds": ds, "chunk": 256, "b_c": "one row "
+            "over the heads (stride 0)", "max_abs_err": err,
+            "tol": f"{SSD_TOL} + 2^-7 |y| (bf16)", "max_abs_err_f32": err32,
+            "tol_f32": SSD_TOL, "ms": ms, "plain_ms": plain,
+            "library_ms": None, "bound_ms": bnd, "bound_by": by,
+            "flop": ops}
+    if on_path:
+        table.add("ssd_scan", err=err, ms=ms, plain_ms=plain, bound=bnd,
+                  bound_by=by, library_ms=None)
+    emit(line)
+    require(ok, f"ssd_scan {label}: max abs err {err} (f32 {err32})")
+    return line
+
+
+def check_matmul_bf16(torch, F, peaks, table, a, w, act, label):
+    """Within one bf16 ulp of max |out| (f32 sums in another order)."""
+    from repro_torch.kernels import matmul as km
+    from repro_torch.kernels import ref
+    out = km.matmul_bf16(a, w, activation=act)
+    want = ref.matmul(a, w, activation=act)
+    torch.cuda.synchronize()
+    err = (out.float() - want.float()).abs().max().item()
+    tol = bf16_ulp(want.float().abs().max().item())
+    del want
+    ms = time_ms(torch, lambda: km.matmul_bf16(a, w, activation=act), reps=10)
+    plain = time_ms(torch, lambda: ref.matmul(a, w, activation=act), reps=3)
+    if act == "silu":
+        lib = time_ms(torch, lambda: F.silu(torch.matmul(a, w)), reps=10)
+    else:
+        lib = time_ms(torch, lambda: torch.matmul(a, w), reps=10)
+    m, k = a.shape
+    ops = 2.0 * m * k * w.shape[1]
+    bnd, by = bound_ms(peaks, nbytes(a, w, out), ops, bf16=True)
+    emit({"phase": "kernel", "kernel": "matmul_bf16", "shape": label,
+          "a": list(a.shape), "b": list(w.shape), "activation": act,
+          "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain,
+          "library_ms": lib, "bound_ms": bnd, "bound_by": by, "flop": ops})
+    table.add("matmul_bf16", err=err, ms=ms, plain_ms=plain, bound=bnd,
+              bound_by=by, library_ms=lib)
+    require(err <= tol, f"matmul_bf16 {label}: max abs err {err} over {tol}")
+
+
+def phase_kernels_lm(torch, F, peaks, table):
+    """Phase 2 at the LM prefill's shapes: flash_attention at qwen3-4b's
+    1 x 4096 and at 32768, ssd_scan at mamba2-780m's (48, 4096) and
+    (48, 32768), the three qwen3-4b MLP GEMMs at M = 4096.  Returns the
+    32768 lines (not summed into the kernels line's per-prefill row)."""
+    from repro_torch.configs import ARCHS
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(3)
+    q3 = ARCHS["qwen3-4b"].config()
+    long = {}
+    for s_len, on_path in ((LM_SEQ, True), (LM_LONG, False)):
+        q = torch.randn((1, q3.num_heads, s_len, q3.head_dim), generator=gen,
+                        device=dev).bfloat16()
+        k = torch.randn((1, q3.num_kv_heads, s_len, q3.head_dim),
+                        generator=gen, device=dev).bfloat16()
+        v = torch.randn(k.shape, generator=gen, device=dev).bfloat16()
+        line = check_flash(torch, F, peaks, table, q, k, v,
+                           f"qwen3-4b 1 x {s_len}", on_path)
+        if not on_path:
+            long["flash_attention"] = line
+        del q, k, v
+    m2 = ARCHS["mamba2-780m"].config()
+    for s_len, on_path in ((LM_SEQ, True), (LM_LONG, False)):
+        args = ssd_inputs(torch, F, s_len, gen, dev, bh=m2.ssm_heads,
+                          ds=m2.ssm_state, dh=m2.ssm_head_dim)
+        line = check_ssd(torch, peaks, table, *args,
+                         f"mamba2-780m 48 heads x {s_len}", on_path)
+        if not on_path:
+            long["ssd_scan"] = line
+        del args
+    d, ff = q3.d_model, q3.d_ff
+    a = torch.randn((LM_SEQ, d), generator=gen, device=dev).bfloat16()
+    wg = (torch.randn((d, ff), generator=gen, device=dev) * d ** -0.5
+          ).bfloat16()
+    h = (torch.randn((LM_SEQ, ff), generator=gen, device=dev) * 0.5
+         ).bfloat16()
+    wo = (torch.randn((ff, d), generator=gen, device=dev) * ff ** -0.5
+          ).bfloat16()
+    check_matmul_bf16(torch, F, peaks, table, a, wg, "silu",
+                      "qwen3-4b MLP gate (silu)")
+    check_matmul_bf16(torch, F, peaks, table, a, wg, "none", "qwen3-4b MLP up")
+    check_matmul_bf16(torch, F, peaks, table, h, wo, "none",
+                      "qwen3-4b MLP down")
+    return long
+
+
+def tree_numel(tree) -> int:
+    return sum(tree_numel(v) if isinstance(v, dict) else v.numel()
+               for v in tree.values())
+
+
+PARITY_RULE = ("rms of card - CPU over the last token's final-normed "
+               "hidden state (the unembedding's input) within 2^-7 of its "
+               "rms (2 units of bf16 roundoff)")
+
+
+def last_hidden_and_logits(torch, params, tokens, cfg, dev):
+    """The last token's final-normed hidden state (B, 1, d) and logits
+    (B, 1, V) of one prefill, as ``steps.prefill`` runs it, in float32 on
+    the CPU."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer
+    tok = torch.as_tensor(tokens).to(device=dev, dtype=torch.int64)
+    with torch.inference_mode():
+        h, _ = transformer.final_hidden(params, tok, cfg, last_only=True)
+        logits = L.unembed(params["embedding"], h, cfg)
+    return h.float().cpu(), logits.float().cpu()
+
+
+def parity_line(card_h, cpu_h, card, cpu) -> dict:
+    """Card against CPU: the hidden state by ``rms_excess`` (the last
+    token's attention or SSD output zeroed moves it by far more), the
+    logits by 2 bf16 ulps of max |logit| (the self-match of the tied
+    embedding sets that maximum) and top-1 beyond that margin."""
+    bar = 2 * bf16_ulp(cpu.abs().max().item())
+    top2 = cpu[0, 0].topk(2).values
+    return {"hidden_over_bar": rms_excess(card_h, cpu_h),
+            "hidden_max_abs_diff": (card_h - cpu_h).abs().max().item(),
+            "hidden_rms": cpu_h.square().mean().sqrt().item(),
+            "hidden_rule": PARITY_RULE,
+            "max_abs_diff": (card - cpu).abs().max().item(), "bar": bar,
+            "bar_rule": "2 bf16 ulps of max |logit| (CPU)",
+            "max_abs_logit": cpu.abs().max().item(),
+            "top2_margin": (top2[0] - top2[1]).item(),
+            "top1_equal": int(card[0, 0].argmax()) == int(cpu[0, 0].argmax())}
+
+
+def phase_lm_prefill(torch, paths):
+    """qwen3-4b and mamba2-780m at full width and depth, random bf16
+    params from torch.Generator seed 0 on the card: one warm-up and three
+    timed ``launch.steps.prefill`` at 1 x 4096 (exact launches a
+    prefill), then depth 2 at 1 x 512 on the card and on the CPU with the
+    same params: the last token's final hidden state by ``PARITY_RULE``,
+    its logits within 2 bf16 ulps of max |logit|, top-1 equal wherever
+    the top-2 margin exceeds that."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.core import basecaller as bc
+    dev = torch.device("cuda")
+    for arch, per_prefill in LM_PATHS:
+        cfg = ARCHS[arch].config()
+        t0 = time.perf_counter()
+        params, _ = transformer.init(torch.Generator(dev).manual_seed(0), cfg,
+                                     device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        tok = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                (1, LM_SEQ))
+
+        def run():
+            torch.cuda.reset_peak_memory_stats()
+            steps.prefill(params, tok, cfg)              # warm-up
+            torch.cuda.synchronize()
+            walls = []
+            for _ in range(3):
+                t1 = time.perf_counter()
+                logits = steps.prefill(params, tok, cfg)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t1) * 1e3)
+            return logits, walls
+        path = f"lm_prefill {arch}"
+        logits, walls = paths.drive(path, tuple(per_prefill), run)
+        med = float(np.median(walls))
+        finite = bool(torch.isfinite(logits).all().item())
+        emit({"phase": "lm_prefill", "arch": arch, "params": tree_numel(params),
+              "layers": cfg.num_layers, "batch": 1, "seq": LM_SEQ,
+              "init_s": init_s, "wall_ms": walls, "median_ms": med,
+              "tokens_per_s": LM_SEQ / (med / 1e3),
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "logits_shape": list(logits.shape), "finite": finite,
+              "max_abs_logit": logits.float().abs().max().item(),
+              "launches_per_prefill": {k: v / 4 for k, v in
+                                       paths.paths[path].items()},
+              "reduced": LM_REDUCED})
+        require(finite, f"{arch}: non-finite logits")
+        require(paths.paths[path] == {k: 4 * v for k, v in
+                                      per_prefill.items()},
+                f"{arch}: launches {paths.paths[path]}, expected 4 x "
+                f"{per_prefill}")
+        del params, logits
+        torch.cuda.empty_cache()
+
+        cfg2 = dataclasses.replace(cfg, num_layers=2)
+        p2, _ = transformer.init(torch.Generator(dev).manual_seed(0), cfg2,
+                                 device=dev)
+        tok2 = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                                 (1, LM_PARITY_SEQ))
+        t0 = time.perf_counter()
+        card_h, card = last_hidden_and_logits(torch, p2, tok2, cfg2, dev)
+        card_s = time.perf_counter() - t0
+        cpu_params = bc.params_to(p2, "cpu")
+        t0 = time.perf_counter()
+        cpu_h, cpu = last_hidden_and_logits(torch, cpu_params, tok2, cfg2,
+                                            torch.device("cpu"))
+        cpu_s = time.perf_counter() - t0
+        line = parity_line(card_h, cpu_h, card, cpu)
+        emit({"phase": "lm_parity", "arch": arch, "layers": 2, "batch": 1,
+              "seq": LM_PARITY_SEQ, **line, "card_s": card_s,
+              "cpu_s": cpu_s})
+        require(line["hidden_over_bar"] <= 1.0,
+                f"{arch} depth-2 parity: last-token hidden state "
+                f"{line['hidden_over_bar']} x its bar")
+        diff, bar = line["max_abs_diff"], line["bar"]
+        margin, same_top1 = line["top2_margin"], line["top1_equal"]
+        require(diff <= bar, f"{arch} depth-2 parity: {diff} over {bar}")
+        require(same_top1 or margin <= bar,
+                f"{arch} depth-2 parity: top-1 differs at margin {margin}")
+        del p2, cpu_params
+        torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------ main --
 KERNELS = {
     "conv1d": ("src/repro_torch/kernels/csrc/conv1d.cu",
@@ -1482,12 +1892,19 @@ KERNELS = {
                           "src/repro/kernels/fused_stream.py:376"),
     "levenshtein": ("src/repro_torch/kernels/csrc/banded_align.cu",
                     "src/repro/kernels/edit_distance.py:139"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:111"),
+    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:88"),
+    "matmul_bf16": ("src/repro_torch/kernels/csrc/matmul.cu",
+                    "src/repro/kernels/matmul.py:120"),
 }
 
 
 def launch_counters():
     """Each kernel's launch count: (wrapper, attribute)."""
     from repro_torch.kernels import conv1d, edit_distance, fused_stream, matmul
+    from repro_torch.kernels import flash_attention, ssd_scan
     fs = fused_stream.fused_stream_cuda
     return {"conv1d": (conv1d.conv1d, "launches"),
             "matmul": (matmul.matmul, "launches"),
@@ -1496,7 +1913,10 @@ def launch_counters():
             "conv1d_int8": (conv1d.conv1d_int8, "launches"),
             "matmul_int8": (matmul.matmul_int8, "launches"),
             "fused_stream_int8": (fs, "launches_int8"),
-            "levenshtein": (edit_distance.levenshtein, "launches")}
+            "levenshtein": (edit_distance.levenshtein, "launches"),
+            "flash_attention": (flash_attention.flash_attention, "launches"),
+            "ssd_scan": (ssd_scan.ssd_scan, "launches"),
+            "matmul_bf16": (matmul.matmul_bf16, "launches")}
 
 
 class PathLaunches:
@@ -1578,6 +1998,7 @@ def main() -> int:
     panel = pathogen_panel()
     known = known_reads(panel)
     firehose = phase_kernels_genomics(torch, F, peaks, table, panel, known)
+    long_lm = phase_kernels_lm(torch, F, peaks, table)
     phase_step_goldens()
     scfg, sparams = quantize_step_codec()
     phase_step_goldens("int8", scfg, sparams)
@@ -1608,6 +2029,7 @@ def main() -> int:
         return paths.drive(f"basecall {preset}", want, serve)
     phase_basecall(torch, cfg, params, run_card)
     phase_pathogen(torch, cfg, panel, known, paths)
+    phase_lm_prefill(torch, paths)
 
     kernels = []
     for k, (src, replaces) in KERNELS.items():
@@ -1621,6 +2043,13 @@ def main() -> int:
         if k == "banded_align":
             # the pathogen panel compare's shape, beside the mapper's
             kernels[-1]["firehose"] = firehose
+        if k in long_lm:
+            # prefill_32k's length, beside the 1 x 4096 path shape
+            kernels[-1]["at_32768"] = {
+                f: long_lm[k][f] for f in ("max_abs_err", "ms", "plain_ms",
+                                           "bound_ms", "bound_by",
+                                           "library_ms", "plain_rows")
+                if f in long_lm[k]}
     for k in kernels:
         require(k["launches"] > 0, f"kernel {k['name']} never launched")
     print(card, flush=True)

@@ -71,6 +71,12 @@ _QT_KEYS = frozenset({"q", "scale", "axis", "act_scale"})
 
 
 def _tensor(a, dev):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16 (JAX's bf16 in numpy), which torch.from_numpy
+        # refuses: carry the bits through int16 and view them as bf16
+        bits = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        return bits.view(torch.bfloat16).to(dev)
     return torch.from_numpy(np.array(a, copy=True)).to(dev)
 
 
@@ -81,7 +87,8 @@ def load_numpy_params(tree, device="cuda"):
     "act_scale"}`` of numpy arrays (``axis`` an int or None, ``act_scale``
     None when uncalibrated), or as any object with those four attributes
     (a JAX ``QuantizedTensor`` after ``jax.tree.map(np.asarray, ...)``),
-    and loads as a :class:`QuantizedTensor`."""
+    and loads as a :class:`QuantizedTensor`.  Every value carries bit for
+    bit, bf16 included."""
     dev = resolve_device(device)
     if isinstance(tree, dict) and set(tree) == _QT_KEYS:
         fields = tree

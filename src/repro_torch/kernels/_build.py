@@ -23,7 +23,8 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = _ROOT / "build" / "kernels"
-SOURCES = ("conv1d", "matmul", "banded_align", "fused_stream")
+SOURCES = ("conv1d", "matmul", "banded_align", "fused_stream",
+           "flash_attention", "ssd_scan")
 SMEM_LIMIT = 232_448    # bytes of shared memory an H100 block may use
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -17,7 +17,10 @@
 // cores, not TF32: the parity bars are fp32 bars.
 #include <cstdint>
 
+#include <cuda_bf16.h>
+
 #include "common.cuh"
+#include "mma.cuh"
 
 constexpr int MM_BM = 64;
 constexpr int MM_BN = 64;
@@ -192,5 +195,145 @@ extern "C" int launch_matmul_int8(const void* a, const void* b, void* out,
   matmul_int8_kernel<<<grid, MM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(a), static_cast<const int8_t*>(b),
       static_cast<int32_t*>(out), M, N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------- bf16 ----
+// bf16 x bf16 -> f32 -> bf16 GEMM with a bias + activation epilogue.
+//
+// Replaces: the bf16 case of src/repro/kernels/matmul.py::matmul (Pallas
+// body _matmul_kernel with bf16 operands: jnp.dot with an f32 accumulator,
+// bias and activation on the f32 sum, one cast to bf16).
+//
+// a (M, K), b (K, N), bias (N,) or null, out (M, N): bf16, row-major.
+//
+// Bound on this card: on the path (the qwen3-4b MLP at 4096 tokens:
+// (4096, 2560) x (2560, 9728) gate + silu and up, (4096, 9728) x (9728,
+// 2560) down) operations, 2.0e11 FLOP a GEMM against ~0.1 GB of operands.
+// Design: the tensor cores through warp-wide mma.sync m16n8k16 (bf16 ->
+// f32).  A 128 x 128 output tile per block of 8 warps (2 x 4, each warp 64
+// x 32: 16 mma a k-step), K walked 32 at a time through shared memory with
+// padded rows (conflict-free fragment reads); the next K slice is loaded
+// into registers while the current one multiplies.  Loads are 16 bytes
+// where a row allows it, else element by element; the ragged M, N and K
+// edges stage zeros, which add exactly nothing to an f32 sum.  No TMA,
+// wgmma or multi-stage pipeline yet.
+constexpr int MB_BM = 128;
+constexpr int MB_BN = 128;
+constexpr int MB_BK = 32;
+constexpr int MB_THREADS = 256;
+constexpr int MB_LDA = MB_BK + 8;  // padded rows of the A tile (bf16)
+constexpr int MB_LDB = MB_BN + 8;  // padded rows of the B tile (bf16)
+
+// 8 consecutive bf16 of row `row` from column `col` (zeros outside the
+// rows x cols matrix); `vec`: rows are 16-byte aligned.
+__device__ __forceinline__ uint4 load8_bf16(const __nv_bfloat16* base, int row,
+                                            int col, int rows, int cols,
+                                            bool vec) {
+  if (row >= rows) return make_uint4(0u, 0u, 0u, 0u);
+  const __nv_bfloat16* p = base + static_cast<size_t>(row) * cols + col;
+  if (vec && col + 8 <= cols) return *reinterpret_cast<const uint4*>(p);
+  uint32_t w[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const __nv_bfloat16 z = __ushort_as_bfloat16(0);
+    const __nv_bfloat16 lo = col + 2 * e < cols ? p[2 * e] : z;
+    const __nv_bfloat16 hi = col + 2 * e + 1 < cols ? p[2 * e + 1] : z;
+    w[e] = pack_bf16_bits(lo, hi);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+__global__ void __launch_bounds__(MB_THREADS)
+matmul_bf16_kernel(const __nv_bfloat16* __restrict__ a,
+                   const __nv_bfloat16* __restrict__ b,
+                   const __nv_bfloat16* __restrict__ bias,
+                   __nv_bfloat16* __restrict__ out, int M, int N, int K,
+                   int act, int vec_a, int vec_b) {
+  __shared__ __align__(16) __nv_bfloat16 as[MB_BM * MB_LDA];
+  __shared__ __align__(16) __nv_bfloat16 bs[MB_BK * MB_LDB];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp / 4, wn = warp % 4;  // warp tile: rows 64 wm, cols 32 wn
+  const int m0 = blockIdx.y * MB_BM;
+  const int n0 = blockIdx.x * MB_BN;
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  // each thread stages two 16-byte chunks of A (128 x 32) and of B (32 x 128)
+  uint4 ra[2], rb[2];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = threadIdx.x + h * MB_THREADS;
+      ra[h] = load8_bf16(a, m0 + i / 4, k0 + (i % 4) * 8, M, K, vec_a);
+      rb[h] = load8_bf16(b, k0 + i / 16, n0 + (i % 16) * 8, K, N, vec_b);
+    }
+  };
+  fetch(0);
+  for (int k0 = 0; k0 < K; k0 += MB_BK) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = threadIdx.x + h * MB_THREADS;
+      *reinterpret_cast<uint4*>(as + (i / 4) * MB_LDA + (i % 4) * 8) = ra[h];
+      *reinterpret_cast<uint4*>(bs + (i / 16) * MB_LDB + (i % 16) * 8) = rb[h];
+    }
+    __syncthreads();
+    if (k0 + MB_BK < K) fetch(k0 + MB_BK);
+#pragma unroll
+    for (int kk = 0; kk < MB_BK / 16; ++kk) {
+      uint32_t af[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const __nv_bfloat16* p = as + (wm * 64 + i * 16 + g) * MB_LDA + kk * 16 + 2 * t;
+        af[i][0] = load_pair(p);
+        af[i][1] = load_pair(p + 8 * MB_LDA);
+        af[i][2] = load_pair(p + 8);
+        af[i][3] = load_pair(p + 8 * MB_LDA + 8);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const __nv_bfloat16* p = bs + (kk * 16 + 2 * t) * MB_LDB + wn * 32 + j * 8 + g;
+        const uint32_t b0 = pack_bf16_bits(p[0], p[MB_LDB]);
+        const uint32_t b1 = pack_bf16_bits(p[8 * MB_LDB], p[9 * MB_LDB]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mma_bf16_16816(acc[i][j], af[i], b0, b1);
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = m0 + wm * 64 + i * 16 + g + (e < 2 ? 0 : 8);
+        const int n = n0 + wn * 32 + j * 8 + 2 * t + (e & 1);
+        if (m >= M || n >= N) continue;
+        float val = acc[i][j][e];
+        if (bias != nullptr) val = val + __bfloat162float(bias[n]);
+        out[static_cast<size_t>(m) * N + n] = __float2bfloat16_rn(activate(val, act));
+      }
+    }
+  }
+}
+
+extern "C" int launch_matmul_bf16(const void* a, const void* b,
+                                  const void* bias, void* out, int M, int N,
+                                  int K, int act, int vec_a, int vec_b,
+                                  void* stream) {
+  dim3 grid((N + MB_BN - 1) / MB_BN, (M + MB_BM - 1) / MB_BM);
+  matmul_bf16_kernel<<<grid, MB_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
+      static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(out),
+      M, N, K, act, vec_a, vec_b);
   return static_cast<int>(cudaGetLastError());
 }

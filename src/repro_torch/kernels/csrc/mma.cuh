@@ -1,0 +1,46 @@
+// bf16 tensor-core pieces shared by flash_attention.cu and matmul.cu.
+//
+// One warp-wide mma.sync.m16n8k16 (bf16 x bf16 -> f32): D[16x8] += A[16x16]
+// B[16x8].  With g = lane / 4 and t = lane % 4, each thread holds
+//
+//   A (row-major)  a0: (g,   2t..2t+1)   a1: (g+8, 2t..2t+1)
+//                  a2: (g,   2t+8..+9)   a3: (g+8, 2t+8..+9)
+//   B (k x n)      b0: (k = 2t..2t+1, n = g)   b1: (k = 2t+8..+9, n = g)
+//   C/D (f32)      d0, d1: (g, 2t..2t+1)       d2, d3: (g+8, 2t..2t+1)
+//
+// each 32-bit A/B register packing two bf16, the lower k index in the low
+// half (PTX ISA, "Matrix Fragments for mma.m16n8k16").
+#pragma once
+
+#include <cstdint>
+
+#include <cuda_bf16.h>
+
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to bf16 (nearest even) in one register, lo in the low
+// half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Two bf16 values from anywhere, lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16_bits(__nv_bfloat16 lo,
+                                                   __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+// Two consecutive bf16 (4-byte aligned) as one register.
+__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}

@@ -1,10 +1,11 @@
 """Tiled GEMM: the CUDA kernels (``csrc/matmul.cu``) and their wrappers,
-fp32 with a bias + activation epilogue (:func:`matmul`) and int8 -> int32
+fp32 with a bias + activation epilogue (:func:`matmul`), bf16 with f32
+accumulation and the same epilogue (:func:`matmul_bf16`), and int8 -> int32
 (:func:`matmul_int8`).
 
 Replaces ``repro/kernels/matmul.py::matmul`` (the Pallas bodies
 ``_matmul_kernel`` / ``_matmul_nobias_kernel``, with float or int8
-operands).  The source note in
+operands, bf16 included).  The source note in
 ``csrc/matmul.cu`` says what bounds the kernel on an H100 and how its
 tiling answers that.
 """
@@ -19,6 +20,7 @@ from repro_torch.kernels import ref
 
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _INT8_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_BF16_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, bias=None, *,
@@ -82,3 +84,42 @@ def matmul_int8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 matmul_int8.launches = 0
+
+
+def matmul_bf16(a: torch.Tensor, b: torch.Tensor, bias=None, *,
+                activation: str = "none") -> torch.Tensor:
+    """``activation(a @ b + bias)`` for bf16 a (M, K), b (K, N), bias (N,):
+    float32 sums, bias and activation on them, one rounding to bf16.
+
+    A CPU tensor runs the plain version (:func:`ref.matmul`); a CUDA tensor
+    launches the kernel or raises."""
+    if a.device.type == "cpu":
+        return ref.matmul(a, b, bias, activation=activation)
+    m, k = a.shape
+    k2, n = b.shape
+    if k != k2:
+        raise ValueError(f"matmul_bf16: inner dims differ, {a.shape} x "
+                         f"{b.shape}")
+    _build.check_tensor("matmul_bf16 a", a, torch.bfloat16)
+    _build.check_tensor("matmul_bf16 b", b, torch.bfloat16, device=a.device)
+    if bias is not None:
+        _build.check_tensor("matmul_bf16 bias", bias, torch.bfloat16, (n,),
+                            a.device)
+    if m < 1 or n < 1:
+        raise ValueError(f"matmul_bf16: empty output {m} x {n}")
+    if -(-m // 128) > 65_535:
+        raise ValueError(f"matmul_bf16: M={m} exceeds the grid's y limit")
+    # 16-byte loads where every row of the operand starts 16-byte aligned
+    vec_a = int(k % 8 == 0 and a.data_ptr() % 16 == 0)
+    vec_b = int(n % 8 == 0 and b.data_ptr() % 16 == 0)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
+    _build.launch(
+        "matmul", "launch_matmul_bf16", _BF16_ARGS, a.data_ptr(), b.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(), m, n, k,
+        ref.ACTIVATION_CODES[activation], vec_a, vec_b,
+        _build.stream_handle(a.device))
+    matmul_bf16.launches += 1
+    return out
+
+
+matmul_bf16.launches = 0

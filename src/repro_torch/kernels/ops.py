@@ -22,8 +22,10 @@ import torch.nn.functional as F
 from repro_torch.kernels import conv1d as _conv1d
 from repro_torch.kernels import edit_distance as _ed
 from repro_torch.kernels import fabric
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import matmul as _mm
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.quant import core as qcore
 
 
@@ -86,10 +88,13 @@ def int8_reference(x, w, bias=None, *, stride: int = 1,
 
 def mat_mul(a, b, bias=None, *, activation: str = "none"):
     """activation(a @ b + bias) for arbitrary (M, K) x (K, N); ``b`` may be
-    a ``QuantizedTensor`` (the int8 MAC path)."""
+    a ``QuantizedTensor`` (the int8 MAC path); bf16 operands take the bf16
+    kernel (float32 sums, one rounding to bf16)."""
     fabric.dispatch("matmul", a)
     if qcore.is_quantized(b):
         return matmul_int8(a, b, bias, activation=activation)
+    if a.dtype == torch.bfloat16:
+        return _mm.matmul_bf16(a, b, bias, activation=activation)
     return _mm.matmul(a, b, bias, activation=activation)
 
 
@@ -154,3 +159,18 @@ def edit_distance(query, target):
     fabric.dispatch("edit_distance", query)
     return _ed.levenshtein(query.to(torch.int32).contiguous(),
                            target.to(torch.int32).contiguous())
+
+
+def flash_attention(q, k, v, *, causal: bool = True, scale=None):
+    """(B, Hq, Sq, D) x (B, Hkv, Skv, D) -> (B, Hq, Sq, D) softmax
+    attention, GQA and last-token-aligned causal mask."""
+    fabric.dispatch("flash_attention", q)
+    return _fa.flash_attention(q, k, v, causal=causal, scale=scale)
+
+
+def ssd_scan(x, log_a, b, c, *, chunk=None):
+    """Mamba-2 SSD over (BH, T, dh); returns y only (the prefill path).
+    ``chunk`` defaults to 256, as JAX's tuning."""
+    fabric.dispatch("ssd_scan", x)
+    return _ssd.ssd_scan(x, log_a, b, c, chunk=256 if chunk is None
+                         else chunk)

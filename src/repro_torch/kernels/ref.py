@@ -5,7 +5,9 @@ Each function is the semantic twin of a function in ``repro/kernels/ref.py``
 kernel wrappers run these for tensors on the CPU; ``chip_smoke.py`` runs
 them on the card to hold each kernel against its plain version.
 
-Float math is IEEE float32 throughout; the int8 MACs (``matmul_int8``,
+Float math is IEEE float32 throughout (bf16 operands are widened to
+float32, summed in float32 and rounded once at the end, as JAX's
+``preferred_element_type=float32``); the int8 MACs (``matmul_int8``,
 ``conv1d_int8``) are exact integer sums, and :func:`fma_f32` is the one
 rounding of the int8 dequant epilogue.  A float32 product on the card
 goes through cuBLAS, and a float32 convolution through cuDNN, which
@@ -57,7 +59,17 @@ def _float_only(name: str, *ts) -> None:
 
 # ---------------------------------------------------------------- matmul ---
 def matmul(a, b, bias=None, *, activation: str = "none"):
-    """``activation(a @ b + bias)``: a (M, K), b (K, N), bias (N,)."""
+    """``activation(a @ b + bias)``: a (M, K), b (K, N), bias (N,).
+
+    bf16 operands (``repro/kernels/ref.py::matmul``): the products summed
+    in float32, bias and activation on the float32 sum, one rounding to
+    bf16 at the end."""
+    if a.dtype == torch.bfloat16 and b.dtype == torch.bfloat16:
+        full_fp32()
+        out = a.float() @ b.float()
+        if bias is not None:
+            out = out + bias.float()
+        return ACTIVATIONS[activation](out).to(torch.bfloat16)
     _float_only("matmul", a, b, bias)
     full_fp32()
     out = a @ b
@@ -193,6 +205,61 @@ def banded_align(query, target, *, band: int, match: int = 2,
             best = torch.maximum(best, new.amax(dim=1))
         prev2, prev = prev, new
     return best if local else prev[:, m].contiguous()
+
+
+# -------------------------------------------------------- flash attention ---
+def attention(q, k, v, *, causal: bool = True, scale=None):
+    """Softmax attention, q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D) with
+    Hq % Hkv == 0 -> (B, Hq, Sq, D) in q's type
+    (``repro/kernels/ref.py::attention``).
+
+    GQA by repeating K/V; logits in float32; causal rows aligned to the
+    last token (key j is seen by query i iff ``j <= i + (Skv - Sq)``);
+    the float32 probabilities multiply V in float32 and the result is
+    rounded once to q's type."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"attention: {hq} query heads over {hkv} KV heads")
+    scale = d ** -0.5 if scale is None else scale
+    group = hq // hkv
+    full_fp32()
+    kk = k.float().repeat_interleave(group, dim=1)
+    vv = v.float().repeat_interleave(group, dim=1)
+    logits = torch.matmul(q.float(), kk.transpose(-1, -2)) * scale
+    if causal:
+        qi = torch.arange(sq, device=q.device)[:, None]
+        kj = torch.arange(skv, device=q.device)[None, :]
+        logits = logits.masked_fill(~(kj <= qi + (skv - sq)), -torch.inf)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.matmul(probs, vv).to(q.dtype)
+
+
+# --------------------------------------------------------------- ssd scan ---
+def ssd_scan(x, log_a, b, c, *, state0=None):
+    """Mamba-2 SSD by its literal recurrence
+    (``repro/kernels/ref.py::ssd_scan``), in float32:
+
+        S_t = exp(log_a_t) S_{t-1} + b_t^T x_t,   y_t = c_t S_t
+
+    x (BH, T, dh), log_a (BH, T), b/c (BH, T, ds); ``state0`` (BH, ds, dh)
+    or zeros.  Returns ``(y (BH, T, dh) in x's type, final state (BH, ds,
+    dh) float32)``."""
+    bh, t, dh = x.shape
+    ds = b.shape[-1]
+    full_fp32()
+    s = (torch.zeros((bh, ds, dh), dtype=torch.float32, device=x.device)
+         if state0 is None else state0.float())
+    xf, la = x.float(), log_a.float()
+    bf, cf = b.float(), c.float()
+    ys = []
+    for i in range(t):
+        s = (torch.exp(la[:, i])[:, None, None] * s
+             + bf[:, i, :, None] * xf[:, i, None, :])
+        ys.append(torch.bmm(cf[:, i, None, :], s)[:, 0])
+    y = (torch.stack(ys, dim=1) if ys
+         else torch.zeros((bh, 0, dh), device=x.device))
+    return y.to(x.dtype), s
 
 
 # --------------------------------------------------------- edit distance ---

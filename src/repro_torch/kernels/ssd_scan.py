@@ -1,0 +1,99 @@
+"""Mamba-2 SSD chunked scan: the CUDA kernels (``csrc/ssd_scan.cu``) and
+their wrapper.
+
+Replaces ``repro/kernels/ssd_scan.py::ssd_scan`` (the Pallas body
+``_ssd_kernel``) and the padding of ``repro/kernels/ops.py::_ssd_pallas``,
+which zero-pads T to a multiple of the chunk and crops the result: the
+kernels read positions past T as zeros and do not write them.  The chunk
+only tiles the work (the scan's result is the same for every chunk, up to
+float32 rounding), so the kernels take ``min(chunk, T)`` rounded up to a
+multiple of their 64-row tile.  The source note in ``csrc/ssd_scan.cu``
+says what bounds them on an H100 and how the three passes answer that.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref
+
+_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+         + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
+TILE = 64
+MAX_CHUNK = 1024
+# (ds, dh) the kernels take: mamba2-780m's, and the smoke configs' and
+# the card tests' small ones
+DIMS = ((128, 64), (32, 16), (16, 16))
+
+
+def kernel_chunk(chunk: int, t: int) -> int:
+    """The chunk the kernels run: ``min(chunk, t)`` (as JAX) rounded up to
+    a multiple of the 64-row tile."""
+    ck = max(min(chunk, t), 1)
+    return -(-ck // TILE) * TILE
+
+
+def _check_bc(what: str, t: torch.Tensor, x: torch.Tensor, ds: int) -> int:
+    """B or C: x's dtype and device, shape (BH, T, ds) with each head's
+    (T, ds) block contiguous; returns the head stride (0 when one row of
+    B/C serves every head)."""
+    bh, tn, _ = x.shape
+    if tuple(t.shape) != (bh, tn, ds):
+        raise ValueError(f"ssd_scan {what}: shape {tuple(t.shape)}, expected "
+                         f"{(bh, tn, ds)}")
+    if t.device != x.device:
+        raise ValueError(f"ssd_scan {what}: on {t.device}, expected "
+                         f"{x.device}")
+    if t.dtype != x.dtype:
+        raise TypeError(f"ssd_scan {what}: expected {x.dtype}, got {t.dtype}")
+    if (tn > 1 and t.stride(1) != ds) or t.stride(2) != 1:
+        raise ValueError(f"ssd_scan {what}: each head's (T, ds) block must be "
+                         "contiguous")
+    return t.stride(0) if bh > 1 else 0
+
+
+def ssd_scan(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
+             c: torch.Tensor, *, chunk: int = 256) -> torch.Tensor:
+    """y of the SSD scan: x (BH, T, dh), log_a (BH, T) <= 0, b/c (BH, T, ds)
+    -> y (BH, T, dh) in x's type.
+
+    A CPU tensor runs the plain version (the recurrence,
+    :func:`ref.ssd_scan`); a CUDA tensor launches the kernels (x, b, c in
+    float32 or bf16, log_a float32; (ds, dh) in ``DIMS``) or raises."""
+    if x.device.type == "cpu":
+        return ref.ssd_scan(x, log_a, b, c)[0]
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"ssd_scan x: float32 or bfloat16, got {x.dtype}")
+    _build.check_tensor("ssd_scan x", x, x.dtype)
+    bh, tn, dh = x.shape
+    ds = b.shape[-1]
+    _build.check_tensor("ssd_scan log_a", log_a, torch.float32, (bh, tn),
+                        x.device)
+    bstride = _check_bc("b", b, x, ds)
+    cstride = _check_bc("c", c, x, ds)
+    if (ds, dh) not in DIMS:
+        raise ValueError(f"ssd_scan: (ds, dh) = {(ds, dh)} not in {DIMS}")
+    if bh < 1 or tn < 1:
+        raise ValueError(f"ssd_scan: empty input {tuple(x.shape)}")
+    if bh > 65_535:
+        raise ValueError(f"ssd_scan: BH = {bh} exceeds the grid's y limit")
+    ck = kernel_chunk(chunk, tn)
+    if ck > MAX_CHUNK:
+        raise ValueError(f"ssd_scan: chunk {ck} over {MAX_CHUNK}")
+    n = -(-tn // ck)
+    states = torch.empty((bh, n, ds, dh), dtype=torch.float32,
+                         device=x.device)
+    totals = torch.empty((bh, n), dtype=torch.float32, device=x.device)
+    y = torch.empty_like(x)
+    _build.launch(
+        "ssd_scan", "launch_ssd_scan", _ARGS, x.data_ptr(), log_a.data_ptr(),
+        b.data_ptr(), c.data_ptr(), states.data_ptr(), totals.data_ptr(),
+        y.data_ptr(), bh, tn, ds, dh, ck, bstride, cstride,
+        int(x.dtype == torch.bfloat16), _build.stream_handle(x.device))
+    ssd_scan.launches += 1
+    return y
+
+
+ssd_scan.launches = 0

@@ -1,0 +1,138 @@
+"""Decoder-only LM over block patterns, the prefill path
+(``repro/models/transformer.py``).
+
+The layer stack is ``num_blocks`` x ``block_pattern`` (see config.py).
+Every per-layer parameter carries a leading ``num_blocks`` dim, as in JAX,
+so JAX's tree carries across one to one (``param.load_numpy_params``); the
+block loop is a Python loop over that dim.
+
+  init(gen, cfg, device=...) -> (params, axes)
+  apply(params, tokens, cfg, ...) -> (logits, aux)
+
+Waiting (ROADMAP.md, Queue 1): MoE layers (``init`` and ``apply`` raise
+``NotImplementedError``), ``loss_fn`` (training), ``init_cache`` and
+``serve_step`` (the decode server).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.models import attention as attn
+from repro_torch.models import layers as L
+from repro_torch.models import mamba2
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.param import ParamBuilder, ScopedBuilder, torch_dtype
+
+WAITING_MOE = ("MoE layers are not ported yet (ROADMAP.md, Queue 1: MoE "
+               "and the other model families)")
+
+
+class _StackedBuilder:
+    """Wraps a ScopedBuilder: every param gains a leading num_blocks dim,
+    with the fan-in scale of the unstacked shape."""
+
+    def __init__(self, inner: ScopedBuilder, n: int):
+        self._inner = inner
+        self._n = n
+
+    def scope(self, name):
+        return _StackedBuilder(self._inner.scope(name), self._n)
+
+    def param(self, name, shape, axes, *, init="normal", scale=None,
+              dtype=None):
+        if init == "normal" and scale is None:
+            fan_in = shape[0] if len(shape) >= 2 else shape[-1]
+            scale = 1.0 / (max(fan_in, 1) ** 0.5)
+        return self._inner.param(name, (self._n,) + tuple(shape),
+                                 (None,) + tuple(axes), init=init,
+                                 scale=scale, dtype=dtype)
+
+
+def _init_block_stack(b: ScopedBuilder, cfg: ModelConfig, n_blocks: int):
+    sb = _StackedBuilder(b, n_blocks)
+    for li, spec in enumerate(cfg.block_pattern):
+        lb = sb.scope(f"l{li}")
+        L.init_rmsnorm(lb.scope("norm1"), cfg.d_model)
+        if spec.mixer == "attn":
+            attn.init_attention(lb.scope("attn"), cfg)
+        else:
+            mamba2.init_mamba(lb.scope("mamba"), cfg)
+        if spec.ff is not None:
+            L.init_rmsnorm(lb.scope("norm2"), cfg.d_model)
+            if spec.ff == "mlp":
+                L.init_mlp(lb.scope("mlp"), cfg)
+            else:
+                raise NotImplementedError(WAITING_MOE)
+
+
+def init(gen: torch.Generator, cfg: ModelConfig, *, device="cuda"):
+    """Random parameters from ``gen`` (a generator on ``device``) and their
+    logical axes: ``(params, axes)``, the trees of JAX's ``init``."""
+    pb = ParamBuilder(gen, dtype=torch_dtype(cfg.dtype), device=device)
+    L.init_embedding(pb.scope("embedding"), cfg)
+    _init_block_stack(pb.scope("blocks"), cfg, cfg.num_blocks)
+    L.init_rmsnorm(pb.scope("final_norm"), cfg.d_model)
+    return pb.params, pb.axes
+
+
+def block_params(blocks: dict, i: int) -> dict:
+    """Block ``i`` of the stacked tree (views, no copy)."""
+    return {k: block_params(v, i) if isinstance(v, dict) else v[i]
+            for k, v in blocks.items()}
+
+
+# ------------------------------------------------------------- forward ---
+def _block_fn(bp, x, cfg: ModelConfig, positions, aux):
+    for li, spec in enumerate(cfg.block_pattern):
+        lp = bp[f"l{li}"]
+        h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
+        if spec.mixer == "attn":
+            h = attn.attention_block(lp["attn"], h, cfg, positions,
+                                     causal=True)
+        else:
+            h, _ = mamba2.mamba_block(lp["mamba"], h, cfg)
+        x = x + h
+        if spec.ff is not None:
+            h = L.rmsnorm(lp["norm2"], x, cfg.norm_eps)
+            if spec.ff != "mlp":
+                raise NotImplementedError(WAITING_MOE)
+            x = x + L.mlp(lp["mlp"], h, cfg)
+    return x, aux
+
+
+def final_hidden(params, tokens: torch.Tensor, cfg: ModelConfig, *,
+                 input_embeds: Optional[torch.Tensor] = None,
+                 positions: Optional[torch.Tensor] = None,
+                 last_only: bool = False):
+    """The unembedding's input: the stack's output after the final norm,
+    (B, S, d), or (B, 1, d) with ``last_only``; arguments as
+    :func:`apply`'s."""
+    x = L.embed(params["embedding"], tokens, cfg)
+    if input_embeds is not None:
+        f = input_embeds.shape[1]
+        x = torch.cat([input_embeds.to(x.dtype), x[:, f:]], dim=1)
+    if positions is None:
+        positions = torch.arange(tokens.shape[1],
+                                 device=tokens.device).expand(tokens.shape)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.num_blocks):
+        x, aux = _block_fn(block_params(params["blocks"], i), x, cfg,
+                           positions, aux)
+    if last_only:
+        x = x[:, -1:]
+    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
+
+
+def apply(params, tokens: torch.Tensor, cfg: ModelConfig, *,
+          input_embeds: Optional[torch.Tensor] = None,
+          positions: Optional[torch.Tensor] = None,
+          last_logits_only: bool = False):
+    """tokens: (B, S) -> (logits (B, S, V), aux).  ``input_embeds`` (B, F,
+    d) overrides the first F embedding rows (VLM/audio frontends).
+    ``last_logits_only`` unembeds just the final position (prefill: a (B,
+    32k, V) logits tensor must never materialise)."""
+    x, aux = final_hidden(params, tokens, cfg, input_embeds=input_embeds,
+                          positions=positions, last_only=last_logits_only)
+    return L.unembed(params["embedding"], x, cfg), aux

@@ -309,3 +309,138 @@ def test_variant_caller_on_card_within_tol(dev):
     pgt, palt = vc.apply(cpu, wins, cfg)
     torch.testing.assert_close(gt.cpu(), pgt, rtol=TOL, atol=TOL)
     torch.testing.assert_close(alt.cpu(), palt, rtol=TOL, atol=TOL)
+
+
+# ----------------------------------------------------------- LM prefill ---
+def assert_flash_close(got, want, abs_attn):
+    """2^-7 |want| (the output's two roundings to bf16) plus 2^-8 of the
+    plain attention of |v|: twice the most that rounding P to bf16 before
+    PV moves an output (chip_smoke.flash_excess)."""
+    g, w = got.float(), want.float()
+    bar = 2.0 ** -7 * w.abs() + 2.0 ** -8 * abs_attn.float() + 1e-30
+    excess = ((g - w).abs() / bar).max().item()
+    assert excess <= 1.0, (f"max |err| {(g - w).abs().max().item()} is "
+                           f"{excess} x the bar")
+
+
+def _bf16(shape, seed, dev, scale=1.0):
+    return (torch.randn(shape, generator=_g(seed)) * scale).to(
+        torch.bfloat16).to(dev)
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal", [
+    (1, 4, 2, 100, 100, 128, True),     # ragged S, GQA
+    (2, 4, 4, 64, 64, 64, False),
+    (1, 4, 2, 32, 160, 128, True),      # Sq < Skv: last-token alignment
+    (1, 8, 2, 257, 257, 32, True),
+    (1, 2, 1, 70, 90, 16, False)])
+def test_flash_attention_kernel(dev, b, hq, hkv, sq, skv, d, causal):
+    from repro_torch.kernels import flash_attention as kfa
+    q = _bf16((b, hq, sq, d), 20, dev)
+    k = _bf16((b, hkv, skv, d), 21, dev)
+    v = _bf16((b, hkv, skv, d), 22, dev)
+    before = kfa.flash_attention.launches
+    got = kfa.flash_attention(q, k, v, causal=causal)
+    assert kfa.flash_attention.launches == before + 1
+    want = ref.attention(q, k, v, causal=causal)
+    assert_flash_close(got, want, ref.attention(q, k, v.abs(), causal=causal))
+
+
+def _ssd_inputs(bh, t, ds, dh, dtype, dev, seed=30):
+    x = (torch.randn((bh, t, dh), generator=_g(seed)) * 0.5)
+    la = -torch.nn.functional.softplus(torch.randn((bh, t),
+                                                   generator=_g(seed + 1)))
+    b = torch.randn((bh, t, ds), generator=_g(seed + 2)) * 0.3
+    c = torch.randn((bh, t, ds), generator=_g(seed + 3)) * 0.3
+    return (x.to(dtype).to(dev), la.to(dev), b.to(dtype).to(dev),
+            c.to(dtype).to(dev))
+
+
+@pytest.mark.parametrize("bh,t,ds,dh,chunk", [
+    (3, 100, 128, 64, 256),     # ragged T inside one chunk
+    (2, 300, 128, 64, 64),      # five chunks, the last ragged
+    (4, 512, 128, 64, 256),     # two full chunks (the parity run's shape)
+    (3, 100, 32, 16, 32),       # chunk rounded up to the 64-row tile
+    (2, 64, 16, 16, 32)])
+def test_ssd_scan_kernel_f32(dev, bh, t, ds, dh, chunk):
+    from repro_torch.kernels import ssd_scan as kssd
+    args = _ssd_inputs(bh, t, ds, dh, torch.float32, dev)
+    before = kssd.ssd_scan.launches
+    got = kssd.ssd_scan(*args, chunk=chunk)
+    assert kssd.ssd_scan.launches == before + 1
+    want = ref.ssd_scan(*args)[0]
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_ssd_scan_kernel_bf16_broadcast_bc(dev):
+    """bf16 x/b/c with B/C broadcast over heads (a stride-0 view, as
+    mamba_block passes them at batch 1): y within the f32 bar plus one
+    bf16 ulp of each element (rounded once from differently ordered f32
+    sums)."""
+    from repro_torch.kernels import ssd_scan as kssd
+    x, la, b, c = _ssd_inputs(6, 300, 128, 64, torch.bfloat16, dev)
+    b = b[:1].expand(6, 300, 128)
+    c = c[:1].expand(6, 300, 128)
+    got = kssd.ssd_scan(x, la, b, c, chunk=256)
+    want = ref.ssd_scan(x, la, b, c)[0]
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=2e-4)
+
+
+@pytest.mark.parametrize("m,k,n,act,bias", [
+    (300, 200, 260, "silu", False), (300, 200, 260, "none", True),
+    (65, 37, 45, "none", False),        # K, N no multiple of 8
+    (512, 2560, 1024, "silu", False)])
+def test_matmul_bf16_kernel(dev, m, k, n, act, bias):
+    a, w = _bf16((m, k), 40, dev), _bf16((k, n), 41, dev)
+    bv = _bf16((n,), 42, dev) if bias else None
+    before = km.matmul_bf16.launches
+    got = km.matmul_bf16(a, w, bv, activation=act)
+    assert km.matmul_bf16.launches == before + 1
+    want = ref.matmul(a, w, bv, activation=act)
+    ulp = 2.0 ** (np.floor(np.log2(float(want.float().abs().max()))) - 7)
+    assert float((got.float() - want.float()).abs().max()) <= ulp
+
+
+def test_new_kernels_raise_on_the_wrong_cuda_type(dev):
+    """A CUDA tensor of a type the kernel does not take raises; it never
+    runs the plain version."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ssd_scan as kssd
+    q = torch.randn((1, 2, 16, 64), device=dev)
+    launches = (kfa.flash_attention.launches, km.matmul_bf16.launches,
+                kssd.ssd_scan.launches)
+    with pytest.raises(TypeError):
+        kfa.flash_attention(q, q, q)
+    with pytest.raises(TypeError):
+        km.matmul_bf16(q[0, 0].half(), q[0, 0].T.half().contiguous())
+    x, la, b, c = _ssd_inputs(2, 64, 128, 64, torch.float16, dev)
+    with pytest.raises(TypeError):
+        kssd.ssd_scan(x, la, b, c)
+    assert launches == (kfa.flash_attention.launches,
+                        km.matmul_bf16.launches, kssd.ssd_scan.launches)
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "mamba2-780m"])
+def test_smoke_prefill_on_card_equals_cpu(dev, arch, batch):
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ssd_scan as kssd
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    cfg = ARCHS[arch].smoke_config()
+    params, _ = transformer.init(torch.Generator().manual_seed(0), cfg,
+                                 device="cpu")
+    tok = np.random.default_rng(0).integers(0, cfg.vocab_size, (batch, 100))
+    want = steps.prefill(params, tok, cfg, device="cpu").float()
+    counts = (kfa.flash_attention.launches, km.matmul_bf16.launches,
+              kssd.ssd_scan.launches)
+    got = steps.prefill(bc.params_to(params, dev), tok, cfg, device=dev)
+    after = (kfa.flash_attention.launches, km.matmul_bf16.launches,
+             kssd.ssd_scan.launches)
+    launched = [b - a for a, b in zip(counts, after)]
+    assert launched == ([4, 12, 0] if arch == "qwen3-4b" else [0, 0, 4])
+    ulp = 2.0 ** (np.floor(np.log2(float(want.abs().max()))) - 7)
+    assert float((got.float().cpu() - want).abs().max()) <= 2 * ulp

@@ -29,6 +29,9 @@ import repro_torch.engine.base, repro_torch.engine.basecall
 import repro_torch.core.soc_model, repro_torch.core.pipeline
 import repro_torch.core.pathogen, repro_torch.core.variant_caller
 import repro_torch.engine.pipeline, repro_torch.kernels.edit_distance
+import repro_torch.kernels.flash_attention, repro_torch.kernels.ssd_scan
+import repro_torch.models.transformer, repro_torch.models.param
+import repro_torch.configs, repro_torch.launch.steps
 mods = sorted(m for m in sys.modules
               if m == "jax" or m.startswith("jax.")
               or m == "repro" or m.startswith("repro."))
@@ -43,6 +46,17 @@ def test_import_pulls_in_no_jax_and_no_repro():
     assert proc.returncode == 0, proc.stderr[-3000:]
     line = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
     assert json.loads(line[0][len("RESULT "):]) == []
+
+
+def test_scan_covers_the_lm_modules():
+    found = {os.path.relpath(p, PKG) for p in _port_sources()}
+    for mod in ("models/transformer.py", "models/attention.py",
+                "models/mamba2.py", "models/layers.py", "models/param.py",
+                "models/config.py", "configs/__init__.py",
+                "configs/qwen3_4b.py", "configs/mamba2_780m.py",
+                "launch/steps.py", "kernels/flash_attention.py",
+                "kernels/ssd_scan.py"):
+        assert mod in found, mod
 
 
 def _port_sources():
@@ -81,6 +95,16 @@ def test_build_without_card_raises(monkeypatch):
         te.build("basecall", preset="edge_int8")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         te.build("pathogen_pipeline", preset="edge_int8")
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    cfg = ARCHS["qwen3-4b"].smoke_config()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        transformer.init(torch.Generator().manual_seed(0), cfg)
+    params, _ = transformer.init(torch.Generator().manual_seed(0), cfg,
+                                 device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        steps.prefill(params, [[1, 2, 3]], cfg)
 
 
 def test_resolve_device():

@@ -39,3 +39,33 @@ def n(x):
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def bf16_ulp(x) -> float:
+    """The spacing of bfloat16 numbers at magnitude ``x`` (8 significant
+    bits: 2**(floor(log2 |x|) - 7))."""
+    x = max(abs(float(x)), float(np.finfo(np.float32).tiny))
+    return float(2.0 ** (np.floor(np.log2(x)) - 7))
+
+
+def assert_bf16_close(got, want, ulps: float, what: str = "") -> float:
+    """``|got - want| <= ulps`` bf16 ulps of ``max |want|``; returns the
+    max difference."""
+    got = np.asarray(n(got), dtype=np.float32)
+    want = np.asarray(n(want), dtype=np.float32)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    assert np.isfinite(got).all() and np.isfinite(want).all(), what
+    bar = ulps * bf16_ulp(np.abs(want).max())
+    diff = float(np.abs(got - want).max())
+    assert diff <= bar, f"{what}: max diff {diff} over {ulps} ulps = {bar}"
+    return diff
+
+
+def assert_top1_beyond(got, want, bar: float) -> None:
+    """Top-1 equal on every row whose top-2 margin (in ``want``) exceeds
+    ``bar``."""
+    got = np.asarray(n(got), dtype=np.float32).reshape(-1, np.shape(want)[-1])
+    want = np.asarray(n(want), dtype=np.float32).reshape(got.shape)
+    top2 = np.sort(want, axis=-1)[:, -2:]
+    sure = (top2[:, 1] - top2[:, 0]) > bar
+    np.testing.assert_array_equal(got.argmax(-1)[sure], want.argmax(-1)[sure])
