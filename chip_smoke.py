@@ -5,8 +5,9 @@
 
 Phases, each printing JSON lines:
 
-1. ``card``: the card's name and power limit (nvidia-smi) and the time to
-   build the CUDA kernels with nvcc (one nvcc per source, in parallel).
+1. ``card``: the card's name and power limit (nvidia-smi), the time to
+   build the CUDA kernels with nvcc (one nvcc per source, in parallel)
+   and each kernel's registers and spill bytes (``ptxas -v``).
 2. ``kernel``: each of the eleven kernels (fp32 conv1d, matmul,
    fused_stream and banded_align; int8 conv1d, matmul and fused_stream;
    levenshtein; flash_attention, ssd_scan and the bf16 matmul) against its
@@ -16,9 +17,11 @@ Phases, each printing JSON lines:
    fp32 also at its calibration's 2 x 2048), the genomics slice's
    (levenshtein at the demux shape, banded_align at the pathogen
    firehose, the variant caller's convs), the LM prefill's (flash_attention
-   at qwen3-4b's 1 x 4096 and at 32768, checked on its first and last 512
-   rows; ssd_scan at mamba2-780m's 48 heads x 4096 and 32768; the three
-   qwen3-4b MLP GEMMs at 4096 tokens) and edge shapes: max abs error
+   at qwen3-4b's 1 x 4096 and at 32768, checked on its first, middle and
+   last 512 rows; ssd_scan at mamba2-780m's 48 heads x 4096 and 32768;
+   the three qwen3-4b MLP GEMMs at 4096 tokens on the bf16 matmul's wgmma
+   kernel, and its general mma.sync kernel at K = 2558, a shape TMA
+   cannot address) and edge shapes: max abs error
    (bitwise for int32 outputs and for every int8 kernel; bf16 bars in the
    ``tol`` fields), kernel, plain and library times, and the bound the
    card's data sheet sets.
@@ -55,13 +58,15 @@ Phases, each printing JSON lines:
    ``repro_torch.launch.steps.prefill`` at 1 x 4096 (prefill_32k cut for
    the run's time, printed as ``reduced``): median wall ms of 3 runs after
    a warm-up, tokens/s, finite logits, exactly 36 flash_attention and 108
-   matmul_bf16 launches a qwen3-4b prefill and 48 ssd_scan a mamba2-780m
-   one.  ``lm_parity``: both at depth 2 and 1 x 512 on the card and on
-   the CPU with the same params: the last token's final-normed hidden
-   state, rms of the difference within 2^-7 of its rms, and its logits
-   within 2 bf16 ulps of max |logit|.
+   matmul_bf16 launches a qwen3-4b prefill (all 108 on the wgmma kernel)
+   and 48 ssd_scan a mamba2-780m one.  ``lm_parity``: both at depth 2
+   and 1 x 512 on the card and on the CPU with the same params: the last
+   token's final-normed hidden state, rms of the difference within 2^-7
+   of its rms, and its logits within 2 bf16 ulps of max |logit|.
 8. ``{"kernels": [...]}``: every kernel with its launches in phases 4-7,
-   counted from 0 just before each path and read just after it.
+   counted from 0 just before each path and read just after it
+   (``matmul_bf16`` also with ``wgmma_launches``, those on its wgmma
+   kernel).
 
 TF32 is off for the whole run (``torch.backends.cuda.matmul.allow_tf32``
 and ``torch.backends.cudnn.allow_tf32``): the plain versions and the
@@ -1490,7 +1495,7 @@ def phase_pathogen(torch, cfg, panel, known, paths):
 # ------------------------------------------------------------- phase LM --
 LM_SEQ = 4096               # prefill_32k's 32 x 32768, cut to 1 x 4096
 LM_LONG = 32_768            # prefill_32k's length: the kernels alone
-LM_ROWS = 512               # rows of the 32k attention checked each end
+LM_ROWS = 512               # rows of the 32k attention checked a band
 LM_PARITY_SEQ = 512         # depth-2 card vs CPU: two SSD chunks of 256
 FA_RULE = ("|err| <= 2^-7 |ref| + 2^-8 (P|V|), P|V| the plain attention "
            "of |v|")
@@ -1498,7 +1503,8 @@ SSD_TOL = 2e-4              # the JAX suite's SSD bar (f32)
 LM_REDUCED = ("prefill_32k (configs/shapes.py: batch 32 x seq 32768) cut "
               "to batch 1 x seq 4096 end to end for the run's time; the "
               "flash_attention and ssd_scan kernels alone run at 32768")
-LM_PATHS = (("qwen3-4b", {"flash_attention": 36, "matmul_bf16": 108}),
+LM_PATHS = (("qwen3-4b", {"flash_attention": 36, "matmul_bf16": 108,
+                          "matmul_bf16_wgmma": 108}),
             ("mamba2-780m", {"ssd_scan": 48}))
 
 
@@ -1550,11 +1556,22 @@ def sdpa_ms(torch, F, q, k, v):
             q, k, v, is_causal=True, enable_gqa=True), reps=5)
 
 
+def flash_bands(sq: int, skv: int, rows: int):
+    """The (row start, row end, key end) bands of a long causal attention
+    that are held to the plain version: the first, middle and last
+    ``rows`` rows, each against keys [0, key end), aligned to the last
+    token (row i sees key j iff j <= i + skv - sq)."""
+    offs = skv - sq
+    mid = sq // 2 - rows // 2
+    return [(a, a + rows, a + rows + offs)
+            for a in (0, mid, sq - rows)]
+
+
 def check_flash(torch, F, peaks, table, q, k, v, label, on_path):
     """The flash kernel against the plain attention: every row at 4096;
-    at 32768 the first and last LM_ROWS rows (the first see keys [0,
-    LM_ROWS), the last are the plain version at (LM_ROWS, Skv), aligned to
-    the last token)."""
+    at 32768 the first, middle and last LM_ROWS rows (``flash_bands``:
+    each band against the plain version over the keys it can see, aligned
+    to the last token)."""
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ref
     out = kfa.flash_attention(q, k, v, causal=True)
@@ -1562,9 +1579,8 @@ def check_flash(torch, F, peaks, table, q, k, v, label, on_path):
     if on_path:
         checks = [(out, q, k, v)]
     else:
-        r = LM_ROWS
-        checks = [(out[:, :, :r], q[:, :, :r], k[:, :, :r], v[:, :, :r]),
-                  (out[:, :, -r:], q[:, :, -r:], k, v)]
+        checks = [(out[:, :, a:b], q[:, :, a:b], k[:, :, :e], v[:, :, :e])
+                  for a, b, e in flash_bands(sq, skv, LM_ROWS)]
     err, excess = 0.0, 0.0
     for o, qq, kk, vv in checks:
         want = ref.attention(qq, kk, vv, causal=True)
@@ -1590,7 +1606,8 @@ def check_flash(torch, F, peaks, table, q, k, v, label, on_path):
             "library_ms": lib, "library": "sdpa gqa", "bound_ms": bnd,
             "bound_by": by, "flop": ops}
     if not on_path:
-        line.update(checked_rows=[f"first {LM_ROWS}", f"last {LM_ROWS}"],
+        line.update(checked_rows=[f"first {LM_ROWS}", f"middle {LM_ROWS}",
+                                  f"last {LM_ROWS}"],
                     plain_rows=f"last {LM_ROWS}")
     if on_path:
         table.add("flash_attention", err=err, ms=ms, plain_ms=plain,
@@ -1670,11 +1687,17 @@ def check_ssd(torch, peaks, table, x, la, b, c, label, on_path):
     return line
 
 
-def check_matmul_bf16(torch, F, peaks, table, a, w, act, label):
-    """Within one bf16 ulp of max |out| (f32 sums in another order)."""
+def check_matmul_bf16(torch, F, peaks, table, a, w, act, label,
+                      variant="wgmma"):
+    """Within one bf16 ulp of max |out| (f32 sums in another order), on the
+    kernel the wrapper picks for the shape, which must be ``variant``:
+    ``wgmma`` (TMA-addressable) or ``mma.sync``.  Only the path's wgmma
+    shapes count into the kernels line."""
     from repro_torch.kernels import matmul as km
     from repro_torch.kernels import ref
+    before = km.matmul_bf16.wgmma_launches
     out = km.matmul_bf16(a, w, activation=act)
+    ran = "wgmma" if km.matmul_bf16.wgmma_launches > before else "mma.sync"
     want = ref.matmul(a, w, activation=act)
     torch.cuda.synchronize()
     err = (out.float() - want.float()).abs().max().item()
@@ -1691,10 +1714,14 @@ def check_matmul_bf16(torch, F, peaks, table, a, w, act, label):
     bnd, by = bound_ms(peaks, nbytes(a, w, out), ops, bf16=True)
     emit({"phase": "kernel", "kernel": "matmul_bf16", "shape": label,
           "a": list(a.shape), "b": list(w.shape), "activation": act,
-          "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain,
-          "library_ms": lib, "bound_ms": bnd, "bound_by": by, "flop": ops})
-    table.add("matmul_bf16", err=err, ms=ms, plain_ms=plain, bound=bnd,
-              bound_by=by, library_ms=lib)
+          "variant": ran, "max_abs_err": err, "tol": tol, "ms": ms,
+          "plain_ms": plain, "library_ms": lib, "bound_ms": bnd,
+          "bound_by": by, "flop": ops, "tflops": ops / ms / 1e9})
+    if variant == "wgmma":
+        table.add("matmul_bf16", err=err, ms=ms, plain_ms=plain, bound=bnd,
+                  bound_by=by, library_ms=lib)
+    require(ran == variant, f"matmul_bf16 {label}: ran the {ran} kernel, "
+            f"expected {variant}")
     require(err <= tol, f"matmul_bf16 {label}: max abs err {err} over {tol}")
 
 
@@ -1741,6 +1768,11 @@ def phase_kernels_lm(torch, F, peaks, table):
     check_matmul_bf16(torch, F, peaks, table, a, wg, "none", "qwen3-4b MLP up")
     check_matmul_bf16(torch, F, peaks, table, h, wo, "none",
                       "qwen3-4b MLP down")
+    # K = 2558 is no multiple of 8: TMA cannot address a's rows, so the
+    # general mma.sync kernel runs
+    a2, w2 = a[:, :d - 2].contiguous(), wg[:d - 2].contiguous()
+    check_matmul_bf16(torch, F, peaks, table, a2, w2, "none",
+                      "unaligned K = 2558 (general variant)", "mma.sync")
     return long
 
 
@@ -1916,7 +1948,9 @@ def launch_counters():
             "levenshtein": (edit_distance.levenshtein, "launches"),
             "flash_attention": (flash_attention.flash_attention, "launches"),
             "ssd_scan": (ssd_scan.ssd_scan, "launches"),
-            "matmul_bf16": (matmul.matmul_bf16, "launches")}
+            "matmul_bf16": (matmul.matmul_bf16, "launches"),
+            # the launches of matmul_bf16 that ran its wgmma kernel
+            "matmul_bf16_wgmma": (matmul.matmul_bf16, "wgmma_launches")}
 
 
 class PathLaunches:
@@ -1979,8 +2013,8 @@ def main() -> int:
           "capability": list(torch.cuda.get_device_capability(0)),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "peaks": peaks, "built": built, "build_s": build_s,
-          "ptxas": {k: [ln for ln in v.splitlines() if "registers" in ln
-                        or "smem" in ln] for k, v in _build.PTXAS_LOG.items()}})
+          "ptxas": {k: _build.ptxas_summary(v)
+                    for k, v in _build.PTXAS_LOG.items()}})
 
     # the paper's CNN, seed 0, and its edge_int8 form, calibrated once
     # (chunk max(256, 512), as the adaptive builder calibrates)
@@ -2040,6 +2074,8 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
+        if k == "matmul_bf16":
+            kernels[-1]["wgmma_launches"] = paths.total["matmul_bf16_wgmma"]
         if k == "banded_align":
             # the pathogen panel compare's shape, beside the mapper's
             kernels[-1]["firehose"] = firehose

@@ -27,6 +27,7 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_KERNELS = {"flash_attention_kernel": "flash_attention",
+                "matmul_bf16_wgmma_kernel": "matmul_bf16",
                 "matmul_bf16_kernel": "matmul_bf16",
                 "ssd_chunk_state_kernel": "ssd_scan",
                 "ssd_state_scan_kernel": "ssd_scan",

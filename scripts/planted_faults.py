@@ -4,13 +4,14 @@ reads each bar on them, beside the reading of the sound code.
 
     python3 scripts/planted_faults.py
 
-Flash attention (qwen3-4b's 1 x 32 x 4096 x 128 causal, and the first and
-last 512 rows at 32,768, as ``chip_smoke.py`` checks them): mutated copies
-of ``csrc/flash_attention.cu`` are built under ``build/planted/`` (the
-checkout's sources are not touched) and held to the plain version by the
-old bar (``allclose`` at 3e-2) and by ``chip_smoke.flash_excess``:
+Flash attention (qwen3-4b's 1 x 32 x 4096 x 128 causal, and the first,
+middle and last 512 rows at 32,768, as ``chip_smoke.py`` checks them):
+mutated copies of ``csrc/flash_attention.cu`` are built under
+``build/planted/`` (the checkout's sources are not touched) and held to
+the plain version by the old bar (``allclose`` at 3e-2) and by
+``chip_smoke.flash_excess``:
 
-  tile_shift       every causal row sees one 64-key tile too far
+  tile_shift       every causal row sees one 128-key tile too far
   tile_shift_late  the same, only in the query tiles of the second half
   one_key_late     the query tiles of the second half see one key too far
   stale_alpha      the accumulator is not rescaled on a row block's last
@@ -33,23 +34,33 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PLANT = os.path.join(ROOT, "build", "planted")
 FA_SRC = "flash_attention.cu"
-ACC_RESCALE = ("#pragma unroll\n    for (int j = 0; j < DTILES; ++j) {\n"
-               "      acc[j][0] *= alpha[0];")
+LAST_K = "(q_end - 1 + offs) / FA_BK"
+MASK = "col <= row + offs)"
+LATE = "(q0 >= sq / 2 ? {} : 0)"
 MUTATIONS = {
     "tile_shift": [
-        ("(q_end - 1 + offs) / FA_BK", "(q_end - 1 + offs + FA_BK) / FA_BK"),
-        ("col <= row + offs)", "col <= row + offs + FA_BK)")],
+        (LAST_K, "(q_end - 1 + offs + FA_BK) / FA_BK"),
+        (MASK, "col <= row + offs + FA_BK)")],
     "tile_shift_late": [
-        ("(q_end - 1 + offs) / FA_BK",
-         "(q_end - 1 + offs + (q0 >= sq / 2 ? FA_BK : 0)) / FA_BK"),
-        ("col <= row + offs)",
-         "col <= row + offs + (q0 >= sq / 2 ? FA_BK : 0))")],
+        (LAST_K, f"(q_end - 1 + offs + {LATE.format('FA_BK')}) / FA_BK"),
+        (MASK, f"col <= row + offs + {LATE.format('FA_BK')})")],
     "one_key_late": [
-        ("(q_end - 1 + offs) / FA_BK",
-         "(q_end - 1 + offs + (q0 >= sq / 2 ? 1 : 0)) / FA_BK"),
-        ("col <= row + offs)", "col <= row + offs + (q0 >= sq / 2 ? 1 : 0))")],
-    "stale_alpha": [(ACC_RESCALE, "if (kb < last_k)\n" + ACC_RESCALE)],
+        (LAST_K, f"(q_end - 1 + offs + {LATE.format(1)}) / FA_BK"),
+        (MASK, f"col <= row + offs + {LATE.format(1)})")],
+    "stale_alpha": [("o[i] *= alpha[(i >> 1) & 1];",
+                     "o[i] *= kb < last_k ? alpha[(i >> 1) & 1] : 1.f;")],
 }
+
+
+def mutate(text: str, name: str) -> str:
+    """``text`` (the flash kernel's source) with ``name``'s mutation; each
+    string it replaces must occur exactly once."""
+    for old, new in MUTATIONS[name]:
+        if text.count(old) != 1:
+            raise RuntimeError(f"{name}: {old!r} found {text.count(old)} "
+                               "times in the source")
+        text = text.replace(old, new)
+    return text
 
 
 def emit(obj) -> None:
@@ -70,28 +81,25 @@ def planted_csrc(build, name: str) -> str:
     shutil.rmtree(src, ignore_errors=True)
     shutil.copytree(str(build._CSRC), src)
     path = os.path.join(src, FA_SRC)
-    text = open(path).read()
-    for old, new in MUTATIONS[name]:
-        if text.count(old) != 1:
-            raise RuntimeError(f"{name}: {old!r} found {text.count(old)} "
-                               "times in the source")
-        text = text.replace(old, new)
+    with open(path) as f:
+        text = mutate(f.read(), name)
     with open(path, "w") as f:
         f.write(text)
     return src
 
 
 def flash_readings(torch, cs, q, k, v, rows=None) -> dict:
-    """The two bars on one kernel run: every row, or the first and last
-    ``rows`` rows against the plain version aligned to the last token."""
+    """The two bars on one kernel run: every row, or the first, middle and
+    last ``rows`` rows against the plain version over the keys each band
+    sees (``chip_smoke.flash_bands``)."""
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ref
     out = kfa.flash_attention(q, k, v, causal=True)
     if rows is None:
         pairs = [(out, q, k, v)]
     else:
-        pairs = [(out[:, :, :rows], q[:, :, :rows], k[:, :, :rows],
-                  v[:, :, :rows]), (out[:, :, -rows:], q[:, :, -rows:], k, v)]
+        pairs = [(out[:, :, a:b], q[:, :, a:b], k[:, :, :e], v[:, :, :e])
+                 for a, b, e in cs.flash_bands(q.shape[2], k.shape[2], rows)]
     read = {"max_abs_err": 0.0, "old_bar_pass": True, "err_over_bar": 0.0,
             "atol_needed_at_rtol_2^-7": 0.0}
     for got, qq, kk, vv in pairs:
@@ -129,7 +137,7 @@ def flash_faults(torch, cs) -> None:
             emit({"phase": "planted_flash", "variant": name,
                   "shape": f"1 x 32 x {s_len} x 128",
                   "rows": "all" if rows is None else
-                  f"first and last {rows}",
+                  f"first, middle and last {rows}",
                   **flash_readings(torch, cs, q, k, v, rows)})
             torch.cuda.synchronize()
     use_sources(_build, "sound", sound)

@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -84,6 +85,41 @@ def build_all(names=SOURCES) -> list[str]:
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return todo
+
+
+def ptxas_summary(log: str) -> dict:
+    """Registers and spill bytes of each kernel in one ``nvcc -Xptxas -v``
+    report, by kernel (``name<template args>``), plus its warnings."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = _demangle(m.group(1))
+            out[cur] = {}
+        elif cur is not None and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            out[cur].update(spill_stores=int(st), spill_loads=int(ld))
+        elif cur is not None and "Used" in line and "registers" in line:
+            out[cur]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                  line).group(1))
+        if "warning" in line.lower():
+            out.setdefault("warnings", []).append(line.strip())
+    return out
+
+
+def _demangle(name: str) -> str:
+    """``_Z22flash_attention_kernelILi128EEv...`` -> ``flash_attention_
+    kernel<128>``: the name and its integer template arguments."""
+    m = re.match(r"_Z(\d+)", name)
+    if not m:
+        return name
+    start = m.end()
+    base = name[start:start + int(m.group(1))]
+    rest = name[start + int(m.group(1)):]
+    args = re.match(r"I((?:Li-?\d+E)+)E", rest)
+    if args:
+        base += "<" + ", ".join(re.findall(r"Li(-?\d+)E", args.group(1))) + ">"
+    return base
 
 
 def check_tensor(what: str, t, dtype, shape=None, device=None) -> None:

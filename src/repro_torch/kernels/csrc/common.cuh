@@ -41,6 +41,13 @@ static cudaError_t allow_smem(F kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// A launch entry point returns 0, a cudaError_t, or this plus the CUresult
+// of a failed TMA tensor-map encoding (hopper.cuh).
+constexpr int TMA_ENCODE_ERROR = 1 << 20;
+
 extern "C" const char* kernel_error_string(int err) {
+  if (err >= TMA_ENCODE_ERROR)
+    return "cuTensorMapEncodeTiled refused the tensor map (CUresult = code "
+           "- 1048576)";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

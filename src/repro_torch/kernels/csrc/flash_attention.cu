@@ -11,202 +11,297 @@
 // Semantics kept from the Pallas body: logits q.k in f32 times `scale`;
 // causal rows aligned to the last token (key j is seen by row i iff
 // j <= i + Skv - Sq); masked logits set to -1e30, not -inf; p = exp(s - m)
-// in f32, l summed from the f32 p, but p rounded to bf16 before the PV
-// product; one division by l at the end.  Ragged Sq and Skv are masked
-// here (rows past Sq are not written, keys past Skv get -1e30), so every
-// length is taken.
+// in f32 (computed as 2^(s log2(e) - m log2(e)), the row max taken on the
+// raw logits, which a scale > 0 keeps), l summed from the f32 p, but p
+// rounded to bf16 before the PV product; one division by l at the end.
+// Ragged Sq and Skv are handled here (TMA zero-fills rows past either,
+// rows past Sq are not written, keys past Skv get -1e30), so every length
+// is taken.
 //
 // Bound on this card: on the path (qwen3-4b, 32 x 8 heads, S = 4096,
 // D = 128) operations, 1.4e11 bf16 FLOP a call against 80 MB of q, k, v
-// and out.  Design: the products run on the tensor cores as warp-wide
-// mma.sync m16n8k16 (bf16 -> f32).  One block of 4 warps takes 64 query
-// rows of one head (16 a warp, its Q fragments in registers for the whole
-// loop); the Pallas sequential KV axis becomes a loop inside the block
-// over 64-key tiles of K and V staged in shared memory (2 x 17 KB with a
-// padded row), stopping at the last tile a causal row can see.  S = Q K^T
-// stays in registers, is turned into the P fragments of the PV product
-// in place (the accumulator layout of m16n8 is the A layout of m16n8k16),
-// and m, l and the 16 x D accumulator stay in f32 registers.  Blocks of a
-// head are issued longest first, so the causal diagonal's short blocks
-// fill the last wave.  No TMA, wgmma or software pipelining yet.
+// and out.  Design: both products on wgmma, fed by TMA.  A block takes 128
+// query rows of one head: two consumer warpgroups of 64 rows (setmaxnreg
+// 232) and a producer warpgroup (setmaxnreg 40) one thread of which loads
+// the Q tile once and then 128-key tiles of K and of V, each through a
+// two-stage ring with full and empty mbarriers.  S = Q K^T is an
+// m64n128k16 wgmma with Q and K from shared memory (both K-major: D is
+// contiguous); the online softmax runs on the S accumulator in registers
+// (row max and sum across the 4 threads of a row by shuffles); P, rounded
+// to bf16, is the register A operand of O += P V (m64nDk16, V MN-major
+// through the transpose bit), its fragments read in place from the S
+// accumulator.  The mask runs only on tiles that cross the causal diagonal
+// or the last key; tiles wholly below it skip it.  Tiles are stored with
+// the swizzle of their row (128 bytes, or 64 / 32 at D = 32 / 16); at
+// D = 128 a tile is two boxes of 64 columns.  Query tiles are issued
+// longest first across all heads (grid x = heads, y = tiles reversed), so
+// the causal diagonal's short blocks fill the last wave.
 #include <cstdint>
 
 #include <cuda_bf16.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 #include "mma.cuh"
 
-constexpr int FA_BQ = 64;       // query rows per block: 4 warps x 16
-constexpr int FA_BK = 64;       // keys per K/V tile
-constexpr int FA_THREADS = 128;
+constexpr int FA_BQ = 128;      // query rows per block: 2 warpgroups x 64
+constexpr int FA_BK = 128;      // keys per K / V tile
+constexpr int FA_STAGES = 2;    // ring depth of K and of V
+constexpr int FA_THREADS = 384;
 constexpr float FA_NEG = -1e30f;
+constexpr float FA_LOG2E = 1.4426950408889634f;
 
-template <int D>
-__global__ void __launch_bounds__(FA_THREADS)
-flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v,
-                       __nv_bfloat16* __restrict__ out, int hq, int hkv,
-                       int sq, int skv, float scale, int causal) {
-  static_assert(D % 16 == 0 && D <= 128, "head dim");
-  constexpr int LD = D + 8;          // padded row: conflict-free fragments
-  constexpr int KSTEPS = D / 16;     // k-steps of Q K^T
-  constexpr int DTILES = D / 8;      // n-tiles of the output
-  constexpr int STILES = FA_BK / 8;  // n-tiles of S
-  constexpr int CHUNKS = D / 8;      // 16-byte chunks in a row
-  __shared__ __align__(16) __nv_bfloat16 ks[FA_BK * LD];
-  __shared__ __align__(16) __nv_bfloat16 vs[FA_BK * LD];
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int bh = blockIdx.y;                       // b * hq + query head
-  const int qt = gridDim.x - 1 - blockIdx.x;       // longest tiles first
-  const int group = hq / hkv;
-  const int kvh = (bh / hq) * hkv + (bh % hq) / group;
-  const __nv_bfloat16* qp = q + static_cast<size_t>(bh) * sq * D;
-  const __nv_bfloat16* kp = k + static_cast<size_t>(kvh) * skv * D;
-  const __nv_bfloat16* vp = v + static_cast<size_t>(kvh) * skv * D;
-  const int q0 = qt * FA_BQ;
-  const int r0 = q0 + warp * 16 + g;               // rows r0 and r0 + 8
-  const int r1 = r0 + 8;
-  const int offs = skv - sq;
-
-  uint32_t qa[KSTEPS][4];
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qa[kk][0] = r0 < sq ? load_pair(qp + static_cast<size_t>(r0) * D + c) : 0u;
-    qa[kk][1] = r1 < sq ? load_pair(qp + static_cast<size_t>(r1) * D + c) : 0u;
-    qa[kk][2] = r0 < sq ? load_pair(qp + static_cast<size_t>(r0) * D + c + 8) : 0u;
-    qa[kk][3] = r1 < sq ? load_pair(qp + static_cast<size_t>(r1) * D + c + 8) : 0u;
-  }
-
-  float m[2] = {FA_NEG, FA_NEG};
-  float l[2] = {0.f, 0.f};
-  float acc[DTILES][4];
-#pragma unroll
-  for (int j = 0; j < DTILES; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  const int q_end = min(q0 + FA_BQ, sq);
-  int last_k = (skv + FA_BK - 1) / FA_BK - 1;
-  if (causal) last_k = min(last_k, (q_end - 1 + offs) / FA_BK);
-
-  for (int kb = 0; kb <= last_k; ++kb) {
-    const int k0 = kb * FA_BK;
-    for (int i = threadIdx.x; i < FA_BK * CHUNKS; i += FA_THREADS) {
-      const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
-      uint4 kw = make_uint4(0u, 0u, 0u, 0u), vw = kw;
-      if (k0 + r < skv) {
-        kw = *reinterpret_cast<const uint4*>(kp + static_cast<size_t>(k0 + r) * D + c);
-        vw = *reinterpret_cast<const uint4*>(vp + static_cast<size_t>(k0 + r) * D + c);
-      }
-      *reinterpret_cast<uint4*>(ks + r * LD + c) = kw;
-      *reinterpret_cast<uint4*>(vs + r * LD + c) = vw;
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    float s[STILES][4];
-#pragma unroll
-    for (int j = 0; j < STILES; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-#pragma unroll
-      for (int j = 0; j < STILES; ++j) {
-        const __nv_bfloat16* kr = ks + (j * 8 + g) * LD + kk * 16 + 2 * t;
-        mma_bf16_16816(s[j], qa[kk], load_pair(kr), load_pair(kr + 8));
-      }
-    }
-
-    // scale, mask, online softmax (rows r0: e = 0, 1; r1: e = 2, 3)
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int j = 0; j < STILES; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e < 2 ? r0 : r1;
-        const int col = k0 + j * 8 + 2 * t + (e & 1);
-        const bool ok = col < skv && (!causal || col <= row + offs);
-        s[j][e] = ok ? s[j][e] * scale : FA_NEG;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-      }
-    }
-    float rs[2] = {0.f, 0.f};
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      alpha[r] = expf(m[r] - mx[r]);
-    }
-#pragma unroll
-    for (int j = 0; j < STILES; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = expf(s[j][e] - mx[e >> 1]);
-        rs[e >> 1] += s[j][e];
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
-      l[r] = alpha[r] * l[r] + rs[r];
-      m[r] = mx[r];
-    }
-#pragma unroll
-    for (int j = 0; j < DTILES; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-      acc[j][2] *= alpha[1];
-      acc[j][3] *= alpha[1];
-    }
-
-    // acc += bf16(P) V: S tiles 2kk, 2kk+1 form the A fragment of k-step kk
-#pragma unroll
-    for (int kk = 0; kk < FA_BK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int j = 0; j < DTILES; ++j) {
-        const __nv_bfloat16* vr = vs + (kk * 16 + 2 * t) * LD + j * 8 + g;
-        mma_bf16_16816(acc[j], pa, pack_bf16_bits(vr[0], vr[LD]),
-                       pack_bf16_bits(vr[8 * LD], vr[9 * LD]));
-      }
-    }
-    __syncthreads();
-  }
-
-  __nv_bfloat16* op = out + static_cast<size_t>(bh) * sq * D;
-#pragma unroll
-  for (int j = 0; j < DTILES; ++j) {
-    const int c = j * 8 + 2 * t;
-    if (r0 < sq)
-      *reinterpret_cast<uint32_t*>(op + static_cast<size_t>(r0) * D + c) =
-          pack_bf16(acc[j][0] / l[0], acc[j][1] / l[0]);
-    if (r1 < sq)
-      *reinterpret_cast<uint32_t*>(op + static_cast<size_t>(r1) * D + c) =
-          pack_bf16(acc[j][2] / l[1], acc[j][3] / l[1]);
-  }
+// 2^x in one MUFU op (subnormal results flush to 0: p < 2^-126 of the
+// row's largest, far below what bf16 P and the f32 sum l can hold).
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 template <int D>
-static cudaError_t launch_d(const void* q, const void* k, const void* v,
-                            void* out, int b, int hq, int hkv, int sq, int skv,
-                            float scale, int causal, cudaStream_t stream) {
-  dim3 grid((sq + FA_BQ - 1) / FA_BQ, b * hq);
-  flash_attention_kernel<D><<<grid, FA_THREADS, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      hq, hkv, sq, skv, scale, causal);
-  return cudaGetLastError();
+struct FaShape {
+  static constexpr int RB = D * 2 < 128 ? D * 2 : 128;  // bytes of a tile row
+  static constexpr int BOXES = D * 2 / RB;             // column boxes a tile
+  static constexpr int KPB = RB / 32;                  // 16-wide k-steps a box
+  static constexpr int Q_BYTES = FA_BQ * D * 2;
+  static constexpr int KV_BYTES = FA_BK * D * 2;
+  static constexpr int SMEM = Q_BYTES + 2 * FA_STAGES * KV_BYTES + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(FA_THREADS, 1)
+flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       __nv_bfloat16* __restrict__ out, int hq, int hkv,
+                       int sq, int skv, float scale, int causal) {
+  using S = FaShape<D>;
+  extern __shared__ uint8_t fa_smem_raw[];
+  __shared__ __align__(8) uint64_t q_full;
+  __shared__ __align__(8) uint64_t k_full[FA_STAGES], k_empty[FA_STAGES];
+  __shared__ __align__(8) uint64_t v_full[FA_STAGES], v_empty[FA_STAGES];
+  uint8_t* qs = align1024(fa_smem_raw);
+  uint8_t* ks = qs + S::Q_BYTES;
+  uint8_t* vs = ks + FA_STAGES * S::KV_BYTES;
+
+  const int bh = blockIdx.x;                        // b * hq + query head
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * FA_BQ;  // longest first
+  const int kvh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
+  const int offs = skv - sq;
+  const int q_end = min(q0 + FA_BQ, sq);
+  int last_k = (skv + FA_BK - 1) / FA_BK - 1;
+  if (causal) last_k = min(last_k, (q_end - 1 + offs) / FA_BK);
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&q_full, 1);
+#pragma unroll
+    for (int s = 0; s < FA_STAGES; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], 8);  // one arrival per consumer warp
+      mbar_init(&v_empty[s], 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer
+    regs_dealloc<40>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(&q_full, S::Q_BYTES);
+#pragma unroll
+      for (int b = 0; b < S::BOXES; ++b)
+        tma_load_3d(qs + b * FA_BQ * S::RB, &tq, &q_full, b * 64, q0, bh);
+      int s = 0;
+      uint32_t ph = 0;
+      for (int kb = 0; kb <= last_k; ++kb) {
+        mbar_wait(&k_empty[s], ph ^ 1);
+        mbar_expect_tx(&k_full[s], S::KV_BYTES);
+#pragma unroll
+        for (int b = 0; b < S::BOXES; ++b)
+          tma_load_3d(ks + s * S::KV_BYTES + b * FA_BK * S::RB, &tk, &k_full[s],
+                      b * 64, kb * FA_BK, kvh);
+        mbar_wait(&v_empty[s], ph ^ 1);
+        mbar_expect_tx(&v_full[s], S::KV_BYTES);
+#pragma unroll
+        for (int b = 0; b < S::BOXES; ++b)
+          tma_load_3d(vs + s * S::KV_BYTES + b * FA_BK * S::RB, &tv, &v_full[s],
+                      b * 64, kb * FA_BK, kvh);
+        if (++s == FA_STAGES) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+    }
+  } else {  // consumers: warpgroup wg owns query rows q0 + 64 wg ..
+    regs_alloc<232>();
+    const int lane = threadIdx.x % 32;
+    const int wl = (threadIdx.x % 128) / 32;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int rw0 = q0 + wg * 64;          // the warpgroup's first row
+    const int r0 = rw0 + wl * 16 + g;      // this thread's rows r0, r0 + 8
+    const float sl2 = scale * FA_LOG2E;    // logit to the exp2 domain
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float s_acc[FA_BK / 2];
+    float m[2] = {FA_NEG, FA_NEG};  // running max, exp2 domain
+    float l[2] = {0.f, 0.f};
+
+    mbar_wait(&q_full, 0);
+    int s = 0;
+    uint32_t ph = 0;
+    for (int kb = 0; kb <= last_k; ++kb) {
+      const int k0 = kb * FA_BK;
+      // S = Q K^T
+      mbar_wait(&k_full[s], ph);
+      const uint8_t* kt = ks + s * S::KV_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int box = kk / S::KPB, in_row = (kk % S::KPB) * 32;
+        const uint64_t dq = wgmma_desc(
+            qs + box * FA_BQ * S::RB + wg * 64 * S::RB + in_row, 0, 8 * S::RB, S::RB);
+        const uint64_t dk =
+            wgmma_desc(kt + box * FA_BK * S::RB + in_row, 0, 8 * S::RB, S::RB);
+        wgmma_ss<FA_BK, 0>(s_acc, dq, dk, kk != 0);
+      }
+      wgmma_commit();
+      fence_regs(s_acc);
+      wgmma_wait<0>();
+      fence_regs(s_acc);
+      if (lane == 0) mbar_arrive(&k_empty[s]);
+
+      // mask where the tile needs it (raw logits: scale > 0 keeps the max)
+      const bool masked = k0 + FA_BK > skv || (causal && k0 + FA_BK - 1 > rw0 + offs);
+      if (masked) {
+#pragma unroll
+        for (int i = 0; i < FA_BK / 8; ++i) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = r0 + (e < 2 ? 0 : 8);
+            const int col = k0 + i * 8 + 2 * t4 + (e & 1);
+            const bool ok = col < skv && (!causal || col <= row + offs);
+            s_acc[4 * i + e] = ok ? s_acc[4 * i + e] : FA_NEG;
+          }
+        }
+      }
+
+      // online softmax in the exp2 domain (rows r0: e = 0, 1; r0 + 8:
+      // e = 2, 3): m is the running max of logit * scale * log2(e), and
+      // p = 2^(logit * sl2 - m) in one fma and one ex2
+      float mx[2] = {FA_NEG, FA_NEG};
+#pragma unroll
+      for (int i = 0; i < FA_BK / 8; ++i) {
+        mx[0] = fmaxf(mx[0], fmaxf(s_acc[4 * i], s_acc[4 * i + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s_acc[4 * i + 2], s_acc[4 * i + 3]));
+      }
+      float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        mx[r] = fmaxf(m[r], mx[r] * sl2);
+        alpha[r] = ex2_ftz(m[r] - mx[r]);
+        m[r] = mx[r];
+      }
+#pragma unroll
+      for (int i = 0; i < FA_BK / 2; ++i) {
+        s_acc[i] = ex2_ftz(fmaf(s_acc[i], sl2, -mx[(i >> 1) & 1]));
+        rs[(i >> 1) & 1] += s_acc[i];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+        l[r] = alpha[r] * l[r] + rs[r];
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+      // O += bf16(P) V: S chunks 2kk, 2kk + 1 form the A fragment of k-step kk
+      uint32_t pa[FA_BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < FA_BK / 16; ++kk) {
+        pa[kk][0] = pack_bf16(s_acc[8 * kk + 0], s_acc[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(s_acc[8 * kk + 2], s_acc[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(s_acc[8 * kk + 4], s_acc[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(s_acc[8 * kk + 6], s_acc[8 * kk + 7]);
+      }
+      mbar_wait(&v_full[s], ph);
+      const uint8_t* vt = vs + s * S::KV_BYTES;
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < FA_BK / 16; ++kk) {
+        const uint64_t dv =
+            wgmma_desc(vt + kk * 16 * S::RB, FA_BK * S::RB, 8 * S::RB, S::RB);
+        wgmma_rs<D, 1>(o, pa[kk], dv, 1);
+      }
+      wgmma_commit();
+      fence_regs(o);
+      wgmma_wait<0>();
+      fence_regs(o);
+      if (lane == 0) mbar_arrive(&v_empty[s]);
+      if (++s == FA_STAGES) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+
+    __nv_bfloat16* op = out + static_cast<size_t>(bh) * sq * D;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      const int c = i * 8 + 2 * t4;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 8 * h;
+        if (r < sq)
+          *reinterpret_cast<uint32_t*>(op + static_cast<size_t>(r) * D + c) =
+              pack_bf16(o[4 * i + 2 * h] / l[h], o[4 * i + 2 * h + 1] / l[h]);
+      }
+    }
+  }
+}
+
+// A (B * H, S, D) view of one bf16 operand as a 3-d tensor map with boxes
+// of `rows` x min(D, 64) columns.
+template <int D>
+static int encode_heads(CUtensorMap* map, const void* base, int bh, int len,
+                        int rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(len),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(len) * D * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(FaShape<D>::RB / 2),
+                             static_cast<cuuint32_t>(rows), 1};
+  return encode_tmap_bf16(map, base, 3, dims, strides, box, FaShape<D>::RB);
+}
+
+template <int D>
+static int launch_d(const void* q, const void* k, const void* v, void* out,
+                    int b, int hq, int hkv, int sq, int skv, float scale,
+                    int causal, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int rc = encode_heads<D>(&tq, q, b * hq, sq, FA_BQ);
+  if (rc == 0) rc = encode_heads<D>(&tk, k, b * hkv, skv, FA_BK);
+  if (rc == 0) rc = encode_heads<D>(&tv, v, b * hkv, skv, FA_BK);
+  if (rc != 0) return rc;
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t err = allow_smem(flash_attention_kernel<D>, FaShape<D>::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = true;
+  }
+  dim3 grid(b * hq, (sq + FA_BQ - 1) / FA_BQ);
+  flash_attention_kernel<D><<<grid, FA_THREADS, FaShape<D>::SMEM, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), hq, hkv, sq, skv, scale,
+      causal);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int launch_flash_attention(const void* q, const void* k,
@@ -214,22 +309,16 @@ extern "C" int launch_flash_attention(const void* q, const void* k,
                                       int hkv, int sq, int skv, int d,
                                       float scale, int causal, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
   switch (d) {
     case 16:
-      err = launch_d<16>(q, k, v, out, b, hq, hkv, sq, skv, scale, causal, s);
-      break;
+      return launch_d<16>(q, k, v, out, b, hq, hkv, sq, skv, scale, causal, s);
     case 32:
-      err = launch_d<32>(q, k, v, out, b, hq, hkv, sq, skv, scale, causal, s);
-      break;
+      return launch_d<32>(q, k, v, out, b, hq, hkv, sq, skv, scale, causal, s);
     case 64:
-      err = launch_d<64>(q, k, v, out, b, hq, hkv, sq, skv, scale, causal, s);
-      break;
+      return launch_d<64>(q, k, v, out, b, hq, hkv, sq, skv, scale, causal, s);
     case 128:
-      err = launch_d<128>(q, k, v, out, b, hq, hkv, sq, skv, scale, causal, s);
-      break;
+      return launch_d<128>(q, k, v, out, b, hq, hkv, sq, skv, scale, causal, s);
     default:
-      err = cudaErrorInvalidValue;
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(err);
 }

@@ -20,6 +20,7 @@
 #include <cuda_bf16.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 #include "mma.cuh"
 
 constexpr int MM_BM = 64;
@@ -210,14 +211,20 @@ extern "C" int launch_matmul_int8(const void* a, const void* b, void* out,
 // Bound on this card: on the path (the qwen3-4b MLP at 4096 tokens:
 // (4096, 2560) x (2560, 9728) gate + silu and up, (4096, 9728) x (9728,
 // 2560) down) operations, 2.0e11 FLOP a GEMM against ~0.1 GB of operands.
-// Design: the tensor cores through warp-wide mma.sync m16n8k16 (bf16 ->
-// f32).  A 128 x 128 output tile per block of 8 warps (2 x 4, each warp 64
-// x 32: 16 mma a k-step), K walked 32 at a time through shared memory with
-// padded rows (conflict-free fragment reads); the next K slice is loaded
-// into registers while the current one multiplies.  Loads are 16 bytes
-// where a row allows it, else element by element; the ragged M, N and K
-// edges stage zeros, which add exactly nothing to an f32 sum.  No TMA,
-// wgmma or multi-stage pipeline yet.
+// Two kernels, chosen by shape (matmul.py says which ran):
+//
+//   matmul_bf16_wgmma_kernel, every shape TMA can address (K % 8 == 0,
+//   N % 8 == 0, 16-byte aligned bases): warpgroup wgmma fed by a TMA ring,
+//   the only way to the card's bf16 rate.
+//   matmul_bf16_kernel, the rest: warp-wide mma.sync m16n8k16.
+//
+// The general variant: a 128 x 128 output tile per block of 8 warps (2 x 4,
+// each warp 64 x 32: 16 mma a k-step), K walked 32 at a time through
+// shared memory with padded rows (conflict-free fragment reads); the next
+// K slice is loaded into registers while the current one multiplies.
+// Loads are 16 bytes where a row allows it, else element by element; the
+// ragged M, N and K edges stage zeros, which add exactly nothing to an f32
+// sum.
 constexpr int MB_BM = 128;
 constexpr int MB_BN = 128;
 constexpr int MB_BK = 32;
@@ -336,4 +343,238 @@ extern "C" int launch_matmul_bf16(const void* a, const void* b,
       static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(out),
       M, N, K, act, vec_a, vec_b);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The wgmma variant.  Persistent: one block per SM walks the output tiles
+// in groups of MW_GROUP_M tile rows (tiles sharing A rows and B columns run
+// close together in L2).  A block is three warpgroups: two consumers, each
+// owning 64 rows x 256 columns of a 128 x 256 tile as f32 accumulators in
+// registers (128 a thread, setmaxnreg 232), and a producer (setmaxnreg 40)
+// one thread of which keeps a ring of 4 K-slices of 64 in flight by TMA.
+// A stage: A 128 x 64 (K-major, 16 KB) and B 64 x 256 in four boxes of
+// 64 x 64 (N-major, wgmma's transpose bit), all 128-byte swizzled, with
+// one full and one empty mbarrier (192 KB in all).  Consumers issue
+// m64n256k16 wgmma (4 a stage), keep one stage's group in flight and free
+// a stage once wgmma.wait_group says its products are done.  The epilogue
+// runs straight from the accumulators: bias, activation (a template
+// argument), one rounding, masked 16-byte stores.  TMA fills the ragged
+// M / N / K edges with zeros; B boxes wholly past N are not loaded (they
+// feed only columns that are not stored).  128 x 128 tiles (more waves at
+// N = 2560, but twice the L2 bytes a FLOP) ran slower at every qwen3-4b
+// MLP shape, N = 2560 included (scripts/kernel_variants.py), so one tile
+// shape serves every N.
+constexpr int MW_BM = 128;
+constexpr int MW_BN = 256;
+constexpr int MW_BK = 64;
+constexpr int MW_STAGES = 4;
+constexpr int MW_THREADS = 384;
+constexpr int MW_GROUP_M = 8;
+constexpr int MW_A_BYTES = MW_BM * MW_BK * 2;  // 16 KB
+constexpr int MW_BOX_BYTES = 64 * MW_BK * 2;   // one 64 x 64 box of B, 8 KB
+constexpr int MW_STAGE_BYTES = MW_A_BYTES + MW_BN / 64 * MW_BOX_BYTES;
+constexpr int MW_SMEM = MW_STAGES * MW_STAGE_BYTES + 1024;  // + alignment
+
+// v[i] and v[i] = x for a runtime i < 4, by selects (no local memory).
+__device__ __forceinline__ uint32_t pick4(const uint32_t (&v)[4], int i) {
+  return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
+}
+
+__device__ __forceinline__ void put4(uint32_t (&v)[4], int i, uint32_t x) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) v[k] = i == k ? x : v[k];
+}
+
+__device__ __forceinline__ void mw_tile(int t, int tiles_m, int tiles_n,
+                                        int& tm, int& tn) {
+  const int per_group = MW_GROUP_M * tiles_n;
+  const int first = (t / per_group) * MW_GROUP_M;
+  const int rows = min(tiles_m - first, MW_GROUP_M);
+  const int r = t % per_group;
+  tm = first + r % rows;
+  tn = r / rows;
+}
+
+template <int ACT>
+__global__ void __launch_bounds__(MW_THREADS, 1)
+matmul_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
+                         const __grid_constant__ CUtensorMap tb,
+                         const __nv_bfloat16* __restrict__ bias,
+                         __nv_bfloat16* __restrict__ out, int M, int N,
+                         int K) {
+  extern __shared__ uint8_t mw_smem_raw[];
+  __shared__ __align__(8) uint64_t full[MW_STAGES];
+  __shared__ __align__(8) uint64_t empty[MW_STAGES];
+  uint8_t* smem = align1024(mw_smem_raw);
+  const int tiles_m = (M + MW_BM - 1) / MW_BM;
+  const int tiles_n = (N + MW_BN - 1) / MW_BN;
+  const int tiles = tiles_m * tiles_n;
+  const int nk = (K + MW_BK - 1) / MW_BK;
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < MW_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer
+    regs_dealloc<40>();
+    if (threadIdx.x == 256) {
+      int s = 0;
+      uint32_t ph = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        int tm, tn;
+        mw_tile(t, tiles_m, tiles_n, tm, tn);
+        const int boxes = min(MW_BN / 64, (N - tn * MW_BN + 63) / 64);
+        for (int kb = 0; kb < nk; ++kb) {
+          mbar_wait(&empty[s], ph ^ 1);
+          uint8_t* st = smem + s * MW_STAGE_BYTES;
+          mbar_expect_tx(&full[s], MW_A_BYTES + boxes * MW_BOX_BYTES);
+          tma_load_2d(st, &ta, &full[s], kb * MW_BK, tm * MW_BM);
+          for (int j = 0; j < boxes; ++j)
+            tma_load_2d(st + MW_A_BYTES + j * MW_BOX_BYTES, &tb, &full[s],
+                        tn * MW_BN + j * 64, kb * MW_BK);
+          if (++s == MW_STAGES) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+      }
+    }
+  } else {  // consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63
+    regs_alloc<232>();
+    const int lane = threadIdx.x % 32;
+    const int wl = (threadIdx.x % 128) / 32;
+    const int g = lane >> 2, t4 = lane & 3;
+    float acc[MW_BN / 2];
+#pragma unroll
+    for (int i = 0; i < MW_BN / 2; ++i) acc[i] = 0.f;
+    int s = 0;
+    uint32_t ph = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      int tm, tn;
+      mw_tile(t, tiles_m, tiles_n, tm, tn);
+      int prev = 0;
+      for (int kb = 0; kb < nk; ++kb) {
+        mbar_wait(&full[s], ph);
+        const uint8_t* st = smem + s * MW_STAGE_BYTES;
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < MW_BK / 16; ++kk) {
+          const uint64_t da = wgmma_desc(st + wg * 64 * 128 + kk * 32, 0, 1024, 128);
+          const uint64_t db =
+              wgmma_desc(st + MW_A_BYTES + kk * 16 * 128, MW_BOX_BYTES, 1024, 128);
+          wgmma_ss<MW_BN, 1>(acc, da, db, (kb | kk) != 0);
+        }
+        wgmma_commit();
+        fence_regs(acc);
+        wgmma_wait<1>();  // the previous stage's products are done
+        fence_regs(acc);
+        if (kb > 0 && lane == 0) mbar_arrive(&empty[prev]);
+        prev = s;
+        if (++s == MW_STAGES) {
+          s = 0;
+          ph ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(&empty[prev]);
+
+      // Four 8-column chunks at a time, transposed across the quad of
+      // threads that holds a row: thread t4 then writes chunk 4j + t4 of
+      // its row as one 16-byte store (64 contiguous bytes a row a warp).
+      const int row = tm * MW_BM + wg * 64 + wl * 16 + g;
+#pragma unroll
+      for (int j = 0; j < MW_BN / 32; ++j) {
+        uint32_t p[2][4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int i = 4 * j + c;
+          const int col = tn * MW_BN + i * 8 + 2 * t4;  // N % 8 == 0: col + 1 < N
+          float b0 = 0.f, b1 = 0.f;
+          if (bias != nullptr && col < N) {
+            b0 = __bfloat162float(bias[col]);
+            b1 = __bfloat162float(bias[col + 1]);
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float v0 = acc[4 * i + 2 * h], v1 = acc[4 * i + 2 * h + 1];
+            if (bias != nullptr) {
+              v0 = v0 + b0;
+              v1 = v1 + b1;
+            }
+            p[h][c] = pack_bf16(activate(v0, ACT), activate(v1, ACT));
+          }
+        }
+        const int col0 = tn * MW_BN + (4 * j + t4) * 8;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint32_t q[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {  // lane s sends its chunk (s - r) & 3
+            const uint32_t got = __shfl_sync(
+                0xffffffffu, pick4(p[h], (t4 - r) & 3), (lane & ~3) | ((t4 + r) & 3));
+            put4(q, (t4 + r) & 3, got);
+          }
+          const int r = row + 8 * h;
+          if (r < M && col0 < N)
+            *reinterpret_cast<uint4*>(out + static_cast<size_t>(r) * N + col0) =
+                make_uint4(q[0], q[1], q[2], q[3]);
+        }
+      }
+    }
+  }
+}
+
+template <int ACT>
+static int launch_wgmma(const void* a, const void* b, const void* bias,
+                        void* out, int M, int N, int K, cudaStream_t stream) {
+  CUtensorMap ta, tb;
+  const cuuint64_t a_dims[2] = {static_cast<cuuint64_t>(K),
+                                static_cast<cuuint64_t>(M)};
+  const cuuint64_t a_strides[1] = {static_cast<cuuint64_t>(K) * 2};
+  const cuuint32_t a_box[2] = {MW_BK, MW_BM};
+  int rc = encode_tmap_bf16(&ta, a, 2, a_dims, a_strides, a_box, 128);
+  if (rc != 0) return rc;
+  const cuuint64_t b_dims[2] = {static_cast<cuuint64_t>(N),
+                                static_cast<cuuint64_t>(K)};
+  const cuuint64_t b_strides[1] = {static_cast<cuuint64_t>(N) * 2};
+  const cuuint32_t b_box[2] = {64, MW_BK};
+  rc = encode_tmap_bf16(&tb, b, 2, b_dims, b_strides, b_box, 128);
+  if (rc != 0) return rc;
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t err = allow_smem(matmul_bf16_wgmma_kernel<ACT>, MW_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = true;
+  }
+  const long long tiles = static_cast<long long>((M + MW_BM - 1) / MW_BM) *
+                          ((N + MW_BN - 1) / MW_BN);
+  const int grid = static_cast<int>(tiles < sm_count() ? tiles : sm_count());
+  matmul_bf16_wgmma_kernel<ACT><<<grid, MW_THREADS, MW_SMEM, stream>>>(
+      ta, tb, static_cast<const __nv_bfloat16*>(bias),
+      static_cast<__nv_bfloat16*>(out), M, N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The activation is a template argument: the epilogue is unrolled over the
+// whole accumulator, where a switch per element costs time
+// (scripts/kernel_variants.py, act_per_element).
+extern "C" int launch_matmul_bf16_wgmma(const void* a, const void* b,
+                                        const void* bias, void* out, int M,
+                                        int N, int K, int act, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (act) {
+    case 0: return launch_wgmma<0>(a, b, bias, out, M, N, K, s);
+    case 1: return launch_wgmma<1>(a, b, bias, out, M, N, K, s);
+    case 2: return launch_wgmma<2>(a, b, bias, out, M, N, K, s);
+    case 3: return launch_wgmma<3>(a, b, bias, out, M, N, K, s);
+    case 4: return launch_wgmma<4>(a, b, bias, out, M, N, K, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

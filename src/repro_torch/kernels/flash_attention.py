@@ -7,7 +7,7 @@ including a ragged last query or key tile (the Pallas kernel asserts
 ``Sq % block_q == 0`` and the JAX fabric sends other lengths to the plain
 version; here there is no such fallback).  The source note in
 ``csrc/flash_attention.cu`` says what bounds it on an H100 and how its
-design answers that.
+design (TMA rings feeding wgmma, ``csrc/hopper.cuh``) answers that.
 """
 from __future__ import annotations
 
@@ -49,14 +49,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if causal and sq > skv:
         raise ValueError(f"flash_attention: causal with Sq {sq} > Skv {skv} "
                          "leaves rows with no key")
-    if b * hq > 65_535:
-        raise ValueError(f"flash_attention: B*Hq = {b * hq} exceeds the "
-                         "grid's y limit")
+    if -(-sq // 128) > 65_535:
+        raise ValueError(f"flash_attention: Sq = {sq} exceeds the grid's y "
+                         "limit (65,535 tiles of 128 rows)")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"flash_attention {name}: must be 16-byte "
                              "aligned")
     scale = float(d) ** -0.5 if scale is None else float(scale)
+    if not scale > 0:
+        raise ValueError(f"flash_attention: scale {scale} must be > 0 (the "
+                         "kernel takes each row's max on the raw logits)")
     out = torch.empty_like(q)
     _build.launch(
         "flash_attention", "launch_flash_attention", _ARGS, q.data_ptr(),

@@ -7,7 +7,8 @@ Replaces ``repro/kernels/matmul.py::matmul`` (the Pallas bodies
 ``_matmul_kernel`` / ``_matmul_nobias_kernel``, with float or int8
 operands, bf16 included).  The source note in
 ``csrc/matmul.cu`` says what bounds the kernel on an H100 and how its
-tiling answers that.
+tiling answers that; the bf16 GEMM has two kernels, chosen by shape
+(:func:`tma_addressable`).
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from repro_torch.kernels import ref
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _INT8_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _BF16_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_WGMMA_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, bias=None, *,
@@ -86,13 +88,26 @@ def matmul_int8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 matmul_int8.launches = 0
 
 
+def tma_addressable(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether TMA can address the rows of bf16 a (M, K) and b (K, N):
+    K and N positive multiples of 8 (16-byte row strides) and 16-byte
+    aligned bases.  Such shapes run the wgmma kernel, the rest the
+    mma.sync one."""
+    k, n = b.shape
+    return (k > 0 and k % 8 == 0 and n % 8 == 0 and a.data_ptr() % 16 == 0
+            and b.data_ptr() % 16 == 0)
+
+
 def matmul_bf16(a: torch.Tensor, b: torch.Tensor, bias=None, *,
                 activation: str = "none") -> torch.Tensor:
     """``activation(a @ b + bias)`` for bf16 a (M, K), b (K, N), bias (N,):
     float32 sums, bias and activation on them, one rounding to bf16.
 
     A CPU tensor runs the plain version (:func:`ref.matmul`); a CUDA tensor
-    launches the kernel or raises."""
+    launches a kernel or raises: the TMA + wgmma kernel where
+    :func:`tma_addressable` holds (counted also in ``wgmma_launches``),
+    else the mma.sync kernel.  The choice is by shape; a failure of either
+    raises and never retries on the other."""
     if a.device.type == "cpu":
         return ref.matmul(a, b, bias, activation=activation)
     m, k = a.shape
@@ -107,19 +122,29 @@ def matmul_bf16(a: torch.Tensor, b: torch.Tensor, bias=None, *,
                             a.device)
     if m < 1 or n < 1:
         raise ValueError(f"matmul_bf16: empty output {m} x {n}")
-    if -(-m // 128) > 65_535:
-        raise ValueError(f"matmul_bf16: M={m} exceeds the grid's y limit")
-    # 16-byte loads where every row of the operand starts 16-byte aligned
-    vec_a = int(k % 8 == 0 and a.data_ptr() % 16 == 0)
-    vec_b = int(n % 8 == 0 and b.data_ptr() % 16 == 0)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
-    _build.launch(
-        "matmul", "launch_matmul_bf16", _BF16_ARGS, a.data_ptr(), b.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(), m, n, k,
-        ref.ACTIVATION_CODES[activation], vec_a, vec_b,
-        _build.stream_handle(a.device))
+    code = ref.ACTIVATION_CODES[activation]
+    bias_ptr = None if bias is None else bias.data_ptr()
+    stream = _build.stream_handle(a.device)
+    if tma_addressable(a, b):
+        _build.launch(
+            "matmul", "launch_matmul_bf16_wgmma", _WGMMA_ARGS, a.data_ptr(),
+            b.data_ptr(), bias_ptr, out.data_ptr(), m, n, k, code, stream)
+        matmul_bf16.wgmma_launches += 1
+    else:
+        if -(-m // 128) > 65_535:
+            raise ValueError(f"matmul_bf16: M={m} exceeds the mma.sync "
+                             "kernel's grid y limit")
+        # 16-byte loads where every row of the operand starts 16-byte aligned
+        vec_a = int(k % 8 == 0 and a.data_ptr() % 16 == 0)
+        vec_b = int(n % 8 == 0 and b.data_ptr() % 16 == 0)
+        _build.launch(
+            "matmul", "launch_matmul_bf16", _BF16_ARGS, a.data_ptr(),
+            b.data_ptr(), bias_ptr, out.data_ptr(), m, n, k, code, vec_a,
+            vec_b, stream)
     matmul_bf16.launches += 1
     return out
 
 
 matmul_bf16.launches = 0
+matmul_bf16.wgmma_launches = 0

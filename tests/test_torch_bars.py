@@ -9,6 +9,9 @@ what they must pass and what they must catch.
   2^-7 of the rms of the value, whatever its scale, and fails a shift of
   a few percent.
 - The SSD bound counts the least FLOP over chunk lengths.
+- The 32,768 flash check's bands (first, middle, last rows) are the full
+  attention's rows, and ``scripts/planted_faults.py``'s mutations and
+  ``scripts/kernel_variants.py``'s patches apply to the kernels' sources.
 """
 import os
 import sys
@@ -22,6 +25,10 @@ from repro_torch.kernels import ref
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
+
+sys.path.insert(0, os.path.join(ROOT, "scripts"))
+import kernel_variants as kv  # noqa: E402
+import planted_faults as pf  # noqa: E402
 
 S, H, D, TILE = 2048, 2, 128, 64
 
@@ -92,3 +99,64 @@ def test_ssd_flop_is_the_least_over_chunk_lengths(t):
     assert least == min(min(chunked(ln) for ln in range(1, min(t, 256) + 1)),
                         5 * t * ds * dh)
     assert cs.ssd_flop(48, t, ds, dh) == 48 * least
+
+
+def _exp2_numerics(q, k, v):
+    """Causal attention as the wgmma flash kernel rounds it: logits times
+    scale * log2(e), p = exp2(t - max t) in f32, P rounded to bf16."""
+    sl2 = D ** -0.5 * 1.4426950408889634
+    t = (q.float() @ k.float().transpose(-1, -2)) * sl2
+    t = t.masked_fill(torch.arange(S)[None, :] > torch.arange(S)[:, None],
+                      -1e30)
+    p = torch.exp2(t - t.amax(-1, keepdim=True))
+    return ((p.bfloat16().float() @ v.float())
+            / p.sum(-1, keepdim=True)).bfloat16()
+
+
+def test_flash_bar_passes_the_exp2_form(qkv):
+    want = ref.attention(*qkv, causal=True)
+    assert cs.flash_excess(_exp2_numerics(*qkv), want,
+                           _abs_attn(*qkv)) <= 1.0
+
+
+@pytest.mark.parametrize("sq,skv,rows", [(64, 64, 8), (48, 80, 16),
+                                         (33, 33, 4)])
+def test_flash_bands_are_rows_of_the_full_attention(sq, skv, rows):
+    g = torch.Generator().manual_seed(sq)
+    q = torch.randn((1, 2, sq, 16), generator=g)
+    k, v = (torch.randn((1, 2, skv, 16), generator=g) for _ in range(2))
+    full = ref.attention(q, k, v, causal=True)
+    bands = cs.flash_bands(sq, skv, rows)
+    assert [b - a for a, b, _ in bands] == [rows] * 3
+    assert bands[0][0] == 0 and bands[-1][1] == sq
+    assert bands[1][0] <= sq // 2 < bands[1][1]
+    for a, b, e in bands:
+        got = ref.attention(q[:, :, a:b], k[:, :, :e], v[:, :, :e],
+                            causal=True)
+        torch.testing.assert_close(got, full[:, :, a:b], rtol=1e-6,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("name", sorted(pf.MUTATIONS))
+def test_planted_fault_applies_to_the_flash_source(name):
+    path = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc",
+                        pf.FA_SRC)
+    with open(path) as f:
+        text = f.read()
+    mutated = pf.mutate(text, name)
+    assert mutated != text
+    for old, new in pf.MUTATIONS[name]:
+        assert new in mutated
+    with pytest.raises(RuntimeError, match="found 0 times"):
+        pf.mutate(mutated, name)      # each mutation applies once only
+
+
+@pytest.mark.parametrize("file,name", [
+    *(("matmul.cu", n) for n in sorted(kv.GEMM)),
+    *(("flash_attention.cu", n) for n in sorted(kv.FLASH))])
+def test_kernel_variant_patches_apply_to_the_source(file, name):
+    path = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc", file)
+    with open(path) as f:
+        text = f.read()
+    table = kv.GEMM if file == "matmul.cu" else kv.FLASH
+    assert kv.patch(text, name, table[name]) != text

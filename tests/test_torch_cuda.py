@@ -333,7 +333,16 @@ def _bf16(shape, seed, dev, scale=1.0):
     (2, 4, 4, 64, 64, 64, False),
     (1, 4, 2, 32, 160, 128, True),      # Sq < Skv: last-token alignment
     (1, 8, 2, 257, 257, 32, True),
-    (1, 2, 1, 70, 90, 16, False)])
+    (1, 2, 1, 70, 90, 16, False),
+    # the wgmma kernel's edges: one row past a 128-row tile, the path's
+    # length, GQA 32/8, Sq < Skv across key tiles, the narrow head dims
+    (1, 4, 2, 129, 129, 128, True),
+    (1, 4, 2, 4096, 4096, 128, True),
+    (1, 32, 8, 1000, 1000, 128, True),
+    (1, 4, 2, 32, 300, 128, True),
+    (1, 4, 2, 300, 300, 16, True),
+    (1, 4, 2, 300, 300, 32, True),
+    (1, 4, 2, 300, 300, 64, True)])
 def test_flash_attention_kernel(dev, b, hq, hkv, sq, skv, d, causal):
     from repro_torch.kernels import flash_attention as kfa
     q = _bf16((b, hq, sq, d), 20, dev)
@@ -391,14 +400,39 @@ def test_ssd_scan_kernel_bf16_broadcast_bc(dev):
 @pytest.mark.parametrize("m,k,n,act,bias", [
     (300, 200, 260, "silu", False), (300, 200, 260, "none", True),
     (65, 37, 45, "none", False),        # K, N no multiple of 8
-    (512, 2560, 1024, "silu", False)])
+    (512, 2560, 1024, "silu", False),
+    # the wgmma kernel's edges: M and N ragged to the 128 x 256 tile (but
+    # 8-aligned), K no multiple of the 64-wide stage, the down GEMM's
+    # width, one tile, every activation with a bias
+    (200, 264, 392, "none", True), (300, 200, 256, "relu", False),
+    (1024, 9728, 2560, "none", False), (64, 64, 256, "gelu", True),
+    (256, 512, 264, "squared_relu", True), (130, 136, 520, "silu", True),
+    (64, 0, 64, "relu", True)])         # K = 0: the bias alone, mma.sync
 def test_matmul_bf16_kernel(dev, m, k, n, act, bias):
+    """The wgmma kernel where TMA can address the operands (counted in
+    ``wgmma_launches`` too), the mma.sync kernel elsewhere."""
     a, w = _bf16((m, k), 40, dev), _bf16((k, n), 41, dev)
     bv = _bf16((n,), 42, dev) if bias else None
-    before = km.matmul_bf16.launches
+    before = (km.matmul_bf16.launches, km.matmul_bf16.wgmma_launches)
     got = km.matmul_bf16(a, w, bv, activation=act)
-    assert km.matmul_bf16.launches == before + 1
+    wgmma = int(k > 0 and k % 8 == 0 and n % 8 == 0)
+    assert (km.matmul_bf16.launches, km.matmul_bf16.wgmma_launches) == (
+        before[0] + 1, before[1] + wgmma)
     want = ref.matmul(a, w, bv, activation=act)
+    ulp = 2.0 ** (np.floor(np.log2(float(want.float().abs().max()))) - 7)
+    assert float((got.float() - want.float()).abs().max()) <= ulp
+
+
+def test_matmul_bf16_unaligned_base_runs_mma_sync(dev):
+    """An aligned shape whose operand starts off a 16-byte boundary: TMA
+    cannot address it, so the mma.sync kernel runs (and is right)."""
+    a = _bf16((64 * 256 + 1,), 43, dev)[1:].view(64, 256)
+    w = _bf16((256, 512), 44, dev)
+    before = (km.matmul_bf16.launches, km.matmul_bf16.wgmma_launches)
+    got = km.matmul_bf16(a, w)
+    assert (km.matmul_bf16.launches, km.matmul_bf16.wgmma_launches) == (
+        before[0] + 1, before[1])
+    want = ref.matmul(a, w)
     ulp = 2.0 ** (np.floor(np.log2(float(want.float().abs().max()))) - 7)
     assert float((got.float() - want.float()).abs().max()) <= ulp
 

@@ -140,3 +140,28 @@ def test_chip_smoke_alone_fails_without_output(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert proc.stdout == ""
+
+
+WGMMA = "_Z24matmul_bf16_wgmma_kernelILi3EEv14CUtensorMap_stS0_PK13__nv_bf"
+MMA = "_Z18matmul_bf16_kernelPK13__nv_bfloat16S1_S1_PS_iiiiii"
+PTXAS_LOG = f"""\
+ptxas info    : Compiling entry function '{WGMMA}' for 'sm_90a'
+ptxas info    : Function properties for {WGMMA}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 64 bytes smem
+ptxas info    : Compiling entry function '{MMA}' for 'sm_90a'
+ptxas info    : Function properties for {MMA}
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 126 registers, used 1 barriers, 18944 bytes smem
+ptxas warning : (C7508) setmaxnreg ignored
+"""
+
+
+def test_ptxas_summary_reads_registers_and_spills():
+    from repro_torch.kernels import _build
+    got = _build.ptxas_summary(PTXAS_LOG)
+    assert got["matmul_bf16_wgmma_kernel<3>"] == {
+        "spill_stores": 0, "spill_loads": 0, "registers": 168}
+    assert got["matmul_bf16_kernel"] == {
+        "spill_stores": 4, "spill_loads": 12, "registers": 126}
+    assert got["warnings"] == [PTXAS_LOG.splitlines()[-1].strip()]

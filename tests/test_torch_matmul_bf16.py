@@ -17,6 +17,7 @@ from repro.kernels import fabric as jfabric
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import fabric as tfabric
+from repro_torch.kernels import matmul as tmm
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -71,3 +72,21 @@ def test_bf16_activation_applies_to_the_f32_sum():
     got = tref.matmul(ta, tb, activation="silu")
     want = torch.nn.functional.silu(ta.float() @ tb.float()).bfloat16()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("k,n,offset,want", [
+    (2560, 9728, 0, True),      # the qwen3-4b MLP GEMMs
+    (200, 264, 0, True),        # ragged to the tile, 8-aligned
+    (2558, 9728, 0, False),     # K % 8: a's rows are not 16-byte aligned
+    (64, 260, 0, False),        # N % 8
+    (64, 256, 1, False),        # a's base 2 bytes off 16-byte alignment
+    (0, 256, 0, False)])        # K = 0: no tensor map; mma.sync writes bias
+def test_tma_addressable_picks_the_wgmma_kernel(k, n, offset, want):
+    """The wgmma kernel takes every shape TMA can address; the rest go to
+    the mma.sync kernel (the wrapper's choice, tested here on CPU
+    tensors: it reads only shapes and data pointers)."""
+    a = torch.zeros(16 * k + 8, dtype=torch.bfloat16)[offset:offset + 16 * k]
+    a = a.view(16, k)
+    b = torch.zeros((k, n), dtype=torch.bfloat16)
+    assert b.data_ptr() % 16 == 0
+    assert tmm.tma_addressable(a, b) is want
