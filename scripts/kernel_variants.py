@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Design alternatives of the two wgmma kernels, timed against the sound
-kernels at the LM prefill's shapes on one card.
+"""Design alternatives of the port's redesigned kernels, timed against the
+sound kernels on one card: the two wgmma kernels at the LM prefill's
+shapes, the tensor-core conv1d at the flowcell tick's.
 
-    python3 scripts/kernel_variants.py [--reps 3]
+    python3 scripts/kernel_variants.py [--reps 3] [--only gemm|flash|conv]
 
 Each variant is a patched copy of ``src/repro_torch/kernels/csrc`` built
 under ``build/variants/<name>/`` (the checkout's sources are not touched)
@@ -24,10 +25,21 @@ three qwen3-4b MLP GEMMs at 4,096 tokens (gate + silu, up, down):
   pingpong          named barriers make the two consumer warpgroups take
                     turns to issue their wgmma
 
+``conv1d`` variants run the tick's conv2-conv5 (512 lanes x chunk 256,
+the paper's CNN, stream carries):
+
+  tf32x1            hi x hi only: one TF32 pass (its max_abs_err shows why
+                    the kernel takes three)
+  split_x_at_staging  x split into hi and lo planes as each slice lands,
+                    not as fragments load
+  stages_3          a 3-stage cp.async ring (one block an SM, not two)
+  one_sum           every product summed on the tensor cores into one
+                    accumulator, with no per-slice partial sums
+
 Every variant but ``no_epilogue`` is also held to the plain version
 (``max_abs_err``).  Rounds of all variants repeat ``--reps`` times, the
 sound kernel first in each.  Prints one JSON line per variant and round,
-then the library calls (cuBLAS, SDPA).  Needs a CUDA card; exits 2
+then the library calls (cuBLAS, SDPA, cuDNN with TF32 off).  Needs a CUDA card; exits 2
 without one.
 """
 from __future__ import annotations
@@ -106,6 +118,23 @@ FLASH = {
          "      wgmma_commit();\n      if (wg == 0 || kb < last_k) "
          + PP_ARRIVE + "      fence_regs(o);")],
 }
+CONV = {
+    "tf32x1": [("constexpr int TC_PASSES = 3;", "constexpr int TC_PASSES = 1;")],
+    "split_x_at_staging": [
+        ("constexpr bool TC_SPLIT_X_AT_STAGING = false;",
+         "constexpr bool TC_SPLIT_X_AT_STAGING = true;")],
+    "stages_3": [("constexpr int TC_STAGES = 2;",
+                  "constexpr int TC_STAGES = 3;")],
+    "one_sum": [
+        ("mma_tf32_1688(part[mt][nt], al[mt], bh0, bh1);",
+         "mma_tf32_1688(acc[mt][nt], al[mt], bh0, bh1);"),
+        ("mma_tf32_1688(part[mt][nt], ah[mt], bl0, bl1);",
+         "mma_tf32_1688(acc[mt][nt], ah[mt], bl0, bl1);"),
+        ("mma_tf32_1688(part[mt][nt], ah[mt], bh0, bh1);",
+         "mma_tf32_1688(acc[mt][nt], ah[mt], bh0, bh1);"),
+        ("for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[mt][nt][e];",
+         "for (int e = 0; e < 4; ++e) (void)part[mt][nt][e];")],
+}
 
 
 def emit(obj) -> None:
@@ -174,6 +203,42 @@ def flash_round(torch, cs, build, variants, q, k, v, want, abs_attn):
                   reps=10)})
 
 
+def conv_layers(torch, dev):
+    """The tick's conv2-conv5 inputs (``[carry | chunk]`` rows, relu'd
+    like a layer's input) and He-scaled weights, seeded."""
+    from repro_torch.core import basecaller as bc
+    gen = torch.Generator(dev).manual_seed(5)
+    out, t = [], 256
+    for sp in bc.stream_layer_specs(bc.BasecallerConfig()):
+        if sp.name != "conv1" and not sp.is_head:
+            x = torch.randn((512, t + sp.carry_rows, sp.cin), generator=gen,
+                            device=dev).abs()
+            w = torch.randn((sp.ksize, sp.cin, sp.cout), generator=gen,
+                            device=dev) * (2.0 / (sp.ksize * sp.cin)) ** 0.5
+            b = torch.randn((sp.cout,), generator=gen, device=dev) * 0.1
+            out.append((sp.name, x, w, b, sp.stride))
+        t //= sp.stride
+    return out
+
+
+def conv_round(torch, cs, build, variants, layers):
+    from repro_torch.kernels import conv1d as kc
+    from repro_torch.kernels import ref
+    for name, csrc in variants:
+        use(build, name, csrc)
+        line = {"phase": "variant", "kernel": "conv1d", "variant": name}
+        for label, x, w, b, s in layers:
+            before = kc.conv1d.tc_launches
+            out = kc.conv1d(x, w, b, stride=s, activation="relu")
+            assert kc.conv1d.tc_launches == before + 1, name
+            want = ref.conv1d(x, w, b, stride=s, activation="relu")
+            line[f"{label}_max_abs_err"] = (out - want).abs().max().item()
+            line[f"{label}_ms"] = cs.time_ms(
+                torch, lambda: kc.conv1d(x, w, b, stride=s,
+                                         activation="relu"), reps=10)
+        emit(line)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -181,7 +246,9 @@ def main() -> int:
         return 2
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--only", choices=("gemm", "flash", "conv"))
     args = ap.parse_args()
+    runs = {args.only} if args.only else {"gemm", "flash", "conv"}
     sys.path.insert(0, os.path.join(ROOT, "src"))
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
@@ -198,6 +265,9 @@ def main() -> int:
     flash = [("sound", sound)] + [
         (n, variant_csrc(sound, n, "flash_attention.cu", p))
         for n, p in FLASH.items()]
+    conv = [("sound", sound)] + [
+        (n, variant_csrc(sound, f"conv1d_{n}", "conv1d.cu", p))
+        for n, p in CONV.items()]
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(3)
     cfg = ARCHS["qwen3-4b"].config()
@@ -218,18 +288,36 @@ def main() -> int:
             for _ in range(2))
     want = ref.attention(q, k, v, causal=True)
     abs_attn = ref.attention(q, k, v.abs(), causal=True)
+    layers = conv_layers(torch, dev)
     for rnd in range(args.reps):
         emit({"phase": "round", "round": rnd})
-        gemm_round(torch, cs, _build, gemm, data)
-        flash_round(torch, cs, _build, flash, q, k, v, want, abs_attn)
+        if "gemm" in runs:
+            gemm_round(torch, cs, _build, gemm, data)
+        if "flash" in runs:
+            flash_round(torch, cs, _build, flash, q, k, v, want, abs_attn)
+        if "conv" in runs:
+            conv_round(torch, cs, _build, conv, layers)
     use(_build, "sound", sound)
-    emit({"phase": "library", "cublas_ms": {
-        label: cs.time_ms(torch, (lambda a=a, w=w, act=act: torch.nn.
-                                  functional.silu(torch.matmul(a, w))
-                                  if act == "silu" else torch.matmul(a, w)),
-                          reps=10)
-        for label, a, w, act in data},
-        "sdpa_ms": cs.sdpa_ms(torch, torch.nn.functional, q, k, v)})
+    F = torch.nn.functional
+    lib = {}
+    if "gemm" in runs:
+        lib["cublas_ms"] = {
+            label: cs.time_ms(torch, (lambda a=a, w=w, act=act: F.silu(
+                torch.matmul(a, w)) if act == "silu" else torch.matmul(a, w)),
+                reps=10)
+            for label, a, w, act in data}
+    if "flash" in runs:
+        lib["sdpa_ms"] = cs.sdpa_ms(torch, F, q, k, v)
+    if "conv" in runs:
+        # cuDNN in PyTorch's layout, TF32 off (ref.full_fp32), as phase 2
+        lib["cudnn_ms"] = {
+            label: cs.time_ms(torch, (lambda xt=x.permute(0, 2, 1).contiguous(),
+                                      wt=w.permute(2, 1, 0).contiguous(), b=b,
+                                      s=s: F.relu(F.conv1d(xt, wt, b,
+                                                           stride=s))),
+                              reps=10)
+            for label, x, w, b, s in layers}
+    emit({"phase": "library", **lib})
     return 0
 
 

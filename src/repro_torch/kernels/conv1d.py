@@ -2,8 +2,11 @@
 wrappers, fp32 (:func:`conv1d`) and int8 -> int32 (:func:`conv1d_int8`).
 
 Replaces ``repro/kernels/conv1d.py::conv1d`` (the Pallas body
-``_conv1d_kernel``, with float or int8 operands).  The source note in ``csrc/conv1d.cu`` says what bounds
-the kernel on an H100 and how its tiling answers that.
+``_conv1d_kernel``, with float or int8 operands).  fp32 has two kernels,
+chosen by shape (:func:`tensor_core_shape`): a 3xTF32 implicit GEMM on the
+tensor cores and an fp32 one on the CUDA cores.  The source notes in
+``csrc/conv1d.cu`` say what bounds each on an H100 and how its tiling
+answers that.
 """
 from __future__ import annotations
 
@@ -16,9 +19,34 @@ from repro_torch.kernels import ref
 from repro_torch.quant.core import pack_words
 
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-_SMEM_ARGS = [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _INT8_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-_INT8_SMEM_ARGS = [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int]
+
+# the tensor-core kernel's geometry (csrc/conv1d.cu TC_*): output frames a
+# sub-tile, sub-tiles a block, input channels a slice, ring stages, x row
+# pitch in floats
+TC_FRAMES, TC_SUBS, TC_CS, TC_STAGES, TC_XP = 64, 2, 8, 2, 12
+
+
+def tc_smem_bytes(ksize: int, stride: int, cout: int) -> int:
+    """Shared memory of the tensor-core kernel (``conv1d_tc_smem_bytes``):
+    each ring stage holds the sub-tiles' staged x rows, by phase, and the
+    K x 8 x BN weights as hi and lo planes (row pitch BN + 8), BN = 64,
+    96 or 32 output channels by Cout."""
+    bn = 64 if cout % 64 == 0 else 96 if cout % 96 == 0 else 32
+    prow = TC_FRAMES - 1 + -(-ksize // stride)
+    x_floats = TC_SUBS * stride * prow * TC_XP
+    w_floats = 2 * ksize * TC_CS * (bn + 8)
+    return TC_STAGES * (x_floats + w_floats) * 4
+
+
+def tensor_core_shape(cin: int, cout: int, ksize: int, stride: int) -> bool:
+    """Whether fp32 conv1d of this shape runs the 3xTF32 tensor-core
+    kernel: whole k-steps of 8 input channels, output channels in pairs of
+    the MMA's 8 columns, and a ring that fits a block's shared memory.  The
+    rest (Cin 1, Cout 5, ragged channel counts) runs the CUDA-core kernel.
+    The wrapper also needs x and w 16-byte aligned (cp.async)."""
+    return (cin % TC_CS == 0 and cout % 8 == 0
+            and tc_smem_bytes(ksize, stride, cout) <= _build.SMEM_LIMIT)
 
 
 def stream_carry_len(ksize: int, stride: int) -> int:
@@ -36,7 +64,11 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, bias=None, *, stride: int = 1,
     """'valid' conv1d.  x (B, T, Cin), w (K, Cin, Cout) -> (B, T_out, Cout).
 
     A CPU tensor runs the plain version (:func:`ref.conv1d`); a CUDA tensor
-    launches the kernel or raises."""
+    launches a kernel or raises: the tensor-core kernel where
+    :func:`tensor_core_shape` holds and x and w are 16-byte aligned
+    (counted also in ``tc_launches``), else the CUDA-core one.  The choice
+    is by shape; a failure of either raises and never retries on the
+    other."""
     if x.device.type == "cpu":
         return ref.conv1d(x, w, bias, stride=stride, activation=activation)
     bsz, t, cin = x.shape
@@ -51,25 +83,22 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, bias=None, *, stride: int = 1,
     if stride < 1 or t_out < 1:
         raise ValueError(f"conv1d: no output for T={t}, K={ksize}, "
                          f"stride={stride}")
-    if bsz > 65_535:
-        raise ValueError(f"conv1d: batch {bsz} exceeds the grid's z limit")
-    smem = _build.function("conv1d", "conv1d_smem_bytes", _SMEM_ARGS)(
-        cin, ksize, stride, cout, w.data_ptr())
-    if smem > _build.SMEM_LIMIT:
-        raise ValueError(f"conv1d: Cin={cin}, K={ksize}, stride={stride} "
-                         f"needs {smem} B of shared memory per block")
     out = torch.empty((bsz, t_out, cout), dtype=torch.float32,
                       device=x.device)
+    tc = (tensor_core_shape(cin, cout, ksize, stride)
+          and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
     _build.launch(
-        "conv1d", "launch_conv1d", _ARGS, x.data_ptr(), w.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(), bsz, t,
-        cin, ksize, cout, stride, t_out, ref.ACTIVATION_CODES[activation],
-        _build.stream_handle(x.device))
+        "conv1d", "launch_conv1d_tc" if tc else "launch_conv1d", _ARGS,
+        x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
+        out.data_ptr(), bsz, t, cin, ksize, cout, stride, t_out,
+        ref.ACTIVATION_CODES[activation], _build.stream_handle(x.device))
     conv1d.launches += 1
+    conv1d.tc_launches += tc
     return out
 
 
 conv1d.launches = 0
+conv1d.tc_launches = 0
 
 
 def conv1d_int8(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
@@ -92,9 +121,6 @@ def conv1d_int8(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     if stride < 1 or t_out < 1:
         raise ValueError(f"conv1d_int8: no output for T={t}, K={ksize}, "
                          f"stride={stride}")
-    if bsz > 65_535:
-        raise ValueError(f"conv1d_int8: batch {bsz} exceeds the grid's z "
-                         "limit")
     packed = cin % 4 == 0
     wk = w
     if packed:
@@ -103,12 +129,6 @@ def conv1d_int8(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                             (ksize, cin // 4, cout), x.device)
         if x.data_ptr() % 4:
             raise ValueError("conv1d_int8: x must be 4-byte aligned")
-    smem = _build.function("conv1d", "conv1d_int8_smem_bytes",
-                           _INT8_SMEM_ARGS)(cin, ksize, stride, cout,
-                                            wk.data_ptr(), int(packed))
-    if smem > _build.SMEM_LIMIT:
-        raise ValueError(f"conv1d_int8: Cin={cin}, K={ksize}, stride={stride}"
-                         f" needs {smem} B of shared memory per block")
     out = torch.empty((bsz, t_out, cout), dtype=torch.int32, device=x.device)
     _build.launch(
         "conv1d", "launch_conv1d_int8", _INT8_ARGS, x.data_ptr(),

@@ -1,14 +1,16 @@
 // Shared pieces of the hand-written Hopper kernels (built for sm_90a).
 //
-// Every float product in these kernels is IEEE fp32 on the CUDA cores, and
-// every sum runs in one fixed order through fmaf:
+// Every float product of the fp32 CUDA-core kernels is IEEE fp32, and every
+// sum runs in one fixed order through fmaf:
 //
 //   conv1d / fused conv layers:  acc = 0; for ci: for k: acc = fmaf(x, w, acc)
 //   matmul / fused head:         acc = 0; for k:          acc = fmaf(a, b, acc)
 //
 // then acc + bias, then the activation.  A k=1 conv is then the same
-// arithmetic as the GEMM, so the fused tick and the unfused chain of
-// conv1d + matmul launches give the same bits.
+// arithmetic as the GEMM, so the fused tick's head and the unfused matmul
+// give the same bits.  The tensor-core conv (conv1d.cu conv1d_tc_kernel,
+// 3xTF32) sums in another order: the unfused tick's conv2-conv5 match the
+// fused ones within the fp32 bar, not bit for bit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -32,6 +34,9 @@ __device__ __forceinline__ float activate(float v, int act) {
       return v;
   }
 }
+
+// Shared memory one block may use on an H100 (kernels/_build.py SMEM_LIMIT).
+constexpr int SMEM_BYTES = 232448;
 
 // Dynamic shared memory above 48 KB must be opted into per kernel.
 template <typename F>

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the TMA + wgmma kernels of
-// matmul.cu and flash_attention.cu, as inline PTX (PTX ISA 8.x): mbarriers,
-// TMA tile loads, wgmma shared-memory descriptors and issue, setmaxnreg,
+// matmul.cu and flash_attention.cu and the cp.async rings of conv1d.cu and
+// matmul.cu, as inline PTX (PTX ISA 8.x): mbarriers, cp.async copies, TMA
+// tile loads, wgmma shared-memory descriptors and issue, setmaxnreg,
 // and the host-side encoding of a TMA tensor map.
 //
 // Layouts.  A tile that TMA writes with a 128-, 64- or 32-byte swizzle is
@@ -81,6 +82,38 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "memory");
     if (!done && clock64() - start > 40'000'000'000LL) __trap();
   } while (!done);
+}
+
+// ------------------------------------------------------------ cp.async ----
+// Asynchronous 16- and 4-byte copies from device to shared memory, tracked
+// by commit groups.  With `valid` false nothing is read and the destination
+// is filled with zeros (`src` must still be a device address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are pending; the
+// copies of the completed groups are then visible to this thread (to the
+// block after a __syncthreads).
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ----------------------------------------------------------------- TMA ----

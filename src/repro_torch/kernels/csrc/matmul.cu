@@ -1,4 +1,5 @@
-// Tiled GEMM with a fused bias + activation epilogue.
+// fp32 GEMM with a fused bias + activation epilogue: two kernels, chosen by
+// N (kernels/matmul.py skinny).
 //
 // Replaces: src/repro/kernels/matmul.py::matmul (Pallas bodies _matmul_kernel
 // and _matmul_nobias_kernel), an MXU-tiled GEMM whose K-innermost grid axis
@@ -7,14 +8,20 @@
 // a (M, K), b (K, N), bias (N,) or null -> out (M, N), fp32, row-major.
 //
 // Bound on this card: on the path (the basecaller head, M = 512 lanes x 64
-// frames, K = 128, N = 5) bytes: 17.5 MB in and out for 42 MFLOP.  A large
-// square GEMM would be bound by operations.  Design: the textbook shared-
-// memory tiling — a 64 x 64 output tile per block, 256 threads each holding
-// a 4 x 4 register tile, K walked in slices of 16 staged in shared memory —
-// with the ragged M, N and K edges masked (N = 5 takes one column tile).
-// Each output sums its K products in ascending order through fmaf, the same
-// order as a k = 1 conv in conv1d.cu and fused_stream.cu.  fp32 on the CUDA
-// cores, not TF32: the parity bars are fp32 bars.
+// frames, K = 128, N = 5) bytes: 17.5 MB in and out for 42 MFLOP, ~5 us at
+// 3.35 TB/s.  N <= 8 runs matmul_skinny_kernel, which streams A: a block
+// owns 128 rows, one a thread, and stages them through a cp.async ring of
+// 32-wide K slices (with B's matching rows), padded so that each thread's
+// 16-byte reads of its own row hit distinct banks; each thread keeps N
+// accumulators.  Larger N runs the textbook shared-memory tiling
+// (matmul_kernel): a 64 x 64 output tile per block, 256 threads each holding
+// a 4 x 4 register tile, K walked in slices of 16, the ragged M, N and K
+// edges masked.  Both put M on the grid's x axis, so no M is too large.
+// Each output sums its K products in ascending order through fmaf, the
+// same order as a k = 1 conv on the CUDA cores (conv1d.cu) and in
+// fused_stream.cu: the two kernels give the same bits, and the fused and
+// unfused heads agree.  fp32 on the CUDA cores, not TF32: the parity bars
+// are fp32 bars.
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -36,8 +43,8 @@ matmul_kernel(const float* __restrict__ a, const float* __restrict__ b,
   __shared__ float bs[MM_BK][MM_BN];
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
-  const int m0 = blockIdx.y * MM_BM;
-  const int n0 = blockIdx.x * MM_BN;
+  const int m0 = blockIdx.x * MM_BM;
+  const int n0 = blockIdx.y * MM_BN;
   float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -86,10 +93,133 @@ matmul_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
+// ------------------------------------------------------------ skinny N ----
+constexpr int MS_ROWS = 128;  // rows per block, one per thread
+constexpr int MS_BK = 32;     // K per staged slice
+constexpr int MS_AP = MS_BK + 4;  // row pitch: MS_AP / 4 odd, no bank conflict
+constexpr int MS_STAGES = 3;
+
+// VEC: K % 4 == 0 and a 16-byte aligned, so rows copy in 16-byte pieces
+template <int N, bool VEC>
+__global__ void __launch_bounds__(MS_ROWS)
+matmul_skinny_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                     const float* __restrict__ bias, float* __restrict__ out,
+                     int M, int K, int act) {
+  // the ring: MS_STAGES slices of A's rows, then as many of B's
+  extern __shared__ __align__(16) float ms_smem[];
+  float* const as = ms_smem;
+  float* const bs = ms_smem + MS_STAGES * MS_ROWS * MS_AP;
+  const int tid = threadIdx.x;
+  const size_t m0 = static_cast<size_t>(blockIdx.x) * MS_ROWS;
+  const int slices = (K + MS_BK - 1) / MS_BK;
+  auto stage = [&](int sl) {
+    float* ad = as + (sl % MS_STAGES) * MS_ROWS * MS_AP;
+    const int k0 = sl * MS_BK;
+    if constexpr (VEC) {
+      for (int i = tid; i < MS_ROWS * MS_BK / 4; i += MS_ROWS) {
+        const int r = i / (MS_BK / 4), c = (i % (MS_BK / 4)) * 4;
+        const bool ok = m0 + r < static_cast<size_t>(M) && k0 + c < K;
+        cp_async16(ad + r * MS_AP + c,
+                   ok ? a + (m0 + r) * K + k0 + c : a, ok);
+      }
+    } else {
+      for (int i = tid; i < MS_ROWS * MS_BK; i += MS_ROWS) {
+        const int r = i / MS_BK, c = i % MS_BK;
+        const bool ok = m0 + r < static_cast<size_t>(M) && k0 + c < K;
+        cp_async4(ad + r * MS_AP + c, ok ? a + (m0 + r) * K + k0 + c : a, ok);
+      }
+    }
+    for (int i = tid; i < MS_BK * N; i += MS_ROWS) {
+      const bool ok = k0 + i / N < K;
+      cp_async4(bs + (sl % MS_STAGES) * MS_BK * N + i,
+                ok ? b + static_cast<size_t>(k0) * N + i : b, ok);
+    }
+  };
+
+  float acc[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n) acc[n] = 0.f;
+#pragma unroll
+  for (int i = 0; i < MS_STAGES - 1; ++i) {
+    if (i < slices) stage(i);
+    cp_async_commit();
+  }
+  for (int sl = 0; sl < slices; ++sl) {
+    cp_async_wait<MS_STAGES - 2>();
+    __syncthreads();  // slice sl landed; slice sl - 1 consumed
+    if (sl + MS_STAGES - 1 < slices) stage(sl + MS_STAGES - 1);
+    cp_async_commit();
+    const float* ar = as + (sl % MS_STAGES) * MS_ROWS * MS_AP + tid * MS_AP;
+    const float* br = bs + (sl % MS_STAGES) * MS_BK * N;
+    const int kn = min(MS_BK, K - sl * MS_BK);  // never fold padding in
+    auto fma_k = [&](float av, int kk) {
+#pragma unroll
+      for (int n = 0; n < N; ++n) acc[n] = fmaf(av, br[kk * N + n], acc[n]);
+    };
+    int kk = 0;
+    for (; kk + 4 <= kn; kk += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(ar + kk);
+      fma_k(v.x, kk);
+      fma_k(v.y, kk + 1);
+      fma_k(v.z, kk + 2);
+      fma_k(v.w, kk + 3);
+    }
+    for (; kk < kn; ++kk) fma_k(ar[kk], kk);
+  }
+  cp_async_wait<0>();
+
+  const size_t m = m0 + tid;
+  if (m >= static_cast<size_t>(M)) return;
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    float v = acc[n];
+    if (bias != nullptr) v = v + bias[n];
+    out[m * N + n] = activate(v, act);
+  }
+}
+
+template <int N>
+static int launch_skinny(const float* a, const float* b, const float* bias,
+                         float* out, int M, int K, int act, bool vec,
+                         cudaStream_t stream) {
+  const unsigned blocks = (static_cast<unsigned>(M) + MS_ROWS - 1) / MS_ROWS;
+  const size_t smem = MS_STAGES * (MS_ROWS * MS_AP + MS_BK * N) * sizeof(float);
+  auto kernel = vec ? matmul_skinny_kernel<N, true>
+                    : matmul_skinny_kernel<N, false>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<blocks, MS_ROWS, smem, stream>>>(a, b, bias, out, M, K, act);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// N <= 8 only (kernels/matmul.py skinny); anything else is refused.
+extern "C" int launch_matmul_skinny(const void* a, const void* b,
+                                    const void* bias, void* out, int M, int N,
+                                    int K, int act, void* stream) {
+  const float* af = static_cast<const float*>(a);
+  const float* bf = static_cast<const float*>(b);
+  const float* cf = static_cast<const float*>(bias);
+  float* of = static_cast<float*>(out);
+  const bool vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (N) {
+    case 1: return launch_skinny<1>(af, bf, cf, of, M, K, act, vec, s);
+    case 2: return launch_skinny<2>(af, bf, cf, of, M, K, act, vec, s);
+    case 3: return launch_skinny<3>(af, bf, cf, of, M, K, act, vec, s);
+    case 4: return launch_skinny<4>(af, bf, cf, of, M, K, act, vec, s);
+    case 5: return launch_skinny<5>(af, bf, cf, of, M, K, act, vec, s);
+    case 6: return launch_skinny<6>(af, bf, cf, of, M, K, act, vec, s);
+    case 7: return launch_skinny<7>(af, bf, cf, of, M, K, act, vec, s);
+    case 8: return launch_skinny<8>(af, bf, cf, of, M, K, act, vec, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 extern "C" int launch_matmul(const void* a, const void* b, const void* bias,
                              void* out, int M, int N, int K, int act,
                              void* stream) {
-  dim3 grid((N + MM_BN - 1) / MM_BN, (M + MM_BM - 1) / MM_BM);
+  dim3 grid((static_cast<unsigned>(M) + MM_BM - 1) / MM_BM,
+            (N + MM_BN - 1) / MM_BN);
   matmul_kernel<<<grid, MM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a), static_cast<const float*>(b),
       static_cast<const float*>(bias), static_cast<float*>(out), M, N, K, act);

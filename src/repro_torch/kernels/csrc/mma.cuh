@@ -1,4 +1,5 @@
-// bf16 tensor-core pieces shared by flash_attention.cu and matmul.cu.
+// Tensor-core pieces shared by flash_attention.cu and matmul.cu (bf16) and
+// conv1d.cu (TF32).
 //
 // One warp-wide mma.sync.m16n8k16 (bf16 x bf16 -> f32): D[16x8] += A[16x16]
 // B[16x8].  With g = lane / 4 and t = lane % 4, each thread holds
@@ -43,4 +44,39 @@ __device__ __forceinline__ uint32_t pack_bf16_bits(__nv_bfloat16 lo,
 // Two consecutive bf16 (4-byte aligned) as one register.
 __device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// One warp-wide mma.sync.m16n8k8 (tf32 x tf32 -> f32): D[16x8] += A[16x8]
+// B[8x8].  With g = lane / 4 and t = lane % 4, each thread holds
+//
+//   A (row-major)  a0: (g, t)   a1: (g+8, t)   a2: (g, t+4)   a3: (g+8, t+4)
+//   B (k x n)      b0: (k = t, n = g)          b1: (k = t+4, n = g)
+//   C/D (f32)      as in m16n8k16: d0, d1 (g, 2t..2t+1), d2, d3 (g+8, ...)
+//
+// each register one tf32 value in fp32 bits with the 13 low mantissa bits
+// zero (PTX ISA, "Matrix Fragments for mma.m16n8k8", .tf32).
+__device__ __forceinline__ void mma_tf32_1688(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// v rounded to tf32 (10 explicit mantissa bits), to nearest with ties away
+// from zero: kernels/ref.py split_tf32 emulates it.
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// The 3xTF32 split v = hi + lo: hi = tf32(v), lo = tf32(v - hi).  v - hi is
+// exact in fp32, so hi + lo is v to within 2^-22 of |v|.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - __uint_as_float(hi));
 }

@@ -24,12 +24,22 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref
 
-_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+
+
+def needs_scratch(m: int) -> bool:
+    """Whether the wavefront kernel's DP row and query (``(2m + 1) * 32 *
+    4`` bytes a block of 32 pairs) outgrow a block's shared memory, so that
+    query length ``m`` runs the variant that keeps them in device scratch
+    (m >= 908)."""
+    return (2 * m + 1) * 32 * 4 > _build.SMEM_LIMIT
 
 
 def _wavefront(what: str, query, target, *, band, match, mismatch, gap,
-               local) -> torch.Tensor:
-    """Check the operands and launch ``banded_align_kernel`` once."""
+               local) -> tuple[torch.Tensor, bool]:
+    """Check the operands and launch the wavefront kernel once: the
+    shared-memory one, or the scratch one where :func:`needs_scratch`
+    holds.  Returns the scores and whether the scratch kernel ran."""
     p, m = query.shape
     p2, n = target.shape
     if p != p2:
@@ -37,16 +47,19 @@ def _wavefront(what: str, query, target, *, band, match, mismatch, gap,
     _build.check_tensor(f"{what} query", query, torch.int32)
     _build.check_tensor(f"{what} target", target, torch.int32,
                         device=query.device)
-    if (2 * m + 1) * 32 * 4 > _build.SMEM_LIMIT:
-        raise ValueError(f"{what}: query length {m} does not fit a "
-                         "block's shared memory")
     out = torch.empty((p,), dtype=torch.int32, device=query.device)
+    scratch = None
+    if needs_scratch(m):
+        scratch = torch.empty(((2 * m + 1) * p,), dtype=torch.int32,
+                              device=query.device)
     if p:
         _build.launch(
             "banded_align", "launch_banded_align", _ARGS, query.data_ptr(),
-            target.data_ptr(), out.data_ptr(), p, m, n, band, match,
-            mismatch, gap, int(local), _build.stream_handle(query.device))
-    return out
+            target.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), p, m, n, band,
+            match, mismatch, gap, int(local),
+            _build.stream_handle(query.device))
+    return out, scratch is not None
 
 
 def banded_align(query: torch.Tensor, target: torch.Tensor, *, band: int,
@@ -56,20 +69,24 @@ def banded_align(query: torch.Tensor, target: torch.Tensor, *, band: int,
     (P,).
 
     A CPU tensor runs the plain version (:func:`ref.banded_align`); a CUDA
-    tensor launches the kernel or raises."""
+    tensor launches the kernel or raises (the scratch variant, counted also
+    in ``scratch_launches``, where :func:`needs_scratch` holds)."""
     if query.device.type == "cpu":
         return ref.banded_align(query, target, band=band, match=match,
                                 mismatch=mismatch, gap=gap, local=local)
     if band < 0:
         raise ValueError(f"banded_align: band must be >= 0, got {band}")
-    out = _wavefront("banded_align", query, target, band=band, match=match,
-                     mismatch=mismatch, gap=gap, local=local)
+    out, scratch = _wavefront("banded_align", query, target, band=band,
+                              match=match, mismatch=mismatch, gap=gap,
+                              local=local)
     if out.numel():
         banded_align.launches += 1
+        banded_align.scratch_launches += scratch
     return out
 
 
 banded_align.launches = 0
+banded_align.scratch_launches = 0
 
 
 def levenshtein(query: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -78,18 +95,22 @@ def levenshtein(query: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
     A CPU tensor runs the plain version (:func:`ref.edit_distance`, the
     row-scan DP); a CUDA tensor launches the wavefront kernel with unit
-    costs, global and unbanded, and negates its score, or raises."""
+    costs, global and unbanded, and negates its score, or raises (the
+    scratch variant, counted also in ``scratch_launches``, as
+    :func:`banded_align`)."""
     if query.device.type == "cpu":
         return ref.edit_distance(query, target)
     band = max(query.shape[1], target.shape[1])
-    score = _wavefront("levenshtein", query, target, band=band, match=0,
-                       mismatch=-1, gap=-1, local=False)
+    score, scratch = _wavefront("levenshtein", query, target, band=band,
+                                match=0, mismatch=-1, gap=-1, local=False)
     if score.numel():
         levenshtein.launches += 1
+        levenshtein.scratch_launches += scratch
     return torch.neg(score)
 
 
 levenshtein.launches = 0
+levenshtein.scratch_launches = 0
 
 
 def blocks_per_sm(m: int) -> int:

@@ -7,8 +7,8 @@ Replaces ``repro/kernels/matmul.py::matmul`` (the Pallas bodies
 ``_matmul_kernel`` / ``_matmul_nobias_kernel``, with float or int8
 operands, bf16 included).  The source note in
 ``csrc/matmul.cu`` says what bounds the kernel on an H100 and how its
-tiling answers that; the bf16 GEMM has two kernels, chosen by shape
-(:func:`tma_addressable`).
+tiling answers that; the fp32 and bf16 GEMMs each have two kernels, chosen
+by shape (:func:`skinny`, :func:`tma_addressable`).
 """
 from __future__ import annotations
 
@@ -25,12 +25,25 @@ _BF16_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _WGMMA_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
+SKINNY_N = 8    # widest N the streaming kernel takes (one accumulator each)
+
+
+def skinny(n: int) -> bool:
+    """Whether fp32 matmul with ``n`` output columns runs the skinny-N
+    kernel, which streams A's rows (the basecaller head's N = 5); wider N
+    runs the tiled kernel."""
+    return n <= SKINNY_N
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor, bias=None, *,
            activation: str = "none") -> torch.Tensor:
     """``activation(a @ b + bias)``: a (M, K), b (K, N), bias (N,).
 
     A CPU tensor runs the plain version (:func:`ref.matmul`); a CUDA tensor
-    launches the kernel or raises."""
+    launches a kernel or raises: the skinny-N kernel where :func:`skinny`
+    holds (counted also in ``skinny_launches``), else the tiled one.  Both
+    sum each output's K products in ascending order, so they give the same
+    bits."""
     if a.device.type == "cpu":
         return ref.matmul(a, b, bias, activation=activation)
     m, k = a.shape
@@ -44,18 +57,20 @@ def matmul(a: torch.Tensor, b: torch.Tensor, bias=None, *,
                             a.device)
     if m < 1 or n < 1:
         raise ValueError(f"matmul: empty output {m} x {n}")
-    if -(-m // 64) > 65_535:
-        raise ValueError(f"matmul: M={m} exceeds the grid's y limit")
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    thin = skinny(n)
     _build.launch(
-        "matmul", "launch_matmul", _ARGS, a.data_ptr(), b.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(), m, n, k,
-        ref.ACTIVATION_CODES[activation], _build.stream_handle(a.device))
+        "matmul", "launch_matmul_skinny" if thin else "launch_matmul", _ARGS,
+        a.data_ptr(), b.data_ptr(), None if bias is None else bias.data_ptr(),
+        out.data_ptr(), m, n, k, ref.ACTIVATION_CODES[activation],
+        _build.stream_handle(a.device))
     matmul.launches += 1
+    matmul.skinny_launches += thin
     return out
 
 
 matmul.launches = 0
+matmul.skinny_launches = 0
 
 
 def matmul_int8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -96,6 +96,22 @@ def conv1d(x, w, bias=None, *, stride: int = 1, activation: str = "none"):
     return ACTIVATIONS[activation](acc)
 
 
+def split_tf32(v):
+    """The 3xTF32 split of float32 ``v`` that the tensor-core conv makes
+    (``csrc/mma.cuh`` split_tf32): ``hi`` is ``v`` rounded to tf32 (10
+    explicit mantissa bits, to nearest with ties away from zero, as PTX
+    ``cvt.rna.tf32.f32``), ``lo`` the same rounding of ``v - hi`` (exact in
+    float32), both float32.  ``hi + lo`` is ``v`` to within 2^-22 of
+    ``|v|``.  Infinities and NaNs pass through as ``hi`` (``lo`` NaN)."""
+    def rna(u):
+        bits = u.contiguous().view(torch.int32)
+        mag = ((bits & 0x7FFFFFFF) + 0x1000) & -0x2000
+        r = (mag | (bits & -0x80000000)).view(torch.float32)
+        return torch.where(torch.isfinite(u), r, u)
+    hi = rna(v)
+    return hi, rna(v - hi)
+
+
 # ------------------------------------------------------------ int8 MACs ---
 def _int8_only(name: str, *ts) -> None:
     for t in ts:

@@ -74,6 +74,99 @@ def test_banded_align_kernel_bitwise(dev, band, local):
                        ref.banded_align(q, t, **kw))
 
 
+# The tick's conv2-conv5 (at 5 lanes), the variant caller's 48 -> 96, a
+# ragged T_out and Cout, a Cin of 512 (K 9, stride 2) and a batch past the
+# old 65,535 grid limit; tc says which kernel the shape takes.
+@pytest.mark.parametrize("b,cin,cout,k,stride,t,tc", [
+    (5, 64, 64, 7, 2, 261, True), (5, 64, 96, 7, 1, 134, True),
+    (5, 96, 192, 9, 2, 135, True), (5, 192, 128, 9, 1, 72, True),
+    (7, 48, 96, 5, 1, 37, True), (3, 16, 40, 5, 1, 150, True),
+    (4, 512, 64, 9, 2, 300, True), (4, 512, 5, 9, 2, 300, False),
+    (3, 1, 64, 5, 1, 260, False), (65_537, 8, 8, 5, 1, 20, True),
+    (65_537, 1, 8, 5, 1, 20, False)])
+def test_conv1d_variants(dev, b, cin, cout, k, stride, t, tc):
+    x = torch.randn((b, t, cin), generator=_g(20)).abs().to(dev)
+    w = (torch.randn((k, cin, cout), generator=_g(21))
+         * (2.0 / (k * cin)) ** 0.5).to(dev)
+    bias = torch.randn((cout,), generator=_g(22)).to(dev)
+    before = (kc.conv1d.launches, kc.conv1d.tc_launches)
+    got = kc.conv1d(x, w, bias, stride=stride, activation="relu")
+    assert (kc.conv1d.launches, kc.conv1d.tc_launches) == (
+        before[0] + 1, before[1] + tc)
+    assert tc == kc.tensor_core_shape(cin, cout, k, stride)
+    want = ref.conv1d(x, w, bias, stride=stride, activation="relu")
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+
+
+def test_conv1d_tc_smem_matches_the_predicate(dev):
+    """The wrapper's Python mirror of the tensor-core ring's size agrees
+    with the kernel's own at the tick's layers."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    fn = _build.function("conv1d", "conv1d_tc_smem_bytes", [ctypes.c_int] * 3)
+    for k, stride, cout in ((7, 2, 64), (7, 1, 96), (9, 2, 192), (9, 1, 128),
+                            (5, 1, 96)):
+        assert fn(k, stride, cout) == kc.tc_smem_bytes(k, stride, cout)
+
+
+# N 1, 5 (the head), 8 on the skinny kernel and 9 on the tiled one, at a
+# ragged M, a K that is not a multiple of 4, and M past the old grid limit
+# of 65,535 x 64 rows
+@pytest.mark.parametrize("m,k,n", [
+    (1001, 128, 1), (1001, 128, 5), (1001, 37, 5), (1001, 128, 8),
+    (1001, 128, 9), (4_194_305, 16, 5), (4_194_305, 4, 9)])
+def test_matmul_variants(dev, m, k, n):
+    a = torch.randn((m, k), generator=_g(23)).to(dev)
+    w = torch.randn((k, n), generator=_g(24)).to(dev)
+    b = torch.randn((n,), generator=_g(25)).to(dev)
+    before = (km.matmul.launches, km.matmul.skinny_launches)
+    got = km.matmul(a, w, b, activation="relu")
+    assert (km.matmul.launches, km.matmul.skinny_launches) == (
+        before[0] + 1, before[1] + (n <= 8))
+    torch.testing.assert_close(got, ref.matmul(a, w, b, activation="relu"),
+                               rtol=TOL, atol=TOL)
+
+
+def test_matmul_skinny_equals_tiled_bitwise(dev):
+    """Both fp32 kernels sum each output's K products in ascending order
+    through fmaf, so the head's logits keep their bits: the skinny
+    kernel's N = 5 equals the first five columns the tiled kernel gives at
+    N = 9 (the extra columns change no other column's sum)."""
+    a = torch.randn((2000, 128), generator=_g(26)).to(dev)
+    w = torch.randn((128, 9), generator=_g(27)).to(dev)
+    b = torch.randn((9,), generator=_g(28)).to(dev)
+    thin = km.matmul(a, w[:, :5].contiguous(), b[:5].contiguous())
+    assert torch.equal(thin, km.matmul(a, w, b)[:, :5])
+
+
+@pytest.mark.parametrize("p,m,band,local", [
+    (1, 908, 908, False), (64, 2048, 64, True), (64, 2048, 64, False)])
+def test_banded_align_past_shared_memory_bitwise(dev, p, m, band, local):
+    rng = np.random.default_rng(m + local)
+    q = rng.integers(1, 5, (p, m)).astype(np.int32)
+    t = np.where(rng.random(q.shape) < 0.1, rng.integers(0, 5, q.shape),
+                 q).astype(np.int32)
+    q, t = U.t(q).to(dev), U.t(t).to(dev)
+    kw = dict(band=band, local=local)
+    before = ke.banded_align.scratch_launches
+    got = ke.banded_align(q, t, **kw)
+    assert ke.banded_align.scratch_launches == before + 1
+    assert torch.equal(got, ref.banded_align(q, t, **kw))
+
+
+def test_levenshtein_past_shared_memory_bitwise(dev):
+    rng = np.random.default_rng(1000)
+    q = rng.integers(1, 5, (5, 1000)).astype(np.int32)
+    t = np.where(rng.random(q.shape) < 0.2, rng.integers(1, 5, q.shape),
+                 q).astype(np.int32)
+    q, t = U.t(q).to(dev), U.t(t).to(dev)
+    before = ke.levenshtein.scratch_launches
+    got = ke.levenshtein(q, t)
+    assert ke.levenshtein.scratch_launches == before + 1
+    assert torch.equal(got, ref.edit_distance(q, t))
+
+
 def test_fused_kernel_equals_plain_and_unfused(dev):
     cfg = bc.BasecallerConfig()
     params = bc.init(_g(6), cfg, device=dev)
@@ -145,6 +238,16 @@ def test_conv1d_int8_kernel_bitwise(dev, cin, cout, k, stride, t):
     assert kc.conv1d_int8.launches == before + 1
     assert got.dtype == torch.int32
     assert torch.equal(got, ref.conv1d_int8(x, w, stride=stride))
+
+
+@pytest.mark.parametrize("b,cin,t", [(2, 2048, 200), (2, 2047, 200),
+                                     (65_537, 8, 20)])
+def test_conv1d_int8_past_old_limits_bitwise(dev, b, cin, t):
+    """Cin past one staged slice (K 9, stride 2), packed (2048) and scalar
+    (2047) weights, and a batch past the old 65,535 grid limit."""
+    x, w = _int8((b, t, cin), 14, dev), _int8((9, cin, 64), 15, dev)
+    assert torch.equal(kc.conv1d_int8(x, w, stride=2),
+                       ref.conv1d_int8(x, w, stride=2))
 
 
 @pytest.mark.parametrize("m,k,n", [(1000, 37, 5), (300, 128, 128),
