@@ -24,16 +24,22 @@ Phases, each printing JSON lines:
    cannot address), edge shapes, and sizes the port once refused (fp32
    conv1d at Cin 512 and 65,537 batch rows, int8 conv1d at Cin 2,048, fp32
    matmul past 65,535 x 64 rows, banded_align at m = 908 and 2,048,
-   levenshtein at 1,000): max abs error
-   (bitwise for int32 outputs and for every int8 kernel; bf16 bars in the
-   ``tol`` fields), which kernel ran where a function has two
+   levenshtein at 1,000; int8 matmul at M = 4,194,305, the bf16 matmul's
+   mma.sync kernel at M = 8,388,481, flash_attention at Sq = 8,388,481
+   and ssd_scan at 65,536 heads, past the 2-D grids' y limits): max abs
+   error (bitwise for int32 outputs and for every int8 kernel; bf16 bars
+   in the ``tol`` fields), which kernel ran where a function has two
    (``variant``: conv1d on the tensor cores, 3xTF32, or the CUDA cores;
-   matmul skinny-N or tiled; banded_align in shared memory or scratch),
-   kernel, plain and library times, and the bound the card's data sheet
-   sets (conv1d also ``bound_fp32_ms``, at the CUDA cores' fp32 rate; the
-   head matmul also ``device_ms`` and ``library_device_ms``, the kernels'
-   device time by the profiler, since issuing it takes the host longer
-   than the card takes to run it).
+   matmul and matmul_int8 skinny-N or tiled; banded_align in shared
+   memory or scratch; the fused tick's layers on the tensor cores or the
+   CUDA cores), kernel, plain and library times, and the bound the card's
+   data sheet sets (conv1d and the fused tick also ``bound_fp32_ms``, at
+   the CUDA cores' fp32 rate; the fused tick ``unfused_ms``, the unfused
+   chain's six launches on the same inputs, and whether it equals them
+   bit for bit; the head matmuls also ``device_ms`` and
+   ``library_device_ms``, the kernels' device time with their launches
+   queued back to back (``device_ms``), since issuing them takes the host
+   longer than the card takes to run them).
 3. ``step_goldens``: the step-codec flowcell (8 lanes) on the card, fused
    and unfused x pipeline depth 1 and 2, and once on the CPU (plain): all
    five per-read goldens must be equal; once with fp32 params, once with
@@ -45,10 +51,11 @@ Phases, each printing JSON lines:
    differing read is allowed only where the plain logits' top-2 margin on
    its evidence is < 1e-4); the unfused run's conv2-conv5 on the
    tensor-core conv1d (4 launches a step) and every head on the skinny
-   matmul.  Then ``edge_int8`` at the same width, with
-   the same CNN calibrated once by ``quantize_edge_params``: the same
-   metrics, goldens fused == unfused with no exception, and three ticks on
-   8 lanes equal to the CPU's plain run bit for bit.
+   matmul, every fused step with 4 conv layers on the tensor cores.  Then
+   ``edge_int8`` at the same width, with the same CNN calibrated once by
+   ``quantize_edge_params``: the same metrics, goldens fused == unfused
+   with no exception, every unfused head on the skinny int8 matmul, and
+   three ticks on 8 lanes equal to the CPU's plain run bit for bit.
 5. ``basecall``: the ``basecall`` workload, ``default`` and ``edge_int8``,
    at batch 16 x chunk 2048 on the card and on the CPU (plain): int8 reads
    equal; a float read may differ only where every frame whose class
@@ -78,7 +85,10 @@ Phases, each printing JSON lines:
    counted from 0 just before each path and read just after it
    (``matmul_bf16`` also with ``wgmma_launches``, those on its wgmma
    kernel; ``conv1d`` with ``tc_launches`` and ``bound_fp32_ms``;
-   ``matmul`` with ``skinny_launches``).
+   ``matmul`` with ``skinny_launches``; ``matmul_int8`` with
+   ``skinny_launches``, ``device_ms`` and ``library_device_ms``;
+   ``fused_stream`` with ``tc_launches``, ``tc_layers``, ``device_ms``,
+   ``unfused_ms``, ``unfused_device_ms`` and ``bound_fp32_ms``).
 
 TF32 is off for the whole run (``torch.backends.cuda.matmul.allow_tf32``
 and ``torch.backends.cudnn.allow_tf32``): the plain versions and the
@@ -174,17 +184,28 @@ def time_ms(torch, fn, reps: int = 20, warm: int = 3) -> float:
 
 
 def device_ms(torch, fn, reps: int = 20) -> float:
-    """Mean device time of the kernels ``fn`` launches, by the profiler:
-    where the host takes longer to issue a launch than the card to run
-    it, the event timing of ``time_ms`` reads the host."""
-    from torch.profiler import ProfilerActivity, profile
+    """Mean device time of one call of ``fn``, its launches run back to
+    back: they are queued behind a kernel that sleeps for three times the
+    host's time to issue them, so the events time the card and not the
+    host, where issuing a launch takes longer than running it (the event
+    timing of ``time_ms``).  The profiler is not used: over many launches
+    it can drop records."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.key_averages()) / reps / 1e3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(3 * host_s * 2e9) + 1_000_000)  # cycles, ~2 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
 
 
 def nbytes(*ts) -> int:
@@ -401,14 +422,28 @@ def top2_margin(torch, logits):
 
 def check_fused(torch, bc, peaks, table, params, cfg, inputs, label,
                 on_path):
-    """Fused kernel vs its plain twin (and, bit for bit, vs the unfused
-    kernels).  Tokens/lens/prev/bases/ticks must be equal wherever the
-    plain logits' top-2 margin is >= 1e-4; carries within STACK_TOL."""
+    """Fused kernel vs its plain twin and vs the unfused kernels.
+    Tokens/lens/prev/bases/ticks must be equal wherever the plain logits'
+    top-2 margin is >= 1e-4; carries within STACK_TOL.  ``variant`` gives
+    each layer's kernel inside the fused one (``tensor_cores``: 3xTF32, or
+    ``cuda_cores``); whether the fused carries and tokens equal the unfused
+    kernels' bit for bit is reported, not required.  On the path: kernel,
+    device, plain and unfused (five conv1d launches and the head on the
+    same inputs) times, ``bound_ms`` at the rate of the kernel each layer
+    runs and ``bound_fp32_ms`` at the CUDA cores' fp32 rate."""
     from repro_torch.core import ctc
     from repro_torch.kernels import fused_stream as fs
     rows, pads, reset, prev, bases, ticks, conv = inputs
     args = (rows, pads, reset, prev, bases, ticks, conv, params)
+    specs = bc.stream_layer_specs(cfg)
+    before = (fs.fused_stream_cuda.tc_launches, fs.fused_stream_cuda.tc_layers)
     tok, lens, lane = fs.fused_stream_cuda(*args, cfg=cfg)
+    tc_layers = fs.fused_stream_cuda.tc_layers - before[1]
+    require(fs.fused_stream_cuda.tc_launches - before[0] == (tc_layers > 0),
+            f"fused_stream {label}: tc_launches miscounted")
+    tc = [fs.on_tensor_cores(sp) for sp in specs]
+    require(tc_layers == sum(tc), f"fused_stream {label}: {tc_layers} layers "
+            f"on the tensor cores, the predicate says {sum(tc)}")
     tok_p, lens_p, lane_p = fs._fused_reference(*args, cfg=cfg)
     torch.cuda.synchronize()
     logits = plain_logits(torch, bc, params, cfg, rows, reset, conv)
@@ -425,56 +460,94 @@ def check_fused(torch, bc, peaks, table, params, cfg, inputs, label,
     carry_ok = all(torch.allclose(a, b, rtol=STACK_TOL, atol=STACK_TOL)
                    for a, b in zip(lane["conv"], lane_p["conv"]))
     # the unfused kernels on the same inputs: the same tokens except where
-    # the plain logits nearly tie (the paper CNN's conv2-conv5 run 3xTF32
-    # on the tensor cores and sum in another order; the step codec's
-    # layers keep the fused kernel's fmaf order, bit for bit)
+    # the plain logits nearly tie
     from repro_torch.kernels import conv1d as kc
     from repro_torch.kernels import matmul as km
     rmask = reset > 0
     x = rows[..., None]
-    for i, sp in enumerate(bc.stream_layer_specs(cfg)):
+    layer_in, carries_u = [], []
+    for i, sp in enumerate(specs):
         p = params[sp.name]
         if sp.is_head:
             b, t, c = x.shape
-            x = km.matmul(x.reshape(b * t, c).contiguous(), p["w"][0],
-                          p["b"]).reshape(b, t, sp.cout)
+            xin = x.reshape(b * t, c).contiguous()
+            layer_in.append(xin)
+            x = km.matmul(xin, p["w"][0], p["b"]).reshape(b, t, sp.cout)
+            carries_u.append(conv[i])
         else:
             carry = torch.where(rmask[:, None, None], 0.0, conv[i])
-            x = kc.conv1d(torch.cat([carry, x], 1).contiguous(), p["w"],
-                          p["b"], stride=sp.stride, activation=sp.activation)
+            xin = torch.cat([carry, x], 1).contiguous()
+            layer_in.append(xin)
+            carries_u.append(xin[:, xin.shape[1] - sp.carry_rows:])
+            x = kc.conv1d(xin, p["w"], p["b"], stride=sp.stride,
+                          activation=sp.activation)
     prev0 = torch.where(rmask, 0, prev)
     tok_u, lens_u, _ = ctc.greedy_decode_stream(x, prev0, pads)
     unfused_diff = (tok_u != tok).any(dim=1) | (lens_u != lens)
     unfused_bad = int((unfused_diff & ~near_tie_lanes).sum().item())
     line = {"phase": "kernel", "kernel": "fused_stream", "shape": label,
             "lanes": rows.shape[0], "chunk": rows.shape[1],
+            "variant": {sp.name: "tensor_cores" if t else "cuda_cores"
+                        for sp, t in zip(specs, tc)},
             "int_lanes_differing": int(int_diff.sum().item()),
             "int_lanes_differing_above_margin": bad_lanes,
             "near_tie_lanes": int(near_tie_lanes.sum().item()),
             "carry_max_abs_err": carry_err, "carry_tol": STACK_TOL,
             "unfused_lanes_differing": int(unfused_diff.sum().item()),
             "unfused_lanes_differing_above_margin": unfused_bad,
+            "carries_equal_unfused_bitwise": all(
+                torch.equal(a, b) for a, b in zip(lane["conv"], carries_u)),
+            "tokens_equal_unfused_bitwise": bool(
+                torch.equal(tok_u, tok) and torch.equal(lens_u, lens)),
             "frames_class_mismatch_vs_plain": int(
                 ((classes != ctc.argmax_classes(x)) & (pads <= 0)).sum())}
     if on_path:
-        ms = time_ms(torch, lambda: fs.fused_stream_cuda(*args, cfg=cfg))
+        def fused():
+            fs.fused_stream_cuda(*args, cfg=cfg)
+
+        def unfused():
+            for sp, xin in zip(specs, layer_in):
+                p = params[sp.name]
+                if sp.is_head:
+                    km.matmul(xin, p["w"][0], p["b"])
+                else:
+                    kc.conv1d(xin, p["w"], p["b"], stride=sp.stride,
+                              activation=sp.activation)
+        ms = time_ms(torch, fused)
+        unfused_ms = time_ms(torch, unfused)
         plain = time_ms(torch, lambda: fs._fused_reference(*args, cfg=cfg),
                         reps=5)
         lanes, chunk = rows.shape
-        macs, t = 0, chunk
+        flop = {True: 0.0, False: 0.0}
+        t = chunk
         weights = []
-        for sp in bc.stream_layer_specs(cfg):
+        for sp, on_tc in zip(specs, tc):
             t //= sp.stride
-            macs += lanes * t * sp.cout * sp.ksize * sp.cin
+            flop[on_tc] += 2.0 * lanes * t * sp.cout * sp.ksize * sp.cin
             weights += [params[sp.name]["w"], params[sp.name]["b"]]
         io = nbytes(rows, pads, reset, prev, bases, ticks, *conv, *weights,
                     tok, lens, *lane["conv"], lane["prev_class"],
                     lane["bases"], lane["ticks"])
-        bnd, by = bound_ms(peaks, io, 2.0 * macs)
-        line.update(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bnd,
-                    bound_by=by, gflop=2.0 * macs / 1e9)
+        # the least time at each layer's rate: operations add across the
+        # two rates, against the bytes of the whole tick
+        t_ops = (bound_ms(peaks, 0, flop[True], tf32x3=True)[0]
+                 + bound_ms(peaks, 0, flop[False])[0])
+        t_io = bound_ms(peaks, io, 0)[0]
+        bnd, by = max(t_ops, t_io), ("operations" if t_ops >= t_io
+                                     else "bytes")
+        bnd32, _ = bound_ms(peaks, io, flop[True] + flop[False])
+        line.update(ms=ms, device_ms=device_ms(torch, fused),
+                    unfused_ms=unfused_ms,
+                    unfused_device_ms=device_ms(torch, unfused),
+                    plain_ms=plain, library_ms=None, bound_ms=bnd,
+                    bound_by=by, bound_fp32_ms=bnd32,
+                    gflop=(flop[True] + flop[False]) / 1e9,
+                    gflop_tensor_cores=flop[True] / 1e9)
         table.add("fused_stream", err=carry_err, ms=ms, plain_ms=plain,
-                  bound=bnd, bound_by=by, library_ms=None)
+                  bound=bnd, bound_by=by, library_ms=None, bound_fp32=bnd32)
+        table.rows["fused_stream"].update(
+            device_ms=line["device_ms"], unfused_ms=unfused_ms,
+            unfused_device_ms=line["unfused_device_ms"])
     emit(line)
     require(bad_lanes == 0, f"fused_stream {label}: {bad_lanes} lanes differ "
             "from the plain version away from a near tie")
@@ -515,17 +588,23 @@ def check_conv1d_int8(torch, peaks, table, x, w, stride, label, on_path):
 
 
 def check_matmul_int8(torch, peaks, table, a, w, label, on_path):
-    """int8 GEMM kernel vs its plain version, bitwise.  The library call is
-    torch._int_mm (cuBLASLt), which needs N % 8 == 0: N is zero-padded to 8
-    for it."""
+    """int8 GEMM kernel vs its plain version, bitwise; ``variant`` says
+    which kernel ran (``skinny`` for N <= 8, else ``tiled``).  The library
+    call is torch._int_mm (cuBLASLt), which needs N % 8 == 0: N is
+    zero-padded to 8 for it.  On a path also ``device_ms`` and
+    ``library_device_ms`` (``device_ms``): the host takes longer to issue
+    the launch than the card to run it."""
     from repro_torch.kernels import matmul as km
     from repro_torch.kernels import ref
+    before = km.matmul_int8.skinny_launches
     out = km.matmul_int8(a, w)
+    thin = km.matmul_int8.skinny_launches > before
     want = ref.matmul_int8(a, w)
     torch.cuda.synchronize()
     diff = int((out != want).sum().item())
     line = {"phase": "kernel", "kernel": "matmul_int8", "shape": label,
             "a": list(a.shape), "b": list(w.shape),
+            "variant": "skinny" if thin else "tiled",
             "elements_differing": diff}
     if on_path:
         ms = time_ms(torch, lambda: km.matmul_int8(a, w))
@@ -544,10 +623,16 @@ def check_matmul_int8(torch, peaks, table, a, w, label, on_path):
         line.update(ms=ms, plain_ms=plain, library_ms=lib,
                     library_call=f"torch._int_mm, N padded {n} -> "
                                  f"{wpad.shape[1]}",
-                    bound_ms=bnd, bound_by=by)
+                    bound_ms=bnd, bound_by=by,
+                    device_ms=device_ms(torch, lambda: km.matmul_int8(a, w)),
+                    library_device_ms=device_ms(
+                        torch, lambda: torch._int_mm(a, wpad)))
         if on_path == "tick":
             table.add("matmul_int8", err=diff, ms=ms, plain_ms=plain,
                       bound=bnd, bound_by=by, library_ms=lib)
+            table.rows["matmul_int8"]["device_ms"] = line["device_ms"]
+            table.rows["matmul_int8"]["library_device_ms"] = line[
+                "library_device_ms"]
     emit(line)
     require(diff == 0, f"matmul_int8 {label}: {diff} outputs differ")
 
@@ -819,6 +904,83 @@ def phase_kernels_limits(torch, F, peaks, table, gen):
           if ke.levenshtein.scratch_launches > before else "shared_memory",
           "mismatches": diff})
     require(diff == 0, f"levenshtein at m=n=1000: {diff} distances differ")
+    phase_grid_limits(torch, gen)
+
+
+def phase_grid_limits(torch, gen):
+    """Sizes past the 2-D grids' y limits that four kernels once had and
+    JAX does not: int8 matmul at M = 4,194,305 (N 5 skinny, N 64 tiled;
+    bitwise), the bf16 matmul's mma.sync kernel at M = 8,388,481 (K 12,
+    which TMA cannot address; one bf16 ulp of max |out|), flash attention
+    at Sq = 8,388,481 against 128 keys (the first, middle and last 512
+    rows within the flash bar) and ssd_scan at B * H = 65,536 heads (the
+    first, middle and last 512 heads within SSD_TOL)."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import matmul as km
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as kssd
+    dev = torch.device("cuda")
+    g = torch.Generator(dev).manual_seed(11)
+    a = torch.randint(-127, 128, (4_194_305, 128), generator=g, device=dev,
+                      dtype=torch.int8)
+    for n in (5, 64):
+        w = torch.randint(-127, 128, (128, n), generator=g, device=dev,
+                          dtype=torch.int8)
+        check_matmul_int8(torch, None, None, a, w,
+                          f"limit M=4194305 K=128 N={n}", False)
+    del a
+    a = torch.randn((8_388_481, 12), generator=g, device=dev).bfloat16()
+    w = torch.randn((12, 8), generator=g, device=dev).bfloat16()
+    before = km.matmul_bf16.wgmma_launches
+    out = km.matmul_bf16(a, w)
+    ran = "wgmma" if km.matmul_bf16.wgmma_launches > before else "mma.sync"
+    want = ref.matmul(a, w)
+    err = (out.float() - want.float()).abs().max().item()
+    tol = bf16_ulp(want.float().abs().max().item())
+    emit({"phase": "kernel", "kernel": "matmul_bf16",
+          "shape": "limit M=8388481 K=12 N=8", "variant": ran,
+          "max_abs_err": err, "tol": tol})
+    require(ran == "mma.sync" and err <= tol,
+            f"matmul_bf16 at M=8388481: {ran}, max abs err {err} over {tol}")
+    del a, out, want
+    sq = 8_388_481
+    q = torch.randn((1, 1, sq, 64), generator=g, device=dev).bfloat16()
+    k = torch.randn((1, 1, 128, 64), generator=g, device=dev).bfloat16()
+    v = torch.randn((1, 1, 128, 64), generator=g, device=dev).bfloat16()
+    out = kfa.flash_attention(q, k, v, causal=False)
+    excess = 0.0
+    for r in (0, sq // 2 - LM_ROWS // 2, sq - LM_ROWS):
+        qq = q[:, :, r:r + LM_ROWS]
+        excess = max(excess, flash_excess(
+            out[:, :, r:r + LM_ROWS], ref.attention(qq, k, v, causal=False),
+            ref.attention(qq, k, v.abs(), causal=False)))
+    emit({"phase": "kernel", "kernel": "flash_attention",
+          "shape": "limit B=H=1 Sq=8388481 Skv=128 D=64 not causal",
+          "checked_rows": [f"first {LM_ROWS}", f"middle {LM_ROWS}",
+                           f"last {LM_ROWS}"],
+          "err_over_bar": excess, "tol": FA_RULE})
+    require(excess <= 1.0, f"flash_attention at Sq=8388481: error {excess} "
+            "x its bar")
+    del q, out
+    bh = 65_536
+    x = torch.randn((bh, 64, 16), generator=g, device=dev) * 0.5
+    la = -torch.nn.functional.softplus(torch.randn((bh, 64), generator=g,
+                                                   device=dev))
+    b = torch.randn((bh, 64, 16), generator=g, device=dev) * 0.3
+    c = torch.randn((bh, 64, 16), generator=g, device=dev) * 0.3
+    y = kssd.ssd_scan(x, la, b, c, chunk=32)
+    err = 0.0
+    for h in (0, bh // 2 - 256, bh - 512):
+        part = slice(h, h + 512)
+        want = ref.ssd_scan(x[part], la[part], b[part], c[part])[0]
+        err = max(err, (y[part] - want).abs().max().item())
+    emit({"phase": "kernel", "kernel": "ssd_scan",
+          "shape": "limit BH=65536 T=64 ds=dh=16 chunk 32",
+          "checked_heads": ["first 512", "middle 512", "last 512"],
+          "max_abs_err": err, "tol": SSD_TOL})
+    require(err <= SSD_TOL, f"ssd_scan at BH=65536: max abs err {err}")
+    del x, la, b, c, y
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------- phase 3 --
@@ -968,21 +1130,41 @@ def phase_full_width(torch):
 
 
 def unfused_launches(counts, ticks):
-    """The unfused fp32 tick's conv1d and matmul launches: conv2-conv5 on
-    the tensor-core kernel (4 a step), conv1 on the CUDA cores, and every
-    head (one a step) on the skinny-N matmul.  ``ticks`` counts the busy
-    ticks only; a step runs 5 convs and one head."""
+    """The fp32 ticks' launches: unfused, conv2-conv5 on the tensor-core
+    conv1d (4 a step), conv1 on the CUDA cores, and every head (one a step)
+    on the skinny-N matmul; fused, every step with its 4 conv layers on the
+    tensor cores.  ``ticks`` counts the busy ticks only; a step runs 5
+    convs and one head."""
     conv, tc = counts.get("conv1d", 0), counts.get("conv1d_tc", 0)
     mm, thin = counts.get("matmul", 0), counts.get("matmul_skinny", 0)
+    fused = counts.get("fused_stream", 0)
+    ftc = counts.get("fused_stream_tc", 0)
+    ftc_layers = counts.get("fused_stream_tc_layers", 0)
     emit({"phase": "full_width_launches", "path": "flowcell_512",
-          "fused": False, "busy_ticks": ticks, "steps": mm, "conv1d": conv,
+          "busy_ticks": ticks, "steps": mm, "conv1d": conv,
           "conv1d_tc": tc, "matmul": mm, "matmul_skinny": thin,
-          "conv1d_tc_per_step": tc / max(mm, 1)})
+          "conv1d_tc_per_step": tc / max(mm, 1), "fused_stream": fused,
+          "fused_stream_tc": ftc,
+          "fused_tc_layers_per_step": ftc_layers / max(fused, 1)})
     require(conv > 0 and 5 * tc == 4 * conv,
             f"flowcell_512 unfused: {tc} of {conv} conv1d launches on the "
             "tensor cores, not 4 of every 5")
     require(mm > 0 and thin == mm,
             f"flowcell_512 unfused: {thin} of {mm} head matmuls skinny")
+    require(fused > 0 and ftc == fused and ftc_layers == 4 * fused,
+            f"flowcell_512 fused: {ftc} of {fused} steps with conv layers on "
+            f"the tensor cores, {ftc_layers} such layers, not 4 a step")
+
+
+def int8_head_launches(counts):
+    """Every unfused edge_int8 head on the skinny-N int8 matmul (the fused
+    int8 tick launches no matmul_int8)."""
+    mm = counts.get("matmul_int8", 0)
+    thin = counts.get("matmul_int8_skinny", 0)
+    emit({"phase": "full_width_launches", "path": "edge_int8",
+          "matmul_int8": mm, "matmul_int8_skinny": thin})
+    require(mm > 0 and thin == mm,
+            f"edge_int8 unfused: {thin} of {mm} head matmul_int8 skinny")
 
 
 def int8_engine(cfg, qparams, fused):
@@ -2080,10 +2262,15 @@ def launch_counters():
             "ssd_scan": (ssd_scan.ssd_scan, "launches"),
             "matmul_bf16": (matmul.matmul_bf16, "launches"),
             # the launches of matmul_bf16 that ran its wgmma kernel, of
-            # conv1d its tensor-core kernel, of matmul its skinny-N kernel
+            # conv1d its tensor-core kernel, of matmul and matmul_int8 their
+            # skinny-N kernels, of fused_stream (fp32) conv layers on the
+            # tensor cores, and those layers
             "matmul_bf16_wgmma": (matmul.matmul_bf16, "wgmma_launches"),
             "conv1d_tc": (conv1d.conv1d, "tc_launches"),
-            "matmul_skinny": (matmul.matmul, "skinny_launches")}
+            "matmul_skinny": (matmul.matmul, "skinny_launches"),
+            "matmul_int8_skinny": (matmul.matmul_int8, "skinny_launches"),
+            "fused_stream_tc": (fs, "tc_launches"),
+            "fused_stream_tc_layers": (fs, "tc_layers")}
 
 
 class PathLaunches:
@@ -2181,6 +2368,7 @@ def main() -> int:
                 ("conv1d_int8", "matmul_int8", "fused_stream_int8",
                  "banded_align"),
                 lambda: phase_full_width_int8(torch, cfg, qparams))
+    int8_head_launches(paths.paths["edge_int8 full width"])
     int8_ticks_vs_cpu(torch, cfg, qparams)
 
     import repro_torch.engine as te
@@ -2219,6 +2407,21 @@ def main() -> int:
             kernels[-1]["bound_fp32_ms"] = r["bound_fp32_ms"]
         if k == "matmul":
             kernels[-1]["skinny_launches"] = paths.total["matmul_skinny"]
+        if k == "matmul_int8":
+            kernels[-1].update(
+                skinny_launches=paths.total["matmul_int8_skinny"],
+                device_ms=r["device_ms"],
+                library_device_ms=r["library_device_ms"])
+        if k == "fused_stream":
+            # launches with conv layers on the tensor cores, their device
+            # time, the unfused chain's kernels on the same inputs, and the
+            # bound at the CUDA cores' fp32 rate
+            kernels[-1].update(
+                tc_launches=paths.total["fused_stream_tc"],
+                tc_layers=paths.total["fused_stream_tc_layers"],
+                device_ms=r["device_ms"], unfused_ms=r["unfused_ms"],
+                unfused_device_ms=r["unfused_device_ms"],
+                bound_fp32_ms=r["bound_fp32_ms"])
         if k == "banded_align":
             # the pathogen panel compare's shape, beside the mapper's
             kernels[-1]["firehose"] = firehose

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Design alternatives of the port's redesigned kernels, timed against the
 sound kernels on one card: the two wgmma kernels at the LM prefill's
-shapes, the tensor-core conv1d at the flowcell tick's.
+shapes, the tensor-core conv1d and the fused fp32 tick at the flowcell
+tick's.
 
-    python3 scripts/kernel_variants.py [--reps 3] [--only gemm|flash|conv]
+    python3 scripts/kernel_variants.py [--reps 3]
+        [--only gemm|flash|conv|fused] [--variants NAME,...]
 
 Each variant is a patched copy of ``src/repro_torch/kernels/csrc`` built
 under ``build/variants/<name>/`` (the checkout's sources are not touched)
@@ -35,6 +37,29 @@ the paper's CNN, stream carries):
   stages_3          a 3-stage cp.async ring (one block an SM, not two)
   one_sum           every product summed on the tensor cores into one
                     accumulator, with no per-slice partial sums
+
+``fused_stream`` variants run the whole tick (512 lanes x chunk 256, the
+paper's CNN: fp32, conv2-conv5 on the tensor cores, and its edge_int8
+form, whose kernel the switches below leave as it is):
+
+  ring_2            B through a two-stage cp.async ring of raw weight
+                    slices in shared memory (one lane an SM), not from L2
+  ring_1            the same ring with one stage
+  cvt_split         the 3xTF32 split by cvt.rna.tf32 (mma.cuh split_tf32),
+                    not by integer adds and masks
+  warps_16          sixteen warps a block (at most 3 n-tiles a warp), one
+                    block an SM
+  nt_3              at most 3 n-tiles of 8 channels a warp, not 4
+
+and, for timing what each part of the work costs (their results are
+wrong, and say so in ``lanes_differing_above_margin``):
+
+  tf32x1            hi x hi only, one product a k-step
+  no_split          operands fed whole as hi and lo, no split
+  b_smem            B read from shared memory, not L2
+  tc_only           the CUDA-core layers (conv1, the head), argmax and
+                    collapse skipped
+  a_once            A loaded (and so split) at each slice's first tap only
 
 Every variant but ``no_epilogue`` is also held to the plain version
 (``max_abs_err``).  Rounds of all variants repeat ``--reps`` times, the
@@ -118,6 +143,31 @@ FLASH = {
          "      wgmma_commit();\n      if (wg == 0 || kb < last_k) "
          + PP_ARRIVE + "      fence_regs(o);")],
 }
+FUSED = {
+    "ring_2": [("constexpr int FS_STAGES = 0;",
+                "constexpr int FS_STAGES = 2;")],
+    "ring_1": [("constexpr int FS_STAGES = 0;",
+                "constexpr int FS_STAGES = 1;")],
+    "cvt_split": [("constexpr int FS_SPLIT = 1;",
+                   "constexpr int FS_SPLIT = 0;")],
+    "warps_16": [("constexpr int FS_WARPS = 8;",
+                  "constexpr int FS_WARPS = 16;"),
+                 ("constexpr int FS_MAX_NT = 4;",
+                  "constexpr int FS_MAX_NT = 3;")],
+    "nt_3": [("constexpr int FS_MAX_NT = 4;", "constexpr int FS_MAX_NT = 3;")],
+    "tf32x1": [("constexpr int FS_PASSES = 3;",
+                "constexpr int FS_PASSES = 1;")],
+    "no_split": [("constexpr int FS_SPLIT = 1;",
+                  "constexpr int FS_SPLIT = 2;")],
+    "b_smem": [("constexpr bool FS_B_SMEM_TIMING = false;",
+                "constexpr bool FS_B_SMEM_TIMING = true;")],
+    "tc_only": [("constexpr bool FS_TC_ONLY_TIMING = false;",
+                 "constexpr bool FS_TC_ONLY_TIMING = true;")],
+    "a_once": [("constexpr bool FS_A_ONCE_TIMING = false;",
+                "constexpr bool FS_A_ONCE_TIMING = true;")],
+}
+# the ring stages each variant's shared-memory plan reserves
+FUSED_RING = {"ring_2": 2, "ring_1": 1}
 CONV = {
     "tf32x1": [("constexpr int TC_PASSES = 3;", "constexpr int TC_PASSES = 1;")],
     "split_x_at_staging": [
@@ -239,6 +289,39 @@ def conv_round(torch, cs, build, variants, layers):
         emit(line)
 
 
+def fused_round(torch, cs, build, variants, cfg, params, qparams, inputs):
+    """The fused tick on each variant: fp32 tokens against the plain
+    version away from near ties (as chip_smoke.check_fused), carries' max
+    abs error, event and device ms; the int8 tick's ms."""
+    from repro_torch.core import basecaller as bc
+    from repro_torch.kernels import fused_stream as fs
+    rows, pads, reset, prev, bases, ticks, conv = inputs
+    args = (rows, pads, reset, prev, bases, ticks, conv, params)
+    qargs = (*args[:-1], qparams)
+    tok_p, lens_p, lane_p = fs._fused_reference(*args, cfg=cfg)
+    logits = cs.plain_logits(torch, bc, params, cfg, rows, reset, conv)
+    tie = ((cs.top2_margin(torch, logits) < 1e-4) & (pads <= 0)).any(dim=1)
+    for name, csrc in variants:
+        use(build, name, csrc)
+        fs.RING_STAGES = FUSED_RING.get(name, 0)
+        fs._launch_meta.cache_clear()  # the plan depends on RING_STAGES
+        tok, lens, lane = fs.fused_stream_cuda(*args, cfg=cfg)
+        differ = (tok != tok_p).any(dim=1) | (lens != lens_p)
+        emit({"phase": "variant", "kernel": "fused_stream", "variant": name,
+              "lanes_differing_above_margin": int((differ & ~tie).sum()),
+              "carry_max_abs_err": max(
+                  (a - b).abs().max().item()
+                  for a, b in zip(lane["conv"], lane_p["conv"]) if a.numel()),
+              "ms": cs.time_ms(
+                  torch, lambda: fs.fused_stream_cuda(*args, cfg=cfg)),
+              "device_ms": cs.device_ms(
+                  torch, lambda: fs.fused_stream_cuda(*args, cfg=cfg)),
+              "int8_ms": cs.time_ms(
+                  torch, lambda: fs.fused_stream_cuda(*qargs, cfg=cfg))})
+    fs.RING_STAGES = 0
+    fs._launch_meta.cache_clear()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -246,9 +329,13 @@ def main() -> int:
         return 2
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--only", choices=("gemm", "flash", "conv"))
+    ap.add_argument("--variants", default="",
+                    help="comma-separated variant names to run (all if "
+                         "empty); the sound kernel always runs")
+    ap.add_argument("--only", choices=("gemm", "flash", "conv", "fused"))
     args = ap.parse_args()
-    runs = {args.only} if args.only else {"gemm", "flash", "conv"}
+    runs = ({args.only} if args.only
+            else {"gemm", "flash", "conv", "fused"})
     sys.path.insert(0, os.path.join(ROOT, "src"))
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
@@ -268,6 +355,10 @@ def main() -> int:
     conv = [("sound", sound)] + [
         (n, variant_csrc(sound, f"conv1d_{n}", "conv1d.cu", p))
         for n, p in CONV.items()]
+    pick = set(filter(None, args.variants.split(",")))
+    fused = [("sound", sound)] + [
+        (n, variant_csrc(sound, f"fused_{n}", "fused_stream.cu", p))
+        for n, p in FUSED.items() if not pick or n in pick]
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(3)
     cfg = ARCHS["qwen3-4b"].config()
@@ -289,6 +380,15 @@ def main() -> int:
     want = ref.attention(q, k, v, causal=True)
     abs_attn = ref.attention(q, k, v.abs(), causal=True)
     layers = conv_layers(torch, dev)
+    from repro_torch.core import basecaller as bc
+    fcfg = bc.BasecallerConfig()
+    from repro_torch.engine.base import quantize_edge_params
+    fparams = bc.init(torch.Generator().manual_seed(0), fcfg, device="cpu")
+    fqparams = bc.params_to(quantize_edge_params(fparams, fcfg, chunk=512),
+                            dev)
+    fparams = bc.params_to(fparams, dev)
+    finputs = cs.fused_inputs(torch, bc, fcfg, 512, 256,
+                              torch.Generator().manual_seed(1), dev)
     for rnd in range(args.reps):
         emit({"phase": "round", "round": rnd})
         if "gemm" in runs:
@@ -297,6 +397,9 @@ def main() -> int:
             flash_round(torch, cs, _build, flash, q, k, v, want, abs_attn)
         if "conv" in runs:
             conv_round(torch, cs, _build, conv, layers)
+        if "fused" in runs:
+            fused_round(torch, cs, _build, fused, fcfg, fparams, fqparams,
+                        finputs)
     use(_build, "sound", sound)
     F = torch.nn.functional
     lib = {}

@@ -109,16 +109,18 @@ def ptxas_summary(log: str) -> dict:
 
 def _demangle(name: str) -> str:
     """``_Z22flash_attention_kernelILi128EEv...`` -> ``flash_attention_
-    kernel<128>``: the name and its integer template arguments."""
+    kernel<128>``: the name and its integer and bool template arguments."""
     m = re.match(r"_Z(\d+)", name)
     if not m:
         return name
     start = m.end()
     base = name[start:start + int(m.group(1))]
     rest = name[start + int(m.group(1)):]
-    args = re.match(r"I((?:Li-?\d+E)+)E", rest)
+    args = re.match(r"I((?:L[ib]-?\d+E)+)E", rest)
     if args:
-        base += "<" + ", ".join(re.findall(r"Li(-?\d+)E", args.group(1))) + ">"
+        vals = re.findall(r"L([ib])(-?\d+)E", args.group(1))
+        base += "<" + ", ".join(("true" if v == "1" else "false")
+                                if t == "b" else v for t, v in vals) + ">"
     return base
 
 

@@ -8,33 +8,98 @@
 //
 // Bound on this card: operations.  At 512 lanes x chunk 256 the paper's
 // CNN is 34.9 GFLOP per tick against ~3.5 MB of signal, carries, tokens and
-// weights.  Design: one CTA per lane, every activation in shared memory.
-// Two ping-pong buffers hold each layer's input as [carry | chunk] rows;
-// layer i writes its output at an offset of layer i+1's carry rows, so the
-// next input is [carry | output] with no copy.  The largest layer input is
-// conv2's (5 + 256) x 64 fp32, so the two buffers take ~121 KB of the 227 KB
-// a block may use (opted into with cudaFuncSetAttribute).  Weights are read
-// from global memory: the fp32 CNN is 1.84 MB and stays in L2.  Each thread
-// keeps a 4-frame x 4-channel register tile (8 x 1 where Cout % 4 != 0), so
-// one float4 weight read feeds 16 FMAs.  Sums run in the order of conv1d.cu
-// and matmul.cu (for ci: for k: fmaf), so the fused tick equals the unfused
-// kernels bit for bit.  fp32 FMAs on the CUDA cores, not TF32.
+// weights; conv2-conv5 are 34.76 GFLOP of it, 0.213 ms at three TF32
+// products a FLOP.  Design: one block per lane, every activation in shared
+// memory.  Each layer's input is [carry | chunk] rows; layer i writes its
+// output after layer i+1's carry rows, so the next input is [carry |
+// output] with no copy.  Inputs and outputs sit at the two ends of the
+// block's shared memory (layer i's input at the low end when i is even,
+// its output at the high end, the other way round when i is odd); the gap
+// between them is the layer's scratch (an int8 layer's quantized input).
+// Python computes the offsets (kernels/fused_stream.py smem_plan); the
+// largest layer, conv4 (input (7 + 128) x 96, output (8 + 64) x 192),
+// takes 105 KB, so two lanes share an SM.
+//
+// Conv layers whose channels allow it (Cin % 8 == 0, Cout % 8 == 0; the
+// paper CNN's conv2-conv5) run on the tensor cores: mma.sync.m16n8k8 TF32,
+// 3xTF32, with the arithmetic of conv1d.cu conv1d_tc_kernel: each operand
+// split hi + lo, three products a k-step (lo_a hi_b, hi_a lo_b, hi_a hi_b),
+// each slice of 8 input channels summed over all K taps into fresh
+// registers that are added to the running sum once per slice, in fp32 (the
+// tensor cores' f32 sums do not round to nearest: one accumulator over the
+// 448-1,728 terms of a reduction misses the fp32 bar).  Same fragments, same
+// k order, same slices, same split bits: a fused layer gives the unfused
+// kernel's bits.
+//   * Weights (the fp32 CNN is 1.84 MB and stays in L2): each warp loads
+//     its B fragments straight from L2, one tap ahead, and splits them as
+//     they arrive.  A cp.async ring of raw weight slices in shared memory
+//     (K x 8 x Cout floats a stage) would leave room for one lane an SM
+//     and ran slower (scripts/kernel_variants.py ring_2, ring_1).
+//   * Activations are too large to keep split, so A is split as its
+//     fragments load too, by integer adds and masks (split_tf32_int, the
+//     bits of cvt.rna.tf32 without the conversion pipe: cvt_split).
+//   * Activations are stored with an XOR swizzle, not padding (padding 8
+//     channels to 12 would not fit): row r of a layer with stride s keeps
+//     its channel c at c ^ (((r / s) & m) << 2), m = 7 (Cin % 32 == 0),
+//     3 or 1.  The 8 frames of an A fragment read rows r = t*s + k for 8
+//     consecutive t, so r / s runs over 8 consecutive values and the
+//     fragment's 32 loads hit 32 banks at either stride.  Each layer's
+//     epilogue (and each carry written in) stores in the layout of the
+//     layer that reads it; carries going out are read back through it and
+//     written to global memory plainly.
+//   * Tiling: one lane is M = t_out frames (64-128) x N = Cout (64-192).
+//     Eight warps a block, two blocks an SM (128 registers a thread); a
+//     warp owns 32 frames x 8*NT channels, NT up to 4 (4, 3, 3, 4 for
+//     conv2-conv5 at chunk 256: one or two passes of the eight warps).  A
+//     tensor-core layer's input rows are padded up to whole 32-frame tiles
+//     (smem_plan), so fragment loads need no clamping; rows past t_out are
+//     computed and not stored.  mma.sync asm is never reordered, so each
+//     n-tile's products go out one product at a time over its two m-tiles
+//     (two independent MMAs back to back).
+//   * What holds it back (kernel_variants.py, the timing-only switches
+//     below): A's loads and splits (each activation is loaded and split
+//     once a tap it meets and a warp column it feeds), registers (128 a
+//     thread at two blocks an SM: the NT = 4 tiles spill), B's split, and
+//     the lane's CUDA-core work; B's loads from L2 are not (b_smem).
+// Every other layer keeps the CUDA-core code below and its fmaf order (for
+// ci: for k: fmaf, as conv1d.cu and matmul.cu): conv1 (Cin 1), the head
+// (Cout 5) and the step codec's layers, whose goldens are bitwise.
 //
 // int8 layers (the edge_int8 preset; the fused_stream_kernel<true>
-// instantiation): activations and carries stay fp32 in the ping-pong
-// buffers, and the carry is written from them before quantization, as in
+// instantiation, 512 threads): activations and carries stay fp32 in shared
+// memory, and the carry is written from them before quantization, as in
 // the Pallas body.  A quantized layer first quantizes its whole input into
-// an int8 buffer after the class buffer (conv2's 16.7 KB at chunk 256, so
-// ~139 KB in all), then MACs int8 x int8 -> int32 with __dp4a against
+// its scratch (int8), then MACs int8 x int8 -> int32 with __dp4a against
 // weights packed four input channels to a word (1/4 the fp32 bytes, read
 // from L2), and applies the epilogue fma(float(acc), act_scale * w_scale,
 // bias) with one rounding, the arithmetic of the unfused int8 path.
 #include <cstdint>
+#include <initializer_list>
 
 #include "common.cuh"
+#include "hopper.cuh"
+#include "mma.cuh"
 
 constexpr int FS_MAX_LAYERS = 8;
 constexpr int FS_QMAX = 127;
+constexpr int FS_INT8_THREADS = 512;
+constexpr int FS_WARPS = 8;              // fp32 kernel: warps a block
+constexpr int FS_THREADS = FS_WARPS * 32;
+constexpr int FS_BLOCKS = FS_WARPS >= 16 ? 1 : 2;  // fp32 blocks an SM
+constexpr int FS_STAGES = 0;    // weight ring depth; 0: B straight from L2
+// the 3xTF32 split: 0 cvt.rna (mma.cuh split_tf32), 1 integer adds and
+// masks (split_tf32_int, the same bits), 2 none (each operand fed whole as
+// hi and lo: wrong sums, for timing the split's share)
+constexpr int FS_SPLIT = 1;
+constexpr int FS_PASSES = 3;  // 3xTF32 (1: hi x hi only, under the bar)
+constexpr int FS_MAX_NT = 4;  // widest warp tile, 8 * 4 channels
+// timing only, wrong results: B read from shared memory, not L2; the
+// CUDA-core layers, argmax and collapse skipped; A loaded (and so split)
+// at a slice's first tap only
+constexpr bool FS_B_SMEM_TIMING = false;
+constexpr bool FS_TC_ONLY_TIMING = false;
+constexpr bool FS_A_ONCE_TIMING = false;
+constexpr int FS_META = 11;              // ints a layer in the meta array
 
 struct FsLayer {
   // fp32 layers: fp32 (K, cin, cout).  int8 layers: int32 words packing
@@ -47,6 +112,10 @@ struct FsLayer {
   const float* scale;      // int8 layers: act_scale * w.scale, (cout,)
   const float* act_scale;  // int8 layers: the input's calibrated scale
   int K, stride, cin, cout, act, quantized;
+  int tc;                  // on the tensor cores
+  int nt;                  // tensor-core layers: n-tiles of 8 a warp
+  int in_off, out_off, scratch_off;  // floats into shared memory
+  int sw_m;                // the input's swizzle mask (0: plain rows)
 };
 
 struct FsParams {
@@ -63,16 +132,35 @@ struct FsParams {
   int* prev_out;
   int* bases_out;
   int* ticks_out;
-  int chunk, n_frames, buf0, buf1;  // buffer sizes in floats
+  int chunk, n_frames, cls_off;  // cls_off: floats to the class buffer
 };
 
-// One conv layer of one lane: `in` holds [carry | input] rows, `o` gets
-// t_out rows.  Each thread keeps an RT x CT register tile (RT frames x CT
-// consecutive channels; CT = 4 reads its weights as one float4), and every
-// output sums in the order of conv1d.cu: for ci: for k: fmaf.
+// Row r, channel c of a layer input with `cols` channels, stride s and
+// swizzle mask m (0: plain).
+__device__ __forceinline__ int fs_idx(int r, int c, int cols, int s, int m) {
+  if (m == 0) return r * cols + c;
+  const int q = s == 1 ? r : (s == 2 ? r >> 1 : r / s);
+  return r * cols + (c ^ ((q & m) << 2));
+}
+
+// Where a layer writes frame t, channel c: the next layer's input (its
+// carry rows first, in its layout), or the logits (plain).
+struct FsOut {
+  float* p;
+  int row0, cols, s, m;
+  __device__ __forceinline__ float* at(int t, int c) const {
+    return p + fs_idx(row0 + t, c, cols, s, m);
+  }
+};
+
+// One conv layer of one lane on the CUDA cores: `in` holds [carry | input]
+// rows (plain), `o` gets t_out rows.  Each thread keeps an RT x CT register
+// tile (RT frames x CT consecutive channels; CT = 4 reads its weights as one
+// float4), and every output sums in the order of conv1d.cu: for ci: for k:
+// fmaf.
 template <int RT, int CT>
 __device__ __forceinline__ void conv_layer(const FsLayer& L, const float* in,
-                                           float* o, int t_out, int tid,
+                                           const FsOut& o, int t_out, int tid,
                                            int nt) {
   const int cin = L.cin, cout = L.cout, K = L.K, s = L.stride;
   const int groups = (t_out + RT - 1) / RT;
@@ -113,7 +201,204 @@ __device__ __forceinline__ void conv_layer(const FsLayer& L, const float* in,
       if (tl0 + j >= t_out) continue;
 #pragma unroll
       for (int c = 0; c < CT; ++c)
-        o[(tl0 + j) * cout + co + c] = activate(acc[j][c] + L.b[co + c], L.act);
+        *o.at(tl0 + j, co + c) = activate(acc[j][c] + L.b[co + c], L.act);
+    }
+  }
+}
+
+// The 3xTF32 split (mma.cuh) of v into the MMA's operands hi and lo.
+__device__ __forceinline__ void fs_split(float v, uint32_t& hi, uint32_t& lo) {
+  if constexpr (FS_SPLIT == 0)
+    split_tf32(v, hi, lo);
+  else if constexpr (FS_SPLIT == 1)
+    split_tf32_int(v, hi, lo);
+  else
+    hi = lo = __float_as_uint(v);
+}
+
+// One conv layer of one lane on the tensor cores (see the note at the top).
+// `in` holds the [carry | input] rows in this layer's swizzled layout,
+// padded to whole 32-frame tiles; `ring` is the layer's scratch.
+template <int NT>
+__device__ __forceinline__ void tc_layer(const FsLayer& L, const float* in,
+                                         float* ring, const FsOut& o,
+                                         int t_out, int tid) {
+  const int K = L.K, s = L.stride, cin = L.cin, cout = L.cout;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  const int WP = cout + 8;            // ring row pitch (floats)
+  const int stage_f = K * 8 * WP;     // one slice: K taps x 8 channels
+  const int slices = cin / 8;
+  const int ngroups = cout / (8 * NT);
+  const int items = (t_out + 31) / 32 * ngroups;
+  const int R = 8 * s * cin;          // 8 frames of input rows
+  const int swm = L.sw_m;
+  const float* w = static_cast<const float*>(L.w);
+
+  // slice sl's raw weights, row k * 8 + i = w[k][8 sl + i][:], one warp a row
+  auto stage = [&](int sl) {
+    float* dst = ring + (sl % max(FS_STAGES, 1)) * stage_f;
+    const int cq = cout / 4;
+    for (int row = warp; row < K * 8; row += FS_WARPS) {
+      const float* src =
+          w + (static_cast<size_t>(row >> 3) * cin + sl * 8 + (row & 7)) * cout;
+      for (int c = lane; c < cq; c += 32)
+        cp_async16(dst + row * WP + 4 * c, src + 4 * c, true);
+    }
+  };
+
+  for (int it0 = 0; it0 < items; it0 += FS_WARPS) {
+    const int it = it0 + warp;
+    const bool active = it < items;
+    const int tb = it / ngroups * 32;
+    const int n0 = it % ngroups * 8 * NT;
+    const float* arow = in + (tb + g) * s * cin;
+    float acc[2][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+    if constexpr (FS_STAGES > 0) {
+      __syncthreads();  // the ring's previous pass is consumed
+      if constexpr (FS_STAGES > 1) stage(0);
+      cp_async_commit();
+    }
+    for (int sl = 0; sl < slices; ++sl) {
+      const float* bb;         // B fragment b0 of n-tile 0 at tap 0
+      int tap_step, half;      // to the next tap, to b1
+      if constexpr (FS_STAGES == 0) {
+        bb = w + static_cast<size_t>(sl * 8 + t4) * cout + n0 + g;
+        tap_step = cin * cout;
+        half = 4 * cout;
+      } else {
+        if constexpr (FS_STAGES == 1) {
+          if (sl > 0) __syncthreads();  // slice sl - 1 is consumed
+          stage(sl);
+          cp_async_commit();
+        }
+        cp_async_wait<0>();
+        __syncthreads();  // slice sl landed; slice sl - 1 is consumed
+        if constexpr (FS_STAGES > 1) {
+          if (sl + 1 < slices) stage(sl + 1);
+          cp_async_commit();
+        }
+        bb = ring + (sl % max(FS_STAGES, 1)) * stage_f + t4 * WP + n0 + g;
+        tap_step = 8 * WP;
+        half = 4 * WP;
+      }
+      if (!active) continue;
+      float part[2][NT][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[mt][nt][e] = 0.f;
+      // tap k's raw fragments: A at frames tb + g (+8, +16, +24) and
+      // channels 8 sl + t4 (+4), every row of this thread with the same
+      // swizzle (r / s = frame + k / s, frames differ by multiples of 8);
+      // B at rows t4 (+4) of the tap, columns n0 + 8 nt + g
+      auto load_a = [&](int k, int kq, float (&xa)[2][4]) {  // kq = k / s
+        const int m = ((g + kq) & swm) << 2;
+        const int c0 = ((sl * 8) ^ m) | t4;
+        const float* pa = arow + k * cin + c0;
+        const float* pb = arow + k * cin + (c0 ^ 4);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          xa[mt][0] = pa[2 * mt * R];
+          xa[mt][1] = pa[(2 * mt + 1) * R];
+          xa[mt][2] = pb[2 * mt * R];
+          xa[mt][3] = pb[(2 * mt + 1) * R];
+        }
+      };
+      auto load_b = [&](int k, float (&wv)[NT][2]) {
+        const float* wb = bb + k * tap_step;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          if constexpr (FS_B_SMEM_TIMING) {
+            wv[nt][0] = in[(k * 64 + nt * 8 + lane) & 1023];
+            wv[nt][1] = in[(k * 64 + nt * 8 + lane + 32) & 1023];
+          } else if constexpr (FS_STAGES == 0) {
+            wv[nt][0] = __ldg(wb + nt * 8);
+            wv[nt][1] = __ldg(wb + half + nt * 8);
+          } else {
+            wv[nt][0] = wb[nt * 8];
+            wv[nt][1] = wb[half + nt * 8];
+          }
+        }
+      };
+      // A and B one tap ahead: tap k + 1 loads while tap k's MMAs run
+      float xa[2][4], wv[NT][2];
+      int nq = 0, nr = 0;  // (k + 1) / s and (k + 1) % s, counted up
+      load_a(0, 0, xa);
+      load_b(0, wv);
+      for (int k = 0; k < K; ++k) {
+        uint32_t ah[2][4], al[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) fs_split(xa[mt][e], ah[mt][e], al[mt][e]);
+        float wk[NT][2];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          wk[nt][0] = wv[nt][0];
+          wk[nt][1] = wv[nt][1];
+        }
+        if (++nr == s) {
+          nr = 0;
+          ++nq;
+        }
+        if (k + 1 < K) {
+          if (!FS_A_ONCE_TIMING) load_a(k + 1, nq, xa);
+          load_b(k + 1, wv);
+        }
+        // per n-tile: its B split, then each of the three products (in
+        // conv1d_tc_kernel's order) over its two m-tiles, two independent
+        // MMAs back to back
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          uint32_t bh0, bl0, bh1, bl1;
+          fs_split(wk[nt][0], bh0, bl0);
+          fs_split(wk[nt][1], bh1, bl1);
+          if constexpr (FS_PASSES == 3) {
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+              mma_tf32_1688(part[mt][nt], al[mt], bh0, bh1);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+              mma_tf32_1688(part[mt][nt], ah[mt], bl0, bl1);
+          }
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+            mma_tf32_1688(part[mt][nt], ah[mt], bh0, bh1);
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[mt][nt][e];
+    }
+    if (!active) continue;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int co = n0 + nt * 8 + 2 * t4;
+      const float b0 = L.b[co], b1 = L.b[co + 1];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int t = tb + mt * 16 + g + 8 * h;
+          if (t >= t_out) continue;
+          // c ^ mask keeps the pair (co, co + 1) adjacent
+          *reinterpret_cast<float2*>(o.at(t, co)) =
+              make_float2(activate(acc[mt][nt][2 * h] + b0, L.act),
+                          activate(acc[mt][nt][2 * h + 1] + b1, L.act));
+        }
+      }
     }
   }
 }
@@ -126,8 +411,9 @@ __device__ __forceinline__ void conv_layer(const FsLayer& L, const float* in,
 // bias), then the activation.
 template <int RT, int CT, bool PACKED>
 __device__ __forceinline__ void conv_layer_int8(const FsLayer& L,
-                                                const int8_t* q, float* o,
-                                                int t_out, int tid, int nt) {
+                                                const int8_t* q,
+                                                const FsOut& o, int t_out,
+                                                int tid, int nt) {
   const int cin = L.cin, cout = L.cout, K = L.K, s = L.stride;
   const int cw = PACKED ? cin / 4 : cin;  // elements per row
   const int groups = (t_out + RT - 1) / RT;
@@ -188,7 +474,7 @@ __device__ __forceinline__ void conv_layer_int8(const FsLayer& L,
       for (int c = 0; c < CT; ++c) {
         const float v = __fmaf_rn(__int2float_rn(acc[j][c]), L.scale[co + c],
                                   L.b[co + c]);
-        o[(tl0 + j) * cout + co + c] = activate(v, L.act);
+        *o.at(tl0 + j, co + c) = activate(v, L.act);
       }
     }
   }
@@ -207,28 +493,44 @@ __device__ __forceinline__ void quantize_rows(const float* in, int8_t* q,
 
 template <bool INT8>
 __device__ __forceinline__ void run_layer(const FsLayer& L, const float* in,
-                                          int8_t* qbuf, float* o, int t_in,
-                                          int t_out, int tid, int nt) {
-  if (INT8 && L.quantized) {
-    quantize_rows(in, qbuf, (L.K - L.stride + t_in) * L.cin, *L.act_scale,
-                  tid, nt);
-    __syncthreads();
-    const bool packed = L.cin % 4 == 0;
-    const bool wide = L.cout % 4 == 0 &&
-                      reinterpret_cast<uintptr_t>(L.w) % (packed ? 16 : 4) == 0;
-    if (packed) {
-      if (wide)
-        conv_layer_int8<4, 4, true>(L, qbuf, o, t_out, tid, nt);
-      else
-        conv_layer_int8<8, 1, true>(L, qbuf, o, t_out, tid, nt);
-    } else {
-      if (wide)
-        conv_layer_int8<4, 4, false>(L, qbuf, o, t_out, tid, nt);
-      else
-        conv_layer_int8<8, 1, false>(L, qbuf, o, t_out, tid, nt);
+                                          float* scratch, const FsOut& o,
+                                          int t_in, int t_out, int tid,
+                                          int nt) {
+  if constexpr (INT8) {
+    if (L.quantized) {
+      int8_t* qbuf = reinterpret_cast<int8_t*>(scratch);
+      quantize_rows(in, qbuf, (L.K - L.stride + t_in) * L.cin, *L.act_scale,
+                    tid, nt);
+      __syncthreads();
+      const bool packed = L.cin % 4 == 0;
+      const bool wide = L.cout % 4 == 0 &&
+                        reinterpret_cast<uintptr_t>(L.w) % (packed ? 16 : 4) == 0;
+      if (packed) {
+        if (wide)
+          conv_layer_int8<4, 4, true>(L, qbuf, o, t_out, tid, nt);
+        else
+          conv_layer_int8<8, 1, true>(L, qbuf, o, t_out, tid, nt);
+      } else {
+        if (wide)
+          conv_layer_int8<4, 4, false>(L, qbuf, o, t_out, tid, nt);
+        else
+          conv_layer_int8<8, 1, false>(L, qbuf, o, t_out, tid, nt);
+      }
+      return;
     }
-    return;
+  } else {
+    if (L.tc) {
+      switch (L.nt) {
+        case 1: tc_layer<1>(L, in, scratch, o, t_out, tid); return;
+        case 2: tc_layer<2>(L, in, scratch, o, t_out, tid); return;
+        case 3: tc_layer<3>(L, in, scratch, o, t_out, tid); return;
+        default:
+          if constexpr (FS_MAX_NT >= 4) tc_layer<4>(L, in, scratch, o, t_out, tid);
+          return;
+      }
+    }
   }
+  if constexpr (!INT8 && FS_TC_ONLY_TIMING) return;
   if (L.cout % 4 == 0 && reinterpret_cast<uintptr_t>(L.w) % 16 == 0)
     conv_layer<4, 4>(L, in, o, t_out, tid, nt);
   else
@@ -236,12 +538,11 @@ __device__ __forceinline__ void run_layer(const FsLayer& L, const float* in,
 }
 
 template <bool INT8>
-__global__ void __launch_bounds__(512) fused_stream_kernel(const FsParams p) {
-  extern __shared__ float smem[];
-  float* bufs[2] = {smem, smem + p.buf0};
-  int* cls = reinterpret_cast<int*>(smem + p.buf0 + p.buf1);
-  // int8 layers: the quantized input rows, after the class buffer
-  int8_t* qbuf = reinterpret_cast<int8_t*>(cls + p.n_frames);
+__global__ void __launch_bounds__(INT8 ? FS_INT8_THREADS : FS_THREADS,
+                                  INT8 ? 1 : FS_BLOCKS)
+fused_stream_kernel(const FsParams p) {
+  extern __shared__ __align__(16) float smem[];
+  int* cls = reinterpret_cast<int*>(smem + p.cls_off);
   const int lane = blockIdx.x;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
@@ -250,47 +551,54 @@ __global__ void __launch_bounds__(512) fused_stream_kernel(const FsParams p) {
   // layer 0 input: [carry | raw chunk]
   {
     const FsLayer& L = p.layers[0];
-    const int nc = (L.K - L.stride) * L.cin;
-    float* in = bufs[0];
+    const int s = L.stride, m = L.sw_m, cin = L.cin;
+    const int carry = L.K - s, nc = carry * cin;
+    float* in = smem + L.in_off;
     for (int i = tid; i < nc; i += nt)
-      in[i] = rst ? 0.f : L.carry_in[static_cast<size_t>(lane) * nc + i];
-    for (int i = tid; i < p.chunk * L.cin; i += nt)
-      in[nc + i] = p.rows[static_cast<size_t>(lane) * p.chunk * L.cin + i];
+      in[fs_idx(i / cin, i % cin, cin, s, m)] =
+          rst ? 0.f : L.carry_in[static_cast<size_t>(lane) * nc + i];
+    for (int i = tid; i < p.chunk * cin; i += nt)
+      in[fs_idx(carry + i / cin, i % cin, cin, s, m)] =
+          p.rows[static_cast<size_t>(lane) * p.chunk * cin + i];
   }
 
   int t_in = p.chunk;
   for (int l = 0; l < p.n_layers; ++l) {
     __syncthreads();
     const FsLayer& L = p.layers[l];
-    const float* in = bufs[l & 1];
-    float* outb = bufs[(l + 1) & 1];
+    const float* in = smem + L.in_off;
     const int carry = L.K - L.stride;
     const int cin = L.cin;
     // the next chunk's carry: the last K - stride input rows
     if (carry > 0) {
       const int nc = carry * cin;
       for (int i = tid; i < nc; i += nt)
-        L.carry_out[static_cast<size_t>(lane) * nc + i] = in[t_in * cin + i];
+        L.carry_out[static_cast<size_t>(lane) * nc + i] =
+            in[fs_idx(t_in + i / cin, i % cin, cin, L.stride, L.sw_m)];
     }
-    // the next layer's carry rows head its input buffer
-    int next_nc = 0;
+    // the next layer's carry rows head its input; this layer's output
+    // follows them, in the next layer's layout
+    FsOut o{smem + L.out_off, 0, L.cout, 1, 0};
     if (l + 1 < p.n_layers) {
       const FsLayer& N = p.layers[l + 1];
-      next_nc = (N.K - N.stride) * N.cin;
+      const int next_carry = N.K - N.stride, next_nc = next_carry * N.cin;
+      o = FsOut{smem + L.out_off, next_carry, N.cin, N.stride, N.sw_m};
       for (int i = tid; i < next_nc; i += nt)
-        outb[i] = rst ? 0.f : N.carry_in[static_cast<size_t>(lane) * next_nc + i];
+        o.p[fs_idx(i / N.cin, i % N.cin, N.cin, N.stride, N.sw_m)] =
+            rst ? 0.f
+                : N.carry_in[static_cast<size_t>(lane) * next_nc + i];
     }
-    float* o = outb + next_nc;
     const int t_out = t_in / L.stride;
-    run_layer<INT8>(L, in, qbuf, o, t_in, t_out, tid, nt);
+    run_layer<INT8>(L, in, smem + L.scratch_off, o, t_in, t_out, tid, nt);
     t_in = t_out;
   }
   __syncthreads();
 
   // argmax (first maximum), pad frames forced to BLANK
   const int F = p.n_frames;
-  const int C = p.layers[p.n_layers - 1].cout;
-  const float* logits = bufs[p.n_layers & 1];
+  const FsLayer& H = p.layers[p.n_layers - 1];
+  const int C = H.cout;
+  const float* logits = smem + H.out_off;
   for (int f = tid; f < F; f += nt) {
     int best = 0;
     float bv = logits[f * C];
@@ -307,7 +615,7 @@ __global__ void __launch_bounds__(512) fused_stream_kernel(const FsParams p) {
   __syncthreads();
 
   // incremental CTC collapse + counters (F <= a few hundred: one thread)
-  if (tid == 0) {
+  if (tid == 0 && !(FS_TC_ONLY_TIMING && !INT8)) {
     int prev = rst ? 0 : p.prev[lane];
     int n = 0;
     int* tok = p.tokens + static_cast<size_t>(lane) * F;
@@ -324,10 +632,31 @@ __global__ void __launch_bounds__(512) fused_stream_kernel(const FsParams p) {
   }
 }
 
-// meta: n_layers x (K, stride, cin, cout, act, quantized); ptrs: n_layers x
-// (w, b, carry_in, carry_out, scale, act_scale).  Both are host arrays.
-// qbytes: the int8 input buffer (0 when no layer is quantized, which runs
-// the fp32-only kernel).
+// n-tiles of 8 channels a warp for a tensor-core layer: the fewest MMAs a
+// warp over all passes of the FS_WARPS warps, then the widest tile (fewer
+// A fragments split, fewer passes over the weights).
+static int pick_nt(int cout, int t_out) {
+  const int n8 = cout / 8, mg = (t_out + 31) / 32;
+  int best = 1, cost = 1 << 30;
+  for (int nt : {1, 2, 3, 4}) {
+    if (nt > FS_MAX_NT || n8 % nt) continue;
+    const int items = mg * (n8 / nt);
+    const int c = (items + FS_WARPS - 1) / FS_WARPS * nt;
+    if (c <= cost) {
+      best = nt;
+      cost = c;
+    }
+  }
+  return best;
+}
+
+// meta: n_layers x (K, stride, cin, cout, act, quantized, tc, in_off,
+// out_off, scratch_off, sw_m); ptrs: n_layers x (w, b, carry_in,
+// carry_out, scale, act_scale).  Both are host arrays; the offsets are
+// kernels/fused_stream.py smem_plan's.  smem_bytes: the plan's total.  A
+// tensor-core layer needs cin and cout multiples of 8 (and w 16-byte
+// aligned for a ring); int8 layers run in the int8 kernel, which has no
+// tensor-core layer.
 extern "C" int launch_fused_stream(const int* meta, void* const* ptrs,
                                    int n_layers, const void* rows,
                                    const void* pads, const void* reset,
@@ -335,29 +664,42 @@ extern "C" int launch_fused_stream(const int* meta, void* const* ptrs,
                                    const void* ticks, void* tokens, void* lens,
                                    void* prev_out, void* bases_out,
                                    void* ticks_out, int lanes, int chunk,
-                                   int n_frames, int buf0, int buf1,
-                                   int qbytes, int threads, void* stream) {
+                                   int n_frames, int cls_off, int smem_bytes,
+                                   void* stream) {
   if (n_layers < 1 || n_layers > FS_MAX_LAYERS)
     return static_cast<int>(cudaErrorInvalidValue);
   FsParams p;
-  bool any_int8 = false;
+  bool any_int8 = false, any_tc = false;
+  int t = chunk;
   for (int l = 0; l < n_layers; ++l) {
     FsLayer& L = p.layers[l];
-    L.K = meta[6 * l];
-    L.stride = meta[6 * l + 1];
-    L.cin = meta[6 * l + 2];
-    L.cout = meta[6 * l + 3];
-    L.act = meta[6 * l + 4];
-    L.quantized = meta[6 * l + 5];
+    const int* m = meta + FS_META * l;
+    L.K = m[0];
+    L.stride = m[1];
+    L.cin = m[2];
+    L.cout = m[3];
+    L.act = m[4];
+    L.quantized = m[5];
+    L.tc = m[6];
+    L.in_off = m[7];
+    L.out_off = m[8];
+    L.scratch_off = m[9];
+    L.sw_m = m[10];
     L.w = ptrs[6 * l];
     L.b = static_cast<const float*>(ptrs[6 * l + 1]);
     L.carry_in = static_cast<const float*>(ptrs[6 * l + 2]);
     L.carry_out = static_cast<float*>(ptrs[6 * l + 3]);
     L.scale = static_cast<const float*>(ptrs[6 * l + 4]);
     L.act_scale = static_cast<const float*>(ptrs[6 * l + 5]);
+    t /= L.stride;
+    L.nt = L.tc ? pick_nt(L.cout, t) : 0;
+    if (L.tc && (L.cin % 8 || L.cout % 8 || L.scratch_off % 4 ||
+                 (FS_STAGES > 0 && reinterpret_cast<uintptr_t>(L.w) % 16)))
+      return static_cast<int>(cudaErrorInvalidValue);
     any_int8 = any_int8 || L.quantized;
+    any_tc = any_tc || L.tc;
   }
-  if (any_int8 && qbytes <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (any_int8 && any_tc) return static_cast<int>(cudaErrorInvalidValue);
   p.n_layers = n_layers;
   p.rows = static_cast<const float*>(rows);
   p.pads = static_cast<const float*>(pads);
@@ -372,20 +714,18 @@ extern "C" int launch_fused_stream(const int* meta, void* const* ptrs,
   p.ticks_out = static_cast<int*>(ticks_out);
   p.chunk = chunk;
   p.n_frames = n_frames;
-  p.buf0 = buf0;
-  p.buf1 = buf1;
-  const size_t smem = (static_cast<size_t>(buf0) + buf1 + n_frames) * sizeof(float) +
-                      (any_int8 ? qbytes : 0);
+  p.cls_off = cls_off;
+  const size_t smem = static_cast<size_t>(smem_bytes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (any_int8) {
     err = allow_smem(fused_stream_kernel<true>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    fused_stream_kernel<true><<<lanes, threads, smem, s>>>(p);
+    fused_stream_kernel<true><<<lanes, FS_INT8_THREADS, smem, s>>>(p);
   } else {
     err = allow_smem(fused_stream_kernel<false>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    fused_stream_kernel<false><<<lanes, threads, smem, s>>>(p);
+    fused_stream_kernel<false><<<lanes, FS_THREADS, smem, s>>>(p);
   }
   return static_cast<int>(cudaGetLastError());
 }

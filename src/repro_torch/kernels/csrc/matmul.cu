@@ -227,7 +227,8 @@ extern "C" int launch_matmul(const void* a, const void* b, const void* bias,
 }
 
 // ---------------------------------------------------------------- int8 ----
-// int8 x int8 -> int32 GEMM: the fixed-point MAC path.
+// int8 x int8 -> int32 GEMM: the fixed-point MAC path, two kernels chosen
+// by N (kernels/matmul.py skinny).
 //
 // Replaces: the int8 branch of src/repro/kernels/matmul.py::matmul (the same
 // Pallas bodies with int8 operands and an int32 accumulator).  Quantization
@@ -238,12 +239,21 @@ extern "C" int launch_matmul(const void* a, const void* b, const void* bias,
 //
 // Bound on this card: on the path (the head, M = 512 lanes x 64 frames,
 // K = 128, N = 5) bytes: 4.2 MB of int8 in and 0.66 MB of int32 out for 21
-// MMAC.  Design: the fp32 kernel's 64 x 64 tile, with K walked 32 at a
-// time and packed four to an int32 word in shared memory as it is staged
-// (byte loads, so any K, M and N work; the ragged edges stage zeros, which
-// add nothing).  Each thread keeps a 4 x 4 int32 register tile fed by
-// __dp4a, four MACs per instruction.
+// MMAC, 1.4 us at 3.35 TB/s.  N <= 8 runs matmul_int8_skinny_kernel, which
+// streams A: each thread owns one row and reads its K bytes with 16-byte
+// loads (4- or 1-byte loads where the rows are not 16- or 4-byte aligned;
+// a ragged K tail packs zeros), B is packed four K to a word into shared
+// memory once a block (K/4 x N words, 160 at the head), and N int32
+// accumulators are fed by __dp4a.  Larger N runs the tiled kernel: the
+// fp32 kernel's 64 x 64 tile, with K walked 32 at a time and packed four
+// to an int32 word in shared memory as it is staged (byte loads, so any K,
+// M and N work; the ragged edges stage zeros, which add nothing), each
+// thread a 4 x 4 int32 register tile fed by __dp4a.  Integer sums have one
+// answer: both kernels equal the plain version (and torch._int_mm) bit for
+// bit.  Both number their blocks along the grid's x only (the tiled one as
+// tile row * column tiles + tile column), so no M is too large.
 constexpr int MMI_BKW = 8;  // packed words of K per stage (32 int8)
+constexpr int MSI_ROWS = 128;  // skinny: rows per block, one per thread
 
 __device__ __forceinline__ int pack4(int8_t b0, int8_t b1, int8_t b2,
                                      int8_t b3) {
@@ -253,15 +263,107 @@ __device__ __forceinline__ int pack4(int8_t b0, int8_t b1, int8_t b2,
          static_cast<int>(static_cast<uint32_t>(static_cast<uint8_t>(b3)) << 24);
 }
 
+// VEC: bytes a load (16, 4 or 1); 16 and 4 need rows aligned to VEC
+// (K % VEC == 0 and an aligned base), so only VEC = 1 meets a K tail.
+template <int N, int VEC>
+__global__ void __launch_bounds__(MSI_ROWS)
+matmul_int8_skinny_kernel(const int8_t* __restrict__ a,
+                          const int8_t* __restrict__ b,
+                          int32_t* __restrict__ out, int M, int K) {
+  extern __shared__ int bw[];  // (ceil(K / 4), N): b[4kw .. 4kw+3, n]
+  const int kw_n = (K + 3) / 4;
+  for (int i = threadIdx.x; i < kw_n * N; i += MSI_ROWS) {
+    const int kw = i / N, n = i % N;
+    int8_t v[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (4 * kw + j < K) v[j] = b[static_cast<size_t>(4 * kw + j) * N + n];
+    bw[i] = pack4(v[0], v[1], v[2], v[3]);
+  }
+  __syncthreads();
+  const size_t m = static_cast<size_t>(blockIdx.x) * MSI_ROWS + threadIdx.x;
+  if (m >= static_cast<size_t>(M)) return;
+  const int8_t* ar = a + m * K;
+  int acc[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n) acc[n] = 0;
+  auto mac = [&](int x, int kw) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) acc[n] = __dp4a(x, bw[kw * N + n], acc[n]);
+  };
+  if constexpr (VEC == 16) {
+    const int4* a4 = reinterpret_cast<const int4*>(ar);
+    for (int i = 0; i < K / 16; ++i) {
+      const int4 v = __ldg(a4 + i);
+      mac(v.x, 4 * i);
+      mac(v.y, 4 * i + 1);
+      mac(v.z, 4 * i + 2);
+      mac(v.w, 4 * i + 3);
+    }
+  } else if constexpr (VEC == 4) {
+    const int* a1 = reinterpret_cast<const int*>(ar);
+    for (int kw = 0; kw < K / 4; ++kw) mac(__ldg(a1 + kw), kw);
+  } else {
+    for (int kw = 0; kw < kw_n; ++kw) {
+      int8_t v[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (4 * kw + j < K) v[j] = ar[4 * kw + j];
+      mac(pack4(v[0], v[1], v[2], v[3]), kw);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n) out[m * N + n] = acc[n];
+}
+
+template <int N>
+static int launch_skinny_int8(const int8_t* a, const int8_t* b, int32_t* out,
+                              int M, int K, cudaStream_t stream) {
+  const unsigned blocks = (static_cast<unsigned>(M) + MSI_ROWS - 1) / MSI_ROWS;
+  const size_t smem = static_cast<size_t>((K + 3) / 4) * N * sizeof(int);
+  const uintptr_t base = reinterpret_cast<uintptr_t>(a);
+  auto kernel = (K % 16 == 0 && base % 16 == 0)
+                    ? matmul_int8_skinny_kernel<N, 16>
+                : (K % 4 == 0 && base % 4 == 0)
+                    ? matmul_int8_skinny_kernel<N, 4>
+                    : matmul_int8_skinny_kernel<N, 1>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<blocks, MSI_ROWS, smem, stream>>>(a, b, out, M, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// N <= 8 only (kernels/matmul.py skinny); anything else is refused.
+extern "C" int launch_matmul_int8_skinny(const void* a, const void* b,
+                                         void* out, int M, int N, int K,
+                                         void* stream) {
+  const int8_t* ai = static_cast<const int8_t*>(a);
+  const int8_t* bi = static_cast<const int8_t*>(b);
+  int32_t* o = static_cast<int32_t*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (N) {
+    case 1: return launch_skinny_int8<1>(ai, bi, o, M, K, s);
+    case 2: return launch_skinny_int8<2>(ai, bi, o, M, K, s);
+    case 3: return launch_skinny_int8<3>(ai, bi, o, M, K, s);
+    case 4: return launch_skinny_int8<4>(ai, bi, o, M, K, s);
+    case 5: return launch_skinny_int8<5>(ai, bi, o, M, K, s);
+    case 6: return launch_skinny_int8<6>(ai, bi, o, M, K, s);
+    case 7: return launch_skinny_int8<7>(ai, bi, o, M, K, s);
+    case 8: return launch_skinny_int8<8>(ai, bi, o, M, K, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 __global__ void __launch_bounds__(MM_THREADS)
 matmul_int8_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
-                   int32_t* __restrict__ out, int M, int N, int K) {
+                   int32_t* __restrict__ out, int M, int N, int K,
+                   int tiles_n) {
   __shared__ int as[MMI_BKW][MM_BM + 1];  // as[kw][m]: a[m, 4kw .. 4kw+3]
   __shared__ int bs[MMI_BKW][MM_BN];      // bs[kw][n]: b[4kw .. 4kw+3, n]
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
-  const int m0 = blockIdx.y * MM_BM;
-  const int n0 = blockIdx.x * MM_BN;
+  const int m0 = static_cast<int>(blockIdx.x / tiles_n) * MM_BM;
+  const int n0 = static_cast<int>(blockIdx.x % tiles_n) * MM_BN;
   int acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -322,10 +424,13 @@ matmul_int8_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
 
 extern "C" int launch_matmul_int8(const void* a, const void* b, void* out,
                                   int M, int N, int K, void* stream) {
-  dim3 grid((N + MM_BN - 1) / MM_BN, (M + MM_BM - 1) / MM_BM);
-  matmul_int8_kernel<<<grid, MM_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  const long long tiles_n = (N + MM_BN - 1) / MM_BN;
+  const long long blocks = tiles_n * ((M + MM_BM - 1) / MM_BM);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  matmul_int8_kernel<<<static_cast<unsigned>(blocks), MM_THREADS, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(a), static_cast<const int8_t*>(b),
-      static_cast<int32_t*>(out), M, N, K);
+      static_cast<int32_t*>(out), M, N, K, static_cast<int>(tiles_n));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -354,7 +459,9 @@ extern "C" int launch_matmul_int8(const void* a, const void* b, void* out,
 // K slice is loaded into registers while the current one multiplies.
 // Loads are 16 bytes where a row allows it, else element by element; the
 // ragged M, N and K edges stage zeros, which add exactly nothing to an f32
-// sum.
+// sum.  Blocks are numbered along the grid's x only (tile row * column
+// tiles + tile column, the order of the 2-D grid it replaced), so no M is
+// too large.
 constexpr int MB_BM = 128;
 constexpr int MB_BN = 128;
 constexpr int MB_BK = 32;
@@ -386,14 +493,14 @@ matmul_bf16_kernel(const __nv_bfloat16* __restrict__ a,
                    const __nv_bfloat16* __restrict__ b,
                    const __nv_bfloat16* __restrict__ bias,
                    __nv_bfloat16* __restrict__ out, int M, int N, int K,
-                   int act, int vec_a, int vec_b) {
+                   int act, int vec_a, int vec_b, int tiles_n) {
   __shared__ __align__(16) __nv_bfloat16 as[MB_BM * MB_LDA];
   __shared__ __align__(16) __nv_bfloat16 bs[MB_BK * MB_LDB];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const int wm = warp / 4, wn = warp % 4;  // warp tile: rows 64 wm, cols 32 wn
-  const int m0 = blockIdx.y * MB_BM;
-  const int n0 = blockIdx.x * MB_BN;
+  const int m0 = static_cast<int>(blockIdx.x / tiles_n) * MB_BM;
+  const int n0 = static_cast<int>(blockIdx.x % tiles_n) * MB_BN;
 
   float acc[4][4][4];
 #pragma unroll
@@ -467,11 +574,14 @@ extern "C" int launch_matmul_bf16(const void* a, const void* b,
                                   const void* bias, void* out, int M, int N,
                                   int K, int act, int vec_a, int vec_b,
                                   void* stream) {
-  dim3 grid((N + MB_BN - 1) / MB_BN, (M + MB_BM - 1) / MB_BM);
-  matmul_bf16_kernel<<<grid, MB_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  const long long tiles_n = (N + MB_BN - 1) / MB_BN;
+  const long long blocks = tiles_n * ((M + MB_BM - 1) / MB_BM);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  matmul_bf16_kernel<<<static_cast<unsigned>(blocks), MB_THREADS, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
       static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(out),
-      M, N, K, act, vec_a, vec_b);
+      M, N, K, act, vec_a, vec_b, static_cast<int>(tiles_n));
   return static_cast<int>(cudaGetLastError());
 }
 

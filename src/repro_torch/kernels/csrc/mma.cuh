@@ -1,5 +1,5 @@
 // Tensor-core pieces shared by flash_attention.cu and matmul.cu (bf16) and
-// conv1d.cu (TF32).
+// conv1d.cu and fused_stream.cu (TF32).
 //
 // One warp-wide mma.sync.m16n8k16 (bf16 x bf16 -> f32): D[16x8] += A[16x16]
 // B[16x8].  With g = lane / 4 and t = lane % 4, each thread holds
@@ -79,4 +79,14 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
                                            uint32_t& lo) {
   hi = tf32_rna(v);
   lo = tf32_rna(v - __uint_as_float(hi));
+}
+
+// The same split by integer adds and masks, bit for bit (cvt.rna rounds the
+// magnitude half up at bit 13: add 0x1000, clear the 13 low bits; finite
+// values cannot carry into the sign).  A conversion runs at a quarter of
+// the integer rate on this card.
+__device__ __forceinline__ void split_tf32_int(float v, uint32_t& hi,
+                                               uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = (__float_as_uint(v - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
 }

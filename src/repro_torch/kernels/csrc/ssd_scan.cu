@@ -42,7 +42,9 @@
 // the 2e-4 bar.  Each block of 256 threads keeps a 4 x 4 (pass 1: 8 x 4)
 // register tile and streams its operands through shared memory, 2 blocks
 // an SM in pass 3 (~100 KB each).  At T = 4096 pass 1 runs 768 blocks and
-// pass 3 3,072, so the card is full.
+// pass 3 3,072, so the card is full.  Each pass numbers its blocks along
+// the grid's x only (head * blocks a head + block, the order of the 2-D
+// grid it replaced), so no B * H is too large.
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -95,7 +97,9 @@ ssd_chunk_state_kernel(const T* __restrict__ x, const float* __restrict__ la,
   float* cum = smem;                          // [chunk]
   float* bw = cum + SSD_MAX_CHUNK;            // [TILE][DS]: w_s B_s
   float* xs = bw + SSD_TILE * DS;             // [TILE][DH]
-  const int c = blockIdx.x, nc = gridDim.x, h = blockIdx.y;
+  const int nc = (Tn + chunk - 1) / chunk;  // blocks: head * nc + chunk
+  const int c = static_cast<int>(blockIdx.x % nc);
+  const int h = static_cast<int>(blockIdx.x / nc);
   const int c0 = c * chunk;
   const float* lah = la + static_cast<size_t>(h) * Tn;
   const T* xh = x + static_cast<size_t>(h) * Tn * DH;
@@ -149,8 +153,9 @@ ssd_chunk_state_kernel(const T* __restrict__ x, const float* __restrict__ la,
 __global__ void ssd_state_scan_kernel(float* __restrict__ states,
                                       const float* __restrict__ totals,
                                       int nc, int n_elem) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  const int h = blockIdx.y;
+  const int nx = (n_elem + blockDim.x - 1) / blockDim.x;  // blocks a head
+  const int e = static_cast<int>(blockIdx.x % nx) * blockDim.x + threadIdx.x;
+  const int h = static_cast<int>(blockIdx.x / nx);
   if (e >= n_elem) return;
   float run = 0.f;
   for (int c = 0; c < nc; ++c) {
@@ -177,9 +182,10 @@ ssd_chunk_out_kernel(const T* __restrict__ x, const float* __restrict__ la,
   float* xs = bs + DS * LT;                   // [TILE][DH]
   float* gs = xs + SSD_TILE * DH;             // [TILE][LT]: decayed G
   const int tiles = chunk / SSD_TILE;
-  const int ci = blockIdx.x / tiles, ti = blockIdx.x % tiles;
-  const int nc = (Tn + chunk - 1) / chunk;
-  const int h = blockIdx.y;
+  const int nc = (Tn + chunk - 1) / chunk;  // blocks: head * nc * tiles + ...
+  const int ci = static_cast<int>(blockIdx.x % (nc * tiles)) / tiles;
+  const int ti = static_cast<int>(blockIdx.x % tiles);
+  const int h = static_cast<int>(blockIdx.x / (nc * tiles));
   const int c0 = ci * chunk, t0 = c0 + ti * SSD_TILE;
   const float* lah = la + static_cast<size_t>(h) * Tn;
   const T* xh = x + static_cast<size_t>(h) * Tn * DH;
@@ -302,19 +308,25 @@ static cudaError_t launch_typed(const void* x, const void* la, const void* b,
   if (err != cudaSuccess) return err;
   err = allow_smem(ssd_chunk_out_kernel<T, DS, DH>, smem3);
   if (err != cudaSuccess) return err;
-  ssd_chunk_state_kernel<T, DS, DH><<<dim3(nc, bh), SSD_THREADS, smem1, stream>>>(
+  const long long blocks1 = static_cast<long long>(nc) * bh;
+  const long long blocks2 = static_cast<long long>((DS * DH + 255) / 256) * bh;
+  const long long blocks3 = blocks1 * (chunk / SSD_TILE);
+  if (blocks2 > 0x7fffffffLL || blocks3 > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  ssd_chunk_state_kernel<T, DS, DH>
+      <<<static_cast<unsigned>(blocks1), SSD_THREADS, smem1, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(la),
       static_cast<const T*>(b), static_cast<float*>(states),
       static_cast<float*>(totals), Tn, chunk, bstride);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int n_elem = DS * DH;
-  ssd_state_scan_kernel<<<dim3((n_elem + 255) / 256, bh), 256, 0, stream>>>(
+  ssd_state_scan_kernel<<<static_cast<unsigned>(blocks2), 256, 0, stream>>>(
       static_cast<float*>(states), static_cast<const float*>(totals), nc, n_elem);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   ssd_chunk_out_kernel<T, DS, DH>
-      <<<dim3(nc * (chunk / SSD_TILE), bh), SSD_THREADS, smem3, stream>>>(
+      <<<static_cast<unsigned>(blocks3), SSD_THREADS, smem3, stream>>>(
           static_cast<const T*>(x), static_cast<const float*>(la),
           static_cast<const T*>(b), static_cast<const T*>(c),
           static_cast<const float*>(states), static_cast<T*>(y), Tn, chunk,

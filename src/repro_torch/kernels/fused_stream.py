@@ -16,20 +16,25 @@ one-CTA-per-lane, shared-memory-resident design answers that.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
 from repro_torch.core import ctc
 from repro_torch.kernels import _build
+from repro_torch.kernels import conv1d
 from repro_torch.kernels import fabric
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 from repro_torch.quant import core as qcore
 
 MAX_LAYERS = 8
-THREADS = 512
+RING_STAGES = 0     # csrc/fused_stream.cu FS_STAGES: 0, B read from L2
+FRAME_TILE = 32     # frames of a warp's tile on the tensor cores
+META = 11           # ints a layer in the kernel's meta array
 _ARGS = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-         + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+         + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
 def _specs(cfg):
@@ -106,32 +111,108 @@ def _fused_reference(rows, pads, reset, prev, bases, ticks, conv, params, *,
     return tokens, lens, new_lane
 
 
-def smem_plan(cfg, chunk: int) -> tuple[int, int, int]:
-    """Sizes (floats) of the kernel's two ping-pong buffers and its total
-    fp32 shared memory in bytes.  Layer i's input [carry | chunk rows]
-    lives in buffer i % 2; the logits land in buffer n % 2."""
+def on_tensor_cores(sp) -> bool:
+    """Whether the fp32 layer ``sp`` runs on the tensor cores (3xTF32)
+    inside the fused kernel: the shapes :func:`conv1d.tensor_core_shape`
+    takes (the paper CNN's conv2-conv5), never the k=1 head, which keeps
+    the unfused matmul's fmaf order.  int8 launches have no such layer."""
+    return not sp.is_head and conv1d.tensor_core_shape(
+        sp.cin, sp.cout, sp.ksize, sp.stride)
+
+
+def swizzle_mask(cin: int) -> int:
+    """The XOR swizzle of a tensor-core layer's input rows: channel c of
+    row r sits at ``c ^ (((r // stride) & m) << 2)``, m as wide as whole
+    rows allow (``csrc/fused_stream.cu`` fs_idx)."""
+    return 7 if cin % 32 == 0 else 3 if cin % 16 == 0 else 1
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerPlan:
+    """One layer's place in the kernel's shared memory (offsets in floats):
+    its [carry | input] rows, its output (the next layer's input, or the
+    logits) and its scratch (the weight ring, or the quantized input)."""
+    tc: bool
+    in_off: int
+    out_off: int
+    scratch_off: int
+    sw_m: int           # the input's swizzle mask, 0 for plain rows
+
+
+@dataclasses.dataclass(frozen=True)
+class SmemPlan:
+    layers: tuple[LayerPlan, ...]
+    cls_off: int        # floats to the class buffer
+    bytes: int          # the block's dynamic shared memory
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def smem_plan(cfg, chunk: int, quantized=None) -> SmemPlan:
+    """Where the fused kernel keeps each layer in shared memory.
+
+    Layer i's input sits at the low end and its output at the high end when
+    i is even, the other way round when i is odd (the output of layer i is
+    the input of layer i + 1, in place); the gap between them is the
+    layer's scratch: an int8 layer's quantized input (and a tensor-core
+    layer's ring of ``RING_STAGES`` raw weight slices, K x 8 x (Cout + 8)
+    floats each, where the kernel is built with one).  A tensor-core
+    layer's input rows are padded to whole ``FRAME_TILE``-frame tiles.
+    The size is the largest layer's input + output + scratch, then the
+    class buffer.  Raises ``ValueError`` past the block's shared
+    memory."""
     specs = _specs(cfg)
-    sizes = [0, 0]
-    t = chunk
+    quantized = list(quantized or [False] * len(specs))
+    int8 = any(quantized)
+    tc = [not int8 and on_tensor_cores(sp) for sp in specs]
+    ins, scratch, t = [], [], chunk
+    for sp, q, on_tc in zip(specs, quantized, tc):
+        t_out = t // sp.stride
+        rows = sp.carry_rows + t
+        ring = 0
+        if on_tc:
+            tiles = -(-t_out // FRAME_TILE)
+            rows = max(rows, (tiles * FRAME_TILE - 1) * sp.stride + sp.ksize)
+            ring = RING_STAGES * sp.ksize * 8 * (sp.cout + 8)
+        ins.append(rows * sp.cin)
+        scratch.append(_round4(-(-(sp.carry_rows + t) * sp.cin // 4))
+                       if q else ring)
+        t = t_out
+    outs = ins[1:] + [t * specs[-1].cout]
+    total = max(_round4(i) + _round4(o) + s
+                for i, o, s in zip(ins, outs, scratch))
+    layers = []
     for i, sp in enumerate(specs):
-        sizes[i % 2] = max(sizes[i % 2], (sp.carry_rows + t) * sp.cin)
-        t //= sp.stride
-    n = len(specs)
-    sizes[n % 2] = max(sizes[n % 2], t * specs[-1].cout)
+        lo_in = i % 2 == 0
+        low = _round4(ins[i] if lo_in else outs[i])
+        high = total - _round4(outs[i] if lo_in else ins[i])
+        layers.append(LayerPlan(
+            tc=tc[i], in_off=0 if lo_in else high,
+            out_off=high if lo_in else 0, scratch_off=low,
+            sw_m=swizzle_mask(sp.cin) if tc[i] else 0))
     n_frames = chunk // cfg.total_stride
-    return sizes[0], sizes[1], (sizes[0] + sizes[1] + n_frames) * 4
+    nbytes = (total + n_frames) * 4
+    if nbytes > _build.SMEM_LIMIT:
+        raise ValueError(f"fused_stream: chunk {chunk} needs {nbytes} B of "
+                         f"shared memory per lane, over {_build.SMEM_LIMIT}")
+    return SmemPlan(tuple(layers), total, nbytes)
 
 
-def int8_buffer_bytes(cfg, chunk: int, quantized) -> int:
-    """Bytes of the int8 kernel's quantized-input buffer: the largest
-    [carry | input] of a layer flagged in ``quantized``, 16-byte rounded
-    (0 when no layer is quantized)."""
-    out, t = 0, chunk
-    for sp, q in zip(_specs(cfg), quantized):
-        if q:
-            out = max(out, -(-(sp.carry_rows + t) * sp.cin // 16) * 16)
-        t //= sp.stride
-    return out
+@functools.lru_cache(maxsize=None)
+def _launch_meta(cfg, chunk: int, quantized: tuple):
+    """The plan and the kernel's per-layer meta array for one shape (built
+    once: the launch is on the tick's host path)."""
+    specs = _specs(cfg)
+    plan = smem_plan(cfg, chunk, quantized)
+    meta = (ctypes.c_int * (META * len(specs)))()
+    for i, (sp, lp) in enumerate(zip(specs, plan.layers)):
+        meta[META * i: META * i + META] = [
+            sp.ksize, sp.stride, sp.cin, sp.cout,
+            ref.ACTIVATION_CODES[sp.activation], int(quantized[i]),
+            int(lp.tc), lp.in_off, lp.out_off, lp.scratch_off, lp.sw_m]
+    return plan, meta
 
 
 def _int8_layer_check(name: str, w) -> None:
@@ -164,19 +245,13 @@ def fused_stream_cuda(rows, pads, reset, prev, bases, ticks, conv, params,
     for sp, q in zip(specs, quantized):
         if q:
             _int8_layer_check(sp.name, params[sp.name]["w"])
-    buf0, buf1, smem = smem_plan(cfg, chunk)
-    qbytes = int8_buffer_bytes(cfg, chunk, quantized)
-    smem += qbytes
-    if smem > _build.SMEM_LIMIT:
-        raise ValueError(f"fused_stream: chunk {chunk} needs {smem} B of "
-                         f"shared memory per lane, over {_build.SMEM_LIMIT}")
+    plan, meta = _launch_meta(cfg, chunk, tuple(quantized))
     f32, i32 = torch.float32, torch.int32
     _build.check_tensor("fused rows", rows, f32)
     _build.check_tensor("fused pads", pads, f32, (lanes, n_frames), dev)
     _build.check_tensor("fused reset", reset, f32, (lanes,), dev)
     for name, t in (("prev", prev), ("bases", bases), ("ticks", ticks)):
         _build.check_tensor(f"fused {name}", t, i32, (lanes,), dev)
-    meta = (ctypes.c_int * (6 * len(specs)))()
     ptrs = (ctypes.c_void_p * (6 * len(specs)))()
     new_conv = []
     for i, sp in enumerate(specs):
@@ -199,9 +274,6 @@ def fused_stream_cuda(rows, pads, reset, prev, bases, ticks, conv, params,
             wk = w
         _build.check_tensor(f"fused {sp.name}.b", p["b"], f32, (sp.cout,),
                             dev)
-        meta[6 * i: 6 * i + 6] = [sp.ksize, sp.stride, sp.cin, sp.cout,
-                                  ref.ACTIVATION_CODES[sp.activation],
-                                  int(quantized[i])]
         ptrs[6 * i] = wk.data_ptr()
         ptrs[6 * i + 1] = p["b"].data_ptr()
         if sp.carry_rows:
@@ -221,19 +293,25 @@ def fused_stream_cuda(rows, pads, reset, prev, bases, ticks, conv, params,
         rows.data_ptr(), pads.data_ptr(), reset.data_ptr(), prev.data_ptr(),
         bases.data_ptr(), ticks.data_ptr(), tokens.data_ptr(),
         lens.data_ptr(), new_prev.data_ptr(), new_bases.data_ptr(),
-        new_ticks.data_ptr(), lanes, chunk, n_frames, buf0, buf1, qbytes,
-        THREADS, _build.stream_handle(dev))
+        new_ticks.data_ptr(), lanes, chunk, n_frames, plan.cls_off,
+        plan.bytes, _build.stream_handle(dev))
     if any(quantized):
         fabric.record("fabric.precision.fused_stream.int8")
         fused_stream_cuda.launches_int8 += 1
     else:
         fused_stream_cuda.launches += 1
+        tc = sum(lp.tc for lp in plan.layers)
+        fused_stream_cuda.tc_launches += tc > 0
+        fused_stream_cuda.tc_layers += tc
     new_lane = {"conv": new_conv, "prev_class": new_prev, "bases": new_bases,
                 "ticks": new_ticks}
     return tokens, lens, new_lane
 
 
 # launches of the fp32 kernel and of its int8 instantiation
-# (fused_stream_kernel<false> / <true> in csrc/fused_stream.cu)
+# (fused_stream_kernel<false> / <true> in csrc/fused_stream.cu); of the fp32
+# ones, those that ran conv layers on the tensor cores, and those layers
 fused_stream_cuda.launches = 0
 fused_stream_cuda.launches_int8 = 0
+fused_stream_cuda.tc_launches = 0
+fused_stream_cuda.tc_layers = 0

@@ -7,8 +7,9 @@ Replaces ``repro/kernels/matmul.py::matmul`` (the Pallas bodies
 ``_matmul_kernel`` / ``_matmul_nobias_kernel``, with float or int8
 operands, bf16 included).  The source note in
 ``csrc/matmul.cu`` says what bounds the kernel on an H100 and how its
-tiling answers that; the fp32 and bf16 GEMMs each have two kernels, chosen
-by shape (:func:`skinny`, :func:`tma_addressable`).
+tiling answers that; each of the three GEMMs has two kernels, chosen by
+shape (:func:`skinny` for fp32 and int8, :func:`tma_addressable` for
+bf16).
 """
 from __future__ import annotations
 
@@ -28,11 +29,22 @@ _WGMMA_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 SKINNY_N = 8    # widest N the streaming kernel takes (one accumulator each)
 
 
+MAX_BLOCKS = 2 ** 31 - 1    # a grid's x dimension
+
+
 def skinny(n: int) -> bool:
-    """Whether fp32 matmul with ``n`` output columns runs the skinny-N
-    kernel, which streams A's rows (the basecaller head's N = 5); wider N
-    runs the tiled kernel."""
+    """Whether matmul (fp32 or int8) with ``n`` output columns runs the
+    skinny-N kernel, which streams A's rows (the basecaller head's N = 5);
+    wider N runs the tiled kernel."""
     return n <= SKINNY_N
+
+
+def _check_blocks(what: str, m: int, n: int, bm: int, bn: int) -> None:
+    """A tiled kernel numbers its (M / bm) x (N / bn) tiles along the
+    grid's x alone: raise where they do not fit it."""
+    if -(-m // bm) * -(-n // bn) > MAX_BLOCKS:
+        raise ValueError(f"{what}: {m} x {n} needs more than {MAX_BLOCKS} "
+                         "blocks")
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, bias=None, *,
@@ -78,7 +90,9 @@ def matmul_int8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     (M, N) int32.
 
     A CPU tensor runs the plain version (:func:`ref.matmul_int8`); a CUDA
-    tensor launches the kernel or raises."""
+    tensor launches a kernel or raises: the skinny-N kernel where
+    :func:`skinny` holds (counted also in ``skinny_launches``), else the
+    tiled one.  Integer sums: both give the plain version's bits."""
     if a.device.type == "cpu":
         return ref.matmul_int8(a, b)
     m, k = a.shape
@@ -90,17 +104,21 @@ def matmul_int8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _build.check_tensor("matmul_int8 b", b, torch.int8, device=a.device)
     if m < 1 or n < 1:
         raise ValueError(f"matmul_int8: empty output {m} x {n}")
-    if -(-m // 64) > 65_535:
-        raise ValueError(f"matmul_int8: M={m} exceeds the grid's y limit")
+    thin = skinny(n)
+    if not thin:
+        _check_blocks("matmul_int8", m, n, 64, 64)
     out = torch.empty((m, n), dtype=torch.int32, device=a.device)
-    _build.launch("matmul", "launch_matmul_int8", _INT8_ARGS, a.data_ptr(),
-                  b.data_ptr(), out.data_ptr(), m, n, k,
-                  _build.stream_handle(a.device))
+    _build.launch(
+        "matmul", "launch_matmul_int8_skinny" if thin else
+        "launch_matmul_int8", _INT8_ARGS, a.data_ptr(), b.data_ptr(),
+        out.data_ptr(), m, n, k, _build.stream_handle(a.device))
     matmul_int8.launches += 1
+    matmul_int8.skinny_launches += thin
     return out
 
 
 matmul_int8.launches = 0
+matmul_int8.skinny_launches = 0
 
 
 def tma_addressable(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -147,9 +165,7 @@ def matmul_bf16(a: torch.Tensor, b: torch.Tensor, bias=None, *,
             b.data_ptr(), bias_ptr, out.data_ptr(), m, n, k, code, stream)
         matmul_bf16.wgmma_launches += 1
     else:
-        if -(-m // 128) > 65_535:
-            raise ValueError(f"matmul_bf16: M={m} exceeds the mma.sync "
-                             "kernel's grid y limit")
+        _check_blocks("matmul_bf16", m, n, 128, 128)
         # 16-byte loads where every row of the operand starts 16-byte aligned
         vec_a = int(k % 8 == 0 and a.data_ptr() % 16 == 0)
         vec_b = int(n % 8 == 0 and b.data_ptr() % 16 == 0)

@@ -77,12 +77,13 @@ def ssd_scan(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"ssd_scan: (ds, dh) = {(ds, dh)} not in {DIMS}")
     if bh < 1 or tn < 1:
         raise ValueError(f"ssd_scan: empty input {tuple(x.shape)}")
-    if bh > 65_535:
-        raise ValueError(f"ssd_scan: BH = {bh} exceeds the grid's y limit")
     ck = kernel_chunk(chunk, tn)
     if ck > MAX_CHUNK:
         raise ValueError(f"ssd_scan: chunk {ck} over {MAX_CHUNK}")
     n = -(-tn // ck)
+    if bh * max(n * ck // TILE, -(-ds * dh // 256)) > 2 ** 31 - 1:
+        raise ValueError(f"ssd_scan: BH = {bh} x T = {tn} needs more than "
+                         "2^31 - 1 blocks")
     states = torch.empty((bh, n, ds, dh), dtype=torch.float32,
                          device=x.device)
     totals = torch.empty((bh, n), dtype=torch.float32, device=x.device)

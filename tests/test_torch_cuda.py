@@ -167,10 +167,30 @@ def test_levenshtein_past_shared_memory_bitwise(dev):
     assert torch.equal(got, ref.edit_distance(q, t))
 
 
-def test_fused_kernel_equals_plain_and_unfused(dev):
+def _plain_logits(cfg, params, rows, reset, conv):
+    """The plain chain's logits for a fused tick's inputs."""
+    rmask = reset > 0
+    x = rows[..., None]
+    for i, sp in enumerate(bc.stream_layer_specs(cfg)):
+        p = params[sp.name]
+        if sp.is_head:
+            b, t, c = x.shape
+            x = ref.matmul(x.reshape(b * t, c), p["w"][0], p["b"]).reshape(
+                b, t, sp.cout)
+        else:
+            carry = torch.where(rmask[:, None, None], 0.0, conv[i])
+            x = ref.conv1d(torch.cat([carry, x], 1), p["w"], p["b"],
+                           stride=sp.stride, activation=sp.activation)
+    return x
+
+
+# the paper CNN at a small tick and at the full tick's chunk: conv2-conv5
+# on the tensor cores (3xTF32), conv1 and the head on the CUDA cores
+@pytest.mark.parametrize("lanes,chunk", [(9, 64), (64, 256)])
+def test_fused_kernel_equals_plain_and_unfused(dev, lanes, chunk):
+    from repro_torch.core import ctc
     cfg = bc.BasecallerConfig()
     params = bc.init(_g(6), cfg, device=dev)
-    lanes, chunk = 9, 64
     rows = torch.randn((lanes, chunk), generator=_g(7)).to(dev)
     pads = torch.zeros((lanes, chunk // 4), device=dev)
     pads[3, 8:] = 1.0
@@ -180,13 +200,68 @@ def test_fused_kernel_equals_plain_and_unfused(dev):
                  .abs().to(dev) for s in bc.stream_layer_specs(cfg))
     z = torch.zeros((lanes,), dtype=torch.int32, device=dev)
     args = (rows, pads, reset, z + 2, z + 5, z + 1, conv, params)
+    before = (kf.fused_stream_cuda.launches, kf.fused_stream_cuda.tc_launches,
+              kf.fused_stream_cuda.tc_layers)
     tok, lens, lane = kf.fused_stream_cuda(*args, cfg=cfg)
+    assert (kf.fused_stream_cuda.launches, kf.fused_stream_cuda.tc_launches,
+            kf.fused_stream_cuda.tc_layers) == (
+        before[0] + 1, before[1] + 1, before[2] + 4)
     ptok, plens, plane = kf._fused_reference(*args, cfg=cfg)
-    assert torch.equal(tok, ptok) and torch.equal(lens, plens)
+    # the plain logits' near ties (top-2 margin < 1e-4 on a real frame) may
+    # flip a class; every other lane is equal
+    top = torch.topk(_plain_logits(cfg, params, rows, reset, conv), 2).values
+    tie = ((top[..., 0] - top[..., 1] < 1e-4) & (pads <= 0)).any(dim=1)
+    if chunk == 64:     # no near tie here: every lane is held exactly
+        assert not bool(tie.any())
+    differ = (tok != ptok).any(dim=1) | (lens != plens)
     for key in ("prev_class", "bases", "ticks"):
-        assert torch.equal(lane[key], plane[key])
+        differ |= lane[key] != plane[key]
+    assert not bool((differ & ~tie).any())
     for a, b in zip(lane["conv"], plane["conv"]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    # the unfused kernels on the same inputs
+    rmask = reset > 0
+    x = rows[..., None]
+    for i, sp in enumerate(bc.stream_layer_specs(cfg)):
+        p = params[sp.name]
+        if sp.is_head:
+            b, t, c = x.shape
+            x = km.matmul(x.reshape(b * t, c).contiguous(), p["w"][0],
+                          p["b"]).reshape(b, t, sp.cout)
+        else:
+            carry = torch.where(rmask[:, None, None], 0.0, conv[i])
+            x = kc.conv1d(torch.cat([carry, x], 1).contiguous(), p["w"],
+                          p["b"], stride=sp.stride, activation=sp.activation)
+    utok, ulens, _ = ctc.greedy_decode_stream(x, torch.where(rmask, 0, z + 2),
+                                              pads)
+    assert not bool((((utok != tok).any(dim=1) | (ulens != lens))
+                     & ~tie).any())
+
+
+def test_fused_fp32_swizzled_layouts_at_ragged_chunk(dev):
+    """A chunk whose tensor-core layers end mid-tile (t_out 34 and 17) and
+    a narrow CNN whose swizzle masks are 3 and 1 (Cin 16 and 8): the plain
+    version's tokens, carries within 1e-4."""
+    cfg = bc.BasecallerConfig(kernels=(5, 5, 3, 1), channels=(8, 16, 24, 5),
+                              strides=(1, 2, 2, 1))
+    assert [kf.on_tensor_cores(sp) for sp in bc.stream_layer_specs(cfg)] == [
+        False, True, True, False]
+    params = bc.init(_g(9), cfg, device=dev)
+    for chunk in (68, 64):
+        lanes = 5
+        rows = torch.randn((lanes, chunk), generator=_g(10)).to(dev)
+        pads = torch.zeros((lanes, chunk // 4), device=dev)
+        reset = torch.zeros((lanes,), device=dev)
+        conv = tuple(torch.randn((lanes, s.carry_rows, s.cin),
+                                 generator=_g(11)).abs().to(dev)
+                     for s in bc.stream_layer_specs(cfg))
+        z = torch.zeros((lanes,), dtype=torch.int32, device=dev)
+        args = (rows, pads, reset, z, z, z, conv, params)
+        tok, lens, lane = kf.fused_stream_cuda(*args, cfg=cfg)
+        ptok, plens, plane = kf._fused_reference(*args, cfg=cfg)
+        assert torch.equal(tok, ptok) and torch.equal(lens, plens)
+        for a, b in zip(lane["conv"], plane["conv"]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
 def test_step_flowcell_goldens_on_card_equal_cpu(dev):
@@ -254,10 +329,45 @@ def test_conv1d_int8_past_old_limits_bitwise(dev, b, cin, t):
                                    (65, 5, 5), (64 * 128, 128, 5)])
 def test_matmul_int8_kernel_bitwise(dev, m, k, n):
     a, b = _int8((m, k), 12, dev), _int8((k, n), 13, dev)
-    before = km.matmul_int8.launches
+    before = (km.matmul_int8.launches, km.matmul_int8.skinny_launches)
     got = km.matmul_int8(a, b)
-    assert km.matmul_int8.launches == before + 1
+    assert (km.matmul_int8.launches, km.matmul_int8.skinny_launches) == (
+        before[0] + 1, before[1] + (n <= 8))
     assert torch.equal(got, ref.matmul_int8(a, b))
+
+
+# N 1..8 on the skinny kernel: K 128 (16-byte loads), 37 (a ragged tail,
+# byte loads), 1, 4 (4-byte loads); each equal to the plain version and to
+# the first N columns of the tiled kernel at N = 9
+@pytest.mark.parametrize("k", [128, 37, 1, 4])
+def test_matmul_int8_skinny_equals_tiled_bitwise(dev, k):
+    a, b9 = _int8((1001, k), 16, dev), _int8((k, 9), 17, dev)
+    tiled = km.matmul_int8(a, b9)
+    for n in range(1, 9):
+        b = b9[:, :n].contiguous()
+        before = km.matmul_int8.skinny_launches
+        got = km.matmul_int8(a, b)
+        assert km.matmul_int8.skinny_launches == before + 1
+        assert torch.equal(got, ref.matmul_int8(a, b))
+        assert torch.equal(got, tiled[:, :n])
+
+
+def test_matmul_int8_skinny_unaligned_base_bitwise(dev):
+    """A starting one byte past a 16-byte boundary, K 128 and 64: the rows
+    are not 16-byte aligned, so the kernel takes narrower loads."""
+    for k in (128, 64):
+        a = _int8((777 * k + 1,), 18, dev)[1:].view(777, k)
+        assert a.data_ptr() % 16
+        b = _int8((k, 5), 19, dev)
+        assert torch.equal(km.matmul_int8(a, b), ref.matmul_int8(a, b))
+
+
+@pytest.mark.parametrize("n", [5, 64])
+def test_matmul_int8_past_old_grid_limit_bitwise(dev, n):
+    """M = 4,194,305: past 65,535 x 64 rows, the tiled kernel's old grid
+    y limit (N 64), and on the skinny kernel (N 5)."""
+    a, b = _int8((4_194_305, 128), 20, dev), _int8((128, n), 21, dev)
+    assert torch.equal(km.matmul_int8(a, b), ref.matmul_int8(a, b))
 
 
 def _quantized_paper_cnn(dev):
@@ -557,6 +667,49 @@ def test_new_kernels_raise_on_the_wrong_cuda_type(dev):
         kssd.ssd_scan(x, la, b, c)
     assert launches == (kfa.flash_attention.launches,
                         km.matmul_bf16.launches, kssd.ssd_scan.launches)
+
+
+def test_matmul_bf16_mma_sync_past_old_grid_limit(dev):
+    """M = 8,388,481 with K = 12 (TMA cannot address it: the mma.sync
+    kernel), past its old grid y limit of 65,535 tiles of 128 rows."""
+    a, w = _bf16((8_388_481, 12), 45, dev), _bf16((12, 8), 46, dev)
+    before = km.matmul_bf16.wgmma_launches
+    got = km.matmul_bf16(a, w)
+    assert km.matmul_bf16.wgmma_launches == before
+    want = ref.matmul(a, w)
+    ulp = 2.0 ** (np.floor(np.log2(float(want.float().abs().max()))) - 7)
+    assert float((got.float() - want.float()).abs().max()) <= ulp
+
+
+def test_flash_attention_past_old_grid_limit(dev):
+    """Sq = 8,388,481 query rows (past 65,535 tiles of 128) against 128
+    keys, not causal: the first, middle and last 512 rows against the
+    plain attention."""
+    from repro_torch.kernels import flash_attention as kfa
+    sq = 8_388_481
+    q = _bf16((1, 1, sq, 64), 47, dev)
+    k, v = _bf16((1, 1, 128, 64), 48, dev), _bf16((1, 1, 128, 64), 49, dev)
+    got = kfa.flash_attention(q, k, v, causal=False)
+    for a in (0, sq // 2 - 256, sq - 512):
+        qq = q[:, :, a:a + 512]
+        assert_flash_close(got[:, :, a:a + 512],
+                           ref.attention(qq, k, v, causal=False),
+                           ref.attention(qq, k, v.abs(), causal=False))
+
+
+def test_ssd_scan_past_old_grid_limit(dev):
+    """B * H = 65,536 heads (past the old grid y limit of 65,535), T 64,
+    (ds, dh) = (16, 16), chunk 32: the first, middle and last 512 heads
+    against the plain recurrence (heads are independent, so a slice of
+    the inputs is exact)."""
+    from repro_torch.kernels import ssd_scan as kssd
+    bh = 65_536
+    args = _ssd_inputs(bh, 64, 16, 16, torch.float32, dev)
+    got = kssd.ssd_scan(*args, chunk=32)
+    for a in (0, bh // 2 - 256, bh - 512):
+        want = ref.ssd_scan(*(t[a:a + 512] for t in args))[0]
+        torch.testing.assert_close(got[a:a + 512], want, rtol=2e-4,
+                                   atol=2e-4)
 
 
 @pytest.mark.parametrize("batch", [1, 2])
