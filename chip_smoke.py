@@ -183,23 +183,43 @@ def time_ms(torch, fn, reps: int = 20, warm: int = 3) -> float:
     return start.elapsed_time(stop) / reps
 
 
+_SLEEP_CYCLES_PER_MS = []
+
+
+def sleep_cycles_per_ms(torch) -> float:
+    """Cycles of ``torch.cuda._sleep`` a millisecond on this card, timed
+    once with events (the card's clock under load is not assumed)."""
+    if not _SLEEP_CYCLES_PER_MS:
+        cycles = 20_000_000
+        torch.cuda._sleep(cycles)  # warm
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(cycles)
+        stop.record()
+        torch.cuda.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(cycles / start.elapsed_time(stop))
+    return _SLEEP_CYCLES_PER_MS[0]
+
+
 def device_ms(torch, fn, reps: int = 20) -> float:
     """Mean device time of one call of ``fn``, its launches run back to
     back: they are queued behind a kernel that sleeps for three times the
-    host's time to issue them, so the events time the card and not the
-    host, where issuing a launch takes longer than running it (the event
-    timing of ``time_ms``).  The profiler is not used: over many launches
-    it can drop records."""
+    host's time to issue them plus 1 ms, so the events time the card and
+    not the host, where issuing a launch takes longer than running it (the
+    event timing of ``time_ms``).  The profiler is not used: over many
+    launches it can drop records."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
         fn()
-    host_s = time.perf_counter() - t0
+    host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(3 * host_s * 2e9) + 1_000_000)  # cycles, ~2 GHz
+    torch.cuda._sleep(int((3 * host_ms + 1) * sleep_cycles_per_ms(torch)))
     start.record()
     for _ in range(reps):
         fn()

@@ -26,6 +26,11 @@ three qwen3-4b MLP GEMMs at 4,096 tokens (gate + silu, up, down):
   libm_exp2         exp2f instead of ex2.approx.ftz
   pingpong          named barriers make the two consumer warpgroups take
                     turns to issue their wgmma
+  flat_1d           every block on the grid's x, decoded as tile * heads +
+                    head by a division and a remainder
+  grid_3d           one launch, tiles on y continued on z, the tail's
+                    blocks returning at once
+  grid_2d           one launch, tiles on y alone (at most 65,535 tiles)
 
 ``conv1d`` variants run the tick's conv2-conv5 (512 lanes x chunk 256,
 the paper's CNN, stream carries):
@@ -40,10 +45,11 @@ the paper's CNN, stream carries):
 
 ``fused_stream`` variants run the whole tick (512 lanes x chunk 256, the
 paper's CNN: fp32, conv2-conv5 on the tensor cores, and its edge_int8
-form, whose kernel the switches below leave as it is):
+form, whose kernel the patches below leave as it is):
 
   ring_2            B through a two-stage cp.async ring of raw weight
-                    slices in shared memory (one lane an SM), not from L2
+                    slices in shared memory (placed past the plan's
+                    regions by the launcher: one lane an SM), not from L2
   ring_1            the same ring with one stage
   cvt_split         the 3xTF32 split by cvt.rna.tf32 (mma.cuh split_tf32),
                     not by integer adds and masks
@@ -57,13 +63,14 @@ wrong, and say so in ``lanes_differing_above_margin``):
   tf32x1            hi x hi only, one product a k-step
   no_split          operands fed whole as hi and lo, no split
   b_smem            B read from shared memory, not L2
-  tc_only           the CUDA-core layers (conv1, the head), argmax and
+  tc_only           the CUDA-core layers (conv1, the head) and the
                     collapse skipped
   a_once            A loaded (and so split) at each slice's first tap only
 
 Every variant but ``no_epilogue`` is also held to the plain version
 (``max_abs_err``).  Rounds of all variants repeat ``--reps`` times, the
-sound kernel first in each.  Prints one JSON line per variant and round,
+sound kernel first in each and again last (``sound_last``: what a place in
+the round alone moves).  Prints one JSON line per variant and round,
 then the library calls (cuBLAS, SDPA, cuDNN with TF32 off).  Needs a CUDA card; exits 2
 without one.
 """
@@ -123,7 +130,68 @@ GEMM = {
     "group_16": [("constexpr int MW_GROUP_M = 8;",
                   "constexpr int MW_GROUP_M = 16;")],
 }
+FA_DECODE = """\
+  // top: this launch's first query tile, counted from the start
+  const int q0 = (top - static_cast<int>(blockIdx.y)) * FA_BQ;
+"""
+FA_GRID = """\
+  const int tiles = (sq + FA_BQ - 1) / FA_BQ;
+  for (int y0 = 0; y0 < tiles; y0 += 65535) {
+    const dim3 grid(b * hq, tiles - y0 < 65535 ? tiles - y0 : 65535);
+    flash_attention_kernel<D><<<grid, FA_THREADS, FaShape<D>::SMEM,
+                                stream>>>(
+        tq, tk, tv, static_cast<__nv_bfloat16*>(out), hq, hkv, sq, skv,
+        scale, causal, tiles - 1 - y0);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;"""
+FA_PARAMS = "int sq, int skv, float scale, int causal, int top) {"
+FA_BH = "  const int bh = blockIdx.x;"
+FA_END = "  return static_cast<int>(cudaGetLastError());"
 FLASH = {
+    "flat_1d": [
+        (FA_PARAMS, "int sq, int skv, float scale, int causal, int nbh) {"),
+        (FA_BH, "  const int bh = static_cast<int>(blockIdx.x % nbh);"),
+        (FA_DECODE, """\
+  const int tiles = (sq + FA_BQ - 1) / FA_BQ;
+  const int q0 = (tiles - 1 - static_cast<int>(blockIdx.x / nbh)) * FA_BQ;
+"""),
+        (FA_GRID, """\
+  const long long blocks =
+      static_cast<long long>(b) * hq * ((sq + FA_BQ - 1) / FA_BQ);
+  flash_attention_kernel<D><<<static_cast<unsigned>(blocks), FA_THREADS,
+                              FaShape<D>::SMEM, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), hq, hkv, sq, skv, scale,
+      causal, b * hq);
+""" + FA_END)],
+    "grid_3d": [
+        (FA_PARAMS, "int sq, int skv, float scale, int causal) {"),
+        (FA_DECODE, """\
+  const int tiles = (sq + FA_BQ - 1) / FA_BQ;
+  const int tile = blockIdx.z * gridDim.y + blockIdx.y;
+  if (tile >= tiles) return;  // the last z slice's tail
+  const int q0 = (tiles - 1 - tile) * FA_BQ;
+"""),
+        (FA_GRID, """\
+  const int tiles = (sq + FA_BQ - 1) / FA_BQ;
+  const int ty = tiles < 65535 ? tiles : 65535;
+  const dim3 grid(b * hq, ty, (tiles + ty - 1) / ty);
+  flash_attention_kernel<D><<<grid, FA_THREADS, FaShape<D>::SMEM, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), hq, hkv, sq, skv, scale,
+      causal);
+""" + FA_END)],
+    "grid_2d": [
+        (FA_PARAMS, "int sq, int skv, float scale, int causal) {"),
+        (FA_DECODE, """\
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * FA_BQ;
+"""),
+        (FA_GRID, """\
+  const dim3 grid(b * hq, (sq + FA_BQ - 1) / FA_BQ);
+  flash_attention_kernel<D><<<grid, FA_THREADS, FaShape<D>::SMEM, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), hq, hkv, sq, skv, scale,
+      causal);
+""" + FA_END)],
     "libm_exp2": [(
         '  float y;\n'
         '  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));\n'
@@ -143,31 +211,121 @@ FLASH = {
          "      wgmma_commit();\n      if (wg == 0 || kb < last_k) "
          + PP_ARRIVE + "      fence_regs(o);")],
 }
+# the fused tick's tensor-core layer, patched (csrc/fused_stream.cu)
+FS_B_FROM_L2 = """\
+      const float* bb = w + static_cast<size_t>(sl * 8 + t4) * cout + n0 + g;
+      const int tap_step = cin * cout, half = 4 * cout;
+"""
+FS_B_LOADS = """\
+          wv[nt][0] = __ldg(wb + nt * 8);
+          wv[nt][1] = __ldg(wb + half + nt * 8);
+"""
+FS_ITEMS = "  for (int it = warp; it < items; it += FS_WARPS) {\n"
+FS_EPILOGUE = "    // bias and activation, stored in the next layer's layout\n"
+FS_SMEM = "  const size_t smem = static_cast<size_t>(smem_bytes);\n"
+FS_NT4 = "        default: tc_layer<4>(L, in, o, t_out, tid); return;\n"
+FS_PICK = "  for (int nt : {1, 2, 3, 4}) {\n"
+FS_A_SPLIT = "split_tf32_int(xa[mt][e], ah[mt][e], al[mt][e]);"
+FS_B_SPLIT = ("          split_tf32_int(wk[nt][0], bh0, bl0);\n"
+              "          split_tf32_int(wk[nt][1], bh1, bl1);\n")
+
+
+def fs_ring(stages: int):
+    """B through a cp.async ring of ``stages`` raw weight slices (K taps x 8
+    input channels x Cout, rows padded by 8 floats), which the launcher
+    places past the plan's regions; every warp of the block stages each
+    slice, so the idle warps of a pass keep to the block's barriers."""
+    ring = f"""\
+  extern __shared__ __align__(16) float fs_ring_smem[];
+  float* ring = fs_ring_smem + L.scratch_off;  // the launcher's ring offset
+  const int WP = cout + 8, stage_f = K * 8 * WP;
+  auto stage = [&](int sl) {{
+    float* dst = ring + (sl % {stages}) * stage_f;
+    for (int row = warp; row < K * 8; row += FS_WARPS) {{
+      const float* src =
+          w + (static_cast<size_t>(row >> 3) * cin + sl * 8 + (row & 7)) * cout;
+      for (int c = lane; c < cout / 4; c += 32)
+        cp_async16(dst + row * WP + 4 * c, src + 4 * c, true);
+    }}
+  }};
+  for (int it0 = 0; it0 < items; it0 += FS_WARPS) {{
+    const int it = it0 + warp;
+    const bool active = it < items;
+    __syncthreads();  // the ring's previous pass is consumed
+    if ({stages} > 1) stage(0);
+    cp_async_commit();
+"""
+    slice_ = f"""\
+      if ({stages} == 1) {{
+        if (sl > 0) __syncthreads();  // slice sl - 1 is consumed
+        stage(sl);
+        cp_async_commit();
+      }}
+      cp_async_wait<0>();
+      __syncthreads();  // slice sl landed; slice sl - 1 is consumed
+      if ({stages} > 1) {{
+        if (sl + 1 < slices) stage(sl + 1);
+        cp_async_commit();
+      }}
+      const float* bb = ring + (sl % {stages}) * stage_f + t4 * WP + n0 + g;
+      const int tap_step = 8 * WP, half = 4 * WP;
+      if (!active) continue;
+"""
+    launch = f"""\
+  // the ring past the plan's regions, in each tensor-core layer's scratch
+  const int ring_off = (smem_bytes / 4 + 3) / 4 * 4;
+  int ring_f = 0;
+  for (int l = 0; l < n_layers; ++l) {{
+    FsLayer& L = p.layers[l];
+    if (!L.tc) continue;
+    if (reinterpret_cast<uintptr_t>(L.w) % 16)
+      return static_cast<int>(cudaErrorInvalidValue);
+    L.scratch_off = ring_off;
+    ring_f = std::max(ring_f, {stages} * L.K * 8 * (L.cout + 8));
+  }}
+  const size_t smem = static_cast<size_t>(ring_off + ring_f) * 4;
+"""
+    return [(FS_ITEMS, ring), (FS_B_FROM_L2, slice_),
+            (FS_B_LOADS, "          wv[nt][0] = wb[nt * 8];\n"
+                         "          wv[nt][1] = wb[half + nt * 8];\n"),
+            (FS_EPILOGUE, "    if (!active) continue;\n" + FS_EPILOGUE),
+            (FS_SMEM, launch)]
+
+
+NT_3 = [(FS_PICK, "  for (int nt : {1, 2, 3}) {\n"),
+        (FS_NT4, "        default: return;\n")]
 FUSED = {
-    "ring_2": [("constexpr int FS_STAGES = 0;",
-                "constexpr int FS_STAGES = 2;")],
-    "ring_1": [("constexpr int FS_STAGES = 0;",
-                "constexpr int FS_STAGES = 1;")],
-    "cvt_split": [("constexpr int FS_SPLIT = 1;",
-                   "constexpr int FS_SPLIT = 0;")],
+    "ring_2": fs_ring(2),
+    "ring_1": fs_ring(1),
+    "cvt_split": [(FS_A_SPLIT, "split_tf32(xa[mt][e], ah[mt][e], al[mt][e]);"),
+                  (FS_B_SPLIT, FS_B_SPLIT.replace("split_tf32_int",
+                                                  "split_tf32"))],
     "warps_16": [("constexpr int FS_WARPS = 8;",
                   "constexpr int FS_WARPS = 16;"),
-                 ("constexpr int FS_MAX_NT = 4;",
-                  "constexpr int FS_MAX_NT = 3;")],
-    "nt_3": [("constexpr int FS_MAX_NT = 4;", "constexpr int FS_MAX_NT = 3;")],
-    "tf32x1": [("constexpr int FS_PASSES = 3;",
-                "constexpr int FS_PASSES = 1;")],
-    "no_split": [("constexpr int FS_SPLIT = 1;",
-                  "constexpr int FS_SPLIT = 2;")],
-    "b_smem": [("constexpr bool FS_B_SMEM_TIMING = false;",
-                "constexpr bool FS_B_SMEM_TIMING = true;")],
-    "tc_only": [("constexpr bool FS_TC_ONLY_TIMING = false;",
-                 "constexpr bool FS_TC_ONLY_TIMING = true;")],
-    "a_once": [("constexpr bool FS_A_ONCE_TIMING = false;",
-                "constexpr bool FS_A_ONCE_TIMING = true;")],
+                 ("constexpr int FS_BLOCKS = 2;",
+                  "constexpr int FS_BLOCKS = 1;")] + NT_3,
+    "nt_3": NT_3,
+    "tf32x1": [("mma_tf32_1688(part[mt][nt], al[mt], bh0, bh1);", ";"),
+               ("mma_tf32_1688(part[mt][nt], ah[mt], bl0, bl1);", ";")],
+    "no_split": [(FS_A_SPLIT, "ah[mt][e] = al[mt][e] = "
+                              "__float_as_uint(xa[mt][e]);"),
+                 (FS_B_SPLIT, "          bh0 = bl0 = __float_as_uint("
+                              "wk[nt][0]);\n          bh1 = bl1 = "
+                              "__float_as_uint(wk[nt][1]);\n")],
+    "b_smem": [(FS_B_LOADS,
+                "          wv[nt][0] = in[(k * 64 + nt * 8 + lane) & 1023];\n"
+                "          wv[nt][1] = in[(k * 64 + nt * 8 + lane + 32) & "
+                "1023];\n")],
+    "tc_only": [
+        ("  if (L.cout % 4 == 0 && reinterpret_cast<uintptr_t>(L.w) % 16 == 0)"
+         "\n    conv_layer<4, 4>(L, in, o, t_out, tid, nt);",
+         "  if constexpr (!INT8) return;\n"
+         "  if (L.cout % 4 == 0 && reinterpret_cast<uintptr_t>(L.w) % 16 == 0)"
+         "\n    conv_layer<4, 4>(L, in, o, t_out, tid, nt);"),
+        ("  if (tid == 0) {\n    int prev", "  if (tid == 0 && INT8) {\n"
+                                           "    int prev")],
+    "a_once": [("          load_a(k + 1, nq, xa);\n", "")],
 }
-# the ring stages each variant's shared-memory plan reserves
-FUSED_RING = {"ring_2": 2, "ring_1": 1}
 CONV = {
     "tf32x1": [("constexpr int TC_PASSES = 3;", "constexpr int TC_PASSES = 1;")],
     "split_x_at_staging": [
@@ -303,8 +461,6 @@ def fused_round(torch, cs, build, variants, cfg, params, qparams, inputs):
     tie = ((cs.top2_margin(torch, logits) < 1e-4) & (pads <= 0)).any(dim=1)
     for name, csrc in variants:
         use(build, name, csrc)
-        fs.RING_STAGES = FUSED_RING.get(name, 0)
-        fs._launch_meta.cache_clear()  # the plan depends on RING_STAGES
         tok, lens, lane = fs.fused_stream_cuda(*args, cfg=cfg)
         differ = (tok != tok_p).any(dim=1) | (lens != lens_p)
         emit({"phase": "variant", "kernel": "fused_stream", "variant": name,
@@ -318,8 +474,6 @@ def fused_round(torch, cs, build, variants, cfg, params, qparams, inputs):
                   torch, lambda: fs.fused_stream_cuda(*args, cfg=cfg)),
               "int8_ms": cs.time_ms(
                   torch, lambda: fs.fused_stream_cuda(*qargs, cfg=cfg))})
-    fs.RING_STAGES = 0
-    fs._launch_meta.cache_clear()
 
 
 def main() -> int:
@@ -347,18 +501,18 @@ def main() -> int:
                    "--format=csv,noheader").read().strip()
     emit({"phase": "card", "nvidia_smi": smi})
     sound = str(_build._CSRC)
-    gemm = [("sound", sound)] + [
-        (n, variant_csrc(sound, n, "matmul.cu", p)) for n, p in GEMM.items()]
-    flash = [("sound", sound)] + [
-        (n, variant_csrc(sound, n, "flash_attention.cu", p))
-        for n, p in FLASH.items()]
-    conv = [("sound", sound)] + [
-        (n, variant_csrc(sound, f"conv1d_{n}", "conv1d.cu", p))
-        for n, p in CONV.items()]
     pick = set(filter(None, args.variants.split(",")))
-    fused = [("sound", sound)] + [
-        (n, variant_csrc(sound, f"fused_{n}", "fused_stream.cu", p))
-        for n, p in FUSED.items() if not pick or n in pick]
+
+    def variants(table, prefix, file):
+        return [("sound", sound)] + [
+            (n, variant_csrc(sound, prefix + n, file, p))
+            for n, p in table.items() if not pick or n in pick] + [
+            ("sound_last", sound)]
+
+    gemm = variants(GEMM, "", "matmul.cu")
+    flash = variants(FLASH, "", "flash_attention.cu")
+    conv = variants(CONV, "conv1d_", "conv1d.cu")
+    fused = variants(FUSED, "fused_", "fused_stream.cu")
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(3)
     cfg = ARCHS["qwen3-4b"].config()

@@ -34,10 +34,10 @@
 // or the last key; tiles wholly below it skip it.  Tiles are stored with
 // the swizzle of their row (128 bytes, or 64 / 32 at D = 32 / 16); at
 // D = 128 a tile is two boxes of 64 columns.  Query tiles are issued
-// longest first across all heads (block x = tile * heads + head, tiles
-// reversed: neighbouring blocks are the q heads that share a KV head in
-// L2), so the causal diagonal's short blocks fill the last wave.  Blocks
-// run on the grid's x alone, so no Sq is too long.
+// longest first across all heads (grid x = heads: neighbouring blocks are
+// the q heads that share a KV head in L2; y = tiles reversed, at most
+// 65,535 a launch, so a longer Sq takes more launches), and the causal
+// diagonal's short blocks fill the last wave.
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -77,7 +77,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
                        __nv_bfloat16* __restrict__ out, int hq, int hkv,
-                       int sq, int skv, float scale, int causal, int nbh) {
+                       int sq, int skv, float scale, int causal, int top) {
   using S = FaShape<D>;
   extern __shared__ uint8_t fa_smem_raw[];
   __shared__ __align__(8) uint64_t q_full;
@@ -87,10 +87,9 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
   uint8_t* ks = qs + S::Q_BYTES;
   uint8_t* vs = ks + FA_STAGES * S::KV_BYTES;
 
-  // blocks along x: query tile (longest first) * nbh + b * hq + query head
-  const int bh = static_cast<int>(blockIdx.x % nbh);
-  const int tiles = (sq + FA_BQ - 1) / FA_BQ;
-  const int q0 = (tiles - 1 - static_cast<int>(blockIdx.x / nbh)) * FA_BQ;
+  const int bh = blockIdx.x;                         // b * hq + query head
+  // top: this launch's first query tile, counted from the start
+  const int q0 = (top - static_cast<int>(blockIdx.y)) * FA_BQ;
   const int kvh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
   const int offs = skv - sq;
   const int q_end = min(q0 + FA_BQ, sq);
@@ -301,14 +300,18 @@ static int launch_d(const void* q, const void* k, const void* v, void* out,
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set = true;
   }
-  const long long blocks =
-      static_cast<long long>(b) * hq * ((sq + FA_BQ - 1) / FA_BQ);
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  flash_attention_kernel<D><<<static_cast<unsigned>(blocks), FA_THREADS,
-                              FaShape<D>::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), hq, hkv, sq, skv, scale,
-      causal, b * hq);
-  return static_cast<int>(cudaGetLastError());
+  // query tiles longest first, at most 65,535 (the grid's y) a launch
+  const int tiles = (sq + FA_BQ - 1) / FA_BQ;
+  for (int y0 = 0; y0 < tiles; y0 += 65535) {
+    const dim3 grid(b * hq, tiles - y0 < 65535 ? tiles - y0 : 65535);
+    flash_attention_kernel<D><<<grid, FA_THREADS, FaShape<D>::SMEM,
+                                stream>>>(
+        tq, tk, tv, static_cast<__nv_bfloat16*>(out), hq, hkv, sq, skv,
+        scale, causal, tiles - 1 - y0);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 extern "C" int launch_flash_attention(const void* q, const void* k,

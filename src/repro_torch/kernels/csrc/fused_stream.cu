@@ -41,26 +41,28 @@
 //   * Activations are stored with an XOR swizzle, not padding (padding 8
 //     channels to 12 would not fit): row r of a layer with stride s keeps
 //     its channel c at c ^ (((r / s) & m) << 2), m = 7 (Cin % 32 == 0),
-//     3 or 1.  The 8 frames of an A fragment read rows r = t*s + k for 8
-//     consecutive t, so r / s runs over 8 consecutive values and the
-//     fragment's 32 loads hit 32 banks at either stride.  Each layer's
-//     epilogue (and each carry written in) stores in the layout of the
-//     layer that reads it; carries going out are read back through it and
-//     written to global memory plainly.
+//     3 or 1 (fs_swizzle).  The 8 frames of an A fragment read rows
+//     r = t*s + k for 8 consecutive t, so r / s runs over 8 consecutive
+//     values and the fragment's 32 loads hit 32 banks at either stride.
+//     Each layer's epilogue (and each carry written in) stores in the
+//     layout of the layer that reads it; carries going out are read back
+//     through it and written to global memory plainly.
 //   * Tiling: one lane is M = t_out frames (64-128) x N = Cout (64-192).
 //     Eight warps a block, two blocks an SM (128 registers a thread); a
-//     warp owns 32 frames x 8*NT channels, NT up to 4 (4, 3, 3, 4 for
-//     conv2-conv5 at chunk 256: one or two passes of the eight warps).  A
-//     tensor-core layer's input rows are padded up to whole 32-frame tiles
-//     (smem_plan), so fragment loads need no clamping; rows past t_out are
-//     computed and not stored.  mma.sync asm is never reordered, so each
-//     n-tile's products go out one product at a time over its two m-tiles
-//     (two independent MMAs back to back).
-//   * What holds it back (kernel_variants.py, the timing-only switches
-//     below): A's loads and splits (each activation is loaded and split
-//     once a tap it meets and a warp column it feeds), registers (128 a
-//     thread at two blocks an SM: the NT = 4 tiles spill), B's split, and
-//     the lane's CUDA-core work; B's loads from L2 are not (b_smem).
+//     warp owns FS_FRAME_TILE = 32 frames (two m16 tiles) x 8*NT channels,
+//     NT up to 4 (4, 3, 3, 4 for conv2-conv5 at chunk 256: one or two
+//     passes of the eight warps).  A tensor-core layer's input rows are
+//     padded up to whole 32-frame tiles (smem_plan; the launcher refuses a
+//     plan that does not hold them), so fragment loads need no clamping;
+//     rows past t_out are computed and not stored.  mma.sync asm is never
+//     reordered, so each n-tile's products go out one product at a time
+//     over its two m-tiles (two independent MMAs back to back).
+//   * What holds it back (the timing-only patches of
+//     scripts/kernel_variants.py): A's loads and splits (each activation
+//     is loaded and split once a tap it meets and a warp column it feeds),
+//     registers (128 a thread at two blocks an SM: the NT = 4 tiles
+//     spill), B's split, and the lane's CUDA-core work; B's loads from L2
+//     are not (b_smem).
 // Every other layer keeps the CUDA-core code below and its fmaf order (for
 // ci: for k: fmaf, as conv1d.cu and matmul.cu): conv1 (Cin 1), the head
 // (Cout 5) and the step codec's layers, whose goldens are bitwise.
@@ -73,6 +75,7 @@
 // weights packed four input channels to a word (1/4 the fp32 bytes, read
 // from L2), and applies the epilogue fma(float(acc), act_scale * w_scale,
 // bias) with one rounding, the arithmetic of the unfused int8 path.
+#include <algorithm>
 #include <cstdint>
 #include <initializer_list>
 
@@ -85,21 +88,9 @@ constexpr int FS_QMAX = 127;
 constexpr int FS_INT8_THREADS = 512;
 constexpr int FS_WARPS = 8;              // fp32 kernel: warps a block
 constexpr int FS_THREADS = FS_WARPS * 32;
-constexpr int FS_BLOCKS = FS_WARPS >= 16 ? 1 : 2;  // fp32 blocks an SM
-constexpr int FS_STAGES = 0;    // weight ring depth; 0: B straight from L2
-// the 3xTF32 split: 0 cvt.rna (mma.cuh split_tf32), 1 integer adds and
-// masks (split_tf32_int, the same bits), 2 none (each operand fed whole as
-// hi and lo: wrong sums, for timing the split's share)
-constexpr int FS_SPLIT = 1;
-constexpr int FS_PASSES = 3;  // 3xTF32 (1: hi x hi only, under the bar)
-constexpr int FS_MAX_NT = 4;  // widest warp tile, 8 * 4 channels
-// timing only, wrong results: B read from shared memory, not L2; the
-// CUDA-core layers, argmax and collapse skipped; A loaded (and so split)
-// at a slice's first tap only
-constexpr bool FS_B_SMEM_TIMING = false;
-constexpr bool FS_TC_ONLY_TIMING = false;
-constexpr bool FS_A_ONCE_TIMING = false;
-constexpr int FS_META = 11;              // ints a layer in the meta array
+constexpr int FS_BLOCKS = 2;             // fp32 blocks an SM
+constexpr int FS_FRAME_TILE = 32;        // frames of a warp's tile
+constexpr int FS_META = 10;              // ints a layer in the meta array
 
 struct FsLayer {
   // fp32 layers: fp32 (K, cin, cout).  int8 layers: int32 words packing
@@ -115,7 +106,7 @@ struct FsLayer {
   int tc;                  // on the tensor cores
   int nt;                  // tensor-core layers: n-tiles of 8 a warp
   int in_off, out_off, scratch_off;  // floats into shared memory
-  int sw_m;                // the input's swizzle mask (0: plain rows)
+  int sw_m;                // the input's swizzle mask (fs_swizzle; 0: plain)
 };
 
 struct FsParams {
@@ -206,50 +197,23 @@ __device__ __forceinline__ void conv_layer(const FsLayer& L, const float* in,
   }
 }
 
-// The 3xTF32 split (mma.cuh) of v into the MMA's operands hi and lo.
-__device__ __forceinline__ void fs_split(float v, uint32_t& hi, uint32_t& lo) {
-  if constexpr (FS_SPLIT == 0)
-    split_tf32(v, hi, lo);
-  else if constexpr (FS_SPLIT == 1)
-    split_tf32_int(v, hi, lo);
-  else
-    hi = lo = __float_as_uint(v);
-}
-
 // One conv layer of one lane on the tensor cores (see the note at the top).
 // `in` holds the [carry | input] rows in this layer's swizzled layout,
-// padded to whole 32-frame tiles; `ring` is the layer's scratch.
+// padded to whole FS_FRAME_TILE-frame tiles.
 template <int NT>
 __device__ __forceinline__ void tc_layer(const FsLayer& L, const float* in,
-                                         float* ring, const FsOut& o,
-                                         int t_out, int tid) {
+                                         const FsOut& o, int t_out, int tid) {
   const int K = L.K, s = L.stride, cin = L.cin, cout = L.cout;
   const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
-  const int WP = cout + 8;            // ring row pitch (floats)
-  const int stage_f = K * 8 * WP;     // one slice: K taps x 8 channels
   const int slices = cin / 8;
   const int ngroups = cout / (8 * NT);
-  const int items = (t_out + 31) / 32 * ngroups;
+  const int items = (t_out + FS_FRAME_TILE - 1) / FS_FRAME_TILE * ngroups;
   const int R = 8 * s * cin;          // 8 frames of input rows
   const int swm = L.sw_m;
   const float* w = static_cast<const float*>(L.w);
 
-  // slice sl's raw weights, row k * 8 + i = w[k][8 sl + i][:], one warp a row
-  auto stage = [&](int sl) {
-    float* dst = ring + (sl % max(FS_STAGES, 1)) * stage_f;
-    const int cq = cout / 4;
-    for (int row = warp; row < K * 8; row += FS_WARPS) {
-      const float* src =
-          w + (static_cast<size_t>(row >> 3) * cin + sl * 8 + (row & 7)) * cout;
-      for (int c = lane; c < cq; c += 32)
-        cp_async16(dst + row * WP + 4 * c, src + 4 * c, true);
-    }
-  };
-
-  for (int it0 = 0; it0 < items; it0 += FS_WARPS) {
-    const int it = it0 + warp;
-    const bool active = it < items;
-    const int tb = it / ngroups * 32;
+  for (int it = warp; it < items; it += FS_WARPS) {
+    const int tb = it / ngroups * FS_FRAME_TILE;
     const int n0 = it % ngroups * 8 * NT;
     const float* arow = in + (tb + g) * s * cin;
     float acc[2][NT][4];
@@ -260,35 +224,11 @@ __device__ __forceinline__ void tc_layer(const FsLayer& L, const float* in,
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
 
-    if constexpr (FS_STAGES > 0) {
-      __syncthreads();  // the ring's previous pass is consumed
-      if constexpr (FS_STAGES > 1) stage(0);
-      cp_async_commit();
-    }
     for (int sl = 0; sl < slices; ++sl) {
-      const float* bb;         // B fragment b0 of n-tile 0 at tap 0
-      int tap_step, half;      // to the next tap, to b1
-      if constexpr (FS_STAGES == 0) {
-        bb = w + static_cast<size_t>(sl * 8 + t4) * cout + n0 + g;
-        tap_step = cin * cout;
-        half = 4 * cout;
-      } else {
-        if constexpr (FS_STAGES == 1) {
-          if (sl > 0) __syncthreads();  // slice sl - 1 is consumed
-          stage(sl);
-          cp_async_commit();
-        }
-        cp_async_wait<0>();
-        __syncthreads();  // slice sl landed; slice sl - 1 is consumed
-        if constexpr (FS_STAGES > 1) {
-          if (sl + 1 < slices) stage(sl + 1);
-          cp_async_commit();
-        }
-        bb = ring + (sl % max(FS_STAGES, 1)) * stage_f + t4 * WP + n0 + g;
-        tap_step = 8 * WP;
-        half = 4 * WP;
-      }
-      if (!active) continue;
+      // B fragment b0 of n-tile 0 at tap 0, read from L2; to the next tap,
+      // to b1
+      const float* bb = w + static_cast<size_t>(sl * 8 + t4) * cout + n0 + g;
+      const int tap_step = cin * cout, half = 4 * cout;
       float part[2][NT][4];
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
@@ -317,16 +257,8 @@ __device__ __forceinline__ void tc_layer(const FsLayer& L, const float* in,
         const float* wb = bb + k * tap_step;
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
-          if constexpr (FS_B_SMEM_TIMING) {
-            wv[nt][0] = in[(k * 64 + nt * 8 + lane) & 1023];
-            wv[nt][1] = in[(k * 64 + nt * 8 + lane + 32) & 1023];
-          } else if constexpr (FS_STAGES == 0) {
-            wv[nt][0] = __ldg(wb + nt * 8);
-            wv[nt][1] = __ldg(wb + half + nt * 8);
-          } else {
-            wv[nt][0] = wb[nt * 8];
-            wv[nt][1] = wb[half + nt * 8];
-          }
+          wv[nt][0] = __ldg(wb + nt * 8);
+          wv[nt][1] = __ldg(wb + half + nt * 8);
         }
       };
       // A and B one tap ahead: tap k + 1 loads while tap k's MMAs run
@@ -339,7 +271,8 @@ __device__ __forceinline__ void tc_layer(const FsLayer& L, const float* in,
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) fs_split(xa[mt][e], ah[mt][e], al[mt][e]);
+          for (int e = 0; e < 4; ++e)
+            split_tf32_int(xa[mt][e], ah[mt][e], al[mt][e]);
         float wk[NT][2];
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
@@ -351,7 +284,7 @@ __device__ __forceinline__ void tc_layer(const FsLayer& L, const float* in,
           ++nq;
         }
         if (k + 1 < K) {
-          if (!FS_A_ONCE_TIMING) load_a(k + 1, nq, xa);
+          load_a(k + 1, nq, xa);
           load_b(k + 1, wv);
         }
         // per n-tile: its B split, then each of the three products (in
@@ -360,16 +293,14 @@ __device__ __forceinline__ void tc_layer(const FsLayer& L, const float* in,
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
           uint32_t bh0, bl0, bh1, bl1;
-          fs_split(wk[nt][0], bh0, bl0);
-          fs_split(wk[nt][1], bh1, bl1);
-          if constexpr (FS_PASSES == 3) {
+          split_tf32_int(wk[nt][0], bh0, bl0);
+          split_tf32_int(wk[nt][1], bh1, bl1);
 #pragma unroll
-            for (int mt = 0; mt < 2; ++mt)
-              mma_tf32_1688(part[mt][nt], al[mt], bh0, bh1);
+          for (int mt = 0; mt < 2; ++mt)
+            mma_tf32_1688(part[mt][nt], al[mt], bh0, bh1);
 #pragma unroll
-            for (int mt = 0; mt < 2; ++mt)
-              mma_tf32_1688(part[mt][nt], ah[mt], bl0, bl1);
-          }
+          for (int mt = 0; mt < 2; ++mt)
+            mma_tf32_1688(part[mt][nt], ah[mt], bl0, bl1);
 #pragma unroll
           for (int mt = 0; mt < 2; ++mt)
             mma_tf32_1688(part[mt][nt], ah[mt], bh0, bh1);
@@ -382,7 +313,7 @@ __device__ __forceinline__ void tc_layer(const FsLayer& L, const float* in,
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[mt][nt][e];
     }
-    if (!active) continue;
+    // bias and activation, stored in the next layer's layout
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       const int co = n0 + nt * 8 + 2 * t4;
@@ -521,16 +452,13 @@ __device__ __forceinline__ void run_layer(const FsLayer& L, const float* in,
   } else {
     if (L.tc) {
       switch (L.nt) {
-        case 1: tc_layer<1>(L, in, scratch, o, t_out, tid); return;
-        case 2: tc_layer<2>(L, in, scratch, o, t_out, tid); return;
-        case 3: tc_layer<3>(L, in, scratch, o, t_out, tid); return;
-        default:
-          if constexpr (FS_MAX_NT >= 4) tc_layer<4>(L, in, scratch, o, t_out, tid);
-          return;
+        case 1: tc_layer<1>(L, in, o, t_out, tid); return;
+        case 2: tc_layer<2>(L, in, o, t_out, tid); return;
+        case 3: tc_layer<3>(L, in, o, t_out, tid); return;
+        default: tc_layer<4>(L, in, o, t_out, tid); return;
       }
     }
   }
-  if constexpr (!INT8 && FS_TC_ONLY_TIMING) return;
   if (L.cout % 4 == 0 && reinterpret_cast<uintptr_t>(L.w) % 16 == 0)
     conv_layer<4, 4>(L, in, o, t_out, tid, nt);
   else
@@ -615,7 +543,7 @@ fused_stream_kernel(const FsParams p) {
   __syncthreads();
 
   // incremental CTC collapse + counters (F <= a few hundred: one thread)
-  if (tid == 0 && !(FS_TC_ONLY_TIMING && !INT8)) {
+  if (tid == 0) {
     int prev = rst ? 0 : p.prev[lane];
     int n = 0;
     int* tok = p.tokens + static_cast<size_t>(lane) * F;
@@ -636,10 +564,11 @@ fused_stream_kernel(const FsParams p) {
 // warp over all passes of the FS_WARPS warps, then the widest tile (fewer
 // A fragments split, fewer passes over the weights).
 static int pick_nt(int cout, int t_out) {
-  const int n8 = cout / 8, mg = (t_out + 31) / 32;
+  const int n8 = cout / 8;
+  const int mg = (t_out + FS_FRAME_TILE - 1) / FS_FRAME_TILE;
   int best = 1, cost = 1 << 30;
   for (int nt : {1, 2, 3, 4}) {
-    if (nt > FS_MAX_NT || n8 % nt) continue;
+    if (n8 % nt) continue;
     const int items = mg * (n8 / nt);
     const int c = (items + FS_WARPS - 1) / FS_WARPS * nt;
     if (c <= cost) {
@@ -650,13 +579,59 @@ static int pick_nt(int cout, int t_out) {
   return best;
 }
 
+// The XOR swizzle mask of a tensor-core layer's input (fs_idx): as many
+// bits as whole rows of Cin channels hold.
+static int fs_swizzle(int cin) {
+  return cin % 32 == 0 ? 7 : (cin % 16 == 0 ? 3 : 1);
+}
+
+// Whether the plan's offsets hold every region the kernel touches, layer by
+// layer, inside [0, cls_off) and apart: its [carry | input] rows (a
+// tensor-core layer's padded to whole FS_FRAME_TILE-frame tiles, which its
+// fragments read), its output (the next layer's carry and input rows, or
+// the logits) and an int8 layer's quantized input; and the class buffer
+// inside the block's shared memory.  The plan is kernels/fused_stream.py
+// smem_plan's: this is where a plan that does not match the kernel stops.
+static bool plan_fits(const FsParams& p, int chunk, int smem_bytes) {
+  long long t = chunk;
+  for (int l = 0; l < p.n_layers; ++l) {
+    const FsLayer& L = p.layers[l];
+    const long long t_out = t / L.stride, carry = L.K - L.stride;
+    long long rows = carry + t;
+    if (L.tc) {
+      const long long tiles = (t_out + FS_FRAME_TILE - 1) / FS_FRAME_TILE;
+      rows = std::max(rows, (tiles * FS_FRAME_TILE - 1) * L.stride + L.K);
+      if (L.out_off % 2) return false;  // float2 stores
+    }
+    long long out = t_out * L.cout;
+    if (l + 1 < p.n_layers) {
+      const FsLayer& N = p.layers[l + 1];
+      out = (N.K - N.stride + t_out) * N.cin;
+    }
+    const long long q = L.quantized ? ((carry + t) * L.cin + 3) / 4 : 0;
+    const long long r[3][2] = {{L.in_off, L.in_off + rows * L.cin},
+                               {L.out_off, L.out_off + out},
+                               {L.scratch_off, L.scratch_off + q}};
+    for (int i = 0; i < 3; ++i) {
+      if (r[i][1] == r[i][0]) continue;
+      if (r[i][0] < 0 || r[i][1] > p.cls_off) return false;
+      for (int j = 0; j < i; ++j)
+        if (r[j][1] > r[j][0] && r[i][0] < r[j][1] && r[j][0] < r[i][1])
+          return false;
+    }
+    t = t_out;
+  }
+  return t == p.n_frames &&
+         (static_cast<long long>(p.cls_off) + p.n_frames) * 4 <= smem_bytes;
+}
+
 // meta: n_layers x (K, stride, cin, cout, act, quantized, tc, in_off,
-// out_off, scratch_off, sw_m); ptrs: n_layers x (w, b, carry_in,
-// carry_out, scale, act_scale).  Both are host arrays; the offsets are
-// kernels/fused_stream.py smem_plan's.  smem_bytes: the plan's total.  A
-// tensor-core layer needs cin and cout multiples of 8 (and w 16-byte
-// aligned for a ring); int8 layers run in the int8 kernel, which has no
-// tensor-core layer.
+// out_off, scratch_off); ptrs: n_layers x (w, b, carry_in, carry_out,
+// scale, act_scale).  Both are host arrays; the offsets are
+// kernels/fused_stream.py smem_plan's, and a plan that does not hold the
+// kernel's regions is refused (plan_fits).  smem_bytes: the plan's total.
+// A tensor-core layer needs cin and cout multiples of 8; int8 layers run in
+// the int8 kernel, which has no tensor-core layer.
 extern "C" int launch_fused_stream(const int* meta, void* const* ptrs,
                                    int n_layers, const void* rows,
                                    const void* pads, const void* reset,
@@ -684,7 +659,6 @@ extern "C" int launch_fused_stream(const int* meta, void* const* ptrs,
     L.in_off = m[7];
     L.out_off = m[8];
     L.scratch_off = m[9];
-    L.sw_m = m[10];
     L.w = ptrs[6 * l];
     L.b = static_cast<const float*>(ptrs[6 * l + 1]);
     L.carry_in = static_cast<const float*>(ptrs[6 * l + 2]);
@@ -693,8 +667,8 @@ extern "C" int launch_fused_stream(const int* meta, void* const* ptrs,
     L.act_scale = static_cast<const float*>(ptrs[6 * l + 5]);
     t /= L.stride;
     L.nt = L.tc ? pick_nt(L.cout, t) : 0;
-    if (L.tc && (L.cin % 8 || L.cout % 8 || L.scratch_off % 4 ||
-                 (FS_STAGES > 0 && reinterpret_cast<uintptr_t>(L.w) % 16)))
+    L.sw_m = L.tc ? fs_swizzle(L.cin) : 0;
+    if (L.tc && (L.cin % 8 || L.cout % 8))
       return static_cast<int>(cudaErrorInvalidValue);
     any_int8 = any_int8 || L.quantized;
     any_tc = any_tc || L.tc;
@@ -715,6 +689,8 @@ extern "C" int launch_fused_stream(const int* meta, void* const* ptrs,
   p.chunk = chunk;
   p.n_frames = n_frames;
   p.cls_off = cls_off;
+  if (!plan_fits(p, chunk, smem_bytes))
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(smem_bytes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;

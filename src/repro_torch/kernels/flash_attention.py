@@ -49,9 +49,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if causal and sq > skv:
         raise ValueError(f"flash_attention: causal with Sq {sq} > Skv {skv} "
                          "leaves rows with no key")
-    if b * hq * -(-sq // 128) > 2 ** 31 - 1:
-        raise ValueError(f"flash_attention: {b} x {hq} heads of Sq = {sq} "
-                         "need more than 2^31 - 1 blocks of 128 rows")
+    if b * hq > 2 ** 31 - 1:
+        raise ValueError(f"flash_attention: {b} x {hq} heads exceed the "
+                         "grid's x limit (2^31 - 1)")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"flash_attention {name}: must be 16-byte "

@@ -30,9 +30,10 @@ from repro_torch.kernels import ref
 from repro_torch.quant import core as qcore
 
 MAX_LAYERS = 8
-RING_STAGES = 0     # csrc/fused_stream.cu FS_STAGES: 0, B read from L2
-FRAME_TILE = 32     # frames of a warp's tile on the tensor cores
-META = 11           # ints a layer in the kernel's meta array
+# frames of a warp's tile on the tensor cores (csrc/fused_stream.cu
+# FS_FRAME_TILE; the launcher refuses a plan padded for fewer)
+FRAME_TILE = 32
+META = 10           # ints a layer in the kernel's meta array
 _ARGS = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
          + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
@@ -120,23 +121,15 @@ def on_tensor_cores(sp) -> bool:
         sp.cin, sp.cout, sp.ksize, sp.stride)
 
 
-def swizzle_mask(cin: int) -> int:
-    """The XOR swizzle of a tensor-core layer's input rows: channel c of
-    row r sits at ``c ^ (((r // stride) & m) << 2)``, m as wide as whole
-    rows allow (``csrc/fused_stream.cu`` fs_idx)."""
-    return 7 if cin % 32 == 0 else 3 if cin % 16 == 0 else 1
-
-
 @dataclasses.dataclass(frozen=True)
 class LayerPlan:
     """One layer's place in the kernel's shared memory (offsets in floats):
     its [carry | input] rows, its output (the next layer's input, or the
-    logits) and its scratch (the weight ring, or the quantized input)."""
+    logits) and its scratch (an int8 layer's quantized input)."""
     tc: bool
     in_off: int
     out_off: int
     scratch_off: int
-    sw_m: int           # the input's swizzle mask, 0 for plain rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,13 +149,12 @@ def smem_plan(cfg, chunk: int, quantized=None) -> SmemPlan:
     Layer i's input sits at the low end and its output at the high end when
     i is even, the other way round when i is odd (the output of layer i is
     the input of layer i + 1, in place); the gap between them is the
-    layer's scratch: an int8 layer's quantized input (and a tensor-core
-    layer's ring of ``RING_STAGES`` raw weight slices, K x 8 x (Cout + 8)
-    floats each, where the kernel is built with one).  A tensor-core
+    layer's scratch, an int8 layer's quantized input.  A tensor-core
     layer's input rows are padded to whole ``FRAME_TILE``-frame tiles.
     The size is the largest layer's input + output + scratch, then the
-    class buffer.  Raises ``ValueError`` past the block's shared
-    memory."""
+    class buffer.  Raises ``ValueError`` past the block's shared memory.
+    The kernel's launcher checks the plan against its own tile (and the
+    swizzle of a tensor-core layer's rows is the kernel's alone)."""
     specs = _specs(cfg)
     quantized = list(quantized or [False] * len(specs))
     int8 = any(quantized)
@@ -171,14 +163,12 @@ def smem_plan(cfg, chunk: int, quantized=None) -> SmemPlan:
     for sp, q, on_tc in zip(specs, quantized, tc):
         t_out = t // sp.stride
         rows = sp.carry_rows + t
-        ring = 0
         if on_tc:
             tiles = -(-t_out // FRAME_TILE)
             rows = max(rows, (tiles * FRAME_TILE - 1) * sp.stride + sp.ksize)
-            ring = RING_STAGES * sp.ksize * 8 * (sp.cout + 8)
         ins.append(rows * sp.cin)
         scratch.append(_round4(-(-(sp.carry_rows + t) * sp.cin // 4))
-                       if q else ring)
+                       if q else 0)
         t = t_out
     outs = ins[1:] + [t * specs[-1].cout]
     total = max(_round4(i) + _round4(o) + s
@@ -190,8 +180,7 @@ def smem_plan(cfg, chunk: int, quantized=None) -> SmemPlan:
         high = total - _round4(outs[i] if lo_in else ins[i])
         layers.append(LayerPlan(
             tc=tc[i], in_off=0 if lo_in else high,
-            out_off=high if lo_in else 0, scratch_off=low,
-            sw_m=swizzle_mask(sp.cin) if tc[i] else 0))
+            out_off=high if lo_in else 0, scratch_off=low))
     n_frames = chunk // cfg.total_stride
     nbytes = (total + n_frames) * 4
     if nbytes > _build.SMEM_LIMIT:
@@ -211,7 +200,7 @@ def _launch_meta(cfg, chunk: int, quantized: tuple):
         meta[META * i: META * i + META] = [
             sp.ksize, sp.stride, sp.cin, sp.cout,
             ref.ACTIVATION_CODES[sp.activation], int(quantized[i]),
-            int(lp.tc), lp.in_off, lp.out_off, lp.scratch_off, lp.sw_m]
+            int(lp.tc), lp.in_off, lp.out_off, lp.scratch_off]
     return plan, meta
 
 

@@ -151,12 +151,15 @@ def test_planted_fault_applies_to_the_flash_source(name):
         pf.mutate(mutated, name)      # each mutation applies once only
 
 
+VARIANT_TABLES = {"matmul.cu": kv.GEMM, "flash_attention.cu": kv.FLASH,
+                  "conv1d.cu": kv.CONV, "fused_stream.cu": kv.FUSED}
+
+
 @pytest.mark.parametrize("file,name", [
-    *(("matmul.cu", n) for n in sorted(kv.GEMM)),
-    *(("flash_attention.cu", n) for n in sorted(kv.FLASH))])
+    (file, n) for file, table in VARIANT_TABLES.items() for n in sorted(table)])
 def test_kernel_variant_patches_apply_to_the_source(file, name):
     path = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc", file)
     with open(path) as f:
         text = f.read()
-    table = kv.GEMM if file == "matmul.cu" else kv.FLASH
+    table = VARIANT_TABLES[file]
     assert kv.patch(text, name, table[name]) != text

@@ -154,20 +154,16 @@ def test_fused_equals_unfused_step_with_reset():
 
 def test_fused_smem_plan_fits_at_full_width():
     """The CUDA kernel's shared memory at chunk 256: each layer's input and
-    output at the two ends, a tensor-core layer's weight ring (if the
-    kernel has one) between them.  conv4 is the largest: its input
-    (7 + 128) x 96 and conv5's input (8 + 64) x 192, 105 KB with the class
-    buffer and no ring, so two lanes share an SM; chunk 1024 does not
-    fit."""
+    output at the two ends.  conv4 is the largest: its input (7 + 128) x
+    96 and conv5's input (8 + 64) x 192, 105 KB with the class buffer, so
+    two lanes share an SM; chunk 1024 does not fit."""
     cfg = tbc.BasecallerConfig()
     plan = tfs.smem_plan(cfg, 256)
-    ring = tfs.RING_STAGES * 9 * 8 * (192 + 8)
-    conv4 = (7 + 128) * 96 + (8 + 64) * 192 + ring
+    conv4 = (7 + 128) * 96 + (8 + 64) * 192
     assert plan.cls_off == conv4
     assert plan.bytes == (conv4 + 64) * 4 <= _build.SMEM_LIMIT
     assert plan.layers[3].in_off == conv4 - (7 + 128) * 96
     assert plan.layers[3].scratch_off == (8 + 64) * 192
-    if tfs.RING_STAGES == 0:
-        assert 2 * plan.bytes <= 228 * 1024 - 2 * 1024
+    assert 2 * plan.bytes <= 228 * 1024 - 2 * 1024
     with pytest.raises(ValueError, match="shared memory"):
         tfs.smem_plan(cfg, 1024)

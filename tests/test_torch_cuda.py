@@ -264,6 +264,42 @@ def test_fused_fp32_swizzled_layouts_at_ragged_chunk(dev):
             torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("fault", ["overlap", "short"])
+def test_fused_launcher_refuses_a_plan_the_kernel_cannot_use(
+        dev, monkeypatch, fault):
+    """The launcher holds smem_plan's offsets against the regions the
+    kernel touches: an output laid over its input, or a class buffer past
+    the block's shared memory, is refused before anything runs."""
+    import dataclasses
+    cfg = bc.BasecallerConfig()
+    sound = kf.smem_plan
+
+    def bad(*a, **kw):
+        plan = sound(*a, **kw)
+        if fault == "short":
+            return dataclasses.replace(plan, bytes=plan.bytes - 4)
+        layers = list(plan.layers)
+        layers[2] = dataclasses.replace(layers[2], out_off=layers[2].in_off)
+        return dataclasses.replace(plan, layers=tuple(layers))
+
+    params = bc.init(_g(12), cfg, device=dev)
+    lanes, chunk = 2, 256
+    conv = tuple(torch.zeros((lanes, s.carry_rows, s.cin), device=dev)
+                 for s in bc.stream_layer_specs(cfg))
+    z = torch.zeros((lanes,), dtype=torch.int32, device=dev)
+    args = (torch.randn((lanes, chunk), generator=_g(13)).to(dev),
+            torch.zeros((lanes, chunk // 4), device=dev),
+            torch.zeros((lanes,), device=dev), z, z, z, conv, params)
+    kf.fused_stream_cuda(*args, cfg=cfg)
+    kf._launch_meta.cache_clear()
+    monkeypatch.setattr(kf, "smem_plan", bad)
+    try:
+        with pytest.raises(RuntimeError, match="launch_fused_stream"):
+            kf.fused_stream_cuda(*args, cfg=cfg)
+    finally:
+        kf._launch_meta.cache_clear()
+
+
 def test_step_flowcell_goldens_on_card_equal_cpu(dev):
     import repro_torch.engine as te
     from repro_torch.data import genome as G

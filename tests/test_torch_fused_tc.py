@@ -1,8 +1,8 @@
 """The fused fp32 tick's tensor-core design, on the CPU.
 
 * ``fused_stream.smem_plan``: each layer's input and output at the two ends
-  of the block's shared memory, the weight ring of a tensor-core layer in
-  the gap, 105 KB at the paper CNN's chunk of 256 (two lanes an SM),
+  of the block's shared memory, an int8 layer's quantized input in the
+  gap, 105 KB at the paper CNN's chunk of 256 (two lanes an SM),
   ``ValueError`` past a block's 227 KB.
 * ``fused_stream.on_tensor_cores``: the per-layer variant predicate, the
   unfused conv's (``conv1d.tensor_core_shape``) for every conv layer of the
@@ -33,10 +33,10 @@ STEP = dict(kernels=(2, 1), channels=(5, 5), strides=(2, 1))
 
 def _regions(plan, cfg, chunk):
     """Each layer's (input, output, scratch) float ranges in the plan: a
-    tensor-core layer's input padded to whole 32-frame tiles and its weight
-    ring (if any), the output the next layer's input (or the logits)."""
+    tensor-core layer's input padded to whole 32-frame tiles, the output
+    the next layer's input (or the logits), no scratch (fp32 layers)."""
     specs = tbc.stream_layer_specs(cfg)
-    sizes, rings, t = [], [], chunk
+    sizes, t = [], chunk
     for sp, lp in zip(specs, plan.layers):
         t_out = t // sp.stride
         rows = sp.carry_rows + t
@@ -44,13 +44,11 @@ def _regions(plan, cfg, chunk):
             rows = max(rows, (-(-t_out // 32) * 32 - 1) * sp.stride
                        + sp.ksize)
         sizes.append(rows * sp.cin)
-        rings.append(tfs.RING_STAGES * sp.ksize * 8 * (sp.cout + 8)
-                     if lp.tc else 0)
         t = t_out
     outs = sizes[1:] + [t * specs[-1].cout]
     return [((lp.in_off, lp.in_off + n_in), (lp.out_off, lp.out_off + n_out),
-             (lp.scratch_off, lp.scratch_off + ring))
-            for lp, n_in, n_out, ring in zip(plan.layers, sizes, outs, rings)]
+             (lp.scratch_off, lp.scratch_off))
+            for lp, n_in, n_out in zip(plan.layers, sizes, outs)]
 
 
 @pytest.mark.parametrize("chunk", [256, 64, 68])
@@ -66,11 +64,10 @@ def test_smem_plan_regions_are_disjoint_and_fit(chunk):
         for a, b in zip(spans, spans[1:]):
             assert a[1] <= b[0]
         assert lp.scratch_off % 4 == 0 and lp.in_off % 4 == 0
-    # conv2-conv5 on the tensor cores, their inputs swizzled over 32
-    # channels (Cin 64, 64, 96, 192)
+        assert lp.out_off % 4 == 0
+    # conv2-conv5 on the tensor cores
     assert [lp.tc for lp in plan.layers] == [False, True, True, True, True,
                                              False]
-    assert [lp.sw_m for lp in plan.layers] == [0, 7, 7, 7, 7, 0]
 
 
 def test_smem_plan_at_full_width_and_past_it():
@@ -85,15 +82,15 @@ def test_smem_plan_at_full_width_and_past_it():
     # int8 layers have no tensor-core layer; their scratch holds the
     # quantized input
     int8 = tfs.smem_plan(cfg, 256, [True] * 6)
-    assert not any(lp.tc or lp.sw_m for lp in int8.layers)
+    assert not any(lp.tc for lp in int8.layers)
     assert int8.bytes == full.bytes + (7 + 128) * 96
 
 
 @pytest.mark.parametrize("quantized", [False, True])
 def test_launch_meta_carries_the_plan(quantized):
     """The kernel's per-layer meta array (K, stride, Cin, Cout, activation,
-    int8, tensor cores, input, output and scratch offsets, swizzle mask)
-    is the plan's, and is built once a shape."""
+    int8, tensor cores, input, output and scratch offsets) is the plan's,
+    and is built once a shape."""
     cfg = tbc.BasecallerConfig()
     q = (quantized,) * 6
     plan, meta = tfs._launch_meta(cfg, 256, q)
@@ -103,8 +100,7 @@ def test_launch_meta_carries_the_plan(quantized):
     for sp, lp, row in zip(tbc.stream_layer_specs(cfg), plan.layers, rows):
         assert row == [sp.ksize, sp.stride, sp.cin, sp.cout,
                        ref.ACTIVATION_CODES[sp.activation], int(quantized),
-                       int(lp.tc), lp.in_off, lp.out_off, lp.scratch_off,
-                       lp.sw_m]
+                       int(lp.tc), lp.in_off, lp.out_off, lp.scratch_off]
 
 
 @pytest.mark.parametrize("cfg_kw", [{}, STEP], ids=["paper", "step_codec"])
@@ -113,8 +109,6 @@ def test_variant_predicate_is_the_unfused_convs(cfg_kw):
     for sp in tbc.stream_layer_specs(cfg):
         assert tfs.on_tensor_cores(sp) == kc.tensor_core_shape(
             sp.cin, sp.cout, sp.ksize, sp.stride), sp.name
-    assert tfs.swizzle_mask(8) == 1 and tfs.swizzle_mask(16) == 3
-    assert tfs.swizzle_mask(96) == 7
 
 
 def _tf32x3_conv(x, w, b, stride, activation):
