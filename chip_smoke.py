@@ -31,15 +31,19 @@ Phases, each printing JSON lines:
    in the ``tol`` fields), which kernel ran where a function has two
    (``variant``: conv1d on the tensor cores, 3xTF32, or the CUDA cores;
    matmul and matmul_int8 skinny-N or tiled; banded_align in shared
-   memory or scratch; the fused tick's layers on the tensor cores or the
-   CUDA cores), kernel, plain and library times, and the bound the card's
-   data sheet sets (conv1d and the fused tick also ``bound_fp32_ms``, at
-   the CUDA cores' fp32 rate; the fused tick ``unfused_ms``, the unfused
-   chain's six launches on the same inputs, and whether it equals them
-   bit for bit; the head matmuls also ``device_ms`` and
-   ``library_device_ms``, the kernels' device time with their launches
-   queued back to back (``device_ms``), since issuing them takes the host
-   longer than the card takes to run them).
+   memory or scratch; the fused ticks' layers, fp32 and int8, on the
+   tensor cores or the CUDA cores), kernel, plain and library times, and
+   the bound the card's data sheet sets (conv1d, the fused tick and
+   ssd_scan also ``bound_fp32_ms``, at the CUDA cores' fp32 rate, beside
+   ``bound_ms`` at the TF32 rate of the products the kernel forms; the
+   fused tick ``unfused_ms``, the unfused chain's six launches on the
+   same inputs, and whether it equals them bit for bit; the int8 fused
+   tick whether its tokens and carries equal the unfused int8 kernels';
+   the head matmuls and both fused ticks also ``device_ms``, the kernels'
+   device time with their launches queued back to back (``device_ms``),
+   since issuing them takes the host longer than the card takes to run
+   them; ssd_scan ``device_ms_by_pass``, each of its three kernels by the
+   profiler).
 3. ``step_goldens``: the step-codec flowcell (8 lanes) on the card, fused
    and unfused x pipeline depth 1 and 2, and once on the CPU (plain): all
    five per-read goldens must be equal; once with fp32 params, once with
@@ -54,7 +58,8 @@ Phases, each printing JSON lines:
    matmul, every fused step with 4 conv layers on the tensor cores.  Then
    ``edge_int8`` at the same width, with the same CNN calibrated once by
    ``quantize_edge_params``: the same metrics, goldens fused == unfused
-   with no exception, every unfused head on the skinny int8 matmul, and
+   with no exception, every unfused head on the skinny int8 matmul,
+   every fused int8 step with its 4 conv layers on the tensor cores, and
    three ticks on 8 lanes equal to the CPU's plain run bit for bit.
 5. ``basecall``: the ``basecall`` workload, ``default`` and ``edge_int8``,
    at batch 16 x chunk 2048 on the card and on the CPU (plain): int8 reads
@@ -88,7 +93,10 @@ Phases, each printing JSON lines:
    ``matmul`` with ``skinny_launches``; ``matmul_int8`` with
    ``skinny_launches``, ``device_ms`` and ``library_device_ms``;
    ``fused_stream`` with ``tc_launches``, ``tc_layers``, ``device_ms``,
-   ``unfused_ms``, ``unfused_device_ms`` and ``bound_fp32_ms``).
+   ``unfused_ms``, ``unfused_device_ms`` and ``bound_fp32_ms``;
+   ``fused_stream_int8`` with ``tc_launches``, ``tc_layers`` and
+   ``device_ms``; ``ssd_scan`` with ``device_ms``, ``device_ms_by_pass``
+   and ``bound_fp32_ms``).
 
 TF32 is off for the whole run (``torch.backends.cuda.matmul.allow_tf32``
 and ``torch.backends.cudnn.allow_tf32``): the plain versions and the
@@ -226,6 +234,25 @@ def device_ms(torch, fn, reps: int = 20) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def kernel_device_ms(torch, fn, reps: int = 5) -> dict:
+    """Device ms a call of each kernel ``fn`` launches, by kernel name:
+    ``torch.profiler`` over ``reps`` calls after a warm-up (a few launches,
+    so no record is dropped)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            name = ev.name.split("(")[0].split("<")[0].split(" ")[-1]
+            out[name] = out.get(name, 0.0) + ev.time_range.elapsed_us() / 1e3
+    return {k: v / reps for k, v in out.items()}
 
 
 def nbytes(*ts) -> int:
@@ -660,13 +687,26 @@ def check_matmul_int8(torch, peaks, table, a, w, label, on_path):
 def check_fused_int8(torch, bc, peaks, table, qparams, cfg, inputs, label,
                      on_path):
     """The int8 fused tick vs its plain twin and the unfused int8 kernels:
-    tokens, lens, counters and carries bit for bit."""
+    tokens, lens, counters and carries bit for bit.  ``variant`` gives each
+    layer's kernel inside the fused one (``tensor_cores``: mma.sync s8, or
+    ``cuda_cores``), counted in ``tc_layers_int8``.  On the path also the
+    device time (``device_ms``)."""
     from repro_torch.core import ctc
     from repro_torch.kernels import fused_stream as fs
     from repro_torch.kernels import ops
     rows, pads, reset, prev, bases, ticks, conv = inputs
     args = (rows, pads, reset, prev, bases, ticks, conv, qparams)
+    specs = bc.stream_layer_specs(cfg)
+    before = (fs.fused_stream_cuda.tc_launches_int8,
+              fs.fused_stream_cuda.tc_layers_int8)
     tok, lens, lane = fs.fused_stream_cuda(*args, cfg=cfg)
+    tc_layers = fs.fused_stream_cuda.tc_layers_int8 - before[1]
+    require(fs.fused_stream_cuda.tc_launches_int8 - before[0]
+            == (tc_layers > 0), f"fused_stream_int8 {label}: "
+            "tc_launches_int8 miscounted")
+    tc = [fs.on_tensor_cores(sp, quantized=True) for sp in specs]
+    require(tc_layers == sum(tc), f"fused_stream_int8 {label}: {tc_layers} "
+            f"layers on the tensor cores, the predicate says {sum(tc)}")
     tok_p, lens_p, lane_p = fs._fused_reference(*args, cfg=cfg)
     torch.cuda.synchronize()
     int_diff = ((tok != tok_p).any(dim=1) | (lens != lens_p)
@@ -677,25 +717,35 @@ def check_fused_int8(torch, bc, peaks, table, qparams, cfg, inputs, label,
                                                           lane_p["conv"]))
     rmask = reset > 0
     x = rows[..., None]
-    for i, sp in enumerate(bc.stream_layer_specs(cfg)):
+    carries_u = []
+    for i, sp in enumerate(specs):
         p = qparams[sp.name]
         if sp.is_head:
             b, t, c = x.shape
             x = ops.mat_mul(x.reshape(b * t, c), p["w"].head_matrix(),
                             p["b"]).reshape(b, t, sp.cout)
+            carries_u.append(conv[i])
         else:
             carry = torch.where(rmask[:, None, None], 0.0, conv[i])
-            x = ops.conv1d(torch.cat([carry, x], 1), p["w"], p["b"],
-                           stride=sp.stride, padding="valid",
-                           activation=sp.activation)
+            xin = torch.cat([carry, x], 1)
+            carries_u.append(xin[:, xin.shape[1] - sp.carry_rows:])
+            x = ops.conv1d(xin, p["w"], p["b"], stride=sp.stride,
+                           padding="valid", activation=sp.activation)
     tok_u, lens_u, _ = ctc.greedy_decode_stream(
         x, torch.where(rmask, 0, prev), pads)
     unfused_equal = bool(torch.equal(tok_u, tok) and torch.equal(lens_u, lens))
+    # each carry is a layer's input, so the fused layers' outputs equal the
+    # unfused kernels' bit for bit
+    carries_unfused = all(torch.equal(a, b)
+                          for a, b in zip(lane["conv"], carries_u))
     line = {"phase": "kernel", "kernel": "fused_stream_int8", "shape": label,
             "lanes": rows.shape[0], "chunk": rows.shape[1],
+            "variant": {sp.name: "tensor_cores" if t else "cuda_cores"
+                        for sp, t in zip(specs, tc)},
             "int_lanes_differing": int(int_diff.sum().item()),
             "carries_equal": carries_equal,
             "equal_to_unfused_kernels": unfused_equal,
+            "carries_equal_unfused_bitwise": carries_unfused,
             "bases_called": int(lens.sum().item())}
     if on_path:
         ms = time_ms(torch, lambda: fs.fused_stream_cuda(*args, cfg=cfg))
@@ -715,16 +765,21 @@ def check_fused_int8(torch, bc, peaks, table, qparams, cfg, inputs, label,
                     lane["bases"], lane["ticks"])
         bnd, by = bound_ms(peaks, io, 2.0 * macs, int8=True)
         line.update(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bnd,
-                    bound_by=by, gop=2.0 * macs / 1e9)
+                    bound_by=by, gop=2.0 * macs / 1e9,
+                    device_ms=device_ms(torch, lambda: fs.fused_stream_cuda(
+                        *args, cfg=cfg)))
         table.add("fused_stream_int8", err=float(int_diff.sum().item()),
                   ms=ms, plain_ms=plain, bound=bnd, bound_by=by,
                   library_ms=None)
+        table.rows["fused_stream_int8"]["device_ms"] = line["device_ms"]
     emit(line)
     require(not bool(int_diff.any()), f"fused_stream_int8 {label}: lanes "
             "differ from the plain version")
     require(carries_equal, f"fused_stream_int8 {label}: carries differ")
     require(unfused_equal, f"fused_stream_int8 {label}: tokens differ from "
             "the unfused int8 kernels")
+    require(carries_unfused, f"fused_stream_int8 {label}: carries differ "
+            "from the unfused int8 kernels' layer inputs")
 
 
 def quantize_step_codec():
@@ -1176,15 +1231,24 @@ def unfused_launches(counts, ticks):
             f"the tensor cores, {ftc_layers} such layers, not 4 a step")
 
 
-def int8_head_launches(counts):
+def int8_launches(counts):
     """Every unfused edge_int8 head on the skinny-N int8 matmul (the fused
-    int8 tick launches no matmul_int8)."""
+    int8 tick launches no matmul_int8), and every fused int8 step with its
+    4 conv layers (conv2-conv5) on the tensor cores."""
     mm = counts.get("matmul_int8", 0)
     thin = counts.get("matmul_int8_skinny", 0)
+    fused = counts.get("fused_stream_int8", 0)
+    ftc = counts.get("fused_stream_int8_tc", 0)
+    ftc_layers = counts.get("fused_stream_int8_tc_layers", 0)
     emit({"phase": "full_width_launches", "path": "edge_int8",
-          "matmul_int8": mm, "matmul_int8_skinny": thin})
+          "matmul_int8": mm, "matmul_int8_skinny": thin,
+          "fused_stream_int8": fused, "fused_stream_int8_tc": ftc,
+          "fused_tc_layers_per_step": ftc_layers / max(fused, 1)})
     require(mm > 0 and thin == mm,
             f"edge_int8 unfused: {thin} of {mm} head matmul_int8 skinny")
+    require(fused > 0 and ftc == fused and ftc_layers == 4 * fused,
+            f"edge_int8 fused: {ftc} of {fused} steps with conv layers on "
+            f"the tensor cores, {ftc_layers} such layers, not 4 a step")
 
 
 def int8_engine(cfg, qparams, fused):
@@ -1950,20 +2014,34 @@ def check_flash(torch, F, peaks, table, q, k, v, label, on_path):
     return line
 
 
-def ssd_flop(bh: int, t: int, ds: int, dh: int) -> float:
+def ssd_flop(bh: int, t: int, ds: int, dh: int, products=None) -> float:
     """The least FLOP the scan needs: the result is the same for every
     chunk length, so the fewest over lengths L of the chunked form (per
     chunk, (C_t . B_s) and G X for the s <= t pairs, the inter-chunk C S
     and the chunk's state B^T X at L x ds x dh MACs each, and the state's
     decay, ds x dh), and of the recurrence (5 ds dh a step).  The
     minimum lies near L = 9 at ds 128, dh 64, not at the kernels'
-    256."""
+    256.  ``products``: TF32 products a FLOP of (C B^T, G X, C S, B^T X),
+    as the tensor-core kernel forms them; then the chunked form alone is
+    counted, in TF32 products."""
+    pc, pg, pi, ps = products or (1, 1, 1, 1)
+
     def chunked(ln):
         n = -(-t // ln)
         pairs = ln * (ln + 1) // 2
-        return 2.0 * n * (pairs * (ds + dh) + 2 * ln * ds * dh + ds * dh)
+        return 2.0 * n * (pairs * (pc * ds + pg * dh)
+                          + (pi + ps) * ln * ds * dh + ds * dh)
     least = min(chunked(ln) for ln in range(1, min(t, 256) + 1))
+    if products:
+        return bh * least
     return bh * min(least, 5.0 * t * ds * dh)
+
+
+def ssd_products(bf16: bool):
+    """TF32 products a FLOP of (C B^T, G' X, C S_in, (w B)^T X) in the
+    kernel: a bf16 operand is exact in TF32, an f32 one is split in two
+    (csrc/ssd_scan.cu)."""
+    return (1, 2, 2, 2) if bf16 else (3, 3, 3, 3)
 
 
 def ssd_inputs(torch, F, t, gen, dev, bh=48, ds=128, dh=64):
@@ -1977,10 +2055,18 @@ def ssd_inputs(torch, F, t, gen, dev, bh=48, ds=128, dh=64):
             c.bfloat16().expand(bh, t, ds))
 
 
+SSD_PASSES = {"ssd_chunk_state_kernel": "chunk_state",
+              "ssd_state_scan_kernel": "state_scan",
+              "ssd_chunk_out_kernel": "chunk_out"}
+
+
 def check_ssd(torch, peaks, table, x, la, b, c, label, on_path):
     """bf16 y within the f32 bar plus one bf16 ulp of each element (both
     round once from f32 sums formed in different orders); at the path
-    shape also float32 inputs within the f32 bar."""
+    shape also float32 inputs within the f32 bar, and each pass's device
+    time (``device_ms_by_pass``, the profiler over five calls).
+    ``bound_ms`` at the TF32 rate of the products the kernel forms
+    (``ssd_products``), ``bound_fp32_ms`` at the CUDA cores' fp32 rate."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as kssd
     out = kssd.ssd_scan(x, la, b, c, chunk=256)
@@ -2003,17 +2089,32 @@ def check_ssd(torch, peaks, table, x, la, b, c, label, on_path):
     bh, t, dh = x.shape
     ds = b.shape[-1]
     ops = ssd_flop(bh, t, ds, dh)
-    bnd, by = bound_ms(peaks, nbytes(x, la, b[:1], c[:1], out), ops)
+    io = nbytes(x, la, b[:1], c[:1], out)
+    products = ssd_flop(bh, t, ds, dh, ssd_products(x.dtype == torch.bfloat16))
+    t_ops = products / peaks["tf32_flops"] * 1e3
+    t_io = bound_ms(peaks, io, 0)[0]
+    bnd, by = max(t_ops, t_io), ("operations" if t_ops >= t_io else "bytes")
+    bnd32, _ = bound_ms(peaks, io, ops)
     line = {"phase": "kernel", "kernel": "ssd_scan", "shape": label,
             "x": list(x.shape), "ds": ds, "chunk": 256, "b_c": "one row "
             "over the heads (stride 0)", "max_abs_err": err,
             "tol": f"{SSD_TOL} + 2^-7 |y| (bf16)", "max_abs_err_f32": err32,
             "tol_f32": SSD_TOL, "ms": ms, "plain_ms": plain,
             "library_ms": None, "bound_ms": bnd, "bound_by": by,
-            "flop": ops}
+            "bound_fp32_ms": bnd32, "flop": ops, "tf32_products": products}
     if on_path:
+        per = kernel_device_ms(
+            torch, lambda: kssd.ssd_scan(x, la, b, c, chunk=256))
+        by_pass = {SSD_PASSES[k]: v for k, v in per.items()
+                   if k in SSD_PASSES}
+        require(len(by_pass) == 3, f"ssd_scan {label}: the profiler saw "
+                f"{sorted(per)}, not the three passes")
+        line.update(device_ms=sum(by_pass.values()),
+                    device_ms_by_pass=by_pass)
         table.add("ssd_scan", err=err, ms=ms, plain_ms=plain, bound=bnd,
-                  bound_by=by, library_ms=None)
+                  bound_by=by, library_ms=None, bound_fp32=bnd32)
+        table.rows["ssd_scan"].update(device_ms=line["device_ms"],
+                                      device_ms_by_pass=by_pass)
     emit(line)
     require(ok, f"ssd_scan {label}: max abs err {err} (f32 {err32})")
     return line
@@ -2283,14 +2384,16 @@ def launch_counters():
             "matmul_bf16": (matmul.matmul_bf16, "launches"),
             # the launches of matmul_bf16 that ran its wgmma kernel, of
             # conv1d its tensor-core kernel, of matmul and matmul_int8 their
-            # skinny-N kernels, of fused_stream (fp32) conv layers on the
-            # tensor cores, and those layers
+            # skinny-N kernels, of fused_stream (fp32 and int8) conv layers
+            # on the tensor cores, and those layers
             "matmul_bf16_wgmma": (matmul.matmul_bf16, "wgmma_launches"),
             "conv1d_tc": (conv1d.conv1d, "tc_launches"),
             "matmul_skinny": (matmul.matmul, "skinny_launches"),
             "matmul_int8_skinny": (matmul.matmul_int8, "skinny_launches"),
             "fused_stream_tc": (fs, "tc_launches"),
-            "fused_stream_tc_layers": (fs, "tc_layers")}
+            "fused_stream_tc_layers": (fs, "tc_layers"),
+            "fused_stream_int8_tc": (fs, "tc_launches_int8"),
+            "fused_stream_int8_tc_layers": (fs, "tc_layers_int8")}
 
 
 class PathLaunches:
@@ -2388,7 +2491,7 @@ def main() -> int:
                 ("conv1d_int8", "matmul_int8", "fused_stream_int8",
                  "banded_align"),
                 lambda: phase_full_width_int8(torch, cfg, qparams))
-    int8_head_launches(paths.paths["edge_int8 full width"])
+    int8_launches(paths.paths["edge_int8 full width"])
     int8_ticks_vs_cpu(torch, cfg, qparams)
 
     import repro_torch.engine as te
@@ -2442,6 +2545,19 @@ def main() -> int:
                 device_ms=r["device_ms"], unfused_ms=r["unfused_ms"],
                 unfused_device_ms=r["unfused_device_ms"],
                 bound_fp32_ms=r["bound_fp32_ms"])
+        if k == "fused_stream_int8":
+            # launches with conv layers on the tensor cores, those layers,
+            # and the device time
+            kernels[-1].update(
+                tc_launches=paths.total["fused_stream_int8_tc"],
+                tc_layers=paths.total["fused_stream_int8_tc_layers"],
+                device_ms=r["device_ms"])
+        if k == "ssd_scan":
+            # device time by pass (the profiler), and the bound at the CUDA
+            # cores' fp32 rate beside bound_ms at the TF32 rate
+            kernels[-1].update(device_ms=r["device_ms"],
+                               device_ms_by_pass=r["device_ms_by_pass"],
+                               bound_fp32_ms=r["bound_fp32_ms"])
         if k == "banded_align":
             # the pathogen panel compare's shape, beside the mapper's
             kernels[-1]["firehose"] = firehose

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Design alternatives of the port's redesigned kernels, timed against the
-sound kernels on one card: the two wgmma kernels at the LM prefill's
-shapes, the tensor-core conv1d and the fused fp32 tick at the flowcell
-tick's.
+sound kernels on one card: the two wgmma kernels and ssd_scan at the LM
+prefill's shapes, the tensor-core conv1d and the fused fp32 and int8
+ticks at the flowcell tick's.
 
     python3 scripts/kernel_variants.py [--reps 3]
-        [--only gemm|flash|conv|fused] [--variants NAME,...]
+        [--only gemm|flash|conv|fused|ssd] [--variants NAME,...]
 
 Each variant is a patched copy of ``src/repro_torch/kernels/csrc`` built
 under ``build/variants/<name>/`` (the checkout's sources are not touched)
@@ -66,6 +66,43 @@ wrong, and say so in ``lanes_differing_above_margin``):
   tc_only           the CUDA-core layers (conv1, the head) and the
                     collapse skipped
   a_once            A loaded (and so split) at each slice's first tap only
+
+``fused_stream_int8`` variants run the edge_int8 tick (the same CNN,
+calibrated by ``quantize_edge_params``), held to the plain version bit for
+bit (``equal_to_plain_bitwise``):
+
+  dp4a              conv2-conv5 on the CUDA cores (__dp4a), as the parent
+                    ran them: the predicate turned off in Python, the
+                    kernel the sound one
+  prefetch          the k-steps flattened, A loaded one step ahead and B
+                    two
+  threads_256       256 threads a lane, not 512
+  threads_1024      1,024 threads a lane
+  unroll_k2         the tensor-core layers' tap loop unrolled by two
+  unroll_ci4        the CUDA-core int8 layers' channel loop unrolled by
+                    four
+
+and, timing only (wrong results): ``cuda_layers_off`` (conv1 and the head
+skipped), ``mma_off`` (the MMAs replaced by an XOR of the fragments),
+``b_smem`` (B read from shared memory, not L2), ``quant_off`` (the
+tensor-core layers' quantization skipped).
+
+``ssd_scan`` variants run mamba2-780m's 48 heads x 4096 (B/C one row over
+the heads), bf16 and f32, each pass's device time by the profiler:
+
+  cuda_cores        the parent's passes 1 and 3: f32 fmaf register tiles
+                    fed from shared memory (the kernel this design
+                    replaced, kept only here)
+  g_registers       pass 3 with G kept in registers: its accumulator
+                    re-laid as G' X's A fragment (k order permuted), each
+                    warp's part of y over its 32 columns of s added at the
+                    end, no trip through shared memory
+  bf16_mma          pass 3 on bf16 m16n8k16 (twice TF32's rate a
+                    product): an f32 operand split in three bf16 parts, the
+                    products of parts (i, j) with i + j <= 2
+  heads_2           pass 3 with two heads a block and C B^T formed once
+                    for both (valid where B/C are one row over the heads
+                    and B * H is even, as at the path's shape)
 
 Every variant but ``no_epilogue`` is also held to the plain version
 (``max_abs_err``).  Rounds of all variants repeat ``--reps`` times, the
@@ -344,6 +381,944 @@ CONV = {
          "for (int e = 0; e < 4; ++e) (void)part[mt][nt][e];")],
 }
 
+# the parent's f32 CUDA-core passes 1 and 3 of csrc/ssd_scan.cu (fmaf
+# register tiles fed from shared memory), with their cumsum and store
+SSD_CUDA_CORES_P1 = r"""__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// the cumsum of the CUDA-core passes: warp 0, 32 values a step
+__device__ void chunk_cumsum_warp0(const float* __restrict__ la, int c0,
+                                   int n, int T, float* cum) {
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    float carry = 0.f;
+    for (int p0 = 0; p0 < n; p0 += 32) {
+      const int t = c0 + p0 + lane;
+      float v = (p0 + lane < n && t < T) ? la[t] : 0.f;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float u = __shfl_up_sync(0xffffffffu, v, o);
+        if (lane >= o) v += u;
+      }
+      v += carry;
+      if (p0 + lane < n) cum[p0 + lane] = v;
+      carry = __shfl_sync(0xffffffffu, v, 31);
+    }
+  }
+  __syncthreads();
+}
+
+// ---- pass 1: each chunk's own state and log decay ------------------------
+template <typename T, int DS, int DH>
+__global__ void __launch_bounds__(SSD_THREADS)
+ssd_chunk_state_kernel(const T* __restrict__ x, const float* __restrict__ la,
+                       const T* __restrict__ b, float* __restrict__ states,
+                       float* __restrict__ totals, int Tn, int chunk,
+                       long long b_head_stride) {
+  extern __shared__ __align__(16) float smem[];
+  float* cum = smem;                          // [chunk]
+  float* bw = cum + SSD_MAX_CHUNK;            // [TILE][DS]: w_s B_s
+  float* xs = bw + SSD_TILE * DS;             // [TILE][DH]
+  const int nc = (Tn + chunk - 1) / chunk;  // blocks: head * nc + chunk
+  const int c = static_cast<int>(blockIdx.x % nc);
+  const int h = static_cast<int>(blockIdx.x / nc);
+  const int c0 = c * chunk;
+  const float* lah = la + static_cast<size_t>(h) * Tn;
+  const T* xh = x + static_cast<size_t>(h) * Tn * DH;
+  const T* bh = b + h * b_head_stride;
+  chunk_cumsum_warp0(lah, c0, chunk, Tn, cum);
+  const float total = cum[chunk - 1];
+
+  constexpr int NI = DS / 16, NJ = DH / 16;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float acc[NI][NJ];
+#pragma unroll
+  for (int i = 0; i < NI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+
+  for (int s0 = 0; s0 < chunk; s0 += SSD_TILE) {
+    for (int i = threadIdx.x; i < SSD_TILE * DS; i += SSD_THREADS) {
+      const int s = i / DS, k = i % DS;
+      const int t = c0 + s0 + s;
+      bw[i] = t < Tn ? expf(total - cum[s0 + s]) *
+                           to_f32(bh[static_cast<size_t>(t) * DS + k])
+                     : 0.f;
+    }
+    for (int i = threadIdx.x; i < SSD_TILE * DH; i += SSD_THREADS) {
+      const int t = c0 + s0 + i / DH;
+      xs[i] = t < Tn ? to_f32(xh[static_cast<size_t>(t) * DH + i % DH]) : 0.f;
+    }
+    __syncthreads();
+    for (int s = 0; s < SSD_TILE; ++s) {
+      float av[NI], xv[NJ];
+#pragma unroll
+      for (int i = 0; i < NI; ++i) av[i] = bw[s * DS + ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) xv[j] = xs[s * DH + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < NI; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(av[i], xv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  float* st = states + (static_cast<size_t>(h) * nc + c) * DS * DH;
+#pragma unroll
+  for (int i = 0; i < NI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) st[(ty + 16 * i) * DH + tx + 16 * j] = acc[i][j];
+  if (threadIdx.x == 0) totals[static_cast<size_t>(h) * nc + c] = total;
+}
+
+"""
+SSD_CUDA_CORES_P3 = r"""// ---- pass 3: the outputs of one 64-row tile of a chunk -------------------
+template <typename T, int DS, int DH>
+__global__ void __launch_bounds__(SSD_THREADS)
+ssd_chunk_out_kernel(const T* __restrict__ x, const float* __restrict__ la,
+                     const T* __restrict__ b, const T* __restrict__ c,
+                     const float* __restrict__ states, T* __restrict__ y,
+                     int Tn, int chunk, long long b_head_stride,
+                     long long c_head_stride) {
+  constexpr int LT = SSD_TILE + 1;            // padded transposed rows
+  extern __shared__ __align__(16) float smem[];
+  float* cum = smem;                          // [chunk]
+  float* cs = cum + SSD_MAX_CHUNK;            // [DS][LT]: C_t transposed
+  float* bs = cs + DS * LT;                   // [DS][LT]: B_s transposed, or S_in [DS][DH]
+  float* xs = bs + DS * LT;                   // [TILE][DH]
+  float* gs = xs + SSD_TILE * DH;             // [TILE][LT]: decayed G
+  const int tiles = chunk / SSD_TILE;
+  const int nc = (Tn + chunk - 1) / chunk;  // blocks: head * nc * tiles + ...
+  const int ci = static_cast<int>(blockIdx.x % (nc * tiles)) / tiles;
+  const int ti = static_cast<int>(blockIdx.x % tiles);
+  const int h = static_cast<int>(blockIdx.x / (nc * tiles));
+  const int c0 = ci * chunk, t0 = c0 + ti * SSD_TILE;
+  const float* lah = la + static_cast<size_t>(h) * Tn;
+  const T* xh = x + static_cast<size_t>(h) * Tn * DH;
+  const T* bh = b + h * b_head_stride;
+  const T* ch = c + h * c_head_stride;
+  chunk_cumsum_warp0(lah, c0, (ti + 1) * SSD_TILE, Tn, cum);
+
+  constexpr int NJ = DH / 16;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  // C tile transposed, and S_in in the B buffer
+  for (int i = threadIdx.x; i < SSD_TILE * DS; i += SSD_THREADS) {
+    const int r = i / DS, k = i % DS;
+    const int t = t0 + r;
+    cs[k * LT + r] = t < Tn ? to_f32(ch[static_cast<size_t>(t) * DS + k]) : 0.f;
+  }
+  const float* sin = states + (static_cast<size_t>(h) * nc + ci) * DS * DH;
+  for (int i = threadIdx.x; i < DS * DH; i += SSD_THREADS) bs[i] = sin[i];
+  __syncthreads();
+
+  float acc[4][NJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+  for (int k = 0; k < DS; ++k) {
+    float cv[4], sv[NJ];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) cv[i] = cs[k * LT + ty + 16 * i];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) sv[j] = bs[k * DH + tx + 16 * j];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(cv[i], sv[j], acc[i][j]);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float w = expf(cum[ti * SSD_TILE + ty + 16 * i]);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[i][j] *= w;
+  }
+
+  for (int st = 0; st <= ti; ++st) {
+    const int s0 = c0 + st * SSD_TILE;
+    __syncthreads();  // the previous step is done with bs, xs and gs
+    for (int i = threadIdx.x; i < SSD_TILE * DS; i += SSD_THREADS) {
+      const int r = i / DS, k = i % DS;
+      const int t = s0 + r;
+      bs[k * LT + r] = t < Tn ? to_f32(bh[static_cast<size_t>(t) * DS + k]) : 0.f;
+    }
+    for (int i = threadIdx.x; i < SSD_TILE * DH; i += SSD_THREADS) {
+      const int t = s0 + i / DH;
+      xs[i] = t < Tn ? to_f32(xh[static_cast<size_t>(t) * DH + i % DH]) : 0.f;
+    }
+    __syncthreads();
+    // G[t][s] = C_t . B_s (t = ty + 16 i, s = tx + 16 j)
+    float gv[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) gv[i][j] = 0.f;
+    for (int k = 0; k < DS; ++k) {
+      float cv[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) cv[i] = cs[k * LT + ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = bs[k * LT + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) gv[i][j] = fmaf(cv[i], bv[j], gv[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int tl = ti * SSD_TILE + ty + 16 * i;   // chunk-local t
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int sl = st * SSD_TILE + tx + 16 * j; // chunk-local s
+        gs[(ty + 16 * i) * LT + tx + 16 * j] =
+            sl <= tl ? gv[i][j] * expf(cum[tl] - cum[sl]) : 0.f;
+      }
+    }
+    __syncthreads();
+    // y += G X_s
+    for (int s = 0; s < SSD_TILE; ++s) {
+      float gv2[4], xv[NJ];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) gv2[i] = gs[(ty + 16 * i) * LT + s];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) xv[j] = xs[s * DH + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(gv2[i], xv[j], acc[i][j]);
+    }
+  }
+
+  T* yh = y + static_cast<size_t>(h) * Tn * DH;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = t0 + ty + 16 * i;
+    if (t >= Tn) continue;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      store_as(yh + static_cast<size_t>(t) * DH + tx + 16 * j, acc[i][j]);
+  }
+}
+
+"""
+
+# pass 3 with each warp's G kept in registers (csrc/ssd_scan.cu)
+SSD_G_REGISTERS = r"""template <typename T, int DS, int DH>
+__global__ void __launch_bounds__(SSD_THREADS, 2)
+ssd_chunk_out_kernel(const T* __restrict__ x, const float* __restrict__ la,
+                     const T* __restrict__ b, const T* __restrict__ c,
+                     const float* __restrict__ states, T* __restrict__ y,
+                     int Tn, int chunk, long long b_head_stride,
+                     long long c_head_stride) {
+  // G kept in registers: warp w owns rows 16 (w / 2) .. + 15 and G's
+  // columns s in (w % 2) 32 .. + 31, and sums its part of y over those s
+  // (and over half of ds for the inter term) for every column of y; the
+  // two warps of a row block add their parts at the end.  G's accumulator
+  // is its A fragment with the k order permuted: slot t4 is s = 2 t4,
+  // slot t4 + 4 is s = 2 t4 + 1.
+  constexpr bool EXACT = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int LC = DS + 4;
+  constexpr int LX = DH + 8;          // S_in rows
+  constexpr int LXS = DH + 4;         // X_s rows: (2 t4, g) at 2 t4 LXS + g
+  constexpr int LG = SSD_TILE + 4;
+  constexpr int NY = DH / 8;
+  constexpr int BUF = SSD_TILE * LC > DS * LX ? SSD_TILE * LC : DS * LX;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float part[SSD_THREADS / 32];
+  float* cum = smem;
+  float* cs = cum + chunk;
+  float* bs = cs + SSD_TILE * LC;
+  float* xs = bs + BUF;
+  float* gs = xs + SSD_TILE * LX;     // the other warp's part of y
+  const int tiles = chunk / SSD_TILE;
+  const int nc = (Tn + chunk - 1) / chunk;
+  const int ci = static_cast<int>(blockIdx.x % (nc * tiles)) / tiles;
+  const int ti = static_cast<int>(blockIdx.x % tiles);
+  const int h = static_cast<int>(blockIdx.x / (nc * tiles));
+  const int c0 = ci * chunk, t0 = c0 + ti * SSD_TILE;
+  const float* lah = la + static_cast<size_t>(h) * Tn;
+  const T* xh = x + static_cast<size_t>(h) * Tn * DH;
+  const T* bhd = b + h * b_head_stride;
+  const T* chd = c + h * c_head_stride;
+  chunk_cumsum(lah, c0, (ti + 1) * SSD_TILE, Tn, cum, part);
+
+  stage_rows<DS, LC>(chd, t0, Tn, cs);
+  {
+    constexpr int N = DS * DH / SSD_THREADS, ROWS = SSD_THREADS / DH;
+    const float* p = states + (static_cast<size_t>(h) * nc + ci) * DS * DH +
+                     threadIdx.x;
+    float v[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) v[j] = p[j * SSD_THREADS];
+    float* d = bs + (threadIdx.x / DH) * LX + threadIdx.x % DH;
+#pragma unroll
+    for (int j = 0; j < N; ++j) d[j * ROWS * LX] = v[j];
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int r0 = 16 * (warp / 2), wn = warp % 2, sc0 = 32 * wn;
+  const int tl0 = ti * SSD_TILE + r0 + g;
+  float acc[NY][4];
+#pragma unroll
+  for (int j = 0; j < NY; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int k0 = wn * (DS / 2); k0 < (wn + 1) * (DS / 2); k0 += 8) {
+    uint32_t ah[4], al[4];
+    load_a<!EXACT>(cs + (r0 + g) * LC + k0 + t4, LC, ah, al);
+#pragma unroll
+    for (int j = 0; j < NY; ++j) {
+      const float* pb = bs + (k0 + t4) * LX + 8 * j + g;
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32_int(pb[0], bh0, bl0);
+      split_tf32_int(pb[4 * LX], bh1, bl1);
+      mma_split<EXACT, false>(acc[j], ah, al, bh0, bh1, bl0, bl1);
+    }
+  }
+  {
+    const float w0 = expf(cum[tl0]), w1 = expf(cum[tl0 + 8]);
+#pragma unroll
+    for (int j = 0; j < NY; ++j) {
+      acc[j][0] *= w0;
+      acc[j][1] *= w0;
+      acc[j][2] *= w1;
+      acc[j][3] *= w1;
+    }
+  }
+
+  for (int st = 0; st <= ti; ++st) {
+    const int s0 = c0 + st * SSD_TILE;
+    const bool diag = st == ti;
+    __syncthreads();
+    stage_rows<DS, LC>(bhd, s0, Tn, bs);
+    stage_rows<DH, LXS>(xh, s0, Tn, xs);
+    __syncthreads();
+    if (diag && sc0 > r0 + 15) continue;
+    float gv[4][4];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gv[jj][e] = 0.f;
+#pragma unroll 2
+    for (int k0 = 0; k0 < DS; k0 += 8) {
+      uint32_t ah[4], al[4];
+      load_a<!EXACT>(cs + (r0 + g) * LC + k0 + t4, LC, ah, al);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float* pb = bs + (sc0 + 8 * jj + g) * LC + k0 + t4;
+        uint32_t bh0, bl0, bh1, bl1;
+        tf32_parts<!EXACT>(pb[0], bh0, bl0);
+        tf32_parts<!EXACT>(pb[4], bh1, bl1);
+        mma_split<EXACT, EXACT>(gv[jj], ah, al, bh0, bh1, bl0, bl1);
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int sl = st * SSD_TILE + sc0 + 8 * jj + 2 * t4;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int tl = tl0 + 8 * hh;
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          gv[jj][2 * hh + e] = sl + e <= tl
+              ? gv[jj][2 * hh + e] * expf(cum[tl] - cum[sl + e]) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      if (diag && sc0 + 8 * jj > r0 + 15) continue;
+      uint32_t ah[4], al[4];
+      split_tf32_int(gv[jj][0], ah[0], al[0]);   // (g,     s = 2 t4)
+      split_tf32_int(gv[jj][2], ah[1], al[1]);   // (g + 8, s = 2 t4)
+      split_tf32_int(gv[jj][1], ah[2], al[2]);   // (g,     s = 2 t4 + 1)
+      split_tf32_int(gv[jj][3], ah[3], al[3]);   // (g + 8, s = 2 t4 + 1)
+      const float* px = xs + (sc0 + 8 * jj + 2 * t4) * LXS + g;
+#pragma unroll
+      for (int j = 0; j < NY; ++j) {
+        uint32_t bh0, bl0, bh1, bl1;
+        tf32_parts<!EXACT>(px[8 * j], bh0, bl0);
+        tf32_parts<!EXACT>(px[LXS + 8 * j], bh1, bl1);
+        mma_split<false, EXACT>(acc[j], ah, al, bh0, bh1, bl0, bl1);
+      }
+    }
+  }
+
+  __syncthreads();
+  if (wn == 1) {
+#pragma unroll
+    for (int j = 0; j < NY; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        store2(gs + (r0 + g + 8 * hh) * LG + 8 * j + 2 * t4, acc[j][2 * hh],
+               acc[j][2 * hh + 1]);
+  }
+  __syncthreads();
+  if (wn == 1) return;
+  T* yh = y + static_cast<size_t>(h) * Tn * DH;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int t = t0 + r0 + g + 8 * hh;
+    if (t >= Tn) continue;
+#pragma unroll
+    for (int j = 0; j < NY; ++j) {
+      const float* o = gs + (r0 + g + 8 * hh) * LG + 8 * j + 2 * t4;
+      store2(yh + static_cast<size_t>(t) * DH + 8 * j + 2 * t4,
+             acc[j][2 * hh] + o[0], acc[j][2 * hh + 1] + o[1]);
+    }
+  }
+}
+
+"""
+# pass 3 on bf16 mma.sync m16n8k16 with bf16x3 splits (csrc/ssd_scan.cu)
+SSD_BF16_MMA = r"""// v = h + m + l, three bf16 values (8 significant bits each), each the
+// rounding of what the ones before leave: v to ~2^-24 |v|
+__device__ __forceinline__ void split_bf16x3(float v, float& h, float& m,
+                                             float& l) {
+  h = __bfloat162float(__float2bfloat16_rn(v));
+  const float r = v - h;
+  m = __bfloat162float(__float2bfloat16_rn(r));
+  l = r - m;
+}
+
+// a pair of values (lower k first) as N bf16x2 registers: the value itself
+// (N = 1, exact in bf16) or its three parts
+template <int N>
+__device__ __forceinline__ void bf16_pair(float v0, float v1,
+                                          uint32_t (&r)[3]) {
+  if constexpr (N == 1) {
+    r[0] = pack_bf16(v0, v1);
+  } else {
+    float h0, m0, l0, h1, m1, l1;
+    split_bf16x3(v0, h0, m0, l0);
+    split_bf16x3(v1, h1, m1, l1);
+    r[0] = pack_bf16(h0, h1);
+    r[1] = pack_bf16(m0, m1);
+    r[2] = pack_bf16(l0, l1);
+  }
+}
+
+// d += A B over the parts (i, j) with i + j <= 2, small ones first
+template <int NA, int NB>
+__device__ __forceinline__ void mma_bf16_parts(float (&d)[4],
+                                               const uint32_t (&a)[4][3],
+                                               const uint32_t (&b)[2][3]) {
+#pragma unroll
+  for (int sum = 2; sum >= 0; --sum)
+#pragma unroll
+    for (int i = 0; i <= sum; ++i) {
+      const int j = sum - i;
+      if (i < NA && j < NB) {
+        const uint32_t ai[4] = {a[0][i], a[1][i], a[2][i], a[3][i]};
+        mma_bf16_16816(d, ai, b[0][j], b[1][j]);
+      }
+    }
+}
+
+// A (16 x 16, row-major, leading dimension ld, f32) whose element (g, 2 t4)
+// is at p, as N parts
+template <int N>
+__device__ __forceinline__ void bf16_a(const float* p, int ld,
+                                       uint32_t (&a)[4][3]) {
+  const float2 v0 = *reinterpret_cast<const float2*>(p);
+  const float2 v1 = *reinterpret_cast<const float2*>(p + 8 * ld);
+  const float2 v2 = *reinterpret_cast<const float2*>(p + 8);
+  const float2 v3 = *reinterpret_cast<const float2*>(p + 8 * ld + 8);
+  bf16_pair<N>(v0.x, v0.y, a[0]);
+  bf16_pair<N>(v1.x, v1.y, a[1]);
+  bf16_pair<N>(v2.x, v2.y, a[2]);
+  bf16_pair<N>(v3.x, v3.y, a[3]);
+}
+
+// B (16 x 8) whose element (k, n) is at p[k * ldk + n * ldn], thread
+// element (2 t4, g) at p, as N parts
+template <int N>
+__device__ __forceinline__ void bf16_b(const float* p, int ldk,
+                                       uint32_t (&b)[2][3]) {
+  bf16_pair<N>(p[0], p[ldk], b[0]);
+  bf16_pair<N>(p[8 * ldk], p[9 * ldk], b[1]);
+}
+
+template <typename T, int DS, int DH>
+__global__ void __launch_bounds__(SSD_THREADS, 2)
+ssd_chunk_out_kernel(const T* __restrict__ x, const float* __restrict__ la,
+                     const T* __restrict__ b, const T* __restrict__ c,
+                     const float* __restrict__ states, T* __restrict__ y,
+                     int Tn, int chunk, long long b_head_stride,
+                     long long c_head_stride) {
+  // pass 3 on bf16 mma.sync m16n8k16: an f32 operand split in three bf16
+  // parts, a bf16 one whole; the products (i, j) of parts with i + j <= 2
+  constexpr int NE = std::is_same<T, __nv_bfloat16>::value ? 1 : 3;
+  constexpr int LC = DS + 4;
+  constexpr int LX = DH + 8;
+  constexpr int LG = SSD_TILE + 4;
+  constexpr int NJ = DH / 16;
+  constexpr int BUF = SSD_TILE * LC > DS * LX ? SSD_TILE * LC : DS * LX;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float part[SSD_THREADS / 32];
+  float* cum = smem;
+  float* cs = cum + chunk;
+  float* bs = cs + SSD_TILE * LC;
+  float* xs = bs + BUF;
+  float* gs = xs + SSD_TILE * LX;
+  const int tiles = chunk / SSD_TILE;
+  const int nc = (Tn + chunk - 1) / chunk;
+  const int ci = static_cast<int>(blockIdx.x % (nc * tiles)) / tiles;
+  const int ti = static_cast<int>(blockIdx.x % tiles);
+  const int h = static_cast<int>(blockIdx.x / (nc * tiles));
+  const int c0 = ci * chunk, t0 = c0 + ti * SSD_TILE;
+  const float* lah = la + static_cast<size_t>(h) * Tn;
+  const T* xh = x + static_cast<size_t>(h) * Tn * DH;
+  const T* bhd = b + h * b_head_stride;
+  const T* chd = c + h * c_head_stride;
+  chunk_cumsum(lah, c0, (ti + 1) * SSD_TILE, Tn, cum, part);
+
+  stage_rows<DS, LC>(chd, t0, Tn, cs);
+  {
+    constexpr int N = DS * DH / SSD_THREADS, ROWS = SSD_THREADS / DH;
+    const float* p = states + (static_cast<size_t>(h) * nc + ci) * DS * DH +
+                     threadIdx.x;
+    float v[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) v[j] = p[j * SSD_THREADS];
+    float* d = bs + (threadIdx.x / DH) * LX + threadIdx.x % DH;
+#pragma unroll
+    for (int j = 0; j < N; ++j) d[j * ROWS * LX] = v[j];
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int r0 = 16 * (warp / 2), n0 = (warp % 2) * (DH / 2);
+  const int sc0 = 32 * (warp % 2);
+  const int tl0 = ti * SSD_TILE + r0 + g;
+  float acc[NJ][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int k0 = 0; k0 < DS; k0 += 16) {
+    uint32_t a[4][3];
+    bf16_a<NE>(cs + (r0 + g) * LC + k0 + 2 * t4, LC, a);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      uint32_t bb[2][3];
+      bf16_b<3>(bs + (k0 + 2 * t4) * LX + n0 + 8 * j + g, LX, bb);
+      mma_bf16_parts<NE, 3>(acc[j], a, bb);
+    }
+  }
+  {
+    const float w0 = expf(cum[tl0]), w1 = expf(cum[tl0 + 8]);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      acc[j][0] *= w0;
+      acc[j][1] *= w0;
+      acc[j][2] *= w1;
+      acc[j][3] *= w1;
+    }
+  }
+
+  for (int st = 0; st <= ti; ++st) {
+    const int s0 = c0 + st * SSD_TILE;
+    const bool diag = st == ti;
+    __syncthreads();
+    stage_rows<DS, LC>(bhd, s0, Tn, bs);
+    stage_rows<DH, LX>(xh, s0, Tn, xs);
+    __syncthreads();
+    if (diag && sc0 > r0 + 15) {
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          store2(gs + (r0 + g + 8 * hh) * LG + sc0 + 8 * jj + 2 * t4, 0.f, 0.f);
+    } else {
+      float gv[4][4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) gv[jj][e] = 0.f;
+      for (int k0 = 0; k0 < DS; k0 += 16) {
+        uint32_t a[4][3];
+        bf16_a<NE>(cs + (r0 + g) * LC + k0 + 2 * t4, LC, a);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          // B = B_s^T: element (k, n) at bs[n][k]
+          uint32_t bb[2][3];
+          bf16_b<NE>(bs + (sc0 + 8 * jj + g) * LC + k0 + 2 * t4, 1, bb);
+          mma_bf16_parts<NE, NE>(gv[jj], a, bb);
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int tl = tl0 + 8 * hh;
+          const int sl = st * SSD_TILE + sc0 + 8 * jj + 2 * t4;
+          const float v0 =
+              sl <= tl ? gv[jj][2 * hh] * expf(cum[tl] - cum[sl]) : 0.f;
+          const float v1 = sl + 1 <= tl
+                               ? gv[jj][2 * hh + 1] * expf(cum[tl] - cum[sl + 1])
+                               : 0.f;
+          store2(gs + (r0 + g + 8 * hh) * LG + sc0 + 8 * jj + 2 * t4, v0, v1);
+        }
+      }
+    }
+    __syncthreads();
+    const int kend = diag ? r0 + 16 : SSD_TILE;
+    for (int k0 = 0; k0 < kend; k0 += 16) {
+      uint32_t a[4][3];
+      bf16_a<3>(gs + (r0 + g) * LG + k0 + 2 * t4, LG, a);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        uint32_t bb[2][3];
+        bf16_b<NE>(xs + (k0 + 2 * t4) * LX + n0 + 8 * j + g, LX, bb);
+        mma_bf16_parts<3, NE>(acc[j], a, bb);
+      }
+    }
+  }
+
+  T* yh = y + static_cast<size_t>(h) * Tn * DH;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int t = t0 + r0 + g + 8 * hh;
+    if (t >= Tn) continue;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      store2(yh + static_cast<size_t>(t) * DH + n0 + 8 * j + 2 * t4,
+             acc[j][2 * hh], acc[j][2 * hh + 1]);
+  }
+}
+
+"""
+# pass 3 with two heads a block and C B^T formed once for both
+SSD_HEADS_2 = r"""template <typename T, int DS, int DH>
+__global__ void __launch_bounds__(SSD_THREADS, 2)
+ssd_chunk_out_kernel(const T* __restrict__ x, const float* __restrict__ la,
+                     const T* __restrict__ b, const T* __restrict__ c,
+                     const float* __restrict__ states, T* __restrict__ y,
+                     int Tn, int chunk, long long b_head_stride,
+                     long long c_head_stride) {
+  // Two heads a block, B/C shared by both (head stride 0, as on the path at
+  // batch 1; timing only elsewhere): C_t B_s^T formed once an s-tile and
+  // decayed for each head in registers (the k order of g_registers), each
+  // warp's part of both heads' y summed over its 32 columns of s and half
+  // of ds, the two warps of a row block adding their parts at the end.
+  constexpr int HG = 2;
+  constexpr bool EXACT = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int LC = DS + 4;
+  constexpr int LX = DH + 8;
+  constexpr int LXS = DH + 4;
+  constexpr int NY = DH / 8;
+  constexpr int BUF = SSD_TILE * LC > DS * LX ? SSD_TILE * LC : DS * LX;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float part[SSD_THREADS / 32];
+  float* cum = smem;                  // [HG][chunk]
+  float* cs = cum + HG * chunk;
+  float* bs = cs + SSD_TILE * LC;     // B_s, S_in; then with xs parts of y
+  float* xs = bs + BUF;               // [HG][TILE][LXS]
+  const int tiles = chunk / SSD_TILE;
+  const int nc = (Tn + chunk - 1) / chunk;
+  const int ci = static_cast<int>(blockIdx.x % (nc * tiles)) / tiles;
+  const int ti = static_cast<int>(blockIdx.x % tiles);
+  const int h0 = HG * static_cast<int>(blockIdx.x / (nc * tiles));
+  const int c0 = ci * chunk, t0 = c0 + ti * SSD_TILE;
+  const T* bhd = b + h0 * b_head_stride;
+  const T* chd = c + h0 * c_head_stride;
+#pragma unroll
+  for (int hh = 0; hh < HG; ++hh)
+    chunk_cumsum(la + static_cast<size_t>(h0 + hh) * Tn, c0,
+                 (ti + 1) * SSD_TILE, Tn, cum + hh * chunk, part);
+  stage_rows<DS, LC>(chd, t0, Tn, cs);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int r0 = 16 * (warp / 2), wn = warp % 2, sc0 = 32 * wn;
+  const int tl0 = ti * SSD_TILE + r0 + g;
+  float acc[HG][NY][4];
+#pragma unroll
+  for (int hh = 0; hh < HG; ++hh)
+#pragma unroll
+    for (int j = 0; j < NY; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[hh][j][e] = 0.f;
+
+#pragma unroll
+  for (int hh = 0; hh < HG; ++hh) {
+    __syncthreads();
+    {
+      constexpr int N = DS * DH / SSD_THREADS, ROWS = SSD_THREADS / DH;
+      const float* p = states +
+                       (static_cast<size_t>(h0 + hh) * nc + ci) * DS * DH +
+                       threadIdx.x;
+      float v[N];
+#pragma unroll
+      for (int j = 0; j < N; ++j) v[j] = p[j * SSD_THREADS];
+      float* d = bs + (threadIdx.x / DH) * LX + threadIdx.x % DH;
+#pragma unroll
+      for (int j = 0; j < N; ++j) d[j * ROWS * LX] = v[j];
+    }
+    __syncthreads();
+    for (int k0 = wn * (DS / 2); k0 < (wn + 1) * (DS / 2); k0 += 8) {
+      uint32_t ah[4], al[4];
+      load_a<!EXACT>(cs + (r0 + g) * LC + k0 + t4, LC, ah, al);
+#pragma unroll
+      for (int j = 0; j < NY; ++j) {
+        const float* pb = bs + (k0 + t4) * LX + 8 * j + g;
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32_int(pb[0], bh0, bl0);
+        split_tf32_int(pb[4 * LX], bh1, bl1);
+        mma_split<EXACT, false>(acc[hh][j], ah, al, bh0, bh1, bl0, bl1);
+      }
+    }
+    const float* ch = cum + hh * chunk;
+    const float w0 = expf(ch[tl0]), w1 = expf(ch[tl0 + 8]);
+#pragma unroll
+    for (int j = 0; j < NY; ++j) {
+      acc[hh][j][0] *= w0;
+      acc[hh][j][1] *= w0;
+      acc[hh][j][2] *= w1;
+      acc[hh][j][3] *= w1;
+    }
+  }
+
+  for (int st = 0; st <= ti; ++st) {
+    const int s0 = c0 + st * SSD_TILE;
+    const bool diag = st == ti;
+    __syncthreads();
+    stage_rows<DS, LC>(bhd, s0, Tn, bs);
+#pragma unroll
+    for (int hh = 0; hh < HG; ++hh)
+      stage_rows<DH, LXS>(x + static_cast<size_t>(h0 + hh) * Tn * DH, s0, Tn,
+                          xs + hh * SSD_TILE * LXS);
+    __syncthreads();
+    if (diag && sc0 > r0 + 15) continue;
+    float gv[4][4];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gv[jj][e] = 0.f;
+#pragma unroll 2
+    for (int k0 = 0; k0 < DS; k0 += 8) {
+      uint32_t ah[4], al[4];
+      load_a<!EXACT>(cs + (r0 + g) * LC + k0 + t4, LC, ah, al);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float* pb = bs + (sc0 + 8 * jj + g) * LC + k0 + t4;
+        uint32_t bh0, bl0, bh1, bl1;
+        tf32_parts<!EXACT>(pb[0], bh0, bl0);
+        tf32_parts<!EXACT>(pb[4], bh1, bl1);
+        mma_split<EXACT, EXACT>(gv[jj], ah, al, bh0, bh1, bl0, bl1);
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < HG; ++hh) {
+      const float* ch = cum + hh * chunk;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        if (diag && sc0 + 8 * jj > r0 + 15) continue;
+        const int sl = st * SSD_TILE + sc0 + 8 * jj + 2 * t4;
+        float gd[4];
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int tl = tl0 + 8 * hr;
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            gd[2 * hr + e] = sl + e <= tl
+                ? gv[jj][2 * hr + e] * expf(ch[tl] - ch[sl + e]) : 0.f;
+        }
+        uint32_t ah[4], al[4];
+        split_tf32_int(gd[0], ah[0], al[0]);
+        split_tf32_int(gd[2], ah[1], al[1]);
+        split_tf32_int(gd[1], ah[2], al[2]);
+        split_tf32_int(gd[3], ah[3], al[3]);
+        const float* px =
+            xs + hh * SSD_TILE * LXS + (sc0 + 8 * jj + 2 * t4) * LXS + g;
+#pragma unroll
+        for (int j = 0; j < NY; ++j) {
+          uint32_t bh0, bl0, bh1, bl1;
+          tf32_parts<!EXACT>(px[8 * j], bh0, bl0);
+          tf32_parts<!EXACT>(px[LXS + 8 * j], bh1, bl1);
+          mma_split<false, EXACT>(acc[hh][j], ah, al, bh0, bh1, bl0, bl1);
+        }
+      }
+    }
+  }
+
+  __syncthreads();
+  if (wn == 1) {
+#pragma unroll
+    for (int hh = 0; hh < HG; ++hh)
+#pragma unroll
+      for (int j = 0; j < NY; ++j)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr)
+          store2(bs + hh * SSD_TILE * LXS + (r0 + g + 8 * hr) * LXS + 8 * j +
+                     2 * t4,
+                 acc[hh][j][2 * hr], acc[hh][j][2 * hr + 1]);
+  }
+  __syncthreads();
+  if (wn == 1) return;
+#pragma unroll
+  for (int hh = 0; hh < HG; ++hh) {
+    T* yh = y + static_cast<size_t>(h0 + hh) * Tn * DH;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int t = t0 + r0 + g + 8 * hr;
+      if (t >= Tn) continue;
+#pragma unroll
+      for (int j = 0; j < NY; ++j) {
+        const float* o =
+            bs + hh * SSD_TILE * LXS + (r0 + g + 8 * hr) * LXS + 8 * j + 2 * t4;
+        store2(yh + static_cast<size_t>(t) * DH + 8 * j + 2 * t4,
+               acc[hh][j][2 * hr] + o[0], acc[hh][j][2 * hr + 1] + o[1]);
+      }
+    }
+  }
+}
+
+"""
+SSD_P1 = "// ---- pass 1: each chunk's own state and log decay"
+SSD_P2 = "// ---- pass 2: the scan over chunks"
+SSD_OUT = ("template <typename T, int DS, int DH>\n__global__ void "
+           "__launch_bounds__(SSD_THREADS, 2)\nssd_chunk_out_kernel")
+SSD_LAUNCH = ("template <typename T, int DS, int DH>\nstatic cudaError_t "
+              "launch_typed")
+SSD = {
+    # the parent's passes 1 and 3 (f32 fmaf on the CUDA cores)
+    "cuda_cores": lambda text: [
+        (between(text, SSD_P1, SSD_P2), SSD_CUDA_CORES_P1),
+        (between(text, SSD_OUT, SSD_LAUNCH), SSD_CUDA_CORES_P3)],
+    # pass 3 with G in registers, re-laid as G' X's A fragment, and each
+    # warp's part of y over its 32 columns of s added at the end
+    "g_registers": lambda text: [
+        (between(text, SSD_OUT, SSD_LAUNCH), SSD_G_REGISTERS)],
+    # pass 3 on bf16 m16n8k16 (twice TF32's rate a product): an f32
+    # operand split in three bf16 parts, products (i, j) with i + j <= 2
+    "bf16_mma": lambda text: [
+        (between(text, SSD_OUT, SSD_LAUNCH), SSD_BF16_MMA)],
+    # two heads a block (B/C one row over the heads, an even B * H: the
+    # path's shape), C B^T formed once for both
+    "heads_2": lambda text: [
+        (between(text, SSD_OUT, SSD_LAUNCH), SSD_HEADS_2),
+        ("  const size_t smem3 = ssd_out_floats<DS, DH>(chunk) * sizeof(float);",
+         "  const size_t smem3 = (ssd_out_floats<DS, DH>(chunk) + chunk +\n"
+         "                        SSD_TILE * DH) * sizeof(float);"),
+        ("  const long long blocks3 = blocks1 * (chunk / SSD_TILE);",
+         "  const long long blocks3 = blocks1 * (chunk / SSD_TILE) / 2;")],
+}
+# the fused int8 tick's tensor-core layer, patched (csrc/fused_stream.cu)
+I8_STEPS = "    // k-steps in (32-channel slice, tap) order"
+I8_EPILOGUE = "    // the unfused epilogue, stored in the next layer's layout"
+I8_PREFETCH = """\
+    // k-steps q = (slice, tap) in that order; A one step ahead, B (from
+    // L2) two
+    auto load_a = [&](int sl, int k, uint32_t (&a)[2][4]) {
+      // word (row of frame tb + g at tap k, channels 32 sl + 4 t4 ..)
+      const int r0 = ((tb + g) * s + k) * words + sl * 8 + t4;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int r = r0 + 16 * mt * s * words;   // frame + 16 mt
+        const int r8 = r + 8 * s * words;          // frame + 8
+        a[mt][0] = q[fs_qword(r, m)];
+        a[mt][1] = q[fs_qword(r8, m)];
+        a[mt][2] = q[fs_qword(r + 4, m)];
+        a[mt][3] = q[fs_qword(r8 + 4, m)];
+      }
+    };
+    auto load_b = [&](int sl, int k, uint2 (&b)[NT]) {
+      const uint2* wb =
+          wf + ((static_cast<size_t>(k) * slices + sl) * n8 + j0) * 32 + lane;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) b[nt] = __ldg(wb + nt * 32);
+    };
+    const int steps = slices * K;
+    uint32_t a[2][4];
+    uint2 b[NT], b1[NT];
+    int sl1 = 0, k1 = 0;   // step q + 1
+    int sl2 = 0, k2 = 0;   // step q + 2
+    auto next = [&](int& sl_, int& k_) {
+      if (++k_ == K) {
+        k_ = 0;
+        ++sl_;
+      }
+    };
+    load_a(0, 0, a);
+    load_b(0, 0, b);
+    next(sl1, k1);
+    next(sl2, k2);
+    next(sl2, k2);
+    if (steps > 1) load_b(sl1, k1, b1);
+    for (int qs = 0; qs < steps; ++qs) {
+      uint32_t ac[2][4];
+      uint2 bc[NT];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ac[mt][e] = a[mt][e];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        bc[nt] = b[nt];
+        b[nt] = b1[nt];
+      }
+      if (qs + 2 < steps) load_b(sl2, k2, b1);
+      if (qs + 1 < steps) load_a(sl1, k1, a);
+      next(sl1, k1);
+      next(sl2, k2);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          mma_s8_16832(acc[mt][nt], ac[mt], bc[nt].x, bc[nt].y);
+    }
+"""
+INT8 = {
+    # the int8 layers on the CUDA cores (__dp4a), as the parent ran them:
+    # the predicate is turned off in Python, the kernel is the sound one
+    "dp4a": None,
+    # the k-steps flattened, A loaded one step ahead and B two
+    "prefetch": lambda text: [
+        (between(text, I8_STEPS, I8_EPILOGUE), I8_PREFETCH)],
+    # 256 or 1,024 threads a lane, not 512 (one lane an SM either way)
+    "threads_256": [("constexpr int FS_INT8_THREADS = 512;",
+                     "constexpr int FS_INT8_THREADS = 256;")],
+    "threads_1024": [("constexpr int FS_INT8_THREADS = 512;",
+                      "constexpr int FS_INT8_THREADS = 1024;")],
+    # timing only (wrong results): the int8 layers left on the CUDA cores
+    # (conv1, the head) skipped, quantization included
+    "cuda_layers_off": [("    if (L.quantized) {\n      int8_t* qbuf",
+                         "    if (L.quantized) {\n      return;\n"
+                         "      int8_t* qbuf")],
+    # the tensor-core layers' tap loop unrolled by two, the CUDA-core int8
+    # layers' channel loop by four (more loads in flight)
+    "unroll_k2": [("      for (int k = 0; k < K; ++k) {\n        const int r0",
+                   "#pragma unroll 2\n      for (int k = 0; k < K; ++k) {\n"
+                   "        const int r0")],
+    "unroll_ci4": [("    for (int ci = 0; ci < cw; ++ci) {",
+                    "#pragma unroll 4\n    for (int ci = 0; ci < cw; ++ci) {")],
+    # timing only: B read from shared memory (garbage), not L2
+    "b_smem": [("        for (int nt = 0; nt < NT; ++nt) b[nt] = __ldg(wb + nt * 32);",
+                "        for (int nt = 0; nt < NT; ++nt)\n"
+                "          b[nt] = make_uint2(q[(lane + nt * 32) & 255], "
+                "q[(lane + nt * 32 + 64) & 255]);\n"
+                "        (void)wb;")],
+    # timing only: the tensor-core layers' quantization skipped
+    "quant_off": [("      quantize_rows_tc(in, qw, (L.K - L.stride + t_in) * "
+                   "L.cin / 4, L.q_m,",
+                   "      if (t_in < 0) quantize_rows_tc(in, qw, (L.K - "
+                   "L.stride + t_in) * L.cin / 4, L.q_m,")],
+    # timing only: the tensor-core layers' MMAs replaced by an XOR of the
+    # loaded fragments (the loads stay)
+    "mma_off": [("            mma_s8_16832(acc[mt][nt], a[mt], b[nt].x, "
+                 "b[nt].y);",
+                 "            acc[mt][nt][0] ^= a[mt][0] ^ a[mt][1] ^ a[mt][2]"
+                 " ^ a[mt][3] ^ b[nt].x ^ b[nt].y;")],
+}
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -360,14 +1335,24 @@ def patch(text: str, name: str, patches) -> str:
     return text
 
 
+def between(text: str, start: str, end: str) -> str:
+    """The part of ``text`` from ``start`` up to (not including) ``end``."""
+    i = text.index(start)
+    return text[i:text.index(end, i)]
+
+
 def variant_csrc(src: str, name: str, file: str, patches) -> str:
-    """A copy of the kernel sources with ``patches`` applied to ``file``."""
+    """A copy of the kernel sources with ``patches`` applied to ``file``
+    (a list of (old, new), or a function of the source text giving one)."""
     dst = os.path.join(OUT, name, "csrc")
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(src, dst)
     path = os.path.join(dst, file)
     with open(path) as f:
-        text = patch(f.read(), name, patches)
+        text = f.read()
+        if callable(patches):
+            patches = patches(text)
+        text = patch(text, name, patches)
     with open(path, "w") as f:
         f.write(text)
     return dst
@@ -476,6 +1461,61 @@ def fused_round(torch, cs, build, variants, cfg, params, qparams, inputs):
                   torch, lambda: fs.fused_stream_cuda(*qargs, cfg=cfg))})
 
 
+def ssd_round(torch, cs, build, variants, data):
+    """ssd_scan on each variant at mamba2-780m's 48 heads x 4096 (B/C one
+    row over the heads): max abs error against the plain recurrence for
+    bf16 and f32 inputs, event ms and each pass's device ms."""
+    from repro_torch.kernels import ssd_scan as kssd
+    for name, csrc in variants:
+        use(build, name, csrc)
+        line = {"phase": "variant", "kernel": "ssd_scan", "variant": name}
+        for label, args, want in data:
+            out = kssd.ssd_scan(*args, chunk=256)
+            line[f"{label}_max_abs_err"] = (
+                out.float() - want.float()).abs().max().item()
+            line[f"{label}_ms"] = cs.time_ms(
+                torch, lambda: kssd.ssd_scan(*args, chunk=256), reps=10)
+            per = cs.kernel_device_ms(
+                torch, lambda: kssd.ssd_scan(*args, chunk=256))
+            line[f"{label}_device_ms_by_pass"] = {
+                cs.SSD_PASSES.get(k, k): v for k, v in per.items()}
+            line[f"{label}_device_ms"] = sum(per.values())
+        emit(line)
+
+
+def int8_round(torch, cs, build, variants, cfg, qparams, inputs):
+    """The int8 fused tick on each variant: tokens, lens, counters and
+    carries against the plain version bit for bit, device ms (queued
+    launches) and the kernel's own (the profiler)."""
+    from repro_torch.kernels import fused_stream as fs
+    args = (*inputs, qparams)
+    tok_p, lens_p, lane_p = fs._fused_reference(*args, cfg=cfg)
+    sound_predicate = fs.on_tensor_cores
+    for name, csrc in variants:
+        use(build, name, csrc)
+        if name == "dp4a":
+            fs.on_tensor_cores = (lambda sp, quantized=False:
+                                  not quantized and sound_predicate(sp))
+        fs._launch_meta.cache_clear()
+        try:
+            tok, lens, lane = fs.fused_stream_cuda(*args, cfg=cfg)
+            equal = (torch.equal(tok, tok_p) and torch.equal(lens, lens_p)
+                     and all(torch.equal(lane[k], lane_p[k]) for k in
+                             ("prev_class", "bases", "ticks"))
+                     and all(torch.equal(a, b) for a, b in
+                             zip(lane["conv"], lane_p["conv"])))
+            fn = lambda: fs.fused_stream_cuda(*args, cfg=cfg)  # noqa: E731
+            emit({"phase": "variant", "kernel": "fused_stream_int8",
+                  "variant": name, "equal_to_plain_bitwise": equal,
+                  "ms": cs.time_ms(torch, fn),
+                  "device_ms": cs.device_ms(torch, fn),
+                  "kernel_device_ms": sum(
+                      cs.kernel_device_ms(torch, fn).values())})
+        finally:
+            fs.on_tensor_cores = sound_predicate
+            fs._launch_meta.cache_clear()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -486,10 +1526,11 @@ def main() -> int:
     ap.add_argument("--variants", default="",
                     help="comma-separated variant names to run (all if "
                          "empty); the sound kernel always runs")
-    ap.add_argument("--only", choices=("gemm", "flash", "conv", "fused"))
+    ap.add_argument("--only", choices=("gemm", "flash", "conv", "fused",
+                                       "ssd"))
     args = ap.parse_args()
     runs = ({args.only} if args.only
-            else {"gemm", "flash", "conv", "fused"})
+            else {"gemm", "flash", "conv", "fused", "ssd"})
     sys.path.insert(0, os.path.join(ROOT, "src"))
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
@@ -505,7 +1546,8 @@ def main() -> int:
 
     def variants(table, prefix, file):
         return [("sound", sound)] + [
-            (n, variant_csrc(sound, prefix + n, file, p))
+            (n, sound if p is None else variant_csrc(sound, prefix + n, file,
+                                                     p))
             for n, p in table.items() if not pick or n in pick] + [
             ("sound_last", sound)]
 
@@ -513,6 +1555,8 @@ def main() -> int:
     flash = variants(FLASH, "", "flash_attention.cu")
     conv = variants(CONV, "conv1d_", "conv1d.cu")
     fused = variants(FUSED, "fused_", "fused_stream.cu")
+    int8 = variants(INT8, "int8_", "fused_stream.cu")
+    ssd = variants(SSD, "ssd_", "ssd_scan.cu")
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(3)
     cfg = ARCHS["qwen3-4b"].config()
@@ -543,6 +1587,15 @@ def main() -> int:
     fparams = bc.params_to(fparams, dev)
     finputs = cs.fused_inputs(torch, bc, fcfg, 512, 256,
                               torch.Generator().manual_seed(1), dev)
+    ssd_data = []
+    if "ssd" in runs:
+        m2 = ARCHS["mamba2-780m"].config()
+        xb = cs.ssd_inputs(torch, torch.nn.functional, cs.LM_SEQ, gen, dev,
+                           bh=m2.ssm_heads, ds=m2.ssm_state,
+                           dh=m2.ssm_head_dim)
+        x32 = (xb[0].float(), xb[1], xb[2].float(), xb[3].float())
+        ssd_data = [("bf16", xb, ref.ssd_scan(*xb)[0]),
+                    ("f32", x32, ref.ssd_scan(*x32)[0])]
     for rnd in range(args.reps):
         emit({"phase": "round", "round": rnd})
         if "gemm" in runs:
@@ -554,6 +1607,9 @@ def main() -> int:
         if "fused" in runs:
             fused_round(torch, cs, _build, fused, fcfg, fparams, fqparams,
                         finputs)
+            int8_round(torch, cs, _build, int8, fcfg, fqparams, finputs)
+        if "ssd" in runs:
+            ssd_round(torch, cs, _build, ssd, ssd_data)
     use(_build, "sound", sound)
     F = torch.nn.functional
     lib = {}

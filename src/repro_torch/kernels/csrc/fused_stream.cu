@@ -68,13 +68,32 @@
 // (Cout 5) and the step codec's layers, whose goldens are bitwise.
 //
 // int8 layers (the edge_int8 preset; the fused_stream_kernel<true>
-// instantiation, 512 threads): activations and carries stay fp32 in shared
-// memory, and the carry is written from them before quantization, as in
-// the Pallas body.  A quantized layer first quantizes its whole input into
-// its scratch (int8), then MACs int8 x int8 -> int32 with __dp4a against
-// weights packed four input channels to a word (1/4 the fp32 bytes, read
-// from L2), and applies the epilogue fma(float(acc), act_scale * w_scale,
-// bias) with one rounding, the arithmetic of the unfused int8 path.
+// instantiation, 512 threads, one lane an SM: with its quantized input a
+// lane's plan, 118 KB at chunk 256, leaves no room for a second):
+// activations and carries stay fp32 in shared memory, and the carry is
+// written from them before quantization, as in the Pallas body.  A
+// quantized layer first quantizes its whole input into its scratch
+// (int8), then sums int8 x int8 -> int32, and applies the epilogue
+// fma(float(acc), act_scale * w_scale, bias) with one rounding, the
+// arithmetic of the unfused int8 path.  Integer sums are exact in any
+// order, so every way of summing gives the unfused kernels' bits.
+//   * Layers with Cin % 32 == 0 and Cout % 8 == 0 (the paper CNN's
+//     conv2-conv5) run on the tensor cores: mma.sync.m16n8k32 s8 -> s32,
+//     k ordered (32-channel slice, tap), the warp tiles and n-tile choice
+//     of the fp32 layers.  The quantizer writes the scratch as words of
+//     four channels, its rows padded to whole FS_FRAME_TILE-frame tiles
+//     (smem_plan) and XOR-swizzled inside each 32-word line (fs_qword), so
+//     an A fragment's 32 word loads hit 32 banks.  B comes from L2, packed
+//     once on the host in fragment order (quant/core.py pack_fragments:
+//     a warp's B fragment is one coalesced 8-byte load a thread).
+//   * Other quantized layers keep the CUDA cores: __dp4a against weights
+//     packed four input channels to a word (1/4 the fp32 bytes, read from
+//     L2), or scalar MACs where Cin % 4 != 0 (conv1, the step codec).
+//   * What holds it back (timing-only patches of scripts/kernel_variants.py):
+//     not the MMAs (~0.04 ms of a 0.39 ms tick at 512 x 256) but the
+//     quantization into the scratch (~0.08), conv1 and the head on the
+//     CUDA cores (~0.07) and B's loads from L2 (~0.05).  Loading A and B
+//     ahead, unrolling and 256 or 1,024 threads were slower.
 #include <algorithm>
 #include <cstdint>
 #include <initializer_list>
@@ -93,9 +112,10 @@ constexpr int FS_FRAME_TILE = 32;        // frames of a warp's tile
 constexpr int FS_META = 10;              // ints a layer in the meta array
 
 struct FsLayer {
-  // fp32 layers: fp32 (K, cin, cout).  int8 layers: int32 words packing
-  // four input channels, (K, cin/4, cout), when cin % 4 == 0, else int8
-  // (K, cin, cout).
+  // fp32 layers: fp32 (K, cin, cout).  int8 layers: on the tensor cores
+  // their B fragments, int32 (K, cin/32, cout/8, 32 lanes, 2); elsewhere
+  // int32 words packing four input channels, (K, cin/4, cout), when
+  // cin % 4 == 0, else int8 (K, cin, cout).
   const void* w;
   const float* b;          // (cout,)
   const float* carry_in;   // (lanes, K - stride, cin) or null
@@ -107,6 +127,8 @@ struct FsLayer {
   int nt;                  // tensor-core layers: n-tiles of 8 a warp
   int in_off, out_off, scratch_off;  // floats into shared memory
   int sw_m;                // the input's swizzle mask (fs_swizzle; 0: plain)
+  int q_m;                 // int8 tensor-core layers: the scratch's
+                           // (fs_q_swizzle)
 };
 
 struct FsParams {
@@ -422,12 +444,129 @@ __device__ __forceinline__ void quantize_rows(const float* in, int8_t* q,
   }
 }
 
+// Word w (channels 4w .. 4w + 3) of quantized row r in an int8
+// tensor-core layer's scratch of `words` words a row: word a = r * words +
+// w, its bits 2-4 XORed with bits 5.. of a (mask m), which keeps it inside
+// its 32-word line.
+__device__ __forceinline__ int fs_qword(int a, int m) {
+  return a ^ (((a >> 5) & m) << 2);
+}
+
+// quantize_rows for an int8 tensor-core layer: four channels to a word,
+// each as quantize_rows computes it, stored at fs_qword.  `in` is plain and
+// 16-byte aligned (the launcher checks the plan).
+__device__ __forceinline__ void quantize_rows_tc(const float* in, uint32_t* q,
+                                                 int n_words, int m, float sa,
+                                                 int tid, int nt) {
+  for (int i = tid; i < n_words; i += nt) {
+    const float4 v = reinterpret_cast<const float4*>(in)[i];
+    const float f[4] = {v.x, v.y, v.z, v.w};
+    uint32_t word = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = max(-FS_QMAX, min(FS_QMAX, __float2int_rn(
+                                                   __fdiv_rn(f[j], sa))));
+      word |= (static_cast<uint32_t>(c) & 0xffu) << (8 * j);
+    }
+    q[fs_qword(i, m)] = word;
+  }
+}
+
+// One int8 layer of one lane on the tensor cores (see the note at the
+// top).  `q` holds the quantized [carry | input] rows, swizzled, padded to
+// whole FS_FRAME_TILE-frame tiles.  A warp owns FS_FRAME_TILE frames (two
+// m16 tiles) x 8 NT channels; rows past t_out are computed and not stored.
+template <int NT>
+__device__ __forceinline__ void tc_layer_int8(const FsLayer& L,
+                                              const uint32_t* q,
+                                              const FsOut& o, int t_out,
+                                              int tid, int nwarps) {
+  const int K = L.K, s = L.stride, words = L.cin / 4, m = L.q_m;
+  const int slices = L.cin / 32, n8 = L.cout / 8;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  const int ngroups = n8 / NT;
+  const int items = (t_out + FS_FRAME_TILE - 1) / FS_FRAME_TILE * ngroups;
+  const uint2* wf = static_cast<const uint2*>(L.w);
+
+  for (int it = warp; it < items; it += nwarps) {
+    const int tb = it / ngroups * FS_FRAME_TILE;
+    const int j0 = it % ngroups * NT;
+    int acc[2][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0;
+    // k-steps in (32-channel slice, tap) order; word r0: the row of frame
+    // tb + g at tap k, channels 32 sl + 4 t4 ..
+    for (int sl = 0; sl < slices; ++sl) {
+      for (int k = 0; k < K; ++k) {
+        const int r0 = ((tb + g) * s + k) * words + sl * 8 + t4;
+        uint32_t a[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const int r = r0 + 16 * mt * s * words;   // frame + 16 mt
+          const int r8 = r + 8 * s * words;          // frame + 8
+          a[mt][0] = q[fs_qword(r, m)];
+          a[mt][1] = q[fs_qword(r8, m)];
+          a[mt][2] = q[fs_qword(r + 4, m)];
+          a[mt][3] = q[fs_qword(r8 + 4, m)];
+        }
+        const uint2* wb =
+            wf + ((static_cast<size_t>(k) * slices + sl) * n8 + j0) * 32 + lane;
+        uint2 b[NT];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) b[nt] = __ldg(wb + nt * 32);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+            mma_s8_16832(acc[mt][nt], a[mt], b[nt].x, b[nt].y);
+      }
+    }
+    // the unfused epilogue, stored in the next layer's layout
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int co = (j0 + nt) * 8 + 2 * t4;
+      const float sc0 = L.scale[co], sc1 = L.scale[co + 1];
+      const float bias0 = L.b[co], bias1 = L.b[co + 1];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int t = tb + mt * 16 + g + 8 * h;
+          if (t >= t_out) continue;
+          const float v0 =
+              __fmaf_rn(__int2float_rn(acc[mt][nt][2 * h]), sc0, bias0);
+          const float v1 =
+              __fmaf_rn(__int2float_rn(acc[mt][nt][2 * h + 1]), sc1, bias1);
+          *reinterpret_cast<float2*>(o.at(t, co)) =
+              make_float2(activate(v0, L.act), activate(v1, L.act));
+        }
+      }
+    }
+  }
+}
+
 template <bool INT8>
 __device__ __forceinline__ void run_layer(const FsLayer& L, const float* in,
                                           float* scratch, const FsOut& o,
                                           int t_in, int t_out, int tid,
                                           int nt) {
   if constexpr (INT8) {
+    if (L.quantized && L.tc) {
+      uint32_t* qw = reinterpret_cast<uint32_t*>(scratch);
+      quantize_rows_tc(in, qw, (L.K - L.stride + t_in) * L.cin / 4, L.q_m,
+                       *L.act_scale, tid, nt);
+      __syncthreads();
+      switch (L.nt) {
+        case 1: tc_layer_int8<1>(L, qw, o, t_out, tid, nt / 32); return;
+        case 2: tc_layer_int8<2>(L, qw, o, t_out, tid, nt / 32); return;
+        case 3: tc_layer_int8<3>(L, qw, o, t_out, tid, nt / 32); return;
+        default: tc_layer_int8<4>(L, qw, o, t_out, tid, nt / 32); return;
+      }
+    }
     if (L.quantized) {
       int8_t* qbuf = reinterpret_cast<int8_t*>(scratch);
       quantize_rows(in, qbuf, (L.K - L.stride + t_in) * L.cin, *L.act_scale,
@@ -561,16 +700,16 @@ fused_stream_kernel(const FsParams p) {
 }
 
 // n-tiles of 8 channels a warp for a tensor-core layer: the fewest MMAs a
-// warp over all passes of the FS_WARPS warps, then the widest tile (fewer
-// A fragments split, fewer passes over the weights).
-static int pick_nt(int cout, int t_out) {
+// warp over all passes of the block's warps, then the widest tile (fewer
+// A fragments loaded, fewer passes over the weights).
+static int pick_nt(int cout, int t_out, int warps) {
   const int n8 = cout / 8;
   const int mg = (t_out + FS_FRAME_TILE - 1) / FS_FRAME_TILE;
   int best = 1, cost = 1 << 30;
   for (int nt : {1, 2, 3, 4}) {
     if (n8 % nt) continue;
     const int items = mg * (n8 / nt);
-    const int c = (items + FS_WARPS - 1) / FS_WARPS * nt;
+    const int c = (items + warps - 1) / warps * nt;
     if (c <= cost) {
       best = nt;
       cost = c;
@@ -585,11 +724,21 @@ static int fs_swizzle(int cin) {
   return cin % 32 == 0 ? 7 : (cin % 16 == 0 ? 3 : 1);
 }
 
+// The swizzle mask of an int8 tensor-core layer's scratch (fs_qword): the
+// 8 rows of an A fragment are `stride` rows apart; where that is a whole
+// number of 32-word lines they sit in 8 consecutive lines, three bits of
+// the line set them apart, else (half lines apart at the paper CNN's
+// widths) two.
+static int fs_q_swizzle(int cin, int stride) {
+  return (cin / 4 * stride) % 32 == 0 ? 7 : 3;
+}
+
 // Whether the plan's offsets hold every region the kernel touches, layer by
-// layer, inside [0, cls_off) and apart: its [carry | input] rows (a
+// layer, inside [0, cls_off) and apart: its [carry | input] rows (an fp32
 // tensor-core layer's padded to whole FS_FRAME_TILE-frame tiles, which its
 // fragments read), its output (the next layer's carry and input rows, or
-// the logits) and an int8 layer's quantized input; and the class buffer
+// the logits) and an int8 layer's quantized input (on the tensor cores its
+// rows padded the same way, in whole 32-word lines); and the class buffer
 // inside the block's shared memory.  The plan is kernels/fused_stream.py
 // smem_plan's: this is where a plan that does not match the kernel stops.
 static bool plan_fits(const FsParams& p, int chunk, int smem_bytes) {
@@ -597,18 +746,21 @@ static bool plan_fits(const FsParams& p, int chunk, int smem_bytes) {
   for (int l = 0; l < p.n_layers; ++l) {
     const FsLayer& L = p.layers[l];
     const long long t_out = t / L.stride, carry = L.K - L.stride;
-    long long rows = carry + t;
+    long long rows = carry + t, padded = rows;
     if (L.tc) {
       const long long tiles = (t_out + FS_FRAME_TILE - 1) / FS_FRAME_TILE;
-      rows = std::max(rows, (tiles * FS_FRAME_TILE - 1) * L.stride + L.K);
+      padded = std::max(rows, (tiles * FS_FRAME_TILE - 1) * L.stride + L.K);
       if (L.out_off % 2) return false;  // float2 stores
+      if (L.quantized && L.in_off % 4) return false;  // float4 loads
+      if (!L.quantized) rows = padded;
     }
     long long out = t_out * L.cout;
     if (l + 1 < p.n_layers) {
       const FsLayer& N = p.layers[l + 1];
       out = (N.K - N.stride + t_out) * N.cin;
     }
-    const long long q = L.quantized ? ((carry + t) * L.cin + 3) / 4 : 0;
+    long long q = L.quantized ? (rows * L.cin + 3) / 4 : 0;
+    if (L.quantized && L.tc) q = (padded * L.cin / 4 + 31) / 32 * 32;
     const long long r[3][2] = {{L.in_off, L.in_off + rows * L.cin},
                                {L.out_off, L.out_off + out},
                                {L.scratch_off, L.scratch_off + q}};
@@ -630,8 +782,10 @@ static bool plan_fits(const FsParams& p, int chunk, int smem_bytes) {
 // scale, act_scale).  Both are host arrays; the offsets are
 // kernels/fused_stream.py smem_plan's, and a plan that does not hold the
 // kernel's regions is refused (plan_fits).  smem_bytes: the plan's total.
-// A tensor-core layer needs cin and cout multiples of 8; int8 layers run in
-// the int8 kernel, which has no tensor-core layer.
+// A tensor-core layer needs cin and cout multiples of 8 (fp32) or cin of 32
+// and cout of 8 (int8; its weights in fragment order, 8-byte aligned);
+// int8 layers run in the int8 kernel, where only they take the tensor
+// cores.
 extern "C" int launch_fused_stream(const int* meta, void* const* ptrs,
                                    int n_layers, const void* rows,
                                    const void* pads, const void* reset,
@@ -644,7 +798,7 @@ extern "C" int launch_fused_stream(const int* meta, void* const* ptrs,
   if (n_layers < 1 || n_layers > FS_MAX_LAYERS)
     return static_cast<int>(cudaErrorInvalidValue);
   FsParams p;
-  bool any_int8 = false, any_tc = false;
+  bool any_int8 = false;
   int t = chunk;
   for (int l = 0; l < n_layers; ++l) {
     FsLayer& L = p.layers[l];
@@ -665,15 +819,20 @@ extern "C" int launch_fused_stream(const int* meta, void* const* ptrs,
     L.carry_out = static_cast<float*>(ptrs[6 * l + 3]);
     L.scale = static_cast<const float*>(ptrs[6 * l + 4]);
     L.act_scale = static_cast<const float*>(ptrs[6 * l + 5]);
-    t /= L.stride;
-    L.nt = L.tc ? pick_nt(L.cout, t) : 0;
-    L.sw_m = L.tc ? fs_swizzle(L.cin) : 0;
-    if (L.tc && (L.cin % 8 || L.cout % 8))
-      return static_cast<int>(cudaErrorInvalidValue);
     any_int8 = any_int8 || L.quantized;
-    any_tc = any_tc || L.tc;
   }
-  if (any_int8 && any_tc) return static_cast<int>(cudaErrorInvalidValue);
+  const int warps = (any_int8 ? FS_INT8_THREADS : FS_THREADS) / 32;
+  for (int l = 0; l < n_layers; ++l) {
+    FsLayer& L = p.layers[l];
+    t /= L.stride;
+    L.nt = L.tc ? pick_nt(L.cout, t, warps) : 0;
+    L.sw_m = L.tc && !L.quantized ? fs_swizzle(L.cin) : 0;
+    L.q_m = L.tc && L.quantized ? fs_q_swizzle(L.cin, L.stride) : 0;
+    if (L.tc && (L.cin % (L.quantized ? 32 : 8) || L.cout % 8 ||
+                 L.quantized != static_cast<int>(any_int8) ||
+                 (L.quantized && reinterpret_cast<uintptr_t>(L.w) % 8)))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   p.n_layers = n_layers;
   p.rows = static_cast<const float*>(rows);
   p.pads = static_cast<const float*>(pads);

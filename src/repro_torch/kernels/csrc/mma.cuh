@@ -1,5 +1,6 @@
-// Tensor-core pieces shared by flash_attention.cu and matmul.cu (bf16) and
-// conv1d.cu and fused_stream.cu (TF32).
+// Tensor-core pieces shared by flash_attention.cu and matmul.cu (bf16),
+// conv1d.cu, fused_stream.cu and ssd_scan.cu (TF32) and fused_stream.cu
+// (int8).
 //
 // One warp-wide mma.sync.m16n8k16 (bf16 x bf16 -> f32): D[16x8] += A[16x16]
 // B[16x8].  With g = lane / 4 and t = lane % 4, each thread holds
@@ -89,4 +90,25 @@ __device__ __forceinline__ void split_tf32_int(float v, uint32_t& hi,
                                                uint32_t& lo) {
   hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
   lo = (__float_as_uint(v - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
+}
+
+// One warp-wide mma.sync.m16n8k32 (s8 x s8 -> s32, exact): D[16x8] +=
+// A[16x32] B[32x8].  With g = lane / 4 and t = lane % 4, each thread holds
+//
+//   A (row-major)  a0: (g, 4t..4t+3)        a1: (g+8, 4t..4t+3)
+//                  a2: (g, 4t+16..4t+19)    a3: (g+8, 4t+16..4t+19)
+//   B (k x n)      b0: (k = 4t..4t+3, n = g)   b1: (k = 4t+16..4t+19, n = g)
+//   C/D (s32)      as the f32 layouts above: d0, d1 (g, 2t..2t+1), d2, d3
+//                  (g+8, ...)
+//
+// each A/B register packing four int8, the lowest k in the low byte (PTX
+// ISA, "Matrix Fragments for mma.m16n8k32").
+__device__ __forceinline__ void mma_s8_16832(int (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }

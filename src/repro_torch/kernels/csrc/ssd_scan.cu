@@ -1,4 +1,5 @@
-// Mamba-2 SSD (state-space duality) chunked scan, computed in f32.
+// Mamba-2 SSD (state-space duality) chunked scan, computed to f32 accuracy
+// on the tensor cores.
 //
 // Replaces: src/repro/kernels/ssd_scan.py::ssd_scan (Pallas body
 // _ssd_kernel): grid (BH, T / chunk), the chunk axis sequential, carrying
@@ -37,115 +38,217 @@
 // are not written.
 //
 // Bound on this card: on the path (mamba2-780m, BH = 48, T = 4096, ds 128,
-// dh 64, chunk 256) operations, ~1.7e10 f32 FLOP (pass 3 ~80%) against
-// ~0.2 GB of traffic; f32 FMAs on the CUDA cores, since TF32 would break
-// the 2e-4 bar.  Each block of 256 threads keeps a 4 x 4 (pass 1: 8 x 4)
-// register tile and streams its operands through shared memory, 2 blocks
-// an SM in pass 3 (~100 KB each).  At T = 4096 pass 1 runs 768 blocks and
-// pass 3 3,072, so the card is full.  Each pass numbers its blocks along
-// the grid's x only (head * blocks a head + block, the order of the 2-D
-// grid it replaced), so no B * H is too large.
+// dh 64, chunk 256, bf16) operations, ~1.9e10 FLOP of products (pass 3
+// ~80%) against ~0.2 GB of traffic.  Every product runs as mma.sync
+// m16n8k8 TF32 (mma.cuh).  One TF32 product misses the 2e-4 bar, so each
+// f32 operand is split hi + lo (split_tf32_int) and a product takes the
+// terms the split needs, the small ones first: a bf16 value is exact in
+// TF32 and has no lo term, so on the path C B^T is one product, and G' X,
+// C S_in and (w B)^T X (G', S_in, w B in f32) two; with f32 inputs every
+// product is 3xTF32 (conv1d.cu conv1d_tc_kernel).  Operands stay f32 in
+// shared memory (bf16 widened as they land), rows padded so that each
+// fragment's 32 loads hit 32 banks.  Pass 3: eight warps, each 16 rows of
+// t; G goes through shared memory between its two products, and on the
+// diagonal tile a warp skips the columns above its rows.  Two blocks an SM
+// (~107 KB each).  Latency, not throughput, paced the first version: a
+// thread now issues all its loads of a tile before its stores, the cumsum
+// takes the whole block in one round of loads, and pass 2 loads eight
+// chunks ahead.  Pass 3 is three quarters of the time; keeping G in
+// registers, bf16 MMAs with three-way splits and two heads a block (C B^T
+// once) all measured slower or no faster (scripts/kernel_variants.py
+// --only ssd).  At T = 4096 pass 1 runs 768 blocks and pass 3 3,072, so
+// the card is full.  Each pass numbers its blocks along the grid's x only
+// (head * blocks a head + block, the order of the 2-D grid it replaced),
+// so no B * H is too large.
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 constexpr int SSD_TILE = 64;       // rows of t (and of s) per tile
 constexpr int SSD_THREADS = 256;
 constexpr int SSD_MAX_CHUNK = 1024;
+static_assert(4 * SSD_THREADS >= SSD_MAX_CHUNK, "chunk_cumsum: 4 a thread");
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
+template <typename T> __device__ __forceinline__ T zero();
+template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
+template <> __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
+  return __ushort_as_bfloat16(0);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// Inclusive cumsum of log_a over the chunk starting at c0 (length n, zeros
-// past T) into cum[0, n), by warp 0 in steps of 32.  Both passes that read
-// cum call this, so they see the same values.
-__device__ void chunk_cumsum(const float* __restrict__ la, int c0, int n,
-                             int T, float* cum) {
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    float carry = 0.f;
-    for (int p0 = 0; p0 < n; p0 += 32) {
-      const int t = c0 + p0 + lane;
-      float v = (p0 + lane < n && t < T) ? la[t] : 0.f;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float u = __shfl_up_sync(0xffffffffu, v, o);
-        if (lane >= o) v += u;
-      }
-      v += carry;
-      if (p0 + lane < n) cum[p0 + lane] = v;
-      carry = __shfl_sync(0xffffffffu, v, 31);
-    }
+// An operand value as TF32: split hi + lo when it may not be exact in TF32,
+// else its own bits (a widened bf16 value) and no lo term.
+template <bool SPLIT>
+__device__ __forceinline__ void tf32_parts(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  if constexpr (SPLIT) {
+    split_tf32_int(v, hi, lo);
+  } else {
+    hi = __float_as_uint(v);
+    lo = 0u;
   }
+}
+
+// The A fragment (16 x 8, row-major, leading dimension ld) whose thread
+// element (g, t4) is at p.
+template <bool SPLIT>
+__device__ __forceinline__ void load_a(const float* p, int ld,
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  tf32_parts<SPLIT>(p[0], hi[0], lo[0]);            // (g,     t4)
+  tf32_parts<SPLIT>(p[8 * ld], hi[1], lo[1]);       // (g + 8, t4)
+  tf32_parts<SPLIT>(p[4], hi[2], lo[2]);            // (g,     t4 + 4)
+  tf32_parts<SPLIT>(p[8 * ld + 4], hi[3], lo[3]);   // (g + 8, t4 + 4)
+}
+
+// d += A B in the terms the split operands need, small ones first:
+// lo_a hi_b, hi_a lo_b, hi_a hi_b (an exact operand has no lo term).
+template <bool A_EXACT, bool B_EXACT>
+__device__ __forceinline__ void mma_split(float (&d)[4], const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4], uint32_t bh0,
+                                          uint32_t bh1, uint32_t bl0,
+                                          uint32_t bl1) {
+  if constexpr (!A_EXACT) mma_tf32_1688(d, al, bh0, bh1);
+  if constexpr (!B_EXACT) mma_tf32_1688(d, ah, bl0, bl1);
+  mma_tf32_1688(d, ah, bh0, bh1);
+}
+
+// Inclusive cumsum of log_a over the chunk starting at c0 (length n <=
+// SSD_MAX_CHUNK, zeros past T) into cum[0, n), by the whole block: each
+// thread sums four consecutive values, the warps scan their threads' sums
+// by shuffles and the block the warps' (in `part`, SSD_THREADS / 32
+// floats).  Every load is issued at once.  Both passes that read cum call
+// this, so they see the same values.
+__device__ void chunk_cumsum(const float* __restrict__ la, int c0, int n,
+                             int T, float* cum, float* part) {
+  const int i0 = 4 * threadIdx.x, lane = threadIdx.x % 32;
+  float v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    v[j] = (i0 + j < n && c0 + i0 + j < T) ? la[c0 + i0 + j] : 0.f;
+  v[1] += v[0];
+  v[2] += v[1];
+  v[3] += v[2];
+  float run = v[3];
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float u = __shfl_up_sync(0xffffffffu, run, o);
+    if (lane >= o) run += u;
+  }
+  if (lane == 31) part[threadIdx.x / 32] = run;
+  __syncthreads();
+  float base = run - v[3];  // the sum of this warp's earlier threads
+  for (int w = 0; w < static_cast<int>(threadIdx.x) / 32; ++w) base += part[w];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (i0 + j < n) cum[i0 + j] = base + v[j];
   __syncthreads();
 }
 
+// rows [t0, t0 + TILE) of a (T, COLS) head into dst[TILE][LD] as f32,
+// zeros past T.  The rows are contiguous, so thread i takes elements i +
+// j SSD_THREADS from one pointer; every load is issued before the stores.
+template <int COLS, int LD, typename T>
+__device__ __forceinline__ void stage_rows(const T* __restrict__ src, int t0,
+                                           int Tn, float* dst) {
+  static_assert(SSD_THREADS % COLS == 0, "whole rows a step");
+  constexpr int N = SSD_TILE * COLS / SSD_THREADS;
+  constexpr int ROWS = SSD_THREADS / COLS;   // rows a step
+  const T* p = src + static_cast<size_t>(t0) * COLS + threadIdx.x;
+  const int n = min(Tn - t0, SSD_TILE) * COLS - static_cast<int>(threadIdx.x);
+  T v[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) v[j] = j * SSD_THREADS < n ? p[j * SSD_THREADS] : zero<T>();
+  float* d = dst + (threadIdx.x / COLS) * LD + threadIdx.x % COLS;
+#pragma unroll
+  for (int j = 0; j < N; ++j) d[j * ROWS * LD] = to_f32(v[j]);
+}
+
 // ---- pass 1: each chunk's own state and log decay ------------------------
+// The state (DS x DH) = (w B)^T X over the chunk's s: warp w owns state rows
+// 16 w .. 16 w + 15 (DS / 16 warps busy) and every column.
 template <typename T, int DS, int DH>
-__global__ void __launch_bounds__(SSD_THREADS)
+__global__ void __launch_bounds__(SSD_THREADS, 2)
 ssd_chunk_state_kernel(const T* __restrict__ x, const float* __restrict__ la,
                        const T* __restrict__ b, float* __restrict__ states,
                        float* __restrict__ totals, int Tn, int chunk,
                        long long b_head_stride) {
+  constexpr bool EXACT = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int LW = DS + 8;   // B rows (s): A reads (m = g, k = t4) at t4 * LW + g
+  constexpr int LX = DH + 8;   // X rows (s): B reads (k = t4, n = g) at t4 * LX + g
+  constexpr int NB = DH / 8;
   extern __shared__ __align__(16) float smem[];
-  float* cum = smem;                          // [chunk]
-  float* bw = cum + SSD_MAX_CHUNK;            // [TILE][DS]: w_s B_s
-  float* xs = bw + SSD_TILE * DS;             // [TILE][DH]
+  __shared__ float part[SSD_THREADS / 32];
+  float* wd = smem;                   // [chunk]: cum, then exp(total - cum)
+  float* bw = wd + chunk;             // [TILE][LW]: B_s
+  float* xs = bw + SSD_TILE * LW;     // [TILE][LX]
   const int nc = (Tn + chunk - 1) / chunk;  // blocks: head * nc + chunk
   const int c = static_cast<int>(blockIdx.x % nc);
   const int h = static_cast<int>(blockIdx.x / nc);
   const int c0 = c * chunk;
   const float* lah = la + static_cast<size_t>(h) * Tn;
   const T* xh = x + static_cast<size_t>(h) * Tn * DH;
-  const T* bh = b + h * b_head_stride;
-  chunk_cumsum(lah, c0, chunk, Tn, cum);
-  const float total = cum[chunk - 1];
+  const T* bhd = b + h * b_head_stride;
+  chunk_cumsum(lah, c0, chunk, Tn, wd, part);
+  const float total = wd[chunk - 1];
+  __syncthreads();
+  for (int i = threadIdx.x; i < chunk; i += SSD_THREADS)
+    wd[i] = expf(total - wd[i]);
 
-  constexpr int NI = DS / 16, NJ = DH / 16;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[NI][NJ];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4, m0 = 16 * warp;
+  float acc[NB][4];
 #pragma unroll
-  for (int i = 0; i < NI; ++i)
+  for (int j = 0; j < NB; ++j)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
   for (int s0 = 0; s0 < chunk; s0 += SSD_TILE) {
-    for (int i = threadIdx.x; i < SSD_TILE * DS; i += SSD_THREADS) {
-      const int s = i / DS, k = i % DS;
-      const int t = c0 + s0 + s;
-      bw[i] = t < Tn ? expf(total - cum[s0 + s]) *
-                           to_f32(bh[static_cast<size_t>(t) * DS + k])
-                     : 0.f;
-    }
-    for (int i = threadIdx.x; i < SSD_TILE * DH; i += SSD_THREADS) {
-      const int t = c0 + s0 + i / DH;
-      xs[i] = t < Tn ? to_f32(xh[static_cast<size_t>(t) * DH + i % DH]) : 0.f;
-    }
+    __syncthreads();  // wd is written; the previous tile is consumed
+    stage_rows<DS, LW>(bhd, c0 + s0, Tn, bw);
+    stage_rows<DH, LX>(xh, c0 + s0, Tn, xs);
     __syncthreads();
-    for (int s = 0; s < SSD_TILE; ++s) {
-      float av[NI], xv[NJ];
+    if (m0 < DS) {
+#pragma unroll 2
+      for (int k0 = 0; k0 < SSD_TILE; k0 += 8) {
+        // A = (w B)^T: element (m, k) is w_k B[k][m]
+        const float* pa = bw + (k0 + t4) * LW + m0 + g;
+        const float w0 = wd[s0 + k0 + t4], w1 = wd[s0 + k0 + t4 + 4];
+        uint32_t ah[4], al[4];
+        split_tf32_int(w0 * pa[0], ah[0], al[0]);            // (g,     t4)
+        split_tf32_int(w0 * pa[8], ah[1], al[1]);            // (g + 8, t4)
+        split_tf32_int(w1 * pa[4 * LW], ah[2], al[2]);       // (g,     t4 + 4)
+        split_tf32_int(w1 * pa[4 * LW + 8], ah[3], al[3]);   // (g + 8, t4 + 4)
 #pragma unroll
-      for (int i = 0; i < NI; ++i) av[i] = bw[s * DS + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) xv[j] = xs[s * DH + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < NI; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(av[i], xv[j], acc[i][j]);
+        for (int j = 0; j < NB; ++j) {
+          const float* pb = xs + (k0 + t4) * LX + 8 * j + g;
+          uint32_t bh0, bl0, bh1, bl1;
+          tf32_parts<!EXACT>(pb[0], bh0, bl0);
+          tf32_parts<!EXACT>(pb[4 * LX], bh1, bl1);
+          mma_split<false, EXACT>(acc[j], ah, al, bh0, bh1, bl0, bl1);
+        }
+      }
     }
-    __syncthreads();
   }
-  float* st = states + (static_cast<size_t>(h) * nc + c) * DS * DH;
+  if (m0 < DS) {
+    float* st = states + (static_cast<size_t>(h) * nc + c) * DS * DH;
 #pragma unroll
-  for (int i = 0; i < NI; ++i)
+    for (int j = 0; j < NB; ++j)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) st[(ty + 16 * i) * DH + tx + 16 * j] = acc[i][j];
+      for (int hh = 0; hh < 2; ++hh)
+        store2(st + (m0 + g + 8 * hh) * DH + 8 * j + 2 * t4, acc[j][2 * hh],
+               acc[j][2 * hh + 1]);
+  }
   if (threadIdx.x == 0) totals[static_cast<size_t>(h) * nc + c] = total;
 }
 
@@ -157,30 +260,60 @@ __global__ void ssd_state_scan_kernel(float* __restrict__ states,
   const int e = static_cast<int>(blockIdx.x % nx) * blockDim.x + threadIdx.x;
   const int h = static_cast<int>(blockIdx.x / nx);
   if (e >= n_elem) return;
+  // eight chunks' loads at a time, then their dependent updates
+  constexpr int G = 8;
   float run = 0.f;
-  for (int c = 0; c < nc; ++c) {
-    float* p = states + (static_cast<size_t>(h) * nc + c) * n_elem + e;
-    const float own = *p;
-    *p = run;
-    run = expf(totals[static_cast<size_t>(h) * nc + c]) * run + own;
+  for (int c0 = 0; c0 < nc; c0 += G) {
+    float own[G], dec[G];
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const int c = c0 + j;
+      own[j] = c < nc ? states[(static_cast<size_t>(h) * nc + c) * n_elem + e]
+                      : 0.f;
+      dec[j] = c < nc ? totals[static_cast<size_t>(h) * nc + c] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const int c = c0 + j;
+      if (c < nc) {
+        states[(static_cast<size_t>(h) * nc + c) * n_elem + e] = run;
+        run = expf(dec[j]) * run + own[j];
+      }
+    }
   }
 }
 
 // ---- pass 3: the outputs of one 64-row tile of a chunk -------------------
+// Warp w owns rows 16 (w / 2) .. + 15 of the tile; of y the columns
+// (w % 2) DH / 2 .. + DH / 2 - 1, of each G the columns (w % 2) 32 .. + 31.
+template <int DS, int DH>
+constexpr int ssd_out_floats(int chunk) {
+  return chunk + SSD_TILE * (DS + 4) +
+         (SSD_TILE * (DS + 4) > DS * (DH + 8) ? SSD_TILE * (DS + 4)
+                                              : DS * (DH + 8)) +
+         SSD_TILE * (DH + 8) + SSD_TILE * (SSD_TILE + 4);
+}
+
 template <typename T, int DS, int DH>
-__global__ void __launch_bounds__(SSD_THREADS)
+__global__ void __launch_bounds__(SSD_THREADS, 2)
 ssd_chunk_out_kernel(const T* __restrict__ x, const float* __restrict__ la,
                      const T* __restrict__ b, const T* __restrict__ c,
                      const float* __restrict__ states, T* __restrict__ y,
                      int Tn, int chunk, long long b_head_stride,
                      long long c_head_stride) {
-  constexpr int LT = SSD_TILE + 1;            // padded transposed rows
+  constexpr bool EXACT = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int LC = DS + 4;          // C_t, B_s rows: (g, t4) at g * LC + t4
+  constexpr int LX = DH + 8;          // X_s, S_in rows: (t4, g) at t4 * LX + g
+  constexpr int LG = SSD_TILE + 4;    // G rows: (g, t4) at g * LG + t4
+  constexpr int NJ = DH / 16;         // n-tiles of y a warp
+  constexpr int BUF = SSD_TILE * LC > DS * LX ? SSD_TILE * LC : DS * LX;
   extern __shared__ __align__(16) float smem[];
-  float* cum = smem;                          // [chunk]
-  float* cs = cum + SSD_MAX_CHUNK;            // [DS][LT]: C_t transposed
-  float* bs = cs + DS * LT;                   // [DS][LT]: B_s transposed, or S_in [DS][DH]
-  float* xs = bs + DS * LT;                   // [TILE][DH]
-  float* gs = xs + SSD_TILE * DH;             // [TILE][LT]: decayed G
+  __shared__ float part[SSD_THREADS / 32];
+  float* cum = smem;                  // [chunk]
+  float* cs = cum + chunk;            // [TILE][LC]: C_t
+  float* bs = cs + SSD_TILE * LC;     // [TILE][LC]: B_s; first S_in [DS][LX]
+  float* xs = bs + BUF;               // [TILE][LX]: X_s
+  float* gs = xs + SSD_TILE * LX;     // [TILE][LG]: the decayed G
   const int tiles = chunk / SSD_TILE;
   const int nc = (Tn + chunk - 1) / chunk;  // blocks: head * nc * tiles + ...
   const int ci = static_cast<int>(blockIdx.x % (nc * tiles)) / tiles;
@@ -189,108 +322,138 @@ ssd_chunk_out_kernel(const T* __restrict__ x, const float* __restrict__ la,
   const int c0 = ci * chunk, t0 = c0 + ti * SSD_TILE;
   const float* lah = la + static_cast<size_t>(h) * Tn;
   const T* xh = x + static_cast<size_t>(h) * Tn * DH;
-  const T* bh = b + h * b_head_stride;
-  const T* ch = c + h * c_head_stride;
-  chunk_cumsum(lah, c0, (ti + 1) * SSD_TILE, Tn, cum);
+  const T* bhd = b + h * b_head_stride;
+  const T* chd = c + h * c_head_stride;
+  chunk_cumsum(lah, c0, (ti + 1) * SSD_TILE, Tn, cum, part);
 
-  constexpr int NJ = DH / 16;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  // C tile transposed, and S_in in the B buffer
-  for (int i = threadIdx.x; i < SSD_TILE * DS; i += SSD_THREADS) {
-    const int r = i / DS, k = i % DS;
-    const int t = t0 + r;
-    cs[k * LT + r] = t < Tn ? to_f32(ch[static_cast<size_t>(t) * DS + k]) : 0.f;
+  stage_rows<DS, LC>(chd, t0, Tn, cs);
+  {
+    // S_in, DS rows of DH, contiguous
+    constexpr int N = DS * DH / SSD_THREADS, ROWS = SSD_THREADS / DH;
+    const float* p = states + (static_cast<size_t>(h) * nc + ci) * DS * DH +
+                     threadIdx.x;
+    float v[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) v[j] = p[j * SSD_THREADS];
+    float* d = bs + (threadIdx.x / DH) * LX + threadIdx.x % DH;
+#pragma unroll
+    for (int j = 0; j < N; ++j) d[j * ROWS * LX] = v[j];
   }
-  const float* sin = states + (static_cast<size_t>(h) * nc + ci) * DS * DH;
-  for (int i = threadIdx.x; i < DS * DH; i += SSD_THREADS) bs[i] = sin[i];
   __syncthreads();
 
-  float acc[4][NJ];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int r0 = 16 * (warp / 2), n0 = (warp % 2) * (DH / 2);
+  const int sc0 = 32 * (warp % 2);
+  const int tl0 = ti * SSD_TILE + r0 + g;   // chunk-local t of rows g, g + 8
+  float acc[NJ][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < NJ; ++j)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  for (int k = 0; k < DS; ++k) {
-    float cv[4], sv[NJ];
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  // inter: y = exp(cum_t) C_t S_in
+#pragma unroll 2
+  for (int k0 = 0; k0 < DS; k0 += 8) {
+    uint32_t ah[4], al[4];
+    load_a<!EXACT>(cs + (r0 + g) * LC + k0 + t4, LC, ah, al);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) cv[i] = cs[k * LT + ty + 16 * i];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) sv[j] = bs[k * DH + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(cv[i], sv[j], acc[i][j]);
+    for (int j = 0; j < NJ; ++j) {
+      const float* pb = bs + (k0 + t4) * LX + n0 + 8 * j + g;
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32_int(pb[0], bh0, bl0);
+      split_tf32_int(pb[4 * LX], bh1, bl1);
+      mma_split<EXACT, false>(acc[j], ah, al, bh0, bh1, bl0, bl1);
+    }
   }
+  {
+    const float w0 = expf(cum[tl0]), w1 = expf(cum[tl0 + 8]);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float w = expf(cum[ti * SSD_TILE + ty + 16 * i]);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] *= w;
+    for (int j = 0; j < NJ; ++j) {
+      acc[j][0] *= w0;
+      acc[j][1] *= w0;
+      acc[j][2] *= w1;
+      acc[j][3] *= w1;
+    }
   }
 
   for (int st = 0; st <= ti; ++st) {
     const int s0 = c0 + st * SSD_TILE;
+    const bool diag = st == ti;
     __syncthreads();  // the previous step is done with bs, xs and gs
-    for (int i = threadIdx.x; i < SSD_TILE * DS; i += SSD_THREADS) {
-      const int r = i / DS, k = i % DS;
-      const int t = s0 + r;
-      bs[k * LT + r] = t < Tn ? to_f32(bh[static_cast<size_t>(t) * DS + k]) : 0.f;
-    }
-    for (int i = threadIdx.x; i < SSD_TILE * DH; i += SSD_THREADS) {
-      const int t = s0 + i / DH;
-      xs[i] = t < Tn ? to_f32(xh[static_cast<size_t>(t) * DH + i % DH]) : 0.f;
-    }
+    stage_rows<DS, LC>(bhd, s0, Tn, bs);
+    stage_rows<DH, LX>(xh, s0, Tn, xs);
     __syncthreads();
-    // G[t][s] = C_t . B_s (t = ty + 16 i, s = tx + 16 j)
-    float gv[4][4];
+    // G = C_t B_s^T on this warp's 16 rows x 32 columns, decayed and
+    // masked into gs; on the diagonal tile columns past the warp's rows
+    // are all masked
+    if (diag && sc0 > r0 + 15) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) gv[i][j] = 0.f;
-    for (int k = 0; k < DS; ++k) {
-      float cv[4], bv[4];
+        for (int hh = 0; hh < 2; ++hh)
+          store2(gs + (r0 + g + 8 * hh) * LG + sc0 + 8 * jj + 2 * t4, 0.f, 0.f);
+    } else {
+      float gv[4][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) cv[i] = cs[k * LT + ty + 16 * i];
+      for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = bs[k * LT + tx + 16 * j];
+        for (int e = 0; e < 4; ++e) gv[jj][e] = 0.f;
+#pragma unroll 2
+      for (int k0 = 0; k0 < DS; k0 += 8) {
+        uint32_t ah[4], al[4];
+        load_a<!EXACT>(cs + (r0 + g) * LC + k0 + t4, LC, ah, al);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int jj = 0; jj < 4; ++jj) {
+          // B = B_s^T: element (k, n) at bs[n][k]
+          const float* pb = bs + (sc0 + 8 * jj + g) * LC + k0 + t4;
+          uint32_t bh0, bl0, bh1, bl1;
+          tf32_parts<!EXACT>(pb[0], bh0, bl0);
+          tf32_parts<!EXACT>(pb[4], bh1, bl1);
+          mma_split<EXACT, EXACT>(gv[jj], ah, al, bh0, bh1, bl0, bl1);
+        }
+      }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) gv[i][j] = fmaf(cv[i], bv[j], gv[i][j]);
-    }
+      for (int jj = 0; jj < 4; ++jj) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int tl = ti * SSD_TILE + ty + 16 * i;   // chunk-local t
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int sl = st * SSD_TILE + tx + 16 * j; // chunk-local s
-        gs[(ty + 16 * i) * LT + tx + 16 * j] =
-            sl <= tl ? gv[i][j] * expf(cum[tl] - cum[sl]) : 0.f;
+        for (int hh = 0; hh < 2; ++hh) {
+          const int tl = tl0 + 8 * hh;
+          const int sl = st * SSD_TILE + sc0 + 8 * jj + 2 * t4;
+          const float v0 =
+              sl <= tl ? gv[jj][2 * hh] * expf(cum[tl] - cum[sl]) : 0.f;
+          const float v1 = sl + 1 <= tl
+                               ? gv[jj][2 * hh + 1] * expf(cum[tl] - cum[sl + 1])
+                               : 0.f;
+          store2(gs + (r0 + g + 8 * hh) * LG + sc0 + 8 * jj + 2 * t4, v0, v1);
+        }
       }
     }
     __syncthreads();
-    // y += G X_s
-    for (int s = 0; s < SSD_TILE; ++s) {
-      float gv2[4], xv[NJ];
+    // y += G X_s, over the columns s of G that can be nonzero in these rows
+    const int kend = diag ? r0 + 16 : SSD_TILE;
+    for (int k0 = 0; k0 < kend; k0 += 8) {
+      uint32_t ah[4], al[4];
+      load_a<true>(gs + (r0 + g) * LG + k0 + t4, LG, ah, al);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) gv2[i] = gs[(ty + 16 * i) * LT + s];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) xv[j] = xs[s * DH + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(gv2[i], xv[j], acc[i][j]);
+      for (int j = 0; j < NJ; ++j) {
+        const float* pb = xs + (k0 + t4) * LX + n0 + 8 * j + g;
+        uint32_t bh0, bl0, bh1, bl1;
+        tf32_parts<!EXACT>(pb[0], bh0, bl0);
+        tf32_parts<!EXACT>(pb[4 * LX], bh1, bl1);
+        mma_split<false, EXACT>(acc[j], ah, al, bh0, bh1, bl0, bl1);
+      }
     }
   }
 
   T* yh = y + static_cast<size_t>(h) * Tn * DH;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = t0 + ty + 16 * i;
+  for (int hh = 0; hh < 2; ++hh) {
+    const int t = t0 + r0 + g + 8 * hh;
     if (t >= Tn) continue;
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
-      store_as(yh + static_cast<size_t>(t) * DH + tx + 16 * j, acc[i][j]);
+      store2(yh + static_cast<size_t>(t) * DH + n0 + 8 * j + 2 * t4,
+             acc[j][2 * hh], acc[j][2 * hh + 1]);
   }
 }
 
@@ -301,9 +464,9 @@ static cudaError_t launch_typed(const void* x, const void* la, const void* b,
                                 long long bstride, long long cstride,
                                 cudaStream_t stream) {
   const int nc = (Tn + chunk - 1) / chunk;
-  const size_t smem1 = (SSD_MAX_CHUNK + SSD_TILE * DS + SSD_TILE * DH) * sizeof(float);
-  const size_t smem3 = (SSD_MAX_CHUNK + 2 * DS * (SSD_TILE + 1) + SSD_TILE * DH +
-                        SSD_TILE * (SSD_TILE + 1)) * sizeof(float);
+  const size_t smem1 =
+      (chunk + SSD_TILE * (DS + 8) + SSD_TILE * (DH + 8)) * sizeof(float);
+  const size_t smem3 = ssd_out_floats<DS, DH>(chunk) * sizeof(float);
   cudaError_t err = allow_smem(ssd_chunk_state_kernel<T, DS, DH>, smem1);
   if (err != cudaSuccess) return err;
   err = allow_smem(ssd_chunk_out_kernel<T, DS, DH>, smem3);

@@ -33,6 +33,10 @@ MAX_LAYERS = 8
 # frames of a warp's tile on the tensor cores (csrc/fused_stream.cu
 # FS_FRAME_TILE; the launcher refuses a plan padded for fewer)
 FRAME_TILE = 32
+# input channels of an int8 layer's k-step on the tensor cores
+# (mma.sync.m16n8k32), and the 32-word lines its swizzled scratch fills
+INT8_SLICE = 32
+LINE = 32
 META = 10           # ints a layer in the kernel's meta array
 _ARGS = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
          + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
@@ -112,13 +116,18 @@ def _fused_reference(rows, pads, reset, prev, bases, ticks, conv, params, *,
     return tokens, lens, new_lane
 
 
-def on_tensor_cores(sp) -> bool:
-    """Whether the fp32 layer ``sp`` runs on the tensor cores (3xTF32)
-    inside the fused kernel: the shapes :func:`conv1d.tensor_core_shape`
-    takes (the paper CNN's conv2-conv5), never the k=1 head, which keeps
-    the unfused matmul's fmaf order.  int8 launches have no such layer."""
-    return not sp.is_head and conv1d.tensor_core_shape(
-        sp.cin, sp.cout, sp.ksize, sp.stride)
+def on_tensor_cores(sp, quantized: bool = False) -> bool:
+    """Whether layer ``sp`` runs on the tensor cores inside the fused
+    kernel, never the k=1 head.  fp32 (3xTF32): the shapes
+    :func:`conv1d.tensor_core_shape` takes, whose fmaf order the head
+    keeps.  int8 (``mma.sync`` s8 -> s32, exact): whole 32-channel k-steps
+    and Cout in the MMA's 8 columns.  Both are the paper CNN's
+    conv2-conv5."""
+    if sp.is_head:
+        return False
+    if quantized:
+        return sp.cin % INT8_SLICE == 0 and sp.cout % 8 == 0
+    return conv1d.tensor_core_shape(sp.cin, sp.cout, sp.ksize, sp.stride)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,33 +152,43 @@ def _round4(n: int) -> int:
     return -(-n // 4) * 4
 
 
+def _padded_rows(sp, t: int) -> int:
+    """[carry | input] rows of a tensor-core layer over ``t`` input rows,
+    padded to whole ``FRAME_TILE``-frame tiles of its output."""
+    tiles = -(-(t // sp.stride) // FRAME_TILE)
+    return max(sp.carry_rows + t, (tiles * FRAME_TILE - 1) * sp.stride
+               + sp.ksize)
+
+
 def smem_plan(cfg, chunk: int, quantized=None) -> SmemPlan:
     """Where the fused kernel keeps each layer in shared memory.
 
     Layer i's input sits at the low end and its output at the high end when
     i is even, the other way round when i is odd (the output of layer i is
     the input of layer i + 1, in place); the gap between them is the
-    layer's scratch, an int8 layer's quantized input.  A tensor-core
-    layer's input rows are padded to whole ``FRAME_TILE``-frame tiles.
-    The size is the largest layer's input + output + scratch, then the
-    class buffer.  Raises ``ValueError`` past the block's shared memory.
-    The kernel's launcher checks the plan against its own tile (and the
+    layer's scratch, an int8 layer's quantized input.  An fp32 tensor-core
+    layer's input rows are padded to whole ``FRAME_TILE``-frame tiles; an
+    int8 one's quantized rows are, in whole ``LINE``-word lines.  In an
+    int8 launch only the int8 layers may take the tensor cores.  The size
+    is the largest layer's input + output + scratch, then the class
+    buffer.  Raises ``ValueError`` past the block's shared memory.  The
+    kernel's launcher checks the plan against its own tile (and the
     swizzle of a tensor-core layer's rows is the kernel's alone)."""
     specs = _specs(cfg)
     quantized = list(quantized or [False] * len(specs))
     int8 = any(quantized)
-    tc = [not int8 and on_tensor_cores(sp) for sp in specs]
+    tc = [on_tensor_cores(sp, q) and q == int8
+          for sp, q in zip(specs, quantized)]
     ins, scratch, t = [], [], chunk
     for sp, q, on_tc in zip(specs, quantized, tc):
-        t_out = t // sp.stride
         rows = sp.carry_rows + t
-        if on_tc:
-            tiles = -(-t_out // FRAME_TILE)
-            rows = max(rows, (tiles * FRAME_TILE - 1) * sp.stride + sp.ksize)
-        ins.append(rows * sp.cin)
-        scratch.append(_round4(-(-(sp.carry_rows + t) * sp.cin // 4))
-                       if q else 0)
-        t = t_out
+        padded = _padded_rows(sp, t) if on_tc else rows
+        ins.append((rows if q else padded) * sp.cin)
+        if q and on_tc:
+            scratch.append(-(-padded * sp.cin // (4 * LINE)) * LINE)
+        else:
+            scratch.append(_round4(-(-rows * sp.cin // 4)) if q else 0)
+        t //= sp.stride
     outs = ins[1:] + [t * specs[-1].cout]
     total = max(_round4(i) + _round4(o) + s
                 for i, o, s in zip(ins, outs, scratch))
@@ -250,7 +269,10 @@ def fused_stream_cuda(rows, pads, reset, prev, bases, ticks, conv, params,
         if quantized[i]:
             _build.check_tensor(f"fused {sp.name}.q", w.q, torch.int8, wshape,
                                 dev)
-            wk = w.packed() if sp.cin % 4 == 0 else w.q
+            if plan.layers[i].tc:
+                wk = w.fragments()
+            else:
+                wk = w.packed() if sp.cin % 4 == 0 else w.q
             scale = w.dequant_scale()
             _build.check_tensor(f"fused {sp.name}.scale", scale, f32,
                                 (sp.cout,), dev)
@@ -284,12 +306,14 @@ def fused_stream_cuda(rows, pads, reset, prev, bases, ticks, conv, params,
         lens.data_ptr(), new_prev.data_ptr(), new_bases.data_ptr(),
         new_ticks.data_ptr(), lanes, chunk, n_frames, plan.cls_off,
         plan.bytes, _build.stream_handle(dev))
+    tc = sum(lp.tc for lp in plan.layers)
     if any(quantized):
         fabric.record("fabric.precision.fused_stream.int8")
         fused_stream_cuda.launches_int8 += 1
+        fused_stream_cuda.tc_launches_int8 += tc > 0
+        fused_stream_cuda.tc_layers_int8 += tc
     else:
         fused_stream_cuda.launches += 1
-        tc = sum(lp.tc for lp in plan.layers)
         fused_stream_cuda.tc_launches += tc > 0
         fused_stream_cuda.tc_layers += tc
     new_lane = {"conv": new_conv, "prev_class": new_prev, "bases": new_bases,
@@ -298,9 +322,11 @@ def fused_stream_cuda(rows, pads, reset, prev, bases, ticks, conv, params,
 
 
 # launches of the fp32 kernel and of its int8 instantiation
-# (fused_stream_kernel<false> / <true> in csrc/fused_stream.cu); of the fp32
-# ones, those that ran conv layers on the tensor cores, and those layers
+# (fused_stream_kernel<false> / <true> in csrc/fused_stream.cu); of each,
+# those that ran conv layers on the tensor cores, and those layers
 fused_stream_cuda.launches = 0
 fused_stream_cuda.launches_int8 = 0
 fused_stream_cuda.tc_launches = 0
 fused_stream_cuda.tc_layers = 0
+fused_stream_cuda.tc_launches_int8 = 0
+fused_stream_cuda.tc_layers_int8 = 0

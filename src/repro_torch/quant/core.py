@@ -15,7 +15,8 @@ JAX package's:
 :class:`QuantizedTensor` is the quantize-once container: int8 payload, its
 scales, the channel ``axis`` and an optional calibrated ``act_scale`` for
 the op's input.  It caches the layouts the CUDA kernels read (the weights
-packed four input channels to a word, and ``act_scale * scale``).
+packed four input channels to a word, or in ``mma.sync`` fragment order,
+and ``act_scale * scale``).
 """
 from __future__ import annotations
 
@@ -88,6 +89,25 @@ def pack_words(w: torch.Tensor) -> torch.Tensor:
     return words.view(torch.int32).reshape(k, cin // 4, cout)
 
 
+def pack_fragments(w: torch.Tensor) -> torch.Tensor:
+    """(K, Cin, Cout) int8 -> (K, Cin/32, Cout/8, 32, 2) int32: the B
+    fragments of ``mma.sync.m16n8k32`` (``csrc/mma.cuh``), one per tap,
+    32-channel slice and 8-column n-tile, each lane's two registers in
+    place.  Lane 4 g + t holds column 8 j + g; register 0 input channels
+    32 s + 4 t .. + 3, register 1 those 16 on, lowest byte first.  The
+    weight operand of the fused int8 tick's tensor-core layers."""
+    k, cin, cout = w.shape
+    if w.dtype != torch.int8 or cin % 32 or cout % 8:
+        raise ValueError(f"pack_fragments: needs int8 with Cin % 32 == 0 "
+                         f"and Cout % 8 == 0, got {w.dtype} with Cin={cin}, "
+                         f"Cout={cout}")
+    # (k, slice, register, t, byte, n-tile, g) -> (k, slice, n-tile, g, t,
+    # register, byte)
+    frags = w.reshape(k, cin // 32, 2, 4, 4, cout // 8, 8).permute(
+        0, 1, 5, 6, 3, 2, 4).contiguous()
+    return frags.view(torch.int32).reshape(k, cin // 32, cout // 8, 32, 2)
+
+
 class QuantizedTensor:
     """Quantize-once weight storage: int8 values plus their scales.
 
@@ -147,6 +167,13 @@ class QuantizedTensor:
         if "packed" not in self._cache:
             self._cache["packed"] = pack_words(self.q)
         return self._cache["packed"]
+
+    def fragments(self) -> torch.Tensor:
+        """The payload as ``mma.sync`` B fragments (:func:`pack_fragments`):
+        the operand of the fused int8 tick's tensor-core layers.  Cached."""
+        if "fragments" not in self._cache:
+            self._cache["fragments"] = pack_fragments(self.q)
+        return self._cache["fragments"]
 
     def dequant_scale(self) -> torch.Tensor:
         """``act_scale * scale`` in float32, broadcast to (Cout,): the

@@ -430,9 +430,15 @@ def test_fused_int8_kernel_equals_plain_and_unfused(dev):
                  .abs().to(dev) for s in bc.stream_layer_specs(cfg))
     z = torch.zeros((lanes,), dtype=torch.int32, device=dev)
     args = (rows, pads, reset, z + 2, z + 5, z + 1, conv, params)
-    before = kf.fused_stream_cuda.launches_int8
+    before = (kf.fused_stream_cuda.launches_int8,
+              kf.fused_stream_cuda.tc_launches_int8,
+              kf.fused_stream_cuda.tc_layers_int8)
     tok, lens, lane = kf.fused_stream_cuda(*args, cfg=cfg)
-    assert kf.fused_stream_cuda.launches_int8 == before + 1
+    # conv2-conv5 on the tensor cores (mma.sync s8)
+    assert (kf.fused_stream_cuda.launches_int8,
+            kf.fused_stream_cuda.tc_launches_int8,
+            kf.fused_stream_cuda.tc_layers_int8) == (
+        before[0] + 1, before[1] + 1, before[2] + 4)
     ptok, plens, plane = kf._fused_reference(*args, cfg=cfg)
     assert torch.equal(tok, ptok) and torch.equal(lens, plens)
     for key in ("prev_class", "bases", "ticks"):
@@ -456,6 +462,47 @@ def test_fused_int8_kernel_equals_plain_and_unfused(dev):
     utok, ulens, _ = ctc.greedy_decode_stream(
         x, torch.where(rmask, 0, z + 2), pads)
     assert torch.equal(tok, utok) and torch.equal(lens, ulens)
+
+
+@pytest.mark.parametrize("chunk", [200, 260])
+def test_fused_int8_tensor_cores_at_ragged_chunk(dev, chunk):
+    """Chunks whose int8 tensor-core layers end mid-tile (conv2's t_out
+    100 and 130, conv4's 50 and 65): tokens, counters and carries equal
+    the plain version bit for bit, the logits the unfused int8 kernels'."""
+    from repro_torch.kernels import ops
+    cfg, params = _quantized_paper_cnn(dev)
+    lanes = 5
+    rows = torch.randn((lanes, chunk), generator=_g(15)).to(dev)
+    pads = torch.zeros((lanes, chunk // 4), device=dev)
+    reset = torch.zeros((lanes,), device=dev)
+    reset[2] = 1.0
+    conv = tuple(torch.randn((lanes, s.carry_rows, s.cin), generator=_g(16))
+                 .abs().to(dev) for s in bc.stream_layer_specs(cfg))
+    z = torch.zeros((lanes,), dtype=torch.int32, device=dev)
+    args = (rows, pads, reset, z + 1, z + 3, z, conv, params)
+    before = kf.fused_stream_cuda.tc_layers_int8
+    tok, lens, lane = kf.fused_stream_cuda(*args, cfg=cfg)
+    assert kf.fused_stream_cuda.tc_layers_int8 == before + 4
+    ptok, plens, plane = kf._fused_reference(*args, cfg=cfg)
+    assert torch.equal(tok, ptok) and torch.equal(lens, plens)
+    for key in ("prev_class", "bases", "ticks"):
+        assert torch.equal(lane[key], plane[key])
+    for a, b in zip(lane["conv"], plane["conv"]):
+        assert torch.equal(a, b)
+    # every layer's output (the next carry's source) is the unfused int8
+    # kernels': the fused carries equal their inputs' last rows
+    rmask = reset > 0
+    x = rows[..., None]
+    for i, sp in enumerate(bc.stream_layer_specs(cfg)):
+        if sp.is_head:
+            break
+        p = params[sp.name]
+        carry = torch.where(rmask[:, None, None], 0.0, conv[i])
+        xin = torch.cat([carry, x], 1)
+        assert torch.equal(lane["conv"][i], xin[:, xin.shape[1]
+                                                - sp.carry_rows:])
+        x = ops.conv1d(xin, p["w"], p["b"], stride=sp.stride,
+                       padding="valid", activation=sp.activation)
 
 
 def test_edge_int8_basecall_on_card_equals_cpu(dev):
@@ -628,6 +675,24 @@ def test_ssd_scan_kernel_f32(dev, bh, t, ds, dh, chunk):
     assert kssd.ssd_scan.launches == before + 1
     want = ref.ssd_scan(*args)[0]
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("ds,dh", [(32, 16), (16, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_small_dims_broadcast_bc(dev, ds, dh, dtype):
+    """The small (ds, dh) of ``DIMS`` with B/C one row over every head (head
+    stride 0) and a ragged last chunk: within the f32 bar (bf16 plus one
+    bf16 ulp of each element)."""
+    from repro_torch.kernels import ssd_scan as kssd
+    x, la, b, c = _ssd_inputs(5, 150, ds, dh, dtype, dev, seed=34)
+    b = b[:1].expand(5, 150, ds)
+    c = c[:1].expand(5, 150, ds)
+    got = kssd.ssd_scan(x, la, b, c, chunk=64)
+    want = ref.ssd_scan(x, la, b, c)[0]
+    assert got.dtype == dtype
+    rtol = 2 ** -7 if dtype == torch.bfloat16 else 2e-4
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=2e-4)
 
 
 def test_ssd_scan_kernel_bf16_broadcast_bc(dev):

@@ -79,11 +79,13 @@ def test_smem_plan_at_full_width_and_past_it():
     assert 2 * (full.bytes + 1024) <= 228 * 1024
     with pytest.raises(ValueError, match="over 232448"):
         tfs.smem_plan(cfg, 768)
-    # int8 layers have no tensor-core layer; their scratch holds the
-    # quantized input
+    # int8 layers: conv2-conv5 on the tensor cores too; the scratch holds
+    # the quantized input, conv4's (7 + 128) rows x 96 channels in whole
+    # 32-word lines, past the room for a second lane
     int8 = tfs.smem_plan(cfg, 256, [True] * 6)
-    assert not any(lp.tc for lp in int8.layers)
-    assert int8.bytes == full.bytes + (7 + 128) * 96
+    assert [lp.tc for lp in int8.layers] == [lp.tc for lp in full.layers]
+    assert int8.bytes == full.bytes + 4 * -(-(7 + 128) * 96 // 128) * 32
+    assert 2 * (int8.bytes + 1024) > 228 * 1024
 
 
 @pytest.mark.parametrize("quantized", [False, True])

@@ -142,14 +142,15 @@ def test_int8_buffer_fits_at_full_width():
     """The int8 kernel keeps each quantized layer's input as int8 in the
     scratch between its fp32 input and output: conv2's (5 + 256) x 64
     bytes right after its output, conv3's input (6 + 128) x 64 floats,
-    at the low end.  The largest layer
-    (conv4: input, output and its int8 input) comes to ~118 KB, under 227
-    KB; an fp32 plan has no int8 scratch."""
+    at the low end.  conv2-conv5 run on the tensor cores, their scratch in
+    whole 32-word lines.  The largest layer (conv4: input, output and its
+    int8 input) comes to ~118 KB, under 227 KB; an fp32 plan has no int8
+    scratch."""
     cfg = tbc.BasecallerConfig()
     plan = tfs.smem_plan(cfg, 256, [True] * 6)
     conv2 = plan.layers[1]
     assert (conv2.out_off, conv2.scratch_off) == (0, (6 + 128) * 64)
-    assert not any(lp.tc for lp in plan.layers)
-    conv4 = (7 + 128) * 96 + (8 + 64) * 192 + (7 + 128) * 96 // 4
+    assert [lp.tc for lp in plan.layers] == [False] + [True] * 4 + [False]
+    conv4 = (7 + 128) * 96 + (8 + 64) * 192 + -(-(7 + 128) * 96 // 128) * 32
     assert plan.cls_off == conv4
     assert plan.bytes == (conv4 + 64) * 4 <= 227 * 1024
