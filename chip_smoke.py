@@ -24,26 +24,29 @@ Phases, each printing JSON lines:
    cannot address), edge shapes, and sizes the port once refused (fp32
    conv1d at Cin 512 and 65,537 batch rows, int8 conv1d at Cin 2,048, fp32
    matmul past 65,535 x 64 rows, banded_align at m = 908 and 2,048,
-   levenshtein at 1,000; int8 matmul at M = 4,194,305, the bf16 matmul's
+   levenshtein at 1,000, banded_align at n = 30,000 (stripes through
+   device scratch); int8 matmul at M = 4,194,305, the bf16 matmul's
    mma.sync kernel at M = 8,388,481, flash_attention at Sq = 8,388,481
    and ssd_scan at 65,536 heads, past the 2-D grids' y limits): max abs
    error (bitwise for int32 outputs and for every int8 kernel; bf16 bars
    in the ``tol`` fields), which kernel ran where a function has two
    (``variant``: conv1d on the tensor cores, 3xTF32, or the CUDA cores;
-   matmul and matmul_int8 skinny-N or tiled; banded_align in shared
-   memory or scratch; the fused ticks' layers, fp32 and int8, on the
-   tensor cores or the CUDA cores), kernel, plain and library times, and
+   conv1d_int8 on the tensor cores, mma.sync s8, or dp4a; matmul and
+   matmul_int8 skinny-N or tiled; the fused ticks' layers, fp32 and int8,
+   on the tensor cores or the CUDA cores; banded_align and levenshtein
+   their lane ``plan``: G lanes a pair, R rows a lane, stripes and where
+   they hand on), kernel, plain and library times, and
    the bound the card's data sheet sets (conv1d, the fused tick and
    ssd_scan also ``bound_fp32_ms``, at the CUDA cores' fp32 rate, beside
    ``bound_ms`` at the TF32 rate of the products the kernel forms; the
    fused tick ``unfused_ms``, the unfused chain's six launches on the
    same inputs, and whether it equals them bit for bit; the int8 fused
    tick whether its tokens and carries equal the unfused int8 kernels';
-   the head matmuls and both fused ticks also ``device_ms``, the kernels'
-   device time with their launches queued back to back (``device_ms``),
-   since issuing them takes the host longer than the card takes to run
-   them; ssd_scan ``device_ms_by_pass``, each of its three kernels by the
-   profiler).
+   the head matmuls, conv1d_int8, banded_align, levenshtein and both
+   fused ticks also ``device_ms``, the kernels' device time with their
+   launches queued back to back, since issuing them takes the host
+   longer than the card takes to run them; ssd_scan
+   ``device_ms_by_pass``, each of its three kernels by the profiler).
 3. ``step_goldens``: the step-codec flowcell (8 lanes) on the card, fused
    and unfused x pipeline depth 1 and 2, and once on the CPU (plain): all
    five per-read goldens must be equal; once with fp32 params, once with
@@ -58,13 +61,15 @@ Phases, each printing JSON lines:
    matmul, every fused step with 4 conv layers on the tensor cores.  Then
    ``edge_int8`` at the same width, with the same CNN calibrated once by
    ``quantize_edge_params``: the same metrics, goldens fused == unfused
-   with no exception, every unfused head on the skinny int8 matmul,
-   every fused int8 step with its 4 conv layers on the tensor cores, and
-   three ticks on 8 lanes equal to the CPU's plain run bit for bit.
+   with no exception, every unfused step's conv2-conv5 on the tensor-core
+   int8 conv and its head on the skinny int8 matmul, every fused int8
+   step with its 4 conv layers on the tensor cores, and three ticks on 8
+   lanes equal to the CPU's plain run bit for bit.
 5. ``basecall``: the ``basecall`` workload, ``default`` and ``edge_int8``,
    at batch 16 x chunk 2048 on the card and on the CPU (plain): int8 reads
    equal; a float read may differ only where every frame whose class
-   differs between card and CPU has a plain top-2 margin < 1e-4.
+   differs between card and CPU has a plain top-2 margin < 1e-4;
+   ``edge_int8``'s conv2-conv5 on the tensor-core int8 conv.
 6. ``pathogen``: the ``pathogen_pipeline`` workload, ``default`` and
    ``edge_int8``, at the paper's widths (32 channels x 2048 samples a
    chunk, depth 2, one warm-up and 8 chunks of squiggles simulated from
@@ -90,6 +95,10 @@ Phases, each printing JSON lines:
    counted from 0 just before each path and read just after it
    (``matmul_bf16`` also with ``wgmma_launches``, those on its wgmma
    kernel; ``conv1d`` with ``tc_launches`` and ``bound_fp32_ms``;
+   ``conv1d_int8`` with ``tc_launches`` and ``device_ms``;
+   ``banded_align`` with ``device_ms``, ``plan`` and ``firehose`` (the
+   pathogen compare's pairs, ms, device ms, bound and plan);
+   ``levenshtein`` with ``device_ms`` and ``plan``;
    ``matmul`` with ``skinny_launches``; ``matmul_int8`` with
    ``skinny_launches``, ``device_ms`` and ``library_device_ms``;
    ``fused_stream`` with ``tc_launches``, ``tc_layers``, ``device_ms``,
@@ -393,36 +402,62 @@ def check_matmul(torch, peaks, table, a, w, b, act, label, on_path):
     require(ok, f"matmul {label}: max abs err {err} over {F32_TOL}")
 
 
+def wavefront_plan(fn, q, t, before):
+    """The lane plan of a wavefront launch (``edit_distance.plan``: G lanes
+    a pair, R rows a lane, stripes, handoff), checked against the
+    wrapper's ``stripe_launches`` and ``scratch_launches`` since
+    ``before``."""
+    from repro_torch.kernels import edit_distance as ke
+    lay = ke.plan(q.shape[1], t.shape[1])
+    ran = (fn.stripe_launches - before[0], fn.scratch_launches - before[1])
+    require(ran == (int(lay.stripes > 1), int(lay.handoff == "scratch")),
+            f"{fn.__name__} {tuple(q.shape)} x {tuple(t.shape)}: counted "
+            f"{ran} stripe/scratch launches for the plan {lay}")
+    return lay._asdict()
+
+
+def dp_bound(torch, peaks, q, t, out, band):
+    """The DP's cells (|i - j| <= band) and its bound: 8 int32 operations
+    a cell (3 adds, 3 max, a compare-select, the band test) at the int32
+    rate, or the bytes of q, t and out."""
+    m, n = q.shape[1], t.shape[1]
+    if band >= max(m, n):
+        cells = m * n * q.shape[0]
+    else:
+        i = torch.arange(1, m + 1)[:, None]
+        j = torch.arange(1, n + 1)[None, :]
+        cells = int(((i - j).abs() <= band).sum().item()) * q.shape[0]
+    bnd, by = bound_ms(peaks, nbytes(q, t, out), 8.0 * cells, int_ops=True)
+    return cells, bnd, by
+
+
 def check_banded(torch, peaks, table, q, t, band, local, label, on_path):
+    """banded_align vs its plain version, bitwise, with the lane plan the
+    launch took; on the path its kernel, device and plain ms and bound."""
     from repro_torch.kernels import edit_distance as ke
     from repro_torch.kernels import ref
     kw = dict(band=band, match=2, mismatch=-4, gap=-2, local=local)
-    before = ke.banded_align.scratch_launches
+    fn = ke.banded_align
+    before = (fn.stripe_launches, fn.scratch_launches)
     out = ke.banded_align(q, t, **kw)
-    scratch = ke.banded_align.scratch_launches > before
+    lay = wavefront_plan(fn, q, t, before)
     want = ref.banded_align(q, t, **kw)
     torch.cuda.synchronize()
     diff = int((out != want).sum().item())
     line = {"phase": "kernel", "kernel": "banded_align", "shape": label,
             "q": list(q.shape), "t": list(t.shape), "band": band,
-            "local": local,
-            "variant": "scratch" if scratch else "shared_memory",
-            "mismatches": diff}
+            "local": local, "plan": lay, "mismatches": diff}
     if on_path:
         ms = time_ms(torch, lambda: ke.banded_align(q, t, **kw))
+        dms = device_ms(torch, lambda: ke.banded_align(q, t, **kw))
         plain = time_ms(torch, lambda: ref.banded_align(q, t, **kw), reps=3,
                         warm=1)
-        m, n = q.shape[1], t.shape[1]
-        i = torch.arange(1, m + 1)[:, None]
-        j = torch.arange(1, n + 1)[None, :]
-        cells = int(((i - j).abs() <= band).sum().item()) * q.shape[0]
-        # per cell: 3 adds, 3 max, 1 compare-select, band test (8 int ops)
-        bnd, by = bound_ms(peaks, nbytes(q, t, out), 8.0 * cells,
-                           int_ops=True)
-        line.update(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bnd,
-                    bound_by=by, cells=cells)
+        cells, bnd, by = dp_bound(torch, peaks, q, t, out, band)
+        line.update(ms=ms, device_ms=dms, plain_ms=plain, library_ms=None,
+                    bound_ms=bnd, bound_by=by, cells=cells)
         table.add("banded_align", err=float(diff), ms=ms, plain_ms=plain,
                   bound=bnd, bound_by=by, library_ms=None)
+        table.rows["banded_align"].update(device_ms=dms, plan=lay)
     emit(line)
     require(diff == 0, f"banded_align {label}: {diff} scores differ")
 
@@ -605,31 +640,44 @@ def check_fused(torch, bc, peaks, table, params, cfg, inputs, label,
 
 # ----------------------------------------------------------- int8 checks --
 def check_conv1d_int8(torch, peaks, table, x, w, stride, label, on_path):
-    """int8 conv kernel vs its plain version, bitwise (int32 out)."""
+    """int8 conv kernel vs its plain version, bitwise (int32 out), with the
+    weights as ``ops.conv1d_int8`` passes them (B fragments for the
+    tensor-core kernel, packed words for the dp4a one); ``variant`` says
+    which kernel ran (``tensor_cores`` or ``cuda_cores``).  On a path also
+    ``device_ms`` (launches queued back to back)."""
     from repro_torch.kernels import conv1d as kc
     from repro_torch.kernels import ref
-    from repro_torch.quant.core import pack_words
-    packed = pack_words(w) if w.shape[1] % 4 == 0 else None
-    out = kc.conv1d_int8(x, w, stride=stride, w_packed=packed)
+    from repro_torch.quant.core import pack_fragments, pack_words
+    k, cin, cout = w.shape
+    kw = dict(stride=stride, w_packed=None, w_fragments=None)
+    if kc.int8_tensor_core_shape(cin, cout, k, stride):
+        kw["w_fragments"] = pack_fragments(w)
+    elif cin % 4 == 0:
+        kw["w_packed"] = pack_words(w)
+    before = kc.conv1d_int8.tc_launches
+    out = kc.conv1d_int8(x, w, **kw)
+    tc = kc.conv1d_int8.tc_launches > before
     want = ref.conv1d_int8(x, w, stride=stride)
     torch.cuda.synchronize()
     diff = int((out != want).sum().item())
     line = {"phase": "kernel", "kernel": "conv1d_int8", "shape": label,
             "x": list(x.shape), "w": list(w.shape), "stride": stride,
+            "variant": "tensor_cores" if tc else "cuda_cores",
             "elements_differing": diff}
     if on_path:
-        ms = time_ms(torch, lambda: kc.conv1d_int8(x, w, stride=stride,
-                                                   w_packed=packed))
+        ms = time_ms(torch, lambda: kc.conv1d_int8(x, w, **kw))
+        dms = device_ms(torch, lambda: kc.conv1d_int8(x, w, **kw))
         plain = time_ms(torch, lambda: ref.conv1d_int8(x, w, stride=stride),
                         reps=5)
-        k, cin, cout = w.shape
         ops = 2.0 * out.shape[0] * out.shape[1] * cout * k * cin
         bnd, by = bound_ms(peaks, nbytes(x, w, out), ops, int8=True)
-        line.update(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bnd,
-                    bound_by=by)
+        line.update(ms=ms, device_ms=dms, plain_ms=plain, library_ms=None,
+                    bound_ms=bnd, bound_by=by)
         if on_path == "tick":
             table.add("conv1d_int8", err=diff, ms=ms, plain_ms=plain,
                       bound=bnd, bound_by=by, library_ms=None)
+            r = table.rows["conv1d_int8"]
+            r["device_ms"] = r.get("device_ms", 0.0) + dms
     emit(line)
     require(diff == 0, f"conv1d_int8 {label}: {diff} outputs differ")
 
@@ -934,7 +982,8 @@ def phase_kernels_limits(torch, F, peaks, table, gen):
     Cin 512 (K 9, stride 2) on both kernels and past 65,535 batch rows,
     int8 conv1d at Cin 2,048, fp32 matmul at N 8 and 9 and past 65,535 x
     64 rows, banded_align at m = 908 and 2,048 and levenshtein at 1,000
-    (their scratch variant)."""
+    (in stripes of 256 rows), and banded_align at n = 30,000 (the stripes'
+    last rows through device scratch)."""
     from repro_torch.kernels import edit_distance as ke
     from repro_torch.kernels import ref
     dev = torch.device("cuda")
@@ -968,16 +1017,21 @@ def phase_kernels_limits(torch, F, peaks, table, gen):
         for local in (False, True):
             check_banded(torch, peaks, table, q.to(dev), t.to(dev), band,
                          local, f"limit {p} pairs m=n={m}", False)
+    q = torch.randint(1, 5, (3, 300), **tok)
+    t = torch.randint(0, 5, (3, 30_000), **tok)
+    t[1, 5000:5300] = q[1]
+    check_banded(torch, peaks, table, q.to(dev), t.to(dev), 400, True,
+                 "limit 3 pairs m=300 n=30000", False)
     q = torch.randint(1, 5, (5, 1000), **tok)
     t = torch.where(torch.rand(q.shape, generator=gen) < 0.2,
                     torch.randint(1, 5, q.shape, **tok), q)
     q, t = q.to(dev), t.to(dev)
-    before = ke.levenshtein.scratch_launches
+    fn = ke.levenshtein
+    before = (fn.stripe_launches, fn.scratch_launches)
     diff = int((ke.levenshtein(q, t) != ref.edit_distance(q, t)).sum())
     emit({"phase": "kernel", "kernel": "levenshtein",
-          "shape": "limit 5 pairs m=n=1000", "variant": "scratch"
-          if ke.levenshtein.scratch_launches > before else "shared_memory",
-          "mismatches": diff})
+          "shape": "limit 5 pairs m=n=1000",
+          "plan": wavefront_plan(fn, q, t, before), "mismatches": diff})
     require(diff == 0, f"levenshtein at m=n=1000: {diff} distances differ")
     phase_grid_limits(torch, gen)
 
@@ -1231,16 +1285,28 @@ def unfused_launches(counts, ticks):
             f"the tensor cores, {ftc_layers} such layers, not 4 a step")
 
 
+def int8_conv_on_tensor_cores(counts, path):
+    """conv2-conv5 of every unfused int8 step on the tensor-core int8 conv
+    (4 of its 5 conv1d_int8 launches a step; conv1 on dp4a)."""
+    conv, tc = counts.get("conv1d_int8", 0), counts.get("conv1d_int8_tc", 0)
+    require(conv > 0 and 5 * tc == 4 * conv,
+            f"{path}: {tc} of {conv} conv1d_int8 launches on the tensor "
+            "cores, not 4 of every 5")
+    return {"conv1d_int8": conv, "conv1d_int8_tc": tc}
+
+
 def int8_launches(counts):
-    """Every unfused edge_int8 head on the skinny-N int8 matmul (the fused
-    int8 tick launches no matmul_int8), and every fused int8 step with its
-    4 conv layers (conv2-conv5) on the tensor cores."""
+    """Every unfused edge_int8 step with conv2-conv5 on the tensor-core int8
+    conv and its head on the skinny-N int8 matmul (the fused int8 tick
+    launches neither), and every fused int8 step with its 4 conv layers on
+    the tensor cores."""
+    convs = int8_conv_on_tensor_cores(counts, "edge_int8 unfused")
     mm = counts.get("matmul_int8", 0)
     thin = counts.get("matmul_int8_skinny", 0)
     fused = counts.get("fused_stream_int8", 0)
     ftc = counts.get("fused_stream_int8_tc", 0)
     ftc_layers = counts.get("fused_stream_int8_tc_layers", 0)
-    emit({"phase": "full_width_launches", "path": "edge_int8",
+    emit({"phase": "full_width_launches", "path": "edge_int8", **convs,
           "matmul_int8": mm, "matmul_int8_skinny": thin,
           "fused_stream_int8": fused, "fused_stream_int8_tc": ftc,
           "fused_tc_layers_per_step": ftc_layers / max(fused, 1)})
@@ -1460,23 +1526,29 @@ def known_reads(panel, seed=19):
 
 def check_levenshtein(torch, peaks, table, q, t, label):
     """The levenshtein launch vs its plain version (the row-scan DP),
-    bitwise, with its times and bound."""
+    bitwise, with its lane plan, kernel, device and plain ms and bound."""
     from repro_torch.kernels import edit_distance as ke
     from repro_torch.kernels import ref
+    fn = ke.levenshtein
+    before = (fn.stripe_launches, fn.scratch_launches)
     out = ke.levenshtein(q, t)
+    lay = wavefront_plan(fn, q, t, before)
     want = ref.edit_distance(q, t)
     torch.cuda.synchronize()
     diff = int((out != want).sum().item())
     ms = time_ms(torch, lambda: ke.levenshtein(q, t))
+    dms = device_ms(torch, lambda: ke.levenshtein(q, t))
     plain = time_ms(torch, lambda: ref.edit_distance(q, t), reps=5)
-    cells = q.shape[0] * q.shape[1] * t.shape[1]
-    bnd, by = bound_ms(peaks, nbytes(q, t, out), 8.0 * cells, int_ops=True)
+    cells, bnd, by = dp_bound(torch, peaks, q, t, out,
+                              max(q.shape[1], t.shape[1]))
     emit({"phase": "kernel", "kernel": "levenshtein", "shape": label,
-          "q": list(q.shape), "t": list(t.shape), "mismatches": diff,
-          "ms": ms, "plain_ms": plain, "library_ms": None, "bound_ms": bnd,
-          "bound_by": by, "cells": cells})
+          "q": list(q.shape), "t": list(t.shape), "plan": lay,
+          "mismatches": diff, "ms": ms, "device_ms": dms, "plain_ms": plain,
+          "library_ms": None, "bound_ms": bnd, "bound_by": by,
+          "cells": cells})
     table.add("levenshtein", err=float(diff), ms=ms, plain_ms=plain,
               bound=bnd, bound_by=by, library_ms=None)
+    table.rows["levenshtein"].update(device_ms=dms, plan=lay)
     require(diff == 0, f"levenshtein {label}: {diff} distances differ")
 
 
@@ -1505,35 +1577,36 @@ def phase_kernels_genomics(torch, F, peaks, table, panel, known):
     cfg = pathogen.DetectConfig()
     kw = dict(band=cfg.window, match=cfg.match, mismatch=cfg.mismatch,
               gap=cfg.gap, local=True)
-    row = {"pairs": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-           "cells": 0, "mismatches": 0}
+    row = {"pairs": 0, "ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+           "bound_ms": 0.0, "cells": 0, "mismatches": 0}
+    fn = ke.banded_align
     for name, genome in zip(panel.names, panel.genomes):
         q, t = pathogen.read_window_pairs(fire, genome, cfg, device=dev)
+        before = (fn.stripe_launches, fn.scratch_launches)
         out = ke.banded_align(q, t, **kw)
+        lay = wavefront_plan(fn, q, t, before)
         want = ref.banded_align(q, t, **kw)
         torch.cuda.synchronize()
         diff = int((out != want).sum().item())
         ms = time_ms(torch, lambda: ke.banded_align(q, t, **kw), reps=5,
                      warm=1)
+        dms = device_ms(torch, lambda: ke.banded_align(q, t, **kw), reps=5)
         plain = time_ms(torch, lambda: ref.banded_align(q, t, **kw), reps=2,
                         warm=1)
-        m, n = q.shape[1], t.shape[1]
-        cells = q.shape[0] * m * n          # band 512 >= m, n: every cell
-        bnd, by = bound_ms(peaks, nbytes(q, t, out), 8.0 * cells,
-                           int_ops=True)
+        cells, bnd, by = dp_bound(torch, peaks, q, t, out, cfg.window)
         emit({"phase": "kernel", "kernel": "banded_align",
               "shape": f"firehose {name}", "q": list(q.shape),
               "t": list(t.shape), "band": cfg.window, "local": True,
-              "mismatches": diff, "ms": ms, "plain_ms": plain,
-              "library_ms": None, "bound_ms": bnd, "bound_by": by,
-              "cells": cells})
+              "plan": lay, "mismatches": diff, "ms": ms, "device_ms": dms,
+              "plain_ms": plain, "library_ms": None, "bound_ms": bnd,
+              "bound_by": by, "cells": cells})
         require(diff == 0, f"banded_align firehose {name}: {diff} differ")
-        for k, v in (("pairs", q.shape[0]), ("ms", ms), ("plain_ms", plain),
-                     ("bound_ms", bnd), ("cells", cells),
-                     ("mismatches", diff)):
+        for k, v in (("pairs", q.shape[0]), ("ms", ms), ("device_ms", dms),
+                     ("plain_ms", plain), ("bound_ms", bnd),
+                     ("cells", cells), ("mismatches", diff)):
             row[k] += v
         row["bound_by"] = by
-    row["blocks_per_sm"] = ke.blocks_per_sm(READ_LEN)
+        row["plan"] = lay
     row["sms"] = torch.cuda.get_device_properties(0).multi_processor_count
     emit({"phase": "kernel", "kernel": "banded_align",
           "shape": f"firehose per detect call, {READ_LEN} reads", **row})
@@ -2383,11 +2456,13 @@ def launch_counters():
             "ssd_scan": (ssd_scan.ssd_scan, "launches"),
             "matmul_bf16": (matmul.matmul_bf16, "launches"),
             # the launches of matmul_bf16 that ran its wgmma kernel, of
-            # conv1d its tensor-core kernel, of matmul and matmul_int8 their
+            # conv1d and conv1d_int8 their tensor-core kernels, of matmul and
+            # matmul_int8 their
             # skinny-N kernels, of fused_stream (fp32 and int8) conv layers
             # on the tensor cores, and those layers
             "matmul_bf16_wgmma": (matmul.matmul_bf16, "wgmma_launches"),
             "conv1d_tc": (conv1d.conv1d, "tc_launches"),
+            "conv1d_int8_tc": (conv1d.conv1d_int8, "tc_launches"),
             "matmul_skinny": (matmul.matmul, "skinny_launches"),
             "matmul_int8_skinny": (matmul.matmul_int8, "skinny_launches"),
             "fused_stream_tc": (fs, "tc_launches"),
@@ -2509,6 +2584,9 @@ def main() -> int:
                 else ("conv1d", "matmul"))
         return paths.drive(f"basecall {preset}", want, serve)
     phase_basecall(torch, cfg, params, run_card)
+    emit({"phase": "basecall_launches", "preset": "edge_int8",
+          **int8_conv_on_tensor_cores(paths.paths["basecall edge_int8"],
+                                      "basecall edge_int8")})
     phase_pathogen(torch, cfg, panel, known, paths)
     phase_lm_prefill(torch, paths)
 
@@ -2558,6 +2636,15 @@ def main() -> int:
             kernels[-1].update(device_ms=r["device_ms"],
                                device_ms_by_pass=r["device_ms_by_pass"],
                                bound_fp32_ms=r["bound_fp32_ms"])
+        if k == "conv1d_int8":
+            # launches on the tensor-core kernel, and the tick's five
+            # layers' device time
+            kernels[-1].update(tc_launches=paths.total["conv1d_int8_tc"],
+                               device_ms=r["device_ms"])
+        if k in ("banded_align", "levenshtein"):
+            # the lane plan and device time at the mapper's (the demux's)
+            # shape
+            kernels[-1].update(device_ms=r["device_ms"], plan=r["plan"])
         if k == "banded_align":
             # the pathogen panel compare's shape, beside the mapper's
             kernels[-1]["firehose"] = firehose

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Design alternatives of the port's redesigned kernels, timed against the
 sound kernels on one card: the two wgmma kernels and ssd_scan at the LM
-prefill's shapes, the tensor-core conv1d and the fused fp32 and int8
-ticks at the flowcell tick's.
+prefill's shapes, the tensor-core conv1d (fp32 and int8) and the fused
+fp32 and int8 ticks at the flowcell tick's, the wavefront DP at the
+mapper's, the pathogen firehose's and the demux's.
 
     python3 scripts/kernel_variants.py [--reps 3]
-        [--only gemm|flash|conv|fused|ssd] [--variants NAME,...]
+        [--only gemm|flash|conv|fused|ssd|banded] [--variants NAME,...]
 
 Each variant is a patched copy of ``src/repro_torch/kernels/csrc`` built
 under ``build/variants/<name>/`` (the checkout's sources are not touched)
@@ -42,6 +43,33 @@ the paper's CNN, stream carries):
   stages_3          a 3-stage cp.async ring (one block an SM, not two)
   one_sum           every product summed on the tensor cores into one
                     accumulator, with no per-slice partial sums
+
+``conv1d_int8`` variants run the tick's conv2-conv5 (512 lanes x chunk
+256, int8, seeded), each held to the plain version bit for bit:
+
+  dp4a              the layers on the CUDA cores (__dp4a), as the parent
+                    ran them: the predicate turned off in Python, the
+                    kernel the sound one
+  b_l2              B fragments read from L2 at each k-step, not staged
+                    per slice in shared memory
+  ldmatrix          A fragments by ldmatrix.x4, not four 4-byte loads
+  bn_32             32 output channels a block where the sound kernel
+                    takes 64
+
+``banded_align`` variants run the mapper's call (2,048 pairs, 48 vs 80,
+band 32, local), the pathogen firehose (39,680 pairs, 256 vs 512, local)
+and the demux (6,144 pairs of 12 vs 12, levenshtein), bitwise:
+
+  thread_per_pair   the parent's kernel: one thread a pair, the row-scan
+                    DP with its row and query in shared memory (kept only
+                    here)
+  dpx_off           each cell's add-max as a plain add and max, not the
+                    DPX __viaddmax_s32
+  warps_4, warps_8  4 or 8 warps a block, not 2
+  rows_target_2, rows_target_8  lanes aiming at 2 or 8 rows each (the
+                    plan set in Python; the mapper 32 x 2 or 8 x 6)
+  rows_max_4        stripes of at most 32 x 4 rows (the firehose's 256 in
+                    two)
 
 ``fused_stream`` variants run the whole tick (512 lanes x chunk 256, the
 paper's CNN: fp32, conv2-conv5 on the tensor cores, and its edge_int8
@@ -380,6 +408,127 @@ CONV = {
         ("for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[mt][nt][e];",
          "for (int e = 0; e < 4; ++e) (void)part[mt][nt][e];")],
 }
+
+CONV_INT8 = {
+    # conv2-conv5 on the CUDA cores (__dp4a), as the parent ran them: the
+    # predicate is turned off in Python, the kernel is the sound one
+    "dp4a": None,
+    # B fragments read from L2 at each k-step, not staged per slice
+    "b_l2": [
+        ("  return TC_SUBS * stride * prow * I8_XP * 4 + K * bn * I8_CS;",
+         "  return TC_SUBS * stride * prow * I8_XP * 4;"),
+        ("  const int stage_words = x_words + K * BN * 8;",
+         "  const int stage_words = x_words;"),
+        ("    for (int i = tid; i < K * 2 * BN; i += TC_THREADS) {",
+         "    for (int i = tid; i < 0; i += TC_THREADS) {"),
+        ("        b[nt] = ws[(k * (BN / 8) + wn * NT + nt) * 32 + lane];",
+         "        b[nt] = j0 + wn * NT + nt < n8\n"
+         "                    ? __ldg(w_tile(k, sl, j0 + wn * NT + nt) + lane)\n"
+         "                    : make_uint2(0u, 0u);")],
+    # A fragments by one ldmatrix.x4 a m-tile, not four 4-byte loads
+    "ldmatrix": [(
+        """        const uint32_t* xm = xa + mt * 16 * I8_XP;
+        a[mt][0] = xm[0];
+        a[mt][1] = xm[8 * I8_XP];
+        a[mt][2] = xm[4];
+        a[mt][3] = xm[8 * I8_XP + 4];""",
+        """        const uint32_t* xm = xa - g * I8_XP - t4 + mt * 16 * I8_XP +
+                             ((lane & 7) + (lane & 8)) * I8_XP +
+                             4 * (lane >> 4);
+        asm volatile(
+            "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
+            : "=r"(a[mt][0]), "=r"(a[mt][1]), "=r"(a[mt][2]),
+              "=r"(a[mt][3])
+            : "r"(smem_u32(xm)));""")],
+    # 32 output channels a block where the sound kernel takes 64
+    "bn_32": [("    case 64:\n      return launch_int8_tc<4>",
+               "    case 64:\n      return launch_int8_tc<2>")],
+}
+
+# the parent's wavefront: one thread a pair, the row-scan DP with its row
+# and query in shared memory (up to m = 907), behind the new entry point
+BANDED_THREAD_PER_PAIR = r"""#include "common.cuh"
+
+constexpr int BA_THREADS = 32;
+constexpr int BA_NEG = -(1 << 20);
+
+__global__ void __launch_bounds__(BA_THREADS)
+banded_align_kernel(const int* __restrict__ q, const int* __restrict__ t,
+                    int* __restrict__ out, int P, int m, int n, int band,
+                    int match, int mismatch, int gap, int local) {
+  extern __shared__ int smem[];
+  const int S = blockDim.x;
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= P) return;
+  int* row = smem + threadIdx.x;
+  int* qs = row + (m + 1) * S;
+  const int* qp = q + static_cast<size_t>(p) * m;
+  const int* tp = t + static_cast<size_t>(p) * n;
+  const int agap = abs(gap);
+  for (int i = 0; i < m; ++i) qs[i * S] = qp[i];
+  for (int i = 0; i <= m; ++i)
+    row[i * S] = local ? 0 : (i * agap <= band * agap ? i * gap : BA_NEG);
+  const int floor_v = local ? 0 : BA_NEG;
+  int best = 0;
+  for (int j = 0; j < n; ++j) {
+    const int tj = tp[j];
+    const int first = (j + 1 <= band) ? (local ? 0 : gap * (j + 1)) : floor_v;
+    int diag = row[0];
+    row[0] = first;
+    int left = first;
+    int rmax = first;
+    for (int i = 0; i < m; ++i) {
+      const int up = row[(i + 1) * S];
+      const int sub = (qs[i * S] == tj) ? match : mismatch;
+      int v = max(max(left + gap, up + gap), diag + sub);
+      if (local) v = max(v, 0);
+      if (abs(i - j) > band) v = floor_v;
+      row[(i + 1) * S] = v;
+      diag = up;
+      left = v;
+      rmax = max(rmax, v);
+    }
+    if (local) best = max(best, rmax);
+  }
+  out[p] = local ? best : row[m * S];
+}
+
+extern "C" int launch_banded_align(const void* q, const void* t, void* out,
+                                   void* scratch, int P, int m, int n,
+                                   int band, int match, int mismatch, int gap,
+                                   int local, int G, int R, void* stream) {
+  const size_t smem = (2 * m + 1) * BA_THREADS * sizeof(int);
+  cudaError_t err = allow_smem(banded_align_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  banded_align_kernel<<<(P + BA_THREADS - 1) / BA_THREADS, BA_THREADS, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(q), static_cast<const int*>(t),
+      static_cast<int*>(out), P, m, n, band, match, mismatch, gap, local);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+BANDED = {
+    # the parent's kernel: one thread a pair, rows in shared memory
+    "thread_per_pair": lambda text: [(text, BANDED_THREAD_PER_PAIR)],
+    # each cell's add-max as a plain add and max, not DPX
+    "dpx_off": [("  if constexpr (RELU) return __viaddmax_s32_relu(a, b, c);\n"
+                 "  return __viaddmax_s32(a, b, c);",
+                 "  const int v = max(a + b, c);\n"
+                 "  return RELU ? max(v, 0) : v;")],
+    # 4 or 8 warps a block, not 2
+    "warps_4": [("constexpr int BA_WARPS = 2;", "constexpr int BA_WARPS = 4;")],
+    "warps_8": [("constexpr int BA_WARPS = 2;", "constexpr int BA_WARPS = 8;")],
+    # other lane plans (edit_distance.plan, set in Python; the kernel is
+    # the sound one): lanes aiming at 2 or 8 rows each, and stripes of at
+    # most 32 x 4 rows (the firehose's 256 in two)
+    "rows_target_2": None,
+    "rows_target_8": None,
+    "rows_max_4": None,
+}
+BANDED_PLANS = {"rows_target_2": ("ROWS_TARGET", 2),
+                "rows_target_8": ("ROWS_TARGET", 8),
+                "rows_max_4": ("ROWS_MAX", 4)}
 
 # the parent's f32 CUDA-core passes 1 and 3 of csrc/ssd_scan.cu (fmaf
 # register tiles fed from shared memory), with their cumsum and store
@@ -1432,6 +1581,109 @@ def conv_round(torch, cs, build, variants, layers):
         emit(line)
 
 
+def conv_int8_layers(torch, dev):
+    """The tick's conv2-conv5 as the unfused int8 chain gives them: int8
+    ``[carry | chunk]`` rows and weights, seeded, with each layer's B
+    fragments."""
+    from repro_torch.core import basecaller as bc
+    from repro_torch.quant.core import pack_fragments
+    gen = torch.Generator(dev).manual_seed(6)
+    out, t = [], 256
+    for sp in bc.stream_layer_specs(bc.BasecallerConfig()):
+        if sp.name != "conv1" and not sp.is_head:
+            i8 = dict(generator=gen, device=dev, dtype=torch.int8)
+            x = torch.randint(-127, 128, (512, t + sp.carry_rows, sp.cin),
+                              **i8)
+            w = torch.randint(-127, 128, (sp.ksize, sp.cin, sp.cout), **i8)
+            out.append((sp.name, x, w, pack_fragments(w), sp.stride))
+        t //= sp.stride
+    return out
+
+
+def conv_int8_round(torch, cs, build, variants, layers):
+    """The int8 conv on each variant at the tick's conv2-conv5: bitwise
+    against the plain version, event and device ms a layer."""
+    from repro_torch.kernels import conv1d as kc
+    from repro_torch.kernels import ref
+    sound_predicate = kc.int8_tensor_core_shape
+    for name, csrc in variants:
+        use(build, name, csrc)
+        if name == "dp4a":
+            kc.int8_tensor_core_shape = lambda *a: False
+        try:
+            line = {"phase": "variant", "kernel": "conv1d_int8",
+                    "variant": name}
+            for label, x, w, frags, s in layers:
+                before = kc.conv1d_int8.tc_launches
+                fn = (lambda x=x, w=w, s=s, frags=frags: kc.conv1d_int8(
+                    x, w, stride=s, w_fragments=frags))
+                out = fn()
+                assert kc.conv1d_int8.tc_launches == before + (
+                    name != "dp4a"), name
+                line[f"{label}_equal_to_plain_bitwise"] = torch.equal(
+                    out, ref.conv1d_int8(x, w, stride=s))
+                line[f"{label}_ms"] = cs.time_ms(torch, fn, reps=10)
+                line[f"{label}_device_ms"] = cs.device_ms(torch, fn)
+            line["device_ms"] = sum(v for k, v in line.items()
+                                    if k.endswith("_device_ms"))
+            emit(line)
+        finally:
+            kc.int8_tensor_core_shape = sound_predicate
+
+
+def banded_data(torch, dev):
+    """The wavefront's three path shapes, seeded: the mapper's call (2,048
+    pairs, 48 vs 80, band 32, local), the pathogen firehose (39,680 pairs,
+    reads of 256 against 512-base windows, local, half of them holding
+    their read) and the demux (6,144 pairs of 12 vs 12, levenshtein), each
+    with its plain result."""
+    from repro_torch.kernels import ref
+    gen = torch.Generator(dev).manual_seed(7)
+    tok = dict(generator=gen, device=dev, dtype=torch.int32)
+    out = []
+    for label, p, m, n, band in (("mapper", 2048, 48, 80, 32),
+                                 ("firehose", 39_680, 256, 512, 512)):
+        q = torch.randint(1, 5, (p, m), **tok)
+        t = torch.randint(0, 5, (p, n), **tok)
+        t[::2, (n - m) // 2:(n + m) // 2] = q[::2]
+        kw = dict(band=band, match=2, mismatch=-4, gap=-2, local=True)
+        out.append((label, q, t, kw, ref.banded_align(q, t, **kw)))
+    q = torch.randint(1, 5, (6144, 12), **tok)
+    t = torch.where(torch.rand((6144, 12), generator=gen, device=dev) < 0.2,
+                    torch.randint(1, 5, (6144, 12), **tok), q)
+    out.append(("demux", q, t, None, ref.edit_distance(q, t)))
+    return out
+
+
+def banded_round(torch, cs, build, variants, data):
+    """The wavefront on each variant at the three path shapes: bitwise
+    against the plain version, event and device ms."""
+    from repro_torch.kernels import edit_distance as ke
+    for name, csrc in variants:
+        use(build, name, csrc)
+        attr, value = BANDED_PLANS.get(name, (None, None))
+        sound_value = getattr(ke, attr) if attr else None
+        if attr:
+            setattr(ke, attr, value)
+        try:
+            line = {"phase": "variant", "kernel": "banded_align",
+                    "variant": name}
+            for label, q, t, kw, want in data:
+                fn = ((lambda q=q, t=t: ke.levenshtein(q, t)) if kw is None
+                      else (lambda q=q, t=t, kw=kw: ke.banded_align(q, t,
+                                                                    **kw)))
+                line[f"{label}_plan"] = ke.plan(q.shape[1],
+                                                t.shape[1])._asdict()
+                line[f"{label}_equal_to_plain_bitwise"] = torch.equal(
+                    fn(), want)
+                line[f"{label}_ms"] = cs.time_ms(torch, fn, reps=10)
+                line[f"{label}_device_ms"] = cs.device_ms(torch, fn, reps=10)
+            emit(line)
+        finally:
+            if attr:
+                setattr(ke, attr, sound_value)
+
+
 def fused_round(torch, cs, build, variants, cfg, params, qparams, inputs):
     """The fused tick on each variant: fp32 tokens against the plain
     version away from near ties (as chip_smoke.check_fused), carries' max
@@ -1527,10 +1779,10 @@ def main() -> int:
                     help="comma-separated variant names to run (all if "
                          "empty); the sound kernel always runs")
     ap.add_argument("--only", choices=("gemm", "flash", "conv", "fused",
-                                       "ssd"))
+                                       "ssd", "banded"))
     args = ap.parse_args()
     runs = ({args.only} if args.only
-            else {"gemm", "flash", "conv", "fused", "ssd"})
+            else {"gemm", "flash", "conv", "fused", "ssd", "banded"})
     sys.path.insert(0, os.path.join(ROOT, "src"))
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
@@ -1554,6 +1806,8 @@ def main() -> int:
     gemm = variants(GEMM, "", "matmul.cu")
     flash = variants(FLASH, "", "flash_attention.cu")
     conv = variants(CONV, "conv1d_", "conv1d.cu")
+    conv_int8 = variants(CONV_INT8, "conv1d_int8_", "conv1d.cu")
+    banded = variants(BANDED, "banded_", "banded_align.cu")
     fused = variants(FUSED, "fused_", "fused_stream.cu")
     int8 = variants(INT8, "int8_", "fused_stream.cu")
     ssd = variants(SSD, "ssd_", "ssd_scan.cu")
@@ -1578,6 +1832,8 @@ def main() -> int:
     want = ref.attention(q, k, v, causal=True)
     abs_attn = ref.attention(q, k, v.abs(), causal=True)
     layers = conv_layers(torch, dev)
+    int8_layers = conv_int8_layers(torch, dev) if "conv" in runs else []
+    banded_dp = banded_data(torch, dev) if "banded" in runs else []
     from repro_torch.core import basecaller as bc
     fcfg = bc.BasecallerConfig()
     from repro_torch.engine.base import quantize_edge_params
@@ -1604,6 +1860,9 @@ def main() -> int:
             flash_round(torch, cs, _build, flash, q, k, v, want, abs_attn)
         if "conv" in runs:
             conv_round(torch, cs, _build, conv, layers)
+            conv_int8_round(torch, cs, _build, conv_int8, int8_layers)
+        if "banded" in runs:
+            banded_round(torch, cs, _build, banded, banded_dp)
         if "fused" in runs:
             fused_round(torch, cs, _build, fused, fcfg, fparams, fqparams,
                         finputs)

@@ -11,134 +11,201 @@
 // -2^20 (global) or 0 (local), local cells floor at 0, local keeps the
 // running max, and the first row and column are set, not maxed.
 //
-// Bound on this card: neither bytes nor operations.  On the path (P = 2048
-// pairs, m = 48, n = 80) the inputs are 1 MB and the DP 7.9 M cells, a few
-// microseconds of either; what costs is the dependent chain of each DP row
-// (left -> cell -> left).  Design: one thread per pair runs the row-scan DP
-// of ref.py, keeping its DP row and its query in shared memory laid out
-// [index][thread] (conflict-free banks), so the m x n cells cost no device
-// memory traffic beyond one read of each target token.  One warp per block
-// spreads the pairs over as many SMs as there are warps.
+// Bound on this card: integer operations at the pathogen firehose (39,680
+// local pairs of 256 x 512 a detect call, 5.2 G cells: the CUDA cores
+// issue 64 int32 operations a clock an SM, and each cell takes several),
+// latency at the mapper's call (2,048 pairs, 48 x 80, band 32, 7.9 M
+// cells: too few pairs to fill the card, so each pair's dependent chain,
+// a cell needing its left, upper and diagonal neighbours, sets the time).
 //
-// The shared memory per block, (2m + 1) * 32 * 4 bytes, bounds the
-// occupancy: at the pathogen panel compare (reads of m = 256 against
-// 512-base windows, local) a block takes 65,664 bytes, so three blocks,
-// three warps, fit on an SM, and each warp's dependent chain of cells runs
-// with little to hide its latency.  Past m = 907 the row no longer fits a
-// block: banded_align_scratch_kernel keeps it, and the query, in a device
-// scratch laid out [index][pair] (the 32 threads of a warp touch 32
-// consecutive ints a cell, one 128-byte line), which the wrapper allocates;
-// the arithmetic is the same.  Laying one anti-diagonal across a warp, as
-// the TPU kernel lays it across sublanes, would lift the occupancy limit;
-// it is later work.
+// Design: the anti-diagonal across a group of G lanes, as the TPU kernel
+// lays it across sublanes.  A pair belongs to G consecutive lanes of a warp
+// (G a power of two <= 32; 32 / G pairs a warp); lane l keeps a strip of R
+// consecutive query rows in registers (their DP column and their query
+// tokens).  At step s lane l computes target column j = s - l for its
+// strip, top to bottom: the cell above its first row arrives from lane
+// l - 1 by __shfl_up_sync (that lane's bottom cell, computed at step s - 1),
+// the diagonal is what arrived the step before, and the rest of the chain
+// stays in registers.  A pair takes n + G - 1 steps; nothing on a cell's
+// chain touches memory.  Each cell is max(up + gap, max(left + gap, diag +
+// sub)), floored at 0 when local: the inner max leaves the chain, and the
+// outer one is one DPX instruction (__viaddmax_s32, _relu when local),
+// which sm_90 runs in hardware.  Query rows past m in the last strip are
+// computed and kept out of the score (`pen` keeps them out of the local
+// max; the global score is read from row m).
+//
+// A query longer than G * R rows (G = 32, R = BA_RMAX: 256) runs in
+// stripes of 256 rows, one after another in the same group: the last row
+// of a stripe (n ints) goes to the next through a buffer, in shared memory
+// where a block's buffers fit, else in device scratch that the wrapper
+// allocates (kernels/edit_distance.py plan).  Lane G - 1 writes column j
+// at step j + G - 1 and lane 0 of the next stripe reads it at step j, so
+// one buffer serves both: every write depends, through the shuffles, on
+// the read of the same column.  No length, band or pair count is capped.
 #include "common.cuh"
 
-constexpr int BA_THREADS = 32;
+constexpr int BA_WARPS = 2;  // warps a block
+constexpr int BA_THREADS = 32 * BA_WARPS;
+constexpr int BA_RMAX = 8;   // rows a lane keeps in registers, at most
 constexpr int BA_NEG = -(1 << 20);
+constexpr int BA_PAD = -(1 << 30);  // keeps padded rows out of the max
 
-// One pair's score by the row-scan DP of ref.py: `row` and `qs` step by
-// `S` ints an index (the pairs of a block, or of the launch, side by side).
-template <typename Idx>
-__device__ __forceinline__ int wavefront(const int* __restrict__ qp,
-                                         const int* __restrict__ tp, int* row,
-                                         int* qs, Idx S, int m, int n,
-                                         int band, int match, int mismatch,
-                                         int gap, int local) {
-  const int agap = abs(gap);
-  for (int i = 0; i < m; ++i) qs[i * S] = qp[i];
-  for (int i = 0; i <= m; ++i)
-    row[i * S] = local ? 0 : (i * agap <= band * agap ? i * gap : BA_NEG);
-  const int floor_v = local ? 0 : BA_NEG;
-  int best = 0;
-  for (int j = 0; j < n; ++j) {
-    const int tj = tp[j];
-    const int first = (j + 1 <= band) ? (local ? 0 : gap * (j + 1)) : floor_v;
-    int diag = row[0];
-    row[0] = first;
-    int left = first;
-    int rmax = first;
-    for (int i = 0; i < m; ++i) {
-      const int up = row[(i + 1) * S];
-      const int sub = (qs[i * S] == tj) ? match : mismatch;
-      int v = max(max(left + gap, up + gap), diag + sub);
-      if (local) v = max(v, 0);
-      if (abs(i - j) > band) v = floor_v;  // |(i+1) - (j+1)| > band
-      row[(i + 1) * S] = v;
-      diag = up;
-      left = v;
-      rmax = max(rmax, v);
-    }
-    if (local) best = max(best, rmax);
-  }
-  return local ? best : row[m * S];
+// max(a + b, c), floored at 0 when RELU: one DPX instruction on sm_90
+template <bool RELU>
+__device__ __forceinline__ int add_max(int a, int b, int c) {
+  if constexpr (RELU) return __viaddmax_s32_relu(a, b, c);
+  return __viaddmax_s32(a, b, c);
 }
 
+template <int R, bool LOCAL, bool BANDED>
 __global__ void __launch_bounds__(BA_THREADS)
 banded_align_kernel(const int* __restrict__ q, const int* __restrict__ t,
-                    int* __restrict__ out, int P, int m, int n, int band,
-                    int match, int mismatch, int gap, int local) {
-  extern __shared__ int smem[];
-  const int S = blockDim.x;
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= P) return;
-  // row[i * S], i = 0..m, then qs[i * S], i = 0..m-1
-  int* row = smem + threadIdx.x;
-  out[p] = wavefront(q + static_cast<size_t>(p) * m,
-                     t + static_cast<size_t>(p) * n, row, row + (m + 1) * S,
-                     S, m, n, band, match, mismatch, gap, local);
+                    int* __restrict__ out, int* __restrict__ scratch, int P,
+                    int m, int n, int band, int match, int mismatch, int gap,
+                    int G) {
+  extern __shared__ int ba_hand[];  // a buffer of n ints per group
+  const int lane = threadIdx.x % 32;
+  const int l = lane % G;
+  const long long pair =
+      (static_cast<long long>(blockIdx.x) * BA_WARPS + threadIdx.x / 32) *
+          (32 / G) + lane / G;
+  const bool real = pair < P;
+  // a group past the last pair steps through pair 0 and stores nothing
+  const size_t p = real ? static_cast<size_t>(pair) : 0;
+  const int* qp = q + p * m;
+  const int* tp = t + p * n;
+  const int H = G * R;  // rows a stripe
+  const int stripes = m > H ? (m + H - 1) / H : 1;
+  int* hand = scratch != nullptr ? scratch + p * n
+                                 : ba_hand + (threadIdx.x / G) * n;
+  const int agap = abs(gap);
+  const int floor_v = LOCAL ? 0 : BA_NEG;
+  // D[i][0] and D[0][jj] (jj >= 1), as ref.py sets them
+  auto first_col = [&](int i) {
+    return LOCAL ? 0 : (i * agap <= band * agap ? i * gap : BA_NEG);
+  };
+  auto first_row = [&](int jj) {
+    return jj <= band ? (LOCAL ? 0 : gap * jj) : floor_v;
+  };
+  const int steps = n > 0 ? n + G - 1 : 0;
+  int best = 0;
+  int col[R], qr[R], pen[R];
+  for (int k = 0; k < stripes; ++k) {
+    const int top = k * H + l * R;  // the DP row above the lane's strip
+    const bool hand_in = k > 0, hand_out = k + 1 < stripes;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = top + r + 1;
+      col[r] = first_col(i);
+      qr[r] = i <= m ? qp[i - 1] : 0;
+      pen[r] = i <= m ? 0 : BA_PAD;
+    }
+    int diag = first_col(top);
+    int bottom = 0;
+    int tnext = n > 0 ? __ldg(tp + min(max(-l, 0), n - 1)) : 0;
+    if (hand_in) __syncwarp();  // the previous stripe's buffer is written
+    for (int s = 0; s < steps; ++s) {
+      int up = __shfl_up_sync(0xffffffffu, bottom, 1, G);
+      const int j = s - l;  // target column; DP column j + 1
+      const int tj = tnext;
+      tnext = __ldg(tp + min(max(j + 1, 0), n - 1));
+      if (j >= 0 && j < n) {
+        if (l == 0) up = hand_in ? hand[j] : first_row(j + 1);
+        int u = up, d = diag;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int left = col[r];
+          const int x = add_max<false>(left, gap,
+                                       d + (qr[r] == tj ? match : mismatch));
+          int v = add_max<LOCAL>(u, gap, x);
+          if constexpr (BANDED) {
+            if (abs(top + r - j) > band) v = floor_v;  // |i - (j + 1)|
+          }
+          if constexpr (LOCAL) best = add_max<false>(v, pen[r], best);
+          d = left;
+          u = v;
+          col[r] = v;
+        }
+        bottom = col[R - 1];
+        if (hand_out && l == G - 1 && real) hand[j] = bottom;
+        diag = up;
+      }
+    }
+  }
+  if constexpr (LOCAL) {
+    for (int o = G / 2; o > 0; o /= 2)
+      best = max(best, __shfl_xor_sync(0xffffffffu, best, o, G));
+    if (l == 0 && real) out[pair] = best;
+  } else {
+    // D[m][n]: row m of the last stripe, or the first row when m == 0
+    const int rel = m - 1 - (stripes - 1) * H;
+    if (m == 0) {
+      if (l == 0 && real) out[pair] = first_row(n);
+    } else if (l == rel / R && real) {
+      int v = col[0];
+#pragma unroll
+      for (int r = 1; r < R; ++r)
+        if (r == rel % R) v = col[r];
+      out[pair] = v;
+    }
+  }
 }
 
-// scratch: (2m + 1) x P ints, row[i][p] for i = 0..m, then qs[i][p]
-__global__ void __launch_bounds__(BA_THREADS)
-banded_align_scratch_kernel(const int* __restrict__ q,
-                            const int* __restrict__ t, int* __restrict__ out,
-                            int* __restrict__ scratch, int P, int m, int n,
-                            int band, int match, int mismatch, int gap,
-                            int local) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= P) return;
-  const size_t S = P;
-  int* row = scratch + p;
-  out[p] = wavefront(q + static_cast<size_t>(p) * m,
-                     t + static_cast<size_t>(p) * n, row, row + (m + 1) * S,
-                     S, m, n, band, match, mismatch, gap, local);
+template <int R, bool LOCAL>
+static int launch_r(bool banded, dim3 grid, size_t smem, cudaStream_t s,
+                    const int* q, const int* t, int* out, int* scratch, int P,
+                    int m, int n, int band, int match, int mismatch, int gap,
+                    int G) {
+  auto kernel = banded ? banded_align_kernel<R, LOCAL, true>
+                       : banded_align_kernel<R, LOCAL, false>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, BA_THREADS, smem, s>>>(q, t, out, scratch, P, m, n, band,
+                                        match, mismatch, gap, G);
+  return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int banded_align_smem_bytes(int m) {
-  return (2 * m + 1) * BA_THREADS * static_cast<int>(sizeof(int));
+template <bool LOCAL>
+static int launch_local(int R, bool banded, dim3 grid, size_t smem,
+                        cudaStream_t s, const int* q, const int* t, int* out,
+                        int* scratch, int P, int m, int n, int band,
+                        int match, int mismatch, int gap, int G) {
+#define BA_CASE(RR)                                                         \
+  case RR:                                                                  \
+    return launch_r<RR, LOCAL>(banded, grid, smem, s, q, t, out, scratch, P, \
+                               m, n, band, match, mismatch, gap, G);
+  switch (R) {
+    BA_CASE(1) BA_CASE(2) BA_CASE(3) BA_CASE(4)
+    BA_CASE(5) BA_CASE(6) BA_CASE(7) BA_CASE(8)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef BA_CASE
 }
 
-// scratch: null for the shared-memory kernel (banded_align_smem_bytes(m)
-// <= SMEM_BYTES), else (2m + 1) x P ints of device memory.
+// The plan (kernels/edit_distance.py plan): G lanes a pair, R rows a lane.
+// scratch: null where a query fits one stripe or the stripes' buffers fit
+// the block's shared memory, else P x n ints of device memory.
 extern "C" int launch_banded_align(const void* q, const void* t, void* out,
                                    void* scratch, int P, int m, int n,
                                    int band, int match, int mismatch, int gap,
-                                   int local, void* stream) {
-  const int blocks = (P + BA_THREADS - 1) / BA_THREADS;
+                                   int local, int G, int R, void* stream) {
+  if (G < 1 || G > 32 || (G & (G - 1)) || R < 1 || R > BA_RMAX || band < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int per_block = BA_WARPS * (32 / G);  // pairs a block
+  const dim3 grid(static_cast<unsigned>((P + per_block - 1) / per_block));
+  const bool striped = m > G * R;
+  const size_t smem = striped && scratch == nullptr
+                          ? static_cast<size_t>(per_block) * n * sizeof(int)
+                          : 0;
+  const bool banded = band < max(m, n);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* qi = static_cast<const int*>(q);
   const int* ti = static_cast<const int*>(t);
   int* o = static_cast<int*>(out);
-  if (scratch != nullptr) {
-    banded_align_scratch_kernel<<<blocks, BA_THREADS, 0, s>>>(
-        qi, ti, o, static_cast<int*>(scratch), P, m, n, band, match, mismatch,
-        gap, local);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const size_t smem = banded_align_smem_bytes(m);
-  cudaError_t err = allow_smem(banded_align_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  banded_align_kernel<<<blocks, BA_THREADS, smem, s>>>(
-      qi, ti, o, P, m, n, band, match, mismatch, gap, local);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Resident blocks per SM at query length m (the occupancy the shared
-// memory allows): written to *blocks.
-extern "C" int banded_align_blocks_per_sm(int m, int* blocks) {
-  const size_t smem = banded_align_smem_bytes(m);
-  cudaError_t err = allow_smem(banded_align_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, banded_align_kernel, BA_THREADS, smem));
+  int* sc = static_cast<int*>(scratch);
+  return local ? launch_local<true>(R, banded, grid, smem, s, qi, ti, o, sc,
+                                    P, m, n, band, match, mismatch, gap, G)
+               : launch_local<false>(R, banded, grid, smem, s, qi, ti, o, sc,
+                                     P, m, n, band, match, mismatch, gap, G);
 }

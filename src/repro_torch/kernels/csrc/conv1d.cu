@@ -484,31 +484,50 @@ extern "C" int launch_conv1d_tc(const void* x, const void* w, const void* bias,
 }
 
 // ---------------------------------------------------------------- int8 ----
-// int8 x int8 -> int32 'valid' strided conv: the fixed-point MAC path.
+// int8 x int8 -> int32 'valid' strided conv: the fixed-point MAC path, two
+// kernels chosen by shape (kernels/conv1d.py int8_tensor_core_shape).
 //
 // Replaces: the int8 branch of src/repro/kernels/conv1d.py::conv1d (the same
 // Pallas body with int8 operands and an int32 accumulator).  As in JAX, the
 // activation quantization before and the dequant epilogue after stay outside
 // the kernel (kernels/ops.py).
 //
-// x (B, T, Cin) int8 -> out (B, T_out, Cout) int32.  Cin % 4 == 0 reads the
-// weights packed four input channels to an int32 word, (K, Cin/4, Cout)
-// (quant/core.py pack_words), and multiplies with __dp4a: four int8 MACs
-// into the int32 accumulator per instruction.  Any other Cin (conv1's 1)
-// reads the (K, Cin, Cout) int8 weights and multiplies scalar ints.
+// x (B, T, Cin) int8 -> out (B, T_out, Cout) int32.  Integer sums have one
+// answer in any order, so both kernels equal the plain version bit for bit.
 //
-// Bound on this card: at the int8 tensor-core rate, bytes — conv4 and conv5
-// at 512 lanes x chunk 256 are 5.4 and 7.2 GMAC against 32 and 24 MB, most
-// of it the int32 outputs.  This kernel runs dp4a on the CUDA cores, far
-// below the tensor cores' rate, so operations bound it in practice.
+// Bound on this card: bytes.  The tick's conv2-conv5 (512 lanes x chunk
+// 256) are 17.4 G MACs, 0.018 ms at the int8 tensor-core rate, against 84
+// MB of int32 output, 0.025 ms at 3.35 TB/s.
 //
-// Design: the fp32 CUDA-core kernel's scheme on int8.  For each slice of
-// Cin a block stages its rows plus the K - stride halo in shared memory (4x
-// fewer bytes than fp32), each thread keeps an RT x CT int32 register tile
-// across the slices, and one int4 weight load (4 output channels x 4 input
-// channels) feeds RT x 4 dp4a.  The int8 tensor cores (wgmma s8) are a
-// later step.  Integer sums have one answer, so the result equals the
-// plain version bit for bit.
+// conv1d_int8_tc_kernel (Cin % 32 == 0, Cout % 8 == 0, 16-byte aligned x:
+// the paper CNN's conv2-conv5) is an implicit GEMM on mma.sync m16n8k32 s8
+// -> s32: M = B x T_out frames, N = Cout, k in (32-channel slice, tap)
+// order, the fused int8 tick's layer (fused_stream.cu tc_layer_int8) as a
+// kernel of its own.  It takes the fp32 tensor-core kernel's tiling (above):
+// two 64-frame sub-tiles a block, BN = 64 / 96 / 32 output channels, eight
+// warps (4 along frames x 2 along channels), and a two-stage cp.async ring
+// that stages, per slice of 32 input channels, the sub-tiles' (64 - 1) * s
+// + K rows (the tile plus its K - stride halo: tap k of frame f reads staged
+// row f * s + k, the TPU kernel's in-kernel im2col) and the slice's B
+// fragments (QuantizedTensor.fragments: each lane's two registers in place,
+// one 8-byte load).  Rows are stored by phase (row r in plane r % s at
+// r / s), so an A fragment's 8 frames read 8 consecutive rows at any
+// stride; a row pitch of 12 words (32 channels and 16 bytes) puts the 8
+// rows' words on 8 disjoint groups of 4 banks, so its 32 loads hit 32
+// banks.  Each thread stores its accumulators' two columns as one 8-byte
+// int2: a warp writes whole 32-byte sectors.  The grid puts the sub-tiles
+// on x, so no batch is too large, and the ring does not grow with Cin.
+//
+// conv1d_int8_kernel takes every other shape (conv1's Cin 1, the step
+// codec, Cin 6 or 8, Cout 5 or 70).  It is the fp32 CUDA-core kernel's
+// scheme on int8: Cin % 4 == 0 reads the weights packed four input
+// channels to an int32 word, (K, Cin/4, Cout) (quant/core.py pack_words),
+// and multiplies with __dp4a: four int8 MACs into the int32 accumulator
+// per instruction; any other Cin reads the (K, Cin, Cout) int8 weights and
+// multiplies scalar ints.  For each slice of Cin a block stages its rows
+// plus the K - stride halo in shared memory, each thread keeps an RT x CT
+// int32 register tile across the slices, and one int4 weight load (4
+// output channels x 4 input channels) feeds RT x 4 dp4a.
 constexpr int CONV_CS_INT8 = 256;  // input channels per staged slice, at most
 
 template <int TT, int RT, int CT, bool PACKED>
@@ -658,4 +677,206 @@ extern "C" int launch_conv1d_int8(const void* x, const void* w, void* out,
                                          T_out, s);
   return launch_int8<CONV_NARROW, false>(xq, w, o, B, T, Cin, K, Cout, stride,
                                          T_out, s);
+}
+
+// ------------------------------------------- int8 on the tensor cores ---
+constexpr int I8_CS = 32;  // input channels per slice: one k-step a tap
+constexpr int I8_XP = 12;  // staged x row pitch (words)
+
+// shared-memory bytes of one ring stage: the sub-tiles' x rows, then the
+// slice's B fragments (K taps x BN / 8 n-tiles x 256 bytes)
+static int i8_stage_bytes(int K, int stride, int bn) {
+  const int prow = TC_FRAMES - 1 + (K + stride - 1) / stride;
+  return TC_SUBS * stride * prow * I8_XP * 4 + K * bn * I8_CS;
+}
+
+extern "C" int conv1d_int8_tc_smem_bytes(int K, int stride, int Cout) {
+  return TC_STAGES * i8_stage_bytes(K, stride, tc_bn(Cout));
+}
+
+template <int NT>
+__global__ void __launch_bounds__(TC_THREADS)
+conv1d_int8_tc_kernel(const int8_t* __restrict__ x,
+                      const uint2* __restrict__ wf, int32_t* __restrict__ out,
+                      int T, int Cin, int K, int Cout, int stride, int T_out,
+                      int tiles_t, long long n_sub) {
+  constexpr int BN = 16 * NT;  // output channels per block
+  extern __shared__ __align__(16) uint32_t i8_smem[];
+  const int s = stride;
+  const int prow = TC_FRAMES - 1 + (K + s - 1) / s;  // rows of a phase plane
+  const int plane = prow * I8_XP;                    // words
+  const int slab = s * plane;            // one sub-tile's staged rows
+  const int x_words = TC_SUBS * slab;
+  const int stage_words = x_words + K * BN * 8;
+  const int R = (TC_FRAMES - 1) * s + K;  // rows a sub-tile reads
+  const int n0 = blockIdx.y * BN, j0 = n0 / 8;
+  const int n8 = Cout / 8, slices = Cin / I8_CS;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  const int wm = warp % 4, wn = warp / 4;
+  const long long q0 = static_cast<long long>(blockIdx.x) * TC_SUBS;
+
+  // each sub-tile's batch row and first staged row (past T: no sub-tile)
+  const int8_t* xrow[TC_SUBS];
+  int row0[TC_SUBS];
+#pragma unroll
+  for (int j = 0; j < TC_SUBS; ++j) {
+    const long long q = q0 + j;
+    const bool real = q < n_sub;
+    xrow[j] = real ? x + static_cast<size_t>(q / tiles_t) * T * Cin : x;
+    row0[j] = real ? static_cast<int>(q % tiles_t) * TC_FRAMES * s : T;
+  }
+  // staged row r of a sub-tile sits in phase plane r % s at r / s
+  auto x_at = [&](int r) {
+    if (s == 1) return r * I8_XP;
+    if (s == 2) return (r & 1) * plane + (r >> 1) * I8_XP;
+    return (r % s) * plane + (r / s) * I8_XP;
+  };
+  // the B fragments of tap k, slice sl, n-tile j (global)
+  auto w_tile = [&](int k, int sl, int j) {
+    return wf + ((static_cast<size_t>(k) * slices + sl) * n8 + j) * 32;
+  };
+  auto stage = [&](int sl) {
+    uint32_t* xs = i8_smem + (sl % TC_STAGES) * stage_words;
+    const int c0 = sl * I8_CS;
+    // x: each sub-tile's R rows x 32 channels, two 16-byte halves a row
+#pragma unroll
+    for (int j = 0; j < TC_SUBS; ++j) {
+      for (int i = tid; i < 2 * R; i += TC_THREADS) {
+        const int row = row0[j] + (i >> 1);
+        const bool ok = row < T;
+        const int8_t* src =
+            ok ? xrow[j] + static_cast<size_t>(row) * Cin + c0 + 16 * (i & 1)
+               : x;
+        cp_async16(xs + j * slab + x_at(i >> 1) + 4 * (i & 1), src, ok);
+      }
+    }
+    // B: per tap, the block's BN / 8 n-tiles lie together (2 BN chunks)
+    uint32_t* ws = xs + x_words;
+    for (int i = tid; i < K * 2 * BN; i += TC_THREADS) {
+      const int k = i / (2 * BN), c = i % (2 * BN);
+      const bool ok = j0 + c / 16 < n8;
+      const void* src = ok ? static_cast<const void*>(
+                                 reinterpret_cast<const char*>(
+                                     w_tile(k, sl, j0)) + 16 * c)
+                           : static_cast<const void*>(wf);
+      cp_async16(ws + k * BN * 8 + 4 * c, src, ok);
+    }
+  };
+
+  int acc[2][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0;
+
+  const int sub = wm / 2, f0 = (wm % 2) * 32;
+#pragma unroll
+  for (int i = 0; i < TC_STAGES - 1; ++i) {
+    if (i < slices) stage(i);
+    cp_async_commit();
+  }
+  for (int sl = 0; sl < slices; ++sl) {
+    cp_async_wait<TC_STAGES - 2>();
+    __syncthreads();  // slice sl landed; slice sl - 1 consumed
+    if (sl + TC_STAGES - 1 < slices) stage(sl + TC_STAGES - 1);
+    cp_async_commit();
+
+    const uint32_t* xs =
+        i8_smem + (sl % TC_STAGES) * stage_words + sub * slab;
+    const uint2* ws = reinterpret_cast<const uint2*>(
+        i8_smem + (sl % TC_STAGES) * stage_words + x_words);
+    int pk = 0, rk = 0;  // tap k's phase plane and row in it: k % s, k / s
+    for (int k = 0; k < K; ++k) {
+      const uint32_t* xa = xs + pk * plane + (rk + f0 + g) * I8_XP + t4;
+      if (++pk == s) {
+        pk = 0;
+        ++rk;
+      }
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const uint32_t* xm = xa + mt * 16 * I8_XP;
+        a[mt][0] = xm[0];
+        a[mt][1] = xm[8 * I8_XP];
+        a[mt][2] = xm[4];
+        a[mt][3] = xm[8 * I8_XP + 4];
+      }
+      uint2 b[NT];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        b[nt] = ws[(k * (BN / 8) + wn * NT + nt) * 32 + lane];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          mma_s8_16832(acc[mt][nt], a[mt], b[nt].x, b[nt].y);
+    }
+  }
+  cp_async_wait<0>();
+
+  const long long q = q0 + sub;
+  if (q >= n_sub) return;
+  const int t0 = static_cast<int>(q % tiles_t) * TC_FRAMES + f0;
+  int32_t* ob = out + static_cast<size_t>(q / tiles_t) * T_out * Cout;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int co = n0 + wn * (BN / 2) + nt * 8 + 2 * t4;
+    if (co >= Cout) continue;  // Cout % 8 == 0: co + 1 < Cout too
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = t0 + mt * 16 + g + 8 * h;
+        if (t >= T_out) continue;
+        *reinterpret_cast<int2*>(ob + static_cast<size_t>(t) * Cout + co) =
+            make_int2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+      }
+    }
+  }
+}
+
+template <int NT>
+static int launch_int8_tc(const int8_t* x, const uint2* wf, int32_t* out,
+                          int B, int T, int Cin, int K, int Cout, int stride,
+                          int T_out, cudaStream_t stream) {
+  const size_t smem = conv1d_int8_tc_smem_bytes(K, stride, Cout);
+  cudaError_t err = allow_smem(conv1d_int8_tc_kernel<NT>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles_t = (T_out + TC_FRAMES - 1) / TC_FRAMES;
+  const long long n_sub = static_cast<long long>(B) * tiles_t;
+  dim3 grid(static_cast<unsigned>((n_sub + TC_SUBS - 1) / TC_SUBS),
+            (Cout + 16 * NT - 1) / (16 * NT));
+  conv1d_int8_tc_kernel<NT><<<grid, TC_THREADS, smem, stream>>>(
+      x, wf, out, T, Cin, K, Cout, stride, T_out, tiles_t, n_sub);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// w: the B fragments (K, Cin/32, Cout/8, 32, 2) int32 (quant/core.py
+// pack_fragments).  Takes Cin % 32 == 0, Cout % 8 == 0 and 16-byte aligned
+// x and w (kernels/conv1d.py int8_tensor_core_shape); anything else is
+// refused.
+extern "C" int launch_conv1d_int8_tc(const void* x, const void* w, void* out,
+                                     int B, int T, int Cin, int K, int Cout,
+                                     int stride, int T_out, void* stream) {
+  if (Cin % I8_CS || Cout % 8 || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int8_t* xq = static_cast<const int8_t*>(x);
+  const uint2* wf = static_cast<const uint2*>(w);
+  int32_t* o = static_cast<int32_t*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (tc_bn(Cout)) {
+    case 64:
+      return launch_int8_tc<4>(xq, wf, o, B, T, Cin, K, Cout, stride, T_out,
+                               s);
+    case 96:
+      return launch_int8_tc<6>(xq, wf, o, B, T, Cin, K, Cout, stride, T_out,
+                               s);
+    default:
+      return launch_int8_tc<2>(xq, wf, o, B, T, Cin, K, Cout, stride, T_out,
+                               s);
+  }
 }

@@ -61,8 +61,15 @@ def conv1d_int8(x, w, bias=None, *, stride: int = 1,
     """'valid' conv on the int8 MAC path: quantize, int8 conv, epilogue."""
     aq, scale = _quantized_operands("conv1d", x, w)
     fabric.record("fabric.precision.conv1d.int8")
-    packed = w.packed() if aq.is_cuda and w.shape[1] % 4 == 0 else None
-    acc = _conv1d.conv1d_int8(aq, w.q, stride=stride, w_packed=packed)
+    packed = frags = None
+    if aq.is_cuda:
+        ksize, cin, cout = w.shape
+        if _conv1d.int8_tensor_core_shape(cin, cout, ksize, stride):
+            frags = w.fragments()
+        elif cin % 4 == 0:
+            packed = w.packed()
+    acc = _conv1d.conv1d_int8(aq, w.q, stride=stride, w_packed=packed,
+                              w_fragments=frags)
     return _int8_epilogue(acc, scale, bias, activation)
 
 

@@ -182,7 +182,8 @@ def banded_align(query, target, *, band: int, match: int = 2,
     Same function as ``repro/kernels/ref.py::banded_align`` (cells with
     |i - j| > band are -2**20 globally, 0 locally; boundary cells are set,
     not maxed).  This version walks the anti-diagonals, vectorised over
-    pairs and cells, as the TPU kernel does; the CUDA kernel walks rows.
+    pairs and cells, as the TPU kernel does; the CUDA kernel walks them
+    across a group of lanes, a strip of rows a lane.
     """
     if query.dtype != torch.int32 or target.dtype != torch.int32:
         raise TypeError("banded_align: int32 tokens only")

@@ -7,9 +7,9 @@ the CPU.
   holds the fp32 bar of 2e-5 against a float64 conv at every conv layer of
   the paper's CNN; one TF32 pass (hi x hi) does not, so the bar has teeth.
 * The pure-Python predicates that pick a kernel on the card: the
-  tensor-core conv, the skinny-N matmul, the scratch wavefront.
-* The plain ``banded_align`` at m = n = 908 (the first length that takes
-  the scratch kernel on the card) equals JAX's reference.
+  tensor-core conv, the skinny-N matmul, the wavefront's stripes.
+* The plain ``banded_align`` at m = n = 908 (a length that runs in
+  stripes on the card) equals JAX's reference.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -152,10 +152,14 @@ def test_matmul_variant_choice(n, want):
     assert km.skinny(n) is want
 
 
-@pytest.mark.parametrize("m,want", [(48, False), (256, False), (907, False),
+@pytest.mark.parametrize("m,want", [(48, False), (256, False), (907, True),
                                     (908, True), (2048, True)])
 def test_banded_align_variant_choice(m, want):
-    assert ked.needs_scratch(m) is want
+    """Queries past 32 lanes x 8 rows run in stripes; at n = m every
+    stripe hands its last row on through shared memory."""
+    lay = ked.plan(m, m)
+    assert (lay.stripes > 1) is want
+    assert lay.handoff == ("shared" if want else "none")
 
 
 @pytest.mark.parametrize("local", [False, True])

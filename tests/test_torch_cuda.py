@@ -19,6 +19,7 @@ from repro_torch.kernels import edit_distance as ke
 from repro_torch.kernels import fused_stream as kf
 from repro_torch.kernels import matmul as km
 from repro_torch.kernels import ref
+from repro_torch.quant.core import pack_fragments
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-5
@@ -110,6 +111,19 @@ def test_conv1d_tc_smem_matches_the_predicate(dev):
         assert fn(k, stride, cout) == kc.tc_smem_bytes(k, stride, cout)
 
 
+def test_conv1d_int8_tc_smem_matches_the_predicate(dev):
+    """The same for the int8 tensor-core kernel's ring, at conv2-conv5,
+    a stride of 3 and a long kernel."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    fn = _build.function("conv1d", "conv1d_int8_tc_smem_bytes",
+                         [ctypes.c_int] * 3)
+    for k, stride, cout in ((7, 2, 64), (7, 1, 96), (9, 2, 192), (9, 1, 128),
+                            (5, 3, 40), (31, 1, 96)):
+        assert fn(k, stride, cout) == kc.int8_tc_smem_bytes(k, stride, cout)
+
+
 # N 1, 5 (the head), 8 on the skinny kernel and 9 on the tiled one, at a
 # ragged M, a K that is not a multiple of 4, and M past the old grid limit
 # of 65,535 x 64 rows
@@ -149,9 +163,51 @@ def test_banded_align_past_shared_memory_bitwise(dev, p, m, band, local):
                  q).astype(np.int32)
     q, t = U.t(q).to(dev), U.t(t).to(dev)
     kw = dict(band=band, local=local)
-    before = ke.banded_align.scratch_launches
+    before = (ke.banded_align.stripe_launches,
+              ke.banded_align.scratch_launches)
     got = ke.banded_align(q, t, **kw)
-    assert ke.banded_align.scratch_launches == before + 1
+    # stripes of 256 rows, their last rows handed on in shared memory
+    assert (ke.banded_align.stripe_launches,
+            ke.banded_align.scratch_launches) == (before[0] + 1, before[1])
+    assert torch.equal(got, ref.banded_align(q, t, **kw))
+
+
+@pytest.mark.parametrize("local", [False, True])
+def test_banded_align_stripes_through_scratch_bitwise(dev, local):
+    """Targets past 29,056 tokens: two pairs' stripe buffers no longer
+    fit a block's shared memory and go through device scratch."""
+    rng = np.random.default_rng(30_000 + local)
+    q = rng.integers(1, 5, (3, 300)).astype(np.int32)
+    t = rng.integers(0, 5, (3, 30_000)).astype(np.int32)
+    t[1, 5000:5300] = q[1]                    # one pair aligns
+    q, t = U.t(q).to(dev), U.t(t).to(dev)
+    assert ke.plan(300, 30_000).handoff == "scratch"
+    kw = dict(band=30_000 if local else 400, local=local)
+    before = (ke.banded_align.stripe_launches,
+              ke.banded_align.scratch_launches)
+    got = ke.banded_align(q, t, **kw)
+    assert (ke.banded_align.stripe_launches,
+            ke.banded_align.scratch_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    assert torch.equal(got, ref.banded_align(q, t, **kw))
+
+
+# The lane layouts around their edges: m = G R - 1, G R and G R + 1 (one
+# row into a second stripe, or a wider group), and the m = 0 query.
+@pytest.mark.parametrize("p,m,n,band,local", [
+    (70, 47, 80, 32, True), (70, 49, 80, 32, False), (70, 255, 300, 300, True),
+    (70, 256, 300, 16, False), (70, 257, 300, 300, True),
+    (70, 257, 300, 20, False), (33, 11, 12, 12, False),
+    (33, 13, 12, 12, True), (5, 0, 9, 4, False), (5, 0, 9, 4, True)])
+def test_banded_align_lane_layouts_bitwise(dev, p, m, n, band, local):
+    rng = np.random.default_rng(m * 3 + n + local)
+    q = U.t(rng.integers(1, 5, (p, m)).astype(np.int32)).to(dev)
+    t = U.t(rng.integers(0, 5, (p, n)).astype(np.int32)).to(dev)
+    kw = dict(band=band, local=local)
+    before = (ke.banded_align.launches, ke.banded_align.stripe_launches)
+    got = ke.banded_align(q, t, **kw)
+    assert (ke.banded_align.launches, ke.banded_align.stripe_launches) == (
+        before[0] + 1, before[1] + (ke.plan(m, n).stripes > 1))
     assert torch.equal(got, ref.banded_align(q, t, **kw))
 
 
@@ -161,9 +217,10 @@ def test_levenshtein_past_shared_memory_bitwise(dev):
     t = np.where(rng.random(q.shape) < 0.2, rng.integers(1, 5, q.shape),
                  q).astype(np.int32)
     q, t = U.t(q).to(dev), U.t(t).to(dev)
-    before = ke.levenshtein.scratch_launches
+    before = (ke.levenshtein.stripe_launches, ke.levenshtein.scratch_launches)
     got = ke.levenshtein(q, t)
-    assert ke.levenshtein.scratch_launches == before + 1
+    assert (ke.levenshtein.stripe_launches,
+            ke.levenshtein.scratch_launches) == (before[0] + 1, before[1])
     assert torch.equal(got, ref.edit_distance(q, t))
 
 
@@ -337,16 +394,18 @@ def _int8(shape, seed, dev):
 
 @pytest.mark.parametrize("cin,cout,k,stride,t", [
     (1, 64, 5, 1, 260),      # conv1: scalar path, 4-channel tile
-    (64, 96, 7, 1, 70),      # packed dp4a, 4-channel tile
-    (96, 192, 9, 2, 135),    # packed, strided
-    (8, 70, 5, 1, 61),       # packed, Cout % 4 != 0: 1-channel tile
+    (64, 96, 7, 1, 70),      # the tensor cores
+    (96, 192, 9, 2, 135),    # the tensor cores, strided
+    (8, 70, 5, 1, 61),       # packed dp4a, Cout % 4 != 0: 1-channel tile
     (1, 5, 2, 2, 63),        # the step codec's conv1
     (6, 12, 9, 2, 61)])      # Cin % 4 != 0: scalar path
 def test_conv1d_int8_kernel_bitwise(dev, cin, cout, k, stride, t):
     x, w = _int8((5, t, cin), 10, dev), _int8((k, cin, cout), 11, dev)
-    before = kc.conv1d_int8.launches
+    before = (kc.conv1d_int8.launches, kc.conv1d_int8.tc_launches)
     got = kc.conv1d_int8(x, w, stride=stride)
-    assert kc.conv1d_int8.launches == before + 1
+    assert (kc.conv1d_int8.launches, kc.conv1d_int8.tc_launches) == (
+        before[0] + 1,
+        before[1] + kc.int8_tensor_core_shape(cin, cout, k, stride))
     assert got.dtype == torch.int32
     assert torch.equal(got, ref.conv1d_int8(x, w, stride=stride))
 
@@ -359,6 +418,35 @@ def test_conv1d_int8_past_old_limits_bitwise(dev, b, cin, t):
     x, w = _int8((b, t, cin), 14, dev), _int8((9, cin, 64), 15, dev)
     assert torch.equal(kc.conv1d_int8(x, w, stride=2),
                        ref.conv1d_int8(x, w, stride=2))
+
+
+# The tensor-core int8 conv: Cin 32-192, Cout 8-192 (one n-tile, a block
+# of 32 channels with a masked half, 64, 96), K 1-9, strides 1-3, ragged
+# T_out (sub-tiles of 64 frames cut short).
+@pytest.mark.parametrize("cin,cout,k,stride,t", [
+    (32, 8, 1, 1, 50), (64, 64, 7, 2, 262), (64, 96, 7, 1, 134),
+    (96, 192, 9, 2, 136), (192, 128, 9, 1, 72), (32, 40, 5, 2, 97),
+    (96, 64, 5, 1, 64), (192, 96, 9, 2, 301), (64, 128, 1, 2, 77),
+    (64, 40, 5, 3, 50)])
+def test_conv1d_int8_tensor_cores_bitwise(dev, cin, cout, k, stride, t):
+    x, w = _int8((5, t, cin), 16, dev), _int8((k, cin, cout), 17, dev)
+    assert kc.int8_tensor_core_shape(cin, cout, k, stride)
+    before = (kc.conv1d_int8.launches, kc.conv1d_int8.tc_launches)
+    got = kc.conv1d_int8(x, w, stride=stride, w_fragments=pack_fragments(w))
+    assert (kc.conv1d_int8.launches, kc.conv1d_int8.tc_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(got, ref.conv1d_int8(x, w, stride=stride))
+
+
+@pytest.mark.parametrize("b,cin,t", [(65_537, 32, 20), (2, 2048, 200)])
+def test_conv1d_int8_tensor_cores_past_old_limits_bitwise(dev, b, cin, t):
+    """A batch past 65,535 rows and Cin 2,048 (K 9, stride 2) on the
+    tensor cores: sub-tiles ride the grid's x, the ring holds a slice."""
+    x, w = _int8((b, t, cin), 18, dev), _int8((9, cin, 64), 19, dev)
+    before = kc.conv1d_int8.tc_launches
+    got = kc.conv1d_int8(x, w, stride=2)
+    assert kc.conv1d_int8.tc_launches == before + 1
+    assert torch.equal(got, ref.conv1d_int8(x, w, stride=2))
 
 
 @pytest.mark.parametrize("m,k,n", [(1000, 37, 5), (300, 128, 128),
@@ -521,11 +609,12 @@ def test_edge_int8_basecall_on_card_equals_cpu(dev):
 
 
 # -------------------------------------------------------- genomics slice ---
-@pytest.mark.parametrize("m,n", [(12, 12), (7, 13), (40, 25)])
-def test_levenshtein_kernel_bitwise(dev, m, n):
+@pytest.mark.parametrize("p,m,n", [(300, 12, 12), (300, 7, 13),
+                                   (300, 40, 25), (6144, 12, 12)])
+def test_levenshtein_kernel_bitwise(dev, p, m, n):
     rng = np.random.default_rng(m * n)
-    q = U.t(rng.integers(1, 5, (300, m)).astype(np.int32)).to(dev)
-    t = U.t(rng.integers(1, 5, (300, n)).astype(np.int32)).to(dev)
+    q = U.t(rng.integers(1, 5, (p, m)).astype(np.int32)).to(dev)
+    t = U.t(rng.integers(1, 5, (p, n)).astype(np.int32)).to(dev)
     before = ke.levenshtein.launches
     got = ke.levenshtein(q, t)
     assert ke.levenshtein.launches == before + 1
@@ -535,7 +624,7 @@ def test_levenshtein_kernel_bitwise(dev, m, n):
 
 def test_banded_align_firehose_shape_bitwise(dev):
     """The pathogen panel compare: reads of 256 against 512-base windows,
-    local, band 512 (three blocks per SM by shared memory)."""
+    local, band 512 (32 lanes x 8 rows a pair, one stripe)."""
     rng = np.random.default_rng(4)
     q = rng.integers(1, 5, (96, 256)).astype(np.int32)
     t = rng.integers(0, 5, (96, 512)).astype(np.int32)
