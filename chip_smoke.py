@@ -91,7 +91,36 @@ Phases, each printing JSON lines:
    and 1 x 512 on the card and on the CPU with the same params: the last
    token's final-normed hidden state, rms of the difference within 2^-7
    of its rms, and its logits within 2 bf16 ulps of max |logit|.
-8. ``{"kernels": [...]}``: every kernel with its launches in phases 4-7,
+8. ``fleet``: four tenants on one ``repro_torch.fleet.Fleet`` on the
+   card: ``lab-fc`` (``flowcell_512`` with phase 4's CNN, pore encoder,
+   1,024 reads, depth 2, fused; weight 2), ``lab-bc1`` and ``lab-bc2``
+   (``basecall`` default, 16 x 2048, 36 rows each, sharing one engine) and
+   ``lab-pp`` (``pathogen_pipeline`` default, phase 6's 8 chunks, then
+   ``detect(256)``).  With every request queued at once, every tenant's
+   goldens, reads, tokens and detect report, and every engine's
+   ``fabric_counters()``, equal the same engine drained solo on the card
+   bit for bit; prints the tick shares against the weights, the DRR
+   fairness ratio and ``mesh_yields_inflight``.  A traced run's Chrome
+   trace passes ``validate_chrome_trace`` with one read span per
+   ``lab-fc`` read and a process track per tenant.  Then the basecall
+   rows arrive on benchmarks/fleet.py's bursts: the results again equal
+   solo (the shared engine's dispatch count aside), and it prints each
+   tenant's p50/p99, each row's arrival-to-result p50/p99 in the fleet
+   and solo, and the fleet's wall against the sum of the solo walls.
+   Last, ``flowcell_512`` alone, untraced, traced, traced, untraced, with
+   the garbage collector live and then frozen after set-up: mean tick,
+   the collector's ms by generation, the tracer's us an event and the
+   tracing's ``overhead_pct`` (reported, not gated).
+9. ``field``: ``run_field_scenario(FieldSpec())`` (8 edge devices on the
+   fused ``edge_int8`` tick, 2 infected, 8 channels x chunk 128, 32
+   molecules each; the aggregator a fleet tenant) on the card and on the
+   CPU: outbreak, conservation, variants, each device's accepted reads
+   and the read-frame bytes equal; the card's wall, ticks, bytes on wire
+   and the three reductions (``reduction_vs_sequenced`` beside JAX's bar
+   of 20); reads conserved per device and the outbreak detected; a
+   traced card run's trace validates with 8 device tracks and the
+   aggregator's.  Trace timestamps are host times.
+10. ``{"kernels": [...]}``: every kernel with its launches in phases 4-9,
    counted from 0 just before each path and read just after it
    (``matmul_bf16`` also with ``wgmma_launches``, those on its wgmma
    kernel; ``conv1d`` with ``tc_launches`` and ``bound_fp32_ms``;
@@ -1169,7 +1198,7 @@ def phase_step_goldens(precision="fp32", cfg=None, params=None):
 FULL_FLOWCELL = {"encoder": "pore", "n_reads": 1024}
 
 
-def full_engine(fused):
+def full_engine(fused, trace=False):
     import torch
 
     import repro_torch.engine as te
@@ -1177,7 +1206,8 @@ def full_engine(fused):
     cfg = bc.BasecallerConfig()
     params = bc.init(torch.Generator().manual_seed(0), cfg)
     return te.build("adaptive_sampling", preset="flowcell_512", cfg=cfg,
-                    params=params, flowcell=dict(FULL_FLOWCELL), fused=fused)
+                    params=params, flowcell=dict(FULL_FLOWCELL), fused=fused,
+                    trace=trace)
 
 
 def min_margin_on_evidence(torch, engine, rec) -> float:
@@ -2412,6 +2442,488 @@ def phase_lm_prefill(torch, paths):
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ phase fleet --
+# The basecall tenants' traffic is benchmarks/fleet.py's bursty arrivals
+# at its full size: 6 bursts a tenant 0.25 s apart, 6 requests (one
+# 2048-sample row each, drawn from seed 11) a burst, the second tenant's
+# bursts 0.3 of a period into the first's gaps.  The flowcell is fed by
+# its pores and the pipeline's 8 chunks are a recorded backlog.
+FLEET_BURSTS = 6
+FLEET_PER_BURST = 6
+FLEET_PERIOD_S = 0.25
+FLEET_OFFSETS_S = {"lab-bc1": 0.0, "lab-bc2": 0.3 * FLEET_PERIOD_S}
+FLEET_BC_ROWS = FLEET_BURSTS * FLEET_PER_BURST
+
+
+def fleet_inputs(panel):
+    """The basecall tenants' rows (36 x 2048 each, seed 11 as
+    benchmarks/fleet.py draws them) and phase 6's 8 pipeline chunks of
+    32 x 2048."""
+    import numpy as np
+    rows = np.random.default_rng(11).normal(
+        size=(2 * FLEET_BC_ROWS, 2048)).astype(np.float32)
+    return ([rows[:FLEET_BC_ROWS], rows[FLEET_BC_ROWS:]],
+            pathogen_chunks(panel.genomes[0], PIPE_CHUNKS + 1)[1:])
+
+
+def arrivals(rows):
+    """[(due s, tenant, row)] in due order: benchmarks/fleet.py's
+    schedule for ``lab-bc1`` and ``lab-bc2``."""
+    sched = [(FLEET_OFFSETS_S[name] + (i // FLEET_PER_BURST) * FLEET_PERIOD_S,
+              name, row)
+             for name, tenant_rows in zip(("lab-bc1", "lab-bc2"), rows)
+             for i, row in enumerate(tenant_rows)]
+    return sorted(sched, key=lambda e: e[0])
+
+
+def drive_arrivals(schedule, submit, step, finished):
+    """benchmarks/fleet.py's arrival loop: submit each request when it is
+    due, step while there is work, sleep (2 ms at most) only when idle
+    with the next arrival ahead.  Returns (wall s, arrival-to-result ms
+    per request by tenant); ``finished(name)`` counts a tenant's results,
+    which come back in its submission order."""
+    due, latency = {}, {}
+    i, t0 = 0, time.perf_counter()
+    while True:
+        now = time.perf_counter() - t0
+        while i < len(schedule) and schedule[i][0] <= now:
+            at, name, row = schedule[i]
+            submit(name, row)
+            due.setdefault(name, []).append(at)
+            i += 1
+        worked = step()
+        now = time.perf_counter() - t0
+        for name, ats in due.items():
+            done = latency.setdefault(name, [])
+            for k in range(len(done), finished(name)):
+                done.append((now - ats[k]) * 1e3)
+        if not worked:
+            if i == len(schedule):
+                return time.perf_counter() - t0, latency
+            wait = schedule[i][0] - (time.perf_counter() - t0)
+            if wait > 0:
+                time.sleep(min(wait, 0.002))
+
+
+def build_fleet(torch, panel, trace=False):
+    from repro_torch.core import basecaller as bc
+    from repro_torch.fleet import Fleet
+    cfg = bc.BasecallerConfig()
+    params = bc.init(torch.Generator().manual_seed(0), cfg)
+    fleet = Fleet(trace=trace)
+    return fleet, {"lab-fc": fleet.add_tenant(
+        "lab-fc", "adaptive_sampling", "flowcell_512", weight=2.0, cfg=cfg,
+        params=params, flowcell=dict(FULL_FLOWCELL), fused=True),
+        "lab-bc1": fleet.add_tenant("lab-bc1", "basecall", "default"),
+        "lab-bc2": fleet.add_tenant("lab-bc2", "basecall", "default"),
+        "lab-pp": fleet.add_tenant("lab-pp", "pathogen_pipeline", "default",
+                                   cfg=cfg, panel=panel)}
+
+
+def run_fleet(torch, panel, rows, chunks, trace=False):
+    """The four tenants on one ``Fleet`` on the card, every request queued
+    before the first tick (JAX's fleet-vs-solo oracle), drained, then the
+    pipeline tenant's ``detect(256)``; returns (fleet, tenants, report,
+    detect report, wall s)."""
+    fleet, t = build_fleet(torch, panel, trace)
+    for name, tenant_rows in zip(("lab-bc1", "lab-bc2"), rows):
+        for r in tenant_rows:
+            require(t[name].submit(r), f"fleet: {name} refused a row")
+    for chunk in chunks:
+        require(t["lab-pp"].submit(chunk), "fleet: lab-pp refused a chunk")
+    t0 = time.perf_counter()
+    rep = fleet.drain()
+    det = t["lab-pp"].engine.detect(READ_LEN)
+    torch.cuda.synchronize()
+    return fleet, t, rep, det, time.perf_counter() - t0
+
+
+def run_fleet_bursty(torch, panel, rows, chunks):
+    """The same fleet with the basecall rows arriving on
+    benchmarks/fleet.py's schedule, then ``detect(256)`` (outside the
+    wall); returns (tenants, report, detect report, wall s,
+    arrival-to-result ms by basecall tenant)."""
+    fleet, t = build_fleet(torch, panel)
+    for chunk in chunks:
+        require(t["lab-pp"].submit(chunk), "fleet: lab-pp refused a chunk")
+
+    def submit(name, row):
+        require(fleet.submit(name, row), f"fleet: {name} refused a row")
+    wall, latency = drive_arrivals(arrivals(rows), submit, fleet.step,
+                                   lambda name: len(t[name].outputs))
+    torch.cuda.synchronize()
+    return t, fleet.summary(), t["lab-pp"].engine.detect(READ_LEN), wall, \
+        latency
+
+
+def solo_runs(torch, panel, rows, chunks):
+    """Each tenant's engine alone on the card: the flowcell (phase 4's
+    fused engine) and the pipeline (the same chunks, then ``detect(256)``)
+    drained, each timed; one basecall engine fed both tenants' rows at
+    once, and one fed them on the bursty schedule.  Returns the engines,
+    the detect report, the walls and the bursty latencies."""
+    import repro_torch.engine as te
+    from repro_torch.core import basecaller as bc
+    walls = {}
+    t0 = time.perf_counter()
+    fc = full_engine(True)
+    fc.drain()
+    torch.cuda.synchronize()
+    walls["lab-fc"] = time.perf_counter() - t0
+    bce = te.build("basecall", "default")
+    for tenant_rows in rows:
+        for r in tenant_rows:
+            bce.submit(r)
+    bce.drain()
+    t0 = time.perf_counter()
+    pp = te.build("pathogen_pipeline", "default", cfg=bc.BasecallerConfig(),
+                  panel=panel)
+    for chunk in chunks:
+        pp.submit(chunk)
+    pp.drain()
+    torch.cuda.synchronize()
+    walls["lab-pp"] = time.perf_counter() - t0
+    burst = te.build("basecall", "default")
+    walls["basecall"], latency = drive_arrivals(
+        [(at, "basecall", r) for at, _, r in arrivals(rows)],
+        lambda _, r: burst.submit(r), burst.step,
+        lambda _: len(burst.reads))
+    return (fc, bce, pp, pp.detect(READ_LEN)), burst, walls, latency
+
+
+def same_report(a, b) -> bool:
+    import numpy as np
+    return (a.counts == b.counts and a.present == b.present
+            and a.abundance == b.abundance
+            and np.array_equal(a.read_assignment, b.read_assignment)
+            and np.array_equal(a.read_scores, b.read_scores))
+
+
+def same_reads(got, want) -> bool:
+    import numpy as np
+    return len(got) == len(want) and all(
+        np.array_equal(a, b) for a, b in zip(got, want))
+
+
+def fleet_equal_solo(t, det, solo, basecall_fabric=True) -> dict:
+    """Bit for bit: goldens, reads, tokens and detect reports, and each
+    engine's fabric counters, fleet against solo.  ``basecall_fabric``
+    False skips the shared basecall engine's counters: they count
+    dispatches, and arrival times decide how many there are."""
+    fc, bce, pp, sdet = solo
+    solo_reads = {"lab-bc1": bce.reads[:FLEET_BC_ROWS],
+                  "lab-bc2": bce.reads[FLEET_BC_ROWS:]}
+    eq = {"lab-fc goldens": golden(t["lab-fc"].engine) == golden(fc),
+          "lab-pp tokens": len(pp.outputs) == len(
+              t["lab-pp"].engine.outputs) and all(
+              same_reads(a, b)
+              for a, b in zip(t["lab-pp"].engine.outputs, pp.outputs)),
+          "lab-pp detect": same_report(det, sdet)}
+    for name in ("lab-bc1", "lab-bc2"):
+        eq[f"{name} reads"] = same_reads(t[name].outputs, solo_reads[name])
+    pairs = [("lab-fc", fc), ("lab-pp", pp)]
+    if basecall_fabric:
+        pairs.append(("lab-bc", bce))
+    for name, engine in pairs:
+        mine = t["lab-bc1" if name == "lab-bc" else name].engine
+        eq[f"{name} fabric"] = (mine.telemetry.fabric_counters()
+                                == engine.telemetry.fabric_counters())
+    return eq
+
+
+def tenant_lines(rep) -> dict:
+    fl = rep["fleet"]
+    return {n: {"workload": s["workload"], "weight": s["weight"],
+                "ticks": s["ticks"], "tick_share": s["tick_share"],
+                "weight_share": s["weight"] / sum(fl["weights"].values()),
+                "p50_ms": s["p50_ms"], "p99_ms": s["p99_ms"],
+                "completed": s["completed"],
+                "shared_engine": s["shared_engine"]}
+            for n, s in rep["tenants"].items()}
+
+
+def percentiles(ms) -> dict:
+    import numpy as np
+    return {"p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)), "max_ms": max(ms),
+            "n": len(ms)}
+
+
+def phase_fleet_bursty(torch, panel, rows, chunks, solo, burst, walls,
+                       solo_latency):
+    """The fleet under benchmarks/fleet.py's bursty basecall arrivals,
+    against the solo runs: the same results, the per-tenant
+    latencies, shares and fairness, and the fleet's wall against the sum
+    of the solo walls (one card running the tenants one after another)."""
+    t, rep, det, wall, latency = run_fleet_bursty(torch, panel, rows, chunks)
+    equal = fleet_equal_solo(t, det, solo, basecall_fabric=False)
+    bce = solo[1]
+    want = {"lab-bc1": iter(bce.reads[:FLEET_BC_ROWS]),
+            "lab-bc2": iter(bce.reads[FLEET_BC_ROWS:])}
+    equal["solo bursty reads"] = same_reads(
+        burst.reads, [next(want[name]) for _, name, _ in arrivals(rows)])
+    fl = rep["fleet"]
+    serial = sum(walls.values())
+    emit({"phase": "fleet", "part": "bursty", "wall_s": wall,
+          "ticks": fl["ticks"], "fairness_ratio": fl["fairness_ratio"],
+          "schedule": {"source": "benchmarks/fleet.py",
+                       "bursts": FLEET_BURSTS, "per_burst": FLEET_PER_BURST,
+                       "period_s": FLEET_PERIOD_S,
+                       "offsets_s": FLEET_OFFSETS_S},
+          "tenants": tenant_lines(rep),
+          "arrival_to_result": {n: percentiles(ms)
+                                for n, ms in latency.items()},
+          "basecall_dispatches": t["lab-bc1"].engine.telemetry.dispatches,
+          "solo_wall_s": walls, "solo_serial_s": serial,
+          "speedup_vs_serial_solos": serial / wall,
+          "solo_basecall_arrival_to_result": percentiles(
+              solo_latency["basecall"]),
+          "solo_basecall_dispatches": burst.telemetry.dispatches,
+          "equal_solo": equal})
+    require(all(equal.values()),
+            f"bursty fleet differs from solo runs: {equal}")
+    require(all(len(ms) == FLEET_BC_ROWS for ms in latency.values())
+            and len(latency) == 2, "bursty fleet: a basecall row is missing")
+
+
+class GCClock:
+    """Wall time the garbage collector spends, by generation
+    (``gc.callbacks``)."""
+
+    def __init__(self):
+        self.reset()
+        self._t0 = None
+
+    def __call__(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            gen = info["generation"]
+            self.seconds[gen] += time.perf_counter() - self._t0
+            self.collections[gen] += 1
+            self._t0 = None
+
+    def reset(self):
+        self.seconds = [0.0, 0.0, 0.0]
+        self.collections = [0, 0, 0]
+
+
+def flowcell_tick(torch, trace, clock, freeze) -> dict:
+    """Drain flowcell_512 (phase 4's fused engine) after its warm-up,
+    with the collector's time by generation; ``freeze`` moves every
+    object alive after set-up out of the collector's reach
+    (``gc.freeze``) for the drain."""
+    import gc
+    eng = full_engine(True, trace=trace)
+    eng.runtime.warmup()
+    torch.cuda.synchronize()
+    if freeze:
+        gc.freeze()
+    clock.reset()
+    try:
+        rep = eng.drain()
+        torch.cuda.synchronize()
+    finally:
+        if freeze:
+            gc.unfreeze()
+    ticks = max(rep["steps"], 1)
+    return {"trace": trace, "ticks": rep["steps"],
+            "mean_tick_ms": rep["wall_s"] / ticks * 1e3,
+            "gc_ms_per_tick": sum(clock.seconds) / ticks * 1e3,
+            "bases_per_s": rep["bases_per_s"],
+            "events": len(eng.telemetry.tracer.events),
+            "gc_ms": [s * 1e3 for s in clock.seconds],
+            "gc_collections": list(clock.collections)}
+
+
+def tracer_us_per_event() -> float:
+    """The tracer's own cost: host us to record one X span with args."""
+    from repro_torch.obs import Tracer
+    tr, n = Tracer(), 20_000
+    t0 = time.perf_counter()
+    for i in range(n):
+        tr.complete("map", t0, 1e-6, pid=1, tid=1, args={"lanes": i})
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def phase_trace_overhead(torch):
+    """flowcell_512 untraced, traced, traced, untraced; then the same four
+    with the collector frozen after set-up.  Reports each set's mean tick
+    and ``overhead_pct``, also net of the collector's time, and the
+    tracer's own cost an event (reported, not gated: the host spreads one
+    run from the next by 15-50%)."""
+    import gc
+    clock = GCClock()
+    gc.callbacks.append(clock)
+    try:
+        line = {"phase": "fleet", "part": "trace_overhead",
+                "path": "flowcell_512", "gc_objects": len(gc.get_objects()),
+                "gc_thresholds": gc.get_threshold(),
+                "tracer_us_per_event": tracer_us_per_event()}
+        for freeze in (False, True):
+            runs = [flowcell_tick(torch, trace, clock, freeze)
+                    for trace in (False, True, True, False)]
+
+            def mean(key, traced, runs=runs):
+                return sum(r[key] for r in runs if r["trace"] == traced) / 2
+            plain, traced = mean("mean_tick_ms", False), mean(
+                "mean_tick_ms", True)
+            net_plain = plain - mean("gc_ms_per_tick", False)
+            net_traced = traced - mean("gc_ms_per_tick", True)
+            line["gc_frozen" if freeze else "gc_live"] = {
+                "runs": runs, "mean_tick_ms_untraced": plain,
+                "mean_tick_ms_traced": traced,
+                "overhead_pct": (traced / plain - 1.0) * 100.0,
+                "overhead_pct_without_gc": (net_traced / net_plain - 1.0)
+                * 100.0}
+    finally:
+        gc.callbacks.remove(clock)
+    emit(line)
+
+
+def phase_fleet(torch, panel, paths):
+    """Four tenants on one ``Fleet(device="cuda")``: ``lab-fc``
+    (flowcell_512, phase 4's CNN, pore encoder, 1,024 reads, depth 2,
+    fused; weight 2), ``lab-bc1`` and ``lab-bc2`` (``basecall`` default,
+    16 x 2048, sharing one engine, 36 rows each) and ``lab-pp``
+    (``pathogen_pipeline`` default, phase 6's 8 chunks, then
+    ``detect(256)``).  With every request queued at once, each tenant's
+    results and every engine's fabric counters equal its engine drained
+    solo on the card; a traced run validates, with a read span per
+    ``lab-fc`` read and a process track per tenant.  Then the basecall
+    rows arrive on benchmarks/fleet.py's bursts (results again equal
+    solo) for the latencies, shares and the wall against the solo runs'
+    sum; last, tracing's cost on the flowcell_512 tick."""
+    import tempfile
+
+    from repro_torch.obs import read_spans, validate_chrome_trace
+    rows, chunks = fleet_inputs(panel)
+    fleet, t, rep, det, wall = paths.drive(
+        "fleet", ("conv1d", "matmul", "fused_stream", "banded_align"),
+        lambda: run_fleet(torch, panel, rows, chunks))
+    solo, burst, walls, solo_latency = solo_runs(torch, panel, rows, chunks)
+    equal = fleet_equal_solo(t, det, solo)
+    fl = rep["fleet"]
+    yields = t["lab-fc"].engine.telemetry.counters.get(
+        "mesh_yields_inflight", 0)
+    emit({"phase": "fleet", "part": "tenants", "wall_s": wall,
+          "fleet_wall_s": fl["wall_s"], "ticks": fl["ticks"],
+          "fairness_ratio": fl["fairness_ratio"],
+          "mesh_yields_inflight": yields, "tenants": tenant_lines(rep),
+          "lab_fc_reads": len(t["lab-fc"].engine.records),
+          "lab_pp_present": det.present, "equal_solo": equal})
+    require(all(equal.values()), f"fleet differs from solo runs: {equal}")
+    require(len(t["lab-fc"].engine.records) == FULL_FLOWCELL["n_reads"],
+            "fleet: lab-fc resolved too few reads")
+    require(yields > 0, "fleet: lab-fc never yielded with a tick in flight")
+    require(t["lab-bc1"].unit is t["lab-bc2"].unit,
+            "fleet: the basecall tenants do not share an engine")
+
+    tfleet, tt, trep, tdet, twall = run_fleet(torch, panel, rows, chunks,
+                                              trace=True)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace_fleet.json")
+        tfleet.export_trace(path)
+        with open(path) as f:
+            doc = json.load(f)
+    errors = validate_chrome_trace(doc)
+    spans = read_spans(doc)
+    tracks = [e["args"]["name"] for e in doc["traceEvents"]
+              if e.get("ph") == "M" and e.get("name") == "process_name"]
+    untracked = [n for n in tt if not any(n in label for label in tracks)]
+    traced_equal = golden(tt["lab-fc"].engine) == golden(t["lab-fc"].engine)
+    emit({"phase": "fleet", "part": "trace", "events": len(
+        doc["traceEvents"]), "errors": errors[:5], "read_spans": len(spans),
+        "lab_fc_reads": len(tt["lab-fc"].engine.records), "tracks": tracks,
+        "wall_s": twall, "goldens_equal_untraced": traced_equal})
+    require(not errors, f"fleet trace invalid: {errors[:5]}")
+    require(len(spans) == len(tt["lab-fc"].engine.records)
+            == FULL_FLOWCELL["n_reads"], "fleet trace: read spans "
+            f"{len(spans)} for {len(tt['lab-fc'].engine.records)} reads")
+    require(not untracked, f"fleet trace: no track for {untracked}")
+    require(traced_equal, "fleet: the traced lab-fc decided otherwise")
+
+    phase_fleet_bursty(torch, panel, rows, chunks, solo, burst, walls,
+                       solo_latency)
+    phase_trace_overhead(torch)
+    return rep
+
+
+# ------------------------------------------------------------ phase field --
+FIELD_BAR = 20      # JAX's bytes-on-wire bar (benchmarks/field.py)
+
+
+def field_compared(res) -> dict:
+    return {"outbreak": res["outbreak"], "conservation": res["conservation"],
+            "variants": res["variants"],
+            "accepted_reads": [d["accepted_reads"]
+                               for d in res["per_device"]],
+            "read_frame_bytes": res["wire"]["read_frame_bytes"]}
+
+
+def phase_field(torch, paths):
+    """``run_field_scenario(FieldSpec())`` (8 edge devices on ``edge_int8``,
+    2 infected, 8 channels x chunk 128, 32 molecules each; the aggregator a
+    fleet tenant) on the card and on the CPU: outbreak, conservation,
+    variants, accepted reads and read-frame bytes equal; then a traced
+    card run whose trace validates with device and aggregator tracks."""
+    import tempfile
+
+    from repro_torch.field import FieldSpec, run_field_scenario
+    from repro_torch.obs import validate_chrome_trace
+    spec = FieldSpec()
+
+    def card_run():
+        t0 = time.perf_counter()
+        res = run_field_scenario(spec)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+    card, wall = paths.drive(
+        "field", ("conv1d_int8", "matmul_int8", "fused_stream_int8",
+                  "banded_align"), card_run)
+    t0 = time.perf_counter()
+    cpu = run_field_scenario(spec, device="cpu")
+    cpu_wall = time.perf_counter() - t0
+    got, want = field_compared(card), field_compared(cpu)
+    equal = {k: got[k] == want[k] for k in got}
+    wire = card["wire"]
+    emit({"phase": "field", "part": "scenario", "devices": spec.n_devices,
+          "infected": spec.n_infected, "channels": spec.channels,
+          "chunk": spec.chunk, "molecules": spec.n_reads, "wall_s": wall,
+          "cpu_wall_s": cpu_wall, "ticks": card["ticks"],
+          "cpu_ticks": cpu["ticks"], **got,
+          "bytes_on_wire": wire["bytes_on_wire"],
+          "telemetry_frame_bytes": wire["telemetry_frame_bytes"],
+          "reduction_vs_sequenced": wire["reduction_vs_sequenced"],
+          "reduction_bar": FIELD_BAR,
+          "reduction_vs_accepted": wire["reduction_vs_accepted"],
+          "read_path_reduction": wire["read_path_reduction"],
+          "equal_cpu": equal})
+    require(all(equal.values()), f"field: card differs from CPU: {equal}")
+    require(card["conservation"]["per_device_exact"],
+            "field: reads not conserved per device")
+    require(card["outbreak"]["detected"], "field: outbreak not detected")
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace_field.json")
+        traced = run_field_scenario(spec, trace_path=path)
+        with open(path) as f:
+            doc = json.load(f)
+    errors = validate_chrome_trace(doc)
+    tracks = [e["args"]["name"] for e in doc["traceEvents"]
+              if e.get("ph") == "M" and e.get("name") == "process_name"]
+    devices = sum(1 for n in tracks if n.startswith("adaptive_sampling"))
+    emit({"phase": "field", "part": "trace", "events": traced["trace"][
+        "events"], "errors": errors[:5], "device_tracks": devices,
+        "tracks": tracks,
+        "equal_untraced": field_compared(traced) == got})
+    require(not errors, f"field trace invalid: {errors[:5]}")
+    require(devices == spec.n_devices and any(
+        "aggregator" in n for n in tracks),
+        f"field trace: tracks {tracks}")
+    return card
+
+
 # ------------------------------------------------------------------ main --
 KERNELS = {
     "conv1d": ("src/repro_torch/kernels/csrc/conv1d.cu",
@@ -2589,6 +3101,8 @@ def main() -> int:
                                       "basecall edge_int8")})
     phase_pathogen(torch, cfg, panel, known, paths)
     phase_lm_prefill(torch, paths)
+    phase_fleet(torch, panel, paths)
+    phase_field(torch, paths)
 
     kernels = []
     for k, (src, replaces) in KERNELS.items():

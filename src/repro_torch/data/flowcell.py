@@ -125,6 +125,17 @@ class FlowcellSimulator:
         self._next += 1
         return read
 
+    def peek_read(self, read_id: int):
+        """Re-synthesize an already-captured molecule without touching the
+        pore lifecycle.  Signal content is keyed on ``read_id`` alone, so
+        this returns exactly what ``next_read`` handed out: the device tier
+        re-basecalls an accepted read's *full* signal with it."""
+        if not 0 <= read_id < self._next:
+            raise ValueError(
+                f"read_id {read_id} has not been captured yet "
+                f"(emitted={self._next})")
+        return self._synthesize(read_id)
+
     def read_done(self, channel: int, now_samples: int,
                   hold_samples: int) -> None:
         """Account the pore-time tail of a resolved read: ``hold_samples``

@@ -29,7 +29,8 @@ class AdaptiveSamplingEngine:
     def __init__(self, params, bc_cfg, reference, target_intervals, *,
                  channels: int = 32, chunk: int = 256, policy=None,
                  align_cfg=None, device="cuda", mesh=None,
-                 pipeline_depth: int = 1, flowcell=None, fused=None):
+                 pipeline_depth: int = 1, flowcell=None, trace=False,
+                 fused=None):
         from repro_torch.realtime.mapper import (PREFIX_ALIGN_CFG,
                                                  PrefixMapper, TargetPanel)
         from repro_torch.realtime.policy import PolicyConfig
@@ -66,7 +67,7 @@ class AdaptiveSamplingEngine:
             params, bc_cfg, mapper, policy or PolicyConfig(),
             channels=channels, chunk_samples=chunk, device=self.device,
             mesh=mesh, pipeline_depth=pipeline_depth, source=self.flowcell,
-            fused=fused)
+            tracer=trace, fused=fused)
 
     @property
     def telemetry(self):
@@ -97,8 +98,19 @@ class AdaptiveSamplingEngine:
     def step(self) -> bool:
         return self.runtime.tick()
 
+    def suspend_tick(self) -> None:
+        """Fleet hook: hand the card to the next tenant with none of our
+        double-buffered tick still in flight."""
+        self.runtime.yield_mesh()
+
     def flush(self) -> None:
         self.runtime.flush()
+
+    def detach_source(self) -> None:
+        """Live flowcell detach (fleet ``remove_tenant``): stop capturing
+        new molecules; occupied lanes stream to their decisions."""
+        self.runtime.detach_source()
+        self.flowcell = None
 
     def drain(self, max_steps: int = 100_000) -> dict:
         out = self.runtime.run(max_steps)
@@ -134,7 +146,8 @@ def build_adaptive_sampling(params=None, cfg=None, reference=None,
                             targets=None, *, channels: int, chunk: int,
                             quantize=None, policy=None, align_cfg=None,
                             device="cuda", mesh=None, pipeline_depth: int = 1,
-                            flowcell=None, seed: int = 0, fused=None):
+                            flowcell=None, seed: int = 0, trace=False,
+                            fused=None):
     """Builder: supply (params, cfg) + reference/targets, or get a fresh CNN
     drawn from ``seed`` over a random reference with the first quarter as
     target.  A step-encoded flowcell with no explicit params gets the exact
@@ -142,7 +155,8 @@ def build_adaptive_sampling(params=None, cfg=None, reference=None,
     (the ``edge_int8`` preset) stores the CNN weights int8 once; every tick
     then basecalls on the int8 kernels.  ``fused=True`` runs each tick as
     the single fused kernel, ``None`` does so on the card; decisions are
-    identical either way."""
+    identical either way.  ``trace`` enables span tracing (True, or a
+    shared Tracer)."""
     import torch
 
     from repro_torch.core import basecaller as bc
@@ -172,4 +186,5 @@ def build_adaptive_sampling(params=None, cfg=None, reference=None,
     return AdaptiveSamplingEngine(
         params, cfg, reference, targets, channels=channels, chunk=chunk,
         policy=policy, align_cfg=align_cfg, device=dev, mesh=mesh,
-        pipeline_depth=pipeline_depth, flowcell=flowcell, fused=fused)
+        pipeline_depth=pipeline_depth, flowcell=flowcell, trace=trace,
+        fused=fused)

@@ -1,5 +1,6 @@
-"""What the basecalling engines share (``repro/engine/base.py``): the drain
-loop and summary of the chunk engines, the SoC energy block of their
+"""What the basecalling engines share (``repro/engine/base.py``): the
+scheduler + telemetry plumbing, the drain loop and summary of the chunk
+engines, the fleet's time-slicing hooks, the SoC energy block of their
 summaries and the build-time int8 quantization behind the ``edge_int8``
 presets."""
 from __future__ import annotations
@@ -8,13 +9,37 @@ import warnings
 
 import numpy as np
 
+from repro_torch.engine.scheduler import SlotScheduler
+from repro_torch.engine.telemetry import Telemetry
+
 
 class EngineBase:
-    """The drain loop and summary of an engine that owns ``telemetry``, a
-    ``scheduler``, ``step()`` and CNN ``params`` / ``cfg`` (the ``basecall``
-    and ``pathogen_pipeline`` engines)."""
+    """The plumbing of an engine that owns ``telemetry``, a ``scheduler``,
+    ``step()`` and CNN ``params`` / ``cfg`` (the ``basecall`` and
+    ``pathogen_pipeline`` engines).  ``tracer`` is a builder's ``trace=``
+    (``False``, ``True`` or a shared :class:`repro_torch.obs.trace.Tracer`);
+    the scheduler's admit/assign/release land on its scheduler track."""
 
     workload = ""
+
+    def __init__(self, *, slots: int, depth: int | None = None,
+                 tracer=None):
+        self.telemetry = Telemetry(workload=self.workload, tracer=tracer)
+        self.scheduler = SlotScheduler(
+            slots, depth=depth,
+            on_event=self.telemetry.tracer.scheduler_hook(
+                self.telemetry.trace_pid))
+
+    # Fleet time-slicing hooks: the fleet brackets every engine tick with
+    # resume_tick()/suspend_tick() so an engine that keeps work in flight
+    # across ticks (the depth-2 flowcell runtime) can hand the card to the
+    # next tenant with nothing of its own pending.  No-ops here: a chunk
+    # engine's step leaves nothing behind that another tenant waits on.
+    def resume_tick(self) -> None:
+        """The fleet is about to run one of this engine's ticks."""
+
+    def suspend_tick(self) -> None:
+        """The fleet is done with this engine's tick."""
 
     def drain(self, max_steps: int = 100_000) -> dict:
         """Step until the scheduler is empty (or ``max_steps``); returns the
@@ -23,6 +48,7 @@ class EngineBase:
         while not self.scheduler.drained and steps < max_steps:
             if not self.step():
                 break
+            self.telemetry.tick_export()
             steps += 1
         return self.summary()
 

@@ -17,8 +17,6 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.engine.base import EngineBase, quantize_edge_params
 from repro_torch.engine.registry import register
-from repro_torch.engine.scheduler import SlotScheduler
-from repro_torch.engine.telemetry import Telemetry
 
 
 class BasecallEngine(EngineBase):
@@ -27,9 +25,8 @@ class BasecallEngine(EngineBase):
     workload = "basecall"
 
     def __init__(self, params, bc_cfg, *, batch: int, chunk: int,
-                 device="cuda"):
-        self.telemetry = Telemetry(workload=self.workload)
-        self.scheduler = SlotScheduler(batch)
+                 device="cuda", trace=False):
+        super().__init__(slots=batch, tracer=trace)
         self.device = resolve_device(device)
         self.params = params
         self.cfg = bc_cfg
@@ -98,11 +95,12 @@ class BasecallEngine(EngineBase):
 })
 def build_basecall(params=None, cfg=None, *, batch: int, chunk: int,
                    quantize: str | None = None, device="cuda",
-                   seed: int = 0):
+                   seed: int = 0, trace=False):
     """Builder: supply (params, cfg) or get a fresh paper-shaped CNN drawn
     from ``seed``.  ``quantize="int8"`` (the ``edge_int8`` preset)
     calibrates and quantizes the weights once; already-quantized params
-    pass through."""
+    pass through.  ``trace`` enables span tracing (True, or a shared
+    Tracer)."""
     from repro_torch.core import basecaller as bc
     dev = resolve_device(device)
     if cfg is None:
@@ -113,4 +111,5 @@ def build_basecall(params=None, cfg=None, *, batch: int, chunk: int,
     if quantize is not None:
         params = quantize_edge_params(params, cfg, scheme=quantize,
                                       chunk=chunk, seed=seed)
-    return BasecallEngine(params, cfg, batch=batch, chunk=chunk, device=dev)
+    return BasecallEngine(params, cfg, batch=batch, chunk=chunk, device=dev,
+                          trace=trace)

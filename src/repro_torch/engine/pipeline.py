@@ -23,8 +23,6 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.engine.base import EngineBase, quantize_edge_params
 from repro_torch.engine.registry import register
-from repro_torch.engine.scheduler import SlotScheduler
-from repro_torch.engine.telemetry import Telemetry
 
 
 class PathogenPipelineEngine(EngineBase):
@@ -34,10 +32,9 @@ class PathogenPipelineEngine(EngineBase):
     workload = "pathogen_pipeline"
 
     def __init__(self, params, bc_cfg, *, depth: int = 2, panel=None,
-                 detect_cfg=None, device="cuda"):
-        self.telemetry = Telemetry(workload=self.workload)
+                 detect_cfg=None, device="cuda", trace=False):
         # the slot pool IS the in-flight bound: one slot per in-flight job
-        self.scheduler = SlotScheduler(depth)
+        super().__init__(slots=depth, tracer=trace)
         self.device = resolve_device(device)
         self.params = params
         self.cfg = bc_cfg
@@ -130,13 +127,14 @@ class PathogenPipelineEngine(EngineBase):
 })
 def build_pathogen_pipeline(params=None, cfg=None, *, depth: int,
                             quantize: str | None = None, panel=None,
-                            detect_cfg=None, seed: int = 0, device="cuda"):
+                            detect_cfg=None, seed: int = 0, device="cuda",
+                            trace=False):
     """Make the engine: supply trained (params, cfg), and a
     ``pathogen.Panel`` to enable ``detect``, or get a fresh paper-shaped
     CNN drawn from ``seed``.  ``quantize="int8"`` (the ``edge_int8``
     preset) calibrates at chunk 2048, as JAX's ``pathogen_pipeline`` does,
     and stores the CNN weights int8 once; already-quantized params pass
-    through."""
+    through.  ``trace`` enables span tracing (True, or a shared Tracer)."""
     from repro_torch.core import basecaller as bc
     dev = resolve_device(device)
     if cfg is None:
@@ -150,4 +148,5 @@ def build_pathogen_pipeline(params=None, cfg=None, *, depth: int,
         params = quantize_edge_params(params, cfg, scheme=quantize,
                                       chunk=2048, seed=seed)
     return PathogenPipelineEngine(params, cfg, depth=depth, panel=panel,
-                                  detect_cfg=detect_cfg, device=dev)
+                                  detect_cfg=detect_cfg, device=dev,
+                                  trace=trace)

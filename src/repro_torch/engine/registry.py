@@ -6,8 +6,8 @@
 
 ``build`` resolves the workload's builder, starts from the named preset's
 keywords and applies ``**overrides`` on top.  Workload modules import
-lazily.  Three workloads are ported: ``adaptive_sampling``, ``basecall``
-and ``pathogen_pipeline``.
+lazily.  Four workloads are ported: ``adaptive_sampling``, ``basecall``,
+``pathogen_pipeline`` and ``field_aggregator``.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ _WORKLOAD_MODULES: dict[str, str] = {
     "adaptive_sampling": "repro_torch.engine.adaptive",
     "basecall": "repro_torch.engine.basecall",
     "pathogen_pipeline": "repro_torch.engine.pipeline",
+    "field_aggregator": "repro_torch.field.aggregator",
 }
 
 _BUILDERS: dict[str, Callable[..., Any]] = {}
@@ -63,10 +64,18 @@ def presets(workload: str) -> dict[str, dict]:
     return {k: dict(v) for k, v in _PRESETS[workload].items()}
 
 
-def build(workload: str, preset: str = "default", **overrides: Any):
+def build(workload: str, preset: str = "default", *, fleet=None,
+          tenant: Optional[str] = None, weight: float = 1.0,
+          priority: int = 0, **overrides: Any):
     """Construct an engine from a preset plus overrides.  Every workload
     takes ``device=`` (default ``"cuda"``; ``"cpu"`` runs the plain
-    PyTorch versions of the kernels)."""
+    PyTorch versions of the kernels) and ``trace=`` (True, or a shared
+    :class:`repro_torch.obs.trace.Tracer`).
+
+    ``fleet=`` attaches the built engine to a
+    :class:`repro_torch.fleet.Fleet` as tenant ``tenant`` (default: the
+    workload name) with the given ``weight``/``priority`` and returns the
+    :class:`~repro_torch.fleet.Tenant` handle instead of the engine."""
     builder = _resolve(workload)
     table = _PRESETS[workload]
     if preset not in table:
@@ -75,4 +84,8 @@ def build(workload: str, preset: str = "default", **overrides: Any):
             f"{workload!r}; available: {sorted(table)}")
     kwargs = dict(table[preset])
     kwargs.update(overrides)
-    return builder(**kwargs)
+    engine = builder(**kwargs)
+    if fleet is None:
+        return engine
+    return fleet.attach(tenant or workload, engine, workload=workload,
+                        preset=preset, weight=weight, priority=priority)

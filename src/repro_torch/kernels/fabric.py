@@ -40,21 +40,32 @@ def target_of(t: torch.Tensor) -> str:
 
 class ScopedCounters:
     """A per-engine counter scope: receives a copy of every bump recorded
-    while it is active (``with fabric.scoped(scope): ...``)."""
+    while it is active (``with fabric.scoped(scope): ...``).
 
-    __slots__ = ("counts", "_lock")
+    ``listener`` (optional) is called with the raw ``((key, n), ...)``
+    items on every bump: the span tracer's fabric-dispatch hook."""
 
-    def __init__(self):
+    __slots__ = ("counts", "listener", "_lock")
+
+    def __init__(self, listener=None):
         self.counts = collections.Counter()
+        self.listener = listener
         self._lock = threading.Lock()
 
-    def bump(self, key: str, n: int) -> None:
+    def bump(self, items: tuple) -> None:
         with self._lock:
-            self.counts[key] += n
+            for key, n in items:
+                self.counts[key] += n
+        if self.listener is not None:
+            self.listener(items)
 
     def snapshot(self) -> dict:
         with self._lock:
             return dict(self.counts)
+
+    def clear(self) -> None:
+        with self._lock:
+            self.counts.clear()
 
 
 _COUNTS: collections.Counter = collections.Counter()
@@ -83,8 +94,11 @@ def record(key: str, n: int = 1) -> None:
     """Increment an arbitrary ``fabric.*`` counter."""
     with _COUNTS_LOCK:
         _COUNTS[key] += n
-    for scope in _SCOPES.get():
-        scope.bump(key, n)
+    scopes = _SCOPES.get()
+    if scopes:
+        items = ((key, n),)
+        for scope in scopes:
+            scope.bump(items)
 
 
 def dispatch(op: str, t: torch.Tensor) -> str:

@@ -16,6 +16,12 @@ into one of two pinned host buffer sets and records a CUDA event, and
 ``_process_one`` waits on that event.  That snapshots the evidence and
 keeps host work overlapped with the card.  Signal goes up through two
 pinned staging sets in the same ring.
+
+``tracer=`` records what JAX's runtime records: one B/E ``read`` span per
+read on its lane's track (``read_id`` at capture, the decision at the
+end), the stage X spans, the scheduler's instants, ``tick.dispatch`` /
+``tick.complete`` instants and the per-tick ``lanes`` counter.  They are
+host times; the untraced tick pays one ``tracer.enabled`` check a call.
 """
 from __future__ import annotations
 
@@ -142,7 +148,8 @@ class AdaptiveSamplingRuntime:
     def __init__(self, params, cfg: bc.BasecallerConfig, mapper: PrefixMapper,
                  policy: PolicyConfig = PolicyConfig(), *, channels: int = 32,
                  chunk_samples: int = 256, device="cuda", mesh=None,
-                 pipeline_depth: int = 1, source=None, fused=None):
+                 pipeline_depth: int = 1, source=None, tracer=None,
+                 fused=None):
         if chunk_samples % cfg.total_stride:
             raise ValueError(
                 f"chunk_samples={chunk_samples} must be a multiple of the "
@@ -167,8 +174,13 @@ class AdaptiveSamplingRuntime:
         self._step = build_step_fn(cfg, fused=self.fused)
         self.lane_state = init_lane_state(cfg, channels, device=self.device)
         self.records: list[ReadRecord] = []
-        self.telemetry = Telemetry(workload="adaptive_sampling")
-        self.scheduler = SlotScheduler(channels)
+        self.telemetry = Telemetry(workload="adaptive_sampling",
+                                   tracer=tracer)
+        self._trace = self.telemetry.tracer
+        self._pid = self.telemetry.trace_pid
+        # channel lanes: slot = sensor channel, payload = ChannelSession
+        self.scheduler = SlotScheduler(
+            channels, on_event=self._trace.scheduler_hook(self._pid))
         self._source = source
         self._n_frames = chunk_samples // cfg.total_stride
         self._ring = _HostRing(channels, chunk_samples, self._n_frames,
@@ -263,6 +275,24 @@ class AdaptiveSamplingRuntime:
                                                 started_wall=now))
         return [b for b, _ in fresh]
 
+    # ------------------------------------------------------------ tracing --
+    def _lane_tid(self, b: int) -> int:
+        return self._trace.tid(self._pid, f"lane{b:03d}")
+
+    def _begin_read_spans(self, lanes: list[int]) -> None:
+        """Open one B span per freshly captured read on its lane track
+        (closed by :meth:`_finish` with the decision args)."""
+        if not self._trace.enabled or not lanes:
+            return
+        active = self.scheduler.active
+        for b in lanes:
+            s = active[b]
+            self._trace.begin(
+                "read", pid=self._pid, tid=self._lane_tid(b), cat="read",
+                args={"read_id": int(s.read.read_id), "lane": b,
+                      "total_samples": int(s.read.total_samples),
+                      "capture_tick": self._ticks})
+
     def _finish(self, b: int, decision: Decision, reason: str,
                 mapped_pos: int, now: float) -> None:
         s = self.scheduler.release(b)
@@ -284,6 +314,14 @@ class AdaptiveSamplingRuntime:
             decision_ms=(now - s.started_wall) * 1e3,
             bases=s.bases)
         self.records.append(rec)
+        if self._trace.enabled:
+            self._trace.end(
+                pid=self._pid, tid=self._lane_tid(b),
+                args={"read_id": int(s.read.read_id),
+                      "decision": decision.name, "reason": reason,
+                      "bases": int(len(s.bases)),
+                      "samples_sequenced": int(consumed),
+                      "samples_saved": int(total - consumed)})
         tel = self.telemetry
         tel.completed += 1
         tel.samples += consumed
@@ -313,6 +351,13 @@ class AdaptiveSamplingRuntime:
             if p["event"] is not None:
                 p["event"].synchronize()
             tokens_np, lens_np, bases_np = p["host"]
+        if self._trace.enabled:
+            # completion lands one tick after its launch under depth 2: the
+            # args carry the evidence tick
+            self._trace.instant(
+                "tick.complete", pid=self._pid,
+                tid=self._trace.tid(self._pid, "host"), cat="tick",
+                args={"evidence_tick": p["tick"], "lanes": len(sessions)})
         active = self.scheduler.active
         for b, s in sessions.items():
             if active[b] is not s:     # lane already recycled (defensive)
@@ -354,6 +399,28 @@ class AdaptiveSamplingRuntime:
         """Resolve the in-flight double-buffered tick, if any."""
         self._process_pending()
 
+    def yield_mesh(self) -> None:
+        """Hand the card to another engine between ticks.
+
+        Waits on the pending tick's CUDA event (depth 2 keeps one tick in
+        flight), so no launch of ours is still running when the fleet runs
+        the next tenant.  The pending tick is still mapped and decided on
+        our next tick, so decisions are identical to an undisturbed run;
+        only the overlap across the yield is given up."""
+        p = self._pending
+        if p is not None:
+            if p["event"] is not None:
+                p["event"].synchronize()
+            self.telemetry.count("mesh_yields_inflight")
+
+    def detach_source(self) -> None:
+        """Live flowcell detach: stop capturing new molecules and let every
+        read in flight stream to its decision; ``tick()`` returns False
+        once the occupied lanes drain."""
+        if self._source is not None:
+            self._source = None
+            self.telemetry.count("source_detached")
+
     def tick(self) -> bool:
         """Advance every busy channel by one chunk; returns False when idle."""
         self.warmup()
@@ -362,6 +429,7 @@ class AdaptiveSamplingRuntime:
         fresh = self._poll_source() + self._assign_free()
         if not self.fused:
             self._reset_lanes(fresh)
+        self._begin_read_spans(fresh)
         sessions = self.scheduler.active
         busy = self.scheduler.busy
         if not busy:
@@ -412,6 +480,17 @@ class AdaptiveSamplingRuntime:
             evidence, event = self._ring.snapshot(
                 slot, tokens, lens, self.lane_state["bases"])
         tel.dispatches += 1
+        if self._trace.enabled:
+            # launch marker: this tick's evidence is mapped in a later
+            # tick.complete under depth 2
+            self._trace.instant(
+                "tick.dispatch", pid=self._pid,
+                tid=self._trace.tid(self._pid, "host"), cat="tick",
+                args={"tick": self._ticks, "lanes": len(busy)})
+            self._trace.counter(
+                "lanes", {"busy": len(busy),
+                          "queue": self.scheduler.pending},
+                pid=self._pid)
         tel.gauge("queue_depth", self.scheduler.pending)
         tel.gauge("lanes_busy", len(busy))
         prev = self._pending
@@ -433,6 +512,7 @@ class AdaptiveSamplingRuntime:
 
     def run(self, max_ticks: int = 100_000) -> dict:
         while self.tick():
+            self.telemetry.tick_export()
             if self._ticks >= max_ticks:
                 break
         self.flush()

@@ -924,3 +924,75 @@ def test_smoke_prefill_on_card_equals_cpu(dev, arch, batch):
     assert launched == ([4, 12, 0] if arch == "qwen3-4b" else [0, 0, 4])
     ulp = 2.0 ** (np.floor(np.log2(float(want.abs().max()))) - 7)
     assert float((got.float().cpu() - want).abs().max()) <= 2 * ulp
+
+
+def _edge_int8_step_engine(device, flowcell_seed=3):
+    """A depth-2 ``edge_int8`` step-codec flowcell (the field device's
+    engine) on ``device``."""
+    import repro_torch.engine as te
+    from repro_torch.data import genome as G
+    from repro_torch.field.device import calibrated_step_params
+    cfg, qparams = calibrated_step_params(128, seed=0, device=device)
+    ref_genome = G.random_genome(np.random.default_rng(7), 6_000)
+    return te.build(
+        "adaptive_sampling", "edge_int8", params=qparams, cfg=cfg,
+        reference=ref_genome, targets=[(0, 3_000)], channels=8, chunk=128,
+        flowcell={"encoder": "step", "n_reads": 24, "read_len": (96, 160),
+                  "seed": flowcell_seed},
+        pipeline_depth=2, device=device)
+
+
+def _golden(engine):
+    return sorted((r.read_id, r.decision.value, r.reason,
+                   r.bases_at_decision, r.mapped_pos) for r in engine.records)
+
+
+def test_yield_mesh_leaves_nothing_pending_and_changes_no_decision(dev):
+    plain = _edge_int8_step_engine("cuda")
+    plain.drain()
+    yielding = _edge_int8_step_engine("cuda")
+    ticks = 0
+    while yielding.step():
+        yielding.suspend_tick()
+        p = yielding.runtime._pending
+        if p is not None:
+            assert p["event"].query()       # the tick in flight is done
+        ticks += 1
+    yielding.flush()
+    assert yielding.runtime.fused
+    assert ticks > 2
+    assert yielding.telemetry.counters["mesh_yields_inflight"] > 0
+    assert _golden(yielding) == _golden(plain)
+    assert len(_golden(plain)) == 24
+
+
+def test_two_tenant_fleet_on_card_equals_solo_runs(dev):
+    from repro_torch.fleet import Fleet
+    from repro_torch.data.flowcell import step_encode
+    solo = _edge_int8_step_engine("cuda")
+    solo.drain()
+    rng = np.random.default_rng(5)
+    rows = [step_encode(rng.integers(1, 5, 512)) for _ in range(20)]
+    import repro_torch.engine as te
+    solo_bc = te.build("basecall", "default", seed=0)
+    for r in rows:
+        solo_bc.submit(r)
+    solo_bc.drain()
+    fleet = Fleet()
+    fc = fleet.attach("fc", _edge_int8_step_engine("cuda"), weight=2.0)
+    bc = fleet.add_tenant("bc", "basecall", "default", seed=0)
+    for r in rows:
+        assert bc.submit(r)
+    fleet.drain()
+    assert _golden(fc.engine) == _golden(solo)
+    assert len(bc.outputs) == 20
+    for got, want in zip(bc.outputs, solo_bc.reads):
+        np.testing.assert_array_equal(got, want)
+    assert (fc.engine.telemetry.fabric_counters()
+            == solo.telemetry.fabric_counters())
+    assert (bc.engine.telemetry.fabric_counters()
+            == solo_bc.telemetry.fabric_counters())
+    assert all(k.endswith(".cuda")
+               for k in fc.engine.telemetry.fabric_counters()
+               if k.startswith("fabric.dispatch."))
+    assert fc.engine.telemetry.counters["mesh_yields_inflight"] > 0

@@ -32,6 +32,8 @@ import repro_torch.engine.pipeline, repro_torch.kernels.edit_distance
 import repro_torch.kernels.flash_attention, repro_torch.kernels.ssd_scan
 import repro_torch.models.transformer, repro_torch.models.param
 import repro_torch.configs, repro_torch.launch.steps
+import repro_torch.obs, repro_torch.obs.validate, repro_torch.fleet
+import repro_torch.field, repro_torch.distributed.compression
 mods = sorted(m for m in sys.modules
               if m == "jax" or m.startswith("jax.")
               or m == "repro" or m.startswith("repro."))
@@ -57,6 +59,33 @@ def test_scan_covers_the_lm_modules():
                 "launch/steps.py", "kernels/flash_attention.py",
                 "kernels/ssd_scan.py"):
         assert mod in found, mod
+
+
+def test_scan_covers_the_obs_fleet_and_field_modules():
+    found = {os.path.relpath(p, PKG) for p in _port_sources()}
+    for mod in ("obs/__init__.py", "obs/metrics.py", "obs/trace.py",
+                "obs/export.py", "obs/validate.py", "fleet/__init__.py",
+                "fleet/scheduler.py", "fleet/batching.py", "fleet/fleet.py",
+                "field/__init__.py", "field/uplink.py", "field/device.py",
+                "field/aggregator.py", "field/scenario.py",
+                "distributed/__init__.py", "distributed/compression.py"):
+        assert mod in found, mod
+
+
+def test_fleet_and_field_without_card_raise(monkeypatch):
+    from repro_torch.field import EdgeDevice, FieldSpec, run_field_scenario
+    from repro_torch.fleet import Fleet
+    from repro_torch.obs import profile_window
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Fleet()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_field_scenario(FieldSpec(n_devices=1, n_infected=1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        EdgeDevice(0, [1, 2, 3, 4] * 100, [(0, 100)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        with profile_window("unused"):
+            pass
 
 
 def _port_sources():
@@ -129,7 +158,7 @@ def test_one_card_mesh_and_unported_presets():
     assert set(te.presets("adaptive_sampling")) == {
         "default", "smoke", "edge_int8", "flowcell_512", "flowcell_smoke"}
     assert set(te.workloads()) == {"adaptive_sampling", "basecall",
-                                   "pathogen_pipeline"}
+                                   "pathogen_pipeline", "field_aggregator"}
 
 
 def test_chip_smoke_alone_fails_without_output(tmp_path):
