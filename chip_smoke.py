@@ -8,7 +8,7 @@ Phases, each printing JSON lines:
 1. ``card``: the card's name and power limit (nvidia-smi), the time to
    build the CUDA kernels with nvcc (one nvcc per source, in parallel)
    and each kernel's registers and spill bytes (``ptxas -v``).
-2. ``kernel``: each of the eleven kernels (fp32 conv1d, matmul,
+2. ``kernel``: each of the eleven main-path kernels (fp32 conv1d, matmul,
    fused_stream and banded_align; int8 conv1d, matmul and fused_stream;
    levenshtein; flash_attention, ssd_scan and the bf16 matmul) against its
    plain PyTorch version on the card, at the flowcell tick's shapes (512
@@ -47,6 +47,14 @@ Phases, each printing JSON lines:
    launches queued back to back, since issuing them takes the host
    longer than the card takes to run them; ssd_scan
    ``device_ms_by_pass``, each of its three kernels by the profiler).
+   ``kernels_generic``: the generic flash kernel (f32, bf16 and f16 at
+   every head dim the wgmma kernel does not take, causal and not, GQA,
+   ragged Sq) against the plain attention at each dtype's bar, against
+   the wgmma kernel on the same bf16 inputs, and timed at qwen3-4b's
+   attention in f32 (1 x 4096, SDPA f32 the library); the generic SSD at
+   four (ds, dh) pairs in f32 and bf16, timed at 24 heads x 4096 with
+   (ds, dh) = (128, 128), and beside the tensor-core passes at
+   mamba2-780m's shape.
 3. ``step_goldens``: the step-codec flowcell (8 lanes) on the card, fused
    and unfused x pipeline depth 1 and 2, and once on the CPU (plain): all
    five per-read goldens must be equal; once with fp32 params, once with
@@ -91,6 +99,10 @@ Phases, each printing JSON lines:
    and 1 x 512 on the card and on the CPU with the same params: the last
    token's final-normed hidden state, rms of the difference within 2^-7
    of its rms, and its logits within 2 bf16 ulps of max |logit|.
+   ``lm_parity_f32``: the f32 smoke configs (qwen3-4b on the generic
+   flash kernel, mamba2-780m on the tensor-core SSD, and mamba2-780m's
+   smoke at (ds, dh) = (64, 32) on the generic one) on the card against
+   the CPU within 1e-4.
 8. ``fleet``: four tenants on one ``repro_torch.fleet.Fleet`` on the
    card: ``lab-fc`` (``flowcell_512`` with phase 4's CNN, pore encoder,
    1,024 reads, depth 2, fused; weight 2), ``lab-bc1`` and ``lab-bc2``
@@ -120,7 +132,19 @@ Phases, each printing JSON lines:
    of 20); reads conserved per device and the outbreak detected; a
    traced card run's trace validates with 8 device tracks and the
    aggregator's.  Trace timestamps are host times.
-10. ``{"kernels": [...]}``: every kernel with its launches in phases 4-9,
+10. ``train``: the micro basecaller (``train_micro_basecaller``'s
+   DEMO_CFG): one step on the card against the CPU, float and QAT (loss
+   within 1e-5, gradients within 1e-4 of their largest entry, the forward
+   on the hand conv1d), 220 steps on the card to JAX's bar (last loss
+   under half the first, read accuracy > 0.55 at default_rng(77)), a QAT
+   run quantized once and served as an ``edge_int8`` flowcell on the card
+   and the CPU with equal goldens, and a checkpoint round trip, bit for
+   bit.
+11. ``serve_cli``: ``python -m repro_torch.launch.serve`` in subprocesses:
+   basecall, adaptive_sampling (with ``--trace`` and ``--timeseries``,
+   both validated) and pathogen_pipeline, ``--fleet`` on a three-tenant
+   spec, ``--field`` on a two-device spec; each exits 0, with its wall.
+12. ``{"kernels": [...]}``: every kernel with its launches in phases 4-11,
    counted from 0 just before each path and read just after it
    (``matmul_bf16`` also with ``wgmma_launches``, those on its wgmma
    kernel; ``conv1d`` with ``tc_launches`` and ``bound_fp32_ms``;
@@ -134,7 +158,10 @@ Phases, each printing JSON lines:
    ``unfused_ms``, ``unfused_device_ms`` and ``bound_fp32_ms``;
    ``fused_stream_int8`` with ``tc_launches``, ``tc_layers`` and
    ``device_ms``; ``ssd_scan`` with ``device_ms``, ``device_ms_by_pass``
-   and ``bound_fp32_ms``).
+   and ``bound_fp32_ms``; ``flash_attention_generic`` and
+   ``ssd_scan_generic`` with ``generic_launches``, bound at the CUDA
+   cores' fp32 rate; ``flash_attention`` and ``ssd_scan`` count their
+   tensor-core kernels only).
 
 TF32 is off for the whole run (``torch.backends.cuda.matmul.allow_tf32``
 and ``torch.backends.cudnn.allow_tf32``): the plain versions and the
@@ -2924,6 +2951,549 @@ def phase_field(torch, paths):
     return card
 
 
+# ------------------------------------------------- phase kernels_generic --
+GENERIC_FLASH_DIMS = (8, 16, 48, 80, 96, 256)
+GENERIC_FLASH_CASES = ((1, 4, 2, 100, 100, True),     # ragged, GQA 2
+                       (2, 4, 1, 37, 70, False),      # Sq < Skv, GQA 4
+                       (1, 8, 2, 33, 130, True))      # last-token causal
+GENERIC_SSD_DIMS = ((64, 32), (16, 64), (128, 128), (24, 40))
+F32_FLASH_RULE = ("|err| <= 2^-17 (|ref| + P|V|): ~64 f32 ulps, for an "
+                  "online softmax summed in another order")
+F16_FLASH_RULE = ("|err| <= 2^-10 |ref| + 2^-11 P|V|: the bf16 bar scaled "
+                  "by f16's three more mantissa bits")
+
+
+def flash_bar_excess(got, want, abs_attn, dtype_name) -> float:
+    """The flash bar of the working type (FA_RULE for bf16, F32_FLASH_RULE,
+    F16_FLASH_RULE), as the largest |err| / bar: at most 1 passes."""
+    if dtype_name == "bfloat16":
+        return flash_excess(got, want, abs_attn)
+    g, w, a = got.float(), want.float(), abs_attn.float()
+    if dtype_name == "float32":
+        bar = 2.0 ** -17 * (w.abs() + a) + 1e-30
+    else:
+        bar = 2.0 ** -10 * w.abs() + 2.0 ** -11 * a + 1e-30
+    return ((g - w).abs() / bar).max().item()
+
+
+def sdpa_f32_ms(torch, F, q, k, v, causal=True):
+    """SDPA in float32 on its fused backends (memory-efficient takes f32;
+    flash and cuDNN do not), with K/V expanded to the query heads outside
+    the timed call, since those backends take f32 only as MHA."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    group = q.shape[1] // k.shape[1]
+    kk = k.repeat_interleave(group, dim=1)
+    vv = v.repeat_interleave(group, dim=1)
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        return time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, kk, vv, is_causal=causal), reps=3, warm=1)
+
+
+def phase_kernels_generic(torch, F, peaks, table):
+    """The generic flash and SSD kernels: every dtype and head dim the
+    wgmma flash kernel does not take, every (ds, dh) outside the SSD
+    tensor-core passes, against their plain versions; the generic flash
+    against the wgmma one on the same bf16 inputs; rows 5g and 6g of the
+    kernels line timed at qwen3-4b's attention in f32 (1 x 4096) and at
+    mamba2-780m's inner width with 128-wide heads (24 heads x 4096, ds
+    128); and the generic SSD beside the tensor-core passes at
+    mamba2-780m's own shape."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as kssd
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(11)
+
+    def rand(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(
+            dtype)
+
+    # the sweep: three dtypes x the head dims each sends to the generic
+    # kernel (16, the f32 smoke LM's, too) x three shapes
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        name = str(dtype).split(".")[-1]
+        dims = [d for d in GENERIC_FLASH_DIMS if kfa.route(dtype, d) ==
+                "generic"]
+        worst, err, n = 0.0, 0.0, 0
+        for d in dims:
+            for b, hq, hkv, sq, skv, causal in GENERIC_FLASH_CASES:
+                q, k, v = (rand(s, dtype) for s in (
+                    (b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+                before = kfa.flash_attention.generic_launches
+                out = kfa.flash_attention(q, k, v, causal=causal)
+                require(kfa.flash_attention.generic_launches == before + 1,
+                        f"flash {name} D={d} did not run the generic kernel")
+                want = ref.attention(q, k, v, causal=causal)
+                pv = ref.attention(q, k, v.abs(), causal=causal)
+                worst = max(worst, flash_bar_excess(out, want, pv, name))
+                err = max(err, (out.float() - want.float()).abs().max()
+                          .item())
+                n += 1
+        emit({"phase": "kernels_generic", "kernel": "flash_attention",
+              "route": "generic", "dtype": name, "head_dims": dims,
+              "cases": [list(c) for c in GENERIC_FLASH_CASES], "checks": n,
+              "max_abs_err": err, "err_over_bar": worst,
+              "tol": {"float32": F32_FLASH_RULE, "bfloat16": FA_RULE,
+                      "float16": F16_FLASH_RULE}[name]})
+        require(worst <= 1.0, f"generic flash {name}: {worst} x its bar")
+
+    # the generic and wgmma kernels on the same bf16 inputs, D = 64
+    q = rand((1, 8, 1000, 64), torch.bfloat16)
+    k, v = rand((1, 2, 1000, 64), torch.bfloat16), rand((1, 2, 1000, 64),
+                                                        torch.bfloat16)
+    wg = kfa.flash_attention(q, k, v)
+    gn = kfa.generic(q, k, v)
+    pv = ref.attention(q, k, v.abs())
+    agree = flash_excess(gn, wg, pv)
+    want = ref.attention(q, k, v)
+    emit({"phase": "kernels_generic", "kernel": "flash_attention",
+          "check": "generic vs wgmma, same bf16 inputs", "q": list(q.shape),
+          "err_over_bar": agree, "tol": FA_RULE + ", the wgmma output as "
+          "the reference", "generic_vs_plain": flash_excess(gn, want, pv),
+          "wgmma_vs_plain": flash_excess(wg, want, pv),
+          "wgmma_ms": time_ms(torch, lambda: kfa.flash_attention(q, k, v)),
+          "generic_ms": time_ms(torch, lambda: kfa.generic(q, k, v))})
+    require(agree <= 1.0, f"generic vs wgmma flash: {agree} x the bar")
+
+    # row 5g: qwen3-4b's attention in f32 at 1 x 4096
+    from repro_torch.configs import ARCHS
+    q3 = ARCHS["qwen3-4b"].config()
+    q = rand((1, q3.num_heads, LM_SEQ, q3.head_dim), torch.float32)
+    k = rand((1, q3.num_kv_heads, LM_SEQ, q3.head_dim), torch.float32)
+    v = rand((1, q3.num_kv_heads, LM_SEQ, q3.head_dim), torch.float32)
+    out = kfa.flash_attention(q, k, v)
+    want = ref.attention(q, k, v)
+    excess = flash_bar_excess(out, want, ref.attention(q, k, v.abs()),
+                              "float32")
+    err = (out - want).abs().max().item()
+    del want
+    ms = time_ms(torch, lambda: kfa.flash_attention(q, k, v), reps=3,
+                 warm=1)
+    plain = time_ms(torch, lambda: ref.attention(q, k, v), reps=3, warm=1)
+    lib = sdpa_f32_ms(torch, F, q, k, v)
+    ops = 4.0 * q3.head_dim * attn_pairs(LM_SEQ, LM_SEQ) * q3.num_heads
+    bnd, by = bound_ms(peaks, nbytes(q, k, v, out), ops)
+    emit({"phase": "kernel", "kernel": "flash_attention_generic",
+          "shape": f"qwen3-4b 1 x {LM_SEQ}, float32", "q": list(q.shape),
+          "k": list(k.shape), "causal": True, "max_abs_err": err,
+          "err_over_bar": excess, "tol": F32_FLASH_RULE, "ms": ms,
+          "plain_ms": plain, "library_ms": lib,
+          "library": "sdpa f32 (memory-efficient, K/V expanded)",
+          "bound_ms": bnd, "bound_by": by, "bound_rate": "fp32 CUDA cores",
+          "flop": ops})
+    require(excess <= 1.0, f"generic flash qwen3-4b f32: {excess} x bar")
+    table.add("flash_attention_generic", err=err, ms=ms, plain_ms=plain,
+              bound=bnd, bound_by=by, library_ms=lib)
+    del q, k, v, out
+    torch.cuda.empty_cache()
+
+    # the SSD sweep: four pairs x two dtypes, B/C per head and broadcast
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        rtol = 2 ** -7 if dtype == torch.bfloat16 else SSD_TOL
+        err, ok = 0.0, True
+        for ds, dh in GENERIC_SSD_DIMS:
+            require(kssd.route(ds, dh) == "generic", f"ssd route {ds, dh}")
+            x = rand((5, 150, dh), dtype, 0.5)
+            la = -F.softplus(torch.randn((5, 150), generator=gen,
+                                         device=dev))
+            b, c = rand((5, 150, ds), dtype, 0.3), rand((5, 150, ds), dtype,
+                                                        0.3)
+            for bb, cc in ((b, c), (b[:1].expand(5, 150, ds),
+                                    c[:1].expand(5, 150, ds))):
+                out = kssd.ssd_scan(x, la, bb, cc)
+                want = ref.ssd_scan(x, la, bb, cc)[0]
+                err = max(err, (out.float() - want.float()).abs().max()
+                          .item())
+                ok = ok and torch.allclose(out.float(), want.float(),
+                                           rtol=rtol, atol=SSD_TOL)
+        emit({"phase": "kernels_generic", "kernel": "ssd_scan",
+              "route": "generic", "dtype": name,
+              "dims": [list(p) for p in GENERIC_SSD_DIMS], "bh": 5, "t": 150,
+              "b_c": "per head and one row over the heads", "max_abs_err": err,
+              "tol": f"{SSD_TOL} + {rtol} |y|"})
+        require(ok, f"generic ssd {name}: max abs err {err}")
+
+    # row 6g: mamba2-780m's inner width (3,072) in 24 heads of 128, ds 128
+    x, la, b, c = ssd_inputs(torch, F, LM_SEQ, gen, dev, bh=24, ds=128,
+                             dh=128)
+    args = (x.float(), la, b[:1].float().expand(b.shape),
+            c[:1].float().expand(c.shape))
+    out = kssd.ssd_scan(*args)
+    want = ref.ssd_scan(*args)[0]
+    err = (out - want).abs().max().item()
+    ok = torch.allclose(out, want, rtol=SSD_TOL, atol=SSD_TOL)
+    del want
+    ms = time_ms(torch, lambda: kssd.ssd_scan(*args), reps=5, warm=1)
+    plain = time_ms(torch, lambda: ref.ssd_scan(*args), reps=1, warm=0)
+    bh, t, dh = args[0].shape
+    ops = ssd_flop(bh, t, 128, dh)
+    bnd, by = bound_ms(peaks, nbytes(args[0], args[1], args[2][:1],
+                                     args[3][:1], out), ops)
+    emit({"phase": "kernel", "kernel": "ssd_scan_generic",
+          "shape": f"24 heads x {LM_SEQ}, ds 128, dh 128, float32",
+          "x": list(args[0].shape), "b_c": "one row over the heads "
+          "(stride 0)", "max_abs_err": err, "tol": SSD_TOL, "ms": ms,
+          "plain_ms": plain, "library_ms": None, "bound_ms": bnd,
+          "bound_by": by, "bound_rate": "fp32 CUDA cores", "flop": ops})
+    require(ok, f"generic ssd 24 x 4096 (128, 128): max abs err {err}")
+    table.add("ssd_scan_generic", err=err, ms=ms, plain_ms=plain, bound=bnd,
+              bound_by=by, library_ms=None)
+    del args, out
+
+    # the generic kernel beside the tensor-core passes at mamba2-780m's
+    # own shape (48 heads x 4096, ds 128, dh 64, bf16): same inputs
+    m2 = ARCHS["mamba2-780m"].config()
+    args = ssd_inputs(torch, F, LM_SEQ, gen, dev, bh=m2.ssm_heads,
+                      ds=m2.ssm_state, dh=m2.ssm_head_dim)
+    tc = kssd.ssd_scan(*args)
+    gn = kssd.generic(*args)
+    diff = (tc.float() - gn.float()).abs().max().item()
+    emit({"phase": "kernels_generic", "kernel": "ssd_scan",
+          "check": "generic vs tensor cores, same bf16 inputs",
+          "shape": f"mamba2-780m 48 heads x {LM_SEQ}", "max_abs_diff": diff,
+          "tol": f"{SSD_TOL} + 2^-7 |y|",
+          "tensor_cores_ms": time_ms(torch, lambda: kssd.ssd_scan(*args),
+                                     reps=5, warm=1),
+          "generic_ms": time_ms(torch, lambda: kssd.generic(*args), reps=5,
+                                warm=1)})
+    require(torch.allclose(gn.float(), tc.float(), rtol=2 ** -7,
+                           atol=SSD_TOL),
+            f"generic vs tensor-core ssd: max abs diff {diff}")
+    del args, tc, gn
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------ phase lm_parity_f32 --
+F32_PARITY_TOL = 1e-4   # tests/test_torch_lm_prefill.py F32_TOL
+F32_PARITY_SEQ = 128    # four SSD chunks of the smoke configs' 32
+
+
+def f32_parity_configs():
+    """The f32 smoke configs: qwen3-4b (the generic flash kernel at head
+    dim 16), mamba2-780m ((ds, dh) = (16, 16): the tensor-core SSD), and
+    mamba2-780m's smoke at (ds, dh) = (64, 32), a pair the tensor-core
+    passes are not built for (the generic SSD)."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    out = []
+    for arch in ("qwen3-4b", "mamba2-780m"):
+        out.append((f"{arch} smoke",
+                    dataclasses.replace(ARCHS[arch].smoke_config(),
+                                        dtype="float32")))
+    out.append(("mamba2-780m smoke (ds, dh) = (64, 32)", dataclasses.replace(
+        ARCHS["mamba2-780m"].smoke_config(), dtype="float32", ssm_state=64,
+        ssm_head_dim=32)))
+    return out
+
+
+def phase_lm_parity_f32(torch, paths):
+    """The f32 smoke prefills on the card against the CPU, the same params
+    and tokens, within ``F32_PARITY_TOL`` (rtol and atol) of the logits:
+    JAX's decode-vs-forward check runs these configs in f32."""
+    import numpy as np
+
+    from repro_torch.core import basecaller as bc
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    dev = torch.device("cuda")
+
+    def run():
+        lines = []
+        for label, cfg in f32_parity_configs():
+            params, _ = transformer.init(torch.Generator().manual_seed(0),
+                                         cfg, device="cpu")
+            tok = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                    (2, F32_PARITY_SEQ))
+            want = steps.prefill(params, tok, cfg, device="cpu")
+            got = steps.prefill(bc.params_to(params, dev), tok, cfg,
+                                device=dev).cpu()
+            ok = bool(torch.allclose(got, want, rtol=F32_PARITY_TOL,
+                                     atol=F32_PARITY_TOL))
+            lines.append({"phase": "lm_parity_f32", "config": label,
+                          "dtype": str(got.dtype), "batch": 2,
+                          "seq": F32_PARITY_SEQ,
+                          "max_abs_diff": (got - want).abs().max().item(),
+                          "max_abs_logit": want.abs().max().item(),
+                          "tol": f"rtol = atol = {F32_PARITY_TOL}",
+                          "equal_within_tol": ok})
+        return lines
+    lines = paths.drive("lm_parity_f32", ("flash_attention_generic",
+                                          "matmul", "ssd_scan",
+                                          "ssd_scan_generic"), run)
+    for line in lines:
+        emit(line)
+        require(line["equal_within_tol"], f"f32 {line['config']} prefill: "
+                f"card vs CPU {line['max_abs_diff']} over {F32_PARITY_TOL}")
+
+
+# -------------------------------------------------------------- phase train --
+TRAIN_STEPS = 220       # tests/test_system.py's fixture
+TRAIN_SEQ = 30
+QAT_STEPS = 120         # the goldens compare card with CPU on the same
+                        # params: the QAT run needs no accuracy bar
+GRAD_RULE = ("loss within 1e-5 relative, every gradient within 1e-4 of its "
+             "largest entry: the card's kernels sum in another order")
+
+
+def read_accuracy(torch, cfg, params, rng, n=16, seq_len=TRAIN_SEQ):
+    """tests/test_system.py::read_accuracy on the port: ``n`` reads of
+    ``seq_len`` bases on DEMO_PORE, basecalled on the params' device,
+    greedy-decoded, scored by edit distance."""
+    import numpy as np
+
+    from repro_torch.core import basecaller as bc
+    from repro_torch.core import ctc
+    from repro_torch.data import nanopore
+    from repro_torch.kernels import ref
+    from repro_torch.train.micro_basecaller import DEMO_PORE
+    dev = params["conv1"]["w"].device
+    correct = total = 0
+    for _ in range(n):
+        seq = rng.integers(1, 5, seq_len).astype(np.int32)
+        sig, _ = nanopore.simulate_read(rng, seq, DEMO_PORE)
+        sig = nanopore.normalize(sig)
+        with torch.no_grad():
+            logits = bc.apply(params, torch.as_tensor(sig[None]).to(dev), cfg)
+        toks, lens = ctc.greedy_decode(logits.cpu())
+        called = toks[0][:int(lens[0])].numpy()
+        padded = np.pad(called, (0, max(seq_len - len(called), 0)))
+        d = int(ref.edit_distance(torch.as_tensor(padded[None, :seq_len]),
+                                  torch.as_tensor(seq[None]))[0])
+        correct += seq_len - min(d, seq_len)
+        total += seq_len
+    return correct / total
+
+
+def qat_engine(cfg, qparams, device):
+    """An ``edge_int8`` flowcell on the QAT micro basecaller: 16 channels
+    x chunk 256 of pore-encoded reads on DEMO_PORE, depth 2, fused."""
+    import numpy as np
+
+    import repro_torch.engine as te
+    from repro_torch.core import basecaller as bc
+    from repro_torch.data import genome as G
+    from repro_torch.train.micro_basecaller import DEMO_PORE
+    ref_genome = G.random_genome(np.random.default_rng(7), 6_000)
+    return te.build(
+        "adaptive_sampling", "edge_int8", cfg=cfg,
+        params=bc.params_to(qparams, device), reference=ref_genome,
+        targets=[(0, 3_000)], channels=16, chunk=256, pipeline_depth=2,
+        flowcell={"encoder": "pore", "n_reads": 48, "read_len": (150, 300),
+                  "pm": DEMO_PORE, "seed": 3}, device=device)
+
+
+def phase_train(torch, paths):
+    """Training the paper's micro basecaller on the card: one step against
+    the CPU (loss and gradients by GRAD_RULE, the forward on the hand
+    conv1d kernels: DEMO_CFG's three layers are convolutions, with no k=1
+    head for matmul), JAX's learns bar after 220 steps, a QAT run
+    quantized and served as ``edge_int8`` with goldens equal to the CPU's
+    bit for bit, and a checkpoint round trip."""
+    import numpy as np
+
+    from repro_torch.core import basecaller as bc
+    from repro_torch.data import nanopore
+    from repro_torch.engine.base import quantize_edge_params
+    from repro_torch.train import checkpoint
+    from repro_torch.train import micro_basecaller as mb
+    from repro_torch.train import optimizer as opt
+    from repro_torch.utils.tree import leaves
+    dev = torch.device("cuda")
+    cfg = mb.DEMO_CFG
+    params = bc.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    batch = nanopore.make_ctc_batch(np.random.default_rng(0), batch=8,
+                                    seq_len=TRAIN_SEQ, pm=mb.DEMO_PORE)
+    ocfg = opt.OptimizerConfig(lr=3e-3, warmup_steps=20,
+                               total_steps=TRAIN_STEPS, weight_decay=0.0)
+
+    # 1. one step, card against CPU, float and QAT
+    for qat in (False, True):
+        want_l, want_g = mb.loss_and_grads(params, mb.batch_to(batch, "cpu"),
+                                           cfg, qat=qat)
+
+        def step():
+            card = bc.params_to(params, dev)
+            loss, grads = mb.loss_and_grads(card, mb.batch_to(batch, dev),
+                                            cfg, qat=qat)
+            new, state, _ = mb.train_step(card, opt.init_opt_state(card, ocfg),
+                                          mb.batch_to(batch, dev), cfg=cfg,
+                                          ocfg=ocfg, qat=qat)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                new, state, _ = mb.train_step(new, state,
+                                              mb.batch_to(batch, dev),
+                                              cfg=cfg, ocfg=ocfg, qat=qat)
+            torch.cuda.synchronize()
+            return loss, grads, (time.perf_counter() - t0) * 1e2
+        got_l, got_g, step_ms = paths.drive(
+            f"train_step qat={qat}", ("conv1d",), step)
+        worst = 0.0
+        for layer in want_g:
+            for k in want_g[layer]:
+                w = want_g[layer][k]
+                g = got_g[layer][k].cpu()
+                worst = max(worst, ((g - w).abs().max()
+                                    / (w.abs().max() + 1e-30)).item())
+        rel = abs(float(got_l) - float(want_l)) / abs(float(want_l))
+        emit({"phase": "train", "part": "step_vs_cpu", "qat": qat,
+              "loss_card": float(got_l), "loss_cpu": float(want_l),
+              "loss_rel_diff": rel, "grad_max_diff_over_max": worst,
+              "tol": GRAD_RULE, "step_ms": step_ms,
+              "launches": paths.paths[f"train_step qat={qat}"]})
+        require(rel <= 1e-5 and worst <= 1e-4,
+                f"train step qat={qat}: loss {rel}, gradients {worst}")
+
+    # 2. JAX's learns bar, trained on the card
+    losses = []
+
+    def learn():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = mb.train_micro_basecaller(
+            TRAIN_STEPS, seq_len=TRAIN_SEQ, device=dev,
+            log=lambda i, v: losses.append(v), log_every=1)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+    (tcfg, trained), wall = paths.drive("train_micro_basecaller",
+                                        ("conv1d",), learn)
+    acc = read_accuracy(torch, tcfg, trained, np.random.default_rng(77))
+    emit({"phase": "train", "part": "learns", "steps": TRAIN_STEPS,
+          "seq_len": TRAIN_SEQ, "batch": 8, "wall_s": wall,
+          "ms_per_step": wall / TRAIN_STEPS * 1e3, "first_loss": losses[0],
+          "last_loss": losses[-1], "accuracy": acc,
+          "bar": "last loss < first / 2, accuracy > 0.55 "
+                 "(tests/test_system.py)"})
+    require(losses[-1] < 0.5 * losses[0],
+            f"micro basecaller: loss {losses[0]} -> {losses[-1]}")
+    require(acc > 0.55, f"micro basecaller accuracy {acc}")
+
+    # 3. QAT on the card, quantized once, served as edge_int8 on both
+    qat_losses = []
+    qcfg, qat_params = paths.drive(
+        "train_micro_basecaller qat", ("conv1d",),
+        lambda: mb.train_micro_basecaller(
+            QAT_STEPS, qat=True, device=dev,
+            log=lambda i, v: qat_losses.append(v), log_every=1))
+    qparams = quantize_edge_params(bc.params_to(qat_params, "cpu"), qcfg,
+                                   chunk=512)
+    runs = {}
+    for name, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        def serve(device=device):
+            eng = qat_engine(qcfg, qparams, device)
+            eng.drain(max_steps=20_000)
+            return eng
+        eng = (paths.drive("qat edge_int8", ("fused_stream_int8",
+                                             "banded_align"), serve)
+               if name == "cuda" else serve())
+        runs[name] = golden(eng)
+    decisions = sorted({g[1] for g in runs["cpu"]})
+    emit({"phase": "train", "part": "qat_edge_int8",
+          "qat_first_loss": qat_losses[0], "qat_last_loss": qat_losses[-1],
+          "reads": len(runs["cpu"]), "decisions": decisions,
+          "goldens_equal_cpu": runs["cuda"] == runs["cpu"],
+          "act_scales": {k: float(v["w"].act_scale)
+                         for k, v in qparams.items()}})
+    require(len(runs["cpu"]) > 0 and runs["cuda"] == runs["cpu"],
+            "QAT edge_int8 goldens differ between card and CPU")
+
+    # 4. the trained params through a checkpoint, bit for bit
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    path = checkpoint.save(ckpt, trained, TRAIN_STEPS)
+    back, step = checkpoint.load_params(ckpt, device=dev)
+    same = all(torch.equal(a, b) for a, b in zip(leaves(trained),
+                                                  leaves(back)))
+    emit({"phase": "train", "part": "checkpoint", "path": os.path.relpath(
+        path, ROOT), "step": step, "leaves": len(leaves(trained)),
+          "bitwise": same})
+    require(step == TRAIN_STEPS and same, "checkpoint round trip differs")
+
+
+# ---------------------------------------------------------- phase serve_cli --
+SERVE_FIELD = {"n_devices": 2, "n_infected": 1, "host_len": 2000,
+               "pathogen_len": 1000, "n_reads": 10, "min_reads": 2,
+               "min_abundance": 0.01, "detect_window": 192,
+               "max_delay_ticks": 2, "dup_prob": 0.1, "seed": 3}
+SERVE_FLEET = {"tenants": [
+    {"name": "lab-fc", "workload": "adaptive_sampling",
+     "preset": "flowcell_smoke", "weight": 2},
+    {"name": "lab-bc", "workload": "basecall", "requests": 32},
+    {"name": "lab-pp", "workload": "pathogen_pipeline", "requests": 4}]}
+
+
+def phase_serve_cli():
+    """``python -m repro_torch.launch.serve`` in subprocesses on the card:
+    the three SoC workloads (one with --trace and --timeseries, both
+    through the port's validators), --fleet on a spec file and --field on
+    a small spec.  Each must exit 0; its wall is printed."""
+    from repro_torch.obs.export import validate_timeseries
+    from repro_torch.obs.trace import validate_chrome_trace
+    out_dir = os.path.join(ROOT, "build", "serve_cli")
+    os.makedirs(out_dir, exist_ok=True)
+    fleet_spec = os.path.join(out_dir, "fleet.json")
+    field_spec = os.path.join(out_dir, "field.json")
+    with open(fleet_spec, "w") as f:
+        json.dump(SERVE_FLEET, f)
+    with open(field_spec, "w") as f:
+        json.dump(SERVE_FIELD, f)
+    trace = os.path.join(out_dir, "trace.json")
+    ts = os.path.join(out_dir, "ts.jsonl")
+    runs = {
+        "basecall": ["--workload", "basecall", "--requests", "32"],
+        "adaptive_sampling": ["--workload", "adaptive_sampling",
+                              "--requests", "16", "--trace", trace,
+                              "--timeseries", ts, "--interval", "0.05"],
+        "pathogen_pipeline": ["--workload", "pathogen_pipeline",
+                              "--requests", "4"],
+        "fleet": ["--fleet", fleet_spec],
+        "field": ["--field", field_spec],
+    }
+    env = dict(os.environ, PYTHONPATH=SRC)
+    for name, argv in runs.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", *argv,
+             "--json"], cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=300)
+        wall = time.perf_counter() - t0
+        out = proc.stdout
+        report = json.loads(out[out.index("{"):]) if "{" in out else {}
+        line = {"phase": "serve_cli", "run": name, "argv": argv,
+                "rc": proc.returncode, "wall_s": wall}
+        if name == "fleet":
+            line["tenants"] = {k: v.get("completed") for k, v in
+                               report.get("tenants", {}).items()}
+        elif name == "field":
+            line.update(outbreak=report.get("outbreak"),
+                        conservation=report.get("conservation"))
+        else:
+            line.update({k: report.get(k) for k in (
+                "completed", "dispatches", "p50_ms", "p99_ms",
+                "bases_per_s")})
+        emit(line)
+        require(proc.returncode == 0, f"serve {name} exited "
+                f"{proc.returncode}: {proc.stderr[-2000:]}")
+        if name == "field":
+            require(report["outbreak"]["detected"]
+                    and report["conservation"]["per_device_exact"],
+                    f"serve --field: {report['outbreak']}")
+        elif name == "fleet":
+            require(all(v for v in line["tenants"].values()),
+                    f"serve --fleet: {line['tenants']}")
+        else:
+            require(report.get("completed", 0) > 0,
+                    f"serve {name}: nothing completed")
+    with open(trace) as f:
+        errors = validate_chrome_trace(json.load(f))
+    ts_errors = validate_timeseries(ts)
+    emit({"phase": "serve_cli", "run": "validate", "trace_errors": errors,
+          "timeseries_errors": ts_errors})
+    require(not errors and not ts_errors,
+            f"serve trace/timeseries invalid: {errors[:3]} {ts_errors[:3]}")
+
+
 # ------------------------------------------------------------------ main --
 KERNELS = {
     "conv1d": ("src/repro_torch/kernels/csrc/conv1d.cu",
@@ -2948,6 +3518,12 @@ KERNELS = {
                  "src/repro/kernels/ssd_scan.py:88"),
     "matmul_bf16": ("src/repro_torch/kernels/csrc/matmul.cu",
                     "src/repro/kernels/matmul.py:120"),
+    # the generic routes (any dtype and head dim; any (ds, dh))
+    "flash_attention_generic": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:111"),
+    "ssd_scan_generic": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                         "src/repro/kernels/ssd_scan.py:88"),
 }
 
 
@@ -2967,6 +3543,9 @@ def launch_counters():
             "flash_attention": (flash_attention.flash_attention, "launches"),
             "ssd_scan": (ssd_scan.ssd_scan, "launches"),
             "matmul_bf16": (matmul.matmul_bf16, "launches"),
+            "flash_attention_generic": (flash_attention.flash_attention,
+                                        "generic_launches"),
+            "ssd_scan_generic": (ssd_scan.ssd_scan, "generic_launches"),
             # the launches of matmul_bf16 that ran its wgmma kernel, of
             # conv1d and conv1d_int8 their tensor-core kernels, of matmul and
             # matmul_int8 their
@@ -3065,6 +3644,7 @@ def main() -> int:
     known = known_reads(panel)
     firehose = phase_kernels_genomics(torch, F, peaks, table, panel, known)
     long_lm = phase_kernels_lm(torch, F, peaks, table)
+    phase_kernels_generic(torch, F, peaks, table)
     phase_step_goldens()
     scfg, sparams = quantize_step_codec()
     phase_step_goldens("int8", scfg, sparams)
@@ -3101,15 +3681,23 @@ def main() -> int:
                                       "basecall edge_int8")})
     phase_pathogen(torch, cfg, panel, known, paths)
     phase_lm_prefill(torch, paths)
+    phase_lm_parity_f32(torch, paths)
     phase_fleet(torch, panel, paths)
     phase_field(torch, paths)
+    phase_train(torch, paths)
+    phase_serve_cli()
 
     kernels = []
     for k, (src, replaces) in KERNELS.items():
         r = table.rows[k]
+        launches = paths.total[k]
+        if k in ("flash_attention", "ssd_scan"):
+            # the wrapper counts both its kernels: the generic one has its
+            # own row
+            launches -= paths.total[f"{k}_generic"]
         kernels.append({
             "name": k, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": paths.total[k], "max_abs_err": r["max_abs_err"],
+            "launches": launches, "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
@@ -3122,6 +3710,9 @@ def main() -> int:
             kernels[-1]["bound_fp32_ms"] = r["bound_fp32_ms"]
         if k == "matmul":
             kernels[-1]["skinny_launches"] = paths.total["matmul_skinny"]
+        if k.endswith("_generic"):
+            kernels[-1].update(generic_launches=launches,
+                               bound_rate="fp32 CUDA cores")
         if k == "matmul_int8":
             kernels[-1].update(
                 skinny_launches=paths.total["matmul_int8_skinny"],

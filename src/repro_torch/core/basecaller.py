@@ -268,3 +268,19 @@ def output_len(cfg: BasecallerConfig, t: int) -> int:
     for s in cfg.strides:
         t = -(-t // s)
     return t
+
+
+def stream_state_spec(cfg: BasecallerConfig = BasecallerConfig()):
+    """Per-layer ``(carry_rows, in_channels)`` of the streaming state."""
+    cins = (cfg.in_channels,) + cfg.channels[:-1]
+    return [(stream_carry_len(k, s), cin)
+            for k, s, cin in zip(cfg.kernels, cfg.strides, cins)]
+
+
+def weight_concentration(params) -> float:
+    """Fraction of the parameters in the two largest layers (the paper:
+    ~80%)."""
+    from repro_torch.utils.tree import tree_count
+    sizes = sorted((tree_count(layer) for layer in params.values()),
+                   reverse=True)
+    return sum(sizes[:2]) / sum(sizes)

@@ -203,3 +203,17 @@ def apply(params, windows: torch.Tensor, cfg: CallerConfig = CallerConfig()):
     gt = h @ params["head_gt"]["w"] + params["head_gt"]["b"]
     alt = h @ params["head_alt"]["w"] + params["head_alt"]["b"]
     return gt, alt
+
+
+def loss_fn(params, windows, gt_labels, alt_labels,
+            cfg: CallerConfig = CallerConfig()) -> torch.Tensor:
+    """Genotype cross-entropy plus the alt-base cross-entropy on the sites
+    that are not hom-ref (``repro/core/variant_caller.py::loss_fn``)."""
+    gt, alt = apply(params, windows, cfg)
+    gt_labels = torch.as_tensor(gt_labels, device=gt.device).long()
+    alt_labels = torch.as_tensor(alt_labels, device=gt.device).long()
+    gt_l = -torch.log_softmax(gt, dim=-1).gather(1, gt_labels[:, None]).mean()
+    mask = (gt_labels > 0).float()
+    alt_ll = torch.log_softmax(alt, dim=-1).gather(1, alt_labels[:, None])[:, 0]
+    alt_l = -(alt_ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return gt_l + alt_l

@@ -139,6 +139,24 @@ def check_tensor(what: str, t, dtype, shape=None, device=None) -> None:
                          f"{tuple(shape)}")
 
 
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise where autograd is on and an operand requires grad: the kernel
+    writes through a raw pointer, so its output would carry no
+    ``grad_fn`` and a training step would drop the gradient without a
+    word.  JAX has no backward kernel either (no ``custom_vjp`` in its
+    package); only the fp32 ``conv1d`` and ``matmul`` carry a gradient on
+    the card, that of their plain versions.  Called before any other
+    check, so nothing launches."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: an operand requires grad, but this kernel has no "
+            "backward on the card; call it under torch.no_grad() or detach "
+            "the operands (fp32 conv1d and matmul carry the plain "
+            "version's gradient)")
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded kernel library for ``csrc/<name>.cu`` (built if needed)."""
     with _LOCK:

@@ -38,9 +38,13 @@
 // the q heads that share a KV head in L2; y = tiles reversed, at most
 // 65,535 a launch, so a longer Sq takes more launches), and the causal
 // diagonal's short blocks fill the last wave.
+//
+// flash_attention_generic_kernel, below, takes every other case: f32, bf16
+// or f16 q/k/v and any head dim (see its note).
 #include <cstdint>
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -328,6 +332,214 @@ extern "C" int launch_flash_attention(const void* q, const void* k,
       return launch_d<64>(q, k, v, out, b, hq, hkv, sq, skv, scale, causal, s);
     case 128:
       return launch_d<128>(q, k, v, out, b, hq, hkv, sq, skv, scale, causal, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// ---- the generic kernel: any element type, any head dim --------------------
+//
+// The same function (f32 logits times scale, the causal mask aligned to the
+// last token, GQA, ragged Sq and Skv), for f32, bf16 or f16 q/k/v and any
+// head dim D >= 1 whose rows fit shared memory; the route the wgmma kernel
+// does not take (kernels/flash_attention.py route()).  Everything is f32 on
+// the CUDA cores: the online softmax keeps m, l and the output row in f32,
+// P is never rounded, and the output is rounded once to the element type
+// after the division by l.  JAX's kernel is the same arithmetic in f32
+// (preferred_element_type, repro/kernels/flash_attention.py:29-73).
+//
+// A block takes `rows` query rows of one head, a warp each, and walks the
+// keys in tiles of 32, one key a lane: lane j sums q . k_j over the columns,
+// the warp takes the tile's max and sum by shuffles, then each lane owns
+// the output columns lane, lane + 32, ... and adds sum_j p_j v_j.  K and V
+// tiles are staged in shared memory 64 columns at a time (K rows padded to
+// 65 floats, so lane j's reads of row j hit 32 banks) and serve all the
+// block's rows; each row's q and output accumulator live in shared memory,
+// so D is not bounded by registers.  Bound on this card: operations, 4 D
+// FLOP a kept (row, key) pair at the fp32 rate; this kernel is the simple,
+// right one (the f32 smoke LMs and odd head dims), not yet a fast one.
+constexpr int FG_KEYS = 32;   // keys a tile: one a lane
+constexpr int FG_COLS = 64;   // columns of K and V staged at once
+
+__device__ __forceinline__ float fg_load(const float* p) { return *p; }
+__device__ __forceinline__ float fg_load(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ float fg_load(const __half* p) {
+  return __half2float(*p);
+}
+__device__ __forceinline__ void fg_store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void fg_store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void fg_store(__half* p, float v) {
+  *p = __float2half_rn(v);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+flash_attention_generic_kernel(const T* __restrict__ q,
+                               const T* __restrict__ k,
+                               const T* __restrict__ v, T* __restrict__ out,
+                               int hq, int hkv, int sq, int skv, int d,
+                               float scale, int causal, int rows,
+                               long long block0, int tiles) {
+  extern __shared__ float fg_smem[];
+  float* ks = fg_smem;                      // [FG_KEYS][FG_COLS + 1]
+  float* vs = ks + FG_KEYS * (FG_COLS + 1);  // [FG_KEYS][FG_COLS]
+  float* qs = vs + FG_KEYS * FG_COLS;        // [rows][d]
+  float* os = qs + rows * d;                 // [rows][d]
+  float* ps = os + rows * d;                 // [rows][FG_KEYS]
+
+  const long long blk = block0 + blockIdx.x;
+  const int bh = static_cast<int>(blk / tiles);
+  const int r0 = static_cast<int>(blk % tiles) * rows;
+  const int kvh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
+  const int offs = skv - sq;
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r = r0 + w;
+  const bool active = w < rows && r < sq;
+  const int nthreads = blockDim.x;
+
+  const T* qh = q + static_cast<size_t>(bh) * sq * d;
+  const T* kh = k + static_cast<size_t>(kvh) * skv * d;
+  const T* vh = v + static_cast<size_t>(kvh) * skv * d;
+  for (int i = threadIdx.x; i < rows * d; i += nthreads) {
+    const int row = r0 + i / d;
+    qs[i] = row < sq ? fg_load(qh + static_cast<size_t>(row) * d + i % d) : 0.f;
+    os[i] = 0.f;
+  }
+  // keys past the block's last row's diagonal are masked for every row
+  int kend = skv;
+  if (causal) kend = min(skv, min(r0 + rows, sq) - 1 + offs + 1);
+  float m = -INFINITY, l = 0.f;
+  float* qw = qs + w * d;
+  float* ow = os + w * d;
+  float* pw = ps + w * FG_KEYS;
+  __syncthreads();
+
+  for (int kt = 0; kt < kend; kt += FG_KEYS) {
+    const int nk = min(FG_KEYS, kend - kt);
+    float s = 0.f;
+    for (int c0 = 0; c0 < d; c0 += FG_COLS) {
+      const int nc = min(FG_COLS, d - c0);
+      for (int i = threadIdx.x; i < FG_KEYS * FG_COLS; i += nthreads) {
+        const int j = i / FG_COLS, c = i % FG_COLS;
+        ks[j * (FG_COLS + 1) + c] =
+            j < nk && c < nc
+                ? fg_load(kh + static_cast<size_t>(kt + j) * d + c0 + c)
+                : 0.f;
+      }
+      __syncthreads();
+      if (active) {
+        const float* kr = ks + lane * (FG_COLS + 1);
+        for (int c = 0; c < nc; ++c) s = fmaf(qw[c0 + c], kr[c], s);
+      }
+      __syncthreads();
+    }
+    float alpha = 1.f;
+    if (active) {
+      const int key = kt + lane;
+      const bool ok = lane < nk && (!causal || key <= r + offs);
+      const float sc = ok ? s * scale : -INFINITY;
+      float mx = sc;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(m, mx);  // finite: key 0 is in every row's
+                                          // first tile
+      alpha = expf(m - m_new);
+      const float p = ok ? expf(sc - m_new) : 0.f;
+      float ps_sum = p;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        ps_sum += __shfl_xor_sync(0xffffffffu, ps_sum, o);
+      l = l * alpha + ps_sum;
+      m = m_new;
+      pw[lane] = p;
+      __syncwarp();
+    }
+    for (int c0 = 0; c0 < d; c0 += FG_COLS) {
+      const int nc = min(FG_COLS, d - c0);
+      for (int i = threadIdx.x; i < FG_KEYS * FG_COLS; i += nthreads) {
+        const int j = i / FG_COLS, c = i % FG_COLS;
+        vs[i] = j < nk && c < nc
+                    ? fg_load(vh + static_cast<size_t>(kt + j) * d + c0 + c)
+                    : 0.f;
+      }
+      __syncthreads();
+      if (active) {
+        for (int c = lane; c < nc; c += 32) {
+          float acc = ow[c0 + c] * alpha;
+          for (int j = 0; j < nk; ++j) acc = fmaf(pw[j], vs[j * FG_COLS + c], acc);
+          ow[c0 + c] = acc;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  if (active) {
+    T* orow = out + (static_cast<size_t>(bh) * sq + r) * d;
+    for (int c = lane; c < d; c += 32) fg_store(orow + c, ow[c] / l);
+  }
+}
+
+// Shared memory of the generic kernel for `rows` rows of head dim d
+// (kernels/flash_attention.py generic_smem_bytes).
+static size_t fg_smem_bytes(int rows, int d) {
+  return sizeof(float) * (static_cast<size_t>(FG_KEYS) * (FG_COLS + 1) +
+                          FG_KEYS * FG_COLS +
+                          static_cast<size_t>(rows) * (2 * d + FG_KEYS));
+}
+
+template <typename T>
+static int launch_generic(const void* q, const void* k, const void* v,
+                          void* out, int b, int hq, int hkv, int sq, int skv,
+                          int d, float scale, int causal, int rows,
+                          cudaStream_t stream) {
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t err =
+        allow_smem(flash_attention_generic_kernel<T>, SMEM_BYTES);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = true;
+  }
+  const size_t smem = fg_smem_bytes(rows, d);
+  if (smem > static_cast<size_t>(SMEM_BYTES))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = (sq + rows - 1) / rows;
+  const long long total = static_cast<long long>(b) * hq * tiles;
+  for (long long b0 = 0; b0 < total; b0 += 0x7fffffffLL) {
+    const long long n = total - b0 < 0x7fffffffLL ? total - b0 : 0x7fffffffLL;
+    flash_attention_generic_kernel<T>
+        <<<static_cast<unsigned>(n), rows * 32, smem, stream>>>(
+            static_cast<const T*>(q), static_cast<const T*>(k),
+            static_cast<const T*>(v), static_cast<T*>(out), hq, hkv, sq, skv,
+            d, scale, causal, rows, b0, tiles);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
+// dtype: 0 f32, 1 bf16, 2 f16; rows: query rows a block (1..8, a warp each)
+extern "C" int launch_flash_attention_generic(
+    const void* q, const void* k, const void* v, void* out, int b, int hq,
+    int hkv, int sq, int skv, int d, float scale, int causal, int dtype,
+    int rows, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows < 1 || rows > 8 || d < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (dtype) {
+    case 0:
+      return launch_generic<float>(q, k, v, out, b, hq, hkv, sq, skv, d, scale,
+                                   causal, rows, s);
+    case 1:
+      return launch_generic<__nv_bfloat16>(q, k, v, out, b, hq, hkv, sq, skv,
+                                           d, scale, causal, rows, s);
+    case 2:
+      return launch_generic<__half>(q, k, v, out, b, hq, hkv, sq, skv, d,
+                                    scale, causal, rows, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -13,7 +13,8 @@
 // x (BH, T, dh), b/c (BH, T, ds) in f32 or bf16 (b and c may broadcast over
 // heads: their head stride is an argument, 0 when one batch row's B/C serve
 // all its heads), log_a (BH, T) f32 <= 0; y (BH, T, dh) in x's type.
-// (ds, dh) in {(128, 64), (32, 16), (16, 16)}.
+// (ds, dh) in {(128, 64), (32, 16), (16, 16)}; every other pair runs
+// ssd_scan_generic_kernel (below, with its own note).
 //
 // Why not the TPU layout: the Pallas body keeps the whole (chunk, chunk)
 // decay matrix and the state on chip and walks the chunks of a head in
@@ -510,6 +511,143 @@ static cudaError_t launch_dims(int ds, int dh, const void* x, const void* la,
   if (ds == 16 && dh == 16)
     return launch_typed<T, 16, 16>(x, la, b, c, states, totals, y, bh, Tn, chunk, bstride, cstride, s);
   return cudaErrorInvalidValue;
+}
+
+// ---- the generic kernel: any (ds, dh) --------------------------------------
+//
+// The literal recurrence, S_t = exp(log_a_t) S_{t-1} + b_t^T x_t and
+// y_t = c_t S_t, in f32 on the CUDA cores, for the (ds, dh) pairs the
+// tensor-core passes above are not built for (kernels/ssd_scan.py route()).
+// A block owns one head's state columns n0 .. n0 + 31, (ds, 32) f32 in
+// shared memory, and walks t in order: thread (g, lane) updates state rows
+// g, g + 8, ... of column n0 + lane, which no other thread touches, so the
+// walk needs no barrier inside a window; its partial c_t . S_t over those
+// rows goes to shared memory, and the eight partials of each (t, column)
+// are summed once the window is done.  Windows of `steps` time steps
+// (x, b, c and exp(log_a) staged together) amortise the barriers.  Bound on
+// this card: operations, 4 ds dh FLOP a step at the fp32 rate, with BH x
+// ceil(dh / 32) blocks; this is the simple, right kernel, not a fast one.
+constexpr int SG_COLS = 32;      // state columns a block: one a lane
+constexpr int SG_GROUPS = 8;     // warps: state rows g, g + 8, ...
+
+__device__ __forceinline__ void sg_store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void sg_store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(SG_COLS * SG_GROUPS)
+ssd_scan_generic_kernel(const T* __restrict__ x, const float* __restrict__ la,
+                        const T* __restrict__ b, const T* __restrict__ c,
+                        T* __restrict__ y, int Tn, int ds, int dh, int steps,
+                        long long b_head_stride, long long c_head_stride,
+                        int col_tiles) {
+  extern __shared__ float sg_smem[];
+  float* st = sg_smem;                    // [ds][SG_COLS] state
+  float* xs = st + ds * SG_COLS;          // [steps][SG_COLS]
+  float* bs = xs + steps * SG_COLS;       // [steps][ds]
+  float* cs = bs + steps * ds;            // [steps][ds]
+  float* as = cs + steps * ds;            // [steps] exp(log_a)
+  float* part = as + steps;               // [SG_GROUPS][steps][SG_COLS]
+  const int h = static_cast<int>(blockIdx.x / col_tiles);
+  const int n0 = static_cast<int>(blockIdx.x % col_tiles) * SG_COLS;
+  const int g = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nthreads = SG_COLS * SG_GROUPS;
+  const T* xh = x + static_cast<size_t>(h) * Tn * dh;
+  const T* bh = b + static_cast<size_t>(h) * b_head_stride;
+  const T* ch = c + static_cast<size_t>(h) * c_head_stride;
+  const float* lah = la + static_cast<size_t>(h) * Tn;
+  T* yh = y + static_cast<size_t>(h) * Tn * dh;
+  for (int i = threadIdx.x; i < ds * SG_COLS; i += nthreads) st[i] = 0.f;
+
+  for (int t0 = 0; t0 < Tn; t0 += steps) {
+    const int n = min(steps, Tn - t0);
+    for (int i = threadIdx.x; i < n * SG_COLS; i += nthreads) {
+      const int col = n0 + i % SG_COLS;
+      xs[i] = col < dh ? to_f32(xh[static_cast<size_t>(t0 + i / SG_COLS) * dh + col])
+                       : 0.f;
+    }
+    for (int i = threadIdx.x; i < n * ds; i += nthreads) {
+      const size_t at = static_cast<size_t>(t0) * ds + i;
+      bs[i] = to_f32(bh[at]);
+      cs[i] = to_f32(ch[at]);
+    }
+    for (int i = threadIdx.x; i < n; i += nthreads) as[i] = expf(lah[t0 + i]);
+    __syncthreads();
+    for (int i = 0; i < n; ++i) {
+      const float a = as[i], xv = xs[i * SG_COLS + lane];
+      const float* bt = bs + i * ds;
+      const float* ct = cs + i * ds;
+      float acc = 0.f;
+      for (int r = g; r < ds; r += SG_GROUPS) {
+        const float sv = fmaf(a, st[r * SG_COLS + lane], bt[r] * xv);
+        st[r * SG_COLS + lane] = sv;
+        acc = fmaf(ct[r], sv, acc);
+      }
+      part[(g * steps + i) * SG_COLS + lane] = acc;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < n * SG_COLS; i += nthreads) {
+      const int col = n0 + i % SG_COLS;
+      float sum = 0.f;
+#pragma unroll
+      for (int gg = 0; gg < SG_GROUPS; ++gg) sum += part[gg * steps * SG_COLS + i];
+      if (col < dh)
+        sg_store(yh + static_cast<size_t>(t0 + i / SG_COLS) * dh + col, sum);
+    }
+    // the next window's staging writes none of what this sum reads, and its
+    // walk writes `part` only after the barrier that ends its staging
+  }
+}
+
+// Shared memory of the generic kernel (kernels/ssd_scan.py
+// generic_smem_bytes).
+static size_t sg_smem_bytes(int ds, int steps) {
+  return sizeof(float) *
+         (static_cast<size_t>(ds) * SG_COLS + static_cast<size_t>(steps) *
+          (SG_COLS + 2 * ds + 1 + SG_GROUPS * SG_COLS));
+}
+
+template <typename T>
+static cudaError_t launch_generic(const void* x, const void* la, const void* b,
+                                  const void* c, void* y, int bh, int Tn,
+                                  int ds, int dh, int steps, long long bstride,
+                                  long long cstride, cudaStream_t stream) {
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t err = allow_smem(ssd_scan_generic_kernel<T>, SMEM_BYTES);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  const size_t smem = sg_smem_bytes(ds, steps);
+  const int col_tiles = (dh + SG_COLS - 1) / SG_COLS;
+  const long long blocks = static_cast<long long>(bh) * col_tiles;
+  if (smem > static_cast<size_t>(SMEM_BYTES) || blocks > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  ssd_scan_generic_kernel<T>
+      <<<static_cast<unsigned>(blocks), SG_COLS * SG_GROUPS, smem, stream>>>(
+          static_cast<const T*>(x), static_cast<const float*>(la),
+          static_cast<const T*>(b), static_cast<const T*>(c),
+          static_cast<T*>(y), Tn, ds, dh, steps, bstride, cstride, col_tiles);
+  return cudaGetLastError();
+}
+
+// steps: time steps staged a window (kernels/ssd_scan.py generic_steps)
+extern "C" int launch_ssd_scan_generic(const void* x, const void* la,
+                                       const void* b, const void* c, void* y,
+                                       int bh, int Tn, int ds, int dh,
+                                       int steps, long long bstride,
+                                       long long cstride, int bf16,
+                                       void* stream) {
+  if (steps < 1 || ds < 1 || dh < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      bf16 ? launch_generic<__nv_bfloat16>(x, la, b, c, y, bh, Tn, ds, dh,
+                                           steps, bstride, cstride, s)
+           : launch_generic<float>(x, la, b, c, y, bh, Tn, ds, dh, steps,
+                                   bstride, cstride, s);
+  return static_cast<int>(err);
 }
 
 // states: (BH, n_chunks, ds, dh) f32 scratch; totals: (BH, n_chunks) f32

@@ -109,6 +109,7 @@ def banded_align(query: torch.Tensor, target: torch.Tensor, *, band: int,
     if query.device.type == "cpu":
         return ref.banded_align(query, target, band=band, match=match,
                                 mismatch=mismatch, gap=gap, local=local)
+    _build.refuse_grad("banded_align", query, target)
     if band < 0:
         raise ValueError(f"banded_align: band must be >= 0, got {band}")
     out, lay = _wavefront("banded_align", query, target, band=band,
@@ -135,6 +136,7 @@ def levenshtein(query: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     :func:`banded_align`'s)."""
     if query.device.type == "cpu":
         return ref.edit_distance(query, target)
+    _build.refuse_grad("levenshtein", query, target)
     band = max(query.shape[1], target.shape[1])
     score, lay = _wavefront("levenshtein", query, target, band=band,
                             match=0, mismatch=-1, gap=-1, local=False)

@@ -241,6 +241,9 @@ def fused_stream_cuda(rows, pads, reset, prev, bases, ticks, conv, params,
     """Launch the fused tick on the card.  Raises for a shape the kernel
     cannot take (more than 8 layers, or buffers over 227 KB) and for int8
     weights without a calibrated input scale."""
+    _build.refuse_grad("fused_stream", rows, pads, reset, *conv, *(
+        t for sp in _specs(cfg) for t in (params[sp.name]["w"],
+                                          params[sp.name]["b"])))
     specs = _specs(cfg)
     lanes, chunk = rows.shape
     n_frames = chunk // cfg.total_stride

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref
+from repro_torch.kernels.conv1d import plain_grads
 
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _INT8_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -55,9 +56,18 @@ def matmul(a: torch.Tensor, b: torch.Tensor, bias=None, *,
     launches a kernel or raises: the skinny-N kernel where :func:`skinny`
     holds (counted also in ``skinny_launches``), else the tiled one.  Both
     sum each output's K products in ascending order, so they give the same
-    bits."""
+    bits.  Where autograd is on and an operand requires grad, the launch
+    runs inside :class:`_MatmulGrad`, whose backward is the plain
+    version's gradient."""
     if a.device.type == "cpu":
         return ref.matmul(a, b, bias, activation=activation)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (a, b, bias)):
+        return _MatmulGrad.apply(a, b, bias, activation)
+    return _matmul_cuda(a, b, bias, activation)
+
+
+def _matmul_cuda(a, b, bias, activation):
     m, k = a.shape
     k2, n = b.shape
     if k != k2:
@@ -81,6 +91,27 @@ def matmul(a: torch.Tensor, b: torch.Tensor, bias=None, *,
     return out
 
 
+class _MatmulGrad(torch.autograd.Function):
+    """The fp32 matmul kernel's forward with the plain version's backward
+    (:func:`ref.matmul` re-run on the saved inputs): JAX has no backward
+    kernel either, and its gradient is its reference's.  The output is the
+    kernel's own tensor, so it carries this function's ``grad_fn``."""
+
+    @staticmethod
+    def forward(ctx, a, b, bias, activation):
+        ctx.save_for_backward(a, b, bias)
+        ctx.activation = activation
+        return _matmul_cuda(a, b, bias, activation)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        act = ctx.activation
+        grads = plain_grads(
+            lambda a, b, bias: ref.matmul(a, b, bias, activation=act),
+            ctx.saved_tensors, grad_out)
+        return (*grads, None)
+
+
 matmul.launches = 0
 matmul.skinny_launches = 0
 
@@ -95,6 +126,7 @@ def matmul_int8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     tiled one.  Integer sums: both give the plain version's bits."""
     if a.device.type == "cpu":
         return ref.matmul_int8(a, b)
+    _build.refuse_grad("matmul_int8", a, b)
     m, k = a.shape
     k2, n = b.shape
     if k != k2:
@@ -143,6 +175,7 @@ def matmul_bf16(a: torch.Tensor, b: torch.Tensor, bias=None, *,
     raises and never retries on the other."""
     if a.device.type == "cpu":
         return ref.matmul(a, b, bias, activation=activation)
+    _build.refuse_grad("matmul_bf16", a, b, bias)
     m, k = a.shape
     k2, n = b.shape
     if k != k2:

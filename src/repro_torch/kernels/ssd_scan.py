@@ -7,8 +7,11 @@ which zero-pads T to a multiple of the chunk and crops the result: the
 kernels read positions past T as zeros and do not write them.  The chunk
 only tiles the work (the scan's result is the same for every chunk, up to
 float32 rounding), so the kernels take ``min(chunk, T)`` rounded up to a
-multiple of their 64-row tile.  The source note in ``csrc/ssd_scan.cu``
-says what bounds them on an H100 and how the three passes answer that.
+multiple of their 64-row tile.  The (ds, dh) pairs in ``DIMS`` run the
+three tensor-core passes; every other pair runs the generic kernel, the
+recurrence in f32 on the CUDA cores (:func:`route`; counted also in
+``generic_launches``).  The source notes in ``csrc/ssd_scan.cu`` say what
+bounds them on an H100 and how each design answers that.
 """
 from __future__ import annotations
 
@@ -23,9 +26,39 @@ _ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
          + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
 TILE = 64
 MAX_CHUNK = 1024
-# (ds, dh) the kernels take: mamba2-780m's, and the smoke configs' and
-# the card tests' small ones
+_GENERIC_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                 + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
+# (ds, dh) the tensor-core passes are built for: mamba2-780m's, and the
+# smoke configs' and the card tests' small ones
 DIMS = ((128, 64), (32, 16), (16, 16))
+GENERIC_STEPS = 32      # time steps a generic window stages (at most)
+_SG_COLS, _SG_GROUPS = 32, 8    # csrc SG_COLS, SG_GROUPS
+
+
+def route(ds: int, dh: int) -> str:
+    """The kernels a CUDA call with this state and head width launches:
+    ``"tensor_cores"`` (the three passes) for a pair in ``DIMS``, else
+    ``"generic"``."""
+    return "tensor_cores" if (ds, dh) in DIMS else "generic"
+
+
+def generic_smem_bytes(ds: int, steps: int) -> int:
+    """Shared memory of a generic block (csrc ``sg_smem_bytes``): the
+    (ds, 32) f32 state, and for each of ``steps`` staged time steps x's 32
+    columns, b and c (ds each), exp(log_a) and the eight partial sums of
+    each column."""
+    return 4 * (ds * _SG_COLS + steps * (_SG_COLS + 2 * ds + 1
+                                         + _SG_GROUPS * _SG_COLS))
+
+
+def generic_steps(ds: int) -> int:
+    """Time steps a generic window stages at state width ``ds``: up to
+    ``GENERIC_STEPS``, fewer where they would not fit shared memory; 0
+    where the state alone leaves no room (ds past ~1,700)."""
+    steps = GENERIC_STEPS
+    while steps and generic_smem_bytes(ds, steps) > _build.SMEM_LIMIT:
+        steps -= 1
+    return steps
 
 
 def kernel_chunk(chunk: int, t: int) -> int:
@@ -61,22 +94,16 @@ def ssd_scan(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
 
     A CPU tensor runs the plain version (the recurrence,
     :func:`ref.ssd_scan`); a CUDA tensor launches the kernels (x, b, c in
-    float32 or bf16, log_a float32; (ds, dh) in ``DIMS``) or raises."""
+    float32 or bf16, log_a float32) or raises: the three tensor-core
+    passes for (ds, dh) in ``DIMS``, the generic kernel for any other pair
+    (:func:`route`)."""
     if x.device.type == "cpu":
         return ref.ssd_scan(x, log_a, b, c)[0]
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"ssd_scan x: float32 or bfloat16, got {x.dtype}")
-    _build.check_tensor("ssd_scan x", x, x.dtype)
+    bstride, cstride = _check(x, log_a, b, c)
     bh, tn, dh = x.shape
     ds = b.shape[-1]
-    _build.check_tensor("ssd_scan log_a", log_a, torch.float32, (bh, tn),
-                        x.device)
-    bstride = _check_bc("b", b, x, ds)
-    cstride = _check_bc("c", c, x, ds)
-    if (ds, dh) not in DIMS:
-        raise ValueError(f"ssd_scan: (ds, dh) = {(ds, dh)} not in {DIMS}")
-    if bh < 1 or tn < 1:
-        raise ValueError(f"ssd_scan: empty input {tuple(x.shape)}")
+    if route(ds, dh) == "generic":
+        return _generic(x, log_a, b, c, bstride, cstride)
     ck = kernel_chunk(chunk, tn)
     if ck > MAX_CHUNK:
         raise ValueError(f"ssd_scan: chunk {ck} over {MAX_CHUNK}")
@@ -97,4 +124,52 @@ def ssd_scan(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
     return y
 
 
+def _check(x, log_a, b, c):
+    """Types, shapes and layouts; returns B's and C's head strides."""
+    _build.refuse_grad("ssd_scan", x, log_a, b, c)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"ssd_scan x: float32 or bfloat16, got {x.dtype}")
+    _build.check_tensor("ssd_scan x", x, x.dtype)
+    bh, tn, dh = x.shape
+    ds = b.shape[-1]
+    _build.check_tensor("ssd_scan log_a", log_a, torch.float32, (bh, tn),
+                        x.device)
+    bstride = _check_bc("b", b, x, ds)
+    cstride = _check_bc("c", c, x, ds)
+    if bh < 1 or tn < 1 or ds < 1 or dh < 1:
+        raise ValueError(f"ssd_scan: empty input {tuple(x.shape)}, ds {ds}")
+    return bstride, cstride
+
+
+def generic(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor) -> torch.Tensor:
+    """The generic kernel on CUDA tensors, whatever :func:`route` says:
+    what :func:`ssd_scan` launches for a pair outside ``DIMS``, and how a
+    check times it against the tensor-core passes on the same inputs.
+    Counted in ``ssd_scan.launches`` and ``generic_launches``."""
+    return _generic(x, log_a, b, c, *_check(x, log_a, b, c))
+
+
+def _generic(x, log_a, b, c, bstride, cstride):
+    bh, tn, dh = x.shape
+    ds = b.shape[-1]
+    steps = generic_steps(ds)
+    if not steps:
+        raise ValueError(f"ssd_scan: state width {ds} leaves no room in "
+                         "shared memory")
+    if bh * -(-dh // _SG_COLS) > 2 ** 31 - 1:
+        raise ValueError(f"ssd_scan: BH = {bh} x dh = {dh} needs more than "
+                         "2^31 - 1 blocks")
+    y = torch.empty_like(x)
+    _build.launch(
+        "ssd_scan", "launch_ssd_scan_generic", _GENERIC_ARGS, x.data_ptr(),
+        log_a.data_ptr(), b.data_ptr(), c.data_ptr(), y.data_ptr(), bh, tn,
+        ds, dh, steps, bstride, cstride, int(x.dtype == torch.bfloat16),
+        _build.stream_handle(x.device))
+    ssd_scan.launches += 1
+    ssd_scan.generic_launches += 1
+    return y
+
+
 ssd_scan.launches = 0
+ssd_scan.generic_launches = 0

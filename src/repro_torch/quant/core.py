@@ -56,11 +56,19 @@ def _broadcast_scale(scale, ndim: int, axis: Optional[int], device):
     s = _f32(scale, device)
     if axis is None or s.dim() == 0:
         return s
-    if s.dim() != 1:
-        raise ValueError(f"per-channel scale must be 1-D, got {s.dim()}-D")
-    shape = [1] * ndim
-    shape[axis % ndim] = s.shape[0]
-    return s.reshape(shape)
+    if s.dim() == 1:
+        shape = [1] * ndim
+        shape[axis % ndim] = s.shape[0]
+        return s.reshape(shape)
+    # a stacked per-channel scale (quantize_tensor's stack_dims): its last
+    # dim runs along the payload's last, its leading dims along the
+    # payload's leading stack dims
+    if axis % ndim != ndim - 1:
+        raise ValueError(
+            f"stacked scale (ndim={s.dim()}) requires channel-last payload "
+            f"axis, got axis={axis} of {ndim}")
+    return s.reshape(list(s.shape[:-1]) + [1] * (ndim - s.dim())
+                     + [s.shape[-1]])
 
 
 def quantize(x: torch.Tensor, scale, *, axis: Optional[int] = None,
@@ -194,13 +202,34 @@ class QuantizedTensor:
 
 
 def quantize_tensor(w: torch.Tensor, *, axis: Optional[int] = None,
-                    act_scale=None) -> QuantizedTensor:
-    """Quantize a float weight once: absmax -> scale -> int8."""
-    scale = symmetric_scale(absmax(w, axis), device=w.device)
+                    act_scale=None, stack_dims: int = 0) -> QuantizedTensor:
+    """Quantize a float weight once: absmax -> scale -> int8.
+
+    ``stack_dims > 0`` treats the leading dims as a parameter stack (the
+    transformer's leading block dim): per-channel scales are taken per
+    stack entry and stored ``(*stack, C)`` with ``axis=-1``, so a block
+    peeled off the stack sees the plain ``(C,)`` convention (JAX's
+    ``quantize_tensor``)."""
+    if stack_dims and axis is not None:
+        nd = w.dim()
+        if axis % nd != nd - 1:
+            raise ValueError(
+                f"stack_dims={stack_dims} requires channel-last axis, got "
+                f"axis={axis} of {nd}")
+        stack_dims = min(stack_dims, nd - 2)
+        reduce_axes = tuple(range(stack_dims, nd - 1))
+        amax = w.float().abs().amax(dim=reduce_axes)
+        scale = symmetric_scale(amax, device=w.device)
+        axis = -1
+        q = quantize(w, scale, axis=axis)
+    else:
+        scale = symmetric_scale(absmax(w, axis), device=w.device)
+        q = quantize(w, scale, axis=axis)
     if act_scale is not None:
         act_scale = _f32(act_scale, w.device)
-    return QuantizedTensor(quantize(w, scale, axis=axis), scale, axis,
-                           act_scale)
+        if stack_dims and act_scale.dim() == 0:
+            act_scale = act_scale.expand(w.shape[:stack_dims]).contiguous()
+    return QuantizedTensor(q, scale, axis, act_scale)
 
 
 def is_quantized(x) -> bool:

@@ -13,7 +13,7 @@ then take the int8 MAC path with no per-call weight work.
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, Mapping, Optional
+from typing import Callable, Iterable, Mapping, Optional
 
 import numpy as np
 import torch
@@ -64,24 +64,50 @@ def _map(tree, fn, path=()):
     return fn(path, tree)
 
 
-def quantize_params(params, calib: Optional[Calibration] = None):
-    """Replace weight leaves (by key name, rank >= 2) with per-channel int8
-    :class:`QuantizedTensor`s, once.
+def select_weight_leaf(names, leaf, weight_keys=DEFAULT_WEIGHT_KEYS) -> bool:
+    """The one weight-leaf rule, shared by :func:`quantize_params` and
+    QAT's ``fake_quant_params``, so training fake-quantizes exactly the
+    leaves serving stores as int8: the last key in ``weight_keys``, a
+    tensor of rank >= 2, not already quantized."""
+    return bool(names and names[-1] in weight_keys
+                and isinstance(leaf, torch.Tensor) and leaf.dim() >= 2)
 
-    A leaf under scope ``foo`` picks up ``calib.act_scale("foo")`` as its
-    static input scale.  Biases and every other leaf pass through; already
-    quantized leaves pass through unchanged."""
+
+def quantize_params(params, calib: Optional[Calibration] = None, *,
+                    weight_keys: frozenset = DEFAULT_WEIGHT_KEYS,
+                    per_channel: bool = True,
+                    predicate: Optional[Callable] = None,
+                    stack_dims: int = 0):
+    """Replace weight leaves with int8 :class:`QuantizedTensor`s, once.
+
+    ``calib``        optional :class:`Calibration`; a leaf under scope
+                     ``foo`` picks up ``calib.act_scale("foo")`` as its
+                     static input scale.
+    ``weight_keys``  leaf key names to quantize (``DEFAULT_WEIGHT_KEYS``).
+    ``per_channel``  one scale per output channel (last axis), else one
+                     per tensor.
+    ``predicate``    optional ``f(path_names, leaf) -> bool`` replacing the
+                     key-name rule.
+    ``stack_dims``   leading stack dims on every weight: per-channel scales
+                     per stack entry, stored ``(*stack, C)`` with
+                     ``axis=-1``.
+
+    Biases and every other leaf pass through; already quantized leaves
+    pass through unchanged, whatever the predicate says."""
     def leaf_fn(names, leaf):
         if is_quantized(leaf):
             return leaf
-        if not (names and names[-1] in DEFAULT_WEIGHT_KEYS
-                and isinstance(leaf, torch.Tensor) and leaf.dim() >= 2):
+        take = (predicate(list(names), leaf) if predicate is not None
+                else select_weight_leaf(names, leaf, weight_keys))
+        if not take:
             return leaf
         act_scale = None
         if calib is not None:
             scope = names[-2] if len(names) >= 2 else names[-1]
             act_scale = calib.act_scale(scope)
-        return quantize_tensor(leaf, axis=leaf.dim() - 1, act_scale=act_scale)
+        axis = leaf.dim() - 1 if per_channel else None
+        return quantize_tensor(leaf, axis=axis, act_scale=act_scale,
+                               stack_dims=stack_dims)
     return _map(params, leaf_fn)
 
 

@@ -1,0 +1,299 @@
+"""Checkpoints: atomic, checksummed, async (``repro/train/checkpoint.py``,
+its ``full`` layout).
+
+Layout, one directory a step, file for file JAX's, so either package reads
+the other's::
+
+    <dir>/step_000100/
+        manifest.json   keys, shapes, dtypes, sha256 of each file, format
+        arrays.npz      leaf data
+    <dir>/LATEST        the last complete step directory's name
+
+Keys are JAX's ``_flatten`` paths: dict keys joined by ``/``, list items by
+index, and a :class:`~repro_torch.quant.QuantizedTensor` stored as children
+``0`` (int8 payload), ``1`` (scale) and ``2`` (act scale, where there is
+one).  numpy has no bf16 or fp8, so those leaves are stored as their raw
+bytes (a uint8 view, as JAX stores them) and the manifest's dtype turns
+them back; the views go through torch's own dtypes, not ``ml_dtypes``.
+
+A save writes into a temporary directory, fsyncs the manifest, renames the
+directory into place and only then moves ``LATEST``, so a crash never
+leaves a half-written restore point; ``keep_last`` old steps survive, and
+a step another writer is still producing is never collected.  The
+``sharded`` layout (per-shard files for tensor parallelism) waits for the
+port's tensor parallelism (ROADMAP.md, Queue 1 item 5): reading one
+raises.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import shutil
+import tempfile
+import threading
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.quant.core import QuantizedTensor, is_quantized
+
+# stored as raw bytes: numpy has no such dtype
+_RAW_DTYPES = {"bfloat16": torch.bfloat16,
+               "float8_e4m3fn": torch.float8_e4m3fn,
+               "float8_e5m2": torch.float8_e5m2}
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).split(".")[-1]
+
+
+def _to_storable(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu().contiguous()
+    if _dtype_name(t) in _RAW_DTYPES:
+        return t.view(torch.uint8).numpy()
+    return t.numpy()
+
+
+def _from_storable(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
+    t = torch.from_numpy(np.array(arr, copy=True))
+    if dtype_name in _RAW_DTYPES:
+        return t.view(_RAW_DTYPES[dtype_name])
+    return t
+
+
+def _flatten(tree, prefix=()) -> list:
+    """``(key, leaf)`` pairs in JAX's order and spelling: dicts by sorted
+    key, lists and tuples by index, a QuantizedTensor as ``0``/``1``/``2``
+    (act scale only where there is one)."""
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree) for kv in _flatten(tree[k],
+                                                            prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, v in enumerate(tree)
+                for kv in _flatten(v, prefix + (i,))]
+    if is_quantized(tree):
+        kids = [tree.q, tree.scale] + ([] if tree.act_scale is None
+                                       else [tree.act_scale])
+        return [kv for i, v in enumerate(kids)
+                for kv in _flatten(v, prefix + (i,))]
+    if tree is None:
+        return []
+    return [("/".join(str(p) for p in prefix), torch.as_tensor(tree))]
+
+
+def _sha256(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def save(ckpt_dir: str, state, step: int, *, keep_last: int = 3) -> str:
+    """Synchronous atomic save of a tree of tensors.  Returns the step's
+    path."""
+    return _write(ckpt_dir, dict(_flatten(state)), step, keep_last)
+
+
+# Concurrent writers (two save_async calls, or save_async racing a sync
+# save) must not interleave the final rename, the LATEST update and the
+# sweep, and the sweep must never collect a step another writer is still
+# producing: process-wide, as the directories are.
+_LOCK = threading.Lock()
+_PENDING: list[threading.Thread] = []
+_IN_FLIGHT: set[tuple[str, str]] = set()   # (abs ckpt_dir, step dir name)
+
+
+def save_async(ckpt_dir: str, state, step: int, *, keep_last: int = 3
+               ) -> threading.Thread:
+    """Copy the tree to host memory now (a device-to-host copy, so later
+    updates of the tensors do not reach the file), write it in a
+    background thread; :func:`wait_pending` joins it."""
+    host = {k: v.detach().cpu().clone() for k, v in _flatten(state)}
+    t = threading.Thread(target=_write, args=(ckpt_dir, host, step,
+                                              keep_last), daemon=True)
+    with _LOCK:
+        _PENDING.append(t)
+    t.start()
+    return t
+
+
+def wait_pending() -> None:
+    with _LOCK:
+        pending = list(_PENDING)
+    for t in pending:
+        t.join()
+        with _LOCK:
+            if t in _PENDING:
+                _PENDING.remove(t)
+
+
+def _write(ckpt_dir: str, host: dict, step: int, keep_last: int) -> str:
+    os.makedirs(ckpt_dir, exist_ok=True)
+    name = f"step_{step:08d}"
+    final = os.path.join(ckpt_dir, name)
+    token = (os.path.abspath(ckpt_dir), name)
+    with _LOCK:
+        _IN_FLIGHT.add(token)
+    tmp = tempfile.mkdtemp(prefix=f".tmp_{name}_", dir=ckpt_dir)
+    try:
+        try:
+            path = os.path.join(tmp, "arrays.npz")
+            np.savez(path, **{k.replace("/", "__"): _to_storable(v)
+                              for k, v in host.items()})
+            manifest = {
+                "step": step,
+                "keys": sorted(host),
+                "shapes": {k: list(v.shape) for k, v in host.items()},
+                "dtypes": {k: _dtype_name(v) for k, v in host.items()},
+                "sha256": {"arrays.npz": _sha256(path)},
+                "format": "full",
+            }
+            with open(os.path.join(tmp, "manifest.json"), "w") as f:
+                json.dump(manifest, f, indent=1)
+                f.flush()
+                os.fsync(f.fileno())
+            with _LOCK:
+                if os.path.exists(final):
+                    shutil.rmtree(final)
+                os.rename(tmp, final)
+        except BaseException:
+            shutil.rmtree(tmp, ignore_errors=True)
+            raise
+        with _LOCK:
+            latest = os.path.join(ckpt_dir, "LATEST")
+            current = ""
+            if os.path.exists(latest):
+                with open(latest) as f:
+                    current = f.read().strip()
+            # a slow writer of an older step must not move LATEST back
+            # (the names sort: zero-padded)
+            if name >= current:
+                with open(latest + ".tmp", "w") as f:
+                    f.write(name)
+                    f.flush()
+                    os.fsync(f.fileno())
+                os.replace(latest + ".tmp", latest)
+            _gc(ckpt_dir, keep_last)
+    finally:
+        with _LOCK:
+            _IN_FLIGHT.discard(token)
+    return final
+
+
+def _gc(ckpt_dir: str, keep_last: int) -> None:
+    """Drop all but the newest ``keep_last`` steps.  The caller holds
+    ``_LOCK``; a step another writer is producing is never collected."""
+    busy = {n for d, n in _IN_FLIGHT if d == os.path.abspath(ckpt_dir)}
+    steps = sorted(d for d in os.listdir(ckpt_dir) if d.startswith("step_"))
+    for d in steps[:-keep_last] if keep_last > 0 else []:
+        if d not in busy:
+            shutil.rmtree(os.path.join(ckpt_dir, d), ignore_errors=True)
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    latest = os.path.join(ckpt_dir, "LATEST")
+    if not os.path.exists(latest):
+        return None
+    with open(latest) as f:
+        return int(f.read().strip().split("_")[1])
+
+
+def _load_flat(ckpt_dir: str, step: Optional[int], verify: bool
+               ) -> tuple[dict, dict]:
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+    path = os.path.join(ckpt_dir, f"step_{step:08d}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    if manifest.get("format") != "full":
+        raise NotImplementedError(
+            f"checkpoint at {path} has format {manifest.get('format')!r}: "
+            "the port reads the 'full' layout only; the sharded one comes "
+            "with tensor parallelism (ROADMAP.md, Queue 1 item 5)")
+    arrays = os.path.join(path, "arrays.npz")
+    if verify:
+        got, want = _sha256(arrays), manifest["sha256"]["arrays.npz"]
+        if got != want:
+            raise IOError(f"checksum mismatch in {arrays}: {got} != {want}")
+    flat = {}
+    with np.load(arrays) as data:
+        for key in manifest["keys"]:
+            flat[key] = _from_storable(data[key.replace("/", "__")],
+                                       manifest["dtypes"][key])
+    return manifest, flat
+
+
+def restore(ckpt_dir: str, state_like, *, step: Optional[int] = None,
+            verify: bool = True):
+    """Restore into the structure of ``state_like`` (shapes checked; each
+    leaf cast to the like leaf's dtype and put on its device).  Returns
+    ``(state, step)``."""
+    manifest, flat = _load_flat(ckpt_dir, step, verify)
+
+    def fill(like, prefix):
+        if isinstance(like, dict):
+            return {k: fill(v, prefix + (k,)) for k, v in like.items()}
+        if isinstance(like, (list, tuple)):
+            return type(like)(fill(v, prefix + (i,))
+                              for i, v in enumerate(like))
+        if is_quantized(like):
+            kids = [fill(v, prefix + (i,)) for i, v in enumerate(
+                [like.q, like.scale] + ([] if like.act_scale is None
+                                        else [like.act_scale]))]
+            return QuantizedTensor(kids[0], kids[1], like.axis,
+                                   kids[2] if len(kids) > 2 else None)
+        key = "/".join(str(p) for p in prefix)
+        arr = flat[key]
+        like = torch.as_tensor(like)
+        if tuple(arr.shape) != tuple(like.shape):
+            raise ValueError(f"checkpoint key {key}: shape "
+                             f"{tuple(arr.shape)}, expected "
+                             f"{tuple(like.shape)}")
+        return arr.to(device=like.device, dtype=like.dtype)
+    return fill(state_like, ()), manifest["step"]
+
+
+def load_params(ckpt_dir: str, *, step: Optional[int] = None,
+                verify: bool = True, device="cuda"):
+    """Restore without a ``state_like``: the nested dict tree from the
+    manifest's keys alone, on ``device``, stored dtypes kept.  A key group
+    ``<stem>/0`` (int8) + ``<stem>/1`` (scale) [+ ``<stem>/2``] is how a
+    QuantizedTensor is stored, and loads as one.  Returns ``(tree,
+    step)``."""
+    dev = resolve_device(device)
+    manifest, flat = _load_flat(ckpt_dir, step, verify)
+    keys = set(flat)
+    tree: dict = {}
+    consumed: set[str] = set()
+
+    def insert(key: str, leaf):
+        node = tree
+        parts = key.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = leaf
+
+    for key in sorted(keys):
+        if key in consumed:
+            continue
+        stem, _, child = key.rpartition("/")
+        if (child == "0" and stem and flat[key].dtype == torch.int8
+                and stem + "/1" in keys):
+            q, scale = flat[stem + "/0"], flat[stem + "/1"]
+            act = flat.get(stem + "/2")
+            consumed.update(k for k in (stem + "/0", stem + "/1", stem + "/2")
+                            if k in keys)
+            insert(stem, QuantizedTensor(
+                q.to(dev), scale.to(dev),
+                # -1, not ndim - 1: channel-last also for a stacked payload
+                -1 if scale.dim() else None,
+                None if act is None else act.to(dev)))
+        else:
+            insert(key, flat[key].to(dev))
+    return tree, manifest["step"]

@@ -848,8 +848,8 @@ def test_new_kernels_raise_on_the_wrong_cuda_type(dev):
     q = torch.randn((1, 2, 16, 64), device=dev)
     launches = (kfa.flash_attention.launches, km.matmul_bf16.launches,
                 kssd.ssd_scan.launches)
-    with pytest.raises(TypeError):
-        kfa.flash_attention(q, q, q)
+    with pytest.raises(TypeError):      # float32/bf16/f16 only
+        kfa.flash_attention(q.double(), q.double(), q.double())
     with pytest.raises(TypeError):
         km.matmul_bf16(q[0, 0].half(), q[0, 0].T.half().contiguous())
     x, la, b, c = _ssd_inputs(2, 64, 128, 64, torch.float16, dev)
@@ -996,3 +996,206 @@ def test_two_tenant_fleet_on_card_equals_solo_runs(dev):
                for k in fc.engine.telemetry.fabric_counters()
                if k.startswith("fabric.dispatch."))
     assert fc.engine.telemetry.counters["mesh_yields_inflight"] > 0
+
+
+
+# ------------------------------------------- generic routes (f32, any D) --
+def assert_flash_f32_close(got, want, abs_attn):
+    """f32: ``2^-17 (|want| + P|V|)``, ~64 f32 ulps of the output, for an
+    online softmax that sums in another order than the plain one."""
+    g, w = got.float(), want.float()
+    bar = 2.0 ** -17 * (w.abs() + abs_attn.float()) + 1e-30
+    excess = ((g - w).abs() / bar).max().item()
+    assert excess <= 1.0, f"f32 flash error is {excess} x the bar"
+
+
+def assert_flash_f16_close(got, want, abs_attn):
+    """f16: the bf16 bar scaled by f16's three more mantissa bits,
+    ``2^-10 |want| + 2^-11 P|V|``."""
+    g, w = got.float(), want.float()
+    bar = 2.0 ** -10 * w.abs() + 2.0 ** -11 * abs_attn.float() + 1e-30
+    excess = ((g - w).abs() / bar).max().item()
+    assert excess <= 1.0, f"f16 flash error is {excess} x the bar"
+
+
+_FLASH_BARS = {torch.float32: assert_flash_f32_close,
+               torch.bfloat16: assert_flash_close,
+               torch.float16: assert_flash_f16_close}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal", [
+    (1, 4, 2, 100, 100, 8, True), (2, 4, 4, 37, 70, 48, False),
+    (1, 4, 1, 33, 130, 80, True), (1, 2, 2, 65, 65, 96, True),
+    (1, 4, 2, 40, 300, 256, False), (1, 4, 2, 100, 100, 128, True),
+    (1, 2, 1, 9, 9, 1, True)])
+def test_flash_attention_generic_route(dev, dtype, b, hq, hkv, sq, skv, d,
+                                       causal):
+    """Every dtype and head dim the wgmma kernel does not take runs the
+    generic kernel (counted in ``generic_launches``), within the dtype's
+    bar of the plain attention."""
+    from repro_torch.kernels import flash_attention as kfa
+    g = _g(60 + d)
+    q, k, v = (torch.randn(s, generator=g).to(dtype).to(dev) for s in
+               ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+    generic = not (dtype == torch.bfloat16 and d in kfa.HEAD_DIMS)
+    kfa.flash_attention.launches = kfa.flash_attention.generic_launches = 0
+    got = kfa.flash_attention(q, k, v, causal=causal)
+    assert got.dtype == dtype
+    assert kfa.route(dtype, d) == ("generic" if generic else "wgmma")
+    assert (kfa.flash_attention.launches,
+            kfa.flash_attention.generic_launches) == (1, int(generic))
+    want = ref.attention(q, k, v, causal=causal)
+    _FLASH_BARS[dtype](got, want, ref.attention(q, k, v.abs(),
+                                                 causal=causal))
+
+
+def test_flash_generic_and_wgmma_agree_in_bf16(dev):
+    """The two kernels on the same bf16 inputs at D = 64 hold each other
+    to the bf16 flash bar (so they cannot drift apart)."""
+    from repro_torch.kernels import flash_attention as kfa
+    q = _bf16((1, 8, 300, 64), 70, dev)
+    k, v = _bf16((1, 2, 300, 64), 71, dev), _bf16((1, 2, 300, 64), 72, dev)
+    for causal in (True, False):
+        wg = kfa.flash_attention(q, k, v, causal=causal)
+        gen = kfa.generic(q, k, v, causal=causal)
+        assert_flash_close(gen, wg, ref.attention(q, k, v.abs(),
+                                                  causal=causal))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ds,dh", [(64, 32), (16, 64), (128, 128), (24, 40),
+                                   (1, 1), (300, 33)])
+def test_ssd_scan_generic_route(dev, dtype, ds, dh):
+    """Every (ds, dh) outside ``DIMS`` runs the generic kernel (counted in
+    ``generic_launches``), with B/C per head and broadcast over heads,
+    within the f32 SSD bar (bf16 plus one bf16 ulp)."""
+    from repro_torch.kernels import ssd_scan as kssd
+    x, la, b, c = _ssd_inputs(5, 150, ds, dh, dtype, dev, seed=80)
+    rtol = 2 ** -7 if dtype == torch.bfloat16 else 2e-4
+    for bb, cc in ((b, c), (b[:1].expand(5, 150, ds),
+                            c[:1].expand(5, 150, ds))):
+        kssd.ssd_scan.launches = kssd.ssd_scan.generic_launches = 0
+        got = kssd.ssd_scan(x, la, bb, cc)
+        assert (kssd.ssd_scan.launches, kssd.ssd_scan.generic_launches) == (
+            1, 1)
+        assert got.dtype == dtype
+        want = ref.ssd_scan(x, la, bb, cc)[0]
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=2e-4)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "mamba2-780m"])
+def test_f32_smoke_prefill_on_card_equals_cpu(dev, arch):
+    """The f32 smoke configs' prefill on the card against the CPU within
+    ``test_torch_lm_prefill.py``'s f32 bar (1e-4).  Before the generic
+    flash kernel the qwen3-4b one raised ``TypeError`` (bf16 only)."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    cfg = dataclasses.replace(ARCHS[arch].smoke_config(), dtype="float32")
+    params, _ = transformer.init(torch.Generator().manual_seed(0), cfg,
+                                 device="cpu")
+    tok = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 100))
+    want = steps.prefill(params, tok, cfg, device="cpu")
+    kfa.flash_attention.generic_launches = 0
+    got = steps.prefill(bc.params_to(params, dev), tok, cfg, device=dev)
+    assert got.dtype == torch.float32
+    assert kfa.flash_attention.generic_launches == (
+        4 if arch == "qwen3-4b" else 0)
+    np.testing.assert_allclose(U.n(got), U.n(want), rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------------- gradients --
+def test_fp32_conv1d_and_matmul_carry_the_plain_gradient(dev):
+    """A CUDA input that requires grad: the forward launches the kernel
+    (counted), the output has a ``grad_fn``, and every gradient equals the
+    CPU's plain gradient within the f32 bar (TF32 off)."""
+    g = _g(90)
+    x, w, b = (torch.randn(s, generator=g) for s in ((2, 130, 64),
+                                                     (7, 64, 96), (96,)))
+    a, m, mb = (torch.randn(s, generator=g) for s in ((300, 128), (128, 5),
+                                                      (5,)))
+    for fn, plain, ins, kw in (
+            (kc.conv1d, ref.conv1d, (x, w, b), dict(stride=2,
+                                                    activation="relu")),
+            (km.matmul, ref.matmul, (a, m, mb), dict(activation="relu"))):
+        cpu = [t.clone().requires_grad_() for t in ins]
+        card = [t.to(dev).requires_grad_() for t in ins]
+        before = fn.launches
+        out = fn(*card, **kw)
+        assert fn.launches == before + 1 and out.grad_fn is not None
+        want = plain(*cpu, **kw)
+        gout = torch.randn(want.shape, generator=g)
+        out.backward(gout.to(dev))
+        want.backward(gout)
+        torch.testing.assert_close(out.detach().cpu(), want.detach(),
+                                   rtol=TOL, atol=TOL)
+        for c, d in zip(cpu, card):
+            torch.testing.assert_close(d.grad.cpu(), c.grad, rtol=TOL,
+                                       atol=TOL * float(c.grad.abs().max()))
+
+
+def test_wrappers_without_backward_raise_on_grad(dev):
+    """Every other CUDA wrapper refuses an operand that requires grad,
+    before it launches; under ``torch.no_grad()`` the same call runs."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ssd_scan as kssd
+    q = torch.randn((1, 2, 16, 64), device=dev, requires_grad=True)
+    x, la, b, c = _ssd_inputs(2, 64, 24, 40, torch.float32, dev)
+    qb = _bf16((64, 64), 91, dev).requires_grad_()
+    calls = (lambda: kfa.flash_attention(q, q, q),
+             lambda: kssd.ssd_scan(x.requires_grad_(), la, b, c),
+             lambda: km.matmul_bf16(qb, qb))
+    for call in calls:
+        counts = (kfa.flash_attention.launches, kssd.ssd_scan.launches,
+                  km.matmul_bf16.launches)
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        assert counts == (kfa.flash_attention.launches,
+                          kssd.ssd_scan.launches, km.matmul_bf16.launches)
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()
+
+
+def test_train_step_on_card_equals_cpu(dev):
+    """One micro-basecaller step from the same params and batch: the
+    forward on the hand conv1d kernels, the loss within 1e-5 and
+    every gradient within 1e-4 of its largest entry of the CPU's (the
+    card's kernels sum in another order)."""
+    from repro_torch.data import nanopore
+    from repro_torch.train import micro_basecaller as mb
+    from repro_torch.train import optimizer as opt
+    cfg = mb.DEMO_CFG
+    params = bc.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    batch = nanopore.make_ctc_batch(np.random.default_rng(0), batch=8,
+                                    seq_len=30, pm=mb.DEMO_PORE)
+    for qat in (False, True):
+        want_l, want_g = mb.loss_and_grads(params, mb.batch_to(batch, "cpu"),
+                                           cfg, qat=qat)
+        before = (kc.conv1d.launches, km.matmul.launches)
+        got_l, got_g = mb.loss_and_grads(bc.params_to(params, dev),
+                                         mb.batch_to(batch, dev), cfg,
+                                         qat=qat)
+        # DEMO_CFG's three layers are convolutions (no k=1 head)
+        assert kc.conv1d.launches - before[0] == 3
+        assert km.matmul.launches - before[1] == 0
+        assert float(got_l) == pytest.approx(float(want_l), rel=1e-5)
+        for layer in want_g:
+            for k in want_g[layer]:
+                w = want_g[layer][k]
+                torch.testing.assert_close(
+                    got_g[layer][k].cpu(), w, rtol=0,
+                    atol=1e-4 * float(w.abs().max()))
+    ocfg = opt.OptimizerConfig(lr=3e-3, warmup_steps=20, total_steps=220,
+                               weight_decay=0.0)
+    card = bc.params_to(params, dev)
+    p2, st, loss = mb.train_step(card, opt.init_opt_state(card, ocfg),
+                                 mb.batch_to(batch, dev), cfg=cfg, ocfg=ocfg)
+    assert int(st["step"]) == 1 and bool(torch.isfinite(loss))
+    assert p2["conv1"]["w"].device.type == "cuda"

@@ -34,6 +34,9 @@ import repro_torch.models.transformer, repro_torch.models.param
 import repro_torch.configs, repro_torch.launch.steps
 import repro_torch.obs, repro_torch.obs.validate, repro_torch.fleet
 import repro_torch.field, repro_torch.distributed.compression
+import repro_torch.train.checkpoint, repro_torch.train.micro_basecaller
+import repro_torch.train.optimizer, repro_torch.utils.tree
+import repro_torch.quant.fake_quant, repro_torch.launch.serve
 mods = sorted(m for m in sys.modules
               if m == "jax" or m.startswith("jax.")
               or m == "repro" or m.startswith("repro."))
@@ -70,6 +73,38 @@ def test_scan_covers_the_obs_fleet_and_field_modules():
                 "field/aggregator.py", "field/scenario.py",
                 "distributed/__init__.py", "distributed/compression.py"):
         assert mod in found, mod
+
+
+def test_scan_covers_the_train_utils_and_serve_modules():
+    found = {os.path.relpath(p, PKG) for p in _port_sources()}
+    for mod in ("train/__init__.py", "train/optimizer.py",
+                "train/checkpoint.py", "train/micro_basecaller.py",
+                "utils/__init__.py", "utils/tree.py", "quant/fake_quant.py",
+                "launch/serve.py", "core/ctc.py"):
+        assert mod in found, mod
+
+
+def test_checkpoints_need_no_ml_dtypes():
+    """bf16 and fp8 leaves go through torch's own dtypes: the card's
+    machine has no JAX, and nothing promises it ml_dtypes."""
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         f"import sys; sys.path.insert(0, {SRC!r}); "
+         "import repro_torch.train.checkpoint; "
+         "print('ml_dtypes' in sys.modules)"],
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().splitlines()[-1] == "False"
+
+
+def test_train_and_checkpoint_without_card_raise(monkeypatch, tmp_path):
+    from repro_torch.train import checkpoint, micro_basecaller
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        micro_basecaller.train_micro_basecaller(steps=1)
+    checkpoint.save(str(tmp_path), {"w": torch.ones(2)}, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        checkpoint.load_params(str(tmp_path))
 
 
 def test_fleet_and_field_without_card_raise(monkeypatch):

@@ -4,6 +4,7 @@ Every such test module imports this one right after ``torch``.  Inputs are
 made with numpy from a seed and handed to both packages; JAX stays on the
 CPU and the port runs with ``device="cpu"`` (its plain PyTorch versions).
 """
+import contextlib
 import sys
 
 import numpy as np
@@ -69,3 +70,17 @@ def assert_top1_beyond(got, want, bar: float) -> None:
     top2 = np.sort(want, axis=-1)[:, -2:]
     sure = (top2[:, 1] - top2[:, 0]) > bar
     np.testing.assert_array_equal(got.argmax(-1)[sure], want.argmax(-1)[sure])
+
+
+@contextlib.contextmanager
+def one_thread():
+    """Run the block on one intra-op thread, then restore the count.  For
+    long runs of small ops (a training loop, a field scenario): the test
+    workers share the machine's cores, and eight spinning threads a small
+    op in each of them thrash it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
