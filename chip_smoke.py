@@ -102,7 +102,8 @@ Phases, each printing JSON lines:
    ``lm_parity_f32``: the f32 smoke configs (qwen3-4b on the generic
    flash kernel, mamba2-780m on the tensor-core SSD, and mamba2-780m's
    smoke at (ds, dh) = (64, 32) on the generic one) on the card against
-   the CPU within 1e-4.
+   the CPU within 1e-4, then each distinct flash_attention and ssd_scan
+   call of that path again on its own inputs against its plain version.
 8. ``fleet``: four tenants on one ``repro_torch.fleet.Fleet`` on the
    card: ``lab-fc`` (``flowcell_512`` with phase 4's CNN, pore encoder,
    1,024 reads, depth 2, fused; weight 2), ``lab-bc1`` and ``lab-bc2``
@@ -135,9 +136,11 @@ Phases, each printing JSON lines:
 10. ``train``: the micro basecaller (``train_micro_basecaller``'s
    DEMO_CFG): one step on the card against the CPU, float and QAT (loss
    within 1e-5, gradients within 1e-4 of their largest entry, the forward
-   on the hand conv1d), 220 steps on the card to JAX's bar (last loss
-   under half the first, read accuracy > 0.55 at default_rng(77)), a QAT
-   run quantized once and served as an ``edge_int8`` flowcell on the card
+   on the hand conv1d), 220 ``train_step`` calls on the card (the loop of
+   tests/test_system.py) to JAX's bar (last loss under half the first,
+   read accuracy > 0.55 at default_rng(77)), a QAT
+   ``train_micro_basecaller`` run quantized once and served as an
+   ``edge_int8`` flowcell on the card
    and the CPU with equal goldens, and a checkpoint round trip, bit for
    bit.
 11. ``serve_cli``: ``python -m repro_torch.launch.serve`` in subprocesses:
@@ -159,9 +162,9 @@ Phases, each printing JSON lines:
    ``fused_stream_int8`` with ``tc_launches``, ``tc_layers`` and
    ``device_ms``; ``ssd_scan`` with ``device_ms``, ``device_ms_by_pass``
    and ``bound_fp32_ms``; ``flash_attention_generic`` and
-   ``ssd_scan_generic`` with ``generic_launches``, bound at the CUDA
-   cores' fp32 rate; ``flash_attention`` and ``ssd_scan`` count their
-   tensor-core kernels only).
+   ``ssd_scan_generic`` with ``generic_launches`` and ``bound_fp32_ms``
+   beside ``bound_ms`` at the 3xTF32 rate; ``flash_attention`` and
+   ``ssd_scan`` count their tensor-core kernels only).
 
 TF32 is off for the whole run (``torch.backends.cuda.matmul.allow_tf32``
 and ``torch.backends.cudnn.allow_tf32``): the plain versions and the
@@ -3072,18 +3075,20 @@ def phase_kernels_generic(torch, F, peaks, table):
     plain = time_ms(torch, lambda: ref.attention(q, k, v), reps=3, warm=1)
     lib = sdpa_f32_ms(torch, F, q, k, v)
     ops = 4.0 * q3.head_dim * attn_pairs(LM_SEQ, LM_SEQ) * q3.num_heads
-    bnd, by = bound_ms(peaks, nbytes(q, k, v, out), ops)
+    io = nbytes(q, k, v, out)
+    bnd, by = bound_ms(peaks, io, ops, tf32x3=True)
+    bnd32 = bound_ms(peaks, io, ops)[0]
     emit({"phase": "kernel", "kernel": "flash_attention_generic",
           "shape": f"qwen3-4b 1 x {LM_SEQ}, float32", "q": list(q.shape),
           "k": list(k.shape), "causal": True, "max_abs_err": err,
           "err_over_bar": excess, "tol": F32_FLASH_RULE, "ms": ms,
           "plain_ms": plain, "library_ms": lib,
           "library": "sdpa f32 (memory-efficient, K/V expanded)",
-          "bound_ms": bnd, "bound_by": by, "bound_rate": "fp32 CUDA cores",
+          "bound_ms": bnd, "bound_by": by, "bound_fp32_ms": bnd32,
           "flop": ops})
     require(excess <= 1.0, f"generic flash qwen3-4b f32: {excess} x bar")
     table.add("flash_attention_generic", err=err, ms=ms, plain_ms=plain,
-              bound=bnd, bound_by=by, library_ms=lib)
+              bound=bnd, bound_by=by, library_ms=lib, bound_fp32=bnd32)
     del q, k, v, out
     torch.cuda.empty_cache()
 
@@ -3128,17 +3133,18 @@ def phase_kernels_generic(torch, F, peaks, table):
     plain = time_ms(torch, lambda: ref.ssd_scan(*args), reps=1, warm=0)
     bh, t, dh = args[0].shape
     ops = ssd_flop(bh, t, 128, dh)
-    bnd, by = bound_ms(peaks, nbytes(args[0], args[1], args[2][:1],
-                                     args[3][:1], out), ops)
+    io = nbytes(args[0], args[1], args[2][:1], args[3][:1], out)
+    bnd, by = bound_ms(peaks, io, ops, tf32x3=True)
+    bnd32 = bound_ms(peaks, io, ops)[0]
     emit({"phase": "kernel", "kernel": "ssd_scan_generic",
           "shape": f"24 heads x {LM_SEQ}, ds 128, dh 128, float32",
           "x": list(args[0].shape), "b_c": "one row over the heads "
           "(stride 0)", "max_abs_err": err, "tol": SSD_TOL, "ms": ms,
           "plain_ms": plain, "library_ms": None, "bound_ms": bnd,
-          "bound_by": by, "bound_rate": "fp32 CUDA cores", "flop": ops})
+          "bound_by": by, "bound_fp32_ms": bnd32, "flop": ops})
     require(ok, f"generic ssd 24 x 4096 (128, 128): max abs err {err}")
     table.add("ssd_scan_generic", err=err, ms=ms, plain_ms=plain, bound=bnd,
-              bound_by=by, library_ms=None)
+              bound_by=by, library_ms=None, bound_fp32=bnd32)
     del args, out
 
     # the generic kernel beside the tensor-core passes at mamba2-780m's
@@ -3188,13 +3194,78 @@ def f32_parity_configs():
     return out
 
 
+def recorded_calls(torch, ops, names):
+    """Wrap ``ops.<name>`` for each name so that a card call keeps its
+    arguments, once for each distinct shape, stride, dtype and keyword
+    set; returns ``(calls, restore)``, calls by name."""
+    calls = {n: {} for n in names}
+    originals = {n: getattr(ops, n) for n in names}
+
+    def recorder(name):
+        fn = originals[name]
+
+        def wrapped(*args, **kw):
+            ts = [a for a in args if isinstance(a, torch.Tensor)]
+            if ts[0].is_cuda:
+                sig = (tuple((tuple(t.shape), t.stride(), t.dtype)
+                             for t in ts), tuple(sorted(kw.items())))
+                calls[name].setdefault(sig, (args, kw))
+            return fn(*args, **kw)
+        return wrapped
+    for n in names:
+        setattr(ops, n, recorder(n))
+
+    def restore():
+        for n, fn in originals.items():
+            setattr(ops, n, fn)
+    return calls, restore
+
+
+def check_path_calls(torch, calls) -> dict:
+    """Each recorded flash_attention and ssd_scan call of the f32 path run
+    again through its wrapper and held against its plain version on the
+    same inputs: flash by F32_FLASH_RULE, ssd_scan within SSD_TOL."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as kssd
+    out = {}
+    for (args, kw) in calls["flash_attention"].values():
+        q, k, v = args
+        got = kfa.flash_attention(q, k, v, **kw)
+        want = ref.attention(q, k, v, **kw)
+        pv = ref.attention(q, k, v.abs(), **kw)
+        out.setdefault("flash_attention", []).append({
+            "q": list(q.shape), "k": list(k.shape),
+            "q_stride": list(q.stride()), "route": kfa.route(q.dtype,
+                                                             q.shape[-1]),
+            "causal": kw.get("causal", True),
+            "max_abs_err": (got - want).abs().max().item(),
+            "err_over_bar": flash_bar_excess(got, want, pv, "float32")})
+    for (args, kw) in calls["ssd_scan"].values():
+        x, la, b, c = args
+        got = kssd.ssd_scan(x, la, b, c, **kw)
+        want = ref.ssd_scan(x, la, b, c)[0]
+        out.setdefault("ssd_scan", []).append({
+            "x": list(x.shape), "b": list(b.shape),
+            "b_stride": list(b.stride()), "c_stride": list(c.stride()),
+            "route": kssd.route(b.shape[-1], x.shape[-1]), **kw,
+            "max_abs_err": (got - want).abs().max().item(),
+            "within_tol": bool(torch.allclose(got, want, rtol=SSD_TOL,
+                                              atol=SSD_TOL))})
+    return out
+
+
 def phase_lm_parity_f32(torch, paths):
     """The f32 smoke prefills on the card against the CPU, the same params
     and tokens, within ``F32_PARITY_TOL`` (rtol and atol) of the logits:
-    JAX's decode-vs-forward check runs these configs in f32."""
+    JAX's decode-vs-forward check runs these configs in f32.  Each
+    flash_attention and ssd_scan call of the card's prefill is kept, and
+    after the path its wrapper runs again on those inputs against the
+    plain version (flash by F32_FLASH_RULE, ssd_scan within SSD_TOL)."""
     import numpy as np
 
     from repro_torch.core import basecaller as bc
+    from repro_torch.kernels import ops
     from repro_torch.launch import steps
     from repro_torch.models import transformer
     dev = torch.device("cuda")
@@ -3219,13 +3290,31 @@ def phase_lm_parity_f32(torch, paths):
                           "tol": f"rtol = atol = {F32_PARITY_TOL}",
                           "equal_within_tol": ok})
         return lines
-    lines = paths.drive("lm_parity_f32", ("flash_attention_generic",
-                                          "matmul", "ssd_scan",
-                                          "ssd_scan_generic"), run)
+    calls, restore = recorded_calls(torch, ops,
+                                    ("flash_attention", "ssd_scan"))
+    try:
+        lines = paths.drive("lm_parity_f32", ("flash_attention_generic",
+                                              "matmul", "ssd_scan",
+                                              "ssd_scan_generic"), run)
+    finally:
+        restore()
     for line in lines:
         emit(line)
         require(line["equal_within_tol"], f"f32 {line['config']} prefill: "
                 f"card vs CPU {line['max_abs_diff']} over {F32_PARITY_TOL}")
+    checked = check_path_calls(torch, calls)
+    emit({"phase": "lm_parity_f32", "check": "the path's own calls, each "
+          "against its plain version", "tol": {
+              "flash_attention": F32_FLASH_RULE,
+              "ssd_scan": f"rtol = atol = {SSD_TOL}"}, **checked})
+    for name in ("flash_attention", "ssd_scan"):
+        require(checked.get(name), f"lm_parity_f32 recorded no {name} call")
+    for c in checked["flash_attention"]:
+        require(c["err_over_bar"] <= 1.0, f"flash at the f32 path's "
+                f"{c['q']} x {c['k']}: {c['err_over_bar']} x its bar")
+    for c in checked["ssd_scan"]:
+        require(c["within_tol"], f"ssd_scan at the f32 path's {c['x']}: "
+                f"max abs err {c['max_abs_err']}")
 
 
 # -------------------------------------------------------------- phase train --
@@ -3346,20 +3435,26 @@ def phase_train(torch, paths):
         require(rel <= 1e-5 and worst <= 1e-4,
                 f"train step qat={qat}: loss {rel}, gradients {worst}")
 
-    # 2. JAX's learns bar, trained on the card
+    # 2. JAX's learns bar, trained on the card: test_system.py's loop of
+    # train_step, every step's loss kept
     losses = []
 
     def learn():
+        p = bc.params_to(params, dev)
+        state = opt.init_opt_state(p, ocfg)
+        rng = np.random.default_rng(0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = mb.train_micro_basecaller(
-            TRAIN_STEPS, seq_len=TRAIN_SEQ, device=dev,
-            log=lambda i, v: losses.append(v), log_every=1)
+        for _ in range(TRAIN_STEPS):
+            b = mb.batch_to(nanopore.make_ctc_batch(
+                rng, batch=8, seq_len=TRAIN_SEQ, pm=mb.DEMO_PORE), dev)
+            p, state, loss = mb.train_step(p, state, b, cfg=cfg, ocfg=ocfg)
+            losses.append(float(loss))
         torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-    (tcfg, trained), wall = paths.drive("train_micro_basecaller",
-                                        ("conv1d",), learn)
-    acc = read_accuracy(torch, tcfg, trained, np.random.default_rng(77))
+        return p, time.perf_counter() - t0
+    trained, wall = paths.drive(f"train_step x {TRAIN_STEPS}", ("conv1d",),
+                                learn)
+    acc = read_accuracy(torch, cfg, trained, np.random.default_rng(77))
     emit({"phase": "train", "part": "learns", "steps": TRAIN_STEPS,
           "seq_len": TRAIN_SEQ, "batch": 8, "wall_s": wall,
           "ms_per_step": wall / TRAIN_STEPS * 1e3, "first_loss": losses[0],
@@ -3371,12 +3466,12 @@ def phase_train(torch, paths):
     require(acc > 0.55, f"micro basecaller accuracy {acc}")
 
     # 3. QAT on the card, quantized once, served as edge_int8 on both
-    qat_losses = []
+    qat_losses = {}
     qcfg, qat_params = paths.drive(
         "train_micro_basecaller qat", ("conv1d",),
         lambda: mb.train_micro_basecaller(
             QAT_STEPS, qat=True, device=dev,
-            log=lambda i, v: qat_losses.append(v), log_every=1))
+            log=lambda i, v: qat_losses.__setitem__(i, v)))
     qparams = quantize_edge_params(bc.params_to(qat_params, "cpu"), qcfg,
                                    chunk=512)
     runs = {}
@@ -3391,7 +3486,7 @@ def phase_train(torch, paths):
         runs[name] = golden(eng)
     decisions = sorted({g[1] for g in runs["cpu"]})
     emit({"phase": "train", "part": "qat_edge_int8",
-          "qat_first_loss": qat_losses[0], "qat_last_loss": qat_losses[-1],
+          "qat_loss_by_step": qat_losses,
           "reads": len(runs["cpu"]), "decisions": decisions,
           "goldens_equal_cpu": runs["cuda"] == runs["cpu"],
           "act_scales": {k: float(v["w"].act_scale)
@@ -3711,8 +3806,10 @@ def main() -> int:
         if k == "matmul":
             kernels[-1]["skinny_launches"] = paths.total["matmul_skinny"]
         if k.endswith("_generic"):
+            # bound_ms at the 3xTF32 rate, the card's f32-accurate peak;
+            # bound_fp32_ms at the CUDA cores' fp32 rate the kernel uses
             kernels[-1].update(generic_launches=launches,
-                               bound_rate="fp32 CUDA cores")
+                               bound_fp32_ms=r["bound_fp32_ms"])
         if k == "matmul_int8":
             kernels[-1].update(
                 skinny_launches=paths.total["matmul_int8_skinny"],

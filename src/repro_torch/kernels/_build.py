@@ -21,6 +21,10 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
+from repro_torch.kernels import ref
+
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = _ROOT / "build" / "kernels"
@@ -145,9 +149,8 @@ def refuse_grad(what: str, *tensors) -> None:
     ``grad_fn`` and a training step would drop the gradient without a
     word.  JAX has no backward kernel either (no ``custom_vjp`` in its
     package); only the fp32 ``conv1d`` and ``matmul`` carry a gradient on
-    the card, that of their plain versions.  Called before any other
-    check, so nothing launches."""
-    import torch
+    the card, that of their plain versions (:class:`PlainGrad`).  Called
+    before any other check, so nothing launches."""
     if torch.is_grad_enabled() and any(
             isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
         raise RuntimeError(
@@ -155,6 +158,38 @@ def refuse_grad(what: str, *tensors) -> None:
             "backward on the card; call it under torch.no_grad() or detach "
             "the operands (fp32 conv1d and matmul carry the plain "
             "version's gradient)")
+
+
+class PlainGrad(torch.autograd.Function):
+    """A kernel's forward with its plain version's backward:
+    ``PlainGrad.apply(kernel, plain, *inputs)``, where ``kernel`` and
+    ``plain`` compute the same function of ``inputs`` (None entries pass
+    through, with a None gradient).
+
+    JAX has no backward kernel (its package has no ``custom_vjp``): its
+    training differentiates the jnp reference.  So the forward launches
+    the hand kernel and the backward re-runs ``plain`` on the saved inputs
+    and takes its gradient, with TF32 off (``ref.full_fp32``) so that it
+    is fp32 as on the CPU.  The output is the kernel's own tensor, so it
+    carries this function's ``grad_fn``."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, *inputs):
+        ctx.save_for_backward(*inputs)
+        ctx.plain = plain
+        return kernel(*inputs)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        ref.full_fp32()
+        with torch.enable_grad():
+            leaves = [None if t is None else t.detach().requires_grad_()
+                      for t in ctx.saved_tensors]
+            out = ctx.plain(*leaves)
+            live = [t for t in leaves if t is not None]
+            got = iter(torch.autograd.grad(out, live, grad_out))
+        return (None, None, *(None if t is None else next(got)
+                              for t in leaves))
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -195,5 +230,4 @@ def launch(lib_name: str, fn_name: str, argtypes, *args) -> None:
 
 def stream_handle(device) -> int:
     """PyTorch's current CUDA stream on ``device`` as a C pointer value."""
-    import torch
     return torch.cuda.current_stream(device).cuda_stream

@@ -103,13 +103,17 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, bias=None, *, stride: int = 1,
     (counted also in ``tc_launches``), else the CUDA-core one.  The choice
     is by shape; a failure of either raises and never retries on the
     other.  Where autograd is on and an operand requires grad, the launch
-    runs inside :class:`_Conv1dGrad`, whose backward is the plain
+    runs inside :class:`_build.PlainGrad`, whose backward is the plain
     version's gradient."""
     if x.device.type == "cpu":
         return ref.conv1d(x, w, bias, stride=stride, activation=activation)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, w, bias)):
-        return _Conv1dGrad.apply(x, w, bias, stride, activation)
+        return _build.PlainGrad.apply(
+            lambda x, w, b: _conv1d_cuda(x, w, b, stride, activation),
+            lambda x, w, b: ref.conv1d(x, w, b, stride=stride,
+                                       activation=activation),
+            x, w, bias)
     return _conv1d_cuda(x, w, bias, stride, activation)
 
 
@@ -138,46 +142,6 @@ def _conv1d_cuda(x, w, bias, stride, activation):
     conv1d.launches += 1
     conv1d.tc_launches += tc
     return out
-
-
-def plain_grads(fn, inputs, grad_out):
-    """Gradients of the plain function ``fn`` at ``inputs`` (None entries
-    pass through as None) against ``grad_out``: the backward of a kernel
-    whose forward ran on the card.  TF32 stays off (``ref.full_fp32``), so
-    the gradient is fp32 as on the CPU."""
-    ref.full_fp32()
-    with torch.enable_grad():
-        leaves = [None if t is None else t.detach().requires_grad_()
-                  for t in inputs]
-        out = fn(*leaves)
-        live = [t for t in leaves if t is not None]
-        got = iter(torch.autograd.grad(out, live, grad_out))
-    return tuple(None if t is None else next(got) for t in leaves)
-
-
-class _Conv1dGrad(torch.autograd.Function):
-    """The fp32 conv1d kernel's forward with the plain version's backward.
-
-    JAX has no backward kernel (its package has no ``custom_vjp``): its
-    training differentiates the jnp reference.  So here the forward runs
-    the hand kernel and the backward re-runs :func:`ref.conv1d` on the
-    saved inputs and takes its gradient.  The output is the kernel's own
-    tensor, so it carries this function's ``grad_fn``."""
-
-    @staticmethod
-    def forward(ctx, x, w, bias, stride, activation):
-        ctx.save_for_backward(x, w, bias)
-        ctx.conf = (stride, activation)
-        return _conv1d_cuda(x, w, bias, stride, activation)
-
-    @staticmethod
-    def backward(ctx, grad_out):
-        stride, activation = ctx.conf
-        grads = plain_grads(
-            lambda x, w, b: ref.conv1d(x, w, b, stride=stride,
-                                       activation=activation),
-            ctx.saved_tensors, grad_out)
-        return (*grads, None, None)
 
 
 conv1d.launches = 0

@@ -241,10 +241,11 @@ def fused_stream_cuda(rows, pads, reset, prev, bases, ticks, conv, params,
     """Launch the fused tick on the card.  Raises for a shape the kernel
     cannot take (more than 8 layers, or buffers over 227 KB) and for int8
     weights without a calibrated input scale."""
-    _build.refuse_grad("fused_stream", rows, pads, reset, *conv, *(
-        t for sp in _specs(cfg) for t in (params[sp.name]["w"],
-                                          params[sp.name]["b"])))
     specs = _specs(cfg)
+    if torch.is_grad_enabled():     # every tick: list operands only here
+        _build.refuse_grad("fused_stream", rows, pads, reset, *conv, *(
+            t for sp in specs for t in (params[sp.name]["w"],
+                                        params[sp.name]["b"])))
     lanes, chunk = rows.shape
     n_frames = chunk // cfg.total_stride
     dev = rows.device

@@ -19,7 +19,6 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref
-from repro_torch.kernels.conv1d import plain_grads
 
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _INT8_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -57,13 +56,16 @@ def matmul(a: torch.Tensor, b: torch.Tensor, bias=None, *,
     holds (counted also in ``skinny_launches``), else the tiled one.  Both
     sum each output's K products in ascending order, so they give the same
     bits.  Where autograd is on and an operand requires grad, the launch
-    runs inside :class:`_MatmulGrad`, whose backward is the plain
+    runs inside :class:`_build.PlainGrad`, whose backward is the plain
     version's gradient."""
     if a.device.type == "cpu":
         return ref.matmul(a, b, bias, activation=activation)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (a, b, bias)):
-        return _MatmulGrad.apply(a, b, bias, activation)
+        return _build.PlainGrad.apply(
+            lambda a, b, bias: _matmul_cuda(a, b, bias, activation),
+            lambda a, b, bias: ref.matmul(a, b, bias, activation=activation),
+            a, b, bias)
     return _matmul_cuda(a, b, bias, activation)
 
 
@@ -89,27 +91,6 @@ def _matmul_cuda(a, b, bias, activation):
     matmul.launches += 1
     matmul.skinny_launches += thin
     return out
-
-
-class _MatmulGrad(torch.autograd.Function):
-    """The fp32 matmul kernel's forward with the plain version's backward
-    (:func:`ref.matmul` re-run on the saved inputs): JAX has no backward
-    kernel either, and its gradient is its reference's.  The output is the
-    kernel's own tensor, so it carries this function's ``grad_fn``."""
-
-    @staticmethod
-    def forward(ctx, a, b, bias, activation):
-        ctx.save_for_backward(a, b, bias)
-        ctx.activation = activation
-        return _matmul_cuda(a, b, bias, activation)
-
-    @staticmethod
-    def backward(ctx, grad_out):
-        act = ctx.activation
-        grads = plain_grads(
-            lambda a, b, bias: ref.matmul(a, b, bias, activation=act),
-            ctx.saved_tensors, grad_out)
-        return (*grads, None)
 
 
 matmul.launches = 0

@@ -12,9 +12,10 @@ Routes through ``repro_torch.engine.build``; pick a workload and a preset:
 
 ``--device cpu`` runs the plain PyTorch versions of the kernels (no card
 needed); the default, ``cuda``, runs the hand kernels and raises where
-there is no card.  ``lm_decode`` (JAX's default workload), ``--tp`` and
-``--ckpt`` wait for the decode server (ROADMAP.md, Queue 1 item 4) and
-raise, naming the workloads that exist.
+there is no card.  ``lm_decode`` (JAX's default workload) and its flags
+(``--arch``, ``--smoke``, ``--slots``, ``--max-len``, ``--new-tokens``,
+``--tp``, ``--ckpt``, ``--ckpt-step``) wait for the decode server
+(ROADMAP.md, Queue 1 item 4) and raise, naming the workloads that exist.
 
 Discovery: ``--list-workloads`` prints every buildable workload,
 ``--list-presets <workload>`` its preset table; an unknown ``--workload``
@@ -78,6 +79,15 @@ _RUNNERS = {
     "adaptive_sampling": _run_adaptive_sampling,
     "pathogen_pipeline": _run_pathogen_pipeline,
 }
+
+
+# JAX's flags that only lm_decode reads (``--smoke`` a switch, the rest
+# values); each raises _not_ported when given
+LM_DECODE_FLAGS = (
+    ("--arch", {}), ("--smoke", {"action": "store_true"}),
+    ("--slots", {"type": int}), ("--max-len", {"type": int}),
+    ("--new-tokens", {"type": int}), ("--tp", {"type": int}),
+    ("--ckpt", {"metavar": "DIR"}), ("--ckpt-step", {"type": int}))
 
 
 def _not_ported(flag: str) -> UnknownWorkloadError:
@@ -206,18 +216,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", action="store_true",
                     help="print the telemetry summary as JSON")
-    # lm_decode knobs (they map onto engine overrides)
-    ap.add_argument("--arch", default=None)
-    ap.add_argument("--smoke", action="store_true")
-    ap.add_argument("--slots", type=int, default=None)
-    ap.add_argument("--max-len", type=int, default=None)
-    ap.add_argument("--new-tokens", type=int, default=8)
-    ap.add_argument("--tp", type=int, default=None,
-                    help="tensor-parallel degree (lm_decode; not ported)")
-    ap.add_argument("--ckpt", default=None, metavar="DIR",
-                    help="lm_decode params from a checkpoint (not ported)")
-    ap.add_argument("--ckpt-step", type=int, default=None,
-                    help="checkpoint step to load (lm_decode; not ported)")
+    # JAX's lm_decode flags: accepted, so that they raise by name
+    for flag, kw in LM_DECODE_FLAGS:
+        ap.add_argument(flag, default=None, help="lm_decode (not ported)",
+                        **kw)
     # observability (repro_torch.obs)
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="export a Chrome trace-event JSON of the run")
@@ -246,9 +248,8 @@ def main(argv=None):
             pretty = ", ".join(f"{k}={v!r}" for k, v in sorted(kw.items()))
             print(f"{name:16s} {pretty}" if pretty else name)
         return None
-    for flag, value in (("--tp", args.tp), ("--ckpt", args.ckpt),
-                        ("--ckpt-step", args.ckpt_step)):
-        if value is not None:
+    for flag, _ in LM_DECODE_FLAGS:
+        if getattr(args, flag[2:].replace("-", "_")) is not None:
             raise _not_ported(flag)
     if args.fleet is not None:
         return _run_fleet(args)
@@ -256,12 +257,6 @@ def main(argv=None):
         return _run_field(args)
 
     overrides: dict = {"seed": args.seed, "device": args.device}
-    if args.arch is not None:
-        overrides["arch"] = args.arch
-    if args.slots is not None:
-        overrides["slots"] = args.slots
-    if args.max_len is not None:
-        overrides["max_len"] = args.max_len
     if args.trace is not None:
         overrides["trace"] = True
 

@@ -6,8 +6,9 @@ demos and the int8 edge path run real weights rather than random ones.
 The step is a module function, :func:`train_step`, so a test can hold one
 step against JAX's.  On the card its forward runs the hand ``conv1d``
 kernels (and ``matmul`` for a k=1 head, which ``DEMO_CFG`` has not) and
-its backward is the gradient of their plain versions (``kernels/conv1d.py::_Conv1dGrad``): JAX has no backward kernel
-either, and differentiates its reference.
+its backward is the gradient of their plain versions
+(``kernels/_build.py::PlainGrad``): JAX has no backward kernel either, and
+differentiates its reference.
 
     from repro_torch.train.micro_basecaller import train_micro_basecaller
     cfg, params = train_micro_basecaller(steps=220, device="cuda")
@@ -82,11 +83,11 @@ def train_micro_basecaller(steps: int = 400, *,
                            seq_len: int = 40, batch: int = 8,
                            lr: float = 3e-3, seed: int = 0, qat: bool = False,
                            log: Optional[Callable[[int, float], None]] = None,
-                           log_every: int = 100, device="cuda"):
+                           device="cuda"):
     """Returns ``(cfg, params)`` of a basecaller trained on simulated reads,
     the params on ``device``.  Batches come from ``np.random.default_rng(
     seed)`` as JAX's; the initial draw is a ``torch.Generator``'s, which JAX
-    cannot reproduce.  ``log(i, loss)`` is called every ``log_every`` steps.
+    cannot reproduce.  ``log(i, loss)`` is called every 100 steps.
 
     ``qat=True`` trains against the int8 deployment numerics: the loss sees
     fake-quantized weights (straight-through gradients), so the float
@@ -103,6 +104,6 @@ def train_micro_basecaller(steps: int = 400, *,
                                              seq_len=seq_len, pm=pm), dev)
         params, state, loss = train_step(params, state, b, cfg=cfg,
                                          ocfg=ocfg, qat=qat)
-        if log is not None and i % log_every == 0:
+        if log is not None and i % 100 == 0:
             log(i, float(loss))
     return cfg, params

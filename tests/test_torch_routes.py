@@ -140,10 +140,10 @@ def test_refuse_grad_only_with_autograd_on():
 
 
 def test_fp32_autograd_functions_give_the_plain_gradient(monkeypatch):
-    """``_Conv1dGrad`` and ``_MatmulGrad`` with their launch swapped for
-    the plain forward: the output carries their ``grad_fn``, and every
-    gradient (bias included, or None where there is none) equals plain
-    autograd's bit for bit."""
+    """``_build.PlainGrad`` over the fp32 conv1d's and matmul's launch,
+    swapped here for the plain forward: the output carries its
+    ``grad_fn``, and every gradient (bias included, or None where there is
+    none) equals plain autograd's bit for bit."""
     monkeypatch.setattr(kc, "_conv1d_cuda",
                         lambda x, w, b, s, a: ref.conv1d(x, w, b, stride=s,
                                                          activation=a))
@@ -152,22 +152,22 @@ def test_fp32_autograd_functions_give_the_plain_gradient(monkeypatch):
                                                            activation=act))
     g = torch.Generator().manual_seed(0)
     cases = [
-        (kc._Conv1dGrad, lambda x, w, b: ref.conv1d(x, w, b, stride=2,
-                                                    activation="relu"),
-         (2, "relu"), [(2, 21, 4), (5, 4, 6), (6,)]),
-        (kc._Conv1dGrad, lambda x, w, b: ref.conv1d(x, w, b),
-         (1, "none"), [(1, 9, 3), (3, 3, 2), None]),
-        (km._MatmulGrad, lambda a, b, bias: ref.matmul(a, b, bias,
-                                                       activation="relu"),
-         ("relu",), [(7, 5), (5, 3), (3,)]),
+        (lambda x, w, b: kc._conv1d_cuda(x, w, b, 2, "relu"),
+         lambda x, w, b: ref.conv1d(x, w, b, stride=2, activation="relu"),
+         [(2, 21, 4), (5, 4, 6), (6,)]),
+        (lambda x, w, b: kc._conv1d_cuda(x, w, b, 1, "none"),
+         lambda x, w, b: ref.conv1d(x, w, b), [(1, 9, 3), (3, 3, 2), None]),
+        (lambda a, b, bias: km._matmul_cuda(a, b, bias, "relu"),
+         lambda a, b, bias: ref.matmul(a, b, bias, activation="relu"),
+         [(7, 5), (5, 3), (3,)]),
     ]
-    for fn, plain, conf, shapes in cases:
+    for kernel, plain, shapes in cases:
         ins = [None if s is None else torch.randn(s, generator=g)
                for s in shapes]
         a = [None if t is None else t.clone().requires_grad_() for t in ins]
         b = [None if t is None else t.clone().requires_grad_() for t in ins]
-        out = fn.apply(*a, *conf)
-        assert type(out.grad_fn).__name__ == f"{fn.__name__}Backward"
+        out = _build.PlainGrad.apply(kernel, plain, *a)
+        assert type(out.grad_fn).__name__ == "PlainGradBackward"
         want = plain(*b)
         gout = torch.randn(want.shape, generator=g)
         out.backward(gout)

@@ -1,6 +1,6 @@
 """The port's serve CLI (``python -m repro_torch.launch.serve``) through
 ``main(argv)`` with ``--device cpu``, against ``repro.launch.serve``: the
-listings, what raises (``lm_decode``, ``--tp``, ``--ckpt``, no card), each
+listings, what raises (``lm_decode`` and its flags, no card), each
 SoC workload drained, a small ``--field`` spec equal to JAX's CLI run
 (outbreak, conservation, read-frame bytes: the step codec is exact), the
 ``--trace`` and ``--timeseries`` files through JAX's own validators, and a
@@ -49,12 +49,24 @@ def test_list_workloads_and_presets(capsys):
     ["--workload", "lm_decode", "--device", "cpu", "--smoke"],
     ["--workload", "basecall", "--tp", "2", "--device", "cpu"],
     ["--workload", "basecall", "--ckpt", "/nonexistent", "--device", "cpu"],
-    ["--workload", "basecall", "--ckpt-step", "3", "--device", "cpu"]])
+    ["--workload", "basecall", "--ckpt-step", "3", "--device", "cpu"],
+    ["--workload", "lm_decode", "--device", "cpu"],
+    ["--workload", "basecall", "--smoke", "--device", "cpu"],
+    ["--workload", "basecall", "--arch", "qwen3-4b", "--device", "cpu"],
+    ["--workload", "basecall", "--slots", "4", "--device", "cpu"],
+    ["--workload", "basecall", "--max-len", "64", "--device", "cpu"],
+    ["--workload", "basecall", "--new-tokens", "8", "--device", "cpu"]])
 def test_lm_decode_tp_and_ckpt_raise_naming_the_workloads(argv):
+    """``lm_decode`` and every flag that only it reads raise, naming the
+    workloads that exist (a flag by its own name)."""
     with pytest.raises(treg.UnknownWorkloadError) as err:
         tserve.main(argv)
     for w in ("adaptive_sampling", "basecall", "pathogen_pipeline"):
         assert w in str(err.value)
+    flags = [a for a in argv if a.startswith("--") and a != "--device"
+             and a != "--workload"]
+    if flags:
+        assert flags[0] in str(err.value)
 
 
 def test_unknown_preset_raises_naming_the_presets():

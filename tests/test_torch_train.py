@@ -31,6 +31,7 @@ from repro_torch import quant as tq
 from repro_torch.core import basecaller as tbc
 from repro_torch.core import ctc as tctc
 from repro_torch.core import variant_caller as tvc
+from repro_torch.data import nanopore as tnano
 from repro_torch.kernels import ref
 from repro_torch.train import micro_basecaller as tmicro
 from repro_torch.train import optimizer as topt
@@ -336,10 +337,21 @@ def read_accuracy(cfg, params, rng, n=16, seq_len=30):
 
 @pytest.fixture(scope="module")
 def trained():
+    """``test_system.py``'s fixture on the port: 220 steps of
+    ``train_step`` at seq_len 30, every step's loss kept."""
+    cfg = tmicro.DEMO_CFG
+    params = tbc.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    ocfg = topt.OptimizerConfig(lr=3e-3, warmup_steps=20, total_steps=220,
+                                schedule="cosine", weight_decay=0.0)
+    state = topt.init_opt_state(params, ocfg)
+    rng = np.random.default_rng(0)
     losses = []
-    cfg, params = tmicro.train_micro_basecaller(
-        220, seq_len=30, device="cpu", log=lambda i, v: losses.append(v),
-        log_every=1)
+    for _ in range(220):
+        b = tmicro.batch_to(tnano.make_ctc_batch(
+            rng, batch=8, seq_len=30, pm=tmicro.DEMO_PORE), "cpu")
+        params, state, loss = tmicro.train_step(params, state, b, cfg=cfg,
+                                                ocfg=ocfg)
+        losses.append(float(loss))
     return cfg, params, losses
 
 
