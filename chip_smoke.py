@@ -47,14 +47,20 @@ Phases, each printing JSON lines:
    launches queued back to back, since issuing them takes the host
    longer than the card takes to run them; ssd_scan
    ``device_ms_by_pass``, each of its three kernels by the profiler).
-   ``kernels_generic``: the generic flash kernel (f32, bf16 and f16 at
-   every head dim the wgmma kernel does not take, causal and not, GQA,
-   ragged Sq) against the plain attention at each dtype's bar, against
-   the wgmma kernel on the same bf16 inputs, and timed at qwen3-4b's
-   attention in f32 (1 x 4096, SDPA f32 the library); the generic SSD at
-   four (ds, dh) pairs in f32 and bf16, timed at 24 heads x 4096 with
-   (ds, dh) = (128, 128), and beside the tensor-core passes at
-   mamba2-780m's shape.
+   ``kernels_generic``: the 3xTF32 flash route (f32, bf16 and f16 at
+   every head dim the bf16 wgmma kernel does not take up to 256, padded
+   ones included, causal and not, GQA, ragged Sq) and the CUDA-core
+   kernel one head dim past it, each case's kernel asserted by counter,
+   against the plain attention at each dtype's bar; both against the
+   wgmma kernel on the same bf16 inputs; row 5g timed at qwen3-4b's
+   attention in f32 (1 x 4096) on the 3xTF32 wgmma kernel, beside its
+   mma.sync kernel, the CUDA-core kernel it replaced (``was_ms``) and
+   SDPA f32 (the library, its kernel's name from the profiler); the SSD
+   at four (ds, dh) pairs outside DIMS on the padded tensor-core passes
+   and one past (128, 128) on the recurrence kernel, in f32 and bf16;
+   row 6g timed at 24 heads x 4096 with (ds, dh) = (128, 128) beside the
+   recurrence kernel, and the recurrence kernel beside the tensor-core
+   passes at mamba2-780m's shape.
 3. ``step_goldens``: the step-codec flowcell (8 lanes) on the card, fused
    and unfused x pipeline depth 1 and 2, and once on the CPU (plain): all
    five per-read goldens must be equal; once with fp32 params, once with
@@ -99,11 +105,12 @@ Phases, each printing JSON lines:
    and 1 x 512 on the card and on the CPU with the same params: the last
    token's final-normed hidden state, rms of the difference within 2^-7
    of its rms, and its logits within 2 bf16 ulps of max |logit|.
-   ``lm_parity_f32``: the f32 smoke configs (qwen3-4b on the generic
-   flash kernel, mamba2-780m on the tensor-core SSD, and mamba2-780m's
-   smoke at (ds, dh) = (64, 32) on the generic one) on the card against
-   the CPU within 1e-4, then each distinct flash_attention and ssd_scan
-   call of that path again on its own inputs against its plain version.
+   ``lm_parity_f32``: the f32 smoke configs (qwen3-4b on the 3xTF32
+   flash route, mamba2-780m on the SSD passes' DIMS pair, and
+   mamba2-780m's smoke at (ds, dh) = (64, 32) on the padded passes) on
+   the card against the CPU within 1e-4, then each distinct
+   flash_attention and ssd_scan call of that path again on its own
+   inputs against its plain version, each naming the route it took.
 8. ``fleet``: four tenants on one ``repro_torch.fleet.Fleet`` on the
    card: ``lab-fc`` (``flowcell_512`` with phase 4's CNN, pore encoder,
    1,024 reads, depth 2, fused; weight 2), ``lab-bc1`` and ``lab-bc2``
@@ -161,10 +168,14 @@ Phases, each printing JSON lines:
    ``unfused_ms``, ``unfused_device_ms`` and ``bound_fp32_ms``;
    ``fused_stream_int8`` with ``tc_launches``, ``tc_layers`` and
    ``device_ms``; ``ssd_scan`` with ``device_ms``, ``device_ms_by_pass``
-   and ``bound_fp32_ms``; ``flash_attention_generic`` and
-   ``ssd_scan_generic`` with ``generic_launches`` and ``bound_fp32_ms``
-   beside ``bound_ms`` at the 3xTF32 rate; ``flash_attention`` and
-   ``ssd_scan`` count their tensor-core kernels only).
+   and ``bound_fp32_ms``; ``flash_attention_tf32x3`` (row 5g) and
+   ``ssd_scan_padded`` (row 6g) with ``bound_fp32_ms`` beside
+   ``bound_ms`` at the 3xTF32 rate, ``was_ms`` (the CUDA-core kernel the
+   row ran on before, same inputs) and ``generic_launches`` (its
+   launches on the main paths), the flash row also ``wgmma_launches``,
+   ``mma_sync_ms`` and ``library_kernels``, the SSD row
+   ``device_ms_by_pass``; ``flash_attention`` counts its bf16 wgmma
+   kernel only and ``ssd_scan`` its ``DIMS`` pairs only).
 
 TF32 is off for the whole run (``torch.backends.cuda.matmul.allow_tf32``
 and ``torch.backends.cudnn.allow_tf32``): the plain versions and the
@@ -2955,11 +2966,17 @@ def phase_field(torch, paths):
 
 
 # ------------------------------------------------- phase kernels_generic --
-GENERIC_FLASH_DIMS = (8, 16, 48, 80, 96, 256)
+# the sweep's head dims (the 3xTF32 route's, padded to 16-256, and the
+# qwen3-4b smoke's 16) and one past its reach (the CUDA-core kernel)
+GENERIC_FLASH_DIMS = (8, 16, 20, 48, 80, 96, 100, 256)
+GENERIC_FLASH_PAST = 300
 GENERIC_FLASH_CASES = ((1, 4, 2, 100, 100, True),     # ragged, GQA 2
                        (2, 4, 1, 37, 70, False),      # Sq < Skv, GQA 4
                        (1, 8, 2, 33, 130, True))      # last-token causal
+# (ds, dh) pairs outside DIMS, on the padded tensor-core passes, and one
+# past (128, 128), on the recurrence kernel
 GENERIC_SSD_DIMS = ((64, 32), (16, 64), (128, 128), (24, 40))
+GENERIC_SSD_PAST = (300, 33)
 F32_FLASH_RULE = ("|err| <= 2^-17 (|ref| + P|V|): ~64 f32 ulps, for an "
                   "online softmax summed in another order")
 F16_FLASH_RULE = ("|err| <= 2^-10 |ref| + 2^-11 P|V|: the bf16 bar scaled "
@@ -2992,14 +3009,26 @@ def sdpa_f32_ms(torch, F, q, k, v, causal=True):
             q, kk, vv, is_causal=causal), reps=3, warm=1)
 
 
+def flash_counts(kfa):
+    """The flash wrapper's counters: all, 3xTF32, its wgmma kernel, and
+    the CUDA-core kernel's."""
+    f = kfa.flash_attention
+    return (f.launches, f.tf32x3_launches, f.tf32x3_wgmma_launches,
+            f.generic_launches)
+
+
 def phase_kernels_generic(torch, F, peaks, table):
-    """The generic flash and SSD kernels: every dtype and head dim the
-    wgmma flash kernel does not take, every (ds, dh) outside the SSD
-    tensor-core passes, against their plain versions; the generic flash
-    against the wgmma one on the same bf16 inputs; rows 5g and 6g of the
+    """The routes past the bf16 wgmma flash kernel and the SSD passes'
+    ``DIMS`` pairs: every dtype and head dim on the 3xTF32 flash route and
+    one head dim past it on the CUDA-core kernel, every swept (ds, dh) on
+    the padded tensor-core passes and one pair past them on the recurrence
+    kernel, each held against its plain version and each case's kernel
+    asserted by its launch counter; the 3xTF32 and CUDA-core flash kernels
+    against the bf16 wgmma one on the same inputs; rows 5g and 6g of the
     kernels line timed at qwen3-4b's attention in f32 (1 x 4096) and at
     mamba2-780m's inner width with 128-wide heads (24 heads x 4096, ds
-    128); and the generic SSD beside the tensor-core passes at
+    128), each beside the CUDA-core kernel it replaced on the same inputs;
+    and the recurrence kernel beside the tensor-core passes at
     mamba2-780m's own shape."""
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ref
@@ -3011,94 +3040,154 @@ def phase_kernels_generic(torch, F, peaks, table):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(
             dtype)
 
-    # the sweep: three dtypes x the head dims each sends to the generic
-    # kernel (16, the f32 smoke LM's, too) x three shapes
+    # the sweep: three dtypes x the head dims each sends to the 3xTF32
+    # kernels, and one past them (the CUDA-core kernel), x three shapes
+    sweep = {}
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         name = str(dtype).split(".")[-1]
-        dims = [d for d in GENERIC_FLASH_DIMS if kfa.route(dtype, d) ==
-                "generic"]
-        worst, err, n = 0.0, 0.0, 0
+        dims = [d for d in GENERIC_FLASH_DIMS
+                if kfa.route(dtype, d) == "tf32x3"] + [GENERIC_FLASH_PAST]
+        worst, err, n, wgmma = {}, 0.0, 0, 0
         for d in dims:
+            path = kfa.route(dtype, d)
+            require(path == ("generic" if d == GENERIC_FLASH_PAST
+                             else "tf32x3"), f"flash route {name} D={d}")
             for b, hq, hkv, sq, skv, causal in GENERIC_FLASH_CASES:
                 q, k, v = (rand(s, dtype) for s in (
                     (b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
-                before = kfa.flash_attention.generic_launches
+                before = flash_counts(kfa)
                 out = kfa.flash_attention(q, k, v, causal=causal)
-                require(kfa.flash_attention.generic_launches == before + 1,
-                        f"flash {name} D={d} did not run the generic kernel")
+                after = flash_counts(kfa)
+                on_wgmma = kfa.tf32x3_wgmma(q, k, v)
+                want_counts = (before[0] + 1,
+                               before[1] + int(path == "tf32x3"),
+                               before[2] + int(path == "tf32x3" and on_wgmma),
+                               before[3] + int(path == "generic"))
+                require(after == want_counts, f"flash {name} D={d}: counters "
+                        f"{before} -> {after}, expected {want_counts}")
+                wgmma += after[2] - before[2]
                 want = ref.attention(q, k, v, causal=causal)
                 pv = ref.attention(q, k, v.abs(), causal=causal)
-                worst = max(worst, flash_bar_excess(out, want, pv, name))
+                worst[path] = max(worst.get(path, 0.0),
+                                  flash_bar_excess(out, want, pv, name))
                 err = max(err, (out.float() - want.float()).abs().max()
                           .item())
                 n += 1
+        sweep[name] = worst
         emit({"phase": "kernels_generic", "kernel": "flash_attention",
-              "route": "generic", "dtype": name, "head_dims": dims,
-              "cases": [list(c) for c in GENERIC_FLASH_CASES], "checks": n,
+              "routes": {"tf32x3": [d for d in dims
+                                    if d != GENERIC_FLASH_PAST],
+                         "generic": [GENERIC_FLASH_PAST]},
+              "dtype": name, "cases": [list(c) for c in GENERIC_FLASH_CASES],
+              "checks": n, "tf32x3_wgmma_launches": wgmma,
               "max_abs_err": err, "err_over_bar": worst,
               "tol": {"float32": F32_FLASH_RULE, "bfloat16": FA_RULE,
                       "float16": F16_FLASH_RULE}[name]})
-        require(worst <= 1.0, f"generic flash {name}: {worst} x its bar")
+        require(max(worst.values()) <= 1.0,
+                f"flash {name}: {worst} x its bar")
 
-    # the generic and wgmma kernels on the same bf16 inputs, D = 64
+    # the 3xTF32 and CUDA-core kernels against the wgmma one on the same
+    # bf16 inputs, D = 64
     q = rand((1, 8, 1000, 64), torch.bfloat16)
     k, v = rand((1, 2, 1000, 64), torch.bfloat16), rand((1, 2, 1000, 64),
                                                         torch.bfloat16)
     wg = kfa.flash_attention(q, k, v)
+    tc = kfa.tf32x3(q, k, v)
     gn = kfa.generic(q, k, v)
     pv = ref.attention(q, k, v.abs())
-    agree = flash_excess(gn, wg, pv)
     want = ref.attention(q, k, v)
+    agree = {"tf32x3": flash_excess(tc, wg, pv),
+             "generic": flash_excess(gn, wg, pv)}
     emit({"phase": "kernels_generic", "kernel": "flash_attention",
-          "check": "generic vs wgmma, same bf16 inputs", "q": list(q.shape),
-          "err_over_bar": agree, "tol": FA_RULE + ", the wgmma output as "
-          "the reference", "generic_vs_plain": flash_excess(gn, want, pv),
+          "check": "tf32x3 and generic vs wgmma, same bf16 inputs",
+          "q": list(q.shape), "err_over_bar": agree, "tol": FA_RULE +
+          ", the wgmma output as the reference",
+          "tf32x3_vs_plain": flash_excess(tc, want, pv),
+          "generic_vs_plain": flash_excess(gn, want, pv),
           "wgmma_vs_plain": flash_excess(wg, want, pv),
           "wgmma_ms": time_ms(torch, lambda: kfa.flash_attention(q, k, v)),
+          "tf32x3_ms": time_ms(torch, lambda: kfa.tf32x3(q, k, v)),
           "generic_ms": time_ms(torch, lambda: kfa.generic(q, k, v))})
-    require(agree <= 1.0, f"generic vs wgmma flash: {agree} x the bar")
+    for kernel, x in agree.items():
+        require(x <= 1.0, f"{kernel} vs wgmma flash: {x} x the bar")
 
-    # row 5g: qwen3-4b's attention in f32 at 1 x 4096
+    # row 5g: qwen3-4b's attention in f32 at 1 x 4096, on the route's
+    # kernel (3xTF32 wgmma), beside the mma.sync 3xTF32 kernel and the
+    # CUDA-core one it replaced, on the same inputs
     from repro_torch.configs import ARCHS
     q3 = ARCHS["qwen3-4b"].config()
     q = rand((1, q3.num_heads, LM_SEQ, q3.head_dim), torch.float32)
     k = rand((1, q3.num_kv_heads, LM_SEQ, q3.head_dim), torch.float32)
     v = rand((1, q3.num_kv_heads, LM_SEQ, q3.head_dim), torch.float32)
+    require(kfa.route(q.dtype, q3.head_dim) == "tf32x3"
+            and kfa.tf32x3_wgmma(q, k, v), "row 5g off the 3xTF32 wgmma")
     out = kfa.flash_attention(q, k, v)
+    mma = kfa._tf32x3(q, k, v, True, None, False)
+    was = kfa.generic(q, k, v)
     want = ref.attention(q, k, v)
-    excess = flash_bar_excess(out, want, ref.attention(q, k, v.abs()),
-                              "float32")
+    pv = ref.attention(q, k, v.abs())
+    excess = {name: flash_bar_excess(x, want, pv, "float32")
+              for name, x in (("tf32x3", out), ("mma_sync", mma),
+                              ("generic", was))}
     err = (out - want).abs().max().item()
-    del want
-    ms = time_ms(torch, lambda: kfa.flash_attention(q, k, v), reps=3,
+    del want, pv, mma, was
+    ms = time_ms(torch, lambda: kfa.flash_attention(q, k, v), reps=5,
                  warm=1)
+    mma_ms = time_ms(torch, lambda: kfa._tf32x3(q, k, v, True, None, False),
+                     reps=5, warm=1)
+    was_ms = time_ms(torch, lambda: kfa.generic(q, k, v), reps=2, warm=1)
     plain = time_ms(torch, lambda: ref.attention(q, k, v), reps=3, warm=1)
     lib = sdpa_f32_ms(torch, F, q, k, v)
+    # the library's own kernels by name (the profiler; its device times
+    # are not used: a window can drop events), K/V expanded beforehand as
+    # sdpa_f32_ms does
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    kk, vv = (t.repeat_interleave(q3.num_heads // q3.num_kv_heads, dim=1)
+              for t in (k, v))
+
+    def sdpa_once():
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            return F.scaled_dot_product_attention(q, kk, vv, is_causal=True)
+    lib_kernels = []
+    for _ in range(3):      # a profiler window can come back empty
+        lib_kernels = sorted(kernel_device_ms(torch, sdpa_once, reps=2))
+        if lib_kernels:
+            break
+    del kk, vv
     ops = 4.0 * q3.head_dim * attn_pairs(LM_SEQ, LM_SEQ) * q3.num_heads
     io = nbytes(q, k, v, out)
     bnd, by = bound_ms(peaks, io, ops, tf32x3=True)
     bnd32 = bound_ms(peaks, io, ops)[0]
-    emit({"phase": "kernel", "kernel": "flash_attention_generic",
+    emit({"phase": "kernel", "kernel": "flash_attention_tf32x3",
           "shape": f"qwen3-4b 1 x {LM_SEQ}, float32", "q": list(q.shape),
           "k": list(k.shape), "causal": True, "max_abs_err": err,
           "err_over_bar": excess, "tol": F32_FLASH_RULE, "ms": ms,
+          "mma_sync_ms": mma_ms, "was_ms": was_ms,
+          "was": "flash_attention_generic_kernel (CUDA cores)",
           "plain_ms": plain, "library_ms": lib,
           "library": "sdpa f32 (memory-efficient, K/V expanded)",
-          "bound_ms": bnd, "bound_by": by, "bound_fp32_ms": bnd32,
-          "flop": ops})
-    require(excess <= 1.0, f"generic flash qwen3-4b f32: {excess} x bar")
-    table.add("flash_attention_generic", err=err, ms=ms, plain_ms=plain,
+          "library_kernels": lib_kernels, "bound_ms": bnd, "bound_by": by,
+          "bound_fp32_ms": bnd32, "flop": ops})
+    require(max(excess.values()) <= 1.0,
+            f"flash qwen3-4b f32: {excess} x the bar")
+    table.add("flash_attention_tf32x3", err=err, ms=ms, plain_ms=plain,
               bound=bnd, bound_by=by, library_ms=lib, bound_fp32=bnd32)
+    table.rows["flash_attention_tf32x3"].update(
+        was_ms=was_ms, mma_sync_ms=mma_ms, library_kernels=lib_kernels)
     del q, k, v, out
     torch.cuda.empty_cache()
 
-    # the SSD sweep: four pairs x two dtypes, B/C per head and broadcast
+    # the SSD sweep: four pairs on the padded passes and one past them x
+    # two dtypes, B/C per head and broadcast
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         rtol = 2 ** -7 if dtype == torch.bfloat16 else SSD_TOL
-        err, ok = 0.0, True
-        for ds, dh in GENERIC_SSD_DIMS:
-            require(kssd.route(ds, dh) == "generic", f"ssd route {ds, dh}")
+        err, ok = {}, True
+        for ds, dh in GENERIC_SSD_DIMS + (GENERIC_SSD_PAST,):
+            past = (ds, dh) == GENERIC_SSD_PAST
+            require(kssd.route(ds, dh) == ("generic" if past
+                                           else "tensor_cores")
+                    and (ds, dh) not in kssd.DIMS, f"ssd route {ds, dh}")
             x = rand((5, 150, dh), dtype, 0.5)
             la = -F.softplus(torch.randn((5, 150), generator=gen,
                                          device=dev))
@@ -3106,48 +3195,73 @@ def phase_kernels_generic(torch, F, peaks, table):
                                                         0.3)
             for bb, cc in ((b, c), (b[:1].expand(5, 150, ds),
                                     c[:1].expand(5, 150, ds))):
+                f = kssd.ssd_scan
+                before = (f.launches, f.padded_launches, f.generic_launches)
                 out = kssd.ssd_scan(x, la, bb, cc)
+                after = (f.launches, f.padded_launches, f.generic_launches)
+                expect = (before[0] + 1, before[1] + int(not past),
+                          before[2] + int(past))
+                require(after == expect, f"ssd {name} {ds, dh}: counters "
+                        f"{before} -> {after}, expected {expect}")
                 want = ref.ssd_scan(x, la, bb, cc)[0]
-                err = max(err, (out.float() - want.float()).abs().max()
-                          .item())
+                key = "generic" if past else "padded"
+                err[key] = max(err.get(key, 0.0), (
+                    out.float() - want.float()).abs().max().item())
                 ok = ok and torch.allclose(out.float(), want.float(),
                                            rtol=rtol, atol=SSD_TOL)
         emit({"phase": "kernels_generic", "kernel": "ssd_scan",
-              "route": "generic", "dtype": name,
-              "dims": [list(p) for p in GENERIC_SSD_DIMS], "bh": 5, "t": 150,
+              "routes": {"padded": {f"{p}": list(kssd.padded(*p))
+                                    for p in GENERIC_SSD_DIMS},
+                         "generic": [list(GENERIC_SSD_PAST)]},
+              "dtype": name, "bh": 5, "t": 150,
               "b_c": "per head and one row over the heads", "max_abs_err": err,
               "tol": f"{SSD_TOL} + {rtol} |y|"})
-        require(ok, f"generic ssd {name}: max abs err {err}")
+        require(ok, f"ssd sweep {name}: max abs err {err}")
 
-    # row 6g: mamba2-780m's inner width (3,072) in 24 heads of 128, ds 128
+    # row 6g: mamba2-780m's inner width (3,072) in 24 heads of 128, ds 128,
+    # on the (128, 128) passes, beside the recurrence kernel on the same
+    # inputs
     x, la, b, c = ssd_inputs(torch, F, LM_SEQ, gen, dev, bh=24, ds=128,
                              dh=128)
     args = (x.float(), la, b[:1].float().expand(b.shape),
             c[:1].float().expand(c.shape))
+    before = kssd.ssd_scan.padded_launches
     out = kssd.ssd_scan(*args)
+    require(kssd.ssd_scan.padded_launches == before + 1,
+            "row 6g off the padded passes")
+    was = kssd.generic(*args)
     want = ref.ssd_scan(*args)[0]
     err = (out - want).abs().max().item()
     ok = torch.allclose(out, want, rtol=SSD_TOL, atol=SSD_TOL)
-    del want
+    was_err = (was - want).abs().max().item()
+    del want, was
     ms = time_ms(torch, lambda: kssd.ssd_scan(*args), reps=5, warm=1)
+    was_ms = time_ms(torch, lambda: kssd.generic(*args), reps=3, warm=1)
+    by_pass = {SSD_PASSES.get(k, k): v for k, v in kernel_device_ms(
+        torch, lambda: kssd.ssd_scan(*args)).items()}
     plain = time_ms(torch, lambda: ref.ssd_scan(*args), reps=1, warm=0)
     bh, t, dh = args[0].shape
     ops = ssd_flop(bh, t, 128, dh)
     io = nbytes(args[0], args[1], args[2][:1], args[3][:1], out)
     bnd, by = bound_ms(peaks, io, ops, tf32x3=True)
     bnd32 = bound_ms(peaks, io, ops)[0]
-    emit({"phase": "kernel", "kernel": "ssd_scan_generic",
+    emit({"phase": "kernel", "kernel": "ssd_scan_padded",
           "shape": f"24 heads x {LM_SEQ}, ds 128, dh 128, float32",
           "x": list(args[0].shape), "b_c": "one row over the heads "
           "(stride 0)", "max_abs_err": err, "tol": SSD_TOL, "ms": ms,
-          "plain_ms": plain, "library_ms": None, "bound_ms": bnd,
-          "bound_by": by, "bound_fp32_ms": bnd32, "flop": ops})
-    require(ok, f"generic ssd 24 x 4096 (128, 128): max abs err {err}")
-    table.add("ssd_scan_generic", err=err, ms=ms, plain_ms=plain, bound=bnd,
+          "device_ms_by_pass": by_pass, "was_ms": was_ms,
+          "was": "ssd_scan_generic_kernel (the recurrence, CUDA cores)",
+          "was_max_abs_err": was_err, "plain_ms": plain, "library_ms": None,
+          "bound_ms": bnd, "bound_by": by, "bound_fp32_ms": bnd32,
+          "flop": ops})
+    require(ok, f"ssd 24 x 4096 (128, 128): max abs err {err}")
+    table.add("ssd_scan_padded", err=err, ms=ms, plain_ms=plain, bound=bnd,
               bound_by=by, library_ms=None, bound_fp32=bnd32)
+    table.rows["ssd_scan_padded"].update(was_ms=was_ms,
+                                         device_ms_by_pass=by_pass)
     del args, out
 
-    # the generic kernel beside the tensor-core passes at mamba2-780m's
+    # the recurrence kernel beside the tensor-core passes at mamba2-780m's
     # own shape (48 heads x 4096, ds 128, dh 64, bf16): same inputs
     m2 = ARCHS["mamba2-780m"].config()
     args = ssd_inputs(torch, F, LM_SEQ, gen, dev, bh=m2.ssm_heads,
@@ -3176,10 +3290,10 @@ F32_PARITY_SEQ = 128    # four SSD chunks of the smoke configs' 32
 
 
 def f32_parity_configs():
-    """The f32 smoke configs: qwen3-4b (the generic flash kernel at head
-    dim 16), mamba2-780m ((ds, dh) = (16, 16): the tensor-core SSD), and
-    mamba2-780m's smoke at (ds, dh) = (64, 32), a pair the tensor-core
-    passes are not built for (the generic SSD)."""
+    """The f32 smoke configs: qwen3-4b (the 3xTF32 flash route at head dim
+    16, its mma.sync kernel), mamba2-780m ((ds, dh) = (16, 16): the SSD
+    passes' own DIMS pair), and mamba2-780m's smoke at (ds, dh) = (64, 32),
+    a pair outside DIMS (the padded passes' (64, 32) instantiation)."""
     import dataclasses
 
     from repro_torch.configs import ARCHS
@@ -3238,6 +3352,8 @@ def check_path_calls(torch, calls) -> dict:
             "q": list(q.shape), "k": list(k.shape),
             "q_stride": list(q.stride()), "route": kfa.route(q.dtype,
                                                              q.shape[-1]),
+            "tf32x3_kernel": "wgmma" if kfa.tf32x3_wgmma(q, k, v)
+            else "mma_sync",
             "causal": kw.get("causal", True),
             "max_abs_err": (got - want).abs().max().item(),
             "err_over_bar": flash_bar_excess(got, want, pv, "float32")})
@@ -3248,7 +3364,9 @@ def check_path_calls(torch, calls) -> dict:
         out.setdefault("ssd_scan", []).append({
             "x": list(x.shape), "b": list(b.shape),
             "b_stride": list(b.stride()), "c_stride": list(c.stride()),
-            "route": kssd.route(b.shape[-1], x.shape[-1]), **kw,
+            "route": kssd.route(b.shape[-1], x.shape[-1]),
+            "instantiation": kssd.padded(b.shape[-1], x.shape[-1]),
+            "padded": (b.shape[-1], x.shape[-1]) not in kssd.DIMS, **kw,
             "max_abs_err": (got - want).abs().max().item(),
             "within_tol": bool(torch.allclose(got, want, rtol=SSD_TOL,
                                               atol=SSD_TOL))})
@@ -3293,9 +3411,9 @@ def phase_lm_parity_f32(torch, paths):
     calls, restore = recorded_calls(torch, ops,
                                     ("flash_attention", "ssd_scan"))
     try:
-        lines = paths.drive("lm_parity_f32", ("flash_attention_generic",
+        lines = paths.drive("lm_parity_f32", ("flash_attention_tf32x3",
                                               "matmul", "ssd_scan",
-                                              "ssd_scan_generic"), run)
+                                              "ssd_scan_padded"), run)
     finally:
         restore()
     for line in lines:
@@ -3312,6 +3430,12 @@ def phase_lm_parity_f32(torch, paths):
     for c in checked["flash_attention"]:
         require(c["err_over_bar"] <= 1.0, f"flash at the f32 path's "
                 f"{c['q']} x {c['k']}: {c['err_over_bar']} x its bar")
+        require(c["route"] == "tf32x3", f"f32 flash at {c['q']} on the "
+                f"{c['route']} route, not tf32x3")
+    require(any(c["padded"] and c["x"][-1] == 32 and c["b"][-1] == 64
+                and c["route"] == "tensor_cores"
+                for c in checked["ssd_scan"]),
+            "lm_parity_f32: no (64, 32) SSD call on the padded passes")
     for c in checked["ssd_scan"]:
         require(c["within_tol"], f"ssd_scan at the f32 path's {c['x']}: "
                 f"max abs err {c['max_abs_err']}")
@@ -3613,12 +3737,13 @@ KERNELS = {
                  "src/repro/kernels/ssd_scan.py:88"),
     "matmul_bf16": ("src/repro_torch/kernels/csrc/matmul.cu",
                     "src/repro/kernels/matmul.py:120"),
-    # the generic routes (any dtype and head dim; any (ds, dh))
-    "flash_attention_generic": (
+    # rows 5g and 6g: the f32 (f16, odd-D bf16) flash route on 3xTF32
+    # tensor cores, and the SSD pairs outside DIMS on the padded passes
+    "flash_attention_tf32x3": (
         "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:111"),
-    "ssd_scan_generic": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
-                         "src/repro/kernels/ssd_scan.py:88"),
+    "ssd_scan_padded": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                        "src/repro/kernels/ssd_scan.py:88"),
 }
 
 
@@ -3638,9 +3763,15 @@ def launch_counters():
             "flash_attention": (flash_attention.flash_attention, "launches"),
             "ssd_scan": (ssd_scan.ssd_scan, "launches"),
             "matmul_bf16": (matmul.matmul_bf16, "launches"),
+            "flash_attention_tf32x3": (flash_attention.flash_attention,
+                                       "tf32x3_launches"),
+            "ssd_scan_padded": (ssd_scan.ssd_scan, "padded_launches"),
+            # the CUDA-core kernels, kept as the routes past those
             "flash_attention_generic": (flash_attention.flash_attention,
                                         "generic_launches"),
             "ssd_scan_generic": (ssd_scan.ssd_scan, "generic_launches"),
+            "flash_attention_tf32x3_wgmma": (flash_attention.flash_attention,
+                                             "tf32x3_wgmma_launches"),
             # the launches of matmul_bf16 that ran its wgmma kernel, of
             # conv1d and conv1d_int8 their tensor-core kernels, of matmul and
             # matmul_int8 their
@@ -3786,10 +3917,14 @@ def main() -> int:
     for k, (src, replaces) in KERNELS.items():
         r = table.rows[k]
         launches = paths.total[k]
-        if k in ("flash_attention", "ssd_scan"):
-            # the wrapper counts both its kernels: the generic one has its
-            # own row
-            launches -= paths.total[f"{k}_generic"]
+        if k == "flash_attention":
+            # the wrapper counts all its kernels: the 3xTF32 ones have
+            # their own row, the CUDA-core one runs on no main path
+            launches -= (paths.total["flash_attention_tf32x3"]
+                         + paths.total["flash_attention_generic"])
+        if k == "ssd_scan":
+            launches -= (paths.total["ssd_scan_padded"]
+                         + paths.total["ssd_scan_generic"])
         kernels.append({
             "name": k, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches, "max_abs_err": r["max_abs_err"],
@@ -3805,11 +3940,23 @@ def main() -> int:
             kernels[-1]["bound_fp32_ms"] = r["bound_fp32_ms"]
         if k == "matmul":
             kernels[-1]["skinny_launches"] = paths.total["matmul_skinny"]
-        if k.endswith("_generic"):
-            # bound_ms at the 3xTF32 rate, the card's f32-accurate peak;
-            # bound_fp32_ms at the CUDA cores' fp32 rate the kernel uses
-            kernels[-1].update(generic_launches=launches,
-                               bound_fp32_ms=r["bound_fp32_ms"])
+        if k in ("flash_attention_tf32x3", "ssd_scan_padded"):
+            # bound_ms at the 3xTF32 rate, the card's f32-accurate peak,
+            # bound_fp32_ms at the CUDA cores' fp32 rate; was_ms the
+            # CUDA-core kernel this row ran on before, same inputs, and
+            # its launches on the main paths (none: past the new reach)
+            generic = k.replace("tf32x3", "generic").replace("padded",
+                                                             "generic")
+            kernels[-1].update(bound_fp32_ms=r["bound_fp32_ms"],
+                               was_ms=r["was_ms"],
+                               generic_launches=paths.total[generic])
+        if k == "flash_attention_tf32x3":
+            kernels[-1].update(
+                wgmma_launches=paths.total["flash_attention_tf32x3_wgmma"],
+                mma_sync_ms=r["mma_sync_ms"],
+                library_kernels=r["library_kernels"])
+        if k == "ssd_scan_padded":
+            kernels[-1]["device_ms_by_pass"] = r["device_ms_by_pass"]
         if k == "matmul_int8":
             kernels[-1].update(
                 skinny_launches=paths.total["matmul_int8_skinny"],

@@ -6,7 +6,8 @@ fp32 and int8 ticks at the flowcell tick's, the wavefront DP at the
 mapper's, the pathogen firehose's and the demux's.
 
     python3 scripts/kernel_variants.py [--reps 3]
-        [--only gemm|flash|conv|fused|ssd|banded] [--variants NAME,...]
+        [--only gemm|flash|flash_f32|conv|fused|ssd|banded]
+        [--variants NAME,...]
 
 Each variant is a patched copy of ``src/repro_torch/kernels/csrc`` built
 under ``build/variants/<name>/`` (the checkout's sources are not touched)
@@ -32,6 +33,26 @@ three qwen3-4b MLP GEMMs at 4,096 tokens (gate + silu, up, down):
   grid_3d           one launch, tiles on y continued on z, the tail's
                     blocks returning at once
   grid_2d           one launch, tiles on y alone (at most 65,535 tiles)
+
+``flash_attention_tf32x3`` variants (``--only flash_f32``) run qwen3-4b's
+attention in f32 (1 x 32/8 x 4096 x 128, causal), the route of row 5g;
+the CUDA-core kernel and SDPA f32 beside them:
+
+  wgmma_one_acc_s   the wgmma .tf32 kernel (the route's here) with S's
+                    small terms in hi x hi's accumulator
+  wgmma_one_acc_o   the wgmma kernel with each tile's P V summed into O
+                    in the tensor cores' accumulator, no fresh one
+  split_per_warp    the mma.sync kernel's first design: every warp splits
+                    the K and V values it reads as their fragments load
+                    (64-key raw tiles through a two-stage cp.async ring),
+                    S and P V each summed in one accumulator
+  tf32x1            the mma.sync kernel with hi x hi only: one TF32
+                    product a k-step (its error shows why it takes three)
+  one_acc_s         the mma.sync kernel with S's small terms summed into
+                    hi x hi's accumulator
+  one_acc_o         the mma.sync kernel with each tile's P V summed into
+                    O, not a fresh accumulator
+  bk_32             the mma.sync kernel with 32-key K/V tiles, not 48
 
 ``conv1d`` variants run the tick's conv2-conv5 (512 lanes x chunk 256,
 the paper's CNN, stream carries):
@@ -275,6 +296,315 @@ FLASH = {
         ("      wgmma_commit();\n      fence_regs(o);",
          "      wgmma_commit();\n      if (wg == 0 || kb < last_k) "
          + PP_ARRIVE + "      fence_regs(o);")],
+}
+# the 3xTF32 flash kernel (csrc/flash_attention.cu), patched
+TF_SHAPE = "template <int DP>\nstruct TfShape {"
+TF_LAUNCH = "template <typename T, int DP>\nstatic int launch_tf32x3("
+TF_S2 = ("          if constexpr (!EXACT) {\n"
+         "            mma_tf32_1688(s2[n], al, bh0, bh1);\n"
+         "            mma_tf32_1688(s2[n], ah,")
+TF_PV = "      mma_split<false, EXACT>(acc[n], ah, al, bh0, bh1, bl0, bl1);"
+TF_FRESH = "  static constexpr bool FRESH = DP <= 128;"
+TF_BK = "  static constexpr int BK = DP <= 64 ? 64 : DP <= 128 ? 48 : 24;"
+# the kernel's first design: every warp split the K and V values it read
+# as their fragments loaded (a two-stage cp.async ring of raw 64-key
+# tiles), and S and P V summed into one accumulator each
+TF_SPLIT_PER_WARP = r"""template <int DP>
+struct TfShape {
+  static constexpr int BQ = DP <= 128 ? 128 : 64;  // query rows a block
+  static constexpr int BK = DP <= 128 ? 64 : 32;   // keys a K / V tile
+  static constexpr int THREADS = BQ / 16 * 32;     // a warp per 16 rows
+  static constexpr int LD = DP + 4;                // floats a staged row
+  static constexpr int Q_FLOATS = BQ * LD;
+  static constexpr int KV_FLOATS = BK * LD;
+  static constexpr int SMEM = 4 * (Q_FLOATS + 4 * KV_FLOATS);  // Q; K, V x 2
+};
+
+// Rows [r0, r0 + ROWS) of a (len, d) head into dst[ROWS][DP + 4] as f32,
+// rows past len and columns d .. DP as zeros: f32 by cp.async (16-byte
+// granules when `vec`, else 4-byte), 16-bit types by loads widened as they
+// are stored (eight in flight a thread).
+template <typename T, int DP, int ROWS, int NT>
+__device__ __forceinline__ void tf_stage(float* dst, const T* __restrict__ src,
+                                         int r0, int len, int d, bool vec) {
+  constexpr int LD = DP + 4;
+  if constexpr (std::is_same<T, float>::value) {
+    if (vec) {
+      constexpr int C4 = DP / 4;
+      for (int i = threadIdx.x; i < ROWS * C4; i += NT) {
+        const int r = i / C4, c = (i % C4) * 4;
+        const bool ok = r0 + r < len && c < d;
+        cp_async16(dst + r * LD + c,
+                   ok ? src + static_cast<size_t>(r0 + r) * d + c : src, ok);
+      }
+    } else {
+      for (int i = threadIdx.x; i < ROWS * DP; i += NT) {
+        const int r = i / DP, c = i % DP;
+        const bool ok = r0 + r < len && c < d;
+        cp_async4(dst + r * LD + c,
+                  ok ? src + static_cast<size_t>(r0 + r) * d + c : src, ok);
+      }
+    }
+  } else {
+    constexpr int N = ROWS * DP;
+    for (int i0 = 0; i0 < N; i0 += 8 * NT) {
+      float v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int i = i0 + j * NT + static_cast<int>(threadIdx.x);
+        const int r = i / DP, c = i % DP;
+        v[j] = i < N && r0 + r < len && c < d
+                   ? fg_load(src + static_cast<size_t>(r0 + r) * d + c)
+                   : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int i = i0 + j * NT + static_cast<int>(threadIdx.x);
+        if (i < N) dst[(i / DP) * LD + i % DP] = v[j];
+      }
+    }
+  }
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(TfShape<DP>::THREADS, 1)
+flash_attention_tf32x3_kernel(const T* __restrict__ q,
+                              const T* __restrict__ k,
+                              const T* __restrict__ v, T* __restrict__ out,
+                              int bhs, int hq, int hkv, int sq, int skv, int d,
+                              float scale, int causal, int vec,
+                              long long block0, int tiles) {
+  using S = TfShape<DP>;
+  constexpr bool EXACT = !std::is_same<T, float>::value;
+  constexpr int LD = S::LD, BK = S::BK, NT = S::THREADS;
+  extern __shared__ __align__(16) float tf_smem[];
+  float* qs = tf_smem;                   // [BQ][LD]
+  float* ks = qs + S::Q_FLOATS;          // [2][BK][LD]
+  float* vs = ks + 2 * S::KV_FLOATS;     // [2][BK][LD]
+
+  const long long blk = block0 + blockIdx.x;
+  const int bh = static_cast<int>(blk % bhs);
+  // query tiles longest first: the block's tile counted from the last
+  const int q0 = (tiles - 1 - static_cast<int>(blk / bhs)) * S::BQ;
+  const int kvh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
+  const int offs = skv - sq;
+  const int kend = causal ? min(skv, min(q0 + S::BQ, sq) + offs) : skv;
+  const int nkt = (kend + BK - 1) / BK;
+  const T* qh = q + static_cast<size_t>(bh) * sq * d;
+  const T* kh = k + static_cast<size_t>(kvh) * skv * d;
+  const T* vh = v + static_cast<size_t>(kvh) * skv * d;
+
+  tf_stage<T, DP, S::BQ, NT>(qs, qh, q0, sq, d, vec);
+  tf_stage<T, DP, BK, NT>(ks, kh, 0, skv, d, vec);
+  tf_stage<T, DP, BK, NT>(vs, vh, 0, skv, d, vec);
+  cp_async_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wr0 = warp * 16;           // the warp's first row in the tile
+  const int rw = q0 + wr0;             // ... in the head
+  const int ra = rw + g;               // this thread's rows ra, ra + 8
+  const int csteps = (d + 7) / 8;      // k-steps (and O's n-tiles) below D
+  const float sl2 = scale * FA_LOG2E;  // logit to the exp2 domain
+
+  float o[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max, exp2 domain
+  float l[2] = {0.f, 0.f};
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int k0 = kt * BK;
+    if (kt + 1 < nkt) {
+      const int st = (kt + 1) & 1;
+      tf_stage<T, DP, BK, NT>(ks + st * S::KV_FLOATS, kh, k0 + BK, skv, d, vec);
+      tf_stage<T, DP, BK, NT>(vs + st * S::KV_FLOATS, vh, k0 + BK, skv, d, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* kb = ks + (kt & 1) * S::KV_FLOATS;
+    const float* vb = vs + (kt & 1) * S::KV_FLOATS;
+    // a warp whose 16 rows see no key of this tile (causal) skips it; key 0
+    // is seen by every row, so the first tile makes every m finite
+    if (!causal || k0 <= rw + 15 + offs) {
+      // S = Q K^T on the warp's 16 rows x BK keys
+      float s[BK / 8][4];
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DP / 8; ++kk) {
+        if (kk >= csteps) break;
+        uint32_t ah[4], al[4];
+        load_a<!EXACT>(qs + (wr0 + g) * LD + 8 * kk + t4, LD, ah, al);
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n) {
+          // B = K^T: element (k, n) at K row n, column k
+          const float* pb = kb + (8 * n + g) * LD + 8 * kk + t4;
+          uint32_t bh0, bl0, bh1, bl1;
+          tf32_parts<!EXACT>(pb[0], bh0, bl0);
+          tf32_parts<!EXACT>(pb[4], bh1, bl1);
+          mma_split<EXACT, EXACT>(s[n], ah, al, bh0, bh1, bl0, bl1);
+        }
+      }
+      // scaled logits in the exp2 domain; the mask where the tile needs it
+      // (rows ra: e = 0, 1; ra + 8: e = 2, 3)
+      const bool masked =
+          k0 + BK > skv || (causal && k0 + BK - 1 > rw + offs);
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float t = s[n][e] * sl2;
+          if (masked) {
+            const int row = ra + (e < 2 ? 0 : 8);
+            const int col = k0 + 8 * n + 2 * t4 + (e & 1);
+            const bool ok = col < skv && (!causal || col <= row + offs);
+            s[n][e] = ok ? t : -INFINITY;
+          } else {
+            s[n][e] = t;
+          }
+        }
+      // online softmax
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+      }
+      float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        mx[r] = fmaxf(m[r], mx[r]);
+        alpha[r] = ex2_ftz(m[r] - mx[r]);
+        m[r] = mx[r];
+      }
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = ex2_ftz(s[n][e] - mx[e >> 1]);
+          rs[e >> 1] += s[n][e];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+        l[r] = alpha[r] * l[r] + rs[r];
+      }
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        o[n][0] *= alpha[0];
+        o[n][1] *= alpha[0];
+        o[n][2] *= alpha[1];
+        o[n][3] *= alpha[1];
+      }
+      // O += P V: k-step kk is S's n-tile kk, thread t holding keys 2t and
+      // 2t + 1 as A's columns t and t + 4, so V's rows 2t and 2t + 1 are
+      // the B fragment's
+#pragma unroll
+      for (int kk = 0; kk < BK / 8; ++kk) {
+        uint32_t ah[4], al[4];
+        split_tf32_int(s[kk][0], ah[0], al[0]);  // (g,     key 2t)
+        split_tf32_int(s[kk][2], ah[1], al[1]);  // (g + 8, key 2t)
+        split_tf32_int(s[kk][1], ah[2], al[2]);  // (g,     key 2t + 1)
+        split_tf32_int(s[kk][3], ah[3], al[3]);  // (g + 8, key 2t + 1)
+        const float* pv = vb + (8 * kk + 2 * t4) * LD + g;
+#pragma unroll
+        for (int n = 0; n < DP / 8; ++n) {
+          if (n >= csteps) break;
+          uint32_t bh0, bl0, bh1, bl1;
+          tf32_parts<!EXACT>(pv[8 * n], bh0, bl0);
+          tf32_parts<!EXACT>(pv[LD + 8 * n], bh1, bl1);
+          mma_split<false, EXACT>(o[n], ah, al, bh0, bh1, bl0, bl1);
+        }
+      }
+    }
+    __syncthreads();  // this stage is consumed: the next loads may land
+  }
+
+  T* oh = out + static_cast<size_t>(bh) * sq * d;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = ra + 8 * h;
+    if (r >= sq) continue;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      if (n >= csteps) break;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * n + 2 * t4 + e;
+        if (c < d)
+          fg_store(oh + static_cast<size_t>(r) * d + c, o[n][2 * h + e] / l[h]);
+      }
+    }
+  }
+}
+
+"""
+TW_S2 = "        wgmma_tf32_ss<TW_BK>(s2, dqh, dkl, 1);\n"
+TW_PV = """\
+        wgmma_tf32_rs<TW_D>(ot, pl[kk], dvh, kk != 0);
+        wgmma_tf32_rs<TW_D>(ot, ph[kk], dvl, 1);
+        wgmma_tf32_rs<TW_D>(ot, ph[kk], dvh, 1);
+"""
+TW_OT = """\
+      float ot[TW_D / 2];
+#pragma unroll
+      for (int i = 0; i < TW_D / 2; ++i) ot[i] = 0.f;
+      fence_regs(ot);
+"""
+TW_O = """\
+      fence_regs(ot);
+      wgmma_wait<0>();
+      fence_regs(ot);
+#pragma unroll
+      for (int i = 0; i < TW_D / 2; ++i)
+        o[i] = o[i] * alpha[(i >> 1) & 1] + ot[i];
+"""
+FLASH_F32 = {
+    # the wgmma .tf32 kernel (the route's at row 5g's shape): S's small
+    # terms in hi x hi's accumulator, each k-step's three wgmma in one
+    "wgmma_one_acc_s": [
+        (TW_S2, TW_S2.replace("(s2, dqh", "(s, dqh")),
+        ("        wgmma_tf32_ss<TW_BK>(s2, dql, dkh, kk != 0);\n",
+         "        wgmma_tf32_ss<TW_BK>(s, dql, dkh, kk != 0);\n"),
+        ("        wgmma_tf32_ss<TW_BK>(s, dqh, dkh, kk != 0);\n",
+         "        wgmma_tf32_ss<TW_BK>(s, dqh, dkh, 1);\n")],
+    # the wgmma kernel with each tile's P V summed into O (rescaled first)
+    # in the tensor cores' accumulator, no fresh one
+    "wgmma_one_acc_o": [
+        (TW_OT, """\
+#pragma unroll
+      for (int i = 0; i < TW_D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      fence_regs(o);
+"""),
+        (TW_PV, TW_PV.replace("(ot,", "(o,").replace("kk != 0);", "1);")),
+        ("      wgmma_commit();\n" + TW_O, """\
+      wgmma_commit();
+      fence_regs(o);
+      wgmma_wait<0>();
+      fence_regs(o);
+""")],
+    "split_per_warp": lambda text: [
+        (between(text, TF_SHAPE, TF_LAUNCH), TF_SPLIT_PER_WARP)],
+    # hi x hi only, one product a k-step (Q, K, V and P rounded to TF32):
+    # its error shows why the kernel takes three
+    "tf32x1": [(TF_S2, TF_S2.replace("(!EXACT)", "(false)")),
+               (TF_PV, TF_PV.replace("<false, EXACT>", "<true, true>"))],
+    # S's small terms summed into hi hi's accumulator, not their own
+    "one_acc_s": [(TF_S2, TF_S2.replace("(s2[n]", "(s[n]"))],
+    # each tile's P V summed into O, not into a fresh accumulator
+    "one_acc_o": [(TF_FRESH, "  static constexpr bool FRESH = false;")],
+    "bk_32": [(TF_BK, "  static constexpr int BK = DP <= 64 ? 64 : 32;")],
 }
 # the fused tick's tensor-core layer, patched (csrc/fused_stream.cu)
 FS_B_FROM_L2 = """\
@@ -1333,10 +1663,24 @@ ssd_chunk_out_kernel(const T* __restrict__ x, const float* __restrict__ la,
 """
 SSD_P1 = "// ---- pass 1: each chunk's own state and log decay"
 SSD_P2 = "// ---- pass 2: the scan over chunks"
-SSD_OUT = ("template <typename T, int DS, int DH>\n__global__ void "
-           "__launch_bounds__(SSD_THREADS, 2)\nssd_chunk_out_kernel")
-SSD_LAUNCH = ("template <typename T, int DS, int DH>\nstatic cudaError_t "
-              "launch_typed")
+SSD_OUT = ("template <typename T, int DS, int DH, bool PAD>\n__global__ void "
+           "__launch_bounds__(SSD_THREADS, (ssd_out_blocks<DS, DH>()))\n"
+           "ssd_chunk_out_kernel")
+SSD_LAUNCH = ("template <typename T, int DS, int DH, bool PAD>\n"
+              "static cudaError_t launch_typed")
+# the passes take the pair's real widths and a PAD flag (for the padded
+# instantiations); these variants run at mamba2-780m's own (128, 64) and
+# ignore both
+(SSD_CUDA_CORES_P1, SSD_CUDA_CORES_P3, SSD_G_REGISTERS, SSD_BF16_MMA,
+ SSD_HEADS_2) = (
+    t.replace("long long b_head_stride) {",
+              "long long b_head_stride, int ds, int dh) {")
+    .replace("long long c_head_stride) {",
+             "long long c_head_stride, int ds, int dh) {")
+    .replace("template <typename T, int DS, int DH>\n__global__",
+             "template <typename T, int DS, int DH, bool PAD>\n__global__")
+    for t in (SSD_CUDA_CORES_P1, SSD_CUDA_CORES_P3, SSD_G_REGISTERS,
+              SSD_BF16_MMA, SSD_HEADS_2))
 SSD = {
     # the parent's passes 1 and 3 (f32 fmaf on the CUDA cores)
     "cuda_cores": lambda text: [
@@ -1543,6 +1887,35 @@ def flash_round(torch, cs, build, variants, q, k, v, want, abs_attn):
                   out, want, abs_attn), "ms": cs.time_ms(
                   torch, lambda: kfa.flash_attention(q, k, v, causal=True),
                   reps=10)})
+
+
+def flash_f32_round(torch, cs, build, variants, q, k, v, want, abs_attn):
+    """The f32 route (qwen3-4b's attention in f32, 1 x 4096) on each
+    variant of the 3xTF32 kernels (``wgmma_*`` the wgmma .tf32 one, the
+    route's at this shape; the rest its mma.sync one, which the sound
+    source runs too): its error over F32_FLASH_RULE's bar and its event
+    ms; the CUDA-core kernel once, the sound source's."""
+    from repro_torch.kernels import flash_attention as kfa
+    for name, csrc in variants:
+        use(build, name, csrc)
+        kernels = ([("wgmma", True)] if name.startswith("wgmma_") else
+                   [("mma_sync", False)] + ([("wgmma", True)]
+                                            if name.startswith("sound")
+                                            else []))
+        for kernel, wgmma in kernels:
+            out = kfa._tf32x3(q, k, v, True, None, wgmma)
+            emit({"phase": "variant", "kernel": "flash_attention_tf32x3",
+                  "tf32x3_kernel": kernel, "variant": name,
+                  "err_over_bar": cs.flash_bar_excess(
+                      out, want, abs_attn, "float32"),
+                  "ms": cs.time_ms(torch, lambda: kfa._tf32x3(
+                      q, k, v, True, None, wgmma), reps=5, warm=1)})
+        if name == "sound":
+            emit({"phase": "variant", "kernel": "flash_attention_generic",
+                  "variant": "sound", "err_over_bar": cs.flash_bar_excess(
+                      kfa.generic(q, k, v), want, abs_attn, "float32"),
+                  "ms": cs.time_ms(torch, lambda: kfa.generic(q, k, v),
+                                   reps=2, warm=1)})
 
 
 def conv_layers(torch, dev):
@@ -1778,11 +2151,12 @@ def main() -> int:
     ap.add_argument("--variants", default="",
                     help="comma-separated variant names to run (all if "
                          "empty); the sound kernel always runs")
-    ap.add_argument("--only", choices=("gemm", "flash", "conv", "fused",
-                                       "ssd", "banded"))
+    ap.add_argument("--only", choices=("gemm", "flash", "flash_f32", "conv",
+                                       "fused", "ssd", "banded"))
     args = ap.parse_args()
     runs = ({args.only} if args.only
-            else {"gemm", "flash", "conv", "fused", "ssd", "banded"})
+            else {"gemm", "flash", "flash_f32", "conv", "fused", "ssd",
+                  "banded"})
     sys.path.insert(0, os.path.join(ROOT, "src"))
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
@@ -1805,6 +2179,7 @@ def main() -> int:
 
     gemm = variants(GEMM, "", "matmul.cu")
     flash = variants(FLASH, "", "flash_attention.cu")
+    flash_f32 = variants(FLASH_F32, "tf_", "flash_attention.cu")
     conv = variants(CONV, "conv1d_", "conv1d.cu")
     conv_int8 = variants(CONV_INT8, "conv1d_int8_", "conv1d.cu")
     banded = variants(BANDED, "banded_", "banded_align.cu")
@@ -1831,6 +2206,13 @@ def main() -> int:
             for _ in range(2))
     want = ref.attention(q, k, v, causal=True)
     abs_attn = ref.attention(q, k, v.abs(), causal=True)
+    if "flash_f32" in runs:
+        q32 = torch.randn((1, cfg.num_heads, s_len, cfg.head_dim),
+                          generator=gen, device=dev)
+        k32, v32 = (torch.randn((1, cfg.num_kv_heads, s_len, cfg.head_dim),
+                                generator=gen, device=dev) for _ in range(2))
+        want32 = ref.attention(q32, k32, v32, causal=True)
+        abs32 = ref.attention(q32, k32, v32.abs(), causal=True)
     layers = conv_layers(torch, dev)
     int8_layers = conv_int8_layers(torch, dev) if "conv" in runs else []
     banded_dp = banded_data(torch, dev) if "banded" in runs else []
@@ -1858,6 +2240,9 @@ def main() -> int:
             gemm_round(torch, cs, _build, gemm, data)
         if "flash" in runs:
             flash_round(torch, cs, _build, flash, q, k, v, want, abs_attn)
+        if "flash_f32" in runs:
+            flash_f32_round(torch, cs, _build, flash_f32, q32, k32, v32,
+                            want32, abs32)
         if "conv" in runs:
             conv_round(torch, cs, _build, conv, layers)
             conv_int8_round(torch, cs, _build, conv_int8, int8_layers)
@@ -1880,6 +2265,8 @@ def main() -> int:
             for label, a, w, act in data}
     if "flash" in runs:
         lib["sdpa_ms"] = cs.sdpa_ms(torch, F, q, k, v)
+    if "flash_f32" in runs:
+        lib["sdpa_f32_ms"] = cs.sdpa_f32_ms(torch, F, q32, k32, v32)
     if "conv" in runs:
         # cuDNN in PyTorch's layout, TF32 off (ref.full_fp32), as phase 2
         lib["cudnn_ms"] = {

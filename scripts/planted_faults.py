@@ -35,18 +35,21 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PLANT = os.path.join(ROOT, "build", "planted")
 FA_SRC = "flash_attention.cu"
 LAST_K = "(q_end - 1 + offs) / FA_BK"
-MASK = "col <= row + offs)"
+# the bf16 wgmma kernel's mask (the line after it tells it from the 3xTF32
+# kernels' masks in the same source)
+MASK_TAIL = ";\n            s_acc[4 * i + e] = ok"
+MASK = "col <= row + offs)" + MASK_TAIL
 LATE = "(q0 >= sq / 2 ? {} : 0)"
 MUTATIONS = {
     "tile_shift": [
         (LAST_K, "(q_end - 1 + offs + FA_BK) / FA_BK"),
-        (MASK, "col <= row + offs + FA_BK)")],
+        (MASK, "col <= row + offs + FA_BK)" + MASK_TAIL)],
     "tile_shift_late": [
         (LAST_K, f"(q_end - 1 + offs + {LATE.format('FA_BK')}) / FA_BK"),
-        (MASK, f"col <= row + offs + {LATE.format('FA_BK')})")],
+        (MASK, f"col <= row + offs + {LATE.format('FA_BK')})" + MASK_TAIL)],
     "one_key_late": [
         (LAST_K, f"(q_end - 1 + offs + {LATE.format(1)}) / FA_BK"),
-        (MASK, f"col <= row + offs + {LATE.format(1)})")],
+        (MASK, f"col <= row + offs + {LATE.format(1)})" + MASK_TAIL)],
     "stale_alpha": [("o[i] *= alpha[(i >> 1) & 1];",
                      "o[i] *= kb < last_k ? alpha[(i >> 1) & 1] : 1.f;")],
 }

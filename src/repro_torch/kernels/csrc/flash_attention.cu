@@ -39,9 +39,14 @@
 // 65,535 a launch, so a longer Sq takes more launches), and the causal
 // diagonal's short blocks fill the last wave.
 //
-// flash_attention_generic_kernel, below, takes every other case: f32, bf16
-// or f16 q/k/v and any head dim (see its note).
+// Every other case (kernels/flash_attention.py route()) runs a kernel below,
+// each with its own note: f32, f16, and bf16 at another head dim up to
+// D = 256 on 3xTF32 tensor cores (flash_attention_tf32x3_wgmma_kernel for
+// f32 at 64 < D <= 128, flash_attention_tf32x3_kernel for the rest), and
+// past D = 256 flash_attention_generic_kernel on the CUDA cores, kept only
+// as the route past the tensor-core kernels' reach.
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -341,12 +346,14 @@ extern "C" int launch_flash_attention(const void* q, const void* k,
 //
 // The same function (f32 logits times scale, the causal mask aligned to the
 // last token, GQA, ragged Sq and Skv), for f32, bf16 or f16 q/k/v and any
-// head dim D >= 1 whose rows fit shared memory; the route the wgmma kernel
-// does not take (kernels/flash_attention.py route()).  Everything is f32 on
-// the CUDA cores: the online softmax keeps m, l and the output row in f32,
-// P is never rounded, and the output is rounded once to the element type
-// after the division by l.  JAX's kernel is the same arithmetic in f32
-// (preferred_element_type, repro/kernels/flash_attention.py:29-73).
+// head dim D >= 1 whose rows fit shared memory.  It remains only as the
+// route past the 3xTF32 kernels' reach, D > 256 (kernels/flash_attention.py
+// route() "generic"), which no config of the repo has; every f32 LM runs
+// the tensor-core kernels.  Everything is f32 on the CUDA cores: the online
+// softmax keeps m, l and the output row in f32, P is never rounded, and the
+// output is rounded once to the element type after the division by l.
+// JAX's kernel is the same arithmetic in f32 (preferred_element_type,
+// repro/kernels/flash_attention.py:29-73).
 //
 // A block takes `rows` query rows of one head, a warp each, and walks the
 // keys in tiles of 32, one key a lane: lane j sums q . k_j over the columns,
@@ -356,8 +363,9 @@ extern "C" int launch_flash_attention(const void* q, const void* k,
 // 65 floats, so lane j's reads of row j hit 32 banks) and serve all the
 // block's rows; each row's q and output accumulator live in shared memory,
 // so D is not bounded by registers.  Bound on this card: operations, 4 D
-// FLOP a kept (row, key) pair at the fp32 rate; this kernel is the simple,
-// right one (the f32 smoke LMs and odd head dims), not yet a fast one.
+// FLOP a kept (row, key) pair at the fp32 rate, 2.05 ms at qwen3-4b f32 1 x
+// 4096; it takes ~23 ms there (chip_smoke.py row 5g's was_ms), every key
+// re-staged by each 8-row block, two shared-memory loads an FMA.
 constexpr int FG_KEYS = 32;   // keys a tile: one a lane
 constexpr int FG_COLS = 64;   // columns of K and V staged at once
 
@@ -543,4 +551,732 @@ extern "C" int launch_flash_attention_generic(
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// ---- the 3xTF32 tensor-core kernel: f32, f16, bf16 off the wgmma route ----
+//
+// The generic kernel's function and arithmetic (f32 logits times scale, the
+// causal mask aligned to the last token, GQA, ragged Sq and Skv, the online
+// softmax in f32 with P never rounded to 16 bits, one division by l, one
+// rounding to the element type at the store) for f32, f16, and bf16 at a
+// head dim the bf16 wgmma kernel is not built for, up to D = 256
+// (kernels/flash_attention.py route() "tf32x3"), except f32 at 64 < D <=
+// 128, which the wgmma form below takes.  On the path: the f32 LMs
+// (qwen3-4b's smoke at D 16 in lm_parity_f32).
+//
+// Bound on this card: operations, 4 D FLOP a kept (row, key) pair, each
+// f32-accurate product three TF32 MMAs.  Both products run as mma.sync
+// m16n8k8 TF32: each f32 operand is split hi + lo (split_tf32_int) and a
+// product takes lo·hi + hi·lo + hi·hi (mma_split); a bf16 or f16 operand is
+// exact in TF32 and has no lo term; P, f32, is always split.  A block takes
+// BQ query rows of one (batch, q-head), a warp per 16 rows, and walks the
+// keys in tiles of BK: each tile lands raw by cp.async (16-byte granules
+// where every f32 row allows, else 4-byte) while the previous one computes,
+// then the block splits it once into hi and lo planes that all its warps
+// read (a 16-bit tile is widened into the hi planes by loads).  Rows are
+// padded to DP + 4 floats, so every fragment's 32 loads hit 32 banks; the
+// head dim is zero-padded to DP (16, 32, 64, 128, 256), which adds exact
+// zeros, and k-steps and output columns wholly past D are skipped.  S stays
+// in registers, its small terms in an accumulator of their own; the row max
+// and sum are taken across the 4 threads of a row by shuffles; P's A
+// fragments are read in place from the S accumulator, the keys of each
+// k-step permuted (thread t holds keys 2t and 2t + 1, so V's B fragment
+// reads those two rows); each tile's P V goes to a fresh accumulator added
+// to O in f32 (up to DP 128), so no long sum runs in the tensor cores'
+// accumulator.  Tiles wholly below the causal diagonal skip the mask, a
+// warp whose rows see no key of a tile skips it, and query tiles are issued
+// longest first.
+//
+// What was tried (scripts/kernel_variants.py --only flash_f32, qwen3-4b f32
+// 1 x 4096): the first design, every warp splitting the K and V values it
+// read as their fragments loaded, ran 3.88-3.91 ms at 0.80 of the f32 bar;
+// splitting once for the block, 3.82-3.88 ms at 0.16 (each tile's P V
+// summed into O reads 0.80, S's small terms in hi x hi's accumulator 0.36,
+// in the same time); hi x hi alone ran 2.42 ms, 96x the bar.  mma.sync TF32
+// reaches ~190 TFLOP/s on this card (two more products cost 1.43 ms), so
+// three products cannot go below ~2.2 ms here: the wgmma form below takes
+// row 5g's shape.
+template <int DP>
+struct TfShape {
+  static constexpr int BQ = DP <= 128 ? 128 : 64;  // query rows a block
+  // keys a K / V tile
+  static constexpr int BK = DP <= 64 ? 64 : DP <= 128 ? 48 : 24;
+  static constexpr int THREADS = BQ / 16 * 32;     // a warp per 16 rows
+  static constexpr int LD = DP + 4;                // floats a staged row
+  static constexpr int Q_FLOATS = BQ * LD;
+  static constexpr int KV_FLOATS = BK * LD;
+  // Q; the next K and V tiles raw; the current ones' hi and lo planes
+  static constexpr int SMEM = 4 * (Q_FLOATS + 6 * KV_FLOATS);
+  // each tile's P V in a fresh accumulator (at DP 256 its registers do not
+  // fit beside O's, and P V goes into O)
+  static constexpr bool FRESH = DP <= 128;
+};
+
+// Rows [r0, r0 + ROWS) of a (len, d) head into dst[ROWS][DP + 4] as f32,
+// rows past len and columns d .. DP as zeros: f32 by cp.async (16-byte
+// granules when `vec`, else 4-byte), 16-bit types by loads widened as they
+// are stored (eight in flight a thread).
+template <typename T, int DP, int ROWS, int NT>
+__device__ __forceinline__ void tf_stage(float* dst, const T* __restrict__ src,
+                                         int r0, int len, int d, bool vec) {
+  constexpr int LD = DP + 4;
+  if constexpr (std::is_same<T, float>::value) {
+    if (vec) {
+      constexpr int C4 = DP / 4;
+      for (int i = threadIdx.x; i < ROWS * C4; i += NT) {
+        const int r = i / C4, c = (i % C4) * 4;
+        const bool ok = r0 + r < len && c < d;
+        cp_async16(dst + r * LD + c,
+                   ok ? src + static_cast<size_t>(r0 + r) * d + c : src, ok);
+      }
+    } else {
+      for (int i = threadIdx.x; i < ROWS * DP; i += NT) {
+        const int r = i / DP, c = i % DP;
+        const bool ok = r0 + r < len && c < d;
+        cp_async4(dst + r * LD + c,
+                  ok ? src + static_cast<size_t>(r0 + r) * d + c : src, ok);
+      }
+    }
+  } else {
+    constexpr int N = ROWS * DP;
+    for (int i0 = 0; i0 < N; i0 += 8 * NT) {
+      float v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int i = i0 + j * NT + static_cast<int>(threadIdx.x);
+        const int r = i / DP, c = i % DP;
+        v[j] = i < N && r0 + r < len && c < d
+                   ? fg_load(src + static_cast<size_t>(r0 + r) * d + c)
+                   : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int i = i0 + j * NT + static_cast<int>(threadIdx.x);
+        if (i < N) dst[(i / DP) * LD + i % DP] = v[j];
+      }
+    }
+  }
+}
+
+// A raw f32 tile (ROWS x DP, rows of LD) split once for the whole block
+// into its hi and lo planes, four values a thread at a time.
+template <int DP, int ROWS, int NT>
+__device__ __forceinline__ void tf_split(const float* raw, float* hi,
+                                         float* lo) {
+  constexpr int LD = DP + 4, C4 = DP / 4;
+  for (int i = threadIdx.x; i < ROWS * C4; i += NT) {
+    const int at = (i / C4) * LD + (i % C4) * 4;
+    const float4 v = *reinterpret_cast<const float4*>(raw + at);
+    uint32_t h[4], l[4];
+    split_tf32_int(v.x, h[0], l[0]);
+    split_tf32_int(v.y, h[1], l[1]);
+    split_tf32_int(v.z, h[2], l[2]);
+    split_tf32_int(v.w, h[3], l[3]);
+    *reinterpret_cast<uint4*>(hi + at) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(lo + at) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+// acc += P V over one tile: k-step kk is S's n-tile kk, thread t holding
+// keys 2t and 2t + 1 as A's columns t and t + 4, so V's rows 2t and 2t + 1
+// give the B fragment; P is always split, V's planes are read as they are.
+template <bool EXACT, int DP, int BK>
+__device__ __forceinline__ void tf_pv(float (&acc)[DP / 8][4],
+                                      const float (&p)[BK / 8][4],
+                                      const float* vh, const float* vl,
+                                      int csteps, int g, int t4) {
+  constexpr int LD = DP + 4;
+#pragma unroll
+  for (int kk = 0; kk < BK / 8; ++kk) {
+    uint32_t ah[4], al[4];
+    split_tf32_int(p[kk][0], ah[0], al[0]);  // (g,     key 2t)
+    split_tf32_int(p[kk][2], ah[1], al[1]);  // (g + 8, key 2t)
+    split_tf32_int(p[kk][1], ah[2], al[2]);  // (g,     key 2t + 1)
+    split_tf32_int(p[kk][3], ah[3], al[3]);  // (g + 8, key 2t + 1)
+    const int at = (8 * kk + 2 * t4) * LD + g;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      if (n >= csteps) break;
+      const uint32_t bh0 = __float_as_uint(vh[at + 8 * n]);
+      const uint32_t bh1 = __float_as_uint(vh[at + LD + 8 * n]);
+      uint32_t bl0 = 0u, bl1 = 0u;
+      if constexpr (!EXACT) {
+        bl0 = __float_as_uint(vl[at + 8 * n]);
+        bl1 = __float_as_uint(vl[at + LD + 8 * n]);
+      }
+      mma_split<false, EXACT>(acc[n], ah, al, bh0, bh1, bl0, bl1);
+    }
+  }
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(TfShape<DP>::THREADS, 1)
+flash_attention_tf32x3_kernel(const T* __restrict__ q,
+                              const T* __restrict__ k,
+                              const T* __restrict__ v, T* __restrict__ out,
+                              int bhs, int hq, int hkv, int sq, int skv, int d,
+                              float scale, int causal, int vec,
+                              long long block0, int tiles) {
+  using S = TfShape<DP>;
+  constexpr bool EXACT = !std::is_same<T, float>::value;
+  constexpr int LD = S::LD, BK = S::BK, NT = S::THREADS;
+  extern __shared__ __align__(16) float tf_smem[];
+  float* qs = tf_smem;                // [BQ][LD]
+  float* kr = qs + S::Q_FLOATS;       // [BK][LD] each: the next tile raw,
+  float* vr = kr + S::KV_FLOATS;      // then the current one's planes
+  float* kh = vr + S::KV_FLOATS;
+  float* kl = kh + S::KV_FLOATS;
+  float* vh = kl + S::KV_FLOATS;
+  float* vl = vh + S::KV_FLOATS;
+
+  const long long blk = block0 + blockIdx.x;
+  const int bh = static_cast<int>(blk % bhs);
+  // query tiles longest first: the block's tile counted from the last
+  const int q0 = (tiles - 1 - static_cast<int>(blk / bhs)) * S::BQ;
+  const int kvh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
+  const int offs = skv - sq;
+  const int kend = causal ? min(skv, min(q0 + S::BQ, sq) + offs) : skv;
+  const int nkt = (kend + BK - 1) / BK;
+  const T* qh = q + static_cast<size_t>(bh) * sq * d;
+  const T* kg = k + static_cast<size_t>(kvh) * skv * d;
+  const T* vg = v + static_cast<size_t>(kvh) * skv * d;
+
+  // the next tile: f32 lands raw by cp.async (split by the block once it
+  // has); a 16-bit one is widened into the hi planes, exact in TF32
+  const auto fetch = [&](int k0) {
+    if constexpr (!EXACT) {
+      tf_stage<T, DP, BK, NT>(kr, kg, k0, skv, d, vec);
+      tf_stage<T, DP, BK, NT>(vr, vg, k0, skv, d, vec);
+      cp_async_commit();
+    }
+  };
+  const auto planes = [&](int k0) {
+    if constexpr (EXACT) {
+      tf_stage<T, DP, BK, NT>(kh, kg, k0, skv, d, vec);
+      tf_stage<T, DP, BK, NT>(vh, vg, k0, skv, d, vec);
+    } else {
+      tf_split<DP, BK, NT>(kr, kh, kl);
+      tf_split<DP, BK, NT>(vr, vh, vl);
+    }
+  };
+  tf_stage<T, DP, S::BQ, NT>(qs, qh, q0, sq, d, vec);
+  fetch(0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  planes(0);
+  __syncthreads();
+  if (nkt > 1) fetch(BK);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wr0 = warp * 16;           // the warp's first row in the tile
+  const int rw = q0 + wr0;             // ... in the head
+  const int ra = rw + g;               // this thread's rows ra, ra + 8
+  const int csteps = (d + 7) / 8;      // k-steps (and O's n-tiles) below D
+  const float sl2 = scale * FA_LOG2E;  // logit to the exp2 domain
+
+  float o[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max, exp2 domain
+  float l[2] = {0.f, 0.f};
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int k0 = kt * BK;
+    // a warp whose 16 rows see no key of this tile (causal) skips it; key 0
+    // is seen by every row, so the first tile makes every m finite
+    if (!causal || k0 <= rw + 15 + offs) {
+      // S = Q K^T on the warp's 16 rows x BK keys: hi hi in s, the small
+      // terms (lo hi, hi lo) in s2, added once the k-steps are done
+      float s[BK / 8][4], s2[BK / 8][4];
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = s2[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DP / 8; ++kk) {
+        if (kk >= csteps) break;
+        uint32_t ah[4], al[4];
+        load_a<!EXACT>(qs + (wr0 + g) * LD + 8 * kk + t4, LD, ah, al);
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n) {
+          // B = K^T: element (k, n) at K row n, column k
+          const int at = (8 * n + g) * LD + 8 * kk + t4;
+          const uint32_t bh0 = __float_as_uint(kh[at]);
+          const uint32_t bh1 = __float_as_uint(kh[at + 4]);
+          if constexpr (!EXACT) {
+            mma_tf32_1688(s2[n], al, bh0, bh1);
+            mma_tf32_1688(s2[n], ah, __float_as_uint(kl[at]),
+                          __float_as_uint(kl[at + 4]));
+          }
+          mma_tf32_1688(s[n], ah, bh0, bh1);
+        }
+      }
+      // scaled logits in the exp2 domain; the mask where the tile needs it
+      // (rows ra: e = 0, 1; ra + 8: e = 2, 3)
+      const bool masked =
+          k0 + BK > skv || (causal && k0 + BK - 1 > rw + offs);
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float t = (s[n][e] + s2[n][e]) * sl2;
+          if (masked) {
+            const int row = ra + (e < 2 ? 0 : 8);
+            const int col = k0 + 8 * n + 2 * t4 + (e & 1);
+            const bool ok = col < skv && (!causal || col <= row + offs);
+            s[n][e] = ok ? t : -INFINITY;
+          } else {
+            s[n][e] = t;
+          }
+        }
+      // online softmax
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+      }
+      float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        mx[r] = fmaxf(m[r], mx[r]);
+        alpha[r] = ex2_ftz(m[r] - mx[r]);
+        m[r] = mx[r];
+      }
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = ex2_ftz(s[n][e] - mx[e >> 1]);
+          rs[e >> 1] += s[n][e];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+        l[r] = alpha[r] * l[r] + rs[r];
+      }
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        o[n][0] *= alpha[0];
+        o[n][1] *= alpha[0];
+        o[n][2] *= alpha[1];
+        o[n][3] *= alpha[1];
+      }
+      if constexpr (S::FRESH) {
+        float ot[DP / 8][4];
+#pragma unroll
+        for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) ot[n][e] = 0.f;
+        tf_pv<EXACT, DP, BK>(ot, s, vh, vl, csteps, g, t4);
+#pragma unroll
+        for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[n][e] += ot[n][e];
+      } else {
+        tf_pv<EXACT, DP, BK>(o, s, vh, vl, csteps, g, t4);
+      }
+    }
+    if (kt + 1 < nkt) {
+      cp_async_wait<0>();
+      __syncthreads();  // the next tile has landed; this one is consumed
+      planes(k0 + BK);
+      __syncthreads();  // its planes are written; the raw tiles are free
+      if (kt + 2 < nkt) fetch(k0 + 2 * BK);
+    }
+  }
+
+  T* oh = out + static_cast<size_t>(bh) * sq * d;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = ra + 8 * h;
+    if (r >= sq) continue;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      if (n >= csteps) break;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * n + 2 * t4 + e;
+        if (c < d)
+          fg_store(oh + static_cast<size_t>(r) * d + c, o[n][2 * h + e] / l[h]);
+      }
+    }
+  }
+}
+
+template <typename T, int DP>
+static int launch_tf32x3(const void* q, const void* k, const void* v,
+                         void* out, int b, int hq, int hkv, int sq, int skv,
+                         int d, float scale, int causal, cudaStream_t stream) {
+  using S = TfShape<DP>;
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t err =
+        allow_smem(flash_attention_tf32x3_kernel<T, DP>, S::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = true;
+  }
+  const auto a16 = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const int vec = std::is_same<T, float>::value && d % 4 == 0 && a16(q) &&
+                  a16(k) && a16(v);
+  const int bhs = b * hq;
+  const int tiles = (sq + S::BQ - 1) / S::BQ;
+  const long long total = static_cast<long long>(bhs) * tiles;
+  for (long long b0 = 0; b0 < total; b0 += 0x7fffffffLL) {
+    const long long n = total - b0 < 0x7fffffffLL ? total - b0 : 0x7fffffffLL;
+    flash_attention_tf32x3_kernel<T, DP>
+        <<<static_cast<unsigned>(n), S::THREADS, S::SMEM, stream>>>(
+            static_cast<const T*>(q), static_cast<const T*>(k),
+            static_cast<const T*>(v), static_cast<T*>(out), bhs, hq, hkv, sq,
+            skv, d, scale, causal, vec, b0, tiles);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
+template <typename T>
+static int launch_tf32x3_d(const void* q, const void* k, const void* v,
+                           void* out, int b, int hq, int hkv, int sq, int skv,
+                           int d, float scale, int causal, cudaStream_t s) {
+  if (d <= 16)
+    return launch_tf32x3<T, 16>(q, k, v, out, b, hq, hkv, sq, skv, d, scale, causal, s);
+  if (d <= 32)
+    return launch_tf32x3<T, 32>(q, k, v, out, b, hq, hkv, sq, skv, d, scale, causal, s);
+  if (d <= 64)
+    return launch_tf32x3<T, 64>(q, k, v, out, b, hq, hkv, sq, skv, d, scale, causal, s);
+  if (d <= 128)
+    return launch_tf32x3<T, 128>(q, k, v, out, b, hq, hkv, sq, skv, d, scale, causal, s);
+  if (d <= 256)
+    return launch_tf32x3<T, 256>(q, k, v, out, b, hq, hkv, sq, skv, d, scale, causal, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// dtype: 0 f32, 1 bf16, 2 f16; d: 1 .. 256 (padded to 16, 32, 64, 128, 256)
+extern "C" int launch_flash_attention_tf32x3(
+    const void* q, const void* k, const void* v, void* out, int b, int hq,
+    int hkv, int sq, int skv, int d, float scale, int causal, int dtype,
+    void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (dtype) {
+    case 0:
+      return launch_tf32x3_d<float>(q, k, v, out, b, hq, hkv, sq, skv, d,
+                                    scale, causal, s);
+    case 1:
+      return launch_tf32x3_d<__nv_bfloat16>(q, k, v, out, b, hq, hkv, sq, skv,
+                                            d, scale, causal, s);
+    case 2:
+      return launch_tf32x3_d<__half>(q, k, v, out, b, hq, hkv, sq, skv, d,
+                                     scale, causal, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// ---- the 3xTF32 wgmma kernel: f32 at 64 < D <= 128 ------------------------
+//
+// The same function and arithmetic as flash_attention_tf32x3_kernel, for
+// f32 q/k/v with 64 < D <= 128, D % 4 == 0 and 16-byte aligned operands
+// (kernels/flash_attention.py tf32x3_wgmma(); row 5g, qwen3-4b at D 128),
+// with both products on wgmma .tf32, the card's full TF32 rate, where
+// mma.sync reaches about two fifths of it (scripts/kernel_variants.py
+// --only flash_f32: two more TF32 products on mma.sync cost 1.43 ms, ~190
+// TFLOP/s).  wgmma takes .tf32 operands from shared memory only K-major,
+// so every operand is split hi + lo once for the block and stored as a
+// K-major plane with the 128-byte swizzle: Q (128 rows, two warpgroups of
+// 64, each its A) once; K (32 keys) and V transposed (D rows of 32 keys,
+// each key group of 8 permuted so that position t holds key 2t and t + 4
+// key 2t + 1: P's register A fragment is read in place from the S
+// accumulator, thread t holding keys 2t and 2t + 1) per tile, from raw
+// tiles that land by cp.async while the previous tile computes.  S takes
+// Q lo K hi + Q hi K lo into one m64n32 accumulator and Q hi K hi into
+// another, added once the k-steps are done; each tile's P V (P split in
+// registers, V's planes from shared memory) goes to a fresh m64n128
+// accumulator added to O in f32, so no long sum runs inside the tensor
+// cores' accumulator.  ~226 KB of shared memory, one block an SM.
+constexpr int TW_BQ = 128;               // query rows a block
+constexpr int TW_BK = 32;                // keys a K / V tile
+constexpr int TW_D = 128;                // the padded head dim
+constexpr int TW_THREADS = 256;          // two warpgroups
+constexpr int TW_RAW_LD = TW_D + 4;      // floats a raw staged row
+constexpr int TW_Q = TW_BQ * TW_D * 4;   // bytes of a Q plane
+constexpr int TW_K = TW_BK * TW_D * 4;   // of a K plane
+constexpr int TW_V = TW_D * TW_BK * 4;   // of a V^T plane
+constexpr int TW_RAW = TW_BK * TW_RAW_LD * 4;
+constexpr int TW_SMEM = 2 * TW_Q + 2 * TW_K + 2 * TW_V + 2 * TW_RAW + 1024;
+
+// The float index of (row r, column c < 32) in a plane of 128-byte rows
+// with the 128-byte swizzle (16-byte chunk c / 4 XOR r % 8).
+__device__ __forceinline__ int tw_swz(int r, int c) {
+  return r * 32 + ((((c >> 2) ^ r) & 7) << 2) + (c & 3);
+}
+
+__device__ __forceinline__ void tw_split4(float4 v, uint4& h, uint4& l) {
+  split_tf32_int(v.x, h.x, l.x);
+  split_tf32_int(v.y, h.y, l.y);
+  split_tf32_int(v.z, h.z, l.z);
+  split_tf32_int(v.w, h.w, l.w);
+}
+
+__global__ void __launch_bounds__(TW_THREADS, 1)
+flash_attention_tf32x3_wgmma_kernel(const float* __restrict__ q,
+                                    const float* __restrict__ k,
+                                    const float* __restrict__ v,
+                                    float* __restrict__ out, int bhs, int hq,
+                                    int hkv, int sq, int skv, int d,
+                                    float scale, int causal, long long block0,
+                                    int tiles) {
+  extern __shared__ uint8_t tw_smem_raw[];
+  uint8_t* base = align1024(tw_smem_raw);
+  float* qh_s = reinterpret_cast<float*>(base);        // 4 boxes [128][32]
+  float* ql_s = qh_s + TW_Q / 4;
+  float* kh_s = ql_s + TW_Q / 4;                        // 4 boxes [32][32]
+  float* kl_s = kh_s + TW_K / 4;
+  float* vh_s = kl_s + TW_K / 4;                        // [128][32]
+  float* vl_s = vh_s + TW_V / 4;
+  float* kr = vl_s + TW_V / 4;                          // [32][132] raw
+  float* vr = kr + TW_RAW / 4;
+
+  const long long blk = block0 + blockIdx.x;
+  const int bh = static_cast<int>(blk % bhs);
+  const int q0 = (tiles - 1 - static_cast<int>(blk / bhs)) * TW_BQ;
+  const int kvh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
+  const int offs = skv - sq;
+  const int kend = causal ? min(skv, min(q0 + TW_BQ, sq) + offs) : skv;
+  const int nkt = (kend + TW_BK - 1) / TW_BK;
+  const float* qg = q + static_cast<size_t>(bh) * sq * d;
+  const float* kg = k + static_cast<size_t>(kvh) * skv * d;
+  const float* vg = v + static_cast<size_t>(kvh) * skv * d;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  const auto fetch = [&](int k0) {
+    for (int i = tid; i < TW_BK * (TW_D / 4); i += TW_THREADS) {
+      const int r = i / (TW_D / 4), c = (i % (TW_D / 4)) * 4;
+      const bool ok = k0 + r < skv && c < d;
+      const size_t at = static_cast<size_t>(k0 + r) * d + c;
+      cp_async16(kr + r * TW_RAW_LD + c, ok ? kg + at : kg, ok);
+      cp_async16(vr + r * TW_RAW_LD + c, ok ? vg + at : vg, ok);
+    }
+    cp_async_commit();
+  };
+  // the landed raw tile into its planes: lane j takes key j, warp w the
+  // columns 4w.., 4w + 32.., ...
+  const auto planes = [&]() {
+    const int j = lane;
+    const int p = 8 * (j >> 3) + ((j & 7) >> 1) + 4 * (j & 1);  // V^T column
+#pragma unroll
+    for (int c4 = warp; c4 < TW_D / 4; c4 += TW_THREADS / 32) {
+      const int c = 4 * c4;
+      uint4 h, l;
+      tw_split4(*reinterpret_cast<const float4*>(kr + j * TW_RAW_LD + c), h, l);
+      const int at = (c / 32) * (TW_BK * 32) + tw_swz(j, c % 32);
+      *reinterpret_cast<uint4*>(kh_s + at) = h;
+      *reinterpret_cast<uint4*>(kl_s + at) = l;
+      tw_split4(*reinterpret_cast<const float4*>(vr + j * TW_RAW_LD + c), h, l);
+      const uint32_t hv[4] = {h.x, h.y, h.z, h.w}, lv[4] = {l.x, l.y, l.z, l.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        vh_s[tw_swz(c + e, p)] = __uint_as_float(hv[e]);
+        vl_s[tw_swz(c + e, p)] = __uint_as_float(lv[e]);
+      }
+    }
+    fence_proxy_async();
+  };
+
+  // Q's planes, once
+  for (int i = tid; i < TW_BQ * (TW_D / 4); i += TW_THREADS) {
+    const int r = i / (TW_D / 4), c = (i % (TW_D / 4)) * 4;
+    const float4 x = q0 + r < sq && c < d
+                         ? *reinterpret_cast<const float4*>(
+                               qg + static_cast<size_t>(q0 + r) * d + c)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    uint4 h, l;
+    tw_split4(x, h, l);
+    const int at = (c / 32) * (TW_BQ * 32) + tw_swz(r, c % 32);
+    *reinterpret_cast<uint4*>(qh_s + at) = h;
+    *reinterpret_cast<uint4*>(ql_s + at) = l;
+  }
+  fetch(0);
+  cp_async_wait<0>();
+  __syncthreads();
+  planes();
+  __syncthreads();
+  if (nkt > 1) fetch(TW_BK);
+
+  const int wg = warp / 4, wl = warp % 4;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int rw = q0 + 64 * wg;              // the warpgroup's first row
+  const int ra = rw + 16 * wl + g;          // this thread's rows ra, ra + 8
+  const int csteps = (d + 7) / 8;
+  const float sl2 = scale * FA_LOG2E;
+  float o[TW_D / 2];
+#pragma unroll
+  for (int i = 0; i < TW_D / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int k0 = kt * TW_BK;
+    if (!causal || k0 <= rw + 63 + offs) {
+      float s[TW_BK / 2], s2[TW_BK / 2];
+#pragma unroll
+      for (int i = 0; i < TW_BK / 2; ++i) s[i] = s2[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TW_D / 8; ++kk) {
+        if (kk >= csteps) break;
+        const int box = kk / 4, in_row = (kk % 4) * 32;
+        const uint8_t* qa = reinterpret_cast<const uint8_t*>(qh_s) +
+                            box * TW_BQ * 128 + wg * 64 * 128 + in_row;
+        const uint8_t* kb = reinterpret_cast<const uint8_t*>(kh_s) +
+                            box * TW_BK * 128 + in_row;
+        const uint64_t dqh = wgmma_desc(qa, 0, 1024, 128);
+        const uint64_t dql = wgmma_desc(qa + TW_Q, 0, 1024, 128);
+        const uint64_t dkh = wgmma_desc(kb, 0, 1024, 128);
+        const uint64_t dkl = wgmma_desc(kb + TW_K, 0, 1024, 128);
+        wgmma_tf32_ss<TW_BK>(s2, dql, dkh, kk != 0);
+        wgmma_tf32_ss<TW_BK>(s2, dqh, dkl, 1);
+        wgmma_tf32_ss<TW_BK>(s, dqh, dkh, kk != 0);
+      }
+      wgmma_commit();
+      fence_regs(s);
+      fence_regs(s2);
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(s2);
+
+      const bool masked =
+          k0 + TW_BK > skv || (causal && k0 + TW_BK - 1 > rw + offs);
+#pragma unroll
+      for (int i = 0; i < TW_BK / 2; ++i) {
+        const float t = (s[i] + s2[i]) * sl2;
+        if (masked) {
+          const int row = ra + ((i & 2) ? 8 : 0);
+          const int col = k0 + 8 * (i / 4) + 2 * t4 + (i & 1);
+          const bool ok = col < skv && (!causal || col <= row + offs);
+          s[i] = ok ? t : -INFINITY;
+        } else {
+          s[i] = t;
+        }
+      }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < TW_BK / 8; ++i) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[4 * i], s[4 * i + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[4 * i + 2], s[4 * i + 3]));
+      }
+      float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        mx[r] = fmaxf(m[r], mx[r]);
+        alpha[r] = ex2_ftz(m[r] - mx[r]);
+        m[r] = mx[r];
+      }
+#pragma unroll
+      for (int i = 0; i < TW_BK / 2; ++i) {
+        s[i] = ex2_ftz(s[i] - mx[(i >> 1) & 1]);
+        rs[(i >> 1) & 1] += s[i];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+        rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+        l[r] = alpha[r] * l[r] + rs[r];
+      }
+
+      // P's A fragments, k-step kk = S's n8 block kk (keys 2t, 2t + 1 as
+      // columns t, t + 4), split
+      uint32_t ph[TW_BK / 8][4], pl[TW_BK / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < TW_BK / 8; ++kk) {
+        split_tf32_int(s[4 * kk + 0], ph[kk][0], pl[kk][0]);
+        split_tf32_int(s[4 * kk + 2], ph[kk][1], pl[kk][1]);
+        split_tf32_int(s[4 * kk + 1], ph[kk][2], pl[kk][2]);
+        split_tf32_int(s[4 * kk + 3], ph[kk][3], pl[kk][3]);
+      }
+      float ot[TW_D / 2];
+#pragma unroll
+      for (int i = 0; i < TW_D / 2; ++i) ot[i] = 0.f;
+      fence_regs(ot);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TW_BK / 8; ++kk) {
+        const uint8_t* vb = reinterpret_cast<const uint8_t*>(vh_s) + kk * 32;
+        const uint64_t dvh = wgmma_desc(vb, 0, 1024, 128);
+        const uint64_t dvl = wgmma_desc(vb + TW_V, 0, 1024, 128);
+        wgmma_tf32_rs<TW_D>(ot, pl[kk], dvh, kk != 0);
+        wgmma_tf32_rs<TW_D>(ot, ph[kk], dvl, 1);
+        wgmma_tf32_rs<TW_D>(ot, ph[kk], dvh, 1);
+      }
+      wgmma_commit();
+      fence_regs(ot);
+      wgmma_wait<0>();
+      fence_regs(ot);
+#pragma unroll
+      for (int i = 0; i < TW_D / 2; ++i)
+        o[i] = o[i] * alpha[(i >> 1) & 1] + ot[i];
+    }
+    if (kt + 1 < nkt) {
+      cp_async_wait<0>();
+      __syncthreads();  // the next tile has landed; this one is consumed
+      planes();
+      __syncthreads();  // its planes are written; the raw tiles are free
+      if (kt + 2 < nkt) fetch(k0 + 2 * TW_BK);
+    }
+  }
+
+  float* og = out + static_cast<size_t>(bh) * sq * d;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = ra + 8 * h;
+    if (r >= sq) continue;
+#pragma unroll
+    for (int i = 0; i < TW_D / 8; ++i) {
+      const int c = 8 * i + 2 * t4;
+      if (c < d)
+        *reinterpret_cast<float2*>(og + static_cast<size_t>(r) * d + c) =
+            make_float2(o[4 * i + 2 * h] / l[h], o[4 * i + 2 * h + 1] / l[h]);
+    }
+  }
+}
+
+// q, k, v, out f32, 16-byte aligned; 64 < d <= 128, d % 4 == 0
+extern "C" int launch_flash_attention_tf32x3_wgmma(
+    const void* q, const void* k, const void* v, void* out, int b, int hq,
+    int hkv, int sq, int skv, int d, float scale, int causal, void* stream) {
+  if (d <= 64 || d > TW_D || d % 4) return static_cast<int>(cudaErrorInvalidValue);
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t err =
+        allow_smem(flash_attention_tf32x3_wgmma_kernel, TW_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = true;
+  }
+  const int bhs = b * hq;
+  const int tiles = (sq + TW_BQ - 1) / TW_BQ;
+  const long long total = static_cast<long long>(bhs) * tiles;
+  for (long long b0 = 0; b0 < total; b0 += 0x7fffffffLL) {
+    const long long n = total - b0 < 0x7fffffffLL ? total - b0 : 0x7fffffffLL;
+    flash_attention_tf32x3_wgmma_kernel<<<static_cast<unsigned>(n),
+                                          TW_THREADS, TW_SMEM,
+                                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out), bhs, hq, hkv,
+        sq, skv, d, scale, causal, b0, tiles);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }

@@ -1,6 +1,6 @@
 // Tensor-core pieces shared by flash_attention.cu and matmul.cu (bf16),
-// conv1d.cu, fused_stream.cu and ssd_scan.cu (TF32) and fused_stream.cu
-// (int8).
+// conv1d.cu, fused_stream.cu, ssd_scan.cu and flash_attention.cu (TF32)
+// and fused_stream.cu (int8).
 //
 // One warp-wide mma.sync.m16n8k16 (bf16 x bf16 -> f32): D[16x8] += A[16x16]
 // B[16x8].  With g = lane / 4 and t = lane % 4, each thread holds
@@ -90,6 +90,43 @@ __device__ __forceinline__ void split_tf32_int(float v, uint32_t& hi,
                                                uint32_t& lo) {
   hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
   lo = (__float_as_uint(v - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
+}
+
+// An operand value as TF32: split hi + lo when it may not be exact in TF32,
+// else its own bits (a widened bf16 or f16 value) and no lo term.  Shared
+// by ssd_scan.cu and flash_attention.cu's 3xTF32 kernels.
+template <bool SPLIT>
+__device__ __forceinline__ void tf32_parts(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  if constexpr (SPLIT) {
+    split_tf32_int(v, hi, lo);
+  } else {
+    hi = __float_as_uint(v);
+    lo = 0u;
+  }
+}
+
+// The A fragment (16 x 8, row-major, leading dimension ld) whose thread
+// element (g, t4) is at p.
+template <bool SPLIT>
+__device__ __forceinline__ void load_a(const float* p, int ld,
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  tf32_parts<SPLIT>(p[0], hi[0], lo[0]);            // (g,     t4)
+  tf32_parts<SPLIT>(p[8 * ld], hi[1], lo[1]);       // (g + 8, t4)
+  tf32_parts<SPLIT>(p[4], hi[2], lo[2]);            // (g,     t4 + 4)
+  tf32_parts<SPLIT>(p[8 * ld + 4], hi[3], lo[3]);   // (g + 8, t4 + 4)
+}
+
+// d += A B in the terms the split operands need, small ones first:
+// lo_a hi_b, hi_a lo_b, hi_a hi_b (an exact operand has no lo term).
+template <bool A_EXACT, bool B_EXACT>
+__device__ __forceinline__ void mma_split(float (&d)[4], const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4], uint32_t bh0,
+                                          uint32_t bh1, uint32_t bl0,
+                                          uint32_t bl1) {
+  if constexpr (!A_EXACT) mma_tf32_1688(d, al, bh0, bh1);
+  if constexpr (!B_EXACT) mma_tf32_1688(d, ah, bl0, bl1);
+  mma_tf32_1688(d, ah, bh0, bh1);
 }
 
 // One warp-wide mma.sync.m16n8k32 (s8 x s8 -> s32, exact): D[16x8] +=

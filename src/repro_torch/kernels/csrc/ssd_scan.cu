@@ -13,8 +13,22 @@
 // x (BH, T, dh), b/c (BH, T, ds) in f32 or bf16 (b and c may broadcast over
 // heads: their head stride is an argument, 0 when one batch row's B/C serve
 // all its heads), log_a (BH, T) f32 <= 0; y (BH, T, dh) in x's type.
-// (ds, dh) in {(128, 64), (32, 16), (16, 16)}; every other pair runs
-// ssd_scan_generic_kernel (below, with its own note).
+//
+// Which pairs: every (ds, dh) up to (128, 128) runs the passes at the
+// instantiation its widths round up to (ssd_width: 16, 32, 64, 128 each;
+// kernels/ssd_scan.py padded()).  mamba2-780m's (128, 64) and the smoke
+// configs' (32, 16) and (16, 16) run at their own widths, as before; any
+// other pair is padded: B and C past ds and x past dh load as zeros, so
+// the state's padded rows and columns stay zero, C B^T and C S_in are the
+// same sums with zeros added, and y's columns past dh are not written.  On
+// the path: mamba2-780m's smoke at (64, 32) in lm_parity_f32, and row 6g
+// (24 heads of 128, ds 128, f32), where the recurrence kernel took 3.2 ms.
+// Only a pair past (128, 128) runs ssd_scan_generic_kernel (below, with its
+// own note), kept as the route past the passes' reach.  The DIMS pairs
+// keep their own instantiations, compiled as before (PAD false); the
+// padded ones (PAD true) add 16 pairs x 2 types to each of passes 1 and 3,
+// 38 instantiations where there were 6; the source's build time is in
+// PERF.md.
 //
 // Why not the TPU layout: the Pallas body keeps the whole (chunk, chunk)
 // decay matrix and the state on chip and walks the chunks of a head in
@@ -38,29 +52,29 @@
 // JAX wrapper's zero padding of T to a multiple of the chunk gives, and
 // are not written.
 //
-// Bound on this card: on the path (mamba2-780m, BH = 48, T = 4096, ds 128,
-// dh 64, chunk 256, bf16) operations, ~1.9e10 FLOP of products (pass 3
-// ~80%) against ~0.2 GB of traffic.  Every product runs as mma.sync
-// m16n8k8 TF32 (mma.cuh).  One TF32 product misses the 2e-4 bar, so each
-// f32 operand is split hi + lo (split_tf32_int) and a product takes the
-// terms the split needs, the small ones first: a bf16 value is exact in
-// TF32 and has no lo term, so on the path C B^T is one product, and G' X,
-// C S_in and (w B)^T X (G', S_in, w B in f32) two; with f32 inputs every
-// product is 3xTF32 (conv1d.cu conv1d_tc_kernel).  Operands stay f32 in
-// shared memory (bf16 widened as they land), rows padded so that each
-// fragment's 32 loads hit 32 banks.  Pass 3: eight warps, each 16 rows of
-// t; G goes through shared memory between its two products, and on the
-// diagonal tile a warp skips the columns above its rows.  Two blocks an SM
-// (~107 KB each).  Latency, not throughput, paced the first version: a
-// thread now issues all its loads of a tile before its stores, the cumsum
-// takes the whole block in one round of loads, and pass 2 loads eight
-// chunks ahead.  Pass 3 is three quarters of the time; keeping G in
-// registers, bf16 MMAs with three-way splits and two heads a block (C B^T
-// once) all measured slower or no faster (scripts/kernel_variants.py
-// --only ssd).  At T = 4096 pass 1 runs 768 blocks and pass 3 3,072, so
-// the card is full.  Each pass numbers its blocks along the grid's x only
-// (head * blocks a head + block, the order of the 2-D grid it replaced),
-// so no B * H is too large.
+// Bound on this card: on the path (mamba2-780m, BH = 48, T = 4096, ds 128, dh
+// 64, chunk 256, bf16) operations, ~1.9e10 FLOP of products (pass 3 ~80%)
+// against ~0.2 GB of traffic.  Every product runs as mma.sync m16n8k8 TF32
+// (mma.cuh).  One TF32 product misses the 2e-4 bar, so each f32 operand is
+// split hi + lo (split_tf32_int) and a product takes the terms the split needs,
+// the small ones first: a bf16 value is exact in TF32 and has no lo term, so on
+// the path C B^T is one product, and G' X, C S_in and (w B)^T X (G', S_in, w B
+// in f32) two; with f32 inputs every product is 3xTF32 (conv1d.cu
+// conv1d_tc_kernel).  Operands stay f32 in shared memory (bf16 widened as they
+// land), rows padded so that each fragment's 32 loads hit 32 banks.  Pass 3:
+// eight warps, each 16 rows of t; G goes through shared memory between its two
+// products, and on the diagonal tile a warp skips the columns above its rows.
+// Two blocks an SM (~107 KB each at (128, 64)); one at (128, 128) (~157 KB),
+// whose register hint is then 1 (ssd_out_blocks).  Latency, not throughput,
+// paced the first version: a thread now issues all its loads of a tile before
+// its stores, the cumsum takes the whole block in one round of loads, and pass
+// 2 loads eight chunks ahead.  Pass 3 is three quarters of the time; keeping G
+// in registers, bf16 MMAs with three-way splits and two heads a block (C B^T
+// once) all measured slower or no faster (scripts/kernel_variants.py --only
+// ssd).  At T = 4096 pass 1 runs 768 blocks and pass 3 3,072, so the card is
+// full.  Each pass numbers its blocks along the grid's x only (head * blocks a
+// head + block, the order of the 2-D grid it replaced), so no B * H is too
+// large.
 #include <cstdint>
 #include <type_traits>
 
@@ -87,41 +101,9 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
-
-// An operand value as TF32: split hi + lo when it may not be exact in TF32,
-// else its own bits (a widened bf16 value) and no lo term.
-template <bool SPLIT>
-__device__ __forceinline__ void tf32_parts(float v, uint32_t& hi,
-                                           uint32_t& lo) {
-  if constexpr (SPLIT) {
-    split_tf32_int(v, hi, lo);
-  } else {
-    hi = __float_as_uint(v);
-    lo = 0u;
-  }
-}
-
-// The A fragment (16 x 8, row-major, leading dimension ld) whose thread
-// element (g, t4) is at p.
-template <bool SPLIT>
-__device__ __forceinline__ void load_a(const float* p, int ld,
-                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-  tf32_parts<SPLIT>(p[0], hi[0], lo[0]);            // (g,     t4)
-  tf32_parts<SPLIT>(p[8 * ld], hi[1], lo[1]);       // (g + 8, t4)
-  tf32_parts<SPLIT>(p[4], hi[2], lo[2]);            // (g,     t4 + 4)
-  tf32_parts<SPLIT>(p[8 * ld + 4], hi[3], lo[3]);   // (g + 8, t4 + 4)
-}
-
-// d += A B in the terms the split operands need, small ones first:
-// lo_a hi_b, hi_a lo_b, hi_a hi_b (an exact operand has no lo term).
-template <bool A_EXACT, bool B_EXACT>
-__device__ __forceinline__ void mma_split(float (&d)[4], const uint32_t (&ah)[4],
-                                          const uint32_t (&al)[4], uint32_t bh0,
-                                          uint32_t bh1, uint32_t bl0,
-                                          uint32_t bl1) {
-  if constexpr (!A_EXACT) mma_tf32_1688(d, al, bh0, bh1);
-  if constexpr (!B_EXACT) mma_tf32_1688(d, ah, bl0, bl1);
-  mma_tf32_1688(d, ah, bh0, bh1);
+__device__ __forceinline__ void store1(float* p, float a) { *p = a; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float a) {
+  *p = __float2bfloat16_rn(a);
 }
 
 // Inclusive cumsum of log_a over the chunk starting at c0 (length n <=
@@ -175,15 +157,49 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ src, int t0,
   for (int j = 0; j < N; ++j) d[j * ROWS * LD] = to_f32(v[j]);
 }
 
+// The same rows of a (T, cols) head, cols <= COLS, for a padded
+// instantiation: columns past cols (and rows past T) land as zeros.
+template <int COLS, int LD, typename T>
+__device__ __forceinline__ void stage_rows_pad(const T* __restrict__ src,
+                                               int t0, int Tn, int cols,
+                                               float* dst) {
+  constexpr int N = SSD_TILE * COLS / SSD_THREADS;
+  constexpr int ROWS = SSD_THREADS / COLS;
+  const int c = threadIdx.x % COLS, r = threadIdx.x / COLS;
+  const int rows = min(Tn - t0, SSD_TILE);
+  const T* p = src + static_cast<size_t>(t0 + r) * cols + c;
+  T v[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    v[j] = c < cols && r + j * ROWS < rows
+               ? p[static_cast<size_t>(j) * ROWS * cols]
+               : zero<T>();
+  float* d = dst + r * LD + c;
+#pragma unroll
+  for (int j = 0; j < N; ++j) d[j * ROWS * LD] = to_f32(v[j]);
+}
+
+// Rows of a (T, cols) head: the contiguous copy in an instantiation built
+// for its own widths (PAD false: the DIMS pairs, compiled as before the
+// padded ones existed), else the contiguous or the padded one by cols.
+template <int COLS, int LD, bool PAD, typename T>
+__device__ __forceinline__ void stage(const T* __restrict__ src, int t0,
+                                      int Tn, int cols, float* dst) {
+  if (!PAD || cols == COLS)
+    stage_rows<COLS, LD>(src, t0, Tn, dst);
+  else
+    stage_rows_pad<COLS, LD>(src, t0, Tn, cols, dst);
+}
+
 // ---- pass 1: each chunk's own state and log decay ------------------------
 // The state (DS x DH) = (w B)^T X over the chunk's s: warp w owns state rows
 // 16 w .. 16 w + 15 (DS / 16 warps busy) and every column.
-template <typename T, int DS, int DH>
+template <typename T, int DS, int DH, bool PAD>
 __global__ void __launch_bounds__(SSD_THREADS, 2)
 ssd_chunk_state_kernel(const T* __restrict__ x, const float* __restrict__ la,
                        const T* __restrict__ b, float* __restrict__ states,
                        float* __restrict__ totals, int Tn, int chunk,
-                       long long b_head_stride) {
+                       long long b_head_stride, int ds, int dh) {
   constexpr bool EXACT = std::is_same<T, __nv_bfloat16>::value;
   constexpr int LW = DS + 8;   // B rows (s): A reads (m = g, k = t4) at t4 * LW + g
   constexpr int LX = DH + 8;   // X rows (s): B reads (k = t4, n = g) at t4 * LX + g
@@ -198,7 +214,7 @@ ssd_chunk_state_kernel(const T* __restrict__ x, const float* __restrict__ la,
   const int h = static_cast<int>(blockIdx.x / nc);
   const int c0 = c * chunk;
   const float* lah = la + static_cast<size_t>(h) * Tn;
-  const T* xh = x + static_cast<size_t>(h) * Tn * DH;
+  const T* xh = x + static_cast<size_t>(h) * Tn * (PAD ? dh : DH);
   const T* bhd = b + h * b_head_stride;
   chunk_cumsum(lah, c0, chunk, Tn, wd, part);
   const float total = wd[chunk - 1];
@@ -216,8 +232,8 @@ ssd_chunk_state_kernel(const T* __restrict__ x, const float* __restrict__ la,
 
   for (int s0 = 0; s0 < chunk; s0 += SSD_TILE) {
     __syncthreads();  // wd is written; the previous tile is consumed
-    stage_rows<DS, LW>(bhd, c0 + s0, Tn, bw);
-    stage_rows<DH, LX>(xh, c0 + s0, Tn, xs);
+    stage<DS, LW, PAD>(bhd, c0 + s0, Tn, ds, bw);
+    stage<DH, LX, PAD>(xh, c0 + s0, Tn, dh, xs);
     __syncthreads();
     if (m0 < DS) {
 #pragma unroll 2
@@ -295,13 +311,21 @@ constexpr int ssd_out_floats(int chunk) {
          SSD_TILE * (DH + 8) + SSD_TILE * (SSD_TILE + 4);
 }
 
-template <typename T, int DS, int DH>
-__global__ void __launch_bounds__(SSD_THREADS, 2)
+// Blocks an SM the instantiation's shared memory leaves room for at chunk
+// 256: 2, but 1 at (128, 128) (~157 KB), whose register hint may then
+// double.
+template <int DS, int DH>
+constexpr int ssd_out_blocks() {
+  return 2 * ssd_out_floats<DS, DH>(256) * 4 <= SMEM_BYTES ? 2 : 1;
+}
+
+template <typename T, int DS, int DH, bool PAD>
+__global__ void __launch_bounds__(SSD_THREADS, (ssd_out_blocks<DS, DH>()))
 ssd_chunk_out_kernel(const T* __restrict__ x, const float* __restrict__ la,
                      const T* __restrict__ b, const T* __restrict__ c,
                      const float* __restrict__ states, T* __restrict__ y,
                      int Tn, int chunk, long long b_head_stride,
-                     long long c_head_stride) {
+                     long long c_head_stride, int ds, int dh) {
   constexpr bool EXACT = std::is_same<T, __nv_bfloat16>::value;
   constexpr int LC = DS + 4;          // C_t, B_s rows: (g, t4) at g * LC + t4
   constexpr int LX = DH + 8;          // X_s, S_in rows: (t4, g) at t4 * LX + g
@@ -322,12 +346,12 @@ ssd_chunk_out_kernel(const T* __restrict__ x, const float* __restrict__ la,
   const int h = static_cast<int>(blockIdx.x / (nc * tiles));
   const int c0 = ci * chunk, t0 = c0 + ti * SSD_TILE;
   const float* lah = la + static_cast<size_t>(h) * Tn;
-  const T* xh = x + static_cast<size_t>(h) * Tn * DH;
+  const T* xh = x + static_cast<size_t>(h) * Tn * (PAD ? dh : DH);
   const T* bhd = b + h * b_head_stride;
   const T* chd = c + h * c_head_stride;
   chunk_cumsum(lah, c0, (ti + 1) * SSD_TILE, Tn, cum, part);
 
-  stage_rows<DS, LC>(chd, t0, Tn, cs);
+  stage<DS, LC, PAD>(chd, t0, Tn, ds, cs);
   {
     // S_in, DS rows of DH, contiguous
     constexpr int N = DS * DH / SSD_THREADS, ROWS = SSD_THREADS / DH;
@@ -382,8 +406,8 @@ ssd_chunk_out_kernel(const T* __restrict__ x, const float* __restrict__ la,
     const int s0 = c0 + st * SSD_TILE;
     const bool diag = st == ti;
     __syncthreads();  // the previous step is done with bs, xs and gs
-    stage_rows<DS, LC>(bhd, s0, Tn, bs);
-    stage_rows<DH, LX>(xh, s0, Tn, xs);
+    stage<DS, LC, PAD>(bhd, s0, Tn, ds, bs);
+    stage<DH, LX, PAD>(xh, s0, Tn, dh, xs);
     __syncthreads();
     // G = C_t B_s^T on this warp's 16 rows x 32 columns, decayed and
     // masked into gs; on the diagonal tile columns past the warp's rows
@@ -446,42 +470,53 @@ ssd_chunk_out_kernel(const T* __restrict__ x, const float* __restrict__ la,
     }
   }
 
-  T* yh = y + static_cast<size_t>(h) * Tn * DH;
+  T* yh = y + static_cast<size_t>(h) * Tn * (PAD ? dh : DH);
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int t = t0 + r0 + g + 8 * hh;
     if (t >= Tn) continue;
+    if (!PAD || dh == DH) {
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      store2(yh + static_cast<size_t>(t) * DH + n0 + 8 * j + 2 * t4,
-             acc[j][2 * hh], acc[j][2 * hh + 1]);
+      for (int j = 0; j < NJ; ++j)
+        store2(yh + static_cast<size_t>(t) * DH + n0 + 8 * j + 2 * t4,
+               acc[j][2 * hh], acc[j][2 * hh + 1]);
+    } else {  // padded: columns past dh are not written
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = n0 + 8 * j + 2 * t4 + e;
+          if (col < dh)
+            store1(yh + static_cast<size_t>(t) * dh + col, acc[j][2 * hh + e]);
+        }
+    }
   }
 }
 
-template <typename T, int DS, int DH>
+template <typename T, int DS, int DH, bool PAD>
 static cudaError_t launch_typed(const void* x, const void* la, const void* b,
                                 const void* c, void* states, void* totals,
                                 void* y, int bh, int Tn, int chunk,
-                                long long bstride, long long cstride,
-                                cudaStream_t stream) {
+                                long long bstride, long long cstride, int ds,
+                                int dh, cudaStream_t stream) {
   const int nc = (Tn + chunk - 1) / chunk;
   const size_t smem1 =
       (chunk + SSD_TILE * (DS + 8) + SSD_TILE * (DH + 8)) * sizeof(float);
   const size_t smem3 = ssd_out_floats<DS, DH>(chunk) * sizeof(float);
-  cudaError_t err = allow_smem(ssd_chunk_state_kernel<T, DS, DH>, smem1);
+  cudaError_t err = allow_smem(ssd_chunk_state_kernel<T, DS, DH, PAD>, smem1);
   if (err != cudaSuccess) return err;
-  err = allow_smem(ssd_chunk_out_kernel<T, DS, DH>, smem3);
+  err = allow_smem(ssd_chunk_out_kernel<T, DS, DH, PAD>, smem3);
   if (err != cudaSuccess) return err;
   const long long blocks1 = static_cast<long long>(nc) * bh;
   const long long blocks2 = static_cast<long long>((DS * DH + 255) / 256) * bh;
   const long long blocks3 = blocks1 * (chunk / SSD_TILE);
   if (blocks2 > 0x7fffffffLL || blocks3 > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  ssd_chunk_state_kernel<T, DS, DH>
+  ssd_chunk_state_kernel<T, DS, DH, PAD>
       <<<static_cast<unsigned>(blocks1), SSD_THREADS, smem1, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(la),
       static_cast<const T*>(b), static_cast<float*>(states),
-      static_cast<float*>(totals), Tn, chunk, bstride);
+      static_cast<float*>(totals), Tn, chunk, bstride, ds, dh);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int n_elem = DS * DH;
@@ -489,15 +524,46 @@ static cudaError_t launch_typed(const void* x, const void* la, const void* b,
       static_cast<float*>(states), static_cast<const float*>(totals), nc, n_elem);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ssd_chunk_out_kernel<T, DS, DH>
+  ssd_chunk_out_kernel<T, DS, DH, PAD>
       <<<static_cast<unsigned>(blocks3), SSD_THREADS, smem3, stream>>>(
           static_cast<const T*>(x), static_cast<const float*>(la),
           static_cast<const T*>(b), static_cast<const T*>(c),
           static_cast<const float*>(states), static_cast<T*>(y), Tn, chunk,
-          bstride, cstride);
+          bstride, cstride, ds, dh);
   return cudaGetLastError();
 }
 
+// The width a state or head width runs at: the smallest of 16, 32, 64, 128
+// that holds it (kernels/ssd_scan.py padded()), 0 past 128.
+static int ssd_width(int w) {
+  for (int p = 16; p <= 128; p *= 2)
+    if (w <= p) return p;
+  return 0;
+}
+
+template <typename T, int DS>
+static cudaError_t launch_dh(int dhp, const void* x, const void* la,
+                             const void* b, const void* c, void* states,
+                             void* totals, void* y, int bh, int Tn, int chunk,
+                             long long bstride, long long cstride, int ds,
+                             int dh, cudaStream_t s) {
+  switch (dhp) {
+    case 16:
+      return launch_typed<T, DS, 16, true>(x, la, b, c, states, totals, y, bh, Tn, chunk, bstride, cstride, ds, dh, s);
+    case 32:
+      return launch_typed<T, DS, 32, true>(x, la, b, c, states, totals, y, bh, Tn, chunk, bstride, cstride, ds, dh, s);
+    case 64:
+      return launch_typed<T, DS, 64, true>(x, la, b, c, states, totals, y, bh, Tn, chunk, bstride, cstride, ds, dh, s);
+    case 128:
+      return launch_typed<T, DS, 128, true>(x, la, b, c, states, totals, y, bh, Tn, chunk, bstride, cstride, ds, dh, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// (ds, dh) runs at (ssd_width(ds), ssd_width(dh)): the DIMS pairs on their
+// own instantiations, as before, every other pair up to (128, 128) on one
+// that takes a narrower pair (PAD).
 template <typename T>
 static cudaError_t launch_dims(int ds, int dh, const void* x, const void* la,
                                const void* b, const void* c, void* states,
@@ -505,19 +571,33 @@ static cudaError_t launch_dims(int ds, int dh, const void* x, const void* la,
                                long long bstride, long long cstride,
                                cudaStream_t s) {
   if (ds == 128 && dh == 64)
-    return launch_typed<T, 128, 64>(x, la, b, c, states, totals, y, bh, Tn, chunk, bstride, cstride, s);
+    return launch_typed<T, 128, 64, false>(x, la, b, c, states, totals, y, bh, Tn, chunk, bstride, cstride, ds, dh, s);
   if (ds == 32 && dh == 16)
-    return launch_typed<T, 32, 16>(x, la, b, c, states, totals, y, bh, Tn, chunk, bstride, cstride, s);
+    return launch_typed<T, 32, 16, false>(x, la, b, c, states, totals, y, bh, Tn, chunk, bstride, cstride, ds, dh, s);
   if (ds == 16 && dh == 16)
-    return launch_typed<T, 16, 16>(x, la, b, c, states, totals, y, bh, Tn, chunk, bstride, cstride, s);
-  return cudaErrorInvalidValue;
+    return launch_typed<T, 16, 16, false>(x, la, b, c, states, totals, y, bh, Tn, chunk, bstride, cstride, ds, dh, s);
+  const int dhp = ssd_width(dh);
+  switch (ssd_width(ds)) {
+    case 16:
+      return launch_dh<T, 16>(dhp, x, la, b, c, states, totals, y, bh, Tn, chunk, bstride, cstride, ds, dh, s);
+    case 32:
+      return launch_dh<T, 32>(dhp, x, la, b, c, states, totals, y, bh, Tn, chunk, bstride, cstride, ds, dh, s);
+    case 64:
+      return launch_dh<T, 64>(dhp, x, la, b, c, states, totals, y, bh, Tn, chunk, bstride, cstride, ds, dh, s);
+    case 128:
+      return launch_dh<T, 128>(dhp, x, la, b, c, states, totals, y, bh, Tn, chunk, bstride, cstride, ds, dh, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // ---- the generic kernel: any (ds, dh) --------------------------------------
 //
 // The literal recurrence, S_t = exp(log_a_t) S_{t-1} + b_t^T x_t and
-// y_t = c_t S_t, in f32 on the CUDA cores, for the (ds, dh) pairs the
-// tensor-core passes above are not built for (kernels/ssd_scan.py route()).
+// y_t = c_t S_t, in f32 on the CUDA cores.  It remains only as the route
+// past the tensor-core passes' reach, a pair past (128, 128)
+// (kernels/ssd_scan.py route() "generic"), which no config of the repo
+// has.
 // A block owns one head's state columns n0 .. n0 + 31, (ds, 32) f32 in
 // shared memory, and walks t in order: thread (g, lane) updates state rows
 // g, g + 8, ... of column n0 + lane, which no other thread touches, so the
@@ -526,7 +606,9 @@ static cudaError_t launch_dims(int ds, int dh, const void* x, const void* la,
 // are summed once the window is done.  Windows of `steps` time steps
 // (x, b, c and exp(log_a) staged together) amortise the barriers.  Bound on
 // this card: operations, 4 ds dh FLOP a step at the fp32 rate, with BH x
-// ceil(dh / 32) blocks; this is the simple, right kernel, not a fast one.
+// ceil(dh / 32) blocks and T steps in order: ~3.2 ms at 24 x 4096 with
+// (128, 128) (chip_smoke.py row 6g's was_ms), where the padded passes fill
+// the card with the chunked form.
 constexpr int SG_COLS = 32;      // state columns a block: one a lane
 constexpr int SG_GROUPS = 8;     // warps: state rows g, g + 8, ...
 
@@ -650,8 +732,8 @@ extern "C" int launch_ssd_scan_generic(const void* x, const void* la,
   return static_cast<int>(err);
 }
 
-// states: (BH, n_chunks, ds, dh) f32 scratch; totals: (BH, n_chunks) f32
-// scratch.  bf16: 1 for bf16 x/b/c/y, 0 for f32.
+// states: (BH, n_chunks, ssd_width(ds), ssd_width(dh)) f32 scratch;
+// totals: (BH, n_chunks) f32 scratch.  bf16: 1 for bf16 x/b/c/y, 0 for f32.
 extern "C" int launch_ssd_scan(const void* x, const void* la, const void* b,
                                const void* c, void* states, void* totals,
                                void* y, int bh, int Tn, int ds, int dh,

@@ -3,14 +3,25 @@
 
 Replaces ``repro/kernels/flash_attention.py::flash_attention`` (the Pallas
 body ``_flash_kernel``), which takes any dtype and head dim with f32 sums.
-Two kernels, chosen by dtype and head dim (:func:`route`): bf16 q/k/v with
-D in ``HEAD_DIMS`` run the TMA + wgmma kernel, every other case (f32, f16,
-bf16 at another D) the generic one, f32 on the CUDA cores (counted also in
-``generic_launches``).  Both take any length, including a ragged last
-query or key tile (the Pallas kernel asserts ``Sq % block_q == 0`` and the
-JAX fabric sends other lengths to the plain version; here there is no such
-fallback).  The source notes in ``csrc/flash_attention.cu`` say what
-bounds each on an H100 and how its design answers that.
+Three routes, chosen by dtype and head dim (:func:`route`):
+
+* ``"wgmma"``: bf16 q/k/v with D in ``HEAD_DIMS``, the TMA + wgmma kernel
+  (the bf16 LM prefill);
+* ``"tf32x3"``: f32, f16, and bf16 at any other D up to 256 (the f32 LMs),
+  both products on the tensor cores in 3xTF32 (f32 operands split hi + lo,
+  P always split, 16-bit operands exact), the head dim zero-padded to
+  ``TF32X3_DIMS``: a wgmma .tf32 kernel for f32 at 64 < D <= 128
+  (:func:`tf32x3_wgmma`), an mma.sync one for the rest (counted also in
+  ``tf32x3_launches``, the first in ``tf32x3_wgmma_launches`` too);
+* ``"generic"``: D past 256, the f32 CUDA-core kernel, kept only as the
+  route past the tensor-core kernels' reach, up to the ~29,000 one query
+  row's f32 state leaves room for (counted also in ``generic_launches``).
+
+All take any length, including a ragged last query or key tile (the
+Pallas kernel asserts ``Sq % block_q == 0`` and the JAX fabric sends other
+lengths to the plain version; here there is no such fallback).  The
+source notes in ``csrc/flash_attention.cu`` say what bounds each on an
+H100 and how its design answers that.
 """
 from __future__ import annotations
 
@@ -25,16 +36,56 @@ _ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float,
          ctypes.c_int, ctypes.c_void_p])
 _GENERIC_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
                  + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+_TF32X3_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
+                + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 GENERIC_ROWS = 8        # query rows a generic block, a warp each (at most)
 _FG_KEYS, _FG_COLS = 32, 64     # csrc FG_KEYS, FG_COLS
+# head dims the 3xTF32 kernel is built for (csrc TfShape): D pads to the
+# first that holds it
+TF32X3_DIMS = (16, 32, 64, 128, 256)
+
+
+def tf32x3_dim(d: int) -> int:
+    """The padded head dim the 3xTF32 kernel runs D at, 0 past 256."""
+    return next((p for p in TF32X3_DIMS if d <= p), 0)
+
+
+def tf32x3_tile(dp: int) -> tuple[int, int]:
+    """(query rows, keys) a 3xTF32 block takes at padded head dim ``dp``
+    (csrc ``TfShape``): 128 x 64 up to 64, 128 x 48 at 128, 64 x 24 at
+    256."""
+    if dp <= 64:
+        return 128, 64
+    return (128, 48) if dp <= 128 else (64, 24)
+
+
+def tf32x3_smem_bytes(dp: int) -> int:
+    """Shared memory of a 3xTF32 block (csrc ``TfShape::SMEM``): the Q
+    tile, the next K and V tiles raw, and the current ones' hi and lo
+    planes, f32 rows of ``dp + 4``."""
+    bq, bk = tf32x3_tile(dp)
+    return 4 * (dp + 4) * (bq + 6 * bk)
+
+
+def tf32x3_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether a 3xTF32 call runs the wgmma kernel (csrc
+    ``flash_attention_tf32x3_wgmma_kernel``): f32 q/k/v at 64 < D <= 128
+    with D % 4 == 0 and every operand 16-byte aligned; the mma.sync kernel
+    takes every other 3xTF32 case."""
+    d = q.shape[-1]
+    return (q.dtype == torch.float32 and 64 < d <= 128 and d % 4 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
 
 
 def route(dtype: torch.dtype, d: int) -> str:
     """The kernel a CUDA call of this dtype and head dim launches:
-    ``"wgmma"`` for bf16 with D in ``HEAD_DIMS``, else ``"generic"``."""
-    return "wgmma" if dtype == torch.bfloat16 and d in HEAD_DIMS else "generic"
+    ``"wgmma"`` for bf16 with D in ``HEAD_DIMS``, ``"tf32x3"`` for any
+    other case up to D 256, ``"generic"`` past it."""
+    if dtype == torch.bfloat16 and d in HEAD_DIMS:
+        return "wgmma"
+    return "tf32x3" if tf32x3_dim(d) else "generic"
 
 
 def generic_smem_bytes(rows: int, d: int) -> int:
@@ -91,7 +142,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return ref.attention(q, k, v, causal=causal, scale=scale)
     b, hq, hkv, sq, skv, d = _check(q, k, v, causal)
-    if route(q.dtype, d) == "generic":
+    path = route(q.dtype, d)
+    if path == "tf32x3":
+        return tf32x3(q, k, v, causal=causal, scale=scale)
+    if path == "generic":
         return generic(q, k, v, causal=causal, scale=scale)
     scale = float(d) ** -0.5 if scale is None else float(scale)
     if b * hq > 2 ** 31 - 1:
@@ -113,12 +167,57 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def tf32x3(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool = True, scale=None) -> torch.Tensor:
+    """The 3xTF32 kernels on CUDA tensors (D up to 256), whatever
+    :func:`route` says: what :func:`flash_attention` launches on the
+    ``"tf32x3"`` route, and how a check holds them against the bf16 wgmma
+    kernel on the same bf16 inputs.  f32 at 64 < D <= 128 runs the wgmma
+    .tf32 kernel (:func:`tf32x3_wgmma`, counted also in
+    ``tf32x3_wgmma_launches``), every other case the mma.sync one.
+    Counted in ``flash_attention.launches`` and ``tf32x3_launches``."""
+    return _tf32x3(q, k, v, causal, scale, tf32x3_wgmma(q, k, v))
+
+
+def _tf32x3(q, k, v, causal, scale, wgmma: bool):
+    """The 3xTF32 launch on the kernel ``wgmma`` names (the wgmma one only
+    where :func:`tf32x3_wgmma` holds; a check may time the mma.sync one
+    there too)."""
+    b, hq, hkv, sq, skv, d = _check(q, k, v, causal)
+    scale = float(d) ** -0.5 if scale is None else float(scale)
+    if not tf32x3_dim(d):
+        raise ValueError(f"flash_attention: head dim {d} is past the 3xTF32 "
+                         f"kernel's {TF32X3_DIMS[-1]}")
+    if b * hq > 2 ** 31 - 1:
+        raise ValueError(f"flash_attention: {b} x {hq} heads exceed 2^31 - 1")
+    if wgmma and not tf32x3_wgmma(q, k, v):
+        raise ValueError("flash_attention: the 3xTF32 wgmma kernel takes f32 "
+                         "at 64 < D <= 128, D % 4 == 0, 16-byte aligned")
+    out = torch.empty_like(q)
+    if wgmma:
+        _build.launch(
+            "flash_attention", "launch_flash_attention_tf32x3_wgmma",
+            _ARGS, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), b, hq, hkv, sq, skv, d, scale, int(causal),
+            _build.stream_handle(q.device))
+    else:
+        _build.launch(
+            "flash_attention", "launch_flash_attention_tf32x3", _TF32X3_ARGS,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
+            hkv, sq, skv, d, scale, int(causal), DTYPES[q.dtype],
+            _build.stream_handle(q.device))
+    flash_attention.launches += 1
+    flash_attention.tf32x3_launches += 1
+    flash_attention.tf32x3_wgmma_launches += int(wgmma)
+    return out
+
+
 def generic(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             causal: bool = True, scale=None) -> torch.Tensor:
-    """The generic kernel on CUDA tensors, whatever :func:`route` says:
-    what :func:`flash_attention` launches off the wgmma route, and how a
-    check holds the two kernels against each other on the same bf16
-    inputs.  Counted in ``flash_attention.launches`` and
+    """The generic CUDA-core kernel on CUDA tensors, whatever :func:`route`
+    says: what :func:`flash_attention` launches past D 256, and how a check
+    holds it against the tensor-core kernels and times it as row 5g's
+    "was" on the same inputs.  Counted in ``flash_attention.launches`` and
     ``generic_launches``."""
     b, hq, hkv, sq, skv, d = _check(q, k, v, causal)
     scale = float(d) ** -0.5 if scale is None else float(scale)
@@ -138,4 +237,6 @@ def generic(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+flash_attention.tf32x3_launches = 0
+flash_attention.tf32x3_wgmma_launches = 0
 flash_attention.generic_launches = 0

@@ -7,11 +7,18 @@ which zero-pads T to a multiple of the chunk and crops the result: the
 kernels read positions past T as zeros and do not write them.  The chunk
 only tiles the work (the scan's result is the same for every chunk, up to
 float32 rounding), so the kernels take ``min(chunk, T)`` rounded up to a
-multiple of their 64-row tile.  The (ds, dh) pairs in ``DIMS`` run the
-three tensor-core passes; every other pair runs the generic kernel, the
-recurrence in f32 on the CUDA cores (:func:`route`; counted also in
-``generic_launches``).  The source notes in ``csrc/ssd_scan.cu`` say what
-bounds them on an H100 and how each design answers that.
+multiple of their 64-row tile.
+
+Every (ds, dh) up to (128, 128) runs the three tensor-core passes
+(:func:`route` ``"tensor_cores"``), at the instantiation its widths round up
+to (:func:`padded`: 16, 32, 64 or 128 each).  The pairs in ``DIMS`` run at
+their own widths, as before; any other pair is padded: B and C past ds and
+x past dh load as zeros, which adds only exact zeros to every sum, and y's
+columns past dh are not written (counted also in ``padded_launches``).
+Only a pair past (128, 128) runs the generic kernel, the recurrence in f32
+on the CUDA cores, kept as the route past the passes' reach (counted also
+in ``generic_launches``).  The source notes in ``csrc/ssd_scan.cu`` say
+what bounds each on an H100 and how its design answers that.
 """
 from __future__ import annotations
 
@@ -28,18 +35,43 @@ TILE = 64
 MAX_CHUNK = 1024
 _GENERIC_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                  + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
-# (ds, dh) the tensor-core passes are built for: mamba2-780m's, and the
-# smoke configs' and the card tests' small ones
+# (ds, dh) the tensor-core passes were first built for: mamba2-780m's, and
+# the smoke configs' and the card tests' small ones
 DIMS = ((128, 64), (32, 16), (16, 16))
+# widths the passes are instantiated at (csrc ssd_width): each of ds and dh
+# rounds up to the first that holds it
+WIDTHS = (16, 32, 64, 128)
 GENERIC_STEPS = 32      # time steps a generic window stages (at most)
 _SG_COLS, _SG_GROUPS = 32, 8    # csrc SG_COLS, SG_GROUPS
 
 
+def _width(w: int) -> int:
+    return next((p for p in WIDTHS if w <= p), 0)
+
+
+def out_smem_bytes(ds: int, dh: int, chunk: int) -> int:
+    """Shared memory of a pass-3 block of instantiation (ds, dh) (csrc
+    ``ssd_out_floats``): cum, the C and B (or S_in) tiles, X and G."""
+    return 4 * (chunk + TILE * (ds + 4) + max(TILE * (ds + 4), ds * (dh + 8))
+                + TILE * (dh + 8) + TILE * (TILE + 4))
+
+
+def padded(ds: int, dh: int):
+    """The (ds, dh) instantiation of the tensor-core passes this pair runs
+    at (``DIMS`` pairs at their own): the widths rounded up to ``WIDTHS``,
+    where its pass-3 block fits shared memory at the largest chunk; None
+    past (128, 128)."""
+    dsp, dhp = _width(ds), _width(dh)
+    if dsp and dhp and out_smem_bytes(dsp, dhp, MAX_CHUNK) <= _build.SMEM_LIMIT:
+        return dsp, dhp
+    return None
+
+
 def route(ds: int, dh: int) -> str:
     """The kernels a CUDA call with this state and head width launches:
-    ``"tensor_cores"`` (the three passes) for a pair in ``DIMS``, else
-    ``"generic"``."""
-    return "tensor_cores" if (ds, dh) in DIMS else "generic"
+    ``"tensor_cores"`` (the three passes, at :func:`padded`'s
+    instantiation) up to (128, 128), else ``"generic"``."""
+    return "tensor_cores" if padded(ds, dh) else "generic"
 
 
 def generic_smem_bytes(ds: int, steps: int) -> int:
@@ -95,8 +127,8 @@ def ssd_scan(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
     A CPU tensor runs the plain version (the recurrence,
     :func:`ref.ssd_scan`); a CUDA tensor launches the kernels (x, b, c in
     float32 or bf16, log_a float32) or raises: the three tensor-core
-    passes for (ds, dh) in ``DIMS``, the generic kernel for any other pair
-    (:func:`route`)."""
+    passes up to (ds, dh) = (128, 128), padded to :func:`padded`'s widths
+    outside ``DIMS``, the generic kernel past that (:func:`route`)."""
     if x.device.type == "cpu":
         return ref.ssd_scan(x, log_a, b, c)[0]
     bstride, cstride = _check(x, log_a, b, c)
@@ -108,10 +140,11 @@ def ssd_scan(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
     if ck > MAX_CHUNK:
         raise ValueError(f"ssd_scan: chunk {ck} over {MAX_CHUNK}")
     n = -(-tn // ck)
-    if bh * max(n * ck // TILE, -(-ds * dh // 256)) > 2 ** 31 - 1:
+    dsp, dhp = padded(ds, dh)
+    if bh * max(n * ck // TILE, -(-dsp * dhp // 256)) > 2 ** 31 - 1:
         raise ValueError(f"ssd_scan: BH = {bh} x T = {tn} needs more than "
                          "2^31 - 1 blocks")
-    states = torch.empty((bh, n, ds, dh), dtype=torch.float32,
+    states = torch.empty((bh, n, dsp, dhp), dtype=torch.float32,
                          device=x.device)
     totals = torch.empty((bh, n), dtype=torch.float32, device=x.device)
     y = torch.empty_like(x)
@@ -121,6 +154,8 @@ def ssd_scan(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
         y.data_ptr(), bh, tn, ds, dh, ck, bstride, cstride,
         int(x.dtype == torch.bfloat16), _build.stream_handle(x.device))
     ssd_scan.launches += 1
+    if (ds, dh) not in DIMS:
+        ssd_scan.padded_launches += 1
     return y
 
 
@@ -144,8 +179,8 @@ def _check(x, log_a, b, c):
 def generic(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
             c: torch.Tensor) -> torch.Tensor:
     """The generic kernel on CUDA tensors, whatever :func:`route` says:
-    what :func:`ssd_scan` launches for a pair outside ``DIMS``, and how a
-    check times it against the tensor-core passes on the same inputs.
+    what :func:`ssd_scan` launches past (128, 128), and how a check holds
+    and times it against the tensor-core passes on the same inputs.
     Counted in ``ssd_scan.launches`` and ``generic_launches``."""
     return _generic(x, log_a, b, c, *_check(x, log_a, b, c))
 
@@ -172,4 +207,5 @@ def _generic(x, log_a, b, c, bstride, cstride):
 
 
 ssd_scan.launches = 0
+ssd_scan.padded_launches = 0
 ssd_scan.generic_launches = 0

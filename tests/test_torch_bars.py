@@ -163,3 +163,20 @@ def test_kernel_variant_patches_apply_to_the_source(file, name):
         text = f.read()
     table = VARIANT_TABLES[file]
     assert kv.patch(text, name, table[name]) != text
+
+
+@pytest.mark.parametrize("file,table,name", [
+    (file, table, n) for file, table in (("flash_attention.cu", "FLASH_F32"),
+                                         ("ssd_scan.cu", "SSD"))
+    for n in sorted(getattr(kv, table))])
+def test_f32_flash_and_ssd_variant_patches_apply_to_the_source(file, table,
+                                                               name):
+    """The 3xTF32 flash variants and the SSD ones (some a function of the
+    source text) each apply once to the sound source."""
+    path = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc", file)
+    with open(path) as f:
+        text = f.read()
+    patches = getattr(kv, table)[name]
+    if callable(patches):
+        patches = patches(text)
+    assert kv.patch(text, name, patches) != text

@@ -999,7 +999,7 @@ def test_two_tenant_fleet_on_card_equals_solo_runs(dev):
 
 
 
-# ------------------------------------------- generic routes (f32, any D) --
+# ---------------------- routes past bf16 wgmma and DIMS (f32, any D, ds, dh) --
 def assert_flash_f32_close(got, want, abs_attn):
     """f32: ``2^-17 (|want| + P|V|)``, ~64 f32 ulps of the output, for an
     online softmax that sums in another order than the plain one."""
@@ -1023,37 +1023,54 @@ _FLASH_BARS = {torch.float32: assert_flash_f32_close,
                torch.float16: assert_flash_f16_close}
 
 
+def _flash_counts(kfa):
+    f = kfa.flash_attention
+    return (f.launches, f.tf32x3_launches, f.tf32x3_wgmma_launches,
+            f.generic_launches)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal", [
     (1, 4, 2, 100, 100, 8, True), (2, 4, 4, 37, 70, 48, False),
     (1, 4, 1, 33, 130, 80, True), (1, 2, 2, 65, 65, 96, True),
     (1, 4, 2, 40, 300, 256, False), (1, 4, 2, 100, 100, 128, True),
-    (1, 2, 1, 9, 9, 1, True)])
+    (1, 2, 1, 9, 9, 1, True), (1, 4, 2, 70, 90, 300, True)])
 def test_flash_attention_generic_route(dev, dtype, b, hq, hkv, sq, skv, d,
                                        causal):
-    """Every dtype and head dim the wgmma kernel does not take runs the
-    generic kernel (counted in ``generic_launches``), within the dtype's
-    bar of the plain attention."""
+    """Every dtype and head dim the bf16 wgmma kernel does not take runs
+    the route :func:`route` names, by counter: the 3xTF32 kernels up to D
+    256 (the wgmma .tf32 one for f32 at 64 < D <= 128), the CUDA-core
+    kernel past it; each within the dtype's bar of the plain attention,
+    and the CUDA-core kernel, kept as the route past 256, too on the same
+    inputs."""
     from repro_torch.kernels import flash_attention as kfa
     g = _g(60 + d)
     q, k, v = (torch.randn(s, generator=g).to(dtype).to(dev) for s in
                ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
-    generic = not (dtype == torch.bfloat16 and d in kfa.HEAD_DIMS)
-    kfa.flash_attention.launches = kfa.flash_attention.generic_launches = 0
+    path = kfa.route(dtype, d)
+    assert path == ("wgmma" if dtype == torch.bfloat16 and d in
+                    kfa.HEAD_DIMS else "tf32x3" if d <= 256 else "generic")
+    wgmma = path == "tf32x3" and kfa.tf32x3_wgmma(q, k, v)
+    assert wgmma == (dtype == torch.float32 and 64 < d <= 128)
+    before = _flash_counts(kfa)
     got = kfa.flash_attention(q, k, v, causal=causal)
     assert got.dtype == dtype
-    assert kfa.route(dtype, d) == ("generic" if generic else "wgmma")
-    assert (kfa.flash_attention.launches,
-            kfa.flash_attention.generic_launches) == (1, int(generic))
+    assert _flash_counts(kfa) == (
+        before[0] + 1, before[1] + int(path == "tf32x3"),
+        before[2] + int(wgmma), before[3] + int(path == "generic"))
     want = ref.attention(q, k, v, causal=causal)
-    _FLASH_BARS[dtype](got, want, ref.attention(q, k, v.abs(),
-                                                 causal=causal))
+    pv = ref.attention(q, k, v.abs(), causal=causal)
+    _FLASH_BARS[dtype](got, want, pv)
+    gen = kfa.generic(q, k, v, causal=causal)
+    assert _flash_counts(kfa)[3] == before[3] + 1 + int(path == "generic")
+    _FLASH_BARS[dtype](gen, want, pv)
 
 
 def test_flash_generic_and_wgmma_agree_in_bf16(dev):
-    """The two kernels on the same bf16 inputs at D = 64 hold each other
-    to the bf16 flash bar (so they cannot drift apart)."""
+    """The CUDA-core and bf16 wgmma kernels on the same bf16 inputs at D =
+    64 hold each other to the bf16 flash bar (so they cannot drift
+    apart)."""
     from repro_torch.kernels import flash_attention as kfa
     q = _bf16((1, 8, 300, 64), 70, dev)
     k, v = _bf16((1, 2, 300, 64), 71, dev), _bf16((1, 2, 300, 64), 72, dev)
@@ -1064,33 +1081,73 @@ def test_flash_generic_and_wgmma_agree_in_bf16(dev):
                                                   causal=causal))
 
 
+def test_flash_tf32x3_and_wgmma_agree_in_bf16(dev):
+    """The 3xTF32 (mma.sync) and bf16 wgmma kernels on the same bf16
+    inputs at D = 64 hold each other to the bf16 flash bar."""
+    from repro_torch.kernels import flash_attention as kfa
+    q = _bf16((1, 8, 300, 64), 73, dev)
+    k, v = _bf16((1, 2, 300, 64), 74, dev), _bf16((1, 2, 300, 64), 75, dev)
+    for causal in (True, False):
+        wg = kfa.flash_attention(q, k, v, causal=causal)
+        before = kfa.flash_attention.tf32x3_launches
+        tc = kfa.tf32x3(q, k, v, causal=causal)
+        assert kfa.flash_attention.tf32x3_launches == before + 1
+        assert_flash_close(tc, wg, ref.attention(q, k, v.abs(),
+                                                 causal=causal))
+
+
+@pytest.mark.parametrize("d", [68, 100, 128])
+def test_flash_tf32x3_wgmma_and_mma_sync_agree_in_f32(dev, d):
+    """The two 3xTF32 kernels on the same f32 inputs, each within the f32
+    flash bar of the plain attention, causal with Sq < Skv."""
+    from repro_torch.kernels import flash_attention as kfa
+    g = _g(76 + d)
+    q, k, v = (torch.randn(s, generator=g).to(dev) for s in
+               ((1, 8, 200, d), (1, 2, 333, d), (1, 2, 333, d)))
+    want = ref.attention(q, k, v)
+    pv = ref.attention(q, k, v.abs())
+    for wgmma in (True, False):
+        assert_flash_f32_close(kfa._tf32x3(q, k, v, True, None, wgmma),
+                               want, pv)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("ds,dh", [(64, 32), (16, 64), (128, 128), (24, 40),
                                    (1, 1), (300, 33)])
 def test_ssd_scan_generic_route(dev, dtype, ds, dh):
-    """Every (ds, dh) outside ``DIMS`` runs the generic kernel (counted in
-    ``generic_launches``), with B/C per head and broadcast over heads,
-    within the f32 SSD bar (bf16 plus one bf16 ulp)."""
+    """Every (ds, dh) outside ``DIMS`` up to (128, 128) runs the padded
+    tensor-core passes (counted in ``padded_launches``), past it the
+    recurrence kernel (``generic_launches``), with B/C per head and
+    broadcast over heads, within the f32 SSD bar (bf16 plus one bf16
+    ulp); the recurrence kernel, kept as the route past (128, 128), too
+    on the same inputs."""
     from repro_torch.kernels import ssd_scan as kssd
     x, la, b, c = _ssd_inputs(5, 150, ds, dh, dtype, dev, seed=80)
     rtol = 2 ** -7 if dtype == torch.bfloat16 else 2e-4
+    past = kssd.padded(ds, dh) is None
+    assert kssd.route(ds, dh) == ("generic" if past else "tensor_cores")
+    f = kssd.ssd_scan
     for bb, cc in ((b, c), (b[:1].expand(5, 150, ds),
                             c[:1].expand(5, 150, ds))):
-        kssd.ssd_scan.launches = kssd.ssd_scan.generic_launches = 0
+        before = (f.launches, f.padded_launches, f.generic_launches)
         got = kssd.ssd_scan(x, la, bb, cc)
-        assert (kssd.ssd_scan.launches, kssd.ssd_scan.generic_launches) == (
-            1, 1)
+        assert (f.launches, f.padded_launches, f.generic_launches) == (
+            before[0] + 1, before[1] + int(not past), before[2] + int(past))
         assert got.dtype == dtype
         want = ref.ssd_scan(x, la, bb, cc)[0]
         torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=2e-4)
+        gen = kssd.generic(x, la, bb, cc)
+        torch.testing.assert_close(gen.float(), want.float(), rtol=rtol,
                                    atol=2e-4)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-4b", "mamba2-780m"])
 def test_f32_smoke_prefill_on_card_equals_cpu(dev, arch):
     """The f32 smoke configs' prefill on the card against the CPU within
-    ``test_torch_lm_prefill.py``'s f32 bar (1e-4).  Before the generic
-    flash kernel the qwen3-4b one raised ``TypeError`` (bf16 only)."""
+    ``test_torch_lm_prefill.py``'s f32 bar (1e-4), the qwen3-4b one's
+    attention on the 3xTF32 route.  Before the generic flash kernel it
+    raised ``TypeError`` (bf16 only)."""
     import dataclasses
 
     from repro_torch.configs import ARCHS
@@ -1102,10 +1159,10 @@ def test_f32_smoke_prefill_on_card_equals_cpu(dev, arch):
                                  device="cpu")
     tok = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 100))
     want = steps.prefill(params, tok, cfg, device="cpu")
-    kfa.flash_attention.generic_launches = 0
+    before = kfa.flash_attention.tf32x3_launches
     got = steps.prefill(bc.params_to(params, dev), tok, cfg, device=dev)
     assert got.dtype == torch.float32
-    assert kfa.flash_attention.generic_launches == (
+    assert kfa.flash_attention.tf32x3_launches - before == (
         4 if arch == "qwen3-4b" else 0)
     np.testing.assert_allclose(U.n(got), U.n(want), rtol=1e-4, atol=1e-4)
 

@@ -2,10 +2,13 @@
 on the CPU in pure Python (the kernels run only on the card):
 
 * ``flash_attention.route``: bf16 at a head dim of ``HEAD_DIMS`` on the
-  wgmma kernel, everything else (f32, f16, other head dims) on the generic
-  one, and how many query rows a generic block takes;
-* ``ssd_scan.route``: the (ds, dh) pairs of ``DIMS`` on the tensor-core
-  passes, every other pair on the generic kernel, and its window;
+  wgmma kernel, every other dtype and head dim up to 256 on the 3xTF32
+  kernels (the head dim padded, f32 at 64 < D <= 128 on their wgmma one),
+  past 256 on the CUDA-core kernel, and how much shared memory each
+  takes;
+* ``ssd_scan.route``: every (ds, dh) up to (128, 128) on the tensor-core
+  passes at the padded instantiation, past it on the recurrence kernel,
+  and what each takes of shared memory;
 * the wrappers with no backward refuse an operand that requires grad
   before they check or launch anything (a ``meta`` tensor stands for a
   CUDA one: the wrapper takes its card path, and would fail on the device
@@ -28,13 +31,54 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as kssd
 
 
-def test_flash_route_by_dtype_and_head_dim():
-    for d in (16, 32, 64, 128):
-        assert kfa.route(torch.bfloat16, d) == "wgmma"
-        assert kfa.route(torch.float32, d) == "generic"
-        assert kfa.route(torch.float16, d) == "generic"
-    for d in (1, 8, 48, 80, 96, 100, 256, 4096):
-        assert kfa.route(torch.bfloat16, d) == "generic"
+_FLASH_DIMS = (1, 7, 8, 9, 16, 20, 32, 48, 64, 65, 80, 96, 100, 128, 129,
+               200, 256, 257, 300, 4096)
+
+
+def _flash_route(dtype, d):
+    if dtype == torch.bfloat16 and d in (16, 32, 64, 128):
+        return "wgmma"
+    return "tf32x3" if d <= 256 else "generic"
+
+
+@pytest.mark.parametrize("d", _FLASH_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+def test_flash_route_by_dtype_and_head_dim(dtype, d):
+    assert kfa.route(dtype, d) == _flash_route(dtype, d)
+    # the 3xTF32 kernels pad D to the first of 16, 32, 64, 128, 256
+    pad = kfa.tf32x3_dim(d)
+    if d <= 256:
+        assert pad in kfa.TF32X3_DIMS and d <= pad
+        assert pad == 16 or pad // 2 < d
+    else:
+        assert pad == 0
+
+
+@pytest.mark.parametrize("d,dtype,aligned,wgmma", [
+    (128, torch.float32, True, True), (68, torch.float32, True, True),
+    (100, torch.float32, True, True), (64, torch.float32, True, False),
+    (66, torch.float32, True, False), (130, torch.float32, True, False),
+    (128, torch.float32, False, False), (128, torch.float16, True, False),
+    (100, torch.bfloat16, True, False)])
+def test_tf32x3_wgmma_kernel_takes_f32_at_64_to_128(d, dtype, aligned,
+                                                     wgmma):
+    """f32 at 64 < D <= 128, D % 4 == 0, every operand 16-byte aligned:
+    the wgmma .tf32 kernel; every other 3xTF32 case the mma.sync one."""
+    q = torch.zeros(1 + 4 * d, dtype=dtype)
+    t = q[1:] if not aligned else q[:4 * d]
+    view = t[:4 * d].view(1, 1, 4, d)
+    assert kfa.tf32x3_wgmma(view, view, view) == wgmma
+
+
+@pytest.mark.parametrize("dp", [16, 32, 64, 128, 256])
+def test_tf32x3_block_fits_shared_memory(dp):
+    """Q, the next K and V tiles raw and the current ones' hi and lo
+    planes, rows of dp + 4 floats, within the 227 KB a block may use."""
+    bq, bk = kfa.tf32x3_tile(dp)
+    assert kfa.tf32x3_smem_bytes(dp) == 4 * (dp + 4) * (bq + 6 * bk)
+    assert kfa.tf32x3_smem_bytes(dp) <= _build.SMEM_LIMIT
+    assert bq % 16 == 0 and bk % 8 == 0
 
 
 def test_flash_generic_rows_fit_shared_memory():
@@ -51,12 +95,32 @@ def test_flash_generic_rows_fit_shared_memory():
     assert kfa.generic_rows(30_000) == 0
 
 
-def test_ssd_route_by_state_and_head_width():
-    for pair in kssd.DIMS:
-        assert kssd.route(*pair) == "tensor_cores"
-    for pair in ((64, 32), (16, 64), (128, 128), (24, 40), (1, 1),
-                 (64, 128), (256, 64)):
-        assert kssd.route(*pair) == "generic"
+@pytest.mark.parametrize("pair,inst", [
+    ((128, 64), (128, 64)), ((32, 16), (32, 16)), ((16, 16), (16, 16)),
+    ((64, 32), (64, 32)), ((16, 64), (16, 64)), ((128, 128), (128, 128)),
+    ((24, 40), (32, 64)), ((1, 1), (16, 16)), ((64, 128), (64, 128)),
+    ((100, 17), (128, 32)), ((17, 33), (32, 64)), ((65, 9), (128, 16)),
+    ((256, 64), None), ((300, 33), None), ((64, 129), None)])
+def test_ssd_route_by_state_and_head_width(pair, inst):
+    """Each width rounds up to the first of 16, 32, 64, 128; the DIMS
+    pairs keep their own instantiation; past 128 the recurrence."""
+    assert kssd.padded(*pair) == inst
+    assert kssd.route(*pair) == ("tensor_cores" if inst else "generic")
+    if pair in kssd.DIMS:
+        assert inst == pair
+
+
+@pytest.mark.parametrize("ds,dh", [(ds, dh) for ds in kssd.WIDTHS
+                                   for dh in kssd.WIDTHS])
+def test_ssd_instantiations_fit_shared_memory(ds, dh):
+    """Every instantiation's pass-3 block at the largest chunk fits; only
+    (128, 128) leaves room for one block an SM (its register hint 1)."""
+    assert kssd.out_smem_bytes(ds, dh, kssd.MAX_CHUNK) <= _build.SMEM_LIMIT
+    two = 2 * kssd.out_smem_bytes(ds, dh, 256) <= _build.SMEM_LIMIT
+    assert two == ((ds, dh) != (128, 128))
+    if (ds, dh) == (128, 128):
+        # ~157 KB at chunk 256
+        assert kssd.out_smem_bytes(ds, dh, 256) == 156_672
 
 
 def test_ssd_generic_window_fits_shared_memory():

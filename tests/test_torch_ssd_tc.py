@@ -9,7 +9,9 @@ two; with f32 inputs every product is three.  Emulated here in float32 at
 mamba2-780m's widths (ds 128, dh 64, chunk 256; T 512, 4 heads), the scan
 comes within the JAX suite's 2e-4 bar of JAX's ``ssd_scan`` (the Pallas
 kernel in interpret mode).  One TF32 product (hi x hi) of the f32 operands
-misses that bar, so the splits are needed.
+misses that bar, so the splits are needed.  A pair outside ``DIMS`` runs
+the same passes at a padded instantiation (B and C zero past ds, x past
+dh): emulated so at (24, 40) and (100, 17), it holds the same bar.
 """
 import functools
 
@@ -130,3 +132,42 @@ def test_one_tf32_product_misses_the_bar():
     one = _emulated_scan(x, la, b, c, exact=False, one=True)
     err = float(np.abs(U.n(one) - _jax_y(False)).max())
     assert err > TOL, err
+
+
+@functools.lru_cache(maxsize=None)
+def _pair_inputs(ds: int, dh: int, bf16: bool):
+    """The same draws at a (ds, dh) pair outside ``DIMS``."""
+    rng = np.random.default_rng(22 + ds + dh)
+    x = (rng.standard_normal((HEADS, T, dh)) * 0.5).astype(np.float32)
+    la = -np.logaddexp(rng.standard_normal((HEADS, T)), 0).astype(
+        np.float32)
+    b = (rng.standard_normal((HEADS, T, ds)) * 0.3).astype(np.float32)
+    c = (rng.standard_normal((HEADS, T, ds)) * 0.3).astype(np.float32)
+    if bf16:
+        x, b, c = (U.n(U.t(a).to(torch.bfloat16).float()) for a in (x, b, c))
+    return x, la, b, c
+
+
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "f32"])
+@pytest.mark.parametrize("ds,dh", [(24, 40), (100, 17)])
+def test_padded_pair_holds_the_bar(ds, dh, bf16):
+    """A pair outside ``DIMS`` runs the passes at the instantiation
+    ``route`` names (``padded``): B and C zero past ds, x past dh, y cropped
+    to dh.  Emulated so, the scan comes within 2e-4 of JAX's ``ssd_scan``
+    (the Pallas kernel in interpret mode) at the pair itself."""
+    assert kssd.route(ds, dh) == "tensor_cores"
+    dsp, dhp = kssd.padded(ds, dh)
+    assert (ds, dh) not in kssd.DIMS and (dsp, dhp) != (ds, dh)
+    arrs = _pair_inputs(ds, dh, bf16)
+    x, la, b, c = (U.t(a) for a in arrs)
+    pad = torch.nn.functional.pad
+    ref.full_fp32()
+    got = _emulated_scan(pad(x, (0, dhp - dh)), la, pad(b, (0, dsp - ds)),
+                         pad(c, (0, dsp - ds)), exact=bf16)
+    # the padded columns of y are exact zeros, never written by the kernel
+    assert not bool(got[..., dh:].any())
+    with jfabric.use("pallas_interpret"):
+        want = np.asarray(jops.ssd_scan(*[jnp.asarray(a) for a in arrs],
+                                        chunk=CHUNK))
+    err = float(np.abs(U.n(got[..., :dh]) - want).max())
+    assert err <= TOL, err
