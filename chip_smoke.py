@@ -53,11 +53,13 @@ Phases, each printing JSON lines:
    kernel one head dim past it, each case's kernel asserted by counter,
    against the plain attention at each dtype's bar; both against the
    wgmma kernel on the same bf16 inputs; row 5g timed at qwen3-4b's
-   attention in f32 (1 x 4096) on the 3xTF32 wgmma kernel, beside its
-   mma.sync kernel, the CUDA-core kernel it replaced (``was_ms``) and
-   SDPA f32 (the library, its kernel's name from the profiler); the SSD
-   at four (ds, dh) pairs outside DIMS on the padded tensor-core passes
-   and one past (128, 128) on the recurrence kernel, in f32 and bf16;
+   attention in f32 (1 x 4096) on the 3xTF32 wgmma kernel, beside the
+   CUDA-core kernel it replaced (``was_ms``) and SDPA f32 (the library,
+   its kernel's name from the profiler); row 5m, the 3xTF32 mma.sync
+   kernel, at lm_parity_f32's qwen3-4b smoke shape (D 16) and at row
+   5g's inputs; the SSD at four (ds, dh) pairs outside DIMS on the
+   tensor-core passes (zero-padded to a built pair where they are not
+   one) and one past (128, 128) on the recurrence kernel, in f32 and bf16;
    row 6g timed at 24 heads x 4096 with (ds, dh) = (128, 128) beside the
    recurrence kernel, and the recurrence kernel beside the tensor-core
    passes at mamba2-780m's shape.
@@ -106,11 +108,13 @@ Phases, each printing JSON lines:
    token's final-normed hidden state, rms of the difference within 2^-7
    of its rms, and its logits within 2 bf16 ulps of max |logit|.
    ``lm_parity_f32``: the f32 smoke configs (qwen3-4b on the 3xTF32
-   flash route, mamba2-780m on the SSD passes' DIMS pair, and
-   mamba2-780m's smoke at (ds, dh) = (64, 32) on the padded passes) on
-   the card against the CPU within 1e-4, then each distinct
-   flash_attention and ssd_scan call of that path again on its own
-   inputs against its plain version, each naming the route it took.
+   flash route's mma.sync kernel at D 16 and, at its own head dim 128,
+   on its wgmma kernel; mamba2-780m on the SSD passes' DIMS pair, and
+   mamba2-780m's smoke at (ds, dh) = (64, 32) zero-padded to the (128,
+   64) passes) on the card against the CPU within 1e-4, then each
+   distinct flash_attention and ssd_scan call of that path again on its
+   own inputs against its plain version, each naming the route and
+   kernel it took.
 8. ``fleet``: four tenants on one ``repro_torch.fleet.Fleet`` on the
    card: ``lab-fc`` (``flowcell_512`` with phase 4's CNN, pore encoder,
    1,024 reads, depth 2, fused; weight 2), ``lab-bc1`` and ``lab-bc2``
@@ -168,14 +172,16 @@ Phases, each printing JSON lines:
    ``unfused_ms``, ``unfused_device_ms`` and ``bound_fp32_ms``;
    ``fused_stream_int8`` with ``tc_launches``, ``tc_layers`` and
    ``device_ms``; ``ssd_scan`` with ``device_ms``, ``device_ms_by_pass``
-   and ``bound_fp32_ms``; ``flash_attention_tf32x3`` (row 5g) and
+   and ``bound_fp32_ms``; ``flash_attention_tf32x3_wgmma`` (row 5g),
+   ``flash_attention_tf32x3`` (row 5m, the mma.sync kernel) and
    ``ssd_scan_padded`` (row 6g) with ``bound_fp32_ms`` beside
-   ``bound_ms`` at the 3xTF32 rate, ``was_ms`` (the CUDA-core kernel the
-   row ran on before, same inputs) and ``generic_launches`` (its
-   launches on the main paths), the flash row also ``wgmma_launches``,
-   ``mma_sync_ms`` and ``library_kernels``, the SSD row
-   ``device_ms_by_pass``; ``flash_attention`` counts its bf16 wgmma
-   kernel only and ``ssd_scan`` its ``DIMS`` pairs only).
+   ``bound_ms`` at the 3xTF32 rate, ``was_ms`` (the CUDA-core kernel,
+   same inputs) and ``generic_launches`` (its launches on the main
+   paths), row 5g also ``library_kernels``, row 5m also
+   ``qwen3_4b_d128_ms`` and ``qwen3_4b_d128_bound_ms`` (at row 5g's
+   inputs), row 6g ``device_ms_by_pass``; each 3xTF32 row counts its own
+   kernel, ``flash_attention`` its bf16 wgmma kernel only and
+   ``ssd_scan`` its ``DIMS`` pairs only).
 
 TF32 is off for the whole run (``torch.backends.cuda.matmul.allow_tf32``
 and ``torch.backends.cudnn.allow_tf32``): the plain versions and the
@@ -3010,8 +3016,8 @@ def sdpa_f32_ms(torch, F, q, k, v, causal=True):
 
 
 def flash_counts(kfa):
-    """The flash wrapper's counters: all, 3xTF32, its wgmma kernel, and
-    the CUDA-core kernel's."""
+    """The flash wrapper's counters: all, the 3xTF32 mma.sync kernel's,
+    the 3xTF32 wgmma kernel's, and the CUDA-core kernel's."""
     f = kfa.flash_attention
     return (f.launches, f.tf32x3_launches, f.tf32x3_wgmma_launches,
             f.generic_launches)
@@ -3059,9 +3065,10 @@ def phase_kernels_generic(torch, F, peaks, table):
                 out = kfa.flash_attention(q, k, v, causal=causal)
                 after = flash_counts(kfa)
                 on_wgmma = kfa.tf32x3_wgmma(q, k, v)
+                tc = path == "tf32x3"
                 want_counts = (before[0] + 1,
-                               before[1] + int(path == "tf32x3"),
-                               before[2] + int(path == "tf32x3" and on_wgmma),
+                               before[1] + int(tc and not on_wgmma),
+                               before[2] + int(tc and on_wgmma),
                                before[3] + int(path == "generic"))
                 require(after == want_counts, f"flash {name} D={d}: counters "
                         f"{before} -> {after}, expected {want_counts}")
@@ -3112,8 +3119,8 @@ def phase_kernels_generic(torch, F, peaks, table):
         require(x <= 1.0, f"{kernel} vs wgmma flash: {x} x the bar")
 
     # row 5g: qwen3-4b's attention in f32 at 1 x 4096, on the route's
-    # kernel (3xTF32 wgmma), beside the mma.sync 3xTF32 kernel and the
-    # CUDA-core one it replaced, on the same inputs
+    # kernel there (the 3xTF32 wgmma one), beside the CUDA-core kernel it
+    # replaced and the mma.sync 3xTF32 kernel (row 5m's), same inputs
     from repro_torch.configs import ARCHS
     q3 = ARCHS["qwen3-4b"].config()
     q = rand((1, q3.num_heads, LM_SEQ, q3.head_dim), torch.float32)
@@ -3127,9 +3134,10 @@ def phase_kernels_generic(torch, F, peaks, table):
     want = ref.attention(q, k, v)
     pv = ref.attention(q, k, v.abs())
     excess = {name: flash_bar_excess(x, want, pv, "float32")
-              for name, x in (("tf32x3", out), ("mma_sync", mma),
+              for name, x in (("tf32x3_wgmma", out), ("mma_sync", mma),
                               ("generic", was))}
     err = (out - want).abs().max().item()
+    mma_err = (mma - want).abs().max().item()
     del want, pv, mma, was
     ms = time_ms(torch, lambda: kfa.flash_attention(q, k, v), reps=5,
                  warm=1)
@@ -3158,11 +3166,11 @@ def phase_kernels_generic(torch, F, peaks, table):
     io = nbytes(q, k, v, out)
     bnd, by = bound_ms(peaks, io, ops, tf32x3=True)
     bnd32 = bound_ms(peaks, io, ops)[0]
-    emit({"phase": "kernel", "kernel": "flash_attention_tf32x3",
+    emit({"phase": "kernel", "kernel": "flash_attention_tf32x3_wgmma",
           "shape": f"qwen3-4b 1 x {LM_SEQ}, float32", "q": list(q.shape),
           "k": list(k.shape), "causal": True, "max_abs_err": err,
           "err_over_bar": excess, "tol": F32_FLASH_RULE, "ms": ms,
-          "mma_sync_ms": mma_ms, "was_ms": was_ms,
+          "was_ms": was_ms,
           "was": "flash_attention_generic_kernel (CUDA cores)",
           "plain_ms": plain, "library_ms": lib,
           "library": "sdpa f32 (memory-efficient, K/V expanded)",
@@ -3170,12 +3178,66 @@ def phase_kernels_generic(torch, F, peaks, table):
           "bound_fp32_ms": bnd32, "flop": ops})
     require(max(excess.values()) <= 1.0,
             f"flash qwen3-4b f32: {excess} x the bar")
+    table.add("flash_attention_tf32x3_wgmma", err=err, ms=ms,
+              plain_ms=plain, bound=bnd, bound_by=by, library_ms=lib,
+              bound_fp32=bnd32)
+    table.rows["flash_attention_tf32x3_wgmma"].update(
+        was_ms=was_ms, library_kernels=lib_kernels)
+    # the mma.sync kernel at row 5g's inputs, for row 5m
+    d128 = {"shape": f"qwen3-4b 1 x {LM_SEQ}, float32", "ms": mma_ms,
+            "max_abs_err": mma_err, "bound_ms": bnd, "bound_fp32_ms": bnd32,
+            "library_ms": lib}
+    del q, k, v, out
+    torch.cuda.empty_cache()
+
+    # row 5m: the mma.sync 3xTF32 kernel at the shape its main path gives
+    # it (lm_parity_f32's qwen3-4b smoke in f32, D 16), beside the
+    # CUDA-core kernel on the same inputs, and its time at row 5g's inputs
+    q3s = ARCHS["qwen3-4b"].smoke_config()
+    shape = (2, q3s.num_heads, F32_PARITY_SEQ, q3s.head_dim)
+    q = rand(shape, torch.float32)
+    k, v = (rand((2, q3s.num_kv_heads, F32_PARITY_SEQ, q3s.head_dim),
+                 torch.float32) for _ in range(2))
+    require(kfa.route(q.dtype, q3s.head_dim) == "tf32x3"
+            and not kfa.tf32x3_wgmma(q, k, v), "row 5m off the mma.sync "
+            "3xTF32 kernel")
+    before = flash_counts(kfa)
+    out = kfa.flash_attention(q, k, v)
+    require(flash_counts(kfa)[1] == before[1] + 1,
+            "row 5m: the mma.sync counter did not move")
+    was = kfa.generic(q, k, v)
+    want = ref.attention(q, k, v)
+    pv = ref.attention(q, k, v.abs())
+    excess = {name: flash_bar_excess(x, want, pv, "float32")
+              for name, x in (("tf32x3", out), ("generic", was))}
+    err = (out - want).abs().max().item()
+    ms = time_ms(torch, lambda: kfa.flash_attention(q, k, v))
+    was_ms = time_ms(torch, lambda: kfa.generic(q, k, v))
+    plain = time_ms(torch, lambda: ref.attention(q, k, v))
+    lib = sdpa_f32_ms(torch, F, q, k, v)
+    ops = 4.0 * q3s.head_dim * attn_pairs(F32_PARITY_SEQ, F32_PARITY_SEQ) \
+        * q3s.num_heads * shape[0]
+    io = nbytes(q, k, v, out)
+    bnd, by = bound_ms(peaks, io, ops, tf32x3=True)
+    bnd32 = bound_ms(peaks, io, ops)[0]
+    emit({"phase": "kernel", "kernel": "flash_attention_tf32x3",
+          "shape": f"qwen3-4b smoke 2 x {F32_PARITY_SEQ}, float32 "
+          "(lm_parity_f32's)", "q": list(q.shape), "k": list(k.shape),
+          "causal": True, "max_abs_err": err, "err_over_bar": excess,
+          "tol": F32_FLASH_RULE, "ms": ms, "was_ms": was_ms,
+          "was": "flash_attention_generic_kernel (CUDA cores)",
+          "plain_ms": plain, "library_ms": lib,
+          "library": "sdpa f32 (memory-efficient, K/V expanded)",
+          "bound_ms": bnd, "bound_by": by, "bound_fp32_ms": bnd32,
+          "flop": ops, "qwen3_4b_d128": d128})
+    require(max(excess.values()) <= 1.0,
+            f"flash qwen3-4b smoke f32: {excess} x the bar")
     table.add("flash_attention_tf32x3", err=err, ms=ms, plain_ms=plain,
               bound=bnd, bound_by=by, library_ms=lib, bound_fp32=bnd32)
     table.rows["flash_attention_tf32x3"].update(
-        was_ms=was_ms, mma_sync_ms=mma_ms, library_kernels=lib_kernels)
-    del q, k, v, out
-    torch.cuda.empty_cache()
+        was_ms=was_ms, qwen3_4b_d128_ms=mma_ms,
+        qwen3_4b_d128_bound_ms=d128["bound_ms"])
+    del q, k, v, out, was, want, pv
 
     # the SSD sweep: four pairs on the padded passes and one past them x
     # two dtypes, B/C per head and broadcast
@@ -3234,6 +3296,9 @@ def phase_kernels_generic(torch, F, peaks, table):
     err = (out - want).abs().max().item()
     ok = torch.allclose(out, want, rtol=SSD_TOL, atol=SSD_TOL)
     was_err = (was - want).abs().max().item()
+    require(torch.allclose(was, want, rtol=SSD_TOL, atol=SSD_TOL),
+            f"ssd recurrence kernel at 24 x 4096 (128, 128): max abs err "
+            f"{was_err}")
     del want, was
     ms = time_ms(torch, lambda: kssd.ssd_scan(*args), reps=5, warm=1)
     was_ms = time_ms(torch, lambda: kssd.generic(*args), reps=3, warm=1)
@@ -3291,9 +3356,10 @@ F32_PARITY_SEQ = 128    # four SSD chunks of the smoke configs' 32
 
 def f32_parity_configs():
     """The f32 smoke configs: qwen3-4b (the 3xTF32 flash route at head dim
-    16, its mma.sync kernel), mamba2-780m ((ds, dh) = (16, 16): the SSD
+    16, its mma.sync kernel), the same at qwen3-4b's own head dim 128 (the
+    3xTF32 wgmma kernel), mamba2-780m ((ds, dh) = (16, 16): the SSD
     passes' own DIMS pair), and mamba2-780m's smoke at (ds, dh) = (64, 32),
-    a pair outside DIMS (the padded passes' (64, 32) instantiation)."""
+    a pair outside DIMS (zero-padded to the (128, 64) passes)."""
     import dataclasses
 
     from repro_torch.configs import ARCHS
@@ -3302,6 +3368,9 @@ def f32_parity_configs():
         out.append((f"{arch} smoke",
                     dataclasses.replace(ARCHS[arch].smoke_config(),
                                         dtype="float32")))
+    out.insert(1, ("qwen3-4b smoke at head dim 128", dataclasses.replace(
+        ARCHS["qwen3-4b"].smoke_config(), dtype="float32",
+        head_dim=ARCHS["qwen3-4b"].config().head_dim)))
     out.append(("mamba2-780m smoke (ds, dh) = (64, 32)", dataclasses.replace(
         ARCHS["mamba2-780m"].smoke_config(), dtype="float32", ssm_state=64,
         ssm_head_dim=32)))
@@ -3411,9 +3480,9 @@ def phase_lm_parity_f32(torch, paths):
     calls, restore = recorded_calls(torch, ops,
                                     ("flash_attention", "ssd_scan"))
     try:
-        lines = paths.drive("lm_parity_f32", ("flash_attention_tf32x3",
-                                              "matmul", "ssd_scan",
-                                              "ssd_scan_padded"), run)
+        lines = paths.drive("lm_parity_f32", (
+            "flash_attention_tf32x3", "flash_attention_tf32x3_wgmma",
+            "matmul", "ssd_scan", "ssd_scan_padded"), run)
     finally:
         restore()
     for line in lines:
@@ -3432,6 +3501,10 @@ def phase_lm_parity_f32(torch, paths):
                 f"{c['q']} x {c['k']}: {c['err_over_bar']} x its bar")
         require(c["route"] == "tf32x3", f"f32 flash at {c['q']} on the "
                 f"{c['route']} route, not tf32x3")
+    for kernel, d in (("mma_sync", 16), ("wgmma", 128)):
+        require(any(c["tf32x3_kernel"] == kernel and c["q"][-1] == d
+                    for c in checked["flash_attention"]),
+                f"lm_parity_f32: no D {d} flash call on the {kernel} kernel")
     require(any(c["padded"] and c["x"][-1] == 32 and c["b"][-1] == 64
                 and c["route"] == "tensor_cores"
                 for c in checked["ssd_scan"]),
@@ -3742,6 +3815,9 @@ KERNELS = {
     "flash_attention_tf32x3": (
         "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:111"),
+    "flash_attention_tf32x3_wgmma": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:111"),
     "ssd_scan_padded": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                         "src/repro/kernels/ssd_scan.py:88"),
 }
@@ -3919,8 +3995,9 @@ def main() -> int:
         launches = paths.total[k]
         if k == "flash_attention":
             # the wrapper counts all its kernels: the 3xTF32 ones have
-            # their own row, the CUDA-core one runs on no main path
+            # their own rows, the CUDA-core one runs on no main path
             launches -= (paths.total["flash_attention_tf32x3"]
+                         + paths.total["flash_attention_tf32x3_wgmma"]
                          + paths.total["flash_attention_generic"])
         if k == "ssd_scan":
             launches -= (paths.total["ssd_scan_padded"]
@@ -3940,21 +4017,24 @@ def main() -> int:
             kernels[-1]["bound_fp32_ms"] = r["bound_fp32_ms"]
         if k == "matmul":
             kernels[-1]["skinny_launches"] = paths.total["matmul_skinny"]
-        if k in ("flash_attention_tf32x3", "ssd_scan_padded"):
+        if k in ("flash_attention_tf32x3", "flash_attention_tf32x3_wgmma",
+                 "ssd_scan_padded"):
             # bound_ms at the 3xTF32 rate, the card's f32-accurate peak,
             # bound_fp32_ms at the CUDA cores' fp32 rate; was_ms the
             # CUDA-core kernel this row ran on before, same inputs, and
             # its launches on the main paths (none: past the new reach)
-            generic = k.replace("tf32x3", "generic").replace("padded",
-                                                             "generic")
+            generic = ("ssd_scan_generic" if k.startswith("ssd")
+                       else "flash_attention_generic")
             kernels[-1].update(bound_fp32_ms=r["bound_fp32_ms"],
                                was_ms=r["was_ms"],
                                generic_launches=paths.total[generic])
         if k == "flash_attention_tf32x3":
+            # the mma.sync kernel at row 5g's inputs (qwen3-4b f32, D 128)
             kernels[-1].update(
-                wgmma_launches=paths.total["flash_attention_tf32x3_wgmma"],
-                mma_sync_ms=r["mma_sync_ms"],
-                library_kernels=r["library_kernels"])
+                qwen3_4b_d128_ms=r["qwen3_4b_d128_ms"],
+                qwen3_4b_d128_bound_ms=r["qwen3_4b_d128_bound_ms"])
+        if k == "flash_attention_tf32x3_wgmma":
+            kernels[-1]["library_kernels"] = r["library_kernels"]
         if k == "ssd_scan_padded":
             kernels[-1]["device_ms_by_pass"] = r["device_ms_by_pass"]
         if k == "matmul_int8":

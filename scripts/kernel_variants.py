@@ -322,11 +322,12 @@ struct TfShape {
 
 // Rows [r0, r0 + ROWS) of a (len, d) head into dst[ROWS][DP + 4] as f32,
 // rows past len and columns d .. DP as zeros: f32 by cp.async (16-byte
-// granules when `vec`, else 4-byte), 16-bit types by loads widened as they
-// are stored (eight in flight a thread).
+// granules when `vec`, else 4-byte), 16-bit values (f16 when `f16`, else
+// bf16) by loads widened as they are stored (eight in flight a thread).
 template <typename T, int DP, int ROWS, int NT>
 __device__ __forceinline__ void tf_stage(float* dst, const T* __restrict__ src,
-                                         int r0, int len, int d, bool vec) {
+                                         int r0, int len, int d, bool vec,
+                                         int f16) {
   constexpr int LD = DP + 4;
   if constexpr (std::is_same<T, float>::value) {
     if (vec) {
@@ -354,7 +355,7 @@ __device__ __forceinline__ void tf_stage(float* dst, const T* __restrict__ src,
         const int i = i0 + j * NT + static_cast<int>(threadIdx.x);
         const int r = i / DP, c = i % DP;
         v[j] = i < N && r0 + r < len && c < d
-                   ? fg_load(src + static_cast<size_t>(r0 + r) * d + c)
+                   ? tf_load(src + static_cast<size_t>(r0 + r) * d + c, f16)
                    : 0.f;
       }
 #pragma unroll
@@ -372,7 +373,7 @@ flash_attention_tf32x3_kernel(const T* __restrict__ q,
                               const T* __restrict__ k,
                               const T* __restrict__ v, T* __restrict__ out,
                               int bhs, int hq, int hkv, int sq, int skv, int d,
-                              float scale, int causal, int vec,
+                              float scale, int causal, int vec, int f16,
                               long long block0, int tiles) {
   using S = TfShape<DP>;
   constexpr bool EXACT = !std::is_same<T, float>::value;
@@ -394,9 +395,9 @@ flash_attention_tf32x3_kernel(const T* __restrict__ q,
   const T* kh = k + static_cast<size_t>(kvh) * skv * d;
   const T* vh = v + static_cast<size_t>(kvh) * skv * d;
 
-  tf_stage<T, DP, S::BQ, NT>(qs, qh, q0, sq, d, vec);
-  tf_stage<T, DP, BK, NT>(ks, kh, 0, skv, d, vec);
-  tf_stage<T, DP, BK, NT>(vs, vh, 0, skv, d, vec);
+  tf_stage<T, DP, S::BQ, NT>(qs, qh, q0, sq, d, vec, f16);
+  tf_stage<T, DP, BK, NT>(ks, kh, 0, skv, d, vec, f16);
+  tf_stage<T, DP, BK, NT>(vs, vh, 0, skv, d, vec, f16);
   cp_async_commit();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -419,8 +420,8 @@ flash_attention_tf32x3_kernel(const T* __restrict__ q,
     const int k0 = kt * BK;
     if (kt + 1 < nkt) {
       const int st = (kt + 1) & 1;
-      tf_stage<T, DP, BK, NT>(ks + st * S::KV_FLOATS, kh, k0 + BK, skv, d, vec);
-      tf_stage<T, DP, BK, NT>(vs + st * S::KV_FLOATS, vh, k0 + BK, skv, d, vec);
+      tf_stage<T, DP, BK, NT>(ks + st * S::KV_FLOATS, kh, k0 + BK, skv, d, vec, f16);
+      tf_stage<T, DP, BK, NT>(vs + st * S::KV_FLOATS, vh, k0 + BK, skv, d, vec, f16);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -543,7 +544,8 @@ flash_attention_tf32x3_kernel(const T* __restrict__ q,
       for (int e = 0; e < 2; ++e) {
         const int c = 8 * n + 2 * t4 + e;
         if (c < d)
-          fg_store(oh + static_cast<size_t>(r) * d + c, o[n][2 * h + e] / l[h]);
+          tf_store(oh + static_cast<size_t>(r) * d + c, o[n][2 * h + e] / l[h],
+                   f16);
       }
     }
   }
@@ -1663,24 +1665,11 @@ ssd_chunk_out_kernel(const T* __restrict__ x, const float* __restrict__ la,
 """
 SSD_P1 = "// ---- pass 1: each chunk's own state and log decay"
 SSD_P2 = "// ---- pass 2: the scan over chunks"
-SSD_OUT = ("template <typename T, int DS, int DH, bool PAD>\n__global__ void "
+SSD_OUT = ("template <typename T, int DS, int DH>\n__global__ void "
            "__launch_bounds__(SSD_THREADS, (ssd_out_blocks<DS, DH>()))\n"
            "ssd_chunk_out_kernel")
-SSD_LAUNCH = ("template <typename T, int DS, int DH, bool PAD>\n"
+SSD_LAUNCH = ("template <typename T, int DS, int DH>\n"
               "static cudaError_t launch_typed")
-# the passes take the pair's real widths and a PAD flag (for the padded
-# instantiations); these variants run at mamba2-780m's own (128, 64) and
-# ignore both
-(SSD_CUDA_CORES_P1, SSD_CUDA_CORES_P3, SSD_G_REGISTERS, SSD_BF16_MMA,
- SSD_HEADS_2) = (
-    t.replace("long long b_head_stride) {",
-              "long long b_head_stride, int ds, int dh) {")
-    .replace("long long c_head_stride) {",
-             "long long c_head_stride, int ds, int dh) {")
-    .replace("template <typename T, int DS, int DH>\n__global__",
-             "template <typename T, int DS, int DH, bool PAD>\n__global__")
-    for t in (SSD_CUDA_CORES_P1, SSD_CUDA_CORES_P3, SSD_G_REGISTERS,
-              SSD_BF16_MMA, SSD_HEADS_2))
 SSD = {
     # the parent's passes 1 and 3 (f32 fmaf on the CUDA cores)
     "cuda_cores": lambda text: [

@@ -384,6 +384,19 @@ __device__ __forceinline__ void fg_store(__half* p, float v) {
   *p = __float2half_rn(v);
 }
 
+// The 3xTF32 kernel takes f32 as float and both 16-bit types as their
+// bits (uint16_t), f16 or bf16 by a flag: each is exact in TF32, so one
+// instantiation serves the two.
+__device__ __forceinline__ float tf_load(const uint16_t* p, int f16) {
+  return f16 ? __half2float(__ushort_as_half(*p))
+             : __bfloat162float(__ushort_as_bfloat16(*p));
+}
+__device__ __forceinline__ void tf_store(float* p, float v, int) { *p = v; }
+__device__ __forceinline__ void tf_store(uint16_t* p, float v, int f16) {
+  *p = f16 ? __half_as_ushort(__float2half_rn(v))
+           : __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
 template <typename T>
 __global__ void __launch_bounds__(256)
 flash_attention_generic_kernel(const T* __restrict__ q,
@@ -585,7 +598,9 @@ extern "C" int launch_flash_attention_generic(
 // to O in f32 (up to DP 128), so no long sum runs in the tensor cores'
 // accumulator.  Tiles wholly below the causal diagonal skip the mask, a
 // warp whose rows see no key of a tile skips it, and query tiles are issued
-// longest first.
+// longest first.  Ten instantiations, five head dims x f32 and 16-bit: f16
+// and bf16 share one, read and written by their bits with a flag (each is
+// exact in TF32), which keeps this source's build time down (PERF.md).
 //
 // What was tried (scripts/kernel_variants.py --only flash_f32, qwen3-4b f32
 // 1 x 4096): the first design, every warp splitting the K and V values it
@@ -614,11 +629,12 @@ struct TfShape {
 
 // Rows [r0, r0 + ROWS) of a (len, d) head into dst[ROWS][DP + 4] as f32,
 // rows past len and columns d .. DP as zeros: f32 by cp.async (16-byte
-// granules when `vec`, else 4-byte), 16-bit types by loads widened as they
-// are stored (eight in flight a thread).
+// granules when `vec`, else 4-byte), 16-bit values (f16 when `f16`, else
+// bf16) by loads widened as they are stored (eight in flight a thread).
 template <typename T, int DP, int ROWS, int NT>
 __device__ __forceinline__ void tf_stage(float* dst, const T* __restrict__ src,
-                                         int r0, int len, int d, bool vec) {
+                                         int r0, int len, int d, bool vec,
+                                         int f16) {
   constexpr int LD = DP + 4;
   if constexpr (std::is_same<T, float>::value) {
     if (vec) {
@@ -646,7 +662,7 @@ __device__ __forceinline__ void tf_stage(float* dst, const T* __restrict__ src,
         const int i = i0 + j * NT + static_cast<int>(threadIdx.x);
         const int r = i / DP, c = i % DP;
         v[j] = i < N && r0 + r < len && c < d
-                   ? fg_load(src + static_cast<size_t>(r0 + r) * d + c)
+                   ? tf_load(src + static_cast<size_t>(r0 + r) * d + c, f16)
                    : 0.f;
       }
 #pragma unroll
@@ -715,7 +731,7 @@ flash_attention_tf32x3_kernel(const T* __restrict__ q,
                               const T* __restrict__ k,
                               const T* __restrict__ v, T* __restrict__ out,
                               int bhs, int hq, int hkv, int sq, int skv, int d,
-                              float scale, int causal, int vec,
+                              float scale, int causal, int vec, int f16,
                               long long block0, int tiles) {
   using S = TfShape<DP>;
   constexpr bool EXACT = !std::is_same<T, float>::value;
@@ -745,21 +761,21 @@ flash_attention_tf32x3_kernel(const T* __restrict__ q,
   // has); a 16-bit one is widened into the hi planes, exact in TF32
   const auto fetch = [&](int k0) {
     if constexpr (!EXACT) {
-      tf_stage<T, DP, BK, NT>(kr, kg, k0, skv, d, vec);
-      tf_stage<T, DP, BK, NT>(vr, vg, k0, skv, d, vec);
+      tf_stage<T, DP, BK, NT>(kr, kg, k0, skv, d, vec, f16);
+      tf_stage<T, DP, BK, NT>(vr, vg, k0, skv, d, vec, f16);
       cp_async_commit();
     }
   };
   const auto planes = [&](int k0) {
     if constexpr (EXACT) {
-      tf_stage<T, DP, BK, NT>(kh, kg, k0, skv, d, vec);
-      tf_stage<T, DP, BK, NT>(vh, vg, k0, skv, d, vec);
+      tf_stage<T, DP, BK, NT>(kh, kg, k0, skv, d, vec, f16);
+      tf_stage<T, DP, BK, NT>(vh, vg, k0, skv, d, vec, f16);
     } else {
       tf_split<DP, BK, NT>(kr, kh, kl);
       tf_split<DP, BK, NT>(vr, vh, vl);
     }
   };
-  tf_stage<T, DP, S::BQ, NT>(qs, qh, q0, sq, d, vec);
+  tf_stage<T, DP, S::BQ, NT>(qs, qh, q0, sq, d, vec, f16);
   fetch(0);
   cp_async_commit();
   cp_async_wait<0>();
@@ -905,7 +921,8 @@ flash_attention_tf32x3_kernel(const T* __restrict__ q,
       for (int e = 0; e < 2; ++e) {
         const int c = 8 * n + 2 * t4 + e;
         if (c < d)
-          fg_store(oh + static_cast<size_t>(r) * d + c, o[n][2 * h + e] / l[h]);
+          tf_store(oh + static_cast<size_t>(r) * d + c, o[n][2 * h + e] / l[h],
+                   f16);
       }
     }
   }
@@ -914,7 +931,8 @@ flash_attention_tf32x3_kernel(const T* __restrict__ q,
 template <typename T, int DP>
 static int launch_tf32x3(const void* q, const void* k, const void* v,
                          void* out, int b, int hq, int hkv, int sq, int skv,
-                         int d, float scale, int causal, cudaStream_t stream) {
+                         int d, float scale, int causal, int f16,
+                         cudaStream_t stream) {
   using S = TfShape<DP>;
   static bool smem_set = false;
   if (!smem_set) {
@@ -937,7 +955,7 @@ static int launch_tf32x3(const void* q, const void* k, const void* v,
         <<<static_cast<unsigned>(n), S::THREADS, S::SMEM, stream>>>(
             static_cast<const T*>(q), static_cast<const T*>(k),
             static_cast<const T*>(v), static_cast<T*>(out), bhs, hq, hkv, sq,
-            skv, d, scale, causal, vec, b0, tiles);
+            skv, d, scale, causal, vec, f16, b0, tiles);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -947,21 +965,23 @@ static int launch_tf32x3(const void* q, const void* k, const void* v,
 template <typename T>
 static int launch_tf32x3_d(const void* q, const void* k, const void* v,
                            void* out, int b, int hq, int hkv, int sq, int skv,
-                           int d, float scale, int causal, cudaStream_t s) {
+                           int d, float scale, int causal, int f16,
+                           cudaStream_t s) {
   if (d <= 16)
-    return launch_tf32x3<T, 16>(q, k, v, out, b, hq, hkv, sq, skv, d, scale, causal, s);
+    return launch_tf32x3<T, 16>(q, k, v, out, b, hq, hkv, sq, skv, d, scale, causal, f16, s);
   if (d <= 32)
-    return launch_tf32x3<T, 32>(q, k, v, out, b, hq, hkv, sq, skv, d, scale, causal, s);
+    return launch_tf32x3<T, 32>(q, k, v, out, b, hq, hkv, sq, skv, d, scale, causal, f16, s);
   if (d <= 64)
-    return launch_tf32x3<T, 64>(q, k, v, out, b, hq, hkv, sq, skv, d, scale, causal, s);
+    return launch_tf32x3<T, 64>(q, k, v, out, b, hq, hkv, sq, skv, d, scale, causal, f16, s);
   if (d <= 128)
-    return launch_tf32x3<T, 128>(q, k, v, out, b, hq, hkv, sq, skv, d, scale, causal, s);
+    return launch_tf32x3<T, 128>(q, k, v, out, b, hq, hkv, sq, skv, d, scale, causal, f16, s);
   if (d <= 256)
-    return launch_tf32x3<T, 256>(q, k, v, out, b, hq, hkv, sq, skv, d, scale, causal, s);
+    return launch_tf32x3<T, 256>(q, k, v, out, b, hq, hkv, sq, skv, d, scale, causal, f16, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// dtype: 0 f32, 1 bf16, 2 f16; d: 1 .. 256 (padded to 16, 32, 64, 128, 256)
+// dtype: 0 f32, 1 bf16, 2 f16 (the two 16-bit types on one instantiation);
+// d: 1 .. 256 (padded to 16, 32, 64, 128, 256)
 extern "C" int launch_flash_attention_tf32x3(
     const void* q, const void* k, const void* v, void* out, int b, int hq,
     int hkv, int sq, int skv, int d, float scale, int causal, int dtype,
@@ -971,13 +991,11 @@ extern "C" int launch_flash_attention_tf32x3(
   switch (dtype) {
     case 0:
       return launch_tf32x3_d<float>(q, k, v, out, b, hq, hkv, sq, skv, d,
-                                    scale, causal, s);
+                                    scale, causal, 0, s);
     case 1:
-      return launch_tf32x3_d<__nv_bfloat16>(q, k, v, out, b, hq, hkv, sq, skv,
-                                            d, scale, causal, s);
     case 2:
-      return launch_tf32x3_d<__half>(q, k, v, out, b, hq, hkv, sq, skv, d,
-                                     scale, causal, s);
+      return launch_tf32x3_d<uint16_t>(q, k, v, out, b, hq, hkv, sq, skv, d,
+                                       scale, causal, dtype == 2, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

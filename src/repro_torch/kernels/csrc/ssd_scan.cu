@@ -14,21 +14,21 @@
 // heads: their head stride is an argument, 0 when one batch row's B/C serve
 // all its heads), log_a (BH, T) f32 <= 0; y (BH, T, dh) in x's type.
 //
-// Which pairs: every (ds, dh) up to (128, 128) runs the passes at the
-// instantiation its widths round up to (ssd_width: 16, 32, 64, 128 each;
-// kernels/ssd_scan.py padded()).  mamba2-780m's (128, 64) and the smoke
-// configs' (32, 16) and (16, 16) run at their own widths, as before; any
-// other pair is padded: B and C past ds and x past dh load as zeros, so
-// the state's padded rows and columns stay zero, C B^T and C S_in are the
-// same sums with zeros added, and y's columns past dh are not written.  On
-// the path: mamba2-780m's smoke at (64, 32) in lm_parity_f32, and row 6g
-// (24 heads of 128, ds 128, f32), where the recurrence kernel took 3.2 ms.
+// Which pairs: the passes are built for four (ds, dh) pairs
+// (kernels/ssd_scan.py INSTANCES): the three of DIMS, built as before
+// (mamba2-780m's (128, 64), its smoke config's (16, 16), and (32, 16), the
+// card tests'), and (128, 128), row 6g's 24 heads of 128 (where the
+// recurrence kernel took 3.2 ms) and the widest pair whose pass-3 block
+// fits.  Every other pair up to (128, 128) runs at the smallest of them
+// that holds it (kernels/ssd_scan.py padded()): the wrapper zero-pads x to
+// the wider dh and B and C to the wider ds, and crops y.  Zero B and C
+// columns give zero state rows and add exact zeros to C B^T and C S_in;
+// zero x columns give y columns that are dropped.  On the path:
+// mamba2-780m's smoke at (64, 32) in lm_parity_f32, padded to (128, 64).
 // Only a pair past (128, 128) runs ssd_scan_generic_kernel (below, with its
-// own note), kept as the route past the passes' reach.  The DIMS pairs
-// keep their own instantiations, compiled as before (PAD false); the
-// padded ones (PAD true) add 16 pairs x 2 types to each of passes 1 and 3,
-// 38 instantiations where there were 6; the source's build time is in
-// PERF.md.
+// own note), kept as the route past the passes' reach.  Eight
+// instantiations (four pairs x f32 and bf16) where there were six; the
+// source's build time is in PERF.md.
 //
 // Why not the TPU layout: the Pallas body keeps the whole (chunk, chunk)
 // decay matrix and the state on chip and walks the chunks of a head in
@@ -101,10 +101,6 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
-__device__ __forceinline__ void store1(float* p, float a) { *p = a; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float a) {
-  *p = __float2bfloat16_rn(a);
-}
 
 // Inclusive cumsum of log_a over the chunk starting at c0 (length n <=
 // SSD_MAX_CHUNK, zeros past T) into cum[0, n), by the whole block: each
@@ -157,49 +153,15 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ src, int t0,
   for (int j = 0; j < N; ++j) d[j * ROWS * LD] = to_f32(v[j]);
 }
 
-// The same rows of a (T, cols) head, cols <= COLS, for a padded
-// instantiation: columns past cols (and rows past T) land as zeros.
-template <int COLS, int LD, typename T>
-__device__ __forceinline__ void stage_rows_pad(const T* __restrict__ src,
-                                               int t0, int Tn, int cols,
-                                               float* dst) {
-  constexpr int N = SSD_TILE * COLS / SSD_THREADS;
-  constexpr int ROWS = SSD_THREADS / COLS;
-  const int c = threadIdx.x % COLS, r = threadIdx.x / COLS;
-  const int rows = min(Tn - t0, SSD_TILE);
-  const T* p = src + static_cast<size_t>(t0 + r) * cols + c;
-  T v[N];
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-    v[j] = c < cols && r + j * ROWS < rows
-               ? p[static_cast<size_t>(j) * ROWS * cols]
-               : zero<T>();
-  float* d = dst + r * LD + c;
-#pragma unroll
-  for (int j = 0; j < N; ++j) d[j * ROWS * LD] = to_f32(v[j]);
-}
-
-// Rows of a (T, cols) head: the contiguous copy in an instantiation built
-// for its own widths (PAD false: the DIMS pairs, compiled as before the
-// padded ones existed), else the contiguous or the padded one by cols.
-template <int COLS, int LD, bool PAD, typename T>
-__device__ __forceinline__ void stage(const T* __restrict__ src, int t0,
-                                      int Tn, int cols, float* dst) {
-  if (!PAD || cols == COLS)
-    stage_rows<COLS, LD>(src, t0, Tn, dst);
-  else
-    stage_rows_pad<COLS, LD>(src, t0, Tn, cols, dst);
-}
-
 // ---- pass 1: each chunk's own state and log decay ------------------------
 // The state (DS x DH) = (w B)^T X over the chunk's s: warp w owns state rows
 // 16 w .. 16 w + 15 (DS / 16 warps busy) and every column.
-template <typename T, int DS, int DH, bool PAD>
+template <typename T, int DS, int DH>
 __global__ void __launch_bounds__(SSD_THREADS, 2)
 ssd_chunk_state_kernel(const T* __restrict__ x, const float* __restrict__ la,
                        const T* __restrict__ b, float* __restrict__ states,
                        float* __restrict__ totals, int Tn, int chunk,
-                       long long b_head_stride, int ds, int dh) {
+                       long long b_head_stride) {
   constexpr bool EXACT = std::is_same<T, __nv_bfloat16>::value;
   constexpr int LW = DS + 8;   // B rows (s): A reads (m = g, k = t4) at t4 * LW + g
   constexpr int LX = DH + 8;   // X rows (s): B reads (k = t4, n = g) at t4 * LX + g
@@ -214,7 +176,7 @@ ssd_chunk_state_kernel(const T* __restrict__ x, const float* __restrict__ la,
   const int h = static_cast<int>(blockIdx.x / nc);
   const int c0 = c * chunk;
   const float* lah = la + static_cast<size_t>(h) * Tn;
-  const T* xh = x + static_cast<size_t>(h) * Tn * (PAD ? dh : DH);
+  const T* xh = x + static_cast<size_t>(h) * Tn * DH;
   const T* bhd = b + h * b_head_stride;
   chunk_cumsum(lah, c0, chunk, Tn, wd, part);
   const float total = wd[chunk - 1];
@@ -232,8 +194,8 @@ ssd_chunk_state_kernel(const T* __restrict__ x, const float* __restrict__ la,
 
   for (int s0 = 0; s0 < chunk; s0 += SSD_TILE) {
     __syncthreads();  // wd is written; the previous tile is consumed
-    stage<DS, LW, PAD>(bhd, c0 + s0, Tn, ds, bw);
-    stage<DH, LX, PAD>(xh, c0 + s0, Tn, dh, xs);
+    stage_rows<DS, LW>(bhd, c0 + s0, Tn, bw);
+    stage_rows<DH, LX>(xh, c0 + s0, Tn, xs);
     __syncthreads();
     if (m0 < DS) {
 #pragma unroll 2
@@ -319,13 +281,13 @@ constexpr int ssd_out_blocks() {
   return 2 * ssd_out_floats<DS, DH>(256) * 4 <= SMEM_BYTES ? 2 : 1;
 }
 
-template <typename T, int DS, int DH, bool PAD>
+template <typename T, int DS, int DH>
 __global__ void __launch_bounds__(SSD_THREADS, (ssd_out_blocks<DS, DH>()))
 ssd_chunk_out_kernel(const T* __restrict__ x, const float* __restrict__ la,
                      const T* __restrict__ b, const T* __restrict__ c,
                      const float* __restrict__ states, T* __restrict__ y,
                      int Tn, int chunk, long long b_head_stride,
-                     long long c_head_stride, int ds, int dh) {
+                     long long c_head_stride) {
   constexpr bool EXACT = std::is_same<T, __nv_bfloat16>::value;
   constexpr int LC = DS + 4;          // C_t, B_s rows: (g, t4) at g * LC + t4
   constexpr int LX = DH + 8;          // X_s, S_in rows: (t4, g) at t4 * LX + g
@@ -346,12 +308,12 @@ ssd_chunk_out_kernel(const T* __restrict__ x, const float* __restrict__ la,
   const int h = static_cast<int>(blockIdx.x / (nc * tiles));
   const int c0 = ci * chunk, t0 = c0 + ti * SSD_TILE;
   const float* lah = la + static_cast<size_t>(h) * Tn;
-  const T* xh = x + static_cast<size_t>(h) * Tn * (PAD ? dh : DH);
+  const T* xh = x + static_cast<size_t>(h) * Tn * DH;
   const T* bhd = b + h * b_head_stride;
   const T* chd = c + h * c_head_stride;
   chunk_cumsum(lah, c0, (ti + 1) * SSD_TILE, Tn, cum, part);
 
-  stage<DS, LC, PAD>(chd, t0, Tn, ds, cs);
+  stage_rows<DS, LC>(chd, t0, Tn, cs);
   {
     // S_in, DS rows of DH, contiguous
     constexpr int N = DS * DH / SSD_THREADS, ROWS = SSD_THREADS / DH;
@@ -406,8 +368,8 @@ ssd_chunk_out_kernel(const T* __restrict__ x, const float* __restrict__ la,
     const int s0 = c0 + st * SSD_TILE;
     const bool diag = st == ti;
     __syncthreads();  // the previous step is done with bs, xs and gs
-    stage<DS, LC, PAD>(bhd, s0, Tn, ds, bs);
-    stage<DH, LX, PAD>(xh, s0, Tn, dh, xs);
+    stage_rows<DS, LC>(bhd, s0, Tn, bs);
+    stage_rows<DH, LX>(xh, s0, Tn, xs);
     __syncthreads();
     // G = C_t B_s^T on this warp's 16 rows x 32 columns, decayed and
     // masked into gs; on the diagonal tile columns past the warp's rows
@@ -470,53 +432,42 @@ ssd_chunk_out_kernel(const T* __restrict__ x, const float* __restrict__ la,
     }
   }
 
-  T* yh = y + static_cast<size_t>(h) * Tn * (PAD ? dh : DH);
+  T* yh = y + static_cast<size_t>(h) * Tn * DH;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int t = t0 + r0 + g + 8 * hh;
     if (t >= Tn) continue;
-    if (!PAD || dh == DH) {
 #pragma unroll
-      for (int j = 0; j < NJ; ++j)
-        store2(yh + static_cast<size_t>(t) * DH + n0 + 8 * j + 2 * t4,
-               acc[j][2 * hh], acc[j][2 * hh + 1]);
-    } else {  // padded: columns past dh are not written
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = n0 + 8 * j + 2 * t4 + e;
-          if (col < dh)
-            store1(yh + static_cast<size_t>(t) * dh + col, acc[j][2 * hh + e]);
-        }
-    }
+    for (int j = 0; j < NJ; ++j)
+      store2(yh + static_cast<size_t>(t) * DH + n0 + 8 * j + 2 * t4,
+             acc[j][2 * hh], acc[j][2 * hh + 1]);
   }
 }
 
-template <typename T, int DS, int DH, bool PAD>
+template <typename T, int DS, int DH>
 static cudaError_t launch_typed(const void* x, const void* la, const void* b,
                                 const void* c, void* states, void* totals,
                                 void* y, int bh, int Tn, int chunk,
-                                long long bstride, long long cstride, int ds,
-                                int dh, cudaStream_t stream) {
+                                long long bstride, long long cstride,
+                                cudaStream_t stream) {
   const int nc = (Tn + chunk - 1) / chunk;
   const size_t smem1 =
       (chunk + SSD_TILE * (DS + 8) + SSD_TILE * (DH + 8)) * sizeof(float);
   const size_t smem3 = ssd_out_floats<DS, DH>(chunk) * sizeof(float);
-  cudaError_t err = allow_smem(ssd_chunk_state_kernel<T, DS, DH, PAD>, smem1);
+  cudaError_t err = allow_smem(ssd_chunk_state_kernel<T, DS, DH>, smem1);
   if (err != cudaSuccess) return err;
-  err = allow_smem(ssd_chunk_out_kernel<T, DS, DH, PAD>, smem3);
+  err = allow_smem(ssd_chunk_out_kernel<T, DS, DH>, smem3);
   if (err != cudaSuccess) return err;
   const long long blocks1 = static_cast<long long>(nc) * bh;
   const long long blocks2 = static_cast<long long>((DS * DH + 255) / 256) * bh;
   const long long blocks3 = blocks1 * (chunk / SSD_TILE);
   if (blocks2 > 0x7fffffffLL || blocks3 > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  ssd_chunk_state_kernel<T, DS, DH, PAD>
+  ssd_chunk_state_kernel<T, DS, DH>
       <<<static_cast<unsigned>(blocks1), SSD_THREADS, smem1, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(la),
       static_cast<const T*>(b), static_cast<float*>(states),
-      static_cast<float*>(totals), Tn, chunk, bstride, ds, dh);
+      static_cast<float*>(totals), Tn, chunk, bstride);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int n_elem = DS * DH;
@@ -524,46 +475,17 @@ static cudaError_t launch_typed(const void* x, const void* la, const void* b,
       static_cast<float*>(states), static_cast<const float*>(totals), nc, n_elem);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ssd_chunk_out_kernel<T, DS, DH, PAD>
+  ssd_chunk_out_kernel<T, DS, DH>
       <<<static_cast<unsigned>(blocks3), SSD_THREADS, smem3, stream>>>(
           static_cast<const T*>(x), static_cast<const float*>(la),
           static_cast<const T*>(b), static_cast<const T*>(c),
           static_cast<const float*>(states), static_cast<T*>(y), Tn, chunk,
-          bstride, cstride, ds, dh);
+          bstride, cstride);
   return cudaGetLastError();
 }
 
-// The width a state or head width runs at: the smallest of 16, 32, 64, 128
-// that holds it (kernels/ssd_scan.py padded()), 0 past 128.
-static int ssd_width(int w) {
-  for (int p = 16; p <= 128; p *= 2)
-    if (w <= p) return p;
-  return 0;
-}
-
-template <typename T, int DS>
-static cudaError_t launch_dh(int dhp, const void* x, const void* la,
-                             const void* b, const void* c, void* states,
-                             void* totals, void* y, int bh, int Tn, int chunk,
-                             long long bstride, long long cstride, int ds,
-                             int dh, cudaStream_t s) {
-  switch (dhp) {
-    case 16:
-      return launch_typed<T, DS, 16, true>(x, la, b, c, states, totals, y, bh, Tn, chunk, bstride, cstride, ds, dh, s);
-    case 32:
-      return launch_typed<T, DS, 32, true>(x, la, b, c, states, totals, y, bh, Tn, chunk, bstride, cstride, ds, dh, s);
-    case 64:
-      return launch_typed<T, DS, 64, true>(x, la, b, c, states, totals, y, bh, Tn, chunk, bstride, cstride, ds, dh, s);
-    case 128:
-      return launch_typed<T, DS, 128, true>(x, la, b, c, states, totals, y, bh, Tn, chunk, bstride, cstride, ds, dh, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-// (ds, dh) runs at (ssd_width(ds), ssd_width(dh)): the DIMS pairs on their
-// own instantiations, as before, every other pair up to (128, 128) on one
-// that takes a narrower pair (PAD).
+// The instantiations, (ds, dh) exactly (kernels/ssd_scan.py INSTANCES: the
+// wrapper zero-pads any other pair up to one of them).
 template <typename T>
 static cudaError_t launch_dims(int ds, int dh, const void* x, const void* la,
                                const void* b, const void* c, void* states,
@@ -571,24 +493,14 @@ static cudaError_t launch_dims(int ds, int dh, const void* x, const void* la,
                                long long bstride, long long cstride,
                                cudaStream_t s) {
   if (ds == 128 && dh == 64)
-    return launch_typed<T, 128, 64, false>(x, la, b, c, states, totals, y, bh, Tn, chunk, bstride, cstride, ds, dh, s);
+    return launch_typed<T, 128, 64>(x, la, b, c, states, totals, y, bh, Tn, chunk, bstride, cstride, s);
   if (ds == 32 && dh == 16)
-    return launch_typed<T, 32, 16, false>(x, la, b, c, states, totals, y, bh, Tn, chunk, bstride, cstride, ds, dh, s);
+    return launch_typed<T, 32, 16>(x, la, b, c, states, totals, y, bh, Tn, chunk, bstride, cstride, s);
   if (ds == 16 && dh == 16)
-    return launch_typed<T, 16, 16, false>(x, la, b, c, states, totals, y, bh, Tn, chunk, bstride, cstride, ds, dh, s);
-  const int dhp = ssd_width(dh);
-  switch (ssd_width(ds)) {
-    case 16:
-      return launch_dh<T, 16>(dhp, x, la, b, c, states, totals, y, bh, Tn, chunk, bstride, cstride, ds, dh, s);
-    case 32:
-      return launch_dh<T, 32>(dhp, x, la, b, c, states, totals, y, bh, Tn, chunk, bstride, cstride, ds, dh, s);
-    case 64:
-      return launch_dh<T, 64>(dhp, x, la, b, c, states, totals, y, bh, Tn, chunk, bstride, cstride, ds, dh, s);
-    case 128:
-      return launch_dh<T, 128>(dhp, x, la, b, c, states, totals, y, bh, Tn, chunk, bstride, cstride, ds, dh, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+    return launch_typed<T, 16, 16>(x, la, b, c, states, totals, y, bh, Tn, chunk, bstride, cstride, s);
+  if (ds == 128 && dh == 128)
+    return launch_typed<T, 128, 128>(x, la, b, c, states, totals, y, bh, Tn, chunk, bstride, cstride, s);
+  return cudaErrorInvalidValue;
 }
 
 // ---- the generic kernel: any (ds, dh) --------------------------------------
@@ -732,7 +644,8 @@ extern "C" int launch_ssd_scan_generic(const void* x, const void* la,
   return static_cast<int>(err);
 }
 
-// states: (BH, n_chunks, ssd_width(ds), ssd_width(dh)) f32 scratch;
+// (ds, dh): an instantiation of launch_dims; states: (BH, n_chunks, ds, dh)
+// f32 scratch;
 // totals: (BH, n_chunks) f32 scratch.  bf16: 1 for bf16 x/b/c/y, 0 for f32.
 extern "C" int launch_ssd_scan(const void* x, const void* la, const void* b,
                                const void* c, void* states, void* totals,

@@ -11,8 +11,8 @@ Three routes, chosen by dtype and head dim (:func:`route`):
   both products on the tensor cores in 3xTF32 (f32 operands split hi + lo,
   P always split, 16-bit operands exact), the head dim zero-padded to
   ``TF32X3_DIMS``: a wgmma .tf32 kernel for f32 at 64 < D <= 128
-  (:func:`tf32x3_wgmma`), an mma.sync one for the rest (counted also in
-  ``tf32x3_launches``, the first in ``tf32x3_wgmma_launches`` too);
+  (:func:`tf32x3_wgmma`, counted also in ``tf32x3_wgmma_launches``), an
+  mma.sync one for the rest (counted also in ``tf32x3_launches``);
 * ``"generic"``: D past 256, the f32 CUDA-core kernel, kept only as the
   route past the tensor-core kernels' reach, up to the ~29,000 one query
   row's f32 state leaves room for (counted also in ``generic_launches``).
@@ -50,23 +50,6 @@ TF32X3_DIMS = (16, 32, 64, 128, 256)
 def tf32x3_dim(d: int) -> int:
     """The padded head dim the 3xTF32 kernel runs D at, 0 past 256."""
     return next((p for p in TF32X3_DIMS if d <= p), 0)
-
-
-def tf32x3_tile(dp: int) -> tuple[int, int]:
-    """(query rows, keys) a 3xTF32 block takes at padded head dim ``dp``
-    (csrc ``TfShape``): 128 x 64 up to 64, 128 x 48 at 128, 64 x 24 at
-    256."""
-    if dp <= 64:
-        return 128, 64
-    return (128, 48) if dp <= 128 else (64, 24)
-
-
-def tf32x3_smem_bytes(dp: int) -> int:
-    """Shared memory of a 3xTF32 block (csrc ``TfShape::SMEM``): the Q
-    tile, the next K and V tiles raw, and the current ones' hi and lo
-    planes, f32 rows of ``dp + 4``."""
-    bq, bk = tf32x3_tile(dp)
-    return 4 * (dp + 4) * (bq + 6 * bk)
 
 
 def tf32x3_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
@@ -174,8 +157,9 @@ def tf32x3(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``"tf32x3"`` route, and how a check holds them against the bf16 wgmma
     kernel on the same bf16 inputs.  f32 at 64 < D <= 128 runs the wgmma
     .tf32 kernel (:func:`tf32x3_wgmma`, counted also in
-    ``tf32x3_wgmma_launches``), every other case the mma.sync one.
-    Counted in ``flash_attention.launches`` and ``tf32x3_launches``."""
+    ``tf32x3_wgmma_launches``), every other case the mma.sync one (counted
+    also in ``tf32x3_launches``).  Both count in
+    ``flash_attention.launches``."""
     return _tf32x3(q, k, v, causal, scale, tf32x3_wgmma(q, k, v))
 
 
@@ -207,7 +191,7 @@ def _tf32x3(q, k, v, causal, scale, wgmma: bool):
             hkv, sq, skv, d, scale, int(causal), DTYPES[q.dtype],
             _build.stream_handle(q.device))
     flash_attention.launches += 1
-    flash_attention.tf32x3_launches += 1
+    flash_attention.tf32x3_launches += int(not wgmma)
     flash_attention.tf32x3_wgmma_launches += int(wgmma)
     return out
 

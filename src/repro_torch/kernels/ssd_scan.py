@@ -10,15 +10,16 @@ float32 rounding), so the kernels take ``min(chunk, T)`` rounded up to a
 multiple of their 64-row tile.
 
 Every (ds, dh) up to (128, 128) runs the three tensor-core passes
-(:func:`route` ``"tensor_cores"``), at the instantiation its widths round up
-to (:func:`padded`: 16, 32, 64 or 128 each).  The pairs in ``DIMS`` run at
-their own widths, as before; any other pair is padded: B and C past ds and
-x past dh load as zeros, which adds only exact zeros to every sum, and y's
-columns past dh are not written (counted also in ``padded_launches``).
-Only a pair past (128, 128) runs the generic kernel, the recurrence in f32
-on the CUDA cores, kept as the route past the passes' reach (counted also
-in ``generic_launches``).  The source notes in ``csrc/ssd_scan.cu`` say
-what bounds each on an H100 and how its design answers that.
+(:func:`route` ``"tensor_cores"``).  They are built for the pairs of
+``INSTANCES``: the three of ``DIMS`` and (128, 128).  Any other pair runs at
+the smallest of those that holds it (:func:`padded`): the wrapper zero-pads
+x to its dh and B and C to its ds, which adds only exact zeros to every
+sum, and crops y (counted, with every pair outside ``DIMS``, in
+``padded_launches``).  Only a pair past (128, 128) runs the generic kernel,
+the recurrence in f32 on the CUDA cores, kept as the route past the
+passes' reach (counted also in ``generic_launches``).  The source notes in
+``csrc/ssd_scan.cu`` say what bounds each on an H100 and how its design
+answers that.
 """
 from __future__ import annotations
 
@@ -35,18 +36,14 @@ TILE = 64
 MAX_CHUNK = 1024
 _GENERIC_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                  + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
-# (ds, dh) the tensor-core passes were first built for: mamba2-780m's, and
-# the smoke configs' and the card tests' small ones
+# (ds, dh) the tensor-core passes were first built for: mamba2-780m's, its
+# smoke config's and the card tests' (32, 16)
 DIMS = ((128, 64), (32, 16), (16, 16))
-# widths the passes are instantiated at (csrc ssd_width): each of ds and dh
-# rounds up to the first that holds it
-WIDTHS = (16, 32, 64, 128)
+# the pairs the passes are built for (csrc launch_dims), smallest first:
+# DIMS and row 6g's (128, 128), the widest whose pass-3 block fits
+INSTANCES = ((16, 16), (32, 16), (128, 64), (128, 128))
 GENERIC_STEPS = 32      # time steps a generic window stages (at most)
 _SG_COLS, _SG_GROUPS = 32, 8    # csrc SG_COLS, SG_GROUPS
-
-
-def _width(w: int) -> int:
-    return next((p for p in WIDTHS if w <= p), 0)
 
 
 def out_smem_bytes(ds: int, dh: int, chunk: int) -> int:
@@ -57,20 +54,15 @@ def out_smem_bytes(ds: int, dh: int, chunk: int) -> int:
 
 
 def padded(ds: int, dh: int):
-    """The (ds, dh) instantiation of the tensor-core passes this pair runs
-    at (``DIMS`` pairs at their own): the widths rounded up to ``WIDTHS``,
-    where its pass-3 block fits shared memory at the largest chunk; None
-    past (128, 128)."""
-    dsp, dhp = _width(ds), _width(dh)
-    if dsp and dhp and out_smem_bytes(dsp, dhp, MAX_CHUNK) <= _build.SMEM_LIMIT:
-        return dsp, dhp
-    return None
+    """The pair of ``INSTANCES`` this (ds, dh) runs at: the smallest that
+    holds both widths (its own where it is one); None past (128, 128)."""
+    return next(((p, q) for p, q in INSTANCES if ds <= p and dh <= q), None)
 
 
 def route(ds: int, dh: int) -> str:
     """The kernels a CUDA call with this state and head width launches:
-    ``"tensor_cores"`` (the three passes, at :func:`padded`'s
-    instantiation) up to (128, 128), else ``"generic"``."""
+    ``"tensor_cores"`` (the three passes, at :func:`padded`'s pair) up to
+    (128, 128), else ``"generic"``."""
     return "tensor_cores" if padded(ds, dh) else "generic"
 
 
@@ -127,8 +119,8 @@ def ssd_scan(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
     A CPU tensor runs the plain version (the recurrence,
     :func:`ref.ssd_scan`); a CUDA tensor launches the kernels (x, b, c in
     float32 or bf16, log_a float32) or raises: the three tensor-core
-    passes up to (ds, dh) = (128, 128), padded to :func:`padded`'s widths
-    outside ``DIMS``, the generic kernel past that (:func:`route`)."""
+    passes up to (ds, dh) = (128, 128), zero-padded to :func:`padded`'s
+    pair, the generic kernel past that (:func:`route`)."""
     if x.device.type == "cpu":
         return ref.ssd_scan(x, log_a, b, c)[0]
     bstride, cstride = _check(x, log_a, b, c)
@@ -144,6 +136,9 @@ def ssd_scan(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
     if bh * max(n * ck // TILE, -(-dsp * dhp // 256)) > 2 ** 31 - 1:
         raise ValueError(f"ssd_scan: BH = {bh} x T = {tn} needs more than "
                          "2^31 - 1 blocks")
+    if (dsp, dhp) != (ds, dh):
+        x = torch.nn.functional.pad(x, (0, dhp - dh))
+        b, c = (_pad_bc(t, s, dsp) for t, s in ((b, bstride), (c, cstride)))
     states = torch.empty((bh, n, dsp, dhp), dtype=torch.float32,
                          device=x.device)
     totals = torch.empty((bh, n), dtype=torch.float32, device=x.device)
@@ -151,12 +146,22 @@ def ssd_scan(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
     _build.launch(
         "ssd_scan", "launch_ssd_scan", _ARGS, x.data_ptr(), log_a.data_ptr(),
         b.data_ptr(), c.data_ptr(), states.data_ptr(), totals.data_ptr(),
-        y.data_ptr(), bh, tn, ds, dh, ck, bstride, cstride,
-        int(x.dtype == torch.bfloat16), _build.stream_handle(x.device))
+        y.data_ptr(), bh, tn, dsp, dhp, ck, b.stride(0) if bstride else 0,
+        c.stride(0) if cstride else 0, int(x.dtype == torch.bfloat16),
+        _build.stream_handle(x.device))
     ssd_scan.launches += 1
     if (ds, dh) not in DIMS:
         ssd_scan.padded_launches += 1
-    return y
+    return y if dhp == dh else y[..., :dh].contiguous()
+
+
+def _pad_bc(t, stride, dsp):
+    """B or C zero-padded to ``dsp`` columns: once, and broadcast again,
+    where one row serves every head (head stride 0)."""
+    pad = (0, dsp - t.shape[-1])
+    if stride:
+        return torch.nn.functional.pad(t, pad)
+    return torch.nn.functional.pad(t[:1], pad).expand(*t.shape[:2], dsp)
 
 
 def _check(x, log_a, b, c):

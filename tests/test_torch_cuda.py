@@ -1057,7 +1057,7 @@ def test_flash_attention_generic_route(dev, dtype, b, hq, hkv, sq, skv, d,
     got = kfa.flash_attention(q, k, v, causal=causal)
     assert got.dtype == dtype
     assert _flash_counts(kfa) == (
-        before[0] + 1, before[1] + int(path == "tf32x3"),
+        before[0] + 1, before[1] + int(path == "tf32x3" and not wgmma),
         before[2] + int(wgmma), before[3] + int(path == "generic"))
     want = ref.attention(q, k, v, causal=causal)
     pv = ref.attention(q, k, v.abs(), causal=causal)
@@ -1107,20 +1107,26 @@ def test_flash_tf32x3_wgmma_and_mma_sync_agree_in_f32(dev, d):
     want = ref.attention(q, k, v)
     pv = ref.attention(q, k, v.abs())
     for wgmma in (True, False):
+        before = _flash_counts(kfa)
         assert_flash_f32_close(kfa._tf32x3(q, k, v, True, None, wgmma),
                                want, pv)
+        # each kernel counts in its own counter only
+        assert _flash_counts(kfa) == (before[0] + 1,
+                                      before[1] + int(not wgmma),
+                                      before[2] + int(wgmma), before[3])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("ds,dh", [(64, 32), (16, 64), (128, 128), (24, 40),
                                    (1, 1), (300, 33)])
 def test_ssd_scan_generic_route(dev, dtype, ds, dh):
-    """Every (ds, dh) outside ``DIMS`` up to (128, 128) runs the padded
-    tensor-core passes (counted in ``padded_launches``), past it the
-    recurrence kernel (``generic_launches``), with B/C per head and
-    broadcast over heads, within the f32 SSD bar (bf16 plus one bf16
-    ulp); the recurrence kernel, kept as the route past (128, 128), too
-    on the same inputs."""
+    """Every (ds, dh) outside ``DIMS`` up to (128, 128) runs the
+    tensor-core passes, zero-padded to a built pair where it is not one
+    (counted in ``padded_launches``), past it the recurrence kernel
+    (``generic_launches``), with B/C per head and broadcast over heads,
+    within the f32 SSD bar (bf16 plus one bf16 ulp), y contiguous at the
+    pair's own dh; the recurrence kernel, kept as the route past (128,
+    128), too on the same inputs."""
     from repro_torch.kernels import ssd_scan as kssd
     x, la, b, c = _ssd_inputs(5, 150, ds, dh, dtype, dev, seed=80)
     rtol = 2 ** -7 if dtype == torch.bfloat16 else 2e-4
@@ -1133,7 +1139,8 @@ def test_ssd_scan_generic_route(dev, dtype, ds, dh):
         got = kssd.ssd_scan(x, la, bb, cc)
         assert (f.launches, f.padded_launches, f.generic_launches) == (
             before[0] + 1, before[1] + int(not past), before[2] + int(past))
-        assert got.dtype == dtype
+        assert got.dtype == dtype and got.is_contiguous()
+        assert tuple(got.shape) == (5, 150, dh)
         want = ref.ssd_scan(x, la, bb, cc)[0]
         torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                    atol=2e-4)
@@ -1164,6 +1171,30 @@ def test_f32_smoke_prefill_on_card_equals_cpu(dev, arch):
     assert got.dtype == torch.float32
     assert kfa.flash_attention.tf32x3_launches - before == (
         4 if arch == "qwen3-4b" else 0)
+    np.testing.assert_allclose(U.n(got), U.n(want), rtol=1e-4, atol=1e-4)
+
+
+def test_f32_smoke_prefill_at_head_dim_128_on_card_equals_cpu(dev):
+    """qwen3-4b's smoke config in f32 at the full config's head dim 128:
+    its attention runs the 3xTF32 wgmma kernel (counted), and the logits
+    equal the CPU's within the f32 bar (1e-4)."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    cfg = dataclasses.replace(ARCHS["qwen3-4b"].smoke_config(),
+                              dtype="float32", head_dim=128)
+    params, _ = transformer.init(torch.Generator().manual_seed(0), cfg,
+                                 device="cpu")
+    tok = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 100))
+    want = steps.prefill(params, tok, cfg, device="cpu")
+    before = _flash_counts(kfa)
+    got = steps.prefill(bc.params_to(params, dev), tok, cfg, device=dev)
+    after = _flash_counts(kfa)
+    assert (after[1] - before[1], after[2] - before[2]) == (
+        0, cfg.num_layers)
     np.testing.assert_allclose(U.n(got), U.n(want), rtol=1e-4, atol=1e-4)
 
 

@@ -92,7 +92,7 @@ def _emulated(q, k, v, causal, exact, one=False):
     ref.full_fp32()
     d = q.shape[-1]
     dp = kfa.tf32x3_dim(d)
-    _, bk = kfa.tf32x3_tile(dp)
+    bk = U.tf32x3_shape(dp)["BK"]
     pad = (0, dp - d)
     group = q.shape[1] // k.shape[1]
     q, k, v = (torch.nn.functional.pad(t, pad) for t in (q, k, v))

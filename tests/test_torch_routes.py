@@ -16,10 +16,13 @@ on the CPU in pure Python (the kernels run only on the card):
 * fp32 ``conv1d`` and ``matmul``'s autograd functions give the plain
   version's gradient (the kernel's forward replaced by the plain one here,
   the backward code unchanged)."""
+import re
+from pathlib import Path
+
 import pytest
 import torch
 
-import torch_port_util  # noqa: F401  (torch lazy-module registries)
+import torch_port_util  # (torch lazy-module registries; TfShape)
 from repro_torch.core import basecaller as tbc
 from repro_torch.kernels import _build
 from repro_torch.kernels import conv1d as kc
@@ -71,14 +74,17 @@ def test_tf32x3_wgmma_kernel_takes_f32_at_64_to_128(d, dtype, aligned,
     assert kfa.tf32x3_wgmma(view, view, view) == wgmma
 
 
-@pytest.mark.parametrize("dp", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("dp", kfa.TF32X3_DIMS)
 def test_tf32x3_block_fits_shared_memory(dp):
-    """Q, the next K and V tiles raw and the current ones' hi and lo
-    planes, rows of dp + 4 floats, within the 227 KB a block may use."""
-    bq, bk = kfa.tf32x3_tile(dp)
-    assert kfa.tf32x3_smem_bytes(dp) == 4 * (dp + 4) * (bq + 6 * bk)
-    assert kfa.tf32x3_smem_bytes(dp) <= _build.SMEM_LIMIT
-    assert bq % 16 == 0 and bk % 8 == 0
+    """``TfShape<DP>`` as csrc/flash_attention.cu states it: the block's
+    shared memory (Q, the next K and V tiles raw, the current ones' hi and
+    lo planes) within the 227 KB a block may use, a warp per 16 query
+    rows, whole k-steps of keys."""
+    shape = torch_port_util.tf32x3_shape(dp)
+    assert shape["SMEM"] <= _build.SMEM_LIMIT
+    assert shape["BQ"] % 16 == 0 and shape["BK"] % 8 == 0
+    assert shape["THREADS"] == shape["BQ"] // 16 * 32
+    assert shape["LD"] >= dp
 
 
 def test_flash_generic_rows_fit_shared_memory():
@@ -97,30 +103,68 @@ def test_flash_generic_rows_fit_shared_memory():
 
 @pytest.mark.parametrize("pair,inst", [
     ((128, 64), (128, 64)), ((32, 16), (32, 16)), ((16, 16), (16, 16)),
-    ((64, 32), (64, 32)), ((16, 64), (16, 64)), ((128, 128), (128, 128)),
-    ((24, 40), (32, 64)), ((1, 1), (16, 16)), ((64, 128), (64, 128)),
-    ((100, 17), (128, 32)), ((17, 33), (32, 64)), ((65, 9), (128, 16)),
+    ((64, 32), (128, 64)), ((16, 64), (128, 64)), ((128, 128), (128, 128)),
+    ((24, 40), (128, 64)), ((1, 1), (16, 16)), ((64, 128), (128, 128)),
+    ((100, 17), (128, 64)), ((17, 16), (32, 16)), ((16, 17), (128, 64)),
     ((256, 64), None), ((300, 33), None), ((64, 129), None)])
 def test_ssd_route_by_state_and_head_width(pair, inst):
-    """Each width rounds up to the first of 16, 32, 64, 128; the DIMS
-    pairs keep their own instantiation; past 128 the recurrence."""
+    """Each pair runs at the smallest built pair that holds it, its own
+    where it is one; past (128, 128) the recurrence."""
     assert kssd.padded(*pair) == inst
     assert kssd.route(*pair) == ("tensor_cores" if inst else "generic")
-    if pair in kssd.DIMS:
+    if pair in kssd.INSTANCES:
         assert inst == pair
 
 
-@pytest.mark.parametrize("ds,dh", [(ds, dh) for ds in kssd.WIDTHS
-                                   for dh in kssd.WIDTHS])
+_POW2 = (16, 32, 64, 128)
+
+
+@pytest.mark.parametrize("ds,dh", [(ds, dh) for ds in _POW2 for dh in _POW2])
 def test_ssd_instantiations_fit_shared_memory(ds, dh):
-    """Every instantiation's pass-3 block at the largest chunk fits; only
-    (128, 128) leaves room for one block an SM (its register hint 1)."""
-    assert kssd.out_smem_bytes(ds, dh, kssd.MAX_CHUNK) <= _build.SMEM_LIMIT
-    two = 2 * kssd.out_smem_bytes(ds, dh, 256) <= _build.SMEM_LIMIT
-    assert two == ((ds, dh) != (128, 128))
-    if (ds, dh) == (128, 128):
+    """Every pair of widths up to 128 runs at a built pair that holds it,
+    and no smaller built pair does; that pair's pass-3 block at the largest
+    chunk fits; only (128, 128) leaves room for one block an SM (its
+    register hint 1)."""
+    inst = kssd.padded(ds, dh)
+    assert inst in kssd.INSTANCES and ds <= inst[0] and dh <= inst[1]
+    assert all(p * q >= inst[0] * inst[1] for p, q in kssd.INSTANCES
+               if ds <= p and dh <= q)
+    assert kssd.out_smem_bytes(*inst, kssd.MAX_CHUNK) <= _build.SMEM_LIMIT
+    two = 2 * kssd.out_smem_bytes(*inst, 256) <= _build.SMEM_LIMIT
+    assert two == (inst != (128, 128))
+    if inst == (128, 128):
         # ~157 KB at chunk 256
-        assert kssd.out_smem_bytes(ds, dh, 256) == 156_672
+        assert kssd.out_smem_bytes(*inst, 256) == 156_672
+
+
+def test_ssd_instances_match_the_source():
+    """``INSTANCES`` are the pairs ``launch_dims`` in csrc/ssd_scan.cu
+    dispatches on, and ``DIMS`` among them."""
+    src = (Path(kssd.__file__).parent / "csrc" / "ssd_scan.cu").read_text()
+    body = src[src.index("launch_dims("):src.index("// ---- the generic")]
+    pairs = {(int(a), int(b)) for a, b in re.findall(
+        r"if \(ds == (\d+) && dh == (\d+)\)", body)}
+    assert pairs == set(kssd.INSTANCES)
+    assert set(kssd.DIMS) <= pairs
+    assert list(kssd.INSTANCES) == sorted(kssd.INSTANCES,
+                                          key=lambda p: p[0] * p[1])
+
+
+@pytest.mark.parametrize("bh,stride0", [(5, True), (5, False), (1, False)])
+def test_ssd_padding_of_b_and_c(bh, stride0):
+    """The wrapper's padding of B or C: zeros past ds, the values kept, and
+    one row broadcast over the heads stays a stride-0 view."""
+    g = torch.Generator().manual_seed(3)
+    t = torch.randn(bh if stride0 else 1, 7, 24, generator=g)
+    if not stride0:
+        t = t.expand(bh, 7, 24)
+    out = kssd._pad_bc(t, t.stride(0) if bh > 1 else 0, 128)
+    assert tuple(out.shape) == (bh, 7, 128)
+    assert torch.equal(out[..., :24], t)
+    assert not bool(out[..., 24:].any())
+    assert out.stride(1) == 128 and out.stride(2) == 1
+    if not stride0 and bh > 1:
+        assert out.stride(0) == 0
 
 
 def test_ssd_generic_window_fits_shared_memory():

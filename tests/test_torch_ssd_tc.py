@@ -9,9 +9,10 @@ two; with f32 inputs every product is three.  Emulated here in float32 at
 mamba2-780m's widths (ds 128, dh 64, chunk 256; T 512, 4 heads), the scan
 comes within the JAX suite's 2e-4 bar of JAX's ``ssd_scan`` (the Pallas
 kernel in interpret mode).  One TF32 product (hi x hi) of the f32 operands
-misses that bar, so the splits are needed.  A pair outside ``DIMS`` runs
-the same passes at a padded instantiation (B and C zero past ds, x past
-dh): emulated so at (24, 40) and (100, 17), it holds the same bar.
+misses that bar, so the splits are needed.  Any other pair runs the same
+passes at the pair of ``INSTANCES`` that holds it, zero-padded by the
+wrapper (B and C past ds, x past dh, y cropped): emulated so at (24, 40)
+and (100, 17), it holds the same bar.
 """
 import functools
 
@@ -151,20 +152,19 @@ def _pair_inputs(ds: int, dh: int, bf16: bool):
 @pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "f32"])
 @pytest.mark.parametrize("ds,dh", [(24, 40), (100, 17)])
 def test_padded_pair_holds_the_bar(ds, dh, bf16):
-    """A pair outside ``DIMS`` runs the passes at the instantiation
-    ``route`` names (``padded``): B and C zero past ds, x past dh, y cropped
-    to dh.  Emulated so, the scan comes within 2e-4 of JAX's ``ssd_scan``
+    """A pair outside ``INSTANCES`` runs the passes at the pair ``padded``
+    names: B and C zero past ds, x past dh, y cropped to dh.  Emulated so, the scan comes within 2e-4 of JAX's ``ssd_scan``
     (the Pallas kernel in interpret mode) at the pair itself."""
     assert kssd.route(ds, dh) == "tensor_cores"
     dsp, dhp = kssd.padded(ds, dh)
-    assert (ds, dh) not in kssd.DIMS and (dsp, dhp) != (ds, dh)
+    assert (ds, dh) not in kssd.INSTANCES and (dsp, dhp) != (ds, dh)
     arrs = _pair_inputs(ds, dh, bf16)
     x, la, b, c = (U.t(a) for a in arrs)
     pad = torch.nn.functional.pad
     ref.full_fp32()
     got = _emulated_scan(pad(x, (0, dhp - dh)), la, pad(b, (0, dsp - ds)),
                          pad(c, (0, dsp - ds)), exact=bf16)
-    # the padded columns of y are exact zeros, never written by the kernel
+    # the padded columns of y are exact zeros, which the wrapper crops
     assert not bool(got[..., dh:].any())
     with jfabric.use("pallas_interpret"):
         want = np.asarray(jops.ssd_scan(*[jnp.asarray(a) for a in arrs],

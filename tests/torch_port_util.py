@@ -84,3 +84,33 @@ def one_thread():
         yield
     finally:
         torch.set_num_threads(n)
+
+
+def _c_to_py(expr: str) -> str:
+    """A constant expression of C++ integers, comparisons and right-nested
+    ternaries (``a ? b : c ? d : e``) as Python."""
+    if "?" not in expr:
+        return expr.replace(" / ", " // ")
+    cond, rest = expr.split("?", 1)
+    then, other = rest.split(":", 1)
+    return (f"({_c_to_py(then.strip())} if {_c_to_py(cond.strip())} "
+            f"else {_c_to_py(other.strip())})")
+
+
+def tf32x3_shape(dp: int) -> dict:
+    """``TfShape<DP>``'s constants as ``csrc/flash_attention.cu`` states
+    them, evaluated at head dim ``dp``: BQ, BK, THREADS, LD, SMEM, ..."""
+    import os
+    import re
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "src", "repro_torch", "kernels", "csrc",
+        "flash_attention.cu")
+    with open(src) as f:
+        text = f.read()
+    body = text[text.index("struct TfShape {"):]
+    body = body[:body.index("};")]
+    names = {"DP": dp}
+    for name, expr in re.findall(
+            r"static constexpr (?:int|bool) (\w+) =\s*([^;]+);", body):
+        names[name] = eval(_c_to_py(" ".join(expr.split())), {}, names)
+    return names
