@@ -115,6 +115,24 @@ Phases, each printing JSON lines:
    distinct flash_attention and ssd_scan call of that path again on its
    own inputs against its plain version, each naming the route and
    kernel it took.
+   ``dense_prefill``: nemotron-4-15b, starcoder2-3b and minicpm-2b the
+   same way (each freed before the next is built; the peak memory of
+   each init printed): 1 x 4096, median of 3 beside the 1,000 ms limit
+   (reported), launches a prefill (32 flash_attention and 64 matmul_bf16,
+   30 and 60, 40 and 120, all on the wgmma kernel), and ``lm_parity`` at
+   depth 2.
+   ``lm_decode``: the ``full`` preset (8 slots x 512) for qwen3-4b and
+   mamba2-780m at full width and depth, 16 requests with 4-token prompts
+   and 32 new tokens: tokens/s, each step's decode-stage ms, request
+   p50/p99, matmul_bf16 launches (all on the wgmma kernel, 108 a
+   qwen3-4b step) and the fabric counters; one timed qwen3-4b step at 8
+   slots with a 32,768-long cache (decode_32k's batch 128 cut to 8);
+   the f32 smoke configs of the five archs card against CPU (equal
+   tokens, each step's logits within 1e-4), bf16 at full width and depth
+   2 (four steps' logits within 2 bf16 ulps), the f32 forward equal to
+   step-by-step decode within JAX's 2e-2, and two ``lm_decode`` tenants
+   of one fleet on one ``LMUnit``, each equal to its solo run; then
+   ``matmul_bf16_decode`` (qwen3-4b's three MLP GEMMs at M = 8).
 8. ``fleet``: four tenants on one ``repro_torch.fleet.Fleet`` on the
    card: ``lab-fc`` (``flowcell_512`` with phase 4's CNN, pore encoder,
    1,024 reads, depth 2, fused; weight 2), ``lab-bc1`` and ``lab-bc2``
@@ -156,12 +174,17 @@ Phases, each printing JSON lines:
    bit.
 11. ``serve_cli``: ``python -m repro_torch.launch.serve`` in subprocesses:
    basecall, adaptive_sampling (with ``--trace`` and ``--timeseries``,
-   both validated) and pathogen_pipeline, ``--fleet`` on a three-tenant
-   spec, ``--field`` on a two-device spec; each exits 0, with its wall.
+   both validated) and pathogen_pipeline, ``--fleet`` on a four-tenant
+   spec (one ``lm_decode``), ``--field`` on a two-device spec,
+   ``lm_decode`` on its ``smoke`` preset and on ``full`` with 8 requests
+   of 16 new tokens; each exits 0, with its wall.
 12. ``{"kernels": [...]}``: every kernel with its launches in phases 4-11,
    counted from 0 just before each path and read just after it
    (``matmul_bf16`` also with ``wgmma_launches``, those on its wgmma
-   kernel; ``conv1d`` with ``tc_launches`` and ``bound_fp32_ms``;
+   kernel; ``matmul_bf16_decode``, row 2d, its launches on the
+   ``lm_decode`` paths with ``wgmma_launches``, ``variant``,
+   ``device_ms`` and ``library_device_ms`` (``torch.matmul``);
+   ``conv1d`` with ``tc_launches`` and ``bound_fp32_ms``;
    ``conv1d_int8`` with ``tc_launches`` and ``device_ms``;
    ``banded_align`` with ``device_ms``, ``plan`` and ``firehose`` (the
    pathogen compare's pairs, ms, device ms, bound and plan);
@@ -2043,15 +2066,27 @@ LM_SEQ = 4096               # prefill_32k's 32 x 32768, cut to 1 x 4096
 LM_LONG = 32_768            # prefill_32k's length: the kernels alone
 LM_ROWS = 512               # rows of the 32k attention checked a band
 LM_PARITY_SEQ = 512         # depth-2 card vs CPU: two SSD chunks of 256
+LM_PREFILL_LIMIT_MS = 1000  # PERF.md section 2: reported, not gated
 FA_RULE = ("|err| <= 2^-7 |ref| + 2^-8 (P|V|), P|V| the plain attention "
            "of |v|")
 SSD_TOL = 2e-4              # the JAX suite's SSD bar (f32)
 LM_REDUCED = ("prefill_32k (configs/shapes.py: batch 32 x seq 32768) cut "
               "to batch 1 x seq 4096 end to end for the run's time; the "
               "flash_attention and ssd_scan kernels alone run at 32768")
+# launches a prefill: one flash_attention a layer, the MLP's GEMMs (three
+# a gated layer, two a non-gated one) all on the wgmma kernel, one
+# ssd_scan a mamba layer; the three dense configs are phase
+# ``dense_prefill``
 LM_PATHS = (("qwen3-4b", {"flash_attention": 36, "matmul_bf16": 108,
                           "matmul_bf16_wgmma": 108}),
-            ("mamba2-780m", {"ssd_scan": 48}))
+            ("mamba2-780m", {"ssd_scan": 48}),
+            ("nemotron-4-15b", {"flash_attention": 32, "matmul_bf16": 64,
+                                "matmul_bf16_wgmma": 64}),
+            ("starcoder2-3b", {"flash_attention": 30, "matmul_bf16": 60,
+                               "matmul_bf16_wgmma": 60}),
+            ("minicpm-2b", {"flash_attention": 40, "matmul_bf16": 120,
+                            "matmul_bf16_wgmma": 120}))
+DENSE_ARCHS = ("nemotron-4-15b", "starcoder2-3b", "minicpm-2b")
 
 
 def bf16_ulp(x: float) -> float:
@@ -2401,8 +2436,10 @@ def parity_line(card_h, cpu_h, card, cpu) -> dict:
 
 
 def phase_lm_prefill(torch, paths):
-    """qwen3-4b and mamba2-780m at full width and depth, random bf16
-    params from torch.Generator seed 0 on the card: one warm-up and three
+    """qwen3-4b and mamba2-780m (phase ``lm_prefill``), then nemotron-4-15b,
+    starcoder2-3b and minicpm-2b (phase ``dense_prefill``), one at a time
+    (each freed before the next is built) at full width and depth, random
+    bf16 params from torch.Generator seed 0 on the card: one warm-up and three
     timed ``launch.steps.prefill`` at 1 x 4096 (exact launches a
     prefill), then depth 2 at 1 x 512 on the card and on the CPU with the
     same params: the last token's final hidden state by ``PARITY_RULE``,
@@ -2418,12 +2455,17 @@ def phase_lm_prefill(torch, paths):
     from repro_torch.core import basecaller as bc
     dev = torch.device("cuda")
     for arch, per_prefill in LM_PATHS:
+        name = "dense_prefill" if arch in DENSE_ARCHS else "lm_prefill"
         cfg = ARCHS[arch].config()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         params, _ = transformer.init(torch.Generator(dev).manual_seed(0), cfg,
                                      device=dev)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
+        # ParamBuilder draws each leaf in f32 first: nemotron-4-15b's
+        # 32 x 6144 x 24576 MLP leaf is a ~19 GB transient
+        init_peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         tok = np.random.default_rng(0).integers(0, cfg.vocab_size,
                                                 (1, LM_SEQ))
 
@@ -2442,9 +2484,11 @@ def phase_lm_prefill(torch, paths):
         logits, walls = paths.drive(path, tuple(per_prefill), run)
         med = float(np.median(walls))
         finite = bool(torch.isfinite(logits).all().item())
-        emit({"phase": "lm_prefill", "arch": arch, "params": tree_numel(params),
+        emit({"phase": name, "arch": arch, "params": tree_numel(params),
               "layers": cfg.num_layers, "batch": 1, "seq": LM_SEQ,
-              "init_s": init_s, "wall_ms": walls, "median_ms": med,
+              "init_s": init_s, "init_peak_mem_gb": init_peak_gb,
+              "wall_ms": walls, "median_ms": med,
+              "limit_ms": LM_PREFILL_LIMIT_MS,
               "tokens_per_s": LM_SEQ / (med / 1e3),
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
               "logits_shape": list(logits.shape), "finite": finite,
@@ -2475,6 +2519,7 @@ def phase_lm_prefill(torch, paths):
         cpu_s = time.perf_counter() - t0
         line = parity_line(card_h, cpu_h, card, cpu)
         emit({"phase": "lm_parity", "arch": arch, "layers": 2, "batch": 1,
+              "of": name,
               "seq": LM_PARITY_SEQ, **line, "card_s": card_s,
               "cpu_s": cpu_s})
         require(line["hidden_over_bar"] <= 1.0,
@@ -2487,6 +2532,396 @@ def phase_lm_prefill(torch, paths):
                 f"{arch} depth-2 parity: top-1 differs at margin {margin}")
         del p2, cpu_params
         torch.cuda.empty_cache()
+
+
+# -------------------------------------------------------- phase lm_decode --
+DECODE_ARCHS = ("qwen3-4b", "mamba2-780m") + DENSE_ARCHS
+DECODE_REQUESTS = 16        # the serve CLI's drive: 4-token prompts
+DECODE_NEW_TOKENS = 32
+DECODE_LONG = 32_768        # decode_32k's cache length
+DECODE_LONG_SLOTS = 8
+DECODE_REDUCED = ("decode_32k (configs/shapes.py: batch 128 x a 32768 "
+                  "cache) cut to 8 slots: qwen3-4b's KV cache is ~147 KB a "
+                  "token, 38.7 GB at 8 x 32768; one timed step, finiteness "
+                  "and time only")
+DECODE_F32_TOL = 1e-4       # the port's f32 LM bar
+EXACT_TOL = 2e-2            # JAX's tests/test_models.py:70-90
+DECODE_MLP = (("gate", "silu"), ("up", "none"), ("down", "none"))
+
+
+def decode_requests(vocab, n=DECODE_REQUESTS, new=DECODE_NEW_TOKENS,
+                    seed=0, empty=False):
+    """``n`` requests with 4-token prompts drawn from ``seed`` (the serve
+    CLI's), the first with an empty prompt where ``empty``."""
+    import numpy as np
+
+    from repro_torch.engine.lm import Request
+    rng = np.random.default_rng(seed)
+    return [Request(uid=u, prompt=(np.zeros(0, np.int64) if empty and u == 0
+                                   else rng.integers(1, vocab, 4)),
+                    max_new_tokens=new) for u in range(n)]
+
+
+def drive_decode(torch, eng, reqs):
+    """Submit ``reqs`` and step the engine until it is idle (its
+    ``drain``); returns the summary and each step's decode-stage ms."""
+    for r in reqs:
+        eng.submit(r)
+    step_ms = []
+    while True:
+        before = eng.telemetry.stage_s.get("decode", 0.0)
+        if not eng.step():
+            break
+        step_ms.append((eng.telemetry.stage_s["decode"] - before) * 1e3)
+    torch.cuda.synchronize()
+    return eng.summary(), step_ms
+
+
+def numpy_tree(tree):
+    """A float32 param tree as numpy arrays (JAX's ``jax.tree.map(
+    np.asarray, params)`` form), for ``load_numpy_params``."""
+    return {k: numpy_tree(v) if isinstance(v, dict) else v.numpy()
+            for k, v in tree.items()}
+
+
+def recorded_logits(eng):
+    """Wrap ``eng._step`` to keep each step's host logits."""
+    seen = []
+    step = eng._step
+
+    def record(toks):
+        out = step(toks)
+        seen.append(out.copy())
+        return out
+    eng._step = record
+    return seen
+
+
+def check_matmul_bf16_decode(torch, F, peaks, table):
+    """``matmul_bf16`` at qwen3-4b's three MLP GEMMs with M = 8 (the
+    ``full`` preset's slots), on the kernel the wrapper picks (the wgmma
+    one: TMA addresses the operands), against its plain version within
+    one bf16 ulp; event and device times beside ``torch.matmul``'s on the
+    same bf16 inputs.  The bound is the bytes: ~50 MB of weights a GEMM."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import matmul as km
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(7)
+    q3 = ARCHS["qwen3-4b"].config()
+    m, d, ff = DECODE_LONG_SLOTS, q3.d_model, q3.d_ff
+    a = torch.randn((m, d), generator=gen, device=dev).bfloat16()
+    h = (torch.randn((m, ff), generator=gen, device=dev) * 0.5).bfloat16()
+    wg = (torch.randn((d, ff), generator=gen, device=dev) * d ** -0.5
+          ).bfloat16()
+    wu = (torch.randn((d, ff), generator=gen, device=dev) * d ** -0.5
+          ).bfloat16()
+    wo = (torch.randn((ff, d), generator=gen, device=dev) * ff ** -0.5
+          ).bfloat16()
+    dev_ms = lib_dev_ms = 0.0
+    ran = set()
+    for (name, act), (x, w) in zip(DECODE_MLP, ((a, wg), (a, wu), (h, wo))):
+        before = km.matmul_bf16.wgmma_launches
+        out = km.matmul_bf16(x, w, activation=act)
+        ran.add("wgmma" if km.matmul_bf16.wgmma_launches > before
+                else "mma.sync")
+        want = ref.matmul(x, w, activation=act)
+        torch.cuda.synchronize()
+        err = (out.float() - want.float()).abs().max().item()
+        tol = bf16_ulp(want.float().abs().max().item())
+        ms = time_ms(torch, lambda: km.matmul_bf16(x, w, activation=act))
+        dms = device_ms(torch, lambda: km.matmul_bf16(x, w, activation=act))
+        plain = time_ms(torch, lambda: ref.matmul(x, w, activation=act),
+                        reps=5)
+        if act == "silu":
+            def lib():
+                return F.silu(torch.matmul(x, w))
+        else:
+            def lib():
+                return torch.matmul(x, w)
+        lib_ms = time_ms(torch, lib)
+        lib_dms = device_ms(torch, lib)
+        ops = 2.0 * m * x.shape[1] * w.shape[1]
+        bnd, by = bound_ms(peaks, nbytes(x, w, out), ops, bf16=True)
+        emit({"phase": "kernel", "kernel": "matmul_bf16_decode",
+              "shape": f"qwen3-4b MLP {name} at M = {m}",
+              "a": list(x.shape), "b": list(w.shape), "activation": act,
+              "variant": sorted(ran), "max_abs_err": err, "tol": tol,
+              "ms": ms, "device_ms": dms, "plain_ms": plain,
+              "library_ms": lib_ms, "library_device_ms": lib_dms,
+              "bound_ms": bnd, "bound_by": by,
+              "bytes": nbytes(x, w, out)})
+        table.add("matmul_bf16_decode", err=err, ms=ms, plain_ms=plain,
+                  bound=bnd, bound_by=by, library_ms=lib_ms)
+        dev_ms += dms
+        lib_dev_ms += lib_dms
+        require(err <= tol, f"matmul_bf16_decode {name}: max abs err {err} "
+                f"over {tol}")
+    row = table.rows["matmul_bf16_decode"]
+    row.update(device_ms=dev_ms, library_device_ms=lib_dev_ms,
+               variant=sorted(ran))
+    require(ran == {"wgmma"}, f"matmul_bf16_decode ran {sorted(ran)}")
+
+
+def phase_lm_decode(torch, F, peaks, table, paths):
+    """The LM decode server on the card.  (1) ``lm_decode``'s ``full``
+    preset (8 slots x 512) for qwen3-4b and mamba2-780m at full width and
+    depth, random bf16 params from seed 0: 16 requests with 4-token
+    prompts and 32 new tokens each after a one-request warm-up; tokens/s,
+    each step's decode-stage ms, request p50/p99, launches and the fabric
+    counters.  (2) f32 smoke configs of the five archs, card against CPU
+    on the same params (``load_numpy_params``): equal tokens and each
+    step's logits within 1e-4; bf16 at full width and depth 2, four
+    teacher-forced steps: logits within 2 bf16 ulps of max |logit|.
+    (3) JAX's exactness check on the card: the f32 forward equals step by
+    step ``serve_step`` within 2e-2.  (4) Two ``lm_decode`` tenants of one
+    ``Fleet`` share one ``LMUnit`` and each decodes its solo run's tokens
+    (f32).  (5) One timed ``serve_step`` of qwen3-4b at 8 slots with a
+    32,768-long cache of seeded values.  Then ``matmul_bf16_decode``.
+    Returns the launches of ``matmul_bf16`` on the decode paths."""
+    import dataclasses
+
+    import numpy as np
+
+    import repro_torch.engine as te
+    from repro_torch.configs import ARCHS
+    from repro_torch.engine.telemetry import Telemetry
+    from repro_torch.fleet import Fleet, LMUnit
+    from repro_torch.models import transformer
+    from repro_torch.models.param import load_numpy_params
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    decode_launches = {"matmul_bf16": 0, "matmul_bf16_wgmma": 0}
+
+    def counted(path, kernels, fn):
+        out = paths.drive(path, kernels, fn)
+        for k in decode_launches:
+            decode_launches[k] += paths.paths[path].get(k, 0)
+        return out
+
+    # (1) the full preset at full width and depth
+    keep = None
+    for arch in ("qwen3-4b", "mamba2-780m"):
+        t0 = time.perf_counter()
+        eng = te.build("lm_decode", preset="full", arch=arch)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        cfg = eng.cfg
+        drive_decode(torch, eng, decode_requests(cfg.vocab_size, n=1, new=2,
+                                                 seed=99))
+        eng.finished.clear()
+        eng.telemetry = Telemetry(workload=eng.workload)
+        kernels = ("matmul_bf16",) if cfg.family == "dense" else ()
+        rep, step_ms = counted(
+            f"lm_decode {arch}", kernels, lambda: drive_decode(
+                torch, eng, decode_requests(cfg.vocab_size)))
+        got = paths.paths[f"lm_decode {arch}"]
+        per_step = 3 * cfg.num_layers if cfg.family == "dense" else 0
+        fabric = {k: v for k, v in rep.items() if k.startswith("fabric.")}
+        lens = sorted({len(r.tokens_out) for r in eng.finished})
+        emit({"phase": "lm_decode", "part": "full_preset", "arch": arch,
+              "slots": eng.slots, "max_len": eng.max_len,
+              "layers": cfg.num_layers, "init_s": init_s,
+              "requests": DECODE_REQUESTS, "prompt_len": 4,
+              "new_tokens": DECODE_NEW_TOKENS,
+              "completed": rep["completed"], "steps": rep["steps"],
+              "dispatches": rep["dispatches"],
+              "tokens": eng.telemetry.tokens,
+              "tokens_per_s": rep["tokens_per_s"], "wall_s": rep["wall_s"],
+              "step_ms_mean": float(np.mean(step_ms)),
+              "step_ms_p50": float(np.percentile(step_ms, 50)),
+              "step_ms_max": float(np.max(step_ms)),
+              "stage_prefill_s": rep.get("stage_prefill_s"),
+              "stage_decode_s": rep.get("stage_decode_s"),
+              "request_p50_ms": rep["p50_ms"],
+              "request_p99_ms": rep["p99_ms"],
+              "matmul_bf16_launches": got.get("matmul_bf16", 0),
+              "wgmma_launches": got.get("matmul_bf16_wgmma", 0),
+              "fabric": fabric, "tokens_out_lengths": lens,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+        require(rep["completed"] == DECODE_REQUESTS
+                and lens == [DECODE_NEW_TOKENS + 1],
+                f"lm_decode {arch}: completed {rep['completed']}, token "
+                f"counts {lens}")
+        want = per_step * rep["dispatches"]
+        require(got.get("matmul_bf16", 0) == want
+                and got.get("matmul_bf16_wgmma", 0) == want
+                and fabric == ({"fabric.dispatch.matmul.cuda": want}
+                               if want else {}),
+                f"lm_decode {arch}: launches {got}, fabric {fabric}, "
+                f"expected {want} on the wgmma kernel")
+        if arch == "qwen3-4b":
+            keep = (cfg, eng.params)
+        del eng
+        torch.cuda.empty_cache()
+
+    # (5) one step at decode_32k's cache length, 8 slots
+    cfg, params = keep
+    cache = transformer.init_cache(cfg, DECODE_LONG_SLOTS, DECODE_LONG,
+                                   device=dev)
+    gen = torch.Generator(dev).manual_seed(5)
+    for k in ("k", "v"):
+        cache[k].normal_(generator=gen)
+    tok = torch.randint(1, cfg.vocab_size, (DECODE_LONG_SLOTS, 1),
+                        generator=gen, device=dev)
+    pos = torch.arange(DECODE_LONG - DECODE_LONG_SLOTS, DECODE_LONG,
+                       device=dev)
+
+    def long_step():
+        walls = []
+        for _ in range(2):                       # a warm-up, then timed
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with torch.inference_mode():
+                logits, _ = transformer.serve_step(params, cache, tok, pos,
+                                                   cfg)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t1) * 1e3)
+        return logits, walls
+    logits, walls = counted("lm_decode qwen3-4b 32k step", ("matmul_bf16",),
+                            long_step)
+    finite = bool(torch.isfinite(logits).all().item())
+    cache_gb = sum(v.numel() * v.element_size()
+                   for v in cache.values()) / 2 ** 30
+    emit({"phase": "lm_decode", "part": "decode_32k_step", "arch": "qwen3-4b",
+          "slots": DECODE_LONG_SLOTS, "max_len": DECODE_LONG,
+          "warm_ms": walls[0], "step_ms": walls[1], "cache_gb": cache_gb,
+          "finite": finite, "reduced": DECODE_REDUCED,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+    require(finite, "decode_32k step: non-finite logits")
+    del cache, params, keep, logits
+    torch.cuda.empty_cache()
+
+    # (2) card against CPU: f32 smoke engines, tokens and logits
+    for arch in DECODE_ARCHS:
+        cfg = dataclasses.replace(ARCHS[arch].smoke_config(),
+                                  dtype="float32")
+        cpu_params, _ = transformer.init(torch.Generator().manual_seed(0),
+                                         cfg, device="cpu")
+        card_params = load_numpy_params(numpy_tree(cpu_params), dev)
+        runs = {}
+        for where, p in (("cpu", cpu_params), ("cuda", card_params)):
+            eng = te.build("lm_decode", params=p, cfg=cfg, slots=2,
+                           max_len=32, device=where)
+            seen = recorded_logits(eng)
+            for r in decode_requests(cfg.vocab_size, n=5, new=6, empty=True):
+                eng.submit(r)
+            eng.drain()
+            runs[where] = ([(r.uid, r.tokens_out) for r in eng.finished],
+                           seen)
+        (ct, cl), (gt, gl) = runs["cpu"], runs["cuda"]
+        excess = max(float(np.max(np.abs(g - c) / (DECODE_F32_TOL * (
+            1 + np.abs(c))))) for g, c in zip(gl, cl))
+        emit({"phase": "lm_decode", "part": "f32_card_vs_cpu", "arch": arch,
+              "steps": len(cl), "tokens_equal": ct == gt,
+              "max_abs_diff": max(float(np.max(np.abs(g - c)))
+                                  for g, c in zip(gl, cl)),
+              "over_bar": excess,
+              "bar": "|card - cpu| <= 1e-4 (1 + |cpu|) each step's logits"})
+        require(ct == gt and len(cl) == len(gl) and excess <= 1.0,
+                f"lm_decode f32 {arch}: tokens equal {ct == gt}, logits "
+                f"{excess} x the bar")
+
+    # (2) bf16, full width at depth 2: four teacher-forced steps
+    for arch in DECODE_ARCHS:
+        cfg = dataclasses.replace(ARCHS[arch].config(), num_layers=2)
+        p2, _ = transformer.init(torch.Generator(dev).manual_seed(0), cfg,
+                                 device=dev)
+        from repro_torch.core import basecaller as bc
+        cpu_p = bc.params_to(p2, "cpu")
+        caches = {d: transformer.init_cache(cfg, 2, 16, device=d)
+                  for d in ("cpu", "cuda")}
+        rng = np.random.default_rng(4)
+        pos = np.array([0, 5])
+        worst = {"over_bar": 0.0, "top1_differs_beyond_bar": 0}
+        for _ in range(4):
+            tok = rng.integers(0, cfg.vocab_size, (2, 1))
+            out = {}
+            for d, p in (("cpu", cpu_p), ("cuda", p2)):
+                with torch.inference_mode():
+                    lg, caches[d] = transformer.serve_step(
+                        p, caches[d], torch.as_tensor(tok, device=d),
+                        torch.as_tensor(pos, device=d), cfg)
+                out[d] = lg.float().cpu()[:, 0]
+            bar = 2 * bf16_ulp(out["cpu"].abs().max().item())
+            diff = (out["cuda"] - out["cpu"]).abs().max().item()
+            worst["over_bar"] = max(worst["over_bar"], diff / bar)
+            top2 = out["cpu"].topk(2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > bar
+            worst["top1_differs_beyond_bar"] += int(
+                (out["cuda"].argmax(-1) != out["cpu"].argmax(-1))[sure]
+                .sum())
+            pos += 1
+        emit({"phase": "lm_decode", "part": "bf16_depth2_card_vs_cpu",
+              "arch": arch, "layers": 2, "steps": 4, **worst,
+              "bar": "2 bf16 ulps of max |logit| (CPU) each step"})
+        require(worst["over_bar"] <= 1.0
+                and worst["top1_differs_beyond_bar"] == 0,
+                f"lm_decode bf16 depth-2 {arch}: {worst}")
+        del p2, cpu_p, caches
+        torch.cuda.empty_cache()
+
+    # (3) JAX's exactness check, on the card
+    exact = {}
+    for arch in DECODE_ARCHS:
+        cfg = dataclasses.replace(ARCHS[arch].smoke_config(),
+                                  dtype="float32")
+        p, _ = transformer.init(torch.Generator(dev).manual_seed(0), cfg,
+                                device=dev)
+        toks = torch.as_tensor(np.random.default_rng(7).integers(
+            1, cfg.vocab_size, (1, 8)), device=dev)
+        with torch.inference_mode():
+            full, _ = transformer.apply(p, toks, cfg)
+            cache = transformer.init_cache(cfg, 1, 8, device=dev)
+            outs = []
+            for i in range(8):
+                lg, cache = transformer.serve_step(
+                    p, cache, toks[:, i: i + 1],
+                    torch.full((1,), i, device=dev), cfg)
+                outs.append(lg[:, 0])
+        dec = torch.stack(outs, dim=1)
+        err = (dec - full).abs().max().item()
+        rel = ((dec - full).abs() / (EXACT_TOL * (1 + full.abs()))).max()
+        exact[arch] = {"max_abs_err": err, "over_bar": rel.item()}
+    emit({"phase": "lm_decode", "part": "decode_equals_forward",
+          "archs": exact, "bar": "|decode - forward| <= 2e-2 (1 + |forward|)"
+                                 " (JAX's tests/test_models.py)"})
+    require(all(v["over_bar"] <= 1.0 for v in exact.values()),
+            f"decode != forward: {exact}")
+
+    # (4) two tenants of one fleet share one LMUnit; each equals solo
+    cfg = dataclasses.replace(ARCHS["starcoder2-3b"].smoke_config(),
+                              dtype="float32")
+
+    def fleet_reqs(i):
+        return decode_requests(cfg.vocab_size, n=3, new=6, seed=10 + i)
+    fleet = Fleet()
+    tenants = [fleet.add_tenant(n, "lm_decode", "smoke", cfg=cfg)
+               for n in ("lab-a", "lab-b")]
+    for i, t in enumerate(tenants):
+        for r in fleet_reqs(i):
+            t.submit(r)
+    fleet.drain()
+    equal = {}
+    for i, t in enumerate(tenants):
+        solo = te.build("lm_decode", "smoke", cfg=cfg)
+        for r in fleet_reqs(i):
+            solo.submit(r)
+        solo.drain()
+        want = {r.uid: r.tokens_out for r in solo.finished}
+        equal[t.name] = {r.uid: r.tokens_out for r in t.outputs} == want
+    shared = (tenants[0].unit is tenants[1].unit
+              and isinstance(tenants[0].unit, LMUnit))
+    emit({"phase": "lm_decode", "part": "fleet_tenants", "arch": cfg.name,
+          "shared_unit": shared, "equal_solo": equal,
+          "steps": tenants[0].engine.telemetry.steps})
+    require(shared and all(equal.values()),
+            f"lm_decode fleet: shared {shared}, equal {equal}")
+
+    check_matmul_bf16_decode(torch, F, peaks, table)
+    emit({"phase": "lm_decode", "part": "wall",
+          "wall_s": time.perf_counter() - t_phase})
+    return decode_launches
 
 
 # ------------------------------------------------------------ phase fleet --
@@ -3712,14 +4147,18 @@ SERVE_FLEET = {"tenants": [
     {"name": "lab-fc", "workload": "adaptive_sampling",
      "preset": "flowcell_smoke", "weight": 2},
     {"name": "lab-bc", "workload": "basecall", "requests": 32},
-    {"name": "lab-pp", "workload": "pathogen_pipeline", "requests": 4}]}
+    {"name": "lab-pp", "workload": "pathogen_pipeline", "requests": 4},
+    {"name": "lab-lm", "workload": "lm_decode", "preset": "smoke",
+     "requests": 6}]}
 
 
 def phase_serve_cli():
     """``python -m repro_torch.launch.serve`` in subprocesses on the card:
     the three SoC workloads (one with --trace and --timeseries, both
-    through the port's validators), --fleet on a spec file and --field on
-    a small spec.  Each must exit 0; its wall is printed."""
+    through the port's validators), --fleet on a spec file (an
+    ``lm_decode`` tenant among them), --field on a small spec, and
+    ``lm_decode`` on its ``smoke`` and ``full`` presets (qwen3-4b at full
+    size: no ``--smoke``).  Each must exit 0; its wall is printed."""
     from repro_torch.obs.export import validate_timeseries
     from repro_torch.obs.trace import validate_chrome_trace
     out_dir = os.path.join(ROOT, "build", "serve_cli")
@@ -3741,6 +4180,10 @@ def phase_serve_cli():
                               "--requests", "4"],
         "fleet": ["--fleet", fleet_spec],
         "field": ["--field", field_spec],
+        # JAX's rule: lm_decode builds the full-size arch unless --smoke
+        "lm_decode smoke": ["--workload", "lm_decode", "--preset", "smoke"],
+        "lm_decode full": ["--workload", "lm_decode", "--preset", "full",
+                           "--requests", "8", "--new-tokens", "16"],
     }
     env = dict(os.environ, PYTHONPATH=SRC)
     for name, argv in runs.items():
@@ -3763,7 +4206,7 @@ def phase_serve_cli():
         else:
             line.update({k: report.get(k) for k in (
                 "completed", "dispatches", "p50_ms", "p99_ms",
-                "bases_per_s")})
+                "bases_per_s", "tokens_per_s")})
         emit(line)
         require(proc.returncode == 0, f"serve {name} exited "
                 f"{proc.returncode}: {proc.stderr[-2000:]}")
@@ -3820,6 +4263,10 @@ KERNELS = {
         "src/repro/kernels/flash_attention.py:111"),
     "ssd_scan_padded": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                         "src/repro/kernels/ssd_scan.py:88"),
+    # row 2d: matmul_bf16 at decode's M = the slot count (8), the LM
+    # decode server's MLP; its launches are the lm_decode paths'
+    "matmul_bf16_decode": ("src/repro_torch/kernels/csrc/matmul.cu",
+                           "src/repro/kernels/matmul.py:120"),
 }
 
 
@@ -3984,6 +4431,7 @@ def main() -> int:
     phase_pathogen(torch, cfg, panel, known, paths)
     phase_lm_prefill(torch, paths)
     phase_lm_parity_f32(torch, paths)
+    decode_launches = phase_lm_decode(torch, F, peaks, table, paths)
     phase_fleet(torch, panel, paths)
     phase_field(torch, paths)
     phase_train(torch, paths)
@@ -3992,7 +4440,8 @@ def main() -> int:
     kernels = []
     for k, (src, replaces) in KERNELS.items():
         r = table.rows[k]
-        launches = paths.total[k]
+        launches = (decode_launches["matmul_bf16"]
+                    if k == "matmul_bf16_decode" else paths.total[k])
         if k == "flash_attention":
             # the wrapper counts all its kernels: the 3xTF32 ones have
             # their own rows, the CUDA-core one runs on no main path
@@ -4010,6 +4459,14 @@ def main() -> int:
             "library_ms": r["library_ms"]})
         if k == "matmul_bf16":
             kernels[-1]["wgmma_launches"] = paths.total["matmul_bf16_wgmma"]
+        if k == "matmul_bf16_decode":
+            # the lm_decode paths' launches on the wgmma kernel, the
+            # kernel the three M = 8 GEMMs ran, and device times beside
+            # torch.matmul's
+            kernels[-1].update(
+                wgmma_launches=decode_launches["matmul_bf16_wgmma"],
+                variant=r["variant"], device_ms=r["device_ms"],
+                library_device_ms=r["library_device_ms"])
         if k == "conv1d":
             kernels[-1]["tc_launches"] = paths.total["conv1d_tc"]
             # the tick's bound at the CUDA cores' fp32 rate, beside

@@ -4,10 +4,16 @@
   prefill_32k  seq 32768,  global batch 32    (inference prefill)
   decode_32k   seq 32768,  global batch 128   (decode: 1 token, 32k KV cache)
   long_500k    seq 524288, global batch 1     (long-context decode)
+
+``long_500k`` needs attention state that does not grow with the context:
+it runs for the SSM (mamba2) and hybrid (jamba) archs and is recorded N/A
+for the full-attention archs (:func:`applicable`).
 """
 from __future__ import annotations
 
 import dataclasses
+
+from repro_torch.models.config import ModelConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,3 +30,11 @@ SHAPES: dict[str, ShapeCell] = {
     "decode_32k": ShapeCell("decode_32k", "decode", 32_768, 128),
     "long_500k": ShapeCell("long_500k", "decode", 524_288, 1),
 }
+
+
+def applicable(cfg: ModelConfig, shape: ShapeCell) -> tuple[bool, str]:
+    """(runs?, reason-if-not)."""
+    if shape.name == "long_500k" and cfg.family not in ("ssm", "hybrid"):
+        return False, ("full quadratic attention at 524k context; "
+                       "sub-quadratic families only (DESIGN.md Sec 4)")
+    return True, ""

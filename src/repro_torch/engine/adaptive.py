@@ -18,6 +18,27 @@ from repro_torch.engine.base import energy_block, quantize_edge_params
 from repro_torch.engine.registry import register
 
 
+def legacy_adaptive_policy(use_kernel: bool = False, interpret=None, *,
+                           device="cuda") -> dict[str, str]:
+    """The placements the old per-stage booleans of
+    ``AdaptiveSamplingServer`` stand for, as ``{op: target}`` for the
+    basecall CNN (``conv1d``) and the prefix mapper (``banded_align``).
+
+    In JAX (``repro/engine/adaptive.py:17``) ``use_kernel`` placed only the
+    CNN and ``interpret`` only the mapper.  The port has no placement
+    policy: the tensor's device picks every kernel's target
+    (:func:`repro_torch.kernels.fabric.target_of`), so both ops land on
+    ``device``'s target whatever the booleans say (JAX's kernels and
+    reference paths compute the same function).  Kept for the shim's
+    signature; it validates ``device``."""
+    import torch
+
+    from repro_torch.kernels import fabric
+    del use_kernel, interpret
+    target = fabric.target_of(torch.empty(0, device=resolve_device(device)))
+    return {"conv1d": target, "banded_align": target}
+
+
 class AdaptiveSamplingEngine:
     """Read-Until serving shape: keep/eject decisions with latency and
     signal-saved accounting.  ``flowcell=`` attaches a

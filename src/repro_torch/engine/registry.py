@@ -6,8 +6,9 @@
 
 ``build`` resolves the workload's builder, starts from the named preset's
 keywords and applies ``**overrides`` on top.  Workload modules import
-lazily.  Four workloads are ported: ``adaptive_sampling``, ``basecall``,
-``pathogen_pipeline`` and ``field_aggregator``.
+lazily.  All five of JAX's workloads are ported: ``adaptive_sampling``,
+``basecall``, ``pathogen_pipeline``, ``field_aggregator`` and
+``lm_decode``.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ _WORKLOAD_MODULES: dict[str, str] = {
     "basecall": "repro_torch.engine.basecall",
     "pathogen_pipeline": "repro_torch.engine.pipeline",
     "field_aggregator": "repro_torch.field.aggregator",
+    "lm_decode": "repro_torch.engine.lm",
 }
 
 _BUILDERS: dict[str, Callable[..., Any]] = {}

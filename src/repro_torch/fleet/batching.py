@@ -2,8 +2,7 @@
 (``repro/fleet/batching.py``).
 
 A *unit* owns one engine instance and feeds it from one or more tenants'
-fleet-level queues.  Two shapes (JAX's third, ``LMUnit`` over the LM decode
-engine's slot pool, waits for the port's decode server):
+fleet-level queues.  Three shapes:
 
   * :class:`BasecallUnit` — **continuous cross-tenant batching** for the
     fixed-batch basecall engine: compatible tenants share one engine, and
@@ -11,6 +10,9 @@ engine's slot pool, waits for the port's decode server):
     queues, so idle slots in one tenant's batch carry another tenant's
     rows.  Results demultiplex back per tenant by the staging FIFO (the
     engine admits and emits strictly in order).
+  * :class:`LMUnit` — the same idea over the LM decode engine's slot
+    pool: requests from several tenants occupy one pool and decode in the
+    same step; finished requests route back by ownership.
   * :class:`GenericUnit` — single-tenant wrapper for engines whose state is
     inherently per-tenant (a flowcell's pore lifecycle, the pathogen
     pipeline's in-flight depth).  No sharing; the fleet still time-slices
@@ -30,12 +32,11 @@ import time
 
 from repro_torch.engine.telemetry import Telemetry
 
-__all__ = ["BasecallUnit", "GenericUnit", "make_unit", "weighted_fill",
-           "SHAREABLE_WORKLOADS"]
+__all__ = ["BasecallUnit", "LMUnit", "GenericUnit", "make_unit",
+           "weighted_fill", "SHAREABLE_WORKLOADS"]
 
 #: workloads whose engines can serve several tenants from one step
-#: (JAX's ``lm_decode`` joins once the decode server is ported)
-SHAREABLE_WORKLOADS = ("basecall",)
+SHAREABLE_WORKLOADS = ("basecall", "lm_decode")
 
 
 def weighted_fill(states, capacity: int, pull) -> dict[str, int]:
@@ -190,6 +191,53 @@ class BasecallUnit(_UnitBase):
             tel.steps += 1
 
 
+class LMUnit(_UnitBase):
+    """Cross-tenant continuous batching over one LM decode slot pool.
+    Each request's tokens depend on its own slot's rows alone (every
+    kernel of the step computes a row from that row), so a tenant's
+    tokens equal its solo run's."""
+
+    def add_member(self, name: str) -> None:
+        if not hasattr(self, "_owner"):
+            self._owner = {}            # id(request) -> (member, request)
+        super().add_member(name)
+
+    def feed(self, states: dict) -> dict[str, int]:
+        eng = self.engine
+        sched = eng.scheduler
+        capacity = sched.slots - sched.n_busy - sched.pending
+
+        def pull(name, entry):
+            req, kw = entry
+            self._owner[id(req)] = (name, req)
+            eng.submit(req, **kw)
+            self.inflight[name] += 1
+            return 1
+
+        return weighted_fill(states, capacity, pull)
+
+    def collect(self, dt: float) -> None:
+        eng = self.engine
+        if not eng.finished:
+            return
+        finished, eng.finished = eng.finished, []
+        dt_ms = dt * 1e3
+        for req in finished:
+            name, _ = self._owner.pop(id(req), (None, None))
+            if name is None:            # submitted around the fleet: keep
+                eng.finished.append(req)
+                continue
+            self.outputs[name].append(req)
+            self.inflight[name] -= 1
+            tel = self.member_telemetry[name]
+            tel.completed += 1
+            tel.tokens += len(req.tokens_out)
+            tel.observe_latency((req.done_at - req.submitted_at) * 1e3
+                                if req.done_at else dt_ms)
+            tel.steps += 1
+            tel.wall_s += dt
+
+
 class GenericUnit(_UnitBase):
     """Single-tenant unit for engines with per-tenant physical state
     (flowcell adaptive sampling, the pathogen pipeline, any third-party
@@ -217,5 +265,6 @@ class GenericUnit(_UnitBase):
 
 
 def make_unit(key: str, engine, workload: str) -> _UnitBase:
-    cls = BasecallUnit if workload == "basecall" else GenericUnit
+    cls = {"basecall": BasecallUnit, "lm_decode": LMUnit}.get(workload,
+                                                              GenericUnit)
     return cls(key, engine, workload)

@@ -119,11 +119,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Softmax attention, q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D) ->
     (B, Hq, Sq, D) in q's type.
 
-    A CPU tensor runs the plain version (:func:`ref.attention`); a CUDA
-    tensor (float32, bf16 or f16, all three alike, contiguous) launches the
-    kernel :func:`route` picks or raises."""
+    A CPU tensor runs the plain version (:func:`ref.flash`: P rounded to
+    bf16 before the PV product where :func:`route` picks the bf16
+    ``wgmma`` kernel, which rounds it so, and kept float32 elsewhere); a
+    CUDA tensor (float32, bf16 or f16, all three alike, contiguous)
+    launches the kernel :func:`route` picks or raises."""
     if q.device.type == "cpu":
-        return ref.attention(q, k, v, causal=causal, scale=scale)
+        wgmma = route(q.dtype, q.shape[-1]) == "wgmma"
+        return ref.flash(q, k, v, causal=causal, scale=scale,
+                         p_dtype=torch.bfloat16 if wgmma else torch.float32)
     b, hq, hkv, sq, skv, d = _check(q, k, v, causal)
     path = route(q.dtype, d)
     if path == "tf32x3":

@@ -225,15 +225,11 @@ def banded_align(query, target, *, band: int, match: int = 2,
 
 
 # -------------------------------------------------------- flash attention ---
-def attention(q, k, v, *, causal: bool = True, scale=None):
-    """Softmax attention, q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D) with
-    Hq % Hkv == 0 -> (B, Hq, Sq, D) in q's type
-    (``repro/kernels/ref.py::attention``).
-
-    GQA by repeating K/V; logits in float32; causal rows aligned to the
-    last token (key j is seen by query i iff ``j <= i + (Skv - Sq)``);
-    the float32 probabilities multiply V in float32 and the result is
-    rounded once to q's type."""
+def _logits(q, k, v, causal: bool, scale):
+    """Attention's float32 logits (B, Hq, Sq, Skv), scaled, the causal
+    rows aligned to the last token (key j is seen by query i iff ``j <= i
+    + (Skv - Sq)``) and masked to -inf, and V repeated over the query
+    heads (GQA) in float32."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     if hq % hkv:
@@ -248,8 +244,34 @@ def attention(q, k, v, *, causal: bool = True, scale=None):
         qi = torch.arange(sq, device=q.device)[:, None]
         kj = torch.arange(skv, device=q.device)[None, :]
         logits = logits.masked_fill(~(kj <= qi + (skv - sq)), -torch.inf)
-    probs = torch.softmax(logits, dim=-1)
-    return torch.matmul(probs, vv).to(q.dtype)
+    return logits, vv
+
+
+def attention(q, k, v, *, causal: bool = True, scale=None):
+    """Softmax attention, q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D) with
+    Hq % Hkv == 0 -> (B, Hq, Sq, D) in q's type
+    (``repro/kernels/ref.py::attention``).
+
+    GQA by repeating K/V; logits in float32 (:func:`_logits`); the
+    float32 probabilities multiply V in float32 and the result is rounded
+    once to q's type."""
+    logits, vv = _logits(q, k, v, causal, scale)
+    return torch.matmul(torch.softmax(logits, dim=-1), vv).to(q.dtype)
+
+
+def flash(q, k, v, *, causal: bool = True, scale=None,
+          p_dtype=torch.float32):
+    """The function the flash kernels compute, in plain PyTorch: logits
+    as :func:`attention`'s, ``P = exp(s - max s)`` rounded to ``p_dtype``
+    before the product with V (the bf16 ``wgmma`` kernel rounds it to
+    bf16; float32 leaves it), float32 sums, one division by ``l = sum
+    exp(s - max s)`` at the end, one rounding to q's type.
+    :func:`attention` (the probabilities unrounded) stays the oracle the
+    card's bars measure against."""
+    logits, vv = _logits(q, k, v, causal, scale)
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    out = torch.matmul(p.to(p_dtype).float(), vv)
+    return (out / p.sum(-1, keepdim=True)).to(q.dtype)
 
 
 # --------------------------------------------------------------- ssd scan ---

@@ -3,6 +3,8 @@ workload (``repro/launch/serve.py``), on the card unless ``--device cpu``.
 
 Routes through ``repro_torch.engine.build``; pick a workload and a preset:
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload lm_decode \
+      --arch qwen3-4b --smoke --requests 12 --slots 4
   PYTHONPATH=src python -m repro_torch.launch.serve --workload basecall \
       --preset smoke --requests 32
   PYTHONPATH=src python -m repro_torch.launch.serve \
@@ -12,10 +14,13 @@ Routes through ``repro_torch.engine.build``; pick a workload and a preset:
 
 ``--device cpu`` runs the plain PyTorch versions of the kernels (no card
 needed); the default, ``cuda``, runs the hand kernels and raises where
-there is no card.  ``lm_decode`` (JAX's default workload) and its flags
-(``--arch``, ``--smoke``, ``--slots``, ``--max-len``, ``--new-tokens``,
-``--tp``, ``--ckpt``, ``--ckpt-step``) wait for the decode server
-(ROADMAP.md, Queue 1 item 4) and raise, naming the workloads that exist.
+there is no card.  ``lm_decode`` is the default workload, as in JAX; its
+flags (``--arch``, ``--smoke``, ``--slots``, ``--max-len``,
+``--new-tokens``, ``--tp``, ``--ckpt``, ``--ckpt-step``) do what JAX's do,
+with JAX's rule that ``lm_decode`` builds the full-size arch unless
+``--smoke`` is given.  Given with another workload, such a flag raises by
+its name.  ``--tp`` above 1 raises: tensor parallelism waits for
+ROADMAP.md Queue 1 item 5.
 
 Discovery: ``--list-workloads`` prints every buildable workload,
 ``--list-presets <workload>`` its preset table; an unknown ``--workload``
@@ -52,7 +57,15 @@ import json
 import numpy as np
 
 import repro_torch.engine as engine_api
-from repro_torch.engine.registry import UnknownWorkloadError
+
+
+def _run_lm_decode(eng, args, rng) -> dict:
+    from repro_torch.engine.lm import Request
+    for uid in range(args.requests):
+        eng.submit(Request(
+            uid=uid, prompt=rng.integers(1, eng.cfg.vocab_size, 4),
+            max_new_tokens=args.new_tokens))
+    return eng.drain()
 
 
 def _run_basecall(eng, args, rng) -> dict:
@@ -75,26 +88,45 @@ def _run_pathogen_pipeline(eng, args, rng) -> dict:
 
 
 _RUNNERS = {
+    "lm_decode": _run_lm_decode,
     "basecall": _run_basecall,
     "adaptive_sampling": _run_adaptive_sampling,
     "pathogen_pipeline": _run_pathogen_pipeline,
 }
 
 
-# JAX's flags that only lm_decode reads (``--smoke`` a switch, the rest
-# values); each raises _not_ported when given
+# the flags that only lm_decode reads (``--smoke`` a switch, the rest
+# values); given with another workload, each raises by its name
 LM_DECODE_FLAGS = (
-    ("--arch", {}), ("--smoke", {"action": "store_true"}),
+    ("--arch", {}), ("--smoke", {"action": "store_true", "default": None}),
     ("--slots", {"type": int}), ("--max-len", {"type": int}),
     ("--new-tokens", {"type": int}), ("--tp", {"type": int}),
     ("--ckpt", {"metavar": "DIR"}), ("--ckpt-step", {"type": int}))
+NEW_TOKENS = 8          # JAX's --new-tokens default
 
 
-def _not_ported(flag: str) -> UnknownWorkloadError:
-    return UnknownWorkloadError(
-        f"{flag} serves lm_decode, which the port does not have yet (the "
-        f"decode server, ROADMAP.md Queue 1 item 4); available workloads: "
-        f"{engine_api.workloads()}")
+def _lm_decode_only(flag: str, workload: str) -> ValueError:
+    return ValueError(
+        f"{flag} is read by the lm_decode workload only, not by "
+        f"{workload!r}; run --workload lm_decode")
+
+
+def _lm_overrides(args) -> dict:
+    """JAX's lm_decode flags as builder overrides."""
+    out: dict = {"smoke": bool(args.smoke)}
+    if args.arch is not None:
+        out["arch"] = args.arch
+    if args.tp is not None:
+        out["mesh"] = args.tp
+    if args.ckpt is not None:
+        out["ckpt_dir"] = args.ckpt
+        if args.ckpt_step is not None:
+            out["ckpt_step"] = args.ckpt_step
+    if args.slots is not None:
+        out["slots"] = args.slots
+    if args.max_len is not None:
+        out["max_len"] = args.max_len
+    return out
 
 
 def _submit_tenant_work(tenant, spec, rng) -> None:
@@ -112,6 +144,14 @@ def _submit_tenant_work(tenant, spec, rng) -> None:
                              ).astype(np.float32)
             tenant.submit(SimulatedRead(signal=sig, read_id=i,
                                         on_target=bool(i % 2)))
+    elif workload == "lm_decode":
+        from repro_torch.engine.lm import Request
+        vocab = tenant.engine.cfg.vocab_size
+        for uid in range(n):
+            tenant.submit(Request(uid=uid,
+                                  prompt=rng.integers(1, vocab, 4),
+                                  max_new_tokens=int(
+                                      spec.get("new_tokens", NEW_TOKENS))))
     elif workload == "basecall":
         chunk = tenant.engine.chunk
         for _ in range(n):
@@ -134,8 +174,6 @@ def _run_fleet(args) -> dict:
     rng = np.random.default_rng(args.seed)
     tenants = []
     for t in spec["tenants"]:
-        if t["workload"] == "lm_decode":
-            raise _not_ported(f"fleet tenant {t['name']!r}")
         tenant = fleet.add_tenant(
             t["name"], t["workload"], t.get("preset", "default"),
             weight=float(t.get("weight", 1.0)),
@@ -216,10 +254,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", action="store_true",
                     help="print the telemetry summary as JSON")
-    # JAX's lm_decode flags: accepted, so that they raise by name
+    # lm_decode knobs (builder overrides; --new-tokens defaults to 8)
     for flag, kw in LM_DECODE_FLAGS:
-        ap.add_argument(flag, default=None, help="lm_decode (not ported)",
-                        **kw)
+        ap.add_argument(flag, **{"default": None, **kw},
+                        help="lm_decode only")
     # observability (repro_torch.obs)
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="export a Chrome trace-event JSON of the run")
@@ -248,15 +286,20 @@ def main(argv=None):
             pretty = ", ".join(f"{k}={v!r}" for k, v in sorted(kw.items()))
             print(f"{name:16s} {pretty}" if pretty else name)
         return None
-    for flag, _ in LM_DECODE_FLAGS:
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            raise _not_ported(flag)
+    if args.workload != "lm_decode":
+        for flag, _ in LM_DECODE_FLAGS:
+            if getattr(args, flag[2:].replace("-", "_")) is not None:
+                raise _lm_decode_only(flag, args.workload)
     if args.fleet is not None:
         return _run_fleet(args)
     if args.field is not None:
         return _run_field(args)
 
     overrides: dict = {"seed": args.seed, "device": args.device}
+    if args.workload == "lm_decode":
+        overrides.update(_lm_overrides(args))
+        if args.new_tokens is None:
+            args.new_tokens = NEW_TOKENS
     if args.trace is not None:
         overrides["trace"] = True
 

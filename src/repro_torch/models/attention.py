@@ -1,12 +1,14 @@
-"""GQA attention, the full-sequence (prefill) path
+"""GQA attention: the full-sequence (prefill) path and one-token decode
 (``repro/models/attention.py``).
 
 Projection weights are stored flattened, wq: (d_model, H * head_dim), as
 in JAX.  ``attention_block`` always runs ``ops.flash_attention``: the
 tensor's device picks the Hopper kernel (which takes every length, so
 JAX's full and chunked jnp paths have no counterpart here) or its plain
-version.  The decode functions (``decode_attention``, the KV cache) wait
-for the decode server (ROADMAP.md, Queue 1).
+version.  ``decode_attention`` is JAX's replicated decode branch, which
+JAX computes in jnp outside any Pallas kernel: plain PyTorch ops here.
+JAX's sequence-sharded combine (``_seq_parallel_decode_attn``) has no
+counterpart on one card.
 """
 from __future__ import annotations
 
@@ -55,3 +57,50 @@ def attention_block(p, x, cfg: ModelConfig, positions, *, causal=True):
         scale=cfg.head_dim ** -0.5)
     out = out.transpose(1, 2).reshape(bsz, s, -1)
     return row_dense(out, p["wo"], full_in=cfg.q_dim)
+
+
+# ------------------------------------------------------------- decode ----
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
+                  dtype=torch.bfloat16, *, device="cuda"):
+    """Stacked KV cache for the attention layers of one layer stack:
+    ``{"k", "v"}`` of (n_layers, batch, max_len, kv_dim), zeros."""
+    shape = (n_layers, batch, max_len, cfg.kv_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_attention(p, x, cfg: ModelConfig, cache_k, cache_v, pos):
+    """One-token decode.  x: (B, 1, d); cache_k/v: (B, S_max, kv_dim);
+    pos: (B,) current position.  Writes this token's k and v into the
+    caches at ``pos`` (in place, one row each) and returns (out, cache_k,
+    cache_v).
+
+    JAX's order of rounding: logits in float32 (scaled after the
+    product), positions past ``pos`` masked to -1e30, the softmax cast
+    to q's dtype, then the product with v.  GQA groups the query heads
+    of one KV head instead of repeating the cache (``_repeat_kv``): head
+    h reads KV head ``h // (H / Hkv)``, as ``jnp.repeat`` lays them out."""
+    bsz = x.shape[0]
+    q, k, v = _project_qkv(p, x, cfg, pos[:, None])
+    rows = torch.arange(bsz, device=x.device)
+    cache_k[rows, pos] = k.reshape(bsz, -1).to(cache_k.dtype)
+    cache_v[rows, pos] = v.reshape(bsz, -1).to(cache_v.dtype)
+
+    s_max = cache_k.shape[1]
+    d = cfg.head_dim
+    kc = cache_k.view(bsz, s_max, -1, d).transpose(1, 2)    # (B, Hkv, S, D)
+    vc = cache_v.view(bsz, s_max, -1, d).transpose(1, 2)
+    g = kc.shape[1]
+    qg = q.reshape(bsz, g, -1, d)                           # (B, Hkv, R, D)
+    logits = torch.matmul(qg.float(), kc.float().transpose(2, 3))
+    logits = logits * (d ** -0.5)                           # (B, Hkv, R, S)
+    past = (torch.arange(s_max, device=x.device)[None, :]
+            > pos[:, None])[:, None, None]
+    # a Python scalar: a tensor made from one would be a blocking copy to
+    # the card, a stream sync every layer
+    logits = logits.masked_fill(past, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.matmul(probs, vc.to(q.dtype))               # (B, Hkv, R, D)
+    out = out.reshape(bsz, 1, -1).to(x.dtype)
+    return (row_dense(out, p["wo"], full_in=cfg.q_dim).to(x.dtype),
+            cache_k, cache_v)

@@ -26,8 +26,11 @@ _WAITING_INT8 = ("int8 QuantizedTensor weights in the LM layers are not "
 
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``x * sigmoid(x)`` in x's dtype, each op rounding, as
-    ``jax.nn.silu``."""
-    return x * torch.sigmoid(x)
+    ``jax.nn.silu``: its sigmoid (``lax.logistic``) is ``1 / (1 +
+    exp(-x))`` with a rounding after each op, which in bf16 differs from
+    ``torch.sigmoid`` (one rounding of the exact value) by a unit in the
+    last place on about a third of inputs."""
+    return x * torch.reciprocal(1 + torch.exp(-x))
 
 
 def _float_weight(w) -> None:

@@ -11,8 +11,11 @@ With no incoming state, ``mamba_block`` runs ``ops.ssd_scan`` (the Hopper
 kernels, or the plain recurrence on the CPU) and, when asked for it
 (``return_state``), forms the final state in closed form; with one, the
 plain chunked scan :func:`ssd_chunked`.  A prefill discards the state, so
-it skips that product (under ``jax.jit`` JAX drops it as dead code).  The
-decode functions wait for the decode server (ROADMAP.md, Queue 1).
+it skips that product (under ``jax.jit`` JAX drops it as dead code).
+
+``mamba_decode`` is one token of the recurrence, JAX's jnp code (no
+kernel): the conv window slides by one row and the float32 SSM state
+takes one step, both in the caches of :func:`init_mamba_cache`.
 """
 from __future__ import annotations
 
@@ -169,3 +172,59 @@ def mamba_block(p, x, cfg: ModelConfig, *, ssm_state=None,
     y = _gated_rmsnorm(y, z, p["norm_scale"], cfg.norm_eps, cfg.ssm_d_inner)
     out = row_dense(y, p["out_proj"], full_in=cfg.ssm_d_inner)
     return out, (None, s_final)
+
+
+# ------------------------------------------------------------- decode ----
+def init_mamba_cache(cfg: ModelConfig, batch: int, n_layers: int,
+                     dtype=torch.bfloat16, *, device="cuda"):
+    """``{"conv": (n_layers, batch, K - 1, conv_dim) in ``dtype``, "ssm":
+    (n_layers, batch * heads, ds, dh) float32}``, zeros: the SSM state is
+    float32 whatever the model's dtype."""
+    ds, nh = cfg.ssm_state, cfg.ssm_heads
+    conv_dim = nh * cfg.ssm_head_dim + 2 * ds
+    return {
+        "conv": torch.zeros((n_layers, batch, cfg.ssm_conv_width - 1,
+                             conv_dim), dtype=dtype, device=device),
+        "ssm": torch.zeros((n_layers, batch * nh, ds, cfg.ssm_head_dim),
+                           dtype=torch.float32, device=device),
+    }
+
+
+def mamba_decode(p, x, cfg: ModelConfig, conv_state, ssm_state):
+    """One-token decode.  x: (B, 1, d); conv_state: (B, K-1, conv_dim);
+    ssm_state: (B*nh, ds, dh) float32.  Returns (y, new_conv, new_ssm),
+    new tensors (the caller stores them).  As in JAX, ``x * dt`` and the
+    state update run in float32 (a bf16 x times the float32 dt)."""
+    bsz = x.shape[0]
+    dh = cfg.ssm_head_dim
+    proj = dense(x, p["in_proj"])
+    di, ds, nh = _local_dims(cfg, proj.shape[-1])
+    z, xbc_new, dt = _split_proj(cfg, proj)
+    window = torch.cat([conv_state.to(x.dtype), xbc_new], dim=1)
+    conv = sum(window[:, i] * p["conv_w"][i]
+               for i in range(cfg.ssm_conv_width))
+    xbc = silu(conv + p["conv_b"])[:, None]                  # (B, 1, conv)
+    new_conv_state = window[:, 1:]
+    xin = xbc[..., :di]
+    b_in = xbc[..., di: di + ds]
+    c_in = xbc[..., di + ds:]
+    dt = torch.logaddexp(dt.float() + p["dt_bias"],
+                         torch.zeros((), device=x.device))  # softplus
+    a = torch.exp(-torch.exp(p["A_log"]) * dt)               # (B, 1, nh)
+
+    xh = (xin.reshape(bsz, nh, dh) * dt[:, 0, :, None]).reshape(
+        bsz * nh, dh)
+    bf = b_in[:, 0][:, None].expand(bsz, nh, ds).reshape(bsz * nh, ds)
+    cf = c_in[:, 0][:, None].expand(bsz, nh, ds).reshape(bsz * nh, ds)
+    af = a[:, 0].reshape(bsz * nh)
+    ref.full_fp32()
+    new_ssm = (af[:, None, None] * ssm_state
+               + bf.float()[:, :, None] * xh.float()[:, None, :])
+    y = torch.bmm(cf.float()[:, None, :], new_ssm)[:, 0]    # (B*nh, dh)
+    y = y.reshape(bsz, nh, dh) + (xh.reshape(bsz, nh, dh)
+                                  * p["D"][None, :, None])
+    y = y.reshape(bsz, 1, di).to(x.dtype)
+    y = _gated_rmsnorm(y, z, p["norm_scale"], cfg.norm_eps,
+                       cfg.ssm_d_inner)
+    out = row_dense(y, p["out_proj"], full_in=cfg.ssm_d_inner)
+    return out, new_conv_state, new_ssm

@@ -1,4 +1,4 @@
-"""Decoder-only LM over block patterns, the prefill path
+"""Decoder-only LM over block patterns: the prefill and decode paths
 (``repro/models/transformer.py``).
 
 The layer stack is ``num_blocks`` x ``block_pattern`` (see config.py).
@@ -8,10 +8,13 @@ block loop is a Python loop over that dim.
 
   init(gen, cfg, device=...) -> (params, axes)
   apply(params, tokens, cfg, ...) -> (logits, aux)
+  init_cache(cfg, batch, max_len, device=...) -> cache      (serve)
+  serve_step(params, cache, tokens, pos, cfg) -> (logits, cache)
 
-Waiting (ROADMAP.md, Queue 1): MoE layers (``init`` and ``apply`` raise
-``NotImplementedError``), ``loss_fn`` (training), ``init_cache`` and
-``serve_step`` (the decode server).
+``serve_step`` updates the cache in place, at ``pos`` for each row.
+Waiting (ROADMAP.md, Queue 1): MoE layers (``init``, ``apply`` and
+``serve_step`` raise ``NotImplementedError``, item 6) and ``loss_fn``
+(LM training, item 5).
 """
 from __future__ import annotations
 
@@ -136,3 +139,75 @@ def apply(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     x, aux = final_hidden(params, tokens, cfg, input_embeds=input_embeds,
                           positions=positions, last_only=last_logits_only)
     return L.unembed(params["embedding"], x, cfg), aux
+
+
+# -------------------------------------------------------------- decode ---
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
+               device="cuda") -> dict:
+    """Zeroed decode caches on ``device``: ``k``/``v`` (num_blocks, attn
+    layers a block, batch, max_len, kv_dim) and ``conv``/``ssm``
+    (num_blocks, mamba layers a block, ...), as JAX's.  The dtype follows
+    the model's (a float32 model must not round its KV and conv state
+    through bf16); the SSM state is float32 always."""
+    dtype = torch_dtype(cfg.dtype if dtype is None else dtype)
+    cache: dict = {}
+    nb = cfg.num_blocks
+    na = cfg.attn_layers_per_block
+    nm = cfg.mamba_layers_per_block
+    if na:
+        kv = attn.init_kv_cache(cfg, batch, max_len, nb * na, dtype,
+                                device=device)
+        cache["k"] = kv["k"].reshape((nb, na) + kv["k"].shape[1:])
+        cache["v"] = kv["v"].reshape((nb, na) + kv["v"].shape[1:])
+    if nm:
+        mc = mamba2.init_mamba_cache(cfg, batch, nb * nm, dtype,
+                                     device=device)
+        cache["conv"] = mc["conv"].reshape((nb, nm) + mc["conv"].shape[1:])
+        cache["ssm"] = mc["ssm"].reshape((nb, nm) + mc["ssm"].shape[1:])
+    return cache
+
+
+def cache_specs(cfg: ModelConfig) -> dict:
+    """Logical axes of the cache leaves (JAX's names)."""
+    out = {}
+    if cfg.attn_layers_per_block:
+        out["k"] = (None, None, "batch", "kv_seq", "kv_heads")
+        out["v"] = (None, None, "batch", "kv_seq", "kv_heads")
+    if cfg.mamba_layers_per_block:
+        out["conv"] = (None, None, "batch", None, "ssm_inner")
+        out["ssm"] = (None, None, "batch", None, None)
+    return out
+
+
+def serve_step(params, cache: dict, tokens: torch.Tensor, pos: torch.Tensor,
+               cfg: ModelConfig):
+    """One decode step.  tokens: (B, 1), pos: (B,) -> (logits (B, 1, V),
+    cache).  Each layer's KV rows are written at ``pos`` and its conv and
+    SSM state replaced, in place in ``cache``, which is returned."""
+    x = L.embed(params["embedding"], tokens, cfg)
+    for i in range(cfg.num_blocks):
+        bp = block_params(params["blocks"], i)
+        ai = mi = 0
+        for li, spec in enumerate(cfg.block_pattern):
+            lp = bp[f"l{li}"]
+            h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
+            if spec.mixer == "attn":
+                h, _, _ = attn.decode_attention(
+                    lp["attn"], h, cfg, cache["k"][i, ai],
+                    cache["v"][i, ai], pos)
+                ai += 1
+            else:
+                h, nc, ns = mamba2.mamba_decode(
+                    lp["mamba"], h, cfg, cache["conv"][i, mi],
+                    cache["ssm"][i, mi])
+                cache["conv"][i, mi].copy_(nc)
+                cache["ssm"][i, mi].copy_(ns)
+                mi += 1
+            x = x + h
+            if spec.ff is not None:
+                h = L.rmsnorm(lp["norm2"], x, cfg.norm_eps)
+                if spec.ff != "mlp":
+                    raise NotImplementedError(WAITING_MOE)
+                x = x + L.mlp(lp["mlp"], h, cfg)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return L.unembed(params["embedding"], x, cfg), cache

@@ -1287,3 +1287,83 @@ def test_train_step_on_card_equals_cpu(dev):
                                  mb.batch_to(batch, dev), cfg=cfg, ocfg=ocfg)
     assert int(st["step"]) == 1 and bool(torch.isfinite(loss))
     assert p2["conv1"]["w"].device.type == "cuda"
+
+
+@pytest.mark.parametrize("m", [1, 2, 4, 8])
+def test_matmul_bf16_at_decode_rows(dev, m):
+    """Decode's MLP GEMMs at M = the slot count, far below the wgmma
+    kernel's 128-row tile: qwen3-4b's gate/up and down widths, each on
+    the wgmma kernel (counted) within one bf16 ulp of the plain version;
+    every row equals that row computed alone (no row reads another)."""
+    for k, n, act in ((2560, 9728, "silu"), (9728, 2560, "none")):
+        a, w = _bf16((m, k), 50 + m, dev), _bf16((k, n), 51, dev)
+        before = (km.matmul_bf16.launches, km.matmul_bf16.wgmma_launches)
+        got = km.matmul_bf16(a, w, activation=act)
+        assert (km.matmul_bf16.launches, km.matmul_bf16.wgmma_launches) == (
+            before[0] + 1, before[1] + 1)
+        want = ref.matmul(a, w, activation=act)
+        ulp = 2.0 ** (np.floor(np.log2(float(want.float().abs().max()))) - 7)
+        assert float((got.float() - want.float()).abs().max()) <= ulp
+        for r in range(m):
+            one = km.matmul_bf16(a[r:r + 1].contiguous(), w, activation=act)
+            assert torch.equal(one[0], got[r])
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "mamba2-780m", "minicpm-2b"])
+def test_f32_smoke_serve_step_on_card_equals_cpu(dev, arch):
+    """Four decode steps of the f32 smoke config from zeroed caches, the
+    two rows at different positions: logits and every cache leaf on the
+    card within the port's f32 bar (1e-4) of the CPU's; the MLP on the
+    fp32 ``matmul`` kernel."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import transformer
+    cfg = dataclasses.replace(ARCHS[arch].smoke_config(), dtype="float32")
+    params, _ = transformer.init(torch.Generator().manual_seed(0), cfg,
+                                 device="cpu")
+    dparams = bc.params_to(params, dev)
+    cpu = transformer.init_cache(cfg, 2, 16, device="cpu")
+    card = transformer.init_cache(cfg, 2, 16, device=dev)
+    rng = np.random.default_rng(0)
+    pos = torch.tensor([0, 5])
+    before = km.matmul.launches
+    for _ in range(4):
+        tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 1)))
+        with torch.inference_mode():
+            want, cpu = transformer.serve_step(params, cpu, tok, pos, cfg)
+            got, card = transformer.serve_step(dparams, card, tok.to(dev),
+                                               pos.to(dev), cfg)
+        np.testing.assert_allclose(U.n(got), U.n(want), rtol=1e-4,
+                                   atol=1e-4)
+        for k in cpu:
+            np.testing.assert_allclose(U.n(card[k]), U.n(cpu[k]), rtol=1e-4,
+                                       atol=1e-4, err_msg=k)
+        pos += 1
+    mlp = 0 if arch == "mamba2-780m" else 3 * 4 * cfg.num_layers
+    assert km.matmul.launches - before == mlp
+
+
+@pytest.mark.parametrize("arch", ["nemotron-4-15b", "starcoder2-3b",
+                                  "minicpm-2b"])
+def test_dense_smoke_prefill_on_card_equals_cpu(dev, arch):
+    """The three dense configs' bf16 smoke prefill on the card against
+    the CPU within 2 bf16 ulps of max |logit|: their non-gated
+    squared_relu and gelu epilogues, MHA and GQA, untied unembeddings."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    cfg = ARCHS[arch].smoke_config()
+    params, _ = transformer.init(torch.Generator().manual_seed(0), cfg,
+                                 device="cpu")
+    tok = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 100))
+    want = steps.prefill(params, tok, cfg, device="cpu").float()
+    counts = (kfa.flash_attention.launches, km.matmul_bf16.launches)
+    got = steps.prefill(bc.params_to(params, dev), tok, cfg, device=dev)
+    after = (kfa.flash_attention.launches, km.matmul_bf16.launches)
+    gemms = 3 if cfg.mlp_gated else 2
+    assert [b - a for a, b in zip(counts, after)] == [
+        cfg.num_layers, gemms * cfg.num_layers]
+    ulp = 2.0 ** (np.floor(np.log2(float(want.abs().max()))) - 7)
+    assert float((got.float().cpu() - want).abs().max()) <= 2 * ulp

@@ -22,7 +22,6 @@ from repro.fleet import FleetScheduler as JScheduler
 from repro.obs import trace as jtrace
 from repro.realtime import PolicyConfig as JPolicy
 from repro_torch.data import flowcell as tfc
-from repro_torch.engine.registry import UnknownWorkloadError
 from repro_torch.fleet import SHAREABLE_WORKLOADS, Fleet, FleetScheduler
 from repro_torch.fleet import Tenant
 from repro_torch.obs import trace as ttrace
@@ -333,7 +332,7 @@ def test_compatible_basecall_tenants_share_one_engine():
     assert eng.telemetry.completed == 16 and eng.telemetry.dispatches == 4
     assert a.telemetry.completed == b.telemetry.completed == 8
     assert a.telemetry is not eng.telemetry
-    assert SHAREABLE_WORKLOADS == ("basecall",)
+    assert SHAREABLE_WORKLOADS == ("basecall", "lm_decode")
     x = fleet.add_tenant("x", "adaptive_sampling", "smoke")
     y = fleet.add_tenant("y", "adaptive_sampling", "smoke")
     assert x.unit is not y.unit and not y.shared
@@ -358,16 +357,69 @@ def test_shared_batch_rows_equal_solo_outputs():
     assert len(a.outputs) == len(b.outputs) == 3
 
 
-# ------------------------------------------------------- what is not here -
-def test_lm_decode_tenant_raises_naming_the_workloads():
+# ------------------------------------------------------------ lm_decode ---
+def _lm_requests(cls, vocab, seed, base):
+    rng = np.random.default_rng(seed)
+    return [cls(uid=base + u, prompt=rng.integers(1, vocab, 4),
+                max_new_tokens=4) for u in range(3)]
+
+
+def test_lm_decode_tenants_share_one_unit_like_jax():
+    """JAX's ``test_lm_tenants_share_slot_pool``: two ``lm_decode``
+    tenants on one preset share one ``LMUnit``; each gets its own
+    requests back, and the uids, per-request token counts, steps and
+    dispatches equal JAX's fleet's (value-independent with eos -1)."""
+    from repro.engine.lm import Request as JRequest
+    from repro_torch.engine.lm import Request
+    from repro_torch.fleet import LMUnit
+    runs = {}
+    for name, fleet, cls in (("jax", JFleet(), JRequest),
+                             ("port", Fleet(device=U.CPU), Request)):
+        a = fleet.add_tenant("a", "lm_decode", "smoke")
+        b = fleet.add_tenant("b", "lm_decode", "smoke")
+        assert a.unit is b.unit and a.shared
+        vocab = a.engine.cfg.vocab_size
+        for r in _lm_requests(cls, vocab, 0, 0):
+            a.submit(r)
+        for r in _lm_requests(cls, vocab, 1, 100):
+            b.submit(r)
+        fleet.drain()
+        assert sorted(r.uid for r in a.outputs) == [0, 1, 2]
+        assert sorted(r.uid for r in b.outputs) == [100, 101, 102]
+        assert a.telemetry.tokens > 0 and b.telemetry.tokens > 0
+        runs[name] = (
+            [(r.uid, len(r.tokens_out)) for r in a.outputs + b.outputs],
+            a.engine.telemetry.steps, a.engine.telemetry.dispatches,
+            a.telemetry.tokens, b.telemetry.tokens, type(a.unit).__name__)
+    assert runs["port"] == runs["jax"]
+    assert isinstance(a.unit, LMUnit)
+
+
+def test_lm_decode_tenant_tokens_equal_its_solo_run():
+    """f32: a tenant's tokens do not depend on what fills the other
+    slots, so each tenant of a shared pool decodes what it decodes
+    alone (the same cfg and seed, so the same params)."""
+    import dataclasses
+    from repro_torch.configs import ARCHS
+    from repro_torch.engine.lm import Request
+    cfg = dataclasses.replace(ARCHS["starcoder2-3b"].smoke_config(),
+                              dtype="float32")
     fleet = Fleet(device=U.CPU)
-    with pytest.raises(UnknownWorkloadError) as err:
-        fleet.add_tenant("lm", "lm_decode", "smoke")
-    msg = str(err.value)
-    for name in ("adaptive_sampling", "basecall", "field_aggregator",
-                 "pathogen_pipeline"):
-        assert name in msg
-    assert "lm" not in fleet.tenants
+    tenants = [fleet.add_tenant(n, "lm_decode", "smoke", cfg=cfg)
+               for n in ("a", "b")]
+    assert tenants[0].unit is tenants[1].unit
+    for i, t in enumerate(tenants):
+        for r in _lm_requests(Request, cfg.vocab_size, i, 100 * i):
+            t.submit(r)
+    fleet.drain()
+    for i, t in enumerate(tenants):
+        solo = tengine.build("lm_decode", "smoke", cfg=cfg, device=U.CPU)
+        for r in _lm_requests(Request, cfg.vocab_size, i, 100 * i):
+            solo.submit(r)
+        solo.drain()
+        want = {r.uid: r.tokens_out for r in solo.finished}
+        assert {r.uid: r.tokens_out for r in t.outputs} == want
+        assert len({tuple(v) for v in want.values()}) > 1
 
 
 def test_fleet_takes_a_device_not_a_mesh():

@@ -37,6 +37,9 @@ import repro_torch.field, repro_torch.distributed.compression
 import repro_torch.train.checkpoint, repro_torch.train.micro_basecaller
 import repro_torch.train.optimizer, repro_torch.utils.tree
 import repro_torch.quant.fake_quant, repro_torch.launch.serve
+import repro_torch.engine.lm, repro_torch.models.registry
+import repro_torch.serving, repro_torch.serving.engine
+import repro_torch.configs.basecaller_soc
 mods = sorted(m for m in sys.modules
               if m == "jax" or m.startswith("jax.")
               or m == "repro" or m.startswith("repro."))
@@ -81,6 +84,15 @@ def test_scan_covers_the_train_utils_and_serve_modules():
                 "train/checkpoint.py", "train/micro_basecaller.py",
                 "utils/__init__.py", "utils/tree.py", "quant/fake_quant.py",
                 "launch/serve.py", "core/ctc.py"):
+        assert mod in found, mod
+
+
+def test_scan_covers_the_decode_modules():
+    found = {os.path.relpath(p, PKG) for p in _port_sources()}
+    for mod in ("engine/lm.py", "models/registry.py", "serving/__init__.py",
+                "serving/legacy.py", "serving/engine.py",
+                "configs/nemotron_4_15b.py", "configs/starcoder2_3b.py",
+                "configs/minicpm_2b.py", "configs/basecaller_soc.py"):
         assert mod in found, mod
 
 
@@ -193,7 +205,12 @@ def test_one_card_mesh_and_unported_presets():
     assert set(te.presets("adaptive_sampling")) == {
         "default", "smoke", "edge_int8", "flowcell_512", "flowcell_smoke"}
     assert set(te.workloads()) == {"adaptive_sampling", "basecall",
-                                   "pathogen_pipeline", "field_aggregator"}
+                                   "pathogen_pipeline", "field_aggregator",
+                                   "lm_decode"}
+    assert te.presets("lm_decode") == {
+        "default": {"slots": 4, "max_len": 64},
+        "smoke": {"slots": 2, "max_len": 32},
+        "full": {"smoke": False, "slots": 8, "max_len": 512}}
 
 
 def test_chip_smoke_alone_fails_without_output(tmp_path):

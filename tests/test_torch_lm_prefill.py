@@ -37,6 +37,9 @@ from repro_torch.models import mamba2 as tmamba
 from repro_torch.models import transformer as ttr
 from repro_torch.models.param import load_numpy_params
 
+# the ported archs: qwen3-4b and mamba2-780m, then the three dense configs
+ARCH_LIST = ["qwen3-4b", "mamba2-780m", "nemotron-4-15b", "starcoder2-3b",
+             "minicpm-2b"]
 F32_TOL = 1e-4
 BF16_ULPS = 2
 SEQ = 64            # two SSD chunks of the smoke configs' 32
@@ -79,7 +82,7 @@ def _jax_run(fn, interpret):
 
 
 # ------------------------------------------------------------- configs ---
-@pytest.mark.parametrize("arch", ["qwen3-4b", "mamba2-780m"])
+@pytest.mark.parametrize("arch", ARCH_LIST)
 def test_configs_equal_jax(arch):
     for which in ("config", "smoke_config"):
         want = dataclasses.asdict(getattr(JARCHS[arch], which)())
@@ -89,7 +92,7 @@ def test_configs_equal_jax(arch):
         k: dataclasses.asdict(v) for k, v in JSHAPES.items()}
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "mamba2-780m"])
+@pytest.mark.parametrize("arch", ARCH_LIST)
 def test_param_tree_matches_jax(arch):
     jcfg = _jcfg(arch, "bfloat16", False)
     jp, jaxes = jtr.init(jax.random.key(0), jcfg)
@@ -188,7 +191,7 @@ def test_mamba_block(dtype, interpret):
 # ------------------------------------------------------------- prefill ---
 @pytest.mark.parametrize("interpret", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ["qwen3-4b", "mamba2-780m"])
+@pytest.mark.parametrize("arch", ARCH_LIST)
 def test_prefill_logits(arch, dtype, interpret):
     jcfg, jp, tp = _params(arch, dtype, interpret)
     tok = np.random.default_rng(0).integers(

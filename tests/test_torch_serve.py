@@ -1,6 +1,8 @@
 """The port's serve CLI (``python -m repro_torch.launch.serve``) through
 ``main(argv)`` with ``--device cpu``, against ``repro.launch.serve``: the
-listings, what raises (``lm_decode`` and its flags, no card), each
+listings, what raises (an ``lm_decode`` flag given to another workload,
+``--tp 2``, no card), ``lm_decode`` (the default workload, and from a
+JAX-written checkpoint) against JAX's CLI counts, each
 SoC workload drained, a small ``--field`` spec equal to JAX's CLI run
 (outbreak, conservation, read-frame bytes: the step codec is exact), the
 ``--trace`` and ``--timeseries`` files through JAX's own validators, and a
@@ -35,8 +37,9 @@ def test_list_workloads_and_presets(capsys):
     assert tserve.main(["--list-workloads"]) is None
     lines = capsys.readouterr().out.split()
     assert lines == treg.workloads()
-    assert set(lines) == set(jengine.workloads()) - {"lm_decode"}
-    for workload in ("basecall", "adaptive_sampling", "pathogen_pipeline"):
+    assert set(lines) == set(jengine.workloads())
+    for workload in ("lm_decode", "basecall", "adaptive_sampling",
+                     "pathogen_pipeline"):
         tserve.main(["--list-presets", workload])
         names = [ln.split()[0] for ln in
                  capsys.readouterr().out.strip().splitlines()]
@@ -45,28 +48,77 @@ def test_list_workloads_and_presets(capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--device", "cpu"],                                # JAX's default
-    ["--workload", "lm_decode", "--device", "cpu", "--smoke"],
+    ["--workload", "lm_decode", "--tp", "2", "--device", "cpu", "--smoke"],
     ["--workload", "basecall", "--tp", "2", "--device", "cpu"],
     ["--workload", "basecall", "--ckpt", "/nonexistent", "--device", "cpu"],
     ["--workload", "basecall", "--ckpt-step", "3", "--device", "cpu"],
-    ["--workload", "lm_decode", "--device", "cpu"],
     ["--workload", "basecall", "--smoke", "--device", "cpu"],
     ["--workload", "basecall", "--arch", "qwen3-4b", "--device", "cpu"],
     ["--workload", "basecall", "--slots", "4", "--device", "cpu"],
     ["--workload", "basecall", "--max-len", "64", "--device", "cpu"],
     ["--workload", "basecall", "--new-tokens", "8", "--device", "cpu"]])
 def test_lm_decode_tp_and_ckpt_raise_naming_the_workloads(argv):
-    """``lm_decode`` and every flag that only it reads raise, naming the
-    workloads that exist (a flag by its own name)."""
-    with pytest.raises(treg.UnknownWorkloadError) as err:
+    """A flag that only ``lm_decode`` reads, given with another workload,
+    raises by its own name and names ``lm_decode``; ``--tp`` above 1 on
+    ``lm_decode`` raises naming ROADMAP.md Queue 1 item 5 (tensor
+    parallelism)."""
+    if argv[1] == "lm_decode":
+        with pytest.raises(NotImplementedError, match="item 5"):
+            tserve.main(argv)
+        return
+    with pytest.raises(ValueError) as err:
         tserve.main(argv)
-    for w in ("adaptive_sampling", "basecall", "pathogen_pipeline"):
-        assert w in str(err.value)
-    flags = [a for a in argv if a.startswith("--") and a != "--device"
-             and a != "--workload"]
-    if flags:
-        assert flags[0] in str(err.value)
+    assert argv[2] in str(err.value) and "lm_decode" in str(err.value)
+
+
+def _jax_cli(argv, capsys):
+    """JAX's CLI (``repro.launch.serve.main``) on ``argv`` with
+    ``--json``: its drained report."""
+    import sys
+    old = sys.argv
+    sys.argv = ["serve"] + list(argv) + ["--json"]
+    try:
+        capsys.readouterr()
+        jserve.main()
+    finally:
+        sys.argv = old
+    out = capsys.readouterr().out
+    return json.loads(out[out.index("{"):])
+
+
+@pytest.fixture(scope="module")
+def lm_ckpt(tmp_path_factory):
+    """A JAX-written ``full`` checkpoint of the qwen3-4b smoke params."""
+    import jax
+    from repro.configs import ARCHS as JARCHS
+    from repro.models import transformer as jtr
+    from repro.train import checkpoint as jck
+    d = tmp_path_factory.mktemp("lm_ckpt")
+    params, _ = jtr.init(jax.random.key(0), JARCHS["qwen3-4b"].smoke_config())
+    jck.save(str(d), params, 5)
+    return str(d)
+
+
+@pytest.mark.parametrize("case", ["default_workload", "lm_decode", "ckpt"])
+def test_lm_decode_cli_counts_equal_jax(case, capsys, lm_ckpt):
+    """``lm_decode`` through the CLI, as JAX's default workload, named,
+    and from a JAX-written checkpoint: the counts JAX's CLI reports on
+    the same flags (value-independent with eos -1), and the same fabric
+    dispatch keys."""
+    argv = ["--smoke", "--requests", "5", "--new-tokens", "3"]
+    if case != "default_workload":
+        argv = ["--workload", "lm_decode"] + argv
+    if case == "ckpt":
+        argv += ["--ckpt", lm_ckpt, "--ckpt-step", "5"]
+    want = _jax_cli(argv, capsys)
+    got = tserve.main(argv + ["--device", "cpu"])
+    for k in ("completed", "steps", "dispatches"):
+        assert got[k] == want[k], k
+    assert got["completed"] == 5 and got["tokens_per_s"] > 0
+    assert ({k for k in got if k.startswith("fabric.dispatch.")}
+            == {k for k in want if k.startswith("fabric.dispatch.")})
+    assert "workload=lm_decode preset=default device=cpu" in \
+        capsys.readouterr().out
 
 
 def test_unknown_preset_raises_naming_the_presets():
@@ -164,8 +216,13 @@ def test_fleet_spec_drains(tmp_path, capsys):
     assert rep["tenants"]["lab-c"]["completed"] == 16
     assert validate_chrome_trace(json.loads(trace.read_text())) == []
     assert "fleet: 3 tenants" in capsys.readouterr().out
-    bad = {"tenants": [{"name": "lm", "workload": "lm_decode"}]}
-    path.write_text(json.dumps(bad))
-    with pytest.raises(treg.UnknownWorkloadError, match="basecall"):
-        tserve.main(["--fleet", str(path), "--device", "cpu"])
+    lm = {"tenants": [{"name": "lm", "workload": "lm_decode",
+                       "preset": "smoke", "requests": 3, "new_tokens": 2}]}
+    path.write_text(json.dumps(lm))
+    rep = tserve.main(["--fleet", str(path), "--device", "cpu"])
+    want = jserve._run_fleet(argparse.Namespace(
+        fleet=str(path), seed=0, trace=None, json=False))
+    assert rep["tenants"]["lm"]["completed"] == 3
+    for k in ("completed", "steps", "dispatches"):
+        assert rep["tenants"]["lm"][k] == want["tenants"]["lm"][k], k
 
