@@ -172,6 +172,26 @@ Phases, each printing JSON lines:
    ``edge_int8`` flowcell on the card
    and the CPU with equal goldens, and a checkpoint round trip, bit for
    bit.
+10b. ``lm_train``: LM training (``train/trainer.py`` -> ``models/``):
+   each training kernel's gradient by route (flash_attention's wgmma,
+   3xTF32 mma.sync and wgmma and CUDA-core kernels, ssd_scan's passes at
+   a DIMS pair, padded and past (128, 128), matmul_bf16's wgmma and
+   mma.sync kernels) against plain autograd of its plain version on the
+   same card inputs; one f32 smoke ``make_train_step`` step of the
+   ``lm_parity_f32`` configs on the card against the CPU (the loss, every
+   gradient and every updated param by ``LM_TRAIN_RULE``); 20 smoke steps
+   of qwen3-4b and mamba2-780m through ``launch.train.main`` with a
+   failure at step 7 and a checkpoint every 5, equal bit for bit to the
+   uninterrupted run; qwen3-4b and mamba2-780m at full width and depth, 8
+   x 128, random bf16 params from a ``torch.Generator`` on the card, the
+   launcher's AdamW (f32 moments) and remat, one warm-up and 5 steps:
+   finite losses, median step ms, tokens/s, peak memory, launches a step
+   (72 flash_attention and 216 matmul_bf16, all on the wgmma kernel, for
+   qwen3-4b; 96 ssd_scan for mamba2-780m: remat runs each forward twice)
+   and, from one profiled step, the share of the ``PlainGrad``
+   backward's span (reported, not gated); ``python -m
+   repro_torch.launch.train --smoke --steps 20 --fail-at 7`` in a
+   subprocess exits 0.
 11. ``serve_cli``: ``python -m repro_torch.launch.serve`` in subprocesses:
    basecall, adaptive_sampling (with ``--trace`` and ``--timeseries``,
    both validated) and pathogen_pipeline, ``--fleet`` on a four-tenant
@@ -179,7 +199,8 @@ Phases, each printing JSON lines:
    ``lm_decode`` on its ``smoke`` preset and on ``full`` with 8 requests
    of 16 new tokens; each exits 0, with its wall.
 12. ``{"kernels": [...]}``: every kernel with its launches in phases 4-11,
-   counted from 0 just before each path and read just after it
+   counted from 0 just before each path and read just after it, and
+   ``train_launches``, those of the ``lm_train`` paths
    (``matmul_bf16`` also with ``wgmma_launches``, those on its wgmma
    kernel; ``matmul_bf16_decode``, row 2d, its launches on the
    ``lm_decode`` paths with ``wgmma_launches``, ``variant``,
@@ -4138,6 +4159,489 @@ def phase_train(torch, paths):
     require(step == TRAIN_STEPS and same, "checkpoint round trip differs")
 
 
+# ----------------------------------------------------------- phase lm_train --
+LM_TRAIN_BATCH = 8          # launch/train.py's --global-batch and --seq-len
+LM_TRAIN_SEQ = 128
+LM_TRAIN_STEPS = 5          # timed, after one warm-up step
+LM_TRAIN_SMOKE_BATCH = 4
+# lr 1e-4 from step 1, as tests/test_torch_lm_train.py's steps against JAX
+LM_TRAIN_OPT = dict(lr=1e-4, warmup_steps=0, total_steps=10)
+LM_TRAIN_RULE = ("loss within 1e-5 relative and every gradient within 1e-4 "
+                 "of its leaf's largest entry of the CPU's; every updated "
+                 "param and moment within 1e-6 of its leaf's largest entry "
+                 "of the CPU's AdamW on the card's own gradients")
+# AdamW's first step moves an entry by lr g / (|g| + eps), which the
+# gradient's last bits decide where it is near eps (a zero-initialised
+# leaf's entries): so the card's gradients are held against the CPU's, and
+# the card's optimizer writes against the CPU's AdamW on those gradients
+LM_OPT_TOL = 1e-6
+LM_GRAD_TOL = 1e-5          # a kernel call's gradients vs the plain
+#                             version's (the same plain backward, same
+#                             inputs): of each gradient's largest entry
+# kernels a full-width step launches: remat runs each block's forward
+# again in the backward, so each kernel twice a layer
+LM_TRAIN_PATHS = (("qwen3-4b", {"flash_attention": 72, "matmul_bf16": 216}),
+                  ("mamba2-780m", {"ssd_scan": 96}))
+# the profiled step's depth where full depth would take the profiler
+# minutes (the plain backward's share is a layer's; the step's fixed work,
+# embedding, unembedding and AdamW, weighs more at the cut)
+LM_PROFILE_LAYERS = {"mamba2-780m": 6}
+LM_RECOVERY = {"steps": 20, "fail_at": 7, "ckpt_every": 5}
+# a step of the smoke configs (no remat): qwen3-4b 4 attention layers and
+# 12 MLP GEMMs, mamba2-780m 4 SSD layers; the run with the failure
+# replays steps 5 and 6 after restoring step 5
+LM_RECOVERY_PATHS = (("qwen3-4b", {"flash_attention": 4, "matmul_bf16": 12}),
+                     ("mamba2-780m", {"ssd_scan": 4}))
+
+
+def grad_cases(torch, dev):
+    """Each training kernel's card path by route, at the shapes its
+    training path gives it (generic routes at a small shape past the
+    tensor-core kernels' reach): ``(name, kind, call, plain, inputs,
+    counter)``, ``kind`` the kernel (flash, ssd, gemm), the counter the
+    call must move by one."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import matmul as km
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as kssd
+    g = torch.Generator().manual_seed(7)
+
+    def rnd(shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(dev, dtype)
+
+    def flash(label, b, hq, hkv, s, d, dtype, counter):
+        path = kfa.route(dtype, d)
+        return (label, "flash", lambda q, k, v: kfa.flash_attention(q, k, v),
+                lambda q, k, v: kfa._plain(q, k, v, True, None, path),
+                [rnd((b, hq, s, d), dtype), rnd((b, hkv, s, d), dtype),
+                 rnd((b, hkv, s, d), dtype)], counter)
+
+    def ssd(label, bh, t, ds, dh, dtype, counter):
+        la = -torch.rand((bh, t), generator=g).to(dev) * 0.5
+        return (label, "ssd", lambda x, la, b, c: kssd.ssd_scan(x, la, b, c),
+                kssd._plain, [rnd((bh, t, dh), dtype), la,
+                              rnd((bh, t, ds), dtype, ds ** -0.5),
+                              rnd((bh, t, ds), dtype, ds ** -0.5)], counter)
+
+    def gemm(label, m, k, n, act, counter):
+        return (label, "gemm",
+                lambda a, b: km.matmul_bf16(a, b, activation=act),
+                lambda a, b: ref.matmul(a, b, activation=act),
+                [rnd((m, k), torch.bfloat16),
+                 rnd((k, n), torch.bfloat16, k ** -0.5)], counter)
+    bf = torch.bfloat16
+    return [
+        flash("flash_attention wgmma (qwen3-4b, 8 x 128)", 8, 32, 8, 128,
+              128, bf, (kfa.flash_attention, "launches")),
+        flash("flash_attention tf32x3 mma.sync (f32 smoke, D 16)", 4, 4, 2,
+              128, 16, torch.float32,
+              (kfa.flash_attention, "tf32x3_launches")),
+        flash("flash_attention tf32x3 wgmma (f32 smoke, D 128)", 4, 4, 2,
+              128, 128, torch.float32,
+              (kfa.flash_attention, "tf32x3_wgmma_launches")),
+        flash("flash_attention generic (D 300)", 1, 2, 1, 64, 300,
+              torch.float32, (kfa.flash_attention, "generic_launches")),
+        ssd("ssd_scan tensor cores (mamba2-780m, 8 x 128, bf16)", 384, 128,
+            128, 64, bf, (kssd.ssd_scan, "launches")),
+        ssd("ssd_scan tensor cores (f32 smoke, (16, 16))", 32, 128, 16, 16,
+            torch.float32, (kssd.ssd_scan, "launches")),
+        ssd("ssd_scan padded (f32 smoke, (64, 32))", 16, 128, 64, 32,
+            torch.float32, (kssd.ssd_scan, "padded_launches")),
+        ssd("ssd_scan generic ((300, 33))", 2, 64, 300, 33, torch.float32,
+            (kssd.ssd_scan, "generic_launches")),
+        gemm("matmul_bf16 wgmma (qwen3-4b gate, 1024 x 2560 x 9728)", 1024,
+             2560, 9728, "silu", (km.matmul_bf16, "wgmma_launches")),
+        gemm("matmul_bf16 mma.sync (K = 2558)", 1024, 2558, 256, "none",
+             (km.matmul_bf16, "launches")),
+    ]
+
+
+def forward_excess(torch, kind, out, want, ins):
+    """A training kernel's output against its plain version's on the same
+    inputs, as the largest |out - want| over the kernel's forward bar (at
+    most 1 passes): flash by the working type's bar (FA_RULE,
+    F32_FLASH_RULE) against the plain attention, ``ssd_scan`` within
+    SSD_TOL + 2^-7 |y| (bf16) or SSD_TOL (1 + |y|) (f32), ``matmul_bf16``
+    one bf16 ulp of max |out|.  Returns ``(excess, rule)``."""
+    from repro_torch.kernels import ref
+    out = out.detach()
+    with torch.no_grad():
+        if kind == "flash":
+            q, k, v = ins
+            name = str(q.dtype).split(".")[-1]
+            return flash_bar_excess(
+                out, ref.attention(q, k, v, causal=True),
+                ref.attention(q, k, v.abs(), causal=True), name), (
+                    FA_RULE if name == "bfloat16" else F32_FLASH_RULE)
+        w = want.detach().float()
+        err = (out.float() - w).abs()
+        if kind == "ssd":
+            rtol = 2 ** -7 if out.dtype == torch.bfloat16 else SSD_TOL
+            return (err / (SSD_TOL + rtol * w.abs())).max().item(), (
+                f"{SSD_TOL} + {rtol} |y|")
+        return (err.max().item() / bf16_ulp(w.abs().max().item()),
+                "one bf16 ulp of max |out|")
+
+
+def check_kernel_grads(torch, dev) -> list:
+    """Each case of ``grad_cases``: the kernel call with operands that
+    require grad (counted by its wrapper, outside any path), its output's
+    ``grad_fn``, its output against the plain version's by the kernel's
+    forward bar (``forward_excess``), and every gradient against plain
+    autograd of the plain version on the same card inputs, within
+    LM_GRAD_TOL of the largest entry (the backward is that plain
+    version's, so equal bits are expected: ``bitwise``)."""
+    lines = []
+    for name, kind, call, plain, ins, (wrapper, attr) in grad_cases(torch,
+                                                                     dev):
+        a = [t.clone().requires_grad_(t.is_floating_point()) for t in ins]
+        b = [t.clone().requires_grad_(t.is_floating_point()) for t in ins]
+        before = getattr(wrapper, attr)
+        out = call(*a)
+        moved = getattr(wrapper, attr) - before
+        want = plain(*b)
+        fwd, fwd_rule = forward_excess(torch, kind, out, want, ins)
+        gout = torch.randn(want.shape, generator=torch.Generator(
+            ).manual_seed(8)).to(dev, want.dtype)
+        out.backward(gout)
+        want.backward(gout)
+        worst, bitwise = 0.0, True
+        for ta, tb in zip(a, b):
+            d = (ta.grad.float() - tb.grad.float()).abs().max().item()
+            worst = max(worst, d / max(tb.grad.float().abs().max().item(),
+                                       1e-30))
+            bitwise = bitwise and torch.equal(ta.grad, tb.grad)
+        line = {"phase": "lm_train", "part": "kernel_gradient",
+                "case": name, "shapes": [list(t.shape) for t in ins],
+                "dtype": str(ins[0].dtype), "grad_fn":
+                type(out.grad_fn).__name__, "launched": moved,
+                "forward_over_bar": fwd, "forward_tol": fwd_rule,
+                "grad_dtypes": sorted({str(t.grad.dtype) for t in a}),
+                "max_diff_over_max": worst, "bitwise": bitwise,
+                "tol": LM_GRAD_TOL}
+        emit(line)
+        lines.append(line)
+        require(moved == 1 and line["grad_fn"] == "PlainGradBackward",
+                f"{name}: launched {moved}, grad_fn {line['grad_fn']}")
+        require(fwd <= 1.0, f"{name}: the forward {fwd} x its bar "
+                f"({fwd_rule}) from the plain version's")
+        require(worst <= LM_GRAD_TOL, f"{name}: gradients {worst} of their "
+                "largest entry from the plain version's")
+        require(all(ta.grad.dtype == ta.dtype for ta in a),
+                f"{name}: a gradient not in its operand's dtype")
+        del a, b, out, want
+    torch.cuda.empty_cache()
+    return lines
+
+
+def lm_train_state(torch, cfg, params, accum=1):
+    """``(state, step)``: AdamW at LM_TRAIN_OPT over ``params`` and the
+    trainer's step for ``cfg`` (which updates the state in place)."""
+    from repro_torch.models.registry import get_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import trainer
+    ocfg = opt.OptimizerConfig(**LM_TRAIN_OPT)
+    state = {"params": params, "opt": opt.init_opt_state(params, ocfg)}
+    step = trainer.make_train_step(
+        get_model(cfg).loss, cfg, ocfg,
+        trainer.TrainerConfig(grad_accum=accum))
+    return state, step
+
+
+def train_step_excess(torch, params, card, cpu) -> dict:
+    """Card against CPU for one train step from ``params`` (on the CPU),
+    each ``(loss, gradients, new state)`` (trees of CPU tensors), by
+    LM_TRAIN_RULE: the loss's relative difference; the gradients' largest
+    difference over 1e-4 of their leaf's largest entry; the card's new
+    params and moments' largest difference from the CPU's AdamW on the
+    card's gradients over LM_OPT_TOL of their leaf's largest entry (at
+    most 1 passes), and whether those are equal bit for bit."""
+    from repro_torch.train import optimizer as opt
+    from repro_torch.utils.tree import leaves
+
+    def over(got, want, tol):
+        w = want.float()
+        return ((got.float() - w).abs().max()
+                / (tol * w.abs().max()).clamp_min(1e-30)).item()
+    grad_over = max(over(g, w, 1e-4)
+                    for g, w in zip(leaves(card[1]), leaves(cpu[1])))
+    ocfg = opt.OptimizerConfig(**LM_TRAIN_OPT)
+    new_p, new_opt, _ = opt.apply_update(
+        params, card[1], opt.init_opt_state(params, ocfg), ocfg)
+    want = leaves({"params": new_p, "opt": new_opt})
+    got = leaves(card[2])
+    require(len(got) == len(want), "train step: state trees differ")
+    return {"loss_rel_diff": abs(card[0] - cpu[0]) / abs(cpu[0]),
+            "grad_over_bar": grad_over,
+            "state_over_bar": max(over(g, w, LM_OPT_TOL)
+                                  for g, w in zip(got, want)),
+            "state_bitwise": all(torch.equal(g, w)
+                                 for g, w in zip(got, want))}
+
+
+def plain_backward_share(torch, step, state, batch) -> dict:
+    """One step under ``torch.profiler``: the ``PlainGrad.plain_backward``
+    spans' host and device time (inclusive) against the step's wall and
+    the device time of all its kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import _build
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    cpu = torch.autograd.DeviceType.CPU
+    # the host-side spans; their device time is the kernels launched
+    # inside them (and in the ops they hold)
+    spans = [e for e in prof.key_averages() if e.key == _build.PLAIN_BACKWARD
+             and getattr(e, "device_type", cpu) == cpu]
+    host = sum(e.cpu_time_total for e in spans) / 1e3
+    dev = sum(getattr(e, "device_time_total", None)
+              or getattr(e, "cuda_time_total", 0.0) for e in spans) / 1e3
+    # kernels only: a record_function span also has a device-side record
+    dev_all = sum(ev.time_range.elapsed_us() for ev in prof.events()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(ev, "is_user_annotation", False)
+                  and ev.name != _build.PLAIN_BACKWARD) / 1e3
+    return state, {"profiled_step_ms": wall, "plain_backward_calls":
+                   sum(e.count for e in spans),
+                   "plain_backward_host_ms": host,
+                   "plain_backward_device_ms": dev,
+                   "step_device_ms": dev_all,
+                   "plain_backward_host_share": host / wall if wall else None,
+                   "plain_backward_device_share": dev / dev_all if dev_all
+                   else None}
+
+
+def phase_lm_train(torch, paths):
+    """LM training on the card (``train/trainer.py`` -> ``models/``):
+    each training kernel's gradient by route; one f32 smoke step card
+    against CPU (the ``lm_parity_f32`` configs, LM_TRAIN_RULE); recovery
+    after an injected failure equal bit for bit to an uninterrupted run
+    (``launch.train.main`` in process, both smoke configs); qwen3-4b and
+    mamba2-780m at full width and depth, 8 x 128, one warm-up and
+    LM_TRAIN_STEPS timed steps with the launcher's AdamW and remat (each
+    freed before the next), then one profiled step (at LM_PROFILE_LAYERS'
+    depth where given); ``python -m repro_torch.launch.train`` in a
+    subprocess."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import basecaller as bc
+    from repro_torch.data import tokens
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import trainer
+    from repro_torch.utils.tree import leaves, tree_bytes, tree_map
+    dev = torch.device("cuda")
+    part_s = {}
+    t_part = time.perf_counter()
+    check_kernel_grads(torch, dev)
+    part_s["kernel_gradients"] = time.perf_counter() - t_part
+
+    # 1. one f32 smoke step, card against CPU
+    def smoke_steps():
+        lines = []
+        for label, cfg in f32_parity_configs():
+            params, _ = transformer.init(torch.Generator().manual_seed(0),
+                                         cfg, device="cpu")
+            pipe = tokens.TokenPipelineConfig(
+                vocab_size=cfg.vocab_size, seq_len=LM_TRAIN_SEQ,
+                global_batch=LM_TRAIN_SMOKE_BATCH)
+            out = {}
+            for name, device in (("cpu", torch.device("cpu")), ("cuda", dev)):
+                # a copy: the step updates the state in place
+                p = tree_map(torch.clone, bc.params_to(params, device))
+                batch = tokens.batch_at_step(pipe, 0, device=device)
+                _, grads = trainer.loss_and_grads(get_model(cfg).loss, p,
+                                                  batch, cfg)
+                state, step = lm_train_state(torch, cfg, p)
+                new, m = step(state, batch)
+                out[name] = (float(m["loss"]),
+                             tree_map(lambda t: t.cpu(), grads),
+                             tree_map(lambda t: t.cpu(), new))
+            line = train_step_excess(torch, params, out["cuda"], out["cpu"])
+            lines.append({"phase": "lm_train", "part": "f32_smoke_vs_cpu",
+                          "config": label, "batch": LM_TRAIN_SMOKE_BATCH,
+                          "seq": LM_TRAIN_SEQ, "loss_card": out["cuda"][0],
+                          "loss_cpu": out["cpu"][0], **line,
+                          "tol": LM_TRAIN_RULE})
+        return lines
+    t_part = time.perf_counter()
+    lines = paths.drive("lm_train f32 smoke", (
+        "flash_attention_tf32x3", "flash_attention_tf32x3_wgmma", "matmul",
+        "ssd_scan", "ssd_scan_padded"), smoke_steps, train=True)
+    part_s["f32_smoke_vs_cpu"] = time.perf_counter() - t_part
+    for line in lines:
+        emit(line)
+        require(line["loss_rel_diff"] <= 1e-5
+                and line["grad_over_bar"] <= 1.0
+                and line["state_over_bar"] <= 1.0,
+                f"f32 train step {line['config']}: {line}")
+
+    # 2. recovery after an injected failure, bit for bit
+    rec = LM_RECOVERY
+    t_part = time.perf_counter()
+    for arch, per_step in LM_RECOVERY_PATHS:
+        root = os.path.join(ROOT, "build", "lm_train_recovery", arch)
+        shutil.rmtree(root, ignore_errors=True)
+        argv = ["--arch", arch, "--smoke", "--steps", str(rec["steps"]),
+                "--ckpt-every", str(rec["ckpt_every"])]
+
+        def runs():
+            clean = launch_train.main(argv + ["--ckpt-dir",
+                                              os.path.join(root, "clean")])
+            faulty = launch_train.main(argv + [
+                "--ckpt-dir", os.path.join(root, "faulty"), "--fail-at",
+                str(rec["fail_at"])])
+            return clean, faulty
+        path = f"lm_train recovery {arch}"
+        clean, faulty = paths.drive(path, tuple(per_step), runs, train=True)
+        same_state = all(torch.equal(a, b) for a, b in zip(
+            leaves(clean["state"]), leaves(faulty["state"])))
+        ran = 2 * rec["steps"] + rec["fail_at"] - (rec["fail_at"]
+                                                   // rec["ckpt_every"]
+                                                   * rec["ckpt_every"])
+        want = {k: ran * v for k, v in per_step.items()}
+        got = {k: paths.paths[path].get(k, 0) for k in per_step}
+        line = {"phase": "lm_train", "part": "recovery", "arch": arch,
+                **rec, "restarts": faulty["restarts"],
+                "steps_run": ran, "losses_equal":
+                clean["history"] == faulty["history"],
+                "state_equal": same_state,
+                "first_loss": clean["history"][0],
+                "last_loss": clean["history"][rec["steps"] - 1],
+                "launches": got, "expected_launches": want}
+        emit(line)
+        require(faulty["restarts"] == 1 and line["losses_equal"]
+                and same_state, f"{arch} recovery differs from the "
+                f"uninterrupted run: {line}")
+        require(got == want, f"{arch} recovery launches {got}, expected "
+                f"{want}")
+        del clean, faulty
+        torch.cuda.empty_cache()
+
+    part_s["recovery"] = time.perf_counter() - t_part
+
+    # 3. full width and depth, bf16, the launcher's optimizer and remat
+    for arch, per_step in LM_TRAIN_PATHS:
+        t_part = time.perf_counter()
+        spec = ARCHS[arch]
+        cfg = spec.config()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, _ = transformer.init(torch.Generator(dev).manual_seed(0), cfg,
+                                     device=dev)
+        ocfg = opt.OptimizerConfig(total_steps=1 + LM_TRAIN_STEPS,
+                                   state_dtype=spec.optimizer_state_dtype)
+        state = {"params": params, "opt": opt.init_opt_state(params, ocfg)}
+        step = trainer.make_train_step(
+            get_model(cfg).loss, cfg, ocfg, trainer.TrainerConfig(
+                accum_dtype=spec.grad_accum_dtype))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        pipe = tokens.TokenPipelineConfig(
+            vocab_size=cfg.vocab_size, seq_len=LM_TRAIN_SEQ,
+            global_batch=LM_TRAIN_BATCH)
+        sizes = {"params": tree_numel(params),
+                 "params_gb": tree_bytes(state["params"]) / 2 ** 30,
+                 "moments_gb": (tree_bytes(state["opt"]["m"])
+                                + tree_bytes(state["opt"]["v"])) / 2 ** 30}
+
+        def run():
+            losses, walls = [], []
+            st = state
+            for i in range(1 + LM_TRAIN_STEPS):
+                batch = tokens.batch_at_step(pipe, i, device=dev)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                st, m = step(st, batch)
+                losses.append(float(m["loss"]))
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t1) * 1e3)
+            return st, losses, walls
+        path = f"lm_train {arch}"
+        state, losses, walls = paths.drive(path, tuple(per_step), run,
+                                           train=True)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        depth = LM_PROFILE_LAYERS.get(arch, cfg.num_layers)
+        if depth != cfg.num_layers:
+            # the profiler's ~10^5 events a layer of the SSD recurrence's
+            # plain backward take minutes to process at full depth
+            cut = dataclasses.replace(cfg, num_layers=depth)
+            params = state = step = None
+            torch.cuda.empty_cache()
+            p_cut, _ = transformer.init(torch.Generator(dev).manual_seed(0),
+                                        cut, device=dev)
+            state = {"params": p_cut, "opt": opt.init_opt_state(p_cut, ocfg)}
+            step = trainer.make_train_step(get_model(cut).loss, cut, ocfg)
+            step(state, tokens.batch_at_step(pipe, 0, device=dev))
+        state, share = plain_backward_share(
+            torch, step, state, tokens.batch_at_step(pipe, 1 + LM_TRAIN_STEPS,
+                                                     device=dev))
+        share["profiled_layers"] = depth
+        timed = walls[1:]
+        med = float(np.median(timed))
+        counts = paths.paths[path]
+        steps_run = 1 + LM_TRAIN_STEPS
+        emit({"phase": "lm_train", "part": "full_width", "arch": arch,
+              "layers": cfg.num_layers, "remat": cfg.remat, "batch": LM_TRAIN_BATCH,
+              "seq": LM_TRAIN_SEQ, "init_s": init_s,
+              "warmup_ms": walls[0], "step_ms": timed, "median_step_ms": med,
+              "tokens_per_s": LM_TRAIN_BATCH * LM_TRAIN_SEQ / (med / 1e3),
+              "losses": losses, "first_loss": losses[0],
+              "last_loss": losses[-1],
+              "finite": bool(np.isfinite(losses).all()),
+              "peak_mem_gb": peak, **sizes,
+              "launches_per_step": {k: v / steps_run
+                                    for k, v in counts.items()},
+              **share})
+        require(np.isfinite(losses).all(), f"{arch}: non-finite loss "
+                f"{losses}")
+        for k, v in per_step.items():
+            require(counts.get(k, 0) == steps_run * v,
+                    f"{arch} training: {k} launched {counts.get(k, 0)}, "
+                    f"expected {steps_run} x {v}")
+        if "matmul_bf16" in per_step:
+            require(counts.get("matmul_bf16_wgmma", 0)
+                    == counts.get("matmul_bf16", 0),
+                    f"{arch} training: a bf16 MLP GEMM off the wgmma kernel")
+        del state, params, step
+        p_cut = None
+        torch.cuda.empty_cache()
+        part_s[f"full_width {arch}"] = time.perf_counter() - t_part
+
+    # 4. the CLI
+    ckpt = os.path.join(ROOT, "build", "lm_train_cli")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    # JAX's --ckpt-every 10 would leave a failure at step 7 no checkpoint
+    # to restore (run_resilient then raises, in either package)
+    argv = ["--smoke", "--steps", "20", "--fail-at", "7", "--ckpt-every",
+            "5", "--ckpt-dir", ckpt]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *argv], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=SRC), capture_output=True, text=True,
+        timeout=300)
+    out = proc.stdout.strip().splitlines()
+    emit({"phase": "lm_train", "part": "cli", "argv": argv,
+          "rc": proc.returncode, "wall_s": time.perf_counter() - t0,
+          "summary": out[-2:]})
+    require(proc.returncode == 0 and "restarts=1" in proc.stdout,
+            f"launch.train exited {proc.returncode}: {proc.stderr[-2000:]}")
+    part_s["cli"] = time.perf_counter() - t0
+    emit({"phase": "lm_train", "part": "seconds", **part_s})
+
+
 # ---------------------------------------------------------- phase serve_cli --
 SERVE_FIELD = {"n_devices": 2, "n_infected": 1, "host_len": 2000,
                "pathogen_len": 1000, "n_reads": 10, "min_reads": 2,
@@ -4318,9 +4822,10 @@ class PathLaunches:
     def __init__(self):
         self.counters = launch_counters()
         self.total = {k: 0 for k in self.counters}
+        self.train = {k: 0 for k in self.counters}     # the lm_train paths
         self.paths = {}
 
-    def drive(self, path, kernels, fn):
+    def drive(self, path, kernels, fn, train=False):
         for wrapper, attr in self.counters.values():
             setattr(wrapper, attr, 0)
         result = fn()
@@ -4328,6 +4833,7 @@ class PathLaunches:
         self.paths[path] = {k: v for k, v in counts.items() if v}
         for k, v in counts.items():
             self.total[k] += v
+            self.train[k] += v if train else 0
         emit({"phase": "launches", "path": path, "launches":
               self.paths[path]})
         for k in kernels:
@@ -4435,28 +4941,40 @@ def main() -> int:
     phase_fleet(torch, panel, paths)
     phase_field(torch, paths)
     phase_train(torch, paths)
+    phase_lm_train(torch, paths)
     phase_serve_cli()
+
+    def row_launches(k, counts):
+        """The launches of row ``k`` among ``counts``: the flash and SSD
+        wrappers count all their kernels, and the 3xTF32 and padded ones
+        have rows of their own (the CUDA-core ones run on no main
+        path)."""
+        n = counts[k]
+        if k == "flash_attention":
+            n -= (counts["flash_attention_tf32x3"]
+                  + counts["flash_attention_tf32x3_wgmma"]
+                  + counts["flash_attention_generic"])
+        if k == "ssd_scan":
+            n -= counts["ssd_scan_padded"] + counts["ssd_scan_generic"]
+        return n
 
     kernels = []
     for k, (src, replaces) in KERNELS.items():
         r = table.rows[k]
-        launches = (decode_launches["matmul_bf16"]
-                    if k == "matmul_bf16_decode" else paths.total[k])
-        if k == "flash_attention":
-            # the wrapper counts all its kernels: the 3xTF32 ones have
-            # their own rows, the CUDA-core one runs on no main path
-            launches -= (paths.total["flash_attention_tf32x3"]
-                         + paths.total["flash_attention_tf32x3_wgmma"]
-                         + paths.total["flash_attention_generic"])
-        if k == "ssd_scan":
-            launches -= (paths.total["ssd_scan_padded"]
-                         + paths.total["ssd_scan_generic"])
+        decode = k == "matmul_bf16_decode"
+        launches = (decode_launches["matmul_bf16"] if decode
+                    else row_launches(k, paths.total))
         kernels.append({
             "name": k, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches, "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
+        if not decode:
+            # of those, the lm_train paths' (forward and remat recompute;
+            # the backward is each plain version's); no training path
+            # runs row 2d's M = 8
+            kernels[-1]["train_launches"] = row_launches(k, paths.train)
         if k == "matmul_bf16":
             kernels[-1]["wgmma_launches"] = paths.total["matmul_bf16_wgmma"]
         if k == "matmul_bf16_decode":

@@ -19,6 +19,15 @@ from repro_torch.configs import (
 from repro_torch.configs.common import ArchSpec
 from repro_torch.configs.shapes import SHAPES, ShapeCell, applicable
 
+# the JAX package's archs that wait on their families' modules, by family
+WAITING_ARCHS: dict[str, str] = {
+    "internvl2-76b": "vlm",
+    "llama4-maverick-400b-a17b": "moe",
+    "grok-1-314b": "moe",
+    "whisper-medium": "encdec",
+    "jamba-v0.1-52b": "hybrid",
+}
+
 ARCHS: dict[str, ArchSpec] = {
     "qwen3-4b": qwen3_4b.SPEC,
     "nemotron-4-15b": nemotron_4_15b.SPEC,
@@ -27,4 +36,5 @@ ARCHS: dict[str, ArchSpec] = {
     "mamba2-780m": mamba2_780m.SPEC,
 }
 
-__all__ = ["ARCHS", "SHAPES", "ShapeCell", "ArchSpec", "applicable"]
+__all__ = ["ARCHS", "SHAPES", "ShapeCell", "ArchSpec", "WAITING_ARCHS",
+           "applicable"]

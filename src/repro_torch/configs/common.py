@@ -1,10 +1,16 @@
-"""ArchSpec: one architecture's published config and its smoke-size
-cut (``repro/configs/common.py``, without the trainer and sharding knobs,
-which wait for a training slice)."""
+"""ArchSpec: everything the launcher needs to know about one architecture
+(``repro/configs/common.py``).
+
+The trainer knobs carry JAX's values: ``grad_accum`` by shape name,
+``optimizer_state_dtype`` and ``grad_accum_dtype``, and ``schedule``, the
+LR schedule JAX's launcher picks by the arch's name; ``launch/train.py``
+reads the last three.  ``fsdp`` and ``rules_overrides`` are carried
+only: they shard over a mesh, and nothing on one card acts on them.
+"""
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable
 
 from repro_torch.models.config import ModelConfig
 
@@ -13,3 +19,11 @@ from repro_torch.models.config import ModelConfig
 class ArchSpec:
     config: Callable[[], ModelConfig]
     smoke_config: Callable[[], ModelConfig]
+    # sharding (carried; one card shards nothing)
+    fsdp: bool = False                      # ZeRO-3 param sharding over data
+    rules_overrides: dict[str, Any] = dataclasses.field(default_factory=dict)
+    # trainer memory knobs per shape name (defaults applied otherwise)
+    grad_accum: dict[str, int] = dataclasses.field(default_factory=dict)
+    optimizer_state_dtype: str = "float32"  # bf16 for the giants
+    grad_accum_dtype: str = "float32"
+    schedule: str = "cosine"                # optimizer.schedule_lr's name

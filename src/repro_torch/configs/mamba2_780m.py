@@ -29,4 +29,8 @@ def smoke_config() -> ModelConfig:
     )
 
 
-SPEC = ArchSpec(config=config, smoke_config=smoke_config)
+SPEC = ArchSpec(
+    config=config, smoke_config=smoke_config,
+    fsdp=False,
+    grad_accum={"train_4k": 8},
+)

@@ -22,7 +22,7 @@ current position, which a later step overwrites in a KV cache but which
 advances an SSM slot's state.
 
 Tensor parallelism (JAX's ``mesh=`` with a ``model`` axis, and a
-``sharded`` checkpoint) waits for ROADMAP.md Queue 1 item 5: a ``mesh``
+``sharded`` checkpoint) waits for ROADMAP.md Queue 1 item 5b: a ``mesh``
 other than None, 1 or ``"auto"`` raises ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -49,7 +49,7 @@ class Request:
 
 
 WAITING_TP = ("tensor-parallel decode is not ported yet (ROADMAP.md, "
-              "Queue 1 item 5: the int8-weight and TP branches)")
+              "Queue 1 item 5b: the int8-weight and TP branches)")
 
 
 def check_mesh(mesh) -> None:

@@ -143,21 +143,33 @@ def check_tensor(what: str, t, dtype, shape=None, device=None) -> None:
                          f"{tuple(shape)}")
 
 
+def wants_grad(*tensors) -> bool:
+    """Whether autograd is on and an operand requires grad."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
 def refuse_grad(what: str, *tensors) -> None:
     """Raise where autograd is on and an operand requires grad: the kernel
     writes through a raw pointer, so its output would carry no
     ``grad_fn`` and a training step would drop the gradient without a
     word.  JAX has no backward kernel either (no ``custom_vjp`` in its
-    package); only the fp32 ``conv1d`` and ``matmul`` carry a gradient on
-    the card, that of their plain versions (:class:`PlainGrad`).  Called
-    before any other check, so nothing launches."""
-    if torch.is_grad_enabled() and any(
-            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+    package).  The float kernels of the training paths (fp32 ``conv1d``
+    and ``matmul``, ``matmul_bf16``, ``flash_attention``, ``ssd_scan``)
+    carry the gradient of their plain versions (:func:`with_plain_grad`);
+    the int8 and integer kernels and the fused tick refuse.  Called before
+    any other check, so nothing launches."""
+    if wants_grad(*tensors):
         raise RuntimeError(
             f"{what}: an operand requires grad, but this kernel has no "
             "backward on the card; call it under torch.no_grad() or detach "
-            "the operands (fp32 conv1d and matmul carry the plain "
-            "version's gradient)")
+            "the operands (the float kernels of the training paths carry "
+            "the plain version's gradient)")
+
+
+# the profiler span of PlainGrad's backward (a plain version's re-run and
+# its gradient), which a trace reads as the share of a step it takes
+PLAIN_BACKWARD = "PlainGrad.plain_backward"
 
 
 class PlainGrad(torch.autograd.Function):
@@ -170,8 +182,9 @@ class PlainGrad(torch.autograd.Function):
     training differentiates the jnp reference.  So the forward launches
     the hand kernel and the backward re-runs ``plain`` on the saved inputs
     and takes its gradient, with TF32 off (``ref.full_fp32``) so that it
-    is fp32 as on the CPU.  The output is the kernel's own tensor, so it
-    carries this function's ``grad_fn``."""
+    is fp32 as on the CPU; only the inputs that need a gradient are
+    differentiated.  The output is the kernel's own tensor, so it carries
+    this function's ``grad_fn``."""
 
     @staticmethod
     def forward(ctx, kernel, plain, *inputs):
@@ -181,15 +194,33 @@ class PlainGrad(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        ref.full_fp32()
-        with torch.enable_grad():
-            leaves = [None if t is None else t.detach().requires_grad_()
-                      for t in ctx.saved_tensors]
-            out = ctx.plain(*leaves)
-            live = [t for t in leaves if t is not None]
-            got = iter(torch.autograd.grad(out, live, grad_out))
-        return (None, None, *(None if t is None else next(got)
-                              for t in leaves))
+        # under torch.utils.checkpoint the first unpack recomputes the
+        # block; the span after it is the plain backward alone
+        saved = ctx.saved_tensors
+        with torch.profiler.record_function(PLAIN_BACKWARD):
+            ref.full_fp32()
+            need = ctx.needs_input_grad[2:]
+            with torch.enable_grad():
+                leaves = [None if t is None else t.detach().requires_grad_(n)
+                          for t, n in zip(saved, need)]
+                out = ctx.plain(*leaves)
+                live = [t for t in leaves
+                        if t is not None and t.requires_grad]
+                got = iter(torch.autograd.grad(out, live, grad_out))
+            return (None, None, *(next(got) if t is not None
+                                  and t.requires_grad else None
+                                  for t in leaves))
+
+
+def with_plain_grad(kernel, plain, *inputs):
+    """``kernel(*inputs)``; where autograd is on and an input requires
+    grad, the same launch inside :class:`PlainGrad`, so the output carries
+    ``plain``'s gradient.  Inside ``PlainGrad.forward`` autograd is off, so
+    a wrapper that delegates to another (``flash_attention`` to
+    ``tf32x3``) wraps once."""
+    if wants_grad(*inputs):
+        return PlainGrad.apply(kernel, plain, *inputs)
+    return kernel(*inputs)
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -107,14 +107,11 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, bias=None, *, stride: int = 1,
     version's gradient."""
     if x.device.type == "cpu":
         return ref.conv1d(x, w, bias, stride=stride, activation=activation)
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, w, bias)):
-        return _build.PlainGrad.apply(
-            lambda x, w, b: _conv1d_cuda(x, w, b, stride, activation),
-            lambda x, w, b: ref.conv1d(x, w, b, stride=stride,
-                                       activation=activation),
-            x, w, bias)
-    return _conv1d_cuda(x, w, bias, stride, activation)
+    return _build.with_plain_grad(
+        lambda x, w, b: _conv1d_cuda(x, w, b, stride, activation),
+        lambda x, w, b: ref.conv1d(x, w, b, stride=stride,
+                                   activation=activation),
+        x, w, bias)
 
 
 def _conv1d_cuda(x, w, bias, stride, activation):

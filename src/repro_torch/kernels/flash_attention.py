@@ -93,7 +93,6 @@ def generic_rows(d: int) -> int:
 def _check(q, k, v, causal):
     """Shapes, dtypes (float32, bf16 or f16, all alike), contiguity and
     the causal rows; returns (b, hq, hkv, sq, skv, d)."""
-    _build.refuse_grad("flash_attention", q, k, v)
     b, hq, sq, d = q.shape
     b2, hkv, skv, d2 = k.shape
     if b2 != b or d2 != d or hq % hkv:
@@ -114,26 +113,51 @@ def _check(q, k, v, causal):
     return b, hq, hkv, sq, skv, d
 
 
+def _plain(q, k, v, causal, scale, path):
+    """The plain version of ``path``'s kernel (:func:`ref.flash`): P
+    rounded to bf16 before the PV product on the bf16 ``wgmma`` route,
+    which rounds it so, and kept float32 on the others."""
+    return ref.flash(q, k, v, causal=causal, scale=scale,
+                     p_dtype=torch.bfloat16 if path == "wgmma"
+                     else torch.float32)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale=None) -> torch.Tensor:
     """Softmax attention, q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D) ->
     (B, Hq, Sq, D) in q's type.
 
-    A CPU tensor runs the plain version (:func:`ref.flash`: P rounded to
-    bf16 before the PV product where :func:`route` picks the bf16
-    ``wgmma`` kernel, which rounds it so, and kept float32 elsewhere); a
-    CUDA tensor (float32, bf16 or f16, all three alike, contiguous)
-    launches the kernel :func:`route` picks or raises."""
+    A CPU tensor runs the plain version of the kernel :func:`route` picks
+    (:func:`_plain`); a CUDA tensor (float32, bf16 or f16, all three
+    alike, contiguous) launches that kernel or raises.  Where autograd is
+    on and an operand requires grad, the launch runs inside
+    :class:`_build.PlainGrad`: the backward is the same plain version's
+    gradient (float32 logits, GQA's K/V gradients summed over each KV
+    head's query group)."""
+    path = route(q.dtype, q.shape[-1])
     if q.device.type == "cpu":
-        wgmma = route(q.dtype, q.shape[-1]) == "wgmma"
-        return ref.flash(q, k, v, causal=causal, scale=scale,
-                         p_dtype=torch.bfloat16 if wgmma else torch.float32)
-    b, hq, hkv, sq, skv, d = _check(q, k, v, causal)
-    path = route(q.dtype, d)
+        return _plain(q, k, v, causal, scale, path)
+    return _on_card(path, q, k, v, causal, scale)
+
+
+def _on_card(path, q, k, v, causal, scale):
+    """``path``'s launch, inside :class:`_build.PlainGrad` with its plain
+    version's gradient where autograd wants one."""
+    return _build.with_plain_grad(
+        lambda q, k, v: _launch(path, q, k, v, causal, scale),
+        lambda q, k, v: _plain(q, k, v, causal, scale, path), q, k, v)
+
+
+def _launch(path, q, k, v, causal, scale):
+    if path == "wgmma":
+        return _wgmma(q, k, v, causal, scale)
     if path == "tf32x3":
-        return tf32x3(q, k, v, causal=causal, scale=scale)
-    if path == "generic":
-        return generic(q, k, v, causal=causal, scale=scale)
+        return _tf32x3(q, k, v, causal, scale, tf32x3_wgmma(q, k, v))
+    return _generic(q, k, v, causal, scale)
+
+
+def _wgmma(q, k, v, causal, scale):
+    b, hq, hkv, sq, skv, d = _check(q, k, v, causal)
     scale = float(d) ** -0.5 if scale is None else float(scale)
     if b * hq > 2 ** 31 - 1:
         raise ValueError(f"flash_attention: {b} x {hq} heads exceed the "
@@ -163,8 +187,9 @@ def tf32x3(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     .tf32 kernel (:func:`tf32x3_wgmma`, counted also in
     ``tf32x3_wgmma_launches``), every other case the mma.sync one (counted
     also in ``tf32x3_launches``).  Both count in
-    ``flash_attention.launches``."""
-    return _tf32x3(q, k, v, causal, scale, tf32x3_wgmma(q, k, v))
+    ``flash_attention.launches``.  A gradient, where one is wanted, is
+    the float32-P plain version's."""
+    return _on_card("tf32x3", q, k, v, causal, scale)
 
 
 def _tf32x3(q, k, v, causal, scale, wgmma: bool):
@@ -206,7 +231,12 @@ def generic(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     says: what :func:`flash_attention` launches past D 256, and how a check
     holds it against the tensor-core kernels and times it as row 5g's
     "was" on the same inputs.  Counted in ``flash_attention.launches`` and
-    ``generic_launches``."""
+    ``generic_launches``.  A gradient, where one is wanted, is the
+    float32-P plain version's."""
+    return _on_card("generic", q, k, v, causal, scale)
+
+
+def _generic(q, k, v, causal, scale):
     b, hq, hkv, sq, skv, d = _check(q, k, v, causal)
     scale = float(d) ** -0.5 if scale is None else float(scale)
     rows = generic_rows(d)

@@ -60,13 +60,10 @@ def matmul(a: torch.Tensor, b: torch.Tensor, bias=None, *,
     version's gradient."""
     if a.device.type == "cpu":
         return ref.matmul(a, b, bias, activation=activation)
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (a, b, bias)):
-        return _build.PlainGrad.apply(
-            lambda a, b, bias: _matmul_cuda(a, b, bias, activation),
-            lambda a, b, bias: ref.matmul(a, b, bias, activation=activation),
-            a, b, bias)
-    return _matmul_cuda(a, b, bias, activation)
+    return _build.with_plain_grad(
+        lambda a, b, bias: _matmul_cuda(a, b, bias, activation),
+        lambda a, b, bias: ref.matmul(a, b, bias, activation=activation),
+        a, b, bias)
 
 
 def _matmul_cuda(a, b, bias, activation):
@@ -153,10 +150,25 @@ def matmul_bf16(a: torch.Tensor, b: torch.Tensor, bias=None, *,
     launches a kernel or raises: the TMA + wgmma kernel where
     :func:`tma_addressable` holds (counted also in ``wgmma_launches``),
     else the mma.sync kernel.  The choice is by shape; a failure of either
-    raises and never retries on the other."""
+    raises and never retries on the other.  Where autograd is on and an
+    operand requires grad, the launch runs inside
+    :class:`_build.PlainGrad`: the backward is the plain version's
+    gradient (float32 products, TF32 off), returned in bf16."""
     if a.device.type == "cpu":
         return ref.matmul(a, b, bias, activation=activation)
-    _build.refuse_grad("matmul_bf16", a, b, bias)
+    return _bf16_on_card(a, b, bias, activation)
+
+
+def _bf16_on_card(a, b, bias, activation):
+    """The launch, inside :class:`_build.PlainGrad` with the plain
+    version's gradient where autograd wants one."""
+    return _build.with_plain_grad(
+        lambda a, b, bias: _matmul_bf16_cuda(a, b, bias, activation),
+        lambda a, b, bias: ref.matmul(a, b, bias, activation=activation),
+        a, b, bias)
+
+
+def _matmul_bf16_cuda(a, b, bias, activation):
     m, k = a.shape
     k2, n = b.shape
     if k != k2:

@@ -229,16 +229,23 @@ def _logits(q, k, v, causal: bool, scale):
     """Attention's float32 logits (B, Hq, Sq, Skv), scaled, the causal
     rows aligned to the last token (key j is seen by query i iff ``j <= i
     + (Skv - Sq)``) and masked to -inf, and V repeated over the query
-    heads (GQA) in float32."""
+    heads (GQA) in float32.  The heads repeat by ``expand``, whose
+    gradient sums each KV head's query group by a reduction (the same
+    bits on every run; ``repeat_interleave``'s scatters with atomics on
+    the card)."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     if hq % hkv:
         raise ValueError(f"attention: {hq} query heads over {hkv} KV heads")
     scale = d ** -0.5 if scale is None else scale
     group = hq // hkv
+
+    def heads(t):
+        t = t.float()
+        return t[:, :, None].expand(b, hkv, group, *t.shape[2:]).reshape(
+            b, hq, *t.shape[2:])
     full_fp32()
-    kk = k.float().repeat_interleave(group, dim=1)
-    vv = v.float().repeat_interleave(group, dim=1)
+    kk, vv = heads(k), heads(v)
     logits = torch.matmul(q.float(), kk.transpose(-1, -2)) * scale
     if causal:
         qi = torch.arange(sq, device=q.device)[:, None]
@@ -269,7 +276,9 @@ def flash(q, k, v, *, causal: bool = True, scale=None,
     :func:`attention` (the probabilities unrounded) stays the oracle the
     card's bars measure against."""
     logits, vv = _logits(q, k, v, causal, scale)
-    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    # the max only shifts the exponent: held constant for the gradient, as
+    # jax.nn.softmax's stop_gradient
+    p = torch.exp(logits - logits.amax(-1, keepdim=True).detach())
     out = torch.matmul(p.to(p_dtype).float(), vv)
     return (out / p.sum(-1, keepdim=True)).to(q.dtype)
 

@@ -120,9 +120,28 @@ def ssd_scan(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
     :func:`ref.ssd_scan`); a CUDA tensor launches the kernels (x, b, c in
     float32 or bf16, log_a float32) or raises: the three tensor-core
     passes up to (ds, dh) = (128, 128), zero-padded to :func:`padded`'s
-    pair, the generic kernel past that (:func:`route`)."""
+    pair, the generic kernel past that (:func:`route`).  Where autograd is
+    on and an operand requires grad, the launch runs inside
+    :class:`_build.PlainGrad`: the backward is the recurrence's gradient
+    (float32, returned in each operand's dtype)."""
     if x.device.type == "cpu":
-        return ref.ssd_scan(x, log_a, b, c)[0]
+        return _plain(x, log_a, b, c)
+    return _on_card(x, log_a, b, c, chunk)
+
+
+def _plain(x, log_a, b, c):
+    return ref.ssd_scan(x, log_a, b, c)[0]
+
+
+def _on_card(x, log_a, b, c, chunk):
+    """The launch, inside :class:`_build.PlainGrad` with the plain
+    version's gradient where autograd wants one."""
+    return _build.with_plain_grad(
+        lambda x, log_a, b, c: _launch(x, log_a, b, c, chunk), _plain,
+        x, log_a, b, c)
+
+
+def _launch(x, log_a, b, c, chunk):
     bstride, cstride = _check(x, log_a, b, c)
     bh, tn, dh = x.shape
     ds = b.shape[-1]
@@ -166,7 +185,6 @@ def _pad_bc(t, stride, dsp):
 
 def _check(x, log_a, b, c):
     """Types, shapes and layouts; returns B's and C's head strides."""
-    _build.refuse_grad("ssd_scan", x, log_a, b, c)
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"ssd_scan x: float32 or bfloat16, got {x.dtype}")
     _build.check_tensor("ssd_scan x", x, x.dtype)
@@ -186,7 +204,12 @@ def generic(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
     """The generic kernel on CUDA tensors, whatever :func:`route` says:
     what :func:`ssd_scan` launches past (128, 128), and how a check holds
     and times it against the tensor-core passes on the same inputs.
-    Counted in ``ssd_scan.launches`` and ``generic_launches``."""
+    Counted in ``ssd_scan.launches`` and ``generic_launches``.  A
+    gradient, where one is wanted, is the plain version's."""
+    return _build.with_plain_grad(_launch_generic, _plain, x, log_a, b, c)
+
+
+def _launch_generic(x, log_a, b, c):
     return _generic(x, log_a, b, c, *_check(x, log_a, b, c))
 
 

@@ -20,7 +20,7 @@ flags (``--arch``, ``--smoke``, ``--slots``, ``--max-len``,
 with JAX's rule that ``lm_decode`` builds the full-size arch unless
 ``--smoke`` is given.  Given with another workload, such a flag raises by
 its name.  ``--tp`` above 1 raises: tensor parallelism waits for
-ROADMAP.md Queue 1 item 5.
+ROADMAP.md Queue 1 item 5b.
 
 Discovery: ``--list-workloads`` prints every buildable workload,
 ``--list-presets <workload>`` its preset table; an unknown ``--workload``

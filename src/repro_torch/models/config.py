@@ -6,9 +6,10 @@ layer specs, each naming a mixer ("attn" | "mamba") and a feed-forward
 ("mlp" | "moe" | none).  Every per-layer parameter carries a leading
 ``num_blocks`` dim, so the block loop walks one stacked tree.
 
-``remat``, ``remat_group`` and ``scan_blocks`` are kept for parity with the
-JAX configs and have no effect here: the port runs eager inference (no
-autograd to rematerialise, and the block stack is a Python loop).
+``remat`` checkpoints each block when autograd is on (training,
+``transformer.final_hidden``); ``remat_group`` and ``scan_blocks`` are
+kept for parity with the JAX configs and have no effect here (the port
+checkpoints per block, and the block stack is a Python loop).
 ``attn_chunk`` and ``chunked_attn_threshold`` have none either: the
 prefill path always runs the flash-attention kernel, which takes every
 length in O(S) memory.

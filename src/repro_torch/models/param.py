@@ -93,3 +93,7 @@ class ScopedBuilder:
     def param(self, name: str, shape, axes, **kw):
         return self._root.param(self._prefix + [name], shape, axes, **kw)
 
+
+def stacked(axes: tuple[str | None, ...]) -> tuple[str | None, ...]:
+    """Prepend the layer-stack axis (replicated: the block loop's dim)."""
+    return (None,) + tuple(axes)

@@ -5,9 +5,10 @@
     params, axes = model.init(gen, cfg, device=...)
     cache = model.init_cache(cfg, batch_size, max_len, device=...)
     logits, cache = model.serve(params, cache, tokens, pos, cfg)
+    loss, metrics = model.loss(params, batch, cfg)
 
-``loss`` (LM training, ROADMAP.md Queue 1 item 5) and ``abstract_params``
-(item 7) raise ``NotImplementedError``; so does an ``encdec`` config (the
+``abstract_params`` (ROADMAP.md Queue 1 item 7) raises
+``NotImplementedError``; so does an ``encdec`` config (the
 encoder-decoder family, item 6).
 """
 from __future__ import annotations
@@ -42,7 +43,7 @@ def _decoder_model() -> Model:
         init=transformer.init,
         abstract_params=_waiting("Model.abstract_params", 7,
                                  "analysis, dry run and mesh"),
-        loss=_waiting("Model.loss", 5, "LM training"),
+        loss=transformer.loss_fn,
         init_cache=lambda cfg, batch, max_len, **kw:
             transformer.init_cache(cfg, batch, max_len, **kw),
         serve=transformer.serve_step,

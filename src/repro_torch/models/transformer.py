@@ -8,19 +8,28 @@ block loop is a Python loop over that dim.
 
   init(gen, cfg, device=...) -> (params, axes)
   apply(params, tokens, cfg, ...) -> (logits, aux)
+  loss_fn(params, batch, cfg) -> (loss, metrics)           (train)
   init_cache(cfg, batch, max_len, device=...) -> cache      (serve)
   serve_step(params, cache, tokens, pos, cfg) -> (logits, cache)
 
 ``serve_step`` updates the cache in place, at ``pos`` for each row.
+With ``cfg.remat`` and autograd on, each block runs under
+``torch.utils.checkpoint`` (non-reentrant), as JAX's ``jax.checkpoint``
+with ``nothing_saveable``: the backward recomputes the block, so a
+training step launches each of its kernels twice.  ``remat_group``
+(JAX's two-level sqrt-L remat) only shapes memory; the port checkpoints
+per block whatever the group.
 Waiting (ROADMAP.md, Queue 1): MoE layers (``init``, ``apply`` and
-``serve_step`` raise ``NotImplementedError``, item 6) and ``loss_fn``
-(LM training, item 5).
+``serve_step`` raise ``NotImplementedError``, item 6), the VLM frontend
+(``loss_fn`` with ``input_embeds``, item 6) and the vocab-parallel loss
+(``parallel_cross_entropy``, item 5b).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
@@ -86,6 +95,24 @@ def block_params(blocks: dict, i: int) -> dict:
             for k, v in blocks.items()}
 
 
+def unstacked(blocks: dict, n: int) -> list:
+    """The stacked tree as ``n`` per-block trees of views, each tensor
+    leaf split by one ``torch.unbind``: its gradient is one stack of the
+    blocks' gradients, where ``n`` indexings would each add a zero-padded
+    copy of the whole leaf."""
+    out = [{} for _ in range(n)]
+    for k, v in blocks.items():
+        if isinstance(v, dict):
+            parts = unstacked(v, n)
+        elif isinstance(v, torch.Tensor):
+            parts = torch.unbind(v, 0)
+        else:
+            parts = [v[i] for i in range(n)]
+        for o, part in zip(out, parts):
+            o[k] = part
+    return out
+
+
 # ------------------------------------------------------------- forward ---
 def _block_fn(bp, x, cfg: ModelConfig, positions, aux):
     for li, spec in enumerate(cfg.block_pattern):
@@ -120,9 +147,13 @@ def final_hidden(params, tokens: torch.Tensor, cfg: ModelConfig, *,
         positions = torch.arange(tokens.shape[1],
                                  device=tokens.device).expand(tokens.shape)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.num_blocks):
-        x, aux = _block_fn(block_params(params["blocks"], i), x, cfg,
-                           positions, aux)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for bp in unstacked(params["blocks"], cfg.num_blocks):
+        if remat:
+            x, aux = torch.utils.checkpoint.checkpoint(
+                _block_fn, bp, x, cfg, positions, aux, use_reentrant=False)
+        else:
+            x, aux = _block_fn(bp, x, cfg, positions, aux)
     if last_only:
         x = x[:, -1:]
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
@@ -139,6 +170,37 @@ def apply(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     x, aux = final_hidden(params, tokens, cfg, input_embeds=input_embeds,
                           positions=positions, last_only=last_logits_only)
     return L.unembed(params["embedding"], x, cfg), aux
+
+
+def loss_fn(params, batch: dict, cfg: ModelConfig, *, aux_weight=0.01):
+    """Next-token cross entropy (``repro/models/transformer.py``):
+    ``batch`` holds ``tokens`` and ``labels`` (B, S) and optionally
+    ``loss_mask`` (B, S); the NLL of a float32 ``log_softmax`` over the
+    logits, averaged over the masked-in positions.  Returns ``(total,
+    {"nll", "moe_aux"})``, ``total = nll + aux_weight * moe_aux``."""
+    if batch.get("input_embeds") is not None:
+        raise NotImplementedError(
+            "loss_fn: input_embeds (the VLM frontend) is not ported yet "
+            "(ROADMAP.md, Queue 1 item 6: MoE and the other families)")
+    logits, aux = apply(params, batch["tokens"], cfg)
+    if logits.shape[-1] < cfg.vocab_size:
+        # JAX's vocab-sharded branch: only tensor parallelism slices the
+        # unembedding
+        raise NotImplementedError(
+            f"loss_fn: logits over {logits.shape[-1]} of {cfg.vocab_size} "
+            "vocab entries need parallel_cross_entropy, which comes with "
+            "tensor parallelism (ROADMAP.md, Queue 1 item 5b)")
+    labels = batch["labels"].long()
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(lp, -1, labels[..., None])[..., 0]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        loss = nll.mean()
+    else:
+        mask = mask.to(nll.dtype)
+        loss = (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    total = loss + aux_weight * aux
+    return total, {"nll": loss, "moe_aux": aux}
 
 
 # -------------------------------------------------------------- decode ---

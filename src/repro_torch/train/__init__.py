@@ -1,2 +1,2 @@
-"""Training (``repro/train``): AdamW with its schedules, checkpoints, and
-the micro basecaller's training run."""
+"""Training (``repro/train``): AdamW with its schedules, checkpoints, the
+micro basecaller's training run, the LM trainer and fault tolerance."""

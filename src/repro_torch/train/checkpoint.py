@@ -21,7 +21,7 @@ directory into place and only then moves ``LATEST``, so a crash never
 leaves a half-written restore point; ``keep_last`` old steps survive, and
 a step another writer is still producing is never collected.  The
 ``sharded`` layout (per-shard files for tensor parallelism) waits for the
-port's tensor parallelism (ROADMAP.md, Queue 1 item 5): reading one
+port's tensor parallelism (ROADMAP.md, Queue 1 item 5b): reading one
 raises.
 """
 from __future__ import annotations
@@ -215,7 +215,7 @@ def _load_flat(ckpt_dir: str, step: Optional[int], verify: bool
         raise NotImplementedError(
             f"checkpoint at {path} has format {manifest.get('format')!r}: "
             "the port reads the 'full' layout only; the sharded one comes "
-            "with tensor parallelism (ROADMAP.md, Queue 1 item 5)")
+            "with tensor parallelism (ROADMAP.md, Queue 1 item 5b)")
     arrays = os.path.join(path, "arrays.npz")
     if verify:
         got, want = _sha256(arrays), manifest["sha256"]["arrays.npz"]

@@ -4,9 +4,11 @@ The update is JAX's, leaf for leaf: global-norm clipping, bias
 correction, moments kept in float32 or bf16 (the update math runs in
 float32 either way), and weight decay on leaves of rank >= 2 only.  The
 schedules are cosine, WSD (warmup-stable-decay), linear and constant.
-Every quantity is a float32 tensor on the params' device, as JAX's arrays;
-``opt_state_axes`` (the sharded layout) waits for the port's tensor
-parallelism.
+Every quantity is a float32 tensor on the params' device, as JAX's arrays.
+``opt_state_axes`` names the moments' logical axes (their params').
+:func:`apply_update_` writes the update into the state's own tensors, a
+slice at a time (what lets a full-size LM's params, gradients and two
+f32 moments fit one card); :func:`apply_update` runs it on copies.
 """
 from __future__ import annotations
 
@@ -73,36 +75,73 @@ def init_opt_state(params, cfg: OptimizerConfig) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def apply_update(params, grads, opt_state, cfg: OptimizerConfig):
-    """One AdamW step.  Returns ``(new_params, new_state, metrics)``, new
-    trees (nothing is updated in place); ``metrics`` holds ``grad_norm``
-    and ``lr``."""
+def opt_state_axes(param_axes):
+    """Optimizer moments shard exactly like their parameters."""
+    return {"m": param_axes, "v": param_axes, "step": ()}
+
+
+def _scalars(grads, opt_state, cfg: OptimizerConfig):
+    """The step's shared scalars: (step, grad norm, clip scale, lr, the
+    two bias corrections)."""
     step = opt_state["step"] + 1
     gnorm = tree_global_norm(grads)
     scale = (torch.clamp_max(cfg.clip_norm / (gnorm + 1e-9), 1.0)
              if cfg.clip_norm > 0 else torch.ones((), device=gnorm.device))
     lr = schedule_lr(cfg, step)
-    b1, b2 = cfg.beta1, cfg.beta2
     sf = step.to(torch.float32)
-    bc1 = 1 - torch.pow(torch.tensor(b1, device=sf.device), sf)
-    bc2 = 1 - torch.pow(torch.tensor(b2, device=sf.device), sf)
+    bc1 = 1 - torch.pow(torch.tensor(cfg.beta1, device=sf.device), sf)
+    bc2 = 1 - torch.pow(torch.tensor(cfg.beta2, device=sf.device), sf)
+    return step, gnorm, scale, lr, bc1, bc2
+
+
+def _update(p, g, m, v, decay, scalars, cfg: OptimizerConfig):
+    """One leaf's (or slice's) new param and moments, JAX's math."""
+    _, _, scale, lr, bc1, bc2 = scalars
+    b1, b2 = cfg.beta1, cfg.beta2
     dt = _STATE_DTYPES[cfg.state_dtype]
+    g = g.float() * scale
+    mf = b1 * m.float() + (1 - b1) * g
+    vf = b2 * v.float() + (1 - b2) * torch.square(g)
+    delta = (mf / bc1) / (torch.sqrt(vf / bc2) + cfg.eps)
+    if cfg.weight_decay > 0:
+        delta = delta + (cfg.weight_decay * decay) * p.float()
+    new_p = p.float() - lr * delta
+    return new_p.to(p.dtype), mf.to(dt), vf.to(dt)
 
-    def upd(p, g, m, v):
-        g = g.float() * scale
-        mf = b1 * m.float() + (1 - b1) * g
-        vf = b2 * v.float() + (1 - b2) * torch.square(g)
-        delta = (mf / bc1) / (torch.sqrt(vf / bc2) + cfg.eps)
-        if cfg.weight_decay > 0:
-            decay = 1.0 if p.dim() >= 2 else 0.0
-            delta = delta + (cfg.weight_decay * decay) * p.float()
-        new_p = p.float() - lr * delta
-        return new_p.to(p.dtype), mf.to(dt), vf.to(dt)
 
-    out = tree_map(lambda *a: upd(*a), params, grads, opt_state["m"],
-                   opt_state["v"])
+def apply_update(params, grads, opt_state, cfg: OptimizerConfig):
+    """One AdamW step.  Returns ``(new_params, new_state, metrics)``, new
+    trees: :func:`apply_update_` on copies of ``params`` and ``opt_state``
+    (the arguments stay as they were); ``metrics`` holds ``grad_norm`` and
+    ``lr``."""
+    def copy(t):
+        return t.detach().clone(memory_format=torch.contiguous_format)
+    return apply_update_(tree_map(copy, params), grads,
+                         tree_map(copy, opt_state), cfg)
 
-    def part(i):
-        return tree_map(lambda _, o: o[i], params, out)
-    new_state = {"m": part(1), "v": part(2), "step": step}
-    return part(0), new_state, {"grad_norm": gnorm, "lr": lr}
+
+SLICE = 1 << 24     # elements a slice of the in-place update
+
+
+def apply_update_(params, grads, opt_state, cfg: OptimizerConfig):
+    """One AdamW step written into ``params`` and ``opt_state``'s own
+    (contiguous) tensors, the step counter too: each leaf a slice of
+    ``SLICE`` elements at a time, so the update's float32 temporaries stay
+    a few slices whatever the leaf's size.  Returns ``(params, opt_state,
+    metrics)``, the trees passed in."""
+    sc = _scalars(grads, opt_state, cfg)
+
+    def upd_(p, g, m, v):
+        decay = 1.0 if p.dim() >= 2 else 0.0
+        flat = [t.view(-1) for t in (p, m, v)]
+        gf = g.reshape(-1)
+        for i in range(0, p.numel(), SLICE):
+            part = [t[i: i + SLICE] for t in flat]
+            new = _update(part[0], gf[i: i + SLICE], part[1], part[2],
+                          decay, sc, cfg)
+            for t, n in zip(part, new):
+                t.copy_(n)
+    with torch.no_grad():
+        tree_map(upd_, params, grads, opt_state["m"], opt_state["v"])
+        opt_state["step"].copy_(sc[0])
+    return params, opt_state, {"grad_norm": sc[1], "lr": sc[3]}

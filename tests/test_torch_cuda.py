@@ -1229,26 +1229,170 @@ def test_fp32_conv1d_and_matmul_carry_the_plain_gradient(dev):
 
 
 def test_wrappers_without_backward_raise_on_grad(dev):
-    """Every other CUDA wrapper refuses an operand that requires grad,
-    before it launches; under ``torch.no_grad()`` the same call runs."""
+    """The int8 and integer CUDA wrappers refuse an operand that requires
+    grad, before they launch; under ``torch.no_grad()`` the refusal is
+    off: the same call gets past it to the operand checks (an integer
+    tensor cannot require grad, so the refused operand is a float one,
+    which the dtype check then rejects), and the call on valid integer
+    operands launches.  (flash_attention, ssd_scan and matmul_bf16 carry
+    the plain gradient: the test below.)"""
+    from repro_torch.kernels import conv1d as kc
+    from repro_torch.kernels import edit_distance as ked
+    a = torch.randn((64, 32), device=dev, requires_grad=True)
+    x = torch.randn((2, 40, 8), device=dev, requires_grad=True)
+    q = torch.randn((4, 16), device=dev, requires_grad=True)
+    a8, i8 = _int8((64, 32), 91, dev), _int8((32, 16), 92, dev)
+    x8, w8 = _int8((2, 40, 8), 94, dev), _int8((3, 8, 16), 93, dev)
+    t32 = torch.randint(0, 4, (4, 16), generator=_g(95),
+                        dtype=torch.int32).to(dev)
+    cases = ((km.matmul_int8, lambda: km.matmul_int8(a, i8),
+              lambda: km.matmul_int8(a8, i8)),
+             (kc.conv1d_int8, lambda: kc.conv1d_int8(x, w8),
+              lambda: kc.conv1d_int8(x8, w8)),
+             (ked.banded_align, lambda: ked.banded_align(q, q, band=2),
+              lambda: ked.banded_align(t32, t32, band=2)))
+    wrappers = [w for w, _, _ in cases]
+    for wrapper, refused, valid in cases:
+        counts = [w.launches for w in wrappers]
+        with pytest.raises(RuntimeError, match="no backward"):
+            refused()
+        assert counts == [w.launches for w in wrappers]
+        with torch.no_grad():
+            with pytest.raises(TypeError, match="expected torch.int"):
+                refused()
+            assert counts == [w.launches for w in wrappers]
+            valid()
+        assert wrapper.launches == counts[wrappers.index(wrapper)] + 1
+    torch.cuda.synchronize()
+
+
+def _grad_case(name, dev):
+    """(card call, plain version, inputs, (wrapper, counter)) of one
+    training kernel's route."""
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ssd_scan as kssd
-    q = torch.randn((1, 2, 16, 64), device=dev, requires_grad=True)
-    x, la, b, c = _ssd_inputs(2, 64, 24, 40, torch.float32, dev)
-    qb = _bf16((64, 64), 91, dev).requires_grad_()
-    calls = (lambda: kfa.flash_attention(q, q, q),
-             lambda: kssd.ssd_scan(x.requires_grad_(), la, b, c),
-             lambda: km.matmul_bf16(qb, qb))
-    for call in calls:
-        counts = (kfa.flash_attention.launches, kssd.ssd_scan.launches,
-                  km.matmul_bf16.launches)
-        with pytest.raises(RuntimeError, match="no backward"):
-            call()
-        assert counts == (kfa.flash_attention.launches,
-                          kssd.ssd_scan.launches, km.matmul_bf16.launches)
-        with torch.no_grad():
-            call()
-    torch.cuda.synchronize()
+    g = _g(94)
+    kind, route = name.split(":")
+    if kind == "flash":
+        dtype, d = {"wgmma": (torch.bfloat16, 128),
+                    "tf32x3": (torch.float32, 16),
+                    "tf32x3_wgmma": (torch.float32, 128),
+                    "generic": (torch.float32, 300)}[route]
+        path = kfa.route(dtype, d)
+        ins = [torch.randn(s, generator=g).to(dev, dtype)
+               for s in ((2, 4, 70, d), (2, 2, 70, d), (2, 2, 70, d))]
+        attr = {"wgmma": "launches", "tf32x3": "tf32x3_launches",
+                "tf32x3_wgmma": "tf32x3_wgmma_launches",
+                "generic": "generic_launches"}[route]
+        return (lambda q, k, v: kfa.flash_attention(q, k, v),
+                lambda q, k, v: kfa._plain(q, k, v, True, None, path), ins,
+                (kfa.flash_attention, attr))
+    if kind == "ssd":
+        ds, dh, dtype, attr = {
+            "bf16": (128, 64, torch.bfloat16, "launches"),
+            "f32": (16, 16, torch.float32, "launches"),
+            "padded": (64, 32, torch.float32, "padded_launches"),
+            "generic": (300, 33, torch.float32, "generic_launches")}[route]
+        return (lambda *a: kssd.ssd_scan(*a), kssd._plain,
+                list(_ssd_inputs(6, 100, ds, dh, dtype, dev)),
+                (kssd.ssd_scan, attr))
+    k = {"wgmma": 256, "mma_sync": 250}[route]
+    return (lambda a, b, bias: km.matmul_bf16(a, b, bias, activation="silu"),
+            lambda a, b, bias: ref.matmul(a, b, bias, activation="silu"),
+            [_bf16((96, k), 95, dev), _bf16((k, 64), 96, dev, k ** -0.5),
+             _bf16((64,), 97, dev)],
+            (km.matmul_bf16, "wgmma_launches" if route == "wgmma"
+             else "launches"))
+
+
+@pytest.mark.parametrize("name", [
+    "flash:wgmma", "flash:tf32x3", "flash:tf32x3_wgmma", "flash:generic",
+    "ssd:bf16", "ssd:f32", "ssd:padded", "ssd:generic", "gemm:wgmma",
+    "gemm:mma_sync"])
+def test_training_kernels_carry_the_plain_gradient(dev, name):
+    """Operands that require grad: the kernel of the route launches once
+    (counted), the output carries ``PlainGradBackward``, and every
+    gradient, in its operand's dtype, equals plain autograd of the plain
+    version on the same card inputs (the backward is that version's)."""
+    call, plain, ins, (wrapper, attr) = _grad_case(name, dev)
+    a = [t.clone().requires_grad_() for t in ins]
+    b = [t.clone().requires_grad_() for t in ins]
+    before = getattr(wrapper, attr)
+    out = call(*a)
+    assert getattr(wrapper, attr) == before + 1
+    assert type(out.grad_fn).__name__ == "PlainGradBackward"
+    want = plain(*b)
+    gout = torch.randn(want.shape, generator=_g(98)).to(dev, want.dtype)
+    out.backward(gout)
+    want.backward(gout)
+    for ta, tb in zip(a, b):
+        assert ta.grad.dtype == ta.dtype
+        torch.testing.assert_close(ta.grad, tb.grad, rtol=0, atol=1e-5 * float(
+            tb.grad.float().abs().max()))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "mamba2-780m"])
+def test_lm_train_step_on_card_equals_cpu(dev, arch):
+    """One f32 smoke train step from the same params and batch: the loss
+    within 1e-5 of the CPU's and every gradient within 1e-4 of its leaf's
+    largest entry; the card's updated params and moments within 1e-6 of
+    each leaf's largest entry of the CPU's AdamW on the card's own
+    gradients.  (Against the CPU's whole step the params could not be
+    held so: AdamW's first step moves an entry by lr g / (|g| + eps),
+    which the gradient's last bits decide where it is near eps.)"""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import tokens
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import trainer
+    from repro_torch.utils.tree import leaves, tree_map
+    cfg = dataclasses.replace(ARCHS[arch].smoke_config(), dtype="float32")
+    params, _ = transformer.init(_g(99), cfg, device="cpu")
+    pipe = tokens.TokenPipelineConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                      global_batch=4)
+    ocfg = opt.OptimizerConfig(lr=1e-4, warmup_steps=0, total_steps=10)
+    step = trainer.make_train_step(get_model(cfg).loss, cfg, ocfg)
+    out = {}
+    for device in ("cpu", dev):
+        p = tree_map(torch.clone, bc.params_to(params, device))
+        batch = tokens.batch_at_step(pipe, 0, device=device)
+        _, grads = trainer.loss_and_grads(get_model(cfg).loss, p, batch,
+                                          cfg)
+        new, m = step({"params": p, "opt": opt.init_opt_state(p, ocfg)},
+                      batch)
+        out[str(device)] = (float(m["loss"]), tree_map(
+            lambda t: t.cpu(), grads), [t.cpu() for t in leaves(new)])
+    (cl, cg, _), (gl, gg, gnew) = out["cpu"], out[str(dev)]
+    assert gl == pytest.approx(cl, rel=1e-5)
+    for g, w in zip(leaves(gg), leaves(cg)):
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=1e-4 * float(w.abs().max()))
+    want = opt.apply_update(params, gg, opt.init_opt_state(params, ocfg),
+                            ocfg)
+    want = leaves({"params": want[0], "opt": want[1]})
+    assert len(want) == len(gnew)
+    for g, w in zip(gnew, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-6 * max(
+            float(w.float().abs().max()), 1e-30))
+
+
+def test_lm_train_recovery_on_card_is_bitwise(dev, tmp_path):
+    """``launch.train`` on the card (the qwen3-4b smoke config): a failure
+    injected at step 5 and restored from step 3 gives every step's loss
+    and the final state of the uninterrupted run, bit for bit."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.utils.tree import leaves
+    argv = ["--smoke", "--steps", "8", "--ckpt-every", "3"]
+    clean = launch_train.main(argv + ["--ckpt-dir", str(tmp_path / "a")])
+    faulty = launch_train.main(argv + ["--ckpt-dir", str(tmp_path / "b"),
+                                       "--fail-at", "5"])
+    assert faulty["restarts"] == 1
+    assert clean["history"] == faulty["history"]
+    for a, b in zip(leaves(clean["state"]), leaves(faulty["state"])):
+        assert torch.equal(a, b)
 
 
 def test_train_step_on_card_equals_cpu(dev):

@@ -40,6 +40,8 @@ import repro_torch.quant.fake_quant, repro_torch.launch.serve
 import repro_torch.engine.lm, repro_torch.models.registry
 import repro_torch.serving, repro_torch.serving.engine
 import repro_torch.configs.basecaller_soc
+import repro_torch.train.trainer, repro_torch.train.fault_tolerance
+import repro_torch.data.tokens, repro_torch.launch.train
 mods = sorted(m for m in sys.modules
               if m == "jax" or m.startswith("jax.")
               or m == "repro" or m.startswith("repro."))
@@ -93,6 +95,13 @@ def test_scan_covers_the_decode_modules():
                 "serving/legacy.py", "serving/engine.py",
                 "configs/nemotron_4_15b.py", "configs/starcoder2_3b.py",
                 "configs/minicpm_2b.py", "configs/basecaller_soc.py"):
+        assert mod in found, mod
+
+
+def test_scan_covers_the_lm_train_modules():
+    found = {os.path.relpath(p, PKG) for p in _port_sources()}
+    for mod in ("train/trainer.py", "train/fault_tolerance.py",
+                "data/tokens.py", "launch/train.py", "configs/common.py"):
         assert mod in found, mod
 
 

@@ -204,8 +204,12 @@ def test_decode_matches_forward(arch):
 def test_unported_branches_raise_naming_their_items(tmp_path):
     jcfg, _, tp = _params("qwen3-4b", "float32")
     model = get_model(_tcfg(jcfg))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        model.loss(tp, {}, _tcfg(jcfg))
+    # the loss is ported; its vocab-parallel branch (a vocab-sliced
+    # unembedding, tensor parallelism) waits for item 5b
+    tok = torch.zeros((1, 4), dtype=torch.int32)
+    sliced = dict(tp, embedding={"embed": tp["embedding"]["embed"][:128]})
+    with pytest.raises(NotImplementedError, match="item 5b"):
+        model.loss(sliced, {"tokens": tok, "labels": tok}, _tcfg(jcfg))
     with pytest.raises(NotImplementedError, match="item 7"):
         model.abstract_params(_tcfg(jcfg))
     whisper = _tcfg(JARCHS["whisper-medium"].smoke_config())

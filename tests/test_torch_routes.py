@@ -9,13 +9,15 @@ on the CPU in pure Python (the kernels run only on the card):
 * ``ssd_scan.route``: every (ds, dh) up to (128, 128) on the tensor-core
   passes at the padded instantiation, past it on the recurrence kernel,
   and what each takes of shared memory;
-* the wrappers with no backward refuse an operand that requires grad
-  before they check or launch anything (a ``meta`` tensor stands for a
-  CUDA one: the wrapper takes its card path, and would fail on the device
-  check if the refusal did not come first);
-* fp32 ``conv1d`` and ``matmul``'s autograd functions give the plain
-  version's gradient (the kernel's forward replaced by the plain one here,
-  the backward code unchanged)."""
+* the wrappers with no backward (the int8 and integer kernels and the
+  fused tick) refuse an operand that requires grad before they check or
+  launch anything (a ``meta`` tensor stands for a CUDA one: the wrapper
+  takes its card path, and would fail on the device check if the refusal
+  did not come first);
+* fp32 ``conv1d`` and ``matmul``'s autograd functions, and the card paths
+  of ``flash_attention`` (each route), ``ssd_scan`` (each route) and
+  ``matmul_bf16``, give the plain version's gradient (the kernel's
+  forward replaced by the plain one here, the backward code unchanged)."""
 import re
 from pathlib import Path
 
@@ -184,8 +186,6 @@ def _meta(*shape, dtype=torch.float32, grad=True):
 
 
 def _raising_calls():
-    q = _meta(1, 2, 8, 16)
-    x, la, b = _meta(2, 8, 16), _meta(2, 8), _meta(2, 8, 16)
     cfg = tbc.BasecallerConfig(kernels=(3, 1), channels=(8, 5),
                                strides=(1, 1))
     params = {"conv1": {"w": _meta(3, 1, 8), "b": _meta(8)},
@@ -194,13 +194,6 @@ def _raising_calls():
     ints = torch.empty((4,), dtype=torch.int32, device="meta")
     carry = [_meta(4, 2, 1, grad=False), _meta(4, 0, 8, grad=False)]
     return {
-        "flash_attention": lambda: kfa.flash_attention(q, q, q),
-        "flash_attention generic": lambda: kfa.generic(q, q, q),
-        "ssd_scan": lambda: kssd.ssd_scan(x, la, b, b),
-        "ssd_scan generic": lambda: kssd.generic(x, la, b, b),
-        "matmul_bf16": lambda: km.matmul_bf16(
-            _meta(4, 8, dtype=torch.bfloat16), _meta(8, 8,
-                                                     dtype=torch.bfloat16)),
         # the int8 and int32 wrappers: an integer tensor cannot require
         # grad, so a float one shows the refusal comes before the type check
         "matmul_int8": lambda: km.matmul_int8(_meta(4, 8), _meta(8, 8)),
@@ -284,3 +277,81 @@ def test_fp32_autograd_functions_give_the_plain_gradient(monkeypatch):
             if ta is None:
                 continue
             torch.testing.assert_close(ta.grad, tb.grad, rtol=0, atol=0)
+
+
+def _plain_launches(monkeypatch):
+    """Every card launch of flash_attention, ssd_scan and matmul_bf16
+    swapped for its plain version (what the kernel computes)."""
+    monkeypatch.setattr(kfa, "_launch", lambda path, q, k, v, causal, scale:
+                        kfa._plain(q, k, v, causal, scale, path))
+    monkeypatch.setattr(kssd, "_launch",
+                        lambda x, la, b, c, chunk: kssd._plain(x, la, b, c))
+    monkeypatch.setattr(kssd, "_launch_generic", kssd._plain)
+    monkeypatch.setattr(km, "_matmul_bf16_cuda",
+                        lambda a, b, bias, act: ref.matmul(a, b, bias,
+                                                           activation=act))
+
+
+def _gradient_cases():
+    """name -> (card path, its plain version, operand shapes, dtype)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    qkv = [(2, 4, 12, 16), (2, 2, 12, 16), (2, 2, 12, 16)]     # GQA 2
+    ssd = [(3, 40, 16), (3, 40), (3, 40, 32), (3, 40, 32)]
+
+    def flash(path):
+        return (lambda q, k, v: kfa._on_card(path, q, k, v, True, None),
+                lambda q, k, v: kfa._plain(q, k, v, True, None, path))
+    return {
+        "flash_attention": (*flash("wgmma"), qkv, bf),
+        "flash_attention tf32x3": (
+            lambda q, k, v: kfa.tf32x3(q, k, v),
+            lambda q, k, v: kfa._plain(q, k, v, True, None, "tf32x3"),
+            qkv, f32),
+        "flash_attention generic": (
+            lambda q, k, v: kfa.generic(q, k, v, causal=False),
+            lambda q, k, v: kfa._plain(q, k, v, False, None, "generic"),
+            qkv, f32),
+        "ssd_scan": (lambda *a: kssd._on_card(*a, 256), kssd._plain, ssd,
+                     f32),
+        "ssd_scan bf16": (lambda *a: kssd._on_card(*a, 256), kssd._plain,
+                          ssd, bf),
+        "ssd_scan generic": (kssd.generic, kssd._plain, ssd, f32),
+        "matmul_bf16": (
+            lambda a, b, bias: km._bf16_on_card(a, b, bias, "silu"),
+            lambda a, b, bias: ref.matmul(a, b, bias, activation="silu"),
+            [(24, 40), (40, 16), (16,)], bf),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_gradient_cases()))
+def test_kernel_wrappers_give_the_plain_gradient(monkeypatch, name):
+    """The card path of each training kernel, its launch swapped for the
+    plain forward: the output carries ``PlainGrad``'s ``grad_fn``, no
+    counter moves, and every gradient equals plain autograd's bit for bit
+    in the operand's dtype (log_a float32 beside bf16 x, b, c)."""
+    _plain_launches(monkeypatch)
+    card, plain, shapes, dtype = _gradient_cases()[name]
+    g = torch.Generator().manual_seed(0)
+    ins = []
+    for i, s in enumerate(shapes):
+        t = torch.randn(s, generator=g)
+        if name.startswith("ssd") and i == 1:
+            ins.append(-torch.rand(s, generator=g))        # log_a <= 0
+        else:
+            ins.append(t.to(dtype))
+    a = [t.clone().requires_grad_() for t in ins]
+    b = [t.clone().requires_grad_() for t in ins]
+    launches = (kfa.flash_attention.launches, kssd.ssd_scan.launches,
+                km.matmul_bf16.launches)
+    out = card(*a)
+    assert type(out.grad_fn).__name__ == "PlainGradBackward"
+    want = plain(*b)
+    assert out.dtype == want.dtype == ins[0].dtype
+    gout = torch.randn(want.shape, generator=g).to(want.dtype)
+    out.backward(gout)
+    want.backward(gout)
+    for ta, tb in zip(a, b):
+        assert ta.grad.dtype == ta.dtype
+        torch.testing.assert_close(ta.grad, tb.grad, rtol=0, atol=0)
+    assert launches == (kfa.flash_attention.launches, kssd.ssd_scan.launches,
+                        km.matmul_bf16.launches)
