@@ -133,6 +133,19 @@ Phases, each printing JSON lines:
    step-by-step decode within JAX's 2e-2, and two ``lm_decode`` tenants
    of one fleet on one ``LMUnit``, each equal to its solo run; then
    ``matmul_bf16_decode`` (qwen3-4b's three MLP GEMMs at M = 8).
+   ``lm_tp``: ``matmul_int8_lm`` (row 2l: the tiled int8 GEMM at
+   qwen3-4b's seven decode projections, M = 8 and M = 4096, bitwise,
+   beside ``torch._int_mm`` at M = 32, the least M it takes); the int8
+   qwen3-4b (``quantize_params(stack_dims=1)`` of seeded bf16 params) on
+   the ``full`` preset, 16 requests: tokens/s, step ms, 252 tiled int8
+   launches a step, peak memory, and at depth 2 card against CPU within
+   ``lm_decode``'s bf16 bars; two tensor-parallel ranks on the one card
+   over gloo (``distributed.launch.run``): the collectives on CUDA
+   tensors, the f32 smoke qwen3-4b (1e-5) and mamba2-780m (1e-4) against
+   TP 1 on the card, the int8 qwen3-4b at full width 8 steps bit for bit
+   and token for token against one rank, a converter -> ``sharded``
+   checkpoint loaded pre-partitioned (counters, each rank's columns) and
+   serving bit for bit; ``serve --tp 2 --ckpt`` in a subprocess.
 8. ``fleet``: four tenants on one ``repro_torch.fleet.Fleet`` on the
    card: ``lab-fc`` (``flowcell_512`` with phase 4's CNN, pore encoder,
    1,024 reads, depth 2, fused; weight 2), ``lab-bc1`` and ``lab-bc2``
@@ -205,6 +218,10 @@ Phases, each printing JSON lines:
    kernel; ``matmul_bf16_decode``, row 2d, its launches on the
    ``lm_decode`` paths with ``wgmma_launches``, ``variant``,
    ``device_ms`` and ``library_device_ms`` (``torch.matmul``);
+   ``matmul_int8_lm``, row 2l, the tiled int8 kernel's launches on the
+   ``lm_tp`` paths, with ``device_ms``, ``library_m`` (32: ``library_ms``
+   is ``torch._int_mm`` there), ``kernel_ms_at_library_m`` and
+   ``at_4096``;
    ``conv1d`` with ``tc_launches`` and ``bound_fp32_ms``;
    ``conv1d_int8`` with ``tc_launches`` and ``device_ms``;
    ``banded_align`` with ``device_ms``, ``plan`` and ``firehose`` (the
@@ -2945,6 +2962,452 @@ def phase_lm_decode(torch, F, peaks, table, paths):
     return decode_launches
 
 
+# ------------------------------------------------------------ phase lm_tp --
+# Row 2l: the tiled int8 GEMM at qwen3-4b's decode projections, (K, N) of
+# wq, wk, wv, the attention's wo, wi / wi_gate and the MLP's wo; each runs
+# once a layer at decode (7 a layer, 252 a step over 36 layers)
+LM_INT8_PROJ = (("wq", 2560, 4096), ("wk", 2560, 1024), ("wv", 2560, 1024),
+                ("attn wo", 4096, 2560), ("wi", 2560, 9728),
+                ("wi_gate", 2560, 9728), ("mlp wo", 9728, 2560))
+LM_INT8_DECODE_M = 8        # the full preset's slots
+LM_INT8_PREFILL_M = 4096    # the prefill's 1 x 4096 tokens
+LM_INT8_LIB_M = 32          # torch._int_mm takes M > 16 only
+LM_TP = 2                   # two ranks on the one card, over gloo
+LM_TP_STEPS = 8             # JAX's parity test's steps (mamba2: 6)
+LM_TP_F32_TOL = {"qwen3-4b": 1e-5, "mamba2-780m": 1e-4}
+
+
+def check_matmul_int8_lm(torch, peaks, table):
+    """Row 2l: ``kernels.matmul.matmul_int8`` (its tiled kernel: every N
+    here is past 8) at qwen3-4b's seven decode projections, at M = 8 and
+    at M = 4096, bitwise against its plain version; event and device
+    times; ``torch._int_mm`` (cuBLASLt) at M = 32, the least M it takes,
+    beside the kernel at M = 32.  The table row sums the seven M = 8
+    shapes (one layer's decode projections); ``at_4096`` the prefill's."""
+    from repro_torch.kernels import matmul as km
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(11)
+    prefill = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+               "bound_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0}
+    lib_m = {"ms": 0.0, "library_ms": 0.0}
+    for name, k, n in LM_INT8_PROJ:
+        w = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                          dtype=torch.int8)
+        for m in (LM_INT8_DECODE_M, LM_INT8_PREFILL_M, LM_INT8_LIB_M):
+            a = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                              dtype=torch.int8)
+            before = km.matmul_int8.skinny_launches
+            out = km.matmul_int8(a, w)
+            thin = km.matmul_int8.skinny_launches > before
+            want = ref.matmul_int8(a, w)
+            torch.cuda.synchronize()
+            diff = int((out != want).sum().item())
+            require(diff == 0 and not thin,
+                    f"matmul_int8 {name} M={m}: {diff} outputs differ, "
+                    f"skinny {thin}")
+            ms = time_ms(torch, lambda: km.matmul_int8(a, w))
+            line = {"phase": "kernel", "kernel": "matmul_int8_lm",
+                    "shape": f"qwen3-4b {name} at M = {m}",
+                    "a": [m, k], "b": [k, n], "variant": "tiled",
+                    "elements_differing": diff, "ms": ms}
+            if m >= 16:
+                lib_out = torch._int_mm(a, w)
+                require(torch.equal(lib_out, want),
+                        f"matmul_int8 {name}: torch._int_mm disagrees")
+                line["library_ms"] = time_ms(torch,
+                                             lambda: torch._int_mm(a, w))
+            if m == LM_INT8_LIB_M:
+                lib_m["ms"] += ms
+                lib_m["library_ms"] += line["library_ms"]
+                emit(line)
+                continue
+            dms = device_ms(torch, lambda: km.matmul_int8(a, w))
+            plain = time_ms(torch, lambda: ref.matmul_int8(a, w), reps=3,
+                            warm=1)
+            bnd, by = bound_ms(peaks, nbytes(a, w, out), 2.0 * m * k * n,
+                               int8=True)
+            line.update(device_ms=dms, plain_ms=plain, bound_ms=bnd,
+                        bound_by=by)
+            emit(line)
+            if m == LM_INT8_DECODE_M:
+                table.add("matmul_int8_lm", err=diff, ms=ms,
+                          plain_ms=plain, bound=bnd, bound_by=by,
+                          library_ms=0.0)
+                row = table.rows["matmul_int8_lm"]
+                row["device_ms"] = row.get("device_ms", 0.0) + dms
+            else:
+                for f, v in (("ms", ms), ("device_ms", dms),
+                             ("plain_ms", plain), ("bound_ms", bnd),
+                             ("library_ms", line["library_ms"])):
+                    prefill[f] += v
+                prefill["bound_by"] = by
+    row = table.rows["matmul_int8_lm"]
+    # the library at decode: _int_mm's seven shapes at M = 32, beside the
+    # kernel's own at M = 32
+    row["library_ms"] = lib_m["library_ms"]
+    row.update(library_m=LM_INT8_LIB_M, kernel_ms_at_library_m=lib_m["ms"],
+               at_4096=prefill)
+
+
+def int8_lm_params(torch, cfg, dev, seed=0):
+    """Random bf16 params of ``cfg`` from a generator on ``dev``, quantized
+    once by ``quantize_params(stack_dims=1)`` (the float ones freed)."""
+    from repro_torch.models import transformer
+    from repro_torch.quant.params import quantize_params
+    p, _ = transformer.init(torch.Generator(dev).manual_seed(seed), cfg,
+                            device=dev)
+    q = quantize_params(p, stack_dims=1)
+    del p
+    torch.cuda.empty_cache()
+    return q
+
+
+def decode_steps(eng, toks, steps):
+    """``steps`` steps of every slot from ``toks`` (slots, 1), each feeding
+    back its argmax; each step's host logits (JAX's ``decode_logits``)."""
+    import numpy as np
+    out = []
+    for i in range(steps):
+        eng.pos[:] = i
+        logits = eng._step(toks)
+        out.append(logits)
+        toks = logits.argmax(-1)[:, None].astype(np.int32)
+    return out
+
+
+def tp_first_tokens(slots, vocab, seed=3):
+    import numpy as np
+    return np.random.default_rng(seed).integers(
+        1, vocab, (slots, 1)).astype(np.int32)
+
+
+def f32_smoke(arch):
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import ARCHS
+    return dataclasses.replace(ARCHS[arch].smoke_config(),
+                               dtype=torch.float32)
+
+
+def cuda_collectives(torch, dev) -> dict:
+    """``tp.psum``, ``tp.pmax`` and ``tp.all_gather_last`` once on a CUDA
+    tensor in every rank: each result's device and whether it is right
+    (gloo takes CUDA tensors, so no collective stages through host
+    memory)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import tp
+    world = dist.get_world_size()
+    x = torch.full((3,), float(dist.get_rank() + 1), device=dev)
+    with tp.axis_ctx("model", world):
+        got = {"all_reduce_sum": (tp.psum(x), world * (world + 1) / 2),
+               "all_reduce_max": (tp.pmax(x), world),
+               "all_gather": (tp.all_gather_last(x), None)}
+    want_gather = torch.arange(1, world + 1, device=dev,
+                               dtype=torch.float32).repeat_interleave(3)
+    return {k: {"device": v.device.type,
+                "right": bool(torch.equal(v, want_gather) if want is None
+                              else (v == want).all())}
+            for k, (v, want) in got.items()}
+
+
+def lm_tp_rank(rank, world, spec):
+    """One rank of phase ``lm_tp`` (a spawned process; the card is shared):
+    the f32 smoke engines, the int8 qwen3-4b at full width, and the
+    sharded checkpoint's pre-partitioned load, each at ``mesh=world``; the
+    kernels counted from 0 around the full-width run."""
+    import torch
+
+    import repro_torch.engine as te
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import fabric
+    from repro_torch.kernels import ref
+    from repro_torch.models.param import load_numpy_params
+    ref.full_fp32()
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    out = {"rank": rank, "collectives": cuda_collectives(torch, dev)}
+    for arch, steps in (("qwen3-4b", LM_TP_STEPS), ("mamba2-780m", 6)):
+        cfg = f32_smoke(arch)
+        eng = te.build("lm_decode", params=load_numpy_params(
+            spec["f32"][arch], dev), cfg=cfg, slots=2, max_len=16,
+            mesh=world)
+        out[arch] = decode_steps(eng, tp_first_tokens(2, cfg.vocab_size),
+                                 steps)
+
+    cfg = ARCHS["qwen3-4b"].config()
+    q = int8_lm_params(torch, cfg, dev)
+    eng = te.build("lm_decode", preset="full", arch="qwen3-4b", params=q,
+                   mesh=world)
+    del q
+    torch.cuda.empty_cache()
+    counters = launch_counters()
+    for wrapper, attr in counters.values():
+        setattr(wrapper, attr, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out["int8_full"] = decode_steps(eng, tp_first_tokens(
+        eng.slots, cfg.vocab_size), LM_TP_STEPS)
+    torch.cuda.synchronize()
+    out["int8_full_s"] = time.perf_counter() - t0
+    out["launches"] = {k: getattr(w, a) for k, (w, a) in counters.items()}
+    out["int8_local_wi_cols"] = int(
+        eng.params["blocks"]["l0"]["mlp"]["wi"].q.shape[-1])
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del eng
+    torch.cuda.empty_cache()
+
+    base = fabric.counters()
+    eng = te.build("lm_decode", preset="smoke", arch="qwen3-4b",
+                   ckpt_dir=spec["sharded"], mesh=world)
+    out["ckpt_counters"] = {k: v - base.get(k, 0) for k, v in
+                            fabric.counters().items()
+                            if k.startswith("tp.load.")}
+    out["ckpt_local_cols"] = int(
+        eng.params["blocks"]["l0"]["mlp"]["wi"].q.shape[-1])
+    out["ckpt"] = decode_steps(eng, tp_first_tokens(2, eng.cfg.vocab_size),
+                               6)
+    return out
+
+
+def phase_lm_tp(torch, F, peaks, table, paths):
+    """int8 LM weights and tensor parallelism on the card.  (1) Row 2l.
+    (2) qwen3-4b's ``full`` preset (8 slots x 512) with int8 weights
+    (``quantize_params(stack_dims=1)`` of seeded bf16 params): 16 requests,
+    tokens/s, step ms, 252 tiled int8 launches a step, peak memory; at
+    depth 2 card against CPU within phase ``lm_decode``'s bf16 bars.
+    (3) Two ranks on the one card over gloo (``distributed.launch.run``):
+    the f32 smoke qwen3-4b (1e-5) and mamba2-780m (1e-4) against TP 1 on
+    the card; the int8 qwen3-4b at full width 8 steps bit for bit and
+    token for token against the single-rank card run; the converter's
+    sharded checkpoint of an int8 smoke qwen3-4b loaded pre-partitioned
+    (counters, local widths) and serving bit for bit; which gloo
+    collectives stage CUDA tensors through the host.  (4) ``serve --tp 2
+    --ckpt`` in a subprocess.  Returns the tiled int8 launches of the
+    lm_tp paths."""
+    import dataclasses
+
+    import numpy as np
+
+    import repro_torch.engine as te
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import basecaller as bc
+    from repro_torch.distributed import launch
+    from repro_torch.engine.telemetry import Telemetry
+    from repro_torch.models import transformer
+    from repro_torch.models.param import load_numpy_params
+    from repro_torch.quant.params import quantize_params
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train.checkpoint_converter import convert
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    tiled = {"lm_tp": 0}
+
+    def count_tiled(path):
+        got = paths.paths[path]
+        n = got.get("matmul_int8", 0) - got.get("matmul_int8_skinny", 0)
+        tiled["lm_tp"] += n
+        return n
+
+    check_matmul_int8_lm(torch, peaks, table)
+
+    # (2) the int8 full preset on one rank
+    cfg = ARCHS["qwen3-4b"].config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    q = int8_lm_params(torch, cfg, dev)
+    eng = te.build("lm_decode", preset="full", arch="qwen3-4b", params=q)
+    del q
+    init_s = time.perf_counter() - t0
+    drive_decode(torch, eng, decode_requests(cfg.vocab_size, n=1, new=2,
+                                             seed=99))
+    eng.finished.clear()
+    eng.telemetry = Telemetry(workload=eng.workload)
+    rep, step_ms = paths.drive(
+        "lm_tp int8 qwen3-4b full", ("matmul_int8",),
+        lambda: drive_decode(torch, eng, decode_requests(cfg.vocab_size)))
+    n = count_tiled("lm_tp int8 qwen3-4b full")
+    got = paths.paths["lm_tp int8 qwen3-4b full"]
+    per_step = 7 * cfg.num_layers
+    lens = sorted({len(r.tokens_out) for r in eng.finished})
+    emit({"phase": "lm_tp", "part": "int8_full_preset", "arch": "qwen3-4b",
+          "slots": eng.slots, "max_len": eng.max_len, "init_s": init_s,
+          "requests": DECODE_REQUESTS, "completed": rep["completed"],
+          "steps": rep["steps"], "dispatches": rep["dispatches"],
+          "tokens": eng.telemetry.tokens,
+          "tokens_per_s": rep["tokens_per_s"], "wall_s": rep["wall_s"],
+          "step_ms_mean": float(np.mean(step_ms)),
+          "step_ms_p50": float(np.percentile(step_ms, 50)),
+          "request_p50_ms": rep["p50_ms"], "request_p99_ms": rep["p99_ms"],
+          "tiled_int8_launches": n,
+          "tiled_int8_per_dispatch": n / rep["dispatches"],
+          "skinny_int8_launches": got.get("matmul_int8_skinny", 0),
+          "launches": got, "tokens_out_lengths": lens,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+    require(rep["completed"] == DECODE_REQUESTS
+            and lens == [DECODE_NEW_TOKENS + 1],
+            f"lm_tp int8: completed {rep['completed']}, lengths {lens}")
+    require(n == per_step * rep["dispatches"]
+            and got.get("matmul_int8_skinny", 0) == 0,
+            f"lm_tp int8: {n} tiled int8 launches over {rep['dispatches']} "
+            f"steps, expected {per_step} a step; {got}")
+    solo_full = decode_steps(eng, tp_first_tokens(eng.slots,
+                                                  cfg.vocab_size),
+                             LM_TP_STEPS)
+    del eng
+    torch.cuda.empty_cache()
+
+    # (2) depth 2: card against CPU, four teacher-forced steps
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    q_cpu = quantize_params(transformer.init(
+        torch.Generator().manual_seed(0), cfg2, device="cpu")[0],
+        stack_dims=1)
+    q_card = bc.params_to(q_cpu, dev)
+    caches = {d: transformer.init_cache(cfg2, 2, 16, device=d)
+              for d in ("cpu", "cuda")}
+    rng = np.random.default_rng(4)
+    pos = np.array([0, 5])
+    worst = {"over_bar": 0.0, "top1_differs_beyond_bar": 0}
+    for _ in range(4):
+        tok = rng.integers(0, cfg2.vocab_size, (2, 1))
+        lg = {}
+        for d, p in (("cpu", q_cpu), ("cuda", q_card)):
+            with torch.inference_mode():
+                out, caches[d] = transformer.serve_step(
+                    p, caches[d], torch.as_tensor(tok, device=d),
+                    torch.as_tensor(pos, device=d), cfg2)
+            lg[d] = out.float().cpu()[:, 0]
+        bar = 2 * bf16_ulp(lg["cpu"].abs().max().item())
+        worst["over_bar"] = max(worst["over_bar"], (
+            lg["cuda"] - lg["cpu"]).abs().max().item() / bar)
+        top2 = lg["cpu"].topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > bar
+        worst["top1_differs_beyond_bar"] += int(
+            (lg["cuda"].argmax(-1) != lg["cpu"].argmax(-1))[sure].sum())
+        pos += 1
+    emit({"phase": "lm_tp", "part": "int8_depth2_card_vs_cpu",
+          "arch": "qwen3-4b", "layers": 2, "steps": 4, **worst,
+          "bar": "2 bf16 ulps of max |logit| (CPU) each step"})
+    require(worst["over_bar"] <= 1.0
+            and worst["top1_differs_beyond_bar"] == 0,
+            f"lm_tp int8 depth-2: {worst}")
+    del q_cpu, q_card, caches
+    torch.cuda.empty_cache()
+
+    # (3) the f32 smoke engines at TP 1 on the card, and the checkpoint
+    f32 = {}
+    solo = {}
+    for arch, steps in (("qwen3-4b", LM_TP_STEPS), ("mamba2-780m", 6)):
+        scfg = f32_smoke(arch)
+        p, _ = transformer.init(torch.Generator().manual_seed(0), scfg,
+                                device="cpu")
+        f32[arch] = numpy_tree(p)
+        eng = te.build("lm_decode", params=load_numpy_params(f32[arch], dev),
+                       cfg=scfg, slots=2, max_len=16)
+        solo[arch] = decode_steps(eng, tp_first_tokens(2, scfg.vocab_size),
+                                  steps)
+    ck_dir = os.path.join(ROOT, "build", "lm_tp")
+    full_dir, sharded = (os.path.join(ck_dir, d) for d in ("full", "tp2"))
+    scfg = ARCHS["qwen3-4b"].smoke_config()
+    qs = quantize_params(transformer.init(torch.Generator().manual_seed(1),
+                                          scfg, device="cpu")[0],
+                         stack_dims=1)
+    ck.save(full_dir, qs, step=1)
+    convert(full_dir, sharded, tp=LM_TP, arch="qwen3-4b", smoke=True)
+    eng = te.build("lm_decode", preset="smoke", arch="qwen3-4b",
+                   params=bc.params_to(qs, dev))
+    solo_ckpt = decode_steps(eng, tp_first_tokens(2, scfg.vocab_size), 6)
+    del eng
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = launch.run(lm_tp_rank, LM_TP,
+                       args=({"f32": f32, "sharded": sharded},),
+                       timeout_s=600)
+    ranks_s = time.perf_counter() - t0
+    counts = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    paths.record("lm_tp int8 qwen3-4b full tp2", counts, ("matmul_int8",))
+    n_tp = count_tiled("lm_tp int8 qwen3-4b full tp2")
+    f32_lines = {}
+    for arch in solo:
+        tol = LM_TP_F32_TOL[arch]
+        over = max(float(np.max(np.abs(g - c) / (tol * (1 + np.abs(c)))))
+                   for r in ranks for g, c in zip(r[arch], solo[arch]))
+        over_1e5 = max(float(np.max(np.abs(g - c) / (1e-5 * (
+            1 + np.abs(c))))) for r in ranks
+            for g, c in zip(r[arch], solo[arch]))
+        tokens = all([a.argmax(-1).tolist() for a in r[arch]]
+                     == [a.argmax(-1).tolist() for a in solo[arch]]
+                     for r in ranks)
+        f32_lines[arch] = {"over_bar": over, "bar": tol,
+                           "over_1e-5": over_1e5, "tokens_equal": tokens}
+        require(over <= 1.0 and tokens, f"lm_tp f32 {arch}: {f32_lines}")
+    bitwise = all(np.array_equal(a, b) for r in ranks
+                  for a, b in zip(r["int8_full"], solo_full))
+    tokens_equal = all([a.argmax(-1).tolist() for a in r["int8_full"]]
+                       == [a.argmax(-1).tolist() for a in solo_full]
+                       for r in ranks)
+    ckpt_bitwise = all(np.array_equal(a, b) for r in ranks
+                       for a, b in zip(r["ckpt"], solo_ckpt))
+    wi_cols = ARCHS["qwen3-4b"].config().d_ff
+    emit({"phase": "lm_tp", "part": "tp2_one_card", "ranks": LM_TP,
+          "backend": "gloo",
+          "cuda_collectives": [r["collectives"] for r in ranks],
+          "f32_smoke_vs_tp1": f32_lines,
+          "int8_full_steps": LM_TP_STEPS, "int8_full_bitwise": bitwise,
+          "int8_full_tokens_equal": tokens_equal,
+          "int8_full_s": [r["int8_full_s"] for r in ranks],
+          "tiled_int8_launches": n_tp,
+          "tiled_int8_per_rank_step": n_tp / (LM_TP * LM_TP_STEPS),
+          "int8_local_wi_cols": [r["int8_local_wi_cols"] for r in ranks],
+          "peak_mem_gb": [r["peak_mem_gb"] for r in ranks],
+          "ckpt_counters": [r["ckpt_counters"] for r in ranks],
+          "ckpt_local_cols": [r["ckpt_local_cols"] for r in ranks],
+          "ckpt_serve_bitwise": ckpt_bitwise, "ranks_wall_s": ranks_s})
+    require(all(c == {"device": "cuda", "right": True}
+                for r in ranks for c in r["collectives"].values()),
+            f"lm_tp collectives: {[r['collectives'] for r in ranks]}")
+    require(bitwise and tokens_equal,
+            f"lm_tp int8 full width: bitwise {bitwise}, tokens "
+            f"{tokens_equal}")
+    require(n_tp == LM_TP * LM_TP_STEPS * 7 * cfg.num_layers,
+            f"lm_tp: {n_tp} tiled int8 launches in the ranks")
+    require(all(r["int8_local_wi_cols"] == wi_cols // LM_TP for r in ranks),
+            "lm_tp: a rank holds the wrong slice of wi")
+    require(ckpt_bitwise and all(
+        r["ckpt_counters"].get("tp.load.pre_partitioned", 0) > 0
+        and r["ckpt_counters"].get("tp.load.replicated_slice", 0) == 0
+        and r["ckpt_local_cols"] == scfg.d_ff // LM_TP for r in ranks),
+        "lm_tp: sharded checkpoint load")
+
+    # (4) the serve CLI at --tp 2 on the converted checkpoint
+    env = dict(os.environ, PYTHONPATH=SRC)
+    argv = ["--workload", "lm_decode", "--smoke", "--tp", str(LM_TP),
+            "--ckpt", sharded, "--requests", "4", "--json"]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                           *argv], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=300)
+    out = proc.stdout
+    report = json.loads(out[out.index("{"):]) if "{" in out else {}
+    emit({"phase": "lm_tp", "part": "serve_cli", "argv": argv,
+          "rc": proc.returncode, "wall_s": time.perf_counter() - t0,
+          **{k: report.get(k) for k in ("completed", "dispatches",
+                                        "tokens_per_s")}})
+    require(proc.returncode == 0 and report.get("completed") == 4,
+            f"serve --tp {LM_TP} exited {proc.returncode}: "
+            f"{proc.stderr[-2000:]}")
+    emit({"phase": "lm_tp", "part": "wall",
+          "wall_s": time.perf_counter() - t_phase})
+    return tiled["lm_tp"]
+
+
+
 # ------------------------------------------------------------ phase fleet --
 # The basecall tenants' traffic is benchmarks/fleet.py's bursty arrivals
 # at its full size: 6 bursts a tenant 0.25 s apart, 6 requests (one
@@ -4771,6 +5234,10 @@ KERNELS = {
     # decode server's MLP; its launches are the lm_decode paths'
     "matmul_bf16_decode": ("src/repro_torch/kernels/csrc/matmul.cu",
                            "src/repro/kernels/matmul.py:120"),
+    # row 2l: matmul_int8's tiled kernel at the int8 LM's projections;
+    # its launches are the lm_tp paths' (one rank and two)
+    "matmul_int8_lm": ("src/repro_torch/kernels/csrc/matmul.cu",
+                       "src/repro/kernels/matmul.py:120"),
 }
 
 
@@ -4840,6 +5307,18 @@ class PathLaunches:
             require(counts[k] > 0, f"kernel {k} never launched on the "
                     f"{path} path")
         return result
+
+    def record(self, path, counts, kernels):
+        """A path driven in other processes (tensor-parallel ranks, each
+        counting from 0 around it): their summed counts."""
+        self.paths[path] = {k: v for k, v in counts.items() if v}
+        for k in self.total:
+            self.total[k] += counts.get(k, 0)
+        emit({"phase": "launches", "path": path, "launches":
+              self.paths[path]})
+        for k in kernels:
+            require(counts.get(k, 0) > 0, f"kernel {k} never launched on "
+                    f"the {path} path")
 
 
 def main() -> int:
@@ -4938,6 +5417,7 @@ def main() -> int:
     phase_lm_prefill(torch, paths)
     phase_lm_parity_f32(torch, paths)
     decode_launches = phase_lm_decode(torch, F, peaks, table, paths)
+    lm_tp_tiled = phase_lm_tp(torch, F, peaks, table, paths)
     phase_fleet(torch, panel, paths)
     phase_field(torch, paths)
     phase_train(torch, paths)
@@ -4961,9 +5441,11 @@ def main() -> int:
     kernels = []
     for k, (src, replaces) in KERNELS.items():
         r = table.rows[k]
-        decode = k == "matmul_bf16_decode"
-        launches = (decode_launches["matmul_bf16"] if decode
-                    else row_launches(k, paths.total))
+        decode = k in ("matmul_bf16_decode", "matmul_int8_lm")
+        launches = (decode_launches["matmul_bf16"]
+                    if k == "matmul_bf16_decode" else lm_tp_tiled
+                    if k == "matmul_int8_lm" else row_launches(k,
+                                                                paths.total))
         kernels.append({
             "name": k, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches, "max_abs_err": r["max_abs_err"],
@@ -4973,8 +5455,17 @@ def main() -> int:
         if not decode:
             # of those, the lm_train paths' (forward and remat recompute;
             # the backward is each plain version's); no training path
-            # runs row 2d's M = 8
+            # runs row 2d's M = 8 or row 2l's int8 LM
             kernels[-1]["train_launches"] = row_launches(k, paths.train)
+        if k == "matmul_int8_lm":
+            # the tiled kernel at one decode layer's seven projections (M
+            # = 8) summed, device time, _int_mm at M = 32 (the least it
+            # takes) beside the kernel there, and the prefill's M = 4096
+            kernels[-1].update(
+                variant="tiled", device_ms=r["device_ms"],
+                library_m=r["library_m"],
+                kernel_ms_at_library_m=r["kernel_ms_at_library_m"],
+                at_4096=r["at_4096"])
         if k == "matmul_bf16":
             kernels[-1]["wgmma_launches"] = paths.total["matmul_bf16_wgmma"]
         if k == "matmul_bf16_decode":

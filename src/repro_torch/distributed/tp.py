@@ -1,0 +1,526 @@
+"""Tensor parallelism over the mesh's ``model`` axis
+(``repro/distributed/tp.py``), one process a rank.
+
+JAX runs the Megatron layout inside one ``shard_map`` body per device;
+PyTorch's idiom is one process per rank in a ``torch.distributed`` process
+group, which :mod:`repro_torch.distributed.launch` starts.  The layout is
+JAX's: column-parallel ``wi``/``wi_gate``/``wq``/``wk``/``wv`` (sliced on
+the output dim, no collective), row-parallel ``wo``/``out_proj`` (sliced on
+the input dim, one all-reduce after), a vocab-parallel embedding, and the
+Mamba-2 ``in_proj``/head vectors sliced by heads.  Three pieces:
+
+* **runtime context**: :func:`axis_ctx` binds a process group as the
+  model axis; inside it :func:`psum` is ``all_reduce(SUM)``, :func:`pmax`
+  ``all_reduce(MAX)``, :func:`all_gather_last` an ``all_gather`` then a
+  ``cat`` on the last dim in rank order, and :func:`index` the rank in the
+  group.  Outside any context every helper is the identity, so one device
+  runs the same layer code.  The collectives take the tensors where they
+  are: gloo takes CUDA tensors for all three (``chip_smoke.py``'s phase
+  ``lm_tp`` checks it on an H100, torch 2.11), so nothing is staged
+  through host memory.
+
+* **slicing plan**: :func:`build_plan` gives each parameter leaf a
+  :class:`Segments` rule (or ``None``, replicated) through the same
+  logical-to-mesh rules ``sharding.logical_spec`` reads.
+
+* **placement**: :func:`partition_params` keeps this rank's slice of a
+  full tree (counted ``tp.load.replicated_slice``);
+  :func:`load_sharded_params` reads only this rank's ``shard_<k>.npz`` of a
+  ``sharded`` checkpoint (counted ``tp.load.pre_partitioned``) and checks
+  that each sliced leaf holds exactly its local width.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.kernels import fabric
+from repro_torch.quant import core as qcore
+
+# ===================================================== runtime context ====
+_TP_AXIS: Optional[str] = None
+_TP_EXTENT: int = 1
+
+
+@contextlib.contextmanager
+def axis_ctx(name: str, n: int):
+    """Scope a tensor-parallel axis: ``with tp.axis_ctx("model", 2): ...``.
+
+    ``n > 1`` binds the world process group of an initialised
+    ``torch.distributed``, which must hold exactly ``n`` ranks; ``n <= 1``
+    is the identity context."""
+    global _TP_AXIS, _TP_EXTENT
+    prev = (_TP_AXIS, _TP_EXTENT)
+    n = int(n)
+    if n > 1:
+        if not dist.is_initialized():
+            raise RuntimeError(
+                f"tp.axis_ctx({name!r}, {n}): tensor parallelism runs one "
+                "process per rank; start them with "
+                "repro_torch.distributed.launch.run")
+        size = dist.get_world_size()
+        if size != n:
+            raise ValueError(f"tp.axis_ctx({name!r}, {n}): the process "
+                             f"group holds {size} ranks")
+        _TP_AXIS, _TP_EXTENT = name, n
+    else:
+        _TP_AXIS, _TP_EXTENT = None, 1
+    try:
+        yield
+    finally:
+        _TP_AXIS, _TP_EXTENT = prev
+
+
+def axis() -> Optional[str]:
+    """The active TP axis name, or None outside a TP region."""
+    return _TP_AXIS
+
+
+def extent() -> int:
+    """Number of model shards (1 outside a TP region)."""
+    return _TP_EXTENT
+
+
+def index() -> int:
+    """This rank's position along the TP axis (0 outside a TP region)."""
+    return 0 if _TP_AXIS is None else dist.get_rank()
+
+
+def _all_reduce(x: torch.Tensor, op) -> torch.Tensor:
+    if _TP_AXIS is None:
+        return x
+    # the collective writes in place: into a contiguous copy
+    out = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=op)
+    return out
+
+
+def psum(x: torch.Tensor) -> torch.Tensor:
+    return _all_reduce(x, dist.ReduceOp.SUM)
+
+
+def pmax(x: torch.Tensor) -> torch.Tensor:
+    return _all_reduce(x, dist.ReduceOp.MAX)
+
+
+def all_gather_last(x: torch.Tensor) -> torch.Tensor:
+    """Concatenate the ranks' shards along the last dim, in rank order."""
+    if _TP_AXIS is None:
+        return x
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(_TP_EXTENT)]
+    dist.all_gather(parts, x)
+    return torch.cat(parts, dim=-1)
+
+
+# ======================================================== slicing rules ===
+def _concat(parts, dim: int):
+    if isinstance(parts[0], np.ndarray):
+        return np.concatenate(parts, axis=dim)
+    return torch.cat(parts, dim=dim)
+
+
+def _own(a):
+    """A contiguous copy that owns its memory (the full array can go)."""
+    if isinstance(a, np.ndarray):
+        return np.ascontiguousarray(a)
+    return a.contiguous().clone()
+
+
+@dataclasses.dataclass(frozen=True)
+class Segments:
+    """Slicing rule for one parameter dim made of packed segments.
+
+    ``parts`` is ``((width, sharded), ...)`` covering ``dim`` end to end.
+    A plain column or row shard is one ``(width, True)`` part; the Mamba-2
+    ``in_proj`` output dim is ``[z x B C dt]`` with z/x/dt sharded by heads
+    and the one-group B/C replicated on every shard.  ``slice`` and
+    ``unslice`` are exact inverses (numpy arrays or tensors), so the
+    converter and the reassembling reader share one layout."""
+    dim: int
+    parts: tuple[tuple[int, bool], ...]
+
+    @classmethod
+    def plain(cls, dim: int, width: int) -> "Segments":
+        return cls(dim=dim, parts=((width, True),))
+
+    def local_width(self, n: int) -> int:
+        return sum(w // n if sh else w for w, sh in self.parts)
+
+    def _index(self, arr_ndim: int, lo: int, hi: int):
+        d = self.dim % arr_ndim
+        return (slice(None),) * d + (slice(lo, hi),)
+
+    def validate(self, shape, n: int, name: str = "?") -> None:
+        d = self.dim % len(shape)
+        total = sum(w for w, _ in self.parts)
+        if shape[d] != total:
+            raise ValueError(
+                f"{name}: dim {d} has {shape[d]} features, slicing rule "
+                f"covers {total}")
+        for w, sh in self.parts:
+            if sh and w % n:
+                raise ValueError(
+                    f"{name}: segment of width {w} not divisible by "
+                    f"tp={n}")
+
+    def slice(self, arr, i: int, n: int):
+        """Shard ``i`` of ``n`` (a view where it is one segment)."""
+        segs, off = [], 0
+        for w, sh in self.parts:
+            if sh:
+                lw = w // n
+                lo = off + i * lw
+                segs.append(arr[self._index(arr.ndim, lo, lo + lw)])
+            else:
+                segs.append(arr[self._index(arr.ndim, off, off + w)])
+            off += w
+        if len(segs) == 1:
+            return segs[0]
+        return _concat(segs, self.dim % arr.ndim)
+
+    def unslice(self, shards):
+        """The full array from the shards' locals, bit for bit."""
+        n = len(shards)
+        d = self.dim % shards[0].ndim
+        segs, off = [], 0
+        for w, sh in self.parts:
+            if sh:
+                lw = w // n
+                segs.extend(s[self._index(s.ndim, off, off + lw)]
+                            for s in shards)
+                off += lw
+            else:
+                segs.append(shards[0][self._index(shards[0].ndim,
+                                                  off, off + w)])
+                off += w
+        if len(segs) == 1:
+            return segs[0]
+        return _concat(segs, d)
+
+    def to_json(self):
+        return {"dim": self.dim, "parts": [[w, bool(sh)]
+                                           for w, sh in self.parts]}
+
+    @classmethod
+    def from_json(cls, obj) -> Optional["Segments"]:
+        if obj is None or obj == "replicated":
+            return None
+        return cls(dim=int(obj["dim"]),
+                   parts=tuple((int(w), bool(sh)) for w, sh in obj["parts"]))
+
+
+def rule_to_json(rule: Optional[Segments]):
+    return "replicated" if rule is None else rule.to_json()
+
+
+def scale_rule(rule: Optional[Segments], payload_ndim: int
+               ) -> Optional[Segments]:
+    """Slicing rule for a QuantizedTensor's per-channel ``scale``.
+
+    Scales run along the payload's last axis: column-parallel weights
+    (sliced on the last dim) slice their scales the same way; row-parallel
+    ones (sliced on an input dim) replicate them.  ``dim=-1`` covers the
+    plain ``(C,)`` scale and the stacked ``(*stack, C)`` one."""
+    if rule is None or rule.dim % payload_ndim != payload_ndim - 1:
+        return None
+    return Segments(dim=-1, parts=rule.parts)
+
+
+# ========================================================== plan builder ==
+def _flatten_with_keys(tree, is_leaf=None, prefix=()):
+    """``(key, names, leaf)`` in JAX's flatten order: dict keys sorted,
+    lists and tuples by index (a tuple is a leaf where ``is_leaf`` says)."""
+    if is_leaf is not None and is_leaf(tree):
+        return [("/".join(prefix), list(prefix), tree)]
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree)
+                for kv in _flatten_with_keys(tree[k], is_leaf,
+                                             prefix + (str(k),))]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, v in enumerate(tree)
+                for kv in _flatten_with_keys(v, is_leaf, prefix + (str(i),))]
+    return [("/".join(prefix), list(prefix), tree)]
+
+
+def _unflatten_like(tree, leaves_by_key: dict, prefix=()):
+    if isinstance(tree, dict):
+        return {k: _unflatten_like(v, leaves_by_key, prefix + (str(k),))
+                for k, v in tree.items()}
+    return leaves_by_key["/".join(prefix)]
+
+
+def _maps_to(rules: dict, logical: Optional[str], tp_axis: str) -> bool:
+    if not logical:
+        return False
+    mapped = rules.get(logical)
+    if mapped is None:
+        return False
+    mapped = (mapped,) if isinstance(mapped, str) else tuple(mapped)
+    return tp_axis in mapped
+
+
+# segment layouts of the Mamba-2 packed projections (see models/mamba2.py):
+#   in_proj out dim  = [z (di) | x (di) | B (ds) | C (ds) | dt (nh)]
+#   conv_w/conv_b    = [x (di) | B (ds) | C (ds)]
+# z/x/dt shard with the heads; the one-group B/C stay on every shard.
+def _mamba_segments(key: str, cfg) -> Optional[list[tuple[int, bool]]]:
+    di, ds, nh = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
+    if key == "in_proj":
+        return [(di, True), (di, True), (ds, False), (ds, False), (nh, True)]
+    if key in ("conv_w", "conv_b"):
+        return [(di, True), (ds, False), (ds, False)]
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """Per-leaf slicing rules for one (model config, tp degree) pair."""
+    tp: int
+    axis: str
+    rules: Any                            # tree: Segments | None per leaf
+    flat: dict[str, Optional[Segments]]   # checkpoint key -> rule
+
+    def flat_json(self) -> dict:
+        return {k: rule_to_json(r) for k, r in self.flat.items()}
+
+
+def default_tp_rules() -> dict[str, Any]:
+    """The logical-to-mesh mapping when no mesh is at hand (the offline
+    converter); ``sharding.default_rules``' model-axis entries."""
+    return {"vocab": "model", "heads": "model", "kv_heads": "model",
+            "mlp": "model", "ssm_inner": "model", "ssm_heads": "model"}
+
+
+def build_plan(axes_tree, shapes_tree, *, cfg, tp: int, axis: str = "model",
+               rules: Optional[dict] = None) -> Plan:
+    """Give every parameter leaf a slicing rule (or None, replicated).
+
+    ``axes_tree``/``shapes_tree`` come from ``model.abstract_params(cfg)``
+    (meta tensors: shapes only); ``rules`` is the logical-to-mesh mapping
+    (``sharding.default_rules(mesh)`` at serve time,
+    :func:`default_tp_rules` offline).  A model-mapped dim that ``tp`` does
+    not divide is an error naming the parameter, except the vocab, which
+    falls back to a replicated embedding."""
+    tp = int(tp)
+    if tp < 1:
+        raise ValueError(f"tp={tp}")
+    rules = default_tp_rules() if rules is None else rules
+
+    # config-level divisibility first: clearer than the per-leaf check
+    # (kv_dim may divide while kv_heads do not, and the decode reshape
+    # would then mix heads across shards)
+    problems = []
+    has_attn = any(s.mixer == "attn" for s in cfg.block_pattern)
+    has_mamba = any(s.mixer == "mamba" for s in cfg.block_pattern)
+    if tp > 1 and has_attn:
+        if cfg.num_heads % tp:
+            problems.append(f"num_heads={cfg.num_heads}")
+        if cfg.num_kv_heads % tp:
+            problems.append(f"num_kv_heads={cfg.num_kv_heads}")
+    if tp > 1 and cfg.d_ff % tp and any(s.ff for s in cfg.block_pattern):
+        problems.append(f"d_ff={cfg.d_ff}")
+    if tp > 1 and has_mamba and cfg.ssm_heads % tp:
+        problems.append(f"ssm_heads={cfg.ssm_heads}")
+    if problems:
+        raise ValueError(
+            f"model '{cfg.name}' cannot shard over tp={tp}: "
+            + ", ".join(problems) + " not divisible")
+
+    shape_items = _flatten_with_keys(shapes_tree)
+    axes_by_key = {k: leaf for k, _, leaf in _flatten_with_keys(
+        axes_tree, is_leaf=lambda x: isinstance(x, tuple))}
+
+    flat: dict[str, Optional[Segments]] = {}
+    for key, names, like in shape_items:
+        rule = _leaf_rule(names, tuple(like.shape), axes_by_key.get(key),
+                          cfg, tp, axis, rules)
+        if rule is not None:
+            rule.validate(tuple(like.shape), tp, name=key)
+        flat[key] = rule
+    return Plan(tp=tp, axis=axis, rules=_unflatten_like(shapes_tree, flat),
+                flat=flat)
+
+
+def _leaf_rule(names, shape, axes, cfg, tp, tp_axis, rules
+               ) -> Optional[Segments]:
+    if tp == 1:
+        return None
+    # MoE experts stay replicated under TP: expert parallelism covers them
+    # on the data axis, and moe() computes with full weights
+    if "moe" in names:
+        return None
+    key = names[-1] if names else ""
+    if "mamba" in names:
+        segs = _mamba_segments(key, cfg)
+        if segs is not None:
+            return Segments(dim=len(shape) - 1, parts=tuple(segs))
+    if axes is None:
+        return None
+    for i, logical in enumerate(axes):
+        if not _maps_to(rules, logical, tp_axis):
+            continue
+        if shape[i] % tp:
+            if logical == "vocab":
+                return None  # replicated-embedding fallback (odd vocabs)
+            raise ValueError(
+                f"{'/'.join(names)}: dim {i} ({logical}={shape[i]}) not "
+                f"divisible by tp={tp}")
+        return Segments.plain(i, shape[i])
+    return None
+
+
+# ============================================================ placement ===
+def _map_with_rules(plan: Plan, params, fn):
+    def walk(rules, leaf):
+        if isinstance(rules, dict):
+            return {k: walk(rules[k], leaf[k]) for k in rules}
+        return fn(rules, leaf)
+    return walk(plan.rules, params)
+
+
+def _keep(rule: Optional[Segments], full, rank: int, tp: int, device):
+    if rule is None:
+        return full.to(device)
+    fabric.record("tp.load.replicated_slice")
+    return _own(rule.slice(full, rank, tp)).to(device)
+
+
+def partition_params(params, plan: Plan, *, rank: int, device=None):
+    """This rank's slice of a full params tree (the migration path, and
+    the fresh-init one): every sharded leaf is cut to its local block,
+    copied so the full weight can be freed, and counted
+    ``tp.load.replicated_slice``; replicated leaves pass through.
+    QuantizedTensor leaves slice payload and per-channel scales along the
+    same axis.  ``rank`` is this process's position in the group;
+    ``device`` defaults to each leaf's own."""
+    rank = int(rank)
+    tp = plan.tp
+
+    def one(rule, leaf):
+        dev = leaf.device if device is None else device
+        if qcore.is_quantized(leaf):
+            return qcore.QuantizedTensor(
+                _keep(rule, leaf.q, rank, tp, dev),
+                _keep(scale_rule(rule, leaf.q.dim()), leaf.scale, rank, tp,
+                      dev),
+                leaf.axis,
+                None if leaf.act_scale is None else leaf.act_scale.to(dev))
+        return _keep(rule, leaf, rank, tp, dev)
+
+    return _map_with_rules(plan, params, one)
+
+
+def load_sharded_params(ckpt_dir: str, plan: Plan, *,
+                        step: Optional[int] = None, rank: int,
+                        device="cpu"):
+    """Pre-partitioned load from a ``format: "sharded"`` checkpoint: this
+    rank reads only its own ``shard_<k>.npz``, whose leaves the converter
+    already cut (payload and per-channel scales), and puts them on
+    ``device``: no full weight is ever read or built.  The manifest's
+    ``shard_info`` must match ``plan``: a checkpoint converted for another
+    tp degree or layout raises, it is never re-sliced."""
+    from repro_torch.train import checkpoint as ck
+    rank = int(rank)
+    tp = plan.tp
+    manifest, _ = ck._read_manifest(ckpt_dir, step)
+    if manifest.get("format") != "sharded":
+        raise ValueError(f"checkpoint under {ckpt_dir} has format "
+                         f"{manifest.get('format')!r}, expected 'sharded'")
+    if int(manifest["num_shards"]) != tp:
+        raise ValueError(
+            f"checkpoint has {manifest['num_shards']} shards, mesh wants "
+            f"tp={tp} — re-run the converter for this mesh")
+    manifest, shard = ck.read_shard(ckpt_dir, rank, step=manifest["step"])
+    shard_info = manifest["shard_info"]
+
+    def put(key: str, want: Optional[Segments]):
+        got = Segments.from_json(shard_info.get(key, "replicated"))
+        if rule_to_json(got) != rule_to_json(want):
+            raise ValueError(
+                f"{key}: checkpoint sliced as {rule_to_json(got)}, plan "
+                f"wants {rule_to_json(want)} — re-shard the checkpoint")
+        arr = shard[key]
+        if got is None:
+            fabric.record("tp.load.replicated")
+            return arr.to(device)
+        width = arr.shape[got.dim % arr.dim()]
+        if width != got.local_width(tp):
+            raise ValueError(f"{key}: shard {rank} holds {width} of "
+                             f"{sum(w for w, _ in got.parts)} features, "
+                             f"expected {got.local_width(tp)}")
+        fabric.record("tp.load.pre_partitioned")
+        return arr.to(device)
+
+    keys = set(manifest["keys"])
+    tree: dict = {}
+    for stem, want in plan.flat.items():
+        if stem in keys:
+            leaf = put(stem, want)
+        elif stem + "/0" in keys:  # QuantizedTensor children (q, scale[, act])
+            qs = manifest["shapes"][stem + "/0"]
+            leaf = qcore.QuantizedTensor(
+                put(stem + "/0", want),
+                put(stem + "/1", scale_rule(want, len(qs))),
+                # -1, not ndim - 1: channel-last also for a stacked payload
+                -1 if len(manifest["shapes"][stem + "/1"]) else None,
+                put(stem + "/2", None) if stem + "/2" in keys else None)
+        else:
+            raise KeyError(f"checkpoint is missing parameter '{stem}'")
+        node = tree
+        parts = stem.split("/")
+        for name in parts[:-1]:
+            node = node.setdefault(name, {})
+        node[parts[-1]] = leaf
+    return tree
+
+
+def shard_state(flat: dict, plan: Plan, *, prefix: str = ""
+                ) -> tuple[list[dict], dict]:
+    """Slice a flat ``{checkpoint_key: array}`` state (numpy arrays or
+    tensors) into per-shard flat dicts and the manifest's ``shard_info``:
+    the converter's core.
+
+    Keys resolve against ``plan.flat`` directly, or with ``prefix/``
+    stripped.  QuantizedTensor children (``<stem>/0`` payload, ``/1``
+    scales, ``/2`` act scale) slice by the stem's rule: the payload as the
+    float weight would, per-channel scales along the same axis, the act
+    scale replicated.  Unknown keys (optimizer state, step counters)
+    replicate."""
+    def stem_rule(key: str):
+        cand = [key]
+        if prefix and key.startswith(prefix + "/"):
+            cand.append(key[len(prefix) + 1:])
+        for k in cand:
+            if k in plan.flat:
+                return plan.flat[k], "leaf"
+            base, _, child = k.rpartition("/")
+            if child in ("0", "1", "2") and base in plan.flat:
+                return plan.flat[base], child
+        return None, "unknown"
+
+    shards: list[dict] = [dict() for _ in range(plan.tp)]
+    info: dict = {}
+    for key, arr in flat.items():
+        rule, kind = stem_rule(key)
+        if kind == "1":
+            # per-channel scale: sliced along its last dim iff the
+            # payload's rule shards the payload's last dim
+            payload = flat.get(key[:-1] + "0")
+            pnd = payload.ndim if payload is not None else arr.ndim + 1
+            rule = scale_rule(rule, pnd)
+        elif kind in ("2", "unknown"):
+            rule = None  # act scale / optimizer state / counters
+        if rule is not None and (arr.ndim == 0 or arr.shape[
+                rule.dim % arr.ndim] != sum(w for w, _ in rule.parts)):
+            rule = None  # per-tensor scale / mismatched aux leaf
+        info[key] = rule_to_json(rule)
+        for m in range(plan.tp):
+            shards[m][key] = (arr if rule is None
+                              else _own(rule.slice(arr, m, plan.tp)))
+    return shards, info

@@ -21,9 +21,18 @@ through the step of every slot: the other slots read token 0 at their
 current position, which a later step overwrites in a KV cache but which
 advances an SSM slot's state.
 
-Tensor parallelism (JAX's ``mesh=`` with a ``model`` axis, and a
-``sharded`` checkpoint) waits for ROADMAP.md Queue 1 item 5b: a ``mesh``
-other than None, 1 or ``"auto"`` raises ``NotImplementedError``.
+Tensor parallelism (JAX's ``mesh=``: an int degree, or a mesh with a
+``model`` axis): one process a rank, each building its own engine inside a
+``torch.distributed`` group of that many ranks
+(:func:`repro_torch.distributed.launch.run` starts them).  A rank keeps
+its slice of the params (:mod:`repro_torch.distributed.tp`), builds its
+own cache (its KV heads, its SSM heads) and runs ``model.serve`` inside
+``tp.axis_ctx``; the logits come back gathered on every rank, so the
+decode loop, the scheduler included, is byte for byte the replicated one
+on each.  ``ckpt_dir`` with a ``sharded`` checkpoint (from
+``python -m repro_torch.train.checkpoint_converter``) loads
+pre-partitioned, each rank reading only its shard; a ``full`` one is the
+migration path (load, then slice).
 """
 from __future__ import annotations
 
@@ -48,47 +57,129 @@ class Request:
     done_at: float = 0.0
 
 
-WAITING_TP = ("tensor-parallel decode is not ported yet (ROADMAP.md, "
-              "Queue 1 item 5b: the int8-weight and TP branches)")
+def _resolve_mesh(mesh):
+    """None | "auto" | int tensor-parallel degree | Mesh -> Mesh or None.
 
-
-def check_mesh(mesh) -> None:
-    """One card: ``mesh`` None, 1 or ``"auto"``; anything else (a tensor-
-    parallel degree above 1, a mesh object) raises."""
+    Only the ``model`` axis may exceed 1: data parallelism over a mesh is
+    ROADMAP.md Queue 1 item 5c."""
+    from repro_torch.launch.mesh import Mesh, make_mesh
     if mesh is None or mesh == "auto":
-        return
-    if isinstance(mesh, int) and mesh <= 1:
-        return
-    raise NotImplementedError(f"mesh={mesh!r}: {WAITING_TP}")
+        return None
+    if isinstance(mesh, int) and not isinstance(mesh, bool):
+        return None if mesh <= 1 else make_mesh((1, mesh), ("data", "model"))
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh={mesh!r}: expected None, 'auto', an int "
+                        "tensor-parallel degree or a launch.mesh.Mesh")
+    other = {a: n for a, n in mesh.shape.items() if a != "model" and n > 1}
+    if other:
+        raise NotImplementedError(
+            f"mesh axes {other}: only the model axis is ported (tensor "
+            "parallelism); data parallelism over a mesh is ROADMAP.md "
+            "Queue 1 item 5c")
+    return mesh if mesh.shape.get("model", 1) > 1 else None
+
+
+# which dim of each cache leaf is model-sharded: k/v/conv their packed
+# feature dim (last), the ssm state its packed batch*heads rows
+_CACHE_TP_DIM = {"k": -1, "v": -1, "conv": -1, "ssm": 2}
 
 
 class LMDecodeEngine(EngineBase):
     """Slot-based continuous batching around ``model.serve``.
 
-    ``ckpt_dir`` loads params from a JAX ``full`` checkpoint
-    (``train/checkpoint.load_params``; a ``sharded`` one raises)."""
+    ``mesh`` (an int tensor-parallel degree, or a mesh with a ``model``
+    axis) shards the model Megatron-style over the ranks of the world
+    process group, which must hold that many ranks.
+    ``ckpt_dir`` loads params from a checkpoint of either format (a
+    sharded one, under TP, pre-partitioned)."""
 
     workload = "lm_decode"
 
     def __init__(self, model, params, cfg, *, slots: int, max_len: int,
                  eos: int = -1, trace=False, mesh=None, ckpt_dir=None,
                  ckpt_step=None, device="cuda"):
-        check_mesh(mesh)
+        self.mesh = _resolve_mesh(mesh)
         super().__init__(slots=slots, tracer=trace)
         self.device = resolve_device(device)
         self.model = model
         self.cfg = cfg
         self.max_len = max_len
         self.eos = eos
-        if params is None and ckpt_dir is not None:
-            from repro_torch.train import checkpoint as ck
-            params, _ = ck.load_params(ckpt_dir, step=ckpt_step,
-                                       device=self.device)
-        self.params = params
-        self.cache = model.init_cache(cfg, slots, max_len, device=self.device)
+        self.tp = self.mesh.shape["model"] if self.mesh is not None else 1
+        self.plan = None
+        if self.tp > 1:
+            self._build_tensor_parallel(params, ckpt_dir, ckpt_step)
+        else:
+            if params is None and ckpt_dir is not None:
+                from repro_torch.train import checkpoint as ck
+                params, _ = ck.load_params(ckpt_dir, step=ckpt_step,
+                                           device=self.device)
+            self.params = params
+            self.cache = model.init_cache(cfg, slots, max_len,
+                                          device=self.device)
         self.pos = np.zeros((slots,), np.int32)
         self.budget = np.zeros((slots,), np.int32)  # remaining new tokens
         self.finished: list[Request] = []
+
+    def _build_tensor_parallel(self, params, ckpt_dir, ckpt_step):
+        import torch.distributed as dist
+        from repro_torch.distributed import sharding as shardlib
+        from repro_torch.distributed import tp as tp_mod
+        model, cfg, ext = self.model, self.cfg, self.tp
+        if not dist.is_initialized() or dist.get_world_size() != ext:
+            have = (dist.get_world_size() if dist.is_initialized()
+                    else "no process group")
+            raise RuntimeError(
+                f"tensor-parallel decode at tp={ext} runs one process a "
+                f"rank in a group of {ext} ({have} here): start them with "
+                "repro_torch.distributed.launch.run")
+        shapes, axes = model.abstract_params(cfg)
+        plan = tp_mod.build_plan(axes, shapes, cfg=cfg, tp=ext,
+                                 rules=shardlib.default_rules(self.mesh))
+        self.plan = plan
+        rank = dist.get_rank()
+        if params is None and ckpt_dir is not None:
+            from repro_torch.train import checkpoint as ck
+            manifest, _ = ck._read_manifest(ckpt_dir, ckpt_step)
+            if manifest.get("format") == "sharded":
+                params = tp_mod.load_sharded_params(
+                    ckpt_dir, plan, step=ckpt_step, rank=rank,
+                    device=self.device)
+            else:
+                # migration path: the full checkpoint, then this slice
+                params, _ = ck.load_params(ckpt_dir, step=ckpt_step,
+                                           device=self.device)
+                params = tp_mod.partition_params(params, plan, rank=rank)
+        elif params is not None:
+            params = tp_mod.partition_params(params, plan, rank=rank,
+                                             device=self.device)
+        else:
+            raise ValueError("tensor-parallel engine needs params or "
+                             "ckpt_dir")
+        self.params = params
+        slots, max_len = self.scheduler.slots, self.max_len
+        full = model.init_cache(cfg, slots, max_len, device="meta")
+        with self._tp_scope():
+            self.cache = model.init_cache(cfg, slots, max_len,
+                                          device=self.device)
+        for name, d in _CACHE_TP_DIM.items():
+            if name not in full:
+                continue
+            # the conv window's B/C columns (2 * ssm_state) stay whole
+            keep = 2 * cfg.ssm_state if name == "conv" else 0
+            want = (full[name].shape[d] - keep) // ext + keep
+            if self.cache[name].shape[d] != want:
+                raise ValueError(
+                    f"cache {name}: rank holds {self.cache[name].shape[d]} "
+                    f"of {full[name].shape[d]} along dim {d}, expected "
+                    f"{want} at tp={ext}")
+
+    def _tp_scope(self):
+        import contextlib
+        if self.tp == 1:
+            return contextlib.nullcontext()
+        from repro_torch.distributed import tp as tp_mod
+        return tp_mod.axis_ctx("model", self.tp)
 
     @property
     def slots(self) -> int:
@@ -102,7 +193,7 @@ class LMDecodeEngine(EngineBase):
         """One ``model.serve`` over every slot; the last position's logits
         (slots, vocab) as float32 on the host."""
         dev = self.device
-        with torch.inference_mode():
+        with torch.inference_mode(), self._tp_scope():
             logits, self.cache = self.model.serve(
                 self.params, self.cache,
                 torch.from_numpy(toks).to(device=dev, dtype=torch.int64),
@@ -197,8 +288,9 @@ def build_lm_decode(model=None, params=None, cfg=None, *,
     """Builder: supply (model, params, cfg) or let the preset pick an arch
     (its smoke config by default) and draw fresh params on ``device`` from
     ``torch.Generator(device).manual_seed(seed)``.  ``ckpt_dir`` loads
-    params from a ``full`` checkpoint instead."""
-    check_mesh(mesh)
+    params from a checkpoint instead; ``mesh`` (an int degree, or a mesh
+    with a ``model`` axis) serves tensor-parallel from inside each rank."""
+    _resolve_mesh(mesh)
     dev = resolve_device(device)
     if cfg is None:
         from repro_torch.configs import ARCHS

@@ -74,10 +74,13 @@ def conv1d_int8(x, w, bias=None, *, stride: int = 1,
 
 
 def matmul_int8(a, w, bias=None, *, activation: str = "none"):
-    """GEMM on the int8 MAC path: quantize, int8 GEMM, epilogue."""
+    """GEMM on the int8 MAC path: quantize, int8 GEMM, epilogue, in
+    ``a``'s dtype (JAX's ``out_dtype or a.dtype``: a bf16 LM's
+    projections return bf16, rounded once from the float32 epilogue)."""
     aq, scale = _quantized_operands("matmul", a, w)
     fabric.record("fabric.precision.matmul.int8")
-    return _int8_epilogue(_mm.matmul_int8(aq, w.q), scale, bias, activation)
+    return _int8_epilogue(_mm.matmul_int8(aq, w.q), scale, bias,
+                          activation).to(a.dtype)
 
 
 def int8_reference(x, w, bias=None, *, stride: int = 1,

@@ -19,8 +19,13 @@ flags (``--arch``, ``--smoke``, ``--slots``, ``--max-len``,
 ``--new-tokens``, ``--tp``, ``--ckpt``, ``--ckpt-step``) do what JAX's do,
 with JAX's rule that ``lm_decode`` builds the full-size arch unless
 ``--smoke`` is given.  Given with another workload, such a flag raises by
-its name.  ``--tp`` above 1 raises: tensor parallelism waits for
-ROADMAP.md Queue 1 item 5b.
+its name.  ``--tp N`` (N > 1) serves tensor-parallel: the slicing plan is
+checked here, then N ranks start (``distributed.launch.run``, gloo, on the
+one card or the CPU by ``--device``), each builds its own engine with
+``mesh=N`` and drives the same requests, and rank 0 prints the report::
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload lm_decode \
+      --smoke --tp 2 --ckpt DIR     # DIR from train.checkpoint_converter
 
 Discovery: ``--list-workloads`` prints every buildable workload,
 ``--list-presets <workload>`` its preset table; an unknown ``--workload``
@@ -53,6 +58,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import sys
 
 import numpy as np
 
@@ -294,13 +300,52 @@ def main(argv=None):
         return _run_fleet(args)
     if args.field is not None:
         return _run_field(args)
+    if args.workload == "lm_decode" and (args.tp or 1) > 1:
+        return _run_tensor_parallel(args, sys.argv[1:] if argv is None
+                                    else list(argv))
+    return _serve(args)
 
+
+def _run_tensor_parallel(args, argv: list) -> dict:
+    """``--tp N``: check that the arch shards over N (here, before any
+    rank starts), start N ranks that each serve the whole run, and return
+    rank 0's report (which rank 0 printed)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.distributed import launch
+    from repro_torch.distributed import tp as tp_mod
+    from repro_torch.models.registry import get_model
+    spec = ARCHS[args.arch or "qwen3-4b"]
+    cfg = spec.smoke_config() if args.smoke else spec.config()
+    shapes, axes = get_model(cfg).abstract_params(cfg)
+    tp_mod.build_plan(axes, shapes, cfg=cfg, tp=args.tp)
+    threads = (max(1, launch.max_ranks() // args.tp) if args.device == "cpu"
+               else None)
+    # by the module's name: under ``python -m`` this module is __main__
+    from repro_torch.launch import serve
+    return launch.run(serve._serve_rank, args.tp, args=(argv,),
+                      threads=threads)[0]
+
+
+def _serve_rank(rank: int, world: int, argv: list) -> dict:
+    """One rank of ``--tp``: the whole run with ``mesh=world``; on the
+    card, rank k takes card k modulo the cards there are."""
+    args = parser().parse_args(argv)
+    if args.device == "cuda":
+        import torch
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    return _serve(args, rank=rank)
+
+
+def _serve(args, rank: int = 0) -> dict:
+    """Build the engine, drive the requests, print the report (rank 0
+    only; the other ranks of a ``--tp`` run export nothing either)."""
+    lead = rank == 0
     overrides: dict = {"seed": args.seed, "device": args.device}
     if args.workload == "lm_decode":
         overrides.update(_lm_overrides(args))
         if args.new_tokens is None:
             args.new_tokens = NEW_TOKENS
-    if args.trace is not None:
+    if args.trace is not None and lead:
         overrides["trace"] = True
 
     eng = engine_api.build(args.workload, preset=args.preset, **overrides)
@@ -309,7 +354,7 @@ def main(argv=None):
                          f"runner here; run one of {sorted(_RUNNERS)} or "
                          "use --field")
     tel = eng.telemetry
-    if args.timeseries or args.monitor:
+    if (args.timeseries or args.monitor) and lead:
         from repro_torch.obs.export import TimeSeriesExporter
         tel.exporter = TimeSeriesExporter(
             tel, scheduler=eng.scheduler, interval_s=args.interval,
@@ -317,11 +362,14 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed)
     from repro_torch.obs.trace import profile_window
     try:
-        with profile_window(args.profile_dir, device=args.device):
+        with profile_window(args.profile_dir if lead else None,
+                            device=args.device):
             report = _RUNNERS[args.workload](eng, args, rng)
     finally:
         if tel.exporter is not None:
             tel.exporter.close()
+    if not lead:
+        return report
     if args.trace is not None:
         doc = tel.tracer.export_chrome(args.trace)
         n = sum(1 for e in doc["traceEvents"] if e.get("ph") != "M")

@@ -12,8 +12,8 @@ place, as JAX's donated ``jit``; the LR schedule is the arch's
 
 ``--device cuda`` (the default) runs the hand kernels on the card and
 raises where there is none; ``--device cpu`` runs their plain versions.
-``--mesh`` other than 1x1 raises: sharding over a mesh waits for tensor
-parallelism (ROADMAP.md, Queue 1 item 5b).  An arch whose family is not
+``--mesh`` other than 1x1 raises: GSPMD training over a mesh waits for
+ROADMAP.md Queue 1 item 5c.  An arch whose family is not
 ported (vlm, moe, encdec, hybrid) raises by name (item 6).
 """
 from __future__ import annotations
@@ -68,9 +68,8 @@ def main(argv=None) -> dict:
     d, m = (int(x) for x in args.mesh.split("x"))
     if (d, m) != (1, 1):
         raise NotImplementedError(
-            f"--mesh {args.mesh}: sharding over a mesh is not ported yet "
-            "(ROADMAP.md, Queue 1 item 5b: tensor parallelism and "
-            "distributed/); one card runs 1x1")
+            f"--mesh {args.mesh}: GSPMD training over a mesh is not "
+            "ported yet (ROADMAP.md, Queue 1 item 5c); one card runs 1x1")
     dev = resolve_device(args.device)
     spec = ARCHS[args.arch]
     cfg = spec.smoke_config() if args.smoke else spec.config()

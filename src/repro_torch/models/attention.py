@@ -7,13 +7,18 @@ tensor's device picks the Hopper kernel (which takes every length, so
 JAX's full and chunked jnp paths have no counterpart here) or its plain
 version.  ``decode_attention`` is JAX's replicated decode branch, which
 JAX computes in jnp outside any Pallas kernel: plain PyTorch ops here.
-JAX's sequence-sharded combine (``_seq_parallel_decode_attn``) has no
-counterpart on one card.
+Under tensor parallelism each rank holds ``num_heads / tp`` query heads
+and ``num_kv_heads / tp`` KV heads (the reshapes read the head count from
+the sliced weight), caches only its KV heads, and ``wo`` is row-parallel.
+JAX's sequence-sharded combine (``_seq_parallel_decode_attn``) needs a
+GSPMD ``kv_seq`` rule, which the tensor-parallel engine never sets: it
+waits for ROADMAP.md Queue 1 item 5c.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import tp
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense, head_rmsnorm, rope, row_dense
@@ -63,8 +68,9 @@ def attention_block(p, x, cfg: ModelConfig, positions, *, causal=True):
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
                   dtype=torch.bfloat16, *, device="cuda"):
     """Stacked KV cache for the attention layers of one layer stack:
-    ``{"k", "v"}`` of (n_layers, batch, max_len, kv_dim), zeros."""
-    shape = (n_layers, batch, max_len, cfg.kv_dim)
+    ``{"k", "v"}`` of (n_layers, batch, max_len, kv_dim), zeros.  Under
+    tensor parallelism each rank caches only its KV heads: kv_dim / tp."""
+    shape = (n_layers, batch, max_len, cfg.kv_dim // tp.extent())
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -79,7 +85,10 @@ def decode_attention(p, x, cfg: ModelConfig, cache_k, cache_v, pos):
     product), positions past ``pos`` masked to -1e30, the softmax cast
     to q's dtype, then the product with v.  GQA groups the query heads
     of one KV head instead of repeating the cache (``_repeat_kv``): head
-    h reads KV head ``h // (H / Hkv)``, as ``jnp.repeat`` lays them out."""
+    h reads KV head ``h // (H / Hkv)``, as ``jnp.repeat`` lays them out.
+    A tensor-parallel rank's heads are a contiguous run of H / tp query
+    heads and the Hkv / tp KV heads they read, so the same grouping holds
+    on its local heads."""
     bsz = x.shape[0]
     q, k, v = _project_qkv(p, x, cfg, pos[:, None])
     rows = torch.arange(bsz, device=x.device)

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import tp
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 from repro_torch.models.config import ModelConfig
@@ -61,15 +62,15 @@ def _split_proj(cfg: ModelConfig, proj):
 
 
 def _gated_rmsnorm(y, z, scale, eps: float, full_di: int):
-    """RMSNorm(y) * silu(z), the normaliser over d_inner (one device holds
-    all of it)."""
-    if y.shape[-1] != full_di:
-        raise NotImplementedError(
-            f"_gated_rmsnorm: {y.shape[-1]} of {full_di} features needs "
-            "tensor parallelism, which is not ported yet (ROADMAP.md, "
-            "Queue 1)")
+    """RMSNorm(y) * silu(z) with the normaliser over the whole d_inner:
+    under tensor parallelism a rank holds di / tp features, so its sum of
+    squares is all-reduced and divided by the full width."""
     yf = y.float()
-    var = torch.mean(torch.square(yf), dim=-1, keepdim=True)
+    if tp.axis() is not None and y.shape[-1] < full_di:
+        var = tp.psum(torch.sum(torch.square(yf), dim=-1,
+                                keepdim=True)) / full_di
+    else:
+        var = torch.mean(torch.square(yf), dim=-1, keepdim=True)
     out = (yf * torch.rsqrt(var + eps) * scale).to(y.dtype)
     return out * silu(z)
 
@@ -179,8 +180,10 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, n_layers: int,
                      dtype=torch.bfloat16, *, device="cuda"):
     """``{"conv": (n_layers, batch, K - 1, conv_dim) in ``dtype``, "ssm":
     (n_layers, batch * heads, ds, dh) float32}``, zeros: the SSM state is
-    float32 whatever the model's dtype."""
-    ds, nh = cfg.ssm_state, cfg.ssm_heads
+    float32 whatever the model's dtype.  Under tensor parallelism a rank
+    carries its heads / tp heads' state (and the replicated B/C columns of
+    the conv window)."""
+    ds, nh = cfg.ssm_state, cfg.ssm_heads // tp.extent()
     conv_dim = nh * cfg.ssm_head_dim + 2 * ds
     return {
         "conv": torch.zeros((n_layers, batch, cfg.ssm_conv_width - 1,

@@ -38,10 +38,14 @@ def torch_dtype(name) -> torch.dtype:
 
 
 class ParamBuilder:
-    def __init__(self, gen: torch.Generator, dtype=torch.bfloat16,
-                 device="cuda"):
-        self.device = resolve_device(device)
-        if gen.device.type != self.device.type:
+    def __init__(self, gen, dtype=torch.bfloat16, device="cuda"):
+        # "meta" (with gen None) builds shapes and axes only, allocating
+        # nothing: transformer.abstract_params
+        self.device = (torch.device("meta") if device == "meta"
+                       else resolve_device(device))
+        if self.device.type == "meta":
+            gen = None
+        elif gen.device.type != self.device.type:
             raise ValueError(f"generator on {gen.device}, parameters on "
                              f"{self.device}")
         self._gen = gen
@@ -58,7 +62,11 @@ class ParamBuilder:
         if len(shape) != len(axes):
             raise ValueError(f"{path}: shape {shape} vs axes {axes}")
         dtype = torch_dtype(dtype or self.dtype)
-        if init == "normal":
+        if init not in ("normal", "zeros", "ones"):
+            raise ValueError(init)
+        if self.device.type == "meta":
+            val = torch.empty(shape, dtype=dtype, device=self.device)
+        elif init == "normal":
             if scale is None:
                 fan_in = shape[0] if len(shape) >= 2 else shape[-1]
                 scale = 1.0 / math.sqrt(max(fan_in, 1))
@@ -67,10 +75,8 @@ class ParamBuilder:
                    * scale).to(dtype)
         elif init == "zeros":
             val = torch.zeros(shape, dtype=dtype, device=self.device)
-        elif init == "ones":
-            val = torch.ones(shape, dtype=dtype, device=self.device)
         else:
-            raise ValueError(init)
+            val = torch.ones(shape, dtype=dtype, device=self.device)
         node, anode = self.params, self.axes
         for k in path[:-1]:
             node = node.setdefault(k, {})

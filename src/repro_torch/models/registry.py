@@ -7,9 +7,10 @@
     logits, cache = model.serve(params, cache, tokens, pos, cfg)
     loss, metrics = model.loss(params, batch, cfg)
 
-``abstract_params`` (ROADMAP.md Queue 1 item 7) raises
-``NotImplementedError``; so does an ``encdec`` config (the
-encoder-decoder family, item 6).
+    shapes, axes = model.abstract_params(cfg)   # meta tensors, no memory
+
+An ``encdec`` config (the encoder-decoder family, ROADMAP.md Queue 1
+item 6) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -30,19 +31,10 @@ class Model:
     cache_axes: Callable
 
 
-def _waiting(what: str, item: int, name: str) -> Callable:
-    def refuse(*_, **__):
-        raise NotImplementedError(
-            f"{what} is not ported yet (ROADMAP.md, Queue 1 item {item}: "
-            f"{name})")
-    return refuse
-
-
 def _decoder_model() -> Model:
     return Model(
         init=transformer.init,
-        abstract_params=_waiting("Model.abstract_params", 7,
-                                 "analysis, dry run and mesh"),
+        abstract_params=lambda cfg: transformer.abstract_params(cfg),
         loss=transformer.loss_fn,
         init_cache=lambda cfg, batch, max_len, **kw:
             transformer.init_cache(cfg, batch, max_len, **kw),

@@ -19,10 +19,18 @@ with ``nothing_saveable``: the backward recomputes the block, so a
 training step launches each of its kernels twice.  ``remat_group``
 (JAX's two-level sqrt-L remat) only shapes memory; the port checkpoints
 per block whatever the group.
+
+Tensor parallelism (:mod:`repro_torch.distributed.tp`): inside a
+``tp.axis_ctx`` with this rank's slice of the params (``tp.build_plan``),
+``serve_step`` gathers the vocab-parallel logits on every rank and
+``loss_fn`` takes JAX's ``parallel_vocab`` branch, the sharded-softmax
+``parallel_cross_entropy`` over ungathered logits.  A stacked
+:class:`~repro_torch.quant.QuantizedTensor` (``quantize_params(...,
+stack_dims=1)``) indexes payload, scales and act scale together by block.
+
 Waiting (ROADMAP.md, Queue 1): MoE layers (``init``, ``apply`` and
-``serve_step`` raise ``NotImplementedError``, item 6), the VLM frontend
-(``loss_fn`` with ``input_embeds``, item 6) and the vocab-parallel loss
-(``parallel_cross_entropy``, item 5b).
+``serve_step`` raise ``NotImplementedError``, item 6) and the VLM frontend
+(``loss_fn`` with ``input_embeds``, item 6).
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ from typing import Optional
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.distributed import tp
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2
@@ -81,7 +90,8 @@ def _init_block_stack(b: ScopedBuilder, cfg: ModelConfig, n_blocks: int):
 
 def init(gen: torch.Generator, cfg: ModelConfig, *, device="cuda"):
     """Random parameters from ``gen`` (a generator on ``device``) and their
-    logical axes: ``(params, axes)``, the trees of JAX's ``init``."""
+    logical axes: ``(params, axes)``, the trees of JAX's ``init``.
+    ``device="meta"`` (``gen`` None) builds shapes only."""
     pb = ParamBuilder(gen, dtype=torch_dtype(cfg.dtype), device=device)
     L.init_embedding(pb.scope("embedding"), cfg)
     _init_block_stack(pb.scope("blocks"), cfg, cfg.num_blocks)
@@ -89,8 +99,16 @@ def init(gen: torch.Generator, cfg: ModelConfig, *, device="cuda"):
     return pb.params, pb.axes
 
 
+def abstract_params(cfg: ModelConfig, init_fn=None):
+    """``(shapes, axes)``: the params tree as tensors on the ``meta``
+    device (shapes and dtypes, nothing allocated, so a full-width plan
+    costs no memory) and its logical axes."""
+    return (init_fn or init)(None, cfg, device="meta")
+
+
 def block_params(blocks: dict, i: int) -> dict:
-    """Block ``i`` of the stacked tree (views, no copy)."""
+    """Block ``i`` of the stacked tree (views, no copy; a stacked
+    QuantizedTensor indexes its scales with its payload)."""
     return {k: block_params(v, i) if isinstance(v, dict) else v[i]
             for k, v in blocks.items()}
 
@@ -162,37 +180,45 @@ def final_hidden(params, tokens: torch.Tensor, cfg: ModelConfig, *,
 def apply(params, tokens: torch.Tensor, cfg: ModelConfig, *,
           input_embeds: Optional[torch.Tensor] = None,
           positions: Optional[torch.Tensor] = None,
-          last_logits_only: bool = False):
+          last_logits_only: bool = False,
+          gather_logits: bool = True):
     """tokens: (B, S) -> (logits (B, S, V), aux).  ``input_embeds`` (B, F,
     d) overrides the first F embedding rows (VLM/audio frontends).
     ``last_logits_only`` unembeds just the final position (prefill: a (B,
-    32k, V) logits tensor must never materialise)."""
+    32k, V) logits tensor must never materialise).  ``gather_logits=False``
+    leaves tensor-parallel logits as this rank's vocab slice."""
     x, aux = final_hidden(params, tokens, cfg, input_embeds=input_embeds,
                           positions=positions, last_only=last_logits_only)
-    return L.unembed(params["embedding"], x, cfg), aux
+    return L.unembed(params["embedding"], x, cfg, gather=gather_logits), aux
 
 
 def loss_fn(params, batch: dict, cfg: ModelConfig, *, aux_weight=0.01):
     """Next-token cross entropy (``repro/models/transformer.py``):
     ``batch`` holds ``tokens`` and ``labels`` (B, S) and optionally
     ``loss_mask`` (B, S); the NLL of a float32 ``log_softmax`` over the
-    logits, averaged over the masked-in positions.  Returns ``(total,
+    logits (under tensor parallelism ``parallel_cross_entropy``), averaged
+    over the masked-in positions.  Returns ``(total,
     {"nll", "moe_aux"})``, ``total = nll + aux_weight * moe_aux``."""
     if batch.get("input_embeds") is not None:
         raise NotImplementedError(
             "loss_fn: input_embeds (the VLM frontend) is not ported yet "
             "(ROADMAP.md, Queue 1 item 6: MoE and the other families)")
-    logits, aux = apply(params, batch["tokens"], cfg)
-    if logits.shape[-1] < cfg.vocab_size:
-        # JAX's vocab-sharded branch: only tensor parallelism slices the
-        # unembedding
-        raise NotImplementedError(
-            f"loss_fn: logits over {logits.shape[-1]} of {cfg.vocab_size} "
-            "vocab entries need parallel_cross_entropy, which comes with "
-            "tensor parallelism (ROADMAP.md, Queue 1 item 5b)")
+    parallel_vocab = tp.axis() is not None
+    logits, aux = apply(params, batch["tokens"], cfg,
+                        gather_logits=not parallel_vocab)
     labels = batch["labels"].long()
-    lp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(lp, -1, labels[..., None])[..., 0]
+    if parallel_vocab and logits.shape[-1] < cfg.vocab_size:
+        # sharded-softmax cross entropy: the statistics all-reduce over the
+        # vocab shards, the full logit row never exists
+        nll = L.parallel_cross_entropy(logits, labels)
+    elif logits.shape[-1] < cfg.vocab_size:
+        raise ValueError(
+            f"loss_fn: logits over {logits.shape[-1]} of {cfg.vocab_size} "
+            "vocab entries outside a tensor-parallel context (a sliced "
+            "unembedding needs tp.axis_ctx and the other ranks)")
+    else:
+        lp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(lp, -1, labels[..., None])[..., 0]
     mask = batch.get("loss_mask")
     if mask is None:
         loss = nll.mean()

@@ -155,6 +155,20 @@ class QuantizedTensor:
     def dequantize(self) -> torch.Tensor:
         return dequantize(self.q, self.scale, axis=self.axis)
 
+    def __getitem__(self, i: int) -> "QuantizedTensor":
+        """Entry ``i`` of a stacked payload (``quantize_tensor``'s
+        ``stack_dims``): the payload, a ``(*stack, C)`` scale and a stacked
+        act scale are indexed together, so a block peeled off the stack
+        sees the plain ``(C,)`` convention (JAX's ``lax.scan`` over the
+        QuantizedTensor's children)."""
+        scale = self.scale
+        if scale.dim() == self.q.dim() - 1 and scale.dim() > 1:
+            scale = scale[i]
+        act = self.act_scale
+        if act is not None and act.dim() >= 1:
+            act = act[i]
+        return QuantizedTensor(self.q[i], scale, self.axis, act)
+
     def to(self, device) -> "QuantizedTensor":
         return QuantizedTensor(
             self.q.to(device), self.scale.to(device), self.axis,

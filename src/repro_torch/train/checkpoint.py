@@ -1,12 +1,14 @@
-"""Checkpoints: atomic, checksummed, async (``repro/train/checkpoint.py``,
-its ``full`` layout).
+"""Checkpoints: atomic, checksummed, async, shard-aware
+(``repro/train/checkpoint.py``).
 
 Layout, one directory a step, file for file JAX's, so either package reads
 the other's::
 
     <dir>/step_000100/
         manifest.json   keys, shapes, dtypes, sha256 of each file, format
-        arrays.npz      leaf data
+                        (and, sharded, num_shards and shard_info)
+        arrays.npz      leaf data (the ``full`` format), or
+        shard_<k>.npz   model shard k's slice of every leaf (``sharded``)
     <dir>/LATEST        the last complete step directory's name
 
 Keys are JAX's ``_flatten`` paths: dict keys joined by ``/``, list items by
@@ -19,10 +21,15 @@ them back; the views go through torch's own dtypes, not ``ml_dtypes``.
 A save writes into a temporary directory, fsyncs the manifest, renames the
 directory into place and only then moves ``LATEST``, so a crash never
 leaves a half-written restore point; ``keep_last`` old steps survive, and
-a step another writer is still producing is never collected.  The
-``sharded`` layout (per-shard files for tensor parallelism) waits for the
-port's tensor parallelism (ROADMAP.md, Queue 1 item 5b): reading one
-raises.
+a step another writer is still producing is never collected.
+
+The ``sharded`` format (``save_sharded``; written offline by
+``python -m repro_torch.train.checkpoint_converter``): ``shard_info`` maps
+each key to its slicing rule (``distributed.tp.Segments`` JSON, or
+``"replicated"``) and the manifest's shapes are the per-shard local ones.
+:func:`restore` and :func:`load_params` reassemble the full tree bit for
+bit; ``tp.load_sharded_params`` reads one rank's shard only
+(:func:`read_shard`).
 """
 from __future__ import annotations
 
@@ -95,7 +102,26 @@ def _sha256(path: str) -> str:
 def save(ckpt_dir: str, state, step: int, *, keep_last: int = 3) -> str:
     """Synchronous atomic save of a tree of tensors.  Returns the step's
     path."""
-    return _write(ckpt_dir, dict(_flatten(state)), step, keep_last)
+    return _write(ckpt_dir, {"arrays.npz": dict(_flatten(state))}, step,
+                  keep_last)
+
+
+def save_sharded(ckpt_dir: str, shards: list, step: int, *,
+                 shard_info: dict, keep_last: int = 3) -> str:
+    """Write a ``format: "sharded"`` checkpoint from per-shard flat dicts
+    (JAX's ``save_sharded``): ``shards[k]`` maps a checkpoint key to shard
+    ``k``'s already sliced array (a tensor or a numpy array);
+    ``shard_info`` maps each key to its slicing rule.  Keys and local
+    shapes agree across shards: slicing is always even."""
+    shards = [{k: torch.as_tensor(v) for k, v in s.items()} for s in shards]
+    keys = sorted(shards[0])
+    for m, s in enumerate(shards[1:], start=1):
+        if sorted(s) != keys:
+            raise ValueError(f"shard {m} keys differ from shard 0")
+    files = {f"shard_{m}.npz": s for m, s in enumerate(shards)}
+    extra = {"format": "sharded", "num_shards": len(shards),
+             "shard_info": dict(shard_info)}
+    return _write(ckpt_dir, files, step, keep_last, extra=extra)
 
 
 # Concurrent writers (two save_async calls, or save_async racing a sync
@@ -113,8 +139,8 @@ def save_async(ckpt_dir: str, state, step: int, *, keep_last: int = 3
     updates of the tensors do not reach the file), write it in a
     background thread; :func:`wait_pending` joins it."""
     host = {k: v.detach().cpu().clone() for k, v in _flatten(state)}
-    t = threading.Thread(target=_write, args=(ckpt_dir, host, step,
-                                              keep_last), daemon=True)
+    t = threading.Thread(target=_write, args=(ckpt_dir, {"arrays.npz": host},
+                                              step, keep_last), daemon=True)
     with _LOCK:
         _PENDING.append(t)
     t.start()
@@ -131,7 +157,8 @@ def wait_pending() -> None:
                 _PENDING.remove(t)
 
 
-def _write(ckpt_dir: str, host: dict, step: int, keep_last: int) -> str:
+def _write(ckpt_dir: str, files: dict, step: int, keep_last: int, *,
+           extra: Optional[dict] = None) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
     name = f"step_{step:08d}"
     final = os.path.join(ckpt_dir, name)
@@ -141,17 +168,25 @@ def _write(ckpt_dir: str, host: dict, step: int, keep_last: int) -> str:
     tmp = tempfile.mkdtemp(prefix=f".tmp_{name}_", dir=ckpt_dir)
     try:
         try:
-            path = os.path.join(tmp, "arrays.npz")
-            np.savez(path, **{k.replace("/", "__"): _to_storable(v)
-                              for k, v in host.items()})
+            host = files.get("arrays.npz", files.get("shard_0.npz"))
+            sha = {}
+            for fname, data in files.items():
+                path = os.path.join(tmp, fname)
+                np.savez(path, **{k.replace("/", "__"): _to_storable(v)
+                                  for k, v in data.items()})
+                sha[fname] = _sha256(path)
             manifest = {
                 "step": step,
                 "keys": sorted(host),
+                # sharded: the per-shard local shapes (an even split, so
+                # every shard agrees); full: the global ones
                 "shapes": {k: list(v.shape) for k, v in host.items()},
                 "dtypes": {k: _dtype_name(v) for k, v in host.items()},
-                "sha256": {"arrays.npz": _sha256(path)},
+                "sha256": sha,
                 "format": "full",
             }
+            if extra:
+                manifest.update(extra)
             with open(os.path.join(tmp, "manifest.json"), "w") as f:
                 json.dump(manifest, f, indent=1)
                 f.flush()
@@ -202,38 +237,93 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
         return int(f.read().strip().split("_")[1])
 
 
-def _load_flat(ckpt_dir: str, step: Optional[int], verify: bool
-               ) -> tuple[dict, dict]:
+def _read_manifest(ckpt_dir: str, step: Optional[int]) -> tuple[dict, str]:
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
-        manifest = json.load(f)
-    if manifest.get("format") != "full":
-        raise NotImplementedError(
-            f"checkpoint at {path} has format {manifest.get('format')!r}: "
-            "the port reads the 'full' layout only; the sharded one comes "
-            "with tensor parallelism (ROADMAP.md, Queue 1 item 5b)")
-    arrays = os.path.join(path, "arrays.npz")
+        return json.load(f), path
+
+
+def _load_npz(path: str, manifest: dict, verify: bool) -> dict:
+    """One checkpoint npz as ``{key: tensor}``, its checksum checked
+    against the manifest first."""
     if verify:
-        got, want = _sha256(arrays), manifest["sha256"]["arrays.npz"]
+        want = manifest["sha256"][os.path.basename(path)]
+        got = _sha256(path)
         if got != want:
-            raise IOError(f"checksum mismatch in {arrays}: {got} != {want}")
+            raise IOError(f"checksum mismatch in {path}: {got} != {want}")
     flat = {}
-    with np.load(arrays) as data:
+    with np.load(path) as data:
         for key in manifest["keys"]:
             flat[key] = _from_storable(data[key.replace("/", "__")],
                                        manifest["dtypes"][key])
-    return manifest, flat
+    return flat
+
+
+def _sharded_manifest(ckpt_dir: str, step: Optional[int]) -> tuple[dict, str]:
+    manifest, path = _read_manifest(ckpt_dir, step)
+    if manifest.get("format") != "sharded":
+        raise ValueError(f"checkpoint at {path} has format "
+                         f"'{manifest.get('format')}', expected 'sharded'")
+    return manifest, path
+
+
+def read_shard(ckpt_dir: str, k: int, *, step: Optional[int] = None,
+               verify: bool = True) -> tuple[dict, dict]:
+    """Shard ``k`` of a sharded checkpoint as ``(manifest, flat dict)``:
+    only ``shard_<k>.npz`` is read (a rank's pre-partitioned load)."""
+    manifest, path = _sharded_manifest(ckpt_dir, step)
+    if not 0 <= k < int(manifest["num_shards"]):
+        raise ValueError(f"shard {k} of a checkpoint with "
+                         f"{manifest['num_shards']} shards")
+    return manifest, _load_npz(os.path.join(path, f"shard_{k}.npz"),
+                               manifest, verify)
+
+
+def read_sharded(ckpt_dir: str, *, step: Optional[int] = None,
+                 verify: bool = True) -> tuple[dict, list]:
+    """A sharded checkpoint as ``(manifest, per-shard flat dicts)``: each
+    shard's dict holds only its local slices, nothing is concatenated."""
+    manifest, path = _sharded_manifest(ckpt_dir, step)
+    return manifest, [
+        _load_npz(os.path.join(path, f"shard_{m}.npz"), manifest, verify)
+        for m in range(int(manifest["num_shards"]))]
+
+
+def _reassemble(manifest: dict, shards: list) -> dict:
+    """The full flat state from per-shard slices: the bit-exact inverse of
+    the converter's slicing, driven by the manifest's ``shard_info``."""
+    from repro_torch.distributed.tp import Segments
+    info = manifest["shard_info"]
+    full = {}
+    for key in manifest["keys"]:
+        rule = Segments.from_json(info.get(key, "replicated"))
+        full[key] = (shards[0][key] if rule is None
+                     else rule.unslice([s[key] for s in shards]))
+    return full
+
+
+def _load_flat(ckpt_dir: str, step: Optional[int], verify: bool
+               ) -> tuple[dict, dict]:
+    """``(manifest, {key: tensor})`` of either format, a sharded one
+    reassembled to the full arrays."""
+    manifest, path = _read_manifest(ckpt_dir, step)
+    if manifest.get("format") == "sharded":
+        manifest, shards = read_sharded(ckpt_dir, step=manifest["step"],
+                                        verify=verify)
+        return manifest, _reassemble(manifest, shards)
+    return manifest, _load_npz(os.path.join(path, "arrays.npz"), manifest,
+                               verify)
 
 
 def restore(ckpt_dir: str, state_like, *, step: Optional[int] = None,
             verify: bool = True):
     """Restore into the structure of ``state_like`` (shapes checked; each
-    leaf cast to the like leaf's dtype and put on its device).  Returns
-    ``(state, step)``."""
+    leaf cast to the like leaf's dtype and put on its device; a sharded
+    checkpoint reassembled bit for bit).  Returns ``(state, step)``."""
     manifest, flat = _load_flat(ckpt_dir, step, verify)
 
     def fill(like, prefix):

@@ -16,8 +16,8 @@
 The trainer is model-agnostic: any ``loss(params, batch, cfg) -> (loss,
 aux)`` works.  Gradients come from ``torch.autograd``; the kernels on the
 path carry their plain versions' gradients on the card
-(``kernels/_build.py::with_plain_grad``).  ``jit_train_step`` (shardings
-over a mesh) waits for tensor parallelism (ROADMAP.md, Queue 1 item 5b).
+(``kernels/_build.py::with_plain_grad``).  ``jit_train_step`` (GSPMD
+shardings over a mesh) waits for ROADMAP.md Queue 1 item 5c.
 """
 from __future__ import annotations
 
@@ -113,12 +113,11 @@ def make_train_step(loss_fn: Callable, model_cfg,
 
 
 def jit_train_step(*_, **__):
-    """JAX's shardings over a mesh and ``jax.jit``: waits for tensor
-    parallelism."""
+    """JAX's GSPMD shardings over a mesh and ``jax.jit``: not ported."""
     raise NotImplementedError(
-        "jit_train_step: shardings over a mesh come with tensor "
-        "parallelism, which is not ported yet (ROADMAP.md, Queue 1 item "
-        "5b); make_train_step runs on one device")
+        "jit_train_step: GSPMD shardings over a mesh are not ported yet "
+        "(ROADMAP.md, Queue 1 item 5c: training over a mesh); "
+        "make_train_step runs on one device")
 
 
 def _pad_axes(axes_tree, shape_tree):

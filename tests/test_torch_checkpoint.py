@@ -3,7 +3,7 @@
 port bit for bit (f32, bf16, int8 ``QuantizedTensor`` with and without an
 act scale, an int32 step), the port's read by JAX, and the layout's own
 guarantees: retention, checksums, async writes, LATEST never moving back,
-and a sharded manifest refused."""
+and a JAX sharded checkpoint reassembled."""
 import json
 import os
 
@@ -166,13 +166,24 @@ def test_save_async_snapshots_before_returning(tmp_path):
 
 
 def test_sharded_checkpoint_is_refused(tmp_path):
-    """JAX's sharded layout (tensor parallelism) is not ported: reading one
-    raises and names the roadmap item."""
+    """JAX's sharded layout is ported (tests/test_torch_checkpoint_sharded.py):
+    a sharded checkpoint reassembles as JAX's does, and one whose shard
+    fails its checksum, or that is read where a full one is wanted, is
+    refused."""
     d = str(tmp_path)
     a = np.arange(8, dtype=np.float32)
     jck.save_sharded(d, [{"w": a[:4]}, {"w": a[4:]}], 3,
-                     shard_info={"w": "replicated"})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+                     shard_info={"w": {"dim": 0, "parts": [[8, True]]}})
+    got, step = tck.load_params(d, device="cpu")
+    assert step == 3
+    np.testing.assert_array_equal(U.n(got["w"]), a)
+    back, _ = tck.restore(d, {"w": torch.zeros(8)})
+    np.testing.assert_array_equal(U.n(back["w"]), a)
+    full = str(tmp_path / "full")
+    jck.save(full, {"w": a}, 1)
+    with pytest.raises(ValueError, match="sharded"):
+        tck.read_sharded(full)
+    with open(os.path.join(d, "step_00000003", "shard_0.npz"), "ab") as f:
+        f.write(b"\0")
+    with pytest.raises(IOError, match="checksum"):
         tck.load_params(d, device="cpu")
-    with pytest.raises(NotImplementedError, match="sharded"):
-        tck.restore(d, {"w": torch.zeros(4)})

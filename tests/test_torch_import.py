@@ -42,6 +42,9 @@ import repro_torch.serving, repro_torch.serving.engine
 import repro_torch.configs.basecaller_soc
 import repro_torch.train.trainer, repro_torch.train.fault_tolerance
 import repro_torch.data.tokens, repro_torch.launch.train
+import repro_torch.distributed.tp, repro_torch.distributed.sharding
+import repro_torch.distributed.launch, repro_torch.launch.mesh
+import repro_torch.train.checkpoint_converter
 mods = sorted(m for m in sys.modules
               if m == "jax" or m.startswith("jax.")
               or m == "repro" or m.startswith("repro."))
@@ -103,6 +106,31 @@ def test_scan_covers_the_lm_train_modules():
     for mod in ("train/trainer.py", "train/fault_tolerance.py",
                 "data/tokens.py", "launch/train.py", "configs/common.py"):
         assert mod in found, mod
+
+
+def test_scan_covers_the_tensor_parallel_modules():
+    found = {os.path.relpath(p, PKG) for p in _port_sources()}
+    for mod in ("distributed/tp.py", "distributed/sharding.py",
+                "distributed/launch.py", "launch/mesh.py",
+                "train/checkpoint_converter.py"):
+        assert mod in found, mod
+
+
+def test_spawned_ranks_hold_no_jax_and_no_repro():
+    """Each rank ``distributed.launch.run`` starts (spawn: a fresh
+    interpreter) imports the port's tensor-parallel modules and holds no
+    ``jax`` and no ``repro`` module; the ranks' module under tests/ imports
+    neither either."""
+    import torch_tp_cases
+    from repro_torch.distributed import launch
+    assert launch.run(torch_tp_cases.loaded_modules, 2) == [[], []]
+    with open(torch_tp_cases.__file__) as fh:
+        tree = ast.parse(fh.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names] + [n.module for n in ast.walk(tree)
+                                  if isinstance(n, ast.ImportFrom)]
+    assert not [n for n in names
+                if n.split(".")[0] in ("jax", "jaxlib", "repro")]
 
 
 def test_checkpoints_need_no_ml_dtypes():

@@ -58,7 +58,7 @@ def test_recovery_through_the_launcher_is_bitwise(tmp_path):
 
 
 def test_launcher_refuses_what_one_card_cannot_run(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 5b"):
+    with pytest.raises(NotImplementedError, match="item 5c"):
         launch_train.main(["--device", "cpu", "--smoke", "--mesh", "2x1"])
     with pytest.raises(NotImplementedError, match="vlm family.*item 6"):
         launch_train.main(["--device", "cpu", "--smoke", "--arch",

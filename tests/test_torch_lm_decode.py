@@ -204,21 +204,31 @@ def test_decode_matches_forward(arch):
 def test_unported_branches_raise_naming_their_items(tmp_path):
     jcfg, _, tp = _params("qwen3-4b", "float32")
     model = get_model(_tcfg(jcfg))
-    # the loss is ported; its vocab-parallel branch (a vocab-sliced
-    # unembedding, tensor parallelism) waits for item 5b
+    # the loss and its vocab-parallel branch are ported; a vocab-sliced
+    # unembedding outside a tensor-parallel context raises
     tok = torch.zeros((1, 4), dtype=torch.int32)
     sliced = dict(tp, embedding={"embed": tp["embedding"]["embed"][:128]})
-    with pytest.raises(NotImplementedError, match="item 5b"):
+    with pytest.raises(ValueError, match="tensor-parallel context"):
         model.loss(sliced, {"tokens": tok, "labels": tok}, _tcfg(jcfg))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        model.abstract_params(_tcfg(jcfg))
+    # abstract_params is ported (shapes on the meta device)
+    shapes, _ = model.abstract_params(_tcfg(jcfg))
+    assert shapes["embedding"]["embed"].device.type == "meta"
     whisper = _tcfg(JARCHS["whisper-medium"].smoke_config())
     with pytest.raises(NotImplementedError, match="item 6"):
         get_model(whisper)
-    for mesh in (2, object()):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            tengine.build("lm_decode", "smoke", params=tp, cfg=_tcfg(jcfg),
-                          mesh=mesh, device="cpu")
+    # tensor parallelism runs in ranks of a process group (item 5b, ported:
+    # tests/test_torch_tp.py); a data axis over a mesh waits for item 5c
+    from repro_torch.launch.mesh import make_mesh
+    with pytest.raises(RuntimeError, match="launch.run"):
+        tengine.build("lm_decode", "smoke", params=tp, cfg=_tcfg(jcfg),
+                      mesh=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 5c"):
+        tengine.build("lm_decode", "smoke", params=tp, cfg=_tcfg(jcfg),
+                      mesh=make_mesh((2, 1), ("data", "model")),
+                      device="cpu")
+    with pytest.raises(TypeError):
+        tengine.build("lm_decode", "smoke", params=tp, cfg=_tcfg(jcfg),
+                      mesh=object(), device="cpu")
     for mesh in (None, 1, "auto"):
         eng = tengine.build("lm_decode", "smoke", params=tp,
                             cfg=_tcfg(jcfg), mesh=mesh, device="cpu")

@@ -257,11 +257,13 @@ def test_unported_layers_raise():
         J["grok-1-314b"].smoke_config()))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttr.init(torch.Generator().manual_seed(0), moe, device="cpu")
+    # int8 weights are ported: dense takes the int8 MAC path
+    # (tests/test_torch_lm_int8.py holds it against JAX)
     from repro_torch.quant import core as qcore
-    w = qcore.QuantizedTensor(torch.zeros((4, 4), dtype=torch.int8),
+    w = qcore.QuantizedTensor(torch.ones((4, 4), dtype=torch.int8),
                               torch.ones(()), None, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlayers.dense(torch.zeros((2, 4)), w)
+    out = tlayers.dense(torch.ones((2, 4)), w)
+    assert out.dtype == torch.float32 and torch.all(out == 4)
 
 
 @pytest.mark.parametrize("batch", [1, 2])

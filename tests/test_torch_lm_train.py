@@ -243,10 +243,11 @@ def test_registry_loss_and_what_waits():
     with pytest.raises(NotImplementedError, match="item 6"):
         ttr.loss_fn(params, {"tokens": tok, "labels": tok,
                              "input_embeds": torch.zeros((1, 2, 64))}, tcfg)
-    # a vocab-sliced (tensor-parallel) unembedding needs parallel CE
+    # a vocab-sliced (tensor-parallel) unembedding outside a TP context
+    # (parallel CE needs the other ranks: tests/test_torch_tp.py)
     sliced = dict(params, embedding={"embed": params["embedding"]["embed"][
         :128]})
-    with pytest.raises(NotImplementedError, match="item 5b"):
+    with pytest.raises(ValueError, match="tensor-parallel context"):
         ttr.loss_fn(sliced, {"tokens": tok, "labels": tok}, tcfg)
-    with pytest.raises(NotImplementedError, match="item 5b"):
+    with pytest.raises(NotImplementedError, match="item 5c"):
         ttrainer.jit_train_step(None, None, None, None)

@@ -48,7 +48,7 @@ def test_list_workloads_and_presets(capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--workload", "lm_decode", "--tp", "2", "--device", "cpu", "--smoke"],
+    ["--workload", "lm_decode", "--tp", "3", "--device", "cpu", "--smoke"],
     ["--workload", "basecall", "--tp", "2", "--device", "cpu"],
     ["--workload", "basecall", "--ckpt", "/nonexistent", "--device", "cpu"],
     ["--workload", "basecall", "--ckpt-step", "3", "--device", "cpu"],
@@ -59,11 +59,12 @@ def test_list_workloads_and_presets(capsys):
     ["--workload", "basecall", "--new-tokens", "8", "--device", "cpu"]])
 def test_lm_decode_tp_and_ckpt_raise_naming_the_workloads(argv):
     """A flag that only ``lm_decode`` reads, given with another workload,
-    raises by its own name and names ``lm_decode``; ``--tp`` above 1 on
-    ``lm_decode`` raises naming ROADMAP.md Queue 1 item 5 (tensor
-    parallelism)."""
+    raises by its own name and names ``lm_decode``; ``--tp`` over a
+    degree the model does not shard over (3: four heads, two KV heads)
+    raises naming the fields before any rank starts (``--tp 2`` runs:
+    tests/test_torch_tp.py)."""
     if argv[1] == "lm_decode":
-        with pytest.raises(NotImplementedError, match="item 5"):
+        with pytest.raises(ValueError, match="tp=3.*num_heads"):
             tserve.main(argv)
         return
     with pytest.raises(ValueError) as err:
