@@ -31,8 +31,9 @@ Phases, each printing JSON lines:
    error (bitwise for int32 outputs and for every int8 kernel; bf16 bars
    in the ``tol`` fields), which kernel ran where a function has two
    (``variant``: conv1d on the tensor cores, 3xTF32, or the CUDA cores;
-   conv1d_int8 on the tensor cores, mma.sync s8, or dp4a; matmul and
-   matmul_int8 skinny-N or tiled; the fused ticks' layers, fp32 and int8,
+   conv1d_int8 on the tensor cores, mma.sync s8, or dp4a; matmul
+   skinny-N or tiled, matmul_int8 by its route (skinny, narrow, tc,
+   dp4a); the fused ticks' layers, fp32 and int8,
    on the tensor cores or the CUDA cores; banded_align and levenshtein
    their lane ``plan``: G lanes a pair, R rows a lane, stripes and where
    they hand on), kernel, plain and library times, and
@@ -124,7 +125,7 @@ Phases, each printing JSON lines:
    ``lm_decode``: the ``full`` preset (8 slots x 512) for qwen3-4b and
    mamba2-780m at full width and depth, 16 requests with 4-token prompts
    and 32 new tokens: tokens/s, each step's decode-stage ms, request
-   p50/p99, matmul_bf16 launches (all on the wgmma kernel, 108 a
+   p50/p99, matmul_bf16 launches (all on the narrow-M kernel, 108 a
    qwen3-4b step) and the fabric counters; one timed qwen3-4b step at 8
    slots with a 32,768-long cache (decode_32k's batch 128 cut to 8);
    the f32 smoke configs of the five archs card against CPU (equal
@@ -132,16 +133,20 @@ Phases, each printing JSON lines:
    2 (four steps' logits within 2 bf16 ulps), the f32 forward equal to
    step-by-step decode within JAX's 2e-2, and two ``lm_decode`` tenants
    of one fleet on one ``LMUnit``, each equal to its solo run; then
-   ``matmul_bf16_decode`` (qwen3-4b's three MLP GEMMs at M = 8).
-   ``lm_tp``: ``matmul_int8_lm`` (row 2l: the tiled int8 GEMM at
-   qwen3-4b's seven decode projections, M = 8 and M = 4096, bitwise,
-   beside ``torch._int_mm`` at M = 32, the least M it takes); the int8
+   ``matmul_bf16_decode`` (row 2d: qwen3-4b's three MLP GEMMs at M = 1,
+   8 and 16 on the narrow-M kernel, a row alone equal to the same row of
+   the M = 8 call, a second run equal to the first, bit for bit).
+   ``lm_tp``: ``matmul_int8_lm`` (row 2l: qwen3-4b's seven decode
+   projections at M = 1, 8 and 16 on the narrow-M kernel and at M = 32
+   and 4,096 on the tiled tensor-core one, the TP 2 ranks' shapes and two
+   ragged ones, every line naming its route, bitwise, beside
+   ``torch._int_mm`` at M = 32, the least M it takes); the int8
    qwen3-4b (``quantize_params(stack_dims=1)`` of seeded bf16 params) on
-   the ``full`` preset, 16 requests: tokens/s, step ms, 252 tiled int8
+   the ``full`` preset, 16 requests: tokens/s, step ms, 252 narrow-M int8
    launches a step, peak memory, and at depth 2 card against CPU within
    ``lm_decode``'s bf16 bars; two tensor-parallel ranks on the one card
    over gloo (``distributed.launch.run``): the collectives on CUDA
-   tensors, the f32 smoke qwen3-4b (1e-5) and mamba2-780m (1e-4) against
+   tensors, the f32 smoke qwen3-4b and mamba2-780m (JAX's 1e-5) against
    TP 1 on the card, the int8 qwen3-4b at full width 8 steps bit for bit
    and token for token against one rank, a converter -> ``sharded``
    checkpoint loaded pre-partitioned (counters, each rank's columns) and
@@ -214,13 +219,15 @@ Phases, each printing JSON lines:
 12. ``{"kernels": [...]}``: every kernel with its launches in phases 4-11,
    counted from 0 just before each path and read just after it, and
    ``train_launches``, those of the ``lm_train`` paths
-   (``matmul_bf16`` also with ``wgmma_launches``, those on its wgmma
-   kernel; ``matmul_bf16_decode``, row 2d, its launches on the
-   ``lm_decode`` paths with ``wgmma_launches``, ``variant``,
-   ``device_ms`` and ``library_device_ms`` (``torch.matmul``);
-   ``matmul_int8_lm``, row 2l, the tiled int8 kernel's launches on the
-   ``lm_tp`` paths, with ``device_ms``, ``library_m`` (32: ``library_ms``
-   is ``torch._int_mm`` there), ``kernel_ms_at_library_m`` and
+   (``matmul_bf16`` also with ``wgmma_launches`` and ``narrow_launches``,
+   those on its wgmma and narrow-M kernels; ``matmul_bf16_decode``, row
+   2d, its launches on the ``lm_decode`` paths with ``narrow_launches``,
+   ``wgmma_launches``, ``variant``, ``device_ms`` and
+   ``library_device_ms`` (``torch.matmul``);
+   ``matmul_int8_lm``, row 2l, its launches on the ``lm_tp`` paths with
+   ``narrow_launches`` and ``tc_launches``, ``device_ms``,
+   ``library_m`` (32: ``library_ms`` is ``torch._int_mm`` there),
+   ``kernel_ms_at_library_m``, ``bound_ms_at_library_m`` and
    ``at_4096``;
    ``conv1d`` with ``tc_launches`` and ``bound_fp32_ms``;
    ``conv1d_int8`` with ``tc_launches`` and ``device_ms``;
@@ -228,7 +235,8 @@ Phases, each printing JSON lines:
    pathogen compare's pairs, ms, device ms, bound and plan);
    ``levenshtein`` with ``device_ms`` and ``plan``;
    ``matmul`` with ``skinny_launches``; ``matmul_int8`` with
-   ``skinny_launches``, ``device_ms`` and ``library_device_ms``;
+   ``skinny_launches``, ``narrow_launches``, ``tc_launches``,
+   ``dp4a_launches``, ``device_ms`` and ``library_device_ms``;
    ``fused_stream`` with ``tc_launches``, ``tc_layers``, ``device_ms``,
    ``unfused_ms``, ``unfused_device_ms`` and ``bound_fp32_ms``;
    ``fused_stream_int8`` with ``tc_launches``, ``tc_layers`` and
@@ -821,22 +829,22 @@ def check_conv1d_int8(torch, peaks, table, x, w, stride, label, on_path):
 
 def check_matmul_int8(torch, peaks, table, a, w, label, on_path):
     """int8 GEMM kernel vs its plain version, bitwise; ``variant`` says
-    which kernel ran (``skinny`` for N <= 8, else ``tiled``).  The library
+    which kernel ran (``matmul.route_int8``: ``skinny`` for N <= 8,
+    ``narrow`` / ``tc`` on the tensor cores, ``dp4a``).  The library
     call is torch._int_mm (cuBLASLt), which needs N % 8 == 0: N is
     zero-padded to 8 for it.  On a path also ``device_ms`` and
     ``library_device_ms`` (``device_ms``): the host takes longer to issue
     the launch than the card to run it."""
     from repro_torch.kernels import matmul as km
     from repro_torch.kernels import ref
-    before = km.matmul_int8.skinny_launches
+    route = km.route_int8(a.shape[0], w.shape[1], a.shape[1], a.data_ptr(),
+                          w.data_ptr())
     out = km.matmul_int8(a, w)
-    thin = km.matmul_int8.skinny_launches > before
     want = ref.matmul_int8(a, w)
     torch.cuda.synchronize()
     diff = int((out != want).sum().item())
     line = {"phase": "kernel", "kernel": "matmul_int8", "shape": label,
-            "a": list(a.shape), "b": list(w.shape),
-            "variant": "skinny" if thin else "tiled",
+            "a": list(a.shape), "b": list(w.shape), "variant": route,
             "elements_differing": diff}
     if on_path:
         ms = time_ms(torch, lambda: km.matmul_int8(a, w))
@@ -867,6 +875,7 @@ def check_matmul_int8(torch, peaks, table, a, w, label, on_path):
                 "library_device_ms"]
     emit(line)
     require(diff == 0, f"matmul_int8 {label}: {diff} outputs differ")
+    return route
 
 
 def check_fused_int8(torch, bc, peaks, table, qparams, cfg, inputs, label,
@@ -1175,26 +1184,31 @@ def phase_kernels_limits(torch, F, peaks, table, gen):
 
 def phase_grid_limits(torch, gen):
     """Sizes past the 2-D grids' y limits that four kernels once had and
-    JAX does not: int8 matmul at M = 4,194,305 (N 5 skinny, N 64 tiled;
-    bitwise), the bf16 matmul's mma.sync kernel at M = 8,388,481 (K 12,
-    which TMA cannot address; one bf16 ulp of max |out|), flash attention
-    at Sq = 8,388,481 against 128 keys (the first, middle and last 512
-    rows within the flash bar) and ssd_scan at B * H = 65,536 heads (the
-    first, middle and last 512 heads within SSD_TOL)."""
+    JAX does not: int8 matmul at M = 4,194,305 on each route that numbers
+    its blocks along x (N 5 skinny, K 128 N 64 the tiled tensor-core
+    kernel, K 124 N 64 the dp4a tile; bitwise), the bf16 matmul's
+    mma.sync kernel at M = 8,388,481 (K 12, which TMA cannot address; one
+    bf16 ulp of max |out|), flash attention at Sq = 8,388,481 against 128
+    keys (the first, middle and last 512 rows within the flash bar) and
+    ssd_scan at B * H = 65,536 heads (the first, middle and last 512 heads
+    within SSD_TOL)."""
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import matmul as km
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as kssd
     dev = torch.device("cuda")
     g = torch.Generator(dev).manual_seed(11)
-    a = torch.randint(-127, 128, (4_194_305, 128), generator=g, device=dev,
-                      dtype=torch.int8)
-    for n in (5, 64):
-        w = torch.randint(-127, 128, (128, n), generator=g, device=dev,
+    for k, n, want in ((128, 5, "skinny"), (128, 64, "tc"),
+                       (124, 64, "dp4a")):
+        a = torch.randint(-127, 128, (4_194_305, k), generator=g,
+                          device=dev, dtype=torch.int8)
+        w = torch.randint(-127, 128, (k, n), generator=g, device=dev,
                           dtype=torch.int8)
-        check_matmul_int8(torch, None, None, a, w,
-                          f"limit M=4194305 K=128 N={n}", False)
-    del a
+        route = check_matmul_int8(torch, None, None, a, w,
+                                  f"limit M=4194305 K={k} N={n}", False)
+        require(route == want, f"matmul_int8 at M=4194305 K={k} N={n} ran "
+                f"{route}, not {want}")
+        del a
     a = torch.randn((8_388_481, 12), generator=g, device=dev).bfloat16()
     w = torch.randn((12, 8), generator=g, device=dev).bfloat16()
     before = km.matmul_bf16.wgmma_launches
@@ -2636,20 +2650,23 @@ def recorded_logits(eng):
 
 
 def check_matmul_bf16_decode(torch, F, peaks, table):
-    """``matmul_bf16`` at qwen3-4b's three MLP GEMMs with M = 8 (the
-    ``full`` preset's slots), on the kernel the wrapper picks (the wgmma
-    one: TMA addresses the operands), against its plain version within
-    one bf16 ulp; event and device times beside ``torch.matmul``'s on the
-    same bf16 inputs.  The bound is the bytes: ~50 MB of weights a GEMM."""
+    """Row 2d: ``matmul_bf16`` at qwen3-4b's three MLP GEMMs with M = 8
+    (the ``full`` preset's slots), and at M = 1 and 16, on the narrow-M
+    kernel (``route_bf16``), against its plain version within one bf16
+    ulp; the same call twice gives the same bits, and each row of the M =
+    8 call equals that row computed alone (M = 1), bit for bit (the K
+    split depends on N and K only).  Event and device times beside
+    ``torch.matmul``'s on the same bf16 inputs.  The bound is the bytes:
+    ~50 MB of weights a GEMM.  The table row sums the three M = 8 GEMMs."""
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import matmul as km
     from repro_torch.kernels import ref
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(7)
     q3 = ARCHS["qwen3-4b"].config()
-    m, d, ff = DECODE_LONG_SLOTS, q3.d_model, q3.d_ff
-    a = torch.randn((m, d), generator=gen, device=dev).bfloat16()
-    h = (torch.randn((m, ff), generator=gen, device=dev) * 0.5).bfloat16()
+    d, ff = q3.d_model, q3.d_ff
+    a = torch.randn((16, d), generator=gen, device=dev).bfloat16()
+    h = (torch.randn((16, ff), generator=gen, device=dev) * 0.5).bfloat16()
     wg = (torch.randn((d, ff), generator=gen, device=dev) * d ** -0.5
           ).bfloat16()
     wu = (torch.randn((d, ff), generator=gen, device=dev) * d ** -0.5
@@ -2658,47 +2675,69 @@ def check_matmul_bf16_decode(torch, F, peaks, table):
           ).bfloat16()
     dev_ms = lib_dev_ms = 0.0
     ran = set()
-    for (name, act), (x, w) in zip(DECODE_MLP, ((a, wg), (a, wu), (h, wo))):
-        before = km.matmul_bf16.wgmma_launches
-        out = km.matmul_bf16(x, w, activation=act)
-        ran.add("wgmma" if km.matmul_bf16.wgmma_launches > before
-                else "mma.sync")
-        want = ref.matmul(x, w, activation=act)
-        torch.cuda.synchronize()
-        err = (out.float() - want.float()).abs().max().item()
-        tol = bf16_ulp(want.float().abs().max().item())
-        ms = time_ms(torch, lambda: km.matmul_bf16(x, w, activation=act))
-        dms = device_ms(torch, lambda: km.matmul_bf16(x, w, activation=act))
-        plain = time_ms(torch, lambda: ref.matmul(x, w, activation=act),
-                        reps=5)
-        if act == "silu":
-            def lib():
-                return F.silu(torch.matmul(x, w))
-        else:
-            def lib():
-                return torch.matmul(x, w)
-        lib_ms = time_ms(torch, lib)
-        lib_dms = device_ms(torch, lib)
-        ops = 2.0 * m * x.shape[1] * w.shape[1]
-        bnd, by = bound_ms(peaks, nbytes(x, w, out), ops, bf16=True)
-        emit({"phase": "kernel", "kernel": "matmul_bf16_decode",
-              "shape": f"qwen3-4b MLP {name} at M = {m}",
-              "a": list(x.shape), "b": list(w.shape), "activation": act,
-              "variant": sorted(ran), "max_abs_err": err, "tol": tol,
-              "ms": ms, "device_ms": dms, "plain_ms": plain,
-              "library_ms": lib_ms, "library_device_ms": lib_dms,
-              "bound_ms": bnd, "bound_by": by,
-              "bytes": nbytes(x, w, out)})
-        table.add("matmul_bf16_decode", err=err, ms=ms, plain_ms=plain,
-                  bound=bnd, bound_by=by, library_ms=lib_ms)
-        dev_ms += dms
-        lib_dev_ms += lib_dms
-        require(err <= tol, f"matmul_bf16_decode {name}: max abs err {err} "
-                f"over {tol}")
+    for m in (1, DECODE_LONG_SLOTS, 16):
+        for (name, act), (xs, w) in zip(DECODE_MLP, ((a, wg), (a, wu),
+                                                     (h, wo))):
+            x = xs[:m].contiguous()
+            route = km.route_bf16(m, w.shape[1], x.shape[1], x.data_ptr(),
+                                  w.data_ptr())
+            before = km.matmul_bf16.narrow_launches
+            out = km.matmul_bf16(x, w, activation=act)
+            narrow = km.matmul_bf16.narrow_launches - before
+            ran.add(route)
+            again = km.matmul_bf16(x, w, activation=act)
+            rows = km.matmul_bf16(xs[:DECODE_LONG_SLOTS].contiguous(), w,
+                                  activation=act)
+            want = ref.matmul(x, w, activation=act)
+            torch.cuda.synchronize()
+            err = (out.float() - want.float()).abs().max().item()
+            tol = bf16_ulp(want.float().abs().max().item())
+            repeat = bool(torch.equal(out, again))
+            k = min(m, DECODE_LONG_SLOTS)
+            rows_equal = bool(torch.equal(out[:k], rows[:k]))
+            ms = time_ms(torch, lambda: km.matmul_bf16(x, w,
+                                                       activation=act))
+            dms = device_ms(torch, lambda: km.matmul_bf16(x, w,
+                                                          activation=act))
+            if act == "silu":
+                def lib():
+                    return F.silu(torch.matmul(x, w))
+            else:
+                def lib():
+                    return torch.matmul(x, w)
+            lib_ms = time_ms(torch, lib)
+            lib_dms = device_ms(torch, lib)
+            ops = 2.0 * m * x.shape[1] * w.shape[1]
+            bnd, by = bound_ms(peaks, nbytes(x, w, out), ops, bf16=True)
+            line = {"phase": "kernel", "kernel": "matmul_bf16_decode",
+                    "shape": f"qwen3-4b MLP {name} at M = {m}",
+                    "a": list(x.shape), "b": list(w.shape),
+                    "activation": act, "route": route,
+                    "splits": km.narrow_split(w.shape[1], w.shape[0],
+                                              km.NARROW_STEP["bf16"]),
+                    "max_abs_err": err, "tol": tol,
+                    "repeat_bitwise": repeat,
+                    "rows_equal_alone_and_in_8": rows_equal, "ms": ms,
+                    "device_ms": dms, "library_ms": lib_ms,
+                    "library_device_ms": lib_dms, "bound_ms": bnd,
+                    "bound_by": by, "bytes": nbytes(x, w, out)}
+            require(err <= tol and route == "narrow" and narrow == 1
+                    and repeat and rows_equal,
+                    f"matmul_bf16_decode {name} M={m}: {line}")
+            if m != DECODE_LONG_SLOTS:
+                emit(line)
+                continue
+            plain = time_ms(torch, lambda: ref.matmul(x, w, activation=act),
+                            reps=5)
+            line["plain_ms"] = plain
+            emit(line)
+            table.add("matmul_bf16_decode", err=err, ms=ms, plain_ms=plain,
+                      bound=bnd, bound_by=by, library_ms=lib_ms)
+            dev_ms += dms
+            lib_dev_ms += lib_dms
     row = table.rows["matmul_bf16_decode"]
     row.update(device_ms=dev_ms, library_device_ms=lib_dev_ms,
                variant=sorted(ran))
-    require(ran == {"wgmma"}, f"matmul_bf16_decode ran {sorted(ran)}")
 
 
 def phase_lm_decode(torch, F, peaks, table, paths):
@@ -2729,7 +2768,8 @@ def phase_lm_decode(torch, F, peaks, table, paths):
     from repro_torch.models.param import load_numpy_params
     dev = torch.device("cuda")
     t_phase = time.perf_counter()
-    decode_launches = {"matmul_bf16": 0, "matmul_bf16_wgmma": 0}
+    decode_launches = {"matmul_bf16": 0, "matmul_bf16_wgmma": 0,
+                       "matmul_bf16_narrow": 0}
 
     def counted(path, kernels, fn):
         out = paths.drive(path, kernels, fn)
@@ -2774,6 +2814,7 @@ def phase_lm_decode(torch, F, peaks, table, paths):
               "request_p50_ms": rep["p50_ms"],
               "request_p99_ms": rep["p99_ms"],
               "matmul_bf16_launches": got.get("matmul_bf16", 0),
+              "narrow_launches": got.get("matmul_bf16_narrow", 0),
               "wgmma_launches": got.get("matmul_bf16_wgmma", 0),
               "fabric": fabric, "tokens_out_lengths": lens,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
@@ -2783,11 +2824,11 @@ def phase_lm_decode(torch, F, peaks, table, paths):
                 f"counts {lens}")
         want = per_step * rep["dispatches"]
         require(got.get("matmul_bf16", 0) == want
-                and got.get("matmul_bf16_wgmma", 0) == want
+                and got.get("matmul_bf16_narrow", 0) == want
                 and fabric == ({"fabric.dispatch.matmul.cuda": want}
                                if want else {}),
                 f"lm_decode {arch}: launches {got}, fabric {fabric}, "
-                f"expected {want} on the wgmma kernel")
+                f"expected {want} on the narrow-M kernel")
         if arch == "qwen3-4b":
             keep = (cfg, eng.params)
         del eng
@@ -2826,7 +2867,10 @@ def phase_lm_decode(torch, F, peaks, table, paths):
           "warm_ms": walls[0], "step_ms": walls[1], "cache_gb": cache_gb,
           "finite": finite, "reduced": DECODE_REDUCED,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
-    require(finite, "decode_32k step: non-finite logits")
+    got = paths.paths["lm_decode qwen3-4b 32k step"]
+    require(finite and got.get("matmul_bf16_narrow", 0)
+            == got.get("matmul_bf16", 0) == 2 * 3 * cfg.num_layers,
+            f"decode_32k step: finite {finite}, launches {got}")
     del cache, params, keep, logits
     torch.cuda.empty_cache()
 
@@ -2963,91 +3007,123 @@ def phase_lm_decode(torch, F, peaks, table, paths):
 
 
 # ------------------------------------------------------------ phase lm_tp --
-# Row 2l: the tiled int8 GEMM at qwen3-4b's decode projections, (K, N) of
-# wq, wk, wv, the attention's wo, wi / wi_gate and the MLP's wo; each runs
-# once a layer at decode (7 a layer, 252 a step over 36 layers)
+# Row 2l: matmul_int8 at qwen3-4b's decode projections, (K, N) of wq, wk,
+# wv, the attention's wo, wi / wi_gate and the MLP's wo; each runs once a
+# layer at decode (7 a layer, 252 a step over 36 layers)
 LM_INT8_PROJ = (("wq", 2560, 4096), ("wk", 2560, 1024), ("wv", 2560, 1024),
                 ("attn wo", 4096, 2560), ("wi", 2560, 9728),
                 ("wi_gate", 2560, 9728), ("mlp wo", 9728, 2560))
+# a TP 2 rank's slices of them: column-parallel N halved, row-parallel K
+LM_INT8_TP2_PROJ = (("wq", 2560, 2048), ("wk", 2560, 512), ("wv", 2560, 512),
+                    ("attn wo", 2048, 2560), ("wi", 2560, 4864),
+                    ("wi_gate", 2560, 4864), ("mlp wo", 4864, 2560))
+# ragged: K and N multiples of 16 but not of the tiles (the tensor-core
+# routes), and no multiple of 4 (the dp4a tile)
+LM_INT8_RAGGED = (("ragged 16", 2576, 1008), ("ragged", 2561, 1003))
 LM_INT8_DECODE_M = 8        # the full preset's slots
 LM_INT8_PREFILL_M = 4096    # the prefill's 1 x 4096 tokens
 LM_INT8_LIB_M = 32          # torch._int_mm takes M > 16 only
 LM_TP = 2                   # two ranks on the one card, over gloo
 LM_TP_STEPS = 8             # JAX's parity test's steps (mamba2: 6)
-LM_TP_F32_TOL = {"qwen3-4b": 1e-5, "mamba2-780m": 1e-4}
+LM_TP_F32_TOL = {"qwen3-4b": 1e-5, "mamba2-780m": 1e-5}  # JAX's TP bar
 
 
 def check_matmul_int8_lm(torch, peaks, table):
-    """Row 2l: ``kernels.matmul.matmul_int8`` (its tiled kernel: every N
-    here is past 8) at qwen3-4b's seven decode projections, at M = 8 and
-    at M = 4096, bitwise against its plain version; event and device
-    times; ``torch._int_mm`` (cuBLASLt) at M = 32, the least M it takes,
-    beside the kernel at M = 32.  The table row sums the seven M = 8
-    shapes (one layer's decode projections); ``at_4096`` the prefill's."""
+    """Row 2l: ``kernels.matmul.matmul_int8`` at qwen3-4b's seven decode
+    projections at M = 1, 8 and 16 (the narrow-M kernel), 32 and 4,096
+    (the tiled tensor-core kernel), a TP 2 rank's seven slices at M = 1,
+    8 and 16, and two ragged shapes at M = 8 (one on the narrow-M kernel,
+    one on the dp4a tile), each bitwise against its plain version, on the
+    route ``route_int8`` names; event and device times; ``torch._int_mm``
+    (cuBLASLt) at M = 32, the least M it takes, and 4,096 beside the
+    kernel.  The table row sums the seven M = 8 shapes (one layer's
+    decode projections); ``at_4096`` the prefill's."""
     from repro_torch.kernels import matmul as km
     from repro_torch.kernels import ref
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(11)
     prefill = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
                "bound_ms": 0.0, "library_ms": 0.0, "max_abs_err": 0}
-    lib_m = {"ms": 0.0, "library_ms": 0.0}
-    for name, k, n in LM_INT8_PROJ:
+    lib_m = {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    counters = ("launches", "skinny_launches", "narrow_launches",
+                "tc_launches")
+    cases = ([(f"qwen3-4b {n}", k, nn, (1, LM_INT8_DECODE_M, 16,
+                                        LM_INT8_LIB_M, LM_INT8_PREFILL_M))
+              for n, k, nn in LM_INT8_PROJ]
+             + [(f"qwen3-4b TP 2 rank {n}", k, nn, (1, LM_INT8_DECODE_M, 16))
+                for n, k, nn in LM_INT8_TP2_PROJ]
+             + [(n, k, nn, (LM_INT8_DECODE_M,))
+                for n, k, nn in LM_INT8_RAGGED])
+    for label, k, n, ms_ in cases:
         w = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
                           dtype=torch.int8)
-        for m in (LM_INT8_DECODE_M, LM_INT8_PREFILL_M, LM_INT8_LIB_M):
+        for m in ms_:
             a = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
                               dtype=torch.int8)
-            before = km.matmul_int8.skinny_launches
+            route = km.route_int8(m, n, k, a.data_ptr(), w.data_ptr())
+            before = {c: getattr(km.matmul_int8, c) for c in counters}
             out = km.matmul_int8(a, w)
-            thin = km.matmul_int8.skinny_launches > before
+            ran = {c: getattr(km.matmul_int8, c) - before[c]
+                   for c in counters}
             want = ref.matmul_int8(a, w)
             torch.cuda.synchronize()
             diff = int((out != want).sum().item())
-            require(diff == 0 and not thin,
-                    f"matmul_int8 {name} M={m}: {diff} outputs differ, "
-                    f"skinny {thin}")
+            expect = (("narrow" if m <= 16 else "tc")
+                      if k % 16 == 0 and n % 16 == 0 else "dp4a")
+            counted = {"narrow": ran["narrow_launches"],
+                       "tc": ran["tc_launches"],
+                       "dp4a": ran["launches"] - ran["narrow_launches"]
+                       - ran["tc_launches"] - ran["skinny_launches"]}
+            require(diff == 0 and route == expect and counted[route] == 1
+                    and ran["launches"] == 1,
+                    f"matmul_int8 {label} M={m}: {diff} outputs differ, "
+                    f"route {route} (expected {expect}), launches {ran}")
             ms = time_ms(torch, lambda: km.matmul_int8(a, w))
+            bnd, by = bound_ms(peaks, nbytes(a, w, out), 2.0 * m * k * n,
+                               int8=True)
             line = {"phase": "kernel", "kernel": "matmul_int8_lm",
-                    "shape": f"qwen3-4b {name} at M = {m}",
-                    "a": [m, k], "b": [k, n], "variant": "tiled",
-                    "elements_differing": diff, "ms": ms}
-            if m >= 16:
+                    "shape": f"{label} at M = {m}", "a": [m, k],
+                    "b": [k, n], "route": route,
+                    "elements_differing": diff, "ms": ms, "bound_ms": bnd,
+                    "bound_by": by}
+            if m > 16:
                 lib_out = torch._int_mm(a, w)
                 require(torch.equal(lib_out, want),
-                        f"matmul_int8 {name}: torch._int_mm disagrees")
+                        f"matmul_int8 {label}: torch._int_mm disagrees")
                 line["library_ms"] = time_ms(torch,
                                              lambda: torch._int_mm(a, w))
             if m == LM_INT8_LIB_M:
                 lib_m["ms"] += ms
                 lib_m["library_ms"] += line["library_ms"]
+                lib_m["bound_ms"] += bnd
                 emit(line)
                 continue
-            dms = device_ms(torch, lambda: km.matmul_int8(a, w))
-            plain = time_ms(torch, lambda: ref.matmul_int8(a, w), reps=3,
-                            warm=1)
-            bnd, by = bound_ms(peaks, nbytes(a, w, out), 2.0 * m * k * n,
-                               int8=True)
-            line.update(device_ms=dms, plain_ms=plain, bound_ms=bnd,
-                        bound_by=by)
+            line["device_ms"] = device_ms(torch,
+                                          lambda: km.matmul_int8(a, w))
+            main = label in {f"qwen3-4b {n}" for n, _, _ in LM_INT8_PROJ}
+            if main and m in (LM_INT8_DECODE_M, LM_INT8_PREFILL_M):
+                line["plain_ms"] = time_ms(
+                    torch, lambda: ref.matmul_int8(a, w), reps=3, warm=1)
             emit(line)
-            if m == LM_INT8_DECODE_M:
+            if main and m == LM_INT8_DECODE_M:
                 table.add("matmul_int8_lm", err=diff, ms=ms,
-                          plain_ms=plain, bound=bnd, bound_by=by,
+                          plain_ms=line["plain_ms"], bound=bnd, bound_by=by,
                           library_ms=0.0)
                 row = table.rows["matmul_int8_lm"]
-                row["device_ms"] = row.get("device_ms", 0.0) + dms
-            else:
-                for f, v in (("ms", ms), ("device_ms", dms),
-                             ("plain_ms", plain), ("bound_ms", bnd),
-                             ("library_ms", line["library_ms"])):
-                    prefill[f] += v
+                row["device_ms"] = row.get("device_ms", 0.0) + line[
+                    "device_ms"]
+            elif main and m == LM_INT8_PREFILL_M:
+                for f in ("ms", "device_ms", "plain_ms", "bound_ms",
+                          "library_ms"):
+                    prefill[f] += line[f]
                 prefill["bound_by"] = by
+                prefill["route"] = route
     row = table.rows["matmul_int8_lm"]
     # the library at decode: _int_mm's seven shapes at M = 32, beside the
-    # kernel's own at M = 32
+    # kernel's own and the bound at M = 32
     row["library_ms"] = lib_m["library_ms"]
     row.update(library_m=LM_INT8_LIB_M, kernel_ms_at_library_m=lib_m["ms"],
-               at_4096=prefill)
+               bound_ms_at_library_m=lib_m["bound_ms"], at_4096=prefill)
 
 
 def int8_lm_params(torch, cfg, dev, seed=0):
@@ -3176,16 +3252,16 @@ def phase_lm_tp(torch, F, peaks, table, paths):
     """int8 LM weights and tensor parallelism on the card.  (1) Row 2l.
     (2) qwen3-4b's ``full`` preset (8 slots x 512) with int8 weights
     (``quantize_params(stack_dims=1)`` of seeded bf16 params): 16 requests,
-    tokens/s, step ms, 252 tiled int8 launches a step, peak memory; at
+    tokens/s, step ms, 252 narrow-M int8 launches a step, peak memory; at
     depth 2 card against CPU within phase ``lm_decode``'s bf16 bars.
     (3) Two ranks on the one card over gloo (``distributed.launch.run``):
-    the f32 smoke qwen3-4b (1e-5) and mamba2-780m (1e-4) against TP 1 on
+    the f32 smoke qwen3-4b and mamba2-780m (JAX's 1e-5) against TP 1 on
     the card; the int8 qwen3-4b at full width 8 steps bit for bit and
     token for token against the single-rank card run; the converter's
     sharded checkpoint of an int8 smoke qwen3-4b loaded pre-partitioned
     (counters, local widths) and serving bit for bit; which gloo
     collectives stage CUDA tensors through the host.  (4) ``serve --tp 2
-    --ckpt`` in a subprocess.  Returns the tiled int8 launches of the
+    --ckpt`` in a subprocess.  Returns the narrow-M int8 launches of the
     lm_tp paths."""
     import dataclasses
 
@@ -3203,12 +3279,16 @@ def phase_lm_tp(torch, F, peaks, table, paths):
     from repro_torch.train.checkpoint_converter import convert
     dev = torch.device("cuda")
     t_phase = time.perf_counter()
-    tiled = {"lm_tp": 0}
+    narrow = {"lm_tp": 0}
 
-    def count_tiled(path):
+    def count_narrow(path):
+        """The path's int8 launches on the narrow-M kernel; requires that
+        every int8 launch of the path ran there."""
         got = paths.paths[path]
-        n = got.get("matmul_int8", 0) - got.get("matmul_int8_skinny", 0)
-        tiled["lm_tp"] += n
+        n = got.get("matmul_int8_narrow", 0)
+        require(n == got.get("matmul_int8", 0),
+                f"{path}: an int8 GEMM off the narrow-M kernel: {got}")
+        narrow["lm_tp"] += n
         return n
 
     check_matmul_int8_lm(torch, peaks, table)
@@ -3228,7 +3308,7 @@ def phase_lm_tp(torch, F, peaks, table, paths):
     rep, step_ms = paths.drive(
         "lm_tp int8 qwen3-4b full", ("matmul_int8",),
         lambda: drive_decode(torch, eng, decode_requests(cfg.vocab_size)))
-    n = count_tiled("lm_tp int8 qwen3-4b full")
+    n = count_narrow("lm_tp int8 qwen3-4b full")
     got = paths.paths["lm_tp int8 qwen3-4b full"]
     per_step = 7 * cfg.num_layers
     lens = sorted({len(r.tokens_out) for r in eng.finished})
@@ -3241,18 +3321,16 @@ def phase_lm_tp(torch, F, peaks, table, paths):
           "step_ms_mean": float(np.mean(step_ms)),
           "step_ms_p50": float(np.percentile(step_ms, 50)),
           "request_p50_ms": rep["p50_ms"], "request_p99_ms": rep["p99_ms"],
-          "tiled_int8_launches": n,
-          "tiled_int8_per_dispatch": n / rep["dispatches"],
-          "skinny_int8_launches": got.get("matmul_int8_skinny", 0),
+          "narrow_int8_launches": n,
+          "narrow_int8_per_dispatch": n / rep["dispatches"],
           "launches": got, "tokens_out_lengths": lens,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
     require(rep["completed"] == DECODE_REQUESTS
             and lens == [DECODE_NEW_TOKENS + 1],
             f"lm_tp int8: completed {rep['completed']}, lengths {lens}")
-    require(n == per_step * rep["dispatches"]
-            and got.get("matmul_int8_skinny", 0) == 0,
-            f"lm_tp int8: {n} tiled int8 launches over {rep['dispatches']} "
-            f"steps, expected {per_step} a step; {got}")
+    require(n == per_step * rep["dispatches"],
+            f"lm_tp int8: {n} narrow-M int8 launches over "
+            f"{rep['dispatches']} steps, expected {per_step} a step; {got}")
     solo_full = decode_steps(eng, tp_first_tokens(eng.slots,
                                                   cfg.vocab_size),
                              LM_TP_STEPS)
@@ -3332,7 +3410,7 @@ def phase_lm_tp(torch, F, peaks, table, paths):
         for k, v in r["launches"].items():
             counts[k] = counts.get(k, 0) + v
     paths.record("lm_tp int8 qwen3-4b full tp2", counts, ("matmul_int8",))
-    n_tp = count_tiled("lm_tp int8 qwen3-4b full tp2")
+    n_tp = count_narrow("lm_tp int8 qwen3-4b full tp2")
     f32_lines = {}
     for arch in solo:
         tol = LM_TP_F32_TOL[arch]
@@ -3362,8 +3440,8 @@ def phase_lm_tp(torch, F, peaks, table, paths):
           "int8_full_steps": LM_TP_STEPS, "int8_full_bitwise": bitwise,
           "int8_full_tokens_equal": tokens_equal,
           "int8_full_s": [r["int8_full_s"] for r in ranks],
-          "tiled_int8_launches": n_tp,
-          "tiled_int8_per_rank_step": n_tp / (LM_TP * LM_TP_STEPS),
+          "narrow_int8_launches": n_tp,
+          "narrow_int8_per_rank_step": n_tp / (LM_TP * LM_TP_STEPS),
           "int8_local_wi_cols": [r["int8_local_wi_cols"] for r in ranks],
           "peak_mem_gb": [r["peak_mem_gb"] for r in ranks],
           "ckpt_counters": [r["ckpt_counters"] for r in ranks],
@@ -3376,7 +3454,7 @@ def phase_lm_tp(torch, F, peaks, table, paths):
             f"lm_tp int8 full width: bitwise {bitwise}, tokens "
             f"{tokens_equal}")
     require(n_tp == LM_TP * LM_TP_STEPS * 7 * cfg.num_layers,
-            f"lm_tp: {n_tp} tiled int8 launches in the ranks")
+            f"lm_tp: {n_tp} narrow-M int8 launches in the ranks")
     require(all(r["int8_local_wi_cols"] == wi_cols // LM_TP for r in ranks),
             "lm_tp: a rank holds the wrong slice of wi")
     require(ckpt_bitwise and all(
@@ -3404,7 +3482,7 @@ def phase_lm_tp(torch, F, peaks, table, paths):
             f"{proc.stderr[-2000:]}")
     emit({"phase": "lm_tp", "part": "wall",
           "wall_s": time.perf_counter() - t_phase})
-    return tiled["lm_tp"]
+    return narrow["lm_tp"]
 
 
 
@@ -5234,8 +5312,9 @@ KERNELS = {
     # decode server's MLP; its launches are the lm_decode paths'
     "matmul_bf16_decode": ("src/repro_torch/kernels/csrc/matmul.cu",
                            "src/repro/kernels/matmul.py:120"),
-    # row 2l: matmul_int8's tiled kernel at the int8 LM's projections;
-    # its launches are the lm_tp paths' (one rank and two)
+    # row 2l: matmul_int8 at the int8 LM's projections (its narrow-M
+    # kernel at decode); its launches are the lm_tp paths' (one rank and
+    # two)
     "matmul_int8_lm": ("src/repro_torch/kernels/csrc/matmul.cu",
                        "src/repro/kernels/matmul.py:120"),
 }
@@ -5276,6 +5355,11 @@ def launch_counters():
             "conv1d_int8_tc": (conv1d.conv1d_int8, "tc_launches"),
             "matmul_skinny": (matmul.matmul, "skinny_launches"),
             "matmul_int8_skinny": (matmul.matmul_int8, "skinny_launches"),
+            # the decode routes (M <= 16) of matmul_int8 and matmul_bf16,
+            # and matmul_int8's tiled tensor-core kernel
+            "matmul_int8_narrow": (matmul.matmul_int8, "narrow_launches"),
+            "matmul_int8_tc": (matmul.matmul_int8, "tc_launches"),
+            "matmul_bf16_narrow": (matmul.matmul_bf16, "narrow_launches"),
             "fused_stream_tc": (fs, "tc_launches"),
             "fused_stream_tc_layers": (fs, "tc_layers"),
             "fused_stream_int8_tc": (fs, "tc_launches_int8"),
@@ -5417,7 +5501,7 @@ def main() -> int:
     phase_lm_prefill(torch, paths)
     phase_lm_parity_f32(torch, paths)
     decode_launches = phase_lm_decode(torch, F, peaks, table, paths)
-    lm_tp_tiled = phase_lm_tp(torch, F, peaks, table, paths)
+    lm_tp_narrow = phase_lm_tp(torch, F, peaks, table, paths)
     phase_fleet(torch, panel, paths)
     phase_field(torch, paths)
     phase_train(torch, paths)
@@ -5443,7 +5527,7 @@ def main() -> int:
         r = table.rows[k]
         decode = k in ("matmul_bf16_decode", "matmul_int8_lm")
         launches = (decode_launches["matmul_bf16"]
-                    if k == "matmul_bf16_decode" else lm_tp_tiled
+                    if k == "matmul_bf16_decode" else lm_tp_narrow
                     if k == "matmul_int8_lm" else row_launches(k,
                                                                 paths.total))
         kernels.append({
@@ -5458,21 +5542,29 @@ def main() -> int:
             # runs row 2d's M = 8 or row 2l's int8 LM
             kernels[-1]["train_launches"] = row_launches(k, paths.train)
         if k == "matmul_int8_lm":
-            # the tiled kernel at one decode layer's seven projections (M
-            # = 8) summed, device time, _int_mm at M = 32 (the least it
-            # takes) beside the kernel there, and the prefill's M = 4096
+            # the narrow-M kernel at one decode layer's seven projections
+            # (M = 8) summed, device time, _int_mm at M = 32 (the least it
+            # takes) beside the tiled kernel and the bound there, and the
+            # prefill's M = 4096; the lm_tp paths' launches by route
             kernels[-1].update(
-                variant="tiled", device_ms=r["device_ms"],
+                variant="narrow", device_ms=r["device_ms"],
+                narrow_launches=lm_tp_narrow,
+                tc_launches=sum(c.get("matmul_int8_tc", 0) for p, c in
+                                paths.paths.items() if p.startswith("lm_tp")),
                 library_m=r["library_m"],
                 kernel_ms_at_library_m=r["kernel_ms_at_library_m"],
+                bound_ms_at_library_m=r["bound_ms_at_library_m"],
                 at_4096=r["at_4096"])
         if k == "matmul_bf16":
-            kernels[-1]["wgmma_launches"] = paths.total["matmul_bf16_wgmma"]
+            kernels[-1].update(
+                wgmma_launches=paths.total["matmul_bf16_wgmma"],
+                narrow_launches=paths.total["matmul_bf16_narrow"])
         if k == "matmul_bf16_decode":
-            # the lm_decode paths' launches on the wgmma kernel, the
-            # kernel the three M = 8 GEMMs ran, and device times beside
+            # the lm_decode paths' launches by route (all narrow-M), the
+            # route the three GEMMs ran, and device times beside
             # torch.matmul's
             kernels[-1].update(
+                narrow_launches=decode_launches["matmul_bf16_narrow"],
                 wgmma_launches=decode_launches["matmul_bf16_wgmma"],
                 variant=r["variant"], device_ms=r["device_ms"],
                 library_device_ms=r["library_device_ms"])
@@ -5504,8 +5596,13 @@ def main() -> int:
         if k == "ssd_scan_padded":
             kernels[-1]["device_ms_by_pass"] = r["device_ms_by_pass"]
         if k == "matmul_int8":
+            routes = {r: paths.total[f"matmul_int8_{r}"]
+                      for r in ("skinny", "narrow", "tc")}
             kernels[-1].update(
-                skinny_launches=paths.total["matmul_int8_skinny"],
+                skinny_launches=routes["skinny"],
+                narrow_launches=routes["narrow"], tc_launches=routes["tc"],
+                dp4a_launches=paths.total["matmul_int8"]
+                - sum(routes.values()),
                 device_ms=r["device_ms"],
                 library_device_ms=r["library_device_ms"])
         if k == "fused_stream":

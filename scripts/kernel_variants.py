@@ -6,7 +6,7 @@ fp32 and int8 ticks at the flowcell tick's, the wavefront DP at the
 mapper's, the pathogen firehose's and the demux's.
 
     python3 scripts/kernel_variants.py [--reps 3]
-        [--only gemm|flash|flash_f32|conv|fused|ssd|banded]
+        [--only gemm|flash|flash_f32|conv|fused|ssd|banded|narrow]
         [--variants NAME,...]
 
 Each variant is a patched copy of ``src/repro_torch/kernels/csrc`` built
@@ -152,6 +152,34 @@ the heads), bf16 and f32, each pass's device time by the profiler:
   heads_2           pass 3 with two heads a block and C B^T formed once
                     for both (valid where B/C are one row over the heads
                     and B * H is even, as at the path's shape)
+
+``narrow`` variants run the decode (narrow-M) kernels at M = 8, the
+``full`` preset's slots: ``matmul_int8`` at qwen3-4b's seven decode
+projections (bitwise) and ``matmul_bf16`` at its three MLP GEMMs (one
+ulp), device ms of each set:
+
+  int8_no_l1        the int8 weights read with L1::no_allocate (the bf16
+                    kernel's load), not through L1
+  bf16_l1           the bf16 weights read through L1 (the int8 kernel's
+                    load)
+  depth_2           each warp's loads two steps ahead of its products
+  wk_4              blocks of 4 warps splitting K, not 2
+  wn_2              blocks of 2 x 2 warps, 256 columns each, not 1 x 2
+  splits_8          at most 8 K splits a column tile (the Python split;
+                    the kernels as sound), not 16
+  blocks_792, blocks_1056  up to 792 or 1,056 blocks (6 or 8 an SM) in
+                    the Python split, not 528
+  bf16_prefetch_0, bf16_prefetch_2  the bf16 kernel asking L2 for its
+                    rows never or two steps ahead, not one
+  bf16_prefetch_half  the bf16 kernel prefetching the first 128 bytes of
+                    each row's 256 only
+  int8_prefetch_1, int8_prefetch_2  the int8 kernel asking L2 for its
+                    rows one or two steps ahead, not never
+
+and, timing only (wrong results): ``no_split_sum``, the cluster's K
+splits not added (rank 0 stores its own partial), and ``no_epilogue``
+for the decode kernels, ``narrow_no_epilogue``: no partial leaves the
+registers.
 
 Every variant but ``no_epilogue`` is also held to the plain version
 (``max_abs_err``).  Rounds of all variants repeat ``--reps`` times, the
@@ -1802,6 +1830,72 @@ INT8 = {
 }
 
 
+NR_I8_LOAD = """                      ? __ldg(reinterpret_cast<const uint4*>(
+                            b + static_cast<size_t>(k) * N + n))"""
+NR_BF16_LOAD = """                           ? ld_stream16(b + static_cast<size_t>(k) * N + c)"""
+NR_ITEMS = "  const int items = M * GROUPS;  // rows >= M are never stored\n"
+NR_STREAM = """  Step s0, s1;
+  if (st0 < st1) load(s0, st0);
+  for (int st = st0; st < st1; st += 2 * NR_WK) {
+    const bool second = st + NR_WK < st1;
+    if (second) load(s1, st + NR_WK);
+    mma(s0);
+    if (st + 2 * NR_WK < st1) load(s0, st + 2 * NR_WK);
+    if (second) mma(s1);
+  }
+"""
+NR_STREAM_2 = """  Step s0, s1;
+  if (st0 < st1) load(s0, st0);
+  if (st0 + NR_WK < st1) load(s1, st0 + NR_WK);
+  for (int st = st0; st < st1; st += NR_WK) {
+    Step s2;
+    const bool more = st + 2 * NR_WK < st1;
+    if (more) load(s2, st + 2 * NR_WK);
+    mma(s0);
+    s0 = s1;
+    if (more) s1 = s2;
+  }
+"""
+NR_I8_LOAD_CALL = "        narrow_i8_load<MT>(x, a, b, M, N, K, st, n, g, t);\n"
+NR_I8_PREFETCH = """        if (st + %d * NR_WK < st1 && n < N)
+          for (int q = 0; q < 2; ++q)
+            for (int i = 0; i < 4; ++i) {
+              const int k = (st + %d * NR_WK) * 32 + 4 * (t + 4 * q) + i;
+              if (k < K) prefetch_l2(b + static_cast<size_t>(k) * N + n);
+            }
+"""
+NARROW = {
+    "int8_no_l1": [(NR_I8_LOAD, "                      ? ld_stream16("
+                                "b + static_cast<size_t>(k) * N + n)")],
+    "bf16_l1": [(NR_BF16_LOAD, "                           ? __ldg("
+                               "reinterpret_cast<const uint4*>(b + "
+                               "static_cast<size_t>(k) * N + c))")],
+    "depth_2": [(NR_STREAM, NR_STREAM_2)],
+    "wk_4": [("constexpr int NR_WK = 2;", "constexpr int NR_WK = 4;")],
+    "wn_2": [("constexpr int NR_WN = 1;", "constexpr int NR_WN = 2;")],
+    "splits_8": None,
+    "blocks_792": None,
+    "blocks_1056": None,
+    "bf16_prefetch_0": [("        if (st + NR_PREFETCH_BF16 * NR_WK < st1)\n",
+                         "        if (false)\n")],
+    "bf16_prefetch_2": [("constexpr int NR_PREFETCH_BF16 = 1;",
+                         "constexpr int NR_PREFETCH_BF16 = 2;")],
+    "bf16_prefetch_half": [("        if (k < K && n + 64 * h < N)\n",
+                            "        if (k < K && n + 64 * h < N && h == 0)\n")],
+    "int8_prefetch_1": [(NR_I8_LOAD_CALL,
+                         NR_I8_LOAD_CALL + NR_I8_PREFETCH % (1, 1))],
+    "int8_prefetch_2": [(NR_I8_LOAD_CALL,
+                         NR_I8_LOAD_CALL + NR_I8_PREFETCH % (2, 2))],
+    "no_split_sum": [(NR_ITEMS, "  if (s > 0) {\n    cluster.sync();\n"
+                                "    return;\n  }\n  splits = 1;\n" + NR_ITEMS)],
+    "narrow_no_epilogue": [
+        ("  // d0 / d2: columns 2 j and 2 j + 1 of row 8 mt + 2 t; d1 / d3 row + 1\n",
+         "  if (acc[0][0][0] != 12345) return;\n"),
+        ("  // mma j's rows g and g + 8 are the thread's columns 2 j and 2 j + 1:\n",
+         "  if (acc[0][0][0] != 12345.f) return;\n")],
+}
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -1848,6 +1942,27 @@ def use(build, name: str, csrc: str) -> None:
     build._LIBS.clear()
 
 
+def prebuild(build, variants, lib: str) -> None:
+    """Compile ``lib`` for every variant at once (one nvcc each), where
+    ``use`` will look for it."""
+    import subprocess
+    procs = []
+    for name, csrc in variants:
+        use(build, name, csrc)
+        out = build._lib_path(lib)
+        if out.exists():
+            continue
+        out.parent.mkdir(parents=True, exist_ok=True)
+        procs.append((name, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-I", csrc, "-o", str(out),
+             os.path.join(csrc, f"{lib}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    for name, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"{name}: nvcc failed\n{log[-3000:]}")
+
+
 def gemm_round(torch, cs, build, variants, data):
     from repro_torch.kernels import matmul as km
     from repro_torch.kernels import ref
@@ -1864,6 +1979,71 @@ def gemm_round(torch, cs, build, variants, data):
             line[f"{label}_ms"] = cs.time_ms(
                 torch, lambda: km.matmul_bf16(a, w, activation=act), reps=10)
         emit(line)
+
+
+def narrow_data(torch, dev):
+    """The decode kernels' inputs at M = 8: qwen3-4b's seven int8
+    projections and its three bf16 MLP GEMMs, seeded."""
+    gen = torch.Generator(dev).manual_seed(12)
+    i8 = dict(generator=gen, device=dev, dtype=torch.int8)
+    a8 = torch.randint(-127, 128, (8, 9728), **i8)
+    int8 = [(name, a8[:, :k].contiguous(), torch.randint(-127, 128, (k, n),
+                                                          **i8))
+            for name, k, n in (("wq", 2560, 4096), ("wk", 2560, 1024),
+                               ("wv", 2560, 1024), ("attn_wo", 4096, 2560),
+                               ("wi", 2560, 9728), ("wi_gate", 2560, 9728),
+                               ("mlp_wo", 9728, 2560))]
+    d, ff = 2560, 9728
+    x = (torch.randn((8, ff), generator=gen, device=dev) * 0.5).bfloat16()
+    bf16 = [(name, x[:, :k].contiguous(),
+             (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+              ).bfloat16(), act)
+            for name, k, n, act in (("gate", d, ff, "silu"),
+                                    ("up", d, ff, "none"),
+                                    ("down", ff, d, "none"))]
+    return int8, bf16
+
+
+def narrow_round(torch, cs, build, variants, data):
+    """The decode kernels on each variant through the port's wrappers:
+    the int8 set bitwise and the bf16 set within one ulp of their plain
+    versions, the device ms of each set (``splits_8`` lowers the Python
+    split cap for its run)."""
+    from repro_torch.kernels import matmul as km
+    from repro_torch.kernels import ref
+    int8, bf16 = data
+    cap, blocks = km.NARROW_SPLITS, km.NARROW_BLOCKS
+    for name, csrc in variants:
+        use(build, name, csrc)
+        km.NARROW_SPLITS = 8 if name == "splits_8" else cap
+        km.NARROW_BLOCKS = (int(name.split("_")[1]) if
+                            name.startswith("blocks_") else blocks)
+        km.narrow_split.cache_clear()
+        line = {"phase": "variant", "kernel": "matmul_narrow",
+                "variant": name, "int8_device_ms": 0.0,
+                "bf16_device_ms": 0.0, "int8_bitwise": True,
+                "bf16_over_ulp": 0.0}
+        for label, a, w in int8:
+            before = km.matmul_int8.narrow_launches
+            out = km.matmul_int8(a, w)
+            assert km.matmul_int8.narrow_launches == before + 1, name
+            line["int8_bitwise"] &= bool(torch.equal(
+                out, ref.matmul_int8(a, w)))
+            line[f"{label}_device_ms"] = cs.device_ms(
+                torch, lambda: km.matmul_int8(a, w))
+            line["int8_device_ms"] += line[f"{label}_device_ms"]
+        for label, a, w, act in bf16:
+            out = km.matmul_bf16(a, w, activation=act)
+            want = ref.matmul(a, w, activation=act)
+            line["bf16_over_ulp"] = max(line["bf16_over_ulp"], (
+                out.float() - want.float()).abs().max().item() / cs.bf16_ulp(
+                    want.float().abs().max().item()))
+            line[f"{label}_device_ms"] = cs.device_ms(
+                torch, lambda: km.matmul_bf16(a, w, activation=act))
+            line["bf16_device_ms"] += line[f"{label}_device_ms"]
+        emit(line)
+    km.NARROW_SPLITS, km.NARROW_BLOCKS = cap, blocks
+    km.narrow_split.cache_clear()
 
 
 def flash_round(torch, cs, build, variants, q, k, v, want, abs_attn):
@@ -2141,11 +2321,11 @@ def main() -> int:
                     help="comma-separated variant names to run (all if "
                          "empty); the sound kernel always runs")
     ap.add_argument("--only", choices=("gemm", "flash", "flash_f32", "conv",
-                                       "fused", "ssd", "banded"))
+                                       "fused", "ssd", "banded", "narrow"))
     args = ap.parse_args()
     runs = ({args.only} if args.only
             else {"gemm", "flash", "flash_f32", "conv", "fused", "ssd",
-                  "banded"})
+                  "banded", "narrow"})
     sys.path.insert(0, os.path.join(ROOT, "src"))
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
@@ -2175,6 +2355,7 @@ def main() -> int:
     fused = variants(FUSED, "fused_", "fused_stream.cu")
     int8 = variants(INT8, "int8_", "fused_stream.cu")
     ssd = variants(SSD, "ssd_", "ssd_scan.cu")
+    narrow = variants(NARROW, "narrow_", "matmul.cu")
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(3)
     cfg = ARCHS["qwen3-4b"].config()
@@ -2223,8 +2404,14 @@ def main() -> int:
         x32 = (xb[0].float(), xb[1], xb[2].float(), xb[3].float())
         ssd_data = [("bf16", xb, ref.ssd_scan(*xb)[0]),
                     ("f32", x32, ref.ssd_scan(*x32)[0])]
+    narrow_dp = None
+    if "narrow" in runs:
+        prebuild(_build, narrow, "matmul")
+        narrow_dp = narrow_data(torch, dev)
     for rnd in range(args.reps):
         emit({"phase": "round", "round": rnd})
+        if "narrow" in runs:
+            narrow_round(torch, cs, _build, narrow, narrow_dp)
         if "gemm" in runs:
             gemm_round(torch, cs, _build, gemm, data)
         if "flash" in runs:
@@ -2246,6 +2433,11 @@ def main() -> int:
     use(_build, "sound", sound)
     F = torch.nn.functional
     lib = {}
+    if "narrow" in runs:
+        lib["cublas_decode_device_ms"] = {
+            label: cs.device_ms(torch, (lambda a=a, w=w, act=act: F.silu(
+                torch.matmul(a, w)) if act == "silu" else torch.matmul(a, w)))
+            for label, a, w, act in narrow_dp[1]}
     if "gemm" in runs:
         lib["cublas_ms"] = {
             label: cs.time_ms(torch, (lambda a=a, w=w, act=act: F.silu(

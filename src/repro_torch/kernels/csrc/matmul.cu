@@ -24,11 +24,14 @@
 // are fp32 bars.
 #include <cstdint>
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 
 #include "common.cuh"
 #include "hopper.cuh"
 #include "mma.cuh"
+
+namespace cg = cooperative_groups;
 
 constexpr int MM_BM = 64;
 constexpr int MM_BN = 64;
@@ -227,8 +230,10 @@ extern "C" int launch_matmul(const void* a, const void* b, const void* bias,
 }
 
 // ---------------------------------------------------------------- int8 ----
-// int8 x int8 -> int32 GEMM: the fixed-point MAC path, two kernels chosen
-// by N (kernels/matmul.py skinny).
+// int8 x int8 -> int32 GEMM: the fixed-point MAC path, four kernels chosen
+// by shape (kernels/matmul.py route_int8): the two below on the CUDA cores
+// (skinny N, and the dp4a tile for the shapes the tensor-core routes after
+// them cannot take), then the narrow-M and tiled tensor-core routes.
 //
 // Replaces: the int8 branch of src/repro/kernels/matmul.py::matmul (the same
 // Pallas bodies with int8 operands and an int32 accumulator).  Quantization
@@ -244,13 +249,14 @@ extern "C" int launch_matmul(const void* a, const void* b, const void* bias,
 // loads (4- or 1-byte loads where the rows are not 16- or 4-byte aligned;
 // a ragged K tail packs zeros), B is packed four K to a word into shared
 // memory once a block (K/4 x N words, 160 at the head), and N int32
-// accumulators are fed by __dp4a.  Larger N runs the tiled kernel: the
+// accumulators are fed by __dp4a.  Larger N, where K or N is no multiple
+// of 16 or a base is not 16-byte aligned, runs the dp4a tile: the
 // fp32 kernel's 64 x 64 tile, with K walked 32 at a time and packed four
 // to an int32 word in shared memory as it is staged (byte loads, so any K,
 // M and N work; the ragged edges stage zeros, which add nothing), each
 // thread a 4 x 4 int32 register tile fed by __dp4a.  Integer sums have one
-// answer: both kernels equal the plain version (and torch._int_mm) bit for
-// bit.  Both number their blocks along the grid's x only (the tiled one as
+// answer: every kernel equals the plain version (and torch._int_mm) bit
+// for bit.  Both number their blocks along the grid's x only (the tiled one as
 // tile row * column tiles + tile column), so no M is too large.
 constexpr int MMI_BKW = 8;  // packed words of K per stage (32 int8)
 constexpr int MSI_ROWS = 128;  // skinny: rows per block, one per thread
@@ -434,6 +440,432 @@ extern "C" int launch_matmul_int8(const void* a, const void* b, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------- int8 on the tensor cores ----
+// Two more kernels for matmul_int8, chosen by shape (kernels/matmul.py
+// route_int8): where K and N are multiples of 16 and both bases 16-byte
+// aligned, M <= 16 runs matmul_int8_narrow_kernel and M > 16
+// matmul_int8_tc_kernel, both on mma.sync m16n8k32 s8 (exact int32
+// sums); other shapes keep the dp4a kernel above.  They replace the same
+// TPU kernel, src/repro/kernels/matmul.py::matmul with int8 operands.
+//
+// Bound on this card.  At decode (M = the slot count, 8; qwen3-4b's seven
+// projections, ~101 MB of int8 weights a layer) bytes: every weight byte
+// is read once, so the kernel must stream the (K, N) operand with 16-byte
+// loads from every SM.  At prefill (M = 4,096) int8 operations.
+//
+// The operand layout.  The s8 fragments want four consecutive K bytes of
+// one column in a register; a row-major (K, N) weight holds consecutive N.
+// Each thread loads four K rows of one 16-byte (or 4-byte) column group and
+// transposes the 4 x 4 byte blocks in registers (transpose4x4_bytes: eight
+// byte_perm), so the weights are read as stored, with no packed copy.  The
+// columns a thread holds are permuted onto the mma's rows (narrow) or
+// columns (tiled) so that its loads and stores stay contiguous.
+//
+// Narrow (M <= 16): swap A and B, out^T = b^T a^T, so the weight's N fills
+// the m16 side of the mma and the activation rows one (M <= 8) or two n8
+// sides.  A block of 2 warps owns 128 columns (4 warps, or 2 x 2 warps
+// over 256 columns, ran slower: scripts/kernel_variants.py --only
+// narrow); thread (g, t) of a warp loads columns 16 g .. 16 g + 15 of K
+// rows 4 t .. 4 t + 3 and 4 t + 16 .. 4 t + 19 of each 32-deep step (8 x
+// 16 bytes, a warp 4 KB, 128 contiguous bytes a row), the next step's
+// loads in flight while this one multiplies; the activation's fragments
+// are 4-byte loads (it is small and stays in L2).  K is split over blocks
+// (narrow_split in kernels/matmul.py: a function of N and K only, at most
+// 528 blocks, 4 an SM) and a block's steps interleave over its warps; the
+// warps' partials add in shared memory, and the splits of a column tile,
+// one thread block cluster, add over distributed shared memory in rank
+// order (narrow_finish).  The integer sums are exact, so the bits equal the
+// plain version's.  The weights load through L1 (ld.global.nc): the
+// L1::no_allocate form took longer at the wi / wo shapes, where bf16
+// loads faster without L1 (scripts/kernel_variants.py --only narrow).
+//
+// Tiled (M > 16): 128 x 128 output tiles, 8 warps of 64 x 32, K 64 bytes a
+// stage through a 4-stage cp.async ring (A rows and B rows as stored,
+// XOR-swizzled 16-byte chunks: conflict-free ldmatrix for A, conflict-free
+// 4-byte reads for B); A fragments by ldmatrix.x4, B fragments by the byte
+// transpose.  Ragged M, N and K edges stage zeros, which add nothing.
+constexpr int NR_WN = 1;      // warps side by side along N, 128 columns each
+constexpr int NR_WK = 2;      // warps splitting the block's K steps
+constexpr int NR_WARPS = NR_WN * NR_WK;
+constexpr int NR_THREADS = 32 * NR_WARPS;
+constexpr int NR_BN = 128 * NR_WN;    // weight columns a block
+// Steps ahead the bf16 kernel asks L2 for its weight rows: it reads 18%
+// faster so, where int8 reads slower with any prefetch (scripts/
+// kernel_variants.py --only narrow).
+constexpr int NR_PREFETCH_BF16 = 1;
+
+// A warp's K steps st0, st0 + NR_WK, ... below st1, each step's loads
+// issued one step ahead of its products: two register buffers (structs of
+// registers, indexed statically), two steps an iteration, so no buffer is
+// copied.  Loads two steps ahead (scripts/kernel_variants.py depth_2) read
+// the int8 kernel 3% faster and the bf16 one no faster at the decode
+// shapes, for 35-39 more registers a thread; one path serves both.
+template <typename Step, typename Load, typename Mma>
+__device__ __forceinline__ void narrow_stream(int st0, int st1, Load load,
+                                              Mma mma) {
+  Step s0, s1;
+  if (st0 < st1) load(s0, st0);
+  for (int st = st0; st < st1; st += 2 * NR_WK) {
+    const bool second = st + NR_WK < st1;
+    if (second) load(s1, st + NR_WK);
+    mma(s0);
+    if (st + 2 * NR_WK < st1) load(s0, st + 2 * NR_WK);
+    if (second) mma(s1);
+  }
+}
+
+// Word c of a 16-byte load (c a constant after unrolling: no local memory).
+__device__ __forceinline__ uint32_t word4(const uint4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+// One 32-deep step of the narrow int8 kernel, as loaded: w[q][i] the 16
+// bytes of K row 4 (t + 4 q) + i at the thread's columns, x[mt][q] the
+// activation words of rows 8 mt + g at K 4 (t + 4 q).
+template <int MT>
+struct NarrowI8Step {
+  uint4 w[2][4];
+  uint32_t x[MT][2];
+};
+
+template <int MT>
+__device__ __forceinline__ void narrow_i8_load(NarrowI8Step<MT>& s,
+                                               const int8_t* __restrict__ a,
+                                               const int8_t* __restrict__ b,
+                                               int M, int N, int K, int st,
+                                               int n, int g, int t) {
+  const int k0 = st * 32;
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = k0 + 4 * (t + 4 * q) + i;
+      s.w[q][i] = (n < N && k < K)
+                      ? __ldg(reinterpret_cast<const uint4*>(
+                            b + static_cast<size_t>(k) * N + n))
+                      : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int m = 8 * mt + g, k = k0 + 4 * (t + 4 * q);
+      s.x[mt][q] = (m < M && k < K)
+                       ? __ldg(reinterpret_cast<const uint32_t*>(
+                             a + static_cast<size_t>(m) * K + k))
+                       : 0u;
+    }
+  }
+}
+
+template <int MT>
+__device__ __forceinline__ void narrow_i8_mma(int (&acc)[8][MT][4],
+                                              const NarrowI8Step<MT>& s) {
+  // col[q][e]: K bytes 4 (t + 4 q) .. + 3 of the thread's column e
+  uint32_t col[2][16];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      uint32_t out[4];
+      transpose4x4_bytes(word4(s.w[q][0], c), word4(s.w[q][1], c),
+                         word4(s.w[q][2], c), word4(s.w[q][3], c), out);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) col[q][4 * c + j] = out[j];
+    }
+  }
+  // mma j: its row g is the thread's column 2 j, row g + 8 column 2 j + 1
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const uint32_t af[4] = {col[0][2 * j], col[0][2 * j + 1], col[1][2 * j],
+                            col[1][2 * j + 1]};
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) mma_s8_16832(acc[j][mt], af, s.x[mt][0], s.x[mt][1]);
+  }
+}
+
+template <typename V>
+__device__ __forceinline__ void add4(V& v, const V& w) {
+  v.x = v.x + w.x;
+  v.y = v.y + w.y;
+  v.z = v.z + w.z;
+  v.w = v.w + w.w;
+}
+
+// The split-K sum shared by the narrow kernels.  The `splits` blocks of a
+// column tile are one thread block cluster (cluster rank = split); red
+// holds this block's partial of the tile (8 or 16 rows by NR_BN columns,
+// its warps' partials already added).  After a cluster barrier, block s sums
+// its share of the tile's (row, 4-column) groups over the cluster's
+// shared memories (distributed shared memory) in rank order 0 .. splits
+// - 1, and `store`s them; a second barrier keeps every block's partial in
+// place until all have read it.  One launch, no scratch in device memory,
+// no atomics: the float sums run in one fixed order.
+template <typename V, typename T, typename Store>
+__device__ __forceinline__ void narrow_finish(T (*red)[NR_BN], int M, int N,
+                                              int tile, int s, int splits,
+                                              Store store) {
+  constexpr int GROUPS = NR_BN / 4;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int items = M * GROUPS;  // rows >= M are never stored
+  for (int it = s * NR_THREADS + static_cast<int>(threadIdx.x); it < items;
+       it += splits * NR_THREADS) {
+    const int m = it / GROUPS, c = 4 * (it % GROUPS);
+    const int n = tile * NR_BN + c;
+    if (n >= N) continue;
+    V v = *reinterpret_cast<const V*>(cluster.map_shared_rank(&red[m][c], 0));
+    int r = 1;
+    for (; r + 4 <= splits; r += 4) {  // four peers' loads in flight
+      V w[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        w[u] = *reinterpret_cast<const V*>(
+            cluster.map_shared_rank(&red[m][c], r + u));
+#pragma unroll
+      for (int u = 0; u < 4; ++u) add4(v, w[u]);
+    }
+    for (; r < splits; ++r)
+      add4(v, *reinterpret_cast<const V*>(cluster.map_shared_rank(&red[m][c], r)));
+    store(m, n, v);
+  }
+  cluster.sync();
+}
+
+template <int MT>
+__global__ void __launch_bounds__(NR_THREADS)
+matmul_int8_narrow_kernel(const int8_t* __restrict__ a,
+                          const int8_t* __restrict__ b,
+                          int32_t* __restrict__ out, int M, int N, int K,
+                          int splits) {
+  __shared__ __align__(16) int red[NR_WK][MT * 8][NR_BN];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int wn = warp % NR_WN, wk = warp / NR_WN;
+  const int tile = static_cast<int>(blockIdx.x) / splits;
+  const int s = static_cast<int>(blockIdx.x) % splits;
+  const int steps = (K + 31) / 32;
+  const int st0 = static_cast<int>(static_cast<long long>(s) * steps / splits);
+  const int st1 = static_cast<int>(static_cast<long long>(s + 1) * steps / splits);
+  const int n = tile * NR_BN + 128 * wn + 16 * g;  // the thread's 16 columns
+
+  int acc[8][MT][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][mt][e] = 0;
+
+  narrow_stream<NarrowI8Step<MT>>(
+      st0 + wk, st1,
+      [&](NarrowI8Step<MT>& x, int st) {
+        narrow_i8_load<MT>(x, a, b, M, N, K, st, n, g, t);
+      },
+      [&](const NarrowI8Step<MT>& x) { narrow_i8_mma<MT>(acc, x); });
+
+  // d0 / d2: columns 2 j and 2 j + 1 of row 8 mt + 2 t; d1 / d3 row + 1
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int m = 8 * mt + 2 * t, c = 128 * wn + 16 * g + 2 * j;
+      *reinterpret_cast<int2*>(&red[wk][m][c]) = make_int2(acc[j][mt][0], acc[j][mt][2]);
+      *reinterpret_cast<int2*>(&red[wk][m + 1][c]) = make_int2(acc[j][mt][1], acc[j][mt][3]);
+    }
+  __syncthreads();
+  if constexpr (NR_WK > 1) {  // the K warps' partials, in order, into red[0]
+    for (int i = threadIdx.x; i < MT * 8 * NR_BN; i += NR_THREADS) {
+      int v = red[0][i / NR_BN][i % NR_BN];
+#pragma unroll
+      for (int w = 1; w < NR_WK; ++w) v += red[w][i / NR_BN][i % NR_BN];
+      red[0][i / NR_BN][i % NR_BN] = v;
+    }
+    __syncthreads();
+  }
+  narrow_finish<int4>(red[0], M, N, tile, s, splits, [&](int m, int nn, int4 v) {
+    *reinterpret_cast<int4*>(out + static_cast<size_t>(m) * N + nn) = v;
+  });
+}
+
+// A narrow kernel's launch: column tiles x splits blocks, the splits of a
+// tile one cluster (more than 8 blocks a cluster is a non-portable size,
+// allowed per kernel).
+template <typename Kernel, typename... Args>
+static int launch_narrow(Kernel kernel, int N, int splits, cudaStream_t stream,
+                         Args... args) {
+  if (splits < 1 || splits > 16) return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = static_cast<long long>((N + NR_BN - 1) / NR_BN) * splits;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (splits > 8) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(splits);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+  cfg.blockDim = dim3(NR_THREADS);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int launch_matmul_int8_narrow(const void* a, const void* b,
+                                         void* out, int M, int N, int K,
+                                         int splits, void* stream) {
+  if (M < 1 || M > 16 || N % 16 != 0 || K % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = M <= 8 ? matmul_int8_narrow_kernel<1> : matmul_int8_narrow_kernel<2>;
+  return launch_narrow(kernel, N, splits, static_cast<cudaStream_t>(stream),
+                       static_cast<const int8_t*>(a), static_cast<const int8_t*>(b),
+                       static_cast<int32_t*>(out), M, N, K, splits);
+}
+
+constexpr int TI_BM = 128;
+constexpr int TI_BN = 128;
+constexpr int TI_BK = 64;     // K bytes a stage
+constexpr int TI_STAGES = 4;
+constexpr int TI_THREADS = 256;
+constexpr int TI_A_BYTES = TI_BM * TI_BK;
+constexpr int TI_STAGE_BYTES = TI_A_BYTES + TI_BK * TI_BN;
+constexpr int TI_SMEM = TI_STAGES * TI_STAGE_BYTES;  // 64 KB
+
+// Swizzled byte offsets of 16-byte chunk c of row r: A rows of 64 bytes
+// (ldmatrix's 8 rows of one chunk hit 8 distinct bank groups), B rows of
+// 128 bytes (the 4 rows 4 apart that one 4-byte read instruction touches
+// hit distinct bank groups).
+__device__ __forceinline__ int ti_a_off(int r, int c) {
+  return r * 64 + 16 * (c ^ ((r >> 1) & 3));
+}
+__device__ __forceinline__ int ti_b_off(int r, int c) {
+  return r * 128 + 16 * (c ^ (((r >> 2) & 3) << 1));
+}
+
+__global__ void __launch_bounds__(TI_THREADS)
+matmul_int8_tc_kernel(const int8_t* __restrict__ a,
+                      const int8_t* __restrict__ b, int32_t* __restrict__ out,
+                      int M, int N, int K, int tiles_n) {
+  extern __shared__ __align__(128) uint8_t ti_smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp / 4, wn = warp % 4;  // rows 64 wm, columns 32 wn
+  const int m0 = static_cast<int>(blockIdx.x / tiles_n) * TI_BM;
+  const int n0 = static_cast<int>(blockIdx.x % tiles_n) * TI_BN;
+  const int nk = (K + TI_BK - 1) / TI_BK;
+
+  auto stage = [&](int kb) {
+    uint8_t* sa = ti_smem + (kb % TI_STAGES) * TI_STAGE_BYTES;
+    uint8_t* sb = sa + TI_A_BYTES;
+    const int k0 = kb * TI_BK;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = threadIdx.x + h * TI_THREADS;
+      const int ra = i / 4, ca = i % 4;
+      const bool oka = m0 + ra < M && k0 + 16 * ca < K;
+      cp_async16(sa + ti_a_off(ra, ca),
+                 oka ? a + static_cast<size_t>(m0 + ra) * K + k0 + 16 * ca : a, oka);
+      const int rb = i / 8, cb = i % 8;
+      const bool okb = k0 + rb < K && n0 + 16 * cb < N;
+      cp_async16(sb + ti_b_off(rb, cb),
+                 okb ? b + static_cast<size_t>(k0 + rb) * N + n0 + 16 * cb : b, okb);
+    }
+  };
+
+  int acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+
+#pragma unroll
+  for (int i = 0; i < TI_STAGES - 1; ++i) {
+    if (i < nk) stage(i);
+    cp_async_commit();
+  }
+  // the thread's B columns: 4 g .. 4 g + 3 of the warp's 32 (mma column g
+  // of n8 tile j is column 4 g + j)
+  const int bc = wn * 32 + 4 * g;
+  for (int kb = 0; kb < nk; ++kb) {
+    cp_async_wait<TI_STAGES - 2>();
+    __syncthreads();  // stage kb landed; stage kb - 1 consumed
+    if (kb + TI_STAGES - 1 < nk) stage(kb + TI_STAGES - 1);
+    cp_async_commit();
+    const uint8_t* sa = ti_smem + (kb % TI_STAGES) * TI_STAGE_BYTES;
+    const uint8_t* sb = sa + TI_A_BYTES;
+#pragma unroll
+    for (int ks = 0; ks < TI_BK / 32; ++ks) {
+      uint32_t af[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = wm * 64 + i * 16 + (lane % 16);
+        ldmatrix_x4(af[i], sa + ti_a_off(r, 2 * ks + lane / 16));
+      }
+      uint32_t bq[2][4];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        uint32_t w[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = ks * 32 + 4 * (t + 4 * q) + i;
+          w[i] = *reinterpret_cast<const uint32_t*>(
+              sb + ti_b_off(r, bc / 16) + bc % 16);
+        }
+        transpose4x4_bytes(w[0], w[1], w[2], w[3], bq[q]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_s8_16832(acc[i][j], af[i], bq[0][j], bq[1][j]);
+    }
+  }
+  cp_async_wait<0>();
+
+  // d0 / d1 of n8 tile j are columns 8 t + j and 8 t + 4 + j of row g:
+  // the thread holds columns 8 t .. 8 t + 7 of rows g and g + 8
+  const int col = n0 + wn * 32 + 8 * t;
+  if (col >= N) return;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + wm * 64 + i * 16 + g + 8 * h;
+      if (row >= M) continue;
+      int4* p = reinterpret_cast<int4*>(out + static_cast<size_t>(row) * N + col);
+      p[0] = make_int4(acc[i][0][2 * h], acc[i][1][2 * h], acc[i][2][2 * h],
+                       acc[i][3][2 * h]);
+      p[1] = make_int4(acc[i][0][2 * h + 1], acc[i][1][2 * h + 1],
+                       acc[i][2][2 * h + 1], acc[i][3][2 * h + 1]);
+    }
+}
+
+extern "C" int launch_matmul_int8_tc(const void* a, const void* b, void* out,
+                                     int M, int N, int K, void* stream) {
+  if (N % 16 != 0 || K % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles_n = (N + TI_BN - 1) / TI_BN;
+  const long long blocks = tiles_n * ((M + TI_BM - 1) / TI_BM);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t err = allow_smem(matmul_int8_tc_kernel, TI_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set = true;
+  }
+  matmul_int8_tc_kernel<<<static_cast<unsigned>(blocks), TI_THREADS, TI_SMEM,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(a), static_cast<const int8_t*>(b),
+      static_cast<int32_t*>(out), M, N, K, static_cast<int>(tiles_n));
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ---------------------------------------------------------------- bf16 ----
 // bf16 x bf16 -> f32 -> bf16 GEMM with a bias + activation epilogue.
 //
@@ -445,12 +877,16 @@ extern "C" int launch_matmul_int8(const void* a, const void* b, void* out,
 //
 // Bound on this card: on the path (the qwen3-4b MLP at 4096 tokens:
 // (4096, 2560) x (2560, 9728) gate + silu and up, (4096, 9728) x (9728,
-// 2560) down) operations, 2.0e11 FLOP a GEMM against ~0.1 GB of operands.
-// Two kernels, chosen by shape (matmul.py says which ran):
+// 2560) down) operations, 2.0e11 FLOP a GEMM against ~0.1 GB of operands;
+// at decode (M = the slot count, 8) the weights' bytes, ~50 MB a GEMM.
+// Three kernels, chosen by shape (matmul.py route_bf16 says which runs):
 //
-//   matmul_bf16_wgmma_kernel, every shape TMA can address (K % 8 == 0,
-//   N % 8 == 0, 16-byte aligned bases): warpgroup wgmma fed by a TMA ring,
-//   the only way to the card's bf16 rate.
+//   matmul_bf16_narrow_kernel, M <= 16 where TMA could address the
+//   operands (K % 8 == 0, N % 8 == 0, 16-byte aligned bases): the weights
+//   streamed once over every SM, K split over blocks (its note is at the
+//   end of this file).
+//   matmul_bf16_wgmma_kernel, the other shapes TMA can address: warpgroup
+//   wgmma fed by a TMA ring, the only way to the card's bf16 rate.
 //   matmul_bf16_kernel, the rest: warp-wide mma.sync m16n8k16.
 //
 // The general variant: a 128 x 128 output tile per block of 8 warps (2 x 4,
@@ -817,4 +1253,190 @@ extern "C" int launch_matmul_bf16_wgmma(const void* a, const void* b,
     case 4: return launch_wgmma<4>(a, b, bias, out, M, N, K, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The narrow-M route (M <= 16; decode's slots), matmul_bf16_narrow_kernel:
+// The wgmma kernel fills 8 of its 128 tile rows at M = 8 and runs
+// ceil(N / 256) blocks (10 for the MLP's down projection, N = 2,560), so
+// 10 of 132 SMs stream its 50 MB.  At M <= 16 the bound is the weight
+// bytes; this kernel is int8's narrow one in bf16: out^T = b^T a^T on
+// mma.sync m16n8k16 (the weight's N on the m16 side, the activation rows
+// on one or two n8 sides), thread (g, t) of a warp loading K rows 2 t,
+// 2 t + 1, 2 t + 8 and 2 t + 9 of each 16-deep step at its columns 8 g ..
+// 8 g + 7 and 64 + 8 g .. 64 + 8 g + 7 (16-byte loads; a warp reads 128
+// contiguous bytes a row), each pair of rows turned into K-pairs by one
+// byte_perm a register, and asking L2 for its rows of the step after the
+// one in flight (prefetch.global.L2).  K is split over blocks by narrow_split (a
+// function of N and K only, never of M); the f32 partials add in a fixed
+// order: a block's warps in shared memory, then the splits of the column
+// tile (one cluster) in rank order over distributed shared memory
+// (narrow_finish).  No float atomics: the bits
+// do not change from run to run, and a row's bits do not depend on the
+// other rows of the call.  Bias and activation go on the f32 total, one
+// rounding to bf16.
+template <int MT>
+struct NarrowBf16Step {
+  uint4 w[2][2][2];   // [pair: rows 2t.. / 2t+8..][row of the pair][half]
+  uint32_t x[MT][2];  // activation rows 8 mt + g, K pairs 2 t and 2 t + 8
+};
+
+template <int MT>
+__device__ __forceinline__ void narrow_bf16_load(
+    NarrowBf16Step<MT>& s, const __nv_bfloat16* __restrict__ a,
+    const __nv_bfloat16* __restrict__ b, int M, int N, int K, int st, int n,
+    int g, int t) {
+  const int k0 = st * 16;
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int k = k0 + 2 * t + 8 * p + r;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = n + 64 * h;
+        s.w[p][r][h] = (c < N && k < K)
+                           ? ld_stream16(b + static_cast<size_t>(k) * N + c)
+                           : make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int m = 8 * mt + g, k = k0 + 2 * t + 8 * p;
+      s.x[mt][p] = (m < M && k < K)
+                       ? __ldg(reinterpret_cast<const uint32_t*>(
+                             a + static_cast<size_t>(m) * K + k))
+                       : 0u;
+    }
+  }
+}
+
+// L2 prefetches of the weight rows of step st (narrow_bf16_load's rows,
+// both 128-byte halves).
+__device__ __forceinline__ void narrow_bf16_prefetch(
+    const __nv_bfloat16* __restrict__ b, int N, int K, int st, int n, int t) {
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int k = st * 16 + 2 * t + 8 * p + r;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (k < K && n + 64 * h < N)
+          prefetch_l2(b + static_cast<size_t>(k) * N + n + 64 * h);
+    }
+}
+
+template <int MT>
+__device__ __forceinline__ void narrow_bf16_mma(float (&acc)[8][MT][4],
+                                                const NarrowBf16Step<MT>& s) {
+  // col[p][e]: the K pair of the thread's column e (e < 8: 8 g + e; else
+  // 64 + 8 g + e - 8), low half the lower k
+  uint32_t col[2][16];
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t r0 = word4(s.w[p][0][h], j), r1 = word4(s.w[p][1][h], j);
+        col[p][8 * h + 2 * j] = __byte_perm(r0, r1, 0x5410);
+        col[p][8 * h + 2 * j + 1] = __byte_perm(r0, r1, 0x7632);
+      }
+    }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const uint32_t af[4] = {col[0][2 * j], col[0][2 * j + 1], col[1][2 * j],
+                            col[1][2 * j + 1]};
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) mma_bf16_16816(acc[j][mt], af, s.x[mt][0], s.x[mt][1]);
+  }
+}
+
+template <int MT>
+__global__ void __launch_bounds__(NR_THREADS)
+matmul_bf16_narrow_kernel(const __nv_bfloat16* __restrict__ a,
+                          const __nv_bfloat16* __restrict__ b,
+                          const __nv_bfloat16* __restrict__ bias,
+                          __nv_bfloat16* __restrict__ out, int M, int N,
+                          int K, int act, int splits) {
+  __shared__ __align__(16) float red[NR_WK][MT * 8][NR_BN];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int wn = warp % NR_WN, wk = warp / NR_WN;
+  const int tile = static_cast<int>(blockIdx.x) / splits;
+  const int s = static_cast<int>(blockIdx.x) % splits;
+  const int steps = (K + 15) / 16;
+  const int st0 = static_cast<int>(static_cast<long long>(s) * steps / splits);
+  const int st1 = static_cast<int>(static_cast<long long>(s + 1) * steps / splits);
+  // the thread's columns: n .. n + 7 and n + 64 .. n + 71
+  const int n = tile * NR_BN + 128 * wn + 8 * g;
+
+  float acc[8][MT][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][mt][e] = 0.f;
+
+  narrow_stream<NarrowBf16Step<MT>>(
+      st0 + wk, st1,
+      [&](NarrowBf16Step<MT>& x, int st) {
+        narrow_bf16_load<MT>(x, a, b, M, N, K, st, n, g, t);
+        if (st + NR_PREFETCH_BF16 * NR_WK < st1)
+          narrow_bf16_prefetch(b, N, K, st + NR_PREFETCH_BF16 * NR_WK, n, t);
+      },
+      [&](const NarrowBf16Step<MT>& x) { narrow_bf16_mma<MT>(acc, x); });
+
+  // mma j's rows g and g + 8 are the thread's columns 2 j and 2 j + 1:
+  // warp columns 8 g + 2 j (+1) for j < 4, 64 + 8 g + 2 (j - 4) (+1) after
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int m = 8 * mt + 2 * t;
+      const int c = 128 * wn + (j < 4 ? 8 * g + 2 * j : 64 + 8 * g + 2 * (j - 4));
+      *reinterpret_cast<float2*>(&red[wk][m][c]) = make_float2(acc[j][mt][0], acc[j][mt][2]);
+      *reinterpret_cast<float2*>(&red[wk][m + 1][c]) = make_float2(acc[j][mt][1], acc[j][mt][3]);
+    }
+  __syncthreads();
+  if constexpr (NR_WK > 1) {  // the K warps' partials, in order, into red[0]
+    for (int i = threadIdx.x; i < MT * 8 * NR_BN; i += NR_THREADS) {
+      float v = red[0][i / NR_BN][i % NR_BN];
+#pragma unroll
+      for (int w = 1; w < NR_WK; ++w) v = v + red[w][i / NR_BN][i % NR_BN];
+      red[0][i / NR_BN][i % NR_BN] = v;
+    }
+    __syncthreads();
+  }
+  narrow_finish<float4>(
+      red[0], M, N, tile, s, splits, [&](int m, int nn, float4 v) {
+        float e[4] = {v.x, v.y, v.z, v.w};
+        uint32_t p[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float lo = e[2 * h], hi = e[2 * h + 1];
+          if (bias != nullptr) {
+            lo = lo + __bfloat162float(bias[nn + 2 * h]);
+            hi = hi + __bfloat162float(bias[nn + 2 * h + 1]);
+          }
+          p[h] = pack_bf16(activate(lo, act), activate(hi, act));
+        }
+        *reinterpret_cast<uint2*>(out + static_cast<size_t>(m) * N + nn) =
+            make_uint2(p[0], p[1]);
+      });
+}
+
+extern "C" int launch_matmul_bf16_narrow(const void* a, const void* b,
+                                         const void* bias, void* out, int M,
+                                         int N, int K, int act, int splits,
+                                         void* stream) {
+  if (M < 1 || M > 16 || N % 8 != 0 || K % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = M <= 8 ? matmul_bf16_narrow_kernel<1> : matmul_bf16_narrow_kernel<2>;
+  return launch_narrow(kernel, N, splits, static_cast<cudaStream_t>(stream),
+                       static_cast<const __nv_bfloat16*>(a),
+                       static_cast<const __nv_bfloat16*>(b),
+                       static_cast<const __nv_bfloat16*>(bias),
+                       static_cast<__nv_bfloat16*>(out), M, N, K, act, splits);
 }

@@ -1,6 +1,8 @@
 // Tensor-core pieces shared by flash_attention.cu and matmul.cu (bf16),
 // conv1d.cu, fused_stream.cu, ssd_scan.cu and flash_attention.cu (TF32)
-// and fused_stream.cu (int8).
+// and fused_stream.cu and matmul.cu (int8), with the operand loads of
+// matmul.cu's decode and int8 routes (ldmatrix, the byte transpose, the
+// streaming 16-byte load).
 //
 // One warp-wide mma.sync.m16n8k16 (bf16 x bf16 -> f32): D[16x8] += A[16x16]
 // B[16x8].  With g = lane / 4 and t = lane % 4, each thread holds
@@ -148,4 +150,48 @@ __device__ __forceinline__ void mma_s8_16832(int (&d)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ldmatrix.x4: four 8 x 8 matrices of 16-bit elements from shared memory;
+// lanes 8i .. 8i + 7 give the row addresses of matrix i (16 bytes each),
+// and register i of each thread holds its (row lane / 4, elements 2 (lane %
+// 4) .. + 1) of matrix i: the A fragment of mma.m16n8k16 (bf16) and, read
+// as bytes, of mma.m16n8k32 (s8).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
+}
+
+// The 4 x 4 byte transpose: r[i] holds row i's four bytes (column j in
+// byte j); afterwards c[j] holds column j's four bytes (row i in byte i).
+// An int8 (K, N) row-major operand read as words along N becomes words
+// along K, the s8 fragments' order.
+__device__ __forceinline__ void transpose4x4_bytes(uint32_t r0, uint32_t r1,
+                                                   uint32_t r2, uint32_t r3,
+                                                   uint32_t (&c)[4]) {
+  const uint32_t t0 = __byte_perm(r0, r1, 0x5140);  // r0.b0 r1.b0 r0.b1 r1.b1
+  const uint32_t t1 = __byte_perm(r0, r1, 0x7362);  // r0.b2 r1.b2 r0.b3 r1.b3
+  const uint32_t t2 = __byte_perm(r2, r3, 0x5140);
+  const uint32_t t3 = __byte_perm(r2, r3, 0x7362);
+  c[0] = __byte_perm(t0, t2, 0x5410);
+  c[1] = __byte_perm(t0, t2, 0x7632);
+  c[2] = __byte_perm(t1, t3, 0x5410);
+  c[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+// 16 bytes of a stream read once (weights): read-only, not kept in L1.
+__device__ __forceinline__ uint4 ld_stream16(const void* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+// Asks L2 for the line holding p (no register, no wait): the decode
+// kernels' rows a few steps ahead of their loads.
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
 }

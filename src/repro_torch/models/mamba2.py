@@ -61,17 +61,30 @@ def _split_proj(cfg: ModelConfig, proj):
     return z, xbc, dt
 
 
+def _sum_squares(yf):
+    """The sum of squares over the last dim, as two half-width sums added:
+    the order of the all-reduce over two ranks, so that TP 2 gives TP 1's
+    bits.  Only degree 2: at TP 4 each rank sums a quarter, and TP 4 parts
+    from TP 1 at this op.  One full-width ``torch.sum``
+    reassociates otherwise: at the smoke width (128) it parted from the
+    two-rank sum on 44.6% of seeded rows, where XLA's order (windows of 32
+    summed in turn) parts on 19.5% (``scripts/mamba_tp_parity.py``)."""
+    sq = torch.square(yf)
+    h = sq.shape[-1] // 2
+    return (torch.sum(sq[..., :h], dim=-1, keepdim=True)
+            + torch.sum(sq[..., h:], dim=-1, keepdim=True))
+
+
 def _gated_rmsnorm(y, z, scale, eps: float, full_di: int):
     """RMSNorm(y) * silu(z) with the normaliser over the whole d_inner:
     under tensor parallelism a rank holds di / tp features, so its sum of
     squares is all-reduced and divided by the full width."""
     yf = y.float()
     if tp.axis() is not None and y.shape[-1] < full_di:
-        var = tp.psum(torch.sum(torch.square(yf), dim=-1,
-                                keepdim=True)) / full_di
+        ss = tp.psum(torch.sum(torch.square(yf), dim=-1, keepdim=True))
     else:
-        var = torch.mean(torch.square(yf), dim=-1, keepdim=True)
-    out = (yf * torch.rsqrt(var + eps) * scale).to(y.dtype)
+        ss = _sum_squares(yf)
+    out = (yf * torch.rsqrt(ss / full_di + eps) * scale).to(y.dtype)
     return out * silu(z)
 
 

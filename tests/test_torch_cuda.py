@@ -840,6 +840,81 @@ def test_matmul_bf16_unaligned_base_runs_mma_sync(dev):
     assert float((got.float() - want.float()).abs().max()) <= ulp
 
 
+_INT8_ROUTES = ("launches", "skinny_launches", "narrow_launches",
+                "tc_launches")
+
+
+# decode (M <= 16) on the narrow-M kernel: qwen3-4b's projections, a TP 2
+# rank's, ragged to the 128-column tile and to the 32-deep step; M > 16 on
+# the tiled tensor-core kernel, ragged in M, N and K; the rest on dp4a
+@pytest.mark.parametrize("m,k,n,route", [
+    (1, 2560, 1024, "narrow"), (8, 2560, 4096, "narrow"),
+    (16, 9728, 2560, "narrow"), (8, 4864, 2560, "narrow"),
+    (8, 2560, 512, "narrow"), (8, 2576, 1008, "narrow"),
+    (5, 48, 16, "narrow"), (13, 4096, 2560, "narrow"),
+    (17, 2560, 1024, "tc"), (32, 9728, 2560, "tc"),
+    (300, 2576, 1008, "tc"), (4096, 128, 256, "tc"),
+    (8, 2561, 1003, "dp4a"), (64, 2560, 1000, "dp4a")])
+def test_matmul_int8_routes_bitwise(dev, m, k, n, route):
+    a, b = _int8((m, k), 22, dev), _int8((k, n), 23, dev)
+    assert km.route_int8(m, n, k, a.data_ptr(), b.data_ptr()) == route
+    before = [getattr(km.matmul_int8, c) for c in _INT8_ROUTES]
+    got = km.matmul_int8(a, b)
+    ran = [getattr(km.matmul_int8, c) - v
+           for c, v in zip(_INT8_ROUTES, before)]
+    assert ran == [1, 0, int(route == "narrow"), int(route == "tc")]
+    assert torch.equal(got, ref.matmul_int8(a, b))
+
+
+def test_matmul_int8_narrow_split_rows_and_repeats_bitwise(dev):
+    """The K-split partials sum exactly: a row alone equals its row in a
+    call of 8 and of 16, and a second call the first, bit for bit."""
+    a, b = _int8((16, 9728), 24, dev), _int8((9728, 2560), 25, dev)
+    full = km.matmul_int8(a, b)
+    assert torch.equal(full, km.matmul_int8(a, b))
+    assert torch.equal(full[:8], km.matmul_int8(a[:8].contiguous(), b))
+    for r in (0, 7, 15):
+        assert torch.equal(full[r:r + 1],
+                           km.matmul_int8(a[r:r + 1].contiguous(), b))
+
+
+@pytest.mark.parametrize("m,k,n,act,bias", [
+    (1, 2560, 9728, "silu", False), (8, 2560, 9728, "none", False),
+    (8, 9728, 2560, "none", False), (16, 2560, 9728, "silu", True),
+    (5, 200, 264, "gelu", True),        # ragged to the tile and the step
+    (3, 64, 8, "relu", False), (12, 136, 520, "squared_relu", True)])
+def test_matmul_bf16_narrow_within_one_ulp(dev, m, k, n, act, bias):
+    """M <= 16 where TMA could address the operands: the narrow-M kernel
+    (counted in ``narrow_launches``), within one bf16 ulp of max |out|."""
+    a, w = _bf16((m, k), 45, dev), _bf16((k, n), 46, dev, scale=k ** -0.5)
+    bv = _bf16((n,), 47, dev) if bias else None
+    before = (km.matmul_bf16.launches, km.matmul_bf16.narrow_launches,
+              km.matmul_bf16.wgmma_launches)
+    got = km.matmul_bf16(a, w, bv, activation=act)
+    assert (km.matmul_bf16.launches, km.matmul_bf16.narrow_launches,
+            km.matmul_bf16.wgmma_launches) == (before[0] + 1, before[1] + 1,
+                                               before[2])
+    want = ref.matmul(a, w, bv, activation=act)
+    ulp = 2.0 ** (np.floor(np.log2(float(want.float().abs().max()))) - 7)
+    assert float((got.float() - want.float()).abs().max()) <= ulp
+
+
+@pytest.mark.parametrize("k,n", [(2560, 9728), (9728, 2560)])
+def test_matmul_bf16_narrow_row_alone_equals_batch(dev, k, n):
+    """The K split is a function of N and K only and the f32 partials add
+    in a fixed order: a row alone equals its row in a batch of 8 (and of
+    16), and a second call the first, bit for bit."""
+    a, w = _bf16((16, k), 48, dev), _bf16((k, n), 49, dev, scale=k ** -0.5)
+    batch = km.matmul_bf16(a[:8].contiguous(), w, activation="silu")
+    assert torch.equal(batch, km.matmul_bf16(a[:8].contiguous(), w,
+                                             activation="silu"))
+    sixteen = km.matmul_bf16(a, w, activation="silu")
+    assert torch.equal(sixteen[:8], batch)
+    for r in range(8):
+        alone = km.matmul_bf16(a[r:r + 1].contiguous(), w, activation="silu")
+        assert torch.equal(alone, batch[r:r + 1])
+
+
 def test_new_kernels_raise_on_the_wrong_cuda_type(dev):
     """A CUDA tensor of a type the kernel does not take raises; it never
     runs the plain version."""
@@ -1435,15 +1510,15 @@ def test_train_step_on_card_equals_cpu(dev):
 
 @pytest.mark.parametrize("m", [1, 2, 4, 8])
 def test_matmul_bf16_at_decode_rows(dev, m):
-    """Decode's MLP GEMMs at M = the slot count, far below the wgmma
-    kernel's 128-row tile: qwen3-4b's gate/up and down widths, each on
-    the wgmma kernel (counted) within one bf16 ulp of the plain version;
+    """Decode's MLP GEMMs at M = the slot count: qwen3-4b's gate/up and
+    down widths, each on the narrow-M kernel (counted; M <= 16 leaves the
+    wgmma kernel's 128-row tile) within one bf16 ulp of the plain version;
     every row equals that row computed alone (no row reads another)."""
     for k, n, act in ((2560, 9728, "silu"), (9728, 2560, "none")):
         a, w = _bf16((m, k), 50 + m, dev), _bf16((k, n), 51, dev)
-        before = (km.matmul_bf16.launches, km.matmul_bf16.wgmma_launches)
+        before = (km.matmul_bf16.launches, km.matmul_bf16.narrow_launches)
         got = km.matmul_bf16(a, w, activation=act)
-        assert (km.matmul_bf16.launches, km.matmul_bf16.wgmma_launches) == (
+        assert (km.matmul_bf16.launches, km.matmul_bf16.narrow_launches) == (
             before[0] + 1, before[1] + 1)
         want = ref.matmul(a, w, activation=act)
         ulp = 2.0 ** (np.floor(np.log2(float(want.float().abs().max()))) - 7)

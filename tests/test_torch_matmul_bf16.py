@@ -89,4 +89,4 @@ def test_tma_addressable_picks_the_wgmma_kernel(k, n, offset, want):
     a = a.view(16, k)
     b = torch.zeros((k, n), dtype=torch.bfloat16)
     assert b.data_ptr() % 16 == 0
-    assert tmm.tma_addressable(a, b) is want
+    assert tmm.tma_addressable(k, n, a.data_ptr(), b.data_ptr()) is want

@@ -18,11 +18,14 @@ Bars:
   and PyTorch's CPU ``exp``/``cos``/``sin``/``rsqrt``/``tanh`` and float
   GEMMs round differently, so the float parts of a step cannot match JAX
   bit for bit.
-- float32 qwen3-4b: ``allclose(1e-5, 1e-5)`` against JAX and against the
-  port at TP 1.  float32 mamba2-780m: token for token, and within the
-  port's float32 decode bar against JAX, 1e-4 (``test_torch_lm_decode``):
-  at JAX's 1e-5 a logit of step 3 misses by 2e-5 in both comparisons (the
-  row-parallel sums reassociate; max |logit| 60).
+- float32: ``allclose(1e-5, 1e-5)`` against the port at TP 1 (JAX's bar
+  for TP 2 against TP 1), and for qwen3-4b also against JAX.  float32
+  mamba2-780m against JAX: token for token, and within the port's float32
+  decode bar against JAX, 1e-4 (``test_torch_lm_decode``): the port at TP
+  1 is already 2.3e-5 off JAX (XLA's and PyTorch's CPU ``exp``/``rsqrt``
+  round differently; max |logit| 60).  TP 2 meets 1e-5 against TP 1
+  because the gated RMSNorm sums its squares in the two-rank order
+  (``mamba2._sum_squares``, ``scripts/mamba_tp_parity.py``).
 - the vocab-parallel loss within 1e-5 of JAX's ``loss_fn``.
 """
 import dataclasses
@@ -168,7 +171,7 @@ def test_f32_tp2_close_to_tp1_and_jax(run, name):
     solo, want = run["solo"][name], run["jax"][name]
     for res in run["ranks"]:
         got = res[name]
-        assert _allclose(solo, got, tol), name
+        assert _allclose(solo, got, F32), name
         assert _allclose(want, got, tol), name
         assert _tokens(got) == _tokens(want)
     assert _allclose(want, solo, tol)
