@@ -1407,6 +1407,7 @@ def phase_full_width(torch):
     require(len(g_f) == len(g_u), "fused and unfused resolved other reads")
     require(all(m < 1e-4 for m in margins.values()),
             f"fused/unfused goldens differ away from a near tie: {margins}")
+    out["goldens"] = {True: g_f, False: g_u}
     return out
 
 
@@ -1495,6 +1496,7 @@ def phase_full_width_int8(torch, cfg, qparams):
           "reads": len(g_f), "differing_reads": differ})
     require(len(g_f) == len(g_u) and differ == 0,
             f"edge_int8 fused/unfused goldens differ in {differ} reads")
+    out["goldens"] = {True: g_f, False: g_u}
     return out
 
 
@@ -5183,6 +5185,612 @@ def phase_lm_train(torch, paths):
     emit({"phase": "lm_train", "part": "seconds", **part_s})
 
 
+# ------------------------------------------------------------- phase mesh --
+# Training over a (data, model) mesh of gloo ranks sharing the card, the
+# sequence-sharded decode attention, the decode engine's data axis, and
+# lane meshes (two shards on cuda:0) for the flowcell, fleet and field.
+# On one card the ranks show parity and layout, not speed.
+MESH_SMOKE_BATCH = 4        # the f32 smoke steps: 4 x 64 (2 rows a data
+MESH_SMOKE_SEQ = 64         # rank, one a micro-batch at 2x2)
+MESH_SMOKE_MESHES = {"2x1": ((2, 1), 1), "1x2": ((1, 2), 1),
+                     "2x2": ((2, 2), 2)}
+MESH_FULL = (("qwen3-4b", "1x2"), ("mamba2-780m", "2x1"))
+MESH_FULL_STEPS = 3
+MESH_RECOVERY = {"mesh": "2x1", "steps": 10, "fail_at": 7, "ckpt_every": 5}
+# qwen3-4b's attention heads (32 q, 8 KV, D 128, d_model 2560) at decode_32k's
+# cache length, 8 rows, f32; positions in both halves, one at each edge
+MESH_SEQ = {"batch": 8, "seq": 32_768,
+            "pos": [5, 4_000, 16_383, 16_384, 20_000, 32_767, 100, 30_000]}
+MESH_SEQ_TOL = 2e-5         # tests/test_mini_dryrun.py:104
+MESH_ENGINE_REQUESTS = 4
+MESH_LANES = ("cuda:0", "cuda:0")
+
+
+def mesh_flat(tree) -> dict:
+    from repro_torch.distributed import tp
+    return {k: v.detach().float().cpu().numpy()
+            for k, _, v in tp._flatten_with_keys(tree)}
+
+
+def mesh_plan(cfg, m):
+    from repro_torch.distributed import sharding, tp
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.registry import get_model
+    if m == 1:
+        return None
+    shapes, axes = get_model(cfg).abstract_params(cfg)
+    return tp.build_plan(axes, shapes, cfg=cfg, tp=m, rules=sharding.
+                         default_rules(Mesh(("data", "model"), (1, m))))
+
+
+def mesh_smoke_params(torch, cfg, dev):
+    """The f32 smoke params of seed 0, drawn on the CPU (as the card's 1x1
+    reference draws them), then put on ``dev``."""
+    from repro_torch.core import basecaller as bc
+    from repro_torch.models import transformer
+    params, _ = transformer.init(torch.Generator().manual_seed(0), cfg,
+                                 device="cpu")
+    return bc.params_to(params, dev)
+
+
+def mesh_smoke_batch(cfg, dev):
+    from repro_torch.data import tokens
+    return tokens.batch_at_step(tokens.TokenPipelineConfig(
+        vocab_size=cfg.vocab_size, seq_len=MESH_SMOKE_SEQ,
+        global_batch=MESH_SMOKE_BATCH), 0, device=dev)
+
+
+def mesh_job_train_smoke(torch, dev, spec):
+    """One ``jit_train_step`` of each f32 smoke config on the mesh: this
+    rank's loss, gradients and new state (flat numpy, its slice)."""
+    from repro_torch.distributed import tp
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import get_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import trainer
+    (d, m), accum = spec["mesh"], spec["accum"]
+    mesh = make_mesh((d, m), ("data", "model"))
+    out = {"coords": list(mesh.coords)}
+    ocfg = opt.OptimizerConfig(**LM_TRAIN_OPT)
+    tcfg = trainer.TrainerConfig(grad_accum=accum)
+    for arch in ("qwen3-4b", "mamba2-780m"):
+        cfg = f32_smoke(arch)
+        model = get_model(cfg)
+        plan = mesh_plan(cfg, m)
+        params = mesh_smoke_params(torch, cfg, dev)
+        if plan is not None:
+            params = tp.partition_params(params, plan,
+                                         rank=mesh.index("model"))
+        batch = mesh_smoke_batch(cfg, dev)
+        loss, grads = trainer.mesh_loss_and_grads(
+            model.loss, params, batch, cfg, tcfg, mesh=mesh, plan=plan)
+        state = {"params": params, "opt": opt.init_opt_state(params, ocfg)}
+        step = trainer.jit_train_step(model.loss, cfg, ocfg, tcfg, mesh=mesh,
+                                      plan=plan)
+        new, metrics = step(state, batch)
+        out[arch] = {"loss": float(loss), "step_loss": float(metrics["loss"]),
+                     "grad_norm": float(metrics["grad_norm"]),
+                     "grads": mesh_flat(grads),
+                     "params": mesh_flat(new["params"]),
+                     "m": mesh_flat(new["opt"]["m"]),
+                     "v": mesh_flat(new["opt"]["v"])}
+    return out
+
+
+def mesh_job_train(torch, dev, spec):
+    """``launch.train``'s loop (``run``) on this rank of the ``--mesh`` of
+    each argv: history, step times, restarts and a digest of the rank's
+    state."""
+    import hashlib
+
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.utils.tree import leaves
+    out = {}
+    for name, argv in spec.items():
+        args = launch_train.parser().parse_args(argv + ["--device", str(dev)])
+        d, m = launch_train.parse_mesh(args.mesh)
+        res = launch_train.run(args, mesh=make_mesh((d, m), ("data",
+                                                             "model")),
+                               verbose=False)
+        h = hashlib.sha256()
+        for t in leaves(res["state"]):
+            h.update(t.detach().cpu().reshape(-1).view(torch.uint8)
+                     .numpy().tobytes())
+        out[name] = {"history": res["history"], "restarts": res["restarts"],
+                     "step_s": res["step_s"], "wall_s": res["wall_s"],
+                     "state_sha256": h.hexdigest()}
+        del res
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_seq_inputs(torch, dev):
+    """qwen3-4b's attention block (random f32 weights, qk-norm), one token
+    a row, and a full f32 cache, all from seeded generators on ``dev``:
+    every rank draws the same."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.config import ModelConfig
+    import dataclasses
+    q = ARCHS["qwen3-4b"].config()
+    cfg = ModelConfig(**{**dataclasses.asdict(q), "num_layers": 1,
+                         "dtype": "float32"})
+    gen = torch.Generator(dev).manual_seed(5)
+    d, s, b = cfg.d_model, MESH_SEQ["seq"], MESH_SEQ["batch"]
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+    p = {"wq": rnd(d, cfg.q_dim, scale=d ** -0.5),
+         "wk": rnd(d, cfg.kv_dim, scale=d ** -0.5),
+         "wv": rnd(d, cfg.kv_dim, scale=d ** -0.5),
+         "wo": rnd(cfg.q_dim, d, scale=cfg.q_dim ** -0.5),
+         "q_norm": 1 + 0.1 * rnd(cfg.head_dim),
+         "k_norm": 1 + 0.1 * rnd(cfg.head_dim)}
+    x = rnd(b, 1, d)
+    ck = rnd(b, s, cfg.kv_dim, scale=0.5)
+    cv = rnd(b, s, cfg.kv_dim, scale=0.5)
+    pos = torch.tensor(MESH_SEQ["pos"], device=dev)
+    return cfg, p, x, ck, cv, pos
+
+
+def mesh_job_seq_decode(torch, dev, spec):
+    """``decode_attention`` with the ``kv_seq`` rule over ``model`` (a 1x2
+    mesh): this rank's half of the cache; its output and the device time
+    of the call."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import attention
+    cfg, p, x, ck, cv, pos = mesh_seq_inputs(torch, dev)
+    mesh = make_mesh((1, 2), ("data", "model"))
+    i, half = mesh.index("model"), ck.shape[1] // 2
+    ck = ck[:, i * half:(i + 1) * half].clone()
+    cv = cv[:, i * half:(i + 1) * half].clone()
+    rules = sharding.default_rules(mesh, overrides={"kv_seq": "model"})
+    with torch.no_grad(), sharding.use_sharding(mesh, rules):
+        out, _, _ = attention.decode_attention(p, x, cfg, ck, cv, pos)
+        ms = time_ms(torch, lambda: attention.decode_attention(
+            p, x, cfg, ck, cv, pos), reps=5, warm=1)
+    return {"out": out.cpu().numpy(), "ms": ms, "index": i}
+
+
+def mesh_engine_tokens(torch, dev, mesh=None):
+    """The f32 smoke qwen3-4b and mamba2-780m decode engines (seed-0
+    params, 2 slots), MESH_ENGINE_REQUESTS requests each: tokens by
+    request."""
+    import numpy as np
+
+    import repro_torch.engine as te
+    from repro_torch.engine.lm import Request
+    out = {}
+    for arch in ("qwen3-4b", "mamba2-780m"):
+        cfg = f32_smoke(arch)
+        eng = te.build("lm_decode", params=mesh_smoke_params(torch, cfg, dev),
+                       cfg=cfg, slots=2, max_len=32, mesh=mesh, device=dev)
+        rng = np.random.default_rng(21)
+        for uid in range(MESH_ENGINE_REQUESTS):
+            eng.submit(Request(uid=uid, prompt=rng.integers(
+                1, cfg.vocab_size, 3), max_new_tokens=6))
+        eng.drain()
+        out[arch] = {r.uid: r.tokens_out for r in eng.finished}
+    return out
+
+
+def mesh_job_engine(torch, dev, spec):
+    from repro_torch.launch.mesh import make_mesh
+    return mesh_engine_tokens(torch, dev, make_mesh(spec["mesh"],
+                                                    ("data", "model")))
+
+
+MESH_JOBS = {"train_smoke": mesh_job_train_smoke, "train": mesh_job_train,
+             "seq_decode": mesh_job_seq_decode, "engine": mesh_job_engine}
+
+
+def mesh_rank(rank, world, jobs):
+    """One rank of phase ``mesh`` (a spawned process; the ranks share the
+    card): each ``{name: (job, spec)}`` in turn, the kernels counted from
+    0 around it, its wall and peak memory."""
+    import torch
+
+    from repro_torch.kernels import ref
+    ref.full_fp32()
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    counters = launch_counters()
+    out = {}
+    for name, (job, spec) in jobs.items():
+        for wrapper, attr in counters.values():
+            setattr(wrapper, attr, 0)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = MESH_JOBS[job](torch, dev, spec)
+        torch.cuda.synchronize()
+        res["wall_s"] = time.perf_counter() - t0
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        res["launches"] = {k: getattr(w, a) for k, (w, a) in
+                           counters.items()}
+        out[name] = res
+    return out
+
+
+def mesh_reassembled(ranks, arch, field, m):
+    """A field of the model ranks' slices (data coordinate 0) as the full
+    flat tree."""
+    plan = mesh_plan(f32_smoke(arch), m)
+    parts = [next(r for r in ranks if r["coords"] == [0, k])[arch][field]
+             for k in range(m)]
+    out = {}
+    for k in parts[0]:
+        rule = None if plan is None else plan.flat[k]
+        out[k] = (parts[0][k] if rule is None
+                  else rule.unslice([p[k] for p in parts]))
+    return out
+
+
+def mesh_excess(got: dict, want: dict, tol: float) -> float:
+    import numpy as np
+    worst = 0.0
+    for k, w in want.items():
+        g = np.asarray(got[k], np.float32)
+        require(g.shape == w.shape and np.isfinite(g).all(),
+                f"mesh: leaf {k} {g.shape} against {w.shape}")
+        worst = max(worst, float(np.abs(g - w).max())
+                    / (tol * max(float(np.abs(w).max()), 1e-30)))
+    return worst
+
+
+def mesh_smoke_refs(torch, dev):
+    """The card's 1x1 f32 smoke step inputs: loss and gradients of the
+    whole batch (``trainer.loss_and_grads``) and the params."""
+    from repro_torch.models.registry import get_model
+    from repro_torch.train import trainer
+    out = {}
+    for arch in ("qwen3-4b", "mamba2-780m"):
+        cfg = f32_smoke(arch)
+        params = mesh_smoke_params(torch, cfg, dev)
+        (loss, _), grads = trainer.loss_and_grads(
+            get_model(cfg).loss, params, mesh_smoke_batch(cfg, dev), cfg)
+        out[arch] = {"loss": float(loss), "grads": mesh_flat(grads),
+                     "params": params}
+    return out
+
+
+def mesh_smoke_lines(torch, dev, ranks, refs, mesh, shape):
+    """The mesh step's rule against the card's 1x1: LM_TRAIN_RULE, with
+    the reference AdamW the port's (``optimizer.apply_update``, on the
+    card) on the mesh's reassembled gradients; data replicas bitwise."""
+    import numpy as np
+
+    from repro_torch.distributed import tp
+    from repro_torch.train import optimizer as opt
+    d, m = shape
+    lines = []
+    for arch in ("qwen3-4b", "mamba2-780m"):
+        ref = refs[arch]
+        grads = mesh_reassembled(ranks, arch, "grads", m)
+        flat_p = {k: t for k, _, t in tp._flatten_with_keys(ref["params"])}
+        g_tree = tp._unflatten_like(ref["params"], {
+            k: torch.from_numpy(grads[k]).to(dev) for k in flat_p})
+        ocfg = opt.OptimizerConfig(**LM_TRAIN_OPT)
+        new_p, new_opt, _ = opt.apply_update(
+            ref["params"], g_tree, opt.init_opt_state(ref["params"], ocfg),
+            ocfg)
+        state_over = max(
+            mesh_excess(mesh_reassembled(ranks, arch, f, m),
+                        mesh_flat(w), LM_OPT_TOL)
+            for f, w in (("params", new_p), ("m", new_opt["m"]),
+                         ("v", new_opt["v"])))
+        first = {r["coords"][1]: r for r in ranks if r["coords"][0] == 0}
+        replicas = all(np.array_equal(v, first[r["coords"][1]][arch][f][k])
+                       for r in ranks for f in ("grads", "params", "m", "v")
+                       for k, v in r[arch][f].items())
+        losses = [r[arch]["loss"] for r in ranks]
+        line = {"phase": "mesh", "part": "f32_smoke_vs_1x1", "mesh": mesh,
+                "arch": arch, "ranks": d * m,
+                "accum": MESH_SMOKE_MESHES[mesh][1],
+                "batch": MESH_SMOKE_BATCH, "seq": MESH_SMOKE_SEQ,
+                "loss_mesh": losses[0], "loss_1x1": ref["loss"],
+                "loss_rel_diff": abs(losses[0] - ref["loss"])
+                / abs(ref["loss"]),
+                "grad_over_bar": mesh_excess(grads, ref["grads"],
+                                             1e-4),
+                "state_over_bar": state_over,
+                "grad_norm": ranks[0][arch]["grad_norm"],
+                "losses_equal_across_ranks": len(set(losses)) == 1,
+                "data_replicas_bitwise": replicas, "tol": LM_TRAIN_RULE}
+        lines.append(line)
+        require(line["loss_rel_diff"] <= 1e-5 and line["grad_over_bar"] <= 1
+                and line["state_over_bar"] <= 1
+                and line["losses_equal_across_ranks"] and replicas,
+                f"mesh {mesh} f32 smoke {arch}: {line}")
+    return lines
+
+
+def mesh_launches(ranks):
+    """The ranks' launch counts of one job, summed."""
+    counts = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    return counts
+
+
+def mesh_lane_runs(torch, paths, goldens, field, cfg, qparams):
+    """Two lane shards on cuda:0: flowcell_512 (phase 4's engine) and
+    edge_int8 (phase 4b's), fused and unfused at depth 2, their goldens
+    against the unmeshed runs'; a fleet whose flowcell tenant takes the
+    fleet's mesh; ``FieldSpec()`` with every device on the mesh against
+    phase 9's run."""
+    import repro_torch.engine as te
+    from repro_torch.core import basecaller as bc
+    from repro_torch.distributed.sharding import LaneMesh
+    from repro_torch.field import FieldSpec, run_field_scenario
+    from repro_torch.fleet import Fleet
+    lm = LaneMesh(MESH_LANES)
+    fp32 = bc.init(torch.Generator().manual_seed(0), bc.BasecallerConfig())
+    builds = {
+        "flowcell_512": lambda fused: te.build(
+            "adaptive_sampling", preset="flowcell_512",
+            cfg=bc.BasecallerConfig(), params=fp32,
+            flowcell=dict(FULL_FLOWCELL), fused=fused, mesh=lm),
+        "edge_int8": lambda fused: te.build(
+            "adaptive_sampling", preset="edge_int8", cfg=cfg,
+            params=qparams, channels=512, chunk=256, pipeline_depth=2,
+            flowcell=dict(FULL_FLOWCELL), fused=fused, mesh=lm)}
+    want_ops = {("flowcell_512", True): ("fused_stream", "banded_align"),
+                ("flowcell_512", False): ("conv1d", "matmul", "banded_align"),
+                ("edge_int8", True): ("fused_stream_int8", "banded_align"),
+                ("edge_int8", False): ("conv1d_int8", "matmul_int8",
+                                       "banded_align")}
+    for preset in ("flowcell_512", "edge_int8"):
+        for fused in (True, False):
+            def drive():
+                eng = builds[preset](fused)
+                t0 = time.perf_counter()
+                rep = eng.drain()
+                torch.cuda.synchronize()
+                return eng, rep, time.perf_counter() - t0
+            path = f"mesh lanes {preset} fused={fused}"
+            eng, rep, wall = paths.drive(path, want_ops[preset, fused], drive)
+            got = golden(eng)
+            want = goldens[preset][fused]
+            line = {"phase": "mesh", "part": "lane_mesh", "preset": preset,
+                    "fused": fused, "devices": [str(d) for d in lm.devices],
+                    "lanes": eng.runtime.channels,
+                    "lanes_a_shard": eng.runtime.channels // lm.size,
+                    "depth": eng.runtime.pipeline_depth,
+                    "reads": len(got), "ticks": rep["steps"],
+                    "mean_tick_ms": rep["wall_s"] / max(rep["steps"], 1)
+                    * 1e3, "decision_p99_ms": rep["decision_p99_ms"],
+                    "wall_s": wall, "goldens_equal_unmeshed": got == want,
+                    "launches": paths.paths[path]}
+            emit(line)
+            require(len(got) == FULL_FLOWCELL["n_reads"] and got == want,
+                    f"mesh lanes {preset} fused={fused}: goldens differ "
+                    f"from the unmeshed run")
+
+    def fleet_run():
+        fleet = Fleet(mesh=lm)
+        fc = fleet.add_tenant("lab-fc", "adaptive_sampling", "flowcell_512",
+                              weight=2.0, cfg=bc.BasecallerConfig(),
+                              params=fp32, flowcell=dict(FULL_FLOWCELL),
+                              fused=True)
+        bcall = fleet.add_tenant("lab-bc", "basecall", "default")
+        import numpy as np
+        rng = np.random.default_rng(31)
+        for _ in range(4):
+            fleet.submit("lab-bc", rng.normal(size=2048).astype(np.float32))
+        t0 = time.perf_counter()
+        fleet.drain()
+        torch.cuda.synchronize()
+        return fc, bcall, time.perf_counter() - t0
+    fc, bcall, wall = paths.drive("mesh lanes fleet", ("fused_stream",
+                                                       "conv1d"), fleet_run)
+    got = golden(fc.engine)
+    line = {"phase": "mesh", "part": "fleet_lane_mesh",
+            "tenant_mesh": [str(d) for d in fc.engine.runtime.mesh.devices],
+            "reads": len(got), "basecall_rows": len(bcall.outputs),
+            "wall_s": wall,
+            "goldens_equal_unmeshed": got == goldens["flowcell_512"][True]}
+    emit(line)
+    require(fc.engine.runtime.mesh is lm and line["goldens_equal_unmeshed"]
+            and len(bcall.outputs) == 4, f"mesh fleet: {line}")
+
+    def field_run():
+        t0 = time.perf_counter()
+        res = run_field_scenario(FieldSpec(), mesh=lm)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+    res, wall = paths.drive("mesh lanes field", ("fused_stream_int8",
+                                                 "banded_align"), field_run)
+    got, want = field_compared(res), field_compared(field)
+    equal = {k: got[k] == want[k] for k in got}
+    emit({"phase": "mesh", "part": "field_lane_mesh", "wall_s": wall,
+          "devices": FieldSpec().n_devices, "lanes_a_shard":
+          FieldSpec().channels // lm.size, "ticks": res["ticks"],
+          "equal_unmeshed": equal})
+    require(all(equal.values()), f"mesh field differs: {equal}")
+
+
+def phase_mesh(torch, paths, goldens, field, cfg, qparams):
+    """Training over a (data, model) mesh, the sequence-sharded decode, the
+    decode engine's data axis and lane meshes, on the card.  (1) Two gloo
+    ranks sharing the card: the f32 smoke steps at 2x1 and 1x2 against the
+    card's 1x1 (LM_TRAIN_RULE); recovery at --mesh 2x1 --fail-at 7 bit for
+    bit; the sequence-sharded decode at qwen3-4b's heads, 8 x 32,768,
+    against one rank within 2e-5; LMDecodeEngine at (2, 1); then
+    qwen3-4b at --mesh 1x2 and mamba2-780m at --mesh 2x1, published
+    sizes, 8 x 128, MESH_FULL_STEPS steps.  (2) Four ranks: the f32 smoke
+    steps at 2x2 (two micro-batches a data rank) and LMDecodeEngine at
+    (2, 2), tokens against mesh None.  (3) Lane meshes in this process.
+    (4) ``python -m repro_torch.launch.train --smoke --mesh 2x1``."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.distributed import launch
+    from repro_torch.models import attention
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    part_s = {}
+
+    refs = mesh_smoke_refs(torch, dev)
+    engine_want = mesh_engine_tokens(torch, dev)
+    cfg_s, p, x, ck, cv, pos = mesh_seq_inputs(torch, dev)
+    with torch.no_grad():
+        seq_want, _, _ = attention.decode_attention(p, x, cfg_s, ck.clone(),
+                                                    cv.clone(), pos)
+        seq_ms_1 = time_ms(torch, lambda: attention.decode_attention(
+            p, x, cfg_s, ck, cv, pos), reps=5, warm=1)
+    seq_want = seq_want.cpu().numpy()
+    del p, x, ck, cv
+    torch.cuda.empty_cache()
+
+    rec = MESH_RECOVERY
+    rec_root = os.path.join(ROOT, "build", "mesh_recovery")
+    shutil.rmtree(rec_root, ignore_errors=True)
+    rec_argv = ["--smoke", "--mesh", rec["mesh"], "--steps",
+                str(rec["steps"]), "--ckpt-every", str(rec["ckpt_every"])]
+    full_argv = {arch: ["--arch", arch, "--mesh", mesh, "--steps",
+                        str(MESH_FULL_STEPS), "--global-batch",
+                        str(LM_TRAIN_BATCH), "--seq-len", str(LM_TRAIN_SEQ)]
+                 for arch, mesh in MESH_FULL}
+    smoke = {k: ("train_smoke", {"mesh": shape, "accum": accum})
+             for k, (shape, accum) in MESH_SMOKE_MESHES.items()}
+    two = {"smoke 2x1": smoke["2x1"], "smoke 1x2": smoke["1x2"],
+           "recovery": ("train", {
+               "clean": rec_argv + ["--ckpt-dir", os.path.join(rec_root,
+                                                               "clean")],
+               "faulty": rec_argv + ["--ckpt-dir", os.path.join(
+                   rec_root, "faulty"), "--fail-at", str(rec["fail_at"])]}),
+           "seq decode": ("seq_decode", {}),
+           "engine 2x1": ("engine", {"mesh": (2, 1)})}
+    for arch, mesh in MESH_FULL:
+        two[f"full {arch}"] = ("train", {arch: full_argv[arch]})
+    four = {"smoke 2x2": smoke["2x2"], "engine 2x2": ("engine",
+                                                      {"mesh": (2, 2)})}
+    ranks = {}
+    for world, jobs in ((2, two), (4, four)):
+        t0 = time.perf_counter()
+        got = launch.run(mesh_rank, world, args=(jobs,), timeout_s=900)
+        part_s[f"ranks_{world}"] = time.perf_counter() - t0
+        for name in jobs:
+            ranks[name] = [g[name] for g in got]
+
+    # the f32 smoke steps against the card's 1x1
+    for mesh, (shape, _) in MESH_SMOKE_MESHES.items():
+        rs = ranks[f"smoke {mesh}"]
+        paths.record(f"mesh f32 smoke {mesh}",
+                     mesh_launches(rs), ("flash_attention", "matmul",
+                                            "ssd_scan"))
+        for line in mesh_smoke_lines(torch, dev, rs, refs, mesh, shape):
+            line["peak_gb"] = [r["peak_gb"] for r in rs]
+            line["wall_s"] = [r["wall_s"] for r in rs]
+            emit(line)
+
+    # recovery on the 2x1 mesh
+    rs = ranks["recovery"]
+    paths.record("mesh recovery 2x1", mesh_launches(rs),
+                 ("flash_attention", "matmul_bf16"))
+    same = all(r["clean"]["history"] == r["faulty"]["history"]
+               and r["clean"]["state_sha256"] == r["faulty"]["state_sha256"]
+               for r in rs)
+    line = {"phase": "mesh", "part": "recovery", **rec, "arch": "qwen3-4b",
+            "ranks": len(rs),
+            "restarts": [r["faulty"]["restarts"] for r in rs],
+            "losses_and_state_equal": same,
+            "replicas_equal": len({r["faulty"]["state_sha256"]
+                                   for r in rs}) == 1,
+            "last_loss": rs[0]["clean"]["history"][rec["steps"] - 1],
+            "wall_s": [r["wall_s"] for r in rs],
+            "peak_gb": [r["peak_gb"] for r in rs]}
+    emit(line)
+    require(same and line["replicas_equal"]
+            and line["restarts"] == [1] * len(rs),
+            f"mesh recovery differs from the uninterrupted run: {line}")
+
+    # the sequence-sharded decode
+    rs = ranks["seq decode"]
+    err = max(float(np.max(np.abs(r["out"] - seq_want)
+                           / (MESH_SEQ_TOL * (1 + np.abs(seq_want)))))
+              for r in rs)
+    line = {"phase": "mesh", "part": "seq_decode", **MESH_SEQ,
+            "heads": cfg_s.num_heads, "kv_heads": cfg_s.num_kv_heads,
+            "head_dim": cfg_s.head_dim, "dtype": "float32", "ranks": 2,
+            "over_bar": err, "bar": "2e-5 (rtol and atol) of one rank",
+            "max_abs_diff": max(float(np.abs(r["out"] - seq_want).max())
+                                for r in rs),
+            "ms_2_ranks": [r["ms"] for r in rs], "ms_1_rank": seq_ms_1,
+            "peak_gb": [r["peak_gb"] for r in rs]}
+    emit(line)
+    require(err <= 1.0 and sorted(r["index"] for r in rs) == [0, 1],
+            f"mesh seq decode: {line}")
+
+    # the decode engine's data axis
+    for name in ("engine 2x1", "engine 2x2"):
+        rs = ranks[name]
+        paths.record(f"mesh {name}", mesh_launches(rs), ("matmul",))
+        equal = {arch: all(r[arch] == engine_want[arch] for r in rs)
+                 for arch in engine_want}
+        emit({"phase": "mesh", "part": "engine", "mesh": name.split()[1],
+              "requests": MESH_ENGINE_REQUESTS, "tokens_equal_unmeshed":
+              equal, "wall_s": [r["wall_s"] for r in rs],
+              "peak_gb": [r["peak_gb"] for r in rs]})
+        require(all(equal.values()), f"mesh {name}: tokens {equal}")
+
+    # published sizes
+    for arch, mesh in MESH_FULL:
+        rs = ranks[f"full {arch}"]
+        per_step = dict(LM_TRAIN_PATHS)[arch]
+        counts = mesh_launches(rs)
+        paths.record(f"mesh train {arch} {mesh}", counts, tuple(per_step),
+                     train=True)
+        runs = [r[arch] for r in rs]
+        losses = [runs[0]["history"][s] for s in sorted(runs[0]["history"])]
+        line = {"phase": "mesh", "part": "full_width_train", "arch": arch,
+                "mesh": mesh, "ranks": len(rs), "batch": LM_TRAIN_BATCH,
+                "seq": LM_TRAIN_SEQ, "steps": MESH_FULL_STEPS,
+                "losses": losses,
+                "finite": bool(np.isfinite(losses).all()),
+                "step_s": [r["step_s"] for r in runs],
+                "wall_s": [r["wall_s"] for r in rs],
+                "peak_gb": [r["peak_gb"] for r in rs],
+                "launches_per_rank_step": {
+                    k: v / (len(rs) * MESH_FULL_STEPS)
+                    for k, v in counts.items() if v}}
+        emit(line)
+        require(line["finite"], f"mesh {arch} {mesh}: losses {losses}")
+        for k, v in per_step.items():
+            require(counts.get(k, 0) == len(rs) * MESH_FULL_STEPS * v,
+                    f"mesh {arch} {mesh}: {k} launched {counts.get(k, 0)}, "
+                    f"expected {len(rs)} x {MESH_FULL_STEPS} x {v}")
+
+    t0 = time.perf_counter()
+    mesh_lane_runs(torch, paths, goldens, field, cfg, qparams)
+    part_s["lanes"] = time.perf_counter() - t0
+
+    # the CLI at --mesh 2x1
+    ckpt = os.path.join(ROOT, "build", "mesh_cli")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = ["--smoke", "--mesh", "2x1", "--steps", "8", "--fail-at", "5",
+            "--ckpt-every", "4", "--ckpt-dir", ckpt]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *argv], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=SRC), capture_output=True, text=True,
+        timeout=300)
+    out = proc.stdout.strip().splitlines()
+    part_s["cli"] = time.perf_counter() - t0
+    emit({"phase": "mesh", "part": "cli", "argv": argv,
+          "rc": proc.returncode, "wall_s": part_s["cli"],
+          "summary": out[-2:]})
+    require(proc.returncode == 0 and "restarts=1" in proc.stdout,
+            f"launch.train --mesh 2x1 exited {proc.returncode}: "
+            f"{proc.stderr[-2000:]}")
+    emit({"phase": "mesh", "part": "wall",
+          "wall_s": time.perf_counter() - t_phase, **part_s})
+
+
 # ---------------------------------------------------------- phase serve_cli --
 SERVE_FIELD = {"n_devices": 2, "n_infected": 1, "host_len": 2000,
                "pathogen_len": 1000, "n_reads": 10, "min_reads": 2,
@@ -5392,12 +6000,13 @@ class PathLaunches:
                     f"{path} path")
         return result
 
-    def record(self, path, counts, kernels):
+    def record(self, path, counts, kernels, train=False):
         """A path driven in other processes (tensor-parallel ranks, each
         counting from 0 around it): their summed counts."""
         self.paths[path] = {k: v for k, v in counts.items() if v}
         for k in self.total:
             self.total[k] += counts.get(k, 0)
+            self.train[k] += counts.get(k, 0) if train else 0
         emit({"phase": "launches", "path": path, "launches":
               self.paths[path]})
         for k in kernels:
@@ -5472,10 +6081,10 @@ def main() -> int:
                        ("conv1d", "matmul", "fused_stream", "banded_align"),
                        lambda: phase_full_width(torch))
     unfused_launches(paths.paths["flowcell_512 fp32"], full[False]["ticks"])
-    paths.drive("edge_int8 full width",
-                ("conv1d_int8", "matmul_int8", "fused_stream_int8",
-                 "banded_align"),
-                lambda: phase_full_width_int8(torch, cfg, qparams))
+    full_int8 = paths.drive(
+        "edge_int8 full width", ("conv1d_int8", "matmul_int8",
+                                 "fused_stream_int8", "banded_align"),
+        lambda: phase_full_width_int8(torch, cfg, qparams))
     int8_launches(paths.paths["edge_int8 full width"])
     int8_ticks_vs_cpu(torch, cfg, qparams)
 
@@ -5503,9 +6112,12 @@ def main() -> int:
     decode_launches = phase_lm_decode(torch, F, peaks, table, paths)
     lm_tp_narrow = phase_lm_tp(torch, F, peaks, table, paths)
     phase_fleet(torch, panel, paths)
-    phase_field(torch, paths)
+    field = phase_field(torch, paths)
     phase_train(torch, paths)
     phase_lm_train(torch, paths)
+    phase_mesh(torch, paths, {"flowcell_512": full["goldens"],
+                              "edge_int8": full_int8["goldens"]},
+               field, cfg, qparams)
     phase_serve_cli()
 
     def row_launches(k, counts):

@@ -4,8 +4,10 @@
 The trainer knobs carry JAX's values: ``grad_accum`` by shape name,
 ``optimizer_state_dtype`` and ``grad_accum_dtype``, and ``schedule``, the
 LR schedule JAX's launcher picks by the arch's name; ``launch/train.py``
-reads the last three.  ``fsdp`` and ``rules_overrides`` are carried
-only: they shard over a mesh, and nothing on one card acts on them.
+reads the last three.  ``fsdp`` and ``rules_overrides`` go into the
+mesh's sharding rules (``launch/train.py --mesh``), where only the model
+axis's entries slice anything: the port replicates the state over the
+data ranks, so ``fsdp`` gives JAX's numbers without sharding over data.
 """
 from __future__ import annotations
 

@@ -15,8 +15,14 @@ this module maps them to mesh axes:
 and the logical specs cannot drift.  PyTorch has no GSPMD compiler to hand
 a constraint to, so :func:`shard` is the identity and :func:`logical_spec`
 returns the spec as a plain tuple (one entry per dim: a mesh axis, a tuple
-of them, or None).  GSPMD training over a mesh waits for ROADMAP.md Queue
-1 item 5c.
+of them, or None); :func:`spec_tree` maps it over a tree.  The ranks of a
+(data, model) mesh do what GSPMD's shardings would
+(``train.trainer.jit_train_step``), so JAX's ``param_shardings`` and
+``shard_map_compat``, which build JAX objects, have no counterpart.
+
+A lane mesh (:func:`lane_mesh`, :class:`LaneMesh`) is JAX's 1-D device
+mesh for the flowcell: devices of one process, each running a contiguous
+block of the lanes (``realtime/runtime.py``).
 """
 from __future__ import annotations
 
@@ -24,6 +30,8 @@ import contextlib
 import dataclasses
 import math
 from typing import Any, Optional
+
+import torch
 
 
 @dataclasses.dataclass
@@ -135,3 +143,53 @@ def shard(x, *axes):
     """JAX's ``with_sharding_constraint`` by logical names: the identity
     (no GSPMD compiler to constrain)."""
     return x
+
+
+def spec_tree(axes_tree, shape_tree):
+    """:func:`logical_spec` of every leaf: ``axes_tree`` holds a tuple of
+    logical names a leaf, ``shape_tree`` the leaves (or anything with a
+    ``shape``)."""
+    if isinstance(axes_tree, dict):
+        return {k: spec_tree(a, shape_tree[k]) for k, a in axes_tree.items()}
+    return logical_spec(axes_tree, tuple(shape_tree.shape))
+
+
+LANE_AXIS = "data"  # flowcell channel lanes are batch-parallel work
+
+
+@dataclasses.dataclass(frozen=True)
+class LaneMesh:
+    """A 1-D mesh of devices of one process over the lane axis.  A device
+    may appear twice (``LaneMesh(("cuda:0", "cuda:0"))``): two shards on
+    one card, as JAX's virtual host devices put two on one CPU."""
+    devices: tuple
+
+    def __post_init__(self):
+        devs = tuple(torch.device(d) for d in self.devices)
+        if not devs:
+            raise ValueError("a lane mesh needs at least one device")
+        object.__setattr__(self, "devices", devs)
+
+    axis_names = (LANE_AXIS,)
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return {LANE_AXIS: self.size}
+
+
+def lane_mesh(n_devices: Optional[int] = None,
+              device_type: str = "cuda") -> LaneMesh:
+    """The first ``n_devices`` devices of ``device_type`` (every visible
+    one by default) as a lane mesh; the CPU is one device."""
+    count = torch.cuda.device_count() if device_type == "cuda" else 1
+    n = count if n_devices is None else int(n_devices)
+    if not 0 < n <= count:
+        raise ValueError(f"n_devices={n} not in 1..{count} "
+                         f"({device_type} devices here)")
+    if device_type == "cuda":
+        return LaneMesh(tuple(f"cuda:{i}" for i in range(n)))
+    return LaneMesh((device_type,))

@@ -10,14 +10,26 @@ the input dim, one all-reduce after), a vocab-parallel embedding, and the
 Mamba-2 ``in_proj``/head vectors sliced by heads.  Three pieces:
 
 * **runtime context**: :func:`axis_ctx` binds a process group as the
-  model axis; inside it :func:`psum` is ``all_reduce(SUM)``, :func:`pmax`
-  ``all_reduce(MAX)``, :func:`all_gather_last` an ``all_gather`` then a
-  ``cat`` on the last dim in rank order, and :func:`index` the rank in the
-  group.  Outside any context every helper is the identity, so one device
-  runs the same layer code.  The collectives take the tensors where they
-  are: gloo takes CUDA tensors for all three (``chip_smoke.py``'s phase
-  ``lm_tp`` checks it on an H100, torch 2.11), so nothing is staged
-  through host memory.
+  model axis (the world's, or a mesh's model group); inside it
+  :func:`psum` is ``all_reduce(SUM)``, :func:`pmax` ``all_reduce(MAX)``,
+  :func:`all_gather_last` an ``all_gather`` then a ``cat`` on the last
+  dim in rank order, and :func:`index` the rank in the group.  Outside any
+  context every helper is the identity, so one device runs the same layer
+  code.  The collectives take the tensors where they are: gloo takes CUDA
+  tensors for all three (``chip_smoke.py``'s phase ``lm_tp`` checks it on
+  an H100, torch 2.11), so nothing is staged through host memory.
+
+* **gradients**: each collective is a ``torch.autograd.Function``.  A
+  rank's gradient of a replicated tensor is its share, and the ranks'
+  shares sum to the whole; a rank-local tensor's gradient is whole.  So
+  the loss is seeded ``1 / n`` on each of the ``n`` ranks, a psum's
+  backward is a psum, ``all_gather_last``'s a psum then this rank's
+  columns, ``pmax`` takes none (it only shifts a softmax), and after the
+  backward :func:`reduce_replicated_grads` sums every replicated leaf's
+  and replicated segment's gradient over the group.  One rule serves
+  every place a replicated tensor meets rank-local work: the column-
+  parallel inputs, the qk-norm scales, Mamba-2's one-group B/C columns,
+  the gated RMSNorm's sum of squares.
 
 * **slicing plan**: :func:`build_plan` gives each parameter leaf a
   :class:`Segments` rule (or ``None``, replicated) through the same
@@ -45,17 +57,19 @@ from repro_torch.quant import core as qcore
 # ===================================================== runtime context ====
 _TP_AXIS: Optional[str] = None
 _TP_EXTENT: int = 1
+_TP_GROUP = None
 
 
 @contextlib.contextmanager
-def axis_ctx(name: str, n: int):
+def axis_ctx(name: str, n: int, group=None):
     """Scope a tensor-parallel axis: ``with tp.axis_ctx("model", 2): ...``.
 
-    ``n > 1`` binds the world process group of an initialised
-    ``torch.distributed``, which must hold exactly ``n`` ranks; ``n <= 1``
-    is the identity context."""
-    global _TP_AXIS, _TP_EXTENT
-    prev = (_TP_AXIS, _TP_EXTENT)
+    ``n > 1`` binds ``group`` (a ``torch.distributed`` process group: the
+    model group of a (data, model) mesh, ``mesh.group("model")``), or the
+    world group where none is given; it must hold exactly ``n`` ranks.
+    ``n <= 1`` is the identity context."""
+    global _TP_AXIS, _TP_EXTENT, _TP_GROUP
+    prev = (_TP_AXIS, _TP_EXTENT, _TP_GROUP)
     n = int(n)
     if n > 1:
         if not dist.is_initialized():
@@ -63,17 +77,17 @@ def axis_ctx(name: str, n: int):
                 f"tp.axis_ctx({name!r}, {n}): tensor parallelism runs one "
                 "process per rank; start them with "
                 "repro_torch.distributed.launch.run")
-        size = dist.get_world_size()
+        size = dist.get_world_size(group)
         if size != n:
             raise ValueError(f"tp.axis_ctx({name!r}, {n}): the process "
                              f"group holds {size} ranks")
-        _TP_AXIS, _TP_EXTENT = name, n
+        _TP_AXIS, _TP_EXTENT, _TP_GROUP = name, n, group
     else:
-        _TP_AXIS, _TP_EXTENT = None, 1
+        _TP_AXIS, _TP_EXTENT, _TP_GROUP = None, 1, None
     try:
         yield
     finally:
-        _TP_AXIS, _TP_EXTENT = prev
+        _TP_AXIS, _TP_EXTENT, _TP_GROUP = prev
 
 
 def axis() -> Optional[str]:
@@ -88,34 +102,75 @@ def extent() -> int:
 
 def index() -> int:
     """This rank's position along the TP axis (0 outside a TP region)."""
-    return 0 if _TP_AXIS is None else dist.get_rank()
+    return 0 if _TP_AXIS is None else dist.get_rank(_TP_GROUP)
 
 
-def _all_reduce(x: torch.Tensor, op) -> torch.Tensor:
-    if _TP_AXIS is None:
-        return x
+def _reduced(x: torch.Tensor, op, grp) -> torch.Tensor:
     # the collective writes in place: into a contiguous copy
-    out = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, op=op)
+    out = x.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=op, group=grp)
     return out
 
 
-def psum(x: torch.Tensor) -> torch.Tensor:
-    return _all_reduce(x, dist.ReduceOp.SUM)
+class _Psum(torch.autograd.Function):
+    """All-reduce SUM whose backward all-reduces the gradient too."""
+
+    @staticmethod
+    def forward(ctx, x, grp):
+        ctx.grp = grp
+        return _reduced(x, dist.ReduceOp.SUM, grp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduced(g, dist.ReduceOp.SUM, ctx.grp), None
 
 
-def pmax(x: torch.Tensor) -> torch.Tensor:
-    return _all_reduce(x, dist.ReduceOp.MAX)
+class _GatherLast(torch.autograd.Function):
+    """All-gather on the last dim; backward sums the gradient over the
+    ranks and keeps this rank's columns."""
+
+    @staticmethod
+    def forward(ctx, x, grp, n):
+        x = x.detach().contiguous()
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=grp)
+        ctx.grp, ctx.width = grp, x.shape[-1]
+        ctx.rank = dist.get_rank(grp)
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = _reduced(g, dist.ReduceOp.SUM, ctx.grp)
+        lo = ctx.rank * ctx.width
+        return g[..., lo: lo + ctx.width].contiguous(), None, None
+
+
+def psum(x: torch.Tensor, grp=None) -> torch.Tensor:
+    """Sum over the TP axis (or over ``grp``); identity outside a region.
+    Its gradient is the psum of the ranks' gradients (see
+    :func:`reduce_replicated_grads` for the convention)."""
+    if grp is None:
+        if _TP_AXIS is None:
+            return x
+        grp = _TP_GROUP
+    return _Psum.apply(x, grp)
+
+
+def pmax(x: torch.Tensor, grp=None) -> torch.Tensor:
+    """Max over the TP axis (or over ``grp``), with no gradient: it only
+    ever shifts a softmax, whose value it leaves as it is."""
+    if grp is None:
+        if _TP_AXIS is None:
+            return x
+        grp = _TP_GROUP
+    return _reduced(x, dist.ReduceOp.MAX, grp)
 
 
 def all_gather_last(x: torch.Tensor) -> torch.Tensor:
     """Concatenate the ranks' shards along the last dim, in rank order."""
     if _TP_AXIS is None:
         return x
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(_TP_EXTENT)]
-    dist.all_gather(parts, x)
-    return torch.cat(parts, dim=-1)
+    return _GatherLast.apply(x, _TP_GROUP, _TP_EXTENT)
 
 
 # ======================================================== slicing rules ===
@@ -524,3 +579,113 @@ def shard_state(flat: dict, plan: Plan, *, prefix: str = ""
             shards[m][key] = (arr if rule is None
                               else _own(rule.slice(arr, m, plan.tp)))
     return shards, info
+
+
+# ============================================================ gradients ===
+def _local_parts(rule: Segments, n: int):
+    """``(lo, hi, sharded)`` of each segment in a rank's local layout."""
+    out, off = [], 0
+    for w, sh in rule.parts:
+        lw = w // n if sh else w
+        out.append((off, off + lw, sh))
+        off += lw
+    return out
+
+
+def _replicated_views(plan: Plan, tree) -> tuple[list, list]:
+    """(replicated, sharded) views of a local tree's leaves: a replicated
+    leaf whole, a sharded leaf's replicated and sharded segments as
+    narrowed views of its dim."""
+    rep, shd = [], []
+
+    def one(rule, leaf):
+        if rule is None:
+            rep.append(leaf)
+            return leaf
+        d = rule.dim % leaf.dim()
+        for lo, hi, sh in _local_parts(rule, plan.tp):
+            (shd if sh else rep).append(leaf.narrow(d, lo, hi - lo))
+        return leaf
+
+    _map_with_rules(plan, tree, one)
+    return rep, shd
+
+
+def all_reduce_flat(tensors: list, grp, *, op=None) -> None:
+    """All-reduce ``tensors`` in place as one flat buffer per dtype (one
+    collective each, not one a tensor)."""
+    op = dist.ReduceOp.SUM if op is None else op
+    by_dtype: dict = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for ts in by_dtype.values():
+        buf = torch.cat([t.reshape(-1) for t in ts])
+        dist.all_reduce(buf, op=op, group=grp)
+        off = 0
+        for t in ts:
+            t.copy_(buf[off: off + t.numel()].view(t.shape))
+            off += t.numel()
+
+
+def reduce_replicated_grads(grads, plan: Plan, grp=None) -> None:
+    """Sum, over the model group, the gradient of every replicated leaf
+    and replicated segment of ``grads`` (this rank's local tree), in place.
+    Each rank holds its share of those (see the module docstring); the
+    sharded segments' gradients are already whole."""
+    rep, _ = _replicated_views(plan, grads)
+    all_reduce_flat(rep, grp)
+
+
+def grad_norm_sq(grads, plan: Plan, grp=None) -> torch.Tensor:
+    """The squared global norm of a tensor-parallel tree (float32): the
+    sharded segments' squares summed over the model group, the replicated
+    ones counted once."""
+    rep, shd = _replicated_views(plan, grads)
+
+    dev = (rep + shd)[0].device
+
+    def sq(ts):
+        out = torch.zeros((), dtype=torch.float32, device=dev)
+        for t in ts:
+            out = out + torch.sum(torch.square(t.float()))
+        return out
+    shard_sq = sq(shd)
+    dist.all_reduce(shard_sq, group=grp)
+    return shard_sq + sq(rep)
+
+
+def _pspec(rule: Optional[Segments], axis_name: str, ndim: int) -> tuple:
+    if rule is None:
+        return ()
+    return (None,) * (rule.dim % ndim) + (axis_name,)
+
+
+def param_pspecs(plan: Plan, params):
+    """Each leaf's mesh axes in JAX's ``PartitionSpec`` order, as a tuple
+    (``()`` replicated, ``(None, "model")`` split on dim 1); a
+    QuantizedTensor's payload, scale and act scale each have theirs."""
+    def one(rule, leaf):
+        if qcore.is_quantized(leaf):
+            return qcore.QuantizedTensor(
+                _pspec(rule, plan.axis, leaf.q.dim()),
+                _pspec(scale_rule(rule, leaf.q.dim()), plan.axis,
+                       leaf.scale.dim()),
+                leaf.axis, None if leaf.act_scale is None else ())
+        return _pspec(rule, plan.axis, leaf.dim())
+    return _map_with_rules(plan, params, one)
+
+
+def state_shard_info(plan: Plan, flat: dict,
+                     prefixes=("params", "opt/m", "opt/v")) -> dict:
+    """A train state's ``shard_info``: each flat key's rule, its param's
+    under any of ``prefixes`` (the moments shard as their params), the
+    step counter and unknown keys replicated."""
+    info = {}
+    for key, arr in flat.items():
+        rule = None
+        for pre in prefixes:
+            if key.startswith(pre + "/") and key[len(pre) + 1:] in plan.flat:
+                rule = plan.flat[key[len(pre) + 1:]]
+                break
+        info[key] = rule_to_json(rule)
+    return info

@@ -39,11 +39,39 @@ def legacy_adaptive_policy(use_kernel: bool = False, interpret=None, *,
     return {"conv1d": target, "banded_align": target}
 
 
+def resolve_lane_mesh(mesh, channels: int | None = None, *, device="cuda"):
+    """Engine-facing mesh spelling (JAX's): None (one device), ``"auto"``
+    (the largest count of ``device``'s type that divides ``channels``:
+    visible cards, or the one CPU; None where that is 1), an int device
+    count (raises beyond the devices there are), or a prebuilt
+    :class:`~repro_torch.distributed.sharding.LaneMesh`."""
+    if mesh is None:
+        return None
+    import torch
+
+    from repro_torch.distributed.sharding import LaneMesh, lane_mesh
+    kind = resolve_device(device).type
+    if isinstance(mesh, LaneMesh):
+        return mesh
+    if mesh == "auto":
+        n = torch.cuda.device_count() if kind == "cuda" else 1
+        if channels is not None:
+            while n > 1 and channels % n:
+                n -= 1
+        return lane_mesh(n, kind) if n > 1 else None
+    if isinstance(mesh, int) and not isinstance(mesh, bool):
+        return lane_mesh(mesh, kind) if mesh > 1 else None
+    raise TypeError(f"mesh={mesh!r}: expected None, 'auto', a device count "
+                    "or a sharding.LaneMesh")
+
+
 class AdaptiveSamplingEngine:
     """Read-Until serving shape: keep/eject decisions with latency and
     signal-saved accounting.  ``flowcell=`` attaches a
     :class:`repro_torch.data.flowcell.FlowcellSimulator` as the read source
-    (``True``, a dict of ``FlowcellConfig`` fields, or a config)."""
+    (``True``, a dict of ``FlowcellConfig`` fields, or a config).
+    ``mesh=`` shards the per-lane state over a lane mesh (``"auto"``, a
+    device count, or a ``LaneMesh``; :func:`resolve_lane_mesh`)."""
 
     workload = "adaptive_sampling"
 
@@ -87,7 +115,8 @@ class AdaptiveSamplingEngine:
         self.runtime = AdaptiveSamplingRuntime(
             params, bc_cfg, mapper, policy or PolicyConfig(),
             channels=channels, chunk_samples=chunk, device=self.device,
-            mesh=mesh, pipeline_depth=pipeline_depth, source=self.flowcell,
+            mesh=resolve_lane_mesh(mesh, channels, device=self.device),
+            pipeline_depth=pipeline_depth, source=self.flowcell,
             tracer=trace, fused=fused)
 
     @property
@@ -120,8 +149,8 @@ class AdaptiveSamplingEngine:
         return self.runtime.tick()
 
     def suspend_tick(self) -> None:
-        """Fleet hook: hand the card to the next tenant with none of our
-        double-buffered tick still in flight."""
+        """Fleet hook: hand the card (or lane mesh) to the next tenant with
+        none of our double-buffered tick still in flight."""
         self.runtime.yield_mesh()
 
     def flush(self) -> None:

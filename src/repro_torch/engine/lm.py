@@ -27,10 +27,14 @@ Tensor parallelism (JAX's ``mesh=``: an int degree, or a mesh with a
 (:func:`repro_torch.distributed.launch.run` starts them).  A rank keeps
 its slice of the params (:mod:`repro_torch.distributed.tp`), builds its
 own cache (its KV heads, its SSM heads) and runs ``model.serve`` inside
-``tp.axis_ctx``; the logits come back gathered on every rank, so the
-decode loop, the scheduler included, is byte for byte the replicated one
-on each.  ``ckpt_dir`` with a ``sharded`` checkpoint (from
-``python -m repro_torch.train.checkpoint_converter``) loads
+``tp.axis_ctx`` on its model group; the logits come back gathered on every
+rank, so the decode loop, the scheduler included, is byte for byte the
+replicated one on each.  A ``data`` axis replicates, as JAX's
+(``repro/engine/lm.py:60-95``): with ``model == 1`` the mesh runs the
+unmeshed engine; with ``model > 1`` each data replica runs the
+tensor-parallel engine on its model group, over the same slots (JAX does
+not split them over data).  ``ckpt_dir`` with a ``sharded`` checkpoint
+(from ``python -m repro_torch.train.checkpoint_converter``) loads
 pre-partitioned, each rank reading only its shard; a ``full`` one is the
 migration path (load, then slice).
 """
@@ -58,10 +62,9 @@ class Request:
 
 
 def _resolve_mesh(mesh):
-    """None | "auto" | int tensor-parallel degree | Mesh -> Mesh or None.
-
-    Only the ``model`` axis may exceed 1: data parallelism over a mesh is
-    ROADMAP.md Queue 1 item 5c."""
+    """None | "auto" | int tensor-parallel degree | Mesh -> Mesh or None:
+    None where the model axis is 1 (a data axis alone replicates the
+    unmeshed engine, as JAX's)."""
     from repro_torch.launch.mesh import Mesh, make_mesh
     if mesh is None or mesh == "auto":
         return None
@@ -70,12 +73,6 @@ def _resolve_mesh(mesh):
     if not isinstance(mesh, Mesh):
         raise TypeError(f"mesh={mesh!r}: expected None, 'auto', an int "
                         "tensor-parallel degree or a launch.mesh.Mesh")
-    other = {a: n for a, n in mesh.shape.items() if a != "model" and n > 1}
-    if other:
-        raise NotImplementedError(
-            f"mesh axes {other}: only the model axis is ported (tensor "
-            "parallelism); data parallelism over a mesh is ROADMAP.md "
-            "Queue 1 item 5c")
     return mesh if mesh.shape.get("model", 1) > 1 else None
 
 
@@ -87,9 +84,9 @@ _CACHE_TP_DIM = {"k": -1, "v": -1, "conv": -1, "ssm": 2}
 class LMDecodeEngine(EngineBase):
     """Slot-based continuous batching around ``model.serve``.
 
-    ``mesh`` (an int tensor-parallel degree, or a mesh with a ``model``
-    axis) shards the model Megatron-style over the ranks of the world
-    process group, which must hold that many ranks.
+    ``mesh`` (an int tensor-parallel degree, or a ``(data, model)`` mesh)
+    shards the model Megatron-style over this rank's model group; the
+    process group must hold the mesh's ranks.
     ``ckpt_dir`` loads params from a checkpoint of either format (a
     sharded one, under TP, pre-partitioned)."""
 
@@ -107,6 +104,7 @@ class LMDecodeEngine(EngineBase):
         self.eos = eos
         self.tp = self.mesh.shape["model"] if self.mesh is not None else 1
         self.plan = None
+        self.model_group = None
         if self.tp > 1:
             self._build_tensor_parallel(params, ckpt_dir, ckpt_step)
         else:
@@ -125,19 +123,23 @@ class LMDecodeEngine(EngineBase):
         import torch.distributed as dist
         from repro_torch.distributed import sharding as shardlib
         from repro_torch.distributed import tp as tp_mod
+        from repro_torch.launch.mesh import bind
         model, cfg, ext = self.model, self.cfg, self.tp
-        if not dist.is_initialized() or dist.get_world_size() != ext:
+        size = self.mesh.size
+        if not dist.is_initialized() or dist.get_world_size() != size:
             have = (dist.get_world_size() if dist.is_initialized()
                     else "no process group")
             raise RuntimeError(
-                f"tensor-parallel decode at tp={ext} runs one process a "
-                f"rank in a group of {ext} ({have} here): start them with "
-                "repro_torch.distributed.launch.run")
+                f"tensor-parallel decode on the mesh {self.mesh.shape} runs "
+                f"one process a rank in a group of {size} ({have} here): "
+                "start them with repro_torch.distributed.launch.run")
+        self.mesh = bind(self.mesh)
+        self.model_group = self.mesh.group("model")
         shapes, axes = model.abstract_params(cfg)
         plan = tp_mod.build_plan(axes, shapes, cfg=cfg, tp=ext,
                                  rules=shardlib.default_rules(self.mesh))
         self.plan = plan
-        rank = dist.get_rank()
+        rank = self.mesh.index("model")
         if params is None and ckpt_dir is not None:
             from repro_torch.train import checkpoint as ck
             manifest, _ = ck._read_manifest(ckpt_dir, ckpt_step)
@@ -179,7 +181,7 @@ class LMDecodeEngine(EngineBase):
         if self.tp == 1:
             return contextlib.nullcontext()
         from repro_torch.distributed import tp as tp_mod
-        return tp_mod.axis_ctx("model", self.tp)
+        return tp_mod.axis_ctx("model", self.tp, group=self.model_group)
 
     @property
     def slots(self) -> int:
@@ -288,8 +290,9 @@ def build_lm_decode(model=None, params=None, cfg=None, *,
     """Builder: supply (model, params, cfg) or let the preset pick an arch
     (its smoke config by default) and draw fresh params on ``device`` from
     ``torch.Generator(device).manual_seed(seed)``.  ``ckpt_dir`` loads
-    params from a checkpoint instead; ``mesh`` (an int degree, or a mesh
-    with a ``model`` axis) serves tensor-parallel from inside each rank."""
+    params from a checkpoint instead; ``mesh`` (an int degree, or a
+    ``(data, model)`` mesh) serves tensor-parallel from inside each rank
+    where its model axis exceeds 1."""
     _resolve_mesh(mesh)
     dev = resolve_device(device)
     if cfg is None:

@@ -71,6 +71,9 @@ class EdgeDevice:
     sending only the decision-time prefix.  Downstream variant pileups
     then see whole reads; at 0.25 B/base the extra bases barely dent the
     wire reduction.
+
+    ``mesh`` (a lane mesh, ``"auto"`` or a device count) shards the
+    flowcell's lanes (``engine.adaptive.resolve_lane_mesh``).
     """
 
     def __init__(self, device_id: int, reference: np.ndarray,

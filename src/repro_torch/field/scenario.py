@@ -110,11 +110,12 @@ class LossyChannel:
         return not self._inflight
 
 
-def build_field(spec: FieldSpec, *, tracer=None, device="cuda"):
+def build_field(spec: FieldSpec, *, tracer=None, device="cuda", mesh=None):
     """(devices, fleet, aggregator tenant, truth) for one deployment.
 
     ``truth`` carries evaluation-only ground truth: the clean reference,
-    the seeded variant list, and which devices are infected."""
+    the seeded variant list, and which devices are infected.  ``mesh``
+    (a lane mesh) goes to every edge device's flowcell."""
     from repro_torch.data import genome as G
     from repro_torch.engine import build
     from repro_torch.fleet import Fleet
@@ -143,7 +144,8 @@ def build_field(spec: FieldSpec, *, tracer=None, device="cuda"):
             d, reference, targets, channels=spec.channels, chunk=spec.chunk,
             n_reads=spec.n_reads, read_len=spec.read_len,
             seed=spec.seed * 1000 + d, telemetry_every=spec.telemetry_every,
-            trace=tracer, device=device, full_reads=spec.full_reads))
+            trace=tracer, device=device, mesh=mesh,
+            full_reads=spec.full_reads))
 
     fleet = Fleet(device=device,
                   trace=tracer if tracer is not None else False,
@@ -161,13 +163,14 @@ def build_field(spec: FieldSpec, *, tracer=None, device="cuda"):
 
 
 def run_field_scenario(spec: FieldSpec, *, trace_path: str | None = None,
-                       device="cuda") -> dict:
-    """Drive the deployment to completion; returns the headline report."""
+                       device="cuda", mesh=None) -> dict:
+    """Drive the deployment to completion; returns the headline report.
+    ``mesh``: each edge device's lane mesh (:func:`build_field`)."""
     from repro_torch.obs.trace import Tracer
 
     tracer = Tracer(enabled=True) if trace_path else None
     devices, fleet, tenant, truth = build_field(spec, tracer=tracer,
-                                                device=device)
+                                                device=device, mesh=mesh)
     agg = tenant.engine
     channel = LossyChannel(spec.seed + 17,
                            max_delay_ticks=spec.max_delay_ticks,

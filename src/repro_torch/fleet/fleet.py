@@ -23,8 +23,9 @@ Responsibilities split three ways:
     rolls observability up with :meth:`Telemetry.merge` into per-tenant
     and fleet-wide summaries.
 
-JAX's ``mesh=`` (lanes sharded over several devices) has no counterpart on
-one card: a ``mesh`` other than None raises.  The single-engine path
+``mesh=`` (JAX's: a lane mesh, ``"auto"`` or a device count) goes to every
+``adaptive_sampling`` tenant that names none, which shards its lanes over
+it (``engine.adaptive.resolve_lane_mesh``).  The single-engine path
 (``repro_torch.engine.build(...)``) remains the one-tenant fast path.
 """
 from __future__ import annotations
@@ -100,14 +101,12 @@ class Tenant:
 
 class Fleet:
     """Multi-tenant serving over one card (``device``, default ``"cuda"``;
-    ``"cpu"`` runs every tenant's plain versions)."""
+    ``"cpu"`` runs every tenant's plain versions), its flowcell tenants'
+    lanes over ``mesh`` where one is given."""
 
     def __init__(self, *, device="cuda", mesh=None, trace: bool = False,
                  max_pending: int = 256):
-        if mesh is not None:
-            raise ValueError(
-                f"mesh={mesh!r}: the port's fleet runs on one card; pass "
-                "device= instead")
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.tracer = as_tracer(trace) if trace else NULL_TRACER
         self.scheduler = FleetScheduler()
@@ -323,6 +322,9 @@ class Fleet:
         from repro_torch.engine import registry
         kw = dict(overrides)
         kw.setdefault("device", self.device)
+        if (self.mesh is not None and workload == "adaptive_sampling"
+                and "mesh" not in kw):
+            kw["mesh"] = self.mesh
         if self.tracer.enabled and "trace" not in kw:
             kw["trace"] = self.tracer
         return registry.build(workload, preset, **kw)

@@ -168,13 +168,12 @@ def _submit_tenant_work(tenant, spec, rng) -> None:
 
 
 def _run_fleet(args) -> dict:
-    """``--fleet SPEC.json``: many tenants, one card, one drained report."""
+    """``--fleet SPEC.json``: many tenants, one card, one drained report;
+    the spec's ``mesh`` is the flowcell tenants' lane mesh (JAX's)."""
     from repro_torch.fleet import Fleet
     with open(args.fleet) as f:
         spec = json.load(f)
-    mesh = spec.get("mesh")
-    fleet = Fleet(device=args.device,
-                  mesh=None if mesh in (None, 1, "auto") else mesh,
+    fleet = Fleet(device=args.device, mesh=spec.get("mesh"),
                   trace=args.trace is not None,
                   max_pending=int(spec.get("max_pending", 256)))
     rng = np.random.default_rng(args.seed)

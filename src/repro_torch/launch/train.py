@@ -1,5 +1,5 @@
 """Training launcher: LM pretraining with fault tolerance
-(``repro/launch/train.py``), on one card.
+(``repro/launch/train.py``), on one card or a mesh of ranks.
 
 Runs the same loop as JAX's: deterministic data (``data/tokens.py``),
 checkpoints every ``--ckpt-every`` steps, failure injection and recovery
@@ -12,9 +12,16 @@ place, as JAX's donated ``jit``; the LR schedule is the arch's
 
 ``--device cuda`` (the default) runs the hand kernels on the card and
 raises where there is none; ``--device cpu`` runs their plain versions.
-``--mesh`` other than 1x1 raises: GSPMD training over a mesh waits for
-ROADMAP.md Queue 1 item 5c.  An arch whose family is not
-ported (vlm, moe, encdec, hybrid) raises by name (item 6).
+``--mesh DxM`` starts ``D * M`` gloo ranks (``distributed.launch.run``;
+on the card rank ``r`` takes ``cuda:r % device_count``, so ranks share a
+card), each on its coordinates of a (data, model) mesh: the model axis
+tensor-parallel (each rank its slice of the params and moments), the
+data axis averaging the gradients (``trainer.jit_train_step``), the
+checkpoint ``full`` from rank 0 or ``sharded`` by model rank
+(``checkpoint.save_on_mesh``), and every rank restarting from the same
+step after ``--fail-at``.  Rank 0 prints JAX's lines, and ``main``
+returns its summary.  An arch whose family is not ported (vlm, moe,
+encdec, hybrid) raises by name (item 6).
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ from repro_torch.train import checkpoint as ckpt_mod
 from repro_torch.train import fault_tolerance as ft
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train import trainer as trainer_mod
+from repro_torch.utils.tree import leaves
 
 
 def parser() -> argparse.ArgumentParser:
@@ -47,7 +55,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--mesh", default="1x1",
-                    help="DxM data x model; one card runs 1x1 only")
+                    help="DxM data x model, e.g. 2x2: D * M ranks")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--fail-at", type=int, nargs="*", default=[],
@@ -58,6 +66,16 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
+def parse_mesh(text: str) -> tuple[int, int]:
+    try:
+        d, m = (int(x) for x in text.split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh {text!r}: expected DxM, e.g. 2x2") from None
+    if d < 1 or m < 1:
+        raise ValueError(f"--mesh {text!r}: both extents must be >= 1")
+    return d, m
+
+
 def main(argv=None) -> dict:
     args = parser().parse_args(argv)
     if args.arch in WAITING_ARCHS:
@@ -65,14 +83,66 @@ def main(argv=None) -> dict:
             f"{args.arch}: the {WAITING_ARCHS[args.arch]} family is not "
             "ported yet (ROADMAP.md, Queue 1 item 6: MoE and the other "
             "families)")
-    d, m = (int(x) for x in args.mesh.split("x"))
-    if (d, m) != (1, 1):
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: GSPMD training over a mesh is not "
-            "ported yet (ROADMAP.md, Queue 1 item 5c); one card runs 1x1")
+    d, m = parse_mesh(args.mesh)
+    if d * m == 1:
+        return run(args)
+    resolve_device(args.device)
+    if m > 1:
+        # the layout's errors (heads, d_ff not divisible) before any rank
+        _plan(args, _config(args))
+    from repro_torch.distributed import launch
+    ranks = launch.run(train_rank, d * m, args=(args,))
+    out = dict(ranks[0])
+    out["rank_state_sha256"] = [r["state_sha256"] for r in ranks]
+    out["rank_peak_gb"] = [r["peak_gb"] for r in ranks]
+    return out
+
+
+def _config(args):
+    spec = ARCHS[args.arch]
+    return spec.smoke_config() if args.smoke else spec.config()
+
+
+def _plan(args, cfg):
+    from repro_torch.distributed import sharding, tp
+    from repro_torch.launch.mesh import Mesh
+    d, m = parse_mesh(args.mesh)
+    spec = ARCHS[args.arch]
+    shapes, axes = get_model(cfg).abstract_params(cfg)
+    layout = Mesh(("data", "model"), (d, m))
+    return tp.build_plan(axes, shapes, cfg=cfg, tp=m,
+                         rules=sharding.default_rules(
+                             layout, fsdp=spec.fsdp,
+                             overrides=spec.rules_overrides))
+
+
+def train_rank(rank: int, world: int, args) -> dict:
+    """One rank of ``--mesh DxM`` (``distributed.launch.run``'s target):
+    its summary with a digest of its state in place of the state."""
+    import hashlib
+
+    from repro_torch.launch.mesh import make_mesh
+    d, m = parse_mesh(args.mesh)
+    if args.device != "cpu":
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+        args = argparse.Namespace(**{**vars(args), "device": str(dev)})
+    mesh = make_mesh((d, m), ("data", "model"))
+    out = run(args, mesh=mesh, verbose=rank == 0)
+    h = hashlib.sha256()
+    for t in leaves(out.pop("state")):
+        h.update(t.detach().cpu().reshape(-1).view(torch.uint8)
+                 .numpy().tobytes())
+    out["state_sha256"] = h.hexdigest()
+    return out
+
+
+def run(args, mesh=None, verbose: bool = True) -> dict:
+    """The training loop of ``args`` on one device, or as this rank of a
+    bound ``mesh``; returns the summary with this rank's ``state``."""
     dev = resolve_device(args.device)
     spec = ARCHS[args.arch]
-    cfg = spec.smoke_config() if args.smoke else spec.config()
+    cfg = _config(args)
     model = get_model(cfg)
 
     opt_cfg = opt_mod.OptimizerConfig(
@@ -82,9 +152,28 @@ def main(argv=None) -> dict:
     tcfg = trainer_mod.TrainerConfig(grad_accum=args.grad_accum,
                                      accum_dtype=spec.grad_accum_dtype)
     gen = torch.Generator(device=dev).manual_seed(0)
-    state, _ = trainer_mod.init_state(model.init, cfg, opt_cfg, gen,
-                                      device=dev)
-    step_fn = trainer_mod.make_train_step(model.loss, cfg, opt_cfg, tcfg)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    m = 1 if mesh is None else mesh.shape["model"]
+    plan = None
+    if m == 1:
+        state, _ = trainer_mod.init_state(model.init, cfg, opt_cfg, gen,
+                                          device=dev)
+    else:
+        # the single-device init, then this rank's slice of it (JAX's
+        # params under GSPMD are the same arrays, sharded)
+        from repro_torch.distributed import tp
+        plan = _plan(args, cfg)
+        params, _ = model.init(gen, cfg, device=dev)
+        params = tp.partition_params(params, plan,
+                                     rank=mesh.index("model"))
+        state = {"params": params,
+                 "opt": opt_mod.init_opt_state(params, opt_cfg)}
+    if mesh is None:
+        step_fn = trainer_mod.make_train_step(model.loss, cfg, opt_cfg, tcfg)
+    else:
+        step_fn = trainer_mod.jit_train_step(model.loss, cfg, opt_cfg, tcfg,
+                                             mesh=mesh, plan=plan)
     pipe_cfg = tokens_mod.TokenPipelineConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq_len,
         global_batch=args.global_batch)
@@ -98,19 +187,24 @@ def main(argv=None) -> dict:
     state, history, restarts = ft.run_resilient(
         step_fn, state, batch_fn, n_steps=args.steps,
         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-        injector=injector if args.fail_at else None, monitor=monitor)
+        injector=injector if args.fail_at else None, monitor=monitor,
+        mesh=mesh, plan=plan)
     ckpt_mod.wait_pending()
     wall = time.time() - t0
     losses = [history[s] for s in sorted(history)]
-    print(f"\n{args.arch}: {args.steps} steps in {wall:.1f}s "
-          f"({wall / max(args.steps, 1):.2f}s/step), "
-          f"restarts={restarts}, stragglers={monitor.flagged}")
-    print(f"loss: {losses[0]:.4f} -> {losses[-1]:.4f}")
+    if verbose:
+        print(f"\n{args.arch}: {args.steps} steps in {wall:.1f}s "
+              f"({wall / max(args.steps, 1):.2f}s/step), "
+              f"restarts={restarts}, stragglers={monitor.flagged}")
+        print(f"loss: {losses[0]:.4f} -> {losses[-1]:.4f}")
     if not np.isfinite(losses).all():
         raise RuntimeError(f"non-finite loss: {losses}")
     return {"state": state, "history": history, "restarts": restarts,
             "stragglers": monitor.flagged, "wall_s": wall,
-            "opt_cfg": opt_cfg}
+            "step_s": list(monitor.times), "opt_cfg": opt_cfg,
+            "mesh": [1, 1] if mesh is None else list(mesh.sizes),
+            "peak_gb": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                        if dev.type == "cuda" else None)}
 
 
 if __name__ == "__main__":

@@ -10,9 +10,13 @@ JAX computes in jnp outside any Pallas kernel: plain PyTorch ops here.
 Under tensor parallelism each rank holds ``num_heads / tp`` query heads
 and ``num_kv_heads / tp`` KV heads (the reshapes read the head count from
 the sliced weight), caches only its KV heads, and ``wo`` is row-parallel.
-JAX's sequence-sharded combine (``_seq_parallel_decode_attn``) needs a
-GSPMD ``kv_seq`` rule, which the tensor-parallel engine never sets: it
-waits for ROADMAP.md Queue 1 item 5c.
+
+A ``kv_seq`` rule in the active sharding context (``default_rules(mesh,
+overrides={"kv_seq": "model"})``, JAX's spelling) makes the decode
+sequence-sharded, JAX's ``_seq_parallel_decode_attn``: each rank of the
+rule's axes holds ``S / n`` cache positions, attends over them, and the
+partials combine by the log-sum-exp over the ranks' process group (plain
+PyTorch ops and collectives, as JAX computes it in jnp).
 """
 from __future__ import annotations
 
@@ -75,6 +79,45 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _seq_parallel_decode_attn(q, kc, vc, pos, cfg: ModelConfig, grp,
+                              index: int):
+    """Decode attention over this rank's slice of a sequence-sharded cache
+    (JAX's ``_seq_parallel_decode_attn``).  q: (B, Hkv, R, D); kc/vc: (B,
+    Hkv, S_local, D), positions ``index * S_local`` on; pos: (B,).  Each
+    rank's masked logits give its max ``m``, sum ``l`` and weighted values
+    ``o``; with ``m_g = pmax(m)`` the ranks add ``l e^{m - m_g}`` and ``o
+    e^{m - m_g}``, and ``o_g / max(l_g, 1e-30)`` is the attention.
+    Returns (B, Hkv, R, D) in q's dtype."""
+    s_local = kc.shape[2]
+    scale = cfg.head_dim ** -0.5
+    logits = torch.matmul(q.float(), kc.float().transpose(2, 3)) * scale
+    kpos = index * s_local + torch.arange(s_local, device=q.device)
+    past = (kpos[None, :] > pos[:, None])[:, None, None]
+    logits = logits.masked_fill(past, -1e30)              # (B, Hkv, R, S)
+    m = torch.amax(logits, dim=-1)                        # (B, Hkv, R)
+    e = torch.exp(logits - m[..., None])
+    l = torch.sum(e, dim=-1)
+    o = torch.matmul(e.to(vc.dtype).float(), vc.float())  # (B, Hkv, R, D)
+    m_g = tp.pmax(m, grp)
+    corr = torch.exp(m - m_g)
+    l_g = tp.psum(l * corr, grp)
+    o_g = tp.psum(o * corr[..., None], grp)
+    return (o_g / torch.clamp_min(l_g[..., None], 1e-30)).to(q.dtype)
+
+
+def _kv_seq_axes():
+    """The active sharding context's ``kv_seq`` axes present in its mesh
+    (JAX's reading at ``attention.py:305-320``), or None."""
+    from repro_torch.distributed import sharding
+    ctx = sharding.active()
+    rule = ctx.rules.get("kv_seq") if ctx is not None else None
+    if not rule:
+        return None, None
+    axes = (rule,) if isinstance(rule, str) else tuple(rule)
+    axes = tuple(a for a in axes if a in ctx.mesh.shape)
+    return (axes, ctx.mesh) if axes else (None, None)
+
+
 def decode_attention(p, x, cfg: ModelConfig, cache_k, cache_v, pos):
     """One-token decode.  x: (B, 1, d); cache_k/v: (B, S_max, kv_dim);
     pos: (B,) current position.  Writes this token's k and v into the
@@ -92,15 +135,34 @@ def decode_attention(p, x, cfg: ModelConfig, cache_k, cache_v, pos):
     bsz = x.shape[0]
     q, k, v = _project_qkv(p, x, cfg, pos[:, None])
     rows = torch.arange(bsz, device=x.device)
-    cache_k[rows, pos] = k.reshape(bsz, -1).to(cache_k.dtype)
-    cache_v[rows, pos] = v.reshape(bsz, -1).to(cache_v.dtype)
-
+    seq_axes, mesh = _kv_seq_axes()
     s_max = cache_k.shape[1]
     d = cfg.head_dim
+    if seq_axes is not None:
+        # this rank holds positions [index * S, (index + 1) * S): it writes
+        # the token only where pos falls there (a gather and a where: no
+        # host sync on a mask)
+        index = mesh.index(seq_axes)
+        local = pos - index * s_max
+        ok = ((local >= 0) & (local < s_max))[:, None]
+        at = torch.clamp(local, 0, s_max - 1)
+        for cache, new in ((cache_k, k), (cache_v, v)):
+            cache[rows, at] = torch.where(
+                ok, new.reshape(bsz, -1).to(cache.dtype), cache[rows, at])
+    else:
+        cache_k[rows, pos] = k.reshape(bsz, -1).to(cache_k.dtype)
+        cache_v[rows, pos] = v.reshape(bsz, -1).to(cache_v.dtype)
+
     kc = cache_k.view(bsz, s_max, -1, d).transpose(1, 2)    # (B, Hkv, S, D)
     vc = cache_v.view(bsz, s_max, -1, d).transpose(1, 2)
     g = kc.shape[1]
     qg = q.reshape(bsz, g, -1, d)                           # (B, Hkv, R, D)
+    if seq_axes is not None:
+        out = _seq_parallel_decode_attn(qg, kc, vc, pos, cfg,
+                                        mesh.group(seq_axes), index)
+        out = out.reshape(bsz, 1, -1).to(x.dtype)
+        return (row_dense(out, p["wo"], full_in=cfg.q_dim).to(x.dtype),
+                cache_k, cache_v)
     logits = torch.matmul(qg.float(), kc.float().transpose(2, 3))
     logits = logits * (d ** -0.5)                           # (B, Hkv, R, S)
     past = (torch.arange(s_max, device=x.device)[None, :]

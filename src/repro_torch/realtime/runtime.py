@@ -1,5 +1,5 @@
 """Adaptive-sampling (Read-Until) runtime: sense -> basecall -> map -> decide
-(``repro/realtime/runtime.py``) on one card.
+(``repro/realtime/runtime.py``).
 
 All per-lane device state — conv carries, the CTC ``prev_class`` carry and
 the ``bases``/``ticks`` counters — lives in one lane-major dict of tensors
@@ -16,6 +16,13 @@ into one of two pinned host buffer sets and records a CUDA event, and
 ``_process_one`` waits on that event.  That snapshots the evidence and
 keeps host work overlapped with the card.  Signal goes up through two
 pinned staging sets in the same ring.
+
+``mesh=`` (a :class:`repro_torch.distributed.sharding.LaneMesh`) is JAX's
+lane mesh, one controller: the lane-major state splits into contiguous
+blocks of ``channels / mesh.size`` lanes, each block's step launches on
+its device with the params replicated there, and the outputs concatenate
+in lane order on the first device.  Lanes are independent, so there are
+no collectives and the decisions are the unmeshed runtime's.
 
 ``tracer=`` records what JAX's runtime records: one B/E ``read`` span per
 read on its lane's track (``read_id`` at capture, the decision at the
@@ -39,6 +46,7 @@ from repro_torch.realtime import policy as policy_mod
 from repro_torch.realtime.mapper import PrefixMapper
 from repro_torch.realtime.policy import Decision, PolicyConfig
 from repro_torch.realtime.session import ChannelSession, ReadRecord, SimulatedRead
+from repro_torch.utils.tree import tree_map
 
 
 def init_lane_state(cfg: bc.BasecallerConfig, channels: int, *,
@@ -56,33 +64,69 @@ def init_lane_state(cfg: bc.BasecallerConfig, channels: int, *,
     }
 
 
-def build_step_fn(cfg: bc.BasecallerConfig, fused: bool = False):
+def build_step_fn(cfg: bc.BasecallerConfig, fused: bool = False,
+                  mesh=None, params=None):
     """One tick over all lanes: basecall + CTC collapse + counters.
 
     Unfused: ``(params, lane, rows, frame_pads) -> (tokens, lens, lane')``.
     Fused: one more lane-major argument, the ``reset`` mask, folded inside
-    the kernel, so the runtime skips its own lane reset."""
+    the kernel, so the runtime skips its own lane reset.  ``mesh`` (a
+    ``LaneMesh``) runs the step on each device's block of lanes, with
+    ``params`` put on each device once here."""
     if fused:
         from repro_torch.kernels import fused_stream as fs
 
         def step(params, lane, rows, frame_pads, reset):
             return fs.fused_stream_step(params, lane, rows, frame_pads,
                                         reset, cfg=cfg)
+    else:
+        def step(params, lane, rows, frame_pads):
+            logits, conv = bc.apply_stream_core(params, lane["conv"], rows,
+                                                cfg=cfg)
+            tokens, lens, prev = ctc.greedy_decode_stream(
+                logits, lane["prev_class"], frame_pads)
+            new_lane = {
+                "conv": conv,
+                "prev_class": prev,
+                "bases": lane["bases"] + lens,
+                "ticks": lane["ticks"] + 1,
+            }
+            return tokens, lens, new_lane
+    if mesh is None:
         return step
+    return _lane_sharded(step, mesh, params)
 
-    def step(params, lane, rows, frame_pads):
-        logits, conv = bc.apply_stream_core(params, lane["conv"], rows,
-                                            cfg=cfg)
-        tokens, lens, prev = ctc.greedy_decode_stream(
-            logits, lane["prev_class"], frame_pads)
-        new_lane = {
-            "conv": conv,
-            "prev_class": prev,
-            "bases": lane["bases"] + lens,
-            "ticks": lane["ticks"] + 1,
-        }
-        return tokens, lens, new_lane
-    return step
+
+def _lane_sharded(step, mesh, params):
+    """``step`` over ``mesh.size`` contiguous lane blocks, block ``i`` on
+    ``mesh.devices[i]`` (JAX's ``shard_map`` with lane-major leaves on the
+    lane axis and params replicated), outputs concatenated in lane order
+    on the first device."""
+    n = mesh.size
+    home = mesh.devices[0]
+    replicas = {dev: bc.params_to(params, dev) for dev in set(mesh.devices)}
+
+    def sharded(_params, *lane_args):
+        lanes = lane_args[1].shape[0]           # rows: (lanes, chunk)
+        if lanes % n:
+            raise ValueError(f"{lanes} lanes do not split over the "
+                             f"{n}-device lane mesh")
+        b = lanes // n
+        outs = []
+        for i, dev in enumerate(mesh.devices):
+            block = tree_map(lambda t: t[i * b: (i + 1) * b].to(dev),
+                             lane_args)
+            outs.append(step(replicas[dev], *block))
+        return tuple(_cat([o[j] for o in outs], home)
+                     for j in range(len(outs[0])))
+    return sharded
+
+
+def _cat(parts, home):
+    """Concatenate same-structured trees of lane-major tensors on
+    ``home``."""
+    return tree_map(lambda *ts: torch.cat([t.to(home) for t in ts]),
+                    *parts)
 
 
 def resolve_fused(fused, device: torch.device) -> bool:
@@ -92,15 +136,6 @@ def resolve_fused(fused, device: torch.device) -> bool:
     if fused is None:
         return device.type == "cuda"
     return bool(fused)
-
-
-def resolve_mesh(mesh) -> None:
-    """The port runs on one card: ``None``, ``"auto"`` and ``1`` all mean
-    that card; anything larger raises."""
-    if mesh is None or mesh == "auto" or mesh == 1:
-        return None
-    raise ValueError(f"mesh={mesh!r}: the PyTorch port runs the flowcell on "
-                     "one card; lane sharding across cards is not ported")
 
 
 class _HostRing:
@@ -157,12 +192,20 @@ class AdaptiveSamplingRuntime:
         if pipeline_depth not in (1, 2):
             raise ValueError(f"pipeline_depth must be 1 or 2, "
                              f"got {pipeline_depth}")
+        if mesh is not None and channels % mesh.size:
+            raise ValueError(
+                f"channels={channels} must divide evenly over the "
+                f"{mesh.size}-device lane mesh")
         if source is not None and source.config.channels != channels:
             raise ValueError(
                 f"flowcell source has {source.config.channels} channels, "
                 f"runtime has {channels}")
-        resolve_mesh(mesh)
         self.device = resolve_device(device)
+        if mesh is not None and resolve_device(mesh.devices[0]) != self.device:
+            raise ValueError(
+                f"the lane mesh's first device {mesh.devices[0]} holds the "
+                f"lane state; the runtime's device is {self.device}")
+        self.mesh = mesh
         self.params = params
         self.cfg = cfg
         self.mapper = mapper
@@ -171,7 +214,8 @@ class AdaptiveSamplingRuntime:
         self.chunk_samples = chunk_samples
         self.pipeline_depth = pipeline_depth
         self.fused = resolve_fused(fused, self.device)
-        self._step = build_step_fn(cfg, fused=self.fused)
+        self._step = build_step_fn(cfg, fused=self.fused, mesh=mesh,
+                                   params=params)
         self.lane_state = init_lane_state(cfg, channels, device=self.device)
         self.records: list[ReadRecord] = []
         self.telemetry = Telemetry(workload="adaptive_sampling",

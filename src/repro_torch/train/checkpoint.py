@@ -29,7 +29,10 @@ each key to its slicing rule (``distributed.tp.Segments`` JSON, or
 ``"replicated"``) and the manifest's shapes are the per-shard local ones.
 :func:`restore` and :func:`load_params` reassemble the full tree bit for
 bit; ``tp.load_sharded_params`` reads one rank's shard only
-(:func:`read_shard`).
+(:func:`read_shard`).  The ranks of a training mesh save and restore
+together (:func:`save_on_mesh`, :func:`restore_on_mesh`): the ``full``
+format from rank 0 where the model axis is 1, else the ``sharded`` one,
+each model rank writing and reading only its own shard.
 """
 from __future__ import annotations
 
@@ -161,62 +164,146 @@ def _write(ckpt_dir: str, files: dict, step: int, keep_last: int, *,
            extra: Optional[dict] = None) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
     name = f"step_{step:08d}"
-    final = os.path.join(ckpt_dir, name)
     token = (os.path.abspath(ckpt_dir), name)
     with _LOCK:
         _IN_FLIGHT.add(token)
-    tmp = tempfile.mkdtemp(prefix=f".tmp_{name}_", dir=ckpt_dir)
     try:
+        tmp = tempfile.mkdtemp(prefix=f".tmp_{name}_", dir=ckpt_dir)
         try:
             host = files.get("arrays.npz", files.get("shard_0.npz"))
-            sha = {}
-            for fname, data in files.items():
-                path = os.path.join(tmp, fname)
-                np.savez(path, **{k.replace("/", "__"): _to_storable(v)
-                                  for k, v in data.items()})
-                sha[fname] = _sha256(path)
-            manifest = {
-                "step": step,
-                "keys": sorted(host),
-                # sharded: the per-shard local shapes (an even split, so
-                # every shard agrees); full: the global ones
-                "shapes": {k: list(v.shape) for k, v in host.items()},
-                "dtypes": {k: _dtype_name(v) for k, v in host.items()},
-                "sha256": sha,
-                "format": "full",
-            }
-            if extra:
-                manifest.update(extra)
-            with open(os.path.join(tmp, "manifest.json"), "w") as f:
-                json.dump(manifest, f, indent=1)
-                f.flush()
-                os.fsync(f.fileno())
-            with _LOCK:
-                if os.path.exists(final):
-                    shutil.rmtree(final)
-                os.rename(tmp, final)
+            sha = {fname: _save_npz(os.path.join(tmp, fname), data)
+                   for fname, data in files.items()}
+            _seal(tmp, _manifest(step, host, sha, extra))
         except BaseException:
             shutil.rmtree(tmp, ignore_errors=True)
             raise
-        with _LOCK:
-            latest = os.path.join(ckpt_dir, "LATEST")
-            current = ""
-            if os.path.exists(latest):
-                with open(latest) as f:
-                    current = f.read().strip()
-            # a slow writer of an older step must not move LATEST back
-            # (the names sort: zero-padded)
-            if name >= current:
-                with open(latest + ".tmp", "w") as f:
-                    f.write(name)
-                    f.flush()
-                    os.fsync(f.fileno())
-                os.replace(latest + ".tmp", latest)
-            _gc(ckpt_dir, keep_last)
+        return _publish(ckpt_dir, tmp, name, keep_last)
     finally:
         with _LOCK:
             _IN_FLIGHT.discard(token)
+
+
+def _save_npz(path: str, data: dict) -> str:
+    """One npz of ``{key: tensor}``; returns its sha256."""
+    np.savez(path, **{k.replace("/", "__"): _to_storable(v)
+                      for k, v in data.items()})
+    return _sha256(path)
+
+
+def _manifest(step: int, host: dict, sha: dict,
+              extra: Optional[dict]) -> dict:
+    manifest = {
+        "step": step,
+        "keys": sorted(host),
+        # sharded: the per-shard local shapes (an even split, so every
+        # shard agrees); full: the global ones
+        "shapes": {k: list(v.shape) for k, v in host.items()},
+        "dtypes": {k: _dtype_name(v) for k, v in host.items()},
+        "sha256": sha,
+        "format": "full",
+    }
+    if extra:
+        manifest.update(extra)
+    return manifest
+
+
+def _seal(tmp: str, manifest: dict) -> None:
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=1)
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def _publish(ckpt_dir: str, tmp: str, name: str, keep_last: int) -> str:
+    """Rename a sealed temporary directory into place, then move
+    ``LATEST`` and sweep old steps."""
+    final = os.path.join(ckpt_dir, name)
+    try:
+        with _LOCK:
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.rename(tmp, final)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    with _LOCK:
+        latest = os.path.join(ckpt_dir, "LATEST")
+        current = ""
+        if os.path.exists(latest):
+            with open(latest) as f:
+                current = f.read().strip()
+        # a slow writer of an older step must not move LATEST back (the
+        # names sort: zero-padded)
+        if name >= current:
+            with open(latest + ".tmp", "w") as f:
+                f.write(name)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(latest + ".tmp", latest)
+        _gc(ckpt_dir, keep_last)
     return final
+
+
+def save_on_mesh(ckpt_dir: str, state, step: int, *, mesh, plan=None,
+                 keep_last: int = 3) -> None:
+    """A train state saved by the ranks of a bound ``(data, model)`` mesh,
+    every rank calling this together; all leave at one barrier.
+
+    Model axis 1: the data replicas hold the same state, so rank 0 writes
+    the ``full`` format alone.  Model axis ``m > 1``: the ``m`` ranks of
+    data coordinate 0 each write their slice as ``shard_<k>.npz`` of the
+    ``sharded`` format (the moments sliced as their params,
+    ``tp.state_shard_info`` of ``plan``), and the first of them seals the
+    manifest and publishes the step."""
+    import torch.distributed as dist
+    m = mesh.shape.get("model", 1)
+    if m == 1:
+        if dist.get_rank() == 0:
+            save(ckpt_dir, state, step, keep_last=keep_last)
+        dist.barrier()
+        return
+    from repro_torch.distributed import tp
+    if mesh.index("data") == 0:
+        grp, k = mesh.group("model"), mesh.index("model")
+        name = f"step_{step:08d}"
+        tmp = os.path.join(ckpt_dir, f".tmp_{name}_mesh")
+        if k == 0:
+            os.makedirs(ckpt_dir, exist_ok=True)
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+        dist.barrier(group=grp)
+        flat = dict(_flatten(state))
+        fname = f"shard_{k}.npz"
+        sha = _save_npz(os.path.join(tmp, fname), flat)
+        shas = [None] * m
+        dist.all_gather_object(shas, (fname, sha), group=grp)
+        if k == 0:
+            extra = {"format": "sharded", "num_shards": m,
+                     "shard_info": tp.state_shard_info(plan, flat)}
+            _seal(tmp, _manifest(step, flat, dict(shas), extra))
+            _publish(ckpt_dir, tmp, name, keep_last)
+    dist.barrier()
+
+
+def restore_on_mesh(ckpt_dir: str, state_like, *, mesh,
+                    step: Optional[int] = None, verify: bool = True):
+    """The mesh's own checkpoint back into this rank's ``state_like``:
+    the ``full`` format whole (model axis 1), or this rank's
+    ``shard_<k>.npz`` of a ``sharded`` one of ``m`` shards.  Returns
+    ``(state, step)``."""
+    m = mesh.shape.get("model", 1)
+    if m == 1:
+        return restore(ckpt_dir, state_like, step=step, verify=verify)
+    manifest, _ = _read_manifest(ckpt_dir, step)
+    if (manifest.get("format") != "sharded"
+            or int(manifest["num_shards"]) != m):
+        raise ValueError(
+            f"checkpoint under {ckpt_dir} is {manifest.get('format')} with "
+            f"{manifest.get('num_shards', 1)} shards; the mesh restores a "
+            f"sharded one of {m}")
+    manifest, flat = read_shard(ckpt_dir, mesh.index("model"),
+                                step=manifest["step"], verify=verify)
+    return _fill(state_like, flat), manifest["step"]
 
 
 def _gc(ckpt_dir: str, keep_last: int) -> None:
@@ -325,7 +412,13 @@ def restore(ckpt_dir: str, state_like, *, step: Optional[int] = None,
     leaf cast to the like leaf's dtype and put on its device; a sharded
     checkpoint reassembled bit for bit).  Returns ``(state, step)``."""
     manifest, flat = _load_flat(ckpt_dir, step, verify)
+    return _fill(state_like, flat), manifest["step"]
 
+
+def _fill(state_like, flat: dict):
+    """``state_like``'s structure from a flat ``{key: tensor}`` (shapes
+    checked, each leaf cast to the like leaf's dtype and put on its
+    device)."""
     def fill(like, prefix):
         if isinstance(like, dict):
             return {k: fill(v, prefix + (k,)) for k, v in like.items()}
@@ -346,7 +439,7 @@ def restore(ckpt_dir: str, state_like, *, step: Optional[int] = None,
                              f"{tuple(arr.shape)}, expected "
                              f"{tuple(like.shape)}")
         return arr.to(device=like.device, dtype=like.dtype)
-    return fill(state_like, ()), manifest["step"]
+    return fill(state_like, ())
 
 
 def load_params(ckpt_dir: str, *, step: Optional[int] = None,

@@ -12,8 +12,12 @@
   stragglers        -> ``StragglerMonitor`` tracks per-step wall times and
                        flags steps slower than k * median.
   lost capacity     -> ``elastic_remesh``: on one card, the state re-placed
-                       on its device; a mesh of more than one device raises
-                       (the port runs on one card).
+                       on its device; a larger mesh raises (the ranks of a
+                       mesh restart from its checkpoint instead).
+
+Under a mesh of ranks (``launch/train.py --mesh DxM``) every rank runs
+``run_resilient`` with the same injector: they fail at the same step,
+save together (``checkpoint.save_on_mesh``) and restore the same step.
 """
 from __future__ import annotations
 
@@ -23,7 +27,6 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from repro_torch.realtime.runtime import resolve_mesh
 from repro_torch.train import checkpoint as ckpt_mod
 from repro_torch.utils.tree import leaves, tree_map
 
@@ -72,7 +75,8 @@ def run_resilient(step_fn: Callable, state, batch_fn: Callable,
                   *, n_steps: int, ckpt_dir: str, ckpt_every: int = 10,
                   injector: Optional[FailureInjector] = None,
                   max_restarts: int = 10,
-                  monitor: Optional[StragglerMonitor] = None):
+                  monitor: Optional[StragglerMonitor] = None,
+                  mesh=None, plan=None):
     """Run ``n_steps`` with checkpoint/restart semantics.
 
     step_fn(state, batch) -> (state, metrics);  batch_fn(step) -> batch.
@@ -80,14 +84,30 @@ def run_resilient(step_fn: Callable, state, batch_fn: Callable,
     newest checkpoint and resumes from its step: the control flow a
     cluster supervisor drives, in-process for testability.  A checkpoint
     is written synchronously, so a step that updates the state in place
-    (``make_train_step``) cannot reach it."""
+    (``make_train_step``) cannot reach it.  ``mesh`` (a bound mesh of
+    more than one rank, with ``plan`` where its model axis exceeds 1)
+    saves and restores through ``checkpoint.save_on_mesh`` and
+    ``restore_on_mesh``."""
+    if mesh is not None and mesh.size > 1:
+        def save(state, step):
+            ckpt_mod.save_on_mesh(ckpt_dir, state, step, mesh=mesh,
+                                  plan=plan)
+
+        def restore(state):
+            return ckpt_mod.restore_on_mesh(ckpt_dir, state, mesh=mesh)
+    else:
+        def save(state, step):
+            ckpt_mod.save(ckpt_dir, state, step)
+
+        def restore(state):
+            return ckpt_mod.restore(ckpt_dir, state)
     history: dict[int, float] = {}
     restarts = 0
     step = 0
     # resume if a checkpoint exists (cold-start restart case)
     last = ckpt_mod.latest_step(ckpt_dir) if ckpt_dir else None
     if last is not None:
-        state, step = ckpt_mod.restore(ckpt_dir, state)
+        state, step = restore(state)
     while step < n_steps:
         try:
             if injector is not None:
@@ -104,7 +124,7 @@ def run_resilient(step_fn: Callable, state, batch_fn: Callable,
             history[step] = loss
             step += 1
             if ckpt_dir and step % ckpt_every == 0:
-                ckpt_mod.save(ckpt_dir, state, step)
+                save(state, step)
         except SimulatedFailure:
             restarts += 1
             if restarts > max_restarts:
@@ -112,20 +132,24 @@ def run_resilient(step_fn: Callable, state, batch_fn: Callable,
             last = ckpt_mod.latest_step(ckpt_dir) if ckpt_dir else None
             if last is None:
                 raise
-            state, step = ckpt_mod.restore(ckpt_dir, state)
+            state, step = restore(state)
     return state, history, restarts
 
 
 def elastic_remesh(state, new_mesh, rules: dict, param_axes,
                    state_shapes):
-    """Re-place a state tree onto ``new_mesh``.  The port runs on one
-    card: ``new_mesh`` None, 1 or "auto" re-places every leaf on the
-    device the state lives on (the leaves themselves where they are
-    already there); any other mesh raises.  The axes tree is checked
-    against the state's shapes as JAX's re-placement reads it."""
+    """Re-place a state tree onto ``new_mesh`` on one card: ``new_mesh``
+    None, 1 or "auto" re-places every leaf on the device the state lives
+    on (the leaves themselves where they are already there); any other
+    mesh raises (a mesh of ranks restarts from its checkpoint, at the
+    step-addressable batches).  The axes tree is checked against the
+    state's shapes as JAX's re-placement reads it."""
     from repro_torch.train.trainer import _pad_axes, state_axes
 
-    resolve_mesh(new_mesh)
+    if not (new_mesh is None or new_mesh == "auto" or new_mesh == 1):
+        raise ValueError(f"mesh={new_mesh!r}: elastic_remesh re-places a "
+                         "state on one card; a mesh of ranks restarts "
+                         "from its checkpoint")
     _pad_axes(state_axes(param_axes), state_shapes)
     flat = leaves(state)
     if not flat:

@@ -1,6 +1,7 @@
 """AdamW and its learning-rate schedules (``repro/train/optimizer.py``).
 
-The update is JAX's, leaf for leaf: global-norm clipping, bias
+The update is JAX's, leaf for leaf: global-norm clipping (over a
+tensor-parallel mesh, :func:`global_norm`), bias
 correction, moments kept in float32 or bf16 (the update math runs in
 float32 either way), and weight decay on leaves of rank >= 2 only.  The
 schedules are cosine, WSD (warmup-stable-decay), linear and constant.
@@ -80,11 +81,24 @@ def opt_state_axes(param_axes):
     return {"m": param_axes, "v": param_axes, "step": ()}
 
 
-def _scalars(grads, opt_state, cfg: OptimizerConfig):
+def global_norm(grads, plan=None, group=None) -> torch.Tensor:
+    """The gradient's global L2 norm.  ``plan`` (a ``tp.Plan``) makes it
+    the norm of a tensor-parallel tree, a rank's slice of it in
+    ``grads``: the sharded leaves' squares summed over the model
+    ``group``, the replicated ones counted once, so that every rank clips
+    by TP 1's scale."""
+    if plan is None or plan.tp == 1:
+        return tree_global_norm(grads)
+    from repro_torch.distributed import tp
+    return torch.sqrt(tp.grad_norm_sq(grads, plan, group))
+
+
+def _scalars(grads, opt_state, cfg: OptimizerConfig, gnorm=None):
     """The step's shared scalars: (step, grad norm, clip scale, lr, the
     two bias corrections)."""
     step = opt_state["step"] + 1
-    gnorm = tree_global_norm(grads)
+    if gnorm is None:
+        gnorm = tree_global_norm(grads)
     scale = (torch.clamp_max(cfg.clip_norm / (gnorm + 1e-9), 1.0)
              if cfg.clip_norm > 0 else torch.ones((), device=gnorm.device))
     lr = schedule_lr(cfg, step)
@@ -123,13 +137,15 @@ def apply_update(params, grads, opt_state, cfg: OptimizerConfig):
 SLICE = 1 << 24     # elements a slice of the in-place update
 
 
-def apply_update_(params, grads, opt_state, cfg: OptimizerConfig):
+def apply_update_(params, grads, opt_state, cfg: OptimizerConfig, *,
+                  gnorm=None):
     """One AdamW step written into ``params`` and ``opt_state``'s own
     (contiguous) tensors, the step counter too: each leaf a slice of
     ``SLICE`` elements at a time, so the update's float32 temporaries stay
-    a few slices whatever the leaf's size.  Returns ``(params, opt_state,
-    metrics)``, the trees passed in."""
-    sc = _scalars(grads, opt_state, cfg)
+    a few slices whatever the leaf's size.  ``gnorm`` is the clipping
+    norm where the caller has it (over a mesh, :func:`global_norm`).
+    Returns ``(params, opt_state, metrics)``, the trees passed in."""
+    sc = _scalars(grads, opt_state, cfg, gnorm)
 
     def upd_(p, g, m, v):
         decay = 1.0 if p.dim() >= 2 else 0.0

@@ -16,8 +16,19 @@
 The trainer is model-agnostic: any ``loss(params, batch, cfg) -> (loss,
 aux)`` works.  Gradients come from ``torch.autograd``; the kernels on the
 path carry their plain versions' gradients on the card
-(``kernels/_build.py::with_plain_grad``).  ``jit_train_step`` (GSPMD
-shardings over a mesh) waits for ROADMAP.md Queue 1 item 5c.
+(``kernels/_build.py::with_plain_grad``).
+
+``jit_train_step`` is the step over a (data, model) mesh of ranks, what
+JAX's GSPMD shardings of the same step compute (``launch/train.py --mesh
+DxM``).  Each rank takes its data coordinate's contiguous block of the
+global batch and accumulates its micro-batches as above, inside
+``tp.axis_ctx`` on its model group with its slice of the params
+(``tp.partition_params``); the replicated gradients are summed over the
+model group (``tp.reduce_replicated_grads``), every gradient is averaged
+over the data group (one all-reduce a dtype), and AdamW clips by the
+mesh's global norm (``optimizer.global_norm``) and updates the rank's own
+slice in place.  JAX's ``fsdp`` (ZeRO-3 over data, nemotron-4-15b) gives
+the same numbers; the port replicates the state over data instead.
 """
 from __future__ import annotations
 
@@ -61,17 +72,44 @@ def _split_micro(batch, accum: int):
     return tree_map(split, batch)
 
 
-def loss_and_grads(loss_fn, params, batch, model_cfg):
+def loss_and_grads(loss_fn, params, batch, model_cfg, *, seed: float = 1.0):
     """``(loss, aux), grads``: the loss at ``params`` and its gradient, a
     tree like ``params`` in their dtypes (zeros for a leaf the loss does
-    not use, as ``jax.grad``)."""
+    not use, as ``jax.grad``).  ``seed`` scales the backward's seed (a
+    tensor-parallel rank's share, ``1 / tp``)."""
     live = tree_map(lambda p: p.detach().requires_grad_(), params)
     loss, aux = loss_fn(live, batch, model_cfg)
     flat = leaves(live)
-    got = torch.autograd.grad(loss, flat, allow_unused=True)
+    got = torch.autograd.grad(
+        loss, flat, allow_unused=True,
+        grad_outputs=None if seed == 1.0 else torch.full_like(loss, seed))
     by_id = {id(p): torch.zeros_like(p) if g is None else g
              for p, g in zip(flat, got)}
     return (loss.detach(), aux), tree_map(lambda p: by_id[id(p)], live)
+
+
+def _accumulated_grads(loss_fn, params, batch, model_cfg, accum: int,
+                       acc_dt, seed: float = 1.0):
+    """``(loss, grads)`` over ``accum`` micro-batches, as JAX's scan."""
+    if accum == 1:
+        (loss, _), grads = loss_and_grads(loss_fn, params, batch, model_cfg,
+                                          seed=seed)
+        return loss, grads
+    micros = _split_micro(batch, accum)
+    g_acc = tree_map(lambda p: torch.zeros(
+        p.shape, dtype=acc_dt, device=p.device), params)
+    loss_sum = torch.zeros((), dtype=torch.float32,
+                           device=leaves(params)[0].device)
+    for i in range(accum):
+        micro = tree_map(lambda x: x[i], micros)
+        (loss_i, _), g = loss_and_grads(loss_fn, params, micro, model_cfg,
+                                        seed=seed)
+        tree_map(lambda a, b: a.add_(b.to(acc_dt)), g_acc, g)
+        loss_sum = loss_sum + loss_i
+        del g
+    grads = tree_map(lambda g: (g / accum).to(torch.float32), g_acc)
+    del g_acc
+    return loss_sum / accum, grads
 
 
 def make_train_step(loss_fn: Callable, model_cfg,
@@ -85,26 +123,8 @@ def make_train_step(loss_fn: Callable, model_cfg,
 
     def step(state, batch):
         params = state["params"]
-        if accum == 1:
-            (loss, aux), grads = loss_and_grads(loss_fn, params, batch,
-                                                model_cfg)
-        else:
-            micros = _split_micro(batch, accum)
-            g_acc = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=acc_dt, device=p.device), params)
-            loss_sum = torch.zeros((), dtype=torch.float32,
-                                   device=leaves(params)[0].device)
-            for i in range(accum):
-                micro = tree_map(lambda x: x[i], micros)
-                (loss_i, _), g = loss_and_grads(loss_fn, params, micro,
-                                                model_cfg)
-                tree_map(lambda a, b: a.add_(b.to(acc_dt)), g_acc, g)
-                loss_sum = loss_sum + loss_i
-                del g
-            grads = tree_map(lambda g: (g / accum).to(torch.float32), g_acc)
-            del g_acc
-            loss = loss_sum / accum
-            aux = {}
+        loss, grads = _accumulated_grads(loss_fn, params, batch, model_cfg,
+                                         accum, acc_dt)
         new_params, new_opt, om = opt_mod.apply_update_(
             params, grads, state["opt"], opt_cfg)
         return {"params": new_params, "opt": new_opt}, {"loss": loss, **om}
@@ -112,12 +132,86 @@ def make_train_step(loss_fn: Callable, model_cfg,
     return step
 
 
-def jit_train_step(*_, **__):
-    """JAX's GSPMD shardings over a mesh and ``jax.jit``: not ported."""
-    raise NotImplementedError(
-        "jit_train_step: GSPMD shardings over a mesh are not ported yet "
-        "(ROADMAP.md, Queue 1 item 5c: training over a mesh); "
-        "make_train_step runs on one device")
+def _data_rows(x: torch.Tensor, index: int, n: int) -> torch.Tensor:
+    """Data rank ``index`` of ``n``'s contiguous block of the global batch
+    rows (JAX's batch sharding over ``data``)."""
+    if x.shape[0] % n:
+        raise ValueError(f"global batch of {x.shape[0]} rows does not "
+                         f"split over {n} data ranks")
+    b = x.shape[0] // n
+    return x[index * b: (index + 1) * b]
+
+
+def _mesh_axes(mesh, plan):
+    d = mesh.shape.get("data", 1)
+    m = mesh.shape.get("model", 1)
+    if m > 1 and (plan is None or plan.tp != m):
+        raise ValueError(f"a model axis of {m} needs the tp.build_plan of "
+                         f"degree {m}, got {plan and plan.tp}")
+    return d, m
+
+
+def mesh_loss_and_grads(loss_fn, params, batch, model_cfg,
+                        trainer_cfg: TrainerConfig = TrainerConfig(), *,
+                        mesh, plan=None):
+    """``(loss, grads)`` of the *global* ``batch`` on a bound ``(data,
+    model)`` mesh, every rank calling together: this data rank's rows,
+    accumulated as :func:`make_train_step`, inside ``tp.axis_ctx`` on the
+    model group (the loss seeded ``1 / m``); then the replicated gradients
+    summed over the model group and every gradient, and the loss, averaged
+    over the data group.  ``grads`` is this rank's slice, each leaf whole
+    for it."""
+    from repro_torch.distributed import tp
+    d, m = _mesh_axes(mesh, plan)
+    model_grp = mesh.group("model") if m > 1 else None
+    di = mesh.index("data") if d > 1 else 0
+    local = tree_map(lambda x: _data_rows(x, di, d), batch)
+    with tp.axis_ctx("model", m, group=model_grp):
+        loss, grads = _accumulated_grads(
+            loss_fn, params, local, model_cfg, trainer_cfg.grad_accum,
+            torch_dtype(trainer_cfg.accum_dtype), seed=1.0 / m)
+    if m > 1:
+        tp.reduce_replicated_grads(grads, plan, model_grp)
+    if d > 1:
+        flat = leaves(grads) + [loss]
+        tp.all_reduce_flat(flat, mesh.group("data"))
+        for g in flat:
+            g.div_(d)
+    return loss, grads
+
+
+def jit_train_step(loss_fn: Callable, model_cfg,
+                   opt_cfg: opt_mod.OptimizerConfig,
+                   trainer_cfg: TrainerConfig = TrainerConfig(), *, mesh,
+                   plan=None):
+    """The train step over a ``(data, model)`` mesh of ranks (JAX's
+    ``jit_train_step`` with GSPMD shardings): ``step(state, batch) ->
+    (state, metrics)`` with ``state`` this rank's slice (its params cut by
+    ``tp.partition_params(params, plan, rank=mesh.index("model"))`` and
+    moments beside them) and ``batch`` the *global* batch
+    (:func:`mesh_loss_and_grads`).  AdamW clips by the mesh's global norm
+    and updates the rank's slice in place.  ``plan`` is
+    ``tp.build_plan``'s for the model axis (needed where it exceeds 1).
+    Every rank of the mesh calls this, and each step, together; a 1x1
+    mesh is :func:`make_train_step`."""
+    from repro_torch.launch.mesh import bind
+    if mesh.size == 1:
+        return make_train_step(loss_fn, model_cfg, opt_cfg, trainer_cfg)
+    mesh = bind(mesh)
+    _, m = _mesh_axes(mesh, plan)
+    model_grp = mesh.group("model") if m > 1 else None
+
+    def step(state, batch):
+        params = state["params"]
+        loss, grads = mesh_loss_and_grads(loss_fn, params, batch, model_cfg,
+                                          trainer_cfg, mesh=mesh, plan=plan)
+        gnorm = opt_mod.global_norm(grads, plan if m > 1 else None,
+                                    model_grp)
+        new_params, new_opt, om = opt_mod.apply_update_(
+            params, grads, state["opt"], opt_cfg, gnorm=gnorm)
+        return {"params": new_params, "opt": new_opt}, {"loss": loss, **om}
+
+    return step
 
 
 def _pad_axes(axes_tree, shape_tree):

@@ -116,6 +116,28 @@ def test_scan_covers_the_tensor_parallel_modules():
         assert mod in found, mod
 
 
+def test_scan_covers_the_mesh_modules():
+    """The modules of training over a mesh, the sequence-sharded decode
+    and the lane meshes are scanned, and the rank side of their tests
+    imports no JAX either."""
+    found = {os.path.relpath(p, PKG) for p in _port_sources()}
+    for mod in ("launch/mesh.py", "launch/train.py", "train/trainer.py",
+                "train/optimizer.py", "train/checkpoint.py",
+                "train/fault_tolerance.py", "models/attention.py",
+                "engine/lm.py", "engine/adaptive.py", "realtime/runtime.py",
+                "fleet/fleet.py", "field/device.py", "field/scenario.py",
+                "distributed/sharding.py", "distributed/tp.py"):
+        assert mod in found, mod
+    with open(os.path.join(HERE, "torch_mesh_cases.py")) as fh:
+        tree = ast.parse(fh.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names] + [n.module for n in ast.walk(tree)
+                                  if isinstance(n, ast.ImportFrom)]
+    assert "repro_torch.launch.mesh" in names
+    assert not [n for n in names
+                if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+
+
 def test_spawned_ranks_hold_no_jax_and_no_repro():
     """Each rank ``distributed.launch.run`` starts (spawn: a fresh
     interpreter) imports the port's tensor-parallel modules and holds no
@@ -229,12 +251,13 @@ def test_resolve_device():
 
 def test_one_card_mesh_and_unported_presets():
     import repro_torch.engine as te
-    from repro_torch.realtime.runtime import resolve_mesh
-    assert resolve_mesh(None) is None
-    assert resolve_mesh("auto") is None
-    assert resolve_mesh(1) is None
-    with pytest.raises(ValueError, match="one card"):
-        resolve_mesh(2)
+    from repro_torch.engine.adaptive import resolve_lane_mesh
+    # one device (the CPU here): no lane mesh; two devices are refused
+    assert resolve_lane_mesh(None, device="cpu") is None
+    assert resolve_lane_mesh("auto", 512, device="cpu") is None
+    assert resolve_lane_mesh(1, device="cpu") is None
+    with pytest.raises(ValueError, match="not in 1..1"):
+        resolve_lane_mesh(2, device="cpu")
     # every preset of the JAX engines is ported; edge_int8 stores int8
     eng = te.build("adaptive_sampling", preset="edge_int8", device="cpu",
                    channels=4, chunk=64)

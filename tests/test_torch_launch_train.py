@@ -1,6 +1,8 @@
 """``python -m repro_torch.launch.train`` on the CPU: JAX's flags and
-summary lines, recovery through the CLI equal to an uninterrupted run, and
-what the launcher refuses (a mesh, a missing card, an unported family)."""
+summary lines, recovery through the CLI equal to an uninterrupted run, a
+``--mesh`` run in gloo ranks, and what the launcher refuses (a mesh of
+more ranks than the machine starts or one the model cannot split, a
+missing card, an unported family)."""
 import os
 import subprocess
 import sys
@@ -58,8 +60,22 @@ def test_recovery_through_the_launcher_is_bitwise(tmp_path):
 
 
 def test_launcher_refuses_what_one_card_cannot_run(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 5c"):
-        launch_train.main(["--device", "cpu", "--smoke", "--mesh", "2x1"])
+    # a mesh runs in its ranks (tests/test_torch_mesh_train.py holds their
+    # step to JAX's): rank 0's summary and each rank's state digest
+    out = launch_train.main(["--device", "cpu", "--smoke", "--mesh", "1x2",
+                             "--steps", "2", "--global-batch", "2",
+                             "--seq-len", "16"])
+    assert out["mesh"] == [1, 2] and sorted(out["history"]) == [0, 1]
+    assert out["restarts"] == 0 and out["peak_gb"] is None
+    assert "state" not in out and len(set(out["rank_state_sha256"])) == 2
+    from repro_torch.distributed import launch
+    too_many = f"{launch.max_ranks() + 1}x1"
+    with pytest.raises(ValueError, match="ranks asked for"):
+        launch_train.main(["--device", "cpu", "--smoke", "--mesh", too_many])
+    with pytest.raises(ValueError, match="cannot shard over tp=3"):
+        launch_train.main(["--device", "cpu", "--smoke", "--mesh", "1x3"])
+    with pytest.raises(ValueError, match="expected DxM"):
+        launch_train.main(["--device", "cpu", "--smoke", "--mesh", "2"])
     with pytest.raises(NotImplementedError, match="vlm family.*item 6"):
         launch_train.main(["--device", "cpu", "--smoke", "--arch",
                            "internvl2-76b"])

@@ -216,16 +216,28 @@ def test_unported_branches_raise_naming_their_items(tmp_path):
     whisper = _tcfg(JARCHS["whisper-medium"].smoke_config())
     with pytest.raises(NotImplementedError, match="item 6"):
         get_model(whisper)
-    # tensor parallelism runs in ranks of a process group (item 5b, ported:
-    # tests/test_torch_tp.py); a data axis over a mesh waits for item 5c
+    # tensor parallelism runs in ranks of a process group (item 5b:
+    # tests/test_torch_tp.py); a data axis alone replicates the unmeshed
+    # engine, as JAX's (its tokens are mesh None's)
     from repro_torch.launch.mesh import make_mesh
     with pytest.raises(RuntimeError, match="launch.run"):
         tengine.build("lm_decode", "smoke", params=tp, cfg=_tcfg(jcfg),
                       mesh=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5c"):
+    with pytest.raises(RuntimeError, match="launch.run"):
         tengine.build("lm_decode", "smoke", params=tp, cfg=_tcfg(jcfg),
-                      mesh=make_mesh((2, 1), ("data", "model")),
+                      mesh=make_mesh((2, 2), ("data", "model")),
                       device="cpu")
+    tokens = {}
+    for name, mesh in (("none", None),
+                       ("data", make_mesh((2, 1), ("data", "model")))):
+        eng = tengine.build("lm_decode", "smoke", params=tp,
+                            cfg=_tcfg(jcfg), mesh=mesh, device="cpu")
+        assert eng.mesh is None and eng.tp == 1
+        eng.submit(Request(uid=0, prompt=np.array([3, 1, 4]),
+                           max_new_tokens=4))
+        eng.drain()
+        tokens[name] = eng.finished[0].tokens_out
+    assert tokens["data"] == tokens["none"] and len(tokens["none"]) == 5
     with pytest.raises(TypeError):
         tengine.build("lm_decode", "smoke", params=tp, cfg=_tcfg(jcfg),
                       mesh=object(), device="cpu")

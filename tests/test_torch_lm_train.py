@@ -249,5 +249,21 @@ def test_registry_loss_and_what_waits():
         :128]})
     with pytest.raises(ValueError, match="tensor-parallel context"):
         ttr.loss_fn(sliced, {"tokens": tok, "labels": tok}, tcfg)
-    with pytest.raises(NotImplementedError, match="item 5c"):
-        ttrainer.jit_train_step(None, None, None, None)
+    # the mesh step: a 1x1 mesh is make_train_step; a larger one runs in
+    # the ranks of a process group (tests/test_torch_mesh_train.py)
+    from repro_torch.launch.mesh import make_mesh
+    ocfg = topt.OptimizerConfig(**OPT)
+    one = ttrainer.jit_train_step(ttr.loss_fn, tcfg, ocfg,
+                                  mesh=make_mesh((1, 1), ("data", "model")))
+    ref = ttrainer.make_train_step(ttr.loss_fn, tcfg, ocfg)
+    batch = {k: U.t(v) for k, v in _batch(jcfg.vocab_size).items()}
+    got = [step({"params": dict(params),
+                 "opt": topt.init_opt_state(params, ocfg)}, batch)[1]["loss"]
+           for step, params in ((one, load_numpy_params(jax.tree.map(
+               np.asarray, _params("qwen3-4b", "float32")), "cpu")),
+               (ref, load_numpy_params(jax.tree.map(
+                   np.asarray, _params("qwen3-4b", "float32")), "cpu")))]
+    assert float(got[0]) == float(got[1])
+    with pytest.raises(RuntimeError, match="launch.run"):
+        ttrainer.jit_train_step(ttr.loss_fn, tcfg, ocfg,
+                                mesh=make_mesh((2, 1), ("data", "model")))

@@ -41,6 +41,42 @@ def _plans(arch, smoke, degree, **over):
             tp.build_plan(ta, ts, cfg=tcfg, tp=degree))
 
 
+@pytest.mark.parametrize("arch", ["qwen3-4b", "mamba2-780m"])
+def test_param_pspecs_and_spec_tree_equal_jax(arch):
+    """``tp.param_pspecs`` (each leaf's mesh axes) and
+    ``sharding.spec_tree`` (the logical rules over a (2, 2) mesh) as
+    JAX's, entry for entry, on the published shapes."""
+    jcfg = JARCHS[arch].config()
+    tcfg = ModelConfig(**dataclasses.asdict(jcfg))
+    js, ja = jget_model(jcfg).abstract_params(jcfg)
+    ts, ta = get_model(tcfg).abstract_params(tcfg)
+    jplan, plan = _plans(arch, False, 2)
+
+    def flat(tree, is_leaf=None):
+        return {k: v for k, _, v in tp._flatten_with_keys(tree, is_leaf)}
+    got = flat(tp.param_pspecs(plan, ts), lambda x: isinstance(x, tuple))
+    want = flat(jax.tree.map(tuple, jtp.param_pspecs(jplan, js),
+                             is_leaf=lambda x: isinstance(
+                                 x, jax.sharding.PartitionSpec)),
+                lambda x: isinstance(x, tuple))
+    assert got == want and any(got.values())
+    m = mesh.make_mesh((2, 2), ("data", "model"))
+    rules = sharding.default_rules(m, fsdp=True)
+    with sharding.use_sharding(m, rules):
+        got = flat(sharding.spec_tree(ta, ts),
+                   lambda x: isinstance(x, tuple))
+    prev, jsharding._CTX = jsharding._CTX, jsharding.ShardingContext(
+        mesh=type("M", (), {"shape": m.shape})(), rules=rules)
+    try:
+        want = flat(jax.tree.map(
+            tuple, jsharding.spec_tree(ja, js), is_leaf=lambda x: isinstance(
+                x, jax.sharding.PartitionSpec)), lambda x: isinstance(x,
+                                                                     tuple))
+    finally:
+        jsharding._CTX = prev
+    assert got == want
+
+
 # ============================================================= Segments ===
 @pytest.mark.parametrize("kind", ["numpy", "torch"])
 def test_segments_slice_unslice_round_trip(kind):
@@ -219,7 +255,11 @@ def test_sharding_rules_and_logical_spec_equal_jax():
                 jsharding._CTX = prev
             assert sharding.logical_spec(axes, shape) == jspec
     assert sharding.active() is None
-    with pytest.raises(NotImplementedError, match="item 5c"):
+    with pytest.raises(NotImplementedError, match="256 TPU chips"):
         mesh.make_production_mesh()
+    # outside a process group a mesh is a layout: its groups raise
+    assert not m.bound and m.size == 2
+    with pytest.raises(RuntimeError, match="launch.run"):
+        m.group("model")
     with pytest.raises(ValueError):
         mesh.make_mesh((1, 2), ("model",))

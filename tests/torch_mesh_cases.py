@@ -1,0 +1,186 @@
+"""The rank side of ``tests/test_torch_mesh_train.py`` and
+``tests/test_torch_seq_decode.py``: what each rank of a (data, model) mesh
+runs, in a module that imports neither JAX nor the JAX package (the ranks
+are spawned processes that import this module by name).
+
+Inputs arrive as numpy trees; every rank returns numpy results (flat
+``{checkpoint key: array}`` dicts of its slice), which the parent holds
+against JAX.
+"""
+import argparse
+import dataclasses
+import os
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ARCHS
+from repro_torch.distributed import sharding, tp
+from repro_torch.launch import train as launch_train
+from repro_torch.launch.mesh import Mesh, make_mesh
+from repro_torch.models import attention
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.param import load_numpy_params
+from repro_torch.models.registry import get_model
+from repro_torch.train import optimizer as opt_mod
+from repro_torch.train import trainer
+
+OPT = dict(lr=1e-4, warmup_steps=0, total_steps=10)
+
+
+def config(arch: str) -> ModelConfig:
+    """The arch's smoke config in float32."""
+    return dataclasses.replace(ARCHS[arch].smoke_config(),
+                               dtype=torch.float32)
+
+
+def plan_for(cfg, m: int):
+    """``tp.build_plan`` at model degree ``m`` (None at 1)."""
+    if m == 1:
+        return None
+    shapes, axes = get_model(cfg).abstract_params(cfg)
+    layout = Mesh(("data", "model"), (1, m))
+    return tp.build_plan(axes, shapes, cfg=cfg, tp=m,
+                         rules=sharding.default_rules(layout))
+
+
+def flat(tree) -> dict:
+    return {k: v.detach().float().numpy().copy()
+            for k, _, v in tp._flatten_with_keys(tree)}
+
+
+def mesh_step(rank: int, world: int, spec: dict) -> dict:
+    """One ``jit_train_step`` on each arch over the ``(d, m)`` mesh of
+    ``spec``: this rank's loss, gradients, new params and moments (flat,
+    its slice), the clip norm, and its coordinates."""
+    torch.set_num_threads(1)
+    d, m = spec["mesh"]
+    mesh = make_mesh((d, m), ("data", "model"))
+    out = {"coords": list(mesh.coords)}
+    batch = {k: torch.from_numpy(v) for k, v in spec["batch"].items()}
+    ocfg = opt_mod.OptimizerConfig(**OPT)
+    tcfg = trainer.TrainerConfig(grad_accum=spec["accum"])
+    for arch, tree in spec["params"].items():
+        cfg = config(arch)
+        model = get_model(cfg)
+        plan = plan_for(cfg, m)
+        params = load_numpy_params(tree, "cpu")
+        if plan is not None:
+            params = tp.partition_params(params, plan,
+                                         rank=mesh.index("model"))
+        loss, grads = trainer.mesh_loss_and_grads(
+            model.loss, params, batch, cfg, tcfg, mesh=mesh, plan=plan)
+        gnorm = opt_mod.global_norm(grads, plan,
+                                    mesh.group("model") if m > 1 else None)
+        state = {"params": params, "opt": opt_mod.init_opt_state(params,
+                                                                 ocfg)}
+        step = trainer.jit_train_step(model.loss, cfg, ocfg, tcfg,
+                                      mesh=mesh, plan=plan)
+        new, metrics = step(state, batch)
+        out[arch] = {"loss": float(loss), "step_loss": float(metrics["loss"]),
+                     "gnorm": float(gnorm),
+                     "step_gnorm": float(metrics["grad_norm"]),
+                     "grads": flat(grads), "params": flat(new["params"]),
+                     "m": flat(new["opt"]["m"]), "v": flat(new["opt"]["v"])}
+    return out
+
+
+def identity_backward_grads(rank: int, world: int, spec: dict) -> dict:
+    """The tensor-parallel gradient as before the collectives had a
+    backward: ``psum`` and ``pmax`` a ``clone`` then an in-place
+    ``all_reduce`` (autograd sees the clone: the identity), the loss
+    seeded 1, nothing summed after."""
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    arch = spec["arch"]
+    cfg = config(arch)
+    model = get_model(cfg)
+    mesh = make_mesh((1, world), ("data", "model"))
+    plan = plan_for(cfg, world)
+    params = tp.partition_params(load_numpy_params(spec["tree"], "cpu"),
+                                 plan, rank=rank)
+    batch = {k: torch.from_numpy(v) for k, v in spec["batch"].items()}
+
+    class _Old(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, grp):
+            out = x.detach().clone()
+            dist.all_reduce(out, group=grp)
+            return out
+
+        @staticmethod
+        def backward(ctx, g):
+            return g, None
+
+    def old_pmax(x, grp=None):
+        out = x.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=tp._TP_GROUP)
+        return out
+
+    saved = tp._Psum, tp.pmax
+    tp._Psum, tp.pmax = _Old, old_pmax
+    try:
+        with tp.axis_ctx("model", world, group=mesh.group("model")):
+            _, grads = trainer.loss_and_grads(model.loss, params, batch, cfg)
+    finally:
+        tp._Psum, tp.pmax = saved
+    return flat(grads)
+
+
+def _train_args(argv: list) -> argparse.Namespace:
+    return launch_train.parser().parse_args(argv)
+
+
+def mesh_recovery(rank: int, world: int, spec: dict) -> dict:
+    """``launch.train``'s loop on this rank for each mesh of ``spec``
+    (the world's size each), uninterrupted and with ``--fail-at``: the
+    histories, restarts and a digest of the rank's state."""
+    torch.set_num_threads(1)
+    out = {}
+    for name, argv in spec["runs"].items():
+        args = _train_args(argv)
+        d, m = launch_train.parse_mesh(args.mesh)
+        res = launch_train.run(args, mesh=make_mesh(
+            (d, m), ("data", "model")), verbose=False)
+        state = flat(res["state"])
+        out[name] = {"history": res["history"],
+                     "restarts": res["restarts"], "state": state}
+        if args.ckpt_dir:
+            out[name]["ckpt"] = sorted(os.listdir(args.ckpt_dir))
+    return out
+
+
+def seq_decode(rank: int, world: int, spec: dict) -> dict:
+    """``decode_attention`` over each sequence-sharded case of ``spec``:
+    this rank's slice of the caches, the ``kv_seq`` rule set as JAX's
+    ``launch/steps.py`` sets it; the output and the rank's caches after
+    the write."""
+    torch.set_num_threads(1)
+    cfg = ModelConfig(**spec["cfg"])
+    p = {k: torch.from_numpy(v) for k, v in spec["params"].items()}
+    x = torch.from_numpy(spec["x"])
+    pos = torch.from_numpy(spec["pos"]).long()
+    out = {}
+    for name, (shape, rule) in spec["cases"].items():
+        mesh = make_mesh(shape, ("data", "model"))
+        axes = (rule,) if isinstance(rule, str) else tuple(rule)
+        n, i = (int(np.prod([mesh.shape[a] for a in axes])),
+                mesh.index(axes))
+        s_local = spec["ck"].shape[1] // n
+        ck = torch.from_numpy(spec["ck"][:, i * s_local:(i + 1) * s_local]
+                              .copy())
+        cv = torch.from_numpy(spec["cv"][:, i * s_local:(i + 1) * s_local]
+                              .copy())
+        rules = sharding.default_rules(mesh, overrides={"kv_seq": rule})
+        with torch.no_grad(), sharding.use_sharding(mesh, rules):
+            got, ck, cv = attention.decode_attention(p, x, cfg, ck, cv, pos)
+        out[name] = {"out": got.numpy(), "ck": ck.numpy(), "cv": cv.numpy(),
+                     "index": i, "n": n}
+    return out
+
+
+def run_jobs(rank: int, world: int, jobs: dict) -> dict:
+    """Each ``{name: (case function, spec)}`` of ``jobs`` in turn, in one
+    start of the ranks."""
+    return {name: globals()[fn](rank, world, spec)
+            for name, (fn, spec) in jobs.items()}
