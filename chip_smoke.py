@@ -151,6 +151,22 @@ Phases, each printing JSON lines:
    and token for token against one rank, a converter -> ``sharded``
    checkpoint loaded pre-partitioned (counters, each rank's columns) and
    serving bit for bit; ``serve --tp 2 --ckpt`` in a subprocess.
+   ``families``: the MoE, hybrid, VLM and encoder-decoder archs.  The
+   wgmma flash kernel not causal at whisper-medium's encoder (1 x 16 x
+   4,096 x 64, row 5x) and cross-attention (512 queries over 1,500
+   keys) against the plain attention, with SDPA's time and the bound;
+   the five f32 smoke configs (the three MoE ones also with
+   ``moe_impl="dispatch"``) card against CPU: the prefill's output and
+   8 ``serve_step``s within 1e-4, tokens equal; jamba's decode against
+   its forward within JAX's 2e-2; then each arch at its published width
+   and ``FAMILY_DEPTH`` (grok-1-314b 4 layers, llama4-maverick 2,
+   jamba 8, internvl2-76b 24 with 256 patch embeddings, whisper-medium
+   whole), random bf16 params from seed 0, one at a time: the prefill
+   at 1 x 4,096 (whisper's encoder over 4,096 frames, then
+   ``prefill_cross`` and 32 ``serve_step``s), median of 3, exact
+   launches, finite; ``lm_decode``'s ``full`` preset, 16 requests;
+   wall and peak GB each; bf16 parity card against CPU at whisper depth
+   2 and internvl2 depth 1 (``PARITY_RULE``, 2 bf16 ulps).
 8. ``fleet``: four tenants on one ``repro_torch.fleet.Fleet`` on the
    card: ``lab-fc`` (``flowcell_512`` with phase 4's CNN, pore encoder,
    1,024 reads, depth 2, fused; weight 2), ``lab-bc1`` and ``lab-bc2``
@@ -215,14 +231,16 @@ Phases, each printing JSON lines:
    both validated) and pathogen_pipeline, ``--fleet`` on a four-tenant
    spec (one ``lm_decode``), ``--field`` on a two-device spec,
    ``lm_decode`` on its ``smoke`` preset and on ``full`` with 8 requests
-   of 16 new tokens; each exits 0, with its wall.
+   of 16 new tokens, and ``--arch grok-1-314b`` and ``whisper-medium``
+   ``--smoke``; each exits 0, with its wall.
 12. ``{"kernels": [...]}``: every kernel with its launches in phases 4-11,
    counted from 0 just before each path and read just after it, and
    ``train_launches``, those of the ``lm_train`` paths
    (``matmul_bf16`` also with ``wgmma_launches`` and ``narrow_launches``,
    those on its wgmma and narrow-M kernels; ``matmul_bf16_decode``, row
-   2d, its launches on the ``lm_decode`` paths with ``narrow_launches``,
-   ``wgmma_launches``, ``variant``, ``device_ms`` and
+   2d, its launches on the ``lm_decode`` and families decode paths,
+   with ``narrow_launches``, ``wgmma_launches``, ``variant``,
+   ``device_ms`` and
    ``library_device_ms`` (``torch.matmul``);
    ``matmul_int8_lm``, row 2l, its launches on the ``lm_tp`` paths with
    ``narrow_launches`` and ``tc_launches``, ``device_ms``,
@@ -248,7 +266,10 @@ Phases, each printing JSON lines:
    same inputs) and ``generic_launches`` (its launches on the main
    paths), row 5g also ``library_kernels``, row 5m also
    ``qwen3_4b_d128_ms`` and ``qwen3_4b_d128_bound_ms`` (at row 5g's
-   inputs), row 6g ``device_ms_by_pass``; each 3xTF32 row counts its own
+   inputs), row 6g ``device_ms_by_pass``; ``flash_attention_noncausal``
+   (row 5x, the wgmma kernel not causal, its launches the families
+   paths') with ``cross``, the cross-attention shape's numbers; each
+   3xTF32 row counts its own
    kernel, ``flash_attention`` its bf16 wgmma kernel only and
    ``ssd_scan`` its ``DIMS`` pairs only).
 
@@ -2180,7 +2201,7 @@ def attn_pairs(sq: int, skv: int) -> int:
     return sq * (offs + 1) + sq * (sq - 1) // 2
 
 
-def sdpa_ms(torch, F, q, k, v):
+def sdpa_ms(torch, F, q, k, v, causal=True):
     """SDPA with ``enable_gqa`` on the same inputs, on its fused backends
     only (flash, memory-efficient, cuDNN): never the O(S^2) math path."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -2188,7 +2209,7 @@ def sdpa_ms(torch, F, q, k, v):
              SDPBackend.CUDNN_ATTENTION]
     with sdpa_kernel(fused):
         return time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), reps=5)
+            q, k, v, is_causal=causal, enable_gqa=True), reps=5)
 
 
 def flash_bands(sq: int, skv: int, rows: int):
@@ -2206,7 +2227,8 @@ def check_flash(torch, F, peaks, table, q, k, v, label, on_path):
     """The flash kernel against the plain attention: every row at 4096;
     at 32768 the first, middle and last LM_ROWS rows (``flash_bands``:
     each band against the plain version over the keys it can see, aligned
-    to the last token)."""
+    to the last token).  ``table`` None: the line is not summed into
+    the kernels line."""
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ref
     out = kfa.flash_attention(q, k, v, causal=True)
@@ -2244,7 +2266,7 @@ def check_flash(torch, F, peaks, table, q, k, v, label, on_path):
         line.update(checked_rows=[f"first {LM_ROWS}", f"middle {LM_ROWS}",
                                   f"last {LM_ROWS}"],
                     plain_rows=f"last {LM_ROWS}")
-    if on_path:
+    if on_path and table is not None:
         table.add("flash_attention", err=err, ms=ms, plain_ms=plain,
                   bound=bnd, bound_by=by, library_ms=lib)
     emit(line)
@@ -2364,7 +2386,8 @@ def check_matmul_bf16(torch, F, peaks, table, a, w, act, label,
     """Within one bf16 ulp of max |out| (f32 sums in another order), on the
     kernel the wrapper picks for the shape, which must be ``variant``:
     ``wgmma`` (TMA-addressable) or ``mma.sync``.  Only the path's wgmma
-    shapes count into the kernels line."""
+    shapes count into the kernels line (``table`` None: none).  Returns
+    the line."""
     from repro_torch.kernels import matmul as km
     from repro_torch.kernels import ref
     before = km.matmul_bf16.wgmma_launches
@@ -2379,22 +2402,27 @@ def check_matmul_bf16(torch, F, peaks, table, a, w, act, label,
     plain = time_ms(torch, lambda: ref.matmul(a, w, activation=act), reps=3)
     if act == "silu":
         lib = time_ms(torch, lambda: F.silu(torch.matmul(a, w)), reps=10)
+    elif act == "gelu":
+        lib = time_ms(torch, lambda: F.gelu(torch.matmul(a, w),
+                                            approximate="tanh"), reps=10)
     else:
         lib = time_ms(torch, lambda: torch.matmul(a, w), reps=10)
     m, k = a.shape
     ops = 2.0 * m * k * w.shape[1]
     bnd, by = bound_ms(peaks, nbytes(a, w, out), ops, bf16=True)
-    emit({"phase": "kernel", "kernel": "matmul_bf16", "shape": label,
-          "a": list(a.shape), "b": list(w.shape), "activation": act,
-          "variant": ran, "max_abs_err": err, "tol": tol, "ms": ms,
-          "plain_ms": plain, "library_ms": lib, "bound_ms": bnd,
-          "bound_by": by, "flop": ops, "tflops": ops / ms / 1e9})
-    if variant == "wgmma":
+    line = {"phase": "kernel", "kernel": "matmul_bf16", "shape": label,
+            "a": list(a.shape), "b": list(w.shape), "activation": act,
+            "variant": ran, "max_abs_err": err, "tol": tol, "ms": ms,
+            "plain_ms": plain, "library_ms": lib, "bound_ms": bnd,
+            "bound_by": by, "flop": ops, "tflops": ops / ms / 1e9}
+    emit(line)
+    if variant == "wgmma" and table is not None:
         table.add("matmul_bf16", err=err, ms=ms, plain_ms=plain, bound=bnd,
                   bound_by=by, library_ms=lib)
     require(ran == variant, f"matmul_bf16 {label}: ran the {ran} kernel, "
             f"expected {variant}")
     require(err <= tol, f"matmul_bf16 {label}: max abs err {err} over {tol}")
+    return line
 
 
 def phase_kernels_lm(torch, F, peaks, table):
@@ -2458,15 +2486,18 @@ PARITY_RULE = ("rms of card - CPU over the last token's final-normed "
                "rms (2 units of bf16 roundoff)")
 
 
-def last_hidden_and_logits(torch, params, tokens, cfg, dev):
+def last_hidden_and_logits(torch, params, tokens, cfg, dev,
+                           input_embeds=None):
     """The last token's final-normed hidden state (B, 1, d) and logits
     (B, 1, V) of one prefill, as ``steps.prefill`` runs it, in float32 on
     the CPU."""
     from repro_torch.models import layers as L
     from repro_torch.models import transformer
     tok = torch.as_tensor(tokens).to(device=dev, dtype=torch.int64)
+    emb = None if input_embeds is None else input_embeds.to(dev)
     with torch.inference_mode():
-        h, _ = transformer.final_hidden(params, tok, cfg, last_only=True)
+        h, _ = transformer.final_hidden(params, tok, cfg, input_embeds=emb,
+                                        last_only=True)
         logits = L.unembed(params["embedding"], h, cfg)
     return h.float().cpu(), logits.float().cpu()
 
@@ -2517,8 +2548,8 @@ def phase_lm_prefill(torch, paths):
                                      device=dev)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
-        # ParamBuilder draws each leaf in f32 first: nemotron-4-15b's
-        # 32 x 6144 x 24576 MLP leaf is a ~19 GB transient
+        # ParamBuilder draws each leaf in f32 first, a leaf past 2^28
+        # entries a run of leading rows at a time (param.DRAW_ENTRIES)
         init_peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         tok = np.random.default_rng(0).integers(0, cfg.vocab_size,
                                                 (1, LM_SEQ))
@@ -2651,17 +2682,69 @@ def recorded_logits(eng):
     return seen
 
 
+def check_narrow_bf16(torch, F, peaks, xs, w, act, m, label):
+    """One row-2d GEMM: ``matmul_bf16`` of ``xs[:m]`` (``xs`` holds at
+    least ``DECODE_LONG_SLOTS`` rows) and ``w`` on the narrow-M kernel
+    (``route_bf16``), within one bf16 ulp of its plain version; the same
+    call twice gives the same bits, and its rows equal those rows of the
+    ``DECODE_LONG_SLOTS``-row call, bit for bit (the K split depends on N
+    and K only).  Event and device times beside ``torch.matmul``'s on the
+    same inputs; the bound is the bytes.  Emits nothing; returns the
+    line."""
+    from repro_torch.kernels import matmul as km
+    from repro_torch.kernels import ref
+    x = xs[:m].contiguous()
+    route = km.route_bf16(m, w.shape[1], x.shape[1], x.data_ptr(),
+                          w.data_ptr())
+    before = km.matmul_bf16.narrow_launches
+    out = km.matmul_bf16(x, w, activation=act)
+    narrow = km.matmul_bf16.narrow_launches - before
+    again = km.matmul_bf16(x, w, activation=act)
+    rows = km.matmul_bf16(xs[:DECODE_LONG_SLOTS].contiguous(), w,
+                          activation=act)
+    want = ref.matmul(x, w, activation=act)
+    torch.cuda.synchronize()
+    err = (out.float() - want.float()).abs().max().item()
+    tol = bf16_ulp(want.float().abs().max().item())
+    repeat = bool(torch.equal(out, again))
+    k = min(m, DECODE_LONG_SLOTS)
+    rows_equal = bool(torch.equal(out[:k], rows[:k]))
+    ms = time_ms(torch, lambda: km.matmul_bf16(x, w, activation=act))
+    dms = device_ms(torch, lambda: km.matmul_bf16(x, w, activation=act))
+    if act == "silu":
+        def lib():
+            return F.silu(torch.matmul(x, w))
+    elif act == "gelu":
+        def lib():
+            return F.gelu(torch.matmul(x, w), approximate="tanh")
+    else:
+        def lib():
+            return torch.matmul(x, w)
+    lib_ms = time_ms(torch, lib)
+    lib_dms = device_ms(torch, lib)
+    ops = 2.0 * m * x.shape[1] * w.shape[1]
+    bnd, by = bound_ms(peaks, nbytes(x, w, out), ops, bf16=True)
+    line = {"phase": "kernel", "kernel": "matmul_bf16_decode",
+            "shape": label, "a": list(x.shape), "b": list(w.shape),
+            "activation": act, "route": route,
+            "splits": km.narrow_split(w.shape[1], w.shape[0],
+                                      km.NARROW_STEP["bf16"]),
+            "max_abs_err": err, "tol": tol, "repeat_bitwise": repeat,
+            "rows_equal_alone_and_in_8": rows_equal, "ms": ms,
+            "device_ms": dms, "library_ms": lib_ms,
+            "library_device_ms": lib_dms, "bound_ms": bnd, "bound_by": by,
+            "bytes": nbytes(x, w, out)}
+    require(err <= tol and route == "narrow" and narrow == 1
+            and repeat and rows_equal, f"matmul_bf16_decode {label}: {line}")
+    return line
+
+
 def check_matmul_bf16_decode(torch, F, peaks, table):
     """Row 2d: ``matmul_bf16`` at qwen3-4b's three MLP GEMMs with M = 8
-    (the ``full`` preset's slots), and at M = 1 and 16, on the narrow-M
-    kernel (``route_bf16``), against its plain version within one bf16
-    ulp; the same call twice gives the same bits, and each row of the M =
-    8 call equals that row computed alone (M = 1), bit for bit (the K
-    split depends on N and K only).  Event and device times beside
-    ``torch.matmul``'s on the same bf16 inputs.  The bound is the bytes:
-    ~50 MB of weights a GEMM.  The table row sums the three M = 8 GEMMs."""
+    (the ``full`` preset's slots), and at M = 1 and 16, each held by
+    ``check_narrow_bf16``.  The table row sums the three M = 8 GEMMs,
+    with their plain versions' times."""
     from repro_torch.configs import ARCHS
-    from repro_torch.kernels import matmul as km
     from repro_torch.kernels import ref
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(7)
@@ -2680,63 +2763,23 @@ def check_matmul_bf16_decode(torch, F, peaks, table):
     for m in (1, DECODE_LONG_SLOTS, 16):
         for (name, act), (xs, w) in zip(DECODE_MLP, ((a, wg), (a, wu),
                                                      (h, wo))):
-            x = xs[:m].contiguous()
-            route = km.route_bf16(m, w.shape[1], x.shape[1], x.data_ptr(),
-                                  w.data_ptr())
-            before = km.matmul_bf16.narrow_launches
-            out = km.matmul_bf16(x, w, activation=act)
-            narrow = km.matmul_bf16.narrow_launches - before
-            ran.add(route)
-            again = km.matmul_bf16(x, w, activation=act)
-            rows = km.matmul_bf16(xs[:DECODE_LONG_SLOTS].contiguous(), w,
-                                  activation=act)
-            want = ref.matmul(x, w, activation=act)
-            torch.cuda.synchronize()
-            err = (out.float() - want.float()).abs().max().item()
-            tol = bf16_ulp(want.float().abs().max().item())
-            repeat = bool(torch.equal(out, again))
-            k = min(m, DECODE_LONG_SLOTS)
-            rows_equal = bool(torch.equal(out[:k], rows[:k]))
-            ms = time_ms(torch, lambda: km.matmul_bf16(x, w,
-                                                       activation=act))
-            dms = device_ms(torch, lambda: km.matmul_bf16(x, w,
-                                                          activation=act))
-            if act == "silu":
-                def lib():
-                    return F.silu(torch.matmul(x, w))
-            else:
-                def lib():
-                    return torch.matmul(x, w)
-            lib_ms = time_ms(torch, lib)
-            lib_dms = device_ms(torch, lib)
-            ops = 2.0 * m * x.shape[1] * w.shape[1]
-            bnd, by = bound_ms(peaks, nbytes(x, w, out), ops, bf16=True)
-            line = {"phase": "kernel", "kernel": "matmul_bf16_decode",
-                    "shape": f"qwen3-4b MLP {name} at M = {m}",
-                    "a": list(x.shape), "b": list(w.shape),
-                    "activation": act, "route": route,
-                    "splits": km.narrow_split(w.shape[1], w.shape[0],
-                                              km.NARROW_STEP["bf16"]),
-                    "max_abs_err": err, "tol": tol,
-                    "repeat_bitwise": repeat,
-                    "rows_equal_alone_and_in_8": rows_equal, "ms": ms,
-                    "device_ms": dms, "library_ms": lib_ms,
-                    "library_device_ms": lib_dms, "bound_ms": bnd,
-                    "bound_by": by, "bytes": nbytes(x, w, out)}
-            require(err <= tol and route == "narrow" and narrow == 1
-                    and repeat and rows_equal,
-                    f"matmul_bf16_decode {name} M={m}: {line}")
+            line = check_narrow_bf16(torch, F, peaks, xs, w, act, m,
+                                     f"qwen3-4b MLP {name} at M = {m}")
+            ran.add(line["route"])
             if m != DECODE_LONG_SLOTS:
                 emit(line)
                 continue
+            x = xs[:m].contiguous()
             plain = time_ms(torch, lambda: ref.matmul(x, w, activation=act),
                             reps=5)
             line["plain_ms"] = plain
             emit(line)
-            table.add("matmul_bf16_decode", err=err, ms=ms, plain_ms=plain,
-                      bound=bnd, bound_by=by, library_ms=lib_ms)
-            dev_ms += dms
-            lib_dev_ms += lib_dms
+            table.add("matmul_bf16_decode", err=line["max_abs_err"],
+                      ms=line["ms"], plain_ms=plain, bound=line["bound_ms"],
+                      bound_by=line["bound_by"],
+                      library_ms=line["library_ms"])
+            dev_ms += line["device_ms"]
+            lib_dev_ms += line["library_device_ms"]
     row = table.rows["matmul_bf16_decode"]
     row.update(device_ms=dev_ms, library_device_ms=lib_dev_ms,
                variant=sorted(ran))
@@ -5811,7 +5854,8 @@ def phase_serve_cli():
     through the port's validators), --fleet on a spec file (an
     ``lm_decode`` tenant among them), --field on a small spec, and
     ``lm_decode`` on its ``smoke`` and ``full`` presets (qwen3-4b at full
-    size: no ``--smoke``).  Each must exit 0; its wall is printed."""
+    size: no ``--smoke``), and on grok-1-314b's and whisper-medium's
+    smoke configs.  Each must exit 0; its wall is printed."""
     from repro_torch.obs.export import validate_timeseries
     from repro_torch.obs.trace import validate_chrome_trace
     out_dir = os.path.join(ROOT, "build", "serve_cli")
@@ -5837,6 +5881,11 @@ def phase_serve_cli():
         "lm_decode smoke": ["--workload", "lm_decode", "--preset", "smoke"],
         "lm_decode full": ["--workload", "lm_decode", "--preset", "full",
                            "--requests", "8", "--new-tokens", "16"],
+        # an MoE and the encoder-decoder arch, smoke size
+        "lm_decode grok-1-314b": ["--workload", "lm_decode", "--arch",
+                                  "grok-1-314b", "--smoke"],
+        "lm_decode whisper-medium": ["--workload", "lm_decode", "--arch",
+                                     "whisper-medium", "--smoke"],
     }
     env = dict(os.environ, PYTHONPATH=SRC)
     for name, argv in runs.items():
@@ -5882,6 +5931,545 @@ def phase_serve_cli():
             f"serve trace/timeseries invalid: {errors[:3]} {ts_errors[:3]}")
 
 
+# --------------------------------------------------------- phase families --
+# the five archs of the MoE, hybrid, VLM and encoder-decoder families at
+# their published widths, each at the depth the card holds with random
+# bf16 params (PERF.md section 4): grok-1-314b 4 of 64 layers (9.8 GB a
+# layer), llama4-maverick one block of 2 (a dense layer and an MoE layer
+# of 128 experts and the shared expert: 37 GB), jamba one block of 8
+# (every layer kind: 26.5 GB), internvl2-76b 24 of 80 layers (45 GB),
+# whisper-medium whole (24 + 24 layers, 1.6 GB)
+FAMILY_DEPTH = {"grok-1-314b": 4, "llama4-maverick-400b-a17b": 2,
+                "jamba-v0.1-52b": 8, "internvl2-76b": 24,
+                "whisper-medium": 24}
+FAMILY_REDUCED = ("prefill_32k cut to 1 x 4096 (LM_REDUCED); the depth cut "
+                  "by dataclasses.replace(num_layers=) where the card cannot "
+                  "hold the published depth, widths unchanged")
+# launches a prefill: one flash_attention an attention layer, the dense
+# MLP layers' GEMMs on the wgmma kernel (three gated, two not), one
+# ssd_scan a mamba layer; the experts and the router are plain PyTorch
+# (JAX computes them in jnp), as is the decode cross-attention
+FAMILY_PREFILL = {
+    "grok-1-314b": {"flash_attention": 4},
+    "llama4-maverick-400b-a17b": {"flash_attention": 2, "matmul_bf16": 3,
+                                  "matmul_bf16_wgmma": 3},
+    "jamba-v0.1-52b": {"flash_attention": 1, "ssd_scan": 7,
+                       "matmul_bf16": 12, "matmul_bf16_wgmma": 12},
+    "internvl2-76b": {"flash_attention": 24, "matmul_bf16": 72,
+                      "matmul_bf16_wgmma": 72},
+    "whisper-medium": {"flash_attention": 24,
+                       "flash_attention_noncausal": 24, "matmul_bf16": 48,
+                       "matmul_bf16_wgmma": 48}}
+# matmul_bf16 launches a decode step, all on the narrow-M kernel
+FAMILY_DECODE_GEMMS = {"grok-1-314b": 0, "llama4-maverick-400b-a17b": 3,
+                       "jamba-v0.1-52b": 12, "internvl2-76b": 72,
+                       "whisper-medium": 48}
+FAMILY_PARITY_DEPTH = {"whisper-medium": 2, "internvl2-76b": 1}
+FAMILY_DECODE_PATHS = ("families lm_decode", "families whisper-medium serve")
+WHISPER_STEPS = 32          # serve_steps after prefill_cross at 4,096 frames
+FAMILY_SMOKE_SEQ = 64
+FAMILY_SMOKE_STEPS = 8
+FAMILY_CROSS = (512, 1500)  # decoder tokens over whisper's 1,500 frames
+
+
+def check_flash_noncausal(torch, F, peaks, q, k, v, label):
+    """The wgmma flash kernel, not causal, against the plain attention on
+    every row: max error, the bar's excess (``FA_RULE``), kernel, plain and
+    SDPA times and the bound (every (query, key) pair scored)."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ref
+    before = kfa.flash_attention.noncausal_launches
+    out = kfa.flash_attention(q, k, v, causal=False)
+    require(kfa.flash_attention.noncausal_launches == before + 1,
+            f"flash_attention {label}: not on the wgmma kernel")
+    want = ref.attention(q, k, v, causal=False)
+    err = (out.float() - want.float()).abs().max().item()
+    excess = flash_excess(out, want, ref.attention(q, k, v.abs(),
+                                                   causal=False))
+    del want
+    ms = time_ms(torch, lambda: kfa.flash_attention(q, k, v, causal=False),
+                 reps=5, warm=1)
+    plain = time_ms(torch, lambda: ref.attention(q, k, v, causal=False),
+                    reps=3, warm=1)
+    lib = sdpa_ms(torch, F, q, k, v, causal=False)
+    b, h, sq, d = q.shape
+    ops = 4.0 * d * sq * k.shape[2] * b * h
+    bnd, by = bound_ms(peaks, nbytes(q, k, v, out), ops, bf16=True)
+    line = {"phase": "kernel", "kernel": "flash_attention", "shape": label,
+            "q": list(q.shape), "k": list(k.shape), "causal": False,
+            "max_abs_err": err, "err_over_bar": excess, "tol": FA_RULE,
+            "ms": ms, "plain_ms": plain, "library_ms": lib,
+            "library": "sdpa", "bound_ms": bnd, "bound_by": by, "flop": ops}
+    emit(line)
+    require(excess <= 1.0, f"flash_attention {label}: error {excess} x "
+            f"its bar ({FA_RULE})")
+    return line
+
+
+def family_kernels(torch, F, peaks, table):
+    """The encoder-decoder's two new flash shapes: whisper-medium's encoder
+    at 4,096 frames (1 x 16 heads x 4,096 x 64, the row's shape) and its
+    cross-attention, 512 decoder tokens over 1,500 frames (a key count
+    ragged against the kernel's tile).  Returns the cross line's
+    numbers."""
+    from repro_torch.configs import ARCHS
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(11)
+    w = ARCHS["whisper-medium"].config()
+
+    def bf16(*shape):
+        return torch.randn(shape, generator=gen, device=dev).bfloat16()
+    heads, d = w.num_heads, w.head_dim
+    q, k, v = (bf16(1, heads, LM_SEQ, d) for _ in range(3))
+    enc = check_flash_noncausal(torch, F, peaks, q, k, v,
+                                f"whisper-medium encoder 1 x {LM_SEQ}")
+    table.add("flash_attention_noncausal", err=enc["max_abs_err"],
+              ms=enc["ms"], plain_ms=enc["plain_ms"], bound=enc["bound_ms"],
+              bound_by=enc["bound_by"], library_ms=enc["library_ms"])
+    sq, skv = FAMILY_CROSS
+    q = bf16(1, heads, sq, d)
+    k, v = bf16(1, heads, skv, d), bf16(1, heads, skv, d)
+    cross = check_flash_noncausal(torch, F, peaks, q, k, v,
+                                  f"whisper-medium cross {sq} x {skv}")
+    return {f: cross[f] for f in ("q", "k", "max_abs_err", "err_over_bar",
+                                  "ms", "plain_ms", "library_ms", "bound_ms",
+                                  "bound_by")}
+
+
+def family_arch_kernels(torch, F, peaks):
+    """Each arch's kernels at the shapes its own paths give them, against
+    their plain versions under phase 2's bars (not summed into the
+    kernels line, whose rows keep phase 2's path shapes): the causal
+    flash kernel at its head layout over 1 x 4096 (whisper's decoder:
+    512 tokens, 16 heads of 64); the dense MLP's GEMMs at M = 4096 on the
+    wgmma kernel (gated: gate with the activation and up, d -> d_ff, then
+    down; whisper: up with GELU, then down) and at M = 8 on the narrow-M
+    kernel (whisper also at M = 1, its serve_step's rows); ssd_scan at
+    jamba's 128 heads (ds 128, dh 64) over 4096."""
+    from repro_torch.configs import ARCHS
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(13)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                ).bfloat16()
+    for arch in FAMILY_DEPTH:
+        cfg = ARCHS[arch].config()
+        s_len = FAMILY_CROSS[0] if cfg.family == "encdec" else LM_SEQ
+        q = rnd(1, cfg.num_heads, s_len, cfg.head_dim)
+        k, v = (rnd(1, cfg.num_kv_heads, s_len, cfg.head_dim)
+                for _ in range(2))
+        check_flash(torch, F, peaks, None, q, k, v,
+                    f"{arch} {cfg.num_heads}/{cfg.num_kv_heads} heads "
+                    f"1 x {s_len}", True)
+        del q, k, v
+        if "ssd_scan" in FAMILY_PREFILL[arch]:
+            args = ssd_inputs(torch, F, LM_SEQ, gen, dev, bh=cfg.ssm_heads,
+                              ds=cfg.ssm_state, dh=cfg.ssm_head_dim)
+            check_ssd(torch, peaks, None, *args,
+                      f"{arch} {cfg.ssm_heads} heads x {LM_SEQ}", False)
+            del args
+        if "matmul_bf16" not in FAMILY_PREFILL[arch]:
+            continue
+        d, ff = cfg.d_model, cfg.d_ff
+        a, h = rnd(LM_SEQ, d), rnd(LM_SEQ, ff, scale=0.5)
+        wi, wo = rnd(d, ff, scale=d ** -0.5), rnd(ff, d, scale=ff ** -0.5)
+        gemms = ([("gate", a, wi, cfg.activation), ("up", a, wi, "none")]
+                 if cfg.mlp_gated else [("up", a, wi, cfg.activation)])
+        gemms.append(("down", h, wo, "none"))
+        rows = (1, DECODE_LONG_SLOTS) if cfg.family == "encdec" else (
+            DECODE_LONG_SLOTS,)
+        for name, x, w, act in gemms:
+            check_matmul_bf16(torch, F, peaks, None, x, w, act,
+                              f"{arch} MLP {name} ({act}) at M = {LM_SEQ}")
+            for m in rows:
+                emit(check_narrow_bf16(torch, F, peaks, x, w, act, m,
+                                       f"{arch} MLP {name} at M = {m}"))
+        del a, h, wi, wo, gemms
+    torch.cuda.empty_cache()
+
+
+def family_inputs(cfg, rng, batch, seq):
+    """Seeded inputs of one prefill: (tokens, or frames for whisper;
+    patch embeddings or None)."""
+    import numpy as np
+    if cfg.family == "encdec":
+        return rng.standard_normal((batch, seq, cfg.d_model)).astype(
+            np.float32), None
+    tok = rng.integers(0, cfg.vocab_size, (batch, seq))
+    emb = (rng.standard_normal((batch, cfg.frontend_tokens, cfg.d_model))
+           .astype(np.float32) if cfg.frontend_tokens else None)
+    return tok, emb
+
+
+def family_smoke_run(torch, cfg, params, dev, feed):
+    """One device's f32 smoke run: the prefill's output, each of 8
+    ``serve_step``s' logits (fed ``feed``, the CPU run's argmax; None on
+    the CPU run, which makes it), and for the encoder-decoder its
+    decoder's logits over 16 tokens."""
+    import numpy as np
+
+    from repro_torch.launch import steps
+    from repro_torch.models import encdec
+    from repro_torch.models.registry import get_model
+    rng = np.random.default_rng(5)
+    x, emb = family_inputs(cfg, rng, 2, FAMILY_SMOKE_SEQ)
+    model = get_model(cfg)
+    out = {"prefill": steps.prefill(
+        params, torch.as_tensor(x), cfg, device=dev,
+        input_embeds=None if emb is None else torch.as_tensor(emb)
+    ).float().cpu()}
+    with torch.inference_mode():
+        if cfg.family == "encdec":
+            enc = encdec.encode(params, torch.as_tensor(x).to(dev), cfg)
+            tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 16)),
+                                  device=dev)
+            out["decode_train"] = encdec.decode_train(
+                params, enc, tok, cfg).float().cpu()
+            cache = encdec.prefill_cross(params, model.init_cache(
+                cfg, 2, 16, enc_len=FAMILY_SMOKE_SEQ, device=dev), enc, cfg)
+        else:
+            cache = model.init_cache(cfg, 2, 16, device=dev)
+        toks = torch.tensor([[3], [5]], device=dev)
+        out["steps"], out["fed"] = [], []
+        for i in range(FAMILY_SMOKE_STEPS):
+            pos = torch.full((2,), i, device=dev)
+            lg, cache = model.serve(params, cache, toks, pos, cfg)
+            lg = lg[:, -1].float().cpu()
+            nxt = lg.argmax(-1) if feed is None else feed[i]
+            out["steps"].append(lg)
+            out["fed"].append(nxt)
+            toks = nxt[:, None].to(dev)
+    return out
+
+
+def family_smoke_parity(torch, paths):
+    """The f32 smoke configs of the five archs (and the three MoE ones
+    again with ``moe_impl="dispatch"``, the published configs' choice) on
+    the card against the CPU on the same params: the prefill's output
+    (logits; whisper's encoder states and decoder logits) and 8
+    ``serve_step``s' logits each within 1e-4 (1 + |cpu|), their argmax
+    equal; jamba's step-by-step decode against its forward on the card
+    within JAX's 2e-2."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import basecaller as bc
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_model
+    dev = torch.device("cuda")
+    cases = []
+    for arch in FAMILY_DEPTH:
+        cfg = dataclasses.replace(ARCHS[arch].smoke_config(),
+                                  dtype="float32")
+        cases.append((arch, cfg))
+        if cfg.num_experts:
+            cases.append((f"{arch} dispatch",
+                          dataclasses.replace(cfg, moe_impl="dispatch")))
+
+    def run():
+        for name, cfg in cases:
+            cpu_p, _ = get_model(cfg).init(torch.Generator().manual_seed(0),
+                                           cfg, device="cpu")
+            cpu = family_smoke_run(torch, cfg, cpu_p, "cpu", None)
+            card = family_smoke_run(torch, cfg, bc.params_to(cpu_p, dev),
+                                    dev, cpu["fed"])
+            pairs = [(card[k], cpu[k]) for k in ("prefill", "decode_train")
+                     if k in cpu] + list(zip(card["steps"], cpu["steps"]))
+            over = max(float(((g - c).abs() / (DECODE_F32_TOL * (
+                1 + c.abs()))).max()) for g, c in pairs)
+            same = all(bool(torch.equal(g.argmax(-1), c.argmax(-1)))
+                       for g, c in zip(card["steps"], cpu["steps"]))
+            emit({"phase": "families", "part": "f32_smoke_card_vs_cpu",
+                  "arch": name, "family": cfg.family,
+                  "moe_impl": cfg.moe_impl if cfg.num_experts else None,
+                  "steps": FAMILY_SMOKE_STEPS, "over_bar": over,
+                  "max_abs_diff": max(float((g - c).abs().max())
+                                      for g, c in pairs),
+                  "tokens_equal": same,
+                  "bar": "|card - cpu| <= 1e-4 (1 + |cpu|): the prefill "
+                         "and each step's logits"})
+            require(over <= 1.0 and same, f"families f32 smoke {name}: "
+                    f"{over} x the bar, tokens equal {same}")
+        # JAX's decode-equals-forward check on the hybrid, on the card
+        cfg = dataclasses.replace(ARCHS["jamba-v0.1-52b"].smoke_config(),
+                                  dtype="float32")
+        p, _ = transformer.init(torch.Generator(dev).manual_seed(0), cfg,
+                                device=dev)
+        toks = torch.as_tensor(np.random.default_rng(7).integers(
+            1, cfg.vocab_size, (1, 8)), device=dev)
+        with torch.inference_mode():
+            full, _ = transformer.apply(p, toks, cfg)
+            cache = transformer.init_cache(cfg, 1, 8, device=dev)
+            outs = []
+            for i in range(8):
+                lg, cache = transformer.serve_step(
+                    p, cache, toks[:, i:i + 1],
+                    torch.full((1,), i, device=dev), cfg)
+                outs.append(lg[:, 0])
+        diff = (full - torch.stack(outs, dim=1)).abs()
+        over = float((diff / (EXACT_TOL * (1 + full.abs()))).max())
+        emit({"phase": "families", "part": "jamba_decode_equals_forward",
+              "max_abs_diff": float(diff.max()), "over_bar": over,
+              "bar": "JAX's 2e-2 (rtol and atol)"})
+        require(over <= 1.0, f"jamba decode vs forward: {over} x 2e-2")
+    paths.drive("families f32 smoke", ("flash_attention_tf32x3", "matmul",
+                                       "ssd_scan"), run)
+
+
+def family_prefill(torch, arch, cfg, params, paths):
+    """One warm-up and three timed prefills at 1 x 4096 (whisper: the
+    encoder over 4,096 frames; internvl2 with 256 seeded patch
+    embeddings), exact launches a prefill.  Returns the last output."""
+    import numpy as np
+
+    from repro_torch.launch import steps
+    dev = torch.device("cuda")
+    x, emb = family_inputs(cfg, np.random.default_rng(0), 1, LM_SEQ)
+    x = torch.as_tensor(x, device=dev)
+    if cfg.family == "encdec":
+        x = x.bfloat16()
+    if emb is not None:
+        emb = torch.as_tensor(emb, device=dev).bfloat16()
+
+    def run():
+        torch.cuda.reset_peak_memory_stats()
+        steps.prefill(params, x, cfg, input_embeds=emb)      # warm-up
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            out = steps.prefill(params, x, cfg, input_embeds=emb)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t1) * 1e3)
+        return out, walls
+    path = f"families prefill {arch}"
+    out, walls = paths.drive(path, tuple(FAMILY_PREFILL[arch]), run)
+    med = float(np.median(walls))
+    finite = bool(torch.isfinite(out).all().item())
+    emit({"phase": "families", "part": "prefill", "arch": arch,
+          "layers": cfg.num_layers, "encoder_layers": cfg.encoder_layers,
+          "batch": 1, "seq": LM_SEQ, "patch_embeds": cfg.frontend_tokens,
+          "wall_ms": walls, "median_ms": med,
+          "limit_ms": LM_PREFILL_LIMIT_MS,
+          "tokens_per_s": LM_SEQ / (med / 1e3), "out_shape": list(out.shape),
+          "finite": finite, "max_abs_out": out.float().abs().max().item(),
+          "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "launches_per_prefill": {k: v / 4 for k, v in
+                                   paths.paths[path].items()},
+          "reduced": FAMILY_REDUCED})
+    require(finite, f"families {arch}: non-finite prefill output")
+    want = {k: 4 * v for k, v in FAMILY_PREFILL[arch].items()}
+    require(paths.paths[path] == want, f"families {arch}: launches "
+            f"{paths.paths[path]}, expected {want}")
+    return out
+
+
+def whisper_serve(torch, cfg, params, enc, paths):
+    """whisper-medium after its encoder: ``prefill_cross`` over the 4,096
+    encoded frames, then 32 ``serve_step``s from one token, each feeding
+    back its argmax: ms a step."""
+    import numpy as np
+
+    from repro_torch.models import encdec
+    dev = torch.device("cuda")
+
+    def run():
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            cache = encdec.prefill_cross(params, encdec.init_cache(
+                cfg, 1, WHISPER_STEPS, 0, device=dev), enc, cfg)
+            torch.cuda.synchronize()
+            cross_ms = (time.perf_counter() - t0) * 1e3
+            tok = torch.ones((1, 1), dtype=torch.int64, device=dev)
+            walls, finite = [], True
+            for i in range(WHISPER_STEPS):
+                t1 = time.perf_counter()
+                lg, cache = encdec.serve_step(
+                    params, cache, tok, torch.full((1,), i, device=dev), cfg)
+                tok = lg[:, -1].argmax(-1)[:, None]
+                finite = finite and bool(torch.isfinite(lg).all())
+                walls.append((time.perf_counter() - t1) * 1e3)
+        return cross_ms, walls, finite
+    path = FAMILY_DECODE_PATHS[1]
+    cross_ms, walls, finite = paths.drive(path, ("matmul_bf16",), run)
+    got = paths.paths[path]
+    emit({"phase": "families", "part": "whisper_cross_and_steps",
+          "frames": enc.shape[1], "prefill_cross_ms": cross_ms,
+          "steps": WHISPER_STEPS, "step_ms_mean": float(np.mean(walls)),
+          "step_ms_p50": float(np.percentile(walls, 50)), "finite": finite,
+          "launches": got,
+          "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+    want = WHISPER_STEPS * FAMILY_DECODE_GEMMS["whisper-medium"]
+    require(finite and got.get("matmul_bf16_narrow", 0) == want,
+            f"whisper serve: finite {finite}, launches {got}")
+
+
+def family_decode(torch, arch, cfg, params, paths):
+    """``lm_decode``'s ``full`` preset (8 slots x 512) on the arch at its
+    phase depth, 16 requests of 4-token prompts and 32 new tokens after a
+    one-request warm-up: tokens/s, step ms, the narrow-M GEMM launches."""
+    import numpy as np
+
+    import repro_torch.engine as te
+    from repro_torch.engine.telemetry import Telemetry
+    torch.cuda.reset_peak_memory_stats()
+    eng = te.build("lm_decode", preset="full", cfg=cfg, params=params)
+    drive_decode(torch, eng, decode_requests(cfg.vocab_size, n=1, new=2,
+                                             seed=99))
+    eng.finished.clear()
+    eng.telemetry = Telemetry(workload=eng.workload)
+    per_step = FAMILY_DECODE_GEMMS[arch]
+    path = f"{FAMILY_DECODE_PATHS[0]} {arch}"
+    rep, step_ms = paths.drive(
+        path, ("matmul_bf16",) if per_step else (),
+        lambda: drive_decode(torch, eng, decode_requests(cfg.vocab_size)))
+    got = paths.paths[path]
+    lens = sorted({len(r.tokens_out) for r in eng.finished})
+    emit({"phase": "families", "part": "lm_decode_full", "arch": arch,
+          "slots": eng.slots, "max_len": eng.max_len,
+          "layers": cfg.num_layers, "requests": DECODE_REQUESTS,
+          "new_tokens": DECODE_NEW_TOKENS, "completed": rep["completed"],
+          "steps": rep["steps"], "dispatches": rep["dispatches"],
+          "tokens_per_s": rep["tokens_per_s"], "wall_s": rep["wall_s"],
+          "step_ms_mean": float(np.mean(step_ms)),
+          "step_ms_p50": float(np.percentile(step_ms, 50)),
+          "request_p50_ms": rep["p50_ms"], "request_p99_ms": rep["p99_ms"],
+          "launches": got, "tokens_out_lengths": lens,
+          "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+    want = per_step * rep["dispatches"]
+    require(rep["completed"] == DECODE_REQUESTS
+            and lens == [DECODE_NEW_TOKENS + 1],
+            f"families lm_decode {arch}: completed {rep['completed']}, "
+            f"token counts {lens}")
+    require(got.get("matmul_bf16", 0) == got.get("matmul_bf16_narrow", 0)
+            == want, f"families lm_decode {arch}: launches {got}, expected "
+            f"{want} on the narrow-M kernel")
+
+
+def family_hidden_and_logits(torch, cfg, params, x, emb, dev):
+    """The last token's final-normed hidden state and logits, float32 on
+    the CPU: the decoder's for whisper (64 tokens over its encoder's
+    states of the frames ``x``), else the prefill's."""
+    import numpy as np
+
+    from repro_torch.models import encdec
+    from repro_torch.models import layers as L
+    if cfg.family != "encdec":
+        return last_hidden_and_logits(torch, params, x, cfg, dev,
+                                      input_embeds=emb)
+    tok = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, 64)), device=dev)
+    with torch.inference_mode():
+        enc = encdec.encode(params, x.to(dev), cfg)
+        h = encdec.decoder_hidden(params, enc, tok, cfg)[:, -1:]
+        logits = L.unembed(params["embedding"], h, cfg)
+    return h.float().cpu(), logits.float().cpu()
+
+
+def family_parity(torch, arch, cfg, depth):
+    """bf16 at full width and a small depth, card against CPU on the same
+    params (``PARITY_RULE`` and 2 bf16 ulps of max |logit|): whisper 2
+    encoder and 2 decoder layers over 1 x 512 frames and 64 tokens,
+    internvl2 one layer over 1 x 512 tokens with 256 patch embeddings."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core import basecaller as bc
+    from repro_torch.models.registry import get_model
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(cfg, num_layers=depth, encoder_layers=(
+        depth if cfg.encoder_layers else 0))
+    p, _ = get_model(cfg).init(torch.Generator(dev).manual_seed(0), cfg,
+                               device=dev)
+    x, emb = family_inputs(cfg, np.random.default_rng(1), 1, LM_PARITY_SEQ)
+    if cfg.family == "encdec":
+        x = torch.as_tensor(x).bfloat16()
+    if emb is not None:
+        emb = torch.as_tensor(emb).bfloat16()
+    t0 = time.perf_counter()
+    card_h, card = family_hidden_and_logits(torch, cfg, p, x, emb, dev)
+    card_s = time.perf_counter() - t0
+    cpu_p = bc.params_to(p, "cpu")
+    t0 = time.perf_counter()
+    cpu_h, cpu = family_hidden_and_logits(torch, cfg, cpu_p, x, emb,
+                                          torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    line = parity_line(card_h, cpu_h, card, cpu)
+    emit({"phase": "families", "part": "bf16_parity", "arch": arch,
+          "layers": depth, "encoder_layers": cfg.encoder_layers,
+          "seq": LM_PARITY_SEQ, "patch_embeds": cfg.frontend_tokens,
+          **line, "card_s": card_s, "cpu_s": cpu_s})
+    require(line["hidden_over_bar"] <= 1.0, f"{arch} depth-{depth} parity: "
+            f"hidden state {line['hidden_over_bar']} x its bar")
+    require(line["max_abs_diff"] <= line["bar"]
+            and (line["top1_equal"] or line["top2_margin"] <= line["bar"]),
+            f"{arch} depth-{depth} parity: {line['max_abs_diff']} over "
+            f"{line['bar']}, top-1 equal {line['top1_equal']}")
+    del p, cpu_p
+    torch.cuda.empty_cache()
+
+
+def phase_families(torch, F, peaks, table, paths):
+    """The MoE, hybrid, VLM and encoder-decoder families on the card: the
+    two new flash shapes; each arch's kernels at its own shapes
+    (``family_arch_kernels``); the f32 smoke configs card against CPU; each
+    arch at full width and ``FAMILY_DEPTH`` with random bf16 params (seed
+    0): its prefill, then ``lm_decode``'s ``full`` preset (whisper first
+    ``prefill_cross`` and 32 steps), freed before the next; bf16 parity
+    at ``FAMILY_PARITY_DEPTH``.  Returns the cross-attention kernel
+    line's numbers."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.registry import get_model
+    from repro_torch.utils.tree import leaves
+    t_phase = time.perf_counter()
+    cross = family_kernels(torch, F, peaks, table)
+    t0 = time.perf_counter()
+    family_arch_kernels(torch, F, peaks)
+    emit({"phase": "families", "part": "arch_kernels_wall",
+          "wall_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    family_smoke_parity(torch, paths)
+    emit({"phase": "families", "part": "f32_smoke_wall",
+          "wall_s": time.perf_counter() - t0})
+    dev = torch.device("cuda")
+    for arch, depth in FAMILY_DEPTH.items():
+        t0 = time.perf_counter()
+        full = ARCHS[arch].config()
+        cfg = dataclasses.replace(full, num_layers=depth)
+        torch.cuda.reset_peak_memory_stats()
+        params, _ = get_model(cfg).init(torch.Generator(dev).manual_seed(0),
+                                        cfg, device=dev)
+        torch.cuda.synchronize()
+        emit({"phase": "families", "part": "init", "arch": arch,
+              "layers": depth, "published_layers": full.num_layers,
+              "params": tree_numel(params),
+              "param_gb": sum(t.numel() * t.element_size()
+                              for t in leaves(params)) / 2 ** 30,
+              "init_s": time.perf_counter() - t0,
+              "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+        out = family_prefill(torch, arch, cfg, params, paths)
+        if cfg.family == "encdec":
+            whisper_serve(torch, cfg, params, out, paths)
+        del out
+        family_decode(torch, arch, cfg, params, paths)
+        del params
+        torch.cuda.empty_cache()
+        if arch in FAMILY_PARITY_DEPTH:
+            family_parity(torch, arch, full, FAMILY_PARITY_DEPTH[arch])
+        emit({"phase": "families", "part": "arch_wall", "arch": arch,
+              "wall_s": time.perf_counter() - t0})
+    emit({"phase": "families", "part": "wall",
+          "wall_s": time.perf_counter() - t_phase})
+    return cross
+
+
 # ------------------------------------------------------------------ main --
 KERNELS = {
     "conv1d": ("src/repro_torch/kernels/csrc/conv1d.cu",
@@ -5917,7 +6505,8 @@ KERNELS = {
     "ssd_scan_padded": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                         "src/repro/kernels/ssd_scan.py:88"),
     # row 2d: matmul_bf16 at decode's M = the slot count (8), the LM
-    # decode server's MLP; its launches are the lm_decode paths'
+    # decode server's MLP; its launches are the lm_decode paths' and the
+    # families' decode paths'
     "matmul_bf16_decode": ("src/repro_torch/kernels/csrc/matmul.cu",
                            "src/repro/kernels/matmul.py:120"),
     # row 2l: matmul_int8 at the int8 LM's projections (its narrow-M
@@ -5925,6 +6514,11 @@ KERNELS = {
     # two)
     "matmul_int8_lm": ("src/repro_torch/kernels/csrc/matmul.cu",
                        "src/repro/kernels/matmul.py:120"),
+    # row 5x: the wgmma flash kernel not causal (the encoder-decoder's
+    # encoder and cross-attention); its launches are the families paths'
+    "flash_attention_noncausal": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:111"),
 }
 
 
@@ -5953,6 +6547,8 @@ def launch_counters():
             "ssd_scan_generic": (ssd_scan.ssd_scan, "generic_launches"),
             "flash_attention_tf32x3_wgmma": (flash_attention.flash_attention,
                                              "tf32x3_wgmma_launches"),
+            "flash_attention_noncausal": (flash_attention.flash_attention,
+                                          "noncausal_launches"),
             # the launches of matmul_bf16 that ran its wgmma kernel, of
             # conv1d and conv1d_int8 their tensor-core kernels, of matmul and
             # matmul_int8 their
@@ -6111,6 +6707,12 @@ def main() -> int:
     phase_lm_parity_f32(torch, paths)
     decode_launches = phase_lm_decode(torch, F, peaks, table, paths)
     lm_tp_narrow = phase_lm_tp(torch, F, peaks, table, paths)
+    family_cross = phase_families(torch, F, peaks, table, paths)
+    # row 2d's launches: the families' decode paths' too
+    for path, counts in paths.paths.items():
+        if path.startswith(FAMILY_DECODE_PATHS):
+            for k in decode_launches:
+                decode_launches[k] += counts.get(k, 0)
     phase_fleet(torch, panel, paths)
     field = phase_field(torch, paths)
     phase_train(torch, paths)
@@ -6205,6 +6807,9 @@ def main() -> int:
                 qwen3_4b_d128_bound_ms=r["qwen3_4b_d128_bound_ms"])
         if k == "flash_attention_tf32x3_wgmma":
             kernels[-1]["library_kernels"] = r["library_kernels"]
+        if k == "flash_attention_noncausal":
+            # whisper-medium's cross-attention shape beside the encoder's
+            kernels[-1]["cross"] = family_cross
         if k == "ssd_scan_padded":
             kernels[-1]["device_ms_by_pass"] = r["device_ms_by_pass"]
         if k == "matmul_int8":

@@ -124,7 +124,9 @@ class LMDecodeEngine(EngineBase):
         from repro_torch.distributed import sharding as shardlib
         from repro_torch.distributed import tp as tp_mod
         from repro_torch.launch.mesh import bind
+        from repro_torch.models.registry import require_train_and_tp
         model, cfg, ext = self.model, self.cfg, self.tp
+        require_train_and_tp(cfg, "tensor-parallel decode")
         size = self.mesh.size
         if not dist.is_initialized() or dist.get_world_size() != size:
             have = (dist.get_world_size() if dist.is_initialized()

@@ -6,7 +6,8 @@ body ``_flash_kernel``), which takes any dtype and head dim with f32 sums.
 Three routes, chosen by dtype and head dim (:func:`route`):
 
 * ``"wgmma"``: bf16 q/k/v with D in ``HEAD_DIMS``, the TMA + wgmma kernel
-  (the bf16 LM prefill);
+  (the bf16 LM prefill; its non-causal launches, the encoder-decoder's
+  encoder and cross-attention, counted also in ``noncausal_launches``);
 * ``"tf32x3"``: f32, f16, and bf16 at any other D up to 256 (the f32 LMs),
   both products on the tensor cores in 3xTF32 (f32 operands split hi + lo,
   P always split, 16-bit operands exact), the head dim zero-padded to
@@ -175,6 +176,8 @@ def _wgmma(q, k, v, causal, scale):
         k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, sq, skv, d,
         scale, int(causal), _build.stream_handle(q.device))
     flash_attention.launches += 1
+    if not causal:
+        flash_attention.noncausal_launches += 1
     return out
 
 
@@ -258,3 +261,4 @@ flash_attention.launches = 0
 flash_attention.tf32x3_launches = 0
 flash_attention.tf32x3_wgmma_launches = 0
 flash_attention.generic_launches = 0
+flash_attention.noncausal_launches = 0

@@ -312,9 +312,10 @@ def _run_tensor_parallel(args, argv: list) -> dict:
     from repro_torch.configs import ARCHS
     from repro_torch.distributed import launch
     from repro_torch.distributed import tp as tp_mod
-    from repro_torch.models.registry import get_model
+    from repro_torch.models.registry import get_model, require_train_and_tp
     spec = ARCHS[args.arch or "qwen3-4b"]
     cfg = spec.smoke_config() if args.smoke else spec.config()
+    require_train_and_tp(cfg, "serve --tp")
     shapes, axes = get_model(cfg).abstract_params(cfg)
     tp_mod.build_plan(axes, shapes, cfg=cfg, tp=args.tp)
     threads = (max(1, launch.max_ranks() // args.tp) if args.device == "cpu"

@@ -20,8 +20,9 @@ data axis averaging the gradients (``trainer.jit_train_step``), the
 checkpoint ``full`` from rank 0 or ``sharded`` by model rank
 (``checkpoint.save_on_mesh``), and every rank restarting from the same
 step after ``--fail-at``.  Rank 0 prints JAX's lines, and ``main``
-returns its summary.  An arch whose family is not ported (vlm, moe,
-encdec, hybrid) raises by name (item 6).
+returns its summary.  The vlm, moe, encdec and hybrid archs raise by
+name (ROADMAP.md, Queue 1 item 6b: their ``loss_fn`` is ported, their
+training launch is not).
 """
 from __future__ import annotations
 
@@ -31,10 +32,10 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import ARCHS, WAITING_ARCHS
+from repro_torch.configs import ARCHS
 from repro_torch.data import tokens as tokens_mod
 from repro_torch.device import resolve_device
-from repro_torch.models.registry import get_model
+from repro_torch.models.registry import get_model, require_train_and_tp
 from repro_torch.train import checkpoint as ckpt_mod
 from repro_torch.train import fault_tolerance as ft
 from repro_torch.train import optimizer as opt_mod
@@ -46,7 +47,7 @@ def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--arch", default="qwen3-4b",
-                    choices=sorted(ARCHS) + sorted(WAITING_ARCHS))
+                    choices=sorted(ARCHS))
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU-trainable)")
     ap.add_argument("--steps", type=int, default=20)
@@ -78,11 +79,7 @@ def parse_mesh(text: str) -> tuple[int, int]:
 
 def main(argv=None) -> dict:
     args = parser().parse_args(argv)
-    if args.arch in WAITING_ARCHS:
-        raise NotImplementedError(
-            f"{args.arch}: the {WAITING_ARCHS[args.arch]} family is not "
-            "ported yet (ROADMAP.md, Queue 1 item 6: MoE and the other "
-            "families)")
+    require_train_and_tp(ARCHS[args.arch].smoke_config(), "launch.train")
     d, m = parse_mesh(args.mesh)
     if d * m == 1:
         return run(args)

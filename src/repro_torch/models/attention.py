@@ -4,9 +4,12 @@
 Projection weights are stored flattened, wq: (d_model, H * head_dim), as
 in JAX.  ``attention_block`` always runs ``ops.flash_attention``: the
 tensor's device picks the Hopper kernel (which takes every length, so
-JAX's full and chunked jnp paths have no counterpart here) or its plain
-version.  ``decode_attention`` is JAX's replicated decode branch, which
-JAX computes in jnp outside any Pallas kernel: plain PyTorch ops here.
+JAX's chunked jnp path has no counterpart here) or its plain version; its
+``kv_override`` is the encoder-decoder's cross-attention.
+``full_attention`` is JAX's plain full attention, which the
+encoder-decoder's decode cross-attention calls.  ``decode_attention`` is
+JAX's replicated decode branch, which JAX computes in jnp outside any
+Pallas kernel: plain PyTorch ops here.
 Under tensor parallelism each rank holds ``num_heads / tp`` query heads
 and ``num_kv_heads / tp`` KV heads (the reshapes read the head count from
 the sliced weight), caches only its KV heads, and ``wo`` is row-parallel.
@@ -42,24 +45,62 @@ def init_attention(b: ScopedBuilder, cfg: ModelConfig):
                 dtype=torch.float32)
 
 
-def _project_qkv(p, x, cfg: ModelConfig, positions):
-    """q (B, S, H, D), k and v (B, S, Hkv, D): projection, qk-norm, RoPE."""
+def _project_qkv(p, x, cfg: ModelConfig, positions, *, apply_rope=True,
+                 q_only=False):
+    """q (B, S, H, D), k and v (B, S, Hkv, D): projection, qk-norm, RoPE
+    (``apply_rope=False``: none, whisper's cross-attention query);
+    ``q_only`` returns ``(q, None, None)``."""
     b, s, _ = x.shape
     q = dense(x, p["wq"]).reshape(b, s, -1, cfg.head_dim)
+    if cfg.qk_norm:
+        q = head_rmsnorm(p["q_norm"], q, cfg.norm_eps)
+    if apply_rope:
+        q = rope(q, positions, cfg.rope_theta)
+    if q_only:
+        return q, None, None
     k = dense(x, p["wk"]).reshape(b, s, -1, cfg.head_dim)
     v = dense(x, p["wv"]).reshape(b, s, -1, cfg.head_dim)
     if cfg.qk_norm:
-        q = head_rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = head_rmsnorm(p["k_norm"], k, cfg.norm_eps)
-    return (rope(q, positions, cfg.rope_theta), rope(k, positions,
-                                                     cfg.rope_theta), v)
+    if apply_rope:
+        k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
 
 
-def attention_block(p, x, cfg: ModelConfig, positions, *, causal=True):
-    """Full-sequence self-attention over (B, S, d_model).  Cross-attention
-    (JAX's ``kv_override``) waits for the encoder-decoder family."""
+def full_attention(q, k, v, *, causal: bool, scale: float) -> torch.Tensor:
+    """q (B, Sq, H, D), k/v (B, Skv, Hkv, D) -> (B, Sq, H, D): JAX's
+    ``full_attention`` in plain ops (the encoder-decoder's decode
+    cross-attention, which JAX computes in jnp).  Logits in float32,
+    scaled after the product, the causal mask aligned to the last key,
+    the softmax cast to q's dtype, then the product with v in the two
+    operands' promoted dtype."""
+    n_rep = q.shape[2] // k.shape[2]
+    kk = torch.repeat_interleave(k, n_rep, dim=2) if n_rep > 1 else k
+    vv = torch.repeat_interleave(v, n_rep, dim=2) if n_rep > 1 else v
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk.float()) * scale
+    if causal:
+        sq, skv = q.shape[1], k.shape[1]
+        qi = torch.arange(sq, device=q.device)[:, None]
+        kj = torch.arange(skv, device=q.device)[None, :]
+        logits = logits.masked_fill(kj > qi + (skv - sq), float("-inf"))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    dt = torch.promote_types(probs.dtype, vv.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(dt), vv.to(dt))
+
+
+def attention_block(p, x, cfg: ModelConfig, positions, *, causal=True,
+                    kv_override=None):
+    """Full-sequence attention over (B, S, d_model).  ``kv_override``
+    (k, v), each (B, Skv, Hkv, D) already split into heads, makes it
+    cross-attention (the encoder-decoder's): q is projected without RoPE,
+    ``wk``/``wv`` are unused, and the kernel runs at Sq != Skv."""
     bsz, s, _ = x.shape
-    q, k, v = _project_qkv(p, x, cfg, positions)
+    if kv_override is not None:
+        q, _, _ = _project_qkv(p, x, cfg, positions, apply_rope=False,
+                               q_only=True)
+        k, v = kv_override
+    else:
+        q, k, v = _project_qkv(p, x, cfg, positions)
     out = ops.flash_attention(
         q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
         v.transpose(1, 2).contiguous(), causal=causal,

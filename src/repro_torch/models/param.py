@@ -37,6 +37,27 @@ def torch_dtype(name) -> torch.dtype:
     return DTYPES[name]
 
 
+# a leaf past this many entries draws its float32 normals a run of rows
+# (along its last dim) at a time: a full-width expert stack (llama4's
+# 5.4e9 entries a leaf) would otherwise need its whole float32 draw
+# beside the params
+DRAW_ENTRIES = 1 << 28
+
+
+def _normal(shape, scale, dtype, gen, device) -> torch.Tensor:
+    """float32 ``N(0, 1) * scale`` cast to ``dtype``, drawn a run of rows
+    (at most :data:`DRAW_ENTRIES` entries) at a time: a leaf under the
+    limit is one draw."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    flat = out.view(-1, shape[-1])
+    rows = max(1, DRAW_ENTRIES // shape[-1])
+    for i in range(0, flat.shape[0], rows):
+        part = flat[i:i + rows]
+        part.copy_(torch.randn(part.shape, generator=gen,
+                               dtype=torch.float32, device=device) * scale)
+    return out
+
+
 class ParamBuilder:
     def __init__(self, gen, dtype=torch.bfloat16, device="cuda"):
         # "meta" (with gen None) builds shapes and axes only, allocating
@@ -70,9 +91,7 @@ class ParamBuilder:
             if scale is None:
                 fan_in = shape[0] if len(shape) >= 2 else shape[-1]
                 scale = 1.0 / math.sqrt(max(fan_in, 1))
-            val = (torch.randn(shape, generator=self._gen,
-                               dtype=torch.float32, device=self.device)
-                   * scale).to(dtype)
+            val = _normal(shape, scale, dtype, self._gen, self.device)
         elif init == "zeros":
             val = torch.zeros(shape, dtype=dtype, device=self.device)
         else:

@@ -9,15 +9,19 @@
 
     shapes, axes = model.abstract_params(cfg)   # meta tensors, no memory
 
-An ``encdec`` config (the encoder-decoder family, ROADMAP.md Queue 1
-item 6) raises ``NotImplementedError``.
+An ``encdec`` config gets the encoder-decoder model, whose ``init_cache``
+takes JAX's ``enc_len=1500`` cross-attention length unless told.
+
+Training on the card (``launch.train``) and tensor parallelism run the
+``dense`` and ``ssm`` families; :func:`require_train_and_tp` refuses the
+others by name (ROADMAP.md, Queue 1 item 6b).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
 
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ModelConfig
 
 
@@ -43,9 +47,42 @@ def _decoder_model() -> Model:
     )
 
 
+def _encdec_model() -> Model:
+    def cache_axes(cfg):
+        return {
+            "k": (None, None, "batch", "kv_seq", "kv_heads"),
+            "v": (None, None, "batch", "kv_seq", "kv_heads"),
+            "xk": (None, "batch", None, "kv_heads"),
+            "xv": (None, "batch", None, "kv_heads"),
+        }
+
+    return Model(
+        init=encdec.init,
+        abstract_params=lambda cfg: transformer.abstract_params(
+            cfg, init_fn=encdec.init),
+        loss=encdec.loss_fn,
+        init_cache=lambda cfg, batch, max_len, enc_len=1500, **kw:
+            encdec.init_cache(cfg, batch, max_len, enc_len, **kw),
+        serve=encdec.serve_step,
+        cache_axes=cache_axes,
+    )
+
+
 def get_model(cfg: ModelConfig) -> Model:
     if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder family is not ported yet "
-            "(ROADMAP.md, Queue 1 item 6: MoE and the other families)")
+        return _encdec_model()
     return _decoder_model()
+
+
+# the families that train on the card and run tensor-parallel
+TRAIN_AND_TP_FAMILIES = ("dense", "ssm")
+
+
+def require_train_and_tp(cfg: ModelConfig, what: str) -> None:
+    """Raise ``NotImplementedError`` naming ROADMAP.md Queue 1 item 6b
+    where ``what`` (a training launch, a tensor-parallel run) needs a
+    family outside :data:`TRAIN_AND_TP_FAMILIES`."""
+    if cfg.family not in TRAIN_AND_TP_FAMILIES:
+        raise NotImplementedError(
+            f"{what}: the {cfg.family} family ({cfg.name}) is not ported "
+            "for it yet (ROADMAP.md, Queue 1 item 6b)")

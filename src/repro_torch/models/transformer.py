@@ -28,9 +28,11 @@ Tensor parallelism (:mod:`repro_torch.distributed.tp`): inside a
 :class:`~repro_torch.quant.QuantizedTensor` (``quantize_params(...,
 stack_dims=1)``) indexes payload, scales and act scale together by block.
 
-Waiting (ROADMAP.md, Queue 1): MoE layers (``init``, ``apply`` and
-``serve_step`` raise ``NotImplementedError``, item 6) and the VLM frontend
-(``loss_fn`` with ``input_embeds``, item 6).
+A ``moe`` feed-forward (the MoE family, and every odd layer of the
+hybrid) runs :func:`repro_torch.models.moe.moe`, whose load-balance loss
+``apply`` sums into ``aux``; ``input_embeds`` (the VLM frontend's patch
+embeddings) replace the first embedding rows in ``apply`` and
+``loss_fn``.
 """
 from __future__ import annotations
 
@@ -43,11 +45,9 @@ from repro_torch.distributed import tp
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.param import ParamBuilder, ScopedBuilder, torch_dtype
-
-WAITING_MOE = ("MoE layers are not ported yet (ROADMAP.md, Queue 1: MoE "
-               "and the other model families)")
 
 
 class _StackedBuilder:
@@ -71,7 +71,8 @@ class _StackedBuilder:
                                  scale=scale, dtype=dtype)
 
 
-def _init_block_stack(b: ScopedBuilder, cfg: ModelConfig, n_blocks: int):
+def _init_block_stack(b: ScopedBuilder, cfg: ModelConfig, n_blocks: int,
+                      *, cross_attention: bool = False):
     sb = _StackedBuilder(b, n_blocks)
     for li, spec in enumerate(cfg.block_pattern):
         lb = sb.scope(f"l{li}")
@@ -80,12 +81,15 @@ def _init_block_stack(b: ScopedBuilder, cfg: ModelConfig, n_blocks: int):
             attn.init_attention(lb.scope("attn"), cfg)
         else:
             mamba2.init_mamba(lb.scope("mamba"), cfg)
+        if cross_attention:
+            L.init_rmsnorm(lb.scope("norm_x"), cfg.d_model)
+            attn.init_attention(lb.scope("xattn"), cfg)
         if spec.ff is not None:
             L.init_rmsnorm(lb.scope("norm2"), cfg.d_model)
             if spec.ff == "mlp":
                 L.init_mlp(lb.scope("mlp"), cfg)
             else:
-                raise NotImplementedError(WAITING_MOE)
+                moe_mod.init_moe(lb.scope("moe"), cfg)
 
 
 def init(gen: torch.Generator, cfg: ModelConfig, *, device="cuda"):
@@ -144,9 +148,12 @@ def _block_fn(bp, x, cfg: ModelConfig, positions, aux):
         x = x + h
         if spec.ff is not None:
             h = L.rmsnorm(lp["norm2"], x, cfg.norm_eps)
-            if spec.ff != "mlp":
-                raise NotImplementedError(WAITING_MOE)
-            x = x + L.mlp(lp["mlp"], h, cfg)
+            if spec.ff == "mlp":
+                h = L.mlp(lp["mlp"], h, cfg)
+            else:
+                h, a = moe_mod.moe(lp["moe"], h, cfg)
+                aux = aux + a
+            x = x + h
     return x, aux
 
 
@@ -195,16 +202,14 @@ def apply(params, tokens: torch.Tensor, cfg: ModelConfig, *,
 def loss_fn(params, batch: dict, cfg: ModelConfig, *, aux_weight=0.01):
     """Next-token cross entropy (``repro/models/transformer.py``):
     ``batch`` holds ``tokens`` and ``labels`` (B, S) and optionally
-    ``loss_mask`` (B, S); the NLL of a float32 ``log_softmax`` over the
-    logits (under tensor parallelism ``parallel_cross_entropy``), averaged
-    over the masked-in positions.  Returns ``(total,
-    {"nll", "moe_aux"})``, ``total = nll + aux_weight * moe_aux``."""
-    if batch.get("input_embeds") is not None:
-        raise NotImplementedError(
-            "loss_fn: input_embeds (the VLM frontend) is not ported yet "
-            "(ROADMAP.md, Queue 1 item 6: MoE and the other families)")
+    ``loss_mask`` (B, S) and ``input_embeds`` (B, F, d); the NLL of a
+    float32 ``log_softmax`` over the logits (under tensor parallelism
+    ``parallel_cross_entropy``), averaged over the masked-in positions.
+    Returns ``(total, {"nll", "moe_aux"})``, ``total = nll + aux_weight *
+    moe_aux``."""
     parallel_vocab = tp.axis() is not None
     logits, aux = apply(params, batch["tokens"], cfg,
+                        input_embeds=batch.get("input_embeds"),
                         gather_logits=not parallel_vocab)
     labels = batch["labels"].long()
     if parallel_vocab and logits.shape[-1] < cfg.vocab_size:
@@ -294,8 +299,10 @@ def serve_step(params, cache: dict, tokens: torch.Tensor, pos: torch.Tensor,
             x = x + h
             if spec.ff is not None:
                 h = L.rmsnorm(lp["norm2"], x, cfg.norm_eps)
-                if spec.ff != "mlp":
-                    raise NotImplementedError(WAITING_MOE)
-                x = x + L.mlp(lp["mlp"], h, cfg)
+                if spec.ff == "mlp":
+                    h = L.mlp(lp["mlp"], h, cfg)
+                else:
+                    h, _ = moe_mod.moe(lp["moe"], h, cfg)
+                x = x + h
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return L.unembed(params["embedding"], x, cfg), cache

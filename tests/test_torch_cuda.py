@@ -740,6 +740,27 @@ def test_flash_attention_kernel(dev, b, hq, hkv, sq, skv, d, causal):
     assert_flash_close(got, want, ref.attention(q, k, v.abs(), causal=causal))
 
 
+@pytest.mark.parametrize("sq,skv", [
+    (4096, 4096),       # whisper-medium's encoder at 4,096 frames
+    (512, 1500)])       # decoder tokens over 1,500 encoder frames
+def test_flash_attention_encoder_and_cross_shapes(dev, sq, skv):
+    """The encoder-decoder's non-causal shapes on the wgmma kernel, 16
+    heads of 64 (MHA), Skv = 1,500 ragged against the key tile: against
+    the plain attention, counted in ``noncausal_launches``."""
+    from repro_torch.kernels import flash_attention as kfa
+    q = _bf16((1, 16, sq, 64), 23, dev)
+    k = _bf16((1, 16, skv, 64), 24, dev)
+    v = _bf16((1, 16, skv, 64), 25, dev)
+    before = (kfa.flash_attention.launches,
+              kfa.flash_attention.noncausal_launches)
+    got = kfa.flash_attention(q, k, v, causal=False)
+    assert (kfa.flash_attention.launches,
+            kfa.flash_attention.noncausal_launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    assert_flash_close(got, ref.attention(q, k, v, causal=False),
+                       ref.attention(q, k, v.abs(), causal=False))
+
+
 def _ssd_inputs(bh, t, ds, dh, dtype, dev, seed=30):
     x = (torch.randn((bh, t, dh), generator=_g(seed)) * 0.5)
     la = -torch.nn.functional.softplus(torch.randn((bh, t),

@@ -306,3 +306,13 @@ def test_ptxas_summary_reads_registers_and_spills():
     assert got["matmul_bf16_kernel"] == {
         "spill_stores": 4, "spill_loads": 12, "registers": 126}
     assert got["warnings"] == [PTXAS_LOG.splitlines()[-1].strip()]
+
+
+def test_scan_covers_the_family_modules():
+    """The MoE layer, the encoder-decoder and the five family configs."""
+    found = {os.path.relpath(p, PKG) for p in _port_sources()}
+    for mod in ("models/moe.py", "models/encdec.py",
+                "configs/grok1_314b.py", "configs/llama4_maverick_400b.py",
+                "configs/jamba_v01_52b.py", "configs/internvl2_76b.py",
+                "configs/whisper_medium.py"):
+        assert mod in found, mod

@@ -76,7 +76,7 @@ def test_launcher_refuses_what_one_card_cannot_run(monkeypatch):
         launch_train.main(["--device", "cpu", "--smoke", "--mesh", "1x3"])
     with pytest.raises(ValueError, match="expected DxM"):
         launch_train.main(["--device", "cpu", "--smoke", "--mesh", "2"])
-    with pytest.raises(NotImplementedError, match="vlm family.*item 6"):
+    with pytest.raises(NotImplementedError, match="vlm family.*item 6b"):
         launch_train.main(["--device", "cpu", "--smoke", "--arch",
                            "internvl2-76b"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

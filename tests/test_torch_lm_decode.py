@@ -87,7 +87,11 @@ def _close(got, want, dtype, what):
 def test_registry_and_basecaller_soc_equal_jax():
     from repro.configs import basecaller_soc as jsoc
     from repro_torch.configs import basecaller_soc as tsoc
-    assert set(ARCHS) == set(DECODER_ARCHS)
+    # every JAX arch is ported: the five decoder archs held here and the
+    # MoE, hybrid, VLM and encoder-decoder ones (test_torch_families.py,
+    # test_torch_encdec.py)
+    assert set(DECODER_ARCHS) < set(ARCHS)
+    assert set(ARCHS) == set(JARCHS)
     assert set(ARCHS) <= set(JARCHS)
     assert "basecaller-soc" not in ARCHS
     for which in ("config", "smoke_config"):
@@ -213,9 +217,14 @@ def test_unported_branches_raise_naming_their_items(tmp_path):
     # abstract_params is ported (shapes on the meta device)
     shapes, _ = model.abstract_params(_tcfg(jcfg))
     assert shapes["embedding"]["embed"].device.type == "meta"
+    # the encoder-decoder family is ported (test_torch_encdec.py); its
+    # tensor-parallel decode waits (item 6b)
+    from repro_torch.models import encdec as ted
     whisper = _tcfg(JARCHS["whisper-medium"].smoke_config())
-    with pytest.raises(NotImplementedError, match="item 6"):
-        get_model(whisper)
+    assert get_model(whisper).serve is ted.serve_step
+    with pytest.raises(NotImplementedError, match="item 6b"):
+        tengine.build("lm_decode", "smoke", cfg=whisper, mesh=2,
+                      device="cpu")
     # tensor parallelism runs in ranks of a process group (item 5b:
     # tests/test_torch_tp.py); a data axis alone replicates the unmeshed
     # engine, as JAX's (its tokens are mesh None's)

@@ -252,11 +252,18 @@ def test_prefill_refuses_params_on_another_device():
 
 
 def test_unported_layers_raise():
+    # MoE layers are ported (tests/test_torch_families.py holds them
+    # against JAX): the grok-1 smoke model builds and prefills
     from repro.configs import ARCHS as J
     moe = tconfig.ModelConfig(**dataclasses.asdict(
         J["grok-1-314b"].smoke_config()))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.init(torch.Generator().manual_seed(0), moe, device="cpu")
+    params, _ = ttr.init(torch.Generator().manual_seed(0), moe, device="cpu")
+    assert tuple(params["blocks"]["l0"]["moe"]["wi"].shape) == (
+        moe.num_blocks, moe.num_experts, moe.d_model, moe.d_ff)
+    logits = steps.prefill(params, np.zeros((1, 4), np.int32), moe,
+                           device="cpu")
+    assert logits.shape == (1, 1, moe.vocab_size)
+    assert bool(torch.isfinite(logits.float()).all())
     # int8 weights are ported: dense takes the int8 MAC path
     # (tests/test_torch_lm_int8.py holds it against JAX)
     from repro_torch.quant import core as qcore

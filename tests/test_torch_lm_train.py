@@ -240,9 +240,13 @@ def test_registry_loss_and_what_waits():
                                             _params("qwen3-4b", "float32")),
                                "cpu")
     tok = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ttr.loss_fn(params, {"tokens": tok, "labels": tok,
-                             "input_embeds": torch.zeros((1, 2, 64))}, tcfg)
+    # input_embeds (the VLM frontend) replace the first embedding rows
+    # (tests/test_torch_families.py holds the VLM's loss against JAX)
+    emb = torch.zeros((1, 2, 64))
+    loss, _ = ttr.loss_fn(params, {"tokens": tok, "labels": tok,
+                                   "input_embeds": emb}, tcfg)
+    plain, _ = ttr.loss_fn(params, {"tokens": tok, "labels": tok}, tcfg)
+    assert bool(torch.isfinite(loss)) and float(loss) != float(plain)
     # a vocab-sliced (tensor-parallel) unembedding outside a TP context
     # (parallel CE needs the other ranks: tests/test_torch_tp.py)
     sliced = dict(params, embedding={"embed": params["embedding"]["embed"][
