@@ -167,6 +167,33 @@ Phases, each printing JSON lines:
    launches, finite; ``lm_decode``'s ``full`` preset, 16 requests;
    wall and peak GB each; bf16 parity card against CPU at whisper depth
    2 and internvl2 depth 1 (``PARITY_RULE``, 2 bf16 ulps).
+   ``families_train``: the families' training, TP decode and CLIs.  One
+   f32 smoke ``make_train_step`` step of each family (the MoE archs also
+   dispatching at capacity 0.5) card against CPU by ``LM_TRAIN_RULE``,
+   ``moe_aux`` within 1e-5 (the reference AdamW on the gradients the
+   card's step applied: the dispatch's scatter adds with atomics);
+   grok-1-314b (1 of 64 layers), internvl2-76b (6 of 80, 2 x 512: its
+   256 patch embeddings fill the first positions) and whisper-medium
+   (whole, seeded frames: ``FT_ZERO_FRAMES``) at full width, 1,024
+   tokens, the launcher's AdamW and remat, a warm-up and 3 steps: step
+   ms, finite losses, peak GB, launches a step, and each distinct
+   flash and GEMM call of the steps against its plain version (FA_RULE,
+   1 bf16 ulp); llama4-maverick and jamba print why they train at smoke
+   size only (``FT_SMOKE_ONLY``); int8 internvl2-76b and whisper-medium
+   (``quantize_params(stack_dims=1)``, whisper's cross-attention float)
+   at full width and depth 2, card against CPU: the 1 x 512 prefill by
+   ``PARITY_RULE`` and 2 bf16 ulps, 4 teacher-forced serve steps by 2
+   bf16 ulps, each distinct int8 GEMM bit for bit on the tiled and the
+   narrow-M kernels (row 2l); two gloo ranks sharing the card: grok-1's
+   dispatch step at 2x1 and whisper's at 1x2 against the card's 1x1, TP
+   2 decode of the four decoder families' f32 smoke configs against TP 1
+   (JAX's 1e-5, tokens equal), internvl2 at full width and 8 layers in
+   bf16 at TP 2 (8 slots, 8 steps: ms, finite, ranks agreeing, peak GB,
+   each rank's decode GEMMs at its slices' shapes against their plain
+   versions);
+   ``launch.train --arch whisper-medium --smoke --steps 4 --fail-at 2``
+   (restarts=1) and ``serve --tp 2 --arch jamba-v0.1-52b --smoke`` in
+   two subprocesses side by side, each exiting 0.
 8. ``fleet``: four tenants on one ``repro_torch.fleet.Fleet`` on the
    card: ``lab-fc`` (``flowcell_512`` with phase 4's CNN, pore encoder,
    1,024 reads, depth 2, fused; weight 2), ``lab-bc1`` and ``lab-bc2``
@@ -242,7 +269,8 @@ Phases, each printing JSON lines:
    with ``narrow_launches``, ``wgmma_launches``, ``variant``,
    ``device_ms`` and
    ``library_device_ms`` (``torch.matmul``);
-   ``matmul_int8_lm``, row 2l, its launches on the ``lm_tp`` paths with
+   ``matmul_int8_lm``, row 2l, its launches on the ``lm_tp`` paths and
+   the families' int8 paths (``families int8``), with
    ``narrow_launches`` and ``tc_launches``, ``device_ms``,
    ``library_m`` (32: ``library_ms`` is ``torch._int_mm`` there),
    ``kernel_ms_at_library_m``, ``bound_ms_at_library_m`` and
@@ -4421,8 +4449,9 @@ def f32_parity_configs():
 
 def recorded_calls(torch, ops, names):
     """Wrap ``ops.<name>`` for each name so that a card call keeps its
-    arguments, once for each distinct shape, stride, dtype and keyword
-    set; returns ``(calls, restore)``, calls by name."""
+    arguments (tensors detached), once for each distinct shape, stride,
+    dtype, QuantizedTensor shape and keyword set; returns ``(calls,
+    restore)``, calls by name."""
     calls = {n: {} for n in names}
     originals = {n: getattr(ops, n) for n in names}
 
@@ -4433,8 +4462,12 @@ def recorded_calls(torch, ops, names):
             ts = [a for a in args if isinstance(a, torch.Tensor)]
             if ts[0].is_cuda:
                 sig = (tuple((tuple(t.shape), t.stride(), t.dtype)
-                             for t in ts), tuple(sorted(kw.items())))
-                calls[name].setdefault(sig, (args, kw))
+                             for t in ts),
+                       tuple(tuple(a.shape) for a in args if hasattr(a, "q")),
+                       tuple(sorted(kw.items())))
+                calls[name].setdefault(sig, (tuple(
+                    a.detach() if isinstance(a, torch.Tensor) else a
+                    for a in args), kw))
             return fn(*args, **kw)
         return wrapped
     for n in names:
@@ -4447,41 +4480,99 @@ def recorded_calls(torch, ops, names):
 
 
 def check_path_calls(torch, calls) -> dict:
-    """Each recorded flash_attention and ssd_scan call of the f32 path run
-    again through its wrapper and held against its plain version on the
-    same inputs: flash by F32_FLASH_RULE, ssd_scan within SSD_TOL."""
+    """Each recorded call of a path run again through its kernel and held
+    against its plain version on the same inputs: flash_attention by its
+    working type's bar (``flash_bar_excess``: F32_FLASH_RULE, FA_RULE),
+    ssd_scan within SSD_TOL, a bf16 ``mat_mul`` within one bf16 ulp of
+    max |out| and an int8 one (its quantized operands) bit for bit; each
+    line names the kernel or route that ran and has ``ok``."""
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as kssd
     out = {}
-    for (args, kw) in calls["flash_attention"].values():
-        q, k, v = args
-        got = kfa.flash_attention(q, k, v, **kw)
-        want = ref.attention(q, k, v, **kw)
-        pv = ref.attention(q, k, v.abs(), **kw)
-        out.setdefault("flash_attention", []).append({
-            "q": list(q.shape), "k": list(k.shape),
-            "q_stride": list(q.stride()), "route": kfa.route(q.dtype,
-                                                             q.shape[-1]),
-            "tf32x3_kernel": "wgmma" if kfa.tf32x3_wgmma(q, k, v)
-            else "mma_sync",
-            "causal": kw.get("causal", True),
-            "max_abs_err": (got - want).abs().max().item(),
-            "err_over_bar": flash_bar_excess(got, want, pv, "float32")})
-    for (args, kw) in calls["ssd_scan"].values():
-        x, la, b, c = args
-        got = kssd.ssd_scan(x, la, b, c, **kw)
-        want = ref.ssd_scan(x, la, b, c)[0]
-        out.setdefault("ssd_scan", []).append({
-            "x": list(x.shape), "b": list(b.shape),
-            "b_stride": list(b.stride()), "c_stride": list(c.stride()),
-            "route": kssd.route(b.shape[-1], x.shape[-1]),
-            "instantiation": kssd.padded(b.shape[-1], x.shape[-1]),
-            "padded": (b.shape[-1], x.shape[-1]) not in kssd.DIMS, **kw,
-            "max_abs_err": (got - want).abs().max().item(),
-            "within_tol": bool(torch.allclose(got, want, rtol=SSD_TOL,
-                                              atol=SSD_TOL))})
+    with torch.no_grad():
+        for (args, kw) in calls.get("flash_attention", {}).values():
+            q, k, v = args
+            got = kfa.flash_attention(q, k, v, **kw)
+            want = ref.attention(q, k, v, **kw)
+            pv = ref.attention(q, k, v.abs(), **kw)
+            dt = str(q.dtype).split(".")[-1]
+            line = {"q": list(q.shape), "k": list(k.shape),
+                    "q_stride": list(q.stride()), "dtype": dt,
+                    "route": kfa.route(q.dtype, q.shape[-1]),
+                    "causal": kw.get("causal", True),
+                    "max_abs_err": (got - want).abs().max().item(),
+                    "err_over_bar": flash_bar_excess(got, want, pv, dt)}
+            if dt == "float32":
+                line["tf32x3_kernel"] = ("wgmma" if kfa.tf32x3_wgmma(q, k, v)
+                                         else "mma_sync")
+            line["ok"] = line["err_over_bar"] <= 1.0
+            out.setdefault("flash_attention", []).append(line)
+        for (args, kw) in calls.get("ssd_scan", {}).values():
+            x, la, b, c = args
+            got = kssd.ssd_scan(x, la, b, c, **kw)
+            want = ref.ssd_scan(x, la, b, c)[0]
+            ok = bool(torch.allclose(got, want, rtol=SSD_TOL, atol=SSD_TOL))
+            out.setdefault("ssd_scan", []).append({
+                "x": list(x.shape), "b": list(b.shape),
+                "b_stride": list(b.stride()), "c_stride": list(c.stride()),
+                "route": kssd.route(b.shape[-1], x.shape[-1]),
+                "instantiation": kssd.padded(b.shape[-1], x.shape[-1]),
+                "padded": (b.shape[-1], x.shape[-1]) not in kssd.DIMS, **kw,
+                "max_abs_err": (got - want).abs().max().item(),
+                "within_tol": ok, "ok": ok})
+        for (args, kw) in calls.get("mat_mul", {}).values():
+            out.setdefault("mat_mul", []).append(
+                check_mat_mul_call(torch, args, kw))
     return out
+
+
+def check_mat_mul_call(torch, args, kw) -> dict:
+    """One recorded ``ops.mat_mul`` call: a QuantizedTensor weight's int8
+    GEMM on the quantized activation (``ops._quantized_operands``) against
+    ``ref.matmul_int8``, bit for bit; a bf16 one's ``matmul_bf16`` (bias
+    and activation) within one bf16 ulp of max |out| of ``ref.matmul``;
+    the route the wrapper took, by its launch counters."""
+    from repro_torch.kernels import matmul as km
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref
+    a, w = args[:2]
+    bias = args[2] if len(args) > 2 else kw.get("bias")
+    act = kw.get("activation", "none")
+    line = {"a": list(a.shape), "b": list(w.shape), "activation": act}
+    if hasattr(w, "q"):
+        aq, _ = ops._quantized_operands("matmul", a, w)
+        wrapper, names = km.matmul_int8, ("narrow", "tc", "skinny")
+        before = {n: getattr(wrapper, f"{n}_launches") for n in names}
+        got = km.matmul_int8(aq, w.q)
+        want = ref.matmul_int8(aq, w.q)
+        diff = int((got != want).sum().item())
+        line.update(dtype="int8", elements_differing=diff, ok=diff == 0)
+    else:
+        require(a.dtype == torch.bfloat16, f"mat_mul at {line}: a "
+                f"{a.dtype} call has no check here")
+        wrapper, names = km.matmul_bf16, ("narrow", "wgmma")
+        before = {n: getattr(wrapper, f"{n}_launches") for n in names}
+        got = km.matmul_bf16(a, w, bias, activation=act)
+        want = ref.matmul(a, w, bias, activation=act)
+        err = (got.float() - want.float()).abs().max().item()
+        tol = bf16_ulp(want.float().abs().max().item())
+        line.update(dtype="bfloat16", max_abs_err=err, tol=tol,
+                    ok=err <= tol)
+    ran = [n for n in names
+           if getattr(wrapper, f"{n}_launches") > before[n]]
+    line["route"] = ran[0] if ran else ("dp4a" if hasattr(w, "q")
+                                        else "mma.sync")
+    return line
+
+
+def require_path_calls(label, checked, kinds) -> None:
+    """Every checked call ``ok``; each kernel of ``kinds`` recorded."""
+    for kind in kinds:
+        require(checked.get(kind), f"{label} recorded no {kind} call")
+    for kind, lines in checked.items():
+        for c in lines:
+            require(c["ok"], f"{label}: {kind} at the path's shapes: {c}")
 
 
 def phase_lm_parity_f32(torch, paths):
@@ -4536,11 +4627,9 @@ def phase_lm_parity_f32(torch, paths):
           "against its plain version", "tol": {
               "flash_attention": F32_FLASH_RULE,
               "ssd_scan": f"rtol = atol = {SSD_TOL}"}, **checked})
-    for name in ("flash_attention", "ssd_scan"):
-        require(checked.get(name), f"lm_parity_f32 recorded no {name} call")
+    require_path_calls("lm_parity_f32", checked,
+                       ("flash_attention", "ssd_scan"))
     for c in checked["flash_attention"]:
-        require(c["err_over_bar"] <= 1.0, f"flash at the f32 path's "
-                f"{c['q']} x {c['k']}: {c['err_over_bar']} x its bar")
         require(c["route"] == "tf32x3", f"f32 flash at {c['q']} on the "
                 f"{c['route']} route, not tf32x3")
     for kernel, d in (("mma_sync", 16), ("wgmma", 128)):
@@ -4551,9 +4640,6 @@ def phase_lm_parity_f32(torch, paths):
                 and c["route"] == "tensor_cores"
                 for c in checked["ssd_scan"]),
             "lm_parity_f32: no (64, 32) SSD call on the padded passes")
-    for c in checked["ssd_scan"]:
-        require(c["within_tol"], f"ssd_scan at the f32 path's {c['x']}: "
-                f"max abs err {c['max_abs_err']}")
 
 
 # -------------------------------------------------------------- phase train --
@@ -6470,6 +6556,709 @@ def phase_families(torch, F, peaks, table, paths):
     return cross
 
 
+# --------------------------------------------------- phase families_train --
+# Training the MoE, hybrid, VLM and encoder-decoder families on the card,
+# their TP decode and their mesh steps (two gloo ranks sharing the card:
+# layout and parity, not speed).  Full width where the card holds the
+# arch's params, gradients and AdamW moments (PERF.md section 4):
+# grok-1-314b 1 of 64 layers (6.5e9 parameters, ~52 GB), internvl2-76b
+# 6 of 80 (7.2e9, ~58 GB), whisper-medium whole (0.81e9, f32 moments);
+# llama4-maverick and jamba train only their f32 smoke configs.
+FT_STEPS = 3                    # timed, after a warm-up
+# (layers, batch, seq): launch.train's 8 x 128 (whisper: frames 8 x 128
+# and 16 decoder tokens); internvl2's 256 patch embeddings take the first
+# 256 positions, so its 1,024 tokens are 2 x 512
+FT_DEPTH = {"grok-1-314b": (1, 8, 128), "internvl2-76b": (6, 2, 512),
+            "whisper-medium": (24, 8, 128)}
+FT_SMOKE_ONLY = {
+    "llama4-maverick-400b-a17b": (
+        "its smallest depth, one dense and one MoE layer (a whole block), is "
+        "18.6e9 parameters: ~148 GB of bf16 params and gradients and bf16 "
+        "AdamW moments, past the card's 80 GB"),
+    "jamba-v0.1-52b": (
+        "its smallest depth, one block of 8 layers, is 13.3e9 parameters: "
+        "~106 GB of bf16 params and gradients and bf16 AdamW moments, past "
+        "the card's 80 GB")}
+FT_ZERO_FRAMES = (
+    "whisper-medium takes seeded N(0, 1) frames: with launch.train's zero "
+    "frames (JAX's) the encoder's rows are zero, each layer's RMSNorm "
+    "scales their gradient by eps^-1/2 = 1,000, and past 8 of its 24 "
+    "layers the gradient overflows, so the first update is NaN in JAX "
+    "too (ROADMAP.md, Queue 3 entry 10)")
+FT_SMOKE_BATCH, FT_SMOKE_SEQ = 4, 64
+FT_DISPATCH = {"moe_impl": "dispatch", "moe_capacity_factor": 0.5}
+FT_TP_STEPS = 8
+FT_TP_FULL = ("internvl2-76b", 8)   # bf16 TP 2 decode: 8.95e9 parameters,
+FT_TP_SLOTS = 8                     # each rank's init 17.9 GB before its cut
+FT_RULE = LM_TRAIN_RULE
+# int8 serving (quantize_params(stack_dims=1) of seeded bf16 params;
+# whisper's cross-attention stays float: JAX's einsum there takes no
+# QuantizedTensor) at full width and these depths (whisper: encoder and
+# decoder layers each), card against CPU: the 1 x 512 prefill (internvl2
+# with its 256 patch embeddings; whisper 512 frames and 64 decoder
+# tokens), then FT_INT8_STEPS teacher-forced serve steps of FT_INT8_SLOTS
+FT_INT8 = {"internvl2-76b": 2, "whisper-medium": 2}
+FT_INT8_STEPS = 4
+FT_INT8_SLOTS = {"internvl2-76b": 2, "whisper-medium": 1}
+FT_INT8_PATH = "families int8"
+FT_INT8_PREFILL = (
+    "each activation is quantized per call to codes of absmax / 127, a "
+    "step as coarse as a bf16 ulp of the largest entries, so a roundoff "
+    "difference upstream (the flash kernel's, within FA_RULE) moves codes "
+    "by one step and the 512-token prefill (whisper's encoder over 512 "
+    "frames) parts by more than bf16 roundoff: the card's prefill with "
+    "the plain attention in place of the flash kernel shows how far; the "
+    "kernels are held call by call")
+
+
+def ft_config(arch, over=None):
+    """The arch's f32 smoke config, with ``over``'s fields replaced."""
+    import dataclasses
+    return dataclasses.replace(f32_smoke(arch), **(over or {}))
+
+
+def ft_batch(torch, cfg, dev, batch, seq, seed=11):
+    """A seeded global batch of the family's shape for an f32 smoke
+    config: tokens and labels (B, S); a vlm's patch embeddings, an
+    encdec's frames (B, S, d) and S // 8 tokens."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    s = seq // 8 if cfg.family == "encdec" else seq
+    out = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, s)),
+                              device=dev) for k in ("tokens", "labels")}
+    if cfg.family == "vlm":
+        out["input_embeds"] = torch.as_tensor(rng.standard_normal(
+            (batch, cfg.frontend_tokens, cfg.d_model)), dtype=torch.float32,
+            device=dev)
+    if cfg.family == "encdec":
+        out["frames"] = torch.as_tensor(rng.standard_normal(
+            (batch, seq, cfg.d_model)), dtype=torch.float32, device=dev)
+    return out
+
+
+def ft_smoke_params(torch, cfg):
+    from repro_torch.models.registry import get_model
+    params, _ = get_model(cfg).init(torch.Generator().manual_seed(0), cfg,
+                                    device="cpu")
+    return params
+
+
+def ft_applied(step, state, batch):
+    """``step(state, batch)`` and the gradients its AdamW applied (read
+    off the trainer's ``apply_update_`` call): the MoE dispatch's scatter
+    adds colliding rows with atomics on the card (and in threads on the
+    CPU), so a second backward would not give the same bits."""
+    from repro_torch.train import trainer
+    from repro_torch.utils.tree import tree_map
+    seen = {}
+    real = trainer.opt_mod.apply_update_
+
+    def spy(params, grads, *args, **kw):
+        seen["grads"] = tree_map(lambda g: g.detach().clone(), grads)
+        return real(params, grads, *args, **kw)
+    trainer.opt_mod.apply_update_ = spy
+    try:
+        new, metrics = step(state, batch)
+    finally:
+        trainer.opt_mod.apply_update_ = real
+    return new, metrics, seen["grads"]
+
+
+def ft_smoke_cases():
+    cases = []
+    for arch in FAMILY_DEPTH:
+        cases.append((arch, None))
+        if ft_config(arch).num_experts:
+            cases.append((f"{arch} dispatch", FT_DISPATCH))
+    return cases
+
+
+def ft_smoke_steps(torch):
+    """One f32 smoke ``make_train_step`` step of each family (the MoE
+    archs also dispatching at capacity 0.5) on the card against the CPU on
+    the same params and batch, by ``FT_RULE``."""
+    from repro_torch.core import basecaller as bc
+    from repro_torch.utils.tree import tree_map
+    dev = torch.device("cuda")
+    lines = []
+    for name, over in ft_smoke_cases():
+        cfg = ft_config(name.split()[0], over)
+        params = ft_smoke_params(torch, cfg)
+        out = {}
+        for where, device in (("cpu", torch.device("cpu")), ("cuda", dev)):
+            p = tree_map(torch.clone, bc.params_to(params, device))
+            batch = ft_batch(torch, cfg, device, FT_SMOKE_BATCH,
+                             FT_SMOKE_SEQ)
+            state, step = lm_train_state(torch, cfg, p)
+            new, m, grads = ft_applied(step, state, batch)
+            aux = m.get("moe_aux")
+            out[where] = (float(m["loss"]), tree_map(lambda t: t.cpu(),
+                                                     grads),
+                          tree_map(lambda t: t.cpu(), new),
+                          None if aux is None else float(aux))
+        line = train_step_excess(torch, params, out["cuda"][:3],
+                                 out["cpu"][:3])
+        lines.append({"phase": "families_train", "part": "f32_smoke_vs_cpu",
+                      "config": name, "family": cfg.family,
+                      "batch": FT_SMOKE_BATCH, "seq": FT_SMOKE_SEQ,
+                      "loss_card": out["cuda"][0], "loss_cpu": out["cpu"][0],
+                      "moe_aux_card": out["cuda"][3],
+                      "moe_aux_cpu": out["cpu"][3], **line, "tol": FT_RULE})
+    return lines
+
+
+def ft_full_width(torch, arch, shape, paths):
+    """``arch`` at full width, ``shape``'s depth and batch (``FT_DEPTH``),
+    random bf16 params from a generator on the card, the launcher's AdamW
+    (the arch's moment dtype) and batch (``launch.train.family_batch``): a
+    warm-up and FT_STEPS steps; ms a step, losses, peak GB."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import tokens
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import family_batch
+    from repro_torch.models.registry import get_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import trainer
+    from repro_torch.utils.tree import tree_bytes
+    dev = torch.device("cuda")
+    spec = ARCHS[arch]
+    full = spec.config()
+    depth, batch, seq = shape
+    cfg = dataclasses.replace(full, num_layers=depth)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, _ = get_model(cfg).init(torch.Generator(dev).manual_seed(0), cfg,
+                                    device=dev)
+    ocfg = opt.OptimizerConfig(total_steps=1 + FT_STEPS,
+                               state_dtype=spec.optimizer_state_dtype)
+    state = {"params": params, "opt": opt.init_opt_state(params, ocfg)}
+    step = trainer.make_train_step(get_model(cfg).loss, cfg, ocfg,
+                                   trainer.TrainerConfig(
+                                       accum_dtype=spec.grad_accum_dtype))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sizes = {"params": tree_numel(params),
+             "params_gb": tree_bytes(state["params"]) / 2 ** 30,
+             "moments_gb": (tree_bytes(state["opt"]["m"])
+                            + tree_bytes(state["opt"]["v"])) / 2 ** 30}
+    del params
+    pipe = tokens.TokenPipelineConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=seq, global_batch=batch)
+
+    gen = torch.Generator(dev).manual_seed(1)
+
+    def run():
+        losses, walls, st = [], [], state
+        for i in range(1 + FT_STEPS):
+            b = family_batch(tokens.batch_at_step(pipe, i, device=dev), cfg,
+                             seq)
+            if cfg.family == "encdec":
+                # seeded frames: JAX's zero frames overflow the encoder's
+                # gradient past 8 layers, in both packages (FT_ZERO_FRAMES)
+                b["frames"] = torch.randn(b["frames"].shape, generator=gen,
+                                          device=dev).to(torch.bfloat16)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            st, m = step(st, b)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t1) * 1e3)
+        return losses, walls
+    want = (("matmul_bf16", "flash_attention", "flash_attention_noncausal")
+            if cfg.family == "encdec" else
+            ("flash_attention",) if cfg.family == "moe" else
+            ("matmul_bf16", "flash_attention"))
+    path = f"families_train {arch}"
+    calls, restore = recorded_calls(torch, ops, ("mat_mul",
+                                                 "flash_attention"))
+    try:
+        losses, walls = paths.drive(path, want, run, train=True)
+    finally:
+        restore()
+    line = {"phase": "families_train", "part": "full_width", "arch": arch,
+            "layers": depth, "published_layers": full.num_layers,
+            "remat": cfg.remat, "moe_impl": cfg.moe_impl
+            if cfg.num_experts else None, "batch": batch, "seq": seq,
+            "init_s": init_s, "warmup_ms": walls[0], "step_ms": walls[1:],
+            "median_step_ms": float(np.median(walls[1:])),
+            "losses": losses, "finite": bool(np.isfinite(losses).all()),
+            "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+            **sizes, **({"frames": FT_ZERO_FRAMES}
+                        if cfg.family == "encdec" else {}),
+            "launches_per_step": {
+                k: v / (1 + FT_STEPS) for k, v in paths.paths[path].items()}}
+    emit(line)
+    require(line["finite"], f"families_train {arch}: losses {losses}")
+    checked = check_path_calls(torch, calls)
+    del calls
+    emit({"phase": "families_train", "part": "full_width_calls",
+          "arch": arch, "check": "each distinct call of the steps against "
+          "its plain version", "tol": {"flash_attention": FA_RULE,
+                                       "mat_mul": "1 bf16 ulp of max |out|"},
+          **checked})
+    require_path_calls(f"families_train {arch}", checked, (
+        "mat_mul", "flash_attention") if "matmul_bf16" in want
+        else ("flash_attention",))
+    del state, step
+    torch.cuda.empty_cache()
+    return line
+
+
+def ft_int8_serve(torch, arch, depth, paths):
+    """int8 ``arch`` (``FT_INT8``) on the card against the CPU on the same
+    quantized params.  Gated: FT_INT8_STEPS teacher-forced ``serve``
+    steps, each within 2 bf16 ulps of max |logit| with top-1 equal beyond
+    that (phase ``lm_tp``'s int8 bar; whisper's after ``prefill_cross``
+    of the card's encoder states on each device); each distinct int8
+    GEMM of the card's run bit for bit against its plain version, on the
+    tiled kernel (prefill) and the narrow-M one (serve), and each flash
+    call within FA_RULE; a finite prefill.  Reported: the prefill's last
+    hidden state and logits against the CPU by ``parity_line``, beside
+    the card's own prefill with the plain attention in place of the
+    flash kernel, and whisper's encoder states against the CPU's
+    (FT_INT8_PREFILL says why these are not gated).
+    Returns the path's launches."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import basecaller as bc
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref
+    from repro_torch.models import encdec
+    from repro_torch.models.registry import get_model
+    from repro_torch.quant.params import quantize_params, select_weight_leaf
+    dev = torch.device("cuda")
+    cfg = ARCHS[arch].config()
+    cfg = dataclasses.replace(cfg, num_layers=depth, encoder_layers=(
+        depth if cfg.encoder_layers else 0))
+    model = get_model(cfg)
+    p, _ = model.init(torch.Generator(dev).manual_seed(0), cfg, device=dev)
+    q = quantize_params(p, stack_dims=1, predicate=(
+        (lambda n, w: select_weight_leaf(n, w) and "xattn" not in n)
+        if cfg.family == "encdec" else None))
+    del p
+    torch.cuda.empty_cache()
+    x, emb = family_inputs(cfg, np.random.default_rng(1), 1, LM_PARITY_SEQ)
+    if cfg.family == "encdec":
+        x = torch.as_tensor(x).bfloat16()
+    if emb is not None:
+        emb = torch.as_tensor(emb).bfloat16()
+    slots = FT_INT8_SLOTS[arch]
+    feed = np.random.default_rng(6).integers(1, cfg.vocab_size,
+                                             (FT_INT8_STEPS, slots, 1))
+
+    def run(params, d, enc=None):
+        """(hidden, logits, each serve step's logits, the encoder's
+        states): whisper's serve steps read ``enc`` (the card's) where
+        given, else this device's ``encode`` of the frames."""
+        h, logits = family_hidden_and_logits(torch, cfg, params, x, emb, d)
+        steps = []
+        with torch.inference_mode():
+            if cfg.family == "encdec":
+                own = encdec.encode(params, x.to(d), cfg)
+                cache = encdec.prefill_cross(params, model.init_cache(
+                    cfg, slots, 16, enc_len=x.shape[1], device=d),
+                    own if enc is None else enc.to(d), cfg)
+                own = own.float().cpu()
+            else:
+                cache, own = model.init_cache(cfg, slots, 16, device=d), None
+            for i in range(FT_INT8_STEPS):
+                lg, cache = model.serve(
+                    params, cache, torch.as_tensor(feed[i], device=d),
+                    torch.full((slots,), i, device=d), cfg)
+                steps.append(lg[:, -1].float().cpu())
+        return h, logits, steps, own
+    path = f"{FT_INT8_PATH} {arch}"
+    calls, restore = recorded_calls(torch, ops, ("mat_mul",
+                                                 "flash_attention"))
+    t0 = time.perf_counter()
+    try:
+        card = paths.drive(path, ("matmul_int8",), lambda: run(q, dev))
+    finally:
+        restore()
+    card_s = time.perf_counter() - t0
+    checked = check_path_calls(torch, calls)
+    del calls
+    fa, ops.flash_attention = ops.flash_attention, ref.attention
+    try:
+        plain = family_hidden_and_logits(torch, cfg, q, x, emb, dev)
+    finally:
+        ops.flash_attention = fa
+    t0 = time.perf_counter()
+    cpu = run(bc.params_to(q, "cpu"), torch.device("cpu"),
+              None if card[3] is None else card[3].bfloat16())
+    cpu_s = time.perf_counter() - t0
+    over, top1 = 0.0, 0
+    for g, c in zip(card[2], cpu[2]):
+        bar = 2 * bf16_ulp(c.abs().max().item())
+        over = max(over, (g - c).abs().max().item() / bar)
+        top2 = c.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > bar
+        top1 += int((g.argmax(-1) != c.argmax(-1))[sure].sum())
+    routes = sorted({c["route"] for c in checked["mat_mul"]})
+    finite = bool(torch.isfinite(card[0]).all() and torch.isfinite(
+        card[1]).all())
+    out = {"phase": "families_train", "part": "int8_card_vs_cpu",
+           "arch": arch, "layers": depth,
+           "encoder_layers": cfg.encoder_layers, "serve_slots": slots,
+           "serve_steps": FT_INT8_STEPS, "serve_over_bar": over,
+           "serve_top1_differs_beyond_bar": top1,
+           "serve_bar": "2 bf16 ulps of max |logit| (CPU) each step",
+           "prefill": {"seq": LM_PARITY_SEQ,
+                       "patch_embeds": cfg.frontend_tokens,
+                       "finite": finite, "gated": False,
+                       "why": FT_INT8_PREFILL,
+                       "card_vs_cpu": parity_line(card[0], cpu[0], card[1],
+                                                  cpu[1]),
+                       "card_plain_attention_vs_cpu": parity_line(
+                           plain[0], cpu[0], plain[1], cpu[1]),
+                       "card_vs_card_plain_attention": parity_line(
+                           card[0], plain[0], card[1], plain[1])},
+           **({} if card[3] is None else {"encoder_states": {
+               "rms_over_bar": rms_excess(card[3], cpu[3]),
+               "max_abs_diff": (card[3] - cpu[3]).abs().max().item(),
+               "rule": "rms_excess (PARITY_RULE's), reported as the "
+                       "prefill: the serve steps on both devices read the "
+                       "card's states"}}),
+           "card_s": card_s, "cpu_s": cpu_s,
+           "launches": paths.paths[path], "gemm_routes": routes}
+    emit(out)
+    emit({"phase": "families_train", "part": "int8_calls", "arch": arch,
+          "check": "each distinct int8 GEMM and flash call of the card's "
+          "run against its plain version", "tol": {
+              "mat_mul": "bit for bit", "flash_attention": FA_RULE},
+          **checked})
+    require(over <= 1.0 and top1 == 0 and finite,
+            f"families_train int8 {arch}: {out}")
+    require_path_calls(f"families_train int8 {arch}", checked,
+                       ("mat_mul", "flash_attention"))
+    require({"narrow", "tc"} <= set(routes), f"families_train int8 {arch}: "
+            f"GEMM routes {routes}, not the tiled and the narrow-M kernels")
+    del q
+    torch.cuda.empty_cache()
+    return paths.paths[path]
+
+
+def ft_rank_step(torch, dev, spec):
+    """One ``jit_train_step`` of a f32 smoke config on the ``(d, m)`` mesh
+    of ``spec``: this rank's loss, ``moe_aux``, gradients and new state
+    (flat numpy, its slice), and its coordinates."""
+    from repro_torch.core import basecaller as bc
+    from repro_torch.distributed import tp
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import get_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import trainer
+    d, m = spec["mesh"]
+    mesh = make_mesh((d, m), ("data", "model"))
+    cfg = ft_config(spec["arch"], spec["over"])
+    model = get_model(cfg)
+    plan = mesh_plan(cfg, m)
+    params = bc.params_to(ft_smoke_params(torch, cfg), dev)
+    if plan is not None:
+        params = tp.partition_params(params, plan, rank=mesh.index("model"))
+    batch = ft_batch(torch, cfg, dev, FT_SMOKE_BATCH, FT_SMOKE_SEQ)
+    ocfg = opt.OptimizerConfig(**LM_TRAIN_OPT)
+    step = trainer.jit_train_step(model.loss, cfg, ocfg, mesh=mesh,
+                                  plan=plan)
+    new, metrics, grads = ft_applied(step, {
+        "params": params, "opt": opt.init_opt_state(params, ocfg)}, batch)
+    aux = metrics.get("moe_aux")
+    return {"coords": list(mesh.coords), "loss": float(metrics["loss"]),
+            "moe_aux": None if aux is None else float(aux),
+            "grads": mesh_flat(grads), "params": mesh_flat(new["params"]),
+            "m": mesh_flat(new["opt"]["m"]), "v": mesh_flat(new["opt"]["v"])}
+
+
+def ft_tp_logits(dev, cfg, params, world, steps, slots=2, max_len=16):
+    """``LMDecodeEngine(mesh=world)`` of ``cfg``: each step's host logits
+    from seeded first tokens, fed back by argmax."""
+    import repro_torch.engine as te
+    eng = te.build("lm_decode", params=params, cfg=cfg, slots=slots,
+                   max_len=max_len, mesh=world, device=dev)
+    return decode_steps(eng, tp_first_tokens(slots, cfg.vocab_size), steps)
+
+
+def ft_rank(rank, world, jobs):
+    """One rank of phase ``families_train`` (a spawned process; the card
+    is shared): each job in turn, its kernels counted from 0 around it,
+    its wall and peak memory."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import basecaller as bc
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref
+    from repro_torch.models.registry import get_model
+    ref.full_fp32()
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    counters = launch_counters()
+    out = {}
+    for name, (job, spec) in jobs.items():
+        for wrapper, attr in counters.values():
+            setattr(wrapper, attr, 0)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if job == "step":
+            res = ft_rank_step(torch, dev, spec)
+        elif job == "tp_smoke":
+            res = {}
+            for arch in spec["archs"]:
+                cfg = f32_smoke(arch)
+                p = bc.params_to(ft_smoke_params(torch, cfg), dev)
+                res[arch] = ft_tp_logits(dev, cfg, p, world, FT_TP_STEPS)
+        else:
+            arch, depth = spec["arch"], spec["layers"]
+            cfg = dataclasses.replace(ARCHS[arch].config(), num_layers=depth)
+            p, _ = get_model(cfg).init(torch.Generator(dev).manual_seed(0),
+                                       cfg, device=dev)
+            calls, restore = recorded_calls(torch, ops, ("mat_mul",))
+            t1 = time.perf_counter()
+            try:
+                logits = ft_tp_logits(dev, cfg, p, world, FT_TP_STEPS,
+                                      slots=FT_TP_SLOTS, max_len=64)
+                torch.cuda.synchronize()
+            finally:
+                restore()
+            res = {"decode_s": time.perf_counter() - t1,
+                   "finite": all(bool(torch.isfinite(torch.as_tensor(x))
+                                      .all()) for x in logits),
+                   "tokens": [x.argmax(-1).tolist() for x in logits]}
+        torch.cuda.synchronize()
+        res["wall_s"] = time.perf_counter() - t0
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        res["launches"] = {k: getattr(w, a) for k, (w, a) in
+                           counters.items()}
+        if job == "tp_full":
+            # this rank's GEMMs at its slices' shapes, after the counts
+            res["checked"] = check_path_calls(torch, calls)
+            del p, calls
+        out[name] = res
+    return out
+
+
+def ft_mesh_lines(torch, ranks, name, spec):
+    """A mesh step against the card's 1x1 on the same params and batch:
+    ``FT_RULE``, the reference AdamW the port's on the mesh's reassembled
+    gradients; ``moe_aux`` within 1e-5; losses equal across ranks."""
+    from repro_torch.core import basecaller as bc
+    from repro_torch.distributed import tp
+    from repro_torch.models.registry import get_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import trainer
+    dev = torch.device("cuda")
+    cfg = ft_config(spec["arch"], spec["over"])
+    m = spec["mesh"][1]
+    plan = mesh_plan(cfg, m)
+    params = bc.params_to(ft_smoke_params(torch, cfg), dev)
+    (loss, aux), g1 = trainer.loss_and_grads(
+        get_model(cfg).loss, params, ft_batch(torch, cfg, dev,
+                                              FT_SMOKE_BATCH, FT_SMOKE_SEQ),
+        cfg)
+
+    def whole(field):
+        parts = [next(r for r in ranks if r["coords"] == [0, k])[field]
+                 for k in range(m)]
+        return {k: parts[0][k] if plan is None or plan.flat[k] is None
+                else plan.flat[k].unslice([p[k] for p in parts])
+                for k in parts[0]}
+    grads = whole("grads")
+    flat_p = {k: t for k, _, t in tp._flatten_with_keys(params)}
+    g_tree = tp._unflatten_like(params, {
+        k: torch.from_numpy(grads[k]).to(dev) for k in flat_p})
+    ocfg = opt.OptimizerConfig(**LM_TRAIN_OPT)
+    new_p, new_opt, _ = opt.apply_update(
+        params, g_tree, opt.init_opt_state(params, ocfg), ocfg)
+    state_over = max(mesh_excess(whole(f), mesh_flat(w), LM_OPT_TOL)
+                     for f, w in (("params", new_p), ("m", new_opt["m"]),
+                                  ("v", new_opt["v"])))
+    want_aux = float(aux["moe_aux"].detach()) if "moe_aux" in aux else None
+    got_aux = ranks[0]["moe_aux"]
+    line = {"phase": "families_train", "part": "mesh_vs_1x1", "case": name,
+            "arch": spec["arch"], "mesh": list(spec["mesh"]),
+            "over": spec["over"], "loss_mesh": ranks[0]["loss"],
+            "loss_1x1": float(loss),
+            "loss_rel_diff": abs(ranks[0]["loss"] - float(loss))
+            / abs(float(loss)),
+            "moe_aux_mesh": got_aux, "moe_aux_1x1": want_aux,
+            "grad_over_bar": mesh_excess(grads, mesh_flat(g1), 1e-4),
+            "state_over_bar": state_over,
+            "losses_equal_across_ranks": len({r["loss"] for r in ranks}) == 1,
+            "wall_s": [r["wall_s"] for r in ranks],
+            "peak_gb": [r["peak_gb"] for r in ranks], "tol": FT_RULE}
+    aux_ok = (want_aux is None and got_aux is None) or (
+        want_aux is not None and got_aux is not None
+        and abs(got_aux - want_aux) <= 1e-5 * abs(want_aux))
+    emit(line)
+    require(line["loss_rel_diff"] <= 1e-5 and line["grad_over_bar"] <= 1
+            and line["state_over_bar"] <= 1 and aux_ok
+            and line["losses_equal_across_ranks"],
+            f"families_train mesh {name}: {line}")
+
+
+def phase_families_train(torch, paths):
+    """The families' training, TP decode and CLIs on the card: (1) each
+    family's f32 smoke step card against CPU (the MoE archs dense and
+    dispatching at capacity 0.5); (2) grok-1 (1 layer), internvl2 (6) and
+    whisper-medium (whole) at full width, 1,024 tokens (``FT_DEPTH``), a
+    warm-up and 3 steps, each distinct kernel call of the steps against
+    its plain version; llama4 and jamba their smoke steps only
+    (``FT_SMOKE_ONLY`` gives why); int8 internvl2 and whisper-medium at
+    full width and depth 2, card against CPU (``ft_int8_serve``);
+    (3) two gloo ranks sharing the card: grok-1's dispatch step at 2x1 and
+    whisper's at 1x2 against the card's 1x1, TP 2 decode of the four
+    decoder families' f32 smoke configs against TP 1 (JAX's 1e-5), and
+    internvl2 at full width and 8 layers in bf16 at TP 2 (each rank's
+    decode GEMMs against their plain versions); (4) ``launch.train
+    --arch whisper-medium --smoke --fail-at 2`` and ``serve --tp 2 --arch
+    jamba-v0.1-52b --smoke`` in two subprocesses side by side, each
+    exiting 0.  Returns the int8 paths' summed launches (row 2l)."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.core import basecaller as bc
+    from repro_torch.distributed import launch
+    part_s = {}
+    t_phase = t0 = time.perf_counter()
+    lines = paths.drive("families_train f32 smoke", (
+        "flash_attention_tf32x3", "matmul", "ssd_scan"),
+        lambda: ft_smoke_steps(torch), train=True)
+    for line in lines:
+        emit(line)
+        aux_ok = line["moe_aux_cpu"] is None or abs(
+            line["moe_aux_card"] - line["moe_aux_cpu"]) <= 1e-5 * abs(
+            line["moe_aux_cpu"])
+        require(line["loss_rel_diff"] <= 1e-5 and line["grad_over_bar"] <= 1
+                and line["state_over_bar"] <= 1 and aux_ok,
+                f"families_train f32 smoke {line['config']}: {line}")
+    part_s["f32_smoke"] = time.perf_counter() - t0
+
+    for arch, why in FT_SMOKE_ONLY.items():
+        emit({"phase": "families_train", "part": "full_width_skipped",
+              "arch": arch, "why": why})
+    for arch, shape in FT_DEPTH.items():
+        t0 = time.perf_counter()
+        ft_full_width(torch, arch, shape, paths)
+        part_s[f"full_width {arch}"] = time.perf_counter() - t0
+    int8 = {}
+    for arch, depth in FT_INT8.items():
+        t0 = time.perf_counter()
+        for k, v in ft_int8_serve(torch, arch, depth, paths).items():
+            int8[k] = int8.get(k, 0) + v
+        part_s[f"int8 {arch}"] = time.perf_counter() - t0
+
+    # two ranks on the card
+    steps = {"grok-1-314b dispatch 2x1": {"arch": "grok-1-314b",
+                                          "over": FT_DISPATCH,
+                                          "mesh": (2, 1)},
+             "whisper-medium 1x2": {"arch": "whisper-medium", "over": None,
+                                    "mesh": (1, 2)}}
+    decoders = [a for a in FAMILY_DEPTH if f32_smoke(a).family != "encdec"]
+    jobs = {name: ("step", spec) for name, spec in steps.items()}
+    jobs["tp2 f32 smoke"] = ("tp_smoke", {"archs": decoders})
+    arch, depth = FT_TP_FULL
+    jobs["tp2 bf16 full"] = ("tp_full", {"arch": arch, "layers": depth})
+    t0 = time.perf_counter()
+    got = launch.run(ft_rank, 2, args=(jobs,), timeout_s=600)
+    part_s["ranks"] = time.perf_counter() - t0
+    ranks = {name: [g[name] for g in got] for name in jobs}
+    for name, spec in steps.items():
+        paths.record(f"families_train mesh {name}", mesh_launches(
+            ranks[name]), ("flash_attention_tf32x3",), train=True)
+        ft_mesh_lines(torch, ranks[name], name, spec)
+    rs = ranks["tp2 f32 smoke"]
+    paths.record("families lm_decode tp2 f32 smoke", mesh_launches(rs),
+                 ("matmul",))
+    dev = torch.device("cuda")
+    for a in decoders:
+        cfg = f32_smoke(a)
+        solo = ft_tp_logits(dev, cfg, bc.params_to(
+            ft_smoke_params(torch, cfg), dev), None, FT_TP_STEPS)
+        over = max(float(np.max(np.abs(g - c) / (1e-5 * (1 + np.abs(c)))))
+                   for r in rs for g, c in zip(r[a], solo))
+        same = all([x.argmax(-1).tolist() for x in r[a]]
+                   == [x.argmax(-1).tolist() for x in solo] for r in rs)
+        line = {"phase": "families_train", "part": "tp2_vs_tp1_f32_smoke",
+                "arch": a, "steps": FT_TP_STEPS, "over_bar": over,
+                "tokens_equal": same,
+                "bar": "|tp2 - tp1| <= 1e-5 (1 + |tp1|), JAX's"}
+        emit(line)
+        require(over <= 1.0 and same, f"families_train TP 2 {a}: {line}")
+    rs = ranks["tp2 bf16 full"]
+    paths.record(f"families lm_decode tp2 {arch}", mesh_launches(rs),
+                 ("matmul_bf16",))
+    line = {"phase": "families_train", "part": "tp2_bf16_full_width",
+            "arch": arch, "layers": depth, "slots": FT_TP_SLOTS,
+            "steps": FT_TP_STEPS, "decode_s": [r["decode_s"] for r in rs],
+            "step_ms": [r["decode_s"] * 1e3 / FT_TP_STEPS for r in rs],
+            "finite": all(r["finite"] for r in rs),
+            "ranks_agree": rs[0]["tokens"] == rs[1]["tokens"],
+            "peak_gb": [r["peak_gb"] for r in rs],
+            "launches": paths.paths[f"families lm_decode tp2 {arch}"]}
+    emit(line)
+    require(line["finite"] and line["ranks_agree"],
+            f"families_train TP 2 bf16 {arch}: {line}")
+    for r, got in enumerate(rs):
+        emit({"phase": "families_train", "part": "tp2_bf16_rank_calls",
+              "arch": arch, "rank": r, "check": "each distinct GEMM of the "
+              "rank's decode against its plain version",
+              "tol": "1 bf16 ulp of max |out|", **got["checked"]})
+        require_path_calls(f"families_train TP 2 bf16 {arch} rank {r}",
+                           got["checked"], ("mat_mul",))
+        require(all(c["route"] == "narrow"
+                    for c in got["checked"]["mat_mul"]),
+                f"families_train TP 2 bf16 {arch} rank {r}: a decode GEMM "
+                f"off the narrow-M kernel: {got['checked']['mat_mul']}")
+
+    # the CLIs, side by side (their walls are reported, not gated)
+    root = os.path.join(ROOT, "build", "families_train_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, *argv], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=SRC), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for name, argv in (
+            ("train", ["-m", "repro_torch.launch.train", "--arch",
+                       "whisper-medium", "--smoke", "--steps", "4",
+                       "--fail-at", "2", "--ckpt-every", "1", "--ckpt-dir",
+                       root]),
+            ("serve_tp2", ["-m", "repro_torch.launch.serve", "--workload",
+                           "lm_decode", "--tp", "2", "--arch",
+                           "jamba-v0.1-52b", "--smoke"]))}
+    for name, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            for other in procs.values():
+                other.kill()
+                other.communicate()
+            raise
+        out = stdout.strip().splitlines()
+        emit({"phase": "families_train", "part": "cli", "run": name,
+              "argv": proc.args[3:], "rc": proc.returncode,
+              "wall_s": time.perf_counter() - t0, "tail": out[-3:]})
+        require(proc.returncode == 0 and (
+            name != "train" or "restarts=1" in stdout),
+            f"families_train {name} exited {proc.returncode}: "
+            f"{stderr[-2000:]}")
+    part_s["clis"] = time.perf_counter() - t0
+    emit({"phase": "families_train", "part": "seconds", **part_s,
+          "wall_s": time.perf_counter() - t_phase})
+    return int8
+
+
 # ------------------------------------------------------------------ main --
 KERNELS = {
     "conv1d": ("src/repro_torch/kernels/csrc/conv1d.cu",
@@ -6511,7 +7300,7 @@ KERNELS = {
                            "src/repro/kernels/matmul.py:120"),
     # row 2l: matmul_int8 at the int8 LM's projections (its narrow-M
     # kernel at decode); its launches are the lm_tp paths' (one rank and
-    # two)
+    # two) and the families' int8 paths' (tiled at prefill, narrow-M)
     "matmul_int8_lm": ("src/repro_torch/kernels/csrc/matmul.cu",
                        "src/repro/kernels/matmul.py:120"),
     # row 5x: the wgmma flash kernel not causal (the encoder-decoder's
@@ -6708,6 +7497,10 @@ def main() -> int:
     decode_launches = phase_lm_decode(torch, F, peaks, table, paths)
     lm_tp_narrow = phase_lm_tp(torch, F, peaks, table, paths)
     family_cross = phase_families(torch, F, peaks, table, paths)
+    int8_family = phase_families_train(torch, paths)
+    # row 2l's launches: the lm_tp paths' narrow-M ones and every int8
+    # launch of the families' int8 paths (tiled and narrow-M)
+    int8_lm = lm_tp_narrow + int8_family.get("matmul_int8", 0)
     # row 2d's launches: the families' decode paths' too
     for path, counts in paths.paths.items():
         if path.startswith(FAMILY_DECODE_PATHS):
@@ -6741,7 +7534,7 @@ def main() -> int:
         r = table.rows[k]
         decode = k in ("matmul_bf16_decode", "matmul_int8_lm")
         launches = (decode_launches["matmul_bf16"]
-                    if k == "matmul_bf16_decode" else lm_tp_narrow
+                    if k == "matmul_bf16_decode" else int8_lm
                     if k == "matmul_int8_lm" else row_launches(k,
                                                                 paths.total))
         kernels.append({
@@ -6759,12 +7552,15 @@ def main() -> int:
             # the narrow-M kernel at one decode layer's seven projections
             # (M = 8) summed, device time, _int_mm at M = 32 (the least it
             # takes) beside the tiled kernel and the bound there, and the
-            # prefill's M = 4096; the lm_tp paths' launches by route
+            # prefill's M = 4096; the lm_tp and families int8 paths'
+            # launches by route
             kernels[-1].update(
                 variant="narrow", device_ms=r["device_ms"],
-                narrow_launches=lm_tp_narrow,
+                narrow_launches=lm_tp_narrow + int8_family.get(
+                    "matmul_int8_narrow", 0),
                 tc_launches=sum(c.get("matmul_int8_tc", 0) for p, c in
-                                paths.paths.items() if p.startswith("lm_tp")),
+                                paths.paths.items()
+                                if p.startswith(("lm_tp", FT_INT8_PATH))),
                 library_m=r["library_m"],
                 kernel_ms_at_library_m=r["kernel_ms_at_library_m"],
                 bound_ms_at_library_m=r["bound_ms_at_library_m"],

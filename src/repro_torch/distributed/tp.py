@@ -31,6 +31,13 @@ Mamba-2 ``in_proj``/head vectors sliced by heads.  Three pieces:
   parallel inputs, the qk-norm scales, Mamba-2's one-group B/C columns,
   the gated RMSNorm's sum of squares.
 
+* **the data axis**: :func:`data_ctx` binds a mesh's data group around a
+  data rank's forward (``trainer.mesh_loss_and_grads``), for the two
+  places where JAX's step computes over the global batch, both in the
+  MoE layer: :func:`data_mean` averages the router's statistics over the
+  data ranks, and :func:`from_previous_data_rank` hands the dispatch's
+  last-row overflow on to the next rank (its gradient back).
+
 * **slicing plan**: :func:`build_plan` gives each parameter leaf a
   :class:`Segments` rule (or ``None``, replicated) through the same
   logical-to-mesh rules ``sharding.logical_spec`` reads.
@@ -171,6 +178,77 @@ def all_gather_last(x: torch.Tensor) -> torch.Tensor:
     if _TP_AXIS is None:
         return x
     return _GatherLast.apply(x, _TP_GROUP, _TP_EXTENT)
+
+
+# ====================================================== the data axis =====
+# Bound by ``trainer.mesh_loss_and_grads`` around a data rank's forward:
+# the few places where JAX's GSPMD step computes over the *global* batch
+# (the MoE router's load-balance statistics and the dispatch's overflow
+# into the next batch row) reduce or hand on across the data ranks.
+_DATA_EXTENT: int = 1
+_DATA_GROUP = None
+
+
+@contextlib.contextmanager
+def data_ctx(n: int, group):
+    """Scope the data axis of a mesh: ``n`` data ranks in ``group``, the
+    mesh's data group (``None`` only at ``n <= 1``, the identity)."""
+    global _DATA_EXTENT, _DATA_GROUP
+    prev = (_DATA_EXTENT, _DATA_GROUP)
+    n = int(n)
+    if n > 1 and group is None:
+        # psum(x, None) would reduce over the model group, not the data's
+        raise ValueError(f"tp.data_ctx({n}): give the mesh's data group")
+    if n > 1 and dist.get_world_size(group) != n:
+        raise ValueError(f"tp.data_ctx({n}): the process group holds "
+                         f"{dist.get_world_size(group)} ranks")
+    _DATA_EXTENT, _DATA_GROUP = (n, group) if n > 1 else (1, None)
+    try:
+        yield
+    finally:
+        _DATA_EXTENT, _DATA_GROUP = prev
+
+
+def data_extent() -> int:
+    """Number of data ranks (1 outside a data region)."""
+    return _DATA_EXTENT
+
+
+def data_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean over the data ranks of equal-sized shards' ``x`` (a psum
+    over ``n``, its backward a psum); identity outside a data region."""
+    if _DATA_EXTENT == 1:
+        return x
+    return psum(x, _DATA_GROUP) / _DATA_EXTENT
+
+
+class _FromPrevious(torch.autograd.Function):
+    """Each rank gets the previous rank's tensor (rank 0 zeros); the
+    gradient goes back the other way (the last rank's is dropped)."""
+
+    @staticmethod
+    def forward(ctx, x, grp):
+        ctx.grp = grp
+        return _neighbour(x.detach(), grp, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _neighbour(g, ctx.grp, +1), None
+
+
+def _neighbour(x: torch.Tensor, grp, step: int) -> torch.Tensor:
+    x = x.contiguous()
+    n, i = dist.get_world_size(grp), dist.get_rank(grp)
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=grp)
+    j = i + step
+    return parts[j] if 0 <= j < n else torch.zeros_like(x)
+
+
+def from_previous_data_rank(x: torch.Tensor) -> torch.Tensor:
+    """Inside a data region, the previous data rank's ``x`` (zeros on data
+    rank 0), with its gradient sent back to that rank."""
+    return _FromPrevious.apply(x, _DATA_GROUP)
 
 
 # ======================================================== slicing rules ===

@@ -39,7 +39,7 @@ def _quantized_operands(op: str, a, w):
             f"{op}: per-channel scales must run along the output (last) "
             f"weight axis, got axis={w.axis} for shape {tuple(w.shape)}")
     if w.act_scale is None:
-        sa = qcore.symmetric_scale(qcore.absmax(a))
+        sa = qcore.dynamic_scale(qcore.absmax(a))
         scale = sa * w.scale.to(a.device)
     else:
         fabric.record(f"fabric.precision.{op}.act_static")

@@ -20,9 +20,9 @@ data axis averaging the gradients (``trainer.jit_train_step``), the
 checkpoint ``full`` from rank 0 or ``sharded`` by model rank
 (``checkpoint.save_on_mesh``), and every rank restarting from the same
 step after ``--fail-at``.  Rank 0 prints JAX's lines, and ``main``
-returns its summary.  The vlm, moe, encdec and hybrid archs raise by
-name (ROADMAP.md, Queue 1 item 6b: their ``loss_fn`` is ported, their
-training launch is not).
+returns its summary.  Every arch trains, with JAX's batches by family
+(``family_batch``): the vlm's zero patch embeddings, the encdec's zero
+frames with its tokens cut to ``seq_len // 8``.
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ import torch
 from repro_torch.configs import ARCHS
 from repro_torch.data import tokens as tokens_mod
 from repro_torch.device import resolve_device
-from repro_torch.models.registry import get_model, require_train_and_tp
+from repro_torch.models.registry import get_model
 from repro_torch.train import checkpoint as ckpt_mod
 from repro_torch.train import fault_tolerance as ft
 from repro_torch.train import optimizer as opt_mod
@@ -79,7 +79,6 @@ def parse_mesh(text: str) -> tuple[int, int]:
 
 def main(argv=None) -> dict:
     args = parser().parse_args(argv)
-    require_train_and_tp(ARCHS[args.arch].smoke_config(), "launch.train")
     d, m = parse_mesh(args.mesh)
     if d * m == 1:
         return run(args)
@@ -113,6 +112,25 @@ def _plan(args, cfg):
                              overrides=spec.rules_overrides))
 
 
+def family_batch(batch: dict, cfg, seq_len: int) -> dict:
+    """JAX's batch for ``cfg``'s family (``repro/launch/train.py``) from a
+    token batch: a vlm adds zero ``input_embeds`` (B, frontend_tokens,
+    d_model) in bf16; an encdec takes zero ``frames`` (B, seq_len,
+    d_model) in bf16 and the first ``seq_len // 8`` tokens and labels."""
+    tok = batch["tokens"]
+    if cfg.family == "vlm":
+        batch = dict(batch, input_embeds=torch.zeros(
+            (tok.shape[0], cfg.frontend_tokens, cfg.d_model),
+            dtype=torch.bfloat16, device=tok.device))
+    if cfg.family == "encdec":
+        batch = {"frames": torch.zeros((tok.shape[0], seq_len, cfg.d_model),
+                                       dtype=torch.bfloat16,
+                                       device=tok.device),
+                 "tokens": tok[:, : seq_len // 8],
+                 "labels": batch["labels"][:, : seq_len // 8]}
+    return batch
+
+
 def train_rank(rank: int, world: int, args) -> dict:
     """One rank of ``--mesh DxM`` (``distributed.launch.run``'s target):
     its summary with a digest of its state in place of the state."""
@@ -140,6 +158,12 @@ def run(args, mesh=None, verbose: bool = True) -> dict:
     dev = resolve_device(args.device)
     spec = ARCHS[args.arch]
     cfg = _config(args)
+    if cfg.family == "vlm" and args.seq_len < cfg.frontend_tokens:
+        # JAX's launcher fails here on a shape mismatch in RoPE
+        raise ValueError(
+            f"--seq-len {args.seq_len}: {cfg.name}'s {cfg.frontend_tokens} "
+            "patch embeddings take the first positions of each row; give "
+            "at least as many")
     model = get_model(cfg)
 
     opt_cfg = opt_mod.OptimizerConfig(
@@ -176,7 +200,9 @@ def run(args, mesh=None, verbose: bool = True) -> dict:
         global_batch=args.global_batch)
 
     def batch_fn(step):
-        return tokens_mod.batch_at_step(pipe_cfg, step, device=dev)
+        return family_batch(tokens_mod.batch_at_step(pipe_cfg, step,
+                                                     device=dev),
+                            cfg, args.seq_len)
 
     injector = ft.FailureInjector(fail_at_steps=tuple(args.fail_at))
     monitor = ft.StragglerMonitor()

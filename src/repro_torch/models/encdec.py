@@ -24,6 +24,14 @@ the Hopper kernels on the card, their plain versions on the CPU.  The
 decode cross-attention is :func:`attention.full_attention`, plain ops,
 as JAX computes it in jnp.  ``serve_step`` writes the self-attention K/V
 in place at ``pos``.
+
+Tensor parallelism (training at ``--mesh DxM``, as JAX's GSPMD step): the
+encoder's and decoder's attention and MLP take the decoder families'
+column- and row-parallel branches (JAX's ``build_plan`` rules for
+``encoder/*``, ``decoder/*/attn``, ``decoder/*/xattn`` and the MLPs), and
+``_cross_kv`` projects the replicated encoder states onto this rank's
+heads.  Decode under TP is refused, as JAX's TP engine refuses it
+(``registry.require_train_and_tp``).
 """
 from __future__ import annotations
 
@@ -99,11 +107,12 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _cross_kv(p, enc_out: torch.Tensor, cfg: ModelConfig):
+    """The cross-attention K/V of ``enc_out``, (B, S, Hkv, D) each: under
+    tensor parallelism this rank's heads (``wk``/``wv`` column-parallel,
+    ``enc_out`` replicated)."""
     b, s, _ = enc_out.shape
-    k = torch.matmul(enc_out, p["wk"]).reshape(b, s, cfg.num_kv_heads,
-                                               cfg.head_dim)
-    v = torch.matmul(enc_out, p["wv"]).reshape(b, s, cfg.num_kv_heads,
-                                               cfg.head_dim)
+    k = torch.matmul(enc_out, p["wk"]).reshape(b, s, -1, cfg.head_dim)
+    v = torch.matmul(enc_out, p["wv"]).reshape(b, s, -1, cfg.head_dim)
     return k, v
 
 

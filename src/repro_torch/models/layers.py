@@ -90,7 +90,7 @@ def _row_parallel_int8(x: torch.Tensor, w) -> torch.Tensor:
     if sa is None:
         # the dynamic per-tensor scale is the global absmax: every rank
         # quantizes its slice as the unsharded activation would be
-        sa = qcore.symmetric_scale(tp.pmax(qcore.absmax(x2)))
+        sa = qcore.dynamic_scale(tp.pmax(qcore.absmax(x2)))
     else:
         fabric.record("fabric.precision.matmul.act_static")
     aq = qcore.quantize(x2, sa)

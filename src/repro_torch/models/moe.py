@@ -29,12 +29,27 @@ Two of JAX's semantics are mirrored exactly:
   owners; the port scatters the same way (colliding rows add, the one
   out-of-bounds column goes to a spare column that is then cut off) and
   the gather reads zeros there.
+
+On a data axis (``tp.data_ctx``, bound by ``trainer.mesh_loss_and_grads``)
+each data rank routes its own rows, and two of JAX's global-batch
+semantics cross the ranks (JAX's GSPMD step computes over the whole
+batch):
+
+* the load-balance loss ``E * sum(me * ce)`` is a product of means over
+  every token, so ``me`` and ``ce`` are averaged over the data ranks
+  before the product (``tp.data_mean``; the psum's backward a psum);
+* the last row's overflow, which JAX adds into slot 0 of the next row's
+  slice, belongs to the next data rank's first row: the spare column's
+  (E, d) sum is handed on to it (``tp.from_previous_data_rank``), and its
+  gradient back; the last data rank drops its own, as JAX drops the last
+  row's.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tp
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.param import ScopedBuilder
@@ -83,7 +98,8 @@ def top_k(probs: torch.Tensor, k: int):
 
 def _router(p, x_flat: torch.Tensor, cfg: ModelConfig):
     """x_flat: (T, d) -> (gates (T, k), idx (T, k), aux), all float32 but
-    the int64 idx."""
+    the int64 idx.  On a data axis ``me`` and ``ce`` are the means over
+    every data rank's tokens."""
     logits = torch.matmul(x_flat.float(), p["router"])
     probs = torch.softmax(logits, dim=-1)
     k = cfg.experts_per_token
@@ -97,7 +113,7 @@ def _router(p, x_flat: torch.Tensor, cfg: ModelConfig):
     ce = ce.index_add(0, flat, torch.full(
         flat.shape, 1.0 / (x_flat.shape[0] * k), dtype=torch.float32,
         device=probs.device))
-    aux = e * torch.sum(me * ce)
+    aux = e * torch.sum(tp.data_mean(me) * tp.data_mean(ce))
     return gates, idx, aux
 
 
@@ -127,7 +143,9 @@ def moe_dispatch(p, x: torch.Tensor, cfg: ModelConfig):
     The scatter adds colliding rows (``index_put_(..., accumulate=True)``)
     into an (E, B * cap + 1, d) buffer whose last column takes the one
     out-of-bounds column JAX drops; the experts run on the first B * cap
-    columns, and the gather reads a zero column appended there."""
+    columns, and the gather reads a zero column appended there.  On a
+    data axis the previous data rank's last column is added into column
+    0, its first row's slot 0 (see the module docstring)."""
     bsz, s, d = x.shape
     xf = x.reshape(bsz * s, d)
     gates, idx, aux = _router(p, xf, cfg)
@@ -140,7 +158,12 @@ def moe_dispatch(p, x: torch.Tensor, cfg: ModelConfig):
     x_e = torch.zeros((e, n + 1, d), dtype=x.dtype, device=x.device)
     x_e = x_e.index_put((idx_bsk, col), x[:, :, None].expand(bsz, s, k, d),
                         accumulate=True)
-    y_e = _expert_ffn(p, x_e[:, :n], cfg)
+    if tp.data_extent() > 1:
+        carried = tp.from_previous_data_rank(x_e[:, n])      # (E, d)
+        x_e = torch.cat([x_e[:, :1] + carried[:, None], x_e[:, 1:n]], dim=1)
+    else:
+        x_e = x_e[:, :n]
+    y_e = _expert_ffn(p, x_e, cfg)
     # receive: each choice's row, zeros past the buffer, gate-combined
     y_e = F.pad(y_e, (0, 0, 0, 1))
     y_tk = y_e[idx_bsk, col]                                # (B, S, k, d)

@@ -12,9 +12,10 @@
 An ``encdec`` config gets the encoder-decoder model, whose ``init_cache``
 takes JAX's ``enc_len=1500`` cross-attention length unless told.
 
-Training on the card (``launch.train``) and tensor parallelism run the
-``dense`` and ``ssm`` families; :func:`require_train_and_tp` refuses the
-others by name (ROADMAP.md, Queue 1 item 6b).
+Every family trains (``launch.train``, one device or a mesh of ranks)
+and every decoder family serves tensor-parallel;
+:func:`require_train_and_tp` refuses the one run JAX's own TP engine
+cannot make, the encoder-decoder's TP decode.
 """
 from __future__ import annotations
 
@@ -74,15 +75,14 @@ def get_model(cfg: ModelConfig) -> Model:
     return _decoder_model()
 
 
-# the families that train on the card and run tensor-parallel
-TRAIN_AND_TP_FAMILIES = ("dense", "ssm")
-
-
 def require_train_and_tp(cfg: ModelConfig, what: str) -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP.md Queue 1 item 6b
-    where ``what`` (a training launch, a tensor-parallel run) needs a
-    family outside :data:`TRAIN_AND_TP_FAMILIES`."""
-    if cfg.family not in TRAIN_AND_TP_FAMILIES:
+    """Raise ``NotImplementedError`` where ``what`` (a tensor-parallel
+    decode: ``LMDecodeEngine``'s TP branch, ``serve --tp``) needs the
+    ``encdec`` family: JAX's TP engine does not serve it either (its cache
+    specs have no cross-attention K/V, ``KeyError: 'xk'``).  Training, on
+    one device or over a (data, model) mesh, runs every family."""
+    if cfg.family == "encdec":
         raise NotImplementedError(
-            f"{what}: the {cfg.family} family ({cfg.name}) is not ported "
-            "for it yet (ROADMAP.md, Queue 1 item 6b)")
+            f"{what}: the encdec family ({cfg.name}) has no tensor-parallel "
+            "decode, as JAX's TP engine has none (its cache specs hold no "
+            "cross-attention K/V: KeyError 'xk'); serve it on one device")

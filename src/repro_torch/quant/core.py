@@ -52,6 +52,18 @@ def symmetric_scale(amax, *, qmax: int = QMAX, eps: float = EPS,
     return torch.maximum(a, _f32(eps, device)) / _f32(qmax, device)
 
 
+def dynamic_scale(amax: torch.Tensor) -> torch.Tensor:
+    """A per-call activation scale as jitted JAX forms it: ``max(absmax,
+    eps)`` times the float32 reciprocal of 127.  Under ``jax.jit`` (JAX's
+    serving and training steps) XLA folds the division by the constant
+    into that product, which is an ulp off :func:`symmetric_scale`'s true
+    division for about 5% of absmax values; then every output of the
+    projection is an ulp off too."""
+    device = amax.device
+    return (torch.maximum(_f32(amax, device), _f32(EPS, device))
+            * _f32(1.0 / QMAX, device))
+
+
 def _broadcast_scale(scale, ndim: int, axis: Optional[int], device):
     s = _f32(scale, device)
     if axis is None or s.dim() == 0:

@@ -19,7 +19,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.quant.core import EPS, QMAX, absmax, dequantize, quantize
+from repro_torch.quant.core import absmax, dequantize, dynamic_scale, quantize
 from repro_torch.quant.params import (DEFAULT_WEIGHT_KEYS, _map,
                                       select_weight_leaf)
 
@@ -31,9 +31,7 @@ def fake_quant(x: torch.Tensor, *, axis: Optional[int] = None,
     ``axis`` or per tensor, as jitted JAX forms it: ``max(absmax, eps)``
     times the float32 reciprocal of 127."""
     if scale is None:
-        amax = absmax(x.detach(), axis)
-        scale = torch.clamp_min(amax, EPS) * torch.tensor(
-            1.0 / QMAX, dtype=torch.float32)
+        scale = dynamic_scale(absmax(x.detach(), axis))
     rounded = dequantize(quantize(x.detach(), scale, axis=axis), scale,
                          axis=axis).to(x.dtype)
     return x + (rounded - x).detach()

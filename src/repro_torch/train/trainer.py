@@ -20,15 +20,21 @@ path carry their plain versions' gradients on the card
 
 ``jit_train_step`` is the step over a (data, model) mesh of ranks, what
 JAX's GSPMD shardings of the same step compute (``launch/train.py --mesh
-DxM``).  Each rank takes its data coordinate's contiguous block of the
-global batch and accumulates its micro-batches as above, inside
-``tp.axis_ctx`` on its model group with its slice of the params
-(``tp.partition_params``); the replicated gradients are summed over the
-model group (``tp.reduce_replicated_grads``), every gradient is averaged
-over the data group (one all-reduce a dtype), and AdamW clips by the
-mesh's global norm (``optimizer.global_norm``) and updates the rank's own
-slice in place.  JAX's ``fsdp`` (ZeRO-3 over data, nemotron-4-15b) gives
-the same numbers; the port replicates the state over data instead.
+DxM``).  Each rank takes its data coordinate's contiguous block of every
+micro-batch of the global batch (JAX's micro-batch ``i`` is global rows
+``i * B / accum`` on, sharded over data) and accumulates them as above,
+inside ``tp.axis_ctx`` on its model group with its slice of the params
+(``tp.partition_params``) and ``tp.data_ctx`` on its data group (the MoE
+layer's global-batch statistics and overflow); the replicated gradients
+are summed over the model group (``tp.reduce_replicated_grads``), every
+gradient is averaged over the data group (one all-reduce a dtype), and
+AdamW clips by the mesh's global norm (``optimizer.global_norm``) and
+updates the rank's own slice in place.  JAX's ``fsdp`` (ZeRO-3 over data,
+nemotron-4-15b) gives the same numbers; the port replicates the state
+over data instead.
+
+Both steps' metrics carry the loss's ``moe_aux`` (averaged over the
+micro-batches) where the loss reports one.
 """
 from __future__ import annotations
 
@@ -88,28 +94,39 @@ def loss_and_grads(loss_fn, params, batch, model_cfg, *, seed: float = 1.0):
     return (loss.detach(), aux), tree_map(lambda p: by_id[id(p)], live)
 
 
+def _moe_aux(aux) -> dict:
+    out = aux.get("moe_aux") if isinstance(aux, dict) else None
+    return {} if out is None else {"moe_aux": out.detach()}
+
+
 def _accumulated_grads(loss_fn, params, batch, model_cfg, accum: int,
                        acc_dt, seed: float = 1.0):
-    """``(loss, grads)`` over ``accum`` micro-batches, as JAX's scan."""
+    """``(loss, metrics, grads)`` over ``accum`` micro-batches, as JAX's
+    scan; ``metrics`` the loss's ``moe_aux`` averaged, where it has one."""
     if accum == 1:
-        (loss, _), grads = loss_and_grads(loss_fn, params, batch, model_cfg,
-                                          seed=seed)
-        return loss, grads
+        (loss, aux), grads = loss_and_grads(loss_fn, params, batch,
+                                            model_cfg, seed=seed)
+        return loss, _moe_aux(aux), grads
     micros = _split_micro(batch, accum)
     g_acc = tree_map(lambda p: torch.zeros(
         p.shape, dtype=acc_dt, device=p.device), params)
     loss_sum = torch.zeros((), dtype=torch.float32,
                            device=leaves(params)[0].device)
+    aux_sum = None
     for i in range(accum):
         micro = tree_map(lambda x: x[i], micros)
-        (loss_i, _), g = loss_and_grads(loss_fn, params, micro, model_cfg,
-                                        seed=seed)
+        (loss_i, aux), g = loss_and_grads(loss_fn, params, micro, model_cfg,
+                                          seed=seed)
         tree_map(lambda a, b: a.add_(b.to(acc_dt)), g_acc, g)
         loss_sum = loss_sum + loss_i
+        aux = _moe_aux(aux)
+        if aux:
+            aux_sum = aux["moe_aux"] + (0 if aux_sum is None else aux_sum)
         del g
     grads = tree_map(lambda g: (g / accum).to(torch.float32), g_acc)
     del g_acc
-    return loss_sum / accum, grads
+    metrics = {} if aux_sum is None else {"moe_aux": aux_sum / accum}
+    return loss_sum / accum, metrics, grads
 
 
 def make_train_step(loss_fn: Callable, model_cfg,
@@ -123,23 +140,30 @@ def make_train_step(loss_fn: Callable, model_cfg,
 
     def step(state, batch):
         params = state["params"]
-        loss, grads = _accumulated_grads(loss_fn, params, batch, model_cfg,
-                                         accum, acc_dt)
+        loss, aux, grads = _accumulated_grads(loss_fn, params, batch,
+                                              model_cfg, accum, acc_dt)
         new_params, new_opt, om = opt_mod.apply_update_(
             params, grads, state["opt"], opt_cfg)
-        return {"params": new_params, "opt": new_opt}, {"loss": loss, **om}
+        return ({"params": new_params, "opt": new_opt},
+                {"loss": loss, **om, **aux})
 
     return step
 
 
-def _data_rows(x: torch.Tensor, index: int, n: int) -> torch.Tensor:
-    """Data rank ``index`` of ``n``'s contiguous block of the global batch
-    rows (JAX's batch sharding over ``data``)."""
-    if x.shape[0] % n:
+def _data_rows(x: torch.Tensor, index: int, n: int,
+               accum: int = 1) -> torch.Tensor:
+    """Data rank ``index`` of ``n``'s rows of the global batch: its
+    contiguous block of each of the ``accum`` micro-batches, in order (JAX
+    splits the global batch into micro-batches, then shards each over
+    ``data``)."""
+    if x.shape[0] % (n * accum):
         raise ValueError(f"global batch of {x.shape[0]} rows does not "
-                         f"split over {n} data ranks")
-    b = x.shape[0] // n
-    return x[index * b: (index + 1) * b]
+                         f"split over {n} data ranks x {accum} "
+                         "micro-batches")
+    b = x.shape[0] // (n * accum)
+    x = x.reshape((accum, n * b) + tuple(x.shape[1:]))
+    return x[:, index * b: (index + 1) * b].reshape(
+        (accum * b,) + tuple(x.shape[2:]))
 
 
 def _mesh_axes(mesh, plan):
@@ -155,20 +179,32 @@ def mesh_loss_and_grads(loss_fn, params, batch, model_cfg,
                         trainer_cfg: TrainerConfig = TrainerConfig(), *,
                         mesh, plan=None):
     """``(loss, grads)`` of the *global* ``batch`` on a bound ``(data,
-    model)`` mesh, every rank calling together: this data rank's rows,
-    accumulated as :func:`make_train_step`, inside ``tp.axis_ctx`` on the
-    model group (the loss seeded ``1 / m``); then the replicated gradients
+    model)`` mesh, every rank calling together: this data rank's rows of
+    each micro-batch, accumulated as :func:`make_train_step`, inside
+    ``tp.axis_ctx`` on the model group (the loss seeded ``1 / m``) and
+    ``tp.data_ctx`` on the data group; then the replicated gradients
     summed over the model group and every gradient, and the loss, averaged
     over the data group.  ``grads`` is this rank's slice, each leaf whole
     for it."""
+    loss, _, grads = _mesh_loss_aux_grads(
+        loss_fn, params, batch, model_cfg, trainer_cfg, mesh=mesh, plan=plan)
+    return loss, grads
+
+
+def _mesh_loss_aux_grads(loss_fn, params, batch, model_cfg, trainer_cfg, *,
+                         mesh, plan):
+    """:func:`mesh_loss_and_grads` with the loss's ``moe_aux`` between
+    (the global batch's already: the router reduces over data)."""
     from repro_torch.distributed import tp
     d, m = _mesh_axes(mesh, plan)
     model_grp = mesh.group("model") if m > 1 else None
     di = mesh.index("data") if d > 1 else 0
-    local = tree_map(lambda x: _data_rows(x, di, d), batch)
-    with tp.axis_ctx("model", m, group=model_grp):
-        loss, grads = _accumulated_grads(
-            loss_fn, params, local, model_cfg, trainer_cfg.grad_accum,
+    accum = trainer_cfg.grad_accum
+    local = tree_map(lambda x: _data_rows(x, di, d, accum), batch)
+    with tp.axis_ctx("model", m, group=model_grp), \
+            tp.data_ctx(d, mesh.group("data") if d > 1 else None):
+        loss, aux, grads = _accumulated_grads(
+            loss_fn, params, local, model_cfg, accum,
             torch_dtype(trainer_cfg.accum_dtype), seed=1.0 / m)
     if m > 1:
         tp.reduce_replicated_grads(grads, plan, model_grp)
@@ -177,7 +213,7 @@ def mesh_loss_and_grads(loss_fn, params, batch, model_cfg,
         tp.all_reduce_flat(flat, mesh.group("data"))
         for g in flat:
             g.div_(d)
-    return loss, grads
+    return loss, aux, grads
 
 
 def jit_train_step(loss_fn: Callable, model_cfg,
@@ -203,13 +239,15 @@ def jit_train_step(loss_fn: Callable, model_cfg,
 
     def step(state, batch):
         params = state["params"]
-        loss, grads = mesh_loss_and_grads(loss_fn, params, batch, model_cfg,
-                                          trainer_cfg, mesh=mesh, plan=plan)
+        loss, aux, grads = _mesh_loss_aux_grads(
+            loss_fn, params, batch, model_cfg, trainer_cfg, mesh=mesh,
+            plan=plan)
         gnorm = opt_mod.global_norm(grads, plan if m > 1 else None,
                                     model_grp)
         new_params, new_opt, om = opt_mod.apply_update_(
             params, grads, state["opt"], opt_cfg, gnorm=gnorm)
-        return {"params": new_params, "opt": new_opt}, {"loss": loss, **om}
+        return ({"params": new_params, "opt": new_opt},
+                {"loss": loss, **om, **aux})
 
     return step
 

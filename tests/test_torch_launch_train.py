@@ -2,7 +2,7 @@
 summary lines, recovery through the CLI equal to an uninterrupted run, a
 ``--mesh`` run in gloo ranks, and what the launcher refuses (a mesh of
 more ranks than the machine starts or one the model cannot split, a
-missing card, an unported family)."""
+missing card)."""
 import os
 import subprocess
 import sys
@@ -76,9 +76,11 @@ def test_launcher_refuses_what_one_card_cannot_run(monkeypatch):
         launch_train.main(["--device", "cpu", "--smoke", "--mesh", "1x3"])
     with pytest.raises(ValueError, match="expected DxM"):
         launch_train.main(["--device", "cpu", "--smoke", "--mesh", "2"])
-    with pytest.raises(NotImplementedError, match="vlm family.*item 6b"):
+    # every family trains now (tests/test_torch_families_train.py holds
+    # them to JAX); what JAX cannot shard is refused as for the others
+    with pytest.raises(ValueError, match="cannot shard over tp=3"):
         launch_train.main(["--device", "cpu", "--smoke", "--arch",
-                           "internvl2-76b"])
+                           "internvl2-76b", "--mesh", "1x3"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_train.main(["--smoke", "--steps", "1"])

@@ -218,11 +218,11 @@ def test_unported_branches_raise_naming_their_items(tmp_path):
     shapes, _ = model.abstract_params(_tcfg(jcfg))
     assert shapes["embedding"]["embed"].device.type == "meta"
     # the encoder-decoder family is ported (test_torch_encdec.py); its
-    # tensor-parallel decode waits (item 6b)
+    # tensor-parallel decode is refused, as JAX's TP engine cannot serve it
     from repro_torch.models import encdec as ted
     whisper = _tcfg(JARCHS["whisper-medium"].smoke_config())
     assert get_model(whisper).serve is ted.serve_step
-    with pytest.raises(NotImplementedError, match="item 6b"):
+    with pytest.raises(NotImplementedError, match="KeyError 'xk'"):
         tengine.build("lm_decode", "smoke", cfg=whisper, mesh=2,
                       device="cpu")
     # tensor parallelism runs in ranks of a process group (item 5b:

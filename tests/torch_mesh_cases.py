@@ -1,7 +1,8 @@
-"""The rank side of ``tests/test_torch_mesh_train.py`` and
-``tests/test_torch_seq_decode.py``: what each rank of a (data, model) mesh
-runs, in a module that imports neither JAX nor the JAX package (the ranks
-are spawned processes that import this module by name).
+"""The rank side of ``tests/test_torch_mesh_train.py``,
+``tests/test_torch_seq_decode.py``, ``tests/test_torch_families_train.py``
+and ``tests/test_torch_families_tp.py``: what each rank of a (data, model)
+mesh runs, in a module that imports neither JAX nor the JAX package (the
+ranks are spawned processes that import this module by name).
 
 Inputs arrive as numpy trees; every rank returns numpy results (flat
 ``{checkpoint key: array}`` dicts of its slice), which the parent holds
@@ -82,6 +83,94 @@ def mesh_step(rank: int, world: int, spec: dict) -> dict:
                      "step_gnorm": float(metrics["grad_norm"]),
                      "grads": flat(grads), "params": flat(new["params"]),
                      "m": flat(new["opt"]["m"]), "v": flat(new["opt"]["v"])}
+    return out
+
+
+def family_config(arch: str, over: dict) -> ModelConfig:
+    """The arch's f32 smoke config with the fields of ``over`` replaced
+    (``moe_impl``, ``moe_capacity_factor``)."""
+    return dataclasses.replace(config(arch), **over)
+
+
+def family_mesh_step(rank: int, world: int, spec: dict) -> dict:
+    """One ``jit_train_step`` of each case of ``spec`` (``{name: (arch,
+    config overrides, (d, m), micro-batches)}``) on its params and global
+    batch (numpy, ``spec["params"][arch]``, ``spec["batches"][arch]``): as
+    :func:`mesh_step`, with the step's ``moe_aux`` beside."""
+    torch.set_num_threads(1)
+    ocfg = opt_mod.OptimizerConfig(**OPT)
+    out = {}
+    for name, (arch, over, (d, m), accum) in spec["cases"].items():
+        tcfg = trainer.TrainerConfig(grad_accum=accum)
+        mesh = make_mesh((d, m), ("data", "model"))
+        cfg = family_config(arch, over)
+        model = get_model(cfg)
+        plan = plan_for(cfg, m)
+        params = load_numpy_params(spec["params"][arch], "cpu")
+        if plan is not None:
+            params = tp.partition_params(params, plan,
+                                         rank=mesh.index("model"))
+        batch = {k: torch.from_numpy(v)
+                 for k, v in spec["batches"][arch].items()}
+        _, grads = trainer.mesh_loss_and_grads(model.loss, params, batch,
+                                               cfg, tcfg, mesh=mesh,
+                                               plan=plan)
+        step = trainer.jit_train_step(model.loss, cfg, ocfg, tcfg, mesh=mesh,
+                                      plan=plan)
+        state = {"params": params,
+                 "opt": opt_mod.init_opt_state(params, ocfg)}
+        new, metrics = step(state, batch)
+        aux = metrics.get("moe_aux")
+        out[name] = {"coords": list(mesh.coords),
+                     "loss": float(metrics["loss"]),
+                     "gnorm": float(metrics["grad_norm"]),
+                     "moe_aux": None if aux is None else float(aux),
+                     "grads": flat(grads), "params": flat(new["params"]),
+                     "m": flat(new["opt"]["m"]), "v": flat(new["opt"]["v"])}
+    return out
+
+
+def family_launch(rank: int, world: int, spec: dict) -> dict:
+    """``launch.train``'s loop on this rank for each ``{name: argv}`` of
+    ``spec`` (a ``--mesh`` of the world's size): its losses."""
+    torch.set_num_threads(1)
+    out = {}
+    for name, argv in spec.items():
+        args = _train_args(argv)
+        d, m = launch_train.parse_mesh(args.mesh)
+        res = launch_train.run(args, mesh=make_mesh((d, m), ("data",
+                                                             "model")),
+                               verbose=False)
+        out[name] = [res["history"][s] for s in sorted(res["history"])]
+    return out
+
+
+def family_tp_decode(rank: int, world: int, spec: dict) -> dict:
+    """Tensor-parallel decode over the world (``LMDecodeEngine(mesh=
+    world)``, 2 slots) of each ``{arch: numpy params}`` of
+    ``spec["params"]`` for ``spec["steps"]`` steps from tokens 3 and 5,
+    each feeding back its argmax (JAX's ``decode_logits``); then
+    ``serve --tp`` on this rank for each argv of ``spec["serve"]``
+    (``serve._serve_rank``, what ``serve.main`` starts a rank with)."""
+    from repro_torch.engine import build
+    from repro_torch.launch import serve
+    torch.set_num_threads(1)
+    out = {}
+    for arch, tree in spec["params"].items():
+        cfg = config(arch)
+        eng = build("lm_decode", model=get_model(cfg),
+                    params=load_numpy_params(tree, "cpu"), cfg=cfg,
+                    slots=2, max_len=16, mesh=world, device="cpu")
+        toks = np.array([[3], [5]], np.int32)
+        logits = []
+        for i in range(spec["steps"]):
+            eng.pos[:] = i
+            logits.append(eng._step(toks))
+            toks = logits[-1].argmax(-1)[:, None].astype(np.int32)
+        out[arch] = logits
+    for name, argv in spec["serve"].items():
+        rep = serve._serve_rank(rank, world, argv)
+        out[name] = {k: rep[k] for k in ("completed", "steps", "dispatches")}
     return out
 
 
