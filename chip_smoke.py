@@ -97,6 +97,9 @@ Phases, each printing JSON lines:
    (equal to its plain version on card and CPU), primer trim and
    ``detect`` in ``ed`` and ``fm`` modes (pathogen-X present, pathogen-Y
    absent).  The variant caller on a 30-SNP pileup, within 2e-5.
+   ``pipeline_shim``: one 32 x 2048 chunk through the deprecated
+   ``StreamingBasecallPipeline(use_kernel=True)`` (conv1d and matmul on
+   the card), its reads equal to the ``pathogen_pipeline`` engine's.
 7. ``lm_prefill``: qwen3-4b (36 layers) and mamba2-780m (48 layers) at
    their published widths and depths, random bf16 params from a
    ``torch.Generator`` on the card (seed 0), through
@@ -253,6 +256,18 @@ Phases, each printing JSON lines:
    backward's span (reported, not gated); ``python -m
    repro_torch.launch.train --smoke --steps 20 --fail-at 7`` in a
    subprocess exits 0.
+10d. ``dryrun``: the dry run on meta tensors (``launch.steps`` cells at
+   1x1, ``analysis.roofline`` at the H100's rates) for the LM phases' cut
+   shapes: prefill 1 x 4096 of the five phase-7 archs, qwen3-4b's train
+   step at 8 x 128, decode at the ``full`` preset's 8 x 512 (qwen3-4b,
+   mamba2-780m).  A worker process (``chip_smoke.py --dryrun-cells OUT``,
+   no card) traces them beside phases 2-10b; the phase holds them to what
+   those phases measured: every cell ``ok`` or skipped with a reason, the
+   predicted argument bytes equal to the real params' (prefill) and
+   train state's bytes, and the predicted peak within 15% of
+   ``max_memory_allocated`` for qwen3-4b's prefill and train step; each
+   cell's bound, the measured wall, their ratio and ``model_flops / wall
+   / 989e12`` are reported, not gated.
 11. ``serve_cli``: ``python -m repro_torch.launch.serve`` in subprocesses:
    basecall, adaptive_sampling (with ``--trace`` and ``--timeseries``,
    both validated) and pathogen_pipeline, ``--fleet`` on a four-tenant
@@ -318,23 +333,20 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-# Published peaks (NVIDIA data sheets, dense, no sparsity): fp32 on the
-# CUDA cores, TF32, bf16 and int8 on the tensor cores (TF32 half of bf16)
-# and device-memory bandwidth, by H100 part.
-PEAKS = {
-    "sxm": {"fp32_flops": 67e12, "tf32_flops": 495e12, "bf16_flops": 989e12,
-            "int8_ops": 1979e12, "bytes_per_s": 3.35e12},
-    "pcie": {"fp32_flops": 51e12, "tf32_flops": 378e12, "bf16_flops": 756e12,
-             "int8_ops": 1513e12, "bytes_per_s": 2.0e12},
-    "nvl": {"fp32_flops": 60e12, "tf32_flops": 417.5e12,
-            "bf16_flops": 835e12, "int8_ops": 1671e12,
-            "bytes_per_s": 3.9e12},
-}
+# The published peaks by H100 part (NVIDIA data sheets, dense, no
+# sparsity: fp32 on the CUDA cores, TF32, bf16 and int8 on the tensor
+# cores, and device-memory bandwidth) are repro_torch.analysis.roofline's
+# PEAKS, read through its peaks_for once the checkout's src is on the path.
 # int32 runs on the CUDA cores at half the fp32 lane count (64 INT32 vs
 # 128 FP32 lanes per Hopper SM, Hopper architecture white paper)
 INT32_SHARE = 0.5
 F32_TOL = 2e-5        # the JAX suite's f32 bar per op (tests/test_kernels.py)
 STACK_TOL = 1e-4      # five stacked f32 layers reassociate
+
+
+# what the LM phases measure, for phase dryrun's predictions:
+# (kind, arch) -> {"wall_ms", "peak_bytes", "argument_bytes", ...}
+MEASURED: dict = {}
 
 
 class CheckFailed(RuntimeError):
@@ -348,15 +360,6 @@ def emit(obj) -> None:
 def require(cond, msg) -> None:
     if not cond:
         raise CheckFailed(msg)
-
-
-def peaks_for(name: str) -> dict:
-    low = name.lower()
-    if "pcie" in low:
-        return PEAKS["pcie"]
-    if "nvl" in low:
-        return PEAKS["nvl"]
-    return PEAKS["sxm"]
 
 
 def bound_ms(peaks, nbytes: float, ops: float, int_ops: bool = False,
@@ -2566,6 +2569,7 @@ def phase_lm_prefill(torch, paths):
     from repro_torch.launch import steps
     from repro_torch.models import transformer
     from repro_torch.core import basecaller as bc
+    from repro_torch.utils.tree import tree_bytes
     dev = torch.device("cuda")
     for arch, per_prefill in LM_PATHS:
         name = "dense_prefill" if arch in DENSE_ARCHS else "lm_prefill"
@@ -2596,6 +2600,9 @@ def phase_lm_prefill(torch, paths):
         path = f"lm_prefill {arch}"
         logits, walls = paths.drive(path, tuple(per_prefill), run)
         med = float(np.median(walls))
+        MEASURED["prefill", arch] = {
+            "wall_ms": med, "peak_bytes": torch.cuda.max_memory_allocated(),
+            "argument_bytes": tree_bytes(params), "batch": 1, "seq": LM_SEQ}
         finite = bool(torch.isfinite(logits).all().item())
         emit({"phase": name, "arch": arch, "params": tree_numel(params),
               "layers": cfg.num_layers, "batch": 1, "seq": LM_SEQ,
@@ -2870,6 +2877,9 @@ def phase_lm_decode(torch, F, peaks, table, paths):
         per_step = 3 * cfg.num_layers if cfg.family == "dense" else 0
         fabric = {k: v for k, v in rep.items() if k.startswith("fabric.")}
         lens = sorted({len(r.tokens_out) for r in eng.finished})
+        MEASURED["decode", arch] = {
+            "wall_ms": float(np.percentile(step_ms, 50)),
+            "batch": eng.slots, "seq": eng.max_len}
         emit({"phase": "lm_decode", "part": "full_preset", "arch": arch,
               "slots": eng.slots, "max_len": eng.max_len,
               "layers": cfg.num_layers, "init_s": init_s,
@@ -5242,9 +5252,15 @@ def phase_lm_train(torch, paths):
                 walls.append((time.perf_counter() - t1) * 1e3)
             return st, losses, walls
         path = f"lm_train {arch}"
+        state_bytes = tree_bytes(state)
         state, losses, walls = paths.drive(path, tuple(per_step), run,
                                            train=True)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        MEASURED["train", arch] = {
+            "wall_ms": float(np.median(walls[1:])),
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "argument_bytes": state_bytes, "batch": LM_TRAIN_BATCH,
+            "seq": LM_TRAIN_SEQ}
         depth = LM_PROFILE_LAYERS.get(arch, cfg.num_layers)
         if depth != cfg.num_layers:
             # the profiler's ~10^5 events a layer of the SSD recurrence's
@@ -5333,6 +5349,183 @@ MESH_SEQ = {"batch": 8, "seq": 32_768,
 MESH_SEQ_TOL = 2e-5         # tests/test_mini_dryrun.py:104
 MESH_ENGINE_REQUESTS = 4
 MESH_LANES = ("cuda:0", "cuda:0")
+
+
+# ------------------------------------------------------- phase dryrun --
+# the cells of the LM phases' own cut shapes (section 4): prefill 1 x 4096
+# (lm_prefill, dense_prefill), train 8 x 128 (lm_train, qwen3-4b) and
+# decode at the full preset's 8 slots x 512 (lm_decode)
+DRYRUN_PREFILL = tuple(arch for arch, _ in LM_PATHS)
+DRYRUN_TRAIN = ("qwen3-4b",)
+DRYRUN_DECODE = ("qwen3-4b", "mamba2-780m")
+DRYRUN_DECODE_SHAPE = (8, 512)       # engine/lm.py's "full" preset
+DRYRUN_PEAK_TOL = 0.15               # predicted peak vs max_memory_allocated
+DRYRUN_GATED = (("prefill", "qwen3-4b"), ("train", "qwen3-4b"))
+DRYRUN_WORKER_S = 600                # the worker's own limit
+DRYRUN_OUT = os.path.join(ROOT, "build", "dryrun_cells.json")
+
+
+def dryrun_cells():
+    """(kind, arch, batch, seq) of every cell the phase traces."""
+    cells = [("prefill", a, 1, LM_SEQ) for a in DRYRUN_PREFILL]
+    cells += [("train", a, LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+              for a in DRYRUN_TRAIN]
+    cells += [("decode", a) + DRYRUN_DECODE_SHAPE for a in DRYRUN_DECODE]
+    return cells
+
+
+def dryrun_predict(out_path) -> None:
+    """The worker (``chip_smoke.py --dryrun-cells OUT``, started by
+    ``main`` beside the card's phases; it needs no card): each of
+    :func:`dryrun_cells` built at a 1x1 mesh (``launch.steps.build_cell``)
+    and traced on meta tensors (``lower_cell``), with its roofline at the
+    H100's rates, written to ``out_path`` as JSON."""
+    sys.path.insert(0, SRC)
+    from repro_torch.analysis import roofline
+    from repro_torch.configs import ARCHS, ShapeCell
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((1, 1), ("data", "model"))
+    out = []
+    for kind, arch, batch, seq in dryrun_cells():
+        spec = ARCHS[arch]
+        cfg = spec.config()
+        shape = ShapeCell(f"{kind}_{batch}x{seq}", kind, seq, batch)
+        rec = {"kind": kind, "arch": arch, "batch": batch, "seq": seq}
+        try:
+            cell = steps.build_cell(arch, spec, shape, mesh)
+        except steps.Unsupported as e:
+            out.append({**rec, "status": "skipped", "reason": str(e)})
+            continue
+        traced = steps.lower_cell(cell)
+        rl = roofline.analyze(traced.cost, cfg, kind, seq, batch, (1, 1))
+        out.append({**rec, "status": "ok", "trace_s": traced.trace_s,
+                    **traced.memory(), "flops": traced.cost.flops,
+                    "dominant": rl.dominant,
+                    "compute_ms": rl.compute_s * 1e3,
+                    "memory_ms": rl.memory_s * 1e3,
+                    "bound_ms": max(rl.compute_s, rl.memory_s,
+                                    rl.collective_s) * 1e3,
+                    "model_flops": rl.model_flops_total})
+        del cell, traced
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def start_dryrun_worker():
+    """:func:`dryrun_predict` in a process of its own, so the traces take
+    none of the card phases' time."""
+    os.makedirs(os.path.dirname(DRYRUN_OUT), exist_ok=True)
+    if os.path.exists(DRYRUN_OUT):
+        os.remove(DRYRUN_OUT)
+    with open(DRYRUN_OUT + ".err", "w") as err:
+        return subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dryrun-cells",
+             DRYRUN_OUT], cwd=ROOT, stdout=subprocess.DEVNULL, stderr=err)
+
+
+def phase_dryrun(torch, card, worker):
+    """The dry run on meta tensors (``launch.dryrun``'s cells at 1x1) for
+    the LM phases' cut shapes, held to what those phases measured (no card
+    work of its own; the worker traced them beside the earlier phases).
+    Gated: every cell ``ok`` or skipped with a reason; the predicted
+    argument bytes equal the real params' (prefill) and train state's
+    bytes exactly, and the predicted peak is within DRYRUN_PEAK_TOL of
+    ``max_memory_allocated`` for qwen3-4b's prefill at 1 x 4096 and its
+    train step at 8 x 128.  Reported: each cell's roofline bound at the
+    H100's rates, the measured wall, their ratio and the model FLOP
+    utilisation ``model_flops / wall / 989e12``, beside the card's name
+    and power limit."""
+    from repro_torch.analysis import roofline
+    t_phase = time.perf_counter()
+    try:
+        worker.wait(timeout=DRYRUN_WORKER_S)
+    except subprocess.TimeoutExpired:
+        worker.kill()
+        worker.wait()
+        raise CheckFailed(f"dryrun: the worker ran past {DRYRUN_WORKER_S} s")
+    with open(DRYRUN_OUT + ".err") as f:
+        err = f.read()
+    require(worker.returncode == 0, f"dryrun: the worker exited "
+            f"{worker.returncode}: {err[-2000:]}")
+    with open(DRYRUN_OUT) as f:
+        cells = json.load(f)
+    require(len(cells) == len(dryrun_cells()), "dryrun: cells missing")
+    for rec in cells:
+        kind, arch = rec["kind"], rec["arch"]
+        if rec["status"] != "ok":
+            emit({"phase": "dryrun", **rec, "card": card})
+            require(rec["status"] == "skipped" and rec["reason"],
+                    f"dryrun {arch} {kind}: {rec['status']} without a "
+                    "reason")
+            continue
+        got = MEASURED.get((kind, arch), {})
+        wall = got.get("wall_ms")
+        line = {"phase": "dryrun", **rec,
+                "wall_ms": wall if wall is not None else "not measured",
+                "wall_over_bound": (wall / rec["bound_ms"]
+                                    if wall is not None else "not measured"),
+                "mfu": (rec["model_flops"] / (wall / 1e3)
+                        / roofline.PEAK_FLOPS if wall is not None
+                        else "not measured"),
+                "card": card}
+        if "peak_bytes" in got:
+            line.update(measured_peak_bytes=got["peak_bytes"],
+                        peak_over_measured=rec["peak_bytes"]
+                        / got["peak_bytes"],
+                        measured_argument_bytes=got["argument_bytes"])
+        emit(line)
+        if (kind, arch) in DRYRUN_GATED:
+            require("peak_bytes" in got, f"dryrun {arch} {kind}: the "
+                    f"{kind} phase measured nothing to hold it to")
+            args = rec["argument_bytes_by_arg"][0]
+            require(args == got["argument_bytes"]
+                    and rec["unused_argument_bytes"] == 0,
+                    f"dryrun {arch} {kind}: predicted argument bytes "
+                    f"{args}, the card's {got['argument_bytes']}")
+            excess = abs(rec["peak_bytes"] / got["peak_bytes"] - 1)
+            require(excess <= DRYRUN_PEAK_TOL,
+                    f"dryrun {arch} {kind}: predicted peak "
+                    f"{rec['peak_bytes']} vs measured {got['peak_bytes']} "
+                    f"({excess:.3f} over {DRYRUN_PEAK_TOL})")
+    emit({"phase": "dryrun", "part": "seconds",
+          "wait_s": time.perf_counter() - t_phase,
+          "trace_s": sum(r.get("trace_s", 0.0) for r in cells),
+          "card": card})
+
+
+def phase_pipeline_shim(torch, cfg, params, paths):
+    """One 32 x 2,048 chunk through the deprecated
+    ``StreamingBasecallPipeline(use_kernel=True)`` (the card: conv1d and
+    matmul kernels), its reads equal to the pathogen_pipeline engine's on
+    the same chunk."""
+    import warnings
+
+    import numpy as np
+
+    import repro_torch.engine as te
+    from repro_torch.core.pipeline import StreamingBasecallPipeline
+    chunk = np.random.default_rng(23).normal(size=(32, 2048)).astype(
+        np.float32)
+
+    def run():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            pipe = StreamingBasecallPipeline(params, cfg, use_kernel=True)
+        return list(pipe.run(iter([chunk]))), pipe.stats
+    out, stats = paths.drive("pipeline_shim", ("conv1d", "matmul"), run)
+    eng = te.build("pathogen_pipeline", params=params, cfg=cfg)
+    eng.submit(chunk)
+    eng.drain()
+    want = list(eng.outputs)
+    same = len(out) == len(want) == 1 and all(
+        np.array_equal(a, b) for (ta, la), (tb, lb) in zip(out, want)
+        for a, b in ((ta, tb), (la, lb)))
+    emit({"phase": "pipeline_shim", "chunks": stats.chunks,
+          "device_dispatches": stats.device_dispatches,
+          "bases_called": stats.bases_called, "equal_engine": same,
+          "launches": paths.paths["pipeline_shim"]})
+    require(same, "pipeline_shim: the shim's reads differ from the engine's")
 
 
 def mesh_flat(tree) -> dict:
@@ -7415,6 +7608,17 @@ def main() -> int:
     sys.path.insert(0, SRC)
     import torch.nn.functional as F
 
+    dryrun_worker = start_dryrun_worker()
+    try:
+        return run_phases(torch, F, dryrun_worker)
+    finally:
+        if dryrun_worker.poll() is None:
+            dryrun_worker.kill()
+            dryrun_worker.wait()
+
+
+def run_phases(torch, F, dryrun_worker) -> int:
+    from repro_torch.analysis.roofline import peaks_for
     from repro_torch.core import basecaller as bc
     from repro_torch.engine.base import quantize_edge_params
     from repro_torch.kernels import _build
@@ -7492,6 +7696,7 @@ def main() -> int:
           **int8_conv_on_tensor_cores(paths.paths["basecall edge_int8"],
                                       "basecall edge_int8")})
     phase_pathogen(torch, cfg, panel, known, paths)
+    phase_pipeline_shim(torch, cfg, params, paths)
     phase_lm_prefill(torch, paths)
     phase_lm_parity_f32(torch, paths)
     decode_launches = phase_lm_decode(torch, F, peaks, table, paths)
@@ -7510,6 +7715,7 @@ def main() -> int:
     field = phase_field(torch, paths)
     phase_train(torch, paths)
     phase_lm_train(torch, paths)
+    phase_dryrun(torch, card, dryrun_worker)
     phase_mesh(torch, paths, {"flowcell_512": full["goldens"],
                               "edge_int8": full_int8["goldens"]},
                field, cfg, qparams)
@@ -7670,6 +7876,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dryrun-cells"]:
+        dryrun_predict(sys.argv[2])
+        sys.exit(0)
     try:
         sys.exit(main())
     except CheckFailed as e:

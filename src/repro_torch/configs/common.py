@@ -29,3 +29,6 @@ class ArchSpec:
     optimizer_state_dtype: str = "float32"  # bf16 for the giants
     grad_accum_dtype: str = "float32"
     schedule: str = "cosine"                # optimizer.schedule_lr's name
+
+    def accum_for(self, shape_name: str) -> int:
+        return self.grad_accum.get(shape_name, 1)

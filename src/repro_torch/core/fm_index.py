@@ -102,3 +102,17 @@ def backward_search(index_arrays: dict, seeds: torch.Tensor, *,
     pos = sa[idx.long()]
     pos = torch.where(offs < count[:, None], pos, -1)
     return count, pos
+
+
+def search_np(index: FMIndex, seed: np.ndarray) -> np.ndarray:
+    """Host-side single-seed search (``repro/core/fm_index.py::search_np``):
+    the oracle the tests hold :func:`backward_search` to.  Returns the
+    sorted genome offsets of every exact occurrence of ``seed``."""
+    lo, hi = 0, len(index.sa)
+    for ch in seed[::-1]:
+        c = int(ch)
+        lo = index.counts[c] + index.occ[lo, c - 1]
+        hi = index.counts[c] + index.occ[hi, c - 1]
+        if lo >= hi:
+            return np.zeros(0, np.int64)
+    return np.sort(index.sa[lo:hi])

@@ -9,10 +9,14 @@ parallel with the accelerator jobs.  The streaming pipeline itself is
 trimming are host numpy, as in JAX; :func:`demux_reads` compares every read
 with every barcode on the ``levenshtein`` kernel and picks the best barcode
 on the host, so ties break as ``numpy.argmin`` breaks them (first minimum).
+``StreamingBasecallPipeline`` remains, as in JAX, a deprecation shim over
+the engine.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
+from typing import Callable, Iterable, Iterator
 
 import numpy as np
 import torch
@@ -71,3 +75,74 @@ def trim_primer(tokens: np.ndarray, lens: np.ndarray, primer_len: int):
     mask = np.arange(width)[None, :] < new_lens[:, None]
     out = np.where(mask, tokens[:, src], 0).astype(tokens.dtype)
     return out, new_lens
+
+
+@dataclasses.dataclass
+class PipelineStats:
+    """Deprecated stats shape, populated from the unified ``Telemetry``."""
+    chunks: int = 0
+    device_dispatches: int = 0
+    bases_called: int = 0
+    samples_in: int = 0
+    wall_s: float = 0.0
+
+    def bases_per_s(self) -> float:
+        return self.bases_called / max(self.wall_s, 1e-9)
+
+
+class StreamingBasecallPipeline:
+    """Deprecated: ``repro_torch.engine.build("pathogen_pipeline", ...)``.
+
+    The old generator API (``run`` yields ``(tokens, lens)`` per chunk, the
+    host decode of job k overlapping the device compute of job k+1) over
+    the unified engine.  JAX's boolean ``use_kernel`` picked the Pallas
+    kernels or the jnp reference; here ``device`` picks them, as for every
+    entry point of the port: the card (the default) runs the conv1d and
+    matmul kernels, the CPU their plain versions.  ``use_kernel=True``
+    insists on the card; there is no reference fallback on it."""
+
+    def __init__(self, params, cfg=None,
+                 pipe_cfg: PipelineConfig = PipelineConfig(), *,
+                 use_kernel: bool = False, device="cuda"):
+        if use_kernel and torch.device(device).type != "cuda":
+            raise ValueError(f"use_kernel=True runs the kernels on the "
+                             f"card, not on device={device!r}")
+        warnings.warn(
+            "StreamingBasecallPipeline is deprecated; use "
+            'repro_torch.engine.build("pathogen_pipeline") instead',
+            DeprecationWarning, stacklevel=2)
+        import repro_torch.engine as engine_api
+        from repro_torch.core import basecaller as bc
+        cfg = cfg if cfg is not None else bc.BasecallerConfig()
+        self.pipe_cfg = pipe_cfg
+        self._eng = engine_api.build("pathogen_pipeline", params=params,
+                                     cfg=cfg, depth=pipe_cfg.depth,
+                                     device=device)
+
+    @property
+    def stats(self) -> PipelineStats:
+        tel = self._eng.telemetry
+        return PipelineStats(
+            chunks=tel.counters.get("chunks", 0),
+            device_dispatches=tel.dispatches, bases_called=tel.bases,
+            samples_in=tel.samples, wall_s=tel.wall_s)
+
+    def run(self, chunks: Iterable[np.ndarray],
+            on_read: Callable[[np.ndarray, np.ndarray], None] | None = None
+            ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+        """chunks: iterator of (channels, chunk_samples) raw signal arrays.
+
+        Yields (tokens (B, T'), lens (B,)) per chunk."""
+        eng = self._eng
+        for chunk in chunks:
+            eng.submit(chunk)
+            while eng.outputs:
+                yield self._emit(on_read)
+        while eng.step():
+            yield self._emit(on_read)
+
+    def _emit(self, on_read):
+        tokens_np, lens_np = self._eng.outputs.popleft()
+        if on_read is not None:
+            on_read(tokens_np, lens_np)
+        return tokens_np, lens_np

@@ -47,6 +47,13 @@ Mamba-2 ``in_proj``/head vectors sliced by heads.  Three pieces:
   :func:`load_sharded_params` reads only this rank's ``shard_<k>.npz`` of a
   ``sharded`` checkpoint (counted ``tp.load.pre_partitioned``) and checks
   that each sliced leaf holds exactly its local width.
+
+* **recorded collectives**: inside :func:`recording` (the dry run's trace
+  of one rank on ``meta`` tensors, ``analysis.cost``) no collective calls
+  ``torch.distributed``: each appends ``(op, result bytes, group size)``
+  to the record and returns a meta tensor of the shape it would return,
+  and the groups are :class:`RecordedGroup` s of a mesh played as its rank
+  0.  A CPU or CUDA tensor there raises.
 """
 from __future__ import annotations
 
@@ -60,6 +67,81 @@ import torch.distributed as dist
 
 from repro_torch.kernels import fabric
 from repro_torch.quant import core as qcore
+
+# ================================================= recorded collectives ==
+@dataclasses.dataclass(frozen=True)
+class RecordedGroup:
+    """A process group the dry run plays (:func:`recording`): ``size``
+    ranks over the mesh axes ``axes``, this one at position ``rank``.  Its
+    collectives are recorded, never run."""
+    axes: tuple[str, ...]
+    size: int
+    rank: int = 0
+
+
+_RECORD: Optional[list] = None
+
+
+@contextlib.contextmanager
+def recording(mesh):
+    """Record, in place of running, every collective of this block: yields
+    ``(bound, record)``, where ``bound`` is ``mesh`` (a layout, the
+    ``launch.mesh.Mesh`` of ``make_mesh`` outside a process group) played
+    as its rank 0, each axis's group and the world's a
+    :class:`RecordedGroup`, and ``record`` the list of ``(op, bytes,
+    group size)`` the collectives append: ``op`` is ``all-reduce`` or
+    ``all-gather``, ``bytes`` the result's bytes on this rank.  Only meta
+    tensors may meet a collective here."""
+    global _RECORD
+    from repro_torch.launch.mesh import Mesh
+    if _RECORD is not None:
+        raise RuntimeError("tp.recording: already recording")
+    bound = Mesh(axis_names=mesh.axis_names, sizes=mesh.sizes,
+                 coords=(0,) * len(mesh.sizes),
+                 groups=tuple(RecordedGroup((a,), n) for a, n in
+                              zip(mesh.axis_names, mesh.sizes)),
+                 world=RecordedGroup(tuple(mesh.axis_names), mesh.size))
+    record: list = []
+    _RECORD = record
+    try:
+        yield bound, record
+    finally:
+        _RECORD = None
+
+
+def _recorded(op: str, x: torch.Tensor, grp, result_bytes: int) -> None:
+    if _RECORD is None or not isinstance(grp, RecordedGroup):
+        raise RuntimeError(
+            f"tp: a {op} over {grp!r} outside tp.recording, or a process "
+            "group inside it")
+    if x.device.type != "meta":
+        raise RuntimeError(
+            f"tp.recording: a {op} of a {x.device.type} tensor; the dry "
+            "run records collectives of meta tensors only")
+    _RECORD.append((op, int(result_bytes), grp.size))
+
+
+def _records(grp) -> bool:
+    """Whether a collective over ``grp`` is recorded (inside
+    :func:`recording`, or over a recorded group, which raises outside)."""
+    return _RECORD is not None or isinstance(grp, RecordedGroup)
+
+
+def _group_size(grp) -> int:
+    if isinstance(grp, RecordedGroup):
+        return grp.size
+    return dist.get_world_size(grp)
+
+
+def _group_rank(grp) -> int:
+    if isinstance(grp, RecordedGroup):
+        return grp.rank
+    return dist.get_rank(grp)
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
 
 # ===================================================== runtime context ====
 _TP_AXIS: Optional[str] = None
@@ -79,12 +161,12 @@ def axis_ctx(name: str, n: int, group=None):
     prev = (_TP_AXIS, _TP_EXTENT, _TP_GROUP)
     n = int(n)
     if n > 1:
-        if not dist.is_initialized():
+        if not (dist.is_initialized() or isinstance(group, RecordedGroup)):
             raise RuntimeError(
                 f"tp.axis_ctx({name!r}, {n}): tensor parallelism runs one "
                 "process per rank; start them with "
                 "repro_torch.distributed.launch.run")
-        size = dist.get_world_size(group)
+        size = _group_size(group)
         if size != n:
             raise ValueError(f"tp.axis_ctx({name!r}, {n}): the process "
                              f"group holds {size} ranks")
@@ -109,13 +191,17 @@ def extent() -> int:
 
 def index() -> int:
     """This rank's position along the TP axis (0 outside a TP region)."""
-    return 0 if _TP_AXIS is None else dist.get_rank(_TP_GROUP)
+    return 0 if _TP_AXIS is None else _group_rank(_TP_GROUP)
 
 
 def _reduced(x: torch.Tensor, op, grp) -> torch.Tensor:
+    recorded = _records(grp)
+    if recorded:
+        _recorded("all-reduce", x, grp, _nbytes(x))
     # the collective writes in place: into a contiguous copy
     out = x.detach().clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, op=op, group=grp)
+    if not recorded:
+        dist.all_reduce(out, op=op, group=grp)
     return out
 
 
@@ -138,11 +224,15 @@ class _GatherLast(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, grp, n):
+        recorded = _records(grp)
+        if recorded:
+            _recorded("all-gather", x, grp, n * _nbytes(x))
         x = x.detach().contiguous()
         parts = [torch.empty_like(x) for _ in range(n)]
-        dist.all_gather(parts, x, group=grp)
+        if not recorded:
+            dist.all_gather(parts, x, group=grp)
         ctx.grp, ctx.width = grp, x.shape[-1]
-        ctx.rank = dist.get_rank(grp)
+        ctx.rank = _group_rank(grp)
         return torch.cat(parts, dim=-1)
 
     @staticmethod
@@ -199,9 +289,9 @@ def data_ctx(n: int, group):
     if n > 1 and group is None:
         # psum(x, None) would reduce over the model group, not the data's
         raise ValueError(f"tp.data_ctx({n}): give the mesh's data group")
-    if n > 1 and dist.get_world_size(group) != n:
+    if n > 1 and _group_size(group) != n:
         raise ValueError(f"tp.data_ctx({n}): the process group holds "
-                         f"{dist.get_world_size(group)} ranks")
+                         f"{_group_size(group)} ranks")
     _DATA_EXTENT, _DATA_GROUP = (n, group) if n > 1 else (1, None)
     try:
         yield
@@ -237,10 +327,14 @@ class _FromPrevious(torch.autograd.Function):
 
 
 def _neighbour(x: torch.Tensor, grp, step: int) -> torch.Tensor:
+    n, i = _group_size(grp), _group_rank(grp)
+    recorded = _records(grp)
+    if recorded:
+        _recorded("all-gather", x, grp, n * _nbytes(x))
     x = x.contiguous()
-    n, i = dist.get_world_size(grp), dist.get_rank(grp)
     parts = [torch.empty_like(x) for _ in range(n)]
-    dist.all_gather(parts, x, group=grp)
+    if not recorded:
+        dist.all_gather(parts, x, group=grp)
     j = i + step
     return parts[j] if 0 <= j < n else torch.zeros_like(x)
 
@@ -698,7 +792,10 @@ def all_reduce_flat(tensors: list, grp, *, op=None) -> None:
         by_dtype.setdefault(t.dtype, []).append(t)
     for ts in by_dtype.values():
         buf = torch.cat([t.reshape(-1) for t in ts])
-        dist.all_reduce(buf, op=op, group=grp)
+        if _records(grp):
+            _recorded("all-reduce", buf, grp, _nbytes(buf))
+        else:
+            dist.all_reduce(buf, op=op, group=grp)
         off = 0
         for t in ts:
             t.copy_(buf[off: off + t.numel()].view(t.shape))
@@ -728,7 +825,10 @@ def grad_norm_sq(grads, plan: Plan, grp=None) -> torch.Tensor:
             out = out + torch.sum(torch.square(t.float()))
         return out
     shard_sq = sq(shd)
-    dist.all_reduce(shard_sq, group=grp)
+    if _records(grp):
+        _recorded("all-reduce", shard_sq, grp, _nbytes(shard_sq))
+    else:
+        dist.all_reduce(shard_sq, group=grp)
     return shard_sq + sq(rep)
 
 

@@ -223,6 +223,16 @@ def with_plain_grad(kernel, plain, *inputs):
     return kernel(*inputs)
 
 
+def on_meta(op: str, plain, *inputs):
+    """Kernel ``op`` on meta tensors, where the launch would be: its plain
+    version through ``fabric.meta_kernel`` (shapes only), inside
+    :class:`PlainGrad` with ``plain``'s gradient where autograd wants one,
+    as the card's launch is."""
+    from repro_torch.kernels import fabric
+    return with_plain_grad(
+        lambda *a: fabric.meta_kernel(op, plain, *a), plain, *inputs)
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded kernel library for ``csrc/<name>.cu`` (built if needed)."""
     with _LOCK:

@@ -17,6 +17,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import fabric
 from repro_torch.kernels import ref
 from repro_torch.quant.core import pack_fragments, pack_words
 
@@ -107,6 +108,9 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, bias=None, *, stride: int = 1,
     version's gradient."""
     if x.device.type == "cpu":
         return ref.conv1d(x, w, bias, stride=stride, activation=activation)
+    if x.device.type == "meta":
+        return _build.on_meta("conv1d", lambda x, w, b: ref.conv1d(
+            x, w, b, stride=stride, activation=activation), x, w, bias)
     return _build.with_plain_grad(
         lambda x, w, b: _conv1d_cuda(x, w, b, stride, activation),
         lambda x, w, b: ref.conv1d(x, w, b, stride=stride,
@@ -160,6 +164,9 @@ def conv1d_int8(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     if x.device.type == "cpu":
         return ref.conv1d_int8(x, w, stride=stride)
     _build.refuse_grad("conv1d_int8", x, w)
+    if x.device.type == "meta":
+        return fabric.meta_kernel("conv1d_int8", lambda x, w: ref.conv1d_int8(
+            x, w, stride=stride), x, w)
     bsz, t, cin = x.shape
     ksize, _, cout = w.shape
     t_out = (t - ksize) // stride + 1

@@ -23,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import fabric
 from repro_torch.kernels import ref
 
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
@@ -110,6 +111,10 @@ def banded_align(query: torch.Tensor, target: torch.Tensor, *, band: int,
         return ref.banded_align(query, target, band=band, match=match,
                                 mismatch=mismatch, gap=gap, local=local)
     _build.refuse_grad("banded_align", query, target)
+    if query.device.type == "meta":
+        return fabric.meta_kernel("banded_align", lambda q, t: (
+            ref.banded_align(q, t, band=band, match=match, mismatch=mismatch,
+                             gap=gap, local=local)), query, target)
     if band < 0:
         raise ValueError(f"banded_align: band must be >= 0, got {band}")
     out, lay = _wavefront("banded_align", query, target, band=band,
@@ -137,6 +142,9 @@ def levenshtein(query: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     if query.device.type == "cpu":
         return ref.edit_distance(query, target)
     _build.refuse_grad("levenshtein", query, target)
+    if query.device.type == "meta":
+        return fabric.meta_kernel("levenshtein", ref.edit_distance, query,
+                                  target)
     band = max(query.shape[1], target.shape[1])
     score, lay = _wavefront("levenshtein", query, target, band=band,
                             match=0, mismatch=-1, gap=-1, local=False)

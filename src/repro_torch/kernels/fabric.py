@@ -5,6 +5,9 @@ Targets
 -------
 ``cuda``       the hand-written Hopper kernel (a tensor on a CUDA device)
 ``reference``  the plain PyTorch version (a tensor on the CPU)
+``meta``       the plain version on ``meta`` tensors, which computes shapes
+               only (:func:`meta_kernel`): the tracing device of the dry
+               run (``analysis.cost``), asked for by name, never a fallback
 
 There is no ``auto`` that degrades and no shape-based fallback: a shape the
 Hopper kernel cannot take raises on CUDA.  The TPU tile floors of the JAX
@@ -35,7 +38,41 @@ def target_of(t: torch.Tensor) -> str:
         return "cuda"
     if t.device.type == "cpu":
         return "reference"
+    if t.device.type == "meta":
+        return "meta"
     raise ValueError(f"no kernel target for device {t.device}")
+
+
+# the dry run's accounting of a kernel on meta tensors (analysis.cost sets
+# it around one traced cell); None runs the plain version bare
+_META_HOOK = None
+
+
+@contextlib.contextmanager
+def meta_hook(hook):
+    """Route every :func:`meta_kernel` call in this block through
+    ``hook(op, plain, inputs)``, which must return ``plain(*inputs)``."""
+    global _META_HOOK
+    prev, _META_HOOK = _META_HOOK, hook
+    try:
+        yield
+    finally:
+        _META_HOOK = prev
+
+
+def meta_kernel(op: str, plain, *inputs):
+    """Kernel ``op`` on meta tensors: its plain version, which on ``meta``
+    computes the output's shape and dtype only, run with autograd off as
+    the launch is (a wrapper puts this where the launch would go, so
+    ``_build.with_plain_grad`` gives it the plain version's gradient).
+    Inside :func:`meta_hook` the hook runs it, so that a dry run counts
+    the kernel as one unit: its FLOPs, its inputs and outputs in device
+    memory, and none of the plain version's intermediates, which the
+    kernel keeps on chip."""
+    with torch.no_grad():
+        if _META_HOOK is None:
+            return plain(*inputs)
+        return _META_HOOK(op, plain, inputs)
 
 
 class ScopedCounters:

@@ -138,6 +138,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     path = route(q.dtype, q.shape[-1])
     if q.device.type == "cpu":
         return _plain(q, k, v, causal, scale, path)
+    if q.device.type == "meta":
+        return _build.on_meta("flash_attention", lambda q, k, v: _plain(
+            q, k, v, causal, scale, path), q, k, v)
     return _on_card(path, q, k, v, causal, scale)
 
 

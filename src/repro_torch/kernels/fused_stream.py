@@ -66,8 +66,12 @@ def fused_stream_step(params, lane_state, rows, frame_pads, reset=None, *,
     args = (rows, frame_pads, reset, lane_state["prev_class"],
             lane_state["bases"], lane_state["ticks"],
             tuple(lane_state["conv"]), params)
-    if fabric.dispatch("fused_stream", rows) == "reference":
+    target = fabric.dispatch("fused_stream", rows)
+    if target == "reference":
         return _fused_reference(*args, cfg=cfg)
+    if target == "meta":
+        return fabric.meta_kernel("fused_stream", lambda *a: _fused_reference(
+            *a, cfg=cfg), *args)
     return fused_stream_cuda(*args, cfg=cfg)
 
 

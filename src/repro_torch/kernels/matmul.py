@@ -19,6 +19,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import fabric
 from repro_torch.kernels import ref
 
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -124,6 +125,9 @@ def matmul(a: torch.Tensor, b: torch.Tensor, bias=None, *,
     version's gradient."""
     if a.device.type == "cpu":
         return ref.matmul(a, b, bias, activation=activation)
+    if a.device.type == "meta":
+        return _build.on_meta("matmul", lambda a, b, bias: ref.matmul(
+            a, b, bias, activation=activation), a, b, bias)
     return _build.with_plain_grad(
         lambda a, b, bias: _matmul_cuda(a, b, bias, activation),
         lambda a, b, bias: ref.matmul(a, b, bias, activation=activation),
@@ -171,6 +175,8 @@ def matmul_int8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.device.type == "cpu":
         return ref.matmul_int8(a, b)
     _build.refuse_grad("matmul_int8", a, b)
+    if a.device.type == "meta":
+        return fabric.meta_kernel("matmul_int8", ref.matmul_int8, a, b)
     m, k = a.shape
     k2, n = b.shape
     if k != k2:
@@ -227,6 +233,9 @@ def matmul_bf16(a: torch.Tensor, b: torch.Tensor, bias=None, *,
     gradient (float32 products, TF32 off), returned in bf16."""
     if a.device.type == "cpu":
         return ref.matmul(a, b, bias, activation=activation)
+    if a.device.type == "meta":
+        return _build.on_meta("matmul_bf16", lambda a, b, bias: ref.matmul(
+            a, b, bias, activation=activation), a, b, bias)
     return _bf16_on_card(a, b, bias, activation)
 
 

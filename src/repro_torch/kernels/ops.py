@@ -3,7 +3,9 @@
 Each op counts its dispatch under ``fabric.dispatch.<op>.<target>`` (the
 target is the tensor's device: ``cuda`` or ``reference``) and calls the
 kernel wrapper, which launches the CUDA kernel for a CUDA tensor and runs
-the plain PyTorch version for a CPU tensor.
+the plain PyTorch version for a CPU tensor.  A ``meta`` tensor (target
+``meta``, the dry run's tracing device) runs the plain version through
+``fabric.meta_kernel``, which computes shapes only.
 
 Quantization: a weight passed as a
 :class:`repro_torch.quant.QuantizedTensor` takes the SoC's int8 -> int32

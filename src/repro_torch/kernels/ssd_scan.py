@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref
+from repro_torch.utils.shapes import pad_to_multiple
 
 _ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
          + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
@@ -126,11 +127,25 @@ def ssd_scan(x: torch.Tensor, log_a: torch.Tensor, b: torch.Tensor,
     (float32, returned in each operand's dtype)."""
     if x.device.type == "cpu":
         return _plain(x, log_a, b, c)
+    if x.device.type == "meta":
+        # the chunked form the kernels compute, forward and gradient: the
+        # recurrence's T steps a layer would make a 32k trace take minutes
+        def chunked(x, log_a, b, c):
+            return _chunked(x, log_a, b, c, kernel_chunk(chunk, x.shape[1]))
+        return _build.on_meta("ssd_scan", chunked, x, log_a, b, c)
     return _on_card(x, log_a, b, c, chunk)
 
 
 def _plain(x, log_a, b, c):
     return ref.ssd_scan(x, log_a, b, c)[0]
+
+
+def _chunked(x, log_a, b, c, chunk):
+    """y of :func:`ref.ssd_chunked` at ``chunk``, T zero-padded up to a
+    multiple of it (a zero row adds nothing to the state ahead of it)."""
+    t = x.shape[1]
+    x, log_a, b, c = (pad_to_multiple(v, chunk, 1) for v in (x, log_a, b, c))
+    return ref.ssd_chunked(x, log_a, b, c, chunk)[0][:, :t]
 
 
 def _on_card(x, log_a, b, c, chunk):

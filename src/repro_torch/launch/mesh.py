@@ -27,6 +27,7 @@ class Mesh:
     sizes: tuple[int, ...]
     coords: Optional[tuple[int, ...]] = None   # this rank's, bound only
     groups: Optional[tuple[Any, ...]] = None   # one process group an axis
+    world: Any = None                          # all axes' (None: WORLD)
 
     @property
     def shape(self) -> dict[str, int]:
@@ -52,6 +53,8 @@ class Mesh:
         if len(axes) == 1:
             return self.groups[self.axis_names.index(axes[0])]
         if sorted(axes) == sorted(self.axis_names):
+            if self.world is not None:
+                return self.world
             import torch.distributed as dist
             return dist.group.WORLD
         raise ValueError(f"no process group over {axes} of the mesh "

@@ -1,10 +1,32 @@
-"""The LM prefill step (``repro/launch/steps.py``).
+"""Cell construction for the dry run, and the LM prefill step
+(``repro/launch/steps.py``).
 
-:func:`prefill` is the ``fn`` of JAX's ``_prefill_cell`` on one device,
-without meshes or shardings, by family: the decoder families (dense, ssm,
-moe, hybrid) ``transformer.apply(params, tokens, cfg,
-last_logits_only=True)``, the VLM the same with its ``input_embeds``,
-and the encoder-decoder ``encdec.encode(params, frames, cfg)``.
+A *cell* = (architecture x input shape x mesh).  :func:`build_cell` gives
+the step one rank runs and that rank's arguments as ``meta`` tensors
+(shapes and dtypes, no device memory anywhere), and :func:`lower_cell`
+traces it once (``analysis.cost``) in place of JAX's lower + compile +
+``memory_analysis()``:
+
+  train_4k    -> trainer.jit_train_step (make_train_step at 1x1) over
+                 (state, batch), the state updated in place (JAX's
+                 donated state)
+  prefill_32k -> :func:`prefill`'s body: last-token logits (whisper: the
+                 encoder's states)
+  decode_32k  -> serve_step over (params, cache, tokens, pos), the cache
+                 updated in place (JAX's donated cache)
+  long_500k   -> serve_step with a 524288-token cache (ssm/hybrid only)
+
+The mesh is ``launch.mesh.make_mesh``'s layout (no process group): the
+trace plays its rank 0 inside ``tp.recording``, which records the
+collectives.  Rank 0's arguments are its slices of the params
+(``tp.build_plan`` / ``partition_params`` at model > 1), the optimizer
+state beside them, its cache (its KV heads), and its block of the batch
+(the whole batch where the data axis does not divide it, as JAX's
+``_batch_sharding`` falls back to replicating it).  Where a rule needs
+what the port lacks, :func:`build_cell` raises :class:`Unsupported` with
+the reason, and the dry run records the cell as skipped.
+
+:func:`prefill` is the ``fn`` of JAX's ``_prefill_cell`` on one device:
 
     from repro_torch.configs import ARCHS
     from repro_torch.launch.steps import prefill
@@ -18,11 +40,39 @@ versions of the kernels, as the tests run it).
 """
 from __future__ import annotations
 
+import dataclasses
+import time
+from typing import Any, Callable, Optional
+
 import torch
 
+from repro_torch.analysis import cost as cost_mod
+from repro_torch.configs.common import ArchSpec
+from repro_torch.configs.shapes import ShapeCell
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as shardlib
+from repro_torch.distributed import tp
 from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.registry import get_model, require_train_and_tp
+from repro_torch.train import optimizer as opt_mod
+from repro_torch.train import trainer as trainer_mod
+
+META = torch.device("meta")
+
+
+# ------------------------------------------------------------- prefill ---
+def _prefill_body(params, tokens, cfg: ModelConfig, input_embeds=None):
+    """The prefill step on tensors where they are: the encoder's states
+    for ``encdec``, else the last token's logits (tokens cast to int64
+    here, inside the step)."""
+    with torch.inference_mode():
+        if cfg.family == "encdec":
+            return encdec.encode(params, tokens, cfg)
+        logits, _ = transformer.apply(params, tokens.long(), cfg,
+                                      input_embeds=input_embeds,
+                                      last_logits_only=True)
+    return logits
 
 
 def prefill(params, tokens, cfg: ModelConfig, *, input_embeds=None,
@@ -37,14 +87,250 @@ def prefill(params, tokens, cfg: ModelConfig, *, input_embeds=None,
     emb = params["embedding"]["embed"]
     if emb.device != dev:
         raise ValueError(f"prefill: params on {emb.device}, asked for {dev}")
-    with torch.inference_mode():
-        if cfg.family == "encdec":
-            return encdec.encode(params, torch.as_tensor(tokens).to(dev),
-                                 cfg)
-        tokens = torch.as_tensor(tokens).to(device=dev, dtype=torch.int64)
-        if input_embeds is not None:
-            input_embeds = torch.as_tensor(input_embeds).to(dev)
-        logits, _ = transformer.apply(params, tokens, cfg,
-                                      input_embeds=input_embeds,
-                                      last_logits_only=True)
-    return logits
+    tokens = torch.as_tensor(tokens).to(dev)
+    if input_embeds is not None:
+        input_embeds = torch.as_tensor(input_embeds).to(dev)
+    return _prefill_body(params, tokens, cfg, input_embeds)
+
+
+# --------------------------------------------------------------- cells ---
+class Unsupported(NotImplementedError):
+    """A cell that needs what the port lacks; the message is the reason."""
+
+
+@dataclasses.dataclass
+class Cell:
+    name: str
+    fn: Callable                # fn(mesh, *args): mesh the recorded one
+    args: tuple                 # this rank's, meta tensors
+    mesh: Any = None            # launch.mesh.Mesh, a layout
+    rules: Any = None           # sharding context re-entered at trace time
+    plan: Any = None            # tp.Plan at model > 1
+
+
+def make_rules(spec: ArchSpec, mesh, shape: ShapeCell,
+               cfg: Optional[ModelConfig] = None) -> dict:
+    """JAX's default rules for the cell (``repro/launch/steps.py::
+    make_rules``); JAX's optimized ``opt`` set shards query heads apart
+    from tensor parallelism, which the port cannot, and is left out."""
+    overrides = dict(spec.rules_overrides)
+    if shape.kind == "decode" and shape.global_batch < mesh.shape.get(
+            "data", 1):
+        # batch unshardable (e.g. long_500k B=1): shard the KV sequence over
+        # every axis instead
+        overrides.setdefault("kv_seq", shardlib.data_axes(mesh) + ("model",))
+    if cfg is not None and cfg.num_heads % mesh.shape.get("model", 1) != 0:
+        # heads don't divide the model axis (llama4 40H, minicpm 36H,
+        # starcoder2 24H): context-parallel attention in JAX
+        overrides.setdefault("act_seq", "model")
+    return shardlib.default_rules(mesh, fsdp=spec.fsdp, overrides=overrides)
+
+
+def _refuse(cfg: ModelConfig, shape: ShapeCell, mesh, rules: dict) -> None:
+    """Raise :class:`Unsupported` where a rule needs what the port lacks."""
+    m = mesh.shape.get("model", 1)
+    attention = cfg.family == "encdec" or any(
+        s.mixer == "attn" for s in cfg.block_pattern)
+    # act_seq shards only attention's query sequence (JAX's attention.py)
+    if rules.get("act_seq") and attention:
+        raise Unsupported(
+            f"act_seq: {cfg.num_heads} heads do not divide the model axis "
+            f"({m}); JAX runs context-parallel attention there, which the "
+            "port does not have")
+    seq = rules.get("kv_seq")
+    seq = (seq,) if isinstance(seq, str) else tuple(seq or ())
+    if shape.kind == "decode" and "model" in seq and m > 1 and attention:
+        raise Unsupported(
+            f"kv_seq over {seq}: the port's sequence-sharded decode keeps "
+            "the KV heads whole, while its tensor parallelism slices them "
+            "over the model axis")
+    if shape.kind == "decode" and m > 1:
+        try:
+            require_train_and_tp(cfg, "the decode cell")
+        except NotImplementedError as e:
+            raise Unsupported(str(e)) from None
+
+
+def _rows(b: int, mesh) -> int:
+    """A data rank's rows of a global batch of ``b`` (all of them where
+    the data axes do not divide it)."""
+    d = 1
+    for a in shardlib.data_axes(mesh):
+        d *= mesh.shape[a]
+    return b // d if b % d == 0 else b
+
+
+def _batch(cfg: ModelConfig, shape: ShapeCell, rows: int) -> dict:
+    """JAX's ``_batch_specs`` at ``rows`` rows, on meta: int32 tokens and
+    labels, bf16 frames and patch embeddings."""
+    s = shape.seq_len
+    if cfg.family == "encdec":
+        dec = max(s // cfg.decoder_train_frac, 1)
+        return {
+            "frames": torch.empty((rows, s, cfg.d_model),
+                                  dtype=torch.bfloat16, device=META),
+            "tokens": torch.empty((rows, dec), dtype=torch.int32,
+                                  device=META),
+            "labels": torch.empty((rows, dec), dtype=torch.int32,
+                                  device=META),
+        }
+    batch = {"tokens": torch.empty((rows, s), dtype=torch.int32,
+                                   device=META),
+             "labels": torch.empty((rows, s), dtype=torch.int32,
+                                   device=META)}
+    if cfg.family == "vlm":
+        batch["input_embeds"] = torch.empty(
+            (rows, cfg.frontend_tokens, cfg.d_model), dtype=torch.bfloat16,
+            device=META)
+    return batch
+
+
+def _plan_and_params(cfg, model, mesh, rules):
+    """(plan, rank 0's params on meta): the plan of the model axis and the
+    params sliced by it (whole at model 1)."""
+    shapes, axes = model.abstract_params(cfg)
+    m = mesh.shape.get("model", 1)
+    if m == 1:
+        return None, shapes
+    try:
+        plan = tp.build_plan(axes, shapes, cfg=cfg, tp=m, rules=rules)
+    except ValueError as e:
+        raise Unsupported(f"tensor parallelism over model={m}: {e}") from None
+    return plan, tp.partition_params(shapes, plan, rank=0)
+
+
+def _model_ctx(mesh):
+    """The model axis of ``mesh`` (a recorded or bound one) as a TP
+    context."""
+    m = mesh.shape.get("model", 1)
+    return tp.axis_ctx("model", m, group=mesh.group("model") if m > 1
+                       else None)
+
+
+def build_cell(arch_name: str, spec: ArchSpec, shape: ShapeCell, mesh,
+               *, smoke: bool = False) -> Cell:
+    """The cell of ``arch_name`` at ``shape`` on ``mesh`` (a layout:
+    ``make_mesh((d, m), ("data", "model"))`` outside a process group):
+    rank 0's step and its meta arguments.  Raises :class:`Unsupported`
+    where the port lacks what a rule needs."""
+    cfg = spec.smoke_config() if smoke else spec.config()
+    model = get_model(cfg)
+    rules = make_rules(spec, mesh, shape, cfg)
+    _refuse(cfg, shape, mesh, rules)
+    plan, params = _plan_and_params(cfg, model, mesh, rules)
+    if shape.kind == "train":
+        cell = _train_cell(arch_name, spec, cfg, model, shape, mesh, params,
+                           plan)
+    elif shape.kind == "prefill":
+        cell = _prefill_cell(arch_name, cfg, shape, mesh, params)
+    else:
+        cell = _decode_cell(arch_name, cfg, model, shape, mesh, params)
+    cell.mesh, cell.rules, cell.plan = mesh, rules, plan
+    return cell
+
+
+def _train_cell(arch_name, spec: ArchSpec, cfg, model, shape, mesh, params,
+                plan) -> Cell:
+    opt_cfg = opt_mod.OptimizerConfig(state_dtype=spec.optimizer_state_dtype,
+                                      schedule=spec.schedule)
+    tcfg = trainer_mod.TrainerConfig(grad_accum=spec.accum_for(shape.name),
+                                     accum_dtype=spec.grad_accum_dtype)
+    state = {"params": params,
+             "opt": opt_mod.init_opt_state(params, opt_cfg)}
+    batch = _batch(cfg, shape, _rows(shape.global_batch, mesh))
+    cell = Cell(name=f"{arch_name}:{shape.name}", fn=None,
+                args=(state, batch))
+
+    def fn(bound, state, batch):
+        # a 1x1 mesh's step is make_train_step's
+        step = trainer_mod.jit_train_step(model.loss, cfg, opt_cfg, tcfg,
+                                          mesh=bound, plan=plan,
+                                          local_batch=True)
+        with shardlib.use_sharding(bound, cell.rules):
+            return step(state, batch)
+    cell.fn = fn
+    return cell
+
+
+def _prefill_cell(arch_name, cfg, shape, mesh, params) -> Cell:
+    b, s = _rows(shape.global_batch, mesh), shape.seq_len
+    if cfg.family == "encdec":
+        args = (params, torch.empty((b, s, cfg.d_model), dtype=torch.bfloat16,
+                                    device=META))
+    elif cfg.family == "vlm":
+        args = (params, torch.empty((b, s), dtype=torch.int32, device=META),
+                torch.empty((b, cfg.frontend_tokens, cfg.d_model),
+                            dtype=torch.bfloat16, device=META))
+    else:
+        args = (params, torch.empty((b, s), dtype=torch.int32, device=META))
+    cell = Cell(name=f"{arch_name}:{shape.name}", fn=None, args=args)
+
+    def fn(bound, params, tokens, input_embeds=None):
+        with shardlib.use_sharding(bound, cell.rules), _model_ctx(bound):
+            return _prefill_body(params, tokens, cfg, input_embeds)
+    cell.fn = fn
+    return cell
+
+
+def _decode_cell(arch_name, cfg, model, shape, mesh, params) -> Cell:
+    b, s = _rows(shape.global_batch, mesh), shape.seq_len
+    m = mesh.shape.get("model", 1)
+    # the cache of this rank's KV (and SSM) heads
+    with tp.axis_ctx("model", m, group=tp.RecordedGroup(("model",), m)):
+        cache = model.init_cache(cfg, b, s, device=META)
+    args = (params, cache, torch.empty((b, 1), dtype=torch.int32, device=META),
+            torch.empty((b,), dtype=torch.int32, device=META))
+    cell = Cell(name=f"{arch_name}:{shape.name}", fn=None, args=args)
+
+    def fn(bound, params, cache, tokens, pos):
+        with shardlib.use_sharding(bound, cell.rules), _model_ctx(bound), \
+                torch.inference_mode():
+            return model.serve(params, cache, tokens, pos, cfg)
+    cell.fn = fn
+    return cell
+
+
+@dataclasses.dataclass
+class Traced:
+    """:func:`lower_cell`'s record: one rank's memory (JAX's
+    ``memory_analysis()`` fields, per rank) and the traced cost."""
+    argument_bytes: int         # the storages of the arguments it reads
+    output_bytes: int           # the outputs' storages
+    alias_bytes: int            # outputs that are arguments (state, cache)
+    temp_bytes: int             # the traced peak less all the arguments
+    peak_bytes: int             # the traced peak of live bytes
+    argument_bytes_by_arg: list
+    cost: cost_mod.WeightedCost
+    trace_s: float
+
+    def memory(self) -> dict:
+        return {"argument_bytes": self.argument_bytes,
+                "output_bytes": self.output_bytes,
+                "temp_bytes": self.temp_bytes,
+                "alias_bytes": self.alias_bytes,
+                "peak_bytes": self.peak_bytes,
+                "unused_argument_bytes": self.cost.unused_argument_bytes,
+                "argument_bytes_by_arg": self.argument_bytes_by_arg}
+
+
+def lower_cell(cell: Cell) -> Traced:
+    """The port's stand-in for JAX's lower + compile +
+    ``memory_analysis()``: one trace of ``cell.fn`` on its meta arguments
+    (``analysis.cost.count``) inside ``tp.recording(cell.mesh)``."""
+    args_keys = {cost_mod.storage_key(t)
+                 for t in cost_mod.tensors(cell.args)}
+    t0 = time.perf_counter()
+    with tp.recording(cell.mesh) as (bound, _):
+        cost = cost_mod.count(lambda *a: cell.fn(bound, *a), *cell.args)
+    trace_s = time.perf_counter() - t0
+    out = cost.output
+    output_bytes = cost_mod.storage_bytes(out)
+    fresh = cost_mod.storage_bytes(out, exclude=args_keys)
+    return Traced(
+        argument_bytes=cost.argument_bytes, output_bytes=output_bytes,
+        alias_bytes=output_bytes - fresh,
+        temp_bytes=(cost.peak_bytes - cost.argument_bytes
+                    - cost.unused_argument_bytes),
+        peak_bytes=cost.peak_bytes,
+        argument_bytes_by_arg=[cost_mod.storage_bytes(a) for a in cell.args],
+        cost=cost, trace_s=trace_s)

@@ -24,6 +24,7 @@ import torch
 from repro_torch.distributed import tp
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
+from repro_torch.kernels.ref import ssd_chunked  # noqa: F401
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense, row_dense, silu
 from repro_torch.models.param import ScopedBuilder
@@ -96,45 +97,6 @@ def _causal_conv(xbc, w, bias):
     pad = torch.nn.functional.pad(xbc, (0, 0, k - 1, 0))
     out = sum(pad[:, i: i + s] * w[i] for i in range(k))
     return silu(out + bias)
-
-
-def ssd_chunked(x, log_a, b, c, chunk: int, state0=None):
-    """Chunked SSD in plain PyTorch (the jnp mirror of the Pallas kernel),
-    float32.  x: (BH, T, dh), log_a: (BH, T), b/c: (BH, T, ds); T a
-    multiple of ``min(chunk, T)``.  Returns (y in x's type, final state
-    (BH, ds, dh))."""
-    bh, t, dh = x.shape
-    ds = b.shape[-1]
-    chunk = min(chunk, t)
-    if t % chunk:
-        raise ValueError(f"ssd_chunked: T={t} is not a multiple of chunk "
-                         f"{chunk}")
-    n = t // chunk
-    ref.full_fp32()
-    xs = x.reshape(bh, n, chunk, dh).float()
-    las = log_a.reshape(bh, n, chunk).float()
-    bs = b.reshape(bh, n, chunk, ds).float()
-    cs = c.reshape(bh, n, chunk, ds).float()
-    rows = torch.arange(chunk, device=x.device)
-    causal = rows[:, None] >= rows[None, :]
-    s = (torch.zeros((bh, ds, dh), dtype=torch.float32, device=x.device)
-         if state0 is None else state0.float())
-    ys = []
-    for i in range(n):
-        xc, lac, bc_, cc = xs[:, i], las[:, i], bs[:, i], cs[:, i]
-        cum = torch.cumsum(lac, dim=-1)                       # (BH, Lc)
-        # exp only where s <= t: the masked entries are 0 either way
-        seg = cum[:, :, None] - cum[:, None, :]
-        decay = torch.exp(torch.where(causal, seg, -torch.inf))
-        cb = torch.bmm(cc, bc_.transpose(1, 2))
-        y = torch.bmm(cb * decay, xc)
-        y = y + torch.bmm(cc * torch.exp(cum)[..., None], s)
-        total = cum[:, -1]
-        w = torch.exp(total[:, None] - cum)                   # (BH, Lc)
-        s = (torch.exp(total)[:, None, None] * s
-             + torch.bmm((bc_ * w[..., None]).transpose(1, 2), xc))
-        ys.append(y.to(x.dtype))
-    return torch.stack(ys, dim=1).reshape(bh, t, dh), s
 
 
 def final_state(x, log_a, b):

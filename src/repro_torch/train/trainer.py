@@ -192,15 +192,17 @@ def mesh_loss_and_grads(loss_fn, params, batch, model_cfg,
 
 
 def _mesh_loss_aux_grads(loss_fn, params, batch, model_cfg, trainer_cfg, *,
-                         mesh, plan):
+                         mesh, plan, local_batch=False):
     """:func:`mesh_loss_and_grads` with the loss's ``moe_aux`` between
-    (the global batch's already: the router reduces over data)."""
+    (the global batch's already: the router reduces over data).
+    ``local_batch``: ``batch`` is already this data rank's rows."""
     from repro_torch.distributed import tp
     d, m = _mesh_axes(mesh, plan)
     model_grp = mesh.group("model") if m > 1 else None
     di = mesh.index("data") if d > 1 else 0
     accum = trainer_cfg.grad_accum
-    local = tree_map(lambda x: _data_rows(x, di, d, accum), batch)
+    local = batch if local_batch else tree_map(
+        lambda x: _data_rows(x, di, d, accum), batch)
     with tp.axis_ctx("model", m, group=model_grp), \
             tp.data_ctx(d, mesh.group("data") if d > 1 else None):
         loss, aux, grads = _accumulated_grads(
@@ -219,7 +221,7 @@ def _mesh_loss_aux_grads(loss_fn, params, batch, model_cfg, trainer_cfg, *,
 def jit_train_step(loss_fn: Callable, model_cfg,
                    opt_cfg: opt_mod.OptimizerConfig,
                    trainer_cfg: TrainerConfig = TrainerConfig(), *, mesh,
-                   plan=None):
+                   plan=None, local_batch: bool = False):
     """The train step over a ``(data, model)`` mesh of ranks (JAX's
     ``jit_train_step`` with GSPMD shardings): ``step(state, batch) ->
     (state, metrics)`` with ``state`` this rank's slice (its params cut by
@@ -228,6 +230,9 @@ def jit_train_step(loss_fn: Callable, model_cfg,
     (:func:`mesh_loss_and_grads`).  AdamW clips by the mesh's global norm
     and updates the rank's slice in place.  ``plan`` is
     ``tp.build_plan``'s for the model axis (needed where it exceeds 1).
+    ``local_batch=True`` takes this data rank's rows (its block of each
+    micro-batch, in order) in place of the global batch (the dry run's
+    cells, which hold one rank's arguments).
     Every rank of the mesh calls this, and each step, together; a 1x1
     mesh is :func:`make_train_step`."""
     from repro_torch.launch.mesh import bind
@@ -241,7 +246,7 @@ def jit_train_step(loss_fn: Callable, model_cfg,
         params = state["params"]
         loss, aux, grads = _mesh_loss_aux_grads(
             loss_fn, params, batch, model_cfg, trainer_cfg, mesh=mesh,
-            plan=plan)
+            plan=plan, local_batch=local_batch)
         gnorm = opt_mod.global_norm(grads, plan if m > 1 else None,
                                     model_grp)
         new_params, new_opt, om = opt_mod.apply_update_(

@@ -71,7 +71,8 @@ def test_traced_engine_matches_jax(jax_traces, tmp_path, depth, fused):
     eng = tengine.build("adaptive_sampling", **_kw(TPolicy, TDecision),
                         device=U.CPU, pipeline_depth=depth, fused=fused,
                         trace=True)
-    eng.drain(max_steps=20_000)
+    with U.one_thread():
+        eng.drain(max_steps=20_000)
     path = tmp_path / "trace.json"
     doc = eng.telemetry.tracer.export_chrome(str(path))
     want = jax_traces[depth, fused]
@@ -94,8 +95,9 @@ def test_traced_and_untraced_decide_alike():
                            device=U.CPU, pipeline_depth=2, trace=True)
     plain = tengine.build("adaptive_sampling", **_kw(TPolicy, TDecision),
                           device=U.CPU, pipeline_depth=2)
-    traced.drain(max_steps=20_000)
-    plain.drain(max_steps=20_000)
+    with U.one_thread():
+        traced.drain(max_steps=20_000)
+        plain.drain(max_steps=20_000)
 
     def golden(e):
         return sorted((r.read_id, r.decision.value, r.reason,
@@ -118,7 +120,8 @@ def test_chunk_engines_trace_stages_and_scheduler(workload, preset):
     else:
         eng.submit(rows)
         eng.submit(rows)
-    eng.drain()
+    with U.one_thread():
+        eng.drain()
     doc = tracer.to_chrome()
     assert jtrace.validate_chrome_trace(doc) == []
     names = {(e["name"], e["ph"]) for e in doc["traceEvents"]}
@@ -127,7 +130,8 @@ def test_chunk_engines_trace_stages_and_scheduler(workload, preset):
     assert ("fabric.dispatch.conv1d.reference", "i") in names
     untraced = tengine.build(workload, preset, device=U.CPU, seed=0)
     untraced.submit(rows)
-    untraced.drain()
+    with U.one_thread():
+        untraced.drain()
     assert untraced.telemetry.tracer.events == []
 
 
@@ -138,7 +142,8 @@ def test_drain_ticks_the_exporter():
                              scheduler=eng.scheduler)
     eng.telemetry.exporter = exp
     eng.submit(np.zeros((8, 512), np.float32))
-    eng.drain()
+    with U.one_thread():
+        eng.drain()
     assert len(exp.records) == 2              # one per step
     assert exp.records[-1]["completed"] == 8
     assert "occupancy" in exp.records[-1]

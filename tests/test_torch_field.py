@@ -206,7 +206,8 @@ def _edge(mod, **kw):
 def test_edge_device_read_frames_equal_jax():
     tdev, sample = _edge(tdevice, device=U.CPU)
     jdev, _ = _edge(jdevice)
-    tframes = [f for f in tdev.drain() if f.kind == tup.KIND_READ]
+    with U.one_thread():
+        tframes = [f for f in tdev.drain() if f.kind == tup.KIND_READ]
     jframes = [f for f in jdev.drain() if f.kind == jup.KIND_READ]
     assert len(tframes) == len(jframes) == tdev.accepted_reads > 0
     assert [f.to_bytes() for f in tframes] == [f.to_bytes() for f in jframes]
@@ -359,7 +360,10 @@ def test_lossy_channel_draws_like_jax():
 @pytest.fixture(scope="module")
 def smoke_runs(tmp_path_factory):
     path = tmp_path_factory.mktemp("field") / "trace_field.json"
-    port = trun(TSpec(**SMOKE), trace_path=str(path), device=U.CPU)
+    # the port's scenario is a long chain of small CPU ops: one intra-op
+    # thread, so the test workers beside it do not thrash the cores
+    with U.one_thread():
+        port = trun(TSpec(**SMOKE), trace_path=str(path), device=U.CPU)
     return port, jrun(JSpec(**SMOKE)), path
 
 

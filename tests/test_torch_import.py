@@ -45,6 +45,9 @@ import repro_torch.data.tokens, repro_torch.launch.train
 import repro_torch.distributed.tp, repro_torch.distributed.sharding
 import repro_torch.distributed.launch, repro_torch.launch.mesh
 import repro_torch.train.checkpoint_converter
+import repro_torch.analysis, repro_torch.analysis.cost
+import repro_torch.analysis.roofline, repro_torch.analysis.report
+import repro_torch.launch.dryrun, repro_torch.utils.shapes
 mods = sorted(m for m in sys.modules
               if m == "jax" or m.startswith("jax.")
               or m == "repro" or m.startswith("repro."))
@@ -136,6 +139,17 @@ def test_scan_covers_the_mesh_modules():
     assert "repro_torch.launch.mesh" in names
     assert not [n for n in names
                 if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+
+
+def test_scan_covers_the_dry_run_modules():
+    """The dry run's modules (the analysis package, the cell builders and
+    the CLI) and the shape helpers are scanned."""
+    found = {os.path.relpath(p, PKG) for p in _port_sources()}
+    for mod in ("analysis/__init__.py", "analysis/cost.py",
+                "analysis/roofline.py", "analysis/report.py",
+                "launch/dryrun.py", "launch/steps.py", "utils/shapes.py",
+                "utils/__init__.py", "core/pipeline.py", "core/fm_index.py"):
+        assert mod in found, mod
 
 
 def test_spawned_ranks_hold_no_jax_and_no_repro():
