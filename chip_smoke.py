@@ -353,7 +353,14 @@ class CheckFailed(RuntimeError):
     pass
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries ``t_s``, the seconds since
+    the script started (where the run's time goes)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - _T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -5339,7 +5346,10 @@ MESH_SMOKE_BATCH = 4        # the f32 smoke steps: 4 x 64 (2 rows a data
 MESH_SMOKE_SEQ = 64         # rank, one a micro-batch at 2x2)
 MESH_SMOKE_MESHES = {"2x1": ((2, 1), 1), "1x2": ((1, 2), 1),
                      "2x2": ((2, 2), 2)}
-MESH_FULL = (("qwen3-4b", "1x2"), ("mamba2-780m", "2x1"))
+# (arch, mesh, layers): full width, the depth cut to a third of qwen3-4b's
+# 36 and a quarter of mamba2-780m's 48 layers to keep the script inside its
+# limit beside the fsdp run (they ran whole through PR 30)
+MESH_FULL = (("qwen3-4b", "1x2", 12), ("mamba2-780m", "2x1", 12))
 MESH_FULL_STEPS = 3
 MESH_RECOVERY = {"mesh": "2x1", "steps": 10, "fail_at": 7, "ckpt_every": 5}
 # qwen3-4b's attention heads (32 q, 8 KV, D 128, d_model 2560) at decode_32k's
@@ -5349,6 +5359,28 @@ MESH_SEQ = {"batch": 8, "seq": 32_768,
 MESH_SEQ_TOL = 2e-5         # tests/test_mini_dryrun.py:104
 MESH_ENGINE_REQUESTS = 4
 MESH_LANES = ("cuda:0", "cuda:0")
+# JAX's placement of an fsdp arch's state (ZeRO-3 over data, experts over
+# data, the experts' mlp over model): the f32 smoke steps at 2x1 and 2x2
+# against the CPU's 1x1, FT_SMOKE_BATCH x FT_SMOKE_SEQ
+FSDP_SMOKE = {"nemotron-4-15b": ("nemotron-4-15b", None),
+              "llama4 dense": ("llama4-maverick-400b-a17b", None),
+              "llama4 dispatch": ("llama4-maverick-400b-a17b",
+                                  {"moe_impl": "dispatch",
+                                   "moe_capacity_factor": 0.5}),
+              "grok-1": ("grok-1-314b", None)}
+FSDP_SMOKE_MESHES = {"2x1": (2, 1), "2x2": (2, 2)}
+FSDP_RECOVERY = {"arch": "nemotron-4-15b", "mesh": "2x2", "steps": 6,
+                 "fail_at": 3, "ckpt_every": 2}
+# full width at --mesh 2x1, 8 x 128, both ranks on the card: the largest
+# depth whose two ranks' predicted peaks (the dry run's 2x1 cells, meta)
+# fit its 74.5 GiB: nemotron-4-15b 4 layers (33.62 GiB a rank; 6 layers
+# 37.98).  grok-1 1 layer (34.17; 2 layers 54.66) fits too, but a step
+# moves ~32 GB through gloo's host-staged collectives (~45 s): run it
+# with ``scripts/mesh_phase.py --fsdp-full grok-1-314b:1``.  jamba's one
+# 8-layer block (52.95 GiB a rank) and llama4's one 2-layer block (89.12)
+# do not fit two ranks at any depth
+FSDP_FULL = (("nemotron-4-15b", 4),)
+FSDP_FULL_STEPS = 1         # a step moves ~22 GB a rank through gloo: ~37 s
 
 
 # ------------------------------------------------------- phase dryrun --
@@ -5366,12 +5398,25 @@ DRYRUN_OUT = os.path.join(ROOT, "build", "dryrun_cells.json")
 
 
 def dryrun_cells():
-    """(kind, arch, batch, seq) of every cell the phase traces."""
-    cells = [("prefill", a, 1, LM_SEQ) for a in DRYRUN_PREFILL]
-    cells += [("train", a, LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+    """(kind, arch, batch, seq, mesh, layers) of every cell the phase
+    traces: the LM phases' at 1x1 and full depth, and phase mesh's
+    full-width fsdp runs at 2x1 and their depth (``layers`` None: the
+    config's)."""
+    cells = [("prefill", a, 1, LM_SEQ, (1, 1), None) for a in DRYRUN_PREFILL]
+    cells += [("train", a, LM_TRAIN_BATCH, LM_TRAIN_SEQ, (1, 1), None)
               for a in DRYRUN_TRAIN]
-    cells += [("decode", a) + DRYRUN_DECODE_SHAPE for a in DRYRUN_DECODE]
+    cells += [("decode", a) + DRYRUN_DECODE_SHAPE + ((1, 1), None)
+              for a in DRYRUN_DECODE]
+    cells += [("train", a, LM_TRAIN_BATCH, LM_TRAIN_SEQ, (2, 1), n)
+              for a, n in FSDP_FULL]
     return cells
+
+
+def dryrun_cell_for(cells, kind, arch, mesh=(1, 1), layers=None):
+    """The worker's record of one cell."""
+    return next(r for r in cells if (r["kind"], r["arch"], tuple(r["mesh"]),
+                                     r["layers"]) == (kind, arch, mesh,
+                                                      layers))
 
 
 def dryrun_predict(out_path) -> None:
@@ -5380,25 +5425,35 @@ def dryrun_predict(out_path) -> None:
     :func:`dryrun_cells` built at a 1x1 mesh (``launch.steps.build_cell``)
     and traced on meta tensors (``lower_cell``), with its roofline at the
     H100's rates, written to ``out_path`` as JSON."""
+    import dataclasses
     sys.path.insert(0, SRC)
     from repro_torch.analysis import roofline
     from repro_torch.configs import ARCHS, ShapeCell
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import make_mesh
-    mesh = make_mesh((1, 1), ("data", "model"))
     out = []
-    for kind, arch, batch, seq in dryrun_cells():
+    for kind, arch, batch, seq, shape2, layers in dryrun_cells():
         spec = ARCHS[arch]
+        if layers is not None:
+            # the depth cut of ``launch.train --layers``, widths unchanged
+            full = spec.config()
+            spec = dataclasses.replace(spec, config=lambda f=full, n=layers:
+                                       dataclasses.replace(f, num_layers=n))
         cfg = spec.config()
+        mesh = make_mesh(shape2, ("data", "model"))
         shape = ShapeCell(f"{kind}_{batch}x{seq}", kind, seq, batch)
-        rec = {"kind": kind, "arch": arch, "batch": batch, "seq": seq}
+        rec = {"kind": kind, "arch": arch, "batch": batch, "seq": seq,
+               "mesh": list(shape2), "layers": layers}
         try:
             cell = steps.build_cell(arch, spec, shape, mesh)
         except steps.Unsupported as e:
             out.append({**rec, "status": "skipped", "reason": str(e)})
             continue
         traced = steps.lower_cell(cell)
-        rl = roofline.analyze(traced.cost, cfg, kind, seq, batch, (1, 1))
+        if shape2 != (1, 1):
+            rec["state_bytes"] = steps.state_bytes(cell)
+        rl = roofline.analyze(traced.cost, cfg, kind, seq, batch, shape2,
+                              fsdp=spec.fsdp)
         out.append({**rec, "status": "ok", "trace_s": traced.trace_s,
                     **traced.memory(), "flops": traced.cost.flops,
                     "dominant": rl.dominant,
@@ -5458,6 +5513,14 @@ def phase_dryrun(torch, card, worker):
             require(rec["status"] == "skipped" and rec["reason"],
                     f"dryrun {arch} {kind}: {rec['status']} without a "
                     "reason")
+            continue
+        if tuple(rec["mesh"]) != (1, 1):
+            # phase mesh's full-width runs: held to their measured peaks
+            # there, under the same DRYRUN_PEAK_TOL
+            emit({"phase": "dryrun", **rec, "card": card})
+            require(rec["state_bytes"]["rank0"] == rec["state_bytes"]["spec"],
+                    f"dryrun {arch} {rec['mesh']}: state bytes "
+                    f"{rec['state_bytes']}")
             continue
         got = MEASURED.get((kind, arch), {})
         wall = got.get("wall_ms")
@@ -5534,15 +5597,20 @@ def mesh_flat(tree) -> dict:
             for k, _, v in tp._flatten_with_keys(tree)}
 
 
-def mesh_plan(cfg, m):
-    from repro_torch.distributed import sharding, tp
+def mesh_plan(arch, cfg, d, m):
+    """``sharding.mesh_plan`` of ``cfg`` on a ``(d, m)`` mesh under the
+    arch's rules (``fsdp``, overrides): the blocks each rank holds."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.distributed import sharding
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models.registry import get_model
-    if m == 1:
-        return None
     shapes, axes = get_model(cfg).abstract_params(cfg)
-    return tp.build_plan(axes, shapes, cfg=cfg, tp=m, rules=sharding.
-                         default_rules(Mesh(("data", "model"), (1, m))))
+    layout = Mesh(("data", "model"), (d, m))
+    spec = ARCHS[arch]
+    return sharding.mesh_plan(axes, shapes, cfg=cfg, mesh=layout,
+                              rules=sharding.default_rules(
+                                  layout, fsdp=spec.fsdp,
+                                  overrides=spec.rules_overrides))
 
 
 def mesh_smoke_params(torch, cfg, dev):
@@ -5578,11 +5646,9 @@ def mesh_job_train_smoke(torch, dev, spec):
     for arch in ("qwen3-4b", "mamba2-780m"):
         cfg = f32_smoke(arch)
         model = get_model(cfg)
-        plan = mesh_plan(cfg, m)
-        params = mesh_smoke_params(torch, cfg, dev)
-        if plan is not None:
-            params = tp.partition_params(params, plan,
-                                         rank=mesh.index("model"))
+        plan = mesh_plan(arch, cfg, d, m)
+        params = tp.partition_params(mesh_smoke_params(torch, cfg, dev), plan,
+                                     rank=mesh.index(("data", "model")))
         batch = mesh_smoke_batch(cfg, dev)
         loss, grads = trainer.mesh_loss_and_grads(
             model.loss, params, batch, cfg, tcfg, mesh=mesh, plan=plan)
@@ -5601,8 +5667,8 @@ def mesh_job_train_smoke(torch, dev, spec):
 
 def mesh_job_train(torch, dev, spec):
     """``launch.train``'s loop (``run``) on this rank of the ``--mesh`` of
-    each argv: history, step times, restarts and a digest of the rank's
-    state."""
+    each argv: history, step times, restarts, its peak after the init and,
+    for a run that checkpoints, a digest of the rank's state."""
     import hashlib
 
     from repro_torch.launch import train as launch_train
@@ -5615,13 +5681,19 @@ def mesh_job_train(torch, dev, spec):
         res = launch_train.run(args, mesh=make_mesh((d, m), ("data",
                                                              "model")),
                                verbose=False)
-        h = hashlib.sha256()
-        for t in leaves(res["state"]):
-            h.update(t.detach().cpu().reshape(-1).view(torch.uint8)
-                     .numpy().tobytes())
+        digest = None
+        if args.ckpt_dir:
+            # a recovery run's state, compared bit for bit (a full-width
+            # state would take tens of seconds to hash)
+            h = hashlib.sha256()
+            for t in leaves(res["state"]):
+                h.update(t.detach().cpu().reshape(-1).view(torch.uint8)
+                         .numpy().tobytes())
+            digest = h.hexdigest()
         out[name] = {"history": res["history"], "restarts": res["restarts"],
                      "step_s": res["step_s"], "wall_s": res["wall_s"],
-                     "state_sha256": h.hexdigest()}
+                     "step_peak_gb": res["step_peak_gb"],
+                     "state_sha256": digest}
         del res
         torch.cuda.empty_cache()
     return out
@@ -5704,7 +5776,9 @@ def mesh_job_engine(torch, dev, spec):
 
 
 MESH_JOBS = {"train_smoke": mesh_job_train_smoke, "train": mesh_job_train,
-             "seq_decode": mesh_job_seq_decode, "engine": mesh_job_engine}
+             "seq_decode": mesh_job_seq_decode, "engine": mesh_job_engine,
+             "ft_step": lambda torch, dev, spec: ft_rank_step(torch, dev,
+                                                              spec)}
 
 
 def mesh_rank(rank, world, jobs):
@@ -5735,18 +5809,12 @@ def mesh_rank(rank, world, jobs):
     return out
 
 
-def mesh_reassembled(ranks, arch, field, m):
-    """A field of the model ranks' slices (data coordinate 0) as the full
-    flat tree."""
-    plan = mesh_plan(f32_smoke(arch), m)
-    parts = [next(r for r in ranks if r["coords"] == [0, k])[arch][field]
-             for k in range(m)]
-    out = {}
-    for k in parts[0]:
-        rule = None if plan is None else plan.flat[k]
-        out[k] = (parts[0][k] if rule is None
-                  else rule.unslice([p[k] for p in parts]))
-    return out
+def mesh_reassembled(ranks, arch, field, shape):
+    """A field of the ranks' blocks (rank order) as the full flat tree, by
+    the mesh plan they hold."""
+    from repro_torch.distributed import tp
+    plan = mesh_plan(arch, f32_smoke(arch), *shape)
+    return tp.assemble(plan, [r[arch][field] for r in ranks])
 
 
 def mesh_excess(got: dict, want: dict, tol: float) -> float:
@@ -5789,7 +5857,7 @@ def mesh_smoke_lines(torch, dev, ranks, refs, mesh, shape):
     lines = []
     for arch in ("qwen3-4b", "mamba2-780m"):
         ref = refs[arch]
-        grads = mesh_reassembled(ranks, arch, "grads", m)
+        grads = mesh_reassembled(ranks, arch, "grads", shape)
         flat_p = {k: t for k, _, t in tp._flatten_with_keys(ref["params"])}
         g_tree = tp._unflatten_like(ref["params"], {
             k: torch.from_numpy(grads[k]).to(dev) for k in flat_p})
@@ -5798,7 +5866,7 @@ def mesh_smoke_lines(torch, dev, ranks, refs, mesh, shape):
             ref["params"], g_tree, opt.init_opt_state(ref["params"], ocfg),
             ocfg)
         state_over = max(
-            mesh_excess(mesh_reassembled(ranks, arch, f, m),
+            mesh_excess(mesh_reassembled(ranks, arch, f, shape),
                         mesh_flat(w), LM_OPT_TOL)
             for f, w in (("params", new_p), ("m", new_opt["m"]),
                          ("v", new_opt["v"])))
@@ -5934,6 +6002,82 @@ def mesh_lane_runs(torch, paths, goldens, field, cfg, qparams):
     require(all(equal.values()), f"mesh field differs: {equal}")
 
 
+def fsdp_lines(torch, paths, ranks, fsdp):
+    """Phase mesh's parts of JAX's placement (ZeRO-3, expert parallelism,
+    the experts' mlp over model): each f32 smoke step against the CPU's
+    1x1 (``ft_mesh_lines``); recovery at 2x2 bit for bit; each
+    full-width run's losses, step times and each rank's peak after its
+    init against the dry run's predicted peak for its 2x1 cell, within
+    DRYRUN_PEAK_TOL."""
+    import numpy as np
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    for name, spec in fsdp.items():
+        rs = ranks[name]
+        paths.record(f"mesh {name}", mesh_launches(rs),
+                     ("flash_attention_tf32x3",), train=True)
+        ft_mesh_lines(torch, rs, name, spec, ref_dev="cpu", phase="mesh")
+
+    rs = ranks["fsdp recovery"]
+    paths.record("mesh fsdp recovery 2x2", mesh_launches(rs),
+                 ("flash_attention", "matmul_bf16"), train=True)
+    same = all(r["clean"]["history"] == r["faulty"]["history"]
+               and r["clean"]["state_sha256"] == r["faulty"]["state_sha256"]
+               for r in rs)
+    line = {"phase": "mesh", "part": "fsdp_recovery", **FSDP_RECOVERY,
+            "ranks": len(rs),
+            "restarts": [r["faulty"]["restarts"] for r in rs],
+            "losses_and_state_equal": same,
+            "shards_differ": len({r["faulty"]["state_sha256"]
+                                  for r in rs}) == len(rs),
+            "wall_s": [r["wall_s"] for r in rs], "card": smi}
+    emit(line)
+    require(same and line["restarts"] == [1] * len(rs),
+            f"mesh fsdp recovery differs from the uninterrupted run: {line}")
+
+    with open(DRYRUN_OUT) as f:
+        cells = json.load(f)
+    for arch, layers in FSDP_FULL:
+        rs = ranks[f"fsdp full {arch}"]
+        counts = mesh_launches(rs)
+        paths.record(f"mesh fsdp train {arch} 2x1", counts,
+                     ("flash_attention",), train=True)
+        runs = [r[arch] for r in rs]
+        losses = [runs[0]["history"][s] for s in sorted(runs[0]["history"])]
+        cell = dryrun_cell_for(cells, "train", arch, (2, 1), layers)
+        require(cell["status"] == "ok", f"dryrun cell of {arch}: {cell}")
+        predicted = cell["peak_bytes"] / 2 ** 30
+        measured = [r["step_peak_gb"] for r in runs]
+        over = max(abs(predicted / m - 1) for m in measured)
+        line = {"phase": "mesh", "part": "fsdp_full_width_train",
+                "arch": arch, "layers": layers, "mesh": "2x1",
+                "ranks": len(rs), "batch": LM_TRAIN_BATCH,
+                "seq": LM_TRAIN_SEQ, "steps": FSDP_FULL_STEPS,
+                "losses": losses,
+                "finite": bool(np.isfinite(losses).all()),
+                "losses_equal_across_ranks": all(
+                    r["history"] == runs[0]["history"] for r in runs),
+                "step_s": [r["step_s"] for r in runs],
+                "step_peak_gb": measured,
+                "predicted_peak_gb": predicted,
+                "predicted_state_gb": cell["state_bytes"]["rank0"] / 2 ** 30,
+                "peak_rel_diff": over, "peak_tol": DRYRUN_PEAK_TOL,
+                "peak_gb_with_init": [r["peak_gb"] for r in rs],
+                "wall_s": [r["wall_s"] for r in rs], "card": smi,
+                "launches_per_rank_step": {
+                    k: v / (len(rs) * FSDP_FULL_STEPS)
+                    for k, v in counts.items() if v}}
+        emit(line)
+        require(line["finite"] and line["losses_equal_across_ranks"],
+                f"mesh fsdp {arch} 2x1: losses {losses}")
+        require(over <= DRYRUN_PEAK_TOL,
+                f"mesh fsdp {arch} 2x1: measured peaks {measured} GiB vs "
+                f"the dry run's {predicted:.3f} ({over:.3f} over "
+                f"{DRYRUN_PEAK_TOL})")
+
+
 def phase_mesh(torch, paths, goldens, field, cfg, qparams):
     """Training over a (data, model) mesh, the sequence-sharded decode, the
     decode engine's data axis and lane meshes, on the card.  (1) Two gloo
@@ -5942,10 +6086,15 @@ def phase_mesh(torch, paths, goldens, field, cfg, qparams):
     bit; the sequence-sharded decode at qwen3-4b's heads, 8 x 32,768,
     against one rank within 2e-5; LMDecodeEngine at (2, 1); then
     qwen3-4b at --mesh 1x2 and mamba2-780m at --mesh 2x1, published
-    sizes, 8 x 128, MESH_FULL_STEPS steps.  (2) Four ranks: the f32 smoke
-    steps at 2x2 (two micro-batches a data rank) and LMDecodeEngine at
-    (2, 2), tokens against mesh None.  (3) Lane meshes in this process.
-    (4) ``python -m repro_torch.launch.train --smoke --mesh 2x1``."""
+    widths at MESH_FULL's depths, 8 x 128, MESH_FULL_STEPS steps.  (2)
+    Four ranks: the f32 smoke steps at 2x2 (two micro-batches a data
+    rank) and LMDecodeEngine at (2, 2), tokens against mesh None.
+    JAX's placement of the fsdp archs (``fsdp_lines``): FSDP_SMOKE's f32
+    smoke steps at 2x1 (two ranks) and 2x2 (four) against the CPU's 1x1,
+    FSDP_RECOVERY at 2x2 bit for bit, FSDP_FULL at --mesh 2x1 (two
+    ranks).  (3) Lane meshes in this
+    process.  (4) ``python -m repro_torch.launch.train --smoke --mesh
+    2x1``."""
     import shutil
 
     import numpy as np
@@ -5973,10 +6122,11 @@ def phase_mesh(torch, paths, goldens, field, cfg, qparams):
     shutil.rmtree(rec_root, ignore_errors=True)
     rec_argv = ["--smoke", "--mesh", rec["mesh"], "--steps",
                 str(rec["steps"]), "--ckpt-every", str(rec["ckpt_every"])]
-    full_argv = {arch: ["--arch", arch, "--mesh", mesh, "--steps",
-                        str(MESH_FULL_STEPS), "--global-batch",
-                        str(LM_TRAIN_BATCH), "--seq-len", str(LM_TRAIN_SEQ)]
-                 for arch, mesh in MESH_FULL}
+    full_argv = {arch: ["--arch", arch, "--layers", str(layers), "--mesh",
+                        mesh, "--steps", str(MESH_FULL_STEPS),
+                        "--global-batch", str(LM_TRAIN_BATCH), "--seq-len",
+                        str(LM_TRAIN_SEQ)]
+                 for arch, mesh, layers in MESH_FULL}
     smoke = {k: ("train_smoke", {"mesh": shape, "accum": accum})
              for k, (shape, accum) in MESH_SMOKE_MESHES.items()}
     two = {"smoke 2x1": smoke["2x1"], "smoke 1x2": smoke["1x2"],
@@ -5987,17 +6137,50 @@ def phase_mesh(torch, paths, goldens, field, cfg, qparams):
                    rec_root, "faulty"), "--fail-at", str(rec["fail_at"])]}),
            "seq decode": ("seq_decode", {}),
            "engine 2x1": ("engine", {"mesh": (2, 1)})}
-    for arch, mesh in MESH_FULL:
+    for arch, _, _ in MESH_FULL:
         two[f"full {arch}"] = ("train", {arch: full_argv[arch]})
     four = {"smoke 2x2": smoke["2x2"], "engine 2x2": ("engine",
                                                       {"mesh": (2, 2)})}
+    # JAX's placement of the fsdp archs' state: the f32 smoke steps,
+    # recovery at 2x2, and full width at 2x1
+    fsdp = {f"fsdp {name} {mesh}": {"arch": arch, "over": over,
+                                    "mesh": shape}
+            for name, (arch, over) in FSDP_SMOKE.items()
+            for mesh, shape in FSDP_SMOKE_MESHES.items()}
+    for name, spec in fsdp.items():
+        (two if spec["mesh"] == (2, 1) else four)[name] = ("ft_step", spec)
+    fr = FSDP_RECOVERY
+    fr_root = os.path.join(ROOT, "build", "fsdp_recovery")
+    shutil.rmtree(fr_root, ignore_errors=True)
+    fr_argv = ["--smoke", "--arch", fr["arch"], "--mesh", fr["mesh"],
+               "--steps", str(fr["steps"]), "--ckpt-every",
+               str(fr["ckpt_every"])]
+    four["fsdp recovery"] = ("train", {
+        "clean": fr_argv + ["--ckpt-dir", os.path.join(fr_root, "clean")],
+        "faulty": fr_argv + ["--ckpt-dir", os.path.join(fr_root, "faulty"),
+                             "--fail-at", str(fr["fail_at"])]})
+    for arch, layers in FSDP_FULL:
+        two[f"fsdp full {arch}"] = ("train", {arch: [
+            "--arch", arch, "--layers", str(layers), "--mesh", "2x1",
+            "--steps", str(FSDP_FULL_STEPS), "--global-batch",
+            str(LM_TRAIN_BATCH), "--seq-len", str(LM_TRAIN_SEQ)]})
     ranks = {}
-    for world, jobs in ((2, two), (4, four)):
-        t0 = time.perf_counter()
-        got = launch.run(mesh_rank, world, args=(jobs,), timeout_s=900)
-        part_s[f"ranks_{world}"] = time.perf_counter() - t0
-        for name in jobs:
-            ranks[name] = [g[name] for g in got]
+    # two full-width ranks fill most of the card: the allocator grows its
+    # segments rather than keeping freed blocks it cannot reuse
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        for world, jobs in ((2, two), (4, four)):
+            t0 = time.perf_counter()
+            got = launch.run(mesh_rank, world, args=(jobs,), timeout_s=900)
+            part_s[f"ranks_{world}"] = time.perf_counter() - t0
+            for name in jobs:
+                ranks[name] = [g[name] for g in got]
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
 
     # the f32 smoke steps against the card's 1x1
     for mesh, (shape, _) in MESH_SMOKE_MESHES.items():
@@ -6060,17 +6243,21 @@ def phase_mesh(torch, paths, goldens, field, cfg, qparams):
               "peak_gb": [r["peak_gb"] for r in rs]})
         require(all(equal.values()), f"mesh {name}: tokens {equal}")
 
-    # published sizes
-    for arch, mesh in MESH_FULL:
+    # published widths at a cut depth
+    from repro_torch.configs import ARCHS
+    for arch, mesh, layers in MESH_FULL:
         rs = ranks[f"full {arch}"]
-        per_step = dict(LM_TRAIN_PATHS)[arch]
+        # LM_TRAIN_PATHS' launches a full-depth step, a layer's share each
+        per_step = {k: v * layers // ARCHS[arch].config().num_layers
+                    for k, v in dict(LM_TRAIN_PATHS)[arch].items()}
         counts = mesh_launches(rs)
         paths.record(f"mesh train {arch} {mesh}", counts, tuple(per_step),
                      train=True)
         runs = [r[arch] for r in rs]
         losses = [runs[0]["history"][s] for s in sorted(runs[0]["history"])]
         line = {"phase": "mesh", "part": "full_width_train", "arch": arch,
-                "mesh": mesh, "ranks": len(rs), "batch": LM_TRAIN_BATCH,
+                "mesh": mesh, "layers": layers, "ranks": len(rs),
+                "batch": LM_TRAIN_BATCH,
                 "seq": LM_TRAIN_SEQ, "steps": MESH_FULL_STEPS,
                 "losses": losses,
                 "finite": bool(np.isfinite(losses).all()),
@@ -6086,6 +6273,10 @@ def phase_mesh(torch, paths, goldens, field, cfg, qparams):
             require(counts.get(k, 0) == len(rs) * MESH_FULL_STEPS * v,
                     f"mesh {arch} {mesh}: {k} launched {counts.get(k, 0)}, "
                     f"expected {len(rs)} x {MESH_FULL_STEPS} x {v}")
+
+    fsdp_lines(torch, paths, ranks, fsdp)
+    emit({"phase": "mesh", "part": "job_wall_s", **{
+        name: max(r["wall_s"] for r in rs) for name, rs in ranks.items()}})
 
     t0 = time.perf_counter()
     mesh_lane_runs(torch, paths, goldens, field, cfg, qparams)
@@ -7153,10 +7344,10 @@ def ft_rank_step(torch, dev, spec):
     mesh = make_mesh((d, m), ("data", "model"))
     cfg = ft_config(spec["arch"], spec["over"])
     model = get_model(cfg)
-    plan = mesh_plan(cfg, m)
-    params = bc.params_to(ft_smoke_params(torch, cfg), dev)
-    if plan is not None:
-        params = tp.partition_params(params, plan, rank=mesh.index("model"))
+    plan = mesh_plan(spec["arch"], cfg, d, m)
+    params = tp.partition_params(
+        bc.params_to(ft_smoke_params(torch, cfg), dev), plan,
+        rank=mesh.index(("data", "model")))
     batch = ft_batch(torch, cfg, dev, FT_SMOKE_BATCH, FT_SMOKE_SEQ)
     ocfg = opt.OptimizerConfig(**LM_TRAIN_OPT)
     step = trainer.jit_train_step(model.loss, cfg, ocfg, mesh=mesh,
@@ -7241,19 +7432,21 @@ def ft_rank(rank, world, jobs):
     return out
 
 
-def ft_mesh_lines(torch, ranks, name, spec):
-    """A mesh step against the card's 1x1 on the same params and batch:
-    ``FT_RULE``, the reference AdamW the port's on the mesh's reassembled
-    gradients; ``moe_aux`` within 1e-5; losses equal across ranks."""
+def ft_mesh_lines(torch, ranks, name, spec, ref_dev="cuda",
+                  phase="families_train"):
+    """A mesh step against the 1x1 step on ``ref_dev`` (the card's, or
+    the CPU's plain one) on the same params and batch: ``FT_RULE``, the
+    reference AdamW the port's on the mesh's reassembled gradients (on
+    ``ref_dev``); ``moe_aux`` within 1e-5; losses equal across ranks.
+    The ranks' blocks are put together by the mesh plan they hold."""
     from repro_torch.core import basecaller as bc
     from repro_torch.distributed import tp
     from repro_torch.models.registry import get_model
     from repro_torch.train import optimizer as opt
     from repro_torch.train import trainer
-    dev = torch.device("cuda")
+    dev = torch.device(ref_dev)
     cfg = ft_config(spec["arch"], spec["over"])
-    m = spec["mesh"][1]
-    plan = mesh_plan(cfg, m)
+    plan = mesh_plan(spec["arch"], cfg, *spec["mesh"])
     params = bc.params_to(ft_smoke_params(torch, cfg), dev)
     (loss, aux), g1 = trainer.loss_and_grads(
         get_model(cfg).loss, params, ft_batch(torch, cfg, dev,
@@ -7261,11 +7454,7 @@ def ft_mesh_lines(torch, ranks, name, spec):
         cfg)
 
     def whole(field):
-        parts = [next(r for r in ranks if r["coords"] == [0, k])[field]
-                 for k in range(m)]
-        return {k: parts[0][k] if plan is None or plan.flat[k] is None
-                else plan.flat[k].unslice([p[k] for p in parts])
-                for k in parts[0]}
+        return tp.assemble(plan, [r[field] for r in ranks])
     grads = whole("grads")
     flat_p = {k: t for k, _, t in tp._flatten_with_keys(params)}
     g_tree = tp._unflatten_like(params, {
@@ -7278,7 +7467,8 @@ def ft_mesh_lines(torch, ranks, name, spec):
                                   ("v", new_opt["v"])))
     want_aux = float(aux["moe_aux"].detach()) if "moe_aux" in aux else None
     got_aux = ranks[0]["moe_aux"]
-    line = {"phase": "families_train", "part": "mesh_vs_1x1", "case": name,
+    line = {"phase": phase, "part": "mesh_vs_1x1", "case": name,
+            "reference": f"1x1 on {ref_dev}",
             "arch": spec["arch"], "mesh": list(spec["mesh"]),
             "over": spec["over"], "loss_mesh": ranks[0]["loss"],
             "loss_1x1": float(loss),
@@ -7297,7 +7487,7 @@ def ft_mesh_lines(torch, ranks, name, spec):
     require(line["loss_rel_diff"] <= 1e-5 and line["grad_over_bar"] <= 1
             and line["state_over_bar"] <= 1 and aux_ok
             and line["losses_equal_across_ranks"],
-            f"families_train mesh {name}: {line}")
+            f"{phase} mesh {name}: {line}")
 
 
 def phase_families_train(torch, paths):

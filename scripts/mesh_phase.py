@@ -1,10 +1,13 @@
 """``chip_smoke.py``'s phase ``mesh`` alone, on the card: builds the
 kernels, runs the unmeshed full-width flowcells and the field (the
-references the lane meshes are held to), then the mesh phase; its JSON
-lines as ``chip_smoke.py`` prints them.
+references the lane meshes are held to) after the dry run's cells (the
+predicted peaks of the fsdp runs), then the mesh phase; its JSON lines
+as ``chip_smoke.py`` prints them.
 
     python3 scripts/mesh_phase.py        # from the root of a checkout
+    python3 scripts/mesh_phase.py --fsdp-full grok-1-314b:1 --fsdp-steps 3
 """
+import argparse
 import json
 import os
 import sys
@@ -23,7 +26,23 @@ from repro_torch.kernels import _build, ref  # noqa: E402
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--fsdp-full", default=None,
+                    help="ARCH:LAYERS,... in place of chip_smoke.py's "
+                         "FSDP_FULL (the full-width runs at --mesh 2x1)")
+    ap.add_argument("--fsdp-steps", type=int, default=None,
+                    help="their steps, in place of FSDP_FULL_STEPS")
+    args = ap.parse_args()
+    if args.fsdp_full:
+        cs.FSDP_FULL = tuple((a, int(n)) for a, n in (
+            item.split(":") for item in args.fsdp_full.split(",")))
+    if args.fsdp_steps:
+        cs.FSDP_FULL_STEPS = args.fsdp_steps
     ref.full_fp32()
+    # the fsdp runs' predicted peaks (the dry run's cells of FSDP_FULL)
+    t0 = time.perf_counter()
+    cs.dryrun_predict(cs.DRYRUN_OUT)
+    print(json.dumps({"dryrun_s": time.perf_counter() - t0}), flush=True)
     t0 = time.perf_counter()
     _build.build_all()
     print(json.dumps({"built_s": time.perf_counter() - t0}), flush=True)

@@ -20,6 +20,17 @@ of them, or None); :func:`spec_tree` maps it over a tree.  The ranks of a
 (``train.trainer.jit_train_step``), so JAX's ``param_shardings`` and
 ``shard_map_compat``, which build JAX objects, have no counterpart.
 
+:func:`mesh_plan` places a params tree on a (data, model) mesh by those
+specs (JAX's ``spec_tree`` of the train state): each leaf's
+:class:`Placement` records the dim it splits over data and how (gathered
+at use, ZeRO-3; or whole experts a data rank, expert parallelism), the
+dim it splits over model, and the slice the layer code computes with on
+the model axis (``tp.build_plan``'s rule, the experts' ``mlp`` included).
+Where the stored split and that slice differ (Mamba-2's packed
+``in_proj``, whose B/C columns every model rank needs) the leaf is
+gathered over model at use and then sliced.  ``tp`` realises the plan:
+``partition_params``, ``gathered``, ``mesh_ctx``.
+
 A lane mesh (:func:`lane_mesh`, :class:`LaneMesh`) is JAX's 1-D device
 mesh for the flowcell: devices of one process, each running a contiguous
 block of the lanes (``realtime/runtime.py``).
@@ -152,6 +163,114 @@ def spec_tree(axes_tree, shape_tree):
     if isinstance(axes_tree, dict):
         return {k: spec_tree(a, shape_tree[k]) for k, a in axes_tree.items()}
     return logical_spec(axes_tree, tuple(shape_tree.shape))
+
+
+# ============================================================ mesh plan ===
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """Where one leaf lives on a (data, model) mesh, by JAX's spec of it.
+    ``data_dim`` splits evenly over the data ranks: whole experts a rank
+    where ``experts`` (the layer exchanges tokens), else gathered over
+    data at use (ZeRO-3).  ``model_dim``
+    splits evenly over the model ranks; ``rule`` is the ``tp.Segments``
+    the layer code computes with on the model axis (None: whole), and
+    ``gather_model`` says that the stored split is not that slice, so the
+    leaf is gathered over model at use and then cut by ``rule``."""
+    data_dim: Optional[int] = None
+    experts: bool = False
+    model_dim: Optional[int] = None
+    rule: Any = None
+    gather_model: bool = False
+
+    @property
+    def whole(self) -> bool:
+        return self.data_dim is None and self.model_dim is None
+
+    def to_json(self, data: int, model: int):
+        if self.whole:
+            return "replicated"
+        return {"mesh": [data, model], "data_dim": self.data_dim,
+                "model_dim": self.model_dim}
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshPlan:
+    """Every leaf's :class:`Placement` on a ``data`` x ``model`` mesh, by
+    checkpoint key (``tp._flatten_with_keys`` of the params)."""
+    data: int
+    model: int
+    flat: dict
+
+    @property
+    def sharded(self) -> bool:
+        """Whether any rank holds less than a whole leaf."""
+        return any(not p.whole for p in self.flat.values())
+
+    def placement(self, key: str) -> Optional[Placement]:
+        """A params key's placement, or a train state's (``params/...``,
+        ``opt/m/...``, ``opt/v/...``: the moments as their params); None
+        for the step counter and unknown keys (whole)."""
+        if key in self.flat:
+            return self.flat[key]
+        for pre in ("params/", "opt/m/", "opt/v/"):
+            if key.startswith(pre) and key[len(pre):] in self.flat:
+                return self.flat[key[len(pre):]]
+        return None
+
+
+def _entry_axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def mesh_plan(axes_tree, shapes_tree, *, cfg, mesh, rules) -> MeshPlan:
+    """The :class:`MeshPlan` of a params tree (``model.abstract_params``)
+    on ``mesh`` (a layout or a bound mesh: only its ``shape`` is read)
+    under ``rules`` (``launch.steps.make_rules``, or
+    :func:`default_rules` with the arch's ``fsdp`` and overrides).  A
+    spec the port cannot realise raises ``ValueError`` naming the leaf;
+    the model axis's divisibility errors are ``tp.build_plan``'s."""
+    from repro_torch.distributed import tp
+    d, m = mesh.shape.get("data", 1), mesh.shape.get("model", 1)
+    if set(mesh.shape) - {"data", "model"}:
+        raise ValueError(f"mesh {mesh.shape}: the port's meshes are "
+                         "(data, model)")
+    compute = tp.build_plan(axes_tree, shapes_tree, cfg=cfg, tp=m,
+                            rules=rules, experts=True)
+    axes_by_key = {k: a for k, _, a in tp._flatten_with_keys(
+        axes_tree, is_leaf=lambda x: isinstance(x, tuple))}
+    flat = {}
+    with use_sharding(mesh, rules):
+        for key, _, like in tp._flatten_with_keys(shapes_tree):
+            shape = tuple(like.shape)
+            axes = axes_by_key[key]
+            spec = logical_spec(axes, shape)
+            data_dim = model_dim = None
+            for i, entry in enumerate(spec):
+                ax = _entry_axes(entry)
+                if "model" in ax and len(ax) > 1:
+                    raise ValueError(f"{key}: dim {i} over {ax}: the port "
+                                     "splits a dim over one mesh axis")
+                # an axis of extent 1 splits nothing (JAX's spec names it)
+                if "model" in ax and m > 1:
+                    model_dim = i
+                elif ax and "model" not in ax and d > 1:
+                    data_dim = i
+            rule = compute.flat[key]
+            plain = (rule is not None and model_dim is not None
+                     and rule == tp.Segments.plain(model_dim,
+                                                   shape[model_dim]))
+            if rule is not None and model_dim is None:
+                raise ValueError(
+                    f"{key}: the layer code slices dim {rule.dim} over "
+                    f"model, which the spec {spec} leaves whole")
+            flat[key] = Placement(
+                data_dim=data_dim,
+                experts=data_dim is not None and axes[data_dim] == "expert",
+                model_dim=model_dim, rule=rule,
+                gather_model=model_dim is not None and not plain)
+    return MeshPlan(data=d, model=m, flat=flat)
 
 
 LANE_AXIS = "data"  # flowcell channel lanes are batch-parallel work

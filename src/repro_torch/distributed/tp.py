@@ -25,8 +25,8 @@ Mamba-2 ``in_proj``/head vectors sliced by heads.  Three pieces:
   the loss is seeded ``1 / n`` on each of the ``n`` ranks, a psum's
   backward is a psum, ``all_gather_last``'s a psum then this rank's
   columns, ``pmax`` takes none (it only shifts a softmax), and after the
-  backward :func:`reduce_replicated_grads` sums every replicated leaf's
-  and replicated segment's gradient over the group.  One rule serves
+  backward :func:`reduce_mesh_grads` sums every replicated leaf's
+  gradient over the group.  One rule serves
   every place a replicated tensor meets rank-local work: the column-
   parallel inputs, the qk-norm scales, Mamba-2's one-group B/C columns,
   the gated RMSNorm's sum of squares.
@@ -38,12 +38,28 @@ Mamba-2 ``in_proj``/head vectors sliced by heads.  Three pieces:
   data ranks, and :func:`from_previous_data_rank` hands the dispatch's
   last-row overflow on to the next rank (its gradient back).
 
+* **ZeRO-3 and expert parallelism** (``sharding.mesh_plan``): inside
+  :func:`mesh_ctx` a rank holds its blocks of the params, and
+  :func:`gathered` all-gathers a leaf where the layer code reads it
+  (:func:`gather_data`'s autograd: the gradient reduce-scattered back,
+  summed over the ranks that used it); the experts stay a rank's own,
+  and the MoE layer exchanges tokens by all-to-all (:func:`exchange_data`,
+  its own adjoint) or all-gathers them and reduce-scatters the sums
+  (:func:`scatter_data`).  After the backward :func:`reduce_mesh_grads`
+  sums what an axis holds whole over it, and :func:`mesh_grad_norm_sq`
+  sums each split leaf's squares over the groups that split it.  Gloo
+  runs all of them on CUDA tensors (``all_gather_into_tensor``,
+  ``reduce_scatter_tensor``, ``all_to_all_single``; checked on an H100,
+  torch 2.11; its list ``all_to_all`` it lacks, and nothing calls it).
+
 * **slicing plan**: :func:`build_plan` gives each parameter leaf a
   :class:`Segments` rule (or ``None``, replicated) through the same
   logical-to-mesh rules ``sharding.logical_spec`` reads.
 
 * **placement**: :func:`partition_params` keeps this rank's slice of a
-  full tree (counted ``tp.load.replicated_slice``);
+  full tree (counted ``tp.load.replicated_slice``), by a :class:`Plan` or
+  a ``sharding.MeshPlan`` (:func:`mesh_local`, and :func:`assemble` /
+  :func:`mesh_unshard` back);
   :func:`load_sharded_params` reads only this rank's ``shard_<k>.npz`` of a
   ``sharded`` checkpoint (counted ``tp.load.pre_partitioned``) and checks
   that each sliced leaf holds exactly its local width.
@@ -73,7 +89,8 @@ from repro_torch.quant import core as qcore
 class RecordedGroup:
     """A process group the dry run plays (:func:`recording`): ``size``
     ranks over the mesh axes ``axes``, this one at position ``rank``.  Its
-    collectives are recorded, never run."""
+    collectives are recorded, never run (``all-reduce``, ``all-gather``,
+  ``reduce-scatter``, ``all-to-all``)."""
     axes: tuple[str, ...]
     size: int
     rank: int = 0
@@ -89,8 +106,9 @@ def recording(mesh):
     ``launch.mesh.Mesh`` of ``make_mesh`` outside a process group) played
     as its rank 0, each axis's group and the world's a
     :class:`RecordedGroup`, and ``record`` the list of ``(op, bytes,
-    group size)`` the collectives append: ``op`` is ``all-reduce`` or
-    ``all-gather``, ``bytes`` the result's bytes on this rank.  Only meta
+    group size)`` the collectives append: ``op`` is ``all-reduce``,
+    ``all-gather``, ``reduce-scatter`` or ``all-to-all``, ``bytes`` the
+    result's bytes on this rank.  Only meta
     tensors may meet a collective here."""
     global _RECORD
     from repro_torch.launch.mesh import Mesh
@@ -244,8 +262,8 @@ class _GatherLast(torch.autograd.Function):
 
 def psum(x: torch.Tensor, grp=None) -> torch.Tensor:
     """Sum over the TP axis (or over ``grp``); identity outside a region.
-    Its gradient is the psum of the ranks' gradients (see
-    :func:`reduce_replicated_grads` for the convention)."""
+    Its gradient is the psum of the ranks' gradients (the module
+    docstring gives the convention)."""
     if grp is None:
         if _TP_AXIS is None:
             return x
@@ -277,14 +295,20 @@ def all_gather_last(x: torch.Tensor) -> torch.Tensor:
 # into the next batch row) reduce or hand on across the data ranks.
 _DATA_EXTENT: int = 1
 _DATA_GROUP = None
+_DATA_BATCH: bool = True
 
 
 @contextlib.contextmanager
-def data_ctx(n: int, group):
+def data_ctx(n: int, group, *, batch: bool = True):
     """Scope the data axis of a mesh: ``n`` data ranks in ``group``, the
-    mesh's data group (``None`` only at ``n <= 1``, the identity)."""
-    global _DATA_EXTENT, _DATA_GROUP
-    prev = (_DATA_EXTENT, _DATA_GROUP)
+    mesh's data group (``None`` only at ``n <= 1``, the identity).
+    ``batch``: the ranks hold disjoint blocks of the global batch (the
+    train step; a cell whose batch the data axis divides); False: each
+    holds all of it (a batch of one row), so the router's statistics and
+    the overflow stay the rank's own, while the experts are still spread
+    over the ranks."""
+    global _DATA_EXTENT, _DATA_GROUP, _DATA_BATCH
+    prev = (_DATA_EXTENT, _DATA_GROUP, _DATA_BATCH)
     n = int(n)
     if n > 1 and group is None:
         # psum(x, None) would reduce over the model group, not the data's
@@ -293,10 +317,11 @@ def data_ctx(n: int, group):
         raise ValueError(f"tp.data_ctx({n}): the process group holds "
                          f"{_group_size(group)} ranks")
     _DATA_EXTENT, _DATA_GROUP = (n, group) if n > 1 else (1, None)
+    _DATA_BATCH = bool(batch)
     try:
         yield
     finally:
-        _DATA_EXTENT, _DATA_GROUP = prev
+        _DATA_EXTENT, _DATA_GROUP, _DATA_BATCH = prev
 
 
 def data_extent() -> int:
@@ -304,10 +329,22 @@ def data_extent() -> int:
     return _DATA_EXTENT
 
 
+def data_index() -> int:
+    """This rank's position along the data axis (0 outside a region)."""
+    return 0 if _DATA_EXTENT == 1 else _group_rank(_DATA_GROUP)
+
+
+def data_splits_batch() -> bool:
+    """Whether the data ranks hold disjoint blocks of one global batch
+    (false outside a data region)."""
+    return _DATA_EXTENT > 1 and _DATA_BATCH
+
+
 def data_mean(x: torch.Tensor) -> torch.Tensor:
     """The mean over the data ranks of equal-sized shards' ``x`` (a psum
-    over ``n``, its backward a psum); identity outside a data region."""
-    if _DATA_EXTENT == 1:
+    over ``n``, its backward a psum); identity outside a data region or
+    where every rank holds the whole batch."""
+    if not data_splits_batch():
         return x
     return psum(x, _DATA_GROUP) / _DATA_EXTENT
 
@@ -343,6 +380,183 @@ def from_previous_data_rank(x: torch.Tensor) -> torch.Tensor:
     """Inside a data region, the previous data rank's ``x`` (zeros on data
     rank 0), with its gradient sent back to that rank."""
     return _FromPrevious.apply(x, _DATA_GROUP)
+
+
+# ===================================================== ZeRO-3 and experts ==
+def _gather_dim(x: torch.Tensor, grp, dim: int) -> torch.Tensor:
+    """The group's ``x`` concatenated on ``dim`` in rank order."""
+    n = _group_size(grp)
+    recorded = _records(grp)
+    if recorded:
+        _recorded("all-gather", x, grp, n * _nbytes(x))
+    x = x.detach().movedim(dim, 0).contiguous()
+    out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    if not recorded:
+        dist.all_gather_into_tensor(out, x, group=grp)
+    return out if dim == 0 else out.movedim(0, dim).contiguous()
+
+
+def _scatter_dim(x: torch.Tensor, grp, dim: int) -> torch.Tensor:
+    """This rank's block on ``dim`` of the group's sum of ``x``."""
+    n = _group_size(grp)
+    x = x.detach().movedim(dim, 0).contiguous()
+    if x.shape[0] % n:
+        raise ValueError(f"tp: a reduce-scatter of {x.shape[0]} rows over "
+                         f"{n} ranks")
+    out = torch.empty((x.shape[0] // n,) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    if _records(grp):
+        _recorded("reduce-scatter", x, grp, _nbytes(out))
+    else:
+        dist.reduce_scatter_tensor(out, x, group=grp)
+    return out if dim == 0 else out.movedim(0, dim).contiguous()
+
+
+class _GatherDim(torch.autograd.Function):
+    """All-gather on ``dim``; backward reduce-scatters the gradient (each
+    rank's use of the gathered tensor summed, this rank's block kept)."""
+
+    @staticmethod
+    def forward(ctx, x, grp, dim):
+        ctx.grp, ctx.dim = grp, dim
+        return _gather_dim(x, grp, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_dim(g, ctx.grp, ctx.dim), None, None
+
+
+class _ScatterDim(torch.autograd.Function):
+    """Reduce-scatter on ``dim``; backward all-gathers the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, grp, dim):
+        ctx.grp, ctx.dim = grp, dim
+        return _scatter_dim(x, grp, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_dim(g, ctx.grp, ctx.dim), None, None
+
+
+def _exchange(x: torch.Tensor, grp) -> torch.Tensor:
+    """All-to-all on dim 0: block ``j`` of ``x`` goes to rank ``j``, and
+    block ``i`` of the result came from rank ``i``."""
+    recorded = _records(grp)
+    if recorded:
+        _recorded("all-to-all", x, grp, _nbytes(x))
+    x = x.detach().contiguous()
+    out = torch.empty_like(x)
+    if not recorded:
+        dist.all_to_all_single(out, x, group=grp)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """:func:`_exchange`, which is its own adjoint: the gradient goes back
+    the way it came."""
+
+    @staticmethod
+    def forward(ctx, x, grp):
+        ctx.grp = grp
+        return _exchange(x, grp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.grp), None
+
+
+def gather_data(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """The data ranks' ``x`` concatenated on ``dim`` (its gradient
+    reduce-scattered back); identity outside a data region."""
+    if _DATA_EXTENT == 1:
+        return x
+    return _GatherDim.apply(x, _DATA_GROUP, dim)
+
+
+def scatter_data(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """This data rank's block on ``dim`` of the data ranks' sum of ``x``
+    (its gradient all-gathered back); identity outside a data region."""
+    if _DATA_EXTENT == 1:
+        return x
+    return _ScatterDim.apply(x, _DATA_GROUP, dim)
+
+
+def exchange_data(x: torch.Tensor) -> torch.Tensor:
+    """All-to-all over the data ranks on dim 0 (expert parallelism's
+    dispatch and return); identity outside a data region."""
+    if _DATA_EXTENT == 1:
+        return x
+    return _AllToAll.apply(x, _DATA_GROUP)
+
+
+# a sharding.MeshPlan bound by mesh_ctx: what gathered() gathers
+_MESH_PLAN = None
+
+
+@contextlib.contextmanager
+def mesh_ctx(mesh, plan, *, batch: bool = True):
+    """Bind a bound (or recorded) ``(data, model)`` mesh around a rank's
+    forward: its model group as the TP axis (:func:`axis_ctx`), its data
+    group as the data axis (:func:`data_ctx`, ``batch`` as there) and
+    ``plan`` (a ``sharding.MeshPlan`` of the params this rank holds, or
+    None: every leaf whole) for :func:`gathered`."""
+    global _MESH_PLAN
+    d, m = mesh.shape.get("data", 1), mesh.shape.get("model", 1)
+    if plan is not None and (plan.data, plan.model) != (d, m):
+        raise ValueError(f"tp.mesh_ctx: a plan of {plan.data}x{plan.model} "
+                         f"on a {d}x{m} mesh")
+    prev = _MESH_PLAN
+    with axis_ctx("model", m, group=mesh.group("model") if m > 1 else None), \
+            data_ctx(d, mesh.group("data") if d > 1 else None, batch=batch):
+        _MESH_PLAN = plan
+        try:
+            yield
+        finally:
+            _MESH_PLAN = prev
+
+
+def gathered(tree, prefix: str, *, stacked: bool = False):
+    """``tree``, the params under the checkpoint key ``prefix`` (one block
+    of a stacked tree where ``stacked``: its leading dim gone), as the
+    layer code takes them inside :func:`mesh_ctx`: a leaf the bound plan
+    splits over data is all-gathered over data (ZeRO-3; not the experts,
+    which stay a rank's own), and a ``gather_model`` leaf all-gathered
+    over model and cut by its rule.  Each gather's backward
+    reduce-scatters the gradient.  The identity outside :func:`mesh_ctx`
+    or where no leaf needs a gather.  Call it inside the region that
+    ``torch.utils.checkpoint`` recomputes, so that the backward gathers
+    again and a block's whole weights do not outlive the block."""
+    plan = _MESH_PLAN
+    if plan is None:
+        return tree
+    off = 1 if stacked else 0
+
+    def walk(node, key):
+        if isinstance(node, dict):
+            return {k: walk(v, f"{key}/{k}") for k, v in node.items()}
+        pl = plan.flat.get(key)
+        if pl is None:
+            raise KeyError(f"tp.gathered: {key} is not in the mesh plan")
+        need_data = pl.data_dim is not None and not pl.experts
+        if not (need_data or pl.gather_model):
+            return node
+        if qcore.is_quantized(node):
+            raise ValueError(f"tp.gathered: {key} is int8; int8 leaves "
+                             "stay on the model axis (serving only)")
+        x = node
+        if need_data:
+            x = _GatherDim.apply(x, _DATA_GROUP, pl.data_dim - off)
+        if pl.gather_model:
+            x = _GatherDim.apply(x, _TP_GROUP, pl.model_dim - off)
+            if pl.rule is not None:
+                rule = dataclasses.replace(
+                    pl.rule, dim=pl.rule.dim - off if pl.rule.dim >= 0
+                    else pl.rule.dim)
+                x = rule.slice(x, index(), _TP_EXTENT)
+        return x
+    return walk(tree, prefix)
 
 
 # ======================================================== slicing rules ===
@@ -525,7 +739,7 @@ def default_tp_rules() -> dict[str, Any]:
 
 
 def build_plan(axes_tree, shapes_tree, *, cfg, tp: int, axis: str = "model",
-               rules: Optional[dict] = None) -> Plan:
+               rules: Optional[dict] = None, experts: bool = False) -> Plan:
     """Give every parameter leaf a slicing rule (or None, replicated).
 
     ``axes_tree``/``shapes_tree`` come from ``model.abstract_params(cfg)``
@@ -533,7 +747,9 @@ def build_plan(axes_tree, shapes_tree, *, cfg, tp: int, axis: str = "model",
     (``sharding.default_rules(mesh)`` at serve time,
     :func:`default_tp_rules` offline).  A model-mapped dim that ``tp`` does
     not divide is an error naming the parameter, except the vocab, which
-    falls back to a replicated embedding."""
+    falls back to a replicated embedding.  JAX's serving plan keeps the
+    MoE layer whole; ``experts=True`` (the mesh plan's,
+    ``sharding.mesh_plan``) slices its ``mlp`` over the model axis too."""
     tp = int(tp)
     if tp < 1:
         raise ValueError(f"tp={tp}")
@@ -566,7 +782,7 @@ def build_plan(axes_tree, shapes_tree, *, cfg, tp: int, axis: str = "model",
     flat: dict[str, Optional[Segments]] = {}
     for key, names, like in shape_items:
         rule = _leaf_rule(names, tuple(like.shape), axes_by_key.get(key),
-                          cfg, tp, axis, rules)
+                          cfg, tp, axis, rules, experts)
         if rule is not None:
             rule.validate(tuple(like.shape), tp, name=key)
         flat[key] = rule
@@ -574,13 +790,13 @@ def build_plan(axes_tree, shapes_tree, *, cfg, tp: int, axis: str = "model",
                 flat=flat)
 
 
-def _leaf_rule(names, shape, axes, cfg, tp, tp_axis, rules
+def _leaf_rule(names, shape, axes, cfg, tp, tp_axis, rules, experts=False
                ) -> Optional[Segments]:
     if tp == 1:
         return None
-    # MoE experts stay replicated under TP: expert parallelism covers them
-    # on the data axis, and moe() computes with full weights
-    if "moe" in names:
+    # JAX's serving plan keeps the MoE layer whole on every model rank
+    # (moe() computes with full weights); the mesh plan slices its mlp
+    if "moe" in names and not experts:
         return None
     key = names[-1] if names else ""
     if "mamba" in names:
@@ -618,14 +834,81 @@ def _keep(rule: Optional[Segments], full, rank: int, tp: int, device):
     return _own(rule.slice(full, rank, tp)).to(device)
 
 
-def partition_params(params, plan: Plan, *, rank: int, device=None):
+def mesh_coords(rank: int, plan) -> tuple[int, int]:
+    """``(data, model)`` coordinates of mesh rank ``rank`` (row-major, as
+    ``launch.mesh`` lays ranks out)."""
+    return divmod(int(rank), plan.model)
+
+
+def _mesh_block(x, dim: Optional[int], i: int, n: int):
+    if dim is None:
+        return x
+    size = x.shape[dim] // n
+    if isinstance(x, np.ndarray):
+        return x[(slice(None),) * dim + (slice(i * size, (i + 1) * size),)]
+    return x.narrow(dim, i * size, size)
+
+
+def mesh_local(pl, full, di: int, mi: int, data: int, model: int):
+    """Rank ``(di, mi)``'s block of a whole leaf placed by ``pl`` (a
+    ``sharding.Placement``; a view where it is one block)."""
+    return _mesh_block(_mesh_block(full, pl.data_dim, di, data),
+                       pl.model_dim, mi, model)
+
+
+def mesh_unshard(parts: list, data_dim, model_dim, data: int, model: int):
+    """The whole leaf from the mesh ranks' blocks in rank order (the
+    inverse of :func:`mesh_local`, bit for bit)."""
+    rows = []
+    for di in range(data):
+        row = parts[di * model:(di + 1) * model]
+        rows.append(row[0] if model_dim is None else _concat(row, model_dim))
+    return rows[0] if data_dim is None else _concat(rows, data_dim)
+
+
+def assemble(plan, parts: list) -> dict:
+    """The whole flat tree (params keys, or a train state's) from the
+    ranks' flat dicts of their blocks, in rank order, by ``plan`` (a
+    ``sharding.MeshPlan``)."""
+    out = {}
+    for key in parts[0]:
+        pl = plan.placement(key)
+        arrs = [p[key] for p in parts]
+        out[key] = (arrs[0] if pl is None or pl.whole else mesh_unshard(
+            arrs, pl.data_dim, pl.model_dim, plan.data, plan.model))
+    return out
+
+
+def _partition_mesh(params, plan, rank: int, device):
+    di, mi = mesh_coords(rank, plan)
+
+    def one(key, leaf):
+        pl = plan.flat[key]
+        dev = leaf.device if device is None else device
+        if qcore.is_quantized(leaf):
+            raise ValueError(f"{key}: int8 leaves stay on the model axis "
+                             "(tp.build_plan's serving plan)")
+        if pl.whole:
+            return leaf.to(dev)
+        fabric.record("tp.load.replicated_slice")
+        return _own(mesh_local(pl, leaf, di, mi, plan.data,
+                               plan.model)).to(dev)
+    flat = {k: one(k, v) for k, _, v in _flatten_with_keys(params)}
+    return _unflatten_like(params, flat)
+
+
+def partition_params(params, plan, *, rank: int, device=None):
     """This rank's slice of a full params tree (the migration path, and
     the fresh-init one): every sharded leaf is cut to its local block,
     copied so the full weight can be freed, and counted
     ``tp.load.replicated_slice``; replicated leaves pass through.
     QuantizedTensor leaves slice payload and per-channel scales along the
-    same axis.  ``rank`` is this process's position in the group;
+    same axis.  ``rank`` is this process's position in the group (a
+    ``sharding.MeshPlan``: its rank on the (data, model) mesh, row-major);
     ``device`` defaults to each leaf's own."""
+    from repro_torch.distributed.sharding import MeshPlan
+    if isinstance(plan, MeshPlan):
+        return _partition_mesh(params, plan, int(rank), device)
     rank = int(rank)
     tp = plan.tp
 
@@ -754,35 +1037,6 @@ def shard_state(flat: dict, plan: Plan, *, prefix: str = ""
 
 
 # ============================================================ gradients ===
-def _local_parts(rule: Segments, n: int):
-    """``(lo, hi, sharded)`` of each segment in a rank's local layout."""
-    out, off = [], 0
-    for w, sh in rule.parts:
-        lw = w // n if sh else w
-        out.append((off, off + lw, sh))
-        off += lw
-    return out
-
-
-def _replicated_views(plan: Plan, tree) -> tuple[list, list]:
-    """(replicated, sharded) views of a local tree's leaves: a replicated
-    leaf whole, a sharded leaf's replicated and sharded segments as
-    narrowed views of its dim."""
-    rep, shd = [], []
-
-    def one(rule, leaf):
-        if rule is None:
-            rep.append(leaf)
-            return leaf
-        d = rule.dim % leaf.dim()
-        for lo, hi, sh in _local_parts(rule, plan.tp):
-            (shd if sh else rep).append(leaf.narrow(d, lo, hi - lo))
-        return leaf
-
-    _map_with_rules(plan, tree, one)
-    return rep, shd
-
-
 def all_reduce_flat(tensors: list, grp, *, op=None) -> None:
     """All-reduce ``tensors`` in place as one flat buffer per dtype (one
     collective each, not one a tensor)."""
@@ -800,36 +1054,6 @@ def all_reduce_flat(tensors: list, grp, *, op=None) -> None:
         for t in ts:
             t.copy_(buf[off: off + t.numel()].view(t.shape))
             off += t.numel()
-
-
-def reduce_replicated_grads(grads, plan: Plan, grp=None) -> None:
-    """Sum, over the model group, the gradient of every replicated leaf
-    and replicated segment of ``grads`` (this rank's local tree), in place.
-    Each rank holds its share of those (see the module docstring); the
-    sharded segments' gradients are already whole."""
-    rep, _ = _replicated_views(plan, grads)
-    all_reduce_flat(rep, grp)
-
-
-def grad_norm_sq(grads, plan: Plan, grp=None) -> torch.Tensor:
-    """The squared global norm of a tensor-parallel tree (float32): the
-    sharded segments' squares summed over the model group, the replicated
-    ones counted once."""
-    rep, shd = _replicated_views(plan, grads)
-
-    dev = (rep + shd)[0].device
-
-    def sq(ts):
-        out = torch.zeros((), dtype=torch.float32, device=dev)
-        for t in ts:
-            out = out + torch.sum(torch.square(t.float()))
-        return out
-    shard_sq = sq(shd)
-    if _records(grp):
-        _recorded("all-reduce", shard_sq, grp, _nbytes(shard_sq))
-    else:
-        dist.all_reduce(shard_sq, group=grp)
-    return shard_sq + sq(rep)
 
 
 def _pspec(rule: Optional[Segments], axis_name: str, ndim: int) -> tuple:
@@ -853,17 +1077,64 @@ def param_pspecs(plan: Plan, params):
     return _map_with_rules(plan, params, one)
 
 
-def state_shard_info(plan: Plan, flat: dict,
-                     prefixes=("params", "opt/m", "opt/v")) -> dict:
-    """A train state's ``shard_info``: each flat key's rule, its param's
-    under any of ``prefixes`` (the moments shard as their params), the
-    step counter and unknown keys replicated."""
-    info = {}
-    for key, arr in flat.items():
-        rule = None
-        for pre in prefixes:
-            if key.startswith(pre + "/") and key[len(pre) + 1:] in plan.flat:
-                rule = plan.flat[key[len(pre) + 1:]]
-                break
-        info[key] = rule_to_json(rule)
-    return info
+def reduce_mesh_grads(grads, plan, mesh, extra=()) -> None:
+    """After a mesh rank's backward, in place: each leaf the model ranks
+    all hold whole (``model_dim`` None) summed over the model group (the
+    ranks' shares, see the module docstring); each leaf the data ranks all
+    hold whole, and the tensors of ``extra`` (the loss), summed over the
+    data group; then everything divided by the data extent (the mean of
+    the ranks' means).  A leaf split over an axis came back summed over
+    it from its gather's reduce-scatter (ZeRO-3), or from the experts'
+    all-to-all.  ``plan`` None: every leaf whole."""
+    d, m = mesh.shape.get("data", 1), mesh.shape.get("model", 1)
+    items = [(None if plan is None else plan.flat[k], g)
+             for k, _, g in _flatten_with_keys(grads)]
+    if m > 1:
+        all_reduce_flat([g for pl, g in items
+                         if pl is None or pl.model_dim is None],
+                        mesh.group("model"))
+    if d > 1:
+        all_reduce_flat([g for pl, g in items
+                         if pl is None or pl.data_dim is None]
+                        + list(extra), mesh.group("data"))
+        for g in [g for _, g in items] + list(extra):
+            g.div_(d)
+
+
+def mesh_grad_norm_sq(grads, plan, mesh) -> torch.Tensor:
+    """The squared global norm (float32) of a mesh rank's gradients: each
+    split leaf's squares summed over the groups that split it, each whole
+    one counted once, so that every rank clips by one device's scale."""
+    d, m = mesh.shape.get("data", 1), mesh.shape.get("model", 1)
+    sums = {}
+    dev = None
+    for k, _, g in _flatten_with_keys(grads):
+        pl = None if plan is None else plan.flat[k]
+        split = (pl is not None and pl.data_dim is not None,
+                 pl is not None and pl.model_dim is not None)
+        sq = torch.sum(torch.square(g.float()))
+        sums[split] = sums.get(split, 0) + sq
+        dev = g.device
+
+    def get(key):
+        v = sums.get(key)
+        return (torch.zeros((), dtype=torch.float32, device=dev) if v is None
+                else v.reshape(()))
+    # [both, data only] over data, then (both + model only) over model;
+    # an axis that splits no leaf takes no collective
+    by_data = torch.stack([get((True, True)), get((True, False))])
+    if d > 1 and ((True, True) in sums or (True, False) in sums):
+        all_reduce_flat([by_data], mesh.group("data"))
+    by_model = by_data[0] + get((False, True))
+    if m > 1 and ((True, True) in sums or (False, True) in sums):
+        all_reduce_flat([by_model], mesh.group("model"))
+    return by_model + by_data[1] + get((False, False))
+
+
+def state_shard_info(plan, flat: dict) -> dict:
+    """A train state's ``shard_info`` by a ``sharding.MeshPlan``: each
+    flat key's placement (``Placement.to_json``; the moments as their
+    params), the step counter and unknown keys replicated."""
+    return {key: ("replicated" if plan.placement(key) is None
+                  else plan.placement(key).to_json(plan.data, plan.model))
+            for key in flat}

@@ -3,7 +3,8 @@
 
 JAX lowers and compiles each cell for a TPU pod on 512 host devices.  The
 port builds one rank's cell (``launch.steps.build_cell``: rank 0 of a
-``DxM`` mesh of H100s, its slices of the params, state, cache and batch)
+``DxM`` mesh of H100s, its blocks of the params, state, cache and batch
+as JAX's specs place them)
 and traces it once on ``meta`` tensors (``launch.steps.lower_cell``), so
 it needs no card and allocates nothing.  Per cell it records, into a JSON
 report that ``analysis/report.py`` reads:
@@ -11,6 +12,8 @@ report that ``analysis/report.py`` reads:
   * the trace's wall time (``trace_s``, where JAX had lower + compile),
   * the rank's memory (argument, output, alias, temp and peak bytes) and
     whether the peak fits one H100's 80 GB (``fits_80gb``),
+  * rank 0's param and moment bytes beside JAX's spec arithmetic for the
+    same cell (``state_bytes``; a cell where they differ fails),
   * the traced cost: dot FLOPs, operand + result bytes, and the recorded
     collectives with their ring-model wire bytes (``analysis/cost.py``),
   * the three roofline terms at the H100's rates and the dominant one.
@@ -80,13 +83,13 @@ def run_cell(arch: str, shape_name: str, mesh_name: str = "1x1", *,
         rec["trace_s"] = round(traced.trace_s, 2)
         rec["memory"] = traced.memory()
         rec["fits_80gb"] = traced.peak_bytes <= roofline_mod.HBM_CAPACITY
-        if spec.fsdp and d > 1:
-            # JAX shards the state over data (ZeRO-3); the port keeps it
-            # whole on every data rank (ROADMAP Queue 1 item 5c)
-            rec["notes"] = "fsdp: state replicated over data"
+        rec["state_bytes"] = steps_mod.state_bytes(cell)
+        if rec["state_bytes"]["rank0"] != rec["state_bytes"]["spec"]:
+            raise RuntimeError(f"rank 0 holds {rec['state_bytes']} state "
+                               "bytes: not JAX's spec arithmetic")
         rl = roofline_mod.analyze(
             traced.cost, cfg, shape.kind, shape.seq_len, shape.global_batch,
-            (d, m), grad_accum=spec.accum_for(shape.name), fsdp=False,
+            (d, m), grad_accum=spec.accum_for(shape.name), fsdp=spec.fsdp,
             opt_state_bytes=2 if spec.optimizer_state_dtype == "bfloat16"
             else 4)
         rec["roofline"] = rl.as_dict()

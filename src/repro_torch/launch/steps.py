@@ -18,13 +18,18 @@ traces it once (``analysis.cost``) in place of JAX's lower + compile +
 
 The mesh is ``launch.mesh.make_mesh``'s layout (no process group): the
 trace plays its rank 0 inside ``tp.recording``, which records the
-collectives.  Rank 0's arguments are its slices of the params
-(``tp.build_plan`` / ``partition_params`` at model > 1), the optimizer
-state beside them, its cache (its KV heads), and its block of the batch
-(the whole batch where the data axis does not divide it, as JAX's
-``_batch_sharding`` falls back to replicating it).  Where a rule needs
-what the port lacks, :func:`build_cell` raises :class:`Unsupported` with
-the reason, and the dry run records the cell as skipped.
+collectives.  Rank 0's arguments are its blocks of the params, in every
+cell kind, as JAX's ``spec_tree`` in-shardings place them
+(``sharding.mesh_plan`` / ``tp.partition_params``: the model axis's
+slices, ZeRO-3 over data for the ``fsdp`` archs, the experts over data),
+the optimizer state beside them, its cache (its KV heads), and its block
+of the batch (the whole batch where the data axis does not divide it, as
+JAX's ``_batch_sharding`` falls back to replicating it).  Every step
+runs inside ``tp.mesh_ctx``: the leaves are gathered where they are
+used, as JAX's GSPMD gathers them for the same in-shardings.  Where a
+rule needs what the port lacks, :func:`build_cell` raises
+:class:`Unsupported` with the reason, and the dry run records the cell
+as skipped.
 
 :func:`prefill` is the ``fn`` of JAX's ``_prefill_cell`` on one device:
 
@@ -105,7 +110,8 @@ class Cell:
     args: tuple                 # this rank's, meta tensors
     mesh: Any = None            # launch.mesh.Mesh, a layout
     rules: Any = None           # sharding context re-entered at trace time
-    plan: Any = None            # tp.Plan at model > 1
+    plan: Any = None            # sharding.MeshPlan on more than one rank
+    cfg: Any = None             # the cell's ModelConfig
 
 
 def make_rules(spec: ArchSpec, mesh, shape: ShapeCell,
@@ -186,25 +192,18 @@ def _batch(cfg: ModelConfig, shape: ShapeCell, rows: int) -> dict:
 
 
 def _plan_and_params(cfg, model, mesh, rules):
-    """(plan, rank 0's params on meta): the plan of the model axis and the
-    params sliced by it (whole at model 1)."""
+    """(plan, rank 0's params on meta): the mesh plan (None on one rank)
+    and rank 0's blocks of the params by it."""
     shapes, axes = model.abstract_params(cfg)
-    m = mesh.shape.get("model", 1)
-    if m == 1:
+    if mesh.size == 1:
         return None, shapes
     try:
-        plan = tp.build_plan(axes, shapes, cfg=cfg, tp=m, rules=rules)
+        plan = shardlib.mesh_plan(axes, shapes, cfg=cfg, mesh=mesh,
+                                  rules=rules)
     except ValueError as e:
-        raise Unsupported(f"tensor parallelism over model={m}: {e}") from None
+        d, m = mesh.shape.get("data", 1), mesh.shape.get("model", 1)
+        raise Unsupported(f"the {d}x{m} mesh plan: {e}") from None
     return plan, tp.partition_params(shapes, plan, rank=0)
-
-
-def _model_ctx(mesh):
-    """The model axis of ``mesh`` (a recorded or bound one) as a TP
-    context."""
-    m = mesh.shape.get("model", 1)
-    return tp.axis_ctx("model", m, group=mesh.group("model") if m > 1
-                       else None)
 
 
 def build_cell(arch_name: str, spec: ArchSpec, shape: ShapeCell, mesh,
@@ -222,11 +221,44 @@ def build_cell(arch_name: str, spec: ArchSpec, shape: ShapeCell, mesh,
         cell = _train_cell(arch_name, spec, cfg, model, shape, mesh, params,
                            plan)
     elif shape.kind == "prefill":
-        cell = _prefill_cell(arch_name, cfg, shape, mesh, params)
+        cell = _prefill_cell(arch_name, cfg, shape, mesh, params, plan)
     else:
-        cell = _decode_cell(arch_name, cfg, model, shape, mesh, params)
-    cell.mesh, cell.rules, cell.plan = mesh, rules, plan
+        cell = _decode_cell(arch_name, cfg, model, shape, mesh, params,
+                            plan)
+    cell.mesh, cell.rules, cell.plan, cell.cfg = mesh, rules, plan, cfg
     return cell
+
+
+def state_bytes(cell: Cell) -> dict:
+    """Rank 0's param bytes (and, in a train cell, its moments') as the
+    cell holds them (``rank0``) and by JAX's spec arithmetic (``spec``:
+    each leaf's dims divided by the extents of the mesh axes its
+    ``spec_tree`` entry names, under the cell's rules)."""
+    shapes, axes = get_model(cell.cfg).abstract_params(cell.cfg)
+    with shardlib.use_sharding(cell.mesh, cell.rules):
+        specs = {k: shardlib.logical_spec(a, tuple(leaf.shape))
+                 for (k, _, a), (_, _, leaf) in zip(
+                     tp._flatten_with_keys(axes, is_leaf=lambda x:
+                                           isinstance(x, tuple)),
+                     tp._flatten_with_keys(shapes))}
+    args = cell.args[0]
+    train = isinstance(args, dict) and "opt" in args
+    trees = ([args["params"], args["opt"]["m"], args["opt"]["v"]] if train
+             else [args])
+    flats = [{k: t for k, _, t in tp._flatten_with_keys(tree)}
+             for tree in trees]
+    rank0 = sum(t.numel() * t.element_size() for f in flats
+                for t in f.values())
+    spec = 0
+    for k, _, leaf in tp._flatten_with_keys(shapes):
+        n = leaf.numel()
+        for entry in specs[k]:
+            for a in (entry,) if isinstance(entry, str) else entry or ():
+                n //= cell.mesh.shape[a]
+        # the param's dtype, and its moments' (the optimizer's)
+        spec += n * (leaf.element_size() + sum(f[k].element_size()
+                                               for f in flats[1:]))
+    return {"rank0": rank0, "spec": spec}
 
 
 def _train_cell(arch_name, spec: ArchSpec, cfg, model, shape, mesh, params,
@@ -252,7 +284,14 @@ def _train_cell(arch_name, spec: ArchSpec, cfg, model, shape, mesh, params,
     return cell
 
 
-def _prefill_cell(arch_name, cfg, shape, mesh, params) -> Cell:
+def _mesh_ctx(bound, plan, shape: ShapeCell):
+    """``tp.mesh_ctx`` of a cell: the data ranks split the batch where
+    they divide it (:func:`_rows`), else each holds all of it."""
+    return tp.mesh_ctx(bound, plan, batch=_rows(shape.global_batch, bound)
+                       < shape.global_batch)
+
+
+def _prefill_cell(arch_name, cfg, shape, mesh, params, plan) -> Cell:
     b, s = _rows(shape.global_batch, mesh), shape.seq_len
     if cfg.family == "encdec":
         args = (params, torch.empty((b, s, cfg.d_model), dtype=torch.bfloat16,
@@ -266,13 +305,14 @@ def _prefill_cell(arch_name, cfg, shape, mesh, params) -> Cell:
     cell = Cell(name=f"{arch_name}:{shape.name}", fn=None, args=args)
 
     def fn(bound, params, tokens, input_embeds=None):
-        with shardlib.use_sharding(bound, cell.rules), _model_ctx(bound):
+        with shardlib.use_sharding(bound, cell.rules), \
+                _mesh_ctx(bound, plan, shape):
             return _prefill_body(params, tokens, cfg, input_embeds)
     cell.fn = fn
     return cell
 
 
-def _decode_cell(arch_name, cfg, model, shape, mesh, params) -> Cell:
+def _decode_cell(arch_name, cfg, model, shape, mesh, params, plan) -> Cell:
     b, s = _rows(shape.global_batch, mesh), shape.seq_len
     m = mesh.shape.get("model", 1)
     # the cache of this rank's KV (and SSM) heads
@@ -283,8 +323,8 @@ def _decode_cell(arch_name, cfg, model, shape, mesh, params) -> Cell:
     cell = Cell(name=f"{arch_name}:{shape.name}", fn=None, args=args)
 
     def fn(bound, params, cache, tokens, pos):
-        with shardlib.use_sharding(bound, cell.rules), _model_ctx(bound), \
-                torch.inference_mode():
+        with shardlib.use_sharding(bound, cell.rules), \
+                _mesh_ctx(bound, plan, shape), torch.inference_mode():
             return model.serve(params, cache, tokens, pos, cfg)
     cell.fn = fn
     return cell

@@ -14,19 +14,23 @@ place, as JAX's donated ``jit``; the LR schedule is the arch's
 raises where there is none; ``--device cpu`` runs their plain versions.
 ``--mesh DxM`` starts ``D * M`` gloo ranks (``distributed.launch.run``;
 on the card rank ``r`` takes ``cuda:r % device_count``, so ranks share a
-card), each on its coordinates of a (data, model) mesh: the model axis
-tensor-parallel (each rank its slice of the params and moments), the
-data axis averaging the gradients (``trainer.jit_train_step``), the
-checkpoint ``full`` from rank 0 or ``sharded`` by model rank
-(``checkpoint.save_on_mesh``), and every rank restarting from the same
-step after ``--fail-at``.  Rank 0 prints JAX's lines, and ``main``
-returns its summary.  Every arch trains, with JAX's batches by family
-(``family_batch``): the vlm's zero patch embeddings, the encdec's zero
-frames with its tokens cut to ``seq_len // 8``.
+card), each on its coordinates of a (data, model) mesh and holding the
+blocks of the params and moments that JAX's rules give it
+(``sharding.mesh_plan`` under the arch's ``fsdp`` and overrides): the
+model axis tensor-parallel, the ``fsdp`` archs' params and moments
+ZeRO-3 over data, the experts spread over data (expert parallelism),
+the data axis averaging the gradients (``trainer.jit_train_step``), the
+checkpoint ``full`` from rank 0 where every rank holds the whole state,
+else ``sharded`` a rank (``checkpoint.save_on_mesh``), and every rank
+restarting from the same step after ``--fail-at``.  Rank 0 prints JAX's
+lines, and ``main`` returns its summary.  Every arch trains, with JAX's
+batches by family (``family_batch``): the vlm's zero patch embeddings,
+the encdec's zero frames with its tokens cut to ``seq_len // 8``.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -55,6 +59,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (a multiple "
+                         "of the block pattern), widths unchanged")
     ap.add_argument("--mesh", default="1x1",
                     help="DxM data x model, e.g. 2x2: D * M ranks")
     ap.add_argument("--ckpt-dir", default="")
@@ -83,33 +90,40 @@ def main(argv=None) -> dict:
     if d * m == 1:
         return run(args)
     resolve_device(args.device)
-    if m > 1:
-        # the layout's errors (heads, d_ff not divisible) before any rank
-        _plan(args, _config(args))
+    # the layout's errors (heads, d_ff not divisible) before any rank
+    _plan(args, _config(args))
     from repro_torch.distributed import launch
     ranks = launch.run(train_rank, d * m, args=(args,))
     out = dict(ranks[0])
     out["rank_state_sha256"] = [r["state_sha256"] for r in ranks]
     out["rank_peak_gb"] = [r["peak_gb"] for r in ranks]
+    out["rank_step_peak_gb"] = [r["step_peak_gb"] for r in ranks]
     return out
 
 
 def _config(args):
     spec = ARCHS[args.arch]
-    return spec.smoke_config() if args.smoke else spec.config()
+    cfg = spec.smoke_config() if args.smoke else spec.config()
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+        if cfg.num_layers % len(cfg.block_pattern) or cfg.num_layers < 1:
+            raise ValueError(f"--layers {args.layers}: {cfg.name}'s block "
+                             f"pattern is {len(cfg.block_pattern)} layers")
+    return cfg
 
 
 def _plan(args, cfg):
-    from repro_torch.distributed import sharding, tp
+    """The ``--mesh``'s ``sharding.mesh_plan`` under the arch's rules."""
+    from repro_torch.distributed import sharding
     from repro_torch.launch.mesh import Mesh
     d, m = parse_mesh(args.mesh)
     spec = ARCHS[args.arch]
     shapes, axes = get_model(cfg).abstract_params(cfg)
     layout = Mesh(("data", "model"), (d, m))
-    return tp.build_plan(axes, shapes, cfg=cfg, tp=m,
-                         rules=sharding.default_rules(
-                             layout, fsdp=spec.fsdp,
-                             overrides=spec.rules_overrides))
+    return sharding.mesh_plan(axes, shapes, cfg=cfg, mesh=layout,
+                              rules=sharding.default_rules(
+                                  layout, fsdp=spec.fsdp,
+                                  overrides=spec.rules_overrides))
 
 
 def family_batch(batch: dict, cfg, seq_len: int) -> dict:
@@ -175,21 +189,25 @@ def run(args, mesh=None, verbose: bool = True) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    m = 1 if mesh is None else mesh.shape["model"]
     plan = None
-    if m == 1:
+    if mesh is None:
         state, _ = trainer_mod.init_state(model.init, cfg, opt_cfg, gen,
                                           device=dev)
     else:
-        # the single-device init, then this rank's slice of it (JAX's
+        # the single-device init, then this rank's blocks of it (JAX's
         # params under GSPMD are the same arrays, sharded)
         from repro_torch.distributed import tp
         plan = _plan(args, cfg)
         params, _ = model.init(gen, cfg, device=dev)
         params = tp.partition_params(params, plan,
-                                     rank=mesh.index("model"))
+                                     rank=mesh.index(("data", "model")))
         state = {"params": params,
                  "opt": opt_mod.init_opt_state(params, opt_cfg)}
+    if dev.type == "cuda":
+        # the whole params of the init are gone: the loop's own peak
+        torch.cuda.empty_cache()
+        init_peak = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
     if mesh is None:
         step_fn = trainer_mod.make_train_step(model.loss, cfg, opt_cfg, tcfg)
     else:
@@ -226,8 +244,10 @@ def run(args, mesh=None, verbose: bool = True) -> dict:
             "stragglers": monitor.flagged, "wall_s": wall,
             "step_s": list(monitor.times), "opt_cfg": opt_cfg,
             "mesh": [1, 1] if mesh is None else list(mesh.sizes),
-            "peak_gb": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
-                        if dev.type == "cuda" else None)}
+            "peak_gb": (max(init_peak, torch.cuda.max_memory_allocated(dev))
+                        / 2 ** 30 if dev.type == "cuda" else None),
+            "step_peak_gb": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                             if dev.type == "cuda" else None)}
 
 
 if __name__ == "__main__":

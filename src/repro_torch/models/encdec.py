@@ -38,11 +38,13 @@ from __future__ import annotations
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.distributed import tp
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.param import ParamBuilder, torch_dtype
-from repro_torch.models.transformer import _StackedBuilder, unstacked
+from repro_torch.models.transformer import (_StackedBuilder, embedding_for,
+                                            unstacked)
 
 
 def init(gen: torch.Generator, cfg: ModelConfig, *, device="cuda"):
@@ -72,17 +74,22 @@ def init(gen: torch.Generator, cfg: ModelConfig, *, device="cuda"):
     return pb.params, pb.axes
 
 
-def _stack(body, x, stacked: dict, n: int, cfg: ModelConfig):
-    """``body(x, layer_params)`` over the ``n`` stacked layers, each under
-    ``torch.utils.checkpoint`` where ``cfg.remat`` and autograd are on
-    (JAX's ``jax.checkpoint`` with ``nothing_saveable``)."""
+def _stack(body, x, params, name: str, n: int, cfg: ModelConfig):
+    """``body(x, layer_params)`` over the ``n`` stacked layers of
+    ``params[name]``, each under ``torch.utils.checkpoint`` where
+    ``cfg.remat`` and autograd are on (JAX's ``jax.checkpoint`` with
+    ``nothing_saveable``); a mesh rank's blocks gathered inside it
+    (``tp.gathered``)."""
     remat = cfg.remat and torch.is_grad_enabled()
-    for lp in unstacked(stacked, n):
+
+    def layer(x, l0):
+        return body(x, tp.gathered(l0, f"{name}/l0", stacked=True))
+    for lp in unstacked(params[name], n):
         if remat:
-            x = torch.utils.checkpoint.checkpoint(body, x, lp["l0"],
+            x = torch.utils.checkpoint.checkpoint(layer, x, lp["l0"],
                                                   use_reentrant=False)
         else:
-            x = body(x, lp["l0"])
+            x = layer(x, lp["l0"])
     return x
 
 
@@ -102,8 +109,9 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = L.rmsnorm(l0["norm2"], x, cfg.norm_eps)
         return x + L.mlp(l0["mlp"], h, cfg)
 
-    x = _stack(body, x, params["encoder"], cfg.encoder_layers, cfg)
-    return L.rmsnorm(params["enc_final_norm"], x, cfg.norm_eps)
+    x = _stack(body, x, params, "encoder", cfg.encoder_layers, cfg)
+    return L.rmsnorm(tp.gathered(params["enc_final_norm"], "enc_final_norm"),
+                     x, cfg.norm_eps)
 
 
 def _cross_kv(p, enc_out: torch.Tensor, cfg: ModelConfig):
@@ -119,7 +127,7 @@ def _cross_kv(p, enc_out: torch.Tensor, cfg: ModelConfig):
 def decode_train(params, enc_out: torch.Tensor, tokens: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
     """Teacher-forced decoder pass -> logits (B, S_dec, V)."""
-    return L.unembed(params["embedding"],
+    return L.unembed(embedding_for(params, cfg, "unembed"),
                      decoder_hidden(params, enc_out, tokens, cfg), cfg)
 
 
@@ -127,7 +135,7 @@ def decoder_hidden(params, enc_out: torch.Tensor, tokens: torch.Tensor,
                    cfg: ModelConfig) -> torch.Tensor:
     """The unembedding's input of :func:`decode_train`: the decoder
     stack's output after the final norm, (B, S_dec, d)."""
-    x = L.embed(params["embedding"], tokens, cfg)
+    x = L.embed(embedding_for(params, cfg, "embed"), tokens, cfg)
     positions = _positions(tokens.shape[0], tokens.shape[1], x.device)
 
     def body(x, l0):
@@ -141,8 +149,9 @@ def decoder_hidden(params, enc_out: torch.Tensor, tokens: torch.Tensor,
         h = L.rmsnorm(l0["norm2"], x, cfg.norm_eps)
         return x + L.mlp(l0["mlp"], h, cfg)
 
-    x = _stack(body, x, params["decoder"], cfg.num_blocks, cfg)
-    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    x = _stack(body, x, params, "decoder", cfg.num_blocks, cfg)
+    return L.rmsnorm(tp.gathered(params["final_norm"], "final_norm"), x,
+                     cfg.norm_eps)
 
 
 def loss_fn(params, batch: dict, cfg: ModelConfig, **_):
@@ -181,7 +190,9 @@ def prefill_cross(params, cache: dict, enc_out: torch.Tensor,
     b, s, _ = enc_out.shape
     ks, vs = [], []
     for lp in unstacked(params["decoder"], cfg.num_blocks):
-        k, v = _cross_kv(lp["l0"]["xattn"], enc_out, cfg)
+        xattn = tp.gathered(lp["l0"]["xattn"], "decoder/l0/xattn",
+                            stacked=True)
+        k, v = _cross_kv(xattn, enc_out, cfg)
         ks.append(k.reshape(b, s, cfg.kv_dim))
         vs.append(v.reshape(b, s, cfg.kv_dim))
     out = dict(cache)
@@ -195,11 +206,11 @@ def serve_step(params, cache: dict, tokens: torch.Tensor, pos: torch.Tensor,
     """One decoder token against the cached self- and cross-attention K/V.
     tokens: (B, 1), pos: (B,) -> (logits (B, 1, V), cache), the
     self-attention K/V written in place at ``pos``."""
-    x = L.embed(params["embedding"], tokens, cfg)
+    x = L.embed(embedding_for(params, cfg, "embed"), tokens, cfg)
     b = x.shape[0]
     scale = cfg.head_dim ** -0.5
     for i, lp in enumerate(unstacked(params["decoder"], cfg.num_blocks)):
-        l0 = lp["l0"]
+        l0 = tp.gathered(lp["l0"], "decoder/l0", stacked=True)
         h = L.rmsnorm(l0["norm1"], x, cfg.norm_eps)
         h, _, _ = attn.decode_attention(l0["attn"], h, cfg, cache["k"][i, 0],
                                         cache["v"][i, 0], pos)
@@ -217,5 +228,6 @@ def serve_step(params, cache: dict, tokens: torch.Tensor, pos: torch.Tensor,
         x = x + torch.matmul(out.to(dt), wo.to(dt))
         h = L.rmsnorm(l0["norm2"], x, cfg.norm_eps)
         x = x + L.mlp(l0["mlp"], h, cfg)
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return L.unembed(params["embedding"], x, cfg), cache
+    x = L.rmsnorm(tp.gathered(params["final_norm"], "final_norm"), x,
+                  cfg.norm_eps)
+    return L.unembed(embedding_for(params, cfg, "unembed"), x, cfg), cache

@@ -32,13 +32,33 @@ from repro_torch.models.param import ScopedBuilder
 from repro_torch.quant import core as qcore
 
 
+class _Silu(torch.autograd.Function):
+    """``x * s``, ``s = 1 / (1 + exp(-x))``, whose gradient is JAX's:
+    ``lax.logistic``'s own rule (``s * (1 - s)``), not the chain through
+    ``exp``, which gives ``0 * inf = nan`` where ``exp(-x)`` overflows
+    (x < -88 in float32; an MoE expert's row that sums the overflowed
+    tokens reaches it)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = torch.reciprocal(1 + torch.exp(-x))
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        return g * s + (g * x) * (s * (1 - s))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``x * sigmoid(x)`` in x's dtype, each op rounding, as
     ``jax.nn.silu``: its sigmoid (``lax.logistic``) is ``1 / (1 +
     exp(-x))`` with a rounding after each op, which in bf16 differs from
     ``torch.sigmoid`` (one rounding of the exact value) by a unit in the
-    last place on about a third of inputs."""
-    return x * torch.reciprocal(1 + torch.exp(-x))
+    last place on about a third of inputs.  Its gradient is JAX's too
+    (:class:`_Silu`)."""
+    return _Silu.apply(x)
 
 
 def dense(x: torch.Tensor, w) -> torch.Tensor:

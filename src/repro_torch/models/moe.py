@@ -43,6 +43,20 @@ batch):
   (E, d) sum is handed on to it (``tp.from_previous_data_rank``), and its
   gradient back; the last data rank drops its own, as JAX drops the last
   row's.
+
+On a mesh (``sharding.mesh_plan``) the experts are placed as JAX's specs
+place them.  Expert parallelism (``"expert"`` over data, the expert
+leaves holding E / D experts a data rank): ``moe_dispatch`` sends each
+expert's (B_local * cap, d) rows to the rank that holds it and brings
+the results back, by all-to-all over data (``tp.exchange_data``), after
+the carried overflow has been added into column 0, so it lands in the
+next row's slot 0 as before; ``moe_dense`` all-gathers the tokens and
+their gate weights over data, runs them through the local experts and
+reduce-scatters the gate-weighted sums (``tp.gather_data``,
+``tp.scatter_data``).  The experts' ``mlp`` over the model axis: each
+model rank holds ``wi``/``wi_gate`` columns and ``wo`` rows of every
+local expert (and of the shared expert), and the layer's output is
+summed over the model ranks once (``tp.psum``).
 """
 from __future__ import annotations
 
@@ -77,6 +91,28 @@ def init_moe(b: ScopedBuilder, cfg: ModelConfig):
         b.param("shared_wi_gate", (d, ff), ("embed", "mlp"))
         b.param("shared_wi", (d, ff), ("embed", "mlp"))
         b.param("shared_wo", (ff, d), ("mlp", "embed"))
+
+
+def _local_experts(p, cfg: ModelConfig) -> int:
+    """The experts this rank holds: all of them, or E / D under expert
+    parallelism, which needs the data region of D ranks."""
+    e_l = p["wo"].shape[0]
+    if e_l != cfg.num_experts and e_l * tp.data_extent() != cfg.num_experts:
+        raise ValueError(
+            f"moe: {e_l} of {cfg.num_experts} experts on this rank, over "
+            f"{tp.data_extent()} data ranks")
+    return e_l
+
+
+def _model_sliced(p, cfg: ModelConfig) -> bool:
+    """Whether the experts' ``mlp`` is this model rank's slice (the mesh
+    plan's), so the layer's output is a partial sum."""
+    if p["wo"].shape[-2] == cfg.d_ff:
+        return False
+    if tp.axis() is None:
+        raise ValueError(f"moe: experts' mlp of {p['wo'].shape[-2]} of "
+                         f"{cfg.d_ff} outside a tensor-parallel context")
+    return True
 
 
 def _expert_ffn(p, x_ecd: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -158,19 +194,26 @@ def moe_dispatch(p, x: torch.Tensor, cfg: ModelConfig):
     x_e = torch.zeros((e, n + 1, d), dtype=x.dtype, device=x.device)
     x_e = x_e.index_put((idx_bsk, col), x[:, :, None].expand(bsz, s, k, d),
                         accumulate=True)
-    if tp.data_extent() > 1:
+    if tp.data_splits_batch():
         carried = tp.from_previous_data_rank(x_e[:, n])      # (E, d)
         x_e = torch.cat([x_e[:, :1] + carried[:, None], x_e[:, 1:n]], dim=1)
     else:
         x_e = x_e[:, :n]
-    y_e = _expert_ffn(p, x_e, cfg)
+    e_l = _local_experts(p, cfg)
+    if e_l == e:
+        y_e = _expert_ffn(p, x_e, cfg)
+    else:
+        # each expert's rows to its rank: (D, E_l, n, d) from the D ranks
+        dd = e // e_l
+        x_l = tp.exchange_data(x_e).reshape(dd, e_l, n, d)
+        x_l = x_l.transpose(0, 1).reshape(e_l, dd * n, d)
+        y_l = _expert_ffn(p, x_l, cfg).reshape(e_l, dd, n, d)
+        y_e = tp.exchange_data(y_l.transpose(0, 1).reshape(e, n, d))
     # receive: each choice's row, zeros past the buffer, gate-combined
     y_e = F.pad(y_e, (0, 0, 0, 1))
     y_tk = y_e[idx_bsk, col]                                # (B, S, k, d)
     y = torch.einsum("bskd,bsk->bsd", y_tk, gates.to(y_tk.dtype))
-    if cfg.moe_shared_expert:
-        y = y + _shared(p, x, cfg)
-    return y, aux
+    return _finish(p, x, y, cfg), aux
 
 
 def moe_dense(p, x: torch.Tensor, cfg: ModelConfig):
@@ -178,6 +221,14 @@ def moe_dense(p, x: torch.Tensor, cfg: ModelConfig):
     bsz, s, d = x.shape
     xf = x.reshape(bsz * s, d)
     gates, idx, aux = _router(p, xf, cfg)
+    w = torch.zeros((xf.shape[0], cfg.num_experts), dtype=x.dtype,
+                    device=x.device)
+    w = w.scatter_add(1, idx, gates.to(x.dtype))
+    e_l = _local_experts(p, cfg)
+    if e_l != cfg.num_experts:
+        # every data rank's tokens through this rank's experts
+        lo = tp.data_index() * e_l
+        xf, w = tp.gather_data(xf), tp.gather_data(w)[:, lo: lo + e_l]
     act = _ACT[cfg.activation]
     h = torch.einsum("td,edf->tef", xf, p["wi"])
     if cfg.mlp_gated:
@@ -185,13 +236,18 @@ def moe_dense(p, x: torch.Tensor, cfg: ModelConfig):
     else:
         h = act(h)
     y_all = torch.einsum("tef,efd->ted", h, p["wo"])          # (T, E, d)
-    w = torch.zeros((xf.shape[0], cfg.num_experts), dtype=x.dtype,
-                    device=x.device)
-    w = w.scatter_add(1, idx, gates.to(x.dtype))
-    y = torch.einsum("ted,te->td", y_all, w).reshape(bsz, s, d)
+    y = torch.einsum("ted,te->td", y_all, w)
+    if e_l != cfg.num_experts:
+        y = tp.scatter_data(y)       # this rank's tokens, every expert's sum
+    return _finish(p, x, y.reshape(bsz, s, d), cfg), aux
+
+
+def _finish(p, x, y, cfg: ModelConfig) -> torch.Tensor:
+    """The routed experts' ``y`` plus the shared expert's, summed over the
+    model ranks where the experts' mlp is sliced."""
     if cfg.moe_shared_expert:
         y = y + _shared(p, x, cfg)
-    return y, aux
+    return tp.psum(y) if _model_sliced(p, cfg) else y
 
 
 def _shared(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -33,6 +33,12 @@ hybrid) runs :func:`repro_torch.models.moe.moe`, whose load-balance loss
 ``apply`` sums into ``aux``; ``input_embeds`` (the VLM frontend's patch
 embeddings) replace the first embedding rows in ``apply`` and
 ``loss_fn``.
+
+On a (data, model) mesh (``tp.mesh_ctx``, ``sharding.mesh_plan``) each
+rank holds its blocks of the leaves, and every reader takes them through
+``tp.gathered``: a block's at the top of its body (inside the checkpointed
+region, so that under remat the backward gathers again), the embedding,
+the final norm and the unembedding where they are used.
 """
 from __future__ import annotations
 
@@ -136,7 +142,18 @@ def unstacked(blocks: dict, n: int) -> list:
 
 
 # ------------------------------------------------------------- forward ---
+def embedding_for(params, cfg: ModelConfig, use: str) -> dict:
+    """The embedding leaf ``use`` reads (``"embed"``: the lookup;
+    ``"unembed"``: the unembedding, the table itself where tied), as
+    ``L.embed``/``L.unembed`` take it, gathered on a mesh
+    (``tp.gathered``)."""
+    key = "embed" if use == "embed" or cfg.tie_embeddings else "unembed"
+    return tp.gathered({key: params["embedding"][key]}, "embedding")
+
+
 def _block_fn(bp, x, cfg: ModelConfig, positions, aux):
+    # inside the checkpointed region: under remat the backward gathers again
+    bp = tp.gathered(bp, "blocks", stacked=True)
     for li, spec in enumerate(cfg.block_pattern):
         lp = bp[f"l{li}"]
         h = L.rmsnorm(lp["norm1"], x, cfg.norm_eps)
@@ -164,7 +181,7 @@ def final_hidden(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     """The unembedding's input: the stack's output after the final norm,
     (B, S, d), or (B, 1, d) with ``last_only``; arguments as
     :func:`apply`'s."""
-    x = L.embed(params["embedding"], tokens, cfg)
+    x = L.embed(embedding_for(params, cfg, "embed"), tokens, cfg)
     if input_embeds is not None:
         f = input_embeds.shape[1]
         x = torch.cat([input_embeds.to(x.dtype), x[:, f:]], dim=1)
@@ -181,7 +198,8 @@ def final_hidden(params, tokens: torch.Tensor, cfg: ModelConfig, *,
             x, aux = _block_fn(bp, x, cfg, positions, aux)
     if last_only:
         x = x[:, -1:]
-    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
+    return L.rmsnorm(tp.gathered(params["final_norm"], "final_norm"), x,
+                     cfg.norm_eps), aux
 
 
 def apply(params, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -196,7 +214,8 @@ def apply(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     leaves tensor-parallel logits as this rank's vocab slice."""
     x, aux = final_hidden(params, tokens, cfg, input_embeds=input_embeds,
                           positions=positions, last_only=last_logits_only)
-    return L.unembed(params["embedding"], x, cfg, gather=gather_logits), aux
+    return L.unembed(embedding_for(params, cfg, "unembed"), x, cfg,
+                     gather=gather_logits), aux
 
 
 def loss_fn(params, batch: dict, cfg: ModelConfig, *, aux_weight=0.01):
@@ -277,9 +296,10 @@ def serve_step(params, cache: dict, tokens: torch.Tensor, pos: torch.Tensor,
     """One decode step.  tokens: (B, 1), pos: (B,) -> (logits (B, 1, V),
     cache).  Each layer's KV rows are written at ``pos`` and its conv and
     SSM state replaced, in place in ``cache``, which is returned."""
-    x = L.embed(params["embedding"], tokens, cfg)
+    x = L.embed(embedding_for(params, cfg, "embed"), tokens, cfg)
     for i in range(cfg.num_blocks):
-        bp = block_params(params["blocks"], i)
+        bp = tp.gathered(block_params(params["blocks"], i), "blocks",
+                         stacked=True)
         ai = mi = 0
         for li, spec in enumerate(cfg.block_pattern):
             lp = bp[f"l{li}"]
@@ -304,5 +324,6 @@ def serve_step(params, cache: dict, tokens: torch.Tensor, pos: torch.Tensor,
                 else:
                     h, _ = moe_mod.moe(lp["moe"], h, cfg)
                 x = x + h
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return L.unembed(params["embedding"], x, cfg), cache
+    x = L.rmsnorm(tp.gathered(params["final_norm"], "final_norm"), x,
+                  cfg.norm_eps)
+    return L.unembed(embedding_for(params, cfg, "unembed"), x, cfg), cache

@@ -31,8 +31,10 @@ each key to its slicing rule (``distributed.tp.Segments`` JSON, or
 bit; ``tp.load_sharded_params`` reads one rank's shard only
 (:func:`read_shard`).  The ranks of a training mesh save and restore
 together (:func:`save_on_mesh`, :func:`restore_on_mesh`): the ``full``
-format from rank 0 where the model axis is 1, else the ``sharded`` one,
-each model rank writing and reading only its own shard.
+format from rank 0 where every rank holds the whole state, else the
+``sharded`` one with a shard a (data, model) rank, each rank writing and
+reading only its own; its ``shard_info`` entries name the split dims
+(``{"mesh": [D, M], "data_dim": i, "model_dim": j}``).
 """
 from __future__ import annotations
 
@@ -249,60 +251,66 @@ def save_on_mesh(ckpt_dir: str, state, step: int, *, mesh, plan=None,
     """A train state saved by the ranks of a bound ``(data, model)`` mesh,
     every rank calling this together; all leave at one barrier.
 
-    Model axis 1: the data replicas hold the same state, so rank 0 writes
-    the ``full`` format alone.  Model axis ``m > 1``: the ``m`` ranks of
-    data coordinate 0 each write their slice as ``shard_<k>.npz`` of the
-    ``sharded`` format (the moments sliced as their params,
-    ``tp.state_shard_info`` of ``plan``), and the first of them seals the
-    manifest and publishes the step."""
+    Where every rank holds the whole state (``plan`` None, or a
+    ``sharding.MeshPlan`` that splits nothing) rank 0 writes the ``full``
+    format alone.  Otherwise every rank writes its blocks as
+    ``shard_<r>.npz`` of the ``sharded`` format, ``r`` its rank on the
+    mesh (row-major), the manifest's ``mesh`` ``[D, M]`` and each split
+    key's ``shard_info`` its placement (``tp.state_shard_info``: the
+    moments as their params); rank 0 seals the manifest and publishes the
+    step.  :func:`restore` and the converter reassemble it whole."""
     import torch.distributed as dist
-    m = mesh.shape.get("model", 1)
-    if m == 1:
+    if plan is None or not plan.sharded:
         if dist.get_rank() == 0:
             save(ckpt_dir, state, step, keep_last=keep_last)
         dist.barrier()
         return
     from repro_torch.distributed import tp
-    if mesh.index("data") == 0:
-        grp, k = mesh.group("model"), mesh.index("model")
-        name = f"step_{step:08d}"
-        tmp = os.path.join(ckpt_dir, f".tmp_{name}_mesh")
-        if k == 0:
-            os.makedirs(ckpt_dir, exist_ok=True)
-            shutil.rmtree(tmp, ignore_errors=True)
-            os.makedirs(tmp)
-        dist.barrier(group=grp)
-        flat = dict(_flatten(state))
-        fname = f"shard_{k}.npz"
-        sha = _save_npz(os.path.join(tmp, fname), flat)
-        shas = [None] * m
-        dist.all_gather_object(shas, (fname, sha), group=grp)
-        if k == 0:
-            extra = {"format": "sharded", "num_shards": m,
-                     "shard_info": tp.state_shard_info(plan, flat)}
-            _seal(tmp, _manifest(step, flat, dict(shas), extra))
-            _publish(ckpt_dir, tmp, name, keep_last)
+    r = mesh.index(tuple(mesh.axis_names))
+    name = f"step_{step:08d}"
+    tmp = os.path.join(ckpt_dir, f".tmp_{name}_mesh")
+    if r == 0:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+    dist.barrier()
+    flat = dict(_flatten(state))
+    fname = f"shard_{r}.npz"
+    sha = _save_npz(os.path.join(tmp, fname), flat)
+    shas = [None] * mesh.size
+    dist.all_gather_object(shas, (fname, sha))
+    if r == 0:
+        extra = {"format": "sharded", "num_shards": mesh.size,
+                 "mesh": [plan.data, plan.model],
+                 "shard_info": tp.state_shard_info(plan, flat)}
+        _seal(tmp, _manifest(step, flat, dict(shas), extra))
+        _publish(ckpt_dir, tmp, name, keep_last)
     dist.barrier()
 
 
-def restore_on_mesh(ckpt_dir: str, state_like, *, mesh,
+def restore_on_mesh(ckpt_dir: str, state_like, *, mesh, plan=None,
                     step: Optional[int] = None, verify: bool = True):
-    """The mesh's own checkpoint back into this rank's ``state_like``:
-    the ``full`` format whole (model axis 1), or this rank's
-    ``shard_<k>.npz`` of a ``sharded`` one of ``m`` shards.  Returns
-    ``(state, step)``."""
-    m = mesh.shape.get("model", 1)
-    if m == 1:
-        return restore(ckpt_dir, state_like, step=step, verify=verify)
+    """A checkpoint back into this rank's ``state_like``: the mesh's own
+    (a ``sharded`` one written by :func:`save_on_mesh` on this mesh) by
+    reading only this rank's shard, bit for bit; any other (``full``, or
+    sharded for another layout) reassembled whole and cut to this rank's
+    blocks by ``plan`` (the mesh's ``sharding.MeshPlan``; None: whole).
+    Returns ``(state, step)``."""
+    from repro_torch.distributed import tp
     manifest, _ = _read_manifest(ckpt_dir, step)
-    if (manifest.get("format") != "sharded"
-            or int(manifest["num_shards"]) != m):
-        raise ValueError(
-            f"checkpoint under {ckpt_dir} is {manifest.get('format')} with "
-            f"{manifest.get('num_shards', 1)} shards; the mesh restores a "
-            f"sharded one of {m}")
-    manifest, flat = read_shard(ckpt_dir, mesh.index("model"),
-                                step=manifest["step"], verify=verify)
+    shape = [mesh.shape.get("data", 1), mesh.shape.get("model", 1)]
+    if (manifest.get("format") == "sharded" and manifest.get("mesh") == shape
+            and int(manifest["num_shards"]) == mesh.size):
+        manifest, flat = read_shard(ckpt_dir,
+                                    mesh.index(tuple(mesh.axis_names)),
+                                    step=manifest["step"], verify=verify)
+        return _fill(state_like, flat), manifest["step"]
+    manifest, flat = _load_flat(ckpt_dir, manifest["step"], verify)
+    if plan is not None:
+        di, mi = tp.mesh_coords(mesh.index(tuple(mesh.axis_names)), plan)
+        flat = {k: (v if plan.placement(k) is None else tp.mesh_local(
+            plan.placement(k), v, di, mi, plan.data, plan.model))
+            for k, v in flat.items()}
     return _fill(state_like, flat), manifest["step"]
 
 
@@ -383,13 +391,18 @@ def read_sharded(ckpt_dir: str, *, step: Optional[int] = None,
 def _reassemble(manifest: dict, shards: list) -> dict:
     """The full flat state from per-shard slices: the bit-exact inverse of
     the converter's slicing, driven by the manifest's ``shard_info``."""
-    from repro_torch.distributed.tp import Segments
+    from repro_torch.distributed.tp import Segments, mesh_unshard
     info = manifest["shard_info"]
     full = {}
     for key in manifest["keys"]:
-        rule = Segments.from_json(info.get(key, "replicated"))
-        full[key] = (shards[0][key] if rule is None
-                     else rule.unslice([s[key] for s in shards]))
+        obj = info.get(key, "replicated")
+        parts = [s[key] for s in shards]
+        if isinstance(obj, dict) and "mesh" in obj:   # save_on_mesh's
+            full[key] = mesh_unshard(parts, obj["data_dim"],
+                                     obj["model_dim"], *obj["mesh"])
+            continue
+        rule = Segments.from_json(obj)
+        full[key] = parts[0] if rule is None else rule.unslice(parts)
     return full
 
 

@@ -85,16 +85,17 @@ def run_resilient(step_fn: Callable, state, batch_fn: Callable,
     cluster supervisor drives, in-process for testability.  A checkpoint
     is written synchronously, so a step that updates the state in place
     (``make_train_step``) cannot reach it.  ``mesh`` (a bound mesh of
-    more than one rank, with ``plan`` where its model axis exceeds 1)
-    saves and restores through ``checkpoint.save_on_mesh`` and
-    ``restore_on_mesh``."""
+    more than one rank) saves and restores through
+    ``checkpoint.save_on_mesh`` and ``restore_on_mesh``; ``plan`` is its
+    ``sharding.mesh_plan``, whose blocks each rank holds."""
     if mesh is not None and mesh.size > 1:
         def save(state, step):
             ckpt_mod.save_on_mesh(ckpt_dir, state, step, mesh=mesh,
                                   plan=plan)
 
         def restore(state):
-            return ckpt_mod.restore_on_mesh(ckpt_dir, state, mesh=mesh)
+            return ckpt_mod.restore_on_mesh(ckpt_dir, state, mesh=mesh,
+                                            plan=plan)
     else:
         def save(state, step):
             ckpt_mod.save(ckpt_dir, state, step)

@@ -1,7 +1,8 @@
 """AdamW and its learning-rate schedules (``repro/train/optimizer.py``).
 
 The update is JAX's, leaf for leaf: global-norm clipping (over a
-tensor-parallel mesh, :func:`global_norm`), bias
+(data, model) mesh of ranks, :func:`global_norm`, each rank
+updating its own blocks of the params and moments), bias
 correction, moments kept in float32 or bf16 (the update math runs in
 float32 either way), and weight decay on leaves of rank >= 2 only.  The
 schedules are cosine, WSD (warmup-stable-decay), linear and constant.
@@ -81,16 +82,17 @@ def opt_state_axes(param_axes):
     return {"m": param_axes, "v": param_axes, "step": ()}
 
 
-def global_norm(grads, plan=None, group=None) -> torch.Tensor:
-    """The gradient's global L2 norm.  ``plan`` (a ``tp.Plan``) makes it
-    the norm of a tensor-parallel tree, a rank's slice of it in
-    ``grads``: the sharded leaves' squares summed over the model
-    ``group``, the replicated ones counted once, so that every rank clips
-    by TP 1's scale."""
-    if plan is None or plan.tp == 1:
+def global_norm(grads, plan=None, *, mesh=None) -> torch.Tensor:
+    """The gradient's global L2 norm.  ``mesh`` (a bound mesh of more than
+    one rank, ``plan`` its ``sharding.mesh_plan`` or None) makes it the
+    norm of a mesh rank's blocks: each split leaf's squares summed over
+    the groups that split it, each whole one counted once
+    (``tp.mesh_grad_norm_sq``), so that every rank clips by one device's
+    scale."""
+    if mesh is None or mesh.size == 1:
         return tree_global_norm(grads)
     from repro_torch.distributed import tp
-    return torch.sqrt(tp.grad_norm_sq(grads, plan, group))
+    return torch.sqrt(tp.mesh_grad_norm_sq(grads, plan, mesh))
 
 
 def _scalars(grads, opt_state, cfg: OptimizerConfig, gnorm=None):

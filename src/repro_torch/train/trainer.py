@@ -20,18 +20,20 @@ path carry their plain versions' gradients on the card
 
 ``jit_train_step`` is the step over a (data, model) mesh of ranks, what
 JAX's GSPMD shardings of the same step compute (``launch/train.py --mesh
-DxM``).  Each rank takes its data coordinate's contiguous block of every
-micro-batch of the global batch (JAX's micro-batch ``i`` is global rows
-``i * B / accum`` on, sharded over data) and accumulates them as above,
-inside ``tp.axis_ctx`` on its model group with its slice of the params
-(``tp.partition_params``) and ``tp.data_ctx`` on its data group (the MoE
-layer's global-batch statistics and overflow); the replicated gradients
-are summed over the model group (``tp.reduce_replicated_grads``), every
-gradient is averaged over the data group (one all-reduce a dtype), and
-AdamW clips by the mesh's global norm (``optimizer.global_norm``) and
-updates the rank's own slice in place.  JAX's ``fsdp`` (ZeRO-3 over data,
-nemotron-4-15b) gives the same numbers; the port replicates the state
-over data instead.
+DxM``).  Each rank holds the blocks of the params and moments that JAX's
+``spec_tree`` gives it (``sharding.mesh_plan``, ``tp.partition_params``):
+the model axis's slices, the ``fsdp`` archs' ``embed`` dims over data
+(ZeRO-3) and the experts over data (expert parallelism).  It takes its
+data coordinate's contiguous block of every micro-batch of the global
+batch (JAX's micro-batch ``i`` is global rows ``i * B / accum`` on,
+sharded over data) and accumulates them as above inside ``tp.mesh_ctx``:
+its model group as the TP axis, its data group for the MoE layer's
+global-batch statistics, overflow and token exchange, and the plan for
+the leaves gathered at use, whose gradients come back reduce-scattered.
+Then the gradients of the leaves an axis holds whole are summed over it
+(``tp.reduce_mesh_grads``), everything is divided by the data extent,
+and AdamW clips by the mesh's global norm (``optimizer.global_norm``)
+and updates the rank's own blocks in place.
 
 Both steps' metrics carry the loss's ``moe_aux`` (averaged over the
 micro-batches) where the loss reports one.
@@ -167,11 +169,16 @@ def _data_rows(x: torch.Tensor, index: int, n: int,
 
 
 def _mesh_axes(mesh, plan):
+    from repro_torch.distributed.sharding import MeshPlan
     d = mesh.shape.get("data", 1)
     m = mesh.shape.get("model", 1)
-    if m > 1 and (plan is None or plan.tp != m):
-        raise ValueError(f"a model axis of {m} needs the tp.build_plan of "
-                         f"degree {m}, got {plan and plan.tp}")
+    if plan is None and m > 1:
+        raise ValueError(f"a model axis of {m} needs the mesh's "
+                         "sharding.mesh_plan")
+    if plan is not None and not (isinstance(plan, MeshPlan)
+                                 and (plan.data, plan.model) == (d, m)):
+        raise ValueError(f"a {d}x{m} mesh needs its sharding.mesh_plan, "
+                         f"got {plan!r:.80}")
     return d, m
 
 
@@ -181,11 +188,11 @@ def mesh_loss_and_grads(loss_fn, params, batch, model_cfg,
     """``(loss, grads)`` of the *global* ``batch`` on a bound ``(data,
     model)`` mesh, every rank calling together: this data rank's rows of
     each micro-batch, accumulated as :func:`make_train_step`, inside
-    ``tp.axis_ctx`` on the model group (the loss seeded ``1 / m``) and
-    ``tp.data_ctx`` on the data group; then the replicated gradients
-    summed over the model group and every gradient, and the loss, averaged
-    over the data group.  ``grads`` is this rank's slice, each leaf whole
-    for it."""
+    ``tp.mesh_ctx`` (the loss seeded ``1 / m``); then the gradients
+    reduced over the axes (``tp.reduce_mesh_grads``) and the loss
+    averaged over data.  ``grads`` holds this rank's blocks, each the
+    whole gradient of its block; ``plan`` is the mesh's
+    ``sharding.mesh_plan`` (None at model 1: every leaf whole)."""
     loss, _, grads = _mesh_loss_aux_grads(
         loss_fn, params, batch, model_cfg, trainer_cfg, mesh=mesh, plan=plan)
     return loss, grads
@@ -198,23 +205,15 @@ def _mesh_loss_aux_grads(loss_fn, params, batch, model_cfg, trainer_cfg, *,
     ``local_batch``: ``batch`` is already this data rank's rows."""
     from repro_torch.distributed import tp
     d, m = _mesh_axes(mesh, plan)
-    model_grp = mesh.group("model") if m > 1 else None
     di = mesh.index("data") if d > 1 else 0
     accum = trainer_cfg.grad_accum
     local = batch if local_batch else tree_map(
         lambda x: _data_rows(x, di, d, accum), batch)
-    with tp.axis_ctx("model", m, group=model_grp), \
-            tp.data_ctx(d, mesh.group("data") if d > 1 else None):
+    with tp.mesh_ctx(mesh, plan):
         loss, aux, grads = _accumulated_grads(
             loss_fn, params, local, model_cfg, accum,
             torch_dtype(trainer_cfg.accum_dtype), seed=1.0 / m)
-    if m > 1:
-        tp.reduce_replicated_grads(grads, plan, model_grp)
-    if d > 1:
-        flat = leaves(grads) + [loss]
-        tp.all_reduce_flat(flat, mesh.group("data"))
-        for g in flat:
-            g.div_(d)
+    tp.reduce_mesh_grads(grads, plan, mesh, extra=[loss])
     return loss, aux, grads
 
 
@@ -225,11 +224,11 @@ def jit_train_step(loss_fn: Callable, model_cfg,
     """The train step over a ``(data, model)`` mesh of ranks (JAX's
     ``jit_train_step`` with GSPMD shardings): ``step(state, batch) ->
     (state, metrics)`` with ``state`` this rank's slice (its params cut by
-    ``tp.partition_params(params, plan, rank=mesh.index("model"))`` and
-    moments beside them) and ``batch`` the *global* batch
+    ``tp.partition_params(params, plan, rank=mesh.index(("data",
+    "model")))`` and moments beside them) and ``batch`` the *global* batch
     (:func:`mesh_loss_and_grads`).  AdamW clips by the mesh's global norm
-    and updates the rank's slice in place.  ``plan`` is
-    ``tp.build_plan``'s for the model axis (needed where it exceeds 1).
+    and updates the rank's blocks in place.  ``plan`` is the mesh's
+    ``sharding.mesh_plan`` (needed where the model axis exceeds 1).
     ``local_batch=True`` takes this data rank's rows (its block of each
     micro-batch, in order) in place of the global batch (the dry run's
     cells, which hold one rank's arguments).
@@ -239,16 +238,14 @@ def jit_train_step(loss_fn: Callable, model_cfg,
     if mesh.size == 1:
         return make_train_step(loss_fn, model_cfg, opt_cfg, trainer_cfg)
     mesh = bind(mesh)
-    _, m = _mesh_axes(mesh, plan)
-    model_grp = mesh.group("model") if m > 1 else None
+    _mesh_axes(mesh, plan)
 
     def step(state, batch):
         params = state["params"]
         loss, aux, grads = _mesh_loss_aux_grads(
             loss_fn, params, batch, model_cfg, trainer_cfg, mesh=mesh,
             plan=plan, local_batch=local_batch)
-        gnorm = opt_mod.global_norm(grads, plan if m > 1 else None,
-                                    model_grp)
+        gnorm = opt_mod.global_norm(grads, plan, mesh=mesh)
         new_params, new_opt, om = opt_mod.apply_update_(
             params, grads, state["opt"], opt_cfg, gnorm=gnorm)
         return ({"params": new_params, "opt": new_opt},

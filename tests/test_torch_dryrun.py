@@ -8,7 +8,9 @@ the argument and output bytes equal to ``memory_analysis()``'s.  On a
 mesh: the recorded collectives of a 2x2 qwen3-4b cell by the ring model
 worked by hand, the recording refusing CPU and CUDA tensors, the minicpm
 cell that needs JAX's context-parallel attention skipped with that
-reason.  Meta tensors reach only the kernels' plain versions.  The CLI
+reason; the ZeRO-3 gathers and reduce-scatters of a 2x1 nemotron-4-15b
+cell and the all-to-alls of llama4's expert-parallel dispatch by the
+ring model.  Meta tensors reach only the kernels' plain versions.  The CLI
 writes a report that ``analysis.report`` reads.
 """
 import numpy as np
@@ -151,6 +153,62 @@ def test_mesh_all_reduces_follow_the_ring_model():
     logits = rows * 1 * cfg.vocab_size * 2                 # gathered
     assert cost.wire_bytes["all-gather"] == (m - 1) / m * logits
     assert cost.total_wire_bytes == sum(cost.wire_bytes.values())
+
+
+def test_zero3_gathers_and_scatters_follow_the_ring_model():
+    """nemotron-4-15b smoke train on a 2x1 mesh (``fsdp``: every leaf
+    split over data): each leaf is all-gathered where it is used, once a
+    step (no remat), and its gradient reduce-scattered; ring model: an
+    all-gather puts (g-1)/g of its result on the wire, a reduce-scatter
+    (g-1) of its result (the rank's block).  Beside them two all-reduces
+    over data: the loss and the clip norm's squares.  Rank 0's params
+    and moments are JAX's spec arithmetic, byte for byte."""
+    g = 2
+    cell = steps.build_cell("nemotron-4-15b", ARCHS["nemotron-4-15b"],
+                            ShapeCell("t", "train", SEQ, 4),
+                            make_mesh((g, 1), ("data", "model")),
+                            smoke=True)
+    params = {k: t for k, _, t in tp._flatten_with_keys(
+        cell.args[0]["params"])}
+    assert all(cell.plan.flat[k].data_dim is not None for k in params)
+    local = sum(t.numel() * t.element_size() for t in params.values())
+    cost = steps.lower_cell(cell).cost
+    # a block's leaves gathered a block at a time
+    n = sum(cell.cfg.num_blocks if k.startswith("blocks/") else 1
+            for k in params)
+    assert cost.collective_ops == {"all-gather": n, "reduce-scatter": n,
+                                   "all-reduce": 2}
+    assert cost.wire_bytes["all-gather"] == (g - 1) / g * g * local
+    assert cost.wire_bytes["reduce-scatter"] == (g - 1) * local
+    sb = steps.state_bytes(cell)
+    assert sb["rank0"] == sb["spec"] > local
+
+
+def test_expert_parallel_dispatch_exchanges_follow_the_ring_model():
+    """llama4's smoke dispatch on a 2x1 mesh: its 8 experts 4 a data
+    rank, each MoE layer sends the experts' rows out and the results back
+    by all-to-all over data, and the backward does both again; ring
+    model: (g-1)/g of the buffer on the wire."""
+    import dataclasses
+    g = 2
+    spec = dataclasses.replace(ARCHS["llama4-maverick-400b-a17b"],
+                               smoke_config=lambda: dataclasses.replace(
+                                   ARCHS["llama4-maverick-400b-a17b"]
+                                   .smoke_config(), moe_impl="dispatch"))
+    cell = steps.build_cell("llama4-maverick-400b-a17b", spec,
+                            ShapeCell("t", "train", SEQ, 4),
+                            make_mesh((g, 1), ("data", "model")),
+                            smoke=True)
+    cfg = cell.cfg
+    wi = [p for k, p in cell.plan.flat.items() if k.endswith("moe/wi")]
+    assert wi and all(p.experts and p.data_dim == 1 for p in wi)
+    layers = cfg.num_blocks * sum(s.ff == "moe" for s in cfg.block_pattern)
+    cost = steps.lower_cell(cell).cost
+    assert cost.collective_ops["all-to-all"] == 4 * layers
+    cap = max(int(SEQ * cfg.experts_per_token * cfg.moe_capacity_factor
+                  / cfg.num_experts), 1)
+    buf = cfg.num_experts * (4 // g) * cap * cfg.d_model * 2     # bf16
+    assert cost.wire_bytes["all-to-all"] == 4 * layers * (g - 1) / g * buf
 
 
 def test_recording_refuses_cpu_and_cuda_tensors():

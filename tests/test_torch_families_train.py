@@ -261,13 +261,12 @@ def ranks():
 
 
 def _assembled(results, name, field):
-    arch, impl, (_, m), _ = MESH[name]
-    plan = cases.plan_for(cases.family_config(arch, _over(impl)), m)
-    parts = [next(r for r in results if r["coords"] == [0, k])[field]
-             for k in range(m)]
-    return {key: parts[0][key] if plan is None or plan.flat[key] is None
-            else plan.flat[key].unslice([p[key] for p in parts])
-            for key in parts[0]}
+    """A field of the ranks' blocks (rank order) as the whole flat tree,
+    by the mesh plan they hold (JAX's specs: ZeRO-3, experts over data)."""
+    arch, impl, (d, m), _ = MESH[name]
+    plan = cases.mesh_plan_for(arch, cases.family_config(arch, _over(impl)),
+                               d, m)
+    return tp.assemble(plan, [r[field] for r in results])
 
 
 @pytest.mark.parametrize("name", list(MESH))

@@ -141,6 +141,28 @@ def test_scan_covers_the_mesh_modules():
                 if n.split(".")[0] in ("jax", "jaxlib", "repro")]
 
 
+def test_scan_covers_the_zero3_and_expert_parallel_modules():
+    """The modules that place and gather a mesh's state (the mesh plan,
+    the data collectives, the models that gather at use, the MoE's
+    expert parallelism, the optimizer, trainer, checkpoints and launch)
+    are scanned, and the rank side of their tests imports no JAX."""
+    found = {os.path.relpath(p, PKG) for p in _port_sources()}
+    for mod in ("distributed/sharding.py", "distributed/tp.py",
+                "models/transformer.py", "models/moe.py",
+                "models/encdec.py", "models/mamba2.py",
+                "models/attention.py", "models/layers.py",
+                "train/optimizer.py", "train/trainer.py",
+                "train/checkpoint.py", "train/fault_tolerance.py",
+                "train/checkpoint_converter.py", "launch/steps.py",
+                "launch/train.py", "launch/dryrun.py", "analysis/cost.py",
+                "configs/common.py"):
+        assert mod in found, mod
+    with open(os.path.join(HERE, "torch_mesh_cases.py")) as fh:
+        tree = ast.parse(fh.read())
+    defs = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
+    assert {"mesh_plan_for", "local_params", "mesh_checkpoint"} <= defs
+
+
 def test_scan_covers_the_dry_run_modules():
     """The dry run's modules (the analysis package, the cell builders and
     the CLI) and the shape helpers are scanned."""

@@ -84,3 +84,25 @@ def test_launcher_refuses_what_one_card_cannot_run(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_train.main(["--smoke", "--steps", "1"])
+
+
+def test_layers_cuts_the_depth_at_full_width():
+    """``--layers N`` trains the arch's config at N layers, widths
+    unchanged (the card's full-width runs at a cut depth); a count that
+    is not a whole number of block patterns is refused by its name."""
+    args = launch_train.parser().parse_args(
+        ["--arch", "jamba-v0.1-52b", "--layers", "8"])
+    cfg = launch_train._config(args)
+    full = launch_train._config(launch_train.parser().parse_args(
+        ["--arch", "jamba-v0.1-52b"]))
+    assert (cfg.num_layers, cfg.num_blocks) == (8, 1)
+    assert (cfg.d_model, cfg.d_ff, cfg.num_experts) == (
+        full.d_model, full.d_ff, full.num_experts)
+    with pytest.raises(ValueError, match="--layers 4: jamba-v0.1-52b's "
+                                         "block pattern is 8 layers"):
+        launch_train.main(["--device", "cpu", "--arch", "jamba-v0.1-52b",
+                           "--layers", "4"])
+    out = launch_train.main(["--device", "cpu", "--smoke", "--layers", "2",
+                             "--steps", "1", "--global-batch", "2",
+                             "--seq-len", "16"])
+    assert sorted(out["history"]) == [0]

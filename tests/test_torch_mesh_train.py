@@ -44,7 +44,7 @@ from repro.configs import ARCHS as JARCHS
 from repro.data import tokens as jtokens
 from repro.models import transformer as jtr
 from repro.train import optimizer as jopt
-from repro_torch.distributed import launch
+from repro_torch.distributed import launch, tp
 from repro_torch.models.param import load_numpy_params
 from repro_torch.models.registry import get_model
 from repro_torch.train import trainer as ttrainer
@@ -143,23 +143,12 @@ def _plan(arch, m):
     return cases.plan_for(cases.config(arch), m)
 
 
-def _by_model_rank(ranks, m):
-    """Each model coordinate's result from data coordinate 0."""
-    return [next(r for r in ranks if r["coords"] == [0, k])
-            for k in range(m)]
-
-
 def _assembled(ranks, arch, field, mesh):
-    """A field of the mesh's ranks reassembled into the full flat tree."""
-    m = MESHES[mesh][0][1]
-    plan = _plan(arch, m)
-    parts = [r[arch][field] for r in _by_model_rank(ranks, m)]
-    out = {}
-    for key in parts[0]:
-        rule = None if plan is None else plan.flat[key]
-        out[key] = (parts[0][key] if rule is None
-                    else rule.unslice([p[key] for p in parts]))
-    return out
+    """A field of the mesh's ranks (rank order) reassembled into the full
+    flat tree by the mesh plan they hold."""
+    d, m = MESHES[mesh][0]
+    plan = cases.mesh_plan_for(arch, cases.config(arch), d, m)
+    return tp.assemble(plan, [r[arch][field] for r in ranks])
 
 
 def _excess(got: dict, want: dict, tol: float) -> float:

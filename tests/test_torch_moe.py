@@ -212,3 +212,26 @@ def test_dispatch_bf16_within_two_ulps(factor):
     assert y.dtype == torch.bfloat16
     U.assert_bf16_close(y.float(), np.asarray(jy.astype(jnp.float32)), 2,
                         "bf16 moe_dispatch")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_silu_gradient_equals_jax_where_exp_overflows(dtype):
+    """The experts' silu (``layers.silu``, JAX's rounding) differentiates
+    by ``lax.logistic``'s own rule: where ``exp(-x)`` overflows (x < -88
+    in float32, an expert row summing overflowed tokens) the gradient is
+    JAX's finite one, not ``0 * inf``; elsewhere within one unit of the
+    dtype of ``jax.grad(jax.nn.silu)``."""
+    from repro_torch.models import layers as L
+    x = np.concatenate([np.linspace(-120, 20, 281),
+                        [-88.7, -89.0, -100.0]]).astype(np.float32)
+    g = np.random.default_rng(3).standard_normal(x.shape).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    _, vjp = jax.vjp(jax.nn.silu, jnp.asarray(x, jdt))
+    want = np.asarray(vjp(jnp.asarray(g, jdt))[0], np.float32)
+    xt = torch.tensor(x).to(getattr(torch, dtype)).requires_grad_()
+    y = L.silu(xt)
+    (got,) = torch.autograd.grad(y, xt, torch.tensor(g).to(xt.dtype))
+    got = got.float().numpy()
+    assert np.isfinite(got).all() and np.isfinite(want).all()
+    ulp = 2.0 ** -7 if dtype == "bfloat16" else 2.0 ** -23
+    np.testing.assert_allclose(got, want, rtol=2 * ulp, atol=2 * ulp)

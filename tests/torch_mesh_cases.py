@@ -1,8 +1,9 @@
 """The rank side of ``tests/test_torch_mesh_train.py``,
-``tests/test_torch_seq_decode.py``, ``tests/test_torch_families_train.py``
-and ``tests/test_torch_families_tp.py``: what each rank of a (data, model)
-mesh runs, in a module that imports neither JAX nor the JAX package (the
-ranks are spawned processes that import this module by name).
+``tests/test_torch_seq_decode.py``, ``tests/test_torch_families_train.py``,
+``tests/test_torch_families_tp.py`` and ``tests/test_torch_fsdp.py``:
+what each rank of a (data, model) mesh runs, in a module that imports
+neither JAX nor the JAX package (the ranks are spawned processes that
+import this module by name).
 
 Inputs arrive as numpy trees; every rank returns numpy results (flat
 ``{checkpoint key: array}`` dicts of its slice), which the parent holds
@@ -45,6 +46,27 @@ def plan_for(cfg, m: int):
                          rules=sharding.default_rules(layout))
 
 
+def mesh_plan_for(arch: str, cfg, d: int, m: int):
+    """``sharding.mesh_plan`` of ``cfg`` on a ``(d, m)`` mesh under the
+    arch's rules (its ``fsdp`` and overrides), as ``launch.train``'s."""
+    spec = ARCHS[arch]
+    shapes, axes = get_model(cfg).abstract_params(cfg)
+    layout = Mesh(("data", "model"), (d, m))
+    return sharding.mesh_plan(axes, shapes, cfg=cfg, mesh=layout,
+                              rules=sharding.default_rules(
+                                  layout, fsdp=spec.fsdp,
+                                  overrides=spec.rules_overrides))
+
+
+def local_params(arch: str, cfg, tree, mesh):
+    """This rank's blocks of the numpy ``tree`` on ``mesh`` and the plan."""
+    d, m = mesh.sizes
+    plan = mesh_plan_for(arch, cfg, d, m)
+    params = tp.partition_params(load_numpy_params(tree, "cpu"), plan,
+                                 rank=mesh.index(("data", "model")))
+    return params, plan
+
+
 def flat(tree) -> dict:
     return {k: v.detach().float().numpy().copy()
             for k, _, v in tp._flatten_with_keys(tree)}
@@ -64,15 +86,10 @@ def mesh_step(rank: int, world: int, spec: dict) -> dict:
     for arch, tree in spec["params"].items():
         cfg = config(arch)
         model = get_model(cfg)
-        plan = plan_for(cfg, m)
-        params = load_numpy_params(tree, "cpu")
-        if plan is not None:
-            params = tp.partition_params(params, plan,
-                                         rank=mesh.index("model"))
+        params, plan = local_params(arch, cfg, tree, mesh)
         loss, grads = trainer.mesh_loss_and_grads(
             model.loss, params, batch, cfg, tcfg, mesh=mesh, plan=plan)
-        gnorm = opt_mod.global_norm(grads, plan,
-                                    mesh.group("model") if m > 1 else None)
+        gnorm = opt_mod.global_norm(grads, plan, mesh=mesh)
         state = {"params": params, "opt": opt_mod.init_opt_state(params,
                                                                  ocfg)}
         step = trainer.jit_train_step(model.loss, cfg, ocfg, tcfg,
@@ -105,11 +122,7 @@ def family_mesh_step(rank: int, world: int, spec: dict) -> dict:
         mesh = make_mesh((d, m), ("data", "model"))
         cfg = family_config(arch, over)
         model = get_model(cfg)
-        plan = plan_for(cfg, m)
-        params = load_numpy_params(spec["params"][arch], "cpu")
-        if plan is not None:
-            params = tp.partition_params(params, plan,
-                                         rank=mesh.index("model"))
+        params, plan = local_params(arch, cfg, spec["params"][arch], mesh)
         batch = {k: torch.from_numpy(v)
                  for k, v in spec["batches"][arch].items()}
         _, grads = trainer.mesh_loss_and_grads(model.loss, params, batch,
@@ -266,6 +279,36 @@ def seq_decode(rank: int, world: int, spec: dict) -> dict:
         out[name] = {"out": got.numpy(), "ck": ck.numpy(), "cv": cv.numpy(),
                      "index": i, "n": n}
     return out
+
+
+def mesh_checkpoint(rank: int, world: int, spec: dict) -> dict:
+    """One ``jit_train_step`` of ``spec["arch"]`` (f32 smoke) on the
+    world's ``spec["mesh"]``, the state saved by
+    ``checkpoint.save_on_mesh`` at step 1 into ``spec["dir"]`` and read
+    back into zeros by ``restore_on_mesh``: the rank's state and what
+    came back (flat, its blocks)."""
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.utils.tree import tree_map
+    torch.set_num_threads(1)
+    arch = spec["arch"]
+    mesh = make_mesh(spec["mesh"], ("data", "model"))
+    cfg = config(arch)
+    model = get_model(cfg)
+    params, plan = local_params(arch, cfg, spec["params"], mesh)
+    ocfg = opt_mod.OptimizerConfig(**OPT)
+    batch = {k: torch.from_numpy(v) for k, v in spec["batch"].items()}
+    _, grads = trainer.mesh_loss_and_grads(model.loss, params, batch, cfg,
+                                           mesh=mesh, plan=plan)
+    step = trainer.jit_train_step(model.loss, cfg, ocfg, mesh=mesh,
+                                  plan=plan)
+    state, _ = step({"params": params,
+                     "opt": opt_mod.init_opt_state(params, ocfg)}, batch)
+    ck.save_on_mesh(spec["dir"], state, 1, mesh=mesh, plan=plan)
+    back, at = ck.restore_on_mesh(spec["dir"], tree_map(torch.zeros_like,
+                                                        state),
+                                  mesh=mesh, plan=plan)
+    return {"state": flat(state), "back": flat(back), "step": at,
+            "grads": flat(grads)}
 
 
 def run_jobs(rank: int, world: int, jobs: dict) -> dict:
