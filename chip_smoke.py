@@ -5400,8 +5400,9 @@ DRYRUN_OUT = os.path.join(ROOT, "build", "dryrun_cells.json")
 def dryrun_cells():
     """(kind, arch, batch, seq, mesh, layers) of every cell the phase
     traces: the LM phases' at 1x1 and full depth, and phase mesh's
-    full-width fsdp runs at 2x1 and their depth (``layers`` None: the
-    config's)."""
+    full-width runs at their mesh and depth (the fsdp runs at 2x1,
+    minicpm-2b's context-parallel step at 1x8, jamba's decode at 2x2;
+    ``layers`` None: the config's)."""
     cells = [("prefill", a, 1, LM_SEQ, (1, 1), None) for a in DRYRUN_PREFILL]
     cells += [("train", a, LM_TRAIN_BATCH, LM_TRAIN_SEQ, (1, 1), None)
               for a in DRYRUN_TRAIN]
@@ -5409,6 +5410,10 @@ def dryrun_cells():
               for a in DRYRUN_DECODE]
     cells += [("train", a, LM_TRAIN_BATCH, LM_TRAIN_SEQ, (2, 1), n)
               for a, n in FSDP_FULL]
+    cells += [("train", CP_ARCH, CP_FULL_BATCH, CP_FULL_SEQ, CP_FULL_MESH,
+               CP_FULL_LAYERS),
+              ("decode", CP_DECODE["arch"], 1, CP_DECODE["seq"],
+               CP_DECODE["mesh"], CP_DECODE["layers"])]
     return cells
 
 
@@ -5775,8 +5780,682 @@ def mesh_job_engine(torch, dev, spec):
                                                     ("data", "model")))
 
 
+# ------------------------------------- phase mesh: context parallelism --
+# Context-parallel attention (JAX's ``act_seq`` over the model axis, where
+# the heads do not divide it) and the sequence-sharded decode beside
+# tensor-parallel heads (``kv_seq`` over model), on ranks sharing the card.
+CP_ARCH = "minicpm-2b"
+CP_SMOKE_MESHES = {"1x2": (1, 2), "2x2": (2, 2)}
+CP_SMOKE_BATCH = 4
+CP_SMOKE_SEQ = 65           # odd: the last model rank's block is padded
+CP_LOGITS_TOL = 1e-5        # of max |logit|, the prefill against the 1x1
+# minicpm-2b at full width through ``launch.train --mesh 1x8`` (36 heads
+# over 8: context-parallel), one step, at CP_FULL_LAYERS of its 40 layers
+CP_FULL_MESH = (1, 8)
+CP_FULL_LAYERS = 16
+CP_FULL_BATCH, CP_FULL_SEQ = 4, 512
+CP_FULL_STEPS = 1
+# jamba's decode B 1 at 2x2 with kv_seq over (data, model) (long_500k's
+# rule) against the card's 1x1, its attention cache seeded, 8 steps
+# teacher-forced by the 1x1's tokens from a position 4 before the boundary
+# between data rank 0's and data rank 1's positions: at full width, one
+# block (8 of 32 layers), bf16, long_500k's 524,288 positions (the dry
+# run's 2x2 cell: 8.62 GiB a rank); and the f32 smoke config (JAX's f32
+# bar, lm_tp's LM_TP_F32_TOL form)
+CP_DECODE = {"arch": "jamba-v0.1-52b", "layers": 8, "dtype": "bfloat16",
+             "mesh": (2, 2), "seq": 524_288, "steps": 8, "pos0": 262_140,
+             "token": 7, "seed": 0, "cache_seed": 9}
+CP_DECODE_F32 = {**CP_DECODE, "layers": None, "dtype": "float32",
+                 "seq": 64, "pos0": 28}
+CP_DECODE_F32_TOL = 1e-5
+
+
+def cp_smoke_config():
+    """The ``act_seq`` config: minicpm-2b's f32 smoke config with 3 heads
+    and 3 KV heads (q_dim 48; JAX's spec splits 1.5 heads a rank at model
+    2)."""
+    import dataclasses
+    return dataclasses.replace(f32_smoke(CP_ARCH), num_heads=3,
+                               num_kv_heads=3)
+
+
+def cp_rules(arch, cfg, mesh, kind, seq, batch):
+    """JAX's rules for a ``kind`` cell of ``batch`` x ``seq`` on ``mesh``
+    (``launch.steps.make_rules``)."""
+    from repro_torch.configs import ARCHS, ShapeCell
+    from repro_torch.launch import steps
+    return steps.make_rules(ARCHS[arch], mesh,
+                            ShapeCell(kind, kind, seq, batch), cfg)
+
+
+def cp_plan(cfg, mesh, rules):
+    from repro_torch.distributed import sharding
+    from repro_torch.models.registry import get_model
+    shapes, axes = get_model(cfg).abstract_params(cfg)
+    return sharding.mesh_plan(axes, shapes, cfg=cfg, mesh=mesh, rules=rules)
+
+
+def cp_smoke_batch(torch, cfg, dev):
+    return ft_batch(torch, cfg, dev, CP_SMOKE_BATCH, CP_SMOKE_SEQ, seed=13)
+
+
+def mesh_job_cp_smoke(torch, dev, spec):
+    """One ``jit_train_step`` and a prefill of the ``act_seq`` config on
+    the mesh (context-parallel attention): this rank's loss, gradients,
+    new state (flat numpy, its blocks) and its data rows' last logits."""
+    from repro_torch.core import basecaller as bc
+    from repro_torch.distributed import sharding, tp
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import get_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import trainer
+    d, m = spec["mesh"]
+    mesh = make_mesh((d, m), ("data", "model"))
+    cfg = cp_smoke_config()
+    model = get_model(cfg)
+    rules = cp_rules(CP_ARCH, cfg, mesh, "train", CP_SMOKE_SEQ,
+                     CP_SMOKE_BATCH)
+    plan = cp_plan(cfg, mesh, rules)
+    params = tp.partition_params(
+        bc.params_to(ft_smoke_params(torch, cfg), dev), plan,
+        rank=mesh.index(("data", "model")))
+    batch = cp_smoke_batch(torch, cfg, dev)
+    rows = CP_SMOKE_BATCH // d
+    mine = slice(mesh.index("data") * rows, (mesh.index("data") + 1) * rows)
+    ocfg = opt.OptimizerConfig(**LM_TRAIN_OPT)
+    step = trainer.jit_train_step(model.loss, cfg, ocfg, mesh=mesh,
+                                  plan=plan)
+    with sharding.use_sharding(mesh, rules):
+        with tp.mesh_ctx(mesh, plan):
+            logits = steps._prefill_body(params, batch["tokens"][mine], cfg)
+        new, metrics, grads = ft_applied(step, {
+            "params": params, "opt": opt.init_opt_state(params, ocfg)},
+            batch)
+    return {"coords": list(mesh.coords), "act_seq": rules["act_seq"],
+            "loss": float(metrics["loss"]), "grads": mesh_flat(grads),
+            "params": mesh_flat(new["params"]),
+            "m": mesh_flat(new["opt"]["m"]), "v": mesh_flat(new["opt"]["v"]),
+            "logits": logits.float().cpu().numpy()}
+
+
+def mesh_job_cp_full(torch, dev, spec):
+    """``launch.train``'s loop on this rank (:func:`mesh_job_train`) with
+    every distinct ``flash_attention`` call kept (``recorded_calls``);
+    the path's launches read, then each kept call run again through its
+    kernel against its plain version (``check_path_calls``)."""
+    from repro_torch.kernels import ops
+    calls, restore = recorded_calls(torch, ops, ("flash_attention",))
+    try:
+        res = mesh_job_train(torch, dev, spec)
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    res["launches"] = {k: getattr(w, a)
+                       for k, (w, a) in launch_counters().items()}
+    res["checked"] = check_path_calls(torch, calls)
+    return res
+
+
+def cp_decode_model(torch, dev, spec):
+    """jamba's config of ``spec`` (the smoke config where ``layers`` is
+    None, else the published one at that depth; ``dtype``), its params
+    (seed) whole on ``dev``, and the seeded full attention cache's k and
+    v (blocks, attention layers a block, B 1, S, kv_dim)."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.param import torch_dtype
+    from repro_torch.models.registry import get_model
+    arch = ARCHS[spec["arch"]]
+    cfg = (arch.smoke_config() if spec["layers"] is None
+           else dataclasses.replace(arch.config(), num_layers=spec["layers"]))
+    cfg = dataclasses.replace(cfg, dtype=torch_dtype(spec["dtype"]))
+    params, _ = get_model(cfg).init(
+        torch.Generator(dev).manual_seed(spec["seed"]), cfg, device=dev)
+    gen = torch.Generator(dev).manual_seed(spec["cache_seed"])
+    shape = (cfg.num_blocks, cfg.attn_layers_per_block, 1, spec["seq"],
+             cfg.kv_dim)
+    kv = {k: 0.5 * torch.randn(shape, generator=gen, device=dev,
+                               dtype=cfg.dtype) for k in ("k", "v")}
+    return cfg, params, kv
+
+
+def cp_decode_steps(torch, cfg, params, cache, tokens, dev, pos0):
+    """Serve steps feeding ``tokens`` at positions ``pos0`` on: each
+    step's logits and the last token's final-normed hidden state (the
+    unembedding's input), float32 numpy, device-synchronised ms, and each
+    MoE layer's routing (the router's float32 logits and the experts it
+    chose, read off ``moe._router``)."""
+    import numpy as np
+
+    from repro_torch.models import layers, moe
+    from repro_torch.models.registry import get_model
+    serve = get_model(cfg).serve
+    logits, hidden, ms, routes = [], [], [], []
+    real_router, real_unembed = moe._router, layers.unembed
+
+    def router(p, x_flat, c):
+        out = real_router(p, x_flat, c)
+        routes[-1].append({
+            "logits": torch.matmul(x_flat.float(), p["router"]).cpu()
+            .numpy(), "idx": out[1].cpu().numpy()})
+        return out
+
+    def unembed(p, x, c, **kw):
+        hidden.append(x.float().cpu().numpy())
+        return real_unembed(p, x, c, **kw)
+    moe._router, layers.unembed = router, unembed
+    try:
+        for t, tok in enumerate(tokens):
+            tk = torch.tensor([[tok]], dtype=torch.int32, device=dev)
+            pos = torch.full((1,), pos0 + t, dtype=torch.long, device=dev)
+            routes.append([])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = serve(params, cache, tk, pos, cfg)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            logits.append(np.asarray(lg.float().cpu().numpy()))
+    finally:
+        moe._router, layers.unembed = real_router, real_unembed
+    return {"logits": logits, "hidden": hidden, "ms": ms, "routes": routes}
+
+
+def cp_decode_refs(torch, dev) -> dict:
+    """The card's 1x1 decodes of CP_DECODE and CP_DECODE_F32, by job."""
+    return {"cp decode": cp_decode_ref(torch, dev, CP_DECODE),
+            "cp decode f32": cp_decode_ref(torch, dev, CP_DECODE_F32)}
+
+
+def cp_decode_ref(torch, dev, spec):
+    """The 1x1 decode of ``spec`` on the card: the first token, then each
+    step's argmax fed back; the tokens fed and :func:`cp_decode_steps`'
+    records."""
+    import numpy as np
+
+    from repro_torch.models.registry import get_model
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, kv = cp_decode_model(torch, dev, spec)
+    out = {"tokens": [spec["token"]], "logits": [], "hidden": [], "ms": [],
+           "routes": []}
+    with torch.inference_mode():
+        cache = get_model(cfg).init_cache(cfg, 1, spec["seq"], device=dev)
+        cache["k"].copy_(kv["k"])
+        cache["v"].copy_(kv["v"])
+        del kv
+        for t in range(spec["steps"]):
+            got = cp_decode_steps(torch, cfg, params, cache,
+                                  out["tokens"][-1:], dev, spec["pos0"] + t)
+            for k in ("logits", "hidden", "ms", "routes"):
+                out[k] += got[k]
+            out["tokens"].append(int(np.argmax(got["logits"][0][0, -1])))
+    out["tokens"].pop()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del params, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_job_cp_decode(torch, dev, spec):
+    """The decode of ``spec["decode"]`` on this rank of its 2x2 mesh: its
+    blocks of the params (ZeRO-3 and the experts over data, heads over
+    model), drawn whole on the card one rank at a time (four whole
+    full-width copies would not fit) and cut; its cache built inside the
+    rules (S / n positions of every KV head) and filled with its positions
+    of the seeded cache; the serve steps teacher-forced by
+    ``spec["tokens"]`` (the 1x1's)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding, tp
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import attention
+    from repro_torch.models.registry import get_model
+    dec = spec["decode"]
+    mesh = make_mesh(dec["mesh"], ("data", "model"))
+    rank = mesh.index(("data", "model"))
+    s = dec["seq"]
+    params = kv = cfg = rules = plan = None
+    for turn in range(mesh.size):
+        if turn == rank:
+            cfg, whole, kv = cp_decode_model(torch, dev, dec)
+            rules = cp_rules(dec["arch"], cfg, mesh, "decode", s, 1)
+            plan = cp_plan(cfg, mesh, rules)
+            params = tp.partition_params(whole, plan, rank=rank)
+            del whole
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    with torch.inference_mode(), sharding.use_sharding(mesh, rules), \
+            tp.mesh_ctx(mesh, plan, batch=False):
+        n = attention.decode_seq_extent()
+        axes, _ = attention.decode_seq_axes()
+        i = mesh.index(axes)
+        cache = get_model(cfg).init_cache(cfg, 1, s // n, device=dev)
+        for k in ("k", "v"):
+            cache[k].copy_(kv[k][..., i * (s // n):(i + 1) * (s // n), :])
+        del kv
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        got = cp_decode_steps(torch, cfg, params, cache, spec["tokens"], dev,
+                              dec["pos0"])
+    return {"coords": list(mesh.coords), "kv_seq": list(rules["kv_seq"]),
+            "seq_axes": list(axes), "index": i, "n": n,
+            "cache_shape": list(cache["k"].shape), **got,
+            "decode_peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def check_flash_cp(torch, F, peaks, q, k, v, label):
+    """A context-parallel rank's flash call (causal, Sq < Skv: its rows
+    against the key prefix they see, the mask aligned to the last key)
+    against the plain attention by its working type's bar; kernel, plain
+    and library device ms, the bound.  The library is SDPA with
+    ``causal_lower_right`` (``is_causal`` aligns to the top left when Sq
+    != Skv), its output held to the plain version's too."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.attention.bias import causal_lower_right
+
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ref
+    dt = str(q.dtype).split(".")[-1]
+    before = flash_counts(kfa)
+    out = kfa.flash_attention(q, k, v, causal=True)
+    after = flash_counts(kfa)
+    ran = ("tf32x3_wgmma" if after[2] > before[2] else "tf32x3"
+           if after[1] > before[1] else "generic" if after[3] > before[3]
+           else "wgmma")
+    want = ref.attention(q, k, v, causal=True)
+    err = (out.float() - want.float()).abs().max().item()
+    excess = flash_bar_excess(out, want, ref.attention(q, k, v.abs(),
+                                                       causal=True), dt)
+    mask = causal_lower_right(q.shape[2], k.shape[2])
+    fused = ([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+              SDPBackend.CUDNN_ATTENTION] if dt != "float32"
+             else [SDPBackend.EFFICIENT_ATTENTION])
+    with sdpa_kernel(fused):
+        lib_out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        lib = device_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask), reps=10)
+    lib_err = (lib_out.float() - want.float()).abs().max().item()
+    ms = device_ms(torch, lambda: kfa.flash_attention(q, k, v, causal=True),
+                   reps=10)
+    plain = device_ms(torch, lambda: ref.attention(q, k, v, causal=True),
+                      reps=5)
+    b, h, sq, d = q.shape
+    flop = 4.0 * d * attn_pairs(sq, k.shape[2]) * b * h
+    bnd, by = bound_ms(peaks, nbytes(q, k, v, out), flop,
+                       bf16=dt == "bfloat16", tf32x3=dt == "float32")
+    line = {"phase": "mesh", "part": "flash_cp_shape", "shape": label,
+            "q": list(q.shape), "k": list(k.shape), "dtype": dt,
+            "causal": "lower right (Sq < Skv)", "kernel": ran,
+            "max_abs_err": err, "err_over_bar": excess,
+            "tol": FA_RULE if dt == "bfloat16" else F32_FLASH_RULE,
+            "ms": ms, "plain_ms": plain, "library_ms": lib,
+            "library": "sdpa causal_lower_right",
+            "library_max_abs_err": lib_err,
+            "timing": "device ms (launches queued behind a sleep)",
+            "bound_ms": bnd, "bound_by": by, "flop": flop}
+    emit(line)
+    require(excess <= 1.0, f"flash_attention {label}: error {excess} x "
+            "its bar")
+    return line
+
+
+def cp_smoke_refs(torch, dev):
+    """The card's 1x1 of the ``act_seq`` config: loss and gradients of the
+    whole batch, the last logits, and the params."""
+    from repro_torch.core import basecaller as bc
+    from repro_torch.launch import steps
+    from repro_torch.models.registry import get_model
+    from repro_torch.train import trainer
+    cfg = cp_smoke_config()
+    params = bc.params_to(ft_smoke_params(torch, cfg), dev)
+    batch = cp_smoke_batch(torch, cfg, dev)
+    (loss, _), grads = trainer.loss_and_grads(get_model(cfg).loss, params,
+                                              batch, cfg)
+    logits = steps._prefill_body(params, batch["tokens"], cfg)
+    return {"loss": float(loss), "grads": mesh_flat(grads),
+            "logits": logits.float().cpu().numpy(), "params": params}
+
+
+def cp_smoke_lines(torch, dev, paths, ranks, refs):
+    """Each ``act_seq`` mesh step and prefill against the card's 1x1:
+    LM_TRAIN_RULE (the reference AdamW on the mesh's reassembled
+    gradients), the data rows' last logits within CP_LOGITS_TOL of max
+    |logit|, losses equal across ranks."""
+    import numpy as np
+
+    from repro_torch.distributed import tp
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.train import optimizer as opt
+    cfg = cp_smoke_config()
+    params = refs["params"]
+    lines = {}
+    for name, (d, m) in CP_SMOKE_MESHES.items():
+        rs = ranks[f"cp smoke {name}"]
+        paths.record(f"mesh cp smoke {name}", mesh_launches(rs),
+                     ("flash_attention_tf32x3",), train=True)
+        layout = Mesh(("data", "model"), (d, m))
+        plan = cp_plan(cfg, layout, cp_rules(CP_ARCH, cfg, layout, "train",
+                                             CP_SMOKE_SEQ, CP_SMOKE_BATCH))
+
+        def whole(field):
+            return tp.assemble(plan, [r[field] for r in rs])
+        grads = whole("grads")
+        flat_p = {k: t for k, _, t in tp._flatten_with_keys(params)}
+        g_tree = tp._unflatten_like(params, {
+            k: torch.from_numpy(grads[k]).to(dev) for k in flat_p})
+        ocfg = opt.OptimizerConfig(**LM_TRAIN_OPT)
+        new_p, new_opt, _ = opt.apply_update(
+            params, g_tree, opt.init_opt_state(params, ocfg), ocfg)
+        state_over = max(mesh_excess(whole(f), mesh_flat(w), LM_OPT_TOL)
+                         for f, w in (("params", new_p), ("m", new_opt["m"]),
+                                      ("v", new_opt["v"])))
+        by_data = {r["coords"][0]: r["logits"] for r in rs
+                   if r["coords"][1] == 0}
+        logits = np.concatenate([by_data[i] for i in sorted(by_data)])
+        want = refs["logits"]
+        loss = rs[0]["loss"]
+        line = {"phase": "mesh", "part": "cp_smoke_vs_1x1", "mesh": name,
+                "config": "minicpm-2b f32 smoke, 3 heads (act_seq)",
+                "act_seq": sorted({r["act_seq"] for r in rs}),
+                "batch": CP_SMOKE_BATCH, "seq": CP_SMOKE_SEQ,
+                "loss_mesh": loss, "loss_1x1": refs["loss"],
+                "loss_rel_diff": abs(loss - refs["loss"]) / abs(refs["loss"]),
+                "grad_over_bar": mesh_excess(grads, refs["grads"], 1e-4),
+                "state_over_bar": state_over,
+                "logits_over_bar": float(np.abs(logits - want).max()
+                                         / (CP_LOGITS_TOL
+                                            * np.abs(want).max())),
+                "losses_equal_across_ranks": len({r["loss"]
+                                                  for r in rs}) == 1,
+                "wall_s": [r["wall_s"] for r in rs],
+                "peak_gb": [r["peak_gb"] for r in rs],
+                "tol": LM_TRAIN_RULE + "; last logits within 1e-5 of max "
+                "|logit|"}
+        emit(line)
+        require(line["act_seq"] == ["model"] and line["loss_rel_diff"] <= 1e-5
+                and line["grad_over_bar"] <= 1 and line["state_over_bar"] <= 1
+                and line["logits_over_bar"] <= 1
+                and line["losses_equal_across_ranks"],
+                f"mesh cp smoke {name}: {line}")
+        lines[name] = line
+    return lines
+
+
+def cp_full_lines(paths, ranks, card):
+    """minicpm-2b at full width, ``launch.train --mesh 1x8``: finite
+    losses equal across ranks, each rank's step peak within
+    DRYRUN_PEAK_TOL of the dry run's 1x8 cell, every distinct flash call
+    of each rank against its plain version (FA_RULE)."""
+    import numpy as np
+    rs = ranks["cp full"]
+    counts = mesh_launches(rs)
+    paths.record(f"mesh cp train {CP_ARCH} 1x8", counts,
+                 ("flash_attention", "matmul_bf16"), train=True)
+    runs = [r[CP_ARCH] for r in rs]
+    losses = [runs[0]["history"][s] for s in sorted(runs[0]["history"])]
+    with open(DRYRUN_OUT) as f:
+        cells = json.load(f)
+    cell = dryrun_cell_for(cells, "train", CP_ARCH, CP_FULL_MESH,
+                           CP_FULL_LAYERS)
+    require(cell["status"] == "ok", f"dryrun cell of {CP_ARCH}: {cell}")
+    predicted = cell["peak_bytes"] / 2 ** 30
+    measured = [r["step_peak_gb"] for r in runs]
+    over = max(abs(predicted / m - 1) for m in measured)
+    flash = [c for r in rs for c in r["checked"].get("flash_attention", [])]
+    line = {"phase": "mesh", "part": "cp_full_width_train", "arch": CP_ARCH,
+            "layers": CP_FULL_LAYERS, "mesh": "1x8", "ranks": len(rs),
+            "batch": CP_FULL_BATCH, "seq": CP_FULL_SEQ,
+            "steps": CP_FULL_STEPS, "losses": losses,
+            "finite": bool(np.isfinite(losses).all()),
+            "losses_equal_across_ranks": all(
+                r["history"] == runs[0]["history"] for r in runs),
+            "step_s": [r["step_s"] for r in runs],
+            "step_peak_gb": measured, "predicted_peak_gb": predicted,
+            "predicted_state_gb": cell["state_bytes"]["rank0"] / 2 ** 30,
+            "peak_rel_diff": over, "peak_tol": DRYRUN_PEAK_TOL,
+            "peak_sum_gb": sum(measured),
+            "flash_calls": [{k: c[k] for k in ("q", "k", "route",
+                                                "max_abs_err",
+                                                "err_over_bar", "ok")}
+                            for c in flash],
+            "wall_s": [r["wall_s"] for r in rs], "card": card,
+            "launches_per_rank_step": {
+                k: v / (len(rs) * CP_FULL_STEPS)
+                for k, v in counts.items() if v}}
+    emit(line)
+    require(line["finite"] and line["losses_equal_across_ranks"],
+            f"mesh cp {CP_ARCH} 1x8: losses {losses}")
+    require(len(flash) == len(rs) and all(c["ok"] for c in flash),
+            f"mesh cp {CP_ARCH} 1x8: flash calls {line['flash_calls']}")
+    require(over <= DRYRUN_PEAK_TOL,
+            f"mesh cp {CP_ARCH} 1x8: measured peaks {measured} GiB vs the "
+            f"dry run's {predicted:.3f} ({over:.3f} over {DRYRUN_PEAK_TOL})")
+    return line
+
+
+def cp_decode_steps_compared(rs, ref):
+    """Each step of the ranks' decode against the 1x1's: the logits'
+    largest |diff| over 2 bf16 ulps of max |logit| and over
+    ``CP_DECODE_F32_TOL (1 + |logit|)``, the hidden state's
+    ``rms_excess`` (PARITY_RULE), top-1 and the 1x1's top-2 margin, and
+    each MoE layer's routing: equal, the 1x1 router's margin between its
+    k-th and (k+1)-th logit, the largest |diff| of the router logits."""
+    import numpy as np
+    steps = []
+    for t, want in enumerate(ref["logits"]):
+        ulp2 = 2 * bf16_ulp(float(np.abs(want).max()))
+        wh = ref["hidden"][t]
+        routes = []
+        for j, w in enumerate(ref["routes"][t]):
+            lw = np.sort(w["logits"].ravel())[::-1]
+            k = w["idx"].shape[-1]
+            routes.append({
+                "equal": all(np.array_equal(r["routes"][t][j]["idx"],
+                                            w["idx"]) for r in rs),
+                "margin_1x1": float(lw[k - 1] - lw[k]),
+                "delta_max": max(float(np.abs(r["routes"][t][j]["logits"]
+                                              - w["logits"]).max())
+                                 for r in rs)})
+        top2 = np.sort(want.ravel())[-2:]
+        steps.append({
+            "over_2ulp": max(float(np.abs(r["logits"][t] - want).max())
+                             / ulp2 for r in rs),
+            "over_f32_tol": max(float(np.max(
+                np.abs(r["logits"][t] - want)
+                / (CP_DECODE_F32_TOL * (1 + np.abs(want))))) for r in rs),
+            "hidden_over_bar": max(float(
+                np.sqrt(np.mean((r["hidden"][t] - wh) ** 2))
+                / (2.0 ** -7 * np.sqrt(np.mean(wh ** 2)) + 1e-30))
+                for r in rs),
+            "top1_equal": all(int(r["logits"][t].argmax())
+                              == int(want.argmax()) for r in rs),
+            "top2_margin": float(top2[1] - top2[0]), "ulp2": ulp2,
+            "routes": routes})
+    return steps
+
+
+def cp_decode_lines(paths, ranks, refs, card):
+    """jamba's decode at 2x2 (kv_seq over (data, model)) against the
+    card's 1x1, each rank's cache S / 4 positions of every KV head.  The
+    f32 smoke, gated by JAX's tensor-parallel bar (f32 only, as JAX's
+    ``tests/test_tensor_parallel.py``): every step's logits within
+    ``CP_DECODE_F32_TOL (1 + |logit|)`` (lm_tp's f32 form), the routing
+    and top-1 equal.  bf16 at full width: finite, the four ranks' logits
+    equal bit for bit, and top-1 equal beyond 2 bf16 ulps of max |logit|
+    at each step before the first step whose routing differs, which must
+    be a near tie (the 1x1 router's margin below the ranks' perturbation
+    of its logits: a flipped choice of experts moves the logits by far
+    more than rounding).  A bf16 tensor-parallel step rounds each rank's
+    row-parallel partial sum before the all-reduce, so the logits' excess
+    over 2 bf16 ulps of max |logit| (lm_tp's bf16 bar, card against CPU
+    on one rank) and PARITY_RULE's on the hidden state are reported, not
+    gated."""
+    import numpy as np
+    lines = {}
+    for name, spec in (("cp decode", CP_DECODE),
+                       ("cp decode f32", CP_DECODE_F32)):
+        rs, ref = ranks[name], refs[name]
+        f32 = spec["dtype"] == "float32"
+        paths.record(f"mesh jamba decode 2x2 kv_seq {spec['dtype']}",
+                     mesh_launches(rs), ("matmul",) if f32
+                     else ("matmul_bf16",))
+        steps = cp_decode_steps_compared(rs, ref)
+        flips = [(t, j) for t, st in enumerate(steps)
+                 for j, r in enumerate(st["routes"]) if not r["equal"]]
+        first = flips[0] if flips else None
+        gated = steps if first is None else steps[:first[0]]
+        s = spec["seq"]
+        kv = rs[0]["cache_shape"][-1]
+        line = {"phase": "mesh", "part": "tp_kv_seq_decode",
+                **{k: v for k, v in spec.items() if k != "mesh"},
+                "mesh": "2x2", "kv_seq": rs[0]["kv_seq"],
+                "seq_index": sorted(r["index"] for r in rs),
+                "cache_shape": [r["cache_shape"] for r in rs],
+                "tokens": ref["tokens"],
+                "first_routing_difference": first,
+                "steps_gated": len(gated),
+                "step_ms_2x2": [r["ms"] for r in rs],
+                "step_ms_1x1": ref["ms"], "peak_gb_1x1": ref["peak_gb"],
+                "decode_peak_gb": [r["decode_peak_gb"] for r in rs],
+                "peak_gb": [r["peak_gb"] for r in rs],
+                "wall_s": [r["wall_s"] for r in rs], "card": card,
+                "steps": [{k: v for k, v in st.items() if k != "routes"}
+                          | {"routes_equal": all(r["equal"]
+                                                 for r in st["routes"])}
+                          for st in steps]}
+        if f32:
+            line.update(over_bar=max(st["over_f32_tol"] for st in steps),
+                        bar=f"{CP_DECODE_F32_TOL} (1 + |logit|) each step",
+                        routing_equal=first is None,
+                        top1_equal=all(st["top1_equal"] for st in steps))
+            ok = (line["over_bar"] <= 1 and line["routing_equal"]
+                  and line["top1_equal"])
+        else:
+            with open(DRYRUN_OUT) as f:
+                cells = json.load(f)
+            cell = dryrun_cell_for(cells, "decode", spec["arch"],
+                                   spec["mesh"], spec["layers"])
+            near_tie = first is None or (
+                steps[first[0]]["routes"][first[1]]["margin_1x1"]
+                <= steps[first[0]]["routes"][first[1]]["delta_max"])
+            ranks_equal = all(np.array_equal(r["logits"][t],
+                                             rs[0]["logits"][t])
+                              for r in rs for t in range(len(steps)))
+            finite = all(bool(np.isfinite(x).all()) for r in rs
+                         for x in r["logits"])
+            line.update(
+                ranks_bitwise_equal=ranks_equal, finite=finite,
+                top1_rule="top-1 equal where the 1x1's top-2 margin "
+                          "exceeds 2 bf16 ulps of max |logit|, before the "
+                          "first routing difference",
+                routing_difference_near_tie=near_tie,
+                hidden_over_bar_before_it=max(
+                    [st["hidden_over_bar"] for st in gated], default=None),
+                hidden_rule=PARITY_RULE + " (reported)",
+                logits_over_2ulp=max(st["over_2ulp"] for st in steps),
+                logits_over_2ulp_before_it=max(
+                    [st["over_2ulp"] for st in gated], default=None),
+                predicted_peak_gb=(cell["peak_bytes"] / 2 ** 30
+                                   if cell["status"] == "ok" else None))
+            ok = (bool(gated) and near_tie and ranks_equal and finite
+                  and all(st["top1_equal"] or st["top2_margin"] <= st["ulp2"]
+                          for st in gated))
+        emit(line)
+        require(ok and line["seq_index"] == [0, 1, 2, 3]
+                and all(c[-2] == s // 4 for c in line["cache_shape"])
+                and kv == cp_kv_dim(spec),
+                f"mesh jamba decode 2x2 {spec['dtype']}: {line}")
+        lines[name] = line
+    return lines
+
+
+def cp_kv_dim(spec) -> int:
+    """The whole KV width of ``spec``'s config (every head)."""
+    from repro_torch.configs import ARCHS
+    arch = ARCHS[spec["arch"]]
+    cfg = arch.smoke_config() if spec["layers"] is None else arch.config()
+    return cfg.kv_dim
+
+
+def cp_jobs(dec) -> dict:
+    """The context-parallel and decode jobs of phase mesh by world size:
+    the ``act_seq`` smoke at 1x2 (two ranks) and 2x2 (four), jamba's
+    decodes at 2x2 teacher-forced by the 1x1's tokens (``dec``,
+    :func:`cp_decode_refs`), minicpm-2b's ``launch.train --mesh 1x8``
+    (eight)."""
+    return {2: {"cp smoke 1x2": ("cp_smoke", {"mesh": (1, 2)})},
+            4: {"cp smoke 2x2": ("cp_smoke", {"mesh": (2, 2)}),
+                "cp decode": ("cp_decode", {
+                    "decode": CP_DECODE,
+                    "tokens": dec["cp decode"]["tokens"]}),
+                "cp decode f32": ("cp_decode", {
+                    "decode": CP_DECODE_F32,
+                    "tokens": dec["cp decode f32"]["tokens"]})},
+            8: {"cp full": ("cp_full", {CP_ARCH: [
+                "--arch", CP_ARCH, "--layers", str(CP_FULL_LAYERS),
+                "--mesh", "x".join(map(str, CP_FULL_MESH)), "--steps",
+                str(CP_FULL_STEPS), "--global-batch", str(CP_FULL_BATCH),
+                "--seq-len", str(CP_FULL_SEQ)]})}}
+
+
+def cp_lines(torch, F, peaks, paths, ranks, refs, dec, card) -> dict:
+    """The lines of :func:`cp_jobs`' ranks (against ``refs``,
+    :func:`cp_smoke_refs`, and ``dec``), then :func:`cp_kernel_rows`."""
+    cp_smoke_lines(torch, torch.device("cuda"), paths, ranks, refs)
+    cp_decode_lines(paths, ranks, dec, card)
+    cp_full_lines(paths, ranks, card)
+    return cp_kernel_rows(torch, F, peaks, paths)
+
+
+def cp_kernel_rows(torch, F, peaks, paths):
+    """The causal Sq < Skv flash shapes of the context-parallel paths,
+    beside rows 5 and 5m: minicpm-2b's model rank 7 of 8 (bf16, D 64,
+    the wgmma kernel: 64 rows over 512 keys) and the f32 smoke's model
+    rank 1 of 2 (D 16, the 3xTF32 mma.sync kernel: 32 rows over 65);
+    each with its launches on those paths."""
+    gen = torch.Generator("cuda").manual_seed(23)
+
+    def rnd(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    b, h = CP_FULL_BATCH, 36
+    rows = CP_FULL_SEQ // CP_FULL_MESH[1]
+    bf = check_flash_cp(torch, F, peaks, rnd((b, h, rows, 64), torch.bfloat16),
+                        rnd((b, h, CP_FULL_SEQ, 64), torch.bfloat16),
+                        rnd((b, h, CP_FULL_SEQ, 64), torch.bfloat16),
+                        "minicpm-2b 1x8 model rank 7")
+    cfg = cp_smoke_config()
+    half = -(-CP_SMOKE_SEQ // 2)
+    f32 = check_flash_cp(
+        torch, F, peaks,
+        rnd((CP_SMOKE_BATCH, 3, CP_SMOKE_SEQ - half, cfg.head_dim),
+            torch.float32),
+        rnd((CP_SMOKE_BATCH, 3, CP_SMOKE_SEQ, cfg.head_dim), torch.float32),
+        rnd((CP_SMOKE_BATCH, 3, CP_SMOKE_SEQ, cfg.head_dim), torch.float32),
+        "act_seq f32 smoke 1x2 model rank 1")
+    full = paths.paths.get(f"mesh cp train {CP_ARCH} 1x8", {})
+    smoke = [paths.paths.get(f"mesh cp smoke {m}", {})
+             for m in CP_SMOKE_MESHES]
+    keys = ("q", "k", "kernel", "max_abs_err", "err_over_bar", "ms",
+            "plain_ms", "library_ms", "library", "library_max_abs_err",
+            "bound_ms", "bound_by", "timing")
+    return {"flash_attention": {
+                **{k: bf[k] for k in keys},
+                "launches": full.get("flash_attention", 0)
+                - full.get("flash_attention_tf32x3", 0)
+                - full.get("flash_attention_tf32x3_wgmma", 0)
+                - full.get("flash_attention_generic", 0)},
+            "flash_attention_tf32x3": {
+                **{k: f32[k] for k in keys},
+                "launches": sum(c.get("flash_attention_tf32x3", 0)
+                                for c in smoke)}}
+
+
 MESH_JOBS = {"train_smoke": mesh_job_train_smoke, "train": mesh_job_train,
              "seq_decode": mesh_job_seq_decode, "engine": mesh_job_engine,
+             "cp_smoke": mesh_job_cp_smoke, "cp_full": mesh_job_cp_full,
+             "cp_decode": mesh_job_cp_decode,
              "ft_step": lambda torch, dev, spec: ft_rank_step(torch, dev,
                                                               spec)}
 
@@ -5784,7 +6463,8 @@ MESH_JOBS = {"train_smoke": mesh_job_train_smoke, "train": mesh_job_train,
 def mesh_rank(rank, world, jobs):
     """One rank of phase ``mesh`` (a spawned process; the ranks share the
     card): each ``{name: (job, spec)}`` in turn, the kernels counted from
-    0 around it, its wall and peak memory."""
+    0 around it (or, where the job gives them, up to its kernel checks),
+    its wall and peak memory."""
     import torch
 
     from repro_torch.kernels import ref
@@ -5799,12 +6479,24 @@ def mesh_rank(rank, world, jobs):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        res = MESH_JOBS[job](torch, dev, spec)
+        try:
+            res = MESH_JOBS[job](torch, dev, spec)
+        except Exception as e:
+            # the launcher reports one rank's error; every rank's here
+            free, total = torch.cuda.mem_get_info()
+            print(f"chip_smoke: mesh rank {rank} of {world}, job {name}: "
+                  f"{type(e).__name__}: {str(e)[:400]} (card "
+                  f"{free / 2 ** 30:.2f} of {total / 2 ** 30:.2f} GiB free)",
+                  file=sys.stderr, flush=True)
+            raise
         torch.cuda.synchronize()
         res["wall_s"] = time.perf_counter() - t0
         res["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
-        res["launches"] = {k: getattr(w, a) for k, (w, a) in
-                           counters.items()}
+        res["reserved_gb"] = torch.cuda.max_memory_reserved() / 2 ** 30
+        # a job that checks its kernels after its path read the path's
+        # launches before the checks
+        res.setdefault("launches", {k: getattr(w, a) for k, (w, a) in
+                                    counters.items()})
         out[name] = res
     return out
 
@@ -6078,7 +6770,8 @@ def fsdp_lines(torch, paths, ranks, fsdp):
                 f"{DRYRUN_PEAK_TOL})")
 
 
-def phase_mesh(torch, paths, goldens, field, cfg, qparams):
+def phase_mesh(torch, F, peaks, paths, goldens, field, cfg, qparams,
+               card):
     """Training over a (data, model) mesh, the sequence-sharded decode, the
     decode engine's data axis and lane meshes, on the card.  (1) Two gloo
     ranks sharing the card: the f32 smoke steps at 2x1 and 1x2 against the
@@ -6092,9 +6785,16 @@ def phase_mesh(torch, paths, goldens, field, cfg, qparams):
     JAX's placement of the fsdp archs (``fsdp_lines``): FSDP_SMOKE's f32
     smoke steps at 2x1 (two ranks) and 2x2 (four) against the CPU's 1x1,
     FSDP_RECOVERY at 2x2 bit for bit, FSDP_FULL at --mesh 2x1 (two
-    ranks).  (3) Lane meshes in this
-    process.  (4) ``python -m repro_torch.launch.train --smoke --mesh
-    2x1``."""
+    ranks).  Context parallelism and the sequence-sharded decode beside
+    tensor-parallel heads: the ``act_seq`` config's f32 smoke step and
+    prefill at 1x2 (two ranks) and 2x2 (four) against the card's 1x1
+    (``cp_smoke_lines``); jamba at full width, one block, decode B 1 at
+    2x2 with kv_seq over (data, model) against the card's 1x1 (four;
+    ``cp_decode_lines``); minicpm-2b at full width through ``launch.train
+    --mesh 1x8`` (eight ranks; ``cp_full_lines``); the causal Sq < Skv
+    flash shapes beside rows 5 and 5m (``cp_kernel_rows``, returned).
+    (3) Lane meshes in this process.  (4) ``python -m
+    repro_torch.launch.train --smoke --mesh 2x1``."""
     import shutil
 
     import numpy as np
@@ -6116,6 +6816,10 @@ def phase_mesh(torch, paths, goldens, field, cfg, qparams):
     seq_want = seq_want.cpu().numpy()
     del p, x, ck, cv
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cp_refs = cp_smoke_refs(torch, dev)
+    cp_dec = cp_decode_refs(torch, dev)
+    part_s["cp_refs"] = time.perf_counter() - t0
 
     rec = MESH_RECOVERY
     rec_root = os.path.join(ROOT, "build", "mesh_recovery")
@@ -6141,6 +6845,11 @@ def phase_mesh(torch, paths, goldens, field, cfg, qparams):
         two[f"full {arch}"] = ("train", {arch: full_argv[arch]})
     four = {"smoke 2x2": smoke["2x2"], "engine 2x2": ("engine",
                                                       {"mesh": (2, 2)})}
+    # context parallelism, and the decode beside tensor-parallel heads
+    cp = cp_jobs(cp_dec)
+    two.update(cp[2])
+    four.update(cp[4])
+    eight = cp[8]
     # JAX's placement of the fsdp archs' state: the f32 smoke steps,
     # recovery at 2x2, and full width at 2x1
     fsdp = {f"fsdp {name} {mesh}": {"arch": arch, "over": over,
@@ -6170,7 +6879,7 @@ def phase_mesh(torch, paths, goldens, field, cfg, qparams):
     alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     try:
-        for world, jobs in ((2, two), (4, four)):
+        for world, jobs in ((2, two), (4, four), (8, eight)):
             t0 = time.perf_counter()
             got = launch.run(mesh_rank, world, args=(jobs,), timeout_s=900)
             part_s[f"ranks_{world}"] = time.perf_counter() - t0
@@ -6275,6 +6984,10 @@ def phase_mesh(torch, paths, goldens, field, cfg, qparams):
                     f"expected {len(rs)} x {MESH_FULL_STEPS} x {v}")
 
     fsdp_lines(torch, paths, ranks, fsdp)
+    t0 = time.perf_counter()
+    cp_rows = cp_lines(torch, F, peaks, paths, ranks, cp_refs, cp_dec, card)
+    part_s["cp_lines"] = time.perf_counter() - t0
+    del cp_refs
     emit({"phase": "mesh", "part": "job_wall_s", **{
         name: max(r["wall_s"] for r in rs) for name, rs in ranks.items()}})
 
@@ -6302,6 +7015,7 @@ def phase_mesh(torch, paths, goldens, field, cfg, qparams):
             f"{proc.stderr[-2000:]}")
     emit({"phase": "mesh", "part": "wall",
           "wall_s": time.perf_counter() - t_phase, **part_s})
+    return cp_rows
 
 
 # ---------------------------------------------------------- phase serve_cli --
@@ -7906,9 +8620,10 @@ def run_phases(torch, F, dryrun_worker) -> int:
     phase_train(torch, paths)
     phase_lm_train(torch, paths)
     phase_dryrun(torch, card, dryrun_worker)
-    phase_mesh(torch, paths, {"flowcell_512": full["goldens"],
-                              "edge_int8": full_int8["goldens"]},
-               field, cfg, qparams)
+    cp_rows = phase_mesh(torch, F, peaks, paths,
+                         {"flowcell_512": full["goldens"],
+                          "edge_int8": full_int8["goldens"]},
+                         field, cfg, qparams, card)
     phase_serve_cli()
 
     def row_launches(k, counts):
@@ -7999,6 +8714,10 @@ def run_phases(torch, F, dryrun_worker) -> int:
                 qwen3_4b_d128_bound_ms=r["qwen3_4b_d128_bound_ms"])
         if k == "flash_attention_tf32x3_wgmma":
             kernels[-1]["library_kernels"] = r["library_kernels"]
+        if k in cp_rows:
+            # the causal Sq < Skv shape of the context-parallel paths, its
+            # launches there (counted in launches too)
+            kernels[-1]["cp_causal"] = cp_rows[k]
         if k == "flash_attention_noncausal":
             # whisper-medium's cross-attention shape beside the encoder's
             kernels[-1]["cross"] = family_cross

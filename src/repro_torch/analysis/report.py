@@ -6,8 +6,9 @@
 
 reads the port's dry-run reports (``python -m repro_torch.launch.dryrun
 --all --mesh 1x1 --out dryrun_1x1.json``, and ``--mesh 8x8``): one table
-for each mesh the reports name, each cell's rank memory against one
-H100's 80 GB and the roofline at the H100's rates.
+for each mesh the reports name (and for each under ``--opt``, JAX's
+optimized rule set), each cell's rank memory against one H100's 80 GB
+and the roofline at the H100's rates.
 
 The accuracy-vs-energy quantization table renders the ``quant:*`` rows of
 a benchmark JSON, the field section its ``field:*`` rows, and the trace
@@ -253,10 +254,15 @@ def trace_tables(doc: dict) -> str:
 
 
 def _by_mesh(cells: list[dict]) -> dict:
+    """The records by ``(mesh, opt)``, in the order they first appear."""
     out: dict = {}
     for r in cells:
-        out.setdefault(r["mesh"], []).append(r)
+        out.setdefault((r["mesh"], bool(r.get("opt"))), []).append(r)
     return out
+
+
+def _title(mesh: str, opt: bool) -> str:
+    return f"mesh {mesh}" + (", --opt rules" if opt else "")
 
 
 def _load(path: str, hint: str):
@@ -305,17 +311,18 @@ def main(argv=None) -> None:
                        "--all --mesh DxM --out PATH first")
     meshes = _by_mesh(cells)
     if args.section in ("all", "dryrun"):
-        for mesh, rows in meshes.items():
-            print(f"### Dry run on meta tensors — mesh {mesh} "
+        for (mesh, opt), rows in meshes.items():
+            print(f"### Dry run on meta tensors — {_title(mesh, opt)} "
                   f"({_ndev(mesh)} H100s, rank 0)\n")
             print(dryrun_table(rows) + "\n")
     if args.section in ("all", "roofline"):
-        for mesh, rows in meshes.items():
-            print(f"### Roofline at the H100's rates — mesh {mesh}\n")
+        for (mesh, opt), rows in meshes.items():
+            print(f"### Roofline at the H100's rates — {_title(mesh, opt)}"
+                  "\n")
             print(roofline_table(rows) + "\n")
     if args.section in ("all", "fractions"):
-        for mesh, rows in meshes.items():
-            print(f"### Roofline fractions — mesh {mesh}\n")
+        for (mesh, opt), rows in meshes.items():
+            print(f"### Roofline fractions — {_title(mesh, opt)}\n")
             print(fraction_summary(rows) + "\n")
 
 

@@ -467,6 +467,13 @@ class _AllToAll(torch.autograd.Function):
         return _exchange(g, ctx.grp), None
 
 
+def gather(x: torch.Tensor, grp, dim: int) -> torch.Tensor:
+    """The ranks of ``grp``'s ``x`` concatenated on ``dim`` in rank order,
+    the gradient reduce-scattered back (context-parallel attention's keys,
+    values and output over the sequence)."""
+    return _GatherDim.apply(x, grp, dim)
+
+
 def gather_data(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     """The data ranks' ``x`` concatenated on ``dim`` (its gradient
     reduce-scattered back); identity outside a data region."""
@@ -749,11 +756,18 @@ def build_plan(axes_tree, shapes_tree, *, cfg, tp: int, axis: str = "model",
     not divide is an error naming the parameter, except the vocab, which
     falls back to a replicated embedding.  JAX's serving plan keeps the
     MoE layer whole; ``experts=True`` (the mesh plan's,
-    ``sharding.mesh_plan``) slices its ``mlp`` over the model axis too."""
+    ``sharding.mesh_plan``) slices its ``mlp`` over the model axis too.
+
+    Under an ``act_seq`` rule that maps to ``axis`` (JAX's context
+    parallelism, where the heads do not divide the model axis) attention
+    computes with whole heads on every rank (``attention.attention_block``
+    splits the query sequence instead): its ``heads``/``kv_heads`` leaves
+    get no rule, and the head counts need not divide ``tp``."""
     tp = int(tp)
     if tp < 1:
         raise ValueError(f"tp={tp}")
     rules = default_tp_rules() if rules is None else rules
+    context_parallel = _maps_to(rules, "act_seq", axis)
 
     # config-level divisibility first: clearer than the per-leaf check
     # (kv_dim may divide while kv_heads do not, and the decode reshape
@@ -761,7 +775,7 @@ def build_plan(axes_tree, shapes_tree, *, cfg, tp: int, axis: str = "model",
     problems = []
     has_attn = any(s.mixer == "attn" for s in cfg.block_pattern)
     has_mamba = any(s.mixer == "mamba" for s in cfg.block_pattern)
-    if tp > 1 and has_attn:
+    if tp > 1 and has_attn and not context_parallel:
         if cfg.num_heads % tp:
             problems.append(f"num_heads={cfg.num_heads}")
         if cfg.num_kv_heads % tp:
@@ -779,6 +793,9 @@ def build_plan(axes_tree, shapes_tree, *, cfg, tp: int, axis: str = "model",
     axes_by_key = {k: leaf for k, _, leaf in _flatten_with_keys(
         axes_tree, is_leaf=lambda x: isinstance(x, tuple))}
 
+    if context_parallel:
+        # whole heads: the attention leaves' head dims take no rule
+        rules = {**rules, "heads": None, "kv_heads": None}
     flat: dict[str, Optional[Segments]] = {}
     for key, names, like in shape_items:
         rule = _leaf_rule(names, tuple(like.shape), axes_by_key.get(key),

@@ -18,13 +18,17 @@ report that ``analysis/report.py`` reads:
     collectives with their ring-model wire bytes (``analysis/cost.py``),
   * the three roofline terms at the H100's rates and the dominant one.
 
-A cell that needs what the port lacks (JAX's context-parallel attention,
-say) is ``skipped`` with the reason; the exit code is non-zero if any cell
-``failed``.
+A cell that needs what the port lacks (a model axis the KV heads do not
+divide, say) is ``skipped`` with the reason; the exit code is non-zero if
+any cell ``failed``.  ``--opt`` builds every cell under JAX's optimized
+rule set (``launch.steps.make_rules(opt=True)``), and each record keeps
+an ``opt`` key.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-4b --shape train_4k
   python -m repro_torch.launch.dryrun --all --mesh 8x8 --out dryrun_8x8.json
+  python -m repro_torch.launch.dryrun --all --mesh 8x8 --opt \
+      --out dryrun_8x8_opt.json
 """
 from __future__ import annotations
 
@@ -54,7 +58,7 @@ def parse_mesh(text: str) -> tuple[int, int]:
 
 
 def run_cell(arch: str, shape_name: str, mesh_name: str = "1x1", *,
-             smoke: bool = False) -> dict:
+             smoke: bool = False, opt: bool = False) -> dict:
     """One cell's record (JAX's ``run_cell`` keys; ``trace_s`` for
     ``lower_s``/``compile_s``, ``fits_80gb`` added)."""
     spec = ARCHS[arch]
@@ -62,7 +66,7 @@ def run_cell(arch: str, shape_name: str, mesh_name: str = "1x1", *,
     cfg = spec.smoke_config() if smoke else spec.config()
     d, m = parse_mesh(mesh_name)
     rec: dict = {
-        "arch": arch, "shape": shape_name, "mesh": mesh_name,
+        "arch": arch, "shape": shape_name, "opt": opt, "mesh": mesh_name,
         "family": cfg.family,
         "params": cfg.param_count_estimate(),
         "active_params": roofline_mod.model_params(cfg, active=True),
@@ -75,7 +79,7 @@ def run_cell(arch: str, shape_name: str, mesh_name: str = "1x1", *,
         mesh = make_mesh((d, m), ("data", "model"))
         try:
             cell = steps_mod.build_cell(arch, spec, shape, mesh,
-                                        smoke=smoke)
+                                        smoke=smoke, opt=opt)
         except steps_mod.Unsupported as e:
             rec.update(status="skipped", reason=str(e))
             return rec
@@ -114,6 +118,8 @@ def main(argv=None) -> list:
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--smoke", action="store_true",
                     help="the archs' smoke configs")
+    ap.add_argument("--opt", action="store_true",
+                    help="JAX's optimized rule set (make_rules(opt=True))")
     ap.add_argument("--out", default=None, help="JSON report path (append)")
     args = ap.parse_args(argv)
 
@@ -127,19 +133,21 @@ def main(argv=None) -> list:
     if args.out and os.path.exists(args.out):
         with open(args.out) as f:
             results = json.load(f)
-    done = {(r["arch"], r["shape"], r["mesh"]) for r in results
+
+    def key_of(r):
+        return r["arch"], r["shape"], r["mesh"], bool(r.get("opt"))
+    done = {key_of(r) for r in results
             if r.get("status") in ("ok", "skipped")}
 
     for arch in archs:
         for shape_name in shapes:
             for mesh_name in meshes:
-                key = (arch, shape_name, mesh_name)
+                key = (arch, shape_name, mesh_name, args.opt)
                 if key in done:
                     continue
                 rec = run_cell(arch, shape_name, mesh_name,
-                               smoke=args.smoke)
-                results = [r for r in results
-                           if (r["arch"], r["shape"], r["mesh"]) != key]
+                               smoke=args.smoke, opt=args.opt)
+                results = [r for r in results if key_of(r) != key]
                 results.append(rec)
                 status = rec["status"]
                 extra = ""

@@ -22,14 +22,16 @@ collectives.  Rank 0's arguments are its blocks of the params, in every
 cell kind, as JAX's ``spec_tree`` in-shardings place them
 (``sharding.mesh_plan`` / ``tp.partition_params``: the model axis's
 slices, ZeRO-3 over data for the ``fsdp`` archs, the experts over data),
-the optimizer state beside them, its cache (its KV heads), and its block
-of the batch (the whole batch where the data axis does not divide it, as
-JAX's ``_batch_sharding`` falls back to replicating it).  Every step
-runs inside ``tp.mesh_ctx``: the leaves are gathered where they are
-used, as JAX's GSPMD gathers them for the same in-shardings.  Where a
-rule needs what the port lacks, :func:`build_cell` raises
-:class:`Unsupported` with the reason, and the dry run records the cell
-as skipped.
+the optimizer state beside them, its cache (its KV heads, or all of
+them for its positions where the rules split the cache by sequence), and
+its block of the batch (the whole batch where the data axis does not
+divide it, as JAX's ``_batch_sharding`` falls back to replicating it).
+Every step runs inside ``tp.mesh_ctx``: the leaves are gathered where
+they are used, as JAX's GSPMD gathers them for the same in-shardings.  Where a
+rule needs what the port lacks (a model axis the KV heads do not divide,
+or whisper's tensor-parallel decode, which JAX refuses too),
+:func:`build_cell` raises :class:`Unsupported` with the reason, and the
+dry run records the cell as skipped.
 
 :func:`prefill` is the ``fn`` of JAX's ``_prefill_cell`` on one device:
 
@@ -57,6 +59,7 @@ from repro_torch.configs.shapes import ShapeCell
 from repro_torch.device import resolve_device
 from repro_torch.distributed import sharding as shardlib
 from repro_torch.distributed import tp
+from repro_torch.models import attention as attn
 from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import get_model, require_train_and_tp
@@ -115,10 +118,21 @@ class Cell:
 
 
 def make_rules(spec: ArchSpec, mesh, shape: ShapeCell,
-               cfg: Optional[ModelConfig] = None) -> dict:
-    """JAX's default rules for the cell (``repro/launch/steps.py::
-    make_rules``); JAX's optimized ``opt`` set shards query heads apart
-    from tensor parallelism, which the port cannot, and is left out."""
+               cfg: Optional[ModelConfig] = None, *,
+               opt: bool = False) -> dict:
+    """JAX's rules for the cell (``repro/launch/steps.py::make_rules``),
+    its optimized ``opt`` set included.
+
+    Where the heads do not divide the model axis, ``act_seq`` maps to it:
+    context-parallel attention (``attention._context_parallel``), and a
+    decode's cache split by sequence over it.  ``opt`` adds JAX's two
+    rules: ``kv_seq`` over ``model`` for a decode (the sequence-sharded
+    decode beside tensor-parallel heads, ``attention.decode_attention``),
+    and ``act_heads_q`` over ``model`` where the heads divide it.  The
+    latter pins JAX's attention logits to a head-sharded layout, which is
+    the layout the port's tensor parallelism computes anyway (each model
+    rank attends over its own heads), so nothing reads it.  As in JAX,
+    ``act_seq`` and ``act_heads_q`` never hold together."""
     overrides = dict(spec.rules_overrides)
     if shape.kind == "decode" and shape.global_batch < mesh.shape.get(
             "data", 1):
@@ -127,30 +141,22 @@ def make_rules(spec: ArchSpec, mesh, shape: ShapeCell,
         overrides.setdefault("kv_seq", shardlib.data_axes(mesh) + ("model",))
     if cfg is not None and cfg.num_heads % mesh.shape.get("model", 1) != 0:
         # heads don't divide the model axis (llama4 40H, minicpm 36H,
-        # starcoder2 24H): context-parallel attention in JAX
+        # starcoder2 24H): context-parallel attention
         overrides.setdefault("act_seq", "model")
+    if opt:
+        if shape.kind == "decode":
+            overrides.setdefault("kv_seq", "model")
+        mext = mesh.shape.get("model", 1)
+        if cfg is not None and cfg.num_heads % mext == 0 \
+                and cfg.num_heads // max(cfg.num_kv_heads, 1) >= 1:
+            overrides.setdefault("act_heads_q", "model")
     return shardlib.default_rules(mesh, fsdp=spec.fsdp, overrides=overrides)
 
 
-def _refuse(cfg: ModelConfig, shape: ShapeCell, mesh, rules: dict) -> None:
-    """Raise :class:`Unsupported` where a rule needs what the port lacks."""
-    m = mesh.shape.get("model", 1)
-    attention = cfg.family == "encdec" or any(
-        s.mixer == "attn" for s in cfg.block_pattern)
-    # act_seq shards only attention's query sequence (JAX's attention.py)
-    if rules.get("act_seq") and attention:
-        raise Unsupported(
-            f"act_seq: {cfg.num_heads} heads do not divide the model axis "
-            f"({m}); JAX runs context-parallel attention there, which the "
-            "port does not have")
-    seq = rules.get("kv_seq")
-    seq = (seq,) if isinstance(seq, str) else tuple(seq or ())
-    if shape.kind == "decode" and "model" in seq and m > 1 and attention:
-        raise Unsupported(
-            f"kv_seq over {seq}: the port's sequence-sharded decode keeps "
-            "the KV heads whole, while its tensor parallelism slices them "
-            "over the model axis")
-    if shape.kind == "decode" and m > 1:
+def _refuse(cfg: ModelConfig, shape: ShapeCell, mesh) -> None:
+    """Raise :class:`Unsupported` where a rule needs what the port lacks:
+    whisper's tensor-parallel decode, which JAX refuses too."""
+    if shape.kind == "decode" and mesh.shape.get("model", 1) > 1:
         try:
             require_train_and_tp(cfg, "the decode cell")
         except NotImplementedError as e:
@@ -207,15 +213,16 @@ def _plan_and_params(cfg, model, mesh, rules):
 
 
 def build_cell(arch_name: str, spec: ArchSpec, shape: ShapeCell, mesh,
-               *, smoke: bool = False) -> Cell:
+               *, smoke: bool = False, opt: bool = False) -> Cell:
     """The cell of ``arch_name`` at ``shape`` on ``mesh`` (a layout:
     ``make_mesh((d, m), ("data", "model"))`` outside a process group):
-    rank 0's step and its meta arguments.  Raises :class:`Unsupported`
-    where the port lacks what a rule needs."""
+    rank 0's step and its meta arguments, under :func:`make_rules`
+    (``opt``: JAX's optimized set).  Raises :class:`Unsupported` where
+    the port lacks what a rule needs."""
     cfg = spec.smoke_config() if smoke else spec.config()
     model = get_model(cfg)
-    rules = make_rules(spec, mesh, shape, cfg)
-    _refuse(cfg, shape, mesh, rules)
+    rules = make_rules(spec, mesh, shape, cfg, opt=opt)
+    _refuse(cfg, shape, mesh)
     plan, params = _plan_and_params(cfg, model, mesh, rules)
     if shape.kind == "train":
         cell = _train_cell(arch_name, spec, cfg, model, shape, mesh, params,
@@ -224,7 +231,7 @@ def build_cell(arch_name: str, spec: ArchSpec, shape: ShapeCell, mesh,
         cell = _prefill_cell(arch_name, cfg, shape, mesh, params, plan)
     else:
         cell = _decode_cell(arch_name, cfg, model, shape, mesh, params,
-                            plan)
+                            plan, rules)
     cell.mesh, cell.rules, cell.plan, cell.cfg = mesh, rules, plan, cfg
     return cell
 
@@ -312,15 +319,22 @@ def _prefill_cell(arch_name, cfg, shape, mesh, params, plan) -> Cell:
     return cell
 
 
-def _decode_cell(arch_name, cfg, model, shape, mesh, params, plan) -> Cell:
+def _decode_cell(arch_name, cfg, model, shape, mesh, params, plan,
+                 rules) -> Cell:
     b, s = _rows(shape.global_batch, mesh), shape.seq_len
     m = mesh.shape.get("model", 1)
-    # the cache of this rank's KV (and SSM) heads
-    with tp.axis_ctx("model", m, group=tp.RecordedGroup(("model",), m)):
-        cache = model.init_cache(cfg, b, s, device=META)
-    args = (params, cache, torch.empty((b, 1), dtype=torch.int32, device=META),
-            torch.empty((b,), dtype=torch.int32, device=META))
-    cell = Cell(name=f"{arch_name}:{shape.name}", fn=None, args=args)
+    cell = Cell(name=f"{arch_name}:{shape.name}", fn=None, args=())
+    # the cache of this rank's KV (and SSM) heads and, where the rules
+    # split it by sequence, its positions
+    with shardlib.use_sharding(mesh, rules), \
+            tp.axis_ctx("model", m, group=tp.RecordedGroup(("model",), m)):
+        n = attn.decode_seq_extent()
+        if s % n:
+            raise Unsupported(f"a cache of {s} positions over {n} ranks")
+        cache = model.init_cache(cfg, b, s // n, device=META)
+    cell.args = (params, cache,
+                 torch.empty((b, 1), dtype=torch.int32, device=META),
+                 torch.empty((b,), dtype=torch.int32, device=META))
 
     def fn(bound, params, cache, tokens, pos):
         with shardlib.use_sharding(bound, cell.rules), \

@@ -16,13 +16,15 @@ raises where there is none; ``--device cpu`` runs their plain versions.
 on the card rank ``r`` takes ``cuda:r % device_count``, so ranks share a
 card), each on its coordinates of a (data, model) mesh and holding the
 blocks of the params and moments that JAX's rules give it
-(``sharding.mesh_plan`` under the arch's ``fsdp`` and overrides): the
-model axis tensor-parallel, the ``fsdp`` archs' params and moments
-ZeRO-3 over data, the experts spread over data (expert parallelism),
-the data axis averaging the gradients (``trainer.jit_train_step``), the
-checkpoint ``full`` from rank 0 where every rank holds the whole state,
-else ``sharded`` a rank (``checkpoint.save_on_mesh``), and every rank
-restarting from the same step after ``--fail-at``.  Rank 0 prints JAX's
+(``sharding.mesh_plan`` under :func:`mesh_rules`): the model axis
+tensor-parallel (or, where the heads do not divide it, context-parallel
+attention: each model rank a block of the sequence), the ``fsdp`` archs'
+params and moments ZeRO-3 over data, the experts spread over data
+(expert parallelism), the data axis averaging the gradients
+(``trainer.jit_train_step``), the checkpoint ``full`` from rank 0 where
+every rank holds the whole state, else ``sharded`` a rank
+(``checkpoint.save_on_mesh``), and every rank restarting from the same
+step after ``--fail-at``.  Rank 0 prints JAX's
 lines, and ``main`` returns its summary.  Every arch trains, with JAX's
 batches by family (``family_batch``): the vlm's zero patch embeddings,
 the encdec's zero frames with its tokens cut to ``seq_len // 8``.
@@ -112,18 +114,29 @@ def _config(args):
     return cfg
 
 
+def mesh_rules(args, cfg) -> dict:
+    """The ``--mesh``'s rules: JAX's for a train cell
+    (``launch.steps.make_rules``: the arch's ``fsdp`` and overrides, and
+    ``act_seq`` over model where the heads do not divide it).  JAX's
+    launcher runs the same function under GSPMD on any mesh; the port
+    realises its ``act_seq`` as context-parallel attention
+    (``attention._context_parallel``)."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import Mesh
+    layout = Mesh(("data", "model"), parse_mesh(args.mesh))
+    shape = ShapeCell("train", "train", args.seq_len, args.global_batch)
+    return steps.make_rules(ARCHS[args.arch], layout, shape, cfg)
+
+
 def _plan(args, cfg):
-    """The ``--mesh``'s ``sharding.mesh_plan`` under the arch's rules."""
+    """The ``--mesh``'s ``sharding.mesh_plan`` under :func:`mesh_rules`."""
     from repro_torch.distributed import sharding
     from repro_torch.launch.mesh import Mesh
-    d, m = parse_mesh(args.mesh)
-    spec = ARCHS[args.arch]
     shapes, axes = get_model(cfg).abstract_params(cfg)
-    layout = Mesh(("data", "model"), (d, m))
+    layout = Mesh(("data", "model"), parse_mesh(args.mesh))
     return sharding.mesh_plan(axes, shapes, cfg=cfg, mesh=layout,
-                              rules=sharding.default_rules(
-                                  layout, fsdp=spec.fsdp,
-                                  overrides=spec.rules_overrides))
+                              rules=mesh_rules(args, cfg))
 
 
 def family_batch(batch: dict, cfg, seq_len: int) -> dict:
@@ -211,8 +224,15 @@ def run(args, mesh=None, verbose: bool = True) -> dict:
     if mesh is None:
         step_fn = trainer_mod.make_train_step(model.loss, cfg, opt_cfg, tcfg)
     else:
-        step_fn = trainer_mod.jit_train_step(model.loss, cfg, opt_cfg, tcfg,
-                                             mesh=mesh, plan=plan)
+        from repro_torch.distributed import sharding
+        mesh_step = trainer_mod.jit_train_step(model.loss, cfg, opt_cfg, tcfg,
+                                               mesh=mesh, plan=plan)
+        rules = mesh_rules(args, cfg)
+
+        def step_fn(state, batch):
+            # the rules the attention reads (act_seq), on the bound mesh
+            with sharding.use_sharding(mesh, rules):
+                return mesh_step(state, batch)
     pipe_cfg = tokens_mod.TokenPipelineConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq_len,
         global_batch=args.global_batch)

@@ -10,10 +10,9 @@ every leaf by the same specs.  Here:
   archs at 8x8 and 2x2, in every cell the port runs, rank 0's params (and
   in the train cells its two moments) have the shapes JAX's spec gives,
   each dim divided by the extents of its mesh axes; the refused cells are
-  exactly those listed in ``REFUSED`` (context-parallel attention, the
-  sequence-sharded decode beside tensor-parallel heads, the KV heads a
-  model axis of 8 cannot split, the encoder-decoder's tensor-parallel
-  decode), beside JAX's own N/A;
+  exactly those listed in ``REFUSED`` (the KV heads a model axis of 8
+  cannot split, the encoder-decoder's tensor-parallel decode), beside
+  JAX's own N/A;
 - mesh steps (gloo ranks, ``tests/torch_mesh_cases.py``, no JAX) at 2x1,
   2x2 and 4x1 of the f32 smoke nemotron-4-15b (dense ZeRO-3), llama4 (its
   8 experts spread over the data ranks, ZeRO-3 elsewhere; ``dense`` and
@@ -82,10 +81,6 @@ _ENCDEC = "the decode cell: the encdec family"
 REFUSED = {
     ("whisper-medium", "2x2"): {"decode_32k": _ENCDEC},
     ("whisper-medium", "8x8"): {"decode_32k": _ENCDEC},
-    ("jamba-v0.1-52b", "2x2"): {"long_500k": "kv_seq over"},
-    ("jamba-v0.1-52b", "8x8"): {"long_500k": "kv_seq over"},
-    ("minicpm-2b", "8x8"): {s: "act_seq:" for s in
-                            ("train_4k", "prefill_32k", "decode_32k")},
     ("starcoder2-3b", "8x8"): {
         s: "the 8x8 mesh plan: model 'starcoder2-3b' cannot shard over "
            "tp=8: num_kv_heads=2"

@@ -1,6 +1,8 @@
 """The rank side of ``tests/test_torch_mesh_train.py``,
 ``tests/test_torch_seq_decode.py``, ``tests/test_torch_families_train.py``,
-``tests/test_torch_families_tp.py`` and ``tests/test_torch_fsdp.py``:
+``tests/test_torch_families_tp.py``, ``tests/test_torch_fsdp.py``,
+``tests/test_torch_context_parallel.py`` and
+``tests/test_torch_seq_decode_tp.py``:
 what each rank of a (data, model) mesh runs, in a module that imports
 neither JAX nor the JAX package (the ranks are spawned processes that
 import this module by name).
@@ -309,6 +311,135 @@ def mesh_checkpoint(rank: int, world: int, spec: dict) -> dict:
                                   mesh=mesh, plan=plan)
     return {"state": flat(state), "back": flat(back), "step": at,
             "grads": flat(grads)}
+
+
+def cp_config() -> ModelConfig:
+    """The context-parallel config: minicpm-2b's f32 smoke config with 3
+    heads and 3 KV heads (q_dim 48), which a model axis of 2 does not
+    divide (JAX's spec splits 1.5 heads a rank), d_ff 128."""
+    return dataclasses.replace(config("minicpm-2b"), num_heads=3,
+                               num_kv_heads=3)
+
+
+def mesh_rules(arch: str, cfg, mesh, kind: str, seq: int, batch: int, *,
+               opt: bool = False) -> dict:
+    """JAX's rules for a ``kind`` cell of ``batch`` x ``seq`` on ``mesh``
+    (``launch.steps.make_rules``: ``act_seq`` where the heads do not
+    divide the model axis; ``opt``: ``kv_seq`` over model for a
+    decode)."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch import steps
+    return steps.make_rules(ARCHS[arch], mesh, ShapeCell(kind, kind, seq,
+                                                         batch), cfg, opt=opt)
+
+
+def _rules_plan(arch, cfg, mesh, rules):
+    shapes, axes = get_model(cfg).abstract_params(cfg)
+    return sharding.mesh_plan(axes, shapes, cfg=cfg, mesh=mesh, rules=rules)
+
+
+def context_parallel(rank: int, world: int, spec: dict) -> dict:
+    """Context-parallel attention on each mesh of ``spec["meshes"]`` the
+    world fills, at each sequence length of ``spec["seqs"]``: this data
+    rank's rows of the first block's attention (causal and not, whole
+    weights), of the loss's gradients (this rank's blocks, by the mesh
+    plan under the ``act_seq`` rule) and of the prefill's last logits."""
+    from repro_torch.launch import steps
+    torch.set_num_threads(1)
+    cfg = cp_config()
+    model = get_model(cfg)
+    tree = spec["params"]
+    attn_p = {k: torch.from_numpy(v[0]) for k, v in
+              tree["blocks"]["l0"]["attn"].items()}
+    out = {}
+    for name, (d, m) in spec["meshes"].items():
+        if d * m != world:
+            continue
+        mesh = make_mesh((d, m), ("data", "model"))
+        di = mesh.index("data")
+        for seq in spec["seqs"]:
+            x = torch.from_numpy(spec["x"][seq])
+            batch = {k: torch.from_numpy(v)
+                     for k, v in spec["batch"][seq].items()}
+            rows = x.shape[0] // d
+            mine = slice(di * rows, (di + 1) * rows)
+            rules = mesh_rules("minicpm-2b", cfg, mesh, "train", seq,
+                               x.shape[0])
+            plan = _rules_plan("minicpm-2b", cfg, mesh, rules)
+            params = tp.partition_params(load_numpy_params(tree, "cpu"),
+                                         plan, rank=mesh.index(("data",
+                                                                "model")))
+            pos = torch.arange(seq).expand(rows, seq)
+            res = {"coords": list(mesh.coords), "rules": {
+                k: rules[k] for k in ("act_seq", "kv_seq", "act_heads_q")}}
+            with sharding.use_sharding(mesh, rules):
+                with torch.no_grad():
+                    for causal in (True, False):
+                        res[f"attn/causal={causal}"] = (
+                            attention.attention_block(
+                                attn_p, x[mine], cfg, pos,
+                                causal=causal).numpy())
+                    with tp.mesh_ctx(mesh, plan):
+                        res["logits"] = steps._prefill_body(
+                            params, batch["tokens"][mine], cfg).numpy()
+                loss, grads = trainer.mesh_loss_and_grads(
+                    model.loss, params, batch, cfg, mesh=mesh, plan=plan)
+            res.update(loss=float(loss), grads=flat(grads))
+            out[f"{name}/{seq}"] = res
+    return out
+
+
+def seq_decode_tp(rank: int, world: int, spec: dict) -> dict:
+    """The sequence-sharded decode beside tensor-parallel heads: jamba's
+    f32 smoke config on each ``spec["cases"]`` mesh the world fills,
+    ``kv_seq`` by ``launch.steps.make_rules(opt=True)`` (over ``model`` at
+    1x2; over ``(data, model)`` where the batch is smaller than the data
+    axis), this rank's blocks of the params (ZeRO-3 and experts over
+    data, heads over model), its cache built by ``init_cache`` inside the
+    rules (its S / n positions) and filled with its positions of
+    ``spec["cache"]``; ``spec["steps"]`` ``serve_step`` s from
+    ``spec["pos0"]``, each feeding back its argmax.  Returns the logits,
+    tokens, the cache's shape and the rank's index along the axes."""
+    torch.set_num_threads(1)
+    arch = "jamba-v0.1-52b"
+    cfg = config(arch)
+    model = get_model(cfg)
+    out = {}
+    for name, ((d, m), toks0) in spec["cases"].items():
+        if d * m != world:
+            continue
+        mesh = make_mesh((d, m), ("data", "model"))
+        b, s = len(toks0), spec["cache"]["k"].shape[3]
+        rules = mesh_rules(arch, cfg, mesh, "decode", s, b, opt=True)
+        plan = _rules_plan(arch, cfg, mesh, rules)
+        params = tp.partition_params(load_numpy_params(spec["params"], "cpu"),
+                                     plan, rank=mesh.index(("data", "model")))
+        local_batch = b % d == 0
+        rows = b // d if local_batch else b
+        r0 = mesh.index("data") * rows if local_batch else 0
+        with sharding.use_sharding(mesh, rules), \
+                tp.mesh_ctx(mesh, plan, batch=local_batch), torch.no_grad():
+            n = attention.decode_seq_extent()
+            seq_axes, _ = attention.decode_seq_axes()
+            i = mesh.index(seq_axes)
+            cache = model.init_cache(cfg, rows, s // n, device="cpu")
+            shapes = {k: list(v.shape) for k, v in cache.items()}
+            for k in ("k", "v"):
+                cache[k].copy_(torch.from_numpy(
+                    spec["cache"][k][:, :, r0:r0 + rows,
+                                     i * (s // n):(i + 1) * (s // n)]))
+            toks = torch.tensor(toks0[r0:r0 + rows],
+                                dtype=torch.int32)[:, None]
+            logits = []
+            for t in range(spec["steps"]):
+                pos = torch.full((rows,), spec["pos0"] + t, dtype=torch.long)
+                lg, cache = model.serve(params, cache, toks, pos, cfg)
+                logits.append(lg.numpy().copy())
+                toks = lg.argmax(-1).to(torch.int32)
+        out[name] = {"logits": logits, "cache_shapes": shapes, "index": i,
+                     "n": n, "seq_axes": list(seq_axes), "rows": [r0, rows],
+                     "rules": {k: rules[k] for k in ("kv_seq", "act_seq")}}
+    return out
 
 
 def run_jobs(rank: int, world: int, jobs: dict) -> dict:
